@@ -2,9 +2,11 @@
 
 The same user API as ``azplugins_tpu``, in PyTorch, for one NVIDIA H100;
 the JAX package beside it is the reference every module is tested against.
-This first slice runs the perturbed Lennard-Jones fluid under NVE or
-Langevin dynamics on the dense cell grid, with the pair force on CUDA
-devices in a hand-written kernel (``csrc/cell_pair_force.cu``).
+It runs isotropic pair potentials (the perturbed Lennard-Jones fluid,
+the ExpandedYukawa polymer melt and the rest of the plugin's set), bonds
+and the DPD thermostat under NVE or Langevin dynamics on the dense cell
+grid, with the pair and DPD forces on CUDA devices in hand-written kernels
+(``csrc/cell_pair_force.cu``, ``csrc/cell_dpd_force.cu``).
 
 Quick start::
 
@@ -31,7 +33,7 @@ Quick start::
 
 from . import compute, logging, md, ops
 from .core import Box, Snapshot, State, variant
-from .md import filter, pair  # noqa: A004 - mirrors hoomd.filter
+from .md import bond, filter, pair  # noqa: A004 - mirrors hoomd.filter
 from .simulation import Operations, Simulation
 
 __all__ = [
@@ -40,6 +42,7 @@ __all__ = [
     "Simulation",
     "Snapshot",
     "State",
+    "bond",
     "compute",
     "filter",
     "logging",

@@ -23,6 +23,7 @@ __all__ = [
     "grid_spec_from_reference",
     "grid_meta_from_reference",
     "pair_tables_from_reference",
+    "bond_tables_from_reference",
 ]
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(State) if f.name != "box")
@@ -77,10 +78,23 @@ def grid_meta_from_reference(ref_meta, device) -> GridMeta:
 
 def pair_tables_from_reference(ref_tbl: dict, device) -> dict:
     """A reference pair force's tables (``{"params", "r_cut", "r_on"}``) as
-    the port's device tables."""
+    the port's device tables; DPDGeneralWeight's tables take the same form
+    (its ``params`` are A, gamma and s)."""
     return {
         "params": {k: _tensor(np.asarray(v, np.float32), device)
                    for k, v in ref_tbl["params"].items()},
         "r_cut": _tensor(np.asarray(ref_tbl["r_cut"], np.float32), device),
         "r_on": _tensor(np.asarray(ref_tbl["r_on"], np.float32), device),
+    }
+
+
+def bond_tables_from_reference(ref_tbl: dict, ref_state, device) -> dict:
+    """A reference bond force's tables (``{"params"}``, one value per bond
+    type) as the port's device tables: each parameter gathered per bond by
+    the state's bond types, and the bond table itself."""
+    typeid = np.asarray(ref_state.bond_typeid)
+    return {
+        "params": {k: _tensor(np.asarray(v, np.float32)[typeid], device)
+                   for k, v in ref_tbl["params"].items()},
+        "group": _tensor(ref_state.bond_group, device),
     }

@@ -49,8 +49,9 @@ class Force:
         """(Re)build the host tables from the params; run at every run()."""
         raise NotImplementedError
 
-    def _compute_dense(self, dense, spec, timestep, ctx, tbl, want="all") -> ForceResult:
-        """Force in the dense (slot) layout."""
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl,
+                       want="all") -> ForceResult:
+        """Force in the dense (slot) layout; ``slot_of`` maps tag -> slot."""
         raise NotImplementedError  # pragma: no cover
 
     def _max_r_cut(self) -> float:

@@ -1,15 +1,16 @@
 """Pair potentials (user API).
 
-Port of ``azplugins_tpu/md/pair.py`` (the ``Pair`` base and
-PerturbedLennardJones; the other potentials follow with ROADMAP slice 3).
-Parameters are set per unordered type pair::
+Port of ``azplugins_tpu/md/pair.py``: the ``Pair`` base, every isotropic
+potential, and DPDGeneralWeight. Parameters are set per unordered type
+pair::
 
     lj = PerturbedLennardJones(nlist=Cell(buffer=0.4), default_r_cut=3.0)
     lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.5)
 
 Shift modes follow HOOMD semantics (``none``/``shift``/``xplor``). On a
-CUDA device the force runs through the hand-written kernel
-(ops/pair_kernel.py), which covers modes none and shift.
+CUDA device the isotropic potentials run through the hand-written kernel
+of ops/pair_kernel.py, and DPD through that of ops/dpd_kernel.py.
+TwoPatchMorse (anisotropic, with torques) is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,12 +19,26 @@ import numpy as np
 import torch
 
 from ..core.typeparam import TypeParameter
+from ..core.variant import as_variant
+from ..ops.dpd_kernel import dpd_force
 from ..ops.evaluators import PAIR_POTENTIALS
-from ..ops.pair_kernel import pair_force, plj_kernel_tables
+from ..ops.pair_kernel import kernel_tables, pair_force
 from .force import Force, build_pair_tables
 from .nlist import Cell
 
-__all__ = ["Pair", "PerturbedLennardJones"]
+__all__ = [
+    "Pair",
+    "Colloid",
+    "DPDGeneralWeight",
+    "ExpandedYukawa",
+    "Gaussian",
+    "Hertz",
+    "LJ",
+    "Morse",
+    "PerturbedLennardJones",
+    "TwoPatchMorse",
+    "Yukawa",
+]
 
 
 class Pair(Force):
@@ -65,8 +80,9 @@ class Pair(Force):
             "r_cut": dev(self._tbl["r_cut"]),
             "r_on": dev(self._tbl["r_on"]),
         }
-        if torch.device(device).type == "cuda" and self._evaluator_name == "PerturbedLennardJones":
-            tbl["kernel"] = plj_kernel_tables(tbl["params"], tbl["r_cut"])
+        if torch.device(device).type == "cuda":
+            tbl["kernel"] = kernel_tables(self._evaluator_name, tbl["params"], tbl["r_cut"],
+                                          tbl["r_on"], self.mode)
         return tbl
 
     def _max_r_cut(self) -> float:
@@ -74,8 +90,40 @@ class Pair(Force):
             raise RuntimeError("not attached")
         return float(self._tbl["r_cut"].max())
 
-    def _compute_dense(self, dense, spec, timestep, ctx, tbl, want="all"):
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all"):
         return pair_force(self._def.energy_force, dense, spec, tbl, self.mode, want)
+
+
+class Colloid(Pair):
+    """Integrated Lennard-Jones (Hamaker/Everaers-Ejtehadi) colloid potential.
+
+    Parity: reference plugin ``src/pair.py:14-118`` and
+    ``src/PairEvaluatorColloid.h:101-269``. Params per pair: ``A`` (Hamaker
+    energy), ``a_1``/``a_2`` (radii; 0 selects the solvent-solvent /
+    colloid-solvent branches), ``sigma``.
+    """
+
+    _evaluator_name = "Colloid"
+
+
+class ExpandedYukawa(Pair):
+    """U = eps exp(-kappa (r - delta)) / (r - delta).
+
+    Parity: reference plugin ``src/pair.py:242-298``,
+    ``src/PairEvaluatorExpandedYukawa.h:92-115``.
+    """
+
+    _evaluator_name = "ExpandedYukawa"
+
+
+class Hertz(Pair):
+    """U = eps (1 - r/r_cut)^{5/2}.
+
+    Parity: reference plugin ``src/pair.py:300-352``,
+    ``src/PairEvaluatorHertz.h:93-110``.
+    """
+
+    _evaluator_name = "Hertz"
 
 
 class PerturbedLennardJones(Pair):
@@ -86,3 +134,71 @@ class PerturbedLennardJones(Pair):
     """
 
     _evaluator_name = "PerturbedLennardJones"
+
+
+class LJ(Pair):
+    """Standard 12-6 Lennard-Jones, U = 4 eps ((sigma/r)^12 - (sigma/r)^6)
+    (HOOMD's md.pair.LJ, which azplugins scripts mix with the plugin's
+    potentials)."""
+
+    _evaluator_name = "LJ"
+
+
+class Morse(Pair):
+    """Isotropic Morse, U = D0 (exp(-2 alpha (r - r0)) - 2 exp(-alpha (r - r0)))."""
+
+    _evaluator_name = "Morse"
+
+
+class Gaussian(Pair):
+    """Gaussian core, U = eps exp(-r^2 / (2 sigma^2))."""
+
+    _evaluator_name = "Gaussian"
+
+
+class Yukawa(Pair):
+    """Screened Coulomb, U = eps exp(-kappa r) / r (HOOMD's md.pair.Yukawa)."""
+
+    _evaluator_name = "Yukawa"
+
+
+class DPDGeneralWeight(Pair):
+    """DPD with generalized weight function w_D = (1-r/rcut)^s.
+
+    Parity: reference plugin ``src/pair.py:121-240``,
+    ``src/DPDPairEvaluatorGeneralWeight.h:198-255``. The drag reads the
+    half-step velocities the step loop holds at force time; the random force
+    uses pair-symmetric counter RNG keyed on the step's timestep and the
+    simulation seed, so trajectories are bitwise independent of how runs are
+    chunked. ``kT`` is a variant, evaluated at each step's timestep.
+    """
+
+    _evaluator_name = "DPDGeneralWeight"
+    _accepted_modes = ("none",)
+
+    def __init__(self, nlist: Cell, kT, default_r_cut=None, mode="none"):
+        super().__init__(nlist, default_r_cut=default_r_cut, mode=mode)
+        self.kT = as_variant(kT)
+
+    def _device_tables(self, device) -> dict:
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+
+        return {"params": {k: dev(v) for k, v in self._tbl["params"].items()},
+                "r_cut": dev(self._tbl["r_cut"])}
+
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all"):
+        return dpd_force(dense, spec, tbl, self.kT(timestep), ctx.dt, ctx.seed, timestep, want)
+
+
+class TwoPatchMorse(Force):
+    """Anisotropic two-patch Morse potential: not ported yet.
+
+    It needs the rotational integration of ROADMAP slice 10 and the CUDA
+    kernel B4 (the reference's ``_pallas_half_aniso_force``).
+    """
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "TwoPatchMorse is not ported yet: ROADMAP slice 10 with kernel B4"
+        )

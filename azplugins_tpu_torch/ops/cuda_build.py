@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file is compiled on first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes``. Libraries go to ``azplugins_tpu_torch/_build/`` (ignored by
-git), named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as is.
+git), named by a hash of the source, every shared header beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as is. :func:`load_libraries` builds several
+sources at once, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "load_library", "build_info"]
+__all__ = ["CSRC", "BUILD_DIR", "load_library", "load_libraries", "source_digest", "build_info"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -47,14 +50,22 @@ def _nvcc() -> str:
     )
 
 
+def source_digest(source: str, csrc: Path = CSRC) -> str:
+    """Hash of ``csrc/<source>``, every ``csrc/*.cuh`` header and the flags."""
+    h = hashlib.sha256((csrc / source).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` if needed and return the loaded library."""
     lib = _libraries.get(source)
     if lib is not None:
         return lib
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    out = BUILD_DIR / f"{src.stem}-{source_digest(source)}.so"
     if out.exists():
         build_info[source] = {"seconds": 0.0, "log": ""}
     else:
@@ -76,3 +87,9 @@ def load_library(source: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _libraries[source] = lib
     return lib
+
+
+def load_libraries(*sources: str) -> list[ctypes.CDLL]:
+    """:func:`load_library` for several sources, their ``nvcc`` runs at once."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        return list(pool.map(load_library, sources))

@@ -7,11 +7,14 @@ Port of ``azplugins_tpu/ops/dense.py``.
   * Rebinning (the Verlet-buffer rebuild) is one fused-key sort plus row
     gathers of a packed int32 payload. The slot layout is bitwise the
     reference's: same keys, same stable order, same float32 cell ids.
-  * :func:`dense_pair_force` is the plain PyTorch pair force over the
-    stencil (half stencil with Newton's third law on grids with >= 3 cells
-    per axis, full stencil with minimum image otherwise). It serves CPU
-    tensors and is what the CUDA kernel (ops/pair_kernel.py) is held
-    against on the card.
+  * :func:`dense_pair_force` and :func:`dense_dpd_force` are the plain
+    PyTorch pair and DPD forces over the stencil (half stencil with
+    Newton's third law on grids with >= 3 cells per axis, full stencil with
+    minimum image otherwise), both through one driver, ``_stencil_sum``.
+    They serve CPU tensors and are what the CUDA kernels
+    (ops/pair_kernel.py, ops/dpd_kernel.py) are held against on the card.
+  * :func:`dense_bond_force` is the bond force (gather plus ``index_add_``
+    through the tag->slot map) on every device.
 
 TPU-only machinery of the reference (the cell-minor transposed stencil
 rows, subtile heights, lane blocks, the incremental rebin ablation) is not
@@ -26,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import rng as _rng
 from ..core.box import Box
 from ..core.state import State
 from ..utils import frozen_dataclass
@@ -41,6 +45,9 @@ __all__ = [
     "needs_rebin",
     "make_jblocks",
     "dense_pair_force",
+    "dpd_sigma_table",
+    "dense_dpd_force",
+    "dense_bond_force",
 ]
 
 
@@ -405,6 +412,8 @@ class JBlocks:
     With >= 3 cells per axis (``preshifted``) the coordinates carry the
     periodic lattice shift of each wrapped neighbour cell, so ``xi - jx``
     is the true separation; otherwise pairs need minimum-image math.
+    Velocities and tags ride along only for the forces that read them
+    (DPD), else they are None.
     """
 
     x: torch.Tensor
@@ -413,6 +422,10 @@ class JBlocks:
     typeid: torch.Tensor  # int32, -1 for empty slots
     half: bool
     preshifted: bool
+    tag: torch.Tensor | None = None  # int32, -1 for empty slots
+    vx: torch.Tensor | None = None
+    vy: torch.Tensor | None = None
+    vz: torch.Tensor | None = None
 
 
 def _halo_pad(g: torch.Tensor, axis: int, shift_hi) -> torch.Tensor:
@@ -459,22 +472,34 @@ def _roll_cells(a: torch.Tensor, shift) -> torch.Tensor:
     return torch.roll(a, shifts=tuple(int(s) for s in shift), dims=(0, 1, 2))
 
 
-def make_jblocks(dense: State, spec: GridSpec, half: bool = False) -> JBlocks:
+def make_jblocks(dense: State, spec: GridSpec, half: bool = False,
+                 need_velocity: bool = False, need_tag: bool = False) -> JBlocks:
     offsets = spec.half_stencil() if half else spec.stencil()
     preshifted = spec.newton_ok
     sx, sy, sz = _axis_shift_tables(dense.box) if preshifted else (None, None, None)
+
+    def roll(a, shifts=None):
+        return _roll_concat(a, spec, offsets, shifts)
+
+    kw = {}
+    if need_tag:
+        kw["tag"] = roll(dense.tag)
+    if need_velocity:
+        kw.update(vx=roll(dense.velocity[:, 0]), vy=roll(dense.velocity[:, 1]),
+                  vz=roll(dense.velocity[:, 2]))
     return JBlocks(
-        x=_roll_concat(dense.position[:, 0], spec, offsets, sx),
-        y=_roll_concat(dense.position[:, 1], spec, offsets, sy),
-        z=_roll_concat(dense.position[:, 2], spec, offsets, sz),
-        typeid=_roll_concat(dense.typeid, spec, offsets),
+        x=roll(dense.position[:, 0], sx),
+        y=roll(dense.position[:, 1], sy),
+        z=roll(dense.position[:, 2], sz),
+        typeid=roll(dense.typeid),
         half=half,
         preshifted=preshifted,
+        **kw,
     )
 
 
 # ---------------------------------------------------------------------------
-# Plain pair force
+# Plain stencil driver: one pair batch per stencil offset
 # ---------------------------------------------------------------------------
 def _pair_params(tables: dict, t_i, t_j, T: int) -> dict:
     """Per-pair parameter values: scalars for one type, else a table gather.
@@ -493,30 +518,119 @@ def _n_acc(want: str) -> int:
     return {"force": 3, "all": 10}[want]
 
 
-def _pair_accumulate(carry, dx, dy, dz, e, f_divr, mask, want="all"):
-    """Add one offset's masked contributions to (fx, fy, fz[, en, v0..v5])."""
-    f_divr = torch.where(mask, f_divr, 0.0)
-    out = [
-        carry[0] + torch.sum(f_divr * dx, dim=-1),
-        carry[1] + torch.sum(f_divr * dy, dim=-1),
-        carry[2] + torch.sum(f_divr * dz, dim=-1),
-    ]
-    if want == "all":
-        e = torch.where(mask, e, 0.0)
-        w = 0.5 * f_divr
-        out += [
-            carry[3] + 0.5 * torch.sum(e, dim=-1),
-            carry[4] + torch.sum(w * dx * dx, dim=-1),
-            carry[5] + torch.sum(w * dx * dy, dim=-1),
-            carry[6] + torch.sum(w * dx * dz, dim=-1),
-            carry[7] + torch.sum(w * dy * dy, dim=-1),
-            carry[8] + torch.sum(w * dy * dz, dim=-1),
-            carry[9] + torch.sum(w * dz * dz, dim=-1),
-        ]
-    return tuple(out)
+# j-side fields the stencil driver hands to a pair evaluation, by name:
+# the JBlocks attribute and the State field (with its component) it rolls
+_J_FIELDS = {
+    "typeid": ("typeid", None),
+    "tag": ("tag", None),
+    "vx": ("velocity", 0),
+    "vy": ("velocity", 1),
+    "vz": ("velocity", 2),
+}
 
 
-def _finish_pair(carry, S: int) -> ForceResult:
+def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair,
+                 j_fields=("typeid",)) -> ForceResult:
+    """Sum a pair evaluation over the dense stencil (plain PyTorch).
+
+    ``eval_pair(dx, dy, dz, rsq, mask, j)`` receives one batch of pairs
+    ([C, cap, cap] separations, i minus j, and the base mask of valid
+    slot pairs) and the j-side fields named in ``j_fields`` as
+    [C, 1, cap] tensors; it returns ``(f_divr, energy, f_virial_divr,
+    mask)``. Each slot gets the masked sums of ``f_divr * d`` (force),
+    ``energy / 2`` and ``f_virial_divr * d d / 2`` (virial, "all" only).
+
+    Every pair is masked by slot validity, so one path serves orthorhombic
+    and tilted boxes (the reference's maskless sentinel path gives the same
+    sums: sentinel pairs fall outside every cutoff). Work runs one stencil
+    offset at a time, so memory is bounded by one ``[C, cap, cap]`` batch.
+    With the Newton half stencil each unordered pair is evaluated once and
+    its terms go to both members (the j side in the neighbour-cell frame,
+    rolled back to its true cell afterwards); otherwise the full stencil
+    pairs every slot with every neighbour under minimum image.
+    """
+    C, cap = spec.n_cells, spec.cap
+    n_acc = _n_acc(want)
+
+    def i_view(a):
+        return a.reshape(C, cap, 1)
+
+    def self_view(a):
+        return a.reshape(C, 1, cap)
+
+    def dense_field(name):
+        field, comp = _J_FIELDS[name]
+        a = getattr(dense, field)
+        return a if comp is None else a[:, comp]
+
+    xi, yi, zi = (i_view(dense.position[:, k]) for k in range(3))
+    valid_i = i_view(dense.tag >= 0)
+
+    def terms(dx, dy, dz, rsq, mask, j):
+        """Masked per-pair terms as the i side sees them."""
+        f, e, fv, mask = eval_pair(dx, dy, dz, rsq, mask, j)
+        f = torch.where(mask, f, 0.0)
+        out = [f * dx, f * dy, f * dz]
+        if want == "all":
+            w = 0.5 * torch.where(mask, fv, 0.0)
+            out += [0.5 * torch.where(mask, e, 0.0), w * dx * dx, w * dx * dy, w * dx * dz,
+                    w * dy * dy, w * dy * dz, w * dz * dz]
+        return out
+
+    def isum(carry, t):
+        return tuple(c + torch.sum(a, dim=-1) for c, a in zip(carry, t))
+
+    def jsum(t):
+        """j side of the same terms: force negated, energy and virial equal."""
+        cols = [-torch.sum(a, dim=1) for a in t[:3]] + [torch.sum(a, dim=1) for a in t[3:]]
+        return torch.stack(cols, dim=-1)  # [C, cap, n_acc]
+
+    carry = tuple(
+        torch.zeros((C, cap), dtype=torch.float32, device=dense.device) for _ in range(n_acc)
+    )
+    if not jb.half:
+        for k in range(jb.x.shape[0]):
+            dx = xi - jb.x[k][:, None, :]
+            dy = yi - jb.y[k][:, None, :]
+            dz = zi - jb.z[k][:, None, :]
+            if not jb.preshifted:
+                dx, dy, dz = dense.box.min_image_components(dx, dy, dz)
+            rsq = dx * dx + dy * dy + dz * dz
+            j = {name: getattr(jb, name)[k][:, None, :] for name in j_fields}
+            mask = (rsq > 0) & valid_i & (j["typeid"] >= 0)
+            carry = isum(carry, terms(dx, dy, dz, rsq, mask, j))
+        return _finish(carry, spec.S)
+
+    Dx, Dy, Dz = spec.dims
+    rolled = []
+    for k, o in enumerate(spec.half_stencil()):
+        dx = xi - jb.x[k][:, None, :]
+        dy = yi - jb.y[k][:, None, :]
+        dz = zi - jb.z[k][:, None, :]
+        rsq = dx * dx + dy * dy + dz * dz
+        j = {name: getattr(jb, name)[k][:, None, :] for name in j_fields}
+        t = terms(dx, dy, dz, rsq, valid_i & (j["typeid"] >= 0), j)
+        carry = isum(carry, t)
+        g = jsum(t).reshape(Dx, Dy, Dz, cap, n_acc)
+        rolled.append(_roll_cells(g, o).reshape(C, cap, n_acc))
+
+    # self cell: strict upper triangle (i < j within the cell)
+    ar = torch.arange(cap, device=dense.device)
+    tri = ar[None, None, :] > ar[None, :, None]
+    dx = xi - self_view(dense.position[:, 0])
+    dy = yi - self_view(dense.position[:, 1])
+    dz = zi - self_view(dense.position[:, 2])
+    rsq = dx * dx + dy * dy + dz * dz
+    mask0 = valid_i & self_view(dense.tag >= 0) & tri
+    t = terms(dx, dy, dz, rsq, mask0, {name: self_view(dense_field(name)) for name in j_fields})
+    carry = isum(carry, t)
+    jacc = jsum(t)
+    for r in rolled:
+        jacc = jacc + r
+    return _finish(tuple(carry[i] + jacc[..., i] for i in range(n_acc)), spec.S)
+
+
+def _finish(carry, S: int) -> ForceResult:
     parts = tuple(a.reshape(S) for a in carry)
     force = torch.stack(parts[:3], dim=-1)
     if len(parts) == 3:
@@ -524,6 +638,9 @@ def _finish_pair(carry, S: int) -> ForceResult:
     return ForceResult(force=force, energy=parts[3], virial=torch.stack(parts[4:10], dim=-1))
 
 
+# ---------------------------------------------------------------------------
+# Plain pair force
+# ---------------------------------------------------------------------------
 def _eval_pair_mode(energy_force_fn, rsq, rcut, rcutsq, p, mode, r_on=None):
     """Evaluate one pair batch with HOOMD shift-mode semantics."""
     e, f = energy_force_fn(rsq, rcutsq, p)
@@ -552,24 +669,12 @@ def dense_pair_force(
     mode: str = "none",
     want: str = "all",
 ) -> ForceResult:
-    """Isotropic pair potential over the dense stencil (plain PyTorch).
-
-    Every pair is masked by slot validity, so one path serves orthorhombic
-    and tilted boxes (the reference's maskless sentinel path gives the same
-    sums: sentinel pairs fall outside every cutoff). Work runs one stencil
-    offset at a time, so memory is bounded by one ``[C, cap, cap]`` batch.
-    """
+    """Isotropic pair potential over the dense stencil (plain PyTorch)."""
     T = r_cut_table.shape[0]
-    C, cap = spec.n_cells, spec.cap
+    t_i = dense.typeid.reshape(spec.n_cells, spec.cap, 1)
 
-    def v(a):
-        return a.reshape(C, cap, 1)
-
-    xi, yi, zi = v(dense.position[:, 0]), v(dense.position[:, 1]), v(dense.position[:, 2])
-    t_i = v(dense.typeid)
-    valid_i = v(dense.tag >= 0)
-
-    def eval_batch(rsq, mask, t_j):
+    def eval_pair(dx, dy, dz, rsq, mask, j):
+        t_j = j["typeid"]
         p = _pair_params(tables, t_i, t_j, T)
         rcut = _pair_params({"r": r_cut_table}, t_i, t_j, T)["r"]
         rcutsq = rcut * rcut
@@ -578,76 +683,118 @@ def dense_pair_force(
             _pair_params({"r": r_on_table}, t_i, t_j, T)["r"] if mode == "xplor" else None
         )
         e, f = _eval_pair_mode(energy_force_fn, rsq, rcut, rcutsq, p, mode, r_on)
-        return e, f, mask
+        return f, e, f, mask
 
-    n_acc = _n_acc(want)
-    carry = tuple(
-        torch.zeros((C, cap), dtype=torch.float32, device=dense.device) for _ in range(n_acc)
-    )
-    if not jb.half:
-        for k in range(jb.x.shape[0]):
-            dx = xi - jb.x[k][:, None, :]
-            dy = yi - jb.y[k][:, None, :]
-            dz = zi - jb.z[k][:, None, :]
-            if not jb.preshifted:
-                dx, dy, dz = dense.box.min_image_components(dx, dy, dz)
-            rsq = dx * dx + dy * dy + dz * dz
-            t_j = jb.typeid[k][:, None, :]
-            mask = (rsq > 0) & valid_i & (t_j >= 0)
-            e, f, mask = eval_batch(rsq, mask, t_j)
-            carry = _pair_accumulate(carry, dx, dy, dz, e, f, mask, want)
-        return _finish_pair(carry, spec.S)
+    return _stencil_sum(dense, jb, spec, want, eval_pair)
 
-    # Newton half stencil: each unordered pair is evaluated once and its
-    # terms go to both members (the j side in the neighbour-cell frame,
-    # rolled back to its true cell afterwards).
-    def jside(e, f, mask, dx, dy, dz):
-        fm = torch.where(mask, f, 0.0)
-        cols = [
-            -torch.sum(fm * dx, dim=1),
-            -torch.sum(fm * dy, dim=1),
-            -torch.sum(fm * dz, dim=1),
-        ]
-        if want == "all":
-            em = torch.where(mask, e, 0.0)
-            w = 0.5 * fm
-            cols += [
-                0.5 * torch.sum(em, dim=1),
-                torch.sum(w * dx * dx, dim=1),
-                torch.sum(w * dx * dy, dim=1),
-                torch.sum(w * dx * dz, dim=1),
-                torch.sum(w * dy * dy, dim=1),
-                torch.sum(w * dy * dz, dim=1),
-                torch.sum(w * dz * dz, dim=1),
-            ]
-        return torch.stack(cols, dim=-1)  # [C, cap, n_acc]
 
-    Dx, Dy, Dz = spec.dims
-    rolled = []
-    for k, o in enumerate(spec.half_stencil()):
-        dx = xi - jb.x[k][:, None, :]
-        dy = yi - jb.y[k][:, None, :]
-        dz = zi - jb.z[k][:, None, :]
-        rsq = dx * dx + dy * dy + dz * dz
-        t_j = jb.typeid[k][:, None, :]
-        e, f, mask = eval_batch(rsq, valid_i & (t_j >= 0), t_j)
-        carry = _pair_accumulate(carry, dx, dy, dz, e, f, mask, want)
-        g = jside(e, f, mask, dx, dy, dz).reshape(Dx, Dy, Dz, cap, n_acc)
-        rolled.append(_roll_cells(g, o).reshape(C, cap, n_acc))
+# ---------------------------------------------------------------------------
+# Plain DPD force
+# ---------------------------------------------------------------------------
+def dpd_sigma_table(gamma: torch.Tensor, kT: float, dt: float) -> torch.Tensor:
+    """The random-force coefficient ``sqrt(6 gamma kT / dt)`` per type pair
+    (0 when dt <= 0), in float32 as the reference forms it per pair."""
+    kT = float(np.float32(kT))
+    dt = float(np.float32(dt))
+    if dt <= 0:
+        return torch.zeros_like(gamma)
+    return torch.sqrt(6.0 * gamma * kT / max(dt, 1e-20))
 
-    # self cell: strict upper triangle (i < j within the cell)
-    ar = torch.arange(cap, device=dense.device)
-    tri = ar[None, None, :] > ar[None, :, None]
-    dx = xi - dense.position[:, 0].reshape(C, 1, cap)
-    dy = yi - dense.position[:, 1].reshape(C, 1, cap)
-    dz = zi - dense.position[:, 2].reshape(C, 1, cap)
-    rsq = dx * dx + dy * dy + dz * dz
-    mask0 = valid_i & (dense.tag >= 0).reshape(C, 1, cap) & tri
-    e, f, mask0 = eval_batch(rsq, mask0, dense.typeid.reshape(C, 1, cap))
-    carry = _pair_accumulate(carry, dx, dy, dz, e, f, mask0, want)
-    jacc = jside(e, f, mask0, dx, dy, dz)
-    for r in rolled:
-        jacc = jacc + r
 
-    total = tuple(carry[i] + jacc[..., i] for i in range(n_acc))
-    return _finish_pair(total, spec.S)
+def dense_dpd_force(
+    dense: State,
+    jb: JBlocks,
+    spec: GridSpec,
+    tables: dict,
+    r_cut_table: torch.Tensor,
+    kT: float,
+    dt: float,
+    seed: int,
+    timestep: int,
+    want: str = "all",
+) -> ForceResult:
+    """DPD general-weight thermostat over the dense stencil (plain PyTorch).
+
+    Port of the reference ``dense_dpd_force`` (reference plugin
+    DPDPairEvaluatorGeneralWeight.h:198-255): conservative ``A (1/r -
+    1/rc)``, drag ``-gamma w_R^2 (r . v_ij)`` and random ``sigma w_R
+    alpha`` per pair, with ``w_R = (1 - r/rc)^(s/2) / r`` and alpha the
+    pair-symmetric Threefry-13 uniform keyed on the sorted true tags, so
+    the noise is bitwise the reference's and independent of the stencil.
+    ``jb`` must carry velocities and tags. The virial is conservative-only
+    (reference :239); the energy goes e/2 to each side.
+    """
+    T = r_cut_table.shape[0]
+    C, cap = spec.n_cells, spec.cap
+
+    def i_view(a):
+        return a.reshape(C, cap, 1)
+
+    t_i, tag_i = i_view(dense.typeid), i_view(dense.tag)
+    vxi, vyi, vzi = (i_view(dense.velocity[:, k]) for k in range(3))
+    sigma_t = dpd_sigma_table(tables["gamma"], kT, dt)
+
+    def eval_dpd(dx, dy, dz, rsq, mask, j):
+        t_j = j["typeid"]
+        p = _pair_params(
+            {"A": tables["A"], "gamma": tables["gamma"], "s": tables["s"], "r": r_cut_table,
+             "sigma": sigma_t}, t_i, t_j, T,
+        )
+        rcut = p["r"]
+        rcutsq = rcut * rcut
+        mask = mask & (rsq > 0) & (rsq < rcutsq)
+        rsq_safe = torch.where(mask, rsq, 1.0)
+        rcut_safe = torch.where(rcut > 0, rcut, 2.0)
+
+        rinv = 1.0 / torch.sqrt(rsq_safe)
+        r = rsq_safe * rinv
+        rcutinv = 1.0 / rcut_safe
+        f_cons = p["A"] * (rinv - rcutinv)
+        e = p["A"] * (rcut_safe - r) - 0.5 * p["A"] * rcutinv * (rcutsq - rsq_safe)
+
+        rdotv = dx * (vxi - j["vx"]) + dy * (vyi - j["vy"]) + dz * (vzi - j["vz"])
+        w_R = torch.clamp_min(1.0 - r * rcutinv, 0.0) ** (0.5 * p["s"]) * rinv
+        f_drag = -p["gamma"] * w_R * w_R * rdotv
+        alpha = _rng.pair_uniform(_rng.Stream.DPD_GENERAL_WEIGHT, seed, timestep, tag_i,
+                                  j["tag"], rounds=_rng.FAST_ROUNDS)
+        f_rand = p["sigma"] * w_R * alpha
+        return f_cons + f_drag + f_rand, e, f_cons, mask
+
+    return _stencil_sum(dense, jb, spec, want, eval_dpd,
+                        j_fields=("typeid", "tag", "vx", "vy", "vz"))
+
+
+# ---------------------------------------------------------------------------
+# Bond force (PyTorch on every device, as the reference's is XLA)
+# ---------------------------------------------------------------------------
+def dense_bond_force(energy_force_fn, dense: State, slot_of: torch.Tensor,
+                     bond_group: torch.Tensor, params: dict,
+                     want: str = "all") -> ForceResult:
+    """Bond force in slot space: endpoints resolved through the tag->slot map.
+
+    Port of the reference ``dense_bond_force``. ``params`` holds one value
+    per bond (each ``[NB]``, gathered by bond type once per run). Each bond
+    adds ``+f dr`` to its first member and ``-f dr`` to its second with
+    ``index_add_``; with ``want="force"`` (the step loop) the energy and
+    virial scatters are skipped.
+    """
+    S = dense.N
+    a = slot_of[bond_group[:, 0]].to(torch.int64)
+    b = slot_of[bond_group[:, 1]].to(torch.int64)
+    d = dense.position[a] - dense.position[b]
+    ddx, ddy, ddz = dense.box.min_image_components(d[:, 0], d[:, 1], d[:, 2])
+    rsq = ddx * ddx + ddy * ddy + ddz * ddz
+    e, f_divr = energy_force_fn(torch.where(rsq > 0, rsq, 1.0), params)
+
+    fvec = torch.stack([f_divr * ddx, f_divr * ddy, f_divr * ddz], dim=-1)
+    zeros = functools.partial(torch.zeros, dtype=torch.float32, device=dense.device)
+    force = zeros((S, 3)).index_add_(0, a, fvec).index_add_(0, b, -fvec)
+    if want == "force":
+        return ForceResult(force=force, energy=None, virial=None)
+    he = 0.5 * e
+    energy = zeros((S,)).index_add_(0, a, he).index_add_(0, b, he)
+    w = 0.5 * f_divr
+    vir = torch.stack([w * ddx * ddx, w * ddx * ddy, w * ddx * ddz,
+                       w * ddy * ddy, w * ddy * ddz, w * ddz * ddz], dim=-1)
+    virial = zeros((S, 6)).index_add_(0, a, vir).index_add_(0, b, vir)
+    return ForceResult(force=force, energy=energy, virial=virial)

@@ -2,32 +2,36 @@
 
 The kernel, ``csrc/cell_pair_force.cu``, replaces the TPU kernel
 ``azplugins_tpu/ops/pallas_pair.py::stencil_pair_force_kernel`` as reached
-through ``azplugins_tpu/ops/dense.py::_pallas_half_pair_force`` for the
-perturbed Lennard-Jones potential: force only on the step path, and force
-with per-slot energy and virial (modes none and shift) for observables.
-Its plain PyTorch version is :func:`azplugins_tpu_torch.ops.dense.dense_pair_force`.
+through ``azplugins_tpu/ops/dense.py::_pallas_half_pair_force``: the
+PLJ/LJ force-only fast path on the step path, and the general evaluator for
+every isotropic potential of ops/evaluators/pair.py (:data:`KERNEL_POTENTIALS`)
+in modes none/shift/xplor, with per-slot energy and virial for observables
+(``want="all"``). Its plain PyTorch version is
+:func:`azplugins_tpu_torch.ops.dense.dense_pair_force`.
 
 What bounds it on an H100. At the 64k headline (cap 48, ~37 particles per
 cell, r_cut 3.0 in cells 3.5 wide) each slot tests ~1,000 occupied
 candidates in its 27 neighbour cells, of which ~100 fall inside the cutoff.
 The cutoff test costs ~10 float32 operations and four shared-memory reads
 per candidate, the full evaluation ~30 float32 operations per pair inside
-the cutoff, and every pair is evaluated from both of its sides (twice the
+the cutoff (an exp or a sqrt more for the Yukawa, Morse, Gaussian and
+Hertz forms), and every pair is evaluated from both of its sides (twice the
 half stencil's work). That is ~1 GFLOP per call, ~15 us at the card's
 67 TFLOP/s float32 peak; the instruction stream of the candidate loop
 (instruction slots and shared-memory reads, not FLOPs) is what binds, estimated
 at ~0.1 ms. Occupancy: one 64-thread block per cell, so a quarter of the
 lanes idle at cap 48, and the 1,728 cells give ~26 resident warps per SM.
-Measured on an H100 80GB HBM3 at 700 W: 0.39-0.40 ms per call at the
-headline with the untuned cap 72, where each thread also walks ~35 empty
-slots per neighbour cell (PERF.md).
+Measured times are in PERF.md.
 
 What the design does about it: positions and typeids of each neighbour cell
 are staged once in shared memory and read as broadcasts; empty slots and
 pairs beyond the cutoff leave the loop before any evaluator work; the
-accumulation stays in registers with no atomics. Work skipping by cell
-occupancy, Newton halving with a j-side scatter and a faster reciprocal are
-later measurements.
+accumulation stays in registers with no atomics; the potential is a
+compile-time choice, so the step path carries no branch on it. The shift
+mode is folded into the tables (:func:`kernel_tables`), so modes cost one
+compare per pair inside the cutoff. Work skipping by cell occupancy, Newton
+halving with a j-side scatter and a faster reciprocal are later
+measurements.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel or raises. Nothing falls back.
@@ -36,40 +40,81 @@ kernel or raises. Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ..core.state import State
 from .cuda_build import load_library
 from .dense import GridSpec, dense_pair_force, make_jblocks
-from .evaluators.pair import perturbed_lennard_jones
+from .evaluators.pair import PAIR_POTENTIALS
 from .pair_force import ForceResult
 
-__all__ = ["launches", "plj_kernel_tables", "cell_pair_force", "pair_force"]
+__all__ = [
+    "launches", "launches_by_potential", "KERNEL_POTENTIALS", "kernel_tables",
+    "cell_pair_force", "pair_force",
+]
 
-# kernel launches since import (or since a caller last reset it to 0)
+# kernel launches since import (or since a caller last reset them to 0):
+# in all, and per potential (each potential is its own kernel instantiation)
 launches = 0
+launches_by_potential: dict[str, int] = {}
 
 _SOURCE = "cell_pair_force.cu"
-# order of the stacked [T, T] tables the kernel reads (csrc enum Tab)
-_PARAM_KEYS = ("lj1", "lj2", "lam", "rwcasq", "wca_shift")
-_N_TABLES = len(_PARAM_KEYS) + 2  # + rcutsq, ecut
-_MODES = {"none": 0, "shift": 1}
-_ROADMAP_B2 = (
-    "the CUDA pair kernel covers PerturbedLennardJones in modes none and shift; "
-    "other potentials and xplor on the GPU are ROADMAP queue B item B2"
+# potential name -> its parameter tables in the order the kernel reads them;
+# the position of the name is the kernel's potential id (csrc enum Pot)
+KERNEL_POTENTIALS = {
+    "PerturbedLennardJones": ("lj1", "lj2", "lam", "rwcasq", "wca_shift"),
+    "LJ": ("lj1", "lj2"),
+    "Colloid": ("A", "a_1", "a_2", "sigma_3"),
+    "ExpandedYukawa": ("epsilon", "kappa", "delta"),
+    "Hertz": ("epsilon",),
+    "Morse": ("D0", "alpha", "r0"),
+    "Gaussian": ("epsilon", "sig2inv"),
+    "Yukawa": ("epsilon", "kappa"),
+}
+_POTENTIAL_ID = {name: i for i, name in enumerate(KERNEL_POTENTIALS)}
+_NAME_OF_EVALUATOR = {PAIR_POTENTIALS[n].energy_force: n for n in KERNEL_POTENTIALS}
+_N_LEAD = 3  # rcutsq, ecut, ronsq precede the parameters (csrc enum Tab)
+_ROADMAP_B4 = (
+    "no CUDA pair kernel for this potential: every isotropic potential runs in "
+    "csrc/cell_pair_force.cu; the anisotropic TwoPatchMorse is ROADMAP queue B item B4 "
+    "(slice 10)"
 )
 
 
-def plj_kernel_tables(params: dict, r_cut: torch.Tensor) -> torch.Tensor:
-    """Stack the PLJ tables for the kernel: ``[7, T, T]`` float32.
+def kernel_tables(potential: str, params: dict, r_cut: torch.Tensor,
+                  r_on: torch.Tensor | None = None, mode: str = "none") -> torch.Tensor:
+    """Stack one potential's tables for the kernel: ``[3 + n, T, T]`` float32.
 
-    ``ecut`` is the pair energy at the cutoff (the shift-mode offset),
-    evaluated by the plain evaluator, as the reference's kernel path does.
+    Rows: ``rcutsq``, the energy offset ``ecut``, the squared xplor
+    switch-on radius ``ronsq``, then the potential's parameters in
+    :data:`KERNEL_POTENTIALS` order. The mode lives in the first three:
+    "none" has ecut 0 and ronsq +inf; "shift" has ecut = the pair energy
+    at the cutoff (evaluated by the plain evaluator, as the plain version
+    does) and ronsq +inf; "xplor" smooths above r_on where r_on < r_cut
+    (ecut 0, ronsq r_on^2) and shifts plainly elsewhere, HOOMD's rule.
     """
+    if potential not in KERNEL_POTENTIALS:
+        raise NotImplementedError(_ROADMAP_B4)
     rcutsq = r_cut * r_cut
-    ecut, _ = perturbed_lennard_jones(torch.where(rcutsq > 0, rcutsq, 4.0), rcutsq, params)
-    return torch.stack([params[k] for k in _PARAM_KEYS] + [rcutsq, ecut]).contiguous()
+    ecut, _ = PAIR_POTENTIALS[potential].energy_force(
+        torch.where(rcutsq > 0, rcutsq, 4.0), rcutsq, params
+    )
+    zero = torch.zeros_like(rcutsq)
+    inf = torch.full_like(rcutsq, math.inf)
+    if mode == "none":
+        ecut, ronsq = zero, inf
+    elif mode == "shift":
+        ronsq = inf
+    elif mode == "xplor":
+        smooth = r_on < r_cut
+        ecut = torch.where(smooth, zero, ecut)
+        ronsq = torch.where(smooth, r_on * r_on, inf)
+    else:
+        raise ValueError(f"unknown shift mode {mode!r}")
+    rows = [rcutsq, ecut, ronsq] + [params[k] for k in KERNEL_POTENTIALS[potential]]
+    return torch.stack(rows).to(torch.float32).contiguous()
 
 
 def _library() -> ctypes.CDLL:
@@ -77,14 +122,15 @@ def _library() -> ctypes.CDLL:
     fn = lib.az_cell_pair_force
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, i] + [f] * 9 + [i, i, i, p, p, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i] + [f] * 9 + [i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` has the device, dtype, shape and layout a kernel takes."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -95,50 +141,69 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor,
-                    mode: str = "none", want: str = "force") -> ForceResult:
-    """Launch the CUDA kernel on the current stream (no synchronisation).
-
-    ``tables`` comes from :func:`plj_kernel_tables`. Returns per-slot force
-    ``[S, 3]``, plus energy ``[S]`` and virial ``[S, 6]`` when ``want="all"``.
-    """
-    global launches
+def check_cell_args(fn: str, dense: State, spec: GridSpec, want: str) -> torch.device:
+    """The checks both cell kernels share; returns the CUDA device."""
     dev = dense.position.device
     if dev.type != "cuda":
-        raise ValueError(f"cell_pair_force needs CUDA tensors, got {dev}")
-    if mode not in _MODES:
-        raise NotImplementedError(_ROADMAP_B2)
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
     if want not in ("force", "all"):
         raise ValueError(f"want must be 'force' or 'all', got {want!r}")
-    S, T = spec.S, tables.shape[-1]
     if spec.cap > 1024:
         raise ValueError(f"cell capacity {spec.cap} exceeds the kernel's 1024 threads per cell")
-    _check(dense.position, "position", torch.float32, (S, 3), dev)
-    _check(dense.typeid, "typeid", torch.int32, (S,), dev)
-    _check(dense.tag, "tag", torch.int32, (S,), dev)
-    _check(tables, "tables", torch.float32, (_N_TABLES, T, T), dev)
+    check_tensor(dense.position, "position", torch.float32, (spec.S, 3), dev)
+    check_tensor(dense.typeid, "typeid", torch.int32, (spec.S,), dev)
+    check_tensor(dense.tag, "tag", torch.int32, (spec.S,), dev)
+    return dev
+
+
+def box_args(dense: State) -> tuple:
+    """The nine box floats both cell kernels take (csrc BoxArgs order)."""
+    box = dense.box
+    return (box.Lx, box.Ly, box.Lz, box.xy, box.xz, box.yz, *box.lattice_products())
+
+
+def launch_error(lib: ctypes.CDLL, fn: str, err: int) -> RuntimeError:
+    msg = lib.az_cuda_error_string(err).decode()
+    return RuntimeError(f"{fn} launch failed: CUDA error {err} ({msg})")
+
+
+def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor, potential: str,
+                    mode: str, want: str = "force") -> ForceResult:
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+
+    ``tables`` comes from :func:`kernel_tables` for ``potential`` and
+    ``mode`` (the tables carry the mode; ``mode`` selects the instantiation
+    that reads the xplor row). Returns per-slot force ``[S, 3]``, plus
+    energy ``[S]`` and virial ``[S, 6]`` when ``want="all"``.
+    """
+    global launches
+    dev = check_cell_args("cell_pair_force", dense, spec, want)
+    if potential not in _POTENTIAL_ID:
+        raise NotImplementedError(_ROADMAP_B4)
+    if mode not in ("none", "shift", "xplor"):
+        raise ValueError(f"unknown shift mode {mode!r}")
+    S, T = spec.S, tables.shape[-1]
+    check_tensor(tables, "tables", torch.float32,
+                 (_N_LEAD + len(KERNEL_POTENTIALS[potential]), T, T), dev)
 
     lib = _library()
     force = torch.empty((S, 3), dtype=torch.float32, device=dev)
     want_all = want == "all"
     energy = torch.empty((S,), dtype=torch.float32, device=dev) if want_all else None
     virial = torch.empty((S, 6), dtype=torch.float32, device=dev) if want_all else None
-    box = dense.box
-    xyLy, xzLz, yzLz = box.lattice_products()
     err = lib.az_cell_pair_force(
         dense.position.data_ptr(), dense.typeid.data_ptr(), dense.tag.data_ptr(),
-        tables.data_ptr(), T, *spec.dims, spec.cap,
-        box.Lx, box.Ly, box.Lz, box.xy, box.xz, box.yz, xyLy, xzLz, yzLz,
-        int(not spec.newton_ok), _MODES[mode], int(want_all),
+        tables.data_ptr(), T, *spec.dims, spec.cap, *box_args(dense),
+        int(not spec.newton_ok), _POTENTIAL_ID[potential], int(mode == "xplor"), int(want_all),
         force.data_ptr(),
         energy.data_ptr() if want_all else None,
         virial.data_ptr() if want_all else None,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
-        msg = lib.az_cuda_error_string(err).decode()
-        raise RuntimeError(f"cell_pair_force launch failed: CUDA error {err} ({msg})")
+        raise launch_error(lib, "cell_pair_force", err)
     launches += 1
+    launches_by_potential[potential] = launches_by_potential.get(potential, 0) + 1
     return ForceResult(force=force, energy=energy, virial=virial)
 
 
@@ -149,7 +214,7 @@ def pair_force(energy_force_fn, dense: State, spec: GridSpec, tbl: dict,
     ``tbl`` holds the device tables of :class:`azplugins_tpu_torch.md.pair.Pair`:
     ``params``, ``r_cut``, ``r_on`` and, on CUDA, the stacked ``kernel``
     tables. CPU tensors take the plain version; CUDA tensors take the
-    kernel, and a potential or mode the kernel does not cover raises.
+    kernel, and a potential the kernel does not cover raises.
     """
     dev = dense.position.device
     if dev.type == "cpu":
@@ -160,6 +225,9 @@ def pair_force(energy_force_fn, dense: State, spec: GridSpec, tbl: dict,
         )
     if dev.type != "cuda":
         raise ValueError(f"no pair force for device {dev}")
-    if energy_force_fn is not perturbed_lennard_jones or "kernel" not in tbl:
-        raise NotImplementedError(_ROADMAP_B2)
-    return cell_pair_force(dense, spec, tbl["kernel"], mode, want)
+    name = _NAME_OF_EVALUATOR.get(energy_force_fn)
+    if name is None:
+        raise NotImplementedError(_ROADMAP_B4)
+    if "kernel" not in tbl:
+        raise ValueError("CUDA pair force needs tbl['kernel'] from kernel_tables()")
+    return cell_pair_force(dense, spec, tbl["kernel"], name, mode, want)

@@ -3,7 +3,9 @@
 Port of ``azplugins_tpu/simulation.py`` (state management, attach, the
 dense layout, the step loop with its rebuild schedule and transactional
 replays, and the force observables; writers, updaters, MPCD, spatial
-decomposition and the capacity auto-tune are later slices).
+decomposition and the capacity auto-tune are later slices). Pair, DPD and
+bond forces all take the dense state and the tag->slot map; a run without
+pair forces keeps tag order, with the identity map.
 
 Each step runs, as the reference's: methods.step1 -> Verlet drift check ->
 forces -> methods.step2, in the dense cell-slot layout of ops/dense.py. The
@@ -355,18 +357,19 @@ class Simulation:
             f._build_tables(self)
         return tuple(f._device_tables(self.device) for f in self._forces())
 
-    def _compute_net(self, dense: State, t: int, tbls) -> torch.Tensor:
+    def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls) -> torch.Tensor:
         net = torch.zeros((dense.N, 3), dtype=torch.float32, device=dense.device)
         ctx = self._ctx()
         for f, tbl in zip(self._forces(), tbls):
-            net = net + f._compute_dense(dense, self._grid_spec, t, ctx, tbl, want="force").force
+            r = f._compute_dense(dense, self._grid_spec, meta.slot_of, t, ctx, tbl, want="force")
+            net = net + r.force
             self.force_evaluations += 1
         return net
 
     def _prepare(self):
         """Compute initial forces and accelerations (HOOMD's pre-run prep)."""
         self._ensure_dense()
-        net = self._compute_net(self._dense, self._timestep, self._force_tables())
+        net = self._compute_net(self._dense, self._meta, self._timestep, self._force_tables())
         accel = net / self._dense.mass[:, None]
         self._dense = self._dense.replace(net_force=net, acceleration=accel)
         self._state_stale = True
@@ -398,7 +401,7 @@ class Simulation:
                 dense = m.step1(dense, dt, t, seed)
             if spec is not None:
                 viol = viol | D.needs_rebin(dense, meta, spec)
-            dense = dense.replace(net_force=self._compute_net(dense, t, tbls))
+            dense = dense.replace(net_force=self._compute_net(dense, meta, t, tbls))
             for m in methods:
                 dense = m.step2(dense, dt, t, seed)
         return dense, meta, viol
@@ -510,8 +513,8 @@ class Simulation:
         i = self._forces().index(force)
         tbl = self._force_tables()[i]
         dense = self._dense
-        r = force._compute_dense(dense, self._grid_spec, self._timestep, self._ctx(), tbl,
-                                 want="all")
+        r = force._compute_dense(dense, self._grid_spec, self._meta.slot_of, self._timestep,
+                                 self._ctx(), tbl, want="all")
         N = self._state.N
         dest = torch.where(dense.tag >= 0, dense.tag, N).to(torch.int64)
 

@@ -4,14 +4,26 @@
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
 1. checks for a CUDA device and prints its name and power limit;
-2. builds the CUDA kernels from azplugins_tpu_torch/csrc/;
-3. holds the pair-force kernel against its plain PyTorch version on the
-   card, at small, tilted, uneven, two-type, small-grid and 64k shapes;
+2. builds the CUDA kernels from azplugins_tpu_torch/csrc/, one nvcc per
+   source, all at once, and prints each build's time and ptxas registers
+   and spills;
+3. holds the pair kernel, for every isotropic potential in modes
+   none/shift/xplor, and the DPD kernel against their plain PyTorch
+   versions on the card: small orthorhombic, tilted, axis-under-3-cells and
+   two-type shapes, the polymer melt (32,000) and DPD fluid (21,952) at full
+   size, and the 64k headline; times each kernel against its plain version;
 4. checks that Threefry and the Langevin noise are bitwise the same on the
    GPU and the CPU;
-5. runs the 64k perturbed-LJ Langevin main path (the JAX package's bench
-   headline) through the public API, times it, and checks that every force
-   evaluation went through the kernel and that the result is physical;
+5. runs, through the public API, each with the launch counts set to 0 just
+   before it and read just after:
+   - the 64k perturbed-LJ Langevin headline (the JAX package's bench
+     headline, BASELINE config 1);
+   - the DPD fluid (BASELINE config 3, 21,952 particles, ConstantVolume);
+   - the polymer melt (BASELINE config 2, 1,280 chains of 25, Quartic
+     bonds + ExpandedYukawa, Langevin);
+   - a short run of every other isotropic potential;
+   and checks that every force evaluation went through a kernel and that
+   the result is physical;
 6. prints the kernel summary and, last, the contract line
    {"ok": true, "device": {...}}.
 
@@ -22,6 +34,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -35,6 +48,9 @@ HERE = Path(__file__).resolve().parent
 # kernel bar: per-slot values within atol = BAR * max|ref| and rtol = BAR
 BAR = 2e-5
 HEADLINE = dict(N_side=40, rho=0.85, seed=12345)
+MODES = ("none", "shift", "xplor")
+PAIR_REPLACES = "azplugins_tpu/ops/dense.py:1384"  # _pallas_half_pair_force
+DPD_REPLACES = "azplugins_tpu/ops/dense.py:1552"  # _pallas_half_dpd_force
 
 
 def _card() -> str:
@@ -71,7 +87,8 @@ def _lattice_snapshot(az, counts, rho, jitter, seed, tilt=(0.0, 0.0, 0.0), n_typ
                       clustered=False):
     """A jittered simple-cubic lattice of counts[0] x counts[1] x counts[2]
     sites at number density rho, in a box of that shape (optionally tilted,
-    optionally squeezed along x into uneven cell occupancies)."""
+    optionally squeezed along x into uneven cell occupancies), with
+    normal(0, 1) velocities."""
     rng = np.random.default_rng(seed)
     N = int(np.prod(counts))
     a = (1.0 / rho) ** (1.0 / 3.0)
@@ -88,6 +105,7 @@ def _lattice_snapshot(az, counts, rho, jitter, seed, tilt=(0.0, 0.0, 0.0), n_typ
                   [0.0, Ls[1], tilt[2] * Ls[2]],
                   [0.0, 0.0, Ls[2]]])
     snap.particles.position[:] = (f - 0.5) @ h.T + rng.normal(0.0, jitter, (N, 3))
+    snap.particles.velocity[:] = rng.normal(0.0, 1.0, (N, 3))
     snap.particles.typeid[:] = rng.integers(0, n_types, N)
     return snap
 
@@ -106,22 +124,54 @@ def _dense_case(az, D, snap, r_cut, buffer, device, cap=None):
     return dense, spec, len(types)
 
 
-def _plj_tables(az, T, seed, r_cut, device):
-    rng = np.random.default_rng(seed)
+def potential_params(name: str, T: int, rng) -> dict:
+    """User parameters per type pair at which lattice pairs (r ~ 0.7-3)
+    give finite, non-trivial forces (the same ranges as
+    tests/test_torch_kernels.py). Colloid radii are 0 under three types."""
 
     def sym(lo, hi):
-        a = rng.uniform(lo, hi, (T, T))
-        return (a + a.T) / 2
+        m = rng.uniform(lo, hi, (T, T))
+        return (m + m.T) / 2
 
-    host = {"epsilon": sym(0.5, 1.5), "sigma": sym(0.9, 1.1),
-            "attraction_scale_factor": sym(0.0, 1.0)}
-    if T == 1:
+    if name == "Colloid":
+        rad = np.zeros(T) if T < 3 else np.array([0.0, 0.15, 0.25] + [0.0] * (T - 3))
+        ii, jj = np.meshgrid(np.arange(T), np.arange(T), indexing="ij")
+        return {"A": sym(1.0, 3.0), "a_1": rad[np.minimum(ii, jj)],
+                "a_2": rad[np.maximum(ii, jj)], "sigma": sym(0.8, 1.0)}
+    ranges = {
+        "PerturbedLennardJones": {"epsilon": (0.5, 1.5), "sigma": (0.85, 1.05),
+                                  "attraction_scale_factor": (0.0, 1.0)},
+        "LJ": {"epsilon": (0.5, 1.5), "sigma": (0.85, 1.0)},
+        "ExpandedYukawa": {"epsilon": (1.0, 2.0), "kappa": (1.0, 2.0), "delta": (0.3, 0.5)},
+        "Hertz": {"epsilon": (1.0, 5.0)},
+        "Morse": {"D0": (0.5, 1.5), "alpha": (1.5, 2.5), "r0": (0.9, 1.2)},
+        "Gaussian": {"epsilon": (1.0, 2.0), "sigma": (0.4, 0.8)},
+        "Yukawa": {"epsilon": (1.0, 2.0), "kappa": (0.5, 1.5)},
+    }[name]
+    return {k: sym(*lohi) for k, lohi in ranges.items()}
+
+
+def _pair_tables(az, potential, T, seed, r_cut, device):
+    """Device tables of one potential: params, r_cut (one pair at 0.8 r_cut
+    where T > 1) and r_on (0.75 r_cut; one pair at 1.1 r_cut, where xplor
+    shifts plainly)."""
+    rng = np.random.default_rng(seed)
+    if potential == "PerturbedLennardJones" and T == 1:
         host = {"epsilon": np.ones((1, 1)), "sigma": np.ones((1, 1)),
                 "attraction_scale_factor": np.full((1, 1), 0.5)}
-    pre = az.ops.evaluators.PAIR_POTENTIALS["PerturbedLennardJones"].precompute(host)
-    params = {k: torch.as_tensor(np.asarray(v, np.float32), device=device) for k, v in pre.items()}
-    rc = torch.full((T, T), float(r_cut), dtype=torch.float32, device=device)
-    return params, rc
+    else:
+        host = potential_params(potential, T, rng)
+    pre = az.ops.evaluators.PAIR_POTENTIALS[potential].precompute(host)
+    rc = np.full((T, T), r_cut, np.float32)
+    rc[0, -1] = rc[-1, 0] = r_cut * 0.8 if T > 1 else r_cut
+    r_on = (0.75 * rc).astype(np.float32)
+    if T > 1:
+        r_on[-1, -1] = 1.1 * rc[-1, -1]
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return {"params": {k: dev(v) for k, v in pre.items()}, "r_cut": dev(rc), "r_on": dev(r_on)}
 
 
 def _compare(name, got, ref):
@@ -137,53 +187,258 @@ def _compare(name, got, ref):
     return max_err, scale
 
 
-def check_kernel(az, D, PK):
-    """Kernel against the plain version on the card, at every listed shape."""
-    dev = torch.device("cuda")
-    ef = az.ops.evaluators.perturbed_lennard_jones
-    cases = [
-        ("small orthorhombic", dict(counts=(14, 14, 14), rho=0.85, jitter=0.06, seed=1), 2.5,
-         ("none",)),
-        ("tilted triclinic", dict(counts=(14, 14, 14), rho=0.8, jitter=0.06, seed=2,
-                                  tilt=(0.35, -0.2, 0.15)), 2.5, ("none", "shift")),
-        ("uneven overfull", dict(counts=(16, 14, 14), rho=0.6, jitter=0.03, seed=3,
-                                 clustered=True), 2.5, ("none",), 16),
-        ("two types", dict(counts=(12, 12, 12), rho=0.85, jitter=0.06, seed=4, n_types=2),
-         2.5, ("none", "shift")),
-        ("axis under 3 cells", dict(counts=(5, 16, 16), rho=0.85, jitter=0.06, seed=5), 2.5,
-         ("none", "shift")),
-        ("64k headline", dict(counts=(40, 40, 40), rho=0.85, jitter=0.05, seed=6), 3.0,
-         ("none",)),
-    ]
-    headline = None
-    for label, kw, r_cut, modes, *cap in cases:
-        dense, spec, T = _dense_case(az, D, _lattice_snapshot(az, **kw), r_cut, 0.4, dev, *cap)
-        params, rc = _plj_tables(az, T, 10 + T, r_cut, dev)
-        kern = PK.plj_kernel_tables(params, rc)
-        jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
-        for mode in modes:
-            for want in ("force", "all"):
-                got = PK.cell_pair_force(dense, spec, kern, mode, want)
-                ref = D.dense_pair_force(ef, dense, jb, spec, params, rc, None, mode, want)
-                torch.cuda.synchronize()
-                tag = f"{label} dims={spec.dims} cap={spec.cap} T={T} {mode} {want}"
-                ferr, fscale = _compare(tag + " force", got.force, ref.force)
-                line = f"[kernel] {tag}: force max_abs_err {ferr:.3e} (max|f| {fscale:.3e})"
-                if want == "all":
-                    eerr, _ = _compare(tag + " energy", got.energy, ref.energy)
-                    verr, _ = _compare(tag + " virial", got.virial, ref.virial)
-                    line += f", energy {eerr:.3e}, virial {verr:.3e}"
-                print(line, flush=True)
-                if label == "64k headline" and want == "force":
-                    headline = (dense, spec, kern, jb, params, rc, ferr)
-    dense, spec, kern, jb, params, rc, ferr = headline
-    ms = _cuda_time_ms(lambda: PK.cell_pair_force(dense, spec, kern, "none", "force"), 50)
-    plain_ms = _cuda_time_ms(
-        lambda: D.dense_pair_force(ef, dense, jb, spec, params, rc, None, "none", "force"), 5
+def _compare_result(tag, got, ref, want):
+    """Force (and energy and virial for want="all") within the bar. Returns
+    the force's max abs error and the worst error relative to its output's
+    max |value| over the outputs compared."""
+    outputs = [("force", got.force, ref.force)]
+    if want == "all":
+        outputs += [("energy", got.energy, ref.energy), ("virial", got.virial, ref.virial)]
+    errs = [_compare(f"{tag} {what}", g, r) for what, g, r in outputs]
+    return errs[0][0], max(err / max(scale, 1e-30) for err, scale in errs)
+
+
+# ---------------------------------------------------------------------------
+# The full-size configurations, through the public API
+# ---------------------------------------------------------------------------
+def build_headline(az, device):
+    """BASELINE config 1, the bench headline: 64k PLJ under Langevin."""
+    N_side, rho, seed = HEADLINE["N_side"], HEADLINE["rho"], HEADLINE["seed"]
+    N = N_side**3
+    L = (N / rho) ** (1.0 / 3.0)
+    a = L / N_side
+    snap = az.Snapshot(N=N)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    x = (np.arange(N_side) + 0.5) * a - L / 2
+    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    sim = az.Simulation(device=device, seed=seed)
+    sim.create_state_from_snapshot(snap)
+    lj = az.pair.PerturbedLennardJones(
+        nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=3.0, mode="none"
     )
-    print(f"[kernel] 64k headline: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call",
-          flush=True)
-    return {"max_abs_err": ferr, "ms": ms, "plain_ms": plain_ms}
+    lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.5)
+    lang = az.md.methods.Langevin(kT=1.0, default_gamma=0.1)
+    sim.operations.integrator = az.md.Integrator(dt=0.005, methods=[lang], forces=[lj])
+    sim.state.thermalize_particle_momenta(kT=1.0)
+    return sim, [lj]
+
+
+def build_dpd(az, device, n_side=28, rho=3.0, seed=5):
+    """BASELINE config 3 (bench.py build_dpd_fluid): 28^3 DPD fluid at rho 3,
+    A 25, gamma 4.5, s 0.5, r_cut 1, kT 1, ConstantVolume, dt 0.01, from a
+    lattice at rest."""
+    N = n_side**3
+    L = (N / rho) ** (1.0 / 3.0)
+    a = L / n_side
+    snap = az.Snapshot(N=N)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    x = (np.arange(n_side) + 0.5) * a - L / 2
+    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    sim = az.Simulation(device=device, seed=seed)
+    sim.create_state_from_snapshot(snap)
+    dpd = az.pair.DPDGeneralWeight(nlist=az.md.nlist.Cell(buffer=0.4), kT=1.0,
+                                   default_r_cut=1.0)
+    dpd.params[("A", "A")] = dict(A=25.0, gamma=4.5, s=0.5)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.01, methods=[az.md.methods.ConstantVolume()], forces=[dpd])
+    return sim, [dpd]
+
+
+def build_polymer(az, device, n_chains=1280, chain_len=25, rho=0.5, seed=14):
+    """BASELINE config 2 (bench.py build_polymer_melt): 1,280 straight rods
+    of 25 beads at rho 0.5, Quartic scissile bonds + ExpandedYukawa pairs
+    (epsilon 2, kappa 1.5, delta 0.5, r_cut 2.5), Langevin kT 1, gamma 0.5,
+    dt 0.002."""
+    N = n_chains * chain_len
+    L = (N / rho) ** (1.0 / 3.0)
+    snap = az.Snapshot(N=N, bond_N=n_chains * (chain_len - 1))
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    snap.bonds.types = ["backbone"]
+    gy = int(np.floor(np.sqrt(n_chains)))
+    gz = (n_chains + gy - 1) // gy
+    c = np.arange(n_chains)
+    y = ((c % gy) + 0.5) * L / gy - L / 2
+    z = ((c // gy) + 0.5) * L / gz - L / 2
+    x = -0.97 * (chain_len - 1) / 2 + 0.97 * np.arange(chain_len)
+    pos = np.zeros((n_chains, chain_len, 3))
+    pos[:, :, 0] = x[None, :]
+    pos[:, :, 1] = y[:, None]
+    pos[:, :, 2] = z[:, None]
+    snap.particles.position[:] = pos.reshape(-1, 3)
+    first = (c[:, None] * chain_len + np.arange(chain_len - 1)[None, :]).reshape(-1)
+    snap.bonds.typeid[:] = 0
+    snap.bonds.group[:] = np.stack([first, first + 1], axis=-1)
+    sim = az.Simulation(device=device, seed=seed)
+    sim.create_state_from_snapshot(snap)
+    bonds = az.bond.Quartic()
+    bonds.params["backbone"] = dict(k=1434.3, r_0=1.5, b_1=-0.7589, b_2=0.0, U_0=67.2234,
+                                    sigma=1.0, epsilon=1.0, delta=0.0)
+    pairs = az.pair.ExpandedYukawa(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.5)
+    pairs.params[("A", "A")] = dict(epsilon=2.0, kappa=1.5, delta=0.5)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.002, methods=[az.md.methods.Langevin(kT=1.0, default_gamma=0.5)],
+        forces=[bonds, pairs])
+    sim.state.thermalize_particle_momenta(kT=1.0)
+    return sim, [bonds, pairs]
+
+
+def _prepared_dense(sim):
+    """The main path's dense state and grid, as its first step sees them."""
+    sim.run(0)
+    torch.cuda.synchronize()
+    return sim._dense, sim._grid_spec
+
+
+# ---------------------------------------------------------------------------
+# Kernels against their plain versions
+# ---------------------------------------------------------------------------
+def check_pair_kernel(az, D, PK, record):
+    """Every potential, mode and want at every listed shape; times each
+    potential at the polymer melt's full size (the 64k headline for PLJ)."""
+    dev = torch.device("cuda")
+    shapes = [
+        ("small orthorhombic", dict(counts=(14, 14, 14), rho=0.85, jitter=0.06, seed=1), 2.5),
+        ("tilted", dict(counts=(14, 14, 14), rho=0.8, jitter=0.06, seed=2,
+                        tilt=(0.35, -0.2, 0.15)), 2.5),
+        ("axis under 3 cells", dict(counts=(5, 16, 16), rho=0.85, jitter=0.06, seed=5), 2.5),
+        ("two types", dict(counts=(12, 12, 12), rho=0.85, jitter=0.06, seed=4, n_types=2),
+         2.0),
+        ("three types uneven", dict(counts=(16, 14, 14), rho=0.6, jitter=0.03, seed=3,
+                                     n_types=3, clustered=True), 2.0, 16),
+    ]
+    cases = []
+    for label, kw, r_cut, *cap in shapes:
+        dense, spec, T = _dense_case(az, D, _lattice_snapshot(az, **kw), r_cut, 0.4, dev, *cap)
+        cases.append((label, dense, spec, T, r_cut))
+    poly_dense, poly_spec = _prepared_dense(build_polymer(az, dev)[0])
+    cases.append(("polymer melt 32k", poly_dense, poly_spec, 1, 2.5))
+    ef = az.ops.evaluators.PAIR_POTENTIALS
+
+    timing = {}
+    for pot in PK.KERNEL_POTENTIALS:
+        n_checks, worst = 0, 0.0
+        for label, dense, spec, T, r_cut in cases:
+            tbl = _pair_tables(az, pot, T, 10 + T, r_cut, dev)
+            jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
+            for mode in MODES:
+                tables = PK.kernel_tables(pot, tbl["params"], tbl["r_cut"], tbl["r_on"], mode)
+                for want in ("force", "all"):
+                    got = PK.cell_pair_force(dense, spec, tables, pot, mode, want)
+                    ref = D.dense_pair_force(ef[pot].energy_force, dense, jb, spec,
+                                             tbl["params"], tbl["r_cut"], tbl["r_on"], mode,
+                                             want)
+                    torch.cuda.synchronize()
+                    tag = f"{pot} {label} dims={spec.dims} cap={spec.cap} T={T} {mode} {want}"
+                    ferr, rel = _compare_result(tag, got, ref, want)
+                    record(f"cell_pair_force[{pot}]", ferr)
+                    n_checks, worst = n_checks + 1, max(worst, rel)
+            if label.startswith("polymer"):
+                tables = PK.kernel_tables(pot, tbl["params"], tbl["r_cut"], tbl["r_on"], "none")
+                ms = _cuda_time_ms(lambda: PK.cell_pair_force(dense, spec, tables, pot, "none"), 30)
+                plain_ms = _cuda_time_ms(
+                    lambda: D.dense_pair_force(ef[pot].energy_force, dense, jb, spec,
+                                               tbl["params"], tbl["r_cut"], None, "none",
+                                               "force"), 3)
+                timing[pot] = (ms, plain_ms, f"polymer melt 32k, cap {spec.cap}")
+        print(f"[kernel] cell_pair_force[{pot}]: {n_checks} checks ({len(cases)} shapes: "
+              f"{', '.join(c[0] for c in cases)}; modes {'/'.join(MODES)}; force/all), worst "
+              f"error {worst:.3e} of max|value| (bar {BAR})", flush=True)
+
+    # the 64k headline, the PLJ instantiation's own main-path shape
+    dense, spec, _ = _dense_case(
+        az, D, _lattice_snapshot(az, counts=(40, 40, 40), rho=0.85, jitter=0.05, seed=6), 3.0,
+        0.4, dev)
+    tbl = _pair_tables(az, "PerturbedLennardJones", 1, 11, 3.0, dev)
+    jb = D.make_jblocks(dense, spec, half=True)
+    tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"])
+    for want in ("force", "all"):
+        got = PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "none", want)
+        ref = D.dense_pair_force(ef["PerturbedLennardJones"].energy_force, dense, jb, spec,
+                                 tbl["params"], tbl["r_cut"], None, "none", want)
+        torch.cuda.synchronize()
+        tag = f"PerturbedLennardJones 64k headline cap={spec.cap} none {want}"
+        ferr, rel = _compare_result(tag, got, ref, want)
+        record("cell_pair_force[PerturbedLennardJones]", ferr)
+        print(f"[kernel] {tag}: force max_abs_err {ferr:.3e}, worst error {rel:.3e} of "
+              f"max|value|", flush=True)
+    ms = _cuda_time_ms(
+        lambda: PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "none"), 50)
+    plain_ms = _cuda_time_ms(
+        lambda: D.dense_pair_force(ef["PerturbedLennardJones"].energy_force, dense, jb, spec,
+                                   tbl["params"], tbl["r_cut"], None, "none", "force"), 5)
+    timing["PerturbedLennardJones"] = (ms, plain_ms, f"64k headline, cap {spec.cap}")
+    for pot, (ms, plain_ms, where) in timing.items():
+        print(f"[kernel] cell_pair_force[{pot}] at {where}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms per call (force, mode none)", flush=True)
+    return timing
+
+
+def check_dpd_kernel(az, D, DK, record):
+    """The DPD kernel at every listed shape, force and all, with velocities
+    and tags at and above 2**24 in the Threefry key; timed at full size."""
+    dev = torch.device("cuda")
+    shapes = [
+        ("small orthorhombic", dict(counts=(18, 18, 18), rho=3.0, jitter=0.1, seed=21)),
+        ("tilted", dict(counts=(18, 16, 16), rho=3.0, jitter=0.1, seed=22,
+                        tilt=(0.3, -0.2, 0.15))),
+        ("axis under 3 cells", dict(counts=(5, 20, 20), rho=3.0, jitter=0.1, seed=23)),
+        ("two types", dict(counts=(16, 16, 16), rho=3.0, jitter=0.1, seed=24, n_types=2)),
+    ]
+    cases = []
+    for label, kw in shapes:
+        dense, spec, T = _dense_case(az, D, _lattice_snapshot(az, **kw), 1.0, 0.4, dev)
+        cases.append((label, dense, spec, T))
+    sim, _ = build_dpd(az, dev)
+    dense, spec = _prepared_dense(sim)
+    g = torch.Generator(device=dev).manual_seed(25)
+    vel = torch.randn(dense.velocity.shape, generator=g, device=dev)
+    dense = dense.replace(velocity=torch.where(dense.tag[:, None] >= 0, vel, 0.0))
+    cases.append(("DPD fluid 22k", dense, spec, 1))
+
+    rng = np.random.default_rng(26)
+    timing = None
+    for label, dense, spec, T in cases:
+        A = rng.uniform(15.0, 30.0, (T, T))
+        gamma = rng.uniform(3.0, 6.0, (T, T))
+        s = rng.uniform(0.3, 2.0, (T, T))
+        if label.startswith("DPD"):
+            A, gamma, s = np.full((1, 1), 25.0), np.full((1, 1), 4.5), np.full((1, 1), 0.5)
+
+        def dev_t(a):
+            return torch.as_tensor(np.asarray((a + a.T) / 2, np.float32), device=dev)
+
+        rc = np.full((T, T), 1.0)
+        rc[0, -1] = rc[-1, 0] = 0.85 if T > 1 else 1.0
+        tbl = {"params": {"A": dev_t(A), "gamma": dev_t(gamma), "s": dev_t(s)},
+               "r_cut": dev_t(rc)}
+        jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_velocity=True, need_tag=True)
+        worst = max_abs = 0.0
+        for timestep in (777, 2**24 + 5):
+            for want in ("force", "all"):
+                got = DK.dpd_force(dense, spec, tbl, 1.0, 0.01, 5, timestep, want)
+                ref = D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], 1.0, 0.01,
+                                        5, timestep, want)
+                torch.cuda.synchronize()
+                tag = f"DPD {label} dims={spec.dims} cap={spec.cap} T={T} t={timestep} {want}"
+                ferr, rel = _compare_result(tag, got, ref, want)
+                record("cell_dpd_force", ferr)
+                worst, max_abs = max(worst, rel), max(max_abs, ferr)
+        print(f"[kernel] cell_dpd_force {label} dims={spec.dims} cap={spec.cap} T={T} "
+              f"(timesteps 777 and 2**24+5, force/all): force max_abs_err {max_abs:.3e}, worst "
+              f"error {worst:.3e} of max|value| (bar {BAR})", flush=True)
+        if label.startswith("DPD"):
+            tables = DK.dpd_kernel_tables(tbl["params"], tbl["r_cut"], 1.0, 0.01)
+            ms = _cuda_time_ms(lambda: DK.cell_dpd_force(dense, spec, tables, 5, 777), 30)
+            plain_ms = _cuda_time_ms(
+                lambda: D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], 1.0,
+                                          0.01, 5, 777, "force"), 3)
+            timing = (ms, plain_ms, f"DPD fluid 22k, cap {spec.cap}")
+            print(f"[kernel] cell_dpd_force at DPD fluid 22k cap {spec.cap}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms per call (force)", flush=True)
+    return timing
 
 
 def check_rng(az):
@@ -211,96 +466,220 @@ def check_rng(az):
           flush=True)
 
 
-def build_sim(az, device):
-    """BASELINE config 1, the bench headline, through the port's public API."""
-    N_side, rho, seed = HEADLINE["N_side"], HEADLINE["rho"], HEADLINE["seed"]
-    N = N_side**3
-    L = (N / rho) ** (1.0 / 3.0)
-    a = L / N_side
-    snap = az.Snapshot(N=N)
-    snap.configuration.box = [L, L, L, 0, 0, 0]
-    snap.particles.types = ["A"]
-    x = (np.arange(N_side) + 0.5) * a - L / 2
-    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
-    sim = az.Simulation(device=device, seed=seed)
-    sim.create_state_from_snapshot(snap)
-    lj = az.pair.PerturbedLennardJones(
-        nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=3.0, mode="none"
-    )
-    lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.5)
-    lang = az.md.methods.Langevin(kT=1.0, default_gamma=0.1)
-    sim.operations.integrator = az.md.Integrator(dt=0.005, methods=[lang], forces=[lj])
-    sim.state.thermalize_particle_momenta(kT=1.0)
-    return sim, lj
-
-
-def run_main_path(az, D, PK, card, warm_steps=3000, steps=1000):
-    sim, lj = build_sim(az, "cuda")
-    thermo = az.compute.ThermodynamicQuantities()
-    sim.operations.computes.append(thermo)
-    t0 = time.perf_counter()
-    sim.run(warm_steps)
-    torch.cuda.synchronize()
-    print(f"[main] N={sim.state.N_particles} grid {sim._grid_spec}: {warm_steps} warm-up "
-          f"steps in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
+# ---------------------------------------------------------------------------
+# Main paths
+# ---------------------------------------------------------------------------
+def _reset_counts(PK, DK):
     PK.launches = 0
+    PK.launches_by_potential.clear()
+    DK.launches = 0
+
+
+def _timed_run(sim, steps):
+    """sim.run(steps) between CUDA events: (ms per step, host seconds)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     start.record()
     t0 = time.perf_counter()
     sim.run(steps)
     end.record()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = PK.launches
+    return start.elapsed_time(end) / steps, time.perf_counter() - t0
+
+
+def _check_wrapped(sim, what):
+    pos = sim.state.get_snapshot().particles.position
+    L = np.asarray(sim.state.box.L)
+    if not (np.isfinite(pos).all() and (np.abs(pos) <= L / 2 + 1e-3).all()):
+        raise AssertionError(f"{what}: positions non-finite or outside the box")
+    return pos
+
+
+def _mean_kT(sim, thermo, n=5, gap=20):
+    temps = []
+    for _ in range(n):
+        sim.run(gap)
+        temps.append(thermo.kinetic_temperature)
+    return float(np.mean(temps))
+
+
+def _profile(sim, steps=20):
+    """Device operations and device-busy milliseconds per step over a short
+    profiled window (torch.profiler; the profiler's own host overhead makes
+    it a breakdown, not a timer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim.run(steps)
+        torch.cuda.synchronize()
+    ops = busy_us = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            ops += e.count
+            busy_us += us
+    return ops / steps, busy_us / 1000.0 / steps
+
+
+def _kernels_on_state(az, D, PK, DK, sim, forces, record):
+    """Each pair kernel against its plain version on the path's own state
+    after the run (want="all")."""
+    dense, spec, dev = sim._dense, sim._grid_spec, sim.device
+    errs = []
+    for f in forces:
+        if not f._needs_nlist:
+            continue
+        tbl = f._device_tables(dev)
+        if isinstance(f, az.pair.DPDGeneralWeight):
+            kT, dt, t = f.kT(sim.timestep), sim.dt_ref(), sim.timestep
+            got = DK.dpd_force(dense, spec, tbl, kT, dt, sim.seed, t, "all")
+            jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_velocity=True,
+                                need_tag=True)
+            ref = D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], kT, dt,
+                                    sim.seed, t, "all")
+            name = "cell_dpd_force"
+        else:
+            pot = f._evaluator_name
+            got = PK.cell_pair_force(dense, spec, tbl["kernel"], pot, f.mode, "all")
+            jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
+            ref = D.dense_pair_force(f._def.energy_force, dense, jb, spec, tbl["params"],
+                                     tbl["r_cut"], tbl["r_on"], f.mode, "all")
+            name = f"cell_pair_force[{pot}]"
+        torch.cuda.synchronize()
+        ferr, _ = _compare_result(f"{name} on the path's state", got, ref, "all")
+        record(name, ferr)
+        errs.append(f"{name} {ferr:.3e}")
+    return ", ".join(errs)
+
+
+def run_path(az, D, PK, DK, card, record, label, build, warm_steps, steps, counts,
+             extra_check=None):
+    """One main path at full size: warm up, then ``steps`` timed steps with
+    the launch counts set to 0 just before and read just after. ``counts``
+    maps each kernel name the path must run to a function that reads its
+    count. Returns those counts."""
+    sim, forces = build(az, "cuda")
+    thermo = az.compute.ThermodynamicQuantities()
+    sim.operations.computes.append(thermo)
+    t0 = time.perf_counter()
+    sim.run(warm_steps)
+    torch.cuda.synchronize()
+    print(f"[{label}] N={sim.state.N_particles} grid {sim._grid_spec}: {warm_steps} warm-up "
+          f"steps in {time.perf_counter() - t0:.1f} s", flush=True)
+    before = extra_check(sim, "before") if extra_check else None
+
+    builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
+    n_pair_forces = sum(1 for f in forces if f._needs_nlist)
+    _reset_counts(PK, DK)
+    ms_step, wall = _timed_run(sim, steps)
+    launched = {name: read() for name, read in counts.items()}
     evals = sim.force_evaluations - evals0
     builds = sim.n_builds - builds0
-    ms_step = start.elapsed_time(end) / steps
-
-    if launches != evals or launches < steps:
-        raise AssertionError(f"{launches} kernel launches for {evals} force evaluations")
-    dense = sim._dense
-    if not bool(torch.isfinite(dense.position).all()):
-        raise AssertionError("non-finite positions after the main path")
-    kT = thermo.kinetic_temperature
+    replays = sim.viol_replays - replays0
+    pair_evals = evals * n_pair_forces // len(forces)
+    if sum(launched.values()) != pair_evals or min(launched.values()) < steps:
+        raise AssertionError(f"{label}: kernel launches {launched} for {pair_evals} pair-force "
+                             f"evaluations in {steps} steps")
+    _check_wrapped(sim, label)
+    after = extra_check(sim, "after", before) if extra_check else ""
+    kT = _mean_kT(sim, thermo)
     if abs(kT - 1.0) > 0.05:
-        raise AssertionError(f"kinetic temperature {kT:.4f} outside 1.0 +- 0.05")
-    if not 0 < builds < steps // 2:
-        raise AssertionError(f"{builds} grid builds in {steps} steps")
-    pos = sim.state.get_snapshot().particles.position
-    L = sim.state.box.Lx
-    if not (np.isfinite(pos).all() and np.abs(pos).max() <= L / 2 + 1e-3):
-        raise AssertionError("wrapped positions outside the box")
-
-    # observables through the kernel's energy/virial path, and the kernel
-    # against the plain version on the run's own (melted) state
-    u = lj.energy / sim.state.N_particles
+        raise AssertionError(f"{label}: kinetic temperature {kT:.4f} outside 1.0 +- 0.05")
+    if not 0 < builds < steps:
+        raise AssertionError(f"{label}: {builds} grid builds in {steps} steps")
+    # observables through the kernels' energy/virial path
+    energies = [f.energy for f in forces]
     p = thermo.pressure
-    if not (np.isfinite(u) and np.isfinite(p)):
-        raise AssertionError("non-finite energy or pressure")
-    spec = sim._grid_spec
-    tbl = lj._device_tables(sim.device)
-    got = PK.cell_pair_force(dense, spec, tbl["kernel"], "none", "all")
-    jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
-    ref = D.dense_pair_force(az.ops.evaluators.perturbed_lennard_jones, dense, jb, spec,
-                             tbl["params"], tbl["r_cut"], None, "none", "all")
-    ferr, _ = _compare("main-path state force", got.force, ref.force)
-    _compare("main-path state energy", got.energy, ref.energy)
-    _compare("main-path state virial", got.virial, ref.virial)
-
-    rebin_ms = _cuda_time_ms(lambda: D.rebin(dense, sim._meta, spec, sim._state.N, sim._fields,
-                                             False), 20)
-    kernel_ms = _cuda_time_ms(lambda: PK.cell_pair_force(dense, spec, tbl["kernel"]), 50)
-    print(f"[main] {steps} steps: {ms_step:.4f} ms/step, {1000.0 / ms_step:.1f} TPS "
+    if not (np.all(np.isfinite(energies)) and np.isfinite(p)):
+        raise AssertionError(f"{label}: non-finite energy or pressure")
+    on_state = _kernels_on_state(az, D, PK, DK, sim, forces, record)
+    ops, busy = _profile(sim)
+    print(f"[{label}] {steps} steps: {ms_step:.4f} ms/step, {1000.0 / ms_step:.1f} TPS "
           f"(host wall {wall:.3f} s) on {card}", flush=True)
-    print(f"[main] kernel {kernel_ms:.4f} ms/call, rebin {rebin_ms:.4f} ms/rebuild at "
-          f"cap {spec.cap}, on {card}", flush=True)
-    print(f"[main] {builds} grid builds ({steps / max(builds, 1):.1f} steps each), "
-          f"{sim.viol_replays - replays0} violation replays, kinetic temperature {kT:.4f}, "
-          f"U/N {u:.4f}, pressure {p:.4f}, kernel vs plain on this state {ferr:.3e}",
+    print(f"[{label}] launches {launched} for {evals} force evaluations "
+          f"({sum(launched.values()) / steps:.3f} kernel launches per step); {builds} grid "
+          f"builds ({steps / max(builds, 1):.1f} steps each), {replays} violation replays",
           flush=True)
-    return launches
+    print(f"[{label}] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy "
+          f"per step", flush=True)
+    print(f"[{label}] kinetic temperature {kT:.4f}, energies per particle "
+          f"{[round(e / sim.state.N_particles, 5) for e in energies]}, pressure {p:.4f}"
+          f"{after}; kernel vs plain on this state: {on_state}", flush=True)
+    return launched
+
+
+def _dpd_momentum(sim, when, before=None):
+    """|total momentum| / N; DPD conserves it, so it stays at its start
+    value (0: the fluid starts at rest) up to float32 round-off."""
+    snap = sim.state.get_snapshot()
+    p = np.abs((snap.particles.velocity * snap.particles.mass[:, None]).sum(axis=0)).max()
+    p_per = float(p) / snap.particles.N
+    if p_per > 1e-5:
+        raise AssertionError(f"DPD: |total momentum|/N = {p_per:.3e} {when} the timed steps")
+    return p_per if when == "before" else f", |P|/N {before:.3e} -> {p_per:.3e}"
+
+
+def _bond_lengths(sim, when, before=None):
+    """Bond lengths (minimum image) of the chains of 25: finite."""
+    snap = sim.state.get_snapshot()
+    d = np.diff(snap.particles.position.reshape(-1, 25, 3), axis=1)
+    L = np.asarray(snap.configuration.box[:3])
+    r = np.linalg.norm(d - L * np.round(d / L), axis=-1)
+    if not np.isfinite(r).all():
+        raise AssertionError(f"polymer: non-finite bond lengths {when} the timed steps")
+    return f", bond lengths {r.min():.4f}-{r.max():.4f} (mean {r.mean():.4f})"
+
+
+def run_potential_sweep(az, PK, DK):
+    """Every other isotropic potential through the public API: 200 Langevin
+    steps of a 16^3 lattice fluid each, in turn with modes none/shift/xplor;
+    counts set to 0 just before each and read just after."""
+    launched = {}
+    others = [p for p in PK.KERNEL_POTENTIALS
+              if p not in ("PerturbedLennardJones", "ExpandedYukawa")]
+    for i, pot in enumerate(others):
+        snap = _lattice_snapshot(az, counts=(16, 16, 16), rho=0.85, jitter=0.02, seed=40 + i)
+        snap.particles.velocity[:] = 0.0
+        sim = az.Simulation(device="cuda", seed=40 + i)
+        sim.create_state_from_snapshot(snap)
+        mode = MODES[i % 3]
+        force = getattr(az.pair, pot)(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.0,
+                    default_r_on=1.5, mode=mode)
+        params = potential_params(pot, 1, np.random.default_rng(50 + i))
+        force.params[("A", "A")] = {k: float(v[0, 0]) for k, v in params.items()}
+        sim.operations.integrator = az.md.Integrator(
+            dt=0.002, methods=[az.md.methods.Langevin(kT=1.0, default_gamma=1.0)],
+            forces=[force])
+        sim.state.thermalize_particle_momenta(kT=1.0)
+        sim.run(0)
+        _reset_counts(PK, DK)
+        evals0 = sim.force_evaluations
+        sim.run(200)
+        torch.cuda.synchronize()
+        n = PK.launches_by_potential.get(pot, 0)
+        evals = sim.force_evaluations - evals0
+        if n != evals or n < 200 or PK.launches != n:
+            raise AssertionError(f"{pot}: {n} kernel launches for {evals} force evaluations")
+        _check_wrapped(sim, pot)
+        if not np.isfinite(force.energy):
+            raise AssertionError(f"{pot}: non-finite energy")
+        print(f"[sweep] {pot} (mode {mode}): {n} launches for {evals} force evaluations, "
+              f"U/N {force.energy / sim.state.N_particles:.4f}", flush=True)
+        launched[pot] = n
+    return launched
+
+
+def _build_report(cuda_build, sources):
+    for src in sources:
+        info = cuda_build.build_info[src]
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", info["log"])]
+        spills = [int(a) + int(b) for a, b in
+                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info["log"])]
+        print(f"[build] {src}: nvcc {info['seconds']:.2f} s; ptxas: {len(regs)} kernels, "
+              f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
+              f"max spill {max(spills, default=0)} bytes", flush=True)
 
 
 def main() -> int:
@@ -311,6 +690,7 @@ def main() -> int:
     az = _import_port()
     from azplugins_tpu_torch.ops import cuda_build
     from azplugins_tpu_torch.ops import dense as D
+    from azplugins_tpu_torch.ops import dpd_kernel as DK
     from azplugins_tpu_torch.ops import pair_kernel as PK
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -320,29 +700,58 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
+    cuda_build.load_libraries(PK._SOURCE, DK._SOURCE)
     PK._library()
-    info = cuda_build.build_info[PK._SOURCE]
-    print(f"[build] {PK._SOURCE}: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {info['seconds']:.2f} s)", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    DK._library()
+    print(f"[build] both kernels in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
+          flush=True)
+    _build_report(cuda_build, (PK._SOURCE, DK._SOURCE))
 
-    kern = check_kernel(az, D, PK)
+    max_err: dict[str, float] = {}
+
+    def record(name, err):
+        max_err[name] = max(max_err.get(name, 0.0), err)
+
+    pair_timing = check_pair_kernel(az, D, PK, record)
+    dpd_timing = check_dpd_kernel(az, D, DK, record)
     check_rng(az)
-    launches = run_main_path(az, D, PK, card)
 
-    summary = {"kernels": [{
-        "name": "cell_pair_force",
-        "route": "cuda",
-        "source": "azplugins_tpu_torch/csrc/cell_pair_force.cu",
-        "replaces": "azplugins_tpu/ops/pallas_pair.py:334",
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-    }]}
-    print(json.dumps(summary))
+    launches = {}
+    launches.update(run_path(
+        az, D, PK, DK, card, record, "headline", build_headline, 2000, 1000,
+        {"cell_pair_force[PerturbedLennardJones]":
+         lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}))
+    launches.update(run_path(
+        az, D, PK, DK, card, record, "dpd", build_dpd, 2000, 1000,
+        {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum))
+    # the rods melt over ~8,000 steps, releasing pair energy faster than the
+    # thermostat removes it (kT peaked at 1.24 near step 5,000 on an H100;
+    # PERF.md), so the polymer warms up for 10,000
+    launches.update(run_path(
+        az, D, PK, DK, card, record, "polymer", build_polymer, 10000, 1000,
+        {"cell_pair_force[ExpandedYukawa]":
+         lambda: PK.launches_by_potential.get("ExpandedYukawa", 0)},
+        extra_check=_bond_lengths))
+    for pot, n in run_potential_sweep(az, PK, DK).items():
+        launches[f"cell_pair_force[{pot}]"] = n
+
+    kernels = []
+    for pot in PK.KERNEL_POTENTIALS:
+        name = f"cell_pair_force[{pot}]"
+        ms, plain_ms, _ = pair_timing[pot]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "azplugins_tpu_torch/csrc/cell_pair_force.cu",
+            "replaces": PAIR_REPLACES, "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms,
+        })
+    ms, plain_ms, _ = dpd_timing
+    kernels.append({
+        "name": "cell_dpd_force", "route": "cuda",
+        "source": "azplugins_tpu_torch/csrc/cell_dpd_force.cu", "replaces": DPD_REPLACES,
+        "launches": launches["cell_dpd_force"], "max_abs_err": max_err["cell_dpd_force"],
+        "ms": ms, "plain_ms": plain_ms,
+    })
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,14 +1,16 @@
-"""The port's CUDA pair kernel against its plain PyTorch version.
+"""The port's CUDA kernels against their plain PyTorch versions.
 
 Needs no JAX, so it also runs on a GPU machine without the reference:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -p no:cacheprovider
 
 Tests marked ``cuda`` skip without a GPU; the rest check, on the CPU, the
-dispatch and the wrapper's argument handling. Kernel and plain version must
-agree per slot within atol = 2e-5 * max|plain| and rtol = 2e-5: they form
-bitwise the same separations and cutoff decisions, and differ in the order
-of the per-slot sums and in fused multiply-adds.
+dispatch, the table layouts, the wrappers' argument handling and the build
+cache key. Kernel and plain version must agree per slot within atol =
+2e-5 * max|plain| and rtol = 2e-5: they form bitwise the same separations,
+cutoff decisions and (for DPD) random numbers, and differ in the order of
+the per-slot sums, in fused multiply-adds and in the last ulp of exp, log
+and pow.
 """
 
 import numpy as np
@@ -17,7 +19,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import azplugins_tpu_torch as az  # noqa: E402
+from azplugins_tpu_torch.ops import cuda_build  # noqa: E402
 from azplugins_tpu_torch.ops import dense as D  # noqa: E402
+from azplugins_tpu_torch.ops import dpd_kernel as DK  # noqa: E402
 from azplugins_tpu_torch.ops import pair_kernel as PK  # noqa: E402
 from azplugins_tpu_torch.ops.evaluators.pair import PAIR_POTENTIALS  # noqa: E402
 
@@ -25,6 +29,7 @@ torch.set_num_threads(1)
 
 BAR = 2e-5
 PLJ = PAIR_POTENTIALS["PerturbedLennardJones"]
+MODES = ("none", "shift", "xplor")
 
 # name: (lattice counts, number density, tilt, types, r_cut, start cap)
 SYSTEMS = {
@@ -36,7 +41,40 @@ SYSTEMS = {
 }
 
 
-def _system(name, device):
+def potential_params(name: str, T: int, rng) -> dict:
+    """User parameters per type pair (symmetric [T, T] float64 tables) at
+    which lattice pairs (r ~ 0.8-2.5) give finite, non-trivial forces.
+
+    Colloid radii by type are (0, 0.15, 0.25) for three or more types, so
+    they reach all three of its branches; with fewer types every radius is
+    0 (solvent-solvent): the colloid-colloid energy at small radii is a
+    difference of terms 1e3 times larger, which float32 cannot resolve to
+    2e-5 alone.
+    """
+
+    def sym(lo, hi):
+        m = rng.uniform(lo, hi, (T, T))
+        return (m + m.T) / 2
+
+    if name == "Colloid":
+        rad = np.zeros(T) if T < 3 else np.array([0.0, 0.15, 0.25] + [0.0] * (T - 3))
+        ii, jj = np.meshgrid(np.arange(T), np.arange(T), indexing="ij")
+        return {"A": sym(1.0, 3.0), "a_1": rad[np.minimum(ii, jj)],
+                "a_2": rad[np.maximum(ii, jj)], "sigma": sym(0.8, 1.0)}
+    ranges = {
+        "PerturbedLennardJones": {"epsilon": (0.5, 1.5), "sigma": (0.85, 1.05),
+                                  "attraction_scale_factor": (0.0, 1.0)},
+        "LJ": {"epsilon": (0.5, 1.5), "sigma": (0.85, 1.0)},
+        "ExpandedYukawa": {"epsilon": (1.0, 2.0), "kappa": (1.0, 2.0), "delta": (0.3, 0.5)},
+        "Hertz": {"epsilon": (1.0, 5.0)},
+        "Morse": {"D0": (0.5, 1.5), "alpha": (1.5, 2.5), "r0": (0.9, 1.2)},
+        "Gaussian": {"epsilon": (1.0, 2.0), "sigma": (0.4, 0.8)},
+        "Yukawa": {"epsilon": (1.0, 2.0), "kappa": (0.5, 1.5)},
+    }[name]
+    return {k: sym(*lohi) for k, lohi in ranges.items()}
+
+
+def _system(name, device, potential="PerturbedLennardJones", velocities=False):
     counts, rho, tilt, T, r_cut, cap = SYSTEMS[name]
     rng = np.random.default_rng(list(SYSTEMS).index(name))
     N = int(np.prod(counts))
@@ -51,6 +89,8 @@ def _system(name, device):
                   [0, Ls[1], tilt[2] * Ls[2]], [0, 0, Ls[2]]])
     snap.particles.position[:] = (f - 0.5) @ h.T + rng.normal(0, 0.07, (N, 3))
     snap.particles.typeid[:] = rng.integers(0, T, N)
+    if velocities:
+        snap.particles.velocity[:] = rng.normal(0, 1.0, (N, 3))
     state, _, _ = az.core.state_from_snapshot(snap, device)
     spec = D.GridSpec.create(state.box, N, r_cut, 0.4)
     if cap is not None:
@@ -60,27 +100,38 @@ def _system(name, device):
         spec = spec.replace(cap=int(np.ceil((int(meta.max_occ) + 1) / 8.0) * 8))
         dense, meta = D.densify(state, spec, fields=())
 
-    def sym(lo, hi):
-        m = rng.uniform(lo, hi, (T, T))
-        return (m + m.T) / 2
-
-    host = PLJ.precompute({"epsilon": sym(0.5, 1.5), "sigma": sym(0.85, 1.05),
-                           "attraction_scale_factor": sym(0.0, 1.0)})
+    host = PAIR_POTENTIALS[potential].precompute(potential_params(potential, T, rng))
     rc = np.full((T, T), r_cut, np.float32)
     rc[0, -1] = rc[-1, 0] = r_cut * 0.8
+    r_on = 0.75 * rc
+    if T > 1:
+        r_on[1, 1] = 1.1 * rc[1, 1]  # r_on >= r_cut: xplor shifts plainly
     tbl = {
         "params": {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
                    for k, v in host.items()},
         "r_cut": torch.as_tensor(rc, device=device),
-        "r_on": torch.zeros((T, T), device=device),
+        "r_on": torch.as_tensor(r_on, device=device),
     }
     return dense, spec, tbl
 
 
-def _plain(dense, spec, tbl, mode, want):
+def _plain(dense, spec, tbl, mode, want, potential="PerturbedLennardJones"):
     jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
-    return D.dense_pair_force(PLJ.energy_force, dense, jb, spec, tbl["params"], tbl["r_cut"],
-                              tbl["r_on"], mode, want)
+    return D.dense_pair_force(PAIR_POTENTIALS[potential].energy_force, dense, jb, spec,
+                              tbl["params"], tbl["r_cut"], tbl["r_on"], mode, want)
+
+
+def _dpd_tables(T, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def sym(lo, hi):
+        m = rng.uniform(lo, hi, (T, T))
+        return torch.as_tensor(((m + m.T) / 2).astype(np.float32), device=device)
+
+    rc = torch.full((T, T), 1.0, device=device)
+    rc[0, -1] = rc[-1, 0] = 0.85
+    return {"params": {"A": sym(15.0, 30.0), "gamma": sym(3.0, 6.0), "s": sym(0.3, 2.0)},
+            "r_cut": rc}
 
 
 def _close(got, exp, what):
@@ -92,21 +143,22 @@ def _close(got, exp, what):
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the pair kernel runs only on the GPU")
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
     return torch.device("cuda")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("want", ["force", "all"])
-@pytest.mark.parametrize("mode", ["none", "shift"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", list(SYSTEMS))
 def test_kernel_matches_plain(cuda_device, name, mode, want):
     dense, spec, tbl = _system(name, cuda_device)
     assert spec.newton_ok == (name != "axis_under_3")
     ref = _plain(dense, spec, tbl, mode, want)
     before = PK.launches
-    got = PK.cell_pair_force(dense, spec, PK.plj_kernel_tables(tbl["params"], tbl["r_cut"]),
-                             mode, want)
+    tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"], tbl["r_on"],
+                              mode)
+    got = PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", mode, want)
     torch.cuda.synchronize()
     assert PK.launches == before + 1
     _close(got.force, ref.force, "force")
@@ -116,6 +168,50 @@ def test_kernel_matches_plain(cuda_device, name, mode, want):
     # empty slots get exactly zero
     empty = (dense.tag < 0).cpu().numpy()
     assert not got.force.cpu().numpy()[empty].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("system", ["tilted", "three_types_overfull", "axis_under_3"])
+@pytest.mark.parametrize("potential", list(PK.KERNEL_POTENTIALS))
+def test_every_potential_kernel_matches_plain(cuda_device, potential, system, mode):
+    dense, spec, tbl = _system(system, cuda_device, potential)
+    ref = _plain(dense, spec, tbl, mode, "all", potential)
+    tables = PK.kernel_tables(potential, tbl["params"], tbl["r_cut"], tbl["r_on"], mode)
+    got = PK.cell_pair_force(dense, spec, tables, potential, mode, "all")
+    force_only = PK.cell_pair_force(dense, spec, tables, potential, mode, "force")
+    torch.cuda.synchronize()
+    _close(got.force, ref.force, "force")
+    _close(force_only.force, ref.force, "force-only path")
+    _close(got.energy, ref.energy, "energy")
+    _close(got.virial, ref.virial, "virial")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want", ["force", "all"])
+@pytest.mark.parametrize("name", ["orthorhombic", "tilted", "two_types", "axis_under_3"])
+def test_dpd_kernel_matches_plain(cuda_device, name, want):
+    dense, spec, _ = _system(name, cuda_device, velocities=True)
+    # DPD's cutoff is 1.0: regrid the same particles at its spacing
+    spec = D.GridSpec.create(dense.box, int((dense.tag >= 0).sum()), 1.0, 0.4)
+    state = D.undensify(dense, int((dense.tag >= 0).sum()), fields=())
+    dense, meta = D.densify(state, spec, fields=())
+    assert not bool(meta.overflow)
+    T = int(dense.typeid.max()) + 1
+    tbl = _dpd_tables(T, cuda_device)
+    jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_velocity=True, need_tag=True)
+    ref = D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], 1.3, 0.01, 77,
+                            2**24 + 5, want)
+    before = DK.launches
+    got = DK.dpd_force(dense, spec, tbl, 1.3, 0.01, 77, 2**24 + 5, want)
+    torch.cuda.synchronize()
+    assert DK.launches == before + 1
+    _close(got.force, ref.force, "force")
+    if want == "all":
+        _close(got.energy, ref.energy, "energy")
+        _close(got.virial, ref.virial, "virial")
+    # Newton's third law term by term: the total force vanishes to round-off
+    assert float(got.force.double().sum(0).abs().max()) < 1e-3 * float(got.force.abs().max())
 
 
 @pytest.mark.cuda
@@ -145,13 +241,17 @@ def test_simulation_on_cuda_runs_every_force_through_the_kernel(cuda_device):
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_cover(cuda_device):
     dense, spec, tbl = _system("orthorhombic", cuda_device)
-    tables = PK.plj_kernel_tables(tbl["params"], tbl["r_cut"])
-    with pytest.raises(NotImplementedError, match="B2"):
-        PK.cell_pair_force(dense, spec, tables, "xplor", "all")
-    with pytest.raises(NotImplementedError, match="B2"):
+    tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"])
+    with pytest.raises(NotImplementedError, match="B4"):
+        PK.cell_pair_force(dense, spec, tables, "TwoPatchMorse", "none", "all")
+    with pytest.raises(NotImplementedError, match="B4"):  # an evaluator with no kernel
+        PK.pair_force(lambda rsq, rcutsq, p: (rsq, rsq), dense, spec, tbl, "none", "force")
+    with pytest.raises(ValueError, match="kernel_tables"):
         PK.pair_force(PLJ.energy_force, dense, spec, tbl, "none", "force")  # no kernel tables
     with pytest.raises(TypeError):
-        PK.cell_pair_force(dense, spec, tables.double())
+        PK.cell_pair_force(dense, spec, tables.double(), "PerturbedLennardJones", "none")
+    with pytest.raises(ValueError, match="shape"):  # tables of another potential
+        PK.cell_pair_force(dense, spec, tables, "LJ", "none")
 
 
 def test_cpu_dispatch_takes_the_plain_version():
@@ -162,21 +262,38 @@ def test_cpu_dispatch_takes_the_plain_version():
     assert PK.launches == before
     for k in ("force", "energy", "virial"):
         np.testing.assert_array_equal(getattr(got, k).numpy(), getattr(ref, k).numpy())
+    tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"])
     with pytest.raises(ValueError, match="CUDA"):
-        PK.cell_pair_force(dense, spec, PK.plj_kernel_tables(tbl["params"], tbl["r_cut"]))
+        PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "none")
+    before = DK.launches
+    dtbl = _dpd_tables(2, "cpu")
+    got = DK.dpd_force(dense, spec, dtbl, 1.0, 0.01, 3, 7, "force")
+    assert DK.launches == before and tuple(got.force.shape) == (spec.S, 3)
 
 
-def test_kernel_tables_layout():
-    _, _, tbl = _system("three_types_overfull", "cpu")
-    params, rc = tbl["params"], tbl["r_cut"]
-    kt = PK.plj_kernel_tables(params, rc)
-    assert tuple(kt.shape) == (7, 3, 3) and kt.is_contiguous()
-    for i, k in enumerate(("lj1", "lj2", "lam", "rwcasq", "wca_shift")):
-        np.testing.assert_array_equal(kt[i].numpy(), params[k].numpy())
-    np.testing.assert_array_equal(kt[5].numpy(), (rc * rc).numpy())
-    # ecut: the pair energy at the cutoff, which shift mode subtracts
-    e, _ = PLJ.energy_force(kt[5], kt[5], params)
-    np.testing.assert_array_equal(kt[6].numpy(), e.numpy())
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("potential", list(PK.KERNEL_POTENTIALS))
+def test_kernel_tables_layout(potential, mode):
+    _, _, tbl = _system("three_types_overfull", "cpu", potential)
+    params, rc, r_on = tbl["params"], tbl["r_cut"], tbl["r_on"]
+    kt = PK.kernel_tables(potential, params, rc, r_on, mode)
+    keys = PK.KERNEL_POTENTIALS[potential]
+    assert tuple(kt.shape) == (3 + len(keys), 3, 3) and kt.is_contiguous()
+    assert set(keys) == set(params)
+    for i, k in enumerate(keys):
+        np.testing.assert_array_equal(kt[3 + i].numpy(), params[k].numpy())
+    np.testing.assert_array_equal(kt[0].numpy(), (rc * rc).numpy())
+    # ecut: the pair energy at the cutoff, which shift (and xplor where
+    # r_on >= r_cut) subtracts; ronsq: where xplor smoothing starts
+    e, _ = PAIR_POTENTIALS[potential].energy_force(kt[0], kt[0], params)
+    smooth = (r_on < rc).numpy()
+    assert smooth.any() and not smooth.all()
+    inf = np.full((3, 3), np.inf, np.float32)
+    expect_ecut = {"none": np.zeros((3, 3), np.float32), "shift": e.numpy(),
+                   "xplor": np.where(smooth, 0.0, e.numpy())}[mode]
+    expect_ronsq = np.where(smooth, (r_on * r_on).numpy(), inf) if mode == "xplor" else inf
+    np.testing.assert_array_equal(kt[1].numpy(), expect_ecut)
+    np.testing.assert_array_equal(kt[2].numpy(), expect_ronsq)
 
 
 def test_overfull_start_grows_to_fit():
@@ -184,3 +301,20 @@ def test_overfull_start_grows_to_fit():
     occ = (dense.tag >= 0).reshape(spec.n_cells, spec.cap).sum(dim=1)
     assert spec.cap > 8 and int(occ.max()) <= spec.cap
     assert int((dense.tag >= 0).sum()) == 1000
+
+
+def test_library_digest_covers_shared_headers(tmp_path):
+    """An edited csrc/*.cuh header changes every source's build key, so a
+    stale library is never loaded; the digest needs no nvcc."""
+    for f in ("a.cu", "b.cu", "common.cuh"):
+        (tmp_path / f).write_text(f"// {f}\n")
+    before = {s: cuda_build.source_digest(s, tmp_path) for s in ("a.cu", "b.cu")}
+    assert before["a.cu"] != before["b.cu"]
+    (tmp_path / "common.cuh").write_text("// common.cuh, edited\n")
+    after = {s: cuda_build.source_digest(s, tmp_path) for s in ("a.cu", "b.cu")}
+    assert all(after[s] != before[s] for s in before)
+    (tmp_path / "other.cuh").write_text("// a new header\n")
+    assert cuda_build.source_digest("a.cu", tmp_path) != after["a.cu"]
+    # the port's own sources include their shared header
+    assert '#include "cell_stencil.cuh"' in (cuda_build.CSRC / "cell_dpd_force.cu").read_text()
+    assert '#include "cell_stencil.cuh"' in (cuda_build.CSRC / "cell_pair_force.cu").read_text()

@@ -173,8 +173,9 @@ def test_kernel_matches_reference(cuda_device, name):
     rd, spec, tabs, rcut = _system(name)
     r = _reference(rd, spec, tabs, rcut, "shift", "all")
     _, pd, pspec, tbl = _plain(rd, spec, tabs, rcut, "shift", "all", device=cuda_device)
-    k = PK.cell_pair_force(pd, pspec, PK.plj_kernel_tables(tbl["params"], tbl["r_cut"]),
-                           "shift", "all")
+    tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"], tbl["r_on"],
+                              "shift")
+    k = PK.cell_pair_force(pd, pspec, tables, "PerturbedLennardJones", "shift", "all")
     _close(k.force.cpu().numpy(), r.force, "force")
     _close(k.energy.cpu().numpy(), r.energy, "energy")
     _close(k.virial.cpu().numpy(), r.virial, "virial")
