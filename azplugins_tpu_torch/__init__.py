@@ -3,10 +3,13 @@
 The same user API as ``azplugins_tpu``, in PyTorch, for one NVIDIA H100;
 the JAX package beside it is the reference every module is tested against.
 It runs isotropic pair potentials (the perturbed Lennard-Jones fluid,
-the ExpandedYukawa polymer melt and the rest of the plugin's set), bonds
-and the DPD thermostat under NVE or Langevin dynamics on the dense cell
-grid, with the pair and DPD forces on CUDA devices in hand-written kernels
-(``csrc/cell_pair_force.cu``, ``csrc/cell_dpd_force.cu``).
+the ExpandedYukawa polymer melt and the rest of the plugin's set), the
+anisotropic TwoPatchMorse with rotational dynamics, bonds and the DPD
+thermostat under NVE or Langevin dynamics on the dense cell grid, with
+every pair force on CUDA devices in a hand-written kernel
+(``csrc/cell_pair_force.cu``, ``csrc/cell_dpd_force.cu``,
+``csrc/cell_aniso_force.cu``). A Simulation runs on the GPU unless it is
+given ``device="cpu"``.
 
 Quick start::
 
@@ -17,7 +20,7 @@ Quick start::
     snap.particles.types = ["A"]
     ...  # fill positions
 
-    sim = az.Simulation(device="cuda", seed=7)
+    sim = az.Simulation(seed=7)  # on the GPU; device="cpu" for the CPU
     sim.create_state_from_snapshot(snap)
 
     cell = az.md.nlist.Cell(buffer=0.4)

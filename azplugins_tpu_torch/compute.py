@@ -1,9 +1,9 @@
 """Computes: thermodynamic quantities of a particle group.
 
 Port of ``ThermodynamicQuantities`` from ``azplugins_tpu/compute.py``
-(translational quantities; rotational ones come with ROADMAP slice 10,
-the velocity computes with slice 12). Quantities are pull-path
-observables: each access reduces the current state on its device.
+(translational and rotational quantities; the velocity computes come with
+ROADMAP slice 12). Quantities are pull-path observables: each access
+reduces the current state on its device.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .logging import log
+from .md import rotation as R
 from .md.filter import All, ParticleFilter
 
 __all__ = ["Compute", "ThermodynamicQuantities"]
@@ -72,9 +73,38 @@ class ThermodynamicQuantities(Compute):
         return 3.0 * n - (3.0 if (conserves and whole_system and n > 0) else 0.0)
 
     @log(requires_run=True)
+    def rotational_degrees_of_freedom(self) -> float:
+        """One per non-zero principal moment of inertia of the group's
+        particles, when the integrator integrates rotational DOF (else 0)."""
+        self._require_attached("rotational_degrees_of_freedom")
+        if not self._sim._rotational():
+            return 0.0
+        active = self._sim._synced_state().moment_inertia > 1e-12
+        return float(active[self._mask].sum())
+
+    @log(requires_run=True)
+    def rotational_kinetic_energy(self) -> float:
+        """Sum of L_body^2 / (2 I) over the group's rotating particles."""
+        self._require_attached("rotational_kinetic_energy")
+        if not self._sim._rotational():
+            return 0.0
+        state = self._sim._synced_state()
+        L = R.body_angular_momentum(state.orientation, state.angmom)
+        inertia = state.moment_inertia
+        active = (inertia > 1e-12) & self._mask[:, None]
+        return float(0.5 * torch.sum(torch.where(active, L * L / torch.clamp_min(inertia, 1e-12),
+                                                 0.0)))
+
+    @log(requires_run=True)
     def kinetic_temperature(self) -> float:
-        """2 KE / DOF over the translational modes."""
-        return 2.0 * self.kinetic_energy / self.translational_degrees_of_freedom
+        """2 KE / DOF over the translational and rotational modes."""
+        dof = self.translational_degrees_of_freedom
+        ke = self.kinetic_energy
+        rdof = self.rotational_degrees_of_freedom
+        if rdof > 0:
+            ke += self.rotational_kinetic_energy
+            dof += rdof
+        return 2.0 * ke / dof
 
     @log(requires_run=True)
     def potential_energy(self) -> float:

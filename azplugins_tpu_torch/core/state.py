@@ -128,26 +128,30 @@ def state_to_snapshot(state: State, particle_types, bond_types) -> Snapshot:
     return snap
 
 
-def thermalize_momenta(state: State, kT: float, seed: int, mask=None) -> State:
-    """Draw Maxwell-Boltzmann velocities and remove the group's net momentum.
-
-    Box-Muller over Threefry words of stream THERMALIZE at timestep 0, as
-    the reference. Rotational momenta belong to a later slice: a state
-    with non-zero moments of inertia is refused.
-    """
-    if bool((state.moment_inertia > 0).any()):
-        raise NotImplementedError(
-            "thermalizing angular momenta is not ported yet (ROADMAP slice 10)"
-        )
-    n = state.N
-    words = particle_bits(Stream.THERMALIZE, seed, 0, state.tag, n_words=8)
+def _gaussians(stream: int, seed: int, tag: torch.Tensor) -> torch.Tensor:
+    """[N, 3] standard normals: Box-Muller over the Threefry words of
+    ``stream`` at timestep 0, as the reference draws them."""
+    words = particle_bits(stream, seed, 0, tag, n_words=8)
     eps = float(np.float32(1.1754944e-38))
     gauss = []
     for k in range(3):
         u1 = torch.clamp_min(uniform_from_bits(words[2 * k], 0.0, 1.0), eps)
         u2 = uniform_from_bits(words[2 * k + 1], 0.0, 1.0)
         gauss.append(torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2))
-    gauss = torch.stack(gauss, dim=-1)
+    return torch.stack(gauss, dim=-1)
+
+
+def thermalize_momenta(state: State, kT: float, seed: int, mask=None) -> State:
+    """Draw Maxwell-Boltzmann velocities and remove the group's net momentum;
+    draw angular momenta for particles with non-zero moments of inertia.
+
+    Box-Muller over Threefry words of stream THERMALIZE (THERMALIZE_ANGULAR
+    for the body-frame angular momenta, ``L_k = g sqrt(kT I_k)`` on each
+    axis with ``I_k > 0``, stored as ``p = 2 q (0, L)``) at timestep 0, as
+    the reference.
+    """
+    n = state.N
+    gauss = _gaussians(Stream.THERMALIZE, seed, state.tag)
     sigma = torch.sqrt(float(np.float32(kT)) / state.mass)[:, None]
     vel = gauss * sigma
     if mask is None:
@@ -156,4 +160,17 @@ def thermalize_momenta(state: State, kT: float, seed: int, mask=None) -> State:
     mom = torch.sum(vel * state.mass[:, None] * mask_f, dim=0)
     mtot = torch.sum(state.mass * mask_f[:, 0])
     vel = vel - (mom / mtot)[None, :]
-    return state.replace(velocity=torch.where(mask[:, None], vel, state.velocity))
+    state = state.replace(velocity=torch.where(mask[:, None], vel, state.velocity))
+
+    inertia = state.moment_inertia
+    if bool((inertia > 0).any()):
+        from ..md import rotation as R
+
+        gauss_r = _gaussians(Stream.THERMALIZE_ANGULAR, seed, state.tag)
+        active = inertia > 1e-12
+        L_body = torch.where(active, gauss_r * torch.sqrt(float(np.float32(kT)) * inertia), 0.0)
+        zeros = torch.zeros((n, 1), dtype=torch.float32, device=state.device)
+        p = 2.0 * R.quat_mul(state.orientation, torch.cat([zeros, L_body], dim=-1))
+        rotating = mask & active.any(dim=-1)
+        state = state.replace(angmom=torch.where(rotating[:, None], p, state.angmom))
+    return state

@@ -23,6 +23,7 @@ __all__ = [
     "grid_spec_from_reference",
     "grid_meta_from_reference",
     "pair_tables_from_reference",
+    "aniso_tables_from_reference",
     "bond_tables_from_reference",
 ]
 
@@ -85,6 +86,16 @@ def pair_tables_from_reference(ref_tbl: dict, device) -> dict:
                    for k, v in ref_tbl["params"].items()},
         "r_cut": _tensor(np.asarray(ref_tbl["r_cut"], np.float32), device),
         "r_on": _tensor(np.asarray(ref_tbl["r_on"], np.float32), device),
+    }
+
+
+def aniso_tables_from_reference(ref_tbl: dict, device) -> dict:
+    """A reference anisotropic force's tables (``{"params", "r_cut"}``; it
+    has no ``r_on``) as the port's device tables."""
+    return {
+        "params": {k: _tensor(np.asarray(v, np.float32), device)
+                   for k, v in ref_tbl["params"].items()},
+        "r_cut": _tensor(np.asarray(ref_tbl["r_cut"], np.float32), device),
     }
 
 

@@ -1,4 +1,4 @@
-from . import bond, filter, methods, nlist, pair  # noqa: A004
+from . import bond, filter, methods, nlist, pair, rotation  # noqa: A004
 from .integrate import Integrator
 
-__all__ = ["Integrator", "bond", "filter", "methods", "nlist", "pair"]
+__all__ = ["Integrator", "bond", "filter", "methods", "nlist", "pair", "rotation"]

@@ -30,6 +30,10 @@ class Force:
     """Base class for all force computes."""
 
     _needs_nlist = False
+    # an anisotropic force returns torques (ForceResult.torque) and reads the
+    # orientations of both members of a pair
+    _produces_torque = False
+    _needs_quat_j = False
 
     def __init__(self):
         self._attached = False
@@ -84,6 +88,14 @@ class Force:
     def virials(self) -> np.ndarray:
         """Per-particle virial tensor components (tag order)."""
         return self._result().virial.cpu().numpy()
+
+    @log(category="particle", requires_run=True, default=False)
+    def torques(self) -> np.ndarray:
+        """Per-particle torques (zero for isotropic forces)."""
+        r = self._result()
+        if r.torque is None:
+            return np.zeros((r.force.shape[0], 3), dtype=np.float32)
+        return r.torque.cpu().numpy()
 
 
 def build_pair_tables(def_, params: TypeParameter, types: list[str]) -> dict:

@@ -1,11 +1,14 @@
 """Integration methods: NVE and Langevin (with an optional flow field).
 
-Port of the translational part of ``azplugins_tpu/md/methods.py``.
-ConstantVolume is velocity Verlet; LangevinFlow takes the drag relative to
-a flow velocity u(r) and draws a uniform random force with coefficient
-sqrt(6 gamma kT / dt) per particle from Threefry (bitwise the reference's
-noise); Langevin is LangevinFlow with u = 0. Rotational integration is
-ROADMAP slice 10: attaching with ``integrate_rotational_dof=True`` raises.
+Port of ``azplugins_tpu/md/methods.py`` (ConstantVolume and the Langevin
+pair; the Brownian methods are a later slice). ConstantVolume is velocity
+Verlet; LangevinFlow takes the drag relative to a flow velocity u(r) and
+draws a uniform random force with coefficient sqrt(6 gamma kT / dt) per
+particle from Threefry (bitwise the reference's noise); Langevin is
+LangevinFlow with u = 0. With ``integrate_rotational_dof=True`` on the
+integrator, every method also integrates orientations and angular momenta
+(NO_SQUISH, md/rotation.py), and Langevin thermostats them with body-frame
+friction gamma_r and noise from its own Threefry stream.
 
 Protocol, driven by the Simulation's step loop:
     step1(state, dt, timestep, seed): drift half of the update
@@ -24,6 +27,7 @@ import torch
 from ..core import rng as _rng
 from ..core.typeparam import TypeParameter
 from ..core.variant import as_variant
+from . import rotation as R
 from .filter import All, ParticleFilter
 
 __all__ = ["Method", "ConstantVolume", "Langevin", "LangevinFlow"]
@@ -37,12 +41,12 @@ class Method:
     def __init__(self, filter: ParticleFilter | None = None):
         self.filter = filter if filter is not None else All()
         self._select = None  # selector, bound at attach
+        self._rotational = False  # set at attach from the integrator flag
 
     def _attach(self, sim):
-        integ = sim.operations.integrator
-        if integ is not None and integ.integrate_rotational_dof:
-            raise NotImplementedError("rotational integration is ROADMAP slice 10")
         self._select = self.filter.bind(sim._particle_types)
+        integ = sim.operations.integrator
+        self._rotational = bool(integ is not None and integ.integrate_rotational_dof)
 
     def _where(self, state, new, old):
         # empty slots (tag < 0, dense layout) must never move: their far
@@ -59,18 +63,42 @@ class Method:
     def step1(self, state, dt, timestep, seed):
         vel_half = state.velocity + (0.5 * dt) * state.acceleration
         pos = state.position + dt * vel_half
-        return state.replace(
+        state = state.replace(
             position=self._where(state, pos, state.position),
             velocity=self._where(state, vel_half, state.velocity),
         )
+        if self._rotational:
+            state = self._rot_step1(state, dt)
+        return state
 
     def step2(self, state, dt, timestep, seed):
         accel = state.net_force / state.mass[:, None]
         vel = state.velocity + (0.5 * dt) * accel
-        return state.replace(
+        state = state.replace(
             velocity=self._where(state, vel, state.velocity),
             acceleration=self._where(state, accel, state.acceleration),
         )
+        if self._rotational:
+            state = self._rot_step2(state, dt)
+        return state
+
+    # Rotational velocity Verlet (NO_SQUISH). step1 kicks the angular
+    # momentum by dt/2 with the STORED torques (from the previous step, like
+    # the stored acceleration), then rotates freely for dt; step2 kicks with
+    # the fresh torques in state.net_torque.
+    def _rot_step1(self, state, dt):
+        q, p, inertia = state.orientation, state.angmom, state.moment_inertia
+        p = R.angmom_kick(q, p, state.net_torque, inertia, dt)
+        q, p = R.free_rotation(q, p, inertia, dt)
+        return state.replace(
+            orientation=self._where(state, q, state.orientation),
+            angmom=self._where(state, p, state.angmom),
+        )
+
+    def _rot_step2(self, state, dt):
+        p = R.angmom_kick(state.orientation, state.angmom, state.net_torque,
+                          state.moment_inertia, dt)
+        return state.replace(angmom=self._where(state, p, state.angmom))
 
 
 class ConstantVolume(Method):
@@ -97,15 +125,24 @@ class LangevinFlow(Method):
         self.flow_field = flow_field
         self.noiseless = bool(noiseless)
         self.gamma = TypeParameter("gamma", 1, None, float, default=float(default_gamma))
+        self.gamma_r = TypeParameter("gamma_r", 1, None, float, default=1.0)
 
     def _attach(self, sim):
         super()._attach(sim)
-        table = np.asarray(self.gamma.to_scalar_table(sim._particle_types), dtype=np.float32)
-        self._gamma_table = torch.as_tensor(table, device=sim.device)
+
+        def table(param):
+            t = np.asarray(param.to_scalar_table(sim._particle_types), dtype=np.float32)
+            return torch.as_tensor(t, device=sim.device)
+
+        self._gamma_table = table(self.gamma)
+        self._gamma_r_table = table(self.gamma_r)
 
     def _gamma_of(self, state):
         # typeid is permuted (and -1 on empty slots) in the dense layout
         return self._gamma_table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
+
+    def _gamma_r_of(self, state):
+        return self._gamma_r_table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
 
     def step2(self, state, dt, timestep, seed):
         gp = self._gamma_of(state)
@@ -123,9 +160,41 @@ class LangevinFlow(Method):
         bd_force = random_force - gp[:, None] * rel_vel
         accel = (state.net_force + bd_force) / state.mass[:, None]
         vel = state.velocity + (0.5 * dt) * accel
-        return state.replace(
+        state = state.replace(
             velocity=self._where(state, vel, state.velocity),
             acceleration=self._where(state, accel, state.acceleration),
+        )
+        if self._rotational:
+            state = self._rot_step2_langevin(state, dt, timestep, seed, kT)
+        return state
+
+    def _rot_step2_langevin(self, state, dt, timestep, seed, kT):
+        """Second rotational half-kick with body-frame friction and noise.
+
+        The BD torque (body frame) is sqrt(6 gamma_r kT / dt) U(-1, 1) per
+        axis minus gamma_r omega_body, rotated to the lab frame and added to
+        the conservative torque for the dt/2 kick. The EFFECTIVE torque
+        (conservative + BD) is stored in net_torque so the next step1
+        half-kick reuses it, as the stored acceleration carries F_BD;
+        without it the noise acts over dt/2 only and the rotational
+        temperature settles at kT/2.
+        """
+        q, p, inertia = state.orientation, state.angmom, state.moment_inertia
+        active = inertia > 1e-12
+        L_body = R.body_angular_momentum(q, p)
+        omega = torch.where(active, L_body / torch.clamp_min(inertia, 1e-12), 0.0)
+        gr = self._gamma_r_of(state)[:, None]
+        if self.noiseless or dt <= 0:
+            rand = torch.zeros_like(omega)
+        else:
+            u = _rng.particle_uniform3(_rng.Stream.LANGEVIN_ANGULAR, seed, timestep, state.tag)
+            rand = torch.sqrt(6.0 * gr * kT / dt) * u
+        bd_body = torch.where(active, rand - gr * omega, 0.0)
+        torque = state.net_torque + R.rotate(q, bd_body)
+        p = R.angmom_kick(q, p, torque, inertia, dt)
+        return state.replace(
+            angmom=self._where(state, p, state.angmom),
+            net_torque=self._where(state, torque, state.net_torque),
         )
 
 

@@ -9,8 +9,9 @@ pair::
 
 Shift modes follow HOOMD semantics (``none``/``shift``/``xplor``). On a
 CUDA device the isotropic potentials run through the hand-written kernel
-of ops/pair_kernel.py, and DPD through that of ops/dpd_kernel.py.
-TwoPatchMorse (anisotropic, with torques) is not ported yet.
+of ops/pair_kernel.py, DPD through that of ops/dpd_kernel.py and the
+anisotropic TwoPatchMorse (force and torques) through that of
+ops/aniso_kernel.py.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import torch
 
 from ..core.typeparam import TypeParameter
 from ..core.variant import as_variant
+from ..ops.aniso_kernel import aniso_force, aniso_kernel_tables
 from ..ops.dpd_kernel import dpd_force
-from ..ops.evaluators import PAIR_POTENTIALS
+from ..ops.evaluators import ANISO_PAIR_POTENTIALS, PAIR_POTENTIALS
 from ..ops.pair_kernel import kernel_tables, pair_force
 from .force import Force, build_pair_tables
 from .nlist import Cell
@@ -192,13 +194,57 @@ class DPDGeneralWeight(Pair):
 
 
 class TwoPatchMorse(Force):
-    """Anisotropic two-patch Morse potential: not ported yet.
+    """Anisotropic two-patch Morse potential (forces and torques).
 
-    It needs the rotational integration of ROADMAP slice 10 and the CUDA
-    kernel B4 (the reference's ``_pallas_half_aniso_force``).
+    Parity: reference plugin ``src/pair.py:429-525`` and
+    ``src/AnisoPairEvaluatorTwoPatchMorse.h:127-216``. Params per pair:
+    ``M_d``, ``M_r``, ``r_eq``, ``omega``, ``alpha``, ``repulsion``; modes
+    none/shift, ``r_cut`` per type pair. The shift subtracts the raw Morse
+    energy at the cutoff scaled by both patch alignments (the torques do
+    not see it, as in the reference plugin).
     """
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TwoPatchMorse is not ported yet: ROADMAP slice 10 with kernel B4"
+    _needs_nlist = True
+    _produces_torque = True
+    _needs_quat_j = True
+    _accepted_modes = ("none", "shift")
+
+    def __init__(self, nlist: Cell, default_r_cut=None, mode="none"):
+        super().__init__()
+        if mode not in self._accepted_modes:
+            raise ValueError(f"mode must be one of {self._accepted_modes}")
+        if not isinstance(nlist, Cell):
+            raise TypeError("nlist must be an azplugins_tpu_torch.md.nlist.Cell")
+        self.nlist = nlist
+        self.mode = mode
+        self._def = ANISO_PAIR_POTENTIALS["TwoPatchMorse"]
+        self.params = TypeParameter("params", 2, self._def.spec)
+        self.r_cut = TypeParameter(
+            "r_cut", 2, None, float, default=None if default_r_cut is None else float(default_r_cut)
         )
+
+    def _build_tables(self, sim):
+        types = sim._particle_types
+        self._tbl = {
+            "params": build_pair_tables(self._def, self.params, types),
+            "r_cut": np.asarray(self.r_cut.to_scalar_table(types), dtype=np.float32),
+        }
+
+    def _device_tables(self, device) -> dict:
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+
+        tbl = {"params": {k: dev(v) for k, v in self._tbl["params"].items()},
+               "r_cut": dev(self._tbl["r_cut"])}
+        if torch.device(device).type == "cuda":
+            tbl["kernel"] = aniso_kernel_tables(tbl["params"], tbl["r_cut"], self.mode)
+            tbl["kernel_mode"] = self.mode
+        return tbl
+
+    def _max_r_cut(self) -> float:
+        if not hasattr(self, "_tbl"):
+            raise RuntimeError("not attached")
+        return float(self._tbl["r_cut"].max())
+
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all"):
+        return aniso_force(self._def.energy_force_torque, dense, spec, tbl, self.mode, want)

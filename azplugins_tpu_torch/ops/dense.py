@@ -7,12 +7,14 @@ Port of ``azplugins_tpu/ops/dense.py``.
   * Rebinning (the Verlet-buffer rebuild) is one fused-key sort plus row
     gathers of a packed int32 payload. The slot layout is bitwise the
     reference's: same keys, same stable order, same float32 cell ids.
-  * :func:`dense_pair_force` and :func:`dense_dpd_force` are the plain
-    PyTorch pair and DPD forces over the stencil (half stencil with
-    Newton's third law on grids with >= 3 cells per axis, full stencil with
-    minimum image otherwise), both through one driver, ``_stencil_sum``.
-    They serve CPU tensors and are what the CUDA kernels
-    (ops/pair_kernel.py, ops/dpd_kernel.py) are held against on the card.
+  * :func:`dense_pair_force`, :func:`dense_dpd_force` and
+    :func:`dense_aniso_force` are the plain PyTorch pair, DPD and
+    anisotropic (force and torque) forces over the stencil (half stencil
+    with Newton's third law on grids with >= 3 cells per axis, full stencil
+    with minimum image otherwise), all through one stencil loop,
+    ``_stencil_drive``. They serve CPU tensors and are what the CUDA kernels
+    (ops/pair_kernel.py, ops/dpd_kernel.py, ops/aniso_kernel.py) are held
+    against on the card.
   * :func:`dense_bond_force` is the bond force (gather plus ``index_add_``
     through the tag->slot map) on every device.
 
@@ -47,6 +49,7 @@ __all__ = [
     "dense_pair_force",
     "dpd_sigma_table",
     "dense_dpd_force",
+    "dense_aniso_force",
     "dense_bond_force",
 ]
 
@@ -413,7 +416,7 @@ class JBlocks:
     periodic lattice shift of each wrapped neighbour cell, so ``xi - jx``
     is the true separation; otherwise pairs need minimum-image math.
     Velocities and tags ride along only for the forces that read them
-    (DPD), else they are None.
+    (DPD), quaternions only for the anisotropic force; else they are None.
     """
 
     x: torch.Tensor
@@ -426,6 +429,10 @@ class JBlocks:
     vx: torch.Tensor | None = None
     vy: torch.Tensor | None = None
     vz: torch.Tensor | None = None
+    qw: torch.Tensor | None = None
+    qx: torch.Tensor | None = None
+    qy: torch.Tensor | None = None
+    qz: torch.Tensor | None = None
 
 
 def _halo_pad(g: torch.Tensor, axis: int, shift_hi) -> torch.Tensor:
@@ -473,7 +480,8 @@ def _roll_cells(a: torch.Tensor, shift) -> torch.Tensor:
 
 
 def make_jblocks(dense: State, spec: GridSpec, half: bool = False,
-                 need_velocity: bool = False, need_tag: bool = False) -> JBlocks:
+                 need_velocity: bool = False, need_tag: bool = False,
+                 need_quat: bool = False) -> JBlocks:
     offsets = spec.half_stencil() if half else spec.stencil()
     preshifted = spec.newton_ok
     sx, sy, sz = _axis_shift_tables(dense.box) if preshifted else (None, None, None)
@@ -487,6 +495,9 @@ def make_jblocks(dense: State, spec: GridSpec, half: bool = False,
     if need_velocity:
         kw.update(vx=roll(dense.velocity[:, 0]), vy=roll(dense.velocity[:, 1]),
                   vz=roll(dense.velocity[:, 2]))
+    if need_quat:
+        kw.update(qw=roll(dense.orientation[:, 0]), qx=roll(dense.orientation[:, 1]),
+                  qy=roll(dense.orientation[:, 2]), qz=roll(dense.orientation[:, 3]))
     return JBlocks(
         x=roll(dense.position[:, 0], sx),
         y=roll(dense.position[:, 1], sy),
@@ -526,19 +537,24 @@ _J_FIELDS = {
     "vx": ("velocity", 0),
     "vy": ("velocity", 1),
     "vz": ("velocity", 2),
+    "qw": ("orientation", 0),
+    "qx": ("orientation", 1),
+    "qy": ("orientation", 2),
+    "qz": ("orientation", 3),
 }
 
 
-def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair,
-                 j_fields=("typeid",)) -> ForceResult:
-    """Sum a pair evaluation over the dense stencil (plain PyTorch).
+def _stencil_drive(dense: State, jb: JBlocks, spec: GridSpec, n_acc: int, pair_terms,
+                   j_fields=("typeid",)) -> tuple:
+    """Sum per-pair terms over the dense stencil (plain PyTorch).
 
-    ``eval_pair(dx, dy, dz, rsq, mask, j)`` receives one batch of pairs
-    ([C, cap, cap] separations, i minus j, and the base mask of valid
-    slot pairs) and the j-side fields named in ``j_fields`` as
-    [C, 1, cap] tensors; it returns ``(f_divr, energy, f_virial_divr,
-    mask)``. Each slot gets the masked sums of ``f_divr * d`` (force),
-    ``energy / 2`` and ``f_virial_divr * d d / 2`` (virial, "all" only).
+    ``pair_terms(dx, dy, dz, rsq, mask, j, newton)`` receives one batch of
+    pairs ([C, cap, cap] separations, i minus j, and the base mask of valid
+    slot pairs) and the j-side fields named in ``j_fields`` as [C, 1, cap]
+    tensors. It returns ``(i_terms, j_terms)``: ``n_acc`` masked
+    [C, cap, cap] tensors each, what the pair adds to its i and to its j
+    member. ``j_terms`` is read only with ``newton`` (the half stencil) and
+    may be None otherwise. Returns ``n_acc`` per-slot sums, each [C, cap].
 
     Every pair is masked by slot validity, so one path serves orthorhombic
     and tilted boxes (the reference's maskless sentinel path gives the same
@@ -550,7 +566,6 @@ def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair
     pairs every slot with every neighbour under minimum image.
     """
     C, cap = spec.n_cells, spec.cap
-    n_acc = _n_acc(want)
 
     def i_view(a):
         return a.reshape(C, cap, 1)
@@ -566,24 +581,11 @@ def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair
     xi, yi, zi = (i_view(dense.position[:, k]) for k in range(3))
     valid_i = i_view(dense.tag >= 0)
 
-    def terms(dx, dy, dz, rsq, mask, j):
-        """Masked per-pair terms as the i side sees them."""
-        f, e, fv, mask = eval_pair(dx, dy, dz, rsq, mask, j)
-        f = torch.where(mask, f, 0.0)
-        out = [f * dx, f * dy, f * dz]
-        if want == "all":
-            w = 0.5 * torch.where(mask, fv, 0.0)
-            out += [0.5 * torch.where(mask, e, 0.0), w * dx * dx, w * dx * dy, w * dx * dz,
-                    w * dy * dy, w * dy * dz, w * dz * dz]
-        return out
-
     def isum(carry, t):
         return tuple(c + torch.sum(a, dim=-1) for c, a in zip(carry, t))
 
     def jsum(t):
-        """j side of the same terms: force negated, energy and virial equal."""
-        cols = [-torch.sum(a, dim=1) for a in t[:3]] + [torch.sum(a, dim=1) for a in t[3:]]
-        return torch.stack(cols, dim=-1)  # [C, cap, n_acc]
+        return torch.stack([torch.sum(a, dim=1) for a in t], dim=-1)  # [C, cap, n_acc]
 
     carry = tuple(
         torch.zeros((C, cap), dtype=torch.float32, device=dense.device) for _ in range(n_acc)
@@ -598,8 +600,8 @@ def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair
             rsq = dx * dx + dy * dy + dz * dz
             j = {name: getattr(jb, name)[k][:, None, :] for name in j_fields}
             mask = (rsq > 0) & valid_i & (j["typeid"] >= 0)
-            carry = isum(carry, terms(dx, dy, dz, rsq, mask, j))
-        return _finish(carry, spec.S)
+            carry = isum(carry, pair_terms(dx, dy, dz, rsq, mask, j, False)[0])
+        return carry
 
     Dx, Dy, Dz = spec.dims
     rolled = []
@@ -609,9 +611,9 @@ def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair
         dz = zi - jb.z[k][:, None, :]
         rsq = dx * dx + dy * dy + dz * dz
         j = {name: getattr(jb, name)[k][:, None, :] for name in j_fields}
-        t = terms(dx, dy, dz, rsq, valid_i & (j["typeid"] >= 0), j)
-        carry = isum(carry, t)
-        g = jsum(t).reshape(Dx, Dy, Dz, cap, n_acc)
+        ti, tj = pair_terms(dx, dy, dz, rsq, valid_i & (j["typeid"] >= 0), j, True)
+        carry = isum(carry, ti)
+        g = jsum(tj).reshape(Dx, Dy, Dz, cap, n_acc)
         rolled.append(_roll_cells(g, o).reshape(C, cap, n_acc))
 
     # self cell: strict upper triangle (i < j within the cell)
@@ -622,12 +624,38 @@ def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair
     dz = zi - self_view(dense.position[:, 2])
     rsq = dx * dx + dy * dy + dz * dz
     mask0 = valid_i & self_view(dense.tag >= 0) & tri
-    t = terms(dx, dy, dz, rsq, mask0, {name: self_view(dense_field(name)) for name in j_fields})
-    carry = isum(carry, t)
-    jacc = jsum(t)
+    j0 = {name: self_view(dense_field(name)) for name in j_fields}
+    ti, tj = pair_terms(dx, dy, dz, rsq, mask0, j0, True)
+    carry = isum(carry, ti)
+    jacc = jsum(tj)
     for r in rolled:
         jacc = jacc + r
-    return _finish(tuple(carry[i] + jacc[..., i] for i in range(n_acc)), spec.S)
+    return tuple(carry[i] + jacc[..., i] for i in range(n_acc))
+
+
+def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair,
+                 j_fields=("typeid",)) -> ForceResult:
+    """Sum a central pair evaluation over the dense stencil.
+
+    ``eval_pair(dx, dy, dz, rsq, mask, j)`` (the arguments of
+    ``_stencil_drive``'s ``pair_terms``) returns ``(f_divr, energy,
+    f_virial_divr, mask)``. Each slot gets the masked sums of ``f_divr * d``
+    (force), ``energy / 2`` and ``f_virial_divr * d d / 2`` (virial, "all"
+    only); the j member of a pair gets the force negated, the energy and
+    virial equal.
+    """
+
+    def terms(dx, dy, dz, rsq, mask, j, newton):
+        f, e, fv, mask = eval_pair(dx, dy, dz, rsq, mask, j)
+        f = torch.where(mask, f, 0.0)
+        out = [f * dx, f * dy, f * dz]
+        if want == "all":
+            w = 0.5 * torch.where(mask, fv, 0.0)
+            out += [0.5 * torch.where(mask, e, 0.0), w * dx * dx, w * dx * dy, w * dx * dz,
+                    w * dy * dy, w * dy * dz, w * dz * dz]
+        return out, ([-a for a in out[:3]] + out[3:] if newton else None)
+
+    return _finish(_stencil_drive(dense, jb, spec, _n_acc(want), terms, j_fields), spec.S)
 
 
 def _finish(carry, S: int) -> ForceResult:
@@ -762,6 +790,83 @@ def dense_dpd_force(
 
     return _stencil_sum(dense, jb, spec, want, eval_dpd,
                         j_fields=("typeid", "tag", "vx", "vy", "vz"))
+
+
+# ---------------------------------------------------------------------------
+# Plain anisotropic force (force and per-side torques)
+# ---------------------------------------------------------------------------
+def dense_aniso_force(
+    energy_force_torque_fn,
+    dense: State,
+    jb: JBlocks,
+    spec: GridSpec,
+    tables: dict,
+    r_cut_table: torch.Tensor,
+    mode: str = "none",
+    want: str = "all",
+) -> ForceResult:
+    """Anisotropic pair potential (force and torque) over the dense stencil.
+
+    Port of the reference ``dense_aniso_force``. ``jb`` must carry the
+    quaternions (``make_jblocks(..., need_quat=True)``). ``want="force"``
+    keeps force AND torque (the integrator reads both) and drops energy and
+    virial. With ``jb.half`` each unordered pair is evaluated once, in its
+    i member's frame: the j member gets ``-f`` (Newton) and its OWN torque
+    ``tj`` from the evaluator (torques are not antisymmetric; reference
+    plugin AnisoPairEvaluatorTwoPatchMorse.h:179-192); the virial ``0.5 dx
+    f`` is the same for both members (dx and f both flip). Modes none and
+    shift; the shift subtracts the raw Morse energy at the cutoff scaled by
+    both alignments, so it is no constant offset.
+    """
+    if mode not in ("none", "shift"):
+        raise ValueError(f"unknown shift mode {mode!r} for an anisotropic potential")
+    if want not in ("force", "all"):
+        raise ValueError(f"want must be 'force' or 'all', got {want!r}")
+    T = r_cut_table.shape[0]
+    C, cap = spec.n_cells, spec.cap
+
+    def i_view(a):
+        return a.reshape(C, cap, 1)
+
+    t_i = i_view(dense.typeid)
+    quat_i = tuple(i_view(dense.orientation[:, k]) for k in range(4))
+
+    def terms(dx, dy, dz, rsq, mask, j, newton):
+        t_j = j["typeid"]
+        p = _pair_params(tables, t_i, t_j, T)
+        rcut = _pair_params({"r": r_cut_table}, t_i, t_j, T)["r"]
+        rcutsq = rcut * rcut
+        mask = mask & (rsq > 0) & (rsq < rcutsq)
+        dxyz = (torch.where(mask, dx, 1.0), torch.where(mask, dy, 0.0),
+                torch.where(mask, dz, 0.0))
+        quat_j = (j["qw"], j["qx"], j["qy"], j["qz"])
+        e, f, ti, tj = energy_force_torque_fn(
+            dxyz, quat_i, quat_j, torch.where(rcut > 0, rcutsq, 4.0), p, mode == "shift"
+        )
+
+        def m(v):
+            return torch.where(mask, v, 0.0)
+
+        fx, fy, fz = m(f[0]), m(f[1]), m(f[2])
+        shared = []
+        if want == "all":
+            shared = [0.5 * m(e), 0.5 * (dx * fx), 0.5 * (dx * fy), 0.5 * (dx * fz),
+                      0.5 * (dy * fy), 0.5 * (dy * fz), 0.5 * (dz * fz)]
+        i_out = [fx, fy, fz, m(ti[0]), m(ti[1]), m(ti[2])] + shared
+        if not newton:
+            return i_out, None
+        return i_out, [-fx, -fy, -fz, m(tj[0]), m(tj[1]), m(tj[2])] + shared
+
+    n_acc = 6 if want == "force" else 13
+    carry = _stencil_drive(dense, jb, spec, n_acc, terms,
+                           j_fields=("typeid", "qw", "qx", "qy", "qz"))
+    parts = tuple(a.reshape(spec.S) for a in carry)
+    force = torch.stack(parts[:3], dim=-1)
+    torque = torch.stack(parts[3:6], dim=-1)
+    if want == "force":
+        return ForceResult(force=force, energy=None, virial=None, torque=torque)
+    return ForceResult(force=force, energy=parts[6], virial=torch.stack(parts[7:13], dim=-1),
+                       torque=torque)
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,3 @@
+from .aniso import ANISO_PAIR_POTENTIALS, AnisoPairPotentialDef, two_patch_morse  # noqa: F401
 from .bond import BOND_POTENTIALS, BondPotentialDef  # noqa: F401
 from .pair import PAIR_POTENTIALS, PairPotentialDef, perturbed_lennard_jones  # noqa: F401

@@ -76,10 +76,10 @@ KERNEL_POTENTIALS = {
 _POTENTIAL_ID = {name: i for i, name in enumerate(KERNEL_POTENTIALS)}
 _NAME_OF_EVALUATOR = {PAIR_POTENTIALS[n].energy_force: n for n in KERNEL_POTENTIALS}
 _N_LEAD = 3  # rcutsq, ecut, ronsq precede the parameters (csrc enum Tab)
-_ROADMAP_B4 = (
+_NO_KERNEL = (
     "no CUDA pair kernel for this potential: every isotropic potential runs in "
-    "csrc/cell_pair_force.cu; the anisotropic TwoPatchMorse is ROADMAP queue B item B4 "
-    "(slice 10)"
+    "csrc/cell_pair_force.cu, the anisotropic TwoPatchMorse in csrc/cell_aniso_force.cu "
+    "(ops/aniso_kernel.py)"
 )
 
 
@@ -96,7 +96,7 @@ def kernel_tables(potential: str, params: dict, r_cut: torch.Tensor,
     (ecut 0, ronsq r_on^2) and shifts plainly elsewhere, HOOMD's rule.
     """
     if potential not in KERNEL_POTENTIALS:
-        raise NotImplementedError(_ROADMAP_B4)
+        raise NotImplementedError(_NO_KERNEL)
     rcutsq = r_cut * r_cut
     ecut, _ = PAIR_POTENTIALS[potential].energy_force(
         torch.where(rcutsq > 0, rcutsq, 4.0), rcutsq, params
@@ -179,7 +179,7 @@ def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor, potentia
     global launches
     dev = check_cell_args("cell_pair_force", dense, spec, want)
     if potential not in _POTENTIAL_ID:
-        raise NotImplementedError(_ROADMAP_B4)
+        raise NotImplementedError(_NO_KERNEL)
     if mode not in ("none", "shift", "xplor"):
         raise ValueError(f"unknown shift mode {mode!r}")
     S, T = spec.S, tables.shape[-1]
@@ -227,7 +227,7 @@ def pair_force(energy_force_fn, dense: State, spec: GridSpec, tbl: dict,
         raise ValueError(f"no pair force for device {dev}")
     name = _NAME_OF_EVALUATOR.get(energy_force_fn)
     if name is None:
-        raise NotImplementedError(_ROADMAP_B4)
+        raise NotImplementedError(_NO_KERNEL)
     if "kernel" not in tbl:
         raise ValueError("CUDA pair force needs tbl['kernel'] from kernel_tables()")
     return cell_pair_force(dense, spec, tbl["kernel"], name, mode, want)

@@ -3,9 +3,15 @@
 Port of ``azplugins_tpu/simulation.py`` (state management, attach, the
 dense layout, the step loop with its rebuild schedule and transactional
 replays, and the force observables; writers, updaters, MPCD, spatial
-decomposition and the capacity auto-tune are later slices). Pair, DPD and
-bond forces all take the dense state and the tag->slot map; a run without
-pair forces keeps tag order, with the identity map.
+decomposition and the capacity auto-tune are later slices). Pair, DPD,
+anisotropic and bond forces all take the dense state and the tag->slot
+map; a run without pair forces keeps tag order, with the identity map.
+With ``integrate_rotational_dof``, ``net_torque`` is set every step, beside
+the net force, to the sum of the torques of the forces that produce them.
+
+The simulation runs on the device it is given, and on the GPU
+(``"cuda"``) by default: without CUDA the default raises, and the CPU is
+used only when asked for (``device="cpu"``).
 
 Each step runs, as the reference's: methods.step1 -> Verlet drift check ->
 forces -> methods.step2, in the dense cell-slot layout of ops/dense.py. The
@@ -84,7 +90,14 @@ class Simulation:
     """Owns state and operations on one device and drives the step loop."""
 
     def __init__(self, device=None, seed: int = 0):
-        self.device = torch.device(device if device is not None else "cpu")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Simulation() runs on the GPU by default and no CUDA device is available; "
+                    'pass device="cpu" to run on the CPU'
+                )
+            device = "cuda"
+        self.device = torch.device(device)
         self.seed = int(seed) & 0xFFFF
         self.operations = Operations()
         self._state: State | None = None  # tag order (may be stale vs dense)
@@ -214,18 +227,25 @@ class Simulation:
     def _select_fields(self) -> tuple:
         """The optional rebin payload columns this run needs.
 
-        A column rides the rebin only if the state carries non-default
-        values (nothing in the engine mutates mass, charge, diameter or
-        orientation mid-run); dropped columns are rebuilt from defaults.
+        A column rides the rebin if some attached operation reads or moves
+        it (quaternions for an anisotropic force; orientations, angular
+        momenta, inertia and the stored torque when rotational DOF are
+        integrated, even from their defaults) or the state carries
+        non-default values; dropped columns are rebuilt from defaults.
         """
         state = self._synced_state()
         fields = []
         if bool((state.mass != 1.0).any()):
             fields.append("mass")
         quat0 = torch.tensor([1.0, 0.0, 0.0, 0.0], device=state.device)
-        if bool((state.orientation != quat0).any()):
+        need_quat = any(f._needs_quat_j for f in self._forces())
+        if need_quat or bool((state.orientation != quat0).any()):
             fields.append("quat")
-        if bool((state.angmom != 0.0).any()) or bool((state.moment_inertia != 0.0).any()):
+        if (
+            self._rotational()
+            or bool((state.angmom != 0.0).any())
+            or bool((state.moment_inertia != 0.0).any())
+        ):
             fields.append("rotation")
             if "quat" not in fields:
                 fields.insert(fields.index("rotation"), "quat")
@@ -234,6 +254,10 @@ class Simulation:
         if bool((state.diameter != 1.0).any()):
             fields.append("diameter")
         return tuple(fields)
+
+    def _rotational(self) -> bool:
+        integ = self.operations.integrator
+        return bool(integ is not None and integ.integrate_rotational_dof)
 
     def _ctx(self) -> SimContext:
         return SimContext(dt=self.dt_ref(), seed=self.seed)
@@ -357,21 +381,37 @@ class Simulation:
             f._build_tables(self)
         return tuple(f._device_tables(self.device) for f in self._forces())
 
-    def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls) -> torch.Tensor:
+    def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls):
+        """The net force, and, when rotational DOF are integrated, the net
+        torque summed over the forces that produce one (zeros if none does;
+        else None). Resetting it every step matters even without a torque
+        force: Langevin stores its effective torque there, which must not
+        carry into the next step's sum."""
         net = torch.zeros((dense.N, 3), dtype=torch.float32, device=dense.device)
+        need_torque = self._rotational()
+        ntq = torch.zeros_like(net) if need_torque else None
         ctx = self._ctx()
         for f, tbl in zip(self._forces(), tbls):
             r = f._compute_dense(dense, self._grid_spec, meta.slot_of, t, ctx, tbl, want="force")
             net = net + r.force
+            if need_torque and r.torque is not None:
+                ntq = ntq + r.torque
             self.force_evaluations += 1
-        return net
+        return net, ntq
+
+    @staticmethod
+    def _set_net(dense: State, net, ntq) -> State:
+        if ntq is None:
+            return dense.replace(net_force=net)
+        return dense.replace(net_force=net, net_torque=ntq)
 
     def _prepare(self):
-        """Compute initial forces and accelerations (HOOMD's pre-run prep)."""
+        """Compute initial forces, accelerations and torques (HOOMD's pre-run prep)."""
         self._ensure_dense()
-        net = self._compute_net(self._dense, self._meta, self._timestep, self._force_tables())
+        net, ntq = self._compute_net(self._dense, self._meta, self._timestep,
+                                     self._force_tables())
         accel = net / self._dense.mass[:, None]
-        self._dense = self._dense.replace(net_force=net, acceleration=accel)
+        self._dense = self._set_net(self._dense, net, ntq).replace(acceleration=accel)
         self._state_stale = True
         self._prepared = True
 
@@ -401,7 +441,7 @@ class Simulation:
                 dense = m.step1(dense, dt, t, seed)
             if spec is not None:
                 viol = viol | D.needs_rebin(dense, meta, spec)
-            dense = dense.replace(net_force=self._compute_net(dense, meta, t, tbls))
+            dense = self._set_net(dense, *self._compute_net(dense, meta, t, tbls))
             for m in methods:
                 dense = m.step2(dense, dt, t, seed)
         return dense, meta, viol
@@ -505,7 +545,7 @@ class Simulation:
 
     # -- observables -----------------------------------------------------------
     def _compute_single_force(self, force) -> ForceResult:
-        """One force with energy and virial, in tag order."""
+        """One force with energy, virial and (anisotropic) torque, in tag order."""
         if not self._attached:
             self._attach()
         if not self._prepared:
@@ -525,4 +565,5 @@ class Simulation:
             out[dest] = x
             return out[:N]
 
-        return ForceResult(force=back(r.force), energy=back(r.energy), virial=back(r.virial))
+        return ForceResult(force=back(r.force), energy=back(r.energy), virial=back(r.virial),
+                           torque=back(r.torque))

@@ -8,10 +8,14 @@
    source, all at once, and prints each build's time and ptxas registers
    and spills;
 3. holds the pair kernel, for every isotropic potential in modes
-   none/shift/xplor, and the DPD kernel against their plain PyTorch
-   versions on the card: small orthorhombic, tilted, axis-under-3-cells and
-   two-type shapes, the polymer melt (32,000) and DPD fluid (21,952) at full
-   size, and the 64k headline; times each kernel against its plain version;
+   none/shift/xplor, the DPD kernel and the anisotropic (TwoPatchMorse
+   force and torque) kernel in modes none/shift against their plain
+   PyTorch versions on the card: small orthorhombic, tilted,
+   axis-under-3-cells and two-type shapes, the polymer melt (32,000), DPD
+   fluid (21,952) and patchy colloids (27,000) at full size, and the 64k
+   headline; times each kernel against its plain version and computes its
+   bound (the larger of its bytes over the memory rate and its operations
+   over the float32 rate, for this run's inputs);
 4. checks that Threefry and the Langevin noise are bitwise the same on the
    GPU and the CPU;
 5. runs, through the public API, each with the launch counts set to 0 just
@@ -21,6 +25,8 @@
    - the DPD fluid (BASELINE config 3, 21,952 particles, ConstantVolume);
    - the polymer melt (BASELINE config 2, 1,280 chains of 25, Quartic
      bonds + ExpandedYukawa, Langevin);
+   - the patchy colloids (BASELINE config 4, 27,000 TwoPatchMorse
+     particles, Langevin with NO_SQUISH rotation);
    - a short run of every other isotropic potential;
    and checks that every force evaluation went through a kernel and that
    the result is physical;
@@ -38,6 +44,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +58,30 @@ HEADLINE = dict(N_side=40, rho=0.85, seed=12345)
 MODES = ("none", "shift", "xplor")
 PAIR_REPLACES = "azplugins_tpu/ops/dense.py:1384"  # _pallas_half_pair_force
 DPD_REPLACES = "azplugins_tpu/ops/dense.py:1552"  # _pallas_half_dpd_force
+ANISO_REPLACES = "azplugins_tpu/ops/dense.py:1914"  # _pallas_half_aniso_force
+PATCHY = dict(M_d=1.5, M_r=0.05, r_eq=1.0, omega=20.0, alpha=0.4, repulsion=True)
+# the patchy path's warm-up steps and its kT band (PERF.md: the kT curve)
+PATCHY_WARM = 8000
+PATCHY_KT_BAND = 0.01
+
+# The least time the card could take for a kernel's work, for the bound:
+# H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
+# 67 TFLOP/s (NVIDIA's data sheet, at the 700 W limit).
+MEM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations of one pair evaluation on the force path (want="force"),
+# counted from the plain version's formulas with each exp, sqrt, divide,
+# pow and log as one: the evaluator, plus the geometry and the
+# accumulation that every pair needs (3 subtractions and 5 operations for
+# the separation and its square, the cutoff compare, 3 products for the
+# force and 3 additions into each member's sums: 18). DPD adds its 13-round
+# Threefry (~76 int32 operations, counted at the float32 rate) and the drag;
+# TwoPatchMorse its two patch rotations, three exps and the torques, and 6
+# more additions for them.
+OPS_PER_PAIR = {
+    "PerturbedLennardJones": 29, "LJ": 27, "Colloid": 33, "ExpandedYukawa": 31,
+    "Hertz": 31, "Morse": 32, "Gaussian": 23, "Yukawa": 28, "DPD": 130, "TwoPatchMorse": 170,
+}
 
 
 def _card() -> str:
@@ -84,11 +115,12 @@ def _cuda_time_ms(fn, reps: int, warm: int = 2) -> float:
 
 
 def _lattice_snapshot(az, counts, rho, jitter, seed, tilt=(0.0, 0.0, 0.0), n_types=1,
-                      clustered=False):
+                      clustered=False, quats=False):
     """A jittered simple-cubic lattice of counts[0] x counts[1] x counts[2]
     sites at number density rho, in a box of that shape (optionally tilted,
     optionally squeezed along x into uneven cell occupancies), with
-    normal(0, 1) velocities."""
+    normal(0, 1) velocities (and, with ``quats``, random unit
+    orientations)."""
     rng = np.random.default_rng(seed)
     N = int(np.prod(counts))
     a = (1.0 / rho) ** (1.0 / 3.0)
@@ -107,21 +139,51 @@ def _lattice_snapshot(az, counts, rho, jitter, seed, tilt=(0.0, 0.0, 0.0), n_typ
     snap.particles.position[:] = (f - 0.5) @ h.T + rng.normal(0.0, jitter, (N, 3))
     snap.particles.velocity[:] = rng.normal(0.0, 1.0, (N, 3))
     snap.particles.typeid[:] = rng.integers(0, n_types, N)
+    if quats:
+        q = rng.normal(size=(N, 4))
+        snap.particles.orientation[:] = q / np.linalg.norm(q, axis=1, keepdims=True)
     return snap
 
 
-def _dense_case(az, D, snap, r_cut, buffer, device, cap=None):
+def _dense_case(az, D, snap, r_cut, buffer, device, cap=None, fields=()):
     """Densify, growing the capacity from ``cap`` (default: the grid's own)
     until the configuration fits, as the simulation does on overflow."""
     state, types, _ = az.core.state_from_snapshot(snap, device)
     spec = D.GridSpec.create(state.box, state.N, r_cut, buffer)
     if cap is not None:
         spec = spec.replace(cap=cap)
-    dense, meta = D.densify(state, spec, fields=())
+    dense, meta = D.densify(state, spec, fields=fields)
     while bool(meta.overflow):
         spec = spec.replace(cap=int(np.ceil((int(meta.max_occ) + 1) / 8.0) * 8))
-        dense, meta = D.densify(state, spec, fields=())
+        dense, meta = D.densify(state, spec, fields=fields)
     return dense, spec, len(types)
+
+
+def _pairs_inside(D, dense, spec, r_cut):
+    """Unordered pairs within ``r_cut`` on this dense state (one type pair),
+    counted by the plain stencil loop: the pair work a kernel must do."""
+
+    def count(dx, dy, dz, rsq, mask, j, newton):
+        inside = (mask & (rsq > 0) & (rsq < r_cut * r_cut)).to(torch.float32)
+        return [inside], [torch.zeros_like(inside)]
+
+    jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
+    (n,) = D._stencil_drive(dense, jb, spec, 1, count)
+    total = float(n.double().sum())
+    return int(round(total if spec.newton_ok else total / 2))
+
+
+def _bound(dense, in_bytes, out_bytes, table_bytes, pairs, ops_per_pair):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the pair operations over the float32 rate. The bytes are what the
+    function must move: ``in_bytes`` of inputs for each occupied slot only
+    (an empty slot's position, type or orientation is never read), the
+    4-byte tag of every slot (which marks the occupied ones), ``out_bytes``
+    of outputs for every slot, and the tables, each once."""
+    S, N = dense.tag.numel(), int((dense.tag >= 0).sum())
+    t_bytes = (N * in_bytes + S * (4 + out_bytes) + table_bytes) / MEM_BYTES_PER_S
+    t_ops = pairs * ops_per_pair / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def potential_params(name: str, T: int, rng) -> dict:
@@ -285,6 +347,35 @@ def build_polymer(az, device, n_chains=1280, chain_len=25, rho=0.5, seed=14):
     return sim, [bonds, pairs]
 
 
+def build_patchy(az, device, n_side=30, a=1.5, seed=2):
+    """BASELINE config 4 (bench.py build_patchy): 30^3 patchy colloids on a
+    lattice of spacing 1.5 with random unit quaternions, moment of inertia
+    0.4, TwoPatchMorse (M_d 1.5, M_r 0.05, r_eq 1, omega 20, alpha 0.4,
+    repulsion, r_cut 1.6, mode shift, buffer 0.3), Langevin kT 0.3, gamma 1
+    (gamma_r 1), dt 0.002, rotational DOF integrated."""
+    N = n_side**3
+    L = n_side * a
+    rng = np.random.default_rng(seed)
+    snap = az.Snapshot(N=N)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["P"]
+    x = (np.arange(n_side) + 0.5) * a - L / 2
+    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    q = rng.normal(size=(N, 4))
+    snap.particles.orientation[:] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    snap.particles.moment_inertia[:] = [0.4, 0.4, 0.4]
+    sim = az.Simulation(device=device, seed=seed)
+    sim.create_state_from_snapshot(snap)
+    patchy = az.pair.TwoPatchMorse(nlist=az.md.nlist.Cell(buffer=0.3), default_r_cut=1.6,
+                                   mode="shift")
+    patchy.params[("P", "P")] = dict(PATCHY)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.002, methods=[az.md.methods.Langevin(kT=0.3, default_gamma=1.0)], forces=[patchy],
+        integrate_rotational_dof=True)
+    sim.state.thermalize_particle_momenta(kT=0.3)
+    return sim, [patchy]
+
+
 def _prepared_dense(sim):
     """The main path's dense state and grid, as its first step sees them."""
     sim.run(0)
@@ -315,6 +406,7 @@ def check_pair_kernel(az, D, PK, record):
         cases.append((label, dense, spec, T, r_cut))
     poly_dense, poly_spec = _prepared_dense(build_polymer(az, dev)[0])
     cases.append(("polymer melt 32k", poly_dense, poly_spec, 1, 2.5))
+    poly_pairs = _pairs_inside(D, poly_dense, poly_spec, 2.5)
     ef = az.ops.evaluators.PAIR_POTENTIALS
 
     timing = {}
@@ -342,7 +434,9 @@ def check_pair_kernel(az, D, PK, record):
                     lambda: D.dense_pair_force(ef[pot].energy_force, dense, jb, spec,
                                                tbl["params"], tbl["r_cut"], None, "none",
                                                "force"), 3)
-                timing[pot] = (ms, plain_ms, f"polymer melt 32k, cap {spec.cap}")
+                # inputs: position 12 B, type 4 B; outputs: force 12 B
+                bound = _bound(dense, 16, 12, 4 * tables.numel(), poly_pairs, OPS_PER_PAIR[pot])
+                timing[pot] = (ms, plain_ms, f"polymer melt 32k, cap {spec.cap}", bound)
         print(f"[kernel] cell_pair_force[{pot}]: {n_checks} checks ({len(cases)} shapes: "
               f"{', '.join(c[0] for c in cases)}; modes {'/'.join(MODES)}; force/all), worst "
               f"error {worst:.3e} of max|value| (bar {BAR})", flush=True)
@@ -369,10 +463,14 @@ def check_pair_kernel(az, D, PK, record):
     plain_ms = _cuda_time_ms(
         lambda: D.dense_pair_force(ef["PerturbedLennardJones"].energy_force, dense, jb, spec,
                                    tbl["params"], tbl["r_cut"], None, "none", "force"), 5)
-    timing["PerturbedLennardJones"] = (ms, plain_ms, f"64k headline, cap {spec.cap}")
-    for pot, (ms, plain_ms, where) in timing.items():
+    pairs = _pairs_inside(D, dense, spec, 3.0)
+    bound = _bound(dense, 16, 12, 4 * tables.numel(), pairs,
+                   OPS_PER_PAIR["PerturbedLennardJones"])
+    timing["PerturbedLennardJones"] = (ms, plain_ms, f"64k headline, cap {spec.cap}", bound)
+    for pot, (ms, plain_ms, where, (bound_ms, by)) in timing.items():
         print(f"[kernel] cell_pair_force[{pot}] at {where}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms per call (force, mode none)", flush=True)
+              f"plain {plain_ms:.4f} ms per call (force, mode none); bound {bound_ms:.5f} ms "
+              f"({by})", flush=True)
     return timing
 
 
@@ -435,9 +533,125 @@ def check_dpd_kernel(az, D, DK, record):
             plain_ms = _cuda_time_ms(
                 lambda: D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], 1.0,
                                           0.01, 5, 777, "force"), 3)
-            timing = (ms, plain_ms, f"DPD fluid 22k, cap {spec.cap}")
+            # inputs: position and velocity 24 B, type 4 B; outputs: force 12 B
+            bound_ms, by = _bound(dense, 28, 12, 4 * tables.numel(),
+                                  _pairs_inside(D, dense, spec, 1.0), OPS_PER_PAIR["DPD"])
+            timing = (ms, plain_ms, f"DPD fluid 22k, cap {spec.cap}", (bound_ms, by))
             print(f"[kernel] cell_dpd_force at DPD fluid 22k cap {spec.cap}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms per call (force)", flush=True)
+                  f"plain {plain_ms:.4f} ms per call (force); bound {bound_ms:.5f} ms ({by})",
+                  flush=True)
+    return timing
+
+
+def _aniso_tables(az, T, seed, device):
+    """TwoPatchMorse device tables: the patchy path's parameters for one
+    type; for two, stiff random ones (M_r down to 0.05, omega up to 20) with
+    a flat-bottom pair and a shorter per-pair cutoff."""
+    if T == 1:
+        host = {k: np.full((1, 1), float(v)) for k, v in PATCHY.items()}
+        rc = np.full((1, 1), 1.6, np.float32)
+    else:
+        rng = np.random.default_rng(seed)
+
+        def sym(lo, hi):
+            m = rng.uniform(lo, hi, (T, T))
+            return (m + m.T) / 2
+
+        host = {"M_d": sym(1.0, 2.0), "M_r": sym(0.05, 0.15), "r_eq": sym(0.95, 1.1),
+                "omega": sym(5.0, 20.0), "alpha": sym(0.3, 0.5), "repulsion": np.ones((T, T))}
+        host["repulsion"][-1, -1] = 0.0
+        rc = np.full((T, T), 1.6, np.float32)
+        rc[0, -1] = rc[-1, 0] = 1.4
+    pre = az.ops.evaluators.ANISO_PAIR_POTENTIALS["TwoPatchMorse"].precompute(host)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return {"params": {k: dev(v) for k, v in pre.items()}, "r_cut": dev(rc)}
+
+
+def _newton_residual(force):
+    """|sum of the per-slot forces| over their summed magnitudes: 0 up to
+    the round-off of the per-slot sums when each pair's two contributions
+    are exact negations."""
+    f = force.double()
+    return float(f.sum(0).abs().max() / f.abs().sum(0).max().clamp_min(1e-300))
+
+
+def _compare_aniso(tag, got, ref, want):
+    """Force, torque (and energy and virial for want="all"), each against
+    the bar relative to its own max |value|. Returns the force's max abs
+    error and the worst relative error over the outputs compared."""
+    outputs = [("force", got.force, ref.force), ("torque", got.torque, ref.torque)]
+    if want == "all":
+        outputs += [("energy", got.energy, ref.energy), ("virial", got.virial, ref.virial)]
+    errs = [_compare(f"{tag} {what}", g, r) for what, g, r in outputs]
+    return errs[0][0], max(err / max(scale, 1e-30) for err, scale in errs)
+
+
+def check_aniso_kernel(az, D, AK, record):
+    """The TwoPatchMorse kernel at every listed shape, modes none/shift and
+    force/all, with the summed force checked at round-off on Newton grids;
+    timed at the patchy path's full size."""
+    dev = torch.device("cuda")
+    tpm = az.ops.evaluators.ANISO_PAIR_POTENTIALS["TwoPatchMorse"].energy_force_torque
+    shapes = [
+        ("small orthorhombic", dict(counts=(16, 16, 16), rho=0.6, jitter=0.06, seed=31)),
+        ("tilted", dict(counts=(16, 15, 15), rho=0.6, jitter=0.06, seed=32,
+                        tilt=(0.3, -0.2, 0.15))),
+        ("axis under 3 cells", dict(counts=(3, 18, 18), rho=0.6, jitter=0.06, seed=33)),
+        ("two types", dict(counts=(14, 14, 14), rho=0.6, jitter=0.06, seed=34, n_types=2)),
+    ]
+    cases = []
+    for label, kw in shapes:
+        dense, spec, T = _dense_case(az, D, _lattice_snapshot(az, quats=True, **kw), 1.6, 0.3,
+                                     dev, fields=("quat",))
+        cases.append((label, dense, spec, T))
+    dense, spec = _prepared_dense(build_patchy(az, dev)[0])
+    cases.append(("patchy colloids 27k", dense, spec, 1))
+
+    timing = None
+    for label, dense, spec, T in cases:
+        tbl = _aniso_tables(az, T, 35, dev)
+        jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_quat=True)
+        worst = max_abs = resid = 0.0
+        for mode in ("none", "shift"):
+            tables = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], mode)
+            for want in ("force", "all"):
+                got = AK.cell_aniso_force(dense, spec, tables, want)
+                ref = D.dense_aniso_force(tpm, dense, jb, spec, tbl["params"], tbl["r_cut"],
+                                          mode, want)
+                torch.cuda.synchronize()
+                tag = f"TwoPatchMorse {label} dims={spec.dims} cap={spec.cap} T={T} {mode} {want}"
+                ferr, rel = _compare_aniso(tag, got, ref, want)
+                record("cell_aniso_force", ferr)
+                worst, max_abs = max(worst, rel), max(max_abs, ferr)
+                if spec.newton_ok:
+                    resid = max(resid, _newton_residual(got.force))
+        if resid > 1e-5:
+            raise AssertionError(f"TwoPatchMorse {label}: summed kernel force {resid:.3e} of the "
+                                 "summed magnitudes, not round-off")
+        print(f"[kernel] cell_aniso_force {label} dims={spec.dims} cap={spec.cap} T={T} "
+              f"(modes none/shift, force/all): force max_abs_err {max_abs:.3e}, worst error "
+              f"{worst:.3e} of max|value| (bar {BAR}); summed force "
+              f"{resid if spec.newton_ok else float('nan'):.2e} of the summed magnitudes",
+              flush=True)
+        if label.startswith("patchy"):
+            tables = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
+            ms = _cuda_time_ms(lambda: AK.cell_aniso_force(dense, spec, tables), 50)
+            plain_ms = _cuda_time_ms(
+                lambda: D.dense_aniso_force(tpm, dense, jb, spec, tbl["params"], tbl["r_cut"],
+                                            "shift", "force"), 3)
+            pairs = _pairs_inside(D, dense, spec, 1.6)
+            # inputs: position 12 B, quaternion 16 B, type 4 B; outputs:
+            # force and torque 24 B
+            bound_ms, by = _bound(dense, 32, 24, 4 * tables.numel(), pairs,
+                                  OPS_PER_PAIR["TwoPatchMorse"])
+            timing = (ms, plain_ms, f"patchy colloids 27k, cap {spec.cap}", (bound_ms, by))
+            print(f"[kernel] cell_aniso_force at patchy colloids 27k cap {spec.cap} "
+                  f"({int((dense.tag >= 0).sum())} of {spec.S} slots occupied, {pairs} pairs "
+                  f"inside r_cut): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"per call (force, mode shift); bound {bound_ms:.5f} ms ({by})", flush=True)
     return timing
 
 
@@ -469,10 +683,11 @@ def check_rng(az):
 # ---------------------------------------------------------------------------
 # Main paths
 # ---------------------------------------------------------------------------
-def _reset_counts(PK, DK):
-    PK.launches = 0
-    PK.launches_by_potential.clear()
-    DK.launches = 0
+def _reset_counts(K):
+    K.PK.launches = 0
+    K.PK.launches_by_potential.clear()
+    K.DK.launches = 0
+    K.AK.launches = 0
 
 
 def _timed_run(sim, steps):
@@ -495,35 +710,58 @@ def _check_wrapped(sim, what):
     return pos
 
 
+def _temperatures(thermo):
+    """(translational, rotational or None) kinetic temperature."""
+    trans = 2.0 * thermo.kinetic_energy / thermo.translational_degrees_of_freedom
+    rdof = thermo.rotational_degrees_of_freedom
+    return trans, (2.0 * thermo.rotational_kinetic_energy / rdof if rdof > 0 else None)
+
+
 def _mean_kT(sim, thermo, n=5, gap=20):
+    """Mean translational and rotational (None without rotation) kT over
+    ``n`` samples ``gap`` steps apart."""
     temps = []
     for _ in range(n):
         sim.run(gap)
-        temps.append(thermo.kinetic_temperature)
-    return float(np.mean(temps))
+        temps.append(_temperatures(thermo))
+    rot = [r for _, r in temps if r is not None]
+    return float(np.mean([t for t, _ in temps])), (float(np.mean(rot)) if rot else None)
 
 
 def _profile(sim, steps=20):
-    """Device operations and device-busy milliseconds per step over a short
-    profiled window (torch.profiler; the profiler's own host overhead makes
-    it a breakdown, not a timer)."""
+    """Per step over a short profiled window: device operations,
+    device-busy milliseconds, host-to-device copies, and the calls that made
+    the host wait for the device (torch.cuda's sync debug mode; the run
+    reads its flags once per chunk by design). torch.profiler's own host
+    overhead makes this a breakdown, not a timer."""
+    import warnings
+
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sim.run(steps)
-        torch.cuda.synchronize()
-    ops = busy_us = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sim.run(steps)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    ops = busy_us = htod = 0
     for e in prof.key_averages():
+        if e.key.startswith("Memcpy HtoD"):
+            htod += e.count
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             ops += e.count
             busy_us += us
-    return ops / steps, busy_us / 1000.0 / steps
+    return ops / steps, busy_us / 1000.0 / steps, htod / steps, syncs / steps
 
 
-def _kernels_on_state(az, D, PK, DK, sim, forces, record):
+def _kernels_on_state(az, D, K, sim, forces, record):
     """Each pair kernel against its plain version on the path's own state
     after the run (want="all")."""
     dense, spec, dev = sim._dense, sim._grid_spec, sim.device
@@ -534,45 +772,62 @@ def _kernels_on_state(az, D, PK, DK, sim, forces, record):
         tbl = f._device_tables(dev)
         if isinstance(f, az.pair.DPDGeneralWeight):
             kT, dt, t = f.kT(sim.timestep), sim.dt_ref(), sim.timestep
-            got = DK.dpd_force(dense, spec, tbl, kT, dt, sim.seed, t, "all")
+            got = K.DK.dpd_force(dense, spec, tbl, kT, dt, sim.seed, t, "all")
             jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_velocity=True,
                                 need_tag=True)
             ref = D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], kT, dt,
                                     sim.seed, t, "all")
             name = "cell_dpd_force"
+        elif isinstance(f, az.pair.TwoPatchMorse):
+            got = K.AK.cell_aniso_force(dense, spec, tbl["kernel"], "all")
+            jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_quat=True)
+            ref = D.dense_aniso_force(f._def.energy_force_torque, dense, jb, spec,
+                                      tbl["params"], tbl["r_cut"], f.mode, "all")
+            name = "cell_aniso_force"
         else:
             pot = f._evaluator_name
-            got = PK.cell_pair_force(dense, spec, tbl["kernel"], pot, f.mode, "all")
+            got = K.PK.cell_pair_force(dense, spec, tbl["kernel"], pot, f.mode, "all")
             jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
             ref = D.dense_pair_force(f._def.energy_force, dense, jb, spec, tbl["params"],
                                      tbl["r_cut"], tbl["r_on"], f.mode, "all")
             name = f"cell_pair_force[{pot}]"
         torch.cuda.synchronize()
-        ferr, _ = _compare_result(f"{name} on the path's state", got, ref, "all")
+        tag = f"{name} on the path's state"
+        if got.torque is not None:
+            ferr, _ = _compare_aniso(tag, got, ref, "all")
+        else:
+            ferr, _ = _compare_result(tag, got, ref, "all")
         record(name, ferr)
         errs.append(f"{name} {ferr:.3e}")
     return ", ".join(errs)
 
 
-def run_path(az, D, PK, DK, card, record, label, build, warm_steps, steps, counts,
-             extra_check=None):
-    """One main path at full size: warm up, then ``steps`` timed steps with
-    the launch counts set to 0 just before and read just after. ``counts``
-    maps each kernel name the path must run to a function that reads its
-    count. Returns those counts."""
+def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
+             extra_check=None, kT=1.0, kT_band=0.05):
+    """One main path at full size: warm up (printing the temperatures five
+    times on the way), then ``steps`` timed steps with the launch counts set
+    to 0 just before and read just after. ``counts`` maps each kernel name
+    the path must run to a function that reads its count. The translational
+    (and rotational) kinetic temperature must read ``kT`` within
+    ``kT_band`` after the timed steps. Returns the counts."""
     sim, forces = build(az, "cuda")
     thermo = az.compute.ThermodynamicQuantities()
     sim.operations.computes.append(thermo)
     t0 = time.perf_counter()
-    sim.run(warm_steps)
+    curve = []
+    for _ in range(5):
+        sim.run(warm_steps // 5)
+        curve.append("/".join(f"{x:.4f}" for x in _temperatures(thermo) if x is not None))
     torch.cuda.synchronize()
     print(f"[{label}] N={sim.state.N_particles} grid {sim._grid_spec}: {warm_steps} warm-up "
-          f"steps in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"steps in {time.perf_counter() - t0:.1f} s; kT (translational"
+          f"{'/rotational' if '/' in curve[0] else ''}) every {warm_steps // 5} steps: "
+          f"{', '.join(curve)}", flush=True)
     before = extra_check(sim, "before") if extra_check else None
 
     builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
     n_pair_forces = sum(1 for f in forces if f._needs_nlist)
-    _reset_counts(PK, DK)
+    _reset_counts(K)
     ms_step, wall = _timed_run(sim, steps)
     launched = {name: read() for name, read in counts.items()}
     evals = sim.force_evaluations - evals0
@@ -584,9 +839,11 @@ def run_path(az, D, PK, DK, card, record, label, build, warm_steps, steps, count
                              f"evaluations in {steps} steps")
     _check_wrapped(sim, label)
     after = extra_check(sim, "after", before) if extra_check else ""
-    kT = _mean_kT(sim, thermo)
-    if abs(kT - 1.0) > 0.05:
-        raise AssertionError(f"{label}: kinetic temperature {kT:.4f} outside 1.0 +- 0.05")
+    kT_trans, kT_rot = _mean_kT(sim, thermo)
+    for what, value in (("translational", kT_trans), ("rotational", kT_rot)):
+        if value is not None and abs(value - kT) > kT_band:
+            raise AssertionError(f"{label}: {what} kinetic temperature {value:.4f} outside "
+                                 f"{kT} +- {kT_band}")
     if not 0 < builds < steps:
         raise AssertionError(f"{label}: {builds} grid builds in {steps} steps")
     # observables through the kernels' energy/virial path
@@ -594,8 +851,8 @@ def run_path(az, D, PK, DK, card, record, label, build, warm_steps, steps, count
     p = thermo.pressure
     if not (np.all(np.isfinite(energies)) and np.isfinite(p)):
         raise AssertionError(f"{label}: non-finite energy or pressure")
-    on_state = _kernels_on_state(az, D, PK, DK, sim, forces, record)
-    ops, busy = _profile(sim)
+    on_state = _kernels_on_state(az, D, K, sim, forces, record)
+    ops, busy, htod, syncs = _profile(sim)
     print(f"[{label}] {steps} steps: {ms_step:.4f} ms/step, {1000.0 / ms_step:.1f} TPS "
           f"(host wall {wall:.3f} s) on {card}", flush=True)
     print(f"[{label}] launches {launched} for {evals} force evaluations "
@@ -603,8 +860,11 @@ def run_path(az, D, PK, DK, card, record, label, build, warm_steps, steps, count
           f"builds ({steps / max(builds, 1):.1f} steps each), {replays} violation replays",
           flush=True)
     print(f"[{label}] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy "
+          f"per step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls "
           f"per step", flush=True)
-    print(f"[{label}] kinetic temperature {kT:.4f}, energies per particle "
+    rot = f", rotational {kT_rot:.4f}" if kT_rot is not None else ""
+    print(f"[{label}] kinetic temperature: translational {kT_trans:.4f}{rot} (target {kT} +- "
+          f"{kT_band}), energies per particle "
           f"{[round(e / sim.state.N_particles, 5) for e in energies]}, pressure {p:.4f}"
           f"{after}; kernel vs plain on this state: {on_state}", flush=True)
     return launched
@@ -632,11 +892,21 @@ def _bond_lengths(sim, when, before=None):
     return f", bond lengths {r.min():.4f}-{r.max():.4f} (mean {r.mean():.4f})"
 
 
-def run_potential_sweep(az, PK, DK):
+def _unit_quaternions(sim, when, before=None):
+    """|q| = 1 within 1e-4 on every particle."""
+    q = sim.state.get_snapshot().particles.orientation
+    dev = float(np.abs(np.linalg.norm(q, axis=1) - 1.0).max())
+    if not np.isfinite(q).all() or dev > 1e-4:
+        raise AssertionError(f"patchy: max ||q| - 1| = {dev:.3e} {when} the timed steps")
+    return dev if when == "before" else f", max ||q| - 1| {before:.2e} -> {dev:.2e}"
+
+
+def run_potential_sweep(az, K):
     """Every other isotropic potential through the public API: 200 Langevin
     steps of a 16^3 lattice fluid each, in turn with modes none/shift/xplor;
     counts set to 0 just before each and read just after."""
     launched = {}
+    PK = K.PK
     others = [p for p in PK.KERNEL_POTENTIALS
               if p not in ("PerturbedLennardJones", "ExpandedYukawa")]
     for i, pot in enumerate(others):
@@ -654,7 +924,7 @@ def run_potential_sweep(az, PK, DK):
             forces=[force])
         sim.state.thermalize_particle_momenta(kT=1.0)
         sim.run(0)
-        _reset_counts(PK, DK)
+        _reset_counts(K)
         evals0 = sim.force_evaluations
         sim.run(200)
         torch.cuda.synchronize()
@@ -688,11 +958,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     az = _import_port()
+    from azplugins_tpu_torch.ops import aniso_kernel as AK
     from azplugins_tpu_torch.ops import cuda_build
     from azplugins_tpu_torch.ops import dense as D
     from azplugins_tpu_torch.ops import dpd_kernel as DK
     from azplugins_tpu_torch.ops import pair_kernel as PK
 
+    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
@@ -700,12 +972,13 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    cuda_build.load_libraries(PK._SOURCE, DK._SOURCE)
-    PK._library()
-    DK._library()
-    print(f"[build] both kernels in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
+    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE)
+    cuda_build.load_libraries(*sources)
+    for k in (PK, DK, AK):
+        k._library()
+    print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
           flush=True)
-    _build_report(cuda_build, (PK._SOURCE, DK._SOURCE))
+    _build_report(cuda_build, sources)
 
     max_err: dict[str, float] = {}
 
@@ -714,43 +987,46 @@ def main() -> int:
 
     pair_timing = check_pair_kernel(az, D, PK, record)
     dpd_timing = check_dpd_kernel(az, D, DK, record)
+    aniso_timing = check_aniso_kernel(az, D, AK, record)
     check_rng(az)
 
     launches = {}
     launches.update(run_path(
-        az, D, PK, DK, card, record, "headline", build_headline, 2000, 1000,
+        az, D, K, card, record, "headline", build_headline, 2000, 1000,
         {"cell_pair_force[PerturbedLennardJones]":
          lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}))
     launches.update(run_path(
-        az, D, PK, DK, card, record, "dpd", build_dpd, 2000, 1000,
+        az, D, K, card, record, "dpd", build_dpd, 2000, 1000,
         {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum))
     # the rods melt over ~8,000 steps, releasing pair energy faster than the
     # thermostat removes it (kT peaked at 1.24 near step 5,000 on an H100;
     # PERF.md), so the polymer warms up for 10,000
     launches.update(run_path(
-        az, D, PK, DK, card, record, "polymer", build_polymer, 10000, 1000,
+        az, D, K, card, record, "polymer", build_polymer, 10000, 1000,
         {"cell_pair_force[ExpandedYukawa]":
          lambda: PK.launches_by_potential.get("ExpandedYukawa", 0)},
         extra_check=_bond_lengths))
-    for pot, n in run_potential_sweep(az, PK, DK).items():
+    launches.update(run_path(
+        az, D, K, card, record, "patchy", build_patchy, PATCHY_WARM, 1000,
+        {"cell_aniso_force": lambda: AK.launches}, extra_check=_unit_quaternions,
+        kT=0.3, kT_band=PATCHY_KT_BAND))
+    for pot, n in run_potential_sweep(az, K).items():
         launches[f"cell_pair_force[{pot}]"] = n
 
-    kernels = []
-    for pot in PK.KERNEL_POTENTIALS:
-        name = f"cell_pair_force[{pot}]"
-        ms, plain_ms, _ = pair_timing[pot]
-        kernels.append({
-            "name": name, "route": "cuda", "source": "azplugins_tpu_torch/csrc/cell_pair_force.cu",
-            "replaces": PAIR_REPLACES, "launches": launches[name], "max_abs_err": max_err[name],
-            "ms": ms, "plain_ms": plain_ms,
-        })
-    ms, plain_ms, _ = dpd_timing
-    kernels.append({
-        "name": "cell_dpd_force", "route": "cuda",
-        "source": "azplugins_tpu_torch/csrc/cell_dpd_force.cu", "replaces": DPD_REPLACES,
-        "launches": launches["cell_dpd_force"], "max_abs_err": max_err["cell_dpd_force"],
-        "ms": ms, "plain_ms": plain_ms,
-    })
+    def entry(name, source, replaces, timing):
+        ms, plain_ms, _, (bound_ms, bound_by) = timing
+        return {
+            "name": name, "route": "cuda", "source": f"azplugins_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes a cell-stencil pair force
+            "library_ms": None,
+        }
+
+    kernels = [entry(f"cell_pair_force[{pot}]", PK._SOURCE, PAIR_REPLACES, pair_timing[pot])
+               for pot in PK.KERNEL_POTENTIALS]
+    kernels.append(entry("cell_dpd_force", DK._SOURCE, DPD_REPLACES, dpd_timing))
+    kernels.append(entry("cell_aniso_force", AK._SOURCE, ANISO_REPLACES, aniso_timing))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -129,7 +129,7 @@ def test_dense_bond_force_matches_reference(name, want):
 
 
 def _melt(az, seed=14):
-    sim = az.Simulation(seed=seed)
+    sim = az.Simulation(device="cpu", seed=seed)
     sim.create_state_from_snapshot(_melt_snapshot(az))
     bonds = az.bond.Quartic()
     bonds.params["backbone"] = dict(k=1434.3, r_0=1.5, b_1=-0.7589, b_2=0.0, U_0=67.2234,
@@ -200,7 +200,7 @@ def test_melt_twenty_steps_matches_reference():
 def test_bonds_without_pairs_run_in_tag_order():
     """A bonds-only system has no grid: the force takes tag order with the
     identity tag->slot map, and the two endpoint forces cancel."""
-    sim = port.Simulation(seed=1)
+    sim = port.Simulation(device="cpu", seed=1)
     snap = _melt_snapshot(port, n_chains=4, chain_len=5)
     sim.create_state_from_snapshot(snap)
     h = port.bond.Harmonic()

@@ -170,7 +170,7 @@ def _lattice(az, n, a, seed=3, kick=0.05):
 
 
 def _dpd_sim(az, n=7, a=0.7, kT=1.0, A=25.0, gamma=4.5, s=0.5, seed=5, dt=0.01, thermalize=True):
-    sim = az.Simulation(seed=seed)
+    sim = az.Simulation(device="cpu", seed=seed)
     sim.create_state_from_snapshot(_lattice(az, n, a))
     dpd = az.pair.DPDGeneralWeight(nlist=az.md.nlist.Cell(buffer=0.4), kT=kT, default_r_cut=1.0)
     dpd.params[("A", "A")] = dict(A=A, gamma=gamma, s=s)
@@ -264,7 +264,7 @@ def test_dpd_conservative_force():
     snap.configuration.box = [20, 20, 20, 0, 0, 0]
     snap.particles.types = ["A"]
     snap.particles.position[:] = [[-0.25, 0, 0], [0.25, 0, 0]]
-    sim = port.Simulation(seed=42)
+    sim = port.Simulation(device="cpu", seed=42)
     sim.create_state_from_snapshot(snap)
     dpd = port.pair.DPDGeneralWeight(nlist=port.md.nlist.Cell(buffer=0.4), kT=0.0,
                                      default_r_cut=1.0)

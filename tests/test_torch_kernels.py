@@ -10,7 +10,8 @@ cache key. Kernel and plain version must agree per slot within atol =
 2e-5 * max|plain| and rtol = 2e-5: they form bitwise the same separations,
 cutoff decisions and (for DPD) random numbers, and differ in the order of
 the per-slot sums, in fused multiply-adds and in the last ulp of exp, log
-and pow.
+and pow. The anisotropic kernel is held to the same bar per output (force,
+torque, energy, virial), each against its own max|plain|.
 """
 
 import numpy as np
@@ -19,10 +20,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import azplugins_tpu_torch as az  # noqa: E402
+from azplugins_tpu_torch.ops import aniso_kernel as AK  # noqa: E402
 from azplugins_tpu_torch.ops import cuda_build  # noqa: E402
 from azplugins_tpu_torch.ops import dense as D  # noqa: E402
 from azplugins_tpu_torch.ops import dpd_kernel as DK  # noqa: E402
 from azplugins_tpu_torch.ops import pair_kernel as PK  # noqa: E402
+from azplugins_tpu_torch.ops.evaluators.aniso import ANISO_PAIR_POTENTIALS  # noqa: E402
 from azplugins_tpu_torch.ops.evaluators.pair import PAIR_POTENTIALS  # noqa: E402
 
 torch.set_num_threads(1)
@@ -214,6 +217,73 @@ def test_dpd_kernel_matches_plain(cuda_device, name, want):
     assert float(got.force.double().sum(0).abs().max()) < 1e-3 * float(got.force.abs().max())
 
 
+def _aniso_case(name, device):
+    """A pair-potential test system regridded at the TwoPatchMorse cutoff
+    (1.6, buffer 0.3), with random unit quaternions, stiff tables (M_r down
+    to 0.05, omega up to 20) and one flat-bottom, shorter-cutoff pair where
+    T > 1."""
+    dense, spec, _ = _system(name, device)
+    n = int((dense.tag >= 0).sum())
+    state = D.undensify(dense, n, fields=())
+    rng = np.random.default_rng(60 + list(SYSTEMS).index(name))
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    state = state.replace(orientation=torch.as_tensor(q.astype(np.float32), device=device))
+    spec = D.GridSpec.create(state.box, n, 1.6, 0.3)
+    dense, meta = D.densify(state, spec, fields=("quat",))
+    while bool(meta.overflow):
+        spec = spec.replace(cap=int(np.ceil((int(meta.max_occ) + 1) / 8.0) * 8))
+        dense, meta = D.densify(state, spec, fields=("quat",))
+    T = int(dense.typeid.max()) + 1
+
+    def sym(lo, hi):
+        m = rng.uniform(lo, hi, (T, T))
+        return (m + m.T) / 2
+
+    host = {"M_d": sym(1.0, 2.0), "M_r": sym(0.05, 0.15), "r_eq": sym(0.95, 1.1),
+            "omega": sym(5.0, 20.0), "alpha": sym(0.3, 0.5), "repulsion": np.ones((T, T))}
+    if T > 1:
+        host["repulsion"][-1, -1] = 0.0
+    pre = ANISO_PAIR_POTENTIALS["TwoPatchMorse"].precompute(host)
+    rc = np.full((T, T), 1.6, np.float32)
+    if T > 1:
+        rc[0, -1] = rc[-1, 0] = 1.4
+    tbl = {"params": {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                      for k, v in pre.items()},
+           "r_cut": torch.as_tensor(rc, device=device)}
+    return dense, spec, tbl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want", ["force", "all"])
+@pytest.mark.parametrize("mode", ["none", "shift"])
+@pytest.mark.parametrize("name", ["orthorhombic", "tilted", "two_types", "axis_under_3"])
+def test_aniso_kernel_matches_plain(cuda_device, name, mode, want):
+    dense, spec, tbl = _aniso_case(name, cuda_device)
+    tpm = ANISO_PAIR_POTENTIALS["TwoPatchMorse"].energy_force_torque
+    jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_quat=True)
+    ref = D.dense_aniso_force(tpm, dense, jb, spec, tbl["params"], tbl["r_cut"], mode, want)
+    tbl["kernel"] = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], mode)
+    tbl["kernel_mode"] = mode
+    before = AK.launches
+    got = AK.aniso_force(tpm, dense, spec, tbl, mode, want)
+    other = "none" if mode == "shift" else "shift"
+    with pytest.raises(ValueError, match="built for mode"):  # tables of the other mode
+        AK.aniso_force(tpm, dense, spec, tbl, other, want)
+    torch.cuda.synchronize()
+    assert AK.launches == before + 1
+    _close(got.force, ref.force, "force")
+    _close(got.torque, ref.torque, "torque")
+    if want == "all":
+        _close(got.energy, ref.energy, "energy")
+        _close(got.virial, ref.virial, "virial")
+    if spec.newton_ok:  # Newton's third law bit for bit: the total force is 0 to round-off
+        total = got.force.double().sum(0).abs().max()
+        assert float(total) < 1e-5 * float(got.force.abs().max()) * spec.S**0.5
+    empty = (dense.tag < 0).cpu().numpy()
+    assert not got.torque.cpu().numpy()[empty].any()
+
+
 @pytest.mark.cuda
 def test_simulation_on_cuda_runs_every_force_through_the_kernel(cuda_device):
     n = 10
@@ -242,9 +312,9 @@ def test_simulation_on_cuda_runs_every_force_through_the_kernel(cuda_device):
 def test_kernel_refuses_what_it_does_not_cover(cuda_device):
     dense, spec, tbl = _system("orthorhombic", cuda_device)
     tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"])
-    with pytest.raises(NotImplementedError, match="B4"):
+    with pytest.raises(NotImplementedError, match="cell_aniso_force"):
         PK.cell_pair_force(dense, spec, tables, "TwoPatchMorse", "none", "all")
-    with pytest.raises(NotImplementedError, match="B4"):  # an evaluator with no kernel
+    with pytest.raises(NotImplementedError, match="no CUDA pair kernel"):  # no kernel
         PK.pair_force(lambda rsq, rcutsq, p: (rsq, rsq), dense, spec, tbl, "none", "force")
     with pytest.raises(ValueError, match="kernel_tables"):
         PK.pair_force(PLJ.energy_force, dense, spec, tbl, "none", "force")  # no kernel tables
@@ -318,3 +388,4 @@ def test_library_digest_covers_shared_headers(tmp_path):
     # the port's own sources include their shared header
     assert '#include "cell_stencil.cuh"' in (cuda_build.CSRC / "cell_dpd_force.cu").read_text()
     assert '#include "cell_stencil.cuh"' in (cuda_build.CSRC / "cell_pair_force.cu").read_text()
+    assert '#include "cell_stencil.cuh"' in (cuda_build.CSRC / "cell_aniso_force.cu").read_text()

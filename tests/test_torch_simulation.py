@@ -39,7 +39,7 @@ def _snapshot(az, n=7, a=1.15, seed=3, kick=0.1):
 
 def _build(az, method, n=7, seed=3, r_cut=2.5, mode="shift", **sim_kw):
     """The canonical drive's fluid with one of the ported methods."""
-    sim = az.Simulation(seed=42, **sim_kw)
+    sim = az.Simulation(device="cpu", seed=42, **sim_kw)
     sim.create_state_from_snapshot(_snapshot(az, n=n, seed=seed))
     lj = az.pair.PerturbedLennardJones(
         nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=r_cut, mode=mode
@@ -148,12 +148,24 @@ def test_langevin_holds_temperature():
     assert np.isfinite(lj.energy)
 
 
+def test_default_device_is_the_gpu(monkeypatch):
+    """Simulation() with no device runs on CUDA; without CUDA it raises
+    rather than falling back to the CPU, which is used only when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port.Simulation(seed=1)
+    assert port.Simulation(device="cpu", seed=1).device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert port.Simulation(seed=1).device == torch.device("cuda")
+
+
 def test_port_does_not_import_jax():
     # isolated mode (-I): no PYTHONPATH or site hooks can pull JAX in
     repo = str(pathlib.Path(__file__).resolve().parent.parent)
     code = (
         f"import sys; sys.path.insert(0, {repo!r}); import azplugins_tpu_torch as az; "
-        "import azplugins_tpu_torch.interop, azplugins_tpu_torch.ops.pair_kernel; "
+        "import azplugins_tpu_torch.interop, azplugins_tpu_torch.ops.pair_kernel, "
+        "azplugins_tpu_torch.ops.aniso_kernel; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
         "assert 'azplugins_tpu' not in sys.modules; print('ok')"
     )
