@@ -22,14 +22,22 @@
 // [T, T] table (ops/dense.py::dpd_sigma_table). want_all adds e/2 per side
 // and the conservative-only virial (reference :239).
 //
-// What bounds it on an H100: at the DPD fluid (rho 3, r_cut 1, 13^3 cells
-// of ~10 particles, cap 40) each slot tests ~270 candidates in its 27
-// neighbour cells and ~40 fall inside r_cut; each of those costs a Threefry
-// of 13 rounds (~60 integer operations), a powf and a few divides. The
-// candidate loop over mostly empty staged slots and the per-pair integer
-// work, not memory, bind it. The geometry and the uniform are explicitly
-// rounded (no contraction), so the cutoff decisions and alpha are bitwise
-// the plain version's.
+// What bounds it on an H100: the per-pair work. At the DPD fluid (rho 3,
+// r_cut 1, 13^3 cells of ~10 particles) each slot has ~270 occupied
+// candidates in its 27 neighbour cells and ~40 inside r_cut; each of those
+// costs a Threefry of 13 rounds (~60 integer operations), a powf, an IEEE
+// sqrt and two IEEE divides, ~130 operations. What the design does about it
+// (the packed schedule of cell_stencil.cuh): only occupied slots are staged
+// and visited, the cell's ~10 slots share the block's 128 lanes (~12 lanes
+// each), and a lane evaluates only the candidates it listed inside r_cut,
+// so a warp pays the evaluation for its pairs, not for every candidate one
+// of its lanes accepts. The one-thread-per-slot schedule it replaces,
+// walking every slot of cap 40 with a 64-thread block, took 0.274 ms a call
+// at the DPD fluid on an H100 80GB HBM3 at 700 W. The geometry and the
+// uniform are explicitly rounded (no contraction), so the cutoff decisions
+// and alpha are bitwise the plain version's. The [T, T] tables are copied
+// into shared memory where they fit (az::kTableSmemBytes), else read from
+// global memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,129 +82,175 @@ __device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
   return __fadd_rn(__fmul_rn(__fsub_rn(u, 1.0f), 2.0f), -1.0f);
 }
 
+constexpr int kThreads = 128;  // threads per block (one block per cell)
+
+// one staged candidate: x, y, z, typeid bits; vx, vy, vz, tag bits
+struct Staged {
+  float4 pos, vel;
+};
+
 template <bool WANT_ALL, bool MIN_IMAGE>
-__global__ void cell_dpd_force_kernel(const float* __restrict__ pos,
-                                      const float* __restrict__ vel,
-                                      const int* __restrict__ type_of,
-                                      const int* __restrict__ tag, const float* __restrict__ tab,
-                                      int T, int Dx, int Dy, int Dz, int cap, BoxArgs box,
-                                      uint32_t k0, uint32_t k1, float* __restrict__ force,
-                                      float* __restrict__ energy, float* __restrict__ virial) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + cap;
-  float* sz = sy + cap;
-  float* svx = sz + cap;
-  float* svy = svx + cap;
-  float* svz = svy + cap;
-  int* st = reinterpret_cast<int*>(svz + cap);  // typeid, -1 for an empty slot
-  int* stag = st + cap;
+__global__ void __launch_bounds__(kThreads)
+    cell_dpd_force_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
+                          const int* __restrict__ type_of, const int* __restrict__ tag,
+                          const float* __restrict__ tab, int T, int Dx, int Dy, int Dz, int cap,
+                          BoxArgs box, uint32_t k0, uint32_t k1, az::PackedLayout lay,
+                          float* __restrict__ force, float* __restrict__ energy,
+                          float* __restrict__ virial) {
+  constexpr int B = kThreads;
+  constexpr int N_ACC = WANT_ALL ? 10 : 3;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ az::StencilPlan P;
+  float4* stage = reinterpret_cast<float4*>(smem);  // x, y, z, typeid bits
+  float4* stage_v = stage + lay.stage_cap;           // vx, vy, vz, tag bits
+  float* part = reinterpret_cast<float*>(smem + lay.off_part);
+  unsigned short* list = reinterpret_cast<unsigned short*>(smem + lay.off_list);
+  const int t = threadIdx.x, cell = blockIdx.x, TT = T * T;
 
-  const int cell = blockIdx.x;
-  const int li = threadIdx.x;
-  const bool has_i = li < cap;
-  const int si = cell * cap + li;
-  const int TT = T * T;
-
-  int ti = -1, tag_i = -1;
-  float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f;
-  if (has_i && tag[si] >= 0) {
-    ti = type_of[si];
-    tag_i = tag[si];
-    xi = pos[3 * si];
-    yi = pos[3 * si + 1];
-    zi = pos[3 * si + 2];
-    vxi = vel[3 * si];
-    vyi = vel[3 * si + 1];
-    vzi = vel[3 * si + 2];
+  const float* tabs = tab;
+  if (lay.tab_floats > 0) {
+    float* s_tab = reinterpret_cast<float*>(smem + lay.off_tab);
+    for (int x = t; x < lay.tab_floats; x += B) s_tab[x] = __ldg(tab + x);
+    tabs = s_tab;
   }
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  float en = 0.f, v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f, v4 = 0.f, v5 = 0.f;
-
-  az::for_each_neighbour_cell(cell, Dx, Dy, Dz, [&](int ncell, int wx, int wy, int wz,
-                                                    bool forward) {
-    __syncthreads();  // the previous neighbour's staging is consumed
-    if (has_i) {
-      const int sj = ncell * cap + li;
-      float x = pos[3 * sj], y = pos[3 * sj + 1], z = pos[3 * sj + 2];
-      az::stage_position<MIN_IMAGE>(&x, &y, &z, wx, wy, wz, forward, box);
-      sx[li] = x;
-      sy[li] = y;
-      sz[li] = z;
-      svx[li] = vel[3 * sj];
-      svy[li] = vel[3 * sj + 1];
-      svz[li] = vel[3 * sj + 2];
-      const int tg = tag[sj];
-      stag[li] = tg;
-      st[li] = tg >= 0 ? type_of[sj] : -1;
+  az::plan_stencil<B, MIN_IMAGE>(P, tag, cell, Dx, Dy, Dz, cap);  // synchronises
+  if (!P.prefix) {
+    az::poison_cell<B, WANT_ALL>(cell, cap, force, energy, virial);
+    return;
+  }
+  for (int r = t; r < cap; r += B) {  // empty slots sum to exactly zero
+    const int s = cell * cap + r;
+    if (tag[s] >= 0) continue;
+    force[3 * s] = force[3 * s + 1] = force[3 * s + 2] = 0.f;
+    if (WANT_ALL) {
+      energy[s] = 0.f;
+      for (int a = 0; a < 6; ++a) virial[6 * s + a] = 0.f;
     }
-    __syncthreads();
-    if (ti < 0) return;
+  }
+  const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];
+  if (n_i == 0) return;
+  const int M = P.start[P.n_seg];
+  const int n_stage = (M + lay.stage_cap - 1) / lay.stage_cap;
+  const az::LaneMap<B> L(n_i);
+  const int k = t % L.K;
 
-    float xs = xi, ys = yi, zs = zi;
-    az::self_position<MIN_IMAGE>(&xs, &ys, &zs, wx, wy, wz, forward, box);
-    const bool self_cell = ncell == cell;
-    const float* tp = tab + ti * T;
-
-    for (int lj = 0; lj < cap; ++lj) {
-      const int tj = st[lj];
-      if (tj < 0 || (self_cell && lj == li)) continue;
-      float dx, dy, dz;
-      const float rsq = az::separation<MIN_IMAGE>(xs, ys, zs, sx[lj], sy[lj], sz[lj], box, &dx,
-                                                  &dy, &dz);
-      const float* p = tp + tj;
-      const float rcut = __ldg(p + kRcut * TT);
-      const float rcutsq = __fmul_rn(rcut, rcut);
-      if (!(rsq > 0.f && rsq < rcutsq)) continue;
-      const float A = __ldg(p + kA * TT);
-      const float gamma = __ldg(p + kGamma * TT);
-      const float s = __ldg(p + kS * TT);
-      const float sigma = __ldg(p + kSigma * TT);
-
-      const float rcut_safe = rcut > 0.f ? rcut : 2.0f;
-      const float rinv = __fdiv_rn(1.0f, __fsqrt_rn(rsq));
-      const float r = __fmul_rn(rsq, rinv);
-      const float rcutinv = __fdiv_rn(1.0f, rcut_safe);
-      const float f_cons = A * (rinv - rcutinv);
-
-      const float dvx = vxi - svx[lj], dvy = vyi - svy[lj], dvz = vzi - svz[lj];
-      const float rdotv = dx * dvx + dy * dvy + dz * dvz;
-      const float base = fmaxf(__fsub_rn(1.0f, __fmul_rn(r, rcutinv)), 0.0f);
-      const float w_R = powf(base, 0.5f * s) * rinv;
-      const float f_drag = -gamma * w_R * w_R * rdotv;
-
-      const uint32_t ta = (uint32_t)tag_i, tb = (uint32_t)stag[lj];
-      const float alpha = uniform_from_bits(threefry2x32_13(k0, k1, min(ta, tb), max(ta, tb)));
-      const float f = f_cons + f_drag + sigma * w_R * alpha;
-      fx += f * dx;
-      fy += f * dy;
-      fz += f * dz;
-      if (WANT_ALL) {
-        const float e = A * (rcut_safe - r) - 0.5f * A * rcutinv * (rcutsq - rsq);
-        en += 0.5f * e;
-        const float w = 0.5f * f_cons;
-        v0 += w * dx * dx;
-        v1 += w * dx * dy;
-        v2 += w * dx * dz;
-        v3 += w * dy * dy;
-        v4 += w * dy * dz;
-        v5 += w * dz * dz;
+  for (int q = 0; q < L.rounds; ++q) {
+    const int ir = q * L.per_round + t / L.K;
+    const bool active = t / L.K < L.per_round && ir < n_i;
+    int ti = 0, tag_i = 0;
+    float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f, rfilt = 0.f;
+    if (active) {
+      const int si = cell * cap + ir;  // the precondition: the ir-th slot
+      ti = type_of[si];
+      tag_i = tag[si];
+      xi = pos[3 * si];
+      yi = pos[3 * si + 1];
+      zi = pos[3 * si + 2];
+      vxi = vel[3 * si];
+      vyi = vel[3 * si + 1];
+      vzi = vel[3 * si + 2];
+      for (int tj = 0; tj < T; ++tj) {
+        const float rc = tabs[kRcut * TT + ti * T + tj];
+        rfilt = fmaxf(rfilt, __fmul_rn(rc, rc));
       }
     }
-  });
+    const float* tp = tabs + ti * T;
+    float acc[N_ACC];
+#pragma unroll
+    for (int a = 0; a < N_ACC; ++a) acc[a] = 0.f;
+    // the table values of the last type pair, reloaded when the type changes
+    int cached_tj = -1;
+    float rcut = 0.f, rcutsq = 0.f, A = 0.f, gamma = 0.f, s = 0.f, sigma = 0.f, rcut_safe = 0.f,
+          rcutinv = 0.f;
 
-  if (!has_i) return;
-  force[3 * si] = fx;
-  force[3 * si + 1] = fy;
-  force[3 * si + 2] = fz;
-  if (WANT_ALL) {
-    energy[si] = en;
-    virial[6 * si] = v0;
-    virial[6 * si + 1] = v1;
-    virial[6 * si + 2] = v2;
-    virial[6 * si + 3] = v3;
-    virial[6 * si + 4] = v4;
-    virial[6 * si + 5] = v5;
+    // evaluates this lane's n listed candidates against their own type
+    // pair's cutoff, adding what each pair inside gives this slot
+    auto flush = [&](float xs, float ys, float zs, int n) {
+      for (int e = 0; e < n; ++e) {
+        const int m = list[e * B + t];
+        const float4 pj = stage[m];
+        float dx, dy, dz;
+        const float rsq =
+            az::separation<MIN_IMAGE>(xs, ys, zs, pj.x, pj.y, pj.z, box, &dx, &dy, &dz);
+        const int tj = __float_as_int(pj.w);
+        if (tj != cached_tj) {
+          const float* p = tp + tj;
+          cached_tj = tj;
+          rcut = p[kRcut * TT];
+          rcutsq = __fmul_rn(rcut, rcut);
+          A = p[kA * TT];
+          gamma = p[kGamma * TT];
+          s = p[kS * TT];
+          sigma = p[kSigma * TT];
+          rcut_safe = rcut > 0.f ? rcut : 2.0f;
+          rcutinv = __fdiv_rn(1.0f, rcut_safe);
+        }
+        if (!(rsq > 0.f && rsq < rcutsq)) continue;
+        const float4 vj = stage_v[m];
+
+        const float rinv = __fdiv_rn(1.0f, __fsqrt_rn(rsq));
+        const float r = __fmul_rn(rsq, rinv);
+        const float f_cons = A * (rinv - rcutinv);
+
+        const float dvx = vxi - vj.x, dvy = vyi - vj.y, dvz = vzi - vj.z;
+        const float rdotv = dx * dvx + dy * dvy + dz * dvz;
+        const float base = fmaxf(__fsub_rn(1.0f, __fmul_rn(r, rcutinv)), 0.0f);
+        const float w_R = powf(base, 0.5f * s) * rinv;
+        const float f_drag = -gamma * w_R * w_R * rdotv;
+
+        const uint32_t ta = (uint32_t)tag_i, tb = (uint32_t)__float_as_int(vj.w);
+        const float alpha = uniform_from_bits(threefry2x32_13(k0, k1, min(ta, tb), max(ta, tb)));
+        const float f = f_cons + f_drag + sigma * w_R * alpha;
+        acc[0] += f * dx;
+        acc[1] += f * dy;
+        acc[2] += f * dz;
+        if constexpr (WANT_ALL) {
+          const float en = A * (rcut_safe - r) - 0.5f * A * rcutinv * (rcutsq - rsq);
+          acc[3] += 0.5f * en;
+          const float w = 0.5f * f_cons;
+          acc[4] += w * dx * dx;
+          acc[5] += w * dx * dy;
+          acc[6] += w * dx * dz;
+          acc[7] += w * dy * dy;
+          acc[8] += w * dy * dz;
+          acc[9] += w * dz * dz;
+        }
+      }
+    };
+
+    for (int sr = 0; sr < n_stage; ++sr) {
+      const int R0 = sr * lay.stage_cap, R1 = min(M, R0 + lay.stage_cap);
+      if (n_stage > 1 || q == 0) {
+        __syncthreads();  // the previous round's candidates are consumed
+        az::stage_round<B>(
+            P, cap, R0, R1,
+            [&](int sj, int wrap, int forward) {
+              float x = pos[3 * sj], y = pos[3 * sj + 1], z = pos[3 * sj + 2];
+              if (!MIN_IMAGE && forward) az::shift_by(&x, &y, &z, wrap, box);  // stage_position
+              return Staged{make_float4(x, y, z, __int_as_float(type_of[sj])),
+                            make_float4(vel[3 * sj], vel[3 * sj + 1], vel[3 * sj + 2],
+                                        __int_as_float(tag[sj]))};
+            },
+            [&](int e, const Staged& entry) {
+              stage[e] = entry.pos;
+              stage_v[e] = entry.vel;
+            });
+        __syncthreads();
+      }
+      az::sweep_round<B, MIN_IMAGE>(P, stage, R0, R1, L.K, k, active, P.start[P.self_seg] + ir,
+                                    xi, yi, zi, rfilt, box, list, flush);
+    }
+
+    az::reduce_lanes<B, N_ACC>(part, acc, L, q, n_i, [&](int r, const float* sum) {
+      const int si = cell * cap + r;
+      force[3 * si] = sum[0];
+      force[3 * si + 1] = sum[1];
+      force[3 * si + 2] = sum[2];
+      if constexpr (WANT_ALL) {
+        energy[si] = sum[3];
+        for (int a = 0; a < 6; ++a) virial[6 * si + a] = sum[4 + a];
+      }
+    });
   }
 }
 
@@ -204,7 +258,7 @@ __global__ void cell_dpd_force_kernel(const float* __restrict__ pos,
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches the kernel on `stream` and returns its CUDA error (0 = launched).
 // `tables` holds kNTab stacked [T, T] float32 tables (enum Tab); (k0, k1)
 // is the Threefry key. `energy` and `virial` are written only when
 // want_all != 0 (and may be null otherwise).
@@ -214,21 +268,18 @@ int az_cell_dpd_force(const float* pos, const float* vel, const int* type_of, co
                       float yzLz, uint32_t k0, uint32_t k1, int min_image, int want_all,
                       float* force, float* energy, float* virial, void* stream) {
   dim3 grid, block;
-  if (!az::launch_shape(Dx, Dy, Dz, cap, T, &grid, &block)) return (int)cudaErrorInvalidValue;
+  az::PackedLayout lay;
+  if (!az::packed_launch(Dx, Dy, Dz, cap, T, kNTab, 32, want_all ? 10 : 3, kThreads, &grid,
+                         &block, &lay))
+    return (int)cudaErrorInvalidValue;
   const BoxArgs box{Lx, Ly, Lz, xy, xz, yz, xyLy, xzLz, yzLz};
-  const size_t smem = (size_t)cap * (6 * sizeof(float) + 2 * sizeof(int));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AZ_LAUNCH(A, M)                                                                     \
-  cell_dpd_force_kernel<A, M><<<grid, block, smem, s>>>(pos, vel, type_of, tag, tables, T, Dx, \
-                                                       Dy, Dz, cap, box, k0, k1, force,       \
-                                                       energy, virial)
-  if (want_all) {
-    if (min_image) AZ_LAUNCH(true, true); else AZ_LAUNCH(true, false);
-  } else {
-    if (min_image) AZ_LAUNCH(false, true); else AZ_LAUNCH(false, false);
-  }
-#undef AZ_LAUNCH
-  return (int)cudaGetLastError();
+  auto kernel = want_all ? (min_image ? cell_dpd_force_kernel<true, true>
+                                      : cell_dpd_force_kernel<true, false>)
+                         : (min_image ? cell_dpd_force_kernel<false, true>
+                                      : cell_dpd_force_kernel<false, false>);
+  return (int)az::launch_packed(kernel, grid, block, lay, static_cast<cudaStream_t>(stream), pos,
+                                vel, type_of, tag, tables, T, Dx, Dy, Dz, cap, box, k0, k1, lay,
+                                force, energy, virial);
 }
 
 const char* az_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -6,22 +6,40 @@
 // force-only evaluator (want="force") and with the general evaluator
 // (any isotropic potential, modes none/shift/xplor, want="all" adding the
 // per-slot energy and virial). It computes the same per-slot sums; the
-// schedule is Hopper's own (cell_stencil.cuh).
+// schedule is Hopper's own: the packed schedule of cell_stencil.cuh.
+//
+// What bounds it on an H100: instruction issue in the candidate filter. At
+// the 64k headline (12^3 cells of ~37 particles, r_cut 3.0) each slot has
+// ~1,000 occupied candidates in its 27 neighbour cells and ~100 inside the
+// cutoff; a candidate costs ~20 instructions (a shared-memory read, the
+// rounded separation, the compare, the list append, the loop), a pair
+// inside ~40 more (its evaluation). What the design does about it: only
+// occupied slots are staged and visited (the loop runs to the occupancy,
+// not to cap), the cell's slots share the block's 256 lanes (K lanes each),
+// and a lane evaluates only the candidates it listed inside its filter
+// radius, so a warp no longer pays the full evaluation on every candidate
+// one of its lanes accepts. The one-thread-per-slot schedule it replaces,
+// walking every slot of cap 72 in 27 staging rounds, took 0.390 ms a call
+// at the headline on an H100 80GB HBM3 at 700 W.
 //
 // Potentials are compile-time evaluators selected by a potential id (enum
 // Pot, the order of ops/pair_kernel.py::KERNEL_POTENTIALS). Each one is the
 // plain evaluator of ops/evaluators/pair.py, operation for operation, in
 // plain C++ that nvcc may contract into fused multiply-adds.
 //
-// Parameters are read straight from [T, T] float32 tables, stacked as enum
-// Tab: the squared cutoff, the energy offset, the squared xplor switch-on
-// radius, then the potential's own parameters in its precompute order. The
-// wrapper folds the shift mode into the tables: "none" has ecut 0 and
-// ronsq +inf, "shift" the pair energy at the cutoff and ronsq +inf,
-// "xplor" r_on^2 with ecut 0 where r_on < r_cut and HOOMD's plain shift
-// where r_on >= r_cut. So one code path serves all three modes; only the
-// xplor instantiations read the r_on row and test for smoothing, which cost
-// 9% at the 64k headline on an H100 when every mode paid for it.
+// Parameters come from [T, T] float32 tables, stacked as enum Tab: the
+// squared cutoff, the energy offset, the squared xplor switch-on radius,
+// then the potential's own parameters in its precompute order. The block
+// copies them into shared memory where they fit (az::kTableSmemBytes) and
+// reads them from global memory otherwise; a lane keeps the last type
+// pair's values in registers. The filter tests each candidate against the
+// largest cutoff of the slot's type; the evaluation applies the pair's own.
+// The wrapper folds the shift mode into the tables: "none" has ecut 0 and
+// ronsq +inf, "shift" the pair energy at the cutoff and ronsq +inf, "xplor"
+// r_on^2 with ecut 0 where r_on < r_cut and HOOMD's plain shift where
+// r_on >= r_cut. So one code path serves all three modes; only
+// the xplor instantiations read the r_on row and test for smoothing, which
+// cost 9% at the 64k headline on an H100 when every mode paid for it.
 
 #include <cuda_runtime.h>
 
@@ -33,12 +51,19 @@ using az::BoxArgs;
 
 enum Pot { kPLJ = 0, kLJ, kColloid, kExpandedYukawa, kHertz, kMorse, kGaussian, kYukawa, kNPot };
 enum Tab { kRcutsq = 0, kEcut, kRonsq, kParam };
+// each potential's parameter count (ops/pair_kernel.py::KERNEL_POTENTIALS)
+__host__ __device__ constexpr int n_params(int pot) {
+  return pot == kPLJ ? 5 : pot == kColloid ? 4 : pot == kExpandedYukawa || pot == kMorse ? 3
+                                                : pot == kHertz ? 1 : 2;
+}
 
-// the potential's k-th parameter for one type pair
+constexpr int kThreads = 256;  // threads per block (one block per cell)
+
+// one type pair's parameters, held in registers
+template <int POT>
 struct Params {
-  const float* p;  // tables + ti * T + tj
-  int TT;
-  __device__ __forceinline__ float operator[](int k) const { return __ldg(p + (kParam + k) * TT); }
+  float v[n_params(POT)];
+  __device__ __forceinline__ float operator[](int k) const { return v[k]; }
 };
 
 __device__ __forceinline__ float pow7inv(float x) {
@@ -49,7 +74,7 @@ __device__ __forceinline__ float pow7inv(float x) {
 
 // Colloid (reference plugin: src/PairEvaluatorColloid.h:101-269), the
 // branch the radii select; the guards keep contact singularities finite
-template <bool WANT_E>
+template <bool WANT_E, class Params>
 __device__ __forceinline__ void colloid(float rsq, const Params& p, float* e, float* f) {
   const float A = p[0], ai = p[1], aj = p[2], sigma_3 = p[3];
   const float sigma_6 = sigma_3 * sigma_3;
@@ -112,7 +137,7 @@ __device__ __forceinline__ void colloid(float rsq, const Params& p, float* e, fl
 // Force / r (and the energy, when WANT_E) of one pair inside the cutoff;
 // false for a pair whose scale parameter is 0 (zero energy and force).
 template <int POT, bool WANT_E>
-__device__ __forceinline__ bool evaluate(float rsq, float rcutsq, const Params& p, float* e,
+__device__ __forceinline__ bool evaluate(float rsq, float rcutsq, const Params<POT>& p, float* e,
                                          float* f) {
   if (p[0] == 0.f) return false;
   if constexpr (POT == kPLJ || POT == kLJ) {
@@ -170,114 +195,153 @@ __device__ __forceinline__ bool evaluate(float rsq, float rcutsq, const Params& 
 }
 
 template <int POT, bool WANT_ALL, bool MIN_IMAGE, bool XPLOR>
-__global__ void cell_pair_force_kernel(const float* __restrict__ pos,
-                                       const int* __restrict__ type_of,
-                                       const int* __restrict__ tag,
-                                       const float* __restrict__ tab, int T, int Dx, int Dy,
-                                       int Dz, int cap, BoxArgs box, float* __restrict__ force,
-                                       float* __restrict__ energy, float* __restrict__ virial) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + cap;
-  float* sz = sy + cap;
-  int* st = reinterpret_cast<int*>(sz + cap);  // typeid, -1 for an empty slot
+__global__ void __launch_bounds__(kThreads)
+    cell_pair_force_kernel(const float* __restrict__ pos, const int* __restrict__ type_of,
+                           const int* __restrict__ tag, const float* __restrict__ tab, int T,
+                           int Dx, int Dy, int Dz, int cap, BoxArgs box, az::PackedLayout lay,
+                           float* __restrict__ force, float* __restrict__ energy,
+                           float* __restrict__ virial) {
+  constexpr int B = kThreads;
+  constexpr int N_ACC = WANT_ALL ? 10 : 3;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ az::StencilPlan P;
+  float4* stage = reinterpret_cast<float4*>(smem);  // x, y, z, typeid bits
+  float* part = reinterpret_cast<float*>(smem + lay.off_part);
+  unsigned short* list = reinterpret_cast<unsigned short*>(smem + lay.off_list);
+  const int t = threadIdx.x, cell = blockIdx.x, TT = T * T;
 
-  const int cell = blockIdx.x;
-  const int li = threadIdx.x;
-  const bool has_i = li < cap;
-  const int si = cell * cap + li;
-  const int TT = T * T;
-
-  int ti = -1;
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (has_i && tag[si] >= 0) {
-    ti = type_of[si];
-    xi = pos[3 * si];
-    yi = pos[3 * si + 1];
-    zi = pos[3 * si + 2];
+  const float* tabs = tab;
+  if (lay.tab_floats > 0) {
+    float* s_tab = reinterpret_cast<float*>(smem + lay.off_tab);
+    for (int x = t; x < lay.tab_floats; x += B) s_tab[x] = __ldg(tab + x);
+    tabs = s_tab;
   }
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  float en = 0.f, v0 = 0.f, v1 = 0.f, v2 = 0.f, v3 = 0.f, v4 = 0.f, v5 = 0.f;
-
-  az::for_each_neighbour_cell(cell, Dx, Dy, Dz, [&](int ncell, int wx, int wy, int wz,
-                                                    bool forward) {
-    __syncthreads();  // the previous neighbour's staging is consumed
-    if (has_i) {
-      const int sj = ncell * cap + li;
-      float x = pos[3 * sj], y = pos[3 * sj + 1], z = pos[3 * sj + 2];
-      az::stage_position<MIN_IMAGE>(&x, &y, &z, wx, wy, wz, forward, box);
-      sx[li] = x;
-      sy[li] = y;
-      sz[li] = z;
-      st[li] = tag[sj] >= 0 ? type_of[sj] : -1;
+  az::plan_stencil<B, MIN_IMAGE>(P, tag, cell, Dx, Dy, Dz, cap);  // synchronises
+  if (!P.prefix) {
+    az::poison_cell<B, WANT_ALL>(cell, cap, force, energy, virial);
+    return;
+  }
+  for (int r = t; r < cap; r += B) {  // empty slots sum to exactly zero
+    const int s = cell * cap + r;
+    if (tag[s] >= 0) continue;
+    force[3 * s] = force[3 * s + 1] = force[3 * s + 2] = 0.f;
+    if (WANT_ALL) {
+      energy[s] = 0.f;
+      for (int a = 0; a < 6; ++a) virial[6 * s + a] = 0.f;
     }
-    __syncthreads();
-    if (ti < 0) return;
+  }
+  const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];
+  if (n_i == 0) return;
+  const int M = P.start[P.n_seg];
+  const int n_stage = (M + lay.stage_cap - 1) / lay.stage_cap;
+  const az::LaneMap<B> L(n_i);
+  const int k = t % L.K;
 
-    float xs = xi, ys = yi, zs = zi;
-    az::self_position<MIN_IMAGE>(&xs, &ys, &zs, wx, wy, wz, forward, box);
-    const bool self_cell = ncell == cell;
-    const float* tp = tab + ti * T;
-
-    for (int lj = 0; lj < cap; ++lj) {
-      const int tj = st[lj];
-      if (tj < 0 || (self_cell && lj == li)) continue;
-      float dx, dy, dz;
-      const float rsq = az::separation<MIN_IMAGE>(xs, ys, zs, sx[lj], sy[lj], sz[lj], box, &dx,
-                                                  &dy, &dz);
-      const float* pp = tp + tj;
-      const float rcutsq = __ldg(pp + kRcutsq * TT);
-      if (!(rsq < rcutsq)) continue;
-      const Params p{pp, TT};
-      float e = 0.f, f;
-      if (!evaluate<POT, WANT_ALL>(rsq, rcutsq, p, &e, &f)) continue;
-      const float ronsq = XPLOR ? __ldg(pp + kRonsq * TT) : 0.f;
-      if (XPLOR && rsq > ronsq) {  // xplor smoothing (ops/pair_force.py::_xplor_smooth)
-        // the force path forms the energy only here, where smoothing reads it
-        if (!WANT_ALL) evaluate<POT, true>(rsq, rcutsq, p, &e, &f);
-        const float dc = rcutsq - ronsq;
-        float denom = dc * dc * dc;
-        if (denom == 0.f) denom = 1.0f;
-        const float dr = rcutsq - rsq;
-        const float s = dr * dr * (rcutsq + 2.0f * rsq - 3.0f * ronsq) / denom;
-        const float ds_dr_divr = 12.0f * (rsq - ronsq) * dr / denom;
-        f = f * s + e * ds_dr_divr;
-        e = e * s;
-      }
-      fx += f * dx;
-      fy += f * dy;
-      fz += f * dz;
-      if (WANT_ALL) {
-        en += 0.5f * (e - __ldg(pp + kEcut * TT));
-        const float w = 0.5f * f;
-        v0 += w * dx * dx;
-        v1 += w * dx * dy;
-        v2 += w * dx * dz;
-        v3 += w * dy * dy;
-        v4 += w * dy * dz;
-        v5 += w * dz * dz;
-      }
+  for (int q = 0; q < L.rounds; ++q) {
+    const int ir = q * L.per_round + t / L.K;
+    const bool active = t / L.K < L.per_round && ir < n_i;
+    int ti = 0;
+    float xi = 0.f, yi = 0.f, zi = 0.f, rfilt = 0.f;
+    if (active) {
+      const int si = cell * cap + ir;  // the precondition: the ir-th slot
+      ti = type_of[si];
+      xi = pos[3 * si];
+      yi = pos[3 * si + 1];
+      zi = pos[3 * si + 2];
+      for (int tj = 0; tj < T; ++tj) rfilt = fmaxf(rfilt, tabs[kRcutsq * TT + ti * T + tj]);
     }
-  });
+    const float* tp = tabs + ti * T;
+    float acc[N_ACC];
+#pragma unroll
+    for (int a = 0; a < N_ACC; ++a) acc[a] = 0.f;
+    // the table values of the last type pair, reloaded when the type changes
+    int cached_tj = -1;
+    float rcutsq = 0.f, ecut = 0.f, ronsq = 0.f;
+    Params<POT> p;
 
-  if (!has_i) return;
-  force[3 * si] = fx;
-  force[3 * si + 1] = fy;
-  force[3 * si + 2] = fz;
-  if (WANT_ALL) {
-    energy[si] = en;
-    virial[6 * si] = v0;
-    virial[6 * si + 1] = v1;
-    virial[6 * si + 2] = v2;
-    virial[6 * si + 3] = v3;
-    virial[6 * si + 4] = v4;
-    virial[6 * si + 5] = v5;
+    // evaluates this lane's n listed candidates against their own type
+    // pair's cutoff, adding what each pair inside gives this slot
+    auto flush = [&](float xs, float ys, float zs, int n) {
+      for (int e = 0; e < n; ++e) {
+        const float4 pj = stage[list[e * B + t]];
+        float dx, dy, dz;
+        const float rsq =
+            az::separation<MIN_IMAGE>(xs, ys, zs, pj.x, pj.y, pj.z, box, &dx, &dy, &dz);
+        const int tj = __float_as_int(pj.w);
+        if (tj != cached_tj) {
+          const float* pp = tp + tj;
+          cached_tj = tj;
+          rcutsq = pp[kRcutsq * TT];
+          if (WANT_ALL) ecut = pp[kEcut * TT];
+          if (XPLOR) ronsq = pp[kRonsq * TT];
+#pragma unroll
+          for (int a = 0; a < n_params(POT); ++a) p.v[a] = pp[(kParam + a) * TT];
+        }
+        if (!(rsq < rcutsq)) continue;
+        float en = 0.f, f;
+        if (!evaluate<POT, WANT_ALL>(rsq, rcutsq, p, &en, &f)) continue;
+        if (XPLOR && rsq > ronsq) {  // xplor smoothing (ops/pair_force.py::_xplor_smooth)
+          // the force path forms the energy only here, where smoothing reads it
+          if (!WANT_ALL) evaluate<POT, true>(rsq, rcutsq, p, &en, &f);
+          const float dc = rcutsq - ronsq;
+          float denom = dc * dc * dc;
+          if (denom == 0.f) denom = 1.0f;
+          const float dr = rcutsq - rsq;
+          const float s = dr * dr * (rcutsq + 2.0f * rsq - 3.0f * ronsq) / denom;
+          const float ds_dr_divr = 12.0f * (rsq - ronsq) * dr / denom;
+          f = f * s + en * ds_dr_divr;
+          en = en * s;
+        }
+        acc[0] += f * dx;
+        acc[1] += f * dy;
+        acc[2] += f * dz;
+        if constexpr (WANT_ALL) {
+          acc[3] += 0.5f * (en - ecut);
+          const float w = 0.5f * f;
+          acc[4] += w * dx * dx;
+          acc[5] += w * dx * dy;
+          acc[6] += w * dx * dz;
+          acc[7] += w * dy * dy;
+          acc[8] += w * dy * dz;
+          acc[9] += w * dz * dz;
+        }
+      }
+    };
+
+    for (int sr = 0; sr < n_stage; ++sr) {
+      const int R0 = sr * lay.stage_cap, R1 = min(M, R0 + lay.stage_cap);
+      if (n_stage > 1 || q == 0) {
+        __syncthreads();  // the previous round's candidates are consumed
+        az::stage_round<B>(
+            P, cap, R0, R1,
+            [&](int sj, int wrap, int forward) {
+              float x = pos[3 * sj], y = pos[3 * sj + 1], z = pos[3 * sj + 2];
+              if (!MIN_IMAGE && forward) az::shift_by(&x, &y, &z, wrap, box);  // stage_position
+              return make_float4(x, y, z, __int_as_float(type_of[sj]));
+            },
+            [&](int e, const float4& entry) { stage[e] = entry; });
+        __syncthreads();
+      }
+      az::sweep_round<B, MIN_IMAGE>(P, stage, R0, R1, L.K, k, active, P.start[P.self_seg] + ir,
+                                    xi, yi, zi, rfilt, box, list, flush);
+    }
+
+    az::reduce_lanes<B, N_ACC>(part, acc, L, q, n_i, [&](int r, const float* sum) {
+      const int s = cell * cap + r;
+      force[3 * s] = sum[0];
+      force[3 * s + 1] = sum[1];
+      force[3 * s + 2] = sum[2];
+      if constexpr (WANT_ALL) {
+        energy[s] = sum[3];
+        for (int a = 0; a < 6; ++a) virial[6 * s + a] = sum[4 + a];
+      }
+    });
   }
 }
 
 struct LaunchArgs {
   dim3 grid, block;
-  size_t smem;
+  az::PackedLayout lay;
   cudaStream_t stream;
   const float* pos;
   const int* type_of;
@@ -291,29 +355,25 @@ struct LaunchArgs {
 };
 
 template <int POT, bool WANT_ALL, bool MIN_IMAGE>
-void launch(const LaunchArgs& a, bool xplor) {
-#define AZ_LAUNCH(X)                                                                             \
-  cell_pair_force_kernel<POT, WANT_ALL, MIN_IMAGE, X><<<a.grid, a.block, a.smem, a.stream>>>( \
-      a.pos, a.type_of, a.tag, a.tab, a.T, a.Dx, a.Dy, a.Dz, a.cap, a.box, a.force, a.energy, \
-      a.virial)
-  if (xplor) AZ_LAUNCH(true); else AZ_LAUNCH(false);
-#undef AZ_LAUNCH
+cudaError_t launch(const LaunchArgs& a, bool xplor) {
+  auto kernel = xplor ? cell_pair_force_kernel<POT, WANT_ALL, MIN_IMAGE, true>
+                      : cell_pair_force_kernel<POT, WANT_ALL, MIN_IMAGE, false>;
+  return az::launch_packed(kernel, a.grid, a.block, a.lay, a.stream, a.pos, a.type_of, a.tag,
+                           a.tab, a.T, a.Dx, a.Dy, a.Dz, a.cap, a.box, a.lay, a.force, a.energy,
+                           a.virial);
 }
 
 template <int POT>
-void launch_pot(const LaunchArgs& a, bool want_all, bool min_image, bool xplor) {
-  if (want_all) {
-    if (min_image) launch<POT, true, true>(a, xplor); else launch<POT, true, false>(a, xplor);
-  } else {
-    if (min_image) launch<POT, false, true>(a, xplor); else launch<POT, false, false>(a, xplor);
-  }
+cudaError_t launch_pot(const LaunchArgs& a, bool want_all, bool min_image, bool xplor) {
+  if (want_all) return min_image ? launch<POT, true, true>(a, xplor) : launch<POT, true, false>(a, xplor);
+  return min_image ? launch<POT, false, true>(a, xplor) : launch<POT, false, false>(a, xplor);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches the kernel on `stream` and returns its CUDA error (0 = launched).
 // `tables` holds kParam + n_params stacked [T, T] float32 tables (enum Tab).
 // xplor != 0 for tables built in mode xplor (the only mode whose kRonsq
 // row is read). `energy` and `virial` are written only when want_all != 0
@@ -324,10 +384,11 @@ int az_cell_pair_force(const float* pos, const int* type_of, const int* tag, con
                        int min_image, int potential, int xplor, int want_all, float* force,
                        float* energy, float* virial, void* stream) {
   LaunchArgs a;
-  if (!az::launch_shape(Dx, Dy, Dz, cap, T, &a.grid, &a.block) || potential < 0 ||
-      potential >= kNPot)
+  const bool all = want_all != 0, mi = min_image != 0, xp = xplor != 0;
+  if (potential < 0 || potential >= kNPot ||
+      !az::packed_launch(Dx, Dy, Dz, cap, T, kParam + n_params(potential), 16, all ? 10 : 3,
+                         kThreads, &a.grid, &a.block, &a.lay))
     return (int)cudaErrorInvalidValue;
-  a.smem = (size_t)cap * (3 * sizeof(float) + sizeof(int));
   a.stream = static_cast<cudaStream_t>(stream);
   a.pos = pos;
   a.type_of = type_of;
@@ -342,18 +403,18 @@ int az_cell_pair_force(const float* pos, const int* type_of, const int* tag, con
   a.force = force;
   a.energy = energy;
   a.virial = virial;
-  const bool all = want_all != 0, mi = min_image != 0, xp = xplor != 0;
+  cudaError_t err = cudaErrorInvalidValue;
   switch (potential) {
-    case kPLJ: launch_pot<kPLJ>(a, all, mi, xp); break;
-    case kLJ: launch_pot<kLJ>(a, all, mi, xp); break;
-    case kColloid: launch_pot<kColloid>(a, all, mi, xp); break;
-    case kExpandedYukawa: launch_pot<kExpandedYukawa>(a, all, mi, xp); break;
-    case kHertz: launch_pot<kHertz>(a, all, mi, xp); break;
-    case kMorse: launch_pot<kMorse>(a, all, mi, xp); break;
-    case kGaussian: launch_pot<kGaussian>(a, all, mi, xp); break;
-    case kYukawa: launch_pot<kYukawa>(a, all, mi, xp); break;
+    case kPLJ: err = launch_pot<kPLJ>(a, all, mi, xp); break;
+    case kLJ: err = launch_pot<kLJ>(a, all, mi, xp); break;
+    case kColloid: err = launch_pot<kColloid>(a, all, mi, xp); break;
+    case kExpandedYukawa: err = launch_pot<kExpandedYukawa>(a, all, mi, xp); break;
+    case kHertz: err = launch_pot<kHertz>(a, all, mi, xp); break;
+    case kMorse: err = launch_pot<kMorse>(a, all, mi, xp); break;
+    case kGaussian: err = launch_pot<kGaussian>(a, all, mi, xp); break;
+    case kYukawa: err = launch_pot<kYukawa>(a, all, mi, xp); break;
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 const char* az_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

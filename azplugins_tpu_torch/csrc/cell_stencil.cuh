@@ -1,15 +1,19 @@
-// Shared geometry of the cell-stencil kernels (cell_pair_force.cu,
-// cell_dpd_force.cu).
+// Shared geometry and schedules of the cell-stencil kernels
+// (cell_pair_force.cu, cell_dpd_force.cu, cell_aniso_force.cu).
 //
 // Layout (ops/dense.py): S = C * cap slots, cell-major; slot s = c * cap + r.
 // Cells are indexed (cx * Dy + cy) * Dz + cz. Empty slots carry tag < 0.
 //
-// Schedule shared by both kernels: one block per cell, one thread per i
-// slot. The block walks the stencil's neighbour cells
-// (for_each_neighbour_cell); for each it stages the neighbour's slots in
-// shared memory, and every thread sums its pairs with the staged slots in
-// registers. Each pair is evaluated from both sides, so there are no atomics
-// and the sums are deterministic.
+// Two schedules, both one block per cell, both evaluating each pair from
+// both of its sides, so there are no atomics and the sums are deterministic:
+// - the per-cell walk (cell_aniso_force.cu): one thread per i slot; the
+//   block walks the neighbour cells (for_each_neighbour_cell), stages each
+//   one's slots in shared memory, and every thread sums its pairs with the
+//   staged slots in registers (launch_shape);
+// - the packed schedule (cell_pair_force.cu, cell_dpd_force.cu; the second
+//   half of this file): the occupied slots of the whole stencil are staged
+//   once, each i slot gets several lanes, and each lane lists the
+//   candidates inside its filter radius before it evaluates any of them.
 //
 // Grids with >= 3 cells on every axis use the 27-cell stencil and take the
 // periodic lattice shift from the neighbour cell's index wrap, never from
@@ -27,6 +31,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace az {
 
@@ -134,8 +140,8 @@ __device__ __forceinline__ float separation(float xs, float ys, float zs, float 
   return __fadd_rn(__fadd_rn(__fmul_rn(*dx, *dx), __fmul_rn(*dy, *dy)), __fmul_rn(*dz, *dz));
 }
 
-// Launch shape shared by both kernels: one block per cell, a whole number
-// of warps covering the cell's slots.
+// Launch shape of the per-cell walk: one block per cell, a whole number of
+// warps covering the cell's slots.
 inline bool launch_shape(int Dx, int Dy, int Dz, int cap, int T, dim3* grid, dim3* block) {
   const int n_cells = Dx * Dy * Dz;
   const int threads = ((cap + 31) / 32) * 32;
@@ -143,6 +149,364 @@ inline bool launch_shape(int Dx, int Dy, int Dz, int cap, int T, dim3* grid, dim
   *grid = dim3(n_cells);
   *block = dim3(threads);
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// The packed schedule
+// ---------------------------------------------------------------------------
+//
+// One block of B threads per cell (B a template parameter: each kernel
+// picks its own), in four steps:
+// 1. plan_stencil lists the deduplicated stencil's neighbour cells
+//    (segments, in for_each_neighbour_cell's order), counts each one's
+//    occupied slots and numbers the occupied slots of all segments 0..M-1
+//    (the candidates), segment after segment, each in slot order.
+//    Consecutive segments in which this cell's own position takes the same
+//    shift (self_position) form a run.
+// 2. stage_round copies candidates into shared memory, positions shifted as
+//    stage_position shifts them: all M at once when they fit the staging
+//    buffer (kStageBytes), else in rounds of its size. Only occupied slots
+//    are staged, so every loop below runs to the cells' occupancy, not to
+//    cap.
+// 3. The cell's n_i occupied slots get K = B / n_i lanes each (LaneMap; one
+//    lane each, in rounds, where n_i > B). Lane k of slot i takes the
+//    candidates k, k + K, ... of each run (sweep_round). It first only
+//    forms the separation and tests it against the largest cutoff of its
+//    type, listing the hits (buffer indices) in shared memory; the kernel's
+//    flush evaluates the list when any lane of the warp may fill it and at
+//    the end of each run. So the evaluation runs only on lanes that hold
+//    pairs, up to the longest list of the warp.
+// 4. reduce_lanes adds each slot's K partial sums in lane order.
+// Global loads go kBatch to a thread at a time, so their latencies overlap.
+// The order of every sum depends on the input alone, so two launches on the
+// same input give the same bits.
+//
+// Precondition: each cell's occupied slots are its first ones (slot r of a
+// cell holding n particles is occupied for r < n), the layout
+// ops/dense.py::_bin_to_slots builds and every state of the port keeps. The
+// plan checks it; a block whose stencil breaks it writes NaN to its cell's
+// outputs (poison_cell) rather than drop a candidate.
+
+constexpr int kStageBytes = 24 * 1024;  // a block's staging buffer; more candidates go in rounds
+constexpr int kListLen = 32;      // candidates a lane lists before a flush
+constexpr int kUnroll = 4;        // candidates a lane tests per step of the filter
+constexpr int kBatch = 4;         // independent global loads a thread issues at once
+constexpr int kMaxSegments = 27;  // the 27-cell stencil
+constexpr int kTableSmemBytes = 32 * 1024;  // larger tables are read from global memory
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// a wrap (each of wx, wy, wz in -1..1) in one int; kNoWrap is (0, 0, 0)
+constexpr int kNoWrap = 21;
+__device__ __forceinline__ int pack_wrap(int wx, int wy, int wz) {
+  return (wx + 1) | ((wy + 1) << 2) | ((wz + 1) << 4);
+}
+// the packed wrap of (-wx, -wy, -wz): each 2-bit field f becomes 2 - f
+__device__ __forceinline__ int negated_wrap(int p) { return 42 - p; }
+
+// Lattice shift by a packed wrap, as lattice_shift adds it.
+__device__ __forceinline__ void shift_by(float* x, float* y, float* z, int p, const BoxArgs& b) {
+  if (p != kNoWrap)
+    lattice_shift(x, y, z, (p & 3) - 1, ((p >> 2) & 3) - 1, ((p >> 4) & 3) - 1, b);
+}
+
+__host__ __device__ __forceinline__ int stencil_extent(int D) { return D >= 3 ? 3 : (D >= 2 ? 2 : 1); }
+
+struct StencilPlan {
+  int n_seg, self_seg, n_runs;
+  int prefix;                   // each segment's occupied slots are its first (the precondition)
+  int cell[kMaxSegments];
+  int wrap[kMaxSegments];       // packed wrap of the neighbour cell
+  int forward[kMaxSegments];    // this cell is the pair's home side
+  int start[kMaxSegments + 1];  // segment s holds candidates [start[s], start[s + 1])
+  int last[kMaxSegments];       // one past the segment's last occupied slot
+  int run_lo[kMaxSegments + 1]; // run r holds candidates [run_lo[r], run_lo[r + 1])
+  int self_shift[kMaxSegments]; // packed shift of this cell's own position in run r
+};
+
+// Occupied slots of each segment, added into P.start[s + 1], and one past
+// its last, into P.last[s]: each thread reads W tags at a time (W = 4: an
+// int4 load), kBatch loads in flight.
+template <int B, int W>
+__device__ __forceinline__ void count_segments(StencilPlan& P, const int* __restrict__ tag,
+                                               int n_seg, int cap) {
+  const int per = cap / W, total = n_seg * per;
+  for (int x0 = threadIdx.x; x0 < total; x0 += kBatch * B) {
+    int v[kBatch][W], seg[kBatch], r[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int x = min(x0 + u * B, total - 1);  // past the end: read again, not counted
+      seg[u] = x / per;
+      r[u] = W * (x - seg[u] * per);
+      const int* p = tag + P.cell[seg[u]] * cap + r[u];
+      if constexpr (W == 4) {
+        const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+        v[u][0] = q.x;
+        v[u][1] = q.y;
+        v[u][2] = q.z;
+        v[u][3] = q.w;
+      } else {
+        v[u][0] = __ldg(p);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      int n = 0, top = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (v[u][w] >= 0) {
+          ++n;
+          top = r[u] + w + 1;
+        }
+      }
+      if (n > 0 && x0 + u * B < total) {
+        atomicAdd(&P.start[seg[u] + 1], n);
+        atomicMax(&P.last[seg[u]], top);
+      }
+    }
+  }
+}
+
+// Step 1; every thread of the block calls it, and it ends synchronised.
+template <int B, bool MIN_IMAGE>
+__device__ void plan_stencil(StencilPlan& P, const int* __restrict__ tag, int cell, int Dx, int Dy,
+                             int Dz, int cap) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int ex = stencil_extent(Dx), ey = stencil_extent(Dy), ez = stencil_extent(Dz);
+  const int n_seg = ex * ey * ez;
+  const int self_seg = (Dx >= 3) * ey * ez + (Dy >= 3) * ez + (Dz >= 3);
+  if (t < n_seg) {
+    const int cz = cell % Dz, cy = (cell / Dz) % Dy, cx = cell / (Dz * Dy);
+    const int ox = t / (ey * ez) - (Dx >= 3);
+    const int oy = (t / ez) % ey - (Dy >= 3);
+    const int oz = t % ez - (Dz >= 3);
+    int wx, wy, wz;
+    const int nx = wrap_cell(cx + ox, Dx, &wx);
+    const int ny = wrap_cell(cy + oy, Dy, &wy);
+    const int nz = wrap_cell(cz + oz, Dz, &wz);
+    P.cell[t] = (nx * Dy + ny) * Dz + nz;
+    P.wrap[t] = pack_wrap(wx, wy, wz);
+    P.forward[t] = ox > 0 || (ox == 0 && (oy > 0 || (oy == 0 && oz > 0)));
+    P.start[t + 1] = 0;  // the count, summed below
+    P.last[t] = 0;
+  }
+  __syncthreads();
+  if ((cap & 3) == 0 && (reinterpret_cast<size_t>(tag) & 15) == 0)
+    count_segments<B, 4>(P, tag, n_seg, cap);
+  else
+    count_segments<B, 1>(P, tag, n_seg, cap);
+  __syncthreads();
+  if (t < 32) {  // one warp: the prefix sum, the runs and the layout check
+    const int n = lane < n_seg ? P.start[lane + 1] : 0;
+    int incl = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, incl, o);
+      if (lane >= o) incl += v;
+    }
+    // a nonempty segment starts a run where its shift differs from the
+    // shift of the nonempty segment before it
+    const int shift = lane < n_seg && n > 0
+                          ? ((MIN_IMAGE || P.forward[lane]) ? kNoWrap : negated_wrap(P.wrap[lane]))
+                          : -1;
+    const unsigned before = __ballot_sync(kFullMask, shift >= 0) & ((1u << lane) - 1u);
+    const int prev = __shfl_sync(kFullMask, shift, before ? 31 - __clz(before) : lane);
+    const bool starts = shift >= 0 && (before == 0 || prev != shift);
+    const unsigned starts_mask = __ballot_sync(kFullMask, starts);
+    const bool prefix = __all_sync(kFullMask, lane >= n_seg || P.last[lane] == n);
+    const int M = __shfl_sync(kFullMask, incl, n_seg - 1);
+    if (starts) {
+      const int run = __popc(starts_mask & ((1u << lane) - 1u));
+      P.run_lo[run] = incl - n;
+      P.self_shift[run] = shift;
+    }
+    if (lane < n_seg) P.start[lane + 1] = incl;
+    if (lane == 0) {
+      P.start[0] = 0;
+      P.n_runs = __popc(starts_mask);
+      P.run_lo[__popc(starts_mask)] = M;
+      P.n_seg = n_seg;
+      P.self_seg = self_seg;
+      P.prefix = prefix;
+    }
+  }
+  __syncthreads();
+}
+
+// The outputs of a cell whose stencil breaks the precondition: NaN in every
+// slot, so the caller sees the layout was refused. Every thread calls it.
+template <int B, bool WANT_ALL>
+__device__ __forceinline__ void poison_cell(int cell, int cap, float* force, float* energy,
+                                            float* virial) {
+  const float nan = __int_as_float(0x7fc00000);
+  for (int r = threadIdx.x; r < cap; r += B) {
+    const int s = cell * cap + r;
+    force[3 * s] = force[3 * s + 1] = force[3 * s + 2] = nan;
+    if (WANT_ALL) {
+      energy[s] = nan;
+      for (int a = 0; a < 6; ++a) virial[6 * s + a] = nan;
+    }
+  }
+}
+
+// Step 2: stage candidates [R0, R1) at buffer index g - R0. load(slot,
+// wrap, forward) reads one slot's entry from global memory and store(index,
+// entry) writes it to the buffer. Candidate g of segment s is the segment's
+// slot g - start[s] (the precondition). Each thread takes kBatch candidates
+// at a time, their loads issued together. Every thread calls it; the caller
+// synchronises before and after.
+template <int B, class Load, class Store>
+__device__ __forceinline__ void stage_round(const StencilPlan& P, int cap, int R0, int R1,
+                                            Load&& load, Store&& store) {
+  using Entry = decltype(load(0, 0, 0));
+  int s = 0;
+  for (int g0 = R0 + (int)threadIdx.x; g0 < R1; g0 += kBatch * B) {
+    Entry entry[kBatch];
+    int slot[kBatch], seg[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int g = min(g0 + u * B, R1 - 1);  // past R1: read again, not stored
+      while (P.start[s + 1] <= g) ++s;
+      seg[u] = s;
+      slot[u] = P.cell[s] * cap + g - P.start[s];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) entry[u] = load(slot[u], P.wrap[seg[u]], P.forward[seg[u]]);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (g0 + u * B < R1) store(g0 + u * B - R0, entry[u]);
+    }
+  }
+}
+
+// Step 3's lane map: K lanes for each of the cell's n_i occupied slots,
+// per_round slots at a time.
+template <int B>
+struct LaneMap {
+  int K, per_round, rounds;
+  __device__ explicit LaneMap(int n_i) {
+    K = n_i < B ? B / max(n_i, 1) : 1;
+    per_round = B / K;
+    rounds = (n_i + per_round - 1) / per_round;
+  }
+};
+
+// Step 3 for one lane and one staging round [R0, R1): lists the candidates
+// whose squared distance from (xi, yi, zi) is below rfilt_sq in
+// list[e * B + t] and calls flush(xs, ys, zs, n) to evaluate them, (xs, ys,
+// zs) being this cell's own position as the run's pairs see it. self_g is
+// the lane's own candidate number, never listed. Each step tests kUnroll
+// candidates, K apart. Every thread of the block calls it with the same
+// R0, R1 and K.
+template <int B, bool MIN_IMAGE, class Flush>
+__device__ __forceinline__ void sweep_round(const StencilPlan& P, const float4* __restrict__ pos4,
+                                            int R0, int R1, int K, int k, bool active, int self_g,
+                                            float xi, float yi, float zi, float rfilt_sq,
+                                            const BoxArgs& box, unsigned short* list,
+                                            Flush&& flush) {
+  const int t = threadIdx.x;
+  for (int run = 0; run < P.n_runs; ++run) {
+    const int lo = max(P.run_lo[run], R0), hi = min(P.run_lo[run + 1], R1);
+    if (lo >= hi) continue;
+    float xs = xi, ys = yi, zs = zi;
+    if (!MIN_IMAGE) shift_by(&xs, &ys, &zs, P.self_shift[run], box);
+    int n = 0;
+    for (int base = lo + k; base - k < hi; base += kUnroll * K) {
+      float rsq[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {  // kUnroll independent tests
+        const float4 pj = pos4[min(base + u * K, hi - 1) - R0];
+        float dx, dy, dz;
+        rsq[u] = separation<MIN_IMAGE>(xs, ys, zs, pj.x, pj.y, pj.z, box, &dx, &dy, &dz);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int g = base + u * K;
+        if (active && g < hi && g != self_g && rsq[u] < rfilt_sq) {
+          list[n * B + t] = (unsigned short)(g - R0);
+          ++n;
+        }
+      }
+      if (__any_sync(kFullMask, n > kListLen - kUnroll)) {
+        flush(xs, ys, zs, n);
+        n = 0;
+      }
+    }
+    flush(xs, ys, zs, n);
+  }
+}
+
+// Step 4: this i round's lane partials to slot sums; write(ir, sum) for
+// each occupied slot rank ir of the round, sum[a] = its K partials added in
+// lane order. Every thread of the block calls it.
+template <int B, int N_ACC, class Write>
+__device__ __forceinline__ void reduce_lanes(float* part, const float (&acc)[N_ACC],
+                                             const LaneMap<B>& L, int q, int n_i, Write&& write) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int a = 0; a < N_ACC; ++a) part[a * B + t] = acc[a];
+  __syncthreads();
+  const int ir = q * L.per_round + t;
+  if (t < L.per_round && ir < n_i) {
+    float sum[N_ACC];
+#pragma unroll
+    for (int a = 0; a < N_ACC; ++a) sum[a] = part[a * B + t * L.K];
+    for (int k = 1; k < L.K; ++k) {
+#pragma unroll
+      for (int a = 0; a < N_ACC; ++a) sum[a] += part[a * B + t * L.K + k];
+    }
+    write(ir, sum);
+  }
+  __syncthreads();
+}
+
+// Shared memory of one block, carved from the dynamic allocation in this
+// order, each piece 16-byte aligned: the staging buffer (stage_cap entries
+// of entry_bytes, within kStageBytes), the tables where they fit in
+// kTableSmemBytes (else tab_floats is 0 and the kernel reads them from
+// global memory), the lane partials and the lists.
+struct PackedLayout {
+  int stage_cap, tab_floats, off_tab, off_part, off_list, bytes;
+};
+
+// Host side: grid, block and layout for blocks of `threads`; false for a
+// shape the kernels do not take.
+inline bool packed_launch(int Dx, int Dy, int Dz, int cap, int T, int n_tab_rows, int entry_bytes,
+                          int n_acc, int threads, dim3* grid, dim3* block, PackedLayout* L) {
+  const long long n_cells = (long long)Dx * Dy * Dz;
+  if (n_cells <= 0 || n_cells > 2147483647LL || cap <= 0 || T <= 0) return false;
+  auto align16 = [](long long b) { return (b + 15) & ~15LL; };
+  const long long n_seg = stencil_extent(Dx) * stencil_extent(Dy) * stencil_extent(Dz);
+  const long long stage_cap = std::min(n_seg * cap, (long long)(kStageBytes / entry_bytes));
+  const long long tab = (long long)n_tab_rows * T * T;
+  L->stage_cap = (int)stage_cap;
+  L->tab_floats = 4 * tab <= kTableSmemBytes ? (int)tab : 0;
+  long long off = align16(stage_cap * entry_bytes);
+  L->off_tab = (int)off;
+  off = align16(off + 4LL * L->tab_floats);
+  L->off_part = (int)off;
+  off = align16(off + 4LL * n_acc * threads);
+  L->off_list = (int)off;
+  L->bytes = (int)align16(off + 2LL * kListLen * threads);
+  *grid = dim3((unsigned)n_cells);
+  *block = dim3(threads);
+  return true;
+}
+
+// Launch on `stream` with the layout's dynamic shared memory, raising the
+// kernel's limit where it passes 48 KB; returns the launch's error (0 = launched).
+template <class... KArgs, class... Args>
+inline cudaError_t launch_packed(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                                 const PackedLayout& L, cudaStream_t stream, Args... args) {
+  if (L.bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the wrapper raises on the value returned
+      return err;
+    }
+  }
+  kernel<<<grid, block, L.bytes, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace az

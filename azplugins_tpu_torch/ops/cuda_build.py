@@ -6,11 +6,13 @@ Each ``csrc/*.cu`` file is compiled on first use by ``nvcc`` for Hopper
 git), named by a hash of the source, every shared header beside it
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
 and an unchanged one is loaded as is. :func:`load_libraries` builds several
-sources at once, one ``nvcc`` each.
+sources at once, one ``nvcc`` each. Inside :func:`sources`, the kernels are
+built and loaded from another directory (an edited copy of ``csrc/``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +22,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "load_library", "load_libraries", "source_digest", "build_info"]
+__all__ = [
+    "CSRC", "BUILD_DIR", "load_library", "load_libraries", "sources", "source_digest", "build_info",
+]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -29,10 +33,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libraries: dict[str, ctypes.CDLL] = {}
-# source name -> {"seconds": build time (0.0 when loaded from _build/),
+# the directory load_library builds from when none is given (see sources)
+_csrc = CSRC
+# source path -> its loaded library
+_libraries: dict[Path, ctypes.CDLL] = {}
+# source path -> {"seconds": build time (0.0 when loaded from _build/),
 # "log": nvcc's output, including ptxas's register and spill report}
-build_info: dict[str, dict] = {}
+build_info: dict[Path, dict] = {}
 
 
 def _nvcc() -> str:
@@ -59,15 +66,33 @@ def source_digest(source: str, csrc: Path = CSRC) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` if needed and return the loaded library."""
-    lib = _libraries.get(source)
+@contextlib.contextmanager
+def sources(csrc: Path):
+    """Within the block, :func:`load_library` (and so every kernel wrapper)
+    builds and loads the kernels from ``csrc`` instead of ``csrc/``: a copy
+    with one edit, say, to time what the edit is worth."""
+    global _csrc
+    previous, _csrc = _csrc, Path(csrc).resolve()
+    try:
+        yield
+    finally:
+        _csrc = previous
+
+
+def load_library(source: str, csrc: Path | None = None) -> ctypes.CDLL:
+    """Compile ``<csrc>/<source>`` if needed and return the loaded library.
+
+    ``csrc`` defaults to ``csrc/``, or to the directory of the enclosing
+    :func:`sources` block.
+    """
+    csrc = _csrc if csrc is None else Path(csrc).resolve()
+    src = csrc / source
+    lib = _libraries.get(src)
     if lib is not None:
         return lib
-    src = CSRC / source
-    out = BUILD_DIR / f"{src.stem}-{source_digest(source)}.so"
+    out = BUILD_DIR / f"{src.stem}-{source_digest(source, csrc)}.so"
     if out.exists():
-        build_info[source] = {"seconds": 0.0, "log": ""}
+        build_info[src] = {"seconds": 0.0, "log": ""}
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -80,12 +105,12 @@ def load_library(source: str) -> ctypes.CDLL:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
-        build_info[source] = {
+        build_info[src] = {
             "seconds": time.perf_counter() - t0,
             "log": (proc.stdout + proc.stderr).strip(),
         }
     lib = ctypes.CDLL(str(out))
-    _libraries[source] = lib
+    _libraries[src] = lib
     return lib
 
 

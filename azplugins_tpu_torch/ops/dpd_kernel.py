@@ -9,7 +9,9 @@ Threefry-13 noise drawn inside the kernel, bitwise the plain version's
 (``want="all"``, the observables), the kernel computes the energy and the
 conservative virial too, so CUDA tensors never take the plain version. Its
 plain PyTorch version is :func:`azplugins_tpu_torch.ops.dense.dense_dpd_force`.
-What bounds the kernel and what its design does about it is in the source.
+The kernel runs the packed schedule of ``csrc/cell_stencil.cuh`` (see
+:mod:`azplugins_tpu_torch.ops.pair_kernel`); what bounds it and what its
+design does about it is in the source.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel or raises. Nothing falls back.

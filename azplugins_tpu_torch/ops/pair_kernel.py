@@ -9,29 +9,36 @@ in modes none/shift/xplor, with per-slot energy and virial for observables
 (``want="all"``). Its plain PyTorch version is
 :func:`azplugins_tpu_torch.ops.dense.dense_pair_force`.
 
-What bounds it on an H100. At the 64k headline (cap 48, ~37 particles per
-cell, r_cut 3.0 in cells 3.5 wide) each slot tests ~1,000 occupied
-candidates in its 27 neighbour cells, of which ~100 fall inside the cutoff.
-The cutoff test costs ~10 float32 operations and four shared-memory reads
-per candidate, the full evaluation ~30 float32 operations per pair inside
-the cutoff (an exp or a sqrt more for the Yukawa, Morse, Gaussian and
-Hertz forms), and every pair is evaluated from both of its sides (twice the
-half stencil's work). That is ~1 GFLOP per call, ~15 us at the card's
-67 TFLOP/s float32 peak; the instruction stream of the candidate loop
-(instruction slots and shared-memory reads, not FLOPs) is what binds, estimated
-at ~0.1 ms. Occupancy: one 64-thread block per cell, so a quarter of the
-lanes idle at cap 48, and the 1,728 cells give ~26 resident warps per SM.
-Measured times are in PERF.md.
+What bounds it on an H100. At the 64k headline (grid 12^3, ~37 particles
+per cell, r_cut 3.0 in cells 3.5 wide) each slot has ~1,000 occupied
+candidates in its 27 neighbour cells, of which ~100 fall inside the cutoff,
+and every pair is evaluated from both of its sides (twice the half
+stencil's work). The cutoff test costs ~20 instructions per candidate (a
+shared-memory read, the explicitly rounded separation, the compare, the
+list append, the loop); a pair inside costs ~40 more (~30 float32
+operations of PLJ; an exp or a sqrt more for the Yukawa, Morse, Gaussian
+and Hertz forms). That is ~1 GFLOP per call, ~15 us at the card's 67
+TFLOP/s float32 peak; instruction issue in the candidate filter, not
+FLOPs, is what binds. Measured times are in PERF.md.
 
-What the design does about it: positions and typeids of each neighbour cell
-are staged once in shared memory and read as broadcasts; empty slots and
-pairs beyond the cutoff leave the loop before any evaluator work; the
-accumulation stays in registers with no atomics; the potential is a
-compile-time choice, so the step path carries no branch on it. The shift
-mode is folded into the tables (:func:`kernel_tables`), so modes cost one
-compare per pair inside the cutoff. Work skipping by cell occupancy, Newton
-halving with a j-side scatter and a faster reciprocal are later
-measurements.
+What the design does about it (the packed schedule of
+``csrc/cell_stencil.cuh``): one 256-thread block per cell stages the
+occupied slots of its whole stencil in shared memory once, so every loop
+runs to the cells' occupancy, not to ``cap``; the cell's occupied slots
+share the block's lanes (K = 256 // n_i lanes each, their partial sums
+added in lane order); each lane first only tests the distance of its
+candidates and lists the hits, then evaluates the list, so the evaluation
+runs only where a lane has a pair. The tables sit in shared memory where
+they fit. Stencils with more candidates than the staging buffer holds
+(``kStageBytes``) are staged in rounds. Accumulation stays in registers
+with no atomics, so two launches on the same input give the same bits.
+The potential is a compile-time choice and the shift mode is folded into
+the tables (:func:`kernel_tables`). Newton halving with a j-side pass is a
+later measurement.
+
+The kernels take the slot layout :func:`~.dense.densify` builds, each
+cell's occupied slots first; a cell whose stencil holds another layout
+gets NaN outputs, never a silently dropped pair.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel or raises. Nothing falls back.
@@ -149,7 +156,7 @@ def check_cell_args(fn: str, dense: State, spec: GridSpec, want: str) -> torch.d
     if want not in ("force", "all"):
         raise ValueError(f"want must be 'force' or 'all', got {want!r}")
     if spec.cap > 1024:
-        raise ValueError(f"cell capacity {spec.cap} exceeds the kernel's 1024 threads per cell")
+        raise ValueError(f"cell capacity {spec.cap} exceeds the cell kernels' 1024 slots per cell")
     check_tensor(dense.position, "position", torch.float32, (spec.S, 3), dev)
     check_tensor(dense.typeid, "typeid", torch.int32, (spec.S,), dev)
     check_tensor(dense.tag, "tag", torch.int32, (spec.S,), dev)

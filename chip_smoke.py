@@ -13,9 +13,14 @@
    PyTorch versions on the card: small orthorhombic, tilted,
    axis-under-3-cells and two-type shapes, the polymer melt (32,000), DPD
    fluid (21,952) and patchy colloids (27,000) at full size, and the 64k
-   headline; times each kernel against its plain version and computes its
-   bound (the larger of its bytes over the memory rate and its operations
-   over the float32 rate, for this run's inputs);
+   headline; for the pair and DPD kernels (the packed schedule) also cells
+   filled to exactly their capacity, mostly empty cells, a capacity above
+   256 staged in rounds, two axes under 3 cells and 41 types (tables in
+   global memory); checks that two launches give the same bits; prints the
+   candidate pairs per call beside the pairs inside r_cut; times each
+   kernel against its plain version and computes its bound (the larger of
+   its bytes over the memory rate and its operations over the float32
+   rate, for this run's inputs);
 4. checks that Threefry and the Langevin noise are bitwise the same on the
    GPU and the CPU;
 5. runs, through the public API, each with the launch counts set to 0 just
@@ -29,7 +34,9 @@
      particles, Langevin with NO_SQUISH rotation);
    - a short run of every other isotropic potential;
    and checks that every force evaluation went through a kernel and that
-   the result is physical;
+   the result is physical; after the headline and the DPD fluid, times
+   their kernel on the path's state at two capacities, in two turns (72
+   and 48; 40 and the smallest that fits);
 6. prints the kernel summary and, last, the contract line
    {"ok": true, "device": {...}}.
 
@@ -102,10 +109,14 @@ def _import_port():
 
 
 def _cuda_time_ms(fn, reps: int, warm: int = 2) -> float:
+    """Device ms per call: CUDA events around ``reps`` calls, queued while
+    the stream spins (torch.cuda._sleep), so the calls run back to back and
+    the host's launch overhead (tens of us a call) is not timed."""
     for _ in range(warm):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms of the card's clock, longer than the queueing
     start.record()
     for _ in range(reps):
         fn()
@@ -115,21 +126,21 @@ def _cuda_time_ms(fn, reps: int, warm: int = 2) -> float:
 
 
 def _lattice_snapshot(az, counts, rho, jitter, seed, tilt=(0.0, 0.0, 0.0), n_types=1,
-                      clustered=False, quats=False):
+                      clustered=False, quats=False, span=1.0):
     """A jittered simple-cubic lattice of counts[0] x counts[1] x counts[2]
-    sites at number density rho, in a box of that shape (optionally tilted,
-    optionally squeezed along x into uneven cell occupancies), with
-    normal(0, 1) velocities (and, with ``quats``, random unit
-    orientations)."""
+    sites at number density rho, filling ``span`` of each edge of a box of
+    that shape from its corner (optionally tilted, optionally squeezed along
+    x into uneven cell occupancies), with normal(0, 1) velocities (and, with
+    ``quats``, random unit orientations)."""
     rng = np.random.default_rng(seed)
     N = int(np.prod(counts))
     a = (1.0 / rho) ** (1.0 / 3.0)
-    Ls = [c * a for c in counts]
+    Ls = [c * a / span for c in counts]
     snap = az.Snapshot(N=N)
     snap.configuration.box = [*Ls, *tilt]
-    snap.particles.types = ["A", "B", "C", "D"][:n_types]
+    snap.particles.types = (["A", "B", "C", "D"] + [f"t{i}" for i in range(4, n_types)])[:n_types]
     grid = np.stack(np.meshgrid(*[np.arange(c) for c in counts], indexing="ij"), -1)
-    f = (grid.reshape(-1, 3) + 0.5) / np.asarray(counts)
+    f = span * (grid.reshape(-1, 3) + 0.5) / np.asarray(counts)
     if clustered:
         # periodic squeeze: sites crowd (spacing x0.7) around x = -L/2
         f[:, 0] = f[:, 0] - 0.3 * np.sin(2.0 * np.pi * f[:, 0]) / (2.0 * np.pi)
@@ -171,6 +182,53 @@ def _pairs_inside(D, dense, spec, r_cut):
     (n,) = D._stencil_drive(dense, jb, spec, 1, count)
     total = float(n.double().sum())
     return int(round(total if spec.newton_ok else total / 2))
+
+
+def _stencil_occupancy(dense, spec):
+    """([Dx, Dy, Dz] occupied slots of each cell, of each cell's stencil)."""
+    occ = (dense.tag >= 0).reshape(*spec.dims, spec.cap).sum(dim=-1).double()
+    around = sum(torch.roll(occ, shifts=tuple(-int(o) for o in off), dims=(0, 1, 2))
+                 for off in spec.stencil())
+    return occ, around
+
+
+def _candidates(dense, spec):
+    """Candidate pairs a packed-schedule call tests: the sum over cells of
+    n_i times the occupied slots of the cell's stencil (its own included)."""
+    occ, around = _stencil_occupancy(dense, spec)
+    return int((occ * around).sum())
+
+
+def _check_packed_shapes(stage_entries, cases):
+    """Each packed-schedule shape is the case it is named for. stage_entries:
+    the candidates one staging round of the kernel holds."""
+    for label, dense, spec, T, *_ in cases:
+        occ, around = _stencil_occupancy(dense, spec)
+        ok = {
+            "full cells": lambda: bool((occ == spec.cap).all()),
+            "mostly empty": lambda: float((occ == 0).double().mean()) > 0.75,
+            "cap >= 256 in rounds": lambda: spec.cap >= 256 and float(around.max()) > stage_entries,
+            "two axes under 3": lambda: sorted(spec.dims)[1] < 3,
+            "41 types": lambda: T == 41,
+        }.get(label, lambda: True)()
+        if not ok:
+            raise AssertionError(f"{label}: dims {spec.dims}, cap {spec.cap}, T {T} is not the "
+                                 "shape it is named for")
+
+
+def _stage_bytes() -> int:
+    """The packed schedule's staging buffer per block (cell_stencil.cuh's
+    kStageBytes): a stencil with more candidates is staged in rounds."""
+    header = (HERE / "azplugins_tpu_torch" / "csrc" / "cell_stencil.cuh").read_text()
+    return int(re.search(r"kStageBytes = (\d+) \* 1024;", header).group(1)) * 1024
+
+
+def _same_bits(name, first, second):
+    """Two launches' outputs (ForceResult) bit for bit."""
+    for what in ("force", "energy", "virial"):
+        a, b = getattr(first, what), getattr(second, what)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{name}: two launches on the same input differ in {what}")
 
 
 def _bound(dense, in_bytes, out_bytes, table_bytes, pairs, ops_per_pair):
@@ -399,14 +457,31 @@ def check_pair_kernel(az, D, PK, record):
          2.0),
         ("three types uneven", dict(counts=(16, 14, 14), rho=0.6, jitter=0.03, seed=3,
                                      n_types=3, clustered=True), 2.0, 16),
+        # the packed schedule's own shapes: 12^3 cells of exactly 8 at cap 8;
+        # a cluster in 0.4 of each edge (most cells empty); 4^3 cells of
+        # ~244 at cap ~296, staged in rounds; two axes under 3 cells; 41
+        # types, whose tables are read from global memory
+        ("full cells", dict(counts=(24, 24, 24), rho=0.85, jitter=0.04, seed=7, n_types=2),
+         1.6, 8),
+        ("mostly empty", dict(counts=(12, 12, 12), rho=0.85, jitter=0.06, seed=8, n_types=2,
+                              span=0.4), 2.0),
+        ("cap >= 256 in rounds", dict(counts=(25, 25, 25), rho=0.85, jitter=0.06, seed=9,
+                                      n_types=2), 6.0),
+        ("two axes under 3", dict(counts=(5, 5, 20), rho=0.85, jitter=0.06, seed=12,
+                                  n_types=2), 2.0),
+        ("41 types", dict(counts=(14, 14, 14), rho=0.85, jitter=0.06, seed=13, n_types=41), 2.0),
     ]
     cases = []
     for label, kw, r_cut, *cap in shapes:
         dense, spec, T = _dense_case(az, D, _lattice_snapshot(az, **kw), r_cut, 0.4, dev, *cap)
         cases.append((label, dense, spec, T, r_cut))
+    _check_packed_shapes(_stage_bytes() // 16, cases)
     poly_dense, poly_spec = _prepared_dense(build_polymer(az, dev)[0])
     cases.append(("polymer melt 32k", poly_dense, poly_spec, 1, 2.5))
     poly_pairs = _pairs_inside(D, poly_dense, poly_spec, 2.5)
+    print(f"[kernel] polymer melt 32k cap {poly_spec.cap}: {_candidates(poly_dense, poly_spec)} "
+          f"candidate pairs per call, {poly_pairs} unordered pairs inside r_cut (each "
+          f"evaluated from both sides)", flush=True)
     ef = az.ops.evaluators.PAIR_POTENTIALS
 
     timing = {}
@@ -458,12 +533,18 @@ def check_pair_kernel(az, D, PK, record):
         record("cell_pair_force[PerturbedLennardJones]", ferr)
         print(f"[kernel] {tag}: force max_abs_err {ferr:.3e}, worst error {rel:.3e} of "
               f"max|value|", flush=True)
+    _same_bits("cell_pair_force[PerturbedLennardJones] 64k headline",
+               *[PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "none", "all")
+                 for _ in range(2)])
     ms = _cuda_time_ms(
         lambda: PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "none"), 50)
     plain_ms = _cuda_time_ms(
         lambda: D.dense_pair_force(ef["PerturbedLennardJones"].energy_force, dense, jb, spec,
                                    tbl["params"], tbl["r_cut"], None, "none", "force"), 5)
     pairs = _pairs_inside(D, dense, spec, 3.0)
+    print(f"[kernel] PerturbedLennardJones 64k headline cap {spec.cap}: two launches give the "
+          f"same bits; {_candidates(dense, spec)} candidate pairs per call, {pairs} unordered "
+          f"pairs inside r_cut (each evaluated from both sides)", flush=True)
     bound = _bound(dense, 16, 12, 4 * tables.numel(), pairs,
                    OPS_PER_PAIR["PerturbedLennardJones"])
     timing["PerturbedLennardJones"] = (ms, plain_ms, f"64k headline, cap {spec.cap}", bound)
@@ -484,21 +565,33 @@ def check_dpd_kernel(az, D, DK, record):
                         tilt=(0.3, -0.2, 0.15))),
         ("axis under 3 cells", dict(counts=(5, 20, 20), rho=3.0, jitter=0.1, seed=23)),
         ("two types", dict(counts=(16, 16, 16), rho=3.0, jitter=0.1, seed=24, n_types=2)),
+        # the packed schedule's own shapes (see check_pair_kernel); the
+        # rounds need a cutoff of 4 at rho 3: 3^3 cells of ~296
+        ("full cells", dict(counts=(24, 24, 24), rho=2.9, jitter=0.03, seed=27, n_types=2), 1.0,
+         8),
+        ("mostly empty", dict(counts=(12, 12, 12), rho=3.0, jitter=0.1, seed=28, n_types=2,
+                              span=0.4)),
+        ("cap >= 256 in rounds", dict(counts=(20, 20, 20), rho=3.0, jitter=0.1, seed=29,
+                                      n_types=2), 4.0),
+        ("two axes under 3", dict(counts=(5, 5, 20), rho=3.0, jitter=0.1, seed=30, n_types=2)),
+        ("41 types", dict(counts=(16, 16, 16), rho=3.0, jitter=0.1, seed=31, n_types=41)),
     ]
     cases = []
-    for label, kw in shapes:
-        dense, spec, T = _dense_case(az, D, _lattice_snapshot(az, **kw), 1.0, 0.4, dev)
-        cases.append((label, dense, spec, T))
+    for label, kw, *grid in shapes:
+        r_cut, *cap = grid or [1.0]
+        dense, spec, T = _dense_case(az, D, _lattice_snapshot(az, **kw), r_cut, 0.4, dev, *cap)
+        cases.append((label, dense, spec, T, r_cut))
+    _check_packed_shapes(_stage_bytes() // 32, cases)
     sim, _ = build_dpd(az, dev)
     dense, spec = _prepared_dense(sim)
     g = torch.Generator(device=dev).manual_seed(25)
     vel = torch.randn(dense.velocity.shape, generator=g, device=dev)
     dense = dense.replace(velocity=torch.where(dense.tag[:, None] >= 0, vel, 0.0))
-    cases.append(("DPD fluid 22k", dense, spec, 1))
+    cases.append(("DPD fluid 22k", dense, spec, 1, 1.0))
 
     rng = np.random.default_rng(26)
     timing = None
-    for label, dense, spec, T in cases:
+    for label, dense, spec, T, r_cut in cases:
         A = rng.uniform(15.0, 30.0, (T, T))
         gamma = rng.uniform(3.0, 6.0, (T, T))
         s = rng.uniform(0.3, 2.0, (T, T))
@@ -508,8 +601,8 @@ def check_dpd_kernel(az, D, DK, record):
         def dev_t(a):
             return torch.as_tensor(np.asarray((a + a.T) / 2, np.float32), device=dev)
 
-        rc = np.full((T, T), 1.0)
-        rc[0, -1] = rc[-1, 0] = 0.85 if T > 1 else 1.0
+        rc = np.full((T, T), r_cut)
+        rc[0, -1] = rc[-1, 0] = 0.85 * r_cut if T > 1 else r_cut
         tbl = {"params": {"A": dev_t(A), "gamma": dev_t(gamma), "s": dev_t(s)},
                "r_cut": dev_t(rc)}
         jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_velocity=True, need_tag=True)
@@ -529,17 +622,21 @@ def check_dpd_kernel(az, D, DK, record):
               f"error {worst:.3e} of max|value| (bar {BAR})", flush=True)
         if label.startswith("DPD"):
             tables = DK.dpd_kernel_tables(tbl["params"], tbl["r_cut"], 1.0, 0.01)
+            _same_bits("cell_dpd_force DPD fluid 22k",
+                       *[DK.cell_dpd_force(dense, spec, tables, 5, 777, "all") for _ in range(2)])
             ms = _cuda_time_ms(lambda: DK.cell_dpd_force(dense, spec, tables, 5, 777), 30)
             plain_ms = _cuda_time_ms(
                 lambda: D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], 1.0,
                                           0.01, 5, 777, "force"), 3)
             # inputs: position and velocity 24 B, type 4 B; outputs: force 12 B
-            bound_ms, by = _bound(dense, 28, 12, 4 * tables.numel(),
-                                  _pairs_inside(D, dense, spec, 1.0), OPS_PER_PAIR["DPD"])
+            pairs = _pairs_inside(D, dense, spec, 1.0)
+            bound_ms, by = _bound(dense, 28, 12, 4 * tables.numel(), pairs, OPS_PER_PAIR["DPD"])
             timing = (ms, plain_ms, f"DPD fluid 22k, cap {spec.cap}", (bound_ms, by))
             print(f"[kernel] cell_dpd_force at DPD fluid 22k cap {spec.cap}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms per call (force); bound {bound_ms:.5f} ms ({by})",
-                  flush=True)
+                  f"plain {plain_ms:.4f} ms per call (force); bound {bound_ms:.5f} ms ({by}); "
+                  f"two launches give the same bits; {_candidates(dense, spec)} candidate pairs "
+                  f"per call, {pairs} unordered pairs inside r_cut (each evaluated from both "
+                  f"sides)", flush=True)
     return timing
 
 
@@ -802,14 +899,56 @@ def _kernels_on_state(az, D, K, sim, forces, record):
     return ", ".join(errs)
 
 
+def _time_at_caps(az, D, K, sim, forces, caps):
+    """The path's pair kernel on the path's own state, densified anew at
+    each cap (grown by 8 until the state fits): ms per call in two turns
+    (the caps in order, then in reverse) and candidate pairs, to show
+    whether the time still follows cap. Returns the caps timed, their ms
+    per turn and their candidates."""
+    dense, spec, dev = sim._dense, sim._grid_spec, sim.device
+    state = D.undensify(dense, sim.state.N_particles, fields=())
+    f = next(f for f in forces if f._needs_nlist)
+    tbl = f._device_tables(dev)
+    max_occ = int((dense.tag >= 0).reshape(spec.n_cells, spec.cap).sum(dim=1).max())
+    if isinstance(f, az.pair.DPDGeneralWeight):
+        tables = K.DK.dpd_kernel_tables(tbl["params"], tbl["r_cut"], f.kT(sim.timestep),
+                                        sim.dt_ref())
+
+        def call(d, sp):
+            return K.DK.cell_dpd_force(d, sp, tables, sim.seed, sim.timestep)
+    else:
+
+        def call(d, sp):
+            return K.PK.cell_pair_force(d, sp, tbl["kernel"], f._evaluator_name, f.mode)
+
+    grids = []
+    for cap in caps:
+        while True:
+            sp = spec.replace(cap=cap)
+            d, meta = D.densify(state, sp, fields=())
+            if not bool(meta.overflow):
+                break
+            cap += 8
+        grids.append((cap, d, sp))
+    ms = {cap: [] for cap, _, _ in grids}
+    for cap, d, sp in (*grids, *reversed(grids)):
+        ms[cap].append(_cuda_time_ms(lambda: call(d, sp), 50))
+    timed = [(cap, ms[cap], _candidates(d, sp)) for cap, d, sp in grids]
+    print(f"[caps] kernel on the path's state (max occupancy {max_occ}), two turns: " + "; ".join(
+        f"cap {c}: {' and '.join(f'{t:.4f}' for t in turns)} ms, {n} candidate pairs"
+        for c, turns, n in timed), flush=True)
+    return timed
+
+
 def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
-             extra_check=None, kT=1.0, kT_band=0.05):
+             extra_check=None, kT=1.0, kT_band=0.05, caps=()):
     """One main path at full size: warm up (printing the temperatures five
     times on the way), then ``steps`` timed steps with the launch counts set
     to 0 just before and read just after. ``counts`` maps each kernel name
     the path must run to a function that reads its count. The translational
     (and rotational) kinetic temperature must read ``kT`` within
-    ``kT_band`` after the timed steps. Returns the counts."""
+    ``kT_band`` after the timed steps. Afterwards the pair kernel is timed
+    at each of ``caps`` on the path's state. Returns the counts."""
     sim, forces = build(az, "cuda")
     thermo = az.compute.ThermodynamicQuantities()
     sim.operations.computes.append(thermo)
@@ -867,6 +1006,8 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
           f"{kT_band}), energies per particle "
           f"{[round(e / sim.state.N_particles, 5) for e in energies]}, pressure {p:.4f}"
           f"{after}; kernel vs plain on this state: {on_state}", flush=True)
+    if caps:
+        _time_at_caps(az, D, K, sim, forces, caps)
     return launched
 
 
@@ -943,7 +1084,7 @@ def run_potential_sweep(az, K):
 
 def _build_report(cuda_build, sources):
     for src in sources:
-        info = cuda_build.build_info[src]
+        info = cuda_build.build_info[cuda_build.CSRC / src]
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", info["log"])]
         spills = [int(a) + int(b) for a, b in
                   re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", info["log"])]
@@ -991,13 +1132,16 @@ def main() -> int:
     check_rng(az)
 
     launches = {}
+    # caps: the headline's own 72 and the reference's tuned 48; the DPD
+    # fluid's own 40 and the capacity its occupancy asks for (8 here: grown
+    # to the smallest multiple of 8 that fits)
     launches.update(run_path(
         az, D, K, card, record, "headline", build_headline, 2000, 1000,
         {"cell_pair_force[PerturbedLennardJones]":
-         lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}))
+         lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}, caps=(48, 72)))
     launches.update(run_path(
         az, D, K, card, record, "dpd", build_dpd, 2000, 1000,
-        {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum))
+        {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum, caps=(8, 40)))
     # the rods melt over ~8,000 steps, releasing pair energy faster than the
     # thermostat removes it (kT peaked at 1.24 near step 5,000 on an H100;
     # PERF.md), so the polymer warms up for 10,000

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time the four force kernels of a checkout with two timers, on one GPU.
+
+    python3 kernel_timers.py [ROOT]    # ROOT: a checkout; default: this one
+
+Imports azplugins_tpu_torch from ROOT, builds its kernels there, and times
+each on the state chip_smoke.py times it on: the pair kernel's
+PerturbedLennardJones instantiation at the 64k headline (cap 72) and its
+ExpandedYukawa instantiation at the polymer melt (cap 48), the DPD kernel at
+the DPD fluid (cap 40) and the anisotropic kernel at the patchy colloids
+(cap 16). Two timers, CUDA events around ``REPS`` calls each:
+
+- synced: the calls start right after a synchronize, so where the
+  wrapper's host time exceeds the kernel's the host is timed;
+- queued: chip_smoke.py's ``_cuda_time_ms``, the calls queued behind a
+  spinning stream, so only the card is timed.
+
+Two turns, each timer in turn. Running it on two checkouts (an older one
+unpacked with ``git archive``, say) in one session, in the order old, new,
+new, old, compares their kernels with each timer alike. Prints one line per
+kernel and turn, then the card.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs  # this checkout's: before ROOT goes on the path
+
+REPS = 50
+
+
+def _synced_time_ms(fn, reps: int, warm: int = 2) -> float:
+    """Device ms per call: CUDA events around ``reps`` calls issued right
+    after a synchronize."""
+    for _ in range(warm):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_timers: torch.cuda.is_available() is false; this script needs a GPU",
+              file=sys.stderr)
+        return 2
+    root = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else cs.HERE
+    sys.path.insert(0, str(root))
+    import azplugins_tpu_torch as az
+
+    if not Path(az.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"azplugins_tpu_torch imported from {az.__file__}, not {root}")
+    from azplugins_tpu_torch.ops import aniso_kernel as AK
+    from azplugins_tpu_torch.ops import cuda_build
+    from azplugins_tpu_torch.ops import dense as D
+    from azplugins_tpu_torch.ops import dpd_kernel as DK
+    from azplugins_tpu_torch.ops import pair_kernel as PK
+
+    cuda_build.load_libraries(PK._SOURCE, DK._SOURCE, AK._SOURCE)
+    dev = torch.device("cuda")
+    calls = {}
+
+    dense, spec, _ = cs._dense_case(
+        az, D, cs._lattice_snapshot(az, counts=(40, 40, 40), rho=0.85, jitter=0.05, seed=6), 3.0,
+        0.4, dev)
+    tbl = cs._pair_tables(az, "PerturbedLennardJones", 1, 11, 3.0, dev)
+    plj = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"])
+    calls[f"cell_pair_force[PerturbedLennardJones] 64k headline cap {spec.cap}"] = (
+        lambda d=dense, s=spec: PK.cell_pair_force(d, s, plj, "PerturbedLennardJones", "none"))
+
+    dense, spec = cs._prepared_dense(cs.build_polymer(az, dev)[0])
+    tbl = cs._pair_tables(az, "ExpandedYukawa", 1, 11, 2.5, dev)
+    eyk = PK.kernel_tables("ExpandedYukawa", tbl["params"], tbl["r_cut"])
+    calls[f"cell_pair_force[ExpandedYukawa] polymer melt 32k cap {spec.cap}"] = (
+        lambda d=dense, s=spec: PK.cell_pair_force(d, s, eyk, "ExpandedYukawa", "none"))
+
+    dense, spec = cs._prepared_dense(cs.build_dpd(az, dev)[0])
+    g = torch.Generator(device=dev).manual_seed(25)
+    vel = torch.randn(dense.velocity.shape, generator=g, device=dev)
+    dense = dense.replace(velocity=torch.where(dense.tag[:, None] >= 0, vel, 0.0))
+    one = torch.ones((1, 1), device=dev)
+    dpd = DK.dpd_kernel_tables({"A": 25.0 * one, "gamma": 4.5 * one, "s": 0.5 * one}, one, 1.0,
+                               0.01)
+    calls[f"cell_dpd_force DPD fluid 22k cap {spec.cap}"] = (
+        lambda d=dense, s=spec: DK.cell_dpd_force(d, s, dpd, 5, 777))
+
+    dense, spec = cs._prepared_dense(cs.build_patchy(az, dev)[0])
+    tbl = cs._aniso_tables(az, 1, 35, dev)
+    tpm = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
+    calls[f"cell_aniso_force patchy colloids 27k cap {spec.cap}"] = (
+        lambda d=dense, s=spec: AK.cell_aniso_force(d, s, tpm))
+
+    for turn in range(2):
+        for name, fn in calls.items():
+            synced = _synced_time_ms(fn, REPS)
+            queued = cs._cuda_time_ms(fn, REPS)
+            print(f"[timers] {root.name} turn {turn} {name}: synced {synced:.4f} ms, queued "
+                  f"{queued:.4f} ms per call", flush=True)
+    print(cs._card())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

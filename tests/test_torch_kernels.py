@@ -12,7 +12,19 @@ cutoff decisions and (for DPD) random numbers, and differ in the order of
 the per-slot sums, in fused multiply-adds and in the last ulp of exp, log
 and pow. The anisotropic kernel is held to the same bar per output (force,
 torque, energy, virial), each against its own max|plain|.
+
+The pair and DPD kernels' packed schedule (csrc/cell_stencil.cuh) has
+systems of its own: every cell filled to exactly its capacity, a cluster
+that leaves most cells empty, a capacity above 256 whose stencils are
+staged in rounds, two axes under 3 cells, and 41 types, whose tables are
+read from global memory. The kernels sum in an order fixed by the input,
+so two launches give the same bits.
 """
+
+import importlib
+import re
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,14 +46,27 @@ BAR = 2e-5
 PLJ = PAIR_POTENTIALS["PerturbedLennardJones"]
 MODES = ("none", "shift", "xplor")
 
-# name: (lattice counts, number density, tilt, types, r_cut, start cap)
+# name: (lattice counts, number density, tilt, types, r_cut, start cap,
+# span: the fraction of each box edge the lattice fills, from the corner)
 SYSTEMS = {
-    "orthorhombic": ((12, 12, 12), 0.85, (0.0, 0.0, 0.0), 1, 2.5, None),
-    "tilted": ((12, 11, 11), 0.8, (0.35, -0.2, 0.15), 1, 2.0, None),
-    "two_types": ((10, 10, 10), 0.85, (0.0, 0.0, 0.0), 2, 2.0, None),
-    "three_types_overfull": ((10, 10, 10), 0.85, (0.0, 0.0, 0.0), 3, 1.8, 8),
-    "axis_under_3": ((4, 10, 10), 0.85, (0.1, 0.0, 0.0), 2, 2.5, None),
+    "orthorhombic": ((12, 12, 12), 0.85, (0.0, 0.0, 0.0), 1, 2.5, None, 1.0),
+    "tilted": ((12, 11, 11), 0.8, (0.35, -0.2, 0.15), 1, 2.0, None, 1.0),
+    "two_types": ((10, 10, 10), 0.85, (0.0, 0.0, 0.0), 2, 2.0, None, 1.0),
+    "three_types_overfull": ((10, 10, 10), 0.85, (0.0, 0.0, 0.0), 3, 1.8, 8, 1.0),
+    "axis_under_3": ((4, 10, 10), 0.85, (0.1, 0.0, 0.0), 2, 2.5, None, 1.0),
+    # 6^3 cells of exactly 2^3 lattice sites each, at cap 8
+    "full_cell": ((12, 12, 12), 0.85, (0.0, 0.0, 0.0), 2, 1.6, 8, 1.0),
+    # a lattice in 0.4 of each edge: ~1/8 of the 8^3 cells occupied, across the boundary
+    "clustered": ((8, 8, 8), 0.85, (0.0, 0.0, 0.0), 2, 2.0, None, 0.4),
+    # 3^3 cells of ~254 particles: cap 304, more candidates than one staging round holds
+    "cap_256_rounds": ((19, 19, 19), 0.85, (0.0, 0.0, 0.0), 2, 6.0, None, 1.0),
+    # grid (2, 2, 6)
+    "axis_under_3_slab": ((5, 5, 14), 0.85, (0.0, 0.0, 0.0), 2, 2.0, None, 1.0),
+    # [T, T] tables too large for shared memory
+    "many_types": ((10, 10, 10), 0.85, (0.0, 0.0, 0.0), 41, 2.0, None, 1.0),
 }
+# the packed schedule's systems, which the DPD cases run on their own grid
+PACKED_SYSTEMS = ("full_cell", "clustered", "cap_256_rounds", "axis_under_3_slab", "many_types")
 
 
 def potential_params(name: str, T: int, rng) -> dict:
@@ -78,16 +103,16 @@ def potential_params(name: str, T: int, rng) -> dict:
 
 
 def _system(name, device, potential="PerturbedLennardJones", velocities=False):
-    counts, rho, tilt, T, r_cut, cap = SYSTEMS[name]
+    counts, rho, tilt, T, r_cut, cap, span = SYSTEMS[name]
     rng = np.random.default_rng(list(SYSTEMS).index(name))
     N = int(np.prod(counts))
     a = (1.0 / rho) ** (1.0 / 3.0)
-    Ls = [c * a for c in counts]
+    Ls = [c * a / span for c in counts]
     snap = az.Snapshot(N=N)
     snap.configuration.box = [*Ls, *tilt]
-    snap.particles.types = ["A", "B", "C"][:T]
-    f = (np.stack(np.meshgrid(*[np.arange(c) for c in counts], indexing="ij"), -1)
-         .reshape(-1, 3) + 0.5) / np.asarray(counts)
+    snap.particles.types = (["A", "B", "C"] + [f"t{i}" for i in range(3, T)])[:T]
+    f = span * (np.stack(np.meshgrid(*[np.arange(c) for c in counts], indexing="ij"), -1)
+                .reshape(-1, 3) + 0.5) / np.asarray(counts)
     h = np.array([[Ls[0], tilt[0] * Ls[1], tilt[1] * Ls[2]],
                   [0, Ls[1], tilt[2] * Ls[2]], [0, 0, Ls[2]]])
     snap.particles.position[:] = (f - 0.5) @ h.T + rng.normal(0, 0.07, (N, 3))
@@ -124,15 +149,15 @@ def _plain(dense, spec, tbl, mode, want, potential="PerturbedLennardJones"):
                               tbl["params"], tbl["r_cut"], tbl["r_on"], mode, want)
 
 
-def _dpd_tables(T, device, seed=0):
+def _dpd_tables(T, device, seed=0, r_cut=1.0):
     rng = np.random.default_rng(seed)
 
     def sym(lo, hi):
         m = rng.uniform(lo, hi, (T, T))
         return torch.as_tensor(((m + m.T) / 2).astype(np.float32), device=device)
 
-    rc = torch.full((T, T), 1.0, device=device)
-    rc[0, -1] = rc[-1, 0] = 0.85
+    rc = torch.full((T, T), r_cut, device=device)
+    rc[0, -1] = rc[-1, 0] = 0.85 * r_cut
     return {"params": {"A": sym(15.0, 30.0), "gamma": sym(3.0, 6.0), "s": sym(0.3, 2.0)},
             "r_cut": rc}
 
@@ -156,7 +181,7 @@ def cuda_device():
 @pytest.mark.parametrize("name", list(SYSTEMS))
 def test_kernel_matches_plain(cuda_device, name, mode, want):
     dense, spec, tbl = _system(name, cuda_device)
-    assert spec.newton_ok == (name != "axis_under_3")
+    assert spec.newton_ok == (not name.startswith("axis_under_3"))
     ref = _plain(dense, spec, tbl, mode, want)
     before = PK.launches
     tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"], tbl["r_on"],
@@ -175,7 +200,7 @@ def test_kernel_matches_plain(cuda_device, name, mode, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("system", ["tilted", "three_types_overfull", "axis_under_3"])
+@pytest.mark.parametrize("system", ["tilted", "three_types_overfull", "axis_under_3", "many_types"])
 @pytest.mark.parametrize("potential", list(PK.KERNEL_POTENTIALS))
 def test_every_potential_kernel_matches_plain(cuda_device, potential, system, mode):
     dense, spec, tbl = _system(system, cuda_device, potential)
@@ -190,18 +215,27 @@ def test_every_potential_kernel_matches_plain(cuda_device, potential, system, mo
     _close(got.virial, ref.virial, "virial")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("want", ["force", "all"])
-@pytest.mark.parametrize("name", ["orthorhombic", "tilted", "two_types", "axis_under_3"])
-def test_dpd_kernel_matches_plain(cuda_device, name, want):
-    dense, spec, _ = _system(name, cuda_device, velocities=True)
+def _dpd_case(name, device):
+    """A test system with velocities for the DPD kernel: regridded at DPD's
+    cutoff 1.0, or on its own grid with the system's cutoff in the tables
+    (the packed schedule's systems, whose grid is their point)."""
+    dense, spec, _ = _system(name, device, velocities=True)
+    if name in PACKED_SYSTEMS:
+        return dense, spec, _dpd_tables(SYSTEMS[name][3], device, r_cut=SYSTEMS[name][4])
     # DPD's cutoff is 1.0: regrid the same particles at its spacing
     spec = D.GridSpec.create(dense.box, int((dense.tag >= 0).sum()), 1.0, 0.4)
     state = D.undensify(dense, int((dense.tag >= 0).sum()), fields=())
     dense, meta = D.densify(state, spec, fields=())
     assert not bool(meta.overflow)
-    T = int(dense.typeid.max()) + 1
-    tbl = _dpd_tables(T, cuda_device)
+    return dense, spec, _dpd_tables(int(dense.typeid.max()) + 1, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want", ["force", "all"])
+@pytest.mark.parametrize("name", ["orthorhombic", "tilted", "two_types", "axis_under_3",
+                                  *PACKED_SYSTEMS])
+def test_dpd_kernel_matches_plain(cuda_device, name, want):
+    dense, spec, tbl = _dpd_case(name, cuda_device)
     jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_velocity=True, need_tag=True)
     ref = D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], 1.3, 0.01, 77,
                             2**24 + 5, want)
@@ -215,6 +249,27 @@ def test_dpd_kernel_matches_plain(cuda_device, name, want):
         _close(got.virial, ref.virial, "virial")
     # Newton's third law term by term: the total force vanishes to round-off
     assert float(got.force.double().sum(0).abs().max()) < 1e-3 * float(got.force.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tilted", "clustered", "cap_256_rounds", "axis_under_3_slab"])
+@pytest.mark.parametrize("kernel", ["pair", "dpd"])
+def test_kernel_repeats_bitwise(cuda_device, kernel, name):
+    """Two launches on the same input give the same bits: every sum's order
+    depends on the input alone."""
+    if kernel == "pair":
+        dense, spec, tbl = _system(name, cuda_device)
+        tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"],
+                                  tbl["r_on"], "xplor")
+        runs = [PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "xplor", "all")
+                for _ in range(2)]
+    else:
+        dense, spec, tbl = _dpd_case(name, cuda_device)
+        runs = [DK.dpd_force(dense, spec, tbl, 1.3, 0.01, 77, 777, "all") for _ in range(2)]
+    torch.cuda.synchronize()
+    for k in ("force", "energy", "virial"):
+        a, b = (getattr(r, k) for r in runs)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k
 
 
 def _aniso_case(name, device):
@@ -366,6 +421,87 @@ def test_kernel_tables_layout(potential, mode):
     np.testing.assert_array_equal(kt[2].numpy(), expect_ronsq)
 
 
+def _shuffled(dense, spec, seed=3):
+    """The same dense state with each cell's slots in a random order: not
+    the layout ops/dense.py builds (occupied slots first), the kernels'
+    precondition."""
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.argsort(torch.rand(spec.n_cells, spec.cap, generator=g), dim=1)
+    idx = (perm + torch.arange(spec.n_cells)[:, None] * spec.cap).reshape(-1).to(dense.device)
+    return dense.replace(**{k: getattr(dense, k)[idx].contiguous()
+                            for k in ("position", "typeid", "tag", "velocity")})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["two_types", "axis_under_3_slab", "cap_256_rounds"])
+@pytest.mark.parametrize("kernel", ["pair", "dpd"])
+def test_kernel_refuses_another_slot_order(cuda_device, kernel, name):
+    """A cell whose stencil holds an occupied slot past its count reads NaN;
+    a slot that reads finite has its plain value: no pair is dropped."""
+    if kernel == "pair":
+        dense, spec, tbl = _system(name, cuda_device)
+        dense = _shuffled(dense, spec)
+        ref = _plain(dense, spec, tbl, "shift", "all")
+        tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"],
+                                  tbl["r_on"], "shift")
+        got = PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "shift", "all")
+    else:
+        dense, spec, tbl = _dpd_case(name, cuda_device)
+        dense = _shuffled(dense, spec)
+        jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_velocity=True, need_tag=True)
+        ref = D.dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], 1.3, 0.01, 77, 777,
+                                "all")
+        got = DK.dpd_force(dense, spec, tbl, 1.3, 0.01, 77, 777, "all")
+    torch.cuda.synchronize()
+    refused = torch.isnan(got.force).all(dim=1)
+    assert bool(refused.any())
+    for what in ("force", "energy", "virial"):
+        value, plain = getattr(got, what), getattr(ref, what)
+        assert bool(torch.isnan(value[refused]).all()), what
+        if not bool(refused.all()):
+            _close(value[~refused], plain[~refused], what)
+
+
+def test_shuffled_layout_moves_occupied_slots():
+    dense, spec, _ = _system("two_types", "cpu")
+    mixed = _shuffled(dense, spec)
+    occ = (mixed.tag >= 0).reshape(spec.n_cells, spec.cap)
+    n = occ.sum(dim=1, keepdim=True)
+    # some cell has an occupied slot past its count: not a prefix
+    assert bool((occ & (torch.arange(spec.cap)[None, :] >= n)).any())
+    assert torch.equal(torch.sort(mixed.tag).values, torch.sort(dense.tag).values)
+
+
+@pytest.mark.parametrize("name", PACKED_SYSTEMS)
+def test_packed_systems_have_their_shape(name):
+    """Each packed-schedule system is the case it is named for: the CUDA
+    cases above rely on it."""
+    dense, spec, _ = _system(name, "cpu")
+    occ = (dense.tag >= 0).reshape(spec.dims + (spec.cap,)).sum(dim=-1)
+    assert int(occ.sum()) == int(np.prod(SYSTEMS[name][0]))
+    if name == "full_cell":
+        assert spec.dims == (6, 6, 6) and spec.cap == 8 and bool((occ == spec.cap).all())
+    elif name == "clustered":
+        assert spec.newton_ok and float((occ == 0).double().mean()) > 0.75
+    elif name == "cap_256_rounds":
+        # the largest stencil's candidates exceed one staging round of both kernels
+        assert spec.dims == (3, 3, 3) and spec.cap >= 256
+        assert int(occ.sum()) > _header_bytes("kStageBytes") // 16
+    elif name == "axis_under_3_slab":
+        assert spec.dims == (2, 2, 6) and not spec.newton_ok
+    else:  # many_types: tables above the kernels' shared-memory table budget
+        T = SYSTEMS[name][3]
+        assert int(dense.typeid.max()) + 1 == T
+        n_rows = 3 + len(PK.KERNEL_POTENTIALS["PerturbedLennardJones"])
+        assert min(n_rows, 5) * T * T * 4 > _header_bytes("kTableSmemBytes")  # 5: DPD's tables
+
+
+def _header_bytes(name):
+    """A ``constexpr int name = n * 1024;`` of csrc/cell_stencil.cuh, in bytes."""
+    header = (cuda_build.CSRC / "cell_stencil.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+) \* 1024;", header).group(1)) * 1024
+
+
 def test_overfull_start_grows_to_fit():
     dense, spec, _ = _system("three_types_overfull", "cpu")
     occ = (dense.tag >= 0).reshape(spec.n_cells, spec.cap).sum(dim=1)
@@ -389,3 +525,46 @@ def test_library_digest_covers_shared_headers(tmp_path):
     assert '#include "cell_stencil.cuh"' in (cuda_build.CSRC / "cell_dpd_force.cu").read_text()
     assert '#include "cell_stencil.cuh"' in (cuda_build.CSRC / "cell_pair_force.cu").read_text()
     assert '#include "cell_stencil.cuh"' in (cuda_build.CSRC / "cell_aniso_force.cu").read_text()
+
+
+def test_sources_routes_the_kernels_to_another_directory(tmp_path):
+    """Inside cuda_build.sources the wrappers' libraries come from its
+    directory (here an empty one, so the build finds no source), and from
+    csrc/ again after it."""
+    with cuda_build.sources(tmp_path):
+        with pytest.raises(FileNotFoundError, match=re.escape(str(tmp_path.resolve()))):
+            cuda_build.load_library(PK._SOURCE)
+    with pytest.raises(FileNotFoundError, match=re.escape(str(tmp_path.resolve()))):
+        cuda_build.load_library(PK._SOURCE, tmp_path)
+    assert cuda_build.source_digest(PK._SOURCE) == cuda_build.source_digest(PK._SOURCE,
+                                                                             cuda_build.CSRC)
+
+
+def _kernel_variants(monkeypatch):
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    return importlib.import_module("kernel_variants")
+
+
+def test_every_kernel_variant_changes_its_sources(monkeypatch):
+    kv = _kernel_variants(monkeypatch)
+    base = kv.variant_sources("base", cuda_build.CSRC)
+    assert set(base) >= {"cell_stencil.cuh", *kv.SOURCES}
+    assert "case kLJ:" not in base["cell_pair_force.cu"]  # two instantiations only
+    for variant in kv.CHANGES:
+        texts = kv.variant_sources(variant, cuda_build.CSRC)
+        assert (texts == base) == (variant == "base"), variant
+
+
+def test_kernel_variant_raises_where_its_change_matches_nothing(monkeypatch, tmp_path):
+    kv = _kernel_variants(monkeypatch)
+    for src in (*cuda_build.CSRC.glob("*.cuh"), *(cuda_build.CSRC / s for s in kv.SOURCES)):
+        shutil.copy(src, tmp_path / src.name)
+    header = tmp_path / "cell_stencil.cuh"
+    header.write_text(header.read_text().replace("constexpr int kUnroll = 4;",
+                                                 "constexpr int kUnroll=4;"))  # reworded
+    with pytest.raises(ValueError, match="no \\*.cuh holds"):
+        kv.variant_sources("unroll2", tmp_path)
+    kv.variant_sources("list16", tmp_path)  # the other changes still apply
+    monkeypatch.setitem(kv.CHANGES, "same", [(".cuh", "kListLen", "kListLen")])
+    with pytest.raises(ValueError, match="sources are base's"):
+        kv.variant_sources("same", tmp_path)
