@@ -226,7 +226,8 @@ __global__ void __launch_bounds__(kThreads)
             P, cap, R0, R1,
             [&](int sj, int wrap, int forward) {
               float x = pos[3 * sj], y = pos[3 * sj + 1], z = pos[3 * sj + 2];
-              if (!MIN_IMAGE && forward) az::shift_by(&x, &y, &z, wrap, box);  // stage_position
+              // shifted into this cell's frame where this cell is the home side
+              if (!MIN_IMAGE && forward) az::shift_by(&x, &y, &z, wrap, box);
               return Staged{make_float4(x, y, z, __int_as_float(type_of[sj])),
                             make_float4(vel[3 * sj], vel[3 * sj + 1], vel[3 * sj + 2],
                                         __int_as_float(tag[sj]))};

@@ -1,19 +1,15 @@
-// Shared geometry and schedules of the cell-stencil kernels
+// Shared geometry and schedule of the cell-stencil kernels
 // (cell_pair_force.cu, cell_dpd_force.cu, cell_aniso_force.cu).
 //
 // Layout (ops/dense.py): S = C * cap slots, cell-major; slot s = c * cap + r.
 // Cells are indexed (cx * Dy + cy) * Dz + cz. Empty slots carry tag < 0.
 //
-// Two schedules, both one block per cell, both evaluating each pair from
-// both of its sides, so there are no atomics and the sums are deterministic:
-// - the per-cell walk (cell_aniso_force.cu): one thread per i slot; the
-//   block walks the neighbour cells (for_each_neighbour_cell), stages each
-//   one's slots in shared memory, and every thread sums its pairs with the
-//   staged slots in registers (launch_shape);
-// - the packed schedule (cell_pair_force.cu, cell_dpd_force.cu; the second
-//   half of this file): the occupied slots of the whole stencil are staged
-//   once, each i slot gets several lanes, and each lane lists the
-//   candidates inside its filter radius before it evaluates any of them.
+// One schedule, the packed schedule (the second half of this file): one
+// block per cell; the occupied slots of the whole stencil are staged once,
+// each i slot gets several lanes, and each lane lists the candidates inside
+// its filter radius before it evaluates any of them. Each pair is evaluated
+// from both of its sides, so there are no atomics and the sums are
+// deterministic.
 //
 // Grids with >= 3 cells on every axis use the 27-cell stencil and take the
 // periodic lattice shift from the neighbour cell's index wrap, never from
@@ -83,51 +79,6 @@ __device__ __forceinline__ void min_image(float* dx, float* dy, float* dz, const
   *dz = __fsub_rn(*dz, __fmul_rn(sz, b.Lz));
 }
 
-// One neighbour cell of the stencil, as visit(ncell, wx, wy, wz, forward)
-// sees it: its index, the wrap of each axis (-1, 0, 1) and whether the
-// reference's half stencil evaluates the pair from this block's cell.
-// The stencil is deduplicated (GridSpec.stencil): {-1,0,1} on axes with
-// >= 3 cells, {0,1} with 2, {0} with 1. Called by every thread of the
-// block in the same order, so visit may synchronise the block.
-template <class Visit>
-__device__ __forceinline__ void for_each_neighbour_cell(int cell, int Dx, int Dy, int Dz,
-                                                        Visit&& visit) {
-  const int cz = cell % Dz;
-  const int cy = (cell / Dz) % Dy;
-  const int cx = cell / (Dz * Dy);
-  const int lox = Dx >= 3 ? -1 : 0, hix = Dx >= 2 ? 1 : 0;
-  const int loy = Dy >= 3 ? -1 : 0, hiy = Dy >= 2 ? 1 : 0;
-  const int loz = Dz >= 3 ? -1 : 0, hiz = Dz >= 2 ? 1 : 0;
-  for (int ox = lox; ox <= hix; ++ox) {
-    for (int oy = loy; oy <= hiy; ++oy) {
-      for (int oz = loz; oz <= hiz; ++oz) {
-        int wx, wy, wz;
-        const int nx = wrap_cell(cx + ox, Dx, &wx);
-        const int ny = wrap_cell(cy + oy, Dy, &wy);
-        const int nz = wrap_cell(cz + oz, Dz, &wz);
-        const bool forward = ox > 0 || (ox == 0 && (oy > 0 || (oy == 0 && oz > 0)));
-        visit((nx * Dy + ny) * Dz + nz, wx, wy, wz, forward);
-      }
-    }
-  }
-}
-
-// Position of a staged neighbour slot: shifted into this cell's frame when
-// this cell is the pair's home side.
-template <bool MIN_IMAGE>
-__device__ __forceinline__ void stage_position(float* x, float* y, float* z, int wx, int wy,
-                                               int wz, bool forward, const BoxArgs& b) {
-  if (!MIN_IMAGE && forward) lattice_shift(x, y, z, wx, wy, wz, b);
-}
-
-// This slot's position as the home cell sees it, for a backward neighbour:
-// the separation is then the exact negation of the home side's.
-template <bool MIN_IMAGE>
-__device__ __forceinline__ void self_position(float* x, float* y, float* z, int wx, int wy,
-                                              int wz, bool forward, const BoxArgs& b) {
-  if (!MIN_IMAGE && !forward) lattice_shift(x, y, z, -wx, -wy, -wz, b);
-}
-
 // Separation (this slot minus the staged slot) and its square.
 template <bool MIN_IMAGE>
 __device__ __forceinline__ float separation(float xs, float ys, float zs, float xj, float yj,
@@ -140,34 +91,29 @@ __device__ __forceinline__ float separation(float xs, float ys, float zs, float 
   return __fadd_rn(__fadd_rn(__fmul_rn(*dx, *dx), __fmul_rn(*dy, *dy)), __fmul_rn(*dz, *dz));
 }
 
-// Launch shape of the per-cell walk: one block per cell, a whole number of
-// warps covering the cell's slots.
-inline bool launch_shape(int Dx, int Dy, int Dz, int cap, int T, dim3* grid, dim3* block) {
-  const int n_cells = Dx * Dy * Dz;
-  const int threads = ((cap + 31) / 32) * 32;
-  if (n_cells <= 0 || cap <= 0 || T <= 0 || threads > 1024) return false;
-  *grid = dim3(n_cells);
-  *block = dim3(threads);
-  return true;
-}
-
 // ---------------------------------------------------------------------------
 // The packed schedule
 // ---------------------------------------------------------------------------
 //
 // One block of B threads per cell (B a template parameter: each kernel
-// picks its own), in four steps:
-// 1. plan_stencil lists the deduplicated stencil's neighbour cells
-//    (segments, in for_each_neighbour_cell's order), counts each one's
-//    occupied slots and numbers the occupied slots of all segments 0..M-1
-//    (the candidates), segment after segment, each in slot order.
-//    Consecutive segments in which this cell's own position takes the same
-//    shift (self_position) form a run.
-// 2. stage_round copies candidates into shared memory, positions shifted as
-//    stage_position shifts them: all M at once when they fit the staging
-//    buffer (kStageBytes), else in rounds of its size. Only occupied slots
-//    are staged, so every loop below runs to the cells' occupancy, not to
-//    cap.
+// picks its own; cell_aniso_force.cu gives a block several cells, with a
+// plan of its own), in four steps:
+// 1. plan_stencil lists the deduplicated stencil's neighbour cells (the
+//    segments: offsets {-1,0,1} on an axis with >= 3 cells, {0,1} with 2,
+//    {0} with 1, in lexicographic order, x slowest, as GridSpec.stencil
+//    lists them), counts each one's occupied slots and numbers the occupied
+//    slots of all segments 0..M-1 (the candidates), segment after segment,
+//    each in slot order. A segment is forward where the reference's half
+//    stencil evaluates its pairs from this block's cell (its offset is
+//    lexicographically positive). For a backward segment this cell's own
+//    position is shifted into the neighbour's frame (the separation is
+//    then the exact negation of the home side's); consecutive segments in
+//    which it takes the same shift form a run.
+// 2. stage_round copies candidates into shared memory, a forward segment's
+//    positions shifted into this cell's frame: all M at once when they fit
+//    the staging buffer (kStageBytes, or the kernel's own size), else in
+//    rounds of its size. Only occupied slots are staged, so every loop
+//    below runs to the cells' occupancy, not to cap.
 // 3. The cell's n_i occupied slots get K = B / n_i lanes each (LaneMap; one
 //    lane each, in rounds, where n_i > B). Lane k of slot i takes the
 //    candidates k, k + K, ... of each run (sweep_round). It first only
@@ -187,7 +133,7 @@ inline bool launch_shape(int Dx, int Dy, int Dz, int cap, int T, dim3* grid, dim
 // plan checks it; a block whose stencil breaks it writes NaN to its cell's
 // outputs (poison_cell) rather than drop a candidate.
 
-constexpr int kStageBytes = 24 * 1024;  // a block's staging buffer; more candidates go in rounds
+constexpr int kStageBytes = 24 * 1024;  // a block's staging buffer, at most; more go in rounds
 constexpr int kListLen = 32;      // candidates a lane lists before a flush
 constexpr int kUnroll = 4;        // candidates a lane tests per step of the filter
 constexpr int kBatch = 4;         // independent global loads a thread issues at once
@@ -225,10 +171,10 @@ struct StencilPlan {
 
 // Occupied slots of each segment, added into P.start[s + 1], and one past
 // its last, into P.last[s]: each thread reads W tags at a time (W = 4: an
-// int4 load), kBatch loads in flight.
-template <int B, int W>
-__device__ __forceinline__ void count_segments(StencilPlan& P, const int* __restrict__ tag,
-                                               int n_seg, int cap) {
+// int4 load), kBatch loads in flight. P: a plan with cell, start and last.
+template <int B, int W, class Plan>
+__device__ __forceinline__ void count_segments(Plan& P, const int* __restrict__ tag, int n_seg,
+                                               int cap) {
   const int per = cap / W, total = n_seg * per;
   for (int x0 = threadIdx.x; x0 < total; x0 += kBatch * B) {
     int v[kBatch][W], seg[kBatch], r[kBatch];
@@ -333,14 +279,16 @@ __device__ void plan_stencil(StencilPlan& P, const int* __restrict__ tag, int ce
 }
 
 // The outputs of a cell whose stencil breaks the precondition: NaN in every
-// slot, so the caller sees the layout was refused. Every thread calls it.
+// slot (the torque too, for a kernel that has one), so the caller sees the
+// layout was refused. Every thread calls it.
 template <int B, bool WANT_ALL>
 __device__ __forceinline__ void poison_cell(int cell, int cap, float* force, float* energy,
-                                            float* virial) {
+                                            float* virial, float* torque = nullptr) {
   const float nan = __int_as_float(0x7fc00000);
   for (int r = threadIdx.x; r < cap; r += B) {
     const int s = cell * cap + r;
     force[3 * s] = force[3 * s + 1] = force[3 * s + 2] = nan;
+    if (torque) torque[3 * s] = torque[3 * s + 1] = torque[3 * s + 2] = nan;
     if (WANT_ALL) {
       energy[s] = nan;
       for (int a = 0; a < 6; ++a) virial[6 * s + a] = nan;
@@ -461,7 +409,7 @@ __device__ __forceinline__ void reduce_lanes(float* part, const float (&acc)[N_A
 
 // Shared memory of one block, carved from the dynamic allocation in this
 // order, each piece 16-byte aligned: the staging buffer (stage_cap entries
-// of entry_bytes, within kStageBytes), the tables where they fit in
+// of entry_bytes, within stage_bytes), the tables where they fit in
 // kTableSmemBytes (else tab_floats is 0 and the kernel reads them from
 // global memory), the lane partials and the lists.
 struct PackedLayout {
@@ -469,14 +417,20 @@ struct PackedLayout {
 };
 
 // Host side: grid, block and layout for blocks of `threads`; false for a
-// shape the kernels do not take.
+// shape the kernels do not take. A kernel may stage in a smaller buffer
+// than kStageBytes, and may give a block `group` consecutive cells along z
+// (its stencil is then the cells within one of any of them).
 inline bool packed_launch(int Dx, int Dy, int Dz, int cap, int T, int n_tab_rows, int entry_bytes,
-                          int n_acc, int threads, dim3* grid, dim3* block, PackedLayout* L) {
+                          int n_acc, int threads, dim3* grid, dim3* block, PackedLayout* L,
+                          int stage_bytes = kStageBytes, int group = 1) {
   const long long n_cells = (long long)Dx * Dy * Dz;
   if (n_cells <= 0 || n_cells > 2147483647LL || cap <= 0 || T <= 0) return false;
+  if (stage_bytes < entry_bytes || stage_bytes > kStageBytes) return false;
+  if (group < 1 || (group > 1 && group + 2 > Dz)) return false;
   auto align16 = [](long long b) { return (b + 15) & ~15LL; };
-  const long long n_seg = stencil_extent(Dx) * stencil_extent(Dy) * stencil_extent(Dz);
-  const long long stage_cap = std::min(n_seg * cap, (long long)(kStageBytes / entry_bytes));
+  const long long n_seg = stencil_extent(Dx) * stencil_extent(Dy) *
+                          (group > 1 ? group + 2 : stencil_extent(Dz));
+  const long long stage_cap = std::min(n_seg * cap, (long long)(stage_bytes / entry_bytes));
   const long long tab = (long long)n_tab_rows * T * T;
   L->stage_cap = (int)stage_cap;
   L->tab_floats = 4 * tab <= kTableSmemBytes ? (int)tab : 0;
@@ -487,7 +441,7 @@ inline bool packed_launch(int Dx, int Dy, int Dz, int cap, int T, int n_tab_rows
   off = align16(off + 4LL * n_acc * threads);
   L->off_list = (int)off;
   L->bytes = (int)align16(off + 2LL * kListLen * threads);
-  *grid = dim3((unsigned)n_cells);
+  *grid = dim3((unsigned)((long long)Dx * Dy * ((Dz + group - 1) / group)));
   *block = dim3(threads);
   return true;
 }

@@ -8,7 +8,12 @@ Where the reference took its XLA path (``want="all"``, the observables),
 the kernel computes the energy and the virial too, so CUDA tensors never
 take the plain version. Its plain PyTorch version is
 :func:`azplugins_tpu_torch.ops.dense.dense_aniso_force`. What bounds the
-kernel and what its design does about it is in the source.
+kernel and what its design does about it is in the source. Like the pair
+and DPD kernels it runs the packed schedule of ``csrc/cell_stencil.cuh``
+and takes the slot layout :func:`~azplugins_tpu_torch.ops.dense.densify`
+builds, each cell's occupied slots first; a cell whose stencil holds
+another layout gets NaN outputs (the torque too), never a silently
+dropped pair.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel or raises. Nothing falls back.

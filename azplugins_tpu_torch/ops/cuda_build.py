@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -95,7 +96,7 @@ def load_library(source: str, csrc: Path | None = None) -> ctypes.CDLL:
         build_info[src] = {"seconds": 0.0, "log": ""}
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],

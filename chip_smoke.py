@@ -13,11 +13,13 @@
    PyTorch versions on the card: small orthorhombic, tilted,
    axis-under-3-cells and two-type shapes, the polymer melt (32,000), DPD
    fluid (21,952) and patchy colloids (27,000) at full size, and the 64k
-   headline; for the pair and DPD kernels (the packed schedule) also cells
-   filled to exactly their capacity, mostly empty cells, a capacity above
-   256 staged in rounds, two axes under 3 cells and 41 types (tables in
-   global memory); checks that two launches give the same bits; prints the
-   candidate pairs per call beside the pairs inside r_cut; times each
+   headline; the packed schedule's own shapes too: cells filled to exactly
+   their capacity, mostly empty cells, a capacity whose stencils are staged
+   in rounds (above 256; forced to 64 for TwoPatchMorse), two axes under 3
+   cells, 41 types (tables in global memory) and, for TwoPatchMorse, cells
+   of more particles than its block has threads; checks that two launches
+   give the same bits; prints the candidate pairs per call beside the
+   pairs inside r_cut; times each
    kernel against its plain version and computes its bound (the larger of
    its bytes over the memory rate and its operations over the float32
    rate, for this run's inputs);
@@ -34,9 +36,10 @@
      particles, Langevin with NO_SQUISH rotation);
    - a short run of every other isotropic potential;
    and checks that every force evaluation went through a kernel and that
-   the result is physical; after the headline and the DPD fluid, times
-   their kernel on the path's state at two capacities, in two turns (72
-   and 48; 40 and the smallest that fits);
+   the result is physical; after the headline, the DPD fluid and the
+   patchy colloids, times their kernel on the path's state at two
+   capacities, in two turns (72 and 48; 40 and the smallest that fits; 16
+   and 32);
 6. prints the kernel summary and, last, the contract line
    {"ok": true, "device": {...}}.
 
@@ -199,15 +202,18 @@ def _candidates(dense, spec):
     return int((occ * around).sum())
 
 
-def _check_packed_shapes(stage_entries, cases):
+def _check_packed_shapes(stage_entries, cases, threads=0):
     """Each packed-schedule shape is the case it is named for. stage_entries:
-    the candidates one staging round of the kernel holds."""
+    the candidates one staging round of the kernel holds; threads: its
+    block's threads."""
     for label, dense, spec, T, *_ in cases:
         occ, around = _stencil_occupancy(dense, spec)
         ok = {
             "full cells": lambda: bool((occ == spec.cap).all()),
             "mostly empty": lambda: float((occ == 0).double().mean()) > 0.75,
             "cap >= 256 in rounds": lambda: spec.cap >= 256 and float(around.max()) > stage_entries,
+            "cap 64 in rounds": lambda: spec.cap == 64 and float(around.max()) > stage_entries,
+            "cells above kThreads": lambda: spec.newton_ok and float(occ.max()) > threads > 0,
             "two axes under 3": lambda: sorted(spec.dims)[1] < 3,
             "41 types": lambda: T == 41,
         }.get(label, lambda: True)()
@@ -223,10 +229,18 @@ def _stage_bytes() -> int:
     return int(re.search(r"kStageBytes = (\d+) \* 1024;", header).group(1)) * 1024
 
 
+def _source_constant(source: str, name: str) -> int:
+    """A ``constexpr int name = n;`` of one kernel source under csrc/."""
+    text = (HERE / "azplugins_tpu_torch" / "csrc" / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
 def _same_bits(name, first, second):
     """Two launches' outputs (ForceResult) bit for bit."""
-    for what in ("force", "energy", "virial"):
+    for what in ("force", "torque", "energy", "virial"):
         a, b = getattr(first, what), getattr(second, what)
+        if a is None and b is None:
+            continue
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"{name}: two launches on the same input differ in {what}")
 
@@ -479,7 +493,8 @@ def check_pair_kernel(az, D, PK, record):
     poly_dense, poly_spec = _prepared_dense(build_polymer(az, dev)[0])
     cases.append(("polymer melt 32k", poly_dense, poly_spec, 1, 2.5))
     poly_pairs = _pairs_inside(D, poly_dense, poly_spec, 2.5)
-    print(f"[kernel] polymer melt 32k cap {poly_spec.cap}: {_candidates(poly_dense, poly_spec)} "
+    poly_candidates = _candidates(poly_dense, poly_spec)
+    print(f"[kernel] polymer melt 32k cap {poly_spec.cap}: {poly_candidates} "
           f"candidate pairs per call, {poly_pairs} unordered pairs inside r_cut (each "
           f"evaluated from both sides)", flush=True)
     ef = az.ops.evaluators.PAIR_POTENTIALS
@@ -511,7 +526,8 @@ def check_pair_kernel(az, D, PK, record):
                                                "force"), 3)
                 # inputs: position 12 B, type 4 B; outputs: force 12 B
                 bound = _bound(dense, 16, 12, 4 * tables.numel(), poly_pairs, OPS_PER_PAIR[pot])
-                timing[pot] = (ms, plain_ms, f"polymer melt 32k, cap {spec.cap}", bound)
+                timing[pot] = (ms, plain_ms, f"polymer melt 32k, cap {spec.cap}", bound,
+                               poly_candidates)
         print(f"[kernel] cell_pair_force[{pot}]: {n_checks} checks ({len(cases)} shapes: "
               f"{', '.join(c[0] for c in cases)}; modes {'/'.join(MODES)}; force/all), worst "
               f"error {worst:.3e} of max|value| (bar {BAR})", flush=True)
@@ -542,13 +558,15 @@ def check_pair_kernel(az, D, PK, record):
         lambda: D.dense_pair_force(ef["PerturbedLennardJones"].energy_force, dense, jb, spec,
                                    tbl["params"], tbl["r_cut"], None, "none", "force"), 5)
     pairs = _pairs_inside(D, dense, spec, 3.0)
+    candidates = _candidates(dense, spec)
     print(f"[kernel] PerturbedLennardJones 64k headline cap {spec.cap}: two launches give the "
-          f"same bits; {_candidates(dense, spec)} candidate pairs per call, {pairs} unordered "
+          f"same bits; {candidates} candidate pairs per call, {pairs} unordered "
           f"pairs inside r_cut (each evaluated from both sides)", flush=True)
     bound = _bound(dense, 16, 12, 4 * tables.numel(), pairs,
                    OPS_PER_PAIR["PerturbedLennardJones"])
-    timing["PerturbedLennardJones"] = (ms, plain_ms, f"64k headline, cap {spec.cap}", bound)
-    for pot, (ms, plain_ms, where, (bound_ms, by)) in timing.items():
+    timing["PerturbedLennardJones"] = (ms, plain_ms, f"64k headline, cap {spec.cap}", bound,
+                                       candidates)
+    for pot, (ms, plain_ms, where, (bound_ms, by), _) in timing.items():
         print(f"[kernel] cell_pair_force[{pot}] at {where}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms per call (force, mode none); bound {bound_ms:.5f} ms "
               f"({by})", flush=True)
@@ -631,10 +649,11 @@ def check_dpd_kernel(az, D, DK, record):
             # inputs: position and velocity 24 B, type 4 B; outputs: force 12 B
             pairs = _pairs_inside(D, dense, spec, 1.0)
             bound_ms, by = _bound(dense, 28, 12, 4 * tables.numel(), pairs, OPS_PER_PAIR["DPD"])
-            timing = (ms, plain_ms, f"DPD fluid 22k, cap {spec.cap}", (bound_ms, by))
+            candidates = _candidates(dense, spec)
+            timing = (ms, plain_ms, f"DPD fluid 22k, cap {spec.cap}", (bound_ms, by), candidates)
             print(f"[kernel] cell_dpd_force at DPD fluid 22k cap {spec.cap}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms per call (force); bound {bound_ms:.5f} ms ({by}); "
-                  f"two launches give the same bits; {_candidates(dense, spec)} candidate pairs "
+                  f"two launches give the same bits; {candidates} candidate pairs "
                   f"per call, {pairs} unordered pairs inside r_cut (each evaluated from both "
                   f"sides)", flush=True)
     return timing
@@ -688,8 +707,9 @@ def _compare_aniso(tag, got, ref, want):
 
 def check_aniso_kernel(az, D, AK, record):
     """The TwoPatchMorse kernel at every listed shape, modes none/shift and
-    force/all, with the summed force checked at round-off on Newton grids;
-    timed at the patchy path's full size."""
+    force/all, with the summed force checked at round-off on Newton grids
+    and two launches held bit for bit; timed at the patchy path's full
+    size."""
     dev = torch.device("cuda")
     tpm = az.ops.evaluators.ANISO_PAIR_POTENTIALS["TwoPatchMorse"].energy_force_torque
     shapes = [
@@ -698,12 +718,29 @@ def check_aniso_kernel(az, D, AK, record):
                         tilt=(0.3, -0.2, 0.15))),
         ("axis under 3 cells", dict(counts=(3, 18, 18), rho=0.6, jitter=0.06, seed=33)),
         ("two types", dict(counts=(14, 14, 14), rho=0.6, jitter=0.06, seed=34, n_types=2)),
+        # the packed schedule's own shapes: 12^3 cells of exactly 8 at cap
+        # 8; a cluster in 0.4 of each edge (most cells empty); cap forced to
+        # 64 with more candidates in a stencil than one staging round holds;
+        # two axes under 3 cells; 4^3 cells of 64, more than the block has
+        # threads, so the slots go in rounds; 41 types with per-pair
+        # cutoffs, whose tables are read from global memory
+        ("full cells", dict(counts=(24, 24, 24), rho=1.0, jitter=0.03, seed=36, n_types=2), 8),
+        ("mostly empty", dict(counts=(12, 12, 12), rho=0.6, jitter=0.06, seed=37, n_types=2,
+                              span=0.4)),
+        ("cap 64 in rounds", dict(counts=(18, 18, 18), rho=1.2, jitter=0.05, seed=38,
+                                  n_types=2), 64),
+        ("two axes under 3", dict(counts=(3, 3, 24), rho=0.6, jitter=0.06, seed=39, n_types=2)),
+        ("cells above kThreads", dict(counts=(16, 16, 16), rho=8.0, jitter=0.02, seed=40,
+                                      n_types=2)),
+        ("41 types", dict(counts=(14, 14, 14), rho=0.6, jitter=0.06, seed=41, n_types=41)),
     ]
     cases = []
-    for label, kw in shapes:
+    for label, kw, *cap in shapes:
         dense, spec, T = _dense_case(az, D, _lattice_snapshot(az, quats=True, **kw), 1.6, 0.3,
-                                     dev, fields=("quat",))
+                                     dev, *cap, fields=("quat",))
         cases.append((label, dense, spec, T))
+    _check_packed_shapes(_source_constant(AK._SOURCE, "kStageEntries"), cases,
+                         _source_constant(AK._SOURCE, "kThreads"))
     dense, spec = _prepared_dense(build_patchy(az, dev)[0])
     cases.append(("patchy colloids 27k", dense, spec, 1))
 
@@ -725,14 +762,15 @@ def check_aniso_kernel(az, D, AK, record):
                 worst, max_abs = max(worst, rel), max(max_abs, ferr)
                 if spec.newton_ok:
                     resid = max(resid, _newton_residual(got.force))
+                _same_bits(tag, got, AK.cell_aniso_force(dense, spec, tables, want))
         if resid > 1e-5:
             raise AssertionError(f"TwoPatchMorse {label}: summed kernel force {resid:.3e} of the "
                                  "summed magnitudes, not round-off")
         print(f"[kernel] cell_aniso_force {label} dims={spec.dims} cap={spec.cap} T={T} "
               f"(modes none/shift, force/all): force max_abs_err {max_abs:.3e}, worst error "
               f"{worst:.3e} of max|value| (bar {BAR}); summed force "
-              f"{resid if spec.newton_ok else float('nan'):.2e} of the summed magnitudes",
-              flush=True)
+              f"{resid if spec.newton_ok else float('nan'):.2e} of the summed magnitudes; two "
+              f"launches give the same bits", flush=True)
         if label.startswith("patchy"):
             tables = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
             ms = _cuda_time_ms(lambda: AK.cell_aniso_force(dense, spec, tables), 50)
@@ -744,11 +782,14 @@ def check_aniso_kernel(az, D, AK, record):
             # force and torque 24 B
             bound_ms, by = _bound(dense, 32, 24, 4 * tables.numel(), pairs,
                                   OPS_PER_PAIR["TwoPatchMorse"])
-            timing = (ms, plain_ms, f"patchy colloids 27k, cap {spec.cap}", (bound_ms, by))
+            candidates = _candidates(dense, spec)
+            timing = (ms, plain_ms, f"patchy colloids 27k, cap {spec.cap}", (bound_ms, by),
+                      candidates)
             print(f"[kernel] cell_aniso_force at patchy colloids 27k cap {spec.cap} "
-                  f"({int((dense.tag >= 0).sum())} of {spec.S} slots occupied, {pairs} pairs "
-                  f"inside r_cut): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                  f"per call (force, mode shift); bound {bound_ms:.5f} ms ({by})", flush=True)
+                  f"({int((dense.tag >= 0).sum())} of {spec.S} slots occupied): kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms per call (force, mode shift); bound "
+                  f"{bound_ms:.5f} ms ({by}); {candidates} candidate pairs per call, {pairs} "
+                  f"unordered pairs inside r_cut (each evaluated from both sides)", flush=True)
     return timing
 
 
@@ -906,11 +947,16 @@ def _time_at_caps(az, D, K, sim, forces, caps):
     whether the time still follows cap. Returns the caps timed, their ms
     per turn and their candidates."""
     dense, spec, dev = sim._dense, sim._grid_spec, sim.device
-    state = D.undensify(dense, sim.state.N_particles, fields=())
     f = next(f for f in forces if f._needs_nlist)
+    fields = ("quat",) if isinstance(f, az.pair.TwoPatchMorse) else ()
+    state = D.undensify(dense, sim.state.N_particles, fields=fields)
     tbl = f._device_tables(dev)
     max_occ = int((dense.tag >= 0).reshape(spec.n_cells, spec.cap).sum(dim=1).max())
-    if isinstance(f, az.pair.DPDGeneralWeight):
+    if isinstance(f, az.pair.TwoPatchMorse):
+
+        def call(d, sp):
+            return K.AK.cell_aniso_force(d, sp, tbl["kernel"])
+    elif isinstance(f, az.pair.DPDGeneralWeight):
         tables = K.DK.dpd_kernel_tables(tbl["params"], tbl["r_cut"], f.kT(sim.timestep),
                                         sim.dt_ref())
 
@@ -925,7 +971,7 @@ def _time_at_caps(az, D, K, sim, forces, caps):
     for cap in caps:
         while True:
             sp = spec.replace(cap=cap)
-            d, meta = D.densify(state, sp, fields=())
+            d, meta = D.densify(state, sp, fields=fields)
             if not bool(meta.overflow):
                 break
             cap += 8
@@ -1134,7 +1180,8 @@ def main() -> int:
     launches = {}
     # caps: the headline's own 72 and the reference's tuned 48; the DPD
     # fluid's own 40 and the capacity its occupancy asks for (8 here: grown
-    # to the smallest multiple of 8 that fits)
+    # to the smallest multiple of 8 that fits); the patchy colloids' own 16
+    # and twice that
     launches.update(run_path(
         az, D, K, card, record, "headline", build_headline, 2000, 1000,
         {"cell_pair_force[PerturbedLennardJones]":
@@ -1153,18 +1200,20 @@ def main() -> int:
     launches.update(run_path(
         az, D, K, card, record, "patchy", build_patchy, PATCHY_WARM, 1000,
         {"cell_aniso_force": lambda: AK.launches}, extra_check=_unit_quaternions,
-        kT=0.3, kT_band=PATCHY_KT_BAND))
+        kT=0.3, kT_band=PATCHY_KT_BAND, caps=(16, 32)))
     for pot, n in run_potential_sweep(az, K).items():
         launches[f"cell_pair_force[{pot}]"] = n
 
     def entry(name, source, replaces, timing):
-        ms, plain_ms, _, (bound_ms, bound_by) = timing
+        ms, plain_ms, _, (bound_ms, bound_by), candidates = timing
         return {
             "name": name, "route": "cuda", "source": f"azplugins_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name], "max_abs_err": max_err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a cell-stencil pair force
             "library_ms": None,
+            # candidate pairs a call tests at the shape it was timed at
+            "candidates": candidates,
         }
 
     kernels = [entry(f"cell_pair_force[{pot}]", PK._SOURCE, PAIR_REPLACES, pair_timing[pot])

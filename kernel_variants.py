@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time copies of the pair and DPD kernels, each with one change, on one GPU.
+"""Time copies of the three force kernels, each with one change, on one GPU.
 
     python3 kernel_variants.py                 # every variant
     python3 kernel_variants.py base,noflush    # some of them
@@ -11,12 +11,19 @@ come out the same as base's, raises), in azplugins_tpu_torch/_build/variants/
 instantiations only). The wrappers build and launch it inside
 cuda_build.sources. Each is timed, device time per call as chip_smoke.py
 times it, on the 64k headline's lattice start and after 500 steps (liquid),
-the polymer melt and the DPD fluid, in two turns. The phase copies split a
-call:
+the polymer melt, the DPD fluid, the patchy colloids' lattice start (mean
+occupancy 2.2 at cap 16) and a dense TwoPatchMorse state (24^3 cells of
+exactly 8 at cap 8), in two turns. The phase copies split a call:
 
+- empty: the block returns at once (the launch alone);
 - planonly: the block returns after step 1 (the stencil plan);
 - nosweep: no candidate is tested (plan, staging and the reduction);
-- noflush: no listed candidate is evaluated (all but the evaluation).
+- noflush: no listed candidate is evaluated (all but the evaluation);
+- for the TwoPatchMorse kernel also anisoNoRuns (planonly without the
+  members' runs), anisoNoStage, anisoNoReduce, anisoNoZero (nosweep without
+  the staging, the reduction, the zeroing of empty slots) and
+  anisoLanesOnly (nosweep without all three: the plan and the lanes' own
+  loads).
 
 The others change one constant of the design.
 """
@@ -37,15 +44,38 @@ import chip_smoke as cs
 # applies to each copied source whose name ends with the suffix
 PHASES = {
     "base": [],
+    "empty": [(".cu", "  constexpr int B = kThreads;\n",
+               "  constexpr int B = kThreads;\n  if (cap > 0) return;\n")],
     "planonly": [(".cu", "const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];",
                   "if (cap > 0) return;\n"
-                  "  const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];")],
+                  "  const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];"),
+                 ("cell_aniso_force.cu", "const int n_tot = P.first[n_members];",
+                  "if (cap > 0) return;\n  const int n_tot = P.first[n_members];")],
     "nosweep": [(".cu", "az::sweep_round<B, MIN_IMAGE>(",
-                 "if (cap < 0) az::sweep_round<B, MIN_IMAGE>(")],
+                 "if (cap < 0) az::sweep_round<B, MIN_IMAGE>("),
+                ("cell_aniso_force.cu", "sweep_group<B, MIN_IMAGE>(P, stage,",
+                 "if (cap < 0) sweep_group<B, MIN_IMAGE>(P, stage,")],
     "noflush": [(".cu", "auto flush = [&](float xs, float ys, float zs, int n) {",
                  "auto flush = [&](float xs, float ys, float zs, int n) {\n"
                  "      if (n >= 0) return;")],
 }
+# finer copies of the TwoPatchMorse kernel's start, each on top of a phase copy
+_A = "cell_aniso_force.cu"
+_NO_STAGE = (_A, "        stage_group<B>(\n", "        if (cap < 0) stage_group<B>(\n")
+_NO_REDUCE = (_A, "    reduce_group<B, N_ACC>(part, acc, K, p0, np,",
+              "    if (cap < 0) reduce_group<B, N_ACC>(part, acc, K, p0, np,")
+_NO_ZERO = (_A, "  for (int j = 0; j < n_members; ++j) {\n    // empty slots sum",
+            "  for (int j = 0; j < n_members && cap < 0; ++j) {\n    // empty slots sum")
+PHASES.update({
+    "anisoNoRuns": PHASES["planonly"] + [
+        (_A, "    for (int j = 0; j < n_members; ++j) {\n      // lane = segment of member j;",
+         "    for (int j = 0; j < n_members && cap < 0; ++j) {\n"
+         "      // lane = segment of member j;")],
+    "anisoNoStage": PHASES["nosweep"] + [_NO_STAGE],
+    "anisoNoReduce": PHASES["nosweep"] + [_NO_REDUCE],
+    "anisoNoZero": PHASES["nosweep"] + [_NO_ZERO],
+    "anisoLanesOnly": PHASES["nosweep"] + [_NO_STAGE, _NO_REDUCE, _NO_ZERO],
+})
 DESIGN = {
     "unroll2": [(".cuh", "constexpr int kUnroll = 4;", "constexpr int kUnroll = 2;")],
     "list16": [(".cuh", "constexpr int kListLen = 32;", "constexpr int kListLen = 16;")],
@@ -58,9 +88,22 @@ DESIGN = {
                  "constexpr int kStageBytes = 16 * 1024;")],
     "stage48": [(".cuh", "constexpr int kStageBytes = 24 * 1024;",
                  "constexpr int kStageBytes = 48 * 1024;")],
+    "anisoB64": [("cell_aniso_force.cu", "constexpr int kThreads = 32;",
+                  "constexpr int kThreads = 64;")],
+    "anisoB128": [("cell_aniso_force.cu", "constexpr int kThreads = 32;",
+                   "constexpr int kThreads = 128;")],
+    "anisoG1": [("cell_aniso_force.cu", "constexpr int kGroup = 4;", "constexpr int kGroup = 1;")],
+    "anisoG2": [("cell_aniso_force.cu", "constexpr int kGroup = 4;", "constexpr int kGroup = 2;")],
+    "anisoG8": [("cell_aniso_force.cu", "constexpr int kGroup = 4;", "constexpr int kGroup = 8;")],
+    "anisoBatch2": [("cell_aniso_force.cu", "constexpr int kStageBatch = 4;",
+                     "constexpr int kStageBatch = 2;")],
+    "anisoStage128": [("cell_aniso_force.cu", "constexpr int kStageEntries = 256;",
+                       "constexpr int kStageEntries = 128;")],
+    "anisoStage768": [("cell_aniso_force.cu", "constexpr int kStageEntries = 256;",
+                       "constexpr int kStageEntries = 768;")],
 }
 CHANGES = {**PHASES, **DESIGN}
-SOURCES = ("cell_pair_force.cu", "cell_dpd_force.cu")
+SOURCES = ("cell_pair_force.cu", "cell_dpd_force.cu", "cell_aniso_force.cu")
 
 
 def variant_sources(variant: str, csrc: Path) -> dict[str, str]:
@@ -106,7 +149,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     az = cs._import_port()
+    from azplugins_tpu_torch.ops import aniso_kernel as AK
     from azplugins_tpu_torch.ops import cuda_build
+    from azplugins_tpu_torch.ops import dense as D
     from azplugins_tpu_torch.ops import dpd_kernel as DK
     from azplugins_tpu_torch.ops import pair_kernel as PK
 
@@ -118,12 +163,18 @@ def main() -> int:
             for n in names}
     t0 = time.perf_counter()
     jobs = [(dirs[n], src) for n in names for src in SOURCES]
-    with ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc each, all at once
-        list(pool.map(lambda job: cuda_build.load_library(job[1], job[0]), jobs))
+    # variants that leave a source as another has it share its library: one
+    # nvcc per distinct source, all at once, then the rest load what is built
+    distinct = {(src, cuda_build.source_digest(src, d)): (d, src) for d, src in jobs}
+    with ThreadPoolExecutor(len(distinct)) as pool:
+        list(pool.map(lambda job: cuda_build.load_library(job[1], job[0]), distinct.values()))
+    for d, src in jobs:
+        cuda_build.load_library(src, d)
     for n in names:
         for src in SOURCES:
             log = cuda_build.build_info[dirs[n] / src]["log"]
-            for key in ("pair_force_kernelILi0ELb0ELb0ELb0", "dpd_force_kernelILb0ELb0"):
+            for key in ("pair_force_kernelILi0ELb0ELb0ELb0", "dpd_force_kernelILb0ELb0",
+                        "aniso_force_kernelILb0ELb0"):
                 m = re.search(key + r".*\n.*?(\d+) bytes spill stores.*\n.*?Used (\d+) registers",
                               log)
                 if m:
@@ -149,8 +200,16 @@ def main() -> int:
     one = torch.ones((1, 1), device=dev)
     dpd = DK.dpd_kernel_tables({"A": 25.0 * one, "gamma": 4.5 * one, "s": 0.5 * one}, one, 1.0,
                                0.01)
+    patchy = cs._prepared_dense(cs.build_patchy(az, dev)[0])
+    full = cs._dense_case(
+        az, D, cs._lattice_snapshot(az, counts=(48, 48, 48), rho=1.1, jitter=0.03, seed=41,
+                                    quats=True), 1.6, 0.3, dev, 8, fields=("quat",))[:2]
+    tbl = cs._aniso_tables(az, 1, 35, dev)
+    tpm = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
     print(f"[shapes] headline cap {lattice[1].cap}, polymer cap {polymer[1].cap}, DPD fluid cap "
-          f"{ds.cap}", flush=True)
+          f"{ds.cap}, patchy cap {patchy[1].cap} ({cs._candidates(*patchy)} candidate pairs), "
+          f"dense TwoPatchMorse dims {full[1].dims} cap {full[1].cap} "
+          f"({cs._candidates(*full)} candidate pairs)", flush=True)
 
     for turn in range(2):
         for name in names:
@@ -163,9 +222,12 @@ def main() -> int:
                     cs._cuda_time_ms(lambda: PK.cell_pair_force(
                         *polymer, eyk, "ExpandedYukawa", "none"), 50),
                     cs._cuda_time_ms(lambda: DK.cell_dpd_force(dd, ds, dpd, 5, 777), 50),
+                    cs._cuda_time_ms(lambda: AK.cell_aniso_force(*patchy, tpm), 50),
+                    cs._cuda_time_ms(lambda: AK.cell_aniso_force(*full, tpm), 50),
                 ]
-            print(f"[turn {turn}] {name:9s} ms: PLJ headline {ms[0]:.4f}, PLJ liquid "
-                  f"{ms[1]:.4f}, ExpandedYukawa polymer {ms[2]:.4f}, DPD fluid {ms[3]:.4f}",
+            print(f"[turn {turn}] {name:14s} ms: PLJ headline {ms[0]:.4f}, PLJ liquid "
+                  f"{ms[1]:.4f}, ExpandedYukawa polymer {ms[2]:.4f}, DPD fluid {ms[3]:.4f}, "
+                  f"TwoPatchMorse patchy {ms[4]:.4f}, TwoPatchMorse dense {ms[5]:.4f}",
                   flush=True)
     print(cs._card())
     return 0

@@ -13,12 +13,15 @@ the per-slot sums, in fused multiply-adds and in the last ulp of exp, log
 and pow. The anisotropic kernel is held to the same bar per output (force,
 torque, energy, virial), each against its own max|plain|.
 
-The pair and DPD kernels' packed schedule (csrc/cell_stencil.cuh) has
-systems of its own: every cell filled to exactly its capacity, a cluster
-that leaves most cells empty, a capacity above 256 whose stencils are
-staged in rounds, two axes under 3 cells, and 41 types, whose tables are
-read from global memory. The kernels sum in an order fixed by the input,
-so two launches give the same bits.
+The kernels' packed schedule (csrc/cell_stencil.cuh) has systems of its
+own: every cell filled to exactly its capacity, a cluster that leaves most
+cells empty, a capacity above 256 whose stencils are staged in rounds, two
+axes under 3 cells, and 41 types, whose tables are read from global
+memory; the anisotropic kernel, whose block takes a group of cells along z
+and is sized for sparse cells, also a capacity forced to 64 whose stencils
+are staged in rounds and a cluster whose groups hold more particles than
+the block has threads (ANISO_SYSTEMS). The kernels sum in an order fixed
+by the input, so two launches give the same bits.
 """
 
 import importlib
@@ -253,11 +256,16 @@ def test_dpd_kernel_matches_plain(cuda_device, name, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["tilted", "clustered", "cap_256_rounds", "axis_under_3_slab"])
-@pytest.mark.parametrize("kernel", ["pair", "dpd"])
+@pytest.mark.parametrize("kernel", ["pair", "dpd", "aniso"])
 def test_kernel_repeats_bitwise(cuda_device, kernel, name):
     """Two launches on the same input give the same bits: every sum's order
     depends on the input alone."""
-    if kernel == "pair":
+    if kernel == "aniso":
+        dense, spec, tbl = _aniso_case(name if name in ANISO_SYSTEMS else "cap_64_rounds",
+                                       cuda_device)
+        tables = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
+        runs = [AK.cell_aniso_force(dense, spec, tables, "all") for _ in range(2)]
+    elif kernel == "pair":
         dense, spec, tbl = _system(name, cuda_device)
         tables = PK.kernel_tables("PerturbedLennardJones", tbl["params"], tbl["r_cut"],
                                   tbl["r_on"], "xplor")
@@ -267,24 +275,57 @@ def test_kernel_repeats_bitwise(cuda_device, kernel, name):
         dense, spec, tbl = _dpd_case(name, cuda_device)
         runs = [DK.dpd_force(dense, spec, tbl, 1.3, 0.01, 77, 777, "all") for _ in range(2)]
     torch.cuda.synchronize()
-    for k in ("force", "energy", "virial"):
+    for k in ("force", "energy", "virial") + (("torque",) if kernel == "aniso" else ()):
         a, b = (getattr(r, k) for r in runs)
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k
 
 
+# The anisotropic kernel's systems. name: (the SYSTEMS entry whose particles
+# it takes, start cap, the factor its box and positions are scaled by)
+ANISO_SYSTEMS = {
+    "orthorhombic": ("orthorhombic", None, 1.0),
+    "tilted": ("tilted", None, 1.0),
+    "two_types": ("two_types", None, 1.0),
+    "axis_under_3": ("axis_under_3", None, 1.0),
+    # 6^3 cells of exactly 2^3 lattice sites each, at cap 8
+    "full_cell": ("full_cell", 8, 1.0),
+    # ~1/20 of the 11^3 cells occupied
+    "clustered": ("clustered", None, 1.0),
+    # the same cluster at 4.6 times the density: cells of ~37 particles, more
+    # than the kernel's block has threads, on a 6^3 grid (groups of cells)
+    "clustered_dense": ("clustered", None, 0.6),
+    # denser still, on a 5^3 grid: too few cells along z for a group, so a
+    # block takes one cell, of ~64 particles
+    "clustered_dense_one_cell": ("clustered", None, 0.5),
+    # grid (2, 2, 7)
+    "axis_under_3_slab": ("axis_under_3_slab", None, 1.0),
+    # [8, T, T] tables too large for shared memory
+    "many_types": ("many_types", None, 1.0),
+    # 6^3 cells of 8 at cap 64: the 288 or 432 candidates of a group's
+    # stencil exceed one staging round
+    "cap_64_rounds": ("orthorhombic", 64, 1.0),
+}
+
+
 def _aniso_case(name, device):
-    """A pair-potential test system regridded at the TwoPatchMorse cutoff
-    (1.6, buffer 0.3), with random unit quaternions, stiff tables (M_r down
-    to 0.05, omega up to 20) and one flat-bottom, shorter-cutoff pair where
-    T > 1."""
-    dense, spec, _ = _system(name, device)
+    """A pair-potential test system (ANISO_SYSTEMS) regridded at the
+    TwoPatchMorse cutoff (1.6, buffer 0.3), with random unit quaternions,
+    stiff tables (M_r down to 0.05, omega up to 20) and one flat-bottom,
+    shorter-cutoff pair where T > 1."""
+    system, cap, scale = ANISO_SYSTEMS[name]
+    dense, spec, _ = _system(system, device)
     n = int((dense.tag >= 0).sum())
     state = D.undensify(dense, n, fields=())
-    rng = np.random.default_rng(60 + list(SYSTEMS).index(name))
+    rng = np.random.default_rng(60 + list(ANISO_SYSTEMS).index(name))
     q = rng.normal(size=(n, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     state = state.replace(orientation=torch.as_tensor(q.astype(np.float32), device=device))
+    if scale != 1.0:
+        state = state.replace(position=state.position * scale,
+                              box=state.box.replace(L=state.box.L * np.float32(scale)))
     spec = D.GridSpec.create(state.box, n, 1.6, 0.3)
+    if cap is not None:
+        spec = spec.replace(cap=cap)
     dense, meta = D.densify(state, spec, fields=("quat",))
     while bool(meta.overflow):
         spec = spec.replace(cap=int(np.ceil((int(meta.max_occ) + 1) / 8.0) * 8))
@@ -312,9 +353,10 @@ def _aniso_case(name, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("want", ["force", "all"])
 @pytest.mark.parametrize("mode", ["none", "shift"])
-@pytest.mark.parametrize("name", ["orthorhombic", "tilted", "two_types", "axis_under_3"])
+@pytest.mark.parametrize("name", list(ANISO_SYSTEMS))
 def test_aniso_kernel_matches_plain(cuda_device, name, mode, want):
     dense, spec, tbl = _aniso_case(name, cuda_device)
+    assert spec.newton_ok == (not name.startswith("axis_under_3"))
     tpm = ANISO_PAIR_POTENTIALS["TwoPatchMorse"].energy_force_torque
     jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_quat=True)
     ref = D.dense_aniso_force(tpm, dense, jb, spec, tbl["params"], tbl["r_cut"], mode, want)
@@ -336,6 +378,7 @@ def test_aniso_kernel_matches_plain(cuda_device, name, mode, want):
         total = got.force.double().sum(0).abs().max()
         assert float(total) < 1e-5 * float(got.force.abs().max()) * spec.S**0.5
     empty = (dense.tag < 0).cpu().numpy()
+    assert not got.force.cpu().numpy()[empty].any()
     assert not got.torque.cpu().numpy()[empty].any()
 
 
@@ -429,16 +472,28 @@ def _shuffled(dense, spec, seed=3):
     perm = torch.argsort(torch.rand(spec.n_cells, spec.cap, generator=g), dim=1)
     idx = (perm + torch.arange(spec.n_cells)[:, None] * spec.cap).reshape(-1).to(dense.device)
     return dense.replace(**{k: getattr(dense, k)[idx].contiguous()
-                            for k in ("position", "typeid", "tag", "velocity")})
+                            for k in ("position", "typeid", "tag", "velocity", "orientation")})
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["two_types", "axis_under_3_slab", "cap_256_rounds"])
-@pytest.mark.parametrize("kernel", ["pair", "dpd"])
+@pytest.mark.parametrize("kernel", ["pair", "dpd", "aniso"])
 def test_kernel_refuses_another_slot_order(cuda_device, kernel, name):
-    """A cell whose stencil holds an occupied slot past its count reads NaN;
-    a slot that reads finite has its plain value: no pair is dropped."""
-    if kernel == "pair":
+    """A cell whose stencil holds an occupied slot past its count reads NaN
+    (the torque too); a slot that reads finite has its plain value: no pair
+    is dropped."""
+    outputs = ("force", "energy", "virial")
+    if kernel == "aniso":
+        dense, spec, tbl = _aniso_case(name if name in ANISO_SYSTEMS else "cap_64_rounds",
+                                       cuda_device)
+        dense = _shuffled(dense, spec)
+        jb = D.make_jblocks(dense, spec, half=spec.newton_ok, need_quat=True)
+        ref = D.dense_aniso_force(ANISO_PAIR_POTENTIALS["TwoPatchMorse"].energy_force_torque,
+                                  dense, jb, spec, tbl["params"], tbl["r_cut"], "shift", "all")
+        tables = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
+        got = AK.cell_aniso_force(dense, spec, tables, "all")
+        outputs += ("torque",)
+    elif kernel == "pair":
         dense, spec, tbl = _system(name, cuda_device)
         dense = _shuffled(dense, spec)
         ref = _plain(dense, spec, tbl, "shift", "all")
@@ -455,7 +510,7 @@ def test_kernel_refuses_another_slot_order(cuda_device, kernel, name):
     torch.cuda.synchronize()
     refused = torch.isnan(got.force).all(dim=1)
     assert bool(refused.any())
-    for what in ("force", "energy", "virial"):
+    for what in outputs:
         value, plain = getattr(got, what), getattr(ref, what)
         assert bool(torch.isnan(value[refused]).all()), what
         if not bool(refused.all()):
@@ -470,6 +525,92 @@ def test_shuffled_layout_moves_occupied_slots():
     # some cell has an occupied slot past its count: not a prefix
     assert bool((occ & (torch.arange(spec.cap)[None, :] >= n)).any())
     assert torch.equal(torch.sort(mixed.tag).values, torch.sort(dense.tag).values)
+
+
+def test_shuffled_layout_moves_quaternions_with_their_slots():
+    dense, spec, _ = _aniso_case("two_types", "cpu")
+    mixed = _shuffled(dense, spec)
+    assert not torch.equal(mixed.tag, dense.tag)
+    for state in (dense, mixed):
+        assert tuple(state.orientation.shape) == (spec.S, 4)
+    occupied, was = mixed.tag >= 0, dense.tag >= 0
+    # each particle (tag) keeps its position and its quaternion
+    order, order_was = torch.argsort(mixed.tag[occupied]), torch.argsort(dense.tag[was])
+    for field in ("orientation", "position"):
+        now, before = getattr(mixed, field)[occupied], getattr(dense, field)[was]
+        assert torch.equal(now[order], before[order_was]), field
+
+
+@pytest.mark.parametrize("dims", [(3, 3, 3), (4, 7, 5), (23, 23, 23)])
+def test_newton_stencil_order_is_the_kernels_home_rule(dims):
+    """On a grid with >= 3 cells on every axis the stencil lists 27 offsets
+    in lexicographic order with the cell itself in the middle, and the half
+    stencil (the neighbours a cell is the home side of) is exactly the
+    offsets after it. The anisotropic kernel decides who is home from the
+    class of a candidate's column (ox, oy) and, in the cell's own column,
+    from the candidate's number, which rises with oz: the same rule."""
+    spec = D.GridSpec(dims=dims, cap=8, r_cut=1.6, buffer=0.3)
+    assert spec.newton_ok
+    offsets = [tuple(int(x) for x in o) for o in spec.stencil()]
+    assert len(offsets) == 27 and offsets == sorted(offsets)
+    assert offsets.index((0, 0, 0)) == 13
+    half = [tuple(int(x) for x in o) for o in spec.half_stencil()]
+    assert half == offsets[14:]
+    source = (cuda_build.CSRC / AK._SOURCE).read_text()
+    assert "enum Column { kBefore = 0, kOwn, kAfter };" in source
+    for ox, oy, oz in offsets:
+        column = "after" if (ox, oy) > (0, 0) else "own" if (ox, oy) == (0, 0) else "before"
+        home = column == "after" or (column == "own" and oz > 0)
+        assert home == ((ox, oy, oz) in half)
+
+
+def _source_constant(source, name):
+    """A ``constexpr int name = n;`` of one kernel source under csrc/."""
+    text = (cuda_build.CSRC / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("name", list(ANISO_SYSTEMS))
+def test_aniso_systems_have_their_shape(name):
+    """Each system of the anisotropic kernel is the case it is named for:
+    the CUDA cases above rely on it."""
+    dense, spec, tbl = _aniso_case(name, "cpu")
+    system, cap, scale = ANISO_SYSTEMS[name]
+    occ = (dense.tag >= 0).reshape(spec.dims + (spec.cap,)).sum(dim=-1)
+    assert int(occ.sum()) == int(np.prod(SYSTEMS[system][0]))
+    # occupied slots first: the kernels' precondition
+    filled = (dense.tag >= 0).reshape(spec.n_cells, spec.cap)
+    assert bool((filled == (torch.arange(spec.cap)[None, :] < filled.sum(1, keepdim=True))).all())
+    norm = dense.orientation[dense.tag >= 0].norm(dim=1)
+    assert float((norm - 1.0).abs().max()) < 1e-6
+    around = sum(torch.roll(occ, shifts=tuple(-int(o) for o in off), dims=(0, 1, 2))
+                 for off in spec.stencil())
+    threads = _source_constant(AK._SOURCE, "kThreads")
+    stage_entries = _source_constant(AK._SOURCE, "kStageEntries")
+    group = _source_constant(AK._SOURCE, "kGroup")
+    assert spec.newton_ok == (not name.startswith("axis_under_3"))
+    if name == "full_cell":
+        assert spec.dims == (6, 6, 6) and spec.cap == 8 and bool((occ == spec.cap).all())
+    elif name == "clustered":
+        assert float((occ == 0).double().mean()) > 0.75
+    elif name == "clustered_dense":
+        # a block takes a group of cells, whose particles go in rounds of its threads
+        assert spec.dims[2] >= group + 2 and int(occ.max()) > threads
+    elif name == "axis_under_3_slab":
+        assert spec.dims == (2, 2, 7)
+    elif name == "many_types":
+        T = tbl["r_cut"].shape[0]
+        assert T == 41 and len(AK.KERNEL_TABLES) * T * T * 4 > _header_bytes("kTableSmemBytes")
+    elif name == "clustered_dense_one_cell":
+        assert spec.dims[2] < group + 2 and int(occ.max()) > threads
+        assert int(around.max()) > stage_entries
+    elif name == "cap_64_rounds":
+        # more candidates in the stencil of any group of cells than one staging round holds
+        assert spec.cap == 64 and spec.dims == (6, 6, 6) and spec.dims[2] >= group + 2
+        assert int(occ.min()) * 9 * (spec.dims[2] % group + 2) > stage_entries
+    if name in ("two_types", "many_types"):  # per-pair cutoffs and a flat-bottom pair
+        assert float(tbl["r_cut"].min()) < float(tbl["r_cut"].max())
+        assert float(tbl["params"]["repulsion"].min()) == 0.0
 
 
 @pytest.mark.parametrize("name", PACKED_SYSTEMS)
@@ -549,6 +690,7 @@ def test_every_kernel_variant_changes_its_sources(monkeypatch):
     kv = _kernel_variants(monkeypatch)
     base = kv.variant_sources("base", cuda_build.CSRC)
     assert set(base) >= {"cell_stencil.cuh", *kv.SOURCES}
+    assert "cell_aniso_force.cu" in kv.SOURCES
     assert "case kLJ:" not in base["cell_pair_force.cu"]  # two instantiations only
     for variant in kv.CHANGES:
         texts = kv.variant_sources(variant, cuda_build.CSRC)
