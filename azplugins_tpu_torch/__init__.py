@@ -4,8 +4,10 @@ The same user API as ``azplugins_tpu``, in PyTorch, for one NVIDIA H100;
 the JAX package beside it is the reference every module is tested against.
 It runs isotropic pair potentials (the perturbed Lennard-Jones fluid,
 the ExpandedYukawa polymer melt and the rest of the plugin's set), the
-anisotropic TwoPatchMorse with rotational dynamics, bonds and the DPD
-thermostat under NVE or Langevin dynamics on the dense cell grid, with
+anisotropic TwoPatchMorse with rotational dynamics, bonds, the DPD
+thermostat, harmonic barriers and wall potentials under NVE, Langevin or
+Brownian dynamics (with flow fields) on the dense cell grid, the type
+updaters (the evaporating droplet) and the capacity tune, with
 every pair force on CUDA devices in a hand-written kernel
 (``csrc/cell_pair_force.cu``, ``csrc/cell_dpd_force.cu``,
 ``csrc/cell_aniso_force.cu``). A Simulation runs on the GPU unless it is
@@ -34,9 +36,9 @@ Quick start::
     sim.run(1000)
 """
 
-from . import compute, logging, md, ops
+from . import compute, external, flow, logging, md, ops, update
 from .core import Box, Snapshot, State, variant
-from .md import bond, filter, pair  # noqa: A004 - mirrors hoomd.filter
+from .md import bond, filter, pair, trigger  # noqa: A004 - mirrors hoomd.filter
 from .simulation import Operations, Simulation
 
 __all__ = [
@@ -47,10 +49,14 @@ __all__ = [
     "State",
     "bond",
     "compute",
+    "external",
     "filter",
+    "flow",
     "logging",
     "md",
     "ops",
     "pair",
+    "trigger",
+    "update",
     "variant",
 ]

@@ -125,7 +125,9 @@ class ThermodynamicQuantities(Compute):
         integ = self._sim.operations.integrator
         if integ is not None:
             for f in integ.forces:
-                total += f.virials.sum(axis=0)
+                v = f.virials
+                if v is not None:
+                    total += v.sum(axis=0)
         return total
 
     @log(requires_run=True)

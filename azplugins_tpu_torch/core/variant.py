@@ -1,17 +1,35 @@
 """Time-dependent scalar parameters ("variants").
 
-Port of ``azplugins_tpu/core/variant.py`` (``Constant`` and ``as_variant``;
-the other schedules come with the slices that use them). A variant is
-evaluated on the host once per step from the integer timestep and returns
-a Python float that is an exact float32 value, so device arithmetic with it
-rounds like the reference's ``jnp.float32`` scalar.
+Port of ``azplugins_tpu/core/variant.py``. A variant is evaluated on the
+host once per step from the integer timestep and returns a Python float
+that is an exact float32 value, so device arithmetic with it rounds like
+the reference's ``jnp.float32`` scalar. Each schedule computes in
+``numpy.float32`` in the reference's operation order, so the value is the
+reference's bit for bit (``Power``'s ``frac ** power`` goes through the C
+library's ``powf`` and may differ from XLA's by an ulp).
+
+Subclass ``Variant`` and override ``__call__`` for a custom schedule; it
+must return a float for a Python int timestep.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
-__all__ = ["Variant", "Constant", "as_variant"]
+__all__ = ["Variant", "Constant", "Ramp", "Cycle", "Power", "SphereArea", "as_variant"]
+
+_F32 = np.float32
+
+
+def _clip01(x):
+    return min(max(x, _F32(0.0)), _F32(1.0))
+
+
+def _ramp_fraction(timestep: int, t_start: int, t_ramp: int):
+    """The reference's ``clip((f32(t) - t_start) / t_ramp, 0, 1)``, in float32."""
+    return _clip01((_F32(timestep) - _F32(t_start)) / _F32(t_ramp))
 
 
 class Variant:
@@ -20,13 +38,107 @@ class Variant:
     def __call__(self, timestep: int) -> float:  # pragma: no cover - interface
         raise NotImplementedError
 
+    def range(self):
+        """(min, max) bounds if known, for host-side validation."""
+        return (-math.inf, math.inf)
+
 
 class Constant(Variant):
     def __init__(self, value: float):
         self.value = float(value)
 
     def __call__(self, timestep: int) -> float:
-        return float(np.float32(self.value))
+        return float(_F32(self.value))
+
+    def range(self):
+        return (self.value, self.value)
+
+    def __eq__(self, other):
+        return isinstance(other, Constant) and self.value == other.value
+
+
+class Ramp(Variant):
+    """Linear ramp from A to B over t_ramp steps starting at t_start."""
+
+    def __init__(self, A: float, B: float, t_start: int, t_ramp: int):
+        self.A = float(A)
+        self.B = float(B)
+        self.t_start = int(t_start)
+        self.t_ramp = int(t_ramp)
+
+    def __call__(self, timestep: int) -> float:
+        frac = _ramp_fraction(timestep, self.t_start, self.t_ramp)
+        return float(_F32(self.A) + frac * _F32(self.B - self.A))
+
+    def range(self):
+        return (min(self.A, self.B), max(self.A, self.B))
+
+
+class Cycle(Variant):
+    """Periodic triangle wave between A and B."""
+
+    def __init__(self, A: float, B: float, t_start: int, t_A: int, t_AB: int, t_B: int, t_BA: int):
+        self.A, self.B = float(A), float(B)
+        self.t_start = int(t_start)
+        self.t_A, self.t_AB, self.t_B, self.t_BA = int(t_A), int(t_AB), int(t_B), int(t_BA)
+
+    def __call__(self, timestep: int) -> float:
+        period = self.t_A + self.t_AB + self.t_B + self.t_BA
+        # integer modulo first, then float32, as the reference's int32 ops
+        t = _F32(max(int(timestep) - self.t_start, 0) % period)
+        a, b = _F32(self.A), _F32(self.B)
+        # piecewise: hold A, ramp A->B, hold B, ramp B->A
+        e0 = _F32(self.t_A)
+        e1 = e0 + _F32(self.t_AB)
+        e2 = e1 + _F32(self.t_B)
+        if t < e1:
+            return float(a + (b - a) * _clip01((t - e0) / _F32(max(self.t_AB, 1))))
+        if t < e2:
+            return float(b)
+        return float(b + (a - b) * _clip01((t - e2) / _F32(max(self.t_BA, 1))))
+
+    def range(self):
+        return (min(self.A, self.B), max(self.A, self.B))
+
+
+class Power(Variant):
+    """Power-law interpolation from A to B over t_ramp steps."""
+
+    def __init__(self, A: float, B: float, power: float, t_start: int, t_ramp: int):
+        self.A, self.B = float(A), float(B)
+        self.power = float(power)
+        self.t_start = int(t_start)
+        self.t_ramp = int(t_ramp)
+
+    def __call__(self, timestep: int) -> float:
+        frac = _ramp_fraction(timestep, self.t_start, self.t_ramp)
+        return float(_F32(self.A) + (frac ** _F32(self.power)) * _F32(self.B - self.A))
+
+    def range(self):
+        return (min(self.A, self.B), max(self.A, self.B))
+
+
+class SphereArea(Variant):
+    """Radius of a sphere whose *area* changes at constant rate alpha.
+
+    R(t) = sqrt(max(R0^2 - (alpha / 4 pi) t, 0)) (the droplet-evaporation
+    schedule of the reference).
+    """
+
+    def __init__(self, R0: float, alpha: float):
+        if R0 < 0:
+            raise ValueError("R0 must be non-negative")
+        self.R0 = float(R0)
+        self.alpha = float(alpha)
+
+    def __call__(self, timestep: int) -> float:
+        R0_sq = _F32(self.R0 * self.R0)
+        k = _F32(self.alpha / (4.0 * 3.141592653589793))
+        drsq = k * _F32(timestep)
+        return float(np.sqrt(max(R0_sq - drsq, _F32(0.0))))
+
+    def range(self):
+        return (0.0, self.R0) if self.alpha >= 0 else (self.R0, math.inf)
 
 
 def as_variant(value) -> Variant:

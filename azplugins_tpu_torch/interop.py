@@ -25,6 +25,7 @@ __all__ = [
     "pair_tables_from_reference",
     "aniso_tables_from_reference",
     "bond_tables_from_reference",
+    "external_tables_from_reference",
 ]
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(State) if f.name != "box")
@@ -109,3 +110,17 @@ def bond_tables_from_reference(ref_tbl: dict, ref_state, device) -> dict:
                    for k, v in ref_tbl["params"].items()},
         "group": _tensor(ref_state.bond_group, device),
     }
+
+
+def external_tables_from_reference(ref_tbl: dict, device) -> dict:
+    """A reference barrier's (``{"params"}``) or wall's (``{"params",
+    "r_cut", "r_extrap"}``) tables as the port's device tables; a wall's
+    host decision to extrapolate is made from its ``r_extrap``."""
+    out = {"params": {k: _tensor(np.asarray(v, np.float32), device)
+                      for k, v in ref_tbl["params"].items()}}
+    if "r_extrap" in ref_tbl:
+        r_extrap = np.asarray(ref_tbl["r_extrap"], np.float32)
+        out["r_cut"] = _tensor(np.asarray(ref_tbl["r_cut"], np.float32), device)
+        out["r_extrap"] = _tensor(r_extrap, device)
+        out["extrap"] = bool(np.any(r_extrap > 0))
+    return out

@@ -1,4 +1,4 @@
-from . import bond, filter, methods, nlist, pair, rotation  # noqa: A004
+from . import bond, filter, methods, nlist, pair, rotation, trigger  # noqa: A004
 from .integrate import Integrator
 
-__all__ = ["Integrator", "bond", "filter", "methods", "nlist", "pair", "rotation"]
+__all__ = ["Integrator", "bond", "filter", "methods", "nlist", "pair", "rotation", "trigger"]

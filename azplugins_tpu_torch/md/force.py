@@ -4,6 +4,9 @@ Port of ``azplugins_tpu/md/force.py``. Users configure parameters by type
 name; at attach they are validated and precomputed into host float32
 tables, which each run copies to the simulation's device once
 (:meth:`Force._device_tables`); the step loop calls ``_compute_dense``.
+Pair, DPD, anisotropic and bond forces override it; per-particle forces
+(barriers, walls) take the base version, which hands the dense state to
+their ``_compute``: they are layout-agnostic.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ class Force:
     # orientations of both members of a pair
     _produces_torque = False
     _needs_quat_j = False
+    # the force reads the particle diameters (the diameter column then rides
+    # the rebuild even when every diameter has its default)
+    _needs_diameter = False
 
     def __init__(self):
         self._attached = False
@@ -55,8 +61,15 @@ class Force:
 
     def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl,
                        want="all") -> ForceResult:
-        """Force in the dense (slot) layout; ``slot_of`` maps tag -> slot."""
-        raise NotImplementedError  # pragma: no cover
+        """Force in the dense (slot) layout; ``slot_of`` maps tag -> slot.
+
+        Default: a per-particle force, the same in any layout (``_compute``).
+        """
+        return self._compute(dense, timestep, tbl)
+
+    def _compute(self, state, timestep, tbl) -> ForceResult:  # pragma: no cover - interface
+        """Per-particle force on ``state``; empty slots (tag < 0) get zeros."""
+        raise NotImplementedError
 
     def _max_r_cut(self) -> float:
         return 0.0
@@ -86,8 +99,10 @@ class Force:
 
     @log(category="particle", requires_run=True, default=False)
     def virials(self) -> np.ndarray:
-        """Per-particle virial tensor components (tag order)."""
-        return self._result().virial.cpu().numpy()
+        """Per-particle virial tensor components (tag order; None when the
+        force computes none)."""
+        v = self._result().virial
+        return None if v is None else v.cpu().numpy()
 
     @log(category="particle", requires_run=True, default=False)
     def torques(self) -> np.ndarray:

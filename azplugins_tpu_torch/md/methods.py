@@ -1,11 +1,12 @@
 """Integration methods: NVE and Langevin (with an optional flow field).
 
-Port of ``azplugins_tpu/md/methods.py`` (ConstantVolume and the Langevin
-pair; the Brownian methods are a later slice). ConstantVolume is velocity
+Port of ``azplugins_tpu/md/methods.py``. ConstantVolume is velocity
 Verlet; LangevinFlow takes the drag relative to a flow velocity u(r) and
 draws a uniform random force with coefficient sqrt(6 gamma kT / dt) per
 particle from Threefry (bitwise the reference's noise); Langevin is
-LangevinFlow with u = 0. With ``integrate_rotational_dof=True`` on the
+LangevinFlow with u = 0. BrownianFlow is overdamped dynamics advected by
+u(r), with the same kind of noise from its own stream; Brownian is
+BrownianFlow with u = 0. With ``integrate_rotational_dof=True`` on the
 integrator, every method also integrates orientations and angular momenta
 (NO_SQUISH, md/rotation.py), and Langevin thermostats them with body-frame
 friction gamma_r and noise from its own Threefry stream.
@@ -30,7 +31,7 @@ from ..core.variant import as_variant
 from . import rotation as R
 from .filter import All, ParticleFilter
 
-__all__ = ["Method", "ConstantVolume", "Langevin", "LangevinFlow"]
+__all__ = ["Method", "ConstantVolume", "Langevin", "LangevinFlow", "Brownian", "BrownianFlow"]
 
 
 class Method:
@@ -107,23 +108,10 @@ class ConstantVolume(Method):
     _conserves_momentum = True
 
 
-class LangevinFlow(Method):
-    """Velocity-Verlet Langevin with drag relative to a flow field.
+class _GammaMixin:
+    """Per-type drag coefficients: gamma, and gamma_r for rotation."""
 
-    step2 adds F_BD = F_random - gamma (v - u(r)) to the net force before
-    the second half kick (reference plugin: TwoStepLangevinFlow.h:159-249).
-    ``flow_field`` is any callable mapping wrapped positions ``[N, 3]`` to
-    flow velocities ``[N, 3]``.
-    """
-
-    _rng_stream = _rng.Stream.LANGEVIN_FLOW
-
-    def __init__(self, kT, flow_field=None, filter=None, default_gamma: float = 1.0,
-                 noiseless: bool = False):
-        super().__init__(filter)
-        self.kT = as_variant(kT)
-        self.flow_field = flow_field
-        self.noiseless = bool(noiseless)
+    def _init_gamma(self, default_gamma):
         self.gamma = TypeParameter("gamma", 1, None, float, default=float(default_gamma))
         self.gamma_r = TypeParameter("gamma_r", 1, None, float, default=1.0)
 
@@ -143,6 +131,26 @@ class LangevinFlow(Method):
 
     def _gamma_r_of(self, state):
         return self._gamma_r_table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
+
+
+class LangevinFlow(_GammaMixin, Method):
+    """Velocity-Verlet Langevin with drag relative to a flow field.
+
+    step2 adds F_BD = F_random - gamma (v - u(r)) to the net force before
+    the second half kick (reference plugin: TwoStepLangevinFlow.h:159-249).
+    ``flow_field`` is any callable mapping wrapped positions ``[N, 3]`` to
+    flow velocities ``[N, 3]``.
+    """
+
+    _rng_stream = _rng.Stream.LANGEVIN_FLOW
+
+    def __init__(self, kT, flow_field=None, filter=None, default_gamma: float = 1.0,
+                 noiseless: bool = False):
+        super().__init__(filter)
+        self.kT = as_variant(kT)
+        self.flow_field = flow_field
+        self.noiseless = bool(noiseless)
+        self._init_gamma(default_gamma)
 
     def step2(self, state, dt, timestep, seed):
         gp = self._gamma_of(state)
@@ -202,6 +210,55 @@ class Langevin(LangevinFlow):
     """Standard Langevin thermostat (flow field = 0)."""
 
     _rng_stream = _rng.Stream.LANGEVIN
+
+    def __init__(self, kT, filter=None, default_gamma: float = 1.0, noiseless: bool = False):
+        super().__init__(kT, flow_field=None, filter=filter,
+                         default_gamma=default_gamma, noiseless=noiseless)
+
+
+class BrownianFlow(_GammaMixin, Method):
+    """Overdamped (Brownian) dynamics advected by a flow field.
+
+    Single-step update r += (u(r) + (F + F_rand) / gamma) dt in step1
+    (reference plugin: TwoStepBrownianFlow.h:103-182); step2 only mirrors
+    the net force into the acceleration, which the rebuild carries.
+    """
+
+    _rng_stream = _rng.Stream.BROWNIAN_FLOW
+
+    def __init__(self, kT, flow_field=None, filter=None, default_gamma: float = 1.0,
+                 noiseless: bool = False):
+        super().__init__(filter)
+        self.kT = as_variant(kT)
+        self.flow_field = flow_field
+        self.noiseless = bool(noiseless)
+        self._init_gamma(default_gamma)
+
+    def step1(self, state, dt, timestep, seed):
+        gp = self._gamma_of(state)
+        kT = self.kT(timestep)
+        if self.noiseless or dt <= 0:
+            coeff = torch.zeros((state.N, 1), dtype=torch.float32, device=state.device)
+        else:
+            coeff = torch.sqrt(6.0 * gp * kT / dt)[:, None]
+        u = _rng.particle_uniform3(self._rng_stream, seed, timestep, state.tag)
+        random_force = coeff * u
+        if self.flow_field is None:
+            flow_vel = torch.zeros_like(state.position)
+        else:
+            flow_vel = self.flow_field(state.box.wrap(state.position)[0])
+        pos = state.position + (flow_vel + (state.net_force + random_force) / gp[:, None]) * dt
+        return state.replace(position=self._where(state, pos, state.position))
+
+    def step2(self, state, dt, timestep, seed):
+        accel = state.net_force / state.mass[:, None]
+        return state.replace(acceleration=self._where(state, accel, state.acceleration))
+
+
+class Brownian(BrownianFlow):
+    """Standard Brownian dynamics (flow field = 0)."""
+
+    _rng_stream = _rng.Stream.BROWNIAN
 
     def __init__(self, kT, filter=None, default_gamma: float = 1.0, noiseless: bool = False):
         super().__init__(kT, flow_field=None, filter=filter,

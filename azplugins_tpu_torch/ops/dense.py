@@ -122,9 +122,14 @@ class GridSpec:
         cap = min(cap, N) if N > 0 else 8
         return cls(dims=dims, cap=max(cap, 1), r_cut=float(r_cut), buffer=eff_buffer)
 
-    def grow(self) -> "GridSpec":
-        """1.25x capacity, rounded up to a multiple of 8."""
-        new_cap = max(int(math.ceil(self.cap * 1.25 / 8.0) * 8), self.cap + 8)
+    def grow(self, gentle: bool = False) -> "GridSpec":
+        """1.25x capacity, rounded up to a multiple of 8; ``gentle`` adds one
+        8-slot quantum instead (after the capacity tune, a fluctuation needs
+        exactly one: Simulation._grow_and_rebuild)."""
+        if gentle:
+            new_cap = self.cap + 8
+        else:
+            new_cap = max(int(math.ceil(self.cap * 1.25 / 8.0) * 8), self.cap + 8)
         return self.replace(cap=new_cap)
 
 

@@ -1,9 +1,9 @@
 """Simulation: owns the state and operations and drives the step loop.
 
 Port of ``azplugins_tpu/simulation.py`` (state management, attach, the
-dense layout, the step loop with its rebuild schedule and transactional
-replays, and the force observables; writers, updaters, MPCD, spatial
-decomposition and the capacity auto-tune are later slices). Pair, DPD,
+dense layout, the step loop with its rebuild schedule, transactional
+replays, updaters and the capacity tune, and the force observables;
+writers, MPCD and spatial decomposition are later slices). Pair, DPD,
 anisotropic and bond forces all take the dense state and the tag->slot
 map; a run without pair forces keeps tag order, with the identity map.
 With ``integrate_rotational_dof``, ``net_torque`` is set every step, beside
@@ -14,8 +14,12 @@ The simulation runs on the device it is given, and on the GPU
 used only when asked for (``device="cpu"``).
 
 Each step runs, as the reference's: methods.step1 -> Verlet drift check ->
-forces -> methods.step2, in the dense cell-slot layout of ops/dense.py. The
-tag-ordered State is rebuilt from the slots only when something reads it.
+forces -> methods.step2 -> the updaters whose trigger fires at the step,
+in the dense cell-slot layout of ops/dense.py. The tag-ordered State is
+rebuilt from the slots only when something reads it. Triggers are
+evaluated on the host from the timestep, and an updater is a pure device
+function of (state, timestep, seed), so a firing neither splits the chunk
+nor waits for the device; a replayed chunk re-applies the same firings.
 
 Rebuild control. The neighbour grid is rebuilt on the absolute schedule
 ``t % seg_len == 0``; in between, every step only *checks* the Verlet
@@ -26,6 +30,13 @@ device. A violation replays the chunk from its saved starting state with
 a shorter interval (re-derived from the fastest particle); an overflow
 replays it with a larger cell capacity. States are immutable dataclasses,
 so the saved state costs nothing.
+
+Capacity tune. At the absolute timestep ``auto_tune_after`` (200 by
+default) the run right-sizes the cell capacity to the equilibrated
+occupancy and resets the rebuild interval from the fastest particle
+(:meth:`Simulation.tune_cell_capacity`); the chunk is split there, so the
+tune point, and the trajectory after it, do not depend on how ``run`` is
+called.
 """
 
 from __future__ import annotations
@@ -47,14 +58,37 @@ __all__ = ["Simulation", "Operations"]
 # changes only at multiples of this, so the rebuild schedule is a pure
 # function of the timestep, whatever the run() chunking
 _GROW_QUANTUM = 100
-# longest chunk between host synchronisations
-_MAX_CHUNK = 1000
 
 
 class Operations:
     def __init__(self):
         self.integrator = None
+        self.updaters: list = []
         self.computes: list = []
+
+    def add(self, op):
+        """hoomd-style routing: forces go to the integrator, updaters and
+        computes to their lists."""
+        from .compute import Compute
+        from .md.force import Force
+        from .update import Updater
+
+        if isinstance(op, Force):
+            if self.integrator is None:
+                raise RuntimeError("set an integrator before adding forces")
+            self.integrator.forces.append(op)
+        elif isinstance(op, Updater):
+            self.updaters.append(op)
+        elif isinstance(op, Compute):
+            self.computes.append(op)
+        elif callable(getattr(op, "write", None)):
+            raise NotImplementedError("writers are not ported yet (ROADMAP queue A5)")
+        else:
+            raise TypeError(f"cannot add {op!r}")
+
+    def __iadd__(self, op):
+        self.add(op)
+        return self
 
 
 class _StateView:
@@ -68,12 +102,23 @@ class _StateView:
         return self._sim._synced_state().N
 
     @property
+    def particle_types(self) -> list[str]:
+        return list(self._sim._particle_types)
+
+    @property
+    def bond_types(self) -> list[str]:
+        return list(self._sim._bond_types)
+
+    @property
     def box(self):
         return self._sim._synced_state().box
 
     def get_snapshot(self) -> Snapshot:
         sim = self._sim
         return state_to_snapshot(sim._synced_state(), sim._particle_types, sim._bond_types)
+
+    def set_snapshot(self, snapshot: Snapshot):
+        self._sim._set_snapshot(snapshot)
 
     def thermalize_particle_momenta(self, filter=None, kT: float = 1.0):
         sim = self._sim
@@ -122,6 +167,16 @@ class Simulation:
         # belongs to the old schedule, so the unaligned prefix up to the next
         # point of the new schedule rebuilds every step
         self._realign = False
+        # longest chunk between host synchronisations
+        self.max_chunk = 1000
+        # False pins the rebuild interval (violation replays still lower
+        # it; quantum regrowth and the chunk splits at quanta stop)
+        self._seg_adapt = True
+        # the capacity tune fires the first time the absolute timestep
+        # reaches auto_tune_after (None: never); a manual
+        # tune_cell_capacity() or a timestep set past it cancels it
+        self.auto_tune_after: int | None = 200
+        self._auto_tuned = False
         # diagnostics: violation replays, and force evaluations (one per
         # force per step, replayed steps included)
         self.viol_replays = 0
@@ -131,6 +186,9 @@ class Simulation:
     def create_state_from_snapshot(self, snapshot: Snapshot):
         if self._state is not None:
             raise RuntimeError("state already created")
+        self._set_snapshot(snapshot)
+
+    def _set_snapshot(self, snapshot: Snapshot):
         self._state, self._particle_types, self._bond_types = state_from_snapshot(
             snapshot, self.device
         )
@@ -164,6 +222,14 @@ class Simulation:
     def timestep(self) -> int:
         return self._timestep
 
+    @timestep.setter
+    def timestep(self, value: int):
+        self._timestep = int(value)
+        # a clock set at or past the tune point (a resume) declares the tune
+        # done in the earlier run
+        if self.auto_tune_after is not None and self._timestep >= self.auto_tune_after:
+            self._auto_tuned = True
+
     @property
     def n_builds(self) -> int:
         """Neighbour-grid builds since the dense layout was made (a host sync)."""
@@ -184,6 +250,8 @@ class Simulation:
         integ = self.operations.integrator
         if integ is not None:
             integ._attach(self)
+        for u in self.operations.updaters:
+            u._attach(self)
         for c in self.operations.computes:
             c._attach(self)
 
@@ -230,8 +298,9 @@ class Simulation:
         A column rides the rebin if some attached operation reads or moves
         it (quaternions for an anisotropic force; orientations, angular
         momenta, inertia and the stored torque when rotational DOF are
-        integrated, even from their defaults) or the state carries
-        non-default values; dropped columns are rebuilt from defaults.
+        integrated, even from their defaults; diameters for a force that
+        reads them) or the state carries non-default values; dropped
+        columns are rebuilt from defaults.
         """
         state = self._synced_state()
         fields = []
@@ -251,7 +320,8 @@ class Simulation:
                 fields.insert(fields.index("rotation"), "quat")
         if bool((state.charge != 0.0).any()):
             fields.append("charge")
-        if bool((state.diameter != 1.0).any()):
+        need_diam = any(f._needs_diameter for f in self._forces())
+        if need_diam or bool((state.diameter != 1.0).any()):
             fields.append("diameter")
         return tuple(fields)
 
@@ -269,8 +339,9 @@ class Simulation:
     def _ops_fingerprint(self):
         """Structural identity of the operation set.
 
-        Scalars are compared by value, nested objects (variants, filters) by
-        identity; replace the object to change it. Returns ``(fp, refs)``,
+        Scalars are compared by value, nested objects (variants, filters,
+        flow fields) by identity; replace the object to change it. Forces
+        and updaters are compared by identity. Returns ``(fp, refs)``,
         where ``refs`` pins every object whose id() is in ``fp``.
         """
         refs = []
@@ -292,11 +363,13 @@ class Simulation:
         if integ is None:
             return ("none",), ()
         refs.extend(integ.forces)
+        refs.extend(self.operations.updaters)
         fp = (
             self.seed,
             obj_fp(integ),
             tuple(obj_fp(m) for m in integ.methods),
             tuple((type(f).__name__, id(f)) for f in integ.forces),
+            tuple((type(u).__name__, id(u)) for u in self.operations.updaters),
         )
         return fp, tuple(refs)
 
@@ -355,22 +428,55 @@ class Simulation:
         margin = 0.5 * self._grid_spec.buffer
         return max(1, min(50, int(margin / (vmax * dt * safety))))
 
+    def tune_cell_capacity(self, slack: int = 0, safety: float = 1.0):
+        """Right-size the cell capacity and the rebuild interval.
+
+        A melt transient (a commensurate start concentrating particles in a
+        few cells, a lattice heating up) leaves both sized for the
+        transient. After warm-up this sets the interval, and its ceiling,
+        from the fastest particle, and the capacity to the 8-multiple
+        ``slack`` above the measured max cell occupancy; a capacity change
+        drops the dense layout, which the next run rebuilds. An overflow
+        after the tune grows the capacity by one 8-slot quantum
+        (:meth:`_grow_and_rebuild`). A manual call cancels the scheduled
+        tune; trajectories are chunking-reproducible between tunes, not
+        across an explicit one.
+        """
+        self._auto_tuned = True
+        if self._grid_spec is None or self._state is None:
+            return
+        state = self._synced_state()
+        spec = self._grid_spec
+        est = self._interval_from_vmax(state.velocity, safety)
+        if est is not None:
+            # the vmax estimate is also the ceiling: growing past it would
+            # only buy a violation replay
+            self._seg_len = est
+            self._seg_ceiling = est
+            self._clean_quanta = 0
+        cap = self._max_occupancy_cap(state, spec, slack)
+        if cap != spec.cap:
+            self._grid_spec = spec.replace(cap=cap)
+            self._drop_dense()
+
     def _grow_and_rebuild(self, needed: int = 0):
         """Grow the slot capacity until the current configuration fits.
 
-        ``needed`` is the failed chunk's recorded max cell occupancy: the
-        capacity jumps straight past it (plus one 8-slot quantum of melt
-        headroom) before any 1.25x steps.
+        ``needed`` is the failed chunk's recorded max cell occupancy. Before
+        the tune the capacity jumps straight past it (plus one 8-slot
+        quantum of melt headroom) before any 1.25x steps; after the tune the
+        capacity sits one quantum above the equilibrated occupancy, so it
+        grows by one quantum at a time.
         """
         state = self._synced_state()
-        if needed > self._grid_spec.cap:
+        if not self._auto_tuned and needed > self._grid_spec.cap:
             cap = int(math.ceil((needed + 8) / 8.0) * 8)
             self._grid_spec = self._grid_spec.replace(cap=cap)
             self._dense, self._meta = self._densify(state)
             if not bool(self._meta.overflow):
                 return
         for _ in range(8):
-            self._grid_spec = self._grid_spec.grow()
+            self._grid_spec = self._grid_spec.grow(gentle=self._auto_tuned)
             self._dense, self._meta = self._densify(state)
             if not bool(self._meta.overflow):
                 return
@@ -428,6 +534,7 @@ class Simulation:
         spec = self._grid_spec
         integ = self.operations.integrator
         methods = integ.methods if integ is not None else []
+        updaters = self.operations.updaters
         dt = self.dt_ref()
         seed = self.seed
         N_tags = self._state.N
@@ -444,6 +551,9 @@ class Simulation:
             dense = self._set_net(dense, *self._compute_net(dense, meta, t, tbls))
             for m in methods:
                 dense = m.step2(dense, dt, t, seed)
+            for u in updaters:
+                if u.trigger(t):
+                    dense = u._update(dense, t, seed)
         return dense, meta, viol
 
     def run(self, n_steps: int):
@@ -463,10 +573,21 @@ class Simulation:
         remaining = n_steps
         tbls = self._force_tables()
         while remaining > 0:
-            chunk = min(remaining, _MAX_CHUNK)
+            # the scheduled tune fires the first time the absolute timestep
+            # reaches auto_tune_after, so its point does not depend on the
+            # run() chunking
+            auto_pending = not self._auto_tuned and self.auto_tune_after is not None
+            if auto_pending and self._timestep >= self.auto_tune_after:
+                self.tune_cell_capacity()
+                if not self._prepared:
+                    self._prepare()
+                auto_pending = False
+            chunk = min(remaining, self.max_chunk)
+            if auto_pending:
+                chunk = min(chunk, self.auto_tune_after - self._timestep)
             # while the interval adapts, chunks end at quantum boundaries so
             # interval changes land at the same timestep whatever the chunking
-            if self._seg_len < self._seg_ceiling or self._seg_ceiling < 50:
+            if self._seg_adapt and (self._seg_len < self._seg_ceiling or self._seg_ceiling < 50):
                 chunk = min(chunk, _GROW_QUANTUM - self._timestep % _GROW_QUANTUM)
             # align to the absolute rebuild schedule: an unaligned start runs
             # a no-rebuild continuation up to the next schedule point
@@ -535,7 +656,7 @@ class Simulation:
             self._state_stale = True
             self._timestep += chunk
             remaining -= chunk
-            if self._timestep % _GROW_QUANTUM == 0:
+            if self._seg_adapt and self._timestep % _GROW_QUANTUM == 0:
                 self._clean_quanta += 1
                 if self._seg_len < self._seg_ceiling:
                     self._seg_len += 1

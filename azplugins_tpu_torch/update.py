@@ -1,0 +1,152 @@
+"""Updaters: TypeUpdater and ParticleEvaporator.
+
+Port of ``azplugins_tpu/update.py``:
+
+  * ``TypeUpdater`` flips particle types by z-slab membership: particles
+    of ``inside_type``/``outside_type`` become ``inside_type`` when their
+    wrapped z is in [lo, hi), else ``outside_type``.
+  * ``ParticleEvaporator`` retypes up to ``N_evap_max`` "solvent"
+    particles found in the slab to an inert type per firing. The pick is a
+    top-k over per-candidate counter-based random priorities (a uniform
+    subset without replacement), bitwise the reference's: the priority is
+    the particle's Threefry word, and the k smallest are kept in exact
+    integer space, ties to the lower slot as in XLA's ``top_k``.
+
+An updater's ``_update(state, timestep, seed)`` is a pure device function:
+it reads nothing back to the host. The step loop fires it after the step
+with index ``timestep`` when its trigger says so on the host
+(Simulation._run_chunk). Retyping is a masked select, never a resize.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core import rng as _rng
+from .md.trigger import as_trigger
+
+__all__ = ["Updater", "TypeUpdater", "ParticleEvaporator"]
+
+
+def _f32(x: float) -> float:
+    """A bound as the float32 value the reference compares against."""
+    return float(np.float32(x))
+
+
+def _z_bounds(sim) -> tuple[float, float]:
+    Lz = sim._synced_state().box.L[2]
+    return float(-0.5 * Lz), float(0.5 * Lz)
+
+
+class Updater:
+    def __init__(self, trigger):
+        self.trigger = as_trigger(trigger)
+        self._attached = False
+
+    def _attach(self, sim):
+        self._attached = True
+
+    def _update(self, state, timestep, seed):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class TypeUpdater(Updater):
+    def __init__(self, trigger, inside_type: str, outside_type: str, lo: float, hi: float):
+        super().__init__(trigger)
+        self.inside_type = inside_type
+        self.outside_type = outside_type
+        self.lo = float(lo)
+        self.hi = float(hi)
+        if self.lo >= self.hi:
+            raise ValueError("region lo must be below hi")
+
+    def _attach(self, sim):
+        types = sim._particle_types
+        if self.inside_type not in types or self.outside_type not in types:
+            raise ValueError("inside/outside types must exist")
+        if self.inside_type == self.outside_type:
+            raise ValueError("inside and outside types must differ")
+        self._inside_id = types.index(self.inside_type)
+        self._outside_id = types.index(self.outside_type)
+        box_lo, box_hi = _z_bounds(sim)
+        if self.lo < box_lo or self.hi > box_hi:
+            raise ValueError("region must lie inside the global box")
+        super()._attach(sim)
+
+    def _update(self, state, timestep, seed):
+        pos, _ = state.box.wrap(state.position, state.image)
+        z = pos[:, 2]
+        in_region = (z >= _f32(self.lo)) & (z < _f32(self.hi))
+        affected = (state.typeid == self._inside_id) | (state.typeid == self._outside_id)
+        new_typeid = torch.where(
+            affected,
+            torch.where(in_region, self._inside_id, self._outside_id),
+            state.typeid,
+        ).to(torch.int32)
+        return state.replace(typeid=new_typeid)
+
+
+class ParticleEvaporator(Updater):
+    """Evaporate (retype) solvent particles out of a z-slab region."""
+
+    def __init__(
+        self,
+        trigger,
+        solvent_type: str,
+        evaporated_type: str,
+        lo: float,
+        hi: float,
+        N_evap_max: int = 0xFFFFFFF,
+        seed: int | None = None,
+    ):
+        super().__init__(trigger)
+        self.solvent_type = solvent_type
+        self.evaporated_type = evaporated_type
+        self.lo = float(lo)
+        self.hi = float(hi)
+        self.N_evap_max = int(N_evap_max)
+        self.seed = seed  # falls back to the simulation seed
+        if self.lo >= self.hi:
+            raise ValueError("region lo must be below hi")
+
+    def _attach(self, sim):
+        types = sim._particle_types
+        if self.solvent_type not in types or self.evaporated_type not in types:
+            raise ValueError("solvent/evaporated types must exist")
+        if self.solvent_type == self.evaporated_type:
+            raise ValueError("solvent and evaporated types must differ")
+        self._solvent_id = types.index(self.solvent_type)
+        self._evaporated_id = types.index(self.evaporated_type)
+        box_lo, box_hi = _z_bounds(sim)
+        if self.lo < box_lo or self.hi > box_hi:
+            raise ValueError("region must lie inside the global box")
+        self._k = min(self.N_evap_max, int(sim._state.N))
+        super()._attach(sim)
+
+    def _update(self, state, timestep, seed):
+        if self.seed is not None:
+            seed = self.seed
+        pos, _ = state.box.wrap(state.position, state.image)
+        z = pos[:, 2]
+        candidate = (state.typeid == self._solvent_id) & (z >= _f32(self.lo)) & (z < _f32(self.hi))
+
+        if self._k >= state.N:
+            flip = candidate
+        else:
+            # the k smallest priorities, non-candidates last. An int64 key of
+            # (priority, slot) is unique, so the pick is exact and ties go to
+            # the lower slot; an f32 cast would collide mantissas
+            (bits,) = _rng.particle_bits(
+                _rng.Stream.PARTICLE_EVAPORATOR, seed, timestep, state.tag, n_words=1
+            )
+            priority = torch.where(candidate, bits, 0xFFFFFFFF)
+            slot = torch.arange(state.N, dtype=torch.int64, device=state.device)
+            _, pick_idx = torch.topk((priority << 31) | slot, self._k, largest=False,
+                                     sorted=False)
+            pick = torch.zeros_like(candidate)
+            pick[pick_idx] = True
+            n_marked = torch.sum(candidate.to(torch.int32))
+            flip = torch.where(n_marked <= self._k, candidate, pick & candidate)
+        new_typeid = torch.where(flip, self._evaporated_id, state.typeid).to(torch.int32)
+        return state.replace(typeid=new_typeid)

@@ -34,12 +34,21 @@
      bonds + ExpandedYukawa, Langevin);
    - the patchy colloids (BASELINE config 4, 27,000 TwoPatchMorse
      particles, Langevin with NO_SQUISH rotation);
+   - the evaporating droplet (BASELINE config 5, 20,239 particles: a
+     two-type PLJ liquid inside a shrinking SphereArea barrier, an LJ93
+     wall, a ParticleEvaporator firing every 25 steps, Langevin in a
+     parabolic flow);
    - a short run of every other isotropic potential;
-   and checks that every force evaluation went through a kernel and that
-   the result is physical; after the headline, the DPD fluid and the
-   patchy colloids, times their kernel on the path's state at two
-   capacities, in two turns (72 and 48; 40 and the smallest that fits; 16
-   and 32);
+   and checks that every pair-force evaluation went through a kernel and
+   that the result is physical; on each full-size path the capacity tune
+   fires at step 200, and the path prints the capacity and rebuild
+   interval before and after it and the device-busy time a step in the 20
+   steps before it and after the timed steps; after the headline, the DPD
+   fluid, the patchy colloids and the droplet, times their kernel on the
+   path's state at two capacities, in two turns (72 and 48; 40 and the
+   smallest that fits; 16 and 32; the droplet's before and after the
+   tune), and K1 at the droplet's state against its plain version and
+   bound;
 6. prints the kernel summary and, last, the contract line
    {"ok": true, "device": {...}}.
 
@@ -73,6 +82,20 @@ PATCHY = dict(M_d=1.5, M_r=0.05, r_eq=1.0, omega=20.0, alpha=0.4, repulsion=True
 # the patchy path's warm-up steps and its kT band (PERF.md: the kT curve)
 PATCHY_WARM = 8000
 PATCHY_KT_BAND = 0.01
+# the step at which every path's capacity tune fires (Simulation's default)
+TUNE_AT = 200
+# the droplet (bench.py build_droplet): 20,239 particles; an evaporator
+# firing after steps 0, 25, 50, ... retypes 10 each time, so after 3,000
+# steps exactly 1,200 are of type "evaporated"; their kinetic temperature
+# relative to the flow must read 1.0 within DROPLET_KT_BAND (4 sigma of a
+# 5-sample mean over 1,200 x 3 degrees of freedom); no solvent particle
+# lies more than DROPLET_OVERSHOOT beyond the barrier (thermal overshoot
+# sqrt(kT / k) = 0.14)
+DROPLET_N = 20_239
+DROPLET_EVAP_PER_FIRING = 10
+DROPLET_PERIOD = 25
+DROPLET_KT_BAND = 0.1
+DROPLET_OVERSHOOT = 1.0
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -446,6 +469,51 @@ def build_patchy(az, device, n_side=30, a=1.5, seed=2):
         integrate_rotational_dof=True)
     sim.state.thermalize_particle_momenta(kT=0.3)
     return sim, [patchy]
+
+
+def build_droplet(az, device, R0=20.0, a=1.1, seed=7):
+    """BASELINE config 5 (bench.py build_droplet): a lattice droplet of
+    radius 0.93 R0 in a box of 2 R0 + 4; PLJ solvent (epsilon 1, sigma 1,
+    lambda 1, r_cut 2.5, buffer 0.4), an "evaporated" type that interacts
+    with nothing (epsilon 0); a SphericalHarmonicBarrier (k 50) at
+    SphereArea(R0, alpha 0.05); an LJ93 plane wall 0.5 above the box floor;
+    a ParticleEvaporator retyping up to 10 solvent particles of the slab
+    z in [R0/2, L/2) every 25 steps; LangevinFlow kT 1, gamma 1, in a
+    parabolic flow of mean 0.5 across L - 2; dt 0.002."""
+    L = 2 * R0 + 4.0
+    g = np.arange(-R0, R0 + a, a)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = pts[np.linalg.norm(pts, axis=1) < R0 * 0.93]
+    snap = az.Snapshot(N=len(pts))
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["solvent", "evaporated"]
+    snap.particles.position[:] = pts
+    sim = az.Simulation(device=device, seed=seed)
+    sim.create_state_from_snapshot(snap)
+    lj = az.pair.PerturbedLennardJones(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.5)
+    lj.params[("solvent", "solvent")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=1.0)
+    lj.params[("solvent", "evaporated")] = dict(epsilon=0.0, sigma=1.0,
+                                                attraction_scale_factor=0.0)
+    lj.params[("evaporated", "evaporated")] = dict(epsilon=0.0, sigma=1.0,
+                                                   attraction_scale_factor=0.0)
+    barrier = az.external.SphericalHarmonicBarrier(
+        location=az.variant.SphereArea(R0=R0, alpha=0.05))
+    barrier.params["solvent"] = dict(k=50.0, offset=0.0)
+    barrier.params["evaporated"] = dict(k=0.0, offset=0.0)
+    wall = az.external.wall.LJ93(
+        walls=[az.external.wall.Plane(origin=(0, 0, -L / 2 + 0.5), normal=(0, 0, 1))])
+    wall.params["solvent"] = dict(epsilon=1.0, sigma=1.0, r_cut=3.0)
+    wall.params["evaporated"] = dict(epsilon=0.0, sigma=1.0, r_cut=3.0)
+    sim.operations.updaters.append(az.update.ParticleEvaporator(
+        trigger=az.trigger.Periodic(DROPLET_PERIOD), solvent_type="solvent",
+        evaporated_type="evaporated", lo=R0 / 2, hi=L / 2, N_evap_max=DROPLET_EVAP_PER_FIRING))
+    flow = az.flow.ParabolicFlow(mean_velocity=0.5, separation=L - 2.0)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.002,
+        methods=[az.md.methods.LangevinFlow(kT=1.0, flow_field=flow, default_gamma=1.0)],
+        forces=[lj, barrier, wall])
+    sim.state.thermalize_particle_momenta(kT=1.0)
+    return sim, [lj, barrier, wall]
 
 
 def _prepared_dense(sim):
@@ -986,28 +1054,58 @@ def _time_at_caps(az, D, K, sim, forces, caps):
     return timed
 
 
+def _record_tune(sim):
+    """Record the capacity and rebuild interval before and after the
+    capacity tune when the run fires it."""
+    seen = {}
+    tune = sim.tune_cell_capacity
+
+    def recorded(*args, **kwargs):
+        seen.update(t=sim.timestep, cap0=sim._grid_spec.cap, seg0=sim._seg_len,
+                    ceiling0=sim._seg_ceiling)
+        tune(*args, **kwargs)
+        seen.update(cap=sim._grid_spec.cap, seg=sim._seg_len, ceiling=sim._seg_ceiling)
+
+    sim.tune_cell_capacity = recorded
+    return seen
+
+
 def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
              extra_check=None, kT=1.0, kT_band=0.05, caps=()):
     """One main path at full size: warm up (printing the temperatures five
     times on the way), then ``steps`` timed steps with the launch counts set
-    to 0 just before and read just after. ``counts`` maps each kernel name
-    the path must run to a function that reads its count. The translational
-    (and rotational) kinetic temperature must read ``kT`` within
-    ``kT_band`` after the timed steps. Afterwards the pair kernel is timed
-    at each of ``caps`` on the path's state. Returns the counts."""
+    to 0 just before and read just after. The warm-up profiles the 20 steps
+    before the capacity tune at step TUNE_AT and records the capacity and
+    interval on both sides of it. ``counts`` maps each kernel name the path
+    must run to a function that reads its count. The translational (and
+    rotational) kinetic temperature must read ``kT`` within ``kT_band``
+    after the timed steps (``kT=None``: the path checks its own). Afterwards
+    the pair kernel is timed at each of ``caps`` on the path's state
+    (``"tune"``: the capacities before and after the tune). Returns the
+    counts and the simulation."""
     sim, forces = build(az, "cuda")
     thermo = az.compute.ThermodynamicQuantities()
     sim.operations.computes.append(thermo)
+    tuned = _record_tune(sim)
     t0 = time.perf_counter()
+    sim.run(TUNE_AT - 20)
+    pre_ops, pre_busy, _, _ = _profile(sim)
     curve = []
+    chunk = (warm_steps - TUNE_AT) // 5
     for _ in range(5):
-        sim.run(warm_steps // 5)
+        sim.run(chunk)
         curve.append("/".join(f"{x:.4f}" for x in _temperatures(thermo) if x is not None))
     torch.cuda.synchronize()
-    print(f"[{label}] N={sim.state.N_particles} grid {sim._grid_spec}: {warm_steps} warm-up "
+    if tuned.get("t") != TUNE_AT:
+        raise AssertionError(f"{label}: the capacity tune did not fire at step {TUNE_AT}")
+    print(f"[{label}] N={sim.state.N_particles} grid {sim._grid_spec}: {sim.timestep} warm-up "
           f"steps in {time.perf_counter() - t0:.1f} s; kT (translational"
-          f"{'/rotational' if '/' in curve[0] else ''}) every {warm_steps // 5} steps: "
-          f"{', '.join(curve)}", flush=True)
+          f"{'/rotational' if '/' in curve[0] else ''}) every {chunk} steps after step "
+          f"{TUNE_AT}: {', '.join(curve)}", flush=True)
+    print(f"[{label}] tune at step {tuned['t']}: cap {tuned['cap0']} -> {tuned['cap']}, "
+          f"rebuild interval {tuned['seg0']} -> {tuned['seg']} (ceiling {tuned['ceiling0']} -> "
+          f"{tuned['ceiling']}); the 20 steps before it: {pre_ops:.1f} device operations and "
+          f"{pre_busy:.4f} ms device-busy per step", flush=True)
     before = extra_check(sim, "before") if extra_check else None
 
     builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
@@ -1026,7 +1124,7 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
     after = extra_check(sim, "after", before) if extra_check else ""
     kT_trans, kT_rot = _mean_kT(sim, thermo)
     for what, value in (("translational", kT_trans), ("rotational", kT_rot)):
-        if value is not None and abs(value - kT) > kT_band:
+        if kT is not None and value is not None and abs(value - kT) > kT_band:
             raise AssertionError(f"{label}: {what} kinetic temperature {value:.4f} outside "
                                  f"{kT} +- {kT_band}")
     if not 0 < builds < steps:
@@ -1042,19 +1140,116 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
           f"(host wall {wall:.3f} s) on {card}", flush=True)
     print(f"[{label}] launches {launched} for {evals} force evaluations "
           f"({sum(launched.values()) / steps:.3f} kernel launches per step); {builds} grid "
-          f"builds ({steps / max(builds, 1):.1f} steps each), {replays} violation replays",
-          flush=True)
+          f"builds ({steps / max(builds, 1):.1f} steps each), {replays} violation replays; "
+          f"cap {sim._grid_spec.cap}, rebuild interval {sim._seg_len}", flush=True)
     print(f"[{label}] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy "
           f"per step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls "
           f"per step", flush=True)
     rot = f", rotational {kT_rot:.4f}" if kT_rot is not None else ""
-    print(f"[{label}] kinetic temperature: translational {kT_trans:.4f}{rot} (target {kT} +- "
-          f"{kT_band}), energies per particle "
+    target = f"target {kT} +- {kT_band}" if kT is not None else "lab frame, not checked"
+    print(f"[{label}] kinetic temperature: translational {kT_trans:.4f}{rot} ({target}), "
+          f"energies per particle "
           f"{[round(e / sim.state.N_particles, 5) for e in energies]}, pressure {p:.4f}"
           f"{after}; kernel vs plain on this state: {on_state}", flush=True)
+    _busy_at_caps(sim, label, tuned["cap0"])
+    if caps == "tune":
+        caps = (tuned["cap"], tuned["cap0"])
     if caps:
         _time_at_caps(az, D, K, sim, forces, caps)
-    return launched
+    return launched, sim
+
+
+def _busy_at_caps(sim, label, untuned):
+    """Device-busy ms a step at the path's capacity and at the one it had
+    before the tune, on the path's state after its checks, in two turns
+    (tuned, untuned, untuned, tuned): what the tune is worth on the card."""
+    tuned = sim._grid_spec.cap
+    if tuned == untuned:
+        return
+    busy = {tuned: [], untuned: []}
+    for cap in (tuned, untuned, untuned, tuned):
+        sim._synced_state()
+        sim._grid_spec = sim._grid_spec.replace(cap=cap)
+        sim._drop_dense()
+        busy[cap].append(_profile(sim)[:2])
+    print(f"[{label}] device-busy per step, two turns of 20 steps on the path's state: " +
+          "; ".join(f"cap {c} ({'tuned' if c == tuned else 'before the tune'}): "
+                    f"{' and '.join(f'{b:.4f} ms ({o:.1f} operations)' for o, b in busy[c])}"
+                    for c in (tuned, untuned)), flush=True)
+
+
+def _evaporated_after(t: int) -> int:
+    """Particles the droplet's evaporator has retyped after t steps: one
+    firing after each step divisible by the period, 10 each."""
+    return DROPLET_EVAP_PER_FIRING * ((t + DROPLET_PERIOD - 1) // DROPLET_PERIOD)
+
+
+def _droplet_check(sim, when, before=None):
+    """N and the types unchanged but for the evaporated count, exact; no
+    solvent particle beyond the barrier by more than DROPLET_OVERSHOOT;
+    after the timed steps, the evaporated particles' kinetic temperature
+    relative to the flow, m <|v - u(r)|^2> / 3, over 5 samples 100 steps
+    apart."""
+    integ = sim.operations.integrator
+    barrier, method = integ.forces[1], integ.methods[0]
+
+    def read():
+        p = sim.state.get_snapshot().particles
+        if p.N != DROPLET_N or not np.isin(p.typeid, (0, 1)).all():
+            raise AssertionError(f"droplet: N {p.N} or typeids {np.unique(p.typeid)} changed")
+        return p
+
+    p = read()
+    evaporated = int((p.typeid == 1).sum())
+    if evaporated != _evaporated_after(sim.timestep):
+        raise AssertionError(f"droplet: {evaporated} evaporated after {sim.timestep} steps, "
+                             f"not {_evaporated_after(sim.timestep)}")
+    R = barrier.location(sim.timestep)
+    overshoot = float((np.linalg.norm(p.position[p.typeid == 0], axis=1) - R).max())
+    if overshoot > DROPLET_OVERSHOOT:
+        raise AssertionError(f"droplet: a solvent particle lies {overshoot:.3f} beyond the "
+                             f"barrier at R = {R:.4f}")
+    if when == "before":
+        return evaporated, overshoot
+    temps = []
+    for _ in range(5):
+        sim.run(100)
+        p = read()
+        evap = p.typeid == 1
+        u = method.flow_field(torch.as_tensor(p.position[evap])).numpy()
+        rel = p.velocity[evap] - u
+        temps.append(float((p.mass[evap] * (rel * rel).sum(axis=1)).mean() / 3.0))
+    kT_rel = float(np.mean(temps))
+    if abs(kT_rel - 1.0) > DROPLET_KT_BAND:
+        raise AssertionError(f"droplet: evaporated kT relative to the flow {kT_rel:.4f} outside "
+                             f"1.0 +- {DROPLET_KT_BAND}")
+    return (f", evaporated {before[0]} -> {evaporated} (exact), solvent beyond the barrier by "
+            f"at most {before[1]:.4f} -> {overshoot:.4f} (R = {R:.4f}), evaporated kT relative "
+            f"to the flow {kT_rel:.4f} over {int(evap.sum())} particles (samples "
+            f"{', '.join(f'{t:.4f}' for t in temps)})")
+
+
+def time_k1_on_droplet(az, D, PK, sim, lj):
+    """K1 (PLJ force only, T = 2) at the droplet's own state after its run:
+    kernel and plain ms per call, bound and candidate pairs."""
+    dense, spec = sim._dense, sim._grid_spec
+    tbl = lj._device_tables(sim.device)
+    tables = tbl["kernel"]
+    jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
+    ef = az.ops.evaluators.PAIR_POTENTIALS["PerturbedLennardJones"].energy_force
+    ms = _cuda_time_ms(
+        lambda: PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "none"), 50)
+    plain_ms = _cuda_time_ms(
+        lambda: D.dense_pair_force(ef, dense, jb, spec, tbl["params"], tbl["r_cut"], None,
+                                   "none", "force"), 5)
+    pairs = _pairs_inside(D, dense, spec, 2.5)
+    candidates = _candidates(dense, spec)
+    bound_ms, by = _bound(dense, 16, 12, 4 * tables.numel(), pairs,
+                          OPS_PER_PAIR["PerturbedLennardJones"])
+    print(f"[droplet] cell_pair_force[PerturbedLennardJones] at the droplet's state (T = 2, "
+          f"cap {spec.cap}, dims {spec.dims}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
+          f"call (force); bound {bound_ms:.5f} ms ({by}); {candidates} candidate pairs per "
+          f"call, {pairs} unordered pairs inside r_cut", flush=True)
 
 
 def _dpd_momentum(sim, when, before=None):
@@ -1178,29 +1373,40 @@ def main() -> int:
     check_rng(az)
 
     launches = {}
-    # caps: the headline's own 72 and the reference's tuned 48; the DPD
-    # fluid's own 40 and the capacity its occupancy asks for (8 here: grown
-    # to the smallest multiple of 8 that fits); the patchy colloids' own 16
-    # and twice that
-    launches.update(run_path(
-        az, D, K, card, record, "headline", build_headline, 2000, 1000,
-        {"cell_pair_force[PerturbedLennardJones]":
-         lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}, caps=(48, 72)))
-    launches.update(run_path(
-        az, D, K, card, record, "dpd", build_dpd, 2000, 1000,
-        {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum, caps=(8, 40)))
+
+    def count(path):
+        launched, sim = path
+        for name, n in launched.items():
+            launches[name] = launches.get(name, 0) + n
+        return sim
+
+    # caps: the headline's own 72 and its tuned 48; the DPD fluid's own 40
+    # and the capacity its occupancy asks for (8 here: grown to the smallest
+    # multiple of 8 that fits); the patchy colloids' own 16 and twice that;
+    # the droplet's before and after its tune
+    plj = {"cell_pair_force[PerturbedLennardJones]":
+           lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}
+    count(run_path(az, D, K, card, record, "headline", build_headline, 2000, 1000, plj,
+                   caps=(48, 72)))
+    count(run_path(az, D, K, card, record, "dpd", build_dpd, 2000, 1000,
+                   {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum,
+                   caps=(8, 40)))
     # the rods melt over ~8,000 steps, releasing pair energy faster than the
     # thermostat removes it (kT peaked at 1.24 near step 5,000 on an H100;
     # PERF.md), so the polymer warms up for 10,000
-    launches.update(run_path(
-        az, D, K, card, record, "polymer", build_polymer, 10000, 1000,
-        {"cell_pair_force[ExpandedYukawa]":
-         lambda: PK.launches_by_potential.get("ExpandedYukawa", 0)},
-        extra_check=_bond_lengths))
-    launches.update(run_path(
-        az, D, K, card, record, "patchy", build_patchy, PATCHY_WARM, 1000,
-        {"cell_aniso_force": lambda: AK.launches}, extra_check=_unit_quaternions,
-        kT=0.3, kT_band=PATCHY_KT_BAND, caps=(16, 32)))
+    count(run_path(az, D, K, card, record, "polymer", build_polymer, 10000, 1000,
+                   {"cell_pair_force[ExpandedYukawa]":
+                    lambda: PK.launches_by_potential.get("ExpandedYukawa", 0)},
+                   extra_check=_bond_lengths))
+    count(run_path(az, D, K, card, record, "patchy", build_patchy, PATCHY_WARM, 1000,
+                   {"cell_aniso_force": lambda: AK.launches}, extra_check=_unit_quaternions,
+                   kT=0.3, kT_band=PATCHY_KT_BAND, caps=(16, 32)))
+    # the droplet's lab-frame temperature contains the flow: its own check
+    # reads the evaporated particles' temperature relative to it
+    droplet = count(run_path(az, D, K, card, record, "droplet", build_droplet, 2000, 1000, plj,
+                             extra_check=_droplet_check, kT=None, caps="tune"))
+    time_k1_on_droplet(az, D, PK, droplet, droplet.operations.integrator.forces[0])
+    del droplet
     for pot, n in run_potential_sweep(az, K).items():
         launches[f"cell_pair_force[{pot}]"] = n
 

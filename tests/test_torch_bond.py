@@ -157,7 +157,7 @@ def test_melt_one_step_matches_reference():
     turns that into force differences above 2e-5 of max|f|."""
     rsim, rb, rp, rth = _melt(ref)
     psim, pb, pp, pth = _melt(port)
-    rsim.auto_tune_after = None  # the capacity auto-tune is not ported yet
+    rsim.auto_tune_after = None  # these runs stop short of the tune point anyway
     rsim.run(0)
     psim.run(0)
     for pf, rf in ((pb, rb), (pp, rp)):
