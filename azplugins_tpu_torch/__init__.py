@@ -7,7 +7,9 @@ the ExpandedYukawa polymer melt and the rest of the plugin's set), the
 anisotropic TwoPatchMorse with rotational dynamics, bonds, the DPD
 thermostat, harmonic barriers and wall potentials under NVE, Langevin or
 Brownian dynamics (with flow fields) on the dense cell grid, the type
-updaters (the evaporating droplet) and the capacity tune, with
+updaters (the evaporating droplet), the capacity tune, an MPCD (SRD)
+solvent with its collisional coupling to the MD particles, and the
+velocity computes and binning, with
 every pair force on CUDA devices in a hand-written kernel
 (``csrc/cell_pair_force.cu``, ``csrc/cell_dpd_force.cu``,
 ``csrc/cell_aniso_force.cu``). A Simulation runs on the GPU unless it is
@@ -36,7 +38,7 @@ Quick start::
     sim.run(1000)
 """
 
-from . import compute, external, flow, logging, md, ops, update
+from . import compute, external, flow, logging, md, mpcd, ops, update
 from .core import Box, Snapshot, State, variant
 from .md import bond, filter, pair, trigger  # noqa: A004 - mirrors hoomd.filter
 from .simulation import Operations, Simulation
@@ -54,6 +56,7 @@ __all__ = [
     "flow",
     "logging",
     "md",
+    "mpcd",
     "ops",
     "pair",
     "trigger",

@@ -1,12 +1,14 @@
-"""Computes: thermodynamic quantities of a particle group.
+"""Computes: centre-of-mass velocity, binned velocity fields, thermo.
 
-Port of ``ThermodynamicQuantities`` from ``azplugins_tpu/compute.py``
-(translational and rotational quantities; the velocity computes come with
-ROADMAP slice 12). Quantities are pull-path observables: each access
-reduces the current state on its device.
+Port of ``azplugins_tpu/compute.py``. Quantities are pull-path
+observables: each access reduces the current state on its device. With
+``include_mpcd_particles`` the velocity computes add the MPCD solvent
+stream (``sim._mpcd``) to the group's sums.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -14,8 +16,16 @@ import torch
 from .logging import log
 from .md import rotation as R
 from .md.filter import All, ParticleFilter
+from .ops.binning import bin_particles, cartesian_coords, cylindrical_coords
 
-__all__ = ["Compute", "ThermodynamicQuantities"]
+__all__ = [
+    "Compute",
+    "VelocityCompute",
+    "VelocityFieldCompute",
+    "CartesianVelocityFieldCompute",
+    "CylindricalVelocityFieldCompute",
+    "ThermodynamicQuantities",
+]
 
 
 class Compute:
@@ -30,6 +40,136 @@ class Compute:
     def _require_attached(self, what: str):
         if not self._attached:
             raise RuntimeError(f"{what} is not available before attaching (run sim.run(0))")
+
+
+class _GroupCompute(Compute):
+    """A compute over a filtered group, optionally with the MPCD stream.
+
+    ``filter=None`` selects no MD particle: with ``include_mpcd_particles``
+    that is the solvent alone.
+    """
+
+    def __init__(self, filter: ParticleFilter | None = None, include_mpcd_particles=False):
+        super().__init__()
+        self.filter = filter
+        self.include_mpcd_particles = bool(include_mpcd_particles)
+        self._mask = None
+
+    def _attach(self, sim):
+        super()._attach(sim)
+        if self.include_mpcd_particles and sim._mpcd is None:
+            raise ValueError(
+                "include_mpcd_particles=True but the snapshot carried no "
+                "MPCD particles (snapshot.mpcd)"
+            )
+        typeids = sim._synced_state().typeid.cpu().numpy()
+        if self.filter is None:
+            self._mask = torch.zeros(typeids.shape[0], dtype=torch.bool, device=sim.device)
+        else:
+            self._mask = torch.as_tensor(
+                self.filter.mask(typeids, sim._particle_types), device=sim.device
+            )
+
+
+class VelocityCompute(_GroupCompute):
+    """Centre-of-mass velocity of a particle group."""
+
+    @log(category="sequence", requires_run=True)
+    def velocity(self):
+        """Centre-of-mass velocity of the group; with
+        ``include_mpcd_particles`` the MPCD solvent joins the momentum and
+        mass sums."""
+        self._require_attached("velocity")
+        state = self._sim._synced_state()
+        m = torch.where(self._mask, state.mass, 0.0)
+        mom = torch.sum(state.velocity * m[:, None], dim=0)
+        mtot = torch.sum(m)
+        if self.include_mpcd_particles:
+            mpcd = self._sim._mpcd
+            mom = mom + mpcd["mass"] * torch.sum(mpcd["velocity"], dim=0)
+            mtot = mtot + mpcd["mass"] * mpcd["velocity"].shape[0]
+        return (mom / torch.clamp_min(mtot, 1e-38)).cpu().numpy()
+
+
+class VelocityFieldCompute(_GroupCompute):
+    """Mass-averaged velocity field on a grid of up to three axes; use a
+    derived type."""
+
+    _coord_fn = None
+
+    def __init__(self, num_bins, lower_bounds, upper_bounds, filter=None,
+                 include_mpcd_particles=False):
+        if type(self)._coord_fn is None:
+            raise TypeError(
+                "VelocityFieldCompute is abstract; use "
+                "CartesianVelocityFieldCompute or "
+                "CylindricalVelocityFieldCompute"
+            )
+        super().__init__(filter, include_mpcd_particles)
+        self.num_bins = tuple(int(b) for b in num_bins)
+        self.lower_bounds = tuple(float(b) for b in lower_bounds)
+        self.upper_bounds = tuple(float(b) for b in upper_bounds)
+        if len(self.num_bins) != 3:
+            raise ValueError("num_bins must have 3 entries")
+
+    @property
+    def coordinates(self):
+        """Bin centre coordinates (compact shape, as the reference's)."""
+        coords = []
+        shape = []
+        for num, lo, hi in zip(self.num_bins, self.lower_bounds, self.upper_bounds):
+            if num > 0:
+                x, dx = np.linspace(lo, hi, num, endpoint=False, retstep=True)
+                coords.append(x + 0.5 * dx)
+                shape.append(num)
+        if len(shape) == 0:
+            return None
+        if len(shape) > 1:
+            shape.append(len(shape))
+        return np.reshape(list(itertools.product(*coords)), shape)
+
+    def _compact_shape(self):
+        return tuple(b for b in self.num_bins if b > 0)
+
+    def _grids(self, position, velocity, mass, select, box):
+        pos, _ = box.wrap(position)
+        coords, vel = type(self)._coord_fn(pos, velocity)
+        return bin_particles(coords, vel, mass, select, self.num_bins, self.lower_bounds,
+                             self.upper_bounds)
+
+    @log(category="object", requires_run=True)
+    def velocities(self):
+        """Mass-averaged velocity per bin (compact shape + vector axis)."""
+        self._require_attached("velocities")
+        state = self._sim._synced_state()
+        mass_grid, mom_grid = self._grids(state.position, state.velocity, state.mass,
+                                          self._mask, state.box)
+        if self.include_mpcd_particles:
+            mpcd = self._sim._mpcd
+            pos = mpcd["position"]
+            n = pos.shape[0]
+            mg, pg = self._grids(pos, mpcd["velocity"],
+                                 torch.full((n,), mpcd["mass"], device=pos.device),
+                                 torch.ones(n, dtype=torch.bool, device=pos.device), state.box)
+            mass_grid = mass_grid + mg
+            mom_grid = mom_grid + pg
+        filled = mass_grid > 0
+        m_safe = torch.where(filled, mass_grid, 1.0)
+        v = torch.where(filled[:, None], mom_grid / m_safe[:, None], 0.0)
+        return v.cpu().numpy().reshape((*self._compact_shape(), 3))
+
+
+class CartesianVelocityFieldCompute(VelocityFieldCompute):
+    """Velocity field binned in (x, y, z)."""
+
+    _coord_fn = staticmethod(cartesian_coords)
+
+
+class CylindricalVelocityFieldCompute(VelocityFieldCompute):
+    """Velocity field binned in (r, theta, z), the velocity in the
+    (r, theta, z) basis."""
+
+    _coord_fn = staticmethod(cylindrical_coords)
 
 
 class ThermodynamicQuantities(Compute):

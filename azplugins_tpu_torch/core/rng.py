@@ -4,6 +4,17 @@ Port of ``azplugins_tpu/core/rng.py``: a vectorised Threefry-2x32 keyed on
 (stream id, seed, timestep) with per-particle or per-pair counters, bitwise
 equal to the reference on every device.
 
+The MPCD collision (``mpcd.SRD``) draws through ``jax.random`` in the
+reference, not through these streams; ``jax_key``, ``jax_fold_in``,
+``jax_split``, ``jax_uniform_host`` and ``jax_normal`` rebuild those draws
+from the same Threefry, as ``jax.random`` derives them with
+``jax_threefry_partitionable`` on (JAX's default since 0.5): ``fold_in(k,
+d)`` hashes the counter pair ``(0, d)`` under ``k``; ``split`` and the
+random bits hash the pairs ``(i >> 32, i & 0xFFFFFFFF)`` over the row-major
+index ``i`` of the shape, a 32-bit word being ``x0 ^ x1``; ``uniform`` fills
+the mantissa, and ``normal`` is ``sqrt(2) * erfinv(u)`` with ``u`` uniform in
+``(-1, 1)`` and XLA's float32 ``ErfInv`` polynomial.
+
 PyTorch has no usable unsigned 32-bit arithmetic (``torch.uint32`` lacks
 add, shifts and ``minimum`` on the CPU), so the words travel as int64
 tensors holding values in [0, 2**32) and every add is masked back to 32
@@ -12,6 +23,7 @@ bits. Keys and the timestep are Python ints, formed on the host.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -22,6 +34,12 @@ __all__ = [
     "pair_uniform",
     "particle_uniform3",
     "particle_bits",
+    "jax_key",
+    "jax_fold_in",
+    "jax_split",
+    "jax_uniform_host",
+    "jax_normal",
+    "xla_erfinv",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -58,6 +76,11 @@ def _u32(x, like: torch.Tensor | None = None, device=None) -> torch.Tensor:
     return torch.as_tensor(int(x) & _M32, dtype=torch.int64, device=dev)
 
 
+def _word(x):
+    """A counter read modulo 2**32: an int stays an int (no device scalar)."""
+    return _u32(x) if isinstance(x, torch.Tensor) else int(x) & _M32
+
+
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _M32
 
@@ -66,15 +89,15 @@ def threefry2x32(k0, k1, c0, c1, rounds: int = 20):
     """Threefry-2x32 block cipher (random123 round and injection schedule).
 
     The key words ``k0``/``k1`` are Python ints; the counters are tensors of
-    any integer dtype (or ints), read modulo 2**32 and broadcast together.
-    Returns two int64 tensors holding uint32 values. A key injection follows
-    every 4th round, never a trailing partial group.
+    any integer dtype, or ints, read modulo 2**32 and broadcast together.
+    Returns two int64 tensors holding uint32 values (two ints when both
+    counters are ints). A key injection follows every 4th round, never a
+    trailing partial group.
     """
     k0 = int(k0) & _M32
     k1 = int(k1) & _M32
-    like = c0 if isinstance(c0, torch.Tensor) else c1
-    x0 = (_u32(c0, like) + k0) & _M32
-    x1 = (_u32(c1, like) + k1) & _M32
+    x0 = (_word(c0) + k0) & _M32
+    x1 = (_word(c1) + k1) & _M32
     k2 = k0 ^ k1 ^ _PARITY
     ks = (k0, k1, k2)
     for i in range(rounds):
@@ -144,3 +167,68 @@ def particle_uniform3(stream: int, seed, timestep, tag, low=-1.0, high=1.0) -> t
         ],
         dim=-1,
     )
+
+
+# -- jax.random's derivation (partitionable Threefry) ------------------------
+# XLA's float32 ErfInv (Giles' approximation), coefficients from the highest
+# degree down, for w = -log1p(-x^2) below 5 and at or above it
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+# normal's uniform interval: (nextafter(-1, 0), 1), and its width in float32
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+_NORMAL_WIDTH = np.float32(1.0) - _NORMAL_LO
+
+
+def jax_key(seed: int) -> tuple[int, int]:
+    """``jax.random.key(seed)`` for a 32-bit seed: the words (0, seed)."""
+    return 0, int(seed) & _M32
+
+
+def jax_fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(key, data)``: the counter pair (0, data) hashed."""
+    return threefry2x32(key[0], key[1], 0, data)
+
+
+def jax_split(key: tuple[int, int], n: int) -> list[tuple[int, int]]:
+    """``jax.random.split(key, n)``: key i hashes the counter pair (0, i)."""
+    return [threefry2x32(key[0], key[1], 0, i) for i in range(n)]
+
+
+def jax_uniform_host(key: tuple[int, int], n: int) -> np.ndarray:
+    """``jax.random.uniform(key, (n,), float32)`` in [0, 1), on the host:
+    numpy float32, for the few draws the host needs (a grid shift)."""
+    words = []
+    for i in range(n):
+        x0, x1 = threefry2x32(key[0], key[1], 0, i)
+        words.append(x0 ^ x1)
+    bits = (np.asarray(words, dtype=np.uint32) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return np.maximum(np.float32(0.0), bits.view(np.float32) - np.float32(1.0))
+
+
+def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
+    """Inverse error function in XLA's float32 form (its ``ErfInv``), on
+    the tensor's device: ``torch.erfinv`` is another approximation."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, c_lt, c_ge) + p * w
+    return torch.where(x.abs() == 1.0, x * float(np.finfo(np.float32).max), p * x)
+
+
+def jax_normal(key: tuple[int, int], shape: tuple[int, ...], device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` on ``device``: the words
+    and the uniforms bitwise; the erfinv within a few ulp of XLA's (the
+    log1p and the polynomial's rounding are the device's own)."""
+    n = int(np.prod(shape))
+    if n >= 2**32:
+        raise ValueError("jax_normal: more than 2**32 draws need the high counter word")
+    x0, x1 = threefry2x32(key[0], key[1], 0, torch.arange(n, dtype=torch.int64, device=device))
+    word = ((x0 ^ x1) >> 9) | 0x3F800000
+    f = word.to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp_min(f * float(_NORMAL_WIDTH) + float(_NORMAL_LO), float(_NORMAL_LO))
+    return (_SQRT2_F32 * xla_erfinv(u)).reshape(shape)

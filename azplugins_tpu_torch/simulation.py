@@ -2,8 +2,9 @@
 
 Port of ``azplugins_tpu/simulation.py`` (state management, attach, the
 dense layout, the step loop with its rebuild schedule, transactional
-replays, updaters and the capacity tune, and the force observables;
-writers, MPCD and spatial decomposition are later slices). Pair, DPD,
+replays, updaters, the capacity tune, the MPCD solvent stream and its
+collisional coupling, and the force observables; writers and spatial
+decomposition are later slices). Pair, DPD,
 anisotropic and bond forces all take the dense state and the tag->slot
 map; a run without pair forces keeps tag order, with the identity map.
 With ``integrate_rotational_dof``, ``net_torque`` is set every step, beside
@@ -20,6 +21,15 @@ rebuilt from the slots only when something reads it. Triggers are
 evaluated on the host from the timestep, and an updater is a pure device
 function of (state, timestep, seed), so a firing neither splits the chunk
 nor waits for the device; a replayed chunk re-applies the same firings.
+
+MPCD. ``snapshot.mpcd`` becomes the solvent stream ``_mpcd`` (position,
+velocity, typeid, mass, types, and the SRD anchor once it streams). With
+``mpcd_dynamics`` set, each accepted chunk advances it (``SRD._advance``);
+a replayed chunk never does. A ``mpcd.CollisionCoupling`` updater applies
+the joint solvent-solute collision inside the chunk, after the step its
+trigger names, with the solvent's anchor carried through the chunk and
+adopted only when the chunk is accepted, so a replay starts again from the
+untouched stream.
 
 Rebuild control. The neighbour grid is rebuilt on the absolute schedule
 ``t % seg_len == 0``; in between, every step only *checks* the Verlet
@@ -115,7 +125,16 @@ class _StateView:
 
     def get_snapshot(self) -> Snapshot:
         sim = self._sim
-        return state_to_snapshot(sim._synced_state(), sim._particle_types, sim._bond_types)
+        snap = state_to_snapshot(sim._synced_state(), sim._particle_types, sim._bond_types)
+        mpcd = sim._mpcd
+        if mpcd is not None:
+            snap.mpcd.resize(mpcd["position"].shape[0])
+            snap.mpcd.position[:] = mpcd["position"].cpu().numpy()
+            snap.mpcd.velocity[:] = mpcd["velocity"].cpu().numpy()
+            snap.mpcd.typeid[:] = mpcd["typeid"].cpu().numpy()
+            snap.mpcd.mass = mpcd["mass"]
+            snap.mpcd.types = list(mpcd["types"])
+        return snap
 
     def set_snapshot(self, snapshot: Snapshot):
         self._sim._set_snapshot(snapshot)
@@ -181,6 +200,12 @@ class Simulation:
         # force per step, replayed steps included)
         self.viol_replays = 0
         self.force_evaluations = 0
+        # the MPCD solvent stream (snapshot.mpcd) and its dynamics
+        # (mpcd.SRD), which advances it beside the MD trajectory
+        self._mpcd: dict | None = None
+        self.mpcd_dynamics = None
+        self._coupling = None  # the mpcd.CollisionCoupling updater of this run
+        self._warned_divisor_collapse = False
 
     # -- state management ------------------------------------------------
     def create_state_from_snapshot(self, snapshot: Snapshot):
@@ -192,6 +217,19 @@ class Simulation:
         self._state, self._particle_types, self._bond_types = state_from_snapshot(
             snapshot, self.device
         )
+        mpcd = getattr(snapshot, "mpcd", None)
+        if mpcd is not None and mpcd.N > 0:
+            self._mpcd = {
+                "position": torch.as_tensor(np.asarray(mpcd.position, np.float32),
+                                            device=self.device),
+                "velocity": torch.as_tensor(np.asarray(mpcd.velocity, np.float32),
+                                            device=self.device),
+                "typeid": torch.as_tensor(np.asarray(mpcd.typeid, np.int32), device=self.device),
+                "mass": float(mpcd.mass),
+                "types": list(mpcd.types),
+            }
+        else:
+            self._mpcd = None
         self._drop_dense()
         self._invalidate()
 
@@ -523,18 +561,25 @@ class Simulation:
 
     # -- running -------------------------------------------------------------
     def _run_chunk(self, dense: State, meta: D.GridMeta, t0: int, n_steps: int,
-                   seg_len: int, tbls, rebin_first: bool = True):
+                   seg_len: int, tbls, rebin_first: bool = True, solv=None):
         """Run ``n_steps`` steps from timestep ``t0``; no host synchronisation.
 
         With ``rebin_first`` (a chunk that starts on the rebuild schedule),
         the grid rebuilds before chunk-relative steps 0, seg_len, 2*seg_len,
         ...; otherwise the chunk continues the previous chunk's segment.
-        Returns ``(dense, meta, violated)`` with ``violated`` a device bool.
+        With an MPCD coupling, ``solv`` is the solvent's anchor ``(position,
+        velocity, t_a)``; the joint collision after step t (when the
+        coupling's trigger holds at t, at MD clock t + 1) moves it.
+        Returns ``(dense, meta, violated, solv)`` with ``violated`` a device
+        bool.
         """
         spec = self._grid_spec
         integ = self.operations.integrator
         methods = integ.methods if integ is not None else []
-        updaters = self.operations.updaters
+        updaters = [u for u in self.operations.updaters
+                    if not getattr(u, "_updates_mpcd", False)]
+        coupling = self._coupling
+        mass_s = self._mpcd["mass"] if coupling is not None else None
         dt = self.dt_ref()
         seed = self.seed
         N_tags = self._state.N
@@ -554,7 +599,52 @@ class Simulation:
             for u in updaters:
                 if u.trigger(t):
                     dense = u._update(dense, t, seed)
-        return dense, meta, viol
+            if coupling is not None and coupling.trigger(t):
+                dense, solv = coupling._collide(dense, solv, t + 1, seed, mass_s)
+        return dense, meta, viol, solv
+
+    def _find_coupling(self):
+        """The MPCD coupling updater (at most one) and whether it keeps its
+        default trigger: collisions at MD clocks divisible by the period,
+        on which the rebuild interval is snapped to a divisor."""
+        from .md.trigger import Periodic
+
+        couplings = [u for u in self.operations.updaters if getattr(u, "_updates_mpcd", False)]
+        if len(couplings) > 1:
+            raise ValueError("only one MPCD coupling updater is supported")
+        coupling = couplings[0] if couplings else None
+        if coupling is not None:
+            trig = coupling.trigger
+            coupling._ingraph = bool(
+                self._mpcd is not None
+                and type(trig) is Periodic
+                and trig.period == coupling.srd.period
+                and trig.phase == coupling.srd.period - 1
+            )
+        return coupling
+
+    def _snap_to_period(self, seg_base: int, P: int) -> int:
+        """The rebuild interval snapped down to a divisor of the collision
+        period P, so every collision clock is a rebuild point and the
+        rebuild schedule is the reference's; warns once when that more than
+        halves it."""
+        while P % seg_base != 0:
+            seg_base -= 1
+        if seg_base * 2 <= self._seg_len and not self._warned_divisor_collapse:
+            # a period with no divisor near the adapted interval (a prime
+            # period) snaps to a tiny divisor: near per-step rebuilds
+            self._warned_divisor_collapse = True
+            warnings.warn(
+                f"in-graph MPCD coupling: collision period {P} has "
+                f"no divisor near the adapted rebuild interval "
+                f"{self._seg_len}, so rebuilds snap to every "
+                f"{seg_base} step(s). Choose a collision period "
+                "with divisors near the natural rebuild interval "
+                "(or a composite period) to avoid the extra "
+                "rebuild cost.",
+                stacklevel=3,
+            )
+        return seg_base
 
     def run(self, n_steps: int):
         n_steps = int(n_steps)
@@ -570,6 +660,9 @@ class Simulation:
             self._prepare()
         for c in self.operations.computes:
             c._attach(self)
+        self._coupling = self._find_coupling()
+        if self._mpcd is not None and self.mpcd_dynamics is not None:
+            self.mpcd_dynamics._ensure_built(self._state.box, self.seed)
         remaining = n_steps
         tbls = self._force_tables()
         while remaining > 0:
@@ -592,6 +685,8 @@ class Simulation:
             # align to the absolute rebuild schedule: an unaligned start runs
             # a no-rebuild continuation up to the next schedule point
             seg_base = self._seg_len
+            if self._coupling is not None and self._coupling._ingraph:
+                seg_base = self._snap_to_period(seg_base, self._coupling.srd.period)
             off = self._timestep % seg_base
             rebin_first = off == 0
             if off:
@@ -603,9 +698,13 @@ class Simulation:
             elif not off:
                 self._realign = False
 
+            solv = None
+            if self._coupling is not None:
+                solv = self._mpcd.get("_srd_anchor") or (
+                    self._mpcd["position"], self._mpcd["velocity"], self._timestep)
             backup_dense, backup_meta = self._dense, self._meta
-            dense, meta, violated = self._run_chunk(
-                backup_dense, backup_meta, self._timestep, chunk, seg_arg, tbls, rebin_first
+            dense, meta, violated, solv = self._run_chunk(
+                backup_dense, backup_meta, self._timestep, chunk, seg_arg, tbls, rebin_first, solv
             )
             # the one host synchronisation of the chunk
             overflow, violated, max_occ = torch.stack(
@@ -656,6 +755,16 @@ class Simulation:
             self._state_stale = True
             self._timestep += chunk
             remaining -= chunk
+            if solv is not None:
+                # the chunk's joint collisions moved the solvent's anchor
+                self._mpcd = {**self._mpcd, "position": solv[0], "velocity": solv[1],
+                              "_srd_anchor": solv}
+            if self._mpcd is not None and self.mpcd_dynamics is not None:
+                # advance the stream over the accepted chunk only (a replay
+                # must not advance it twice); collisions key on the absolute
+                # timestep, so this does not depend on the chunking
+                self._mpcd = self.mpcd_dynamics._advance(
+                    self._mpcd, self._state.box, self._timestep - chunk, self._timestep, self.seed)
             if self._seg_adapt and self._timestep % _GROW_QUANTUM == 0:
                 self._clean_quanta += 1
                 if self._seg_len < self._seg_ceiling:

@@ -39,6 +39,15 @@
      wall, a ParticleEvaporator firing every 25 steps, Langevin in a
      parabolic flow);
    - a short run of every other isotropic potential;
+   - colloid hydrodynamics (the JAX package's bench, bench.py:510-569):
+     2,744 WCA colloids of mass 5 in a 163,840-particle SRD solvent driven
+     by a body force, coupled through the joint collision every 20 steps,
+     warmed for 260 steps (the tune at step 150), then 400 timed steps;
+   - the SRD Poiseuille slit (examples/mpcd_poiseuille.py at full size:
+     40,000 solvent between no-slip plates, 3,000 steps, the profile read
+     with CartesianVelocityFieldCompute over 16 bins);
+   - pure SRD throughput (bench.py:470-507): 262,144 solvent, a collision
+     every step, 500 steps;
    and checks that every pair-force evaluation went through a kernel and
    that the result is physical; on each full-size path the capacity tune
    fires at step 200, and the path prints the capacity and rebuild
@@ -47,8 +56,9 @@
    fluid, the patchy colloids and the droplet, times their kernel on the
    path's state at two capacities, in two turns (72 and 48; 40 and the
    smallest that fits; 16 and 32; the droplet's before and after the
-   tune), and K1 at the droplet's state against its plain version and
-   bound;
+   tune), and K1 at the droplet's state (K1' at the colloids') against its
+   plain version and bound; the colloid path also times one joint collision
+   and prints whether two identical colloid runs agree bitwise;
 6. prints the kernel summary and, last, the contract line
    {"ok": true, "device": {...}}.
 
@@ -96,6 +106,23 @@ DROPLET_EVAP_PER_FIRING = 10
 DROPLET_PERIOD = 25
 DROPLET_KT_BAND = 0.1
 DROPLET_OVERSHOOT = 1.0
+# colloid hydrodynamics (bench.py bench_mpcd_coupled): the tune fires at
+# step 150, 260 warm-up steps (13 collisions), 400 timed; the solvent's kT
+# relative to its mean velocity within COLLOID_KT_BAND of 1 (the thermostat
+# sets each cell's relative kinetic energy); total momentum within
+# COLLOID_P_BAND * m_s N_s of the body force's impulse
+COLLOID_TUNE_AT = 150
+COLLOID_WARM = 260
+COLLOID_STEPS = 400
+COLLOID_KT_BAND = 0.03
+COLLOID_P_BAND = 1e-4
+# the Poiseuille slit (examples/mpcd_poiseuille.py) and pure SRD (bench.py
+# bench_mpcd): steps and limits
+POISEUILLE_STEPS = 3000
+POISEUILLE_BINS = 16
+SRD_WARM = 50
+SRD_STEPS = 430
+SRD_KT_BAND = 0.02
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -514,6 +541,79 @@ def build_droplet(az, device, R0=20.0, a=1.1, seed=7):
         forces=[lj, barrier, wall])
     sim.state.thermalize_particle_momenta(kT=1.0)
     return sim, [lj, barrier, wall]
+
+
+def build_colloid(az, device, L=32.0, n=14):
+    """Colloid hydrodynamics (bench.py bench_mpcd_coupled): n^3 = 2,744 LJ
+    WCA colloids (epsilon 1, sigma 1, r_cut 2^(1/6), shift, buffer 0.4) of
+    mass 5 on a lattice, at rest, in 5 L^3 = 163,840 SRD solvent particles
+    (period 20, angle 130, kT 1, body force (0.02, 0, 0)) coupled through
+    the joint collision; ConstantVolume, dt 0.005; rng seed 9, sim seed 11."""
+    rng = np.random.default_rng(9)
+    N_s = int(5 * L**3)
+    N_c = n**3
+    snap = az.Snapshot(N=N_c, mpcd_N=N_s)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["colloid"]
+    x = (np.arange(n) + 0.5) * (L / n) - L / 2
+    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    snap.particles.mass[:] = 5.0
+    snap.mpcd.position[:] = (rng.random((N_s, 3)) - 0.5) * L
+    snap.mpcd.velocity[:] = rng.normal(0, 1.0, (N_s, 3))
+    snap.mpcd.velocity[:] -= snap.mpcd.velocity.mean(axis=0)
+    sim = az.Simulation(device=device, seed=11)
+    sim.create_state_from_snapshot(snap)
+    lj = az.pair.LJ(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.0 ** (1 / 6),
+                    mode="shift")
+    lj.params[("colloid", "colloid")] = dict(epsilon=1.0, sigma=1.0)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.005, methods=[az.md.methods.ConstantVolume()], forces=[lj])
+    srd = az.mpcd.SRD(dt=0.005, period=20, angle=130.0, cell_size=1.0, kT=1.0,
+                      body_force=(0.02, 0.0, 0.0))
+    sim.mpcd_dynamics = srd
+    sim.operations.updaters.append(az.mpcd.CollisionCoupling(srd))
+    sim.auto_tune_after = COLLOID_TUNE_AT
+    return sim, [lj]
+
+
+def build_poiseuille(az, device, N=40_000, L=16.0):
+    """examples/mpcd_poiseuille.py at full size: an SRD solvent between
+    no-slip plates at z = +-L/2 (period 5, angle 130, kT 1, body force
+    (0.03, 0, 0)), two idle MD particles, ConstantVolume, dt 0.02."""
+    rng = np.random.default_rng(12)
+    snap = az.Snapshot(N=2, mpcd_N=N)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    snap.particles.position[:] = [[-1, 0, 0], [1, 0, 0]]
+    snap.mpcd.position[:] = (rng.random((N, 3)) - 0.5) * np.asarray([L, L, 0.98 * L])
+    snap.mpcd.velocity[:] = rng.normal(0, 1.0, (N, 3))
+    sim = az.Simulation(device=device, seed=4)
+    sim.create_state_from_snapshot(snap)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.02, methods=[az.md.methods.ConstantVolume()], forces=[])
+    sim.mpcd_dynamics = az.mpcd.SRD(dt=0.02, period=5, angle=130.0, cell_size=1.0, kT=1.0,
+                                    body_force=(0.03, 0.0, 0.0), plates=("z", L))
+    return sim
+
+
+def build_srd(az, device, n=64):
+    """Pure SRD throughput (bench.py bench_mpcd): n^3 = 262,144 solvent at
+    one particle a cell, a collision every step (period 1, kT 1), two idle
+    MD particles, dt 0.02."""
+    rng = np.random.default_rng(3)
+    N, L = n**3, float(n)
+    snap = az.Snapshot(N=2, mpcd_N=N)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    snap.particles.position[:] = [[-1, 0, 0], [1, 0, 0]]
+    snap.mpcd.position[:] = (rng.random((N, 3)) - 0.5) * L
+    snap.mpcd.velocity[:] = rng.normal(0, 1.0, (N, 3))
+    sim = az.Simulation(device=device, seed=5)
+    sim.create_state_from_snapshot(snap)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.02, methods=[az.md.methods.ConstantVolume()], forces=[])
+    sim.mpcd_dynamics = az.mpcd.SRD(dt=0.02, period=1, cell_size=1.0, kT=1.0)
+    return sim
 
 
 def _prepared_dense(sim):
@@ -954,17 +1054,22 @@ def _profile(sim, steps=20):
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
-    ops = busy_us = htod = 0
+    ops, busy_ms = _device_work(prof)
+    htod = sum(e.count for e in prof.key_averages() if e.key.startswith("Memcpy HtoD"))
+    return ops / steps, busy_ms / steps, htod / steps, syncs / steps
+
+
+def _device_work(prof):
+    """(device operations, device-busy ms) in a torch.profiler trace."""
+    ops = busy_us = 0
     for e in prof.key_averages():
-        if e.key.startswith("Memcpy HtoD"):
-            htod += e.count
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             ops += e.count
             busy_us += us
-    return ops / steps, busy_us / 1000.0 / steps, htod / steps, syncs / steps
+    return ops, busy_us / 1000.0
 
 
 def _kernels_on_state(az, D, K, sim, forces, record):
@@ -1229,29 +1334,6 @@ def _droplet_check(sim, when, before=None):
             f"{', '.join(f'{t:.4f}' for t in temps)})")
 
 
-def time_k1_on_droplet(az, D, PK, sim, lj):
-    """K1 (PLJ force only, T = 2) at the droplet's own state after its run:
-    kernel and plain ms per call, bound and candidate pairs."""
-    dense, spec = sim._dense, sim._grid_spec
-    tbl = lj._device_tables(sim.device)
-    tables = tbl["kernel"]
-    jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
-    ef = az.ops.evaluators.PAIR_POTENTIALS["PerturbedLennardJones"].energy_force
-    ms = _cuda_time_ms(
-        lambda: PK.cell_pair_force(dense, spec, tables, "PerturbedLennardJones", "none"), 50)
-    plain_ms = _cuda_time_ms(
-        lambda: D.dense_pair_force(ef, dense, jb, spec, tbl["params"], tbl["r_cut"], None,
-                                   "none", "force"), 5)
-    pairs = _pairs_inside(D, dense, spec, 2.5)
-    candidates = _candidates(dense, spec)
-    bound_ms, by = _bound(dense, 16, 12, 4 * tables.numel(), pairs,
-                          OPS_PER_PAIR["PerturbedLennardJones"])
-    print(f"[droplet] cell_pair_force[PerturbedLennardJones] at the droplet's state (T = 2, "
-          f"cap {spec.cap}, dims {spec.dims}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
-          f"call (force); bound {bound_ms:.5f} ms ({by}); {candidates} candidate pairs per "
-          f"call, {pairs} unordered pairs inside r_cut", flush=True)
-
-
 def _dpd_momentum(sim, when, before=None):
     """|total momentum| / N; DPD conserves it, so it stays at its start
     value (0: the fluid starts at rest) up to float32 round-off."""
@@ -1321,6 +1403,226 @@ def run_potential_sweep(az, K):
               f"U/N {force.energy / sim.state.N_particles:.4f}", flush=True)
         launched[pot] = n
     return launched
+
+
+def _solvent_kT(sim):
+    """The solvent's kinetic temperature relative to its mean velocity,
+    m_s <|v - <v>|^2> / 3, and its mean velocity."""
+    v = sim._mpcd["velocity"].double()
+    mean = v.mean(dim=0)
+    kT = float(sim._mpcd["mass"] * ((v - mean) ** 2).sum(dim=1).mean() / 3.0)
+    return kT, mean.cpu().numpy()
+
+
+def _profile_call(fn, reps):
+    """(device operations, device-busy ms) per call of ``fn``, over ``reps``
+    calls under torch.profiler (a breakdown, not a timer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops, busy_ms = _device_work(prof)
+    return ops / reps, busy_ms / reps
+
+
+def time_pair_on_state(az, D, PK, sim, f, label):
+    """K1 or K1' at a path's own state after its run: kernel and plain ms
+    per call (force only), bound, candidate pairs and pairs inside r_cut."""
+    dense, spec = sim._dense, sim._grid_spec
+    tbl = f._device_tables(sim.device)
+    pot, tables = f._evaluator_name, tbl["kernel"]
+    jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
+    ef = az.ops.evaluators.PAIR_POTENTIALS[pot].energy_force
+    ms = _cuda_time_ms(lambda: PK.cell_pair_force(dense, spec, tables, pot, f.mode), 50)
+    plain_ms = _cuda_time_ms(
+        lambda: D.dense_pair_force(ef, dense, jb, spec, tbl["params"], tbl["r_cut"],
+                                   tbl.get("r_on"), f.mode, "force"), 5)
+    pairs = _pairs_inside(D, dense, spec, f._max_r_cut())
+    candidates = _candidates(dense, spec)
+    bound_ms, by = _bound(dense, 16, 12, 4 * tables.numel(), pairs, OPS_PER_PAIR[pot])
+    print(f"[{label}] cell_pair_force[{pot}] at the {label}'s state (mode {f.mode}, cap "
+          f"{spec.cap}, dims {spec.dims}, {int((dense.tag >= 0).sum())} particles): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms per call (force); bound {bound_ms:.5f} ms "
+          f"({by}); {candidates} candidate pairs per call, {pairs} unordered pairs inside "
+          f"r_cut", flush=True)
+
+
+def _colloid_bits(az):
+    """Whether two identical colloid runs of 60 steps (three joint
+    collisions) agree bitwise: a reading, not a check (CUDA's index_add_
+    adds the cell sums with atomics, in an order that may vary)."""
+    out = []
+    for _ in range(2):
+        sim, _ = build_colloid(az, "cuda")
+        sim.run(60)
+        out.append((sim._mpcd["velocity"].clone(), sim._synced_state().velocity.clone()))
+        del sim
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(out[0], out[1]))
+    diff = max(float((a - b).abs().max()) for a, b in zip(out[0], out[1]))
+    return same, diff
+
+
+def run_colloid(az, D, K, card, record):
+    """Colloid hydrodynamics at full size through the public API: warm-up
+    with the tune at step 150, then COLLOID_STEPS timed steps with the
+    launch counts set to 0 just before and read just after; every LJ
+    evaluation through K1'; momentum, solvent kT and advection checked.
+    Returns the counts."""
+    sim, forces = build_colloid(az, "cuda")
+    lj = forces[0]
+    coupling = sim.operations.updaters[0]
+    tuned = _record_tune(sim)
+    t0 = time.perf_counter()
+    sim.run(COLLOID_WARM - 20)
+    pre_ops, pre_busy, _, _ = _profile(sim)
+    torch.cuda.synchronize()
+    if tuned.get("t") != COLLOID_TUNE_AT:
+        raise AssertionError(f"colloid: the capacity tune did not fire at step {COLLOID_TUNE_AT}")
+    if not coupling._ingraph:
+        raise AssertionError("colloid: the joint collision is not on its default schedule")
+    N_c, N_s = sim.state.N_particles, sim._mpcd["position"].shape[0]
+    print(f"[colloid] N_c={N_c} N_s={N_s} grid {sim._grid_spec}: {sim.timestep} warm-up steps "
+          f"in {time.perf_counter() - t0:.1f} s; collisions in the step loop: "
+          f"{coupling._ingraph}", flush=True)
+    print(f"[colloid] tune at step {tuned['t']}: cap {tuned['cap0']} -> {tuned['cap']}, "
+          f"rebuild interval {tuned['seg0']} -> {tuned['seg']} (ceiling {tuned['ceiling0']} -> "
+          f"{tuned['ceiling']}); steps {COLLOID_WARM - 20}-{COLLOID_WARM}: {pre_ops:.1f} device "
+          f"operations and {pre_busy:.4f} ms device-busy per step", flush=True)
+
+    name = "cell_pair_force[LJ]"
+    builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
+    _reset_counts(K)
+    ms_step, wall = _timed_run(sim, COLLOID_STEPS)
+    launched = {name: K.PK.launches_by_potential.get("LJ", 0)}
+    evals = sim.force_evaluations - evals0
+    if launched[name] != evals or evals < COLLOID_STEPS or K.PK.launches != evals:
+        raise AssertionError(f"colloid: {launched} LJ kernel launches for {evals} force "
+                             f"evaluations in {COLLOID_STEPS} steps")
+    builds, replays = sim.n_builds - builds0, sim.viol_replays - replays0
+    _check_wrapped(sim, "colloid")
+
+    # total momentum: the body force's impulse on the solvent, shared with
+    # the colloids by the collisions and conserved by the pair force
+    m_s, f_x = sim._mpcd["mass"], sim.mpcd_dynamics.body_force[0]
+    v_s = sim._mpcd["velocity"].double()
+    state = sim._synced_state()
+    P = (m_s * v_s.sum(dim=0) + (state.mass.double()[:, None]
+                                 * state.velocity.double()).sum(dim=0)).cpu().numpy()
+    P_want = np.array([m_s * N_s * f_x * sim.timestep * sim.dt_ref(), 0.0, 0.0])
+    if not (np.abs(P - P_want) <= COLLOID_P_BAND * m_s * N_s).all():
+        raise AssertionError(f"colloid: total momentum {P} against {P_want} "
+                             f"(band {COLLOID_P_BAND * m_s * N_s:.3f})")
+    kT_s, mean_s = _solvent_kT(sim)
+    if abs(kT_s - 1.0) > COLLOID_KT_BAND:
+        raise AssertionError(f"colloid: solvent kT relative to its mean velocity {kT_s:.4f} "
+                             f"outside 1.0 +- {COLLOID_KT_BAND}")
+    v_c = state.velocity.double()
+    vx_c = float(v_c[:, 0].mean())
+    if not 0.0 < vx_c < 1.1 * mean_s[0]:
+        raise AssertionError(f"colloid: colloids' mean vx {vx_c:.4f} not in (0, 1.1 x the "
+                             f"solvent's {mean_s[0]:.4f})")
+    kT_c = float((state.mass.double()[:, None] * (v_c - v_c.mean(dim=0)) ** 2).sum()
+                 / (3.0 * (N_c - 1)))
+    on_state = _kernels_on_state(az, D, K, sim, forces, record)
+    ops, busy, htod, syncs = _profile(sim)
+
+    # one joint collision alone at this state: device time and operations
+    dense, seed = sim._dense, sim.seed
+    solv = sim._mpcd["_srd_anchor"]
+    t_col = solv[2] + sim.mpcd_dynamics.period
+
+    def collide():
+        return coupling._collide(dense, solv, t_col, seed, m_s)
+
+    collide()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        collide()
+    end.record()
+    torch.cuda.synchronize()
+    col_ms = start.elapsed_time(end) / 10
+    col_ops, col_busy = _profile_call(collide, 5)
+    print(f"[colloid] {COLLOID_STEPS} steps: {ms_step:.4f} ms/step, {1000.0 / ms_step:.1f} TPS "
+          f"(host wall {wall:.3f} s) on {card}", flush=True)
+    print(f"[colloid] launches {launched} for {evals} force evaluations "
+          f"({launched[name] / COLLOID_STEPS:.3f} kernel launches per step); {builds} grid "
+          f"builds, {replays} violation replays; cap {sim._grid_spec.cap}, rebuild interval "
+          f"{sim._seg_len}", flush=True)
+    print(f"[colloid] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per "
+          f"step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per "
+          f"step", flush=True)
+    print(f"[colloid] one joint collision ({N_s + sim._dense.tag.numel()} rows, "
+          f"{sim.mpcd_dynamics._grid_dims()} cells): {col_ms:.4f} ms a call (CUDA events over 10 "
+          f"calls issued after a synchronize, host launches included), "
+          f"{col_ops:.1f} device operations and {col_busy:.4f} ms device-busy", flush=True)
+    print(f"[colloid] total momentum {P.round(4).tolist()} against {P_want.round(4).tolist()} "
+          f"(band {COLLOID_P_BAND * m_s * N_s:.3f}); solvent kT relative to its mean "
+          f"{kT_s:.4f} (1.0 +- {COLLOID_KT_BAND}), solvent mean vx {mean_s[0]:.4f}, colloids' "
+          f"mean vx {vx_c:.4f}, colloids' kT {kT_c:.4f} (a reading); kernel vs plain on this "
+          f"state: {on_state}", flush=True)
+    time_pair_on_state(az, D, K.PK, sim, lj, "colloid")
+    del sim
+    same, diff = _colloid_bits(az)
+    print(f"[colloid] two identical 60-step runs agree bitwise: {same} (max |dv| {diff:.3e}; "
+          f"a reading: the cell sums are atomic adds on CUDA)", flush=True)
+    return launched
+
+
+def run_poiseuille(az, card):
+    """The SRD Poiseuille slit at full size: POISEUILLE_STEPS steps, then the
+    profile over 16 bins of the velocity field compute (the example reads it
+    after 50 more steps). The fitted parabola R^2 > 0.95, its peak > 0.03,
+    and no solvent particle beyond the plates."""
+    sim = build_poiseuille(az, "cuda")
+    L = float(sim.state.box.L[2])
+    sim.run(TUNE_AT)
+    ms_step, wall = _timed_run(sim, POISEUILLE_STEPS - TUNE_AT)
+    field = az.compute.CartesianVelocityFieldCompute(
+        num_bins=(0, 0, POISEUILLE_BINS), lower_bounds=(0, 0, -L / 2),
+        upper_bounds=(0, 0, L / 2), include_mpcd_particles=True)
+    sim.operations.computes.append(field)
+    ops, busy, htod, syncs = _profile(sim, steps=50)
+    prof = field.velocities[:, 0]
+    z = (np.arange(POISEUILLE_BINS) + 0.5) / POISEUILLE_BINS - 0.5
+    A = np.stack([0.25 - z**2, np.ones(POISEUILLE_BINS)], 1)
+    coef, *_ = np.linalg.lstsq(A, prof, rcond=None)
+    r2 = 1 - ((prof - A @ coef) ** 2).sum() / max(((prof - prof.mean()) ** 2).sum(), 1e-12)
+    beyond = float(sim._mpcd["position"][:, 2].abs().max()) - L / 2
+    print(f"[poiseuille] N={sim._mpcd['position'].shape[0]} L={L}: steps {TUNE_AT}-"
+          f"{POISEUILLE_STEPS}: {ms_step:.4f} ms/step (host wall {wall:.3f} s) on {card}; "
+          f"profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per step, "
+          f"{htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per step",
+          flush=True)
+    print(f"[poiseuille] v_x(z) over {POISEUILLE_BINS} bins: {np.round(prof, 4).tolist()}; "
+          f"parabola R^2 {r2:.4f} (> 0.95), peak {prof.max():.4f} (> 0.03), furthest solvent "
+          f"{beyond:+.2e} beyond the plates", flush=True)
+    if not (r2 > 0.95 and prof.max() > 0.03 and beyond <= 1e-4):
+        raise AssertionError(f"poiseuille: R^2 {r2:.4f}, peak {prof.max():.4f}, solvent "
+                             f"{beyond:.3e} beyond the plates")
+
+
+def run_srd(az, card):
+    """Pure SRD throughput: SRD_WARM steps, a 20-step profile, then SRD_STEPS
+    timed steps, each with one collision; the solvent's kT relative to its
+    mean within SRD_KT_BAND of 1."""
+    sim = build_srd(az, "cuda")
+    sim.run(SRD_WARM)
+    ops, busy, htod, syncs = _profile(sim)
+    ms_step, wall = _timed_run(sim, SRD_STEPS)
+    kT, _ = _solvent_kT(sim)
+    print(f"[srd] N={sim._mpcd['position'].shape[0]}, {SRD_STEPS} steps of one collision each: "
+          f"{ms_step:.4f} ms per collision (host wall {wall:.3f} s) on {card}; profile: "
+          f"{ops:.1f} device operations and {busy:.4f} ms device-busy per step, {htod:.2f} "
+          f"host-to-device copies and {syncs:.2f} synchronising calls per step; solvent kT "
+          f"relative to its mean {kT:.4f} (1.0 +- {SRD_KT_BAND})", flush=True)
+    if abs(kT - 1.0) > SRD_KT_BAND:
+        raise AssertionError(f"srd: solvent kT {kT:.4f} outside 1.0 +- {SRD_KT_BAND}")
 
 
 def _build_report(cuda_build, sources):
@@ -1405,10 +1707,13 @@ def main() -> int:
     # reads the evaporated particles' temperature relative to it
     droplet = count(run_path(az, D, K, card, record, "droplet", build_droplet, 2000, 1000, plj,
                              extra_check=_droplet_check, kT=None, caps="tune"))
-    time_k1_on_droplet(az, D, PK, droplet, droplet.operations.integrator.forces[0])
+    time_pair_on_state(az, D, PK, droplet, droplet.operations.integrator.forces[0], "droplet")
     del droplet
     for pot, n in run_potential_sweep(az, K).items():
         launches[f"cell_pair_force[{pot}]"] = n
+    count((run_colloid(az, D, K, card, record), None))
+    run_poiseuille(az, card)
+    run_srd(az, card)
 
     def entry(name, source, replaces, timing):
         ms, plain_ms, _, (bound_ms, bound_by), candidates = timing
