@@ -9,7 +9,8 @@ thermostat, harmonic barriers and wall potentials under NVE, Langevin or
 Brownian dynamics (with flow fields) on the dense cell grid, the type
 updaters (the evaporating droplet), the capacity tune, an MPCD (SRD)
 solvent with its collisional coupling to the MD particles, and the
-velocity computes and binning, with
+velocity computes and binning, the writers (``write.Table``,
+``Trajectory``, ``GSD``) and checkpoints (``io``), with
 every pair force on CUDA devices in a hand-written kernel
 (``csrc/cell_pair_force.cu``, ``csrc/cell_dpd_force.cu``,
 ``csrc/cell_aniso_force.cu``). A Simulation runs on the GPU unless it is
@@ -38,10 +39,11 @@ Quick start::
     sim.run(1000)
 """
 
-from . import compute, external, flow, logging, md, mpcd, ops, update
+from . import compute, external, flow, io, logging, md, mpcd, ops, update, write
 from .core import Box, Snapshot, State, variant
 from .md import bond, filter, pair, trigger  # noqa: A004 - mirrors hoomd.filter
 from .simulation import Operations, Simulation
+from .version import __version__
 
 __all__ = [
     "Box",
@@ -49,11 +51,13 @@ __all__ = [
     "Simulation",
     "Snapshot",
     "State",
+    "__version__",
     "bond",
     "compute",
     "external",
     "filter",
     "flow",
+    "io",
     "logging",
     "md",
     "mpcd",
@@ -62,4 +66,5 @@ __all__ = [
     "trigger",
     "update",
     "variant",
+    "write",
 ]

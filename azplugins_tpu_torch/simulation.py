@@ -3,8 +3,8 @@
 Port of ``azplugins_tpu/simulation.py`` (state management, attach, the
 dense layout, the step loop with its rebuild schedule, transactional
 replays, updaters, the capacity tune, the MPCD solvent stream and its
-collisional coupling, and the force observables; writers and spatial
-decomposition are later slices). Pair, DPD,
+collisional coupling, the writers, ``create_state_from_gsd`` and the force
+observables; spatial decomposition is a later slice). Pair, DPD,
 anisotropic and bond forces all take the dense state and the tag->slot
 map; a run without pair forces keeps tag order, with the identity map.
 With ``integrate_rotational_dof``, ``net_torque`` is set every step, beside
@@ -31,6 +31,16 @@ trigger names, with the solvent's anchor carried through the chunk and
 adopted only when the chunk is accepted, so a replay starts again from the
 untouched stream.
 
+Writers. A chunk ends at the next timestep a writer's trigger names, and
+the writers whose trigger holds at the new timestep fire after the chunk
+is accepted, after the solvent has advanced and the rebuild interval has
+adapted: a frame carries the state and the solvent of its own timestep,
+and a replayed chunk writes nothing. The split does not change the
+trajectory: the rebuild schedule is absolute, a chunk that starts off it
+continues the previous chunk's segment, and an overflow grows the
+capacity at the rebuild that overflowed (a violation replay excepted,
+below).
+
 Rebuild control. The neighbour grid is rebuilt on the absolute schedule
 ``t % seg_len == 0``; in between, every step only *checks* the Verlet
 drift (ops/dense.needs_rebin) and ORs a violation flag that stays on the
@@ -38,8 +48,14 @@ device. The host reads that flag and the capacity-overflow flag once per
 chunk, in one transfer, so the step loop itself never waits for the
 device. A violation replays the chunk from its saved starting state with
 a shorter interval (re-derived from the fastest particle); an overflow
-replays it with a larger cell capacity. States are immutable dataclasses,
-so the saved state costs nothing.
+replays it with a larger cell capacity from the rebuild that overflowed
+(found by replaying the chunk one rebuild a chunk), so the capacity, like
+the rebuild schedule, changes at a timestep that does not depend on where
+chunks end. States are immutable dataclasses, so the saved state costs
+nothing. A violation replay restarts at its chunk's start, so a chunk
+split (a writer's, the tune's, a ``run`` call's) moves the steps it
+replays; without violations the trajectory is bitwise independent of the
+chunking.
 
 Capacity tune. At the absolute timestep ``auto_tune_after`` (200 by
 default) the run right-sizes the cell capacity to the equilibrated
@@ -58,7 +74,7 @@ import numpy as np
 import torch
 
 from .core.snapshot import Snapshot
-from .core.state import State, state_from_snapshot, state_to_snapshot, thermalize_momenta
+from .core.state import State, state_from_snapshot, state_to_snapshot, thermalize_momenta, to_host
 from .md.force import ForceResult, SimContext
 from .ops import dense as D
 
@@ -75,13 +91,15 @@ class Operations:
         self.integrator = None
         self.updaters: list = []
         self.computes: list = []
+        self.writers: list = []
 
     def add(self, op):
-        """hoomd-style routing: forces go to the integrator, updaters and
-        computes to their lists."""
+        """hoomd-style routing: forces go to the integrator, updaters,
+        computes and writers to their lists."""
         from .compute import Compute
         from .md.force import Force
         from .update import Updater
+        from .write import Writer
 
         if isinstance(op, Force):
             if self.integrator is None:
@@ -91,8 +109,8 @@ class Operations:
             self.updaters.append(op)
         elif isinstance(op, Compute):
             self.computes.append(op)
-        elif callable(getattr(op, "write", None)):
-            raise NotImplementedError("writers are not ported yet (ROADMAP queue A5)")
+        elif isinstance(op, Writer):
+            self.writers.append(op)
         else:
             raise TypeError(f"cannot add {op!r}")
 
@@ -129,9 +147,8 @@ class _StateView:
         mpcd = sim._mpcd
         if mpcd is not None:
             snap.mpcd.resize(mpcd["position"].shape[0])
-            snap.mpcd.position[:] = mpcd["position"].cpu().numpy()
-            snap.mpcd.velocity[:] = mpcd["velocity"].cpu().numpy()
-            snap.mpcd.typeid[:] = mpcd["typeid"].cpu().numpy()
+            snap.mpcd.position[:], snap.mpcd.velocity[:], snap.mpcd.typeid[:] = to_host(
+                mpcd["position"], mpcd["velocity"], mpcd["typeid"])
             snap.mpcd.mass = mpcd["mass"]
             snap.mpcd.types = list(mpcd["types"])
         return snap
@@ -186,6 +203,10 @@ class Simulation:
         # belongs to the old schedule, so the unaligned prefix up to the next
         # point of the new schedule rebuilds every step
         self._realign = False
+        # set by an overflow in a chunk of several rebuilds to the end of that
+        # chunk: until then chunks hold one rebuild each, so the one that
+        # overflowed is found (None: not probing)
+        self._probe_until: int | None = None
         # longest chunk between host synchronisations
         self.max_chunk = 1000
         # False pins the rebuild interval (violation replays still lower
@@ -212,6 +233,22 @@ class Simulation:
         if self._state is not None:
             raise RuntimeError("state already created")
         self._set_snapshot(snapshot)
+
+    def create_state_from_gsd(self, filename: str, frame: int = -1):
+        """Initialize from a hoomd-schema GSD file and restore its step.
+
+        hoomd.Simulation.create_state_from_gsd parity: reads files written
+        by HOOMD's gsd package, ``write.GSD`` or ``io.export_gsd``,
+        including dynamic frames (omitted chunks fall back to frame 0). The
+        timestep restores from configuration/step through the ``timestep``
+        setter, so triggers and RNG streams resume on the absolute schedule
+        and a step at or past ``auto_tune_after`` does not tune again.
+        """
+        from .io.gsd import _read_gsd_frame
+
+        snap, step = _read_gsd_frame(filename, frame)
+        self.create_state_from_snapshot(snap)
+        self.timestep = step
 
     def _set_snapshot(self, snapshot: Snapshot):
         self._state, self._particle_types, self._bond_types = state_from_snapshot(
@@ -647,6 +684,8 @@ class Simulation:
         return seg_base
 
     def run(self, n_steps: int):
+        from .write import _fire_writers, _writer_next_fire
+
         n_steps = int(n_steps)
         fp, fp_refs = self._ops_fingerprint()
         if self._ops_fp != fp:
@@ -658,6 +697,9 @@ class Simulation:
             self._attach()
         if not self._prepared:
             self._prepare()
+        writers = list(self.operations.writers)
+        for w in writers:
+            w._attach(self)
         for c in self.operations.computes:
             c._attach(self)
         self._coupling = self._find_coupling()
@@ -678,6 +720,11 @@ class Simulation:
             chunk = min(remaining, self.max_chunk)
             if auto_pending:
                 chunk = min(chunk, self.auto_tune_after - self._timestep)
+            if writers:
+                # end the chunk at the next writer fire
+                nw = _writer_next_fire(writers, self._timestep + 1)
+                if nw is not None:
+                    chunk = min(chunk, nw - self._timestep)
             # while the interval adapts, chunks end at quantum boundaries so
             # interval changes land at the same timestep whatever the chunking
             if self._seg_adapt and (self._seg_len < self._seg_ceiling or self._seg_ceiling < 50):
@@ -697,6 +744,9 @@ class Simulation:
                 rebin_first = True
             elif not off:
                 self._realign = False
+            if self._probe_until is not None and rebin_first:
+                # after an overflow: one rebuild a chunk, at its start
+                chunk = min(chunk, seg_arg)
 
             solv = None
             if self._coupling is not None:
@@ -718,10 +768,18 @@ class Simulation:
                         "Typical causes: overlapping initial coordinates, dt too large, "
                         "or a potential evaluated inside its divergence."
                     )
-                # transactional replay with a capacity sized by the failed
-                # chunk's recorded max occupancy
                 self._dense, self._meta = backup_dense, backup_meta
                 self._state_stale = True
+                if chunk > seg_arg:
+                    # the chunk held several rebuilds: replay it one rebuild a
+                    # chunk, so the capacity grows at the rebuild that
+                    # overflowed, a timestep that does not depend on where
+                    # chunks end (writers end them anywhere)
+                    self._probe_until = self._timestep + chunk
+                    continue
+                # transactional replay from the rebuild that overflowed, with
+                # a capacity sized by the recorded max occupancy
+                self._probe_until = None
                 self._synced_state()
                 self._grow_and_rebuild(max_occ)
                 continue
@@ -755,6 +813,10 @@ class Simulation:
             self._state_stale = True
             self._timestep += chunk
             remaining -= chunk
+            if self._probe_until is not None and self._timestep >= self._probe_until:
+                # the replay passed the overflowed chunk without an overflow
+                # (a CUDA replay with atomic sums need not repeat its bits)
+                self._probe_until = None
             if solv is not None:
                 # the chunk's joint collisions moved the solvent's anchor
                 self._mpcd = {**self._mpcd, "position": solv[0], "velocity": solv[1],
@@ -772,6 +834,8 @@ class Simulation:
                 elif self._seg_ceiling < 50 and self._clean_quanta % 10 == 0:
                     self._seg_ceiling += 1
                     self._seg_len = min(self._seg_len + 1, self._seg_ceiling)
+            if writers:
+                _fire_writers(self, writers, self._timestep)
 
     # -- observables -----------------------------------------------------------
     def _compute_single_force(self, force) -> ForceResult:

@@ -29,6 +29,14 @@
    before it and read just after:
    - the 64k perturbed-LJ Langevin headline (the JAX package's bench
      headline, BASELINE config 1);
+   - [io] the headline again, with writers: a Table of kT and the
+     potential energy every 100 steps, a Trajectory (aztraj) and a GSD
+     every 250, over 1,000 steps; the frames' timesteps, the last frame of
+     each file against get_snapshot() bit for bit and the Table's rows
+     checked, synchronising calls and host ms per fire counted; ms/step
+     without and with the writers in alternating turns; a checkpoint
+     restored twice through load_checkpoint and once through
+     create_state_from_gsd, the three runs of 200 steps equal bit for bit;
    - the DPD fluid (BASELINE config 3, 21,952 particles, ConstantVolume);
    - the polymer melt (BASELINE config 2, 1,280 chains of 25, Quartic
      bonds + ExpandedYukawa, Langevin);
@@ -48,6 +56,9 @@
      with CartesianVelocityFieldCompute over 16 bins);
    - pure SRD throughput (bench.py:470-507): 262,144 solvent, a collision
      every step, 500 steps;
+   - [examples] the port's nine examples (azplugins_tpu_torch/examples/)
+     in their smoke mode (AZTPU_EXAMPLE_FAST=1), main(device="cuda"), each
+     in a directory of its own inside the checkout, removed afterwards;
    and checks that every pair-force evaluation went through a kernel and
    that the result is physical; on each full-size path the capacity tune
    fires at step 200, and the path prints the capacity and rebuild
@@ -72,6 +83,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -123,6 +135,19 @@ POISEUILLE_BINS = 16
 SRD_WARM = 50
 SRD_STEPS = 430
 SRD_KT_BAND = 0.02
+# the headline with writers (the [io] phase): a Table every 100 steps, a
+# Trajectory and a GSD every 250, over 1,000 steps that end on a frame; the
+# Table's kT within IO_KT_BAND of 1; ms/step with and without the writers
+# in IO_TURNS alternating turns of IO_TURN_STEPS; three restarts of
+# IO_RESTART_STEPS from the last frame (two from a checkpoint, one from the
+# GSD file)
+IO_STEPS = 1000
+IO_TABLE_PERIOD = 100
+IO_FRAME_PERIOD = 250
+IO_KT_BAND = 0.05
+IO_TURNS = 6
+IO_TURN_STEPS = 400
+IO_RESTART_STEPS = 200
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -385,9 +410,14 @@ def _compare_result(tag, got, ref, want):
 # ---------------------------------------------------------------------------
 # The full-size configurations, through the public API
 # ---------------------------------------------------------------------------
-def build_headline(az, device):
-    """BASELINE config 1, the bench headline: 64k PLJ under Langevin."""
-    N_side, rho, seed = HEADLINE["N_side"], HEADLINE["rho"], HEADLINE["seed"]
+def build_headline(az, device, snapshot=None, N_side=HEADLINE["N_side"]):
+    """BASELINE config 1, the bench headline: 64k PLJ under Langevin. With
+    ``snapshot`` (a restart) the state is taken from it as it is."""
+    rho, seed = HEADLINE["rho"], HEADLINE["seed"]
+    sim = az.Simulation(device=device, seed=seed)
+    if snapshot is not None:
+        sim.create_state_from_snapshot(snapshot)
+        return sim, _headline_forces(az, sim)
     N = N_side**3
     L = (N / rho) ** (1.0 / 3.0)
     a = L / N_side
@@ -396,16 +426,20 @@ def build_headline(az, device):
     snap.particles.types = ["A"]
     x = (np.arange(N_side) + 0.5) * a - L / 2
     snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
-    sim = az.Simulation(device=device, seed=seed)
     sim.create_state_from_snapshot(snap)
+    forces = _headline_forces(az, sim)
+    sim.state.thermalize_particle_momenta(kT=1.0)
+    return sim, forces
+
+
+def _headline_forces(az, sim):
     lj = az.pair.PerturbedLennardJones(
         nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=3.0, mode="none"
     )
     lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.5)
     lang = az.md.methods.Langevin(kT=1.0, default_gamma=0.1)
     sim.operations.integrator = az.md.Integrator(dt=0.005, methods=[lang], forces=[lj])
-    sim.state.thermalize_particle_momenta(kT=1.0)
-    return sim, [lj]
+    return [lj]
 
 
 def build_dpd(az, device, n_side=28, rho=3.0, seed=5):
@@ -1625,6 +1659,278 @@ def run_srd(az, card):
         raise AssertionError(f"srd: solvent kT {kT:.4f} outside 1.0 +- {SRD_KT_BAND}")
 
 
+class _FireLog:
+    """Wraps each writer's ``write``: fires, host ms, and the synchronising
+    calls torch.cuda's sync debug mode reports inside them (while ``caught``,
+    the run's recorded warnings, is set)."""
+
+    def __init__(self, writers):
+        self.caught = None
+        self.stats = {}
+        for w in writers:
+            self._wrap(w)
+
+    def _wrap(self, w):
+        name, write = type(w).__name__, w.write
+        stats = self.stats.setdefault(name, {"fires": 0, "ms": 0.0, "syncs": 0, "at": []})
+
+        def timed(sim, timestep):
+            n0 = len(self.caught) if self.caught is not None else 0
+            t0 = time.perf_counter()
+            write(sim, timestep)
+            stats["ms"] += 1000.0 * (time.perf_counter() - t0)
+            stats["fires"] += 1
+            stats["at"].append(timestep)
+            if self.caught is not None:
+                stats["syncs"] += sum("synchroniz" in str(m.message) for m in self.caught[n0:])
+
+        w.write = timed
+
+    def reset(self):
+        for s in self.stats.values():
+            s.update(fires=0, ms=0.0, syncs=0, at=[])
+
+
+def _same_state(what, got, want):
+    """Positions, velocities and images of two snapshots, bit for bit."""
+    for field in ("position", "velocity", "image"):
+        a, b = getattr(got.particles, field), getattr(want.particles, field)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"io: {what}: {field} differs (max |d| "
+                                 f"{np.abs(np.asarray(a, float) - b).max():.3e})")
+
+
+def _get_snapshot_cost(sim, reps=3):
+    """Host ms of ``get_snapshot()`` on a state a chunk left in slot order
+    (the device idle before each call), each beside the ms of its first part,
+    the slot-to-tag reorder (``_synced_state`` and a synchronize); and the
+    synchronising calls of one call."""
+    import warnings
+
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        sim._state_stale = True
+        t0 = time.perf_counter()
+        sim._synced_state()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sim.state.get_snapshot()
+        t2 = time.perf_counter()
+        ms.append(f"{1000.0 * (t2 - t0):.2f} ({1000.0 * (t1 - t0):.2f} reorder)")
+    sim._state_stale = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.state.get_snapshot()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return ms, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def run_io(az, K, card, sim, workdir):
+    """The headline (``sim``, after its own path) with three writers: a Table
+    of kT and the potential energy every IO_TABLE_PERIOD steps, a Trajectory
+    and a GSD every IO_FRAME_PERIOD, over IO_STEPS steps with the launch
+    counts set to 0 just before and read just after. Checks the frames'
+    timesteps, the last frame against ``get_snapshot()`` bit for bit, the
+    Table's rows (finite, kT 1.0 +- IO_KT_BAND) and that every force
+    evaluation (and each energy the Table reads) launched K1; counts the
+    synchronising calls inside each fire. Then times ms/step without and
+    with the writers in alternating turns, and restarts from the last frame
+    three times: twice from ``save_checkpoint`` through ``load_checkpoint``
+    and the ``timestep`` setter, once through ``create_state_from_gsd``; the
+    three must agree bit for bit after IO_RESTART_STEPS. Returns the K1
+    launches."""
+    import warnings
+
+    PK = K.PK
+    thermo = next(c for c in sim.operations.computes
+                  if isinstance(c, az.compute.ThermodynamicQuantities))
+    logger = az.write.Logger()
+    logger.add(thermo, ["kinetic_temperature", "potential_energy"], prefix="thermo")
+    paths = {k: str(workdir / f"headline.{k}") for k in ("log", "azt", "gsd", "ckpt")}
+    writers = [az.write.Table(IO_TABLE_PERIOD, logger, output=paths["log"]),
+               az.write.Trajectory(IO_FRAME_PERIOD, paths["azt"]),
+               az.write.GSD(IO_FRAME_PERIOD, paths["gsd"])]
+    fires = _FireLog(writers)
+    sim.run(-sim.timestep % IO_FRAME_PERIOD)  # start on a frame: the run ends on one
+    t0 = sim.timestep
+    sim.operations.writers[:] = writers
+    evals0 = sim.force_evaluations
+    _reset_counts(K)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fires.caught = caught
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.run(IO_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            fires.caught = None
+            for w in writers:
+                w.close()
+    launched = PK.launches_by_potential.get("PerturbedLennardJones", 0)
+    run_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    evals = sim.force_evaluations - evals0
+    table = fires.stats["Table"]
+    if launched != evals + table["fires"] or PK.launches != launched:
+        raise AssertionError(f"io: {launched} PLJ launches ({PK.launches} in all) for {evals} "
+                             f"force evaluations and {table['fires']} Table energy reads")
+    t1 = sim.timestep
+    for name, period in (("Table", IO_TABLE_PERIOD), ("Trajectory", IO_FRAME_PERIOD),
+                         ("GSD", IO_FRAME_PERIOD)):
+        want = [t for t in range(t0 + 1, t1 + 1) if t % period == 0]
+        if fires.stats[name]["at"] != want:
+            raise AssertionError(f"io: {name} fired at {fires.stats[name]['at']}, not {want}")
+    # the files, read back
+    live = sim.state.get_snapshot()
+    with az.io.TrajectoryReader(paths["azt"]) as r:
+        steps = r.timesteps
+        _, last = r.read_frame(len(r) - 1)
+    frame = az.io.chunks_to_snapshot(last)
+    gsd_last = az.io.read_gsd(paths["gsd"])
+    with az.io.GSDReader(paths["gsd"]) as g:
+        gsd_steps = [int(g.read_chunk(k, "configuration/step")[0]) for k in range(g.n_frames)]
+    if steps != fires.stats["Trajectory"]["at"] or gsd_steps != steps:
+        raise AssertionError(f"io: frames at {steps} (aztraj) and {gsd_steps} (GSD)")
+    for what, snap in (("aztraj frame", frame), ("GSD frame", gsd_last)):
+        for field in ("position", "velocity"):
+            if not np.array_equal(getattr(snap.particles, field),
+                                  np.float32(getattr(live.particles, field))):
+                raise AssertionError(f"io: the last {what}'s {field} is not get_snapshot()'s")
+        if not np.array_equal(snap.particles.image, live.particles.image):
+            raise AssertionError(f"io: the last {what}'s images are not get_snapshot()'s")
+    lines = open(paths["log"]).read().split("\n")
+    rows = np.array([[float(v) for v in ln.split()] for ln in lines[1:] if ln.strip()])
+    if (lines[0].split() != ["timestep", "thermo.kinetic_temperature", "thermo.potential_energy"]
+            or rows.shape != (len(table["at"]), 3) or not np.isfinite(rows).all()
+            or np.abs(rows[:, 1] - 1.0).max() > IO_KT_BAND):
+        raise AssertionError(f"io: Table header {lines[0]!r}, rows {rows.tolist()}")
+    snap_ms, snap_syncs = _get_snapshot_cost(sim)
+    n = sim.state.N_particles
+    print(f"[io] N={n} from step {t0}: {IO_STEPS} steps with a Table every {IO_TABLE_PERIOD} "
+          f"steps and a Trajectory and a GSD every {IO_FRAME_PERIOD}: {launched} K1 launches for "
+          f"{evals} force evaluations + {table['fires']} Table energy reads; aztraj backend: "
+          f"{'native C++ (g++)' if az.io.native_available() else 'pure Python'}", flush=True)
+    print(f"[io] fires (host ms per fire, synchronising calls per fire): " + "; ".join(
+        f"{k} {s['fires']} ({s['ms'] / s['fires']:.2f} ms, {s['syncs'] / s['fires']:.1f} syncs)"
+        for k, s in fires.stats.items()) + f"; the whole run {run_syncs} synchronising calls; "
+        f"get_snapshot() alone after a chunk: {', '.join(snap_ms)} ms, "
+        f"{snap_syncs} synchronising calls", flush=True)
+    print(f"[io] files read back: {len(steps)} aztraj frames at {steps}, {len(gsd_steps)} GSD "
+          f"frames, {len(rows)} Table rows (kT {rows[:, 1].min():.4f}-{rows[:, 1].max():.4f}, "
+          f"U/N {rows[:, 2].min() / n:.4f}-{rows[:, 2].max() / n:.4f}); the last frame of each "
+          f"file equals get_snapshot() bit for bit", flush=True)
+
+    # restarts from the last frame: two from a checkpoint, one from the GSD
+    az.io.save_checkpoint(sim, paths["ckpt"])
+    sim.operations.writers[:] = []
+    sim.run(IO_RESTART_STEPS)
+    continuous = sim.state.get_snapshot()
+    restarts = []
+    for how in ("checkpoint", "checkpoint", "gsd"):
+        if how == "gsd":
+            new = az.Simulation(device=sim.device, seed=HEADLINE["seed"])
+            new.create_state_from_gsd(paths["gsd"])
+            _headline_forces(az, new)
+        else:
+            snap, ts = az.io.load_checkpoint(paths["ckpt"])
+            new, _ = build_headline(az, sim.device, snapshot=snap)
+            new.timestep = ts
+        if new.timestep != t1:
+            raise AssertionError(f"io: a {how} restart resumed at step {new.timestep}, not {t1}")
+        tuned = _record_tune(new)
+        new.run(IO_RESTART_STEPS)
+        if tuned:
+            raise AssertionError(f"io: a {how} restart at step {t1} tuned again")
+        restarts.append(new.state.get_snapshot())
+        del new
+    _same_state("two checkpoint restarts", restarts[1], restarts[0])
+    _same_state("the GSD restart against the checkpoint's", restarts[2], restarts[0])
+    drift = np.abs(restarts[0].particles.position - continuous.particles.position)
+    L = np.asarray(continuous.configuration.box[:3])
+    drift = np.minimum(drift, L - drift).max()
+    print(f"[io] restarts at step {t1}: two from the checkpoint and one from the GSD file agree "
+          f"bit for bit after {IO_RESTART_STEPS} steps; max |dx| against the continuous run "
+          f"{drift:.3e} (not bitwise: the restart's stored acceleration and cell capacity "
+          f"are rebuilt)", flush=True)
+
+    # ms/step without and with the writers, in alternating turns
+    writers = [az.write.Table(IO_TABLE_PERIOD, logger, output=paths["log"]),
+               az.write.Trajectory(IO_FRAME_PERIOD, paths["azt"]),
+               az.write.GSD(IO_FRAME_PERIOD, paths["gsd"])]
+    fires = _FireLog(writers)
+    ms = {"without": [], "with": []}
+    try:
+        for k in range(IO_TURNS):
+            turn = ("without", "with", "with", "without")[k % 4]
+            sim.operations.writers[:] = writers if turn == "with" else []
+            ms[turn].append(_timed_run(sim, IO_TURN_STEPS)[0])
+    finally:
+        sim.operations.writers[:] = []
+        for w in writers:
+            w.close()
+    n_fires = sum(s["fires"] for s in fires.stats.values())
+    extra = (np.mean(ms["with"]) - np.mean(ms["without"])) * IO_TURN_STEPS * len(ms["with"])
+    print(f"[io] ms/step in alternating turns of {IO_TURN_STEPS} steps on {card}: without "
+          f"writers {', '.join(f'{m:.4f}' for m in ms['without'])}; with them "
+          f"{', '.join(f'{m:.4f}' for m in ms['with'])}; {n_fires} fires: "
+          f"{extra / max(n_fires, 1):.2f} ms a fire from the step time; host ms per fire: " +
+          ", ".join(f"{k} {s['ms'] / max(s['fires'], 1):.2f}" for k, s in fires.stats.items()),
+          flush=True)
+    return {"cell_pair_force[PerturbedLennardJones]": launched}
+
+
+def run_examples(az, K, card, workdir, device="cuda"):
+    """The port's nine examples (azplugins_tpu_torch/examples/), each with
+    AZTPU_EXAMPLE_FAST=1 and ``main(device="cuda")`` in a directory of its
+    own, one after another: wall time, kernel launches and the last line
+    each prints. An example raises on its own checks; every example with a
+    pair force must have launched its kernel."""
+    import contextlib
+    import importlib.util
+    import io as _io
+    import os
+
+    from azplugins_tpu_torch.examples import EXAMPLES
+
+    os.environ["AZTPU_EXAMPLE_FAST"] = "1"
+    src = Path(az.__file__).resolve().parent / "examples"
+    cwd = os.getcwd()
+    try:
+        for name in EXAMPLES:
+            run_dir = workdir / name
+            run_dir.mkdir()
+            os.chdir(run_dir)
+            spec = importlib.util.spec_from_file_location(f"smoke_example_{name}",
+                                                          src / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            if not mod.FAST:
+                raise AssertionError(f"examples: {name} is not in its smoke mode")
+            _reset_counts(K)
+            out = _io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mod.main(device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {"cell_pair_force": K.PK.launches, "cell_dpd_force": K.DK.launches,
+                        "cell_aniso_force": K.AK.launches}
+            lines = [ln for ln in out.getvalue().splitlines() if ln.strip()]
+            if not lines or "nan" in out.getvalue().lower():
+                raise AssertionError(f"examples: {name} printed {out.getvalue()!r}")
+            if name != "mpcd_poiseuille" and sum(launched.values()) == 0:
+                raise AssertionError(f"examples: {name} launched no kernel")
+            print(f"[examples] {name}: {wall:.2f} s on {card}; launches "
+                  f"{ {k: v for k, v in launched.items() if v} }; last line: {lines[-1].strip()}",
+                  flush=True)
+    finally:
+        os.chdir(cwd)
+
+
 def _build_report(cuda_build, sources):
     for src in sources:
         info = cuda_build.build_info[cuda_build.CSRC / src]
@@ -1688,8 +1994,11 @@ def main() -> int:
     # the droplet's before and after its tune
     plj = {"cell_pair_force[PerturbedLennardJones]":
            lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}
-    count(run_path(az, D, K, card, record, "headline", build_headline, 2000, 1000, plj,
-                   caps=(48, 72)))
+    headline = count(run_path(az, D, K, card, record, "headline", build_headline, 2000, 1000,
+                              plj, caps=(48, 72)))
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_io_") as workdir:
+        count((run_io(az, K, card, headline, Path(workdir)), None))
+    del headline
     count(run_path(az, D, K, card, record, "dpd", build_dpd, 2000, 1000,
                    {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum,
                    caps=(8, 40)))
@@ -1714,6 +2023,8 @@ def main() -> int:
     count((run_colloid(az, D, K, card, record), None))
     run_poiseuille(az, card)
     run_srd(az, card)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_examples_") as workdir:
+        run_examples(az, K, card, Path(workdir))
 
     def entry(name, source, replaces, timing):
         ms, plain_ms, _, (bound_ms, bound_by), candidates = timing

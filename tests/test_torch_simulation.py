@@ -165,7 +165,9 @@ def test_port_does_not_import_jax():
     code = (
         f"import sys; sys.path.insert(0, {repo!r}); import azplugins_tpu_torch as az; "
         "import azplugins_tpu_torch.interop, azplugins_tpu_torch.ops.pair_kernel, "
-        "azplugins_tpu_torch.ops.aniso_kernel; "
+        "azplugins_tpu_torch.ops.aniso_kernel, azplugins_tpu_torch.io.gsd, "
+        "azplugins_tpu_torch.write, azplugins_tpu_torch.examples.lj_fluid; "
+        "assert az.io.native_available() in (True, False); "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
         "assert 'azplugins_tpu' not in sys.modules; print('ok')"
     )

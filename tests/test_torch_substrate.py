@@ -227,12 +227,12 @@ def test_operations_add_routes_like_the_reference():
     ops.add(thermo)
     assert ops.computes == [thermo]
 
-    class Table:  # a writer's shape: writers are a later slice
-        def write(self, sim, timestep):
-            pass
-
-    with pytest.raises(NotImplementedError, match="A5"):
-        ops.add(Table())
+    logger = port.write.Logger()
+    table = port.write.Table(trigger=5, logger=logger)
+    ops.add(table)
+    table2 = port.write.Table(trigger=7, logger=logger)
+    ops += table2
+    assert ops.writers == [table, table2] and isinstance(table2.trigger, port.trigger.Periodic)
     with pytest.raises(TypeError):
         ops.add(object())
 
