@@ -10,7 +10,9 @@ Brownian dynamics (with flow fields) on the dense cell grid, the type
 updaters (the evaporating droplet), the capacity tune, an MPCD (SRD)
 solvent with its collisional coupling to the MD particles, and the
 velocity computes and binning, the writers (``write.Table``,
-``Trajectory``, ``GSD``) and checkpoints (``io``), with
+``Trajectory``, ``GSD``) and checkpoints (``io``), spatial decomposition
+into blocks on one device (``parallel``) and a profiler trace of the step's
+phases (``Simulation.profile``), with
 every pair force on CUDA devices in a hand-written kernel
 (``csrc/cell_pair_force.cu``, ``csrc/cell_dpd_force.cu``,
 ``csrc/cell_aniso_force.cu``). A Simulation runs on the GPU unless it is
@@ -39,7 +41,7 @@ Quick start::
     sim.run(1000)
 """
 
-from . import compute, external, flow, io, logging, md, mpcd, ops, update, write
+from . import compute, external, flow, io, logging, md, mpcd, ops, parallel, update, write
 from .core import Box, Snapshot, State, variant
 from .md import bond, filter, pair, trigger  # noqa: A004 - mirrors hoomd.filter
 from .simulation import Operations, Simulation
@@ -63,6 +65,7 @@ __all__ = [
     "mpcd",
     "ops",
     "pair",
+    "parallel",
     "trigger",
     "update",
     "variant",

@@ -103,14 +103,37 @@ class GridSpec:
         return np.asarray(keep, dtype=np.int32)
 
     @classmethod
-    def create(cls, box: Box, N: int, r_cut: float, buffer: float):
+    def create(cls, box: Box, N: int, r_cut: float, buffer: float, strip_devices: int = 1):
         """Size the grid as the reference does: cells at least r_cut + buffer
         wide, the whole cell width claimed as Verlet margin, and cap the
         8-multiple above ``1.18 * mean occupancy + 4`` (a dense liquid's
-        repulsion keeps occupancy far below the Poisson tail)."""
+        repulsion keeps occupancy far below the Poisson tail).
+
+        ``strip_devices`` snaps (Dx, Dy) down to the largest product
+        divisible by it (whole z cell columns per spatial block). Fewer,
+        wider cells still cover every pair within r_list.
+        """
         npd = box.nearest_plane_distance()
         r_list = r_cut + buffer
         dims = tuple(int(max(1, math.floor(l / r_list))) for l in npd)
+        if strip_devices > 1 and (dims[0] * dims[1]) % strip_devices != 0:
+            n = strip_devices
+            best = None
+            for dx in range(dims[0], 0, -1):
+                for dy in range(dims[1], 0, -1):
+                    if (dx * dy) % n == 0:
+                        # the largest dy for this dx; a smaller one only shrinks
+                        if best is None or dx * dy > best[0] * best[1]:
+                            best = (dx, dy)
+                        break
+            if best is None:
+                raise ValueError(
+                    f"cannot give each of {n} spatial strips a whole z "
+                    f"cell column: the box fits only {dims[0]}x{dims[1]} "
+                    f"columns of width >= r_cut + buffer (use fewer "
+                    "devices or a larger box)"
+                )
+            dims = (best[0], best[1], dims[2])
         # pairs stay covered while 2 * max_disp < min_edge - r_cut; axes
         # with <= 2 cells impose no constraint (the stencil sees the axis)
         edges = [npd[k] / dims[k] for k in range(3) if dims[k] >= 3]

@@ -3,8 +3,8 @@
 Port of ``azplugins_tpu/simulation.py`` (state management, attach, the
 dense layout, the step loop with its rebuild schedule, transactional
 replays, updaters, the capacity tune, the MPCD solvent stream and its
-collisional coupling, the writers, ``create_state_from_gsd`` and the force
-observables; spatial decomposition is a later slice). Pair, DPD,
+collisional coupling, the writers, ``create_state_from_gsd``, the force
+observables, spatial decomposition and the profiler trace). Pair, DPD,
 anisotropic and bond forces all take the dense state and the tag->slot
 map; a run without pair forces keeps tag order, with the identity map.
 With ``integrate_rotational_dof``, ``net_torque`` is set every step, beside
@@ -57,6 +57,18 @@ split (a writer's, the tune's, a ``run`` call's) moves the steps it
 replays; without violations the trajectory is bitwise independent of the
 chunking.
 
+Spatial decomposition. ``enable_spatial_decomposition(mesh)`` cuts the
+slot axis into the mesh's blocks (slabs of whole x planes, or strips of
+whole z cell columns): the grid's (Dx, Dy) snaps to a product the mesh size
+divides. The blocks lie on the simulation's device, where the global
+rebin's slot layout is already each block's in turn (the reference's
+block-local rebin reproduces it bit for bit), so the rebuilds stay global
+and the trajectory is the undecomposed one on the snapped grid.
+
+Profiling. Inside ``with sim.profile(logdir):`` the step loop marks its
+phases as ``torch.profiler.record_function`` ranges named after the
+reference's scopes; outside it no range is entered.
+
 Capacity tune. At the absolute timestep ``auto_tune_after`` (200 by
 default) the run right-sizes the cell capacity to the equilibrated
 occupancy and resets the rebuild interval from the fastest particle
@@ -67,6 +79,7 @@ called.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 
@@ -79,6 +92,13 @@ from .md.force import ForceResult, SimContext
 from .ops import dense as D
 
 __all__ = ["Simulation", "Operations"]
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _no_range(name: str):
+    """The step loop's phase scope outside a profile: enters nothing."""
+    return _NO_RANGE
 
 # absolute-timestep quantum for rebuild-interval adaptation: the interval
 # changes only at multiples of this, so the rebuild schedule is a pure
@@ -227,6 +247,11 @@ class Simulation:
         self.mpcd_dynamics = None
         self._coupling = None  # the mpcd.CollisionCoupling updater of this run
         self._warned_divisor_collapse = False
+        # spatial decomposition: when set, the grid holds whole z cell
+        # columns a block of this mesh
+        self._spatial_mesh = None
+        # the step loop's phase scope: record_function inside profile()
+        self._phase_range = _no_range
 
     # -- state management ------------------------------------------------
     def create_state_from_snapshot(self, snapshot: Snapshot):
@@ -340,7 +365,11 @@ class Simulation:
                 buffer = max(buffer, f.nlist.buffer)
         if has_pair:
             state = self._synced_state()
-            new_spec = D.GridSpec.create(state.box, state.N, r_cut, buffer)
+            # spatial blocks hold whole z cell columns: Dx*Dy snaps to a
+            # product the mesh size divides (whole x planes when they do)
+            mesh = self._spatial_mesh
+            new_spec = D.GridSpec.create(state.box, state.N, r_cut, buffer,
+                                         strip_devices=mesh.size if mesh is not None else 1)
             # size cap for the actual starting configuration: commensurate
             # lattices concentrate particles far above the mean
             occ_cap = self._max_occupancy_cap(state, new_spec)
@@ -596,6 +625,72 @@ class Simulation:
         self._state_stale = True
         self._prepared = True
 
+    # -- spatial decomposition and profiling ----------------------------------
+    def enable_spatial_decomposition(self, mesh):
+        """Decompose the simulation into the spatial domains of ``mesh``.
+
+        The cell-major slot axis splits into contiguous blocks of whole z
+        cell columns: whole x planes (slabs) when the mesh size divides Dx,
+        (x, y) strips otherwise, so more blocks than x planes still
+        decompose. The grid's (Dx, Dy) snaps down to a product the mesh size
+        divides when it is made (``GridSpec.create``'s ``strip_devices``);
+        an existing grid that does not divide is rebuilt at the next run.
+        With every block on one device the global rebin's slot layout is
+        the blocks' (the reference's block-local rebin reproduces it bit
+        for bit), so rebuilds stay global and the trajectory is the
+        undecomposed one on the same grid, bitwise.
+
+        The blocks must lie on the simulation's device (else ValueError); a
+        mesh over several distinct devices raises NotImplementedError.
+        """
+        from .parallel.mesh import same_device
+
+        devices = mesh.devices
+        if any(not same_device(d, devices[0]) for d in devices[1:]):
+            raise NotImplementedError(
+                "a mesh over several distinct devices is not ported (ROADMAP queue A, "
+                "multi-GPU decomposition); make_mesh(n, device=...) puts every block on one"
+            )
+        if not same_device(devices[0], self.device):
+            raise ValueError(
+                f"the mesh's blocks lie on {devices[0]}, the simulation on {self.device}"
+            )
+        self._spatial_mesh = mesh
+        spec = self._grid_spec
+        if self._attached and spec is not None and (spec.dims[0] * spec.dims[1]) % mesh.size:
+            # regrid at the next attach; pull the positions out of the dense
+            # layout FIRST (_drop_dense clears the stale flag, so dropping an
+            # unsynced layout would roll the trajectory back to the last sync)
+            self._synced_state()
+            self._invalidate()
+            self._drop_dense()
+
+    @contextlib.contextmanager
+    def profile(self, logdir):
+        """``with sim.profile(logdir): sim.run(n)`` records a
+        ``torch.profiler`` trace of the host (and of the GPU for a simulation
+        on CUDA) and writes it into ``logdir`` for TensorBoard. The step
+        loop's phases are ranges named after the reference's scopes:
+        ``rebin`` (once a rebuild), ``integrate_step1``,
+        ``verlet_drift_check`` (with a grid), ``forces``,
+        ``integrate_step2`` (each once a step), ``updaters`` (a step where
+        an updater fires) and ``mpcd_joint_collision`` (once a collision).
+        Yields the ``torch.profiler.profile``."""
+        from torch.profiler import ProfilerActivity, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities,
+                                    on_trace_ready=tensorboard_trace_handler(str(logdir))) as prof:
+            self._phase_range = torch.profiler.record_function
+            try:
+                yield prof
+            finally:
+                self._phase_range = _no_range
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+
     # -- running -------------------------------------------------------------
     def _run_chunk(self, dense: State, meta: D.GridMeta, t0: int, n_steps: int,
                    seg_len: int, tbls, rebin_first: bool = True, solv=None):
@@ -608,9 +703,11 @@ class Simulation:
         velocity, t_a)``; the joint collision after step t (when the
         coupling's trigger holds at t, at MD clock t + 1) moves it.
         Returns ``(dense, meta, violated, solv)`` with ``violated`` a device
-        bool.
+        bool. Inside :meth:`profile`, each phase that does work is a range
+        named after the reference's scope.
         """
         spec = self._grid_spec
+        scope = self._phase_range
         integ = self.operations.integrator
         methods = integ.methods if integ is not None else []
         updaters = [u for u in self.operations.updaters
@@ -625,19 +722,27 @@ class Simulation:
         for j in range(n_steps):
             t = t0 + j
             if spec is not None and rebin_first and j % seg_len == 0:
-                dense, meta = D.rebin(dense, meta, spec, N_tags, self._fields, need_slot_of)
-            for m in methods:
-                dense = m.step1(dense, dt, t, seed)
+                with scope("rebin"):
+                    dense, meta = D.rebin(dense, meta, spec, N_tags, self._fields, need_slot_of)
+            with scope("integrate_step1"):
+                for m in methods:
+                    dense = m.step1(dense, dt, t, seed)
             if spec is not None:
-                viol = viol | D.needs_rebin(dense, meta, spec)
-            dense = self._set_net(dense, *self._compute_net(dense, meta, t, tbls))
-            for m in methods:
-                dense = m.step2(dense, dt, t, seed)
-            for u in updaters:
-                if u.trigger(t):
-                    dense = u._update(dense, t, seed)
+                with scope("verlet_drift_check"):
+                    viol = viol | D.needs_rebin(dense, meta, spec)
+            with scope("forces"):
+                dense = self._set_net(dense, *self._compute_net(dense, meta, t, tbls))
+            with scope("integrate_step2"):
+                for m in methods:
+                    dense = m.step2(dense, dt, t, seed)
+            fired = [u for u in updaters if u.trigger(t)]
+            if fired:
+                with scope("updaters"):
+                    for u in fired:
+                        dense = u._update(dense, t, seed)
             if coupling is not None and coupling.trigger(t):
-                dense, solv = coupling._collide(dense, solv, t + 1, seed, mass_s)
+                with scope("mpcd_joint_collision"):
+                    dense, solv = coupling._collide(dense, solv, t + 1, seed, mass_s)
         return dense, meta, viol, solv
 
     def _find_coupling(self):

@@ -28,7 +28,10 @@
 5. runs, through the public API, each with the launch counts set to 0 just
    before it and read just after:
    - the 64k perturbed-LJ Langevin headline (the JAX package's bench
-     headline, BASELINE config 1);
+     headline, BASELINE config 1), then [profile] 20 of its steps under
+     Simulation.profile: the trace's phase ranges counted (one of each step
+     phase a step, rebin once a build) and the device operations and
+     device-busy ms a step split by phase;
    - [io] the headline again, with writers: a Table of kT and the
      potential energy every 100 steps, a Trajectory (aztraj) and a GSD
      every 250, over 1,000 steps; the frames' timesteps, the last frame of
@@ -37,6 +40,11 @@
      without and with the writers in alternating turns; a checkpoint
      restored twice through load_checkpoint and once through
      create_state_from_gsd, the three runs of 200 steps equal bit for bit;
+   - [spatial] the headline built three times from one seed: whole, in 4
+     slabs (make_mesh(4, device="cuda")) and in 16 strips, run in turns for
+     300 steps (across the tune) and 300 more; the decomposed layouts equal
+     the whole one bit for bit after each stretch, K1 launched once a force
+     evaluation;
    - the DPD fluid (BASELINE config 3, 21,952 particles, ConstantVolume);
    - the polymer melt (BASELINE config 2, 1,280 chains of 25, Quartic
      bonds + ExpandedYukawa, Langevin);
@@ -50,7 +58,8 @@
    - colloid hydrodynamics (the JAX package's bench, bench.py:510-569):
      2,744 WCA colloids of mass 5 in a 163,840-particle SRD solvent driven
      by a body force, coupled through the joint collision every 20 steps,
-     warmed for 260 steps (the tune at step 150), then 400 timed steps;
+     warmed for 260 steps (the tune at step 150), then 400 timed steps, and
+     [profile] 40 more under Simulation.profile (two joint collisions);
    - the SRD Poiseuille slit (examples/mpcd_poiseuille.py at full size:
      40,000 solvent between no-slip plates, 3,000 steps, the profile read
      with CartesianVelocityFieldCompute over 16 bins);
@@ -148,6 +157,13 @@ IO_KT_BAND = 0.05
 IO_TURNS = 6
 IO_TURN_STEPS = 400
 IO_RESTART_STEPS = 200
+# [spatial]: the headline in 4 slabs (Dx = 12: 3 x planes a block) and 16
+# strips of 9 z columns, two stretches each, against the whole run
+SPATIAL_MESHES = (4, 16)
+SPATIAL_STRETCH = 300
+# [profile]: the headline's steps under Simulation.profile (the colloids
+# run two collision periods)
+PROFILE_STEPS = 20
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -1601,6 +1617,7 @@ def run_colloid(az, D, K, card, record):
           f"mean vx {vx_c:.4f}, colloids' kT {kT_c:.4f} (a reading); kernel vs plain on this "
           f"state: {on_state}", flush=True)
     time_pair_on_state(az, D, K.PK, sim, lj, "colloid")
+    run_profile(sim, "colloid", 2 * sim.mpcd_dynamics.period, card, collisions=2)
     del sim
     same, diff = _colloid_bits(az)
     print(f"[colloid] two identical 60-step runs agree bitwise: {same} (max |dv| {diff:.3e}; "
@@ -1931,6 +1948,150 @@ def run_examples(az, K, card, workdir, device="cuda"):
         os.chdir(cwd)
 
 
+# ---------------------------------------------------------------------------
+# [spatial] and [profile]
+# ---------------------------------------------------------------------------
+def _same_dense(what, got, want):
+    """Two simulations' slot layouts (positions, velocities, images, tags),
+    timesteps, rebuild counts and grids, bit for bit."""
+    if (got.timestep, got.n_builds, got._grid_spec) != (want.timestep, want.n_builds,
+                                                        want._grid_spec):
+        raise AssertionError(f"spatial: {what}: timestep, builds, grid {got.timestep}, "
+                             f"{got.n_builds}, {got._grid_spec} against {want.timestep}, "
+                             f"{want.n_builds}, {want._grid_spec}")
+    for field in ("position", "velocity", "image", "tag"):
+        a, b = getattr(got._dense, field), getattr(want._dense, field)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"spatial: {what}: {field} differs (max |d| "
+                                 f"{float((a.double() - b.double()).abs().max()):.3e})")
+
+
+def run_spatial(az, K, card):
+    """[spatial]: the 64k headline built three times from one seed, whole
+    (one block), in SPATIAL_MESHES[0] slabs and in SPATIAL_MESHES[1] strips
+    (blocks on the card, ``make_mesh(n, device="cuda")``), run in turns for
+    SPATIAL_STRETCH steps (across the tune at step 200) and SPATIAL_STRETCH
+    more; after each stretch the decomposed layouts must equal the whole
+    one bit for bit, and every force evaluation of every run must have
+    launched K1 (the counts set to 0 just before each run's stretch and read
+    just after). Returns the K1 launches."""
+    from azplugins_tpu_torch.parallel import make_mesh
+
+    runs = {1: build_headline(az, "cuda")[0]}
+    for n in SPATIAL_MESHES:
+        sim, _ = build_headline(az, "cuda")
+        sim.enable_spatial_decomposition(make_mesh(n, device="cuda"))
+        runs[n] = sim
+    launched = 0
+    ms = {n: [] for n in runs}
+    for stretch in (1, 2):
+        for n, sim in runs.items():
+            evals0 = sim.force_evaluations
+            _reset_counts(K)
+            ms[n].append(_timed_run(sim, SPATIAL_STRETCH)[0])
+            evals = sim.force_evaluations - evals0
+            k1 = K.PK.launches_by_potential.get("PerturbedLennardJones", 0)
+            if k1 != evals or K.PK.launches != evals or evals < SPATIAL_STRETCH:
+                raise AssertionError(f"spatial: n={n}: {K.PK.launches} K1 launches for {evals} "
+                                     f"force evaluations in {SPATIAL_STRETCH} steps")
+            launched += k1
+        for n in SPATIAL_MESHES:
+            _same_dense(f"n={n} after {runs[n].timestep} steps", runs[n], runs[1])
+    spec = runs[1]._grid_spec
+    for n, sim in runs.items():
+        kind = ("whole" if n == 1 else "slabs of whole x planes"
+                if spec.dims[0] % n == 0 else "strips of z columns")
+        print(f"[spatial] n={n} ({kind}): grid {spec.dims}, cap {spec.cap}, "
+              f"{spec.dims[0] * spec.dims[1] // n} z columns and {spec.S // n} slots a block; "
+              f"ms/step {ms[n][0]:.4f} (steps 0-{SPATIAL_STRETCH}, the tune inside), "
+              f"{ms[n][1]:.4f} (steps {SPATIAL_STRETCH}-{2 * SPATIAL_STRETCH}) on {card}; "
+              f"{sim.n_builds} builds since the tune, {sim.viol_replays} violation replays",
+              flush=True)
+    print(f"[spatial] n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit for "
+          f"bit (positions, velocities, images, tags in slot order) after {SPATIAL_STRETCH} "
+          f"and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, one a force evaluation",
+          flush=True)
+    return {"cell_pair_force[PerturbedLennardJones]": launched}
+
+
+PHASES = ("rebin", "integrate_step1", "verlet_drift_check", "forces", "integrate_step2",
+          "updaters", "mpcd_joint_collision")
+
+
+def _phase_split(trace):
+    """A ``Simulation.profile`` trace (Chrome JSON) -> (ranges by phase,
+    device operations by phase, device-busy us by phase). A device operation
+    belongs to the phase whose range encloses, on the same host thread, the
+    runtime call that launched it (matched by correlation id); "outside"
+    holds the rest of the run (its host reads, the solvent's advance)."""
+    import bisect
+    from collections import Counter, defaultdict
+
+    events = json.loads(Path(trace).read_text())["traceEvents"]
+    spans = defaultdict(list)
+    ranges = Counter()
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in PHASES:
+            ranges[e["name"]] += 1
+            spans[(e["pid"], e["tid"])].append((e["ts"], e["ts"] + e["dur"], e["name"]))
+    for v in spans.values():
+        v.sort()
+    phase_of = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            v = spans.get((e["pid"], e["tid"]), [])
+            i = bisect.bisect_right(v, (e["ts"], float("inf"), "")) - 1
+            if i >= 0 and v[i][0] <= e["ts"] <= v[i][1]:
+                phase_of[corr] = v[i][2]
+    ops, busy = Counter(), Counter()
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            phase = phase_of.get(e.get("args", {}).get("correlation"), "outside")
+            ops[phase] += 1
+            busy[phase] += e.get("dur", 0)
+    return ranges, ops, busy
+
+
+def run_profile(sim, label, steps, card, collisions=0):
+    """[profile]: ``steps`` steps of ``sim`` under ``sim.profile`` into a
+    directory inside the checkout (removed afterwards); the trace's ranges
+    must count one of each step phase a step (the force evaluations'
+    count, so a replayed step counts again), ``rebin`` once a build in the
+    window and ``mpcd_joint_collision`` ``collisions`` times (at least, and
+    at least once a build, when a replay or a capacity growth fell in the
+    window). Prints the device operations and device-busy ms a step under
+    each phase."""
+    evals0, builds0, replays0 = sim.force_evaluations, sim.n_builds, sim.viol_replays
+    spec0 = sim._grid_spec
+    n_forces = len(sim.operations.integrator.forces)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_profile_") as logdir:
+        with sim.profile(logdir):
+            sim.run(steps)
+        traces = list(Path(logdir).glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"profile: {label}: {len(traces)} trace files in {logdir}")
+        ranges, ops, busy = _phase_split(traces[0])
+    evaluated = (sim.force_evaluations - evals0) // n_forces
+    builds, replays = sim.n_builds - builds0, sim.viol_replays - replays0
+    exact = replays == 0 and sim._grid_spec == spec0
+    want = {"integrate_step1": evaluated, "verlet_drift_check": evaluated, "forces": evaluated,
+            "integrate_step2": evaluated, "updaters": 0}
+    if exact:
+        want.update(rebin=builds, mpcd_joint_collision=collisions)
+    got = {k: ranges[k] for k in want}
+    if (got != want or evaluated < steps or ranges["rebin"] < (builds if exact else 1)
+            or ranges["mpcd_joint_collision"] < collisions):
+        raise AssertionError(f"profile: {label}: ranges {dict(ranges)} against {want} "
+                             f"({replays} violation replays)")
+    split = "; ".join(f"{p} {ops[p] / steps:.1f} ops {busy[p] / 1000.0 / steps:.4f} ms"
+                      for p in (*PHASES, "outside") if ops[p] or ranges[p])
+    print(f"[profile] {label}: {steps} steps under sim.profile on {card}: ranges "
+          f"{dict(ranges)}; device operations and device-busy ms a step by phase: {split}; "
+          f"in all {sum(ops.values()) / steps:.1f} ops {sum(busy.values()) / 1000.0 / steps:.4f} "
+          f"ms", flush=True)
+
+
 def _build_report(cuda_build, sources):
     for src in sources:
         info = cuda_build.build_info[cuda_build.CSRC / src]
@@ -1996,9 +2157,11 @@ def main() -> int:
            lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}
     headline = count(run_path(az, D, K, card, record, "headline", build_headline, 2000, 1000,
                               plj, caps=(48, 72)))
+    run_profile(headline, "headline", PROFILE_STEPS, card)
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_io_") as workdir:
         count((run_io(az, K, card, headline, Path(workdir)), None))
     del headline
+    count((run_spatial(az, K, card), None))
     count(run_path(az, D, K, card, record, "dpd", build_dpd, 2000, 1000,
                    {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum,
                    caps=(8, 40)))
