@@ -198,10 +198,10 @@ struct Staged {
 // union cells, so of consecutive candidates, its n_seg segments.
 struct GroupPlan {
   int n_union, n_col, n_seg, self_u;  // self_u + j * n_col: member j's own cell
-  int prefix;                      // each cell's occupied slots are its first (the precondition)
+  int prefix;                      // the precondition holds and the window holds every cell
   int max_runs;                    // the most runs a member has
-  int cell[kMaxUnion];
-  int wrap[kMaxUnion];             // packed wrap of the union cell
+  int cell[kMaxUnion];             // the union cell's window cell
+  int wrap[kMaxUnion];             // packed wrap of the union cell; -1: outside the window
   int forward[kMaxUnion];          // staged shifted into the group's frame (see plan_group)
   int column[kMaxUnion];           // the class of the cell's column (enum Column)
   int start[kMaxUnion + 1];        // union cell u holds candidates [start[u], start[u + 1])
@@ -232,10 +232,12 @@ enum Column { kBefore = 0, kOwn, kAfter };
 // members; for a backward cell a member's own position is shifted into the
 // neighbour's frame (the separation is then the exact negation of the home
 // side's), and consecutive segments in which it takes the same shift form
-// a run of that member.
+// a run of that member. Cells are read at their window cell of `win`; a
+// union cell the window does not hold fails the plan (prefix 0).
 template <int B, bool MIN_IMAGE>
 __device__ void plan_group(GroupPlan& P, const int* __restrict__ tag, int cx, int cy, int z0,
-                           int n_members, int Dx, int Dy, int Dz, int cap) {
+                           int n_members, const az::Window& win, int Dx, int Dy, int Dz,
+                           int cap) {
   const int t = threadIdx.x, lane = t & 31;
   const int ey = az::stencil_extent(Dy), ez = az::stencil_extent(Dz);
   const int n_col = az::stencil_extent(Dx) * ey;
@@ -250,8 +252,10 @@ __device__ void plan_group(GroupPlan& P, const int* __restrict__ tag, int cx, in
     const int nx = az::wrap_cell(cx + ox, Dx, &wx);
     const int ny = az::wrap_cell(cy + oy, Dy, &wy);
     const int nzc = az::wrap_cell(z0 + pz + loz, Dz, &wz);
-    P.cell[u] = (nx * Dy + ny) * Dz + nzc;
-    P.wrap[u] = az::pack_wrap(wx, wy, wz);
+    const int wc = win.cell((nx * Dy + ny) * Dz + nzc, Dz, Dx * Dy);
+    // outside the window: counted at the group's first cell (always held), then refused
+    P.cell[u] = wc >= 0 ? wc : win.cell((cx * Dy + cy) * Dz + z0, Dz, Dx * Dy);
+    P.wrap[u] = wc >= 0 ? az::pack_wrap(wx, wy, wz) : -1;
     P.forward[u] = ox > 0 || (ox == 0 && (oy > 0 || (oy == 0 && pz == nz - 1)));
     P.column[u] = ox > 0 || (ox == 0 && oy > 0) ? kAfter : (ox == 0 && oy == 0 ? kOwn : kBefore);
     P.start[u + 1] = 0;  // the count, summed below
@@ -281,7 +285,8 @@ __device__ void plan_group(GroupPlan& P, const int* __restrict__ tag, int cx, in
         const int v = __shfl_up_sync(az::kFullMask, incl, o);
         if (lane >= o) incl += v;
       }
-      prefix = __all_sync(az::kFullMask, u >= n_union || P.last[u] == n) && prefix;
+      prefix = __all_sync(az::kFullMask, u >= n_union || (P.last[u] == n && P.wrap[u] >= 0)) &&
+               prefix;
       if (u < n_union) P.start[u + 1] = carry + incl;
       carry += __shfl_sync(az::kFullMask, incl, 31);
     }
@@ -437,7 +442,7 @@ __global__ void __launch_bounds__(kThreads)
     cell_aniso_force_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
                             const int* __restrict__ type_of, const int* __restrict__ tag,
                             const float* __restrict__ tab, int T, int Dx, int Dy, int Dz, int cap,
-                            int group, BoxArgs box, az::PackedLayout lay,
+                            int group, az::Window win, BoxArgs box, az::PackedLayout lay,
                             float* __restrict__ force, float* __restrict__ torque,
                             float* __restrict__ energy, float* __restrict__ virial) {
   constexpr int B = kThreads;
@@ -450,10 +455,13 @@ __global__ void __launch_bounds__(kThreads)
   unsigned short* list = reinterpret_cast<unsigned short*>(smem + lay.off_list);
   const int t = threadIdx.x, TT = T * T;
   const bool quat_aligned = (reinterpret_cast<size_t>(quat) & 15) == 0;
-  // this block's cells: (cx, cy, z0 + j), j < n_members, cell0 + j
+  // this block's cells: (cx, cy, z0 + j), j < n_members, of the grid's
+  // column cxy; own (output) cell cell0 + j, window (input) cell in0 + j
   const int n_gz = (Dz + group - 1) / group;
-  const int z0 = ((int)blockIdx.x % n_gz) * group, cxy = (int)blockIdx.x / n_gz;
-  const int n_members = min(group, Dz - z0), cell0 = cxy * Dz + z0;
+  const int z0 = ((int)blockIdx.x % n_gz) * group, own_col = (int)blockIdx.x / n_gz;
+  const int cxy = win.c0 + own_col;
+  const int n_members = min(group, Dz - z0), cell0 = own_col * Dz + z0;
+  const int in0 = win.cell(cxy * Dz + z0, Dz, Dx * Dy);
 
   const float* tabs = tab;
   if (lay.tab_floats > 0) {
@@ -461,7 +469,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int x = t; x < lay.tab_floats; x += B) s_tab[x] = __ldg(tab + x);
     tabs = s_tab;
   }
-  plan_group<B, MIN_IMAGE>(P, tag, cxy / Dy, cxy % Dy, z0, n_members, Dx, Dy, Dz, cap);
+  plan_group<B, MIN_IMAGE>(P, tag, cxy / Dy, cxy % Dy, z0, n_members, win, Dx, Dy, Dz, cap);
   if (!P.prefix) {
     for (int j = 0; j < n_members; ++j)
       az::poison_cell<B, WANT_ALL>(cell0 + j, cap, force, energy, virial, torque);
@@ -499,7 +507,7 @@ __global__ void __launch_bounds__(kThreads)
     if (active) {
       while (P.first[j + 1] <= pi) ++j;
       const int r = pi - P.first[j];
-      const int si = (cell0 + j) * cap + r;  // the precondition: the r-th slot
+      const int si = (in0 + j) * cap + r;  // the precondition: the r-th slot
       self_g = P.start[P.self_u + j * P.n_col] + r;  // its own candidate number
       ti = type_of[si];
       xi = pos[3 * si];
@@ -624,21 +632,25 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns its CUDA error (0 = launched).
 // `quat` is [S, 4] (w, x, y, z); `tables` holds kNTab stacked [T, T] float32
-// tables (enum Tab). `energy` and `virial` are written only when
+// tables (enum Tab). pos, quat, type_of and tag hold the window (w0,
+// n_cols) of the grid; the outputs, the n_own columns from c0
+// (cell_stencil.cuh, Window). `energy` and `virial` are written only when
 // want_all != 0 (and may be null otherwise).
 int az_cell_aniso_force(const float* pos, const float* quat, const int* type_of,
                         const int* tag, const float* tables, int T, int Dx, int Dy, int Dz,
-                        int cap, float Lx, float Ly, float Lz, float xy, float xz, float yz,
-                        float xyLy, float xzLz, float yzLz, int min_image, int want_all,
-                        float* force, float* torque, float* energy, float* virial,
-                        void* stream) {
+                        int cap, int w0, int n_cols, int c0, int n_own, float Lx, float Ly,
+                        float Lz, float xy, float xz, float yz, float xyLy, float xzLz,
+                        float yzLz, int min_image, int want_all, float* force, float* torque,
+                        float* energy, float* virial, void* stream) {
   dim3 grid, block;
   az::PackedLayout lay;
+  const az::Window win{w0, n_cols, c0, n_own};
   // a block takes kGroup cells along z where their stencils' cells are all
   // distinct (the half stencil, and kGroup + 2 cells along z), else one
   const int group = (!min_image && Dz >= kGroup + 2) ? kGroup : 1;
-  if (!az::packed_launch(Dx, Dy, Dz, cap, T, kNTab, sizeof(Staged), want_all ? 13 : 6, kThreads,
-                         &grid, &block, &lay, kStageEntries * (int)sizeof(Staged), group))
+  if (!az::packed_launch(Dx, Dy, Dz, cap, win, T, kNTab, sizeof(Staged), want_all ? 13 : 6,
+                         kThreads, &grid, &block, &lay, kStageEntries * (int)sizeof(Staged),
+                         group))
     return (int)cudaErrorInvalidValue;
   const BoxArgs box{Lx, Ly, Lz, xy, xz, yz, xyLy, xzLz, yzLz};
   auto kernel = want_all ? (min_image ? cell_aniso_force_kernel<true, true>
@@ -646,8 +658,8 @@ int az_cell_aniso_force(const float* pos, const float* quat, const int* type_of,
                          : (min_image ? cell_aniso_force_kernel<false, true>
                                       : cell_aniso_force_kernel<false, false>);
   return (int)az::launch_packed(kernel, grid, block, lay, static_cast<cudaStream_t>(stream), pos,
-                                quat, type_of, tag, tables, T, Dx, Dy, Dz, cap, group, box, lay,
-                                force, torque, energy, virial);
+                                quat, type_of, tag, tables, T, Dx, Dy, Dz, cap, group, win, box,
+                                lay, force, torque, energy, virial);
 }
 
 const char* az_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -94,7 +94,8 @@ __global__ void __launch_bounds__(kThreads)
     cell_dpd_force_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
                           const int* __restrict__ type_of, const int* __restrict__ tag,
                           const float* __restrict__ tab, int T, int Dx, int Dy, int Dz, int cap,
-                          BoxArgs box, uint32_t k0, uint32_t k1, az::PackedLayout lay,
+                          az::Window win, BoxArgs box, uint32_t k0, uint32_t k1,
+                          az::PackedLayout lay,
                           float* __restrict__ force, float* __restrict__ energy,
                           float* __restrict__ virial) {
   constexpr int B = kThreads;
@@ -105,7 +106,10 @@ __global__ void __launch_bounds__(kThreads)
   float4* stage_v = stage + lay.stage_cap;           // vx, vy, vz, tag bits
   float* part = reinterpret_cast<float*>(smem + lay.off_part);
   unsigned short* list = reinterpret_cast<unsigned short*>(smem + lay.off_list);
-  const int t = threadIdx.x, cell = blockIdx.x, TT = T * T;
+  const int t = threadIdx.x, TT = T * T;
+  // the block's cell: the grid's (geometry), its own output cell, and (after
+  // the plan) its window cell (inputs)
+  const int out_cell = blockIdx.x, cell = win.c0 * Dz + out_cell;
 
   const float* tabs = tab;
   if (lay.tab_floats > 0) {
@@ -113,14 +117,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int x = t; x < lay.tab_floats; x += B) s_tab[x] = __ldg(tab + x);
     tabs = s_tab;
   }
-  az::plan_stencil<B, MIN_IMAGE>(P, tag, cell, Dx, Dy, Dz, cap);  // synchronises
+  az::plan_stencil<B, MIN_IMAGE>(P, tag, cell, win, Dx, Dy, Dz, cap);  // synchronises
   if (!P.prefix) {
-    az::poison_cell<B, WANT_ALL>(cell, cap, force, energy, virial);
+    az::poison_cell<B, WANT_ALL>(out_cell, cap, force, energy, virial);
     return;
   }
+  const int in_cell = P.cell[P.self_seg];
   for (int r = t; r < cap; r += B) {  // empty slots sum to exactly zero
-    const int s = cell * cap + r;
-    if (tag[s] >= 0) continue;
+    if (tag[in_cell * cap + r] >= 0) continue;
+    const int s = out_cell * cap + r;
     force[3 * s] = force[3 * s + 1] = force[3 * s + 2] = 0.f;
     if (WANT_ALL) {
       energy[s] = 0.f;
@@ -140,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
     int ti = 0, tag_i = 0;
     float xi = 0.f, yi = 0.f, zi = 0.f, vxi = 0.f, vyi = 0.f, vzi = 0.f, rfilt = 0.f;
     if (active) {
-      const int si = cell * cap + ir;  // the precondition: the ir-th slot
+      const int si = in_cell * cap + ir;  // the precondition: the ir-th slot
       ti = type_of[si];
       tag_i = tag[si];
       xi = pos[3 * si];
@@ -243,7 +248,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     az::reduce_lanes<B, N_ACC>(part, acc, L, q, n_i, [&](int r, const float* sum) {
-      const int si = cell * cap + r;
+      const int si = out_cell * cap + r;
       force[3 * si] = sum[0];
       force[3 * si + 1] = sum[1];
       force[3 * si + 2] = sum[2];
@@ -261,16 +266,20 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns its CUDA error (0 = launched).
 // `tables` holds kNTab stacked [T, T] float32 tables (enum Tab); (k0, k1)
-// is the Threefry key. `energy` and `virial` are written only when
+// is the Threefry key. pos, vel, type_of and tag hold the window (w0,
+// n_cols) of the grid; the outputs, the n_own columns from c0
+// (cell_stencil.cuh, Window). `energy` and `virial` are written only when
 // want_all != 0 (and may be null otherwise).
 int az_cell_dpd_force(const float* pos, const float* vel, const int* type_of, const int* tag,
-                      const float* tables, int T, int Dx, int Dy, int Dz, int cap, float Lx,
-                      float Ly, float Lz, float xy, float xz, float yz, float xyLy, float xzLz,
-                      float yzLz, uint32_t k0, uint32_t k1, int min_image, int want_all,
-                      float* force, float* energy, float* virial, void* stream) {
+                      const float* tables, int T, int Dx, int Dy, int Dz, int cap, int w0,
+                      int n_cols, int c0, int n_own, float Lx, float Ly, float Lz, float xy,
+                      float xz, float yz, float xyLy, float xzLz, float yzLz, uint32_t k0,
+                      uint32_t k1, int min_image, int want_all, float* force, float* energy,
+                      float* virial, void* stream) {
   dim3 grid, block;
   az::PackedLayout lay;
-  if (!az::packed_launch(Dx, Dy, Dz, cap, T, kNTab, 32, want_all ? 10 : 3, kThreads, &grid,
+  const az::Window win{w0, n_cols, c0, n_own};
+  if (!az::packed_launch(Dx, Dy, Dz, cap, win, T, kNTab, 32, want_all ? 10 : 3, kThreads, &grid,
                          &block, &lay))
     return (int)cudaErrorInvalidValue;
   const BoxArgs box{Lx, Ly, Lz, xy, xz, yz, xyLy, xzLz, yzLz};
@@ -279,8 +288,8 @@ int az_cell_dpd_force(const float* pos, const float* vel, const int* type_of, co
                          : (min_image ? cell_dpd_force_kernel<false, true>
                                       : cell_dpd_force_kernel<false, false>);
   return (int)az::launch_packed(kernel, grid, block, lay, static_cast<cudaStream_t>(stream), pos,
-                                vel, type_of, tag, tables, T, Dx, Dy, Dz, cap, box, k0, k1, lay,
-                                force, energy, virial);
+                                vel, type_of, tag, tables, T, Dx, Dy, Dz, cap, win, box, k0, k1,
+                                lay, force, energy, virial);
 }
 
 const char* az_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -198,9 +198,9 @@ template <int POT, bool WANT_ALL, bool MIN_IMAGE, bool XPLOR>
 __global__ void __launch_bounds__(kThreads)
     cell_pair_force_kernel(const float* __restrict__ pos, const int* __restrict__ type_of,
                            const int* __restrict__ tag, const float* __restrict__ tab, int T,
-                           int Dx, int Dy, int Dz, int cap, BoxArgs box, az::PackedLayout lay,
-                           float* __restrict__ force, float* __restrict__ energy,
-                           float* __restrict__ virial) {
+                           int Dx, int Dy, int Dz, int cap, az::Window win, BoxArgs box,
+                           az::PackedLayout lay, float* __restrict__ force,
+                           float* __restrict__ energy, float* __restrict__ virial) {
   constexpr int B = kThreads;
   constexpr int N_ACC = WANT_ALL ? 10 : 3;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -208,7 +208,10 @@ __global__ void __launch_bounds__(kThreads)
   float4* stage = reinterpret_cast<float4*>(smem);  // x, y, z, typeid bits
   float* part = reinterpret_cast<float*>(smem + lay.off_part);
   unsigned short* list = reinterpret_cast<unsigned short*>(smem + lay.off_list);
-  const int t = threadIdx.x, cell = blockIdx.x, TT = T * T;
+  const int t = threadIdx.x, TT = T * T;
+  // the block's cell: the grid's (geometry), its own output cell, and (after
+  // the plan) its window cell (inputs)
+  const int out_cell = blockIdx.x, cell = win.c0 * Dz + out_cell;
 
   const float* tabs = tab;
   if (lay.tab_floats > 0) {
@@ -216,14 +219,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int x = t; x < lay.tab_floats; x += B) s_tab[x] = __ldg(tab + x);
     tabs = s_tab;
   }
-  az::plan_stencil<B, MIN_IMAGE>(P, tag, cell, Dx, Dy, Dz, cap);  // synchronises
+  az::plan_stencil<B, MIN_IMAGE>(P, tag, cell, win, Dx, Dy, Dz, cap);  // synchronises
   if (!P.prefix) {
-    az::poison_cell<B, WANT_ALL>(cell, cap, force, energy, virial);
+    az::poison_cell<B, WANT_ALL>(out_cell, cap, force, energy, virial);
     return;
   }
+  const int in_cell = P.cell[P.self_seg];
   for (int r = t; r < cap; r += B) {  // empty slots sum to exactly zero
-    const int s = cell * cap + r;
-    if (tag[s] >= 0) continue;
+    if (tag[in_cell * cap + r] >= 0) continue;
+    const int s = out_cell * cap + r;
     force[3 * s] = force[3 * s + 1] = force[3 * s + 2] = 0.f;
     if (WANT_ALL) {
       energy[s] = 0.f;
@@ -243,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
     int ti = 0;
     float xi = 0.f, yi = 0.f, zi = 0.f, rfilt = 0.f;
     if (active) {
-      const int si = cell * cap + ir;  // the precondition: the ir-th slot
+      const int si = in_cell * cap + ir;  // the precondition: the ir-th slot
       ti = type_of[si];
       xi = pos[3 * si];
       yi = pos[3 * si + 1];
@@ -328,7 +332,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     az::reduce_lanes<B, N_ACC>(part, acc, L, q, n_i, [&](int r, const float* sum) {
-      const int s = cell * cap + r;
+      const int s = out_cell * cap + r;
       force[3 * s] = sum[0];
       force[3 * s + 1] = sum[1];
       force[3 * s + 2] = sum[2];
@@ -349,6 +353,7 @@ struct LaunchArgs {
   const int* tag;
   const float* tab;
   int T, Dx, Dy, Dz, cap;
+  az::Window win;
   BoxArgs box;
   float* force;
   float* energy;
@@ -360,8 +365,8 @@ cudaError_t launch(const LaunchArgs& a, bool xplor) {
   auto kernel = xplor ? cell_pair_force_kernel<POT, WANT_ALL, MIN_IMAGE, true>
                       : cell_pair_force_kernel<POT, WANT_ALL, MIN_IMAGE, false>;
   return az::launch_packed(kernel, a.grid, a.block, a.lay, a.stream, a.pos, a.type_of, a.tag,
-                           a.tab, a.T, a.Dx, a.Dy, a.Dz, a.cap, a.box, a.lay, a.force, a.energy,
-                           a.virial);
+                           a.tab, a.T, a.Dx, a.Dy, a.Dz, a.cap, a.win, a.box, a.lay, a.force,
+                           a.energy, a.virial);
 }
 
 template <int POT>
@@ -377,18 +382,22 @@ extern "C" {
 // Launches the kernel on `stream` and returns its CUDA error (0 = launched).
 // `tables` holds kParam + n_params stacked [T, T] float32 tables (enum Tab).
 // xplor != 0 for tables built in mode xplor (the only mode whose kRonsq
-// row is read). `energy` and `virial` are written only when want_all != 0
-// (and may be null otherwise).
+// row is read). pos, type_of and tag hold the window (w0, n_cols) of the
+// grid; the outputs, the n_own columns from c0 (cell_stencil.cuh, Window).
+// `energy` and `virial` are written only when want_all != 0 (and may be
+// null otherwise).
 int az_cell_pair_force(const float* pos, const int* type_of, const int* tag, const float* tables,
-                       int T, int Dx, int Dy, int Dz, int cap, float Lx, float Ly, float Lz,
-                       float xy, float xz, float yz, float xyLy, float xzLz, float yzLz,
-                       int min_image, int potential, int xplor, int want_all, float* force,
-                       float* energy, float* virial, void* stream) {
+                       int T, int Dx, int Dy, int Dz, int cap, int w0, int n_cols, int c0,
+                       int n_own, float Lx, float Ly, float Lz, float xy, float xz, float yz,
+                       float xyLy, float xzLz, float yzLz, int min_image, int potential,
+                       int xplor, int want_all, float* force, float* energy, float* virial,
+                       void* stream) {
   LaunchArgs a;
   const bool all = want_all != 0, mi = min_image != 0, xp = xplor != 0;
+  a.win = az::Window{w0, n_cols, c0, n_own};
   if (potential < 0 || potential >= kNPot ||
-      !az::packed_launch(Dx, Dy, Dz, cap, T, kParam + n_params(potential), 16, all ? 10 : 3,
-                         kThreads, &a.grid, &a.block, &a.lay))
+      !az::packed_launch(Dx, Dy, Dz, cap, a.win, T, kParam + n_params(potential), 16,
+                         all ? 10 : 3, kThreads, &a.grid, &a.block, &a.lay))
     return (int)cudaErrorInvalidValue;
   a.stream = static_cast<cudaStream_t>(stream);
   a.pos = pos;

@@ -4,6 +4,15 @@
 // Layout (ops/dense.py): S = C * cap slots, cell-major; slot s = c * cap + r.
 // Cells are indexed (cx * Dy + cy) * Dz + cz. Empty slots carry tag < 0.
 //
+// Window (a spatial shard, parallel/spatial.py::halo_window): the input
+// arrays hold n_cols whole z columns of the grid (a column is cx * Dy + cy)
+// in ring order from column w0, each column Dz cells of cap slots; a launch
+// computes the n_own columns from column c0 (inside the window) and writes
+// its outputs for them alone, own cell (column - c0) * Dz + cz. Geometry
+// (the stencil, its wraps and lattice shifts) is the grid's; a neighbour
+// cell is then read at its window cell. The whole grid is w0 = c0 = 0,
+// n_cols = n_own = Dx * Dy, and gives what a launch without windows gave.
+//
 // One schedule, the packed schedule (the second half of this file): one
 // block per cell; the occupied slots of the whole stencil are staged once,
 // each i slot gets several lanes, and each lane lists the candidates inside
@@ -34,6 +43,18 @@ namespace az {
 
 struct BoxArgs {
   float Lx, Ly, Lz, xy, xz, yz, xyLy, xzLz, yzLz;
+};
+
+struct Window {
+  int w0, n_cols, c0, n_own;
+
+  // The window cell of the grid's cell g, or -1 where the window does not
+  // hold its column. cols = Dx * Dy.
+  __host__ __device__ __forceinline__ int cell(int g, int Dz, int cols) const {
+    int k = g / Dz - w0;
+    if (k < 0) k += cols;
+    return k < n_cols ? k * Dz + g % Dz : -1;
+  }
 };
 
 __device__ __forceinline__ int wrap_cell(int c, int D, int* w) {
@@ -159,9 +180,9 @@ __host__ __device__ __forceinline__ int stencil_extent(int D) { return D >= 3 ? 
 
 struct StencilPlan {
   int n_seg, self_seg, n_runs;
-  int prefix;                   // each segment's occupied slots are its first (the precondition)
-  int cell[kMaxSegments];
-  int wrap[kMaxSegments];       // packed wrap of the neighbour cell
+  int prefix;                   // the precondition holds and the window holds every segment
+  int cell[kMaxSegments];       // the neighbour's window cell
+  int wrap[kMaxSegments];       // packed wrap of the neighbour cell; -1: outside the window
   int forward[kMaxSegments];    // this cell is the pair's home side
   int start[kMaxSegments + 1];  // segment s holds candidates [start[s], start[s + 1])
   int last[kMaxSegments];       // one past the segment's last occupied slot
@@ -212,10 +233,12 @@ __device__ __forceinline__ void count_segments(Plan& P, const int* __restrict__ 
   }
 }
 
-// Step 1; every thread of the block calls it, and it ends synchronised.
+// Step 1 for the grid's cell `cell`, reading the window `win`; every
+// thread of the block calls it, and it ends synchronised. A neighbour cell
+// the window does not hold fails the plan (prefix 0), as a broken layout does.
 template <int B, bool MIN_IMAGE>
-__device__ void plan_stencil(StencilPlan& P, const int* __restrict__ tag, int cell, int Dx, int Dy,
-                             int Dz, int cap) {
+__device__ void plan_stencil(StencilPlan& P, const int* __restrict__ tag, int cell,
+                             const Window& win, int Dx, int Dy, int Dz, int cap) {
   const int t = threadIdx.x, lane = t & 31;
   const int ex = stencil_extent(Dx), ey = stencil_extent(Dy), ez = stencil_extent(Dz);
   const int n_seg = ex * ey * ez;
@@ -229,8 +252,10 @@ __device__ void plan_stencil(StencilPlan& P, const int* __restrict__ tag, int ce
     const int nx = wrap_cell(cx + ox, Dx, &wx);
     const int ny = wrap_cell(cy + oy, Dy, &wy);
     const int nz = wrap_cell(cz + oz, Dz, &wz);
-    P.cell[t] = (nx * Dy + ny) * Dz + nz;
-    P.wrap[t] = pack_wrap(wx, wy, wz);
+    const int wc = win.cell((nx * Dy + ny) * Dz + nz, Dz, Dx * Dy);
+    // outside the window: counted at this cell (always held), then refused
+    P.cell[t] = wc >= 0 ? wc : win.cell(cell, Dz, Dx * Dy);
+    P.wrap[t] = wc >= 0 ? pack_wrap(wx, wy, wz) : -1;
     P.forward[t] = ox > 0 || (ox == 0 && (oy > 0 || (oy == 0 && oz > 0)));
     P.start[t + 1] = 0;  // the count, summed below
     P.last[t] = 0;
@@ -258,7 +283,8 @@ __device__ void plan_stencil(StencilPlan& P, const int* __restrict__ tag, int ce
     const int prev = __shfl_sync(kFullMask, shift, before ? 31 - __clz(before) : lane);
     const bool starts = shift >= 0 && (before == 0 || prev != shift);
     const unsigned starts_mask = __ballot_sync(kFullMask, starts);
-    const bool prefix = __all_sync(kFullMask, lane >= n_seg || P.last[lane] == n);
+    const bool prefix =
+        __all_sync(kFullMask, lane >= n_seg || (P.last[lane] == n && P.wrap[lane] >= 0));
     const int M = __shfl_sync(kFullMask, incl, n_seg - 1);
     if (starts) {
       const int run = __popc(starts_mask & ((1u << lane) - 1u));
@@ -278,9 +304,10 @@ __device__ void plan_stencil(StencilPlan& P, const int* __restrict__ tag, int ce
   __syncthreads();
 }
 
-// The outputs of a cell whose stencil breaks the precondition: NaN in every
-// slot (the torque too, for a kernel that has one), so the caller sees the
-// layout was refused. Every thread calls it.
+// The outputs of a cell whose stencil breaks the precondition or leaves the
+// window: NaN in every slot of its own (output) cell, the torque too for a
+// kernel that has one, so the caller sees the input was refused. Every
+// thread calls it.
 template <int B, bool WANT_ALL>
 __device__ __forceinline__ void poison_cell(int cell, int cap, float* force, float* energy,
                                             float* virial, float* torque = nullptr) {
@@ -416,15 +443,22 @@ struct PackedLayout {
   int stage_cap, tab_floats, off_tab, off_part, off_list, bytes;
 };
 
-// Host side: grid, block and layout for blocks of `threads`; false for a
-// shape the kernels do not take. A kernel may stage in a smaller buffer
-// than kStageBytes, and may give a block `group` consecutive cells along z
-// (its stencil is then the cells within one of any of them).
-inline bool packed_launch(int Dx, int Dy, int Dz, int cap, int T, int n_tab_rows, int entry_bytes,
-                          int n_acc, int threads, dim3* grid, dim3* block, PackedLayout* L,
-                          int stage_bytes = kStageBytes, int group = 1) {
+// Host side: grid, block and layout for blocks of `threads` over the own
+// columns of `win`; false for a shape or a window the kernels do not take.
+// A kernel may stage in a smaller buffer than kStageBytes, and may give a
+// block `group` consecutive cells along z (its stencil is then the cells
+// within one of any of them).
+inline bool packed_launch(int Dx, int Dy, int Dz, int cap, const Window& win, int T,
+                          int n_tab_rows, int entry_bytes, int n_acc, int threads, dim3* grid,
+                          dim3* block, PackedLayout* L, int stage_bytes = kStageBytes,
+                          int group = 1) {
   const long long n_cells = (long long)Dx * Dy * Dz;
   if (n_cells <= 0 || n_cells > 2147483647LL || cap <= 0 || T <= 0) return false;
+  const int cols = Dx * Dy;
+  if (win.w0 < 0 || win.w0 >= cols || win.n_cols < 1 || win.n_cols > cols || win.c0 < 0 ||
+      win.n_own < 1 || win.c0 + win.n_own > cols ||
+      (win.c0 - win.w0 + cols) % cols + win.n_own > win.n_cols)
+    return false;
   if (stage_bytes < entry_bytes || stage_bytes > kStageBytes) return false;
   if (group < 1 || (group > 1 && group + 2 > Dz)) return false;
   auto align16 = [](long long b) { return (b + 15) & ~15LL; };
@@ -441,7 +475,7 @@ inline bool packed_launch(int Dx, int Dy, int Dz, int cap, int T, int n_tab_rows
   off = align16(off + 4LL * n_acc * threads);
   L->off_list = (int)off;
   L->bytes = (int)align16(off + 2LL * kListLen * threads);
-  *grid = dim3((unsigned)((long long)Dx * Dy * ((Dz + group - 1) / group)));
+  *grid = dim3((unsigned)((long long)win.n_own * ((Dz + group - 1) / group)));
   *block = dim3(threads);
   return true;
 }

@@ -37,6 +37,9 @@ class Force:
     # orientations of both members of a pair
     _produces_torque = False
     _needs_quat_j = False
+    # a pair force that reads the velocities of both members (DPD's drag):
+    # a shard's halo window then carries them
+    _needs_velocity_j = False
     # the force reads the particle diameters (the diameter column then rides
     # the rebuild even when every diameter has its default)
     _needs_diameter = False
@@ -62,6 +65,9 @@ class Force:
     def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl,
                        want="all") -> ForceResult:
         """Force in the dense (slot) layout; ``slot_of`` maps tag -> slot.
+        A stencil force (``_needs_nlist``) also takes ``window=``: on a
+        sharded mesh, the shard's halo window, for whose own slots it
+        computes.
 
         Default: a per-particle force, the same in any layout (``_compute``).
         """

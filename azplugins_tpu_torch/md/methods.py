@@ -126,11 +126,14 @@ class _GammaMixin:
         self._gamma_r_table = table(self.gamma_r)
 
     def _gamma_of(self, state):
-        # typeid is permuted (and -1 on empty slots) in the dense layout
-        return self._gamma_table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
+        # typeid is permuted (and -1 on empty slots) in the dense layout; a
+        # shard may lie on another device than the simulation
+        table = self._gamma_table.to(state.device)
+        return table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
 
     def _gamma_r_of(self, state):
-        return self._gamma_r_table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
+        table = self._gamma_r_table.to(state.device)
+        return table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
 
 
 class LangevinFlow(_GammaMixin, Method):

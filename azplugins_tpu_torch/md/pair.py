@@ -92,8 +92,9 @@ class Pair(Force):
             raise RuntimeError("not attached")
         return float(self._tbl["r_cut"].max())
 
-    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all"):
-        return pair_force(self._def.energy_force, dense, spec, tbl, self.mode, want)
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all", window=None):
+        return pair_force(self._def.energy_force, dense, spec, tbl, self.mode, want,
+                          window=window)
 
 
 class Colloid(Pair):
@@ -177,6 +178,7 @@ class DPDGeneralWeight(Pair):
 
     _evaluator_name = "DPDGeneralWeight"
     _accepted_modes = ("none",)
+    _needs_velocity_j = True
 
     def __init__(self, nlist: Cell, kT, default_r_cut=None, mode="none"):
         super().__init__(nlist, default_r_cut=default_r_cut, mode=mode)
@@ -189,8 +191,9 @@ class DPDGeneralWeight(Pair):
         return {"params": {k: dev(v) for k, v in self._tbl["params"].items()},
                 "r_cut": dev(self._tbl["r_cut"])}
 
-    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all"):
-        return dpd_force(dense, spec, tbl, self.kT(timestep), ctx.dt, ctx.seed, timestep, want)
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all", window=None):
+        return dpd_force(dense, spec, tbl, self.kT(timestep), ctx.dt, ctx.seed, timestep, want,
+                         window=window)
 
 
 class TwoPatchMorse(Force):
@@ -246,5 +249,6 @@ class TwoPatchMorse(Force):
             raise RuntimeError("not attached")
         return float(self._tbl["r_cut"].max())
 
-    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all"):
-        return aniso_force(self._def.energy_force_torque, dense, spec, tbl, self.mode, want)
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all", window=None):
+        return aniso_force(self._def.energy_force_torque, dense, spec, tbl, self.mode, want,
+                           window=window)

@@ -27,10 +27,10 @@ import torch
 
 from ..core.state import State
 from .cuda_build import load_library
-from .dense import GridSpec, dense_aniso_force, make_jblocks
+from .dense import GridSpec, Window, dense_aniso_force, make_jblocks
 from .evaluators.aniso import morse_cut, two_patch_morse
 from .pair_force import ForceResult
-from .pair_kernel import box_args, check_cell_args, check_tensor, launch_error
+from .pair_kernel import box_args, check_cell_args, check_tensor, launch_error, launch_window
 
 __all__ = ["launches", "KERNEL_TABLES", "aniso_kernel_tables", "cell_aniso_force", "aniso_force"]
 
@@ -67,7 +67,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.az_cell_aniso_force
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i] + [f] * 9 + [i, i, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i] + [f] * 9 + [i, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
@@ -75,17 +75,19 @@ def _library() -> ctypes.CDLL:
 
 
 def cell_aniso_force(dense: State, spec: GridSpec, tables: torch.Tensor,
-                     want: str = "force") -> ForceResult:
+                     want: str = "force", window: Window | None = None) -> ForceResult:
     """Launch the CUDA kernel on the current stream (no synchronisation).
 
     ``tables`` comes from :func:`aniso_kernel_tables` (it carries the mode).
     Returns per-slot force ``[S, 3]`` and torque ``[S, 3]``, plus energy
-    ``[S]`` and virial ``[S, 6]`` when ``want="all"``.
+    ``[S]`` and virial ``[S, 6]`` when ``want="all"``; with a ``window``,
+    read from ``window.state``, for its own slots.
     """
     global launches
-    dev = check_cell_args("cell_aniso_force", dense, spec, want)
-    S, T = spec.S, tables.shape[-1]
-    check_tensor(dense.orientation, "orientation", torch.float32, (S, 4), dev)
+    dense, geom, S_in, S = launch_window(dense, spec, window)
+    dev = check_cell_args("cell_aniso_force", dense, spec, want, S_in)
+    T = tables.shape[-1]
+    check_tensor(dense.orientation, "orientation", torch.float32, (S_in, 4), dev)
     check_tensor(tables, "tables", torch.float32, (len(KERNEL_TABLES), T, T), dev)
 
     lib = _library()
@@ -94,15 +96,17 @@ def cell_aniso_force(dense: State, spec: GridSpec, tables: torch.Tensor,
     want_all = want == "all"
     energy = torch.empty((S,), dtype=torch.float32, device=dev) if want_all else None
     virial = torch.empty((S, 6), dtype=torch.float32, device=dev) if want_all else None
-    err = lib.az_cell_aniso_force(
-        dense.position.data_ptr(), dense.orientation.data_ptr(), dense.typeid.data_ptr(),
-        dense.tag.data_ptr(), tables.data_ptr(), T, *spec.dims, spec.cap, *box_args(dense),
-        int(not spec.newton_ok), int(want_all),
-        force.data_ptr(), torque.data_ptr(),
-        energy.data_ptr() if want_all else None,
-        virial.data_ptr() if want_all else None,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # launched with the tensors' device current (a shard may lie on another card)
+    with torch.cuda.device(dev):
+        err = lib.az_cell_aniso_force(
+            dense.position.data_ptr(), dense.orientation.data_ptr(), dense.typeid.data_ptr(),
+            dense.tag.data_ptr(), tables.data_ptr(), T, *spec.dims, spec.cap, *geom,
+            *box_args(dense), int(not spec.newton_ok), int(want_all),
+            force.data_ptr(), torque.data_ptr(),
+            energy.data_ptr() if want_all else None,
+            virial.data_ptr() if want_all else None,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise launch_error(lib, "cell_aniso_force", err)
     launches += 1
@@ -110,7 +114,7 @@ def cell_aniso_force(dense: State, spec: GridSpec, tables: torch.Tensor,
 
 
 def aniso_force(energy_force_torque_fn, dense: State, spec: GridSpec, tbl: dict,
-                mode: str = "none", want: str = "all") -> ForceResult:
+                mode: str = "none", want: str = "all", window: Window | None = None) -> ForceResult:
     """TwoPatchMorse force and torque on the dense grid, by the tensors' device.
 
     ``tbl`` holds the device tables of
@@ -118,13 +122,15 @@ def aniso_force(energy_force_torque_fn, dense: State, spec: GridSpec, tbl: dict,
     ``r_cut`` and, on CUDA, the stacked ``kernel`` tables with the
     ``kernel_mode`` they were built for, which must be ``mode`` (the kernel
     reads the shift from its tables). CPU tensors take the plain version;
-    CUDA tensors take the kernel.
+    CUDA tensors take the kernel. With a ``window`` (a shard's), the force
+    and torque of its own slots, read from ``window.state``.
     """
-    dev = dense.position.device
+    src = dense if window is None else window.state
+    dev = src.position.device
     if dev.type == "cpu":
-        jb = make_jblocks(dense, spec, half=spec.newton_ok, need_quat=True)
-        return dense_aniso_force(energy_force_torque_fn, dense, jb, spec, tbl["params"],
-                                 tbl["r_cut"], mode, want)
+        jb = make_jblocks(src, spec, half=spec.newton_ok, need_quat=True, window=window)
+        return dense_aniso_force(energy_force_torque_fn, src, jb, spec, tbl["params"],
+                                 tbl["r_cut"], mode, want, window=window)
     if dev.type != "cuda":
         raise ValueError(f"no anisotropic force for device {dev}")
     if energy_force_torque_fn is not two_patch_morse:
@@ -134,4 +140,4 @@ def aniso_force(energy_force_torque_fn, dense: State, spec: GridSpec, tbl: dict,
     if tbl.get("kernel_mode") != mode:
         raise ValueError(f"tbl['kernel'] was built for mode {tbl.get('kernel_mode')!r}, "
                          f"not {mode!r}")
-    return cell_aniso_force(dense, spec, tbl["kernel"], want)
+    return cell_aniso_force(dense, spec, tbl["kernel"], want, window=window)

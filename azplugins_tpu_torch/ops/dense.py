@@ -40,6 +40,7 @@ from .pair_force import ForceResult, _xplor_smooth
 __all__ = [
     "GridSpec",
     "GridMeta",
+    "Window",
     "JBlocks",
     "densify",
     "undensify",
@@ -167,6 +168,37 @@ class GridMeta:
     max_occ: torch.Tensor  # int32: max cell occupancy seen since densify
 
 
+@frozen_dataclass
+class Window:
+    """The slots one spatial shard's stencil reads, and the ones it owns.
+
+    ``state`` holds ``n_cols`` whole z cell columns in ring order: window
+    column k is the grid's column ``(w0 + k) mod (Dx*Dy)`` (a column is
+    ``cx * Dy + cy``), each column ``Dz * cap`` slots, cell-major as in the
+    grid. The shard owns the ``n_own`` columns from column ``c0``, which lie
+    inside the window; a windowed force is computed, and returned, for the
+    own slots only (``n_own * Dz * cap`` of them). The whole grid is
+    ``w0 = 0`` and ``n_cols = Dx*Dy`` (parallel/spatial.py::halo_window).
+    """
+
+    state: State
+    w0: int
+    n_cols: int
+    c0: int
+    n_own: int
+
+    def own_range(self, spec: GridSpec) -> tuple:
+        """(first, end) of the own slots among the window's."""
+        cols = spec.dims[0] * spec.dims[1]
+        per_col = spec.dims[2] * spec.cap
+        first = ((self.c0 - self.w0) % cols) * per_col
+        return first, first + self.n_own * per_col
+
+    def whole(self, spec: GridSpec) -> bool:
+        """The window is the grid in its own order."""
+        return self.w0 == 0 and self.n_cols == spec.dims[0] * spec.dims[1]
+
+
 # ---------------------------------------------------------------------------
 # Binning: sort + row gathers
 # ---------------------------------------------------------------------------
@@ -251,10 +283,12 @@ def _payload_default_row(layout: tuple, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(vals, dtype=np.int32)[None, :], device=device)
 
 
-def _sentinel_x(S: int, box: Box, spec: GridSpec, device) -> torch.Tensor:
-    """Far-away x coordinates for empty slots: ``Lx + (slot+1)(Lx + 2 r_list)``."""
+def _sentinel_x(S: int, box: Box, spec: GridSpec, device, first: int = 0) -> torch.Tensor:
+    """Far-away x coordinates for empty slots: ``Lx + (slot+1)(Lx + 2 r_list)``,
+    for the ``S`` slots from global slot ``first`` (a shard's slice of the
+    grid's sentinels, value for value)."""
     stride = float(box.L[0] + np.float32(2.0 * spec.r_list))
-    slot = torch.arange(S, dtype=torch.float32, device=device)
+    slot = torch.arange(first, first + S, dtype=torch.float32, device=device)
     return box.Lx + (slot + 1.0) * stride
 
 
@@ -414,6 +448,27 @@ def undensify(dense: State, N: int, fields: tuple = ALL_FIELDS) -> State:
     return _state_from_payload(out[:N], layout, dense, dense.box)
 
 
+def _drift_sq(dense: State, meta: GridMeta) -> torch.Tensor:
+    """Each slot's squared drift since the last rebuild (0 for empty slots)."""
+    d = dense.position - meta.ref_position
+    dispsq = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    return torch.where(dense.tag >= 0, dispsq, 0.0)
+
+
+def _top_two(v: torch.Tensor) -> tuple:
+    """The largest value of ``v`` and the second largest, ties counted (the
+    largest again when it occurs twice)."""
+    m1 = v.max()
+    at_max = v == m1
+    tied = at_max.sum() > 1
+    return m1, torch.where(tied, m1, torch.where(at_max, -math.inf, v).max())
+
+
+def _drift_exceeds(m1, m2, spec: GridSpec) -> torch.Tensor:
+    m2 = torch.clamp_min(m2, 0.0)
+    return torch.sqrt(m1) + torch.sqrt(m2) > float(np.float32(spec.buffer))
+
+
 def needs_rebin(dense: State, meta: GridMeta, spec: GridSpec) -> torch.Tensor:
     """Exact pair-drift rebuild criterion, as a device bool.
 
@@ -422,15 +477,19 @@ def needs_rebin(dense: State, meta: GridMeta, spec: GridSpec) -> torch.Tensor:
     single-particle drifts (ties counted), so the check is
     ``sqrt(max1) + sqrt(max2) > buffer``.
     """
-    d = dense.position - meta.ref_position
-    dispsq = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-    dispsq = torch.where(dense.tag >= 0, dispsq, 0.0)
-    m1 = dispsq.max()
-    at_max = dispsq == m1
-    tied = at_max.sum() > 1
-    m2 = torch.where(tied, m1, torch.where(at_max, -math.inf, dispsq).max())
-    m2 = torch.clamp_min(m2, 0.0)
-    return torch.sqrt(m1) + torch.sqrt(m2) > float(np.float32(spec.buffer))
+    return _drift_exceeds(*_top_two(_drift_sq(dense, meta)), spec)
+
+
+def drift_top_two(dense: State, meta: GridMeta) -> torch.Tensor:
+    """[2]: one shard's two largest squared drifts, ties counted; the two of
+    every shard hold the grid's two, so :func:`needs_rebin_of` on them all
+    is :func:`needs_rebin` on the whole grid."""
+    return torch.stack(_top_two(_drift_sq(dense, meta)))
+
+
+def needs_rebin_of(top_twos: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """:func:`needs_rebin` from the shards' :func:`drift_top_two`, concatenated."""
+    return _drift_exceeds(*_top_two(top_twos), spec)
 
 
 # ---------------------------------------------------------------------------
@@ -507,19 +566,80 @@ def _roll_cells(a: torch.Tensor, shift) -> torch.Tensor:
     return torch.roll(a, shifts=tuple(int(s) for s in shift), dims=(0, 1, 2))
 
 
+@functools.lru_cache(maxsize=64)
+def _window_map(dims: tuple, w0: int, n_cols: int, offsets: tuple, sign: int) -> tuple:
+    """Host tables of a window's stencil: for each offset o and window cell,
+    the window cell holding the neighbour at ``sign * o`` (-1 where the
+    window does not hold it) and that neighbour's wrap on each grid axis
+    (-1, 0, 1). The neighbour is the grid's cell, wrapped as the halo pad
+    wraps it, and found through the same global-to-window column map the
+    kernels use."""
+    Dx, Dy, Dz = dims
+    cols = Dx * Dy
+    q = (w0 + np.arange(n_cols)) % cols
+    cx, cy, cz = (q // Dy)[:, None], (q % Dy)[:, None], np.arange(Dz)[None, :]
+    cells, wraps = [], []
+    for o in offsets:
+        n = [cx + sign * o[0], cy + sign * o[1], cz + sign * o[2]]
+        w = [np.broadcast_to((a >= D).astype(np.int8) - (a < 0), (n_cols, Dz))
+             for a, D in zip(n, dims)]
+        nx, ny, nz = (a % D for a, D in zip(n, dims))
+        wcol = (nx * Dy + ny - w0) % cols
+        cells.append(np.where(wcol < n_cols, wcol * Dz + nz, -1).reshape(-1))
+        wraps.append(np.stack(w, axis=-1).reshape(-1, 3))
+    return np.stack(cells), np.stack(wraps)
+
+
+def _window_tables(window: Window, spec: GridSpec, offsets, sign: int, device) -> tuple:
+    cells, wraps = _window_map(tuple(spec.dims), window.w0, window.n_cols,
+                               tuple(tuple(int(v) for v in o) for o in offsets), sign)
+    return (torch.as_tensor(cells, dtype=torch.int64, device=device),
+            torch.as_tensor(wraps, device=device))
+
+
+def _window_concat(arr: torch.Tensor, spec: GridSpec, cells, wraps, fill,
+                   axis_shifts=None) -> torch.Tensor:
+    """[S_window] -> [n_offsets, window cells, cap]: the occupants of every
+    stencil cell (``fill`` where the window does not hold it), shifted axis
+    by axis where the neighbour wraps, as :func:`_halo_pad` shifts them."""
+    g = arr.reshape(-1, spec.cap)
+    held = (cells >= 0)[..., None]
+    out = torch.where(held, g[cells.clamp_min(0)], fill)
+    if axis_shifts is not None:
+        for ax, s in enumerate(axis_shifts):
+            if s is not None:
+                w = wraps[..., ax][..., None]
+                out = torch.where(w > 0, out + s, torch.where(w < 0, out - s, out))
+    return out
+
+
+def _drive_window(window: Window | None, spec: GridSpec) -> Window | None:
+    """The window the plain stencil walks: None (the grid's own roll) for a
+    window that is the whole grid in its order."""
+    return None if window is None or window.whole(spec) else window
+
+
 def make_jblocks(dense: State, spec: GridSpec, half: bool = False,
                  need_velocity: bool = False, need_tag: bool = False,
-                 need_quat: bool = False) -> JBlocks:
+                 need_quat: bool = False, window: Window | None = None) -> JBlocks:
+    """The stencil's neighbour data; with a ``window`` (``dense`` is then
+    ``window.state``), for every cell of the window, gathered through the
+    window's column map."""
     offsets = spec.half_stencil() if half else spec.stencil()
     preshifted = spec.newton_ok
     sx, sy, sz = _axis_shift_tables(dense.box) if preshifted else (None, None, None)
+    window = _drive_window(window, spec)
+    if window is not None:
+        cells, wraps = _window_tables(window, spec, offsets, 1, dense.device)
 
-    def roll(a, shifts=None):
-        return _roll_concat(a, spec, offsets, shifts)
+    def roll(a, shifts=None, fill=0):
+        if window is None:
+            return _roll_concat(a, spec, offsets, shifts)
+        return _window_concat(a, spec, cells, wraps, fill, shifts)
 
     kw = {}
     if need_tag:
-        kw["tag"] = roll(dense.tag)
+        kw["tag"] = roll(dense.tag, fill=-1)
     if need_velocity:
         kw.update(vx=roll(dense.velocity[:, 0]), vy=roll(dense.velocity[:, 1]),
                   vz=roll(dense.velocity[:, 2]))
@@ -530,7 +650,7 @@ def make_jblocks(dense: State, spec: GridSpec, half: bool = False,
         x=roll(dense.position[:, 0], sx),
         y=roll(dense.position[:, 1], sy),
         z=roll(dense.position[:, 2], sz),
-        typeid=roll(dense.typeid),
+        typeid=roll(dense.typeid, fill=-1),
         half=half,
         preshifted=preshifted,
         **kw,
@@ -573,8 +693,14 @@ _J_FIELDS = {
 }
 
 
+def _n_cells(spec: GridSpec, window: Window | None) -> int:
+    """The cells a plain stencil sums for: the grid's, or a window's."""
+    window = _drive_window(window, spec)
+    return spec.n_cells if window is None else window.n_cols * spec.dims[2]
+
+
 def _stencil_drive(dense: State, jb: JBlocks, spec: GridSpec, n_acc: int, pair_terms,
-                   j_fields=("typeid",)) -> tuple:
+                   j_fields=("typeid",), window: Window | None = None) -> tuple:
     """Sum per-pair terms over the dense stencil (plain PyTorch).
 
     ``pair_terms(dx, dy, dz, rsq, mask, j, newton)`` receives one batch of
@@ -593,8 +719,16 @@ def _stencil_drive(dense: State, jb: JBlocks, spec: GridSpec, n_acc: int, pair_t
     its terms go to both members (the j side in the neighbour-cell frame,
     rolled back to its true cell afterwards); otherwise the full stencil
     pairs every slot with every neighbour under minimum image.
+
+    With a ``window`` (``dense`` is ``window.state`` and ``jb`` its
+    :func:`make_jblocks`), the sums run over the window's cells and the j
+    side goes back to its true cell through the window's column map in
+    place of the roll: each cell the window holds with its whole stencil
+    (the own cells, by construction) sums the same pairs in the same order
+    as on the whole grid, so its sums are the whole grid's, bit for bit.
     """
-    C, cap = spec.n_cells, spec.cap
+    C, cap = _n_cells(spec, window), spec.cap
+    window = _drive_window(window, spec)
 
     def i_view(a):
         return a.reshape(C, cap, 1)
@@ -633,8 +767,11 @@ def _stencil_drive(dense: State, jb: JBlocks, spec: GridSpec, n_acc: int, pair_t
         return carry
 
     Dx, Dy, Dz = spec.dims
+    half = spec.half_stencil()
+    if window is not None:
+        back, _ = _window_tables(window, spec, half, -1, dense.device)
     rolled = []
-    for k, o in enumerate(spec.half_stencil()):
+    for k, o in enumerate(half):
         dx = xi - jb.x[k][:, None, :]
         dy = yi - jb.y[k][:, None, :]
         dz = zi - jb.z[k][:, None, :]
@@ -642,8 +779,13 @@ def _stencil_drive(dense: State, jb: JBlocks, spec: GridSpec, n_acc: int, pair_t
         j = {name: getattr(jb, name)[k][:, None, :] for name in j_fields}
         ti, tj = pair_terms(dx, dy, dz, rsq, valid_i & (j["typeid"] >= 0), j, True)
         carry = isum(carry, ti)
-        g = jsum(tj).reshape(Dx, Dy, Dz, cap, n_acc)
-        rolled.append(_roll_cells(g, o).reshape(C, cap, n_acc))
+        if window is None:
+            g = jsum(tj).reshape(Dx, Dy, Dz, cap, n_acc)
+            rolled.append(_roll_cells(g, o).reshape(C, cap, n_acc))
+        else:
+            # the j side of the pairs homed at cell c - o, moved to cell c
+            b = back[k]
+            rolled.append(torch.where((b >= 0)[:, None, None], jsum(tj)[b.clamp_min(0)], 0.0))
 
     # self cell: strict upper triangle (i < j within the cell)
     ar = torch.arange(cap, device=dense.device)
@@ -663,7 +805,7 @@ def _stencil_drive(dense: State, jb: JBlocks, spec: GridSpec, n_acc: int, pair_t
 
 
 def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair,
-                 j_fields=("typeid",)) -> ForceResult:
+                 j_fields=("typeid",), window: Window | None = None) -> ForceResult:
     """Sum a central pair evaluation over the dense stencil.
 
     ``eval_pair(dx, dy, dz, rsq, mask, j)`` (the arguments of
@@ -684,7 +826,8 @@ def _stencil_sum(dense: State, jb: JBlocks, spec: GridSpec, want: str, eval_pair
                     w * dy * dy, w * dy * dz, w * dz * dz]
         return out, ([-a for a in out[:3]] + out[3:] if newton else None)
 
-    return _finish(_stencil_drive(dense, jb, spec, _n_acc(want), terms, j_fields), spec.S)
+    carry = _stencil_drive(dense, jb, spec, _n_acc(want), terms, j_fields, window)
+    return _own(_finish(carry, _n_cells(spec, window) * spec.cap), window, spec)
 
 
 def _finish(carry, S: int) -> ForceResult:
@@ -693,6 +836,20 @@ def _finish(carry, S: int) -> ForceResult:
     if len(parts) == 3:
         return ForceResult(force=force, energy=None, virial=None)
     return ForceResult(force=force, energy=parts[3], virial=torch.stack(parts[4:10], dim=-1))
+
+
+def _own(r: ForceResult, window: Window | None, spec: GridSpec) -> ForceResult:
+    """A windowed result cut to the window's own slots (whole-grid results
+    pass through)."""
+    if window is None:
+        return r
+    lo, hi = window.own_range(spec)
+
+    def cut(a):
+        return None if a is None else a[lo:hi]
+
+    return ForceResult(force=cut(r.force), energy=cut(r.energy), virial=cut(r.virial),
+                       torque=cut(r.torque))
 
 
 # ---------------------------------------------------------------------------
@@ -725,10 +882,12 @@ def dense_pair_force(
     r_on_table: torch.Tensor | None = None,
     mode: str = "none",
     want: str = "all",
+    window: Window | None = None,
 ) -> ForceResult:
-    """Isotropic pair potential over the dense stencil (plain PyTorch)."""
+    """Isotropic pair potential over the dense stencil (plain PyTorch); with
+    a ``window`` (``dense`` is ``window.state``), for its own slots."""
     T = r_cut_table.shape[0]
-    t_i = dense.typeid.reshape(spec.n_cells, spec.cap, 1)
+    t_i = dense.typeid.reshape(_n_cells(spec, window), spec.cap, 1)
 
     def eval_pair(dx, dy, dz, rsq, mask, j):
         radii = {"_r_cut": r_cut_table} | ({"_r_on": r_on_table} if mode == "xplor" else {})
@@ -739,7 +898,7 @@ def dense_pair_force(
         e, f = _eval_pair_mode(energy_force_fn, rsq, rcut, rcutsq, p, mode, r_on)
         return f, e, f, mask
 
-    return _stencil_sum(dense, jb, spec, want, eval_pair)
+    return _stencil_sum(dense, jb, spec, want, eval_pair, window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -766,8 +925,10 @@ def dense_dpd_force(
     seed: int,
     timestep: int,
     want: str = "all",
+    window: Window | None = None,
 ) -> ForceResult:
-    """DPD general-weight thermostat over the dense stencil (plain PyTorch).
+    """DPD general-weight thermostat over the dense stencil (plain PyTorch);
+    with a ``window`` (``dense`` is ``window.state``), for its own slots.
 
     Port of the reference ``dense_dpd_force`` (reference plugin
     DPDPairEvaluatorGeneralWeight.h:198-255): conservative ``A (1/r -
@@ -779,7 +940,7 @@ def dense_dpd_force(
     (reference :239); the energy goes e/2 to each side.
     """
     T = r_cut_table.shape[0]
-    C, cap = spec.n_cells, spec.cap
+    C, cap = _n_cells(spec, window), spec.cap
 
     def i_view(a):
         return a.reshape(C, cap, 1)
@@ -815,7 +976,7 @@ def dense_dpd_force(
         return f_cons + f_drag + f_rand, e, f_cons, mask
 
     return _stencil_sum(dense, jb, spec, want, eval_dpd,
-                        j_fields=("typeid", "tag", "vx", "vy", "vz"))
+                        j_fields=("typeid", "tag", "vx", "vy", "vz"), window=window)
 
 
 # ---------------------------------------------------------------------------
@@ -830,8 +991,10 @@ def dense_aniso_force(
     r_cut_table: torch.Tensor,
     mode: str = "none",
     want: str = "all",
+    window: Window | None = None,
 ) -> ForceResult:
-    """Anisotropic pair potential (force and torque) over the dense stencil.
+    """Anisotropic pair potential (force and torque) over the dense stencil;
+    with a ``window`` (``dense`` is ``window.state``), for its own slots.
 
     Port of the reference ``dense_aniso_force``. ``jb`` must carry the
     quaternions (``make_jblocks(..., need_quat=True)``). ``want="force"``
@@ -849,7 +1012,7 @@ def dense_aniso_force(
     if want not in ("force", "all"):
         raise ValueError(f"want must be 'force' or 'all', got {want!r}")
     T = r_cut_table.shape[0]
-    C, cap = spec.n_cells, spec.cap
+    C, cap = _n_cells(spec, window), spec.cap
 
     def i_view(a):
         return a.reshape(C, cap, 1)
@@ -885,14 +1048,16 @@ def dense_aniso_force(
 
     n_acc = 6 if want == "force" else 13
     carry = _stencil_drive(dense, jb, spec, n_acc, terms,
-                           j_fields=("typeid", "qw", "qx", "qy", "qz"))
-    parts = tuple(a.reshape(spec.S) for a in carry)
+                           j_fields=("typeid", "qw", "qx", "qy", "qz"), window=window)
+    parts = tuple(a.reshape(C * cap) for a in carry)
     force = torch.stack(parts[:3], dim=-1)
     torque = torch.stack(parts[3:6], dim=-1)
     if want == "force":
-        return ForceResult(force=force, energy=None, virial=None, torque=torque)
-    return ForceResult(force=force, energy=parts[6], virial=torch.stack(parts[7:13], dim=-1),
-                       torque=torque)
+        r = ForceResult(force=force, energy=None, virial=None, torque=torque)
+    else:
+        r = ForceResult(force=force, energy=parts[6], virial=torch.stack(parts[7:13], dim=-1),
+                        torque=torque)
+    return _own(r, window, spec)
 
 
 # ---------------------------------------------------------------------------

@@ -26,9 +26,9 @@ import torch
 from ..core import rng as _rng
 from ..core.state import State
 from .cuda_build import load_library
-from .dense import GridSpec, dense_dpd_force, dpd_sigma_table, make_jblocks
+from .dense import GridSpec, Window, dense_dpd_force, dpd_sigma_table, make_jblocks
 from .pair_force import ForceResult
-from .pair_kernel import box_args, check_cell_args, check_tensor, launch_error
+from .pair_kernel import box_args, check_cell_args, check_tensor, launch_error, launch_window
 
 __all__ = ["launches", "dpd_kernel_tables", "cell_dpd_force", "dpd_force"]
 
@@ -55,7 +55,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.az_cell_dpd_force
     if fn.argtypes is None:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i] + [f] * 9 + [u, u, i, i, p, p, p, p]
+        fn.argtypes = ([p, p, p, p, p, i, i, i, i, i, i, i, i, i] + [f] * 9
+                       + [u, u, i, i, p, p, p, p])
         fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
@@ -63,19 +64,21 @@ def _library() -> ctypes.CDLL:
 
 
 def cell_dpd_force(dense: State, spec: GridSpec, tables: torch.Tensor, seed: int,
-                   timestep: int, want: str = "force") -> ForceResult:
+                   timestep: int, want: str = "force", window: Window | None = None) -> ForceResult:
     """Launch the CUDA kernel on the current stream (no synchronisation).
 
     ``tables`` comes from :func:`dpd_kernel_tables`. ``dense.velocity`` is
     read as it stands: on the step path, the half-step velocity after
     step1, as the reference's force evaluation reads it. Returns per-slot
     force ``[S, 3]``, plus energy ``[S]`` and virial ``[S, 6]`` when
-    ``want="all"``.
+    ``want="all"``; with a ``window``, read from ``window.state``, for its
+    own slots.
     """
     global launches
-    dev = check_cell_args("cell_dpd_force", dense, spec, want)
-    S, T = spec.S, tables.shape[-1]
-    check_tensor(dense.velocity, "velocity", torch.float32, (S, 3), dev)
+    dense, geom, S_in, S = launch_window(dense, spec, window)
+    dev = check_cell_args("cell_dpd_force", dense, spec, want, S_in)
+    T = tables.shape[-1]
+    check_tensor(dense.velocity, "velocity", torch.float32, (S_in, 3), dev)
     check_tensor(tables, "tables", torch.float32, (_N_TABLES, T, T), dev)
     k0, k1 = _rng._key_words(_rng.Stream.DPD_GENERAL_WEIGHT, seed, timestep)
 
@@ -84,15 +87,17 @@ def cell_dpd_force(dense: State, spec: GridSpec, tables: torch.Tensor, seed: int
     want_all = want == "all"
     energy = torch.empty((S,), dtype=torch.float32, device=dev) if want_all else None
     virial = torch.empty((S, 6), dtype=torch.float32, device=dev) if want_all else None
-    err = lib.az_cell_dpd_force(
-        dense.position.data_ptr(), dense.velocity.data_ptr(), dense.typeid.data_ptr(),
-        dense.tag.data_ptr(), tables.data_ptr(), T, *spec.dims, spec.cap, *box_args(dense),
-        k0, k1, int(not spec.newton_ok), int(want_all),
-        force.data_ptr(),
-        energy.data_ptr() if want_all else None,
-        virial.data_ptr() if want_all else None,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # launched with the tensors' device current (a shard may lie on another card)
+    with torch.cuda.device(dev):
+        err = lib.az_cell_dpd_force(
+            dense.position.data_ptr(), dense.velocity.data_ptr(), dense.typeid.data_ptr(),
+            dense.tag.data_ptr(), tables.data_ptr(), T, *spec.dims, spec.cap, *geom,
+            *box_args(dense), k0, k1, int(not spec.newton_ok), int(want_all),
+            force.data_ptr(),
+            energy.data_ptr() if want_all else None,
+            virial.data_ptr() if want_all else None,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise launch_error(lib, "cell_dpd_force", err)
     launches += 1
@@ -100,20 +105,23 @@ def cell_dpd_force(dense: State, spec: GridSpec, tables: torch.Tensor, seed: int
 
 
 def dpd_force(dense: State, spec: GridSpec, tbl: dict, kT: float, dt: float, seed: int,
-              timestep: int, want: str = "all") -> ForceResult:
+              timestep: int, want: str = "all", window: Window | None = None) -> ForceResult:
     """DPD force on the dense grid, by the tensors' device.
 
     ``tbl`` holds the device tables of
     :class:`azplugins_tpu_torch.md.pair.DPDGeneralWeight` (``params``,
     ``r_cut``). CPU tensors take the plain version; CUDA tensors take the
-    kernel.
+    kernel. With a ``window`` (a shard's), the force of its own slots, read
+    from ``window.state``.
     """
-    dev = dense.position.device
+    src = dense if window is None else window.state
+    dev = src.position.device
     if dev.type == "cpu":
-        jb = make_jblocks(dense, spec, half=spec.newton_ok, need_velocity=True, need_tag=True)
-        return dense_dpd_force(dense, jb, spec, tbl["params"], tbl["r_cut"], kT, dt, seed,
-                               timestep, want)
+        jb = make_jblocks(src, spec, half=spec.newton_ok, need_velocity=True, need_tag=True,
+                          window=window)
+        return dense_dpd_force(src, jb, spec, tbl["params"], tbl["r_cut"], kT, dt, seed,
+                               timestep, want, window=window)
     if dev.type != "cuda":
         raise ValueError(f"no DPD force for device {dev}")
     tables = dpd_kernel_tables(tbl["params"], tbl["r_cut"], kT, dt)
-    return cell_dpd_force(dense, spec, tables, seed, timestep, want)
+    return cell_dpd_force(dense, spec, tables, seed, timestep, want, window=window)

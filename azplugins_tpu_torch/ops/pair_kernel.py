@@ -38,7 +38,10 @@ later measurement.
 
 The kernels take the slot layout :func:`~.dense.densify` builds, each
 cell's occupied slots first; a cell whose stencil holds another layout
-gets NaN outputs, never a silently dropped pair.
+gets NaN outputs, never a silently dropped pair. On a sharded mesh a
+launch takes a shard's halo window (:class:`~.dense.Window`): it reads the
+window's slots and computes, and writes, the shard's own columns only; a
+cell whose stencil leaves the window gets NaN outputs too.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel or raises. Nothing falls back.
@@ -53,7 +56,7 @@ import torch
 
 from ..core.state import State
 from .cuda_build import load_library
-from .dense import GridSpec, dense_pair_force, make_jblocks
+from .dense import GridSpec, Window, dense_pair_force, make_jblocks
 from .evaluators.pair import PAIR_POTENTIALS
 from .pair_force import ForceResult
 
@@ -129,7 +132,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.az_cell_pair_force
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, i] + [f] * 9 + [i, i, i, i, p, p, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i] + [f] * 9 + [i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
@@ -148,8 +151,20 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_cell_args(fn: str, dense: State, spec: GridSpec, want: str) -> torch.device:
-    """The checks both cell kernels share; returns the CUDA device."""
+def launch_window(dense: State, spec: GridSpec, window: Window | None) -> tuple:
+    """What a cell kernel reads and writes: ``(state, (w0, n_cols, c0,
+    n_own), S_in, S_out)``, the window's slots and its own columns, or the
+    whole grid (``window`` None)."""
+    cols, per_col = spec.dims[0] * spec.dims[1], spec.dims[2] * spec.cap
+    if window is None:
+        return dense, (0, cols, 0, cols), spec.S, spec.S
+    geom = (window.w0, window.n_cols, window.c0, window.n_own)
+    return window.state, geom, window.n_cols * per_col, window.n_own * per_col
+
+
+def check_cell_args(fn: str, dense: State, spec: GridSpec, want: str, S: int) -> torch.device:
+    """The checks every cell kernel shares (``S``: the slots it reads);
+    returns the CUDA device."""
     dev = dense.position.device
     if dev.type != "cuda":
         raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
@@ -157,9 +172,9 @@ def check_cell_args(fn: str, dense: State, spec: GridSpec, want: str) -> torch.d
         raise ValueError(f"want must be 'force' or 'all', got {want!r}")
     if spec.cap > 1024:
         raise ValueError(f"cell capacity {spec.cap} exceeds the cell kernels' 1024 slots per cell")
-    check_tensor(dense.position, "position", torch.float32, (spec.S, 3), dev)
-    check_tensor(dense.typeid, "typeid", torch.int32, (spec.S,), dev)
-    check_tensor(dense.tag, "tag", torch.int32, (spec.S,), dev)
+    check_tensor(dense.position, "position", torch.float32, (S, 3), dev)
+    check_tensor(dense.typeid, "typeid", torch.int32, (S,), dev)
+    check_tensor(dense.tag, "tag", torch.int32, (S,), dev)
     return dev
 
 
@@ -175,21 +190,23 @@ def launch_error(lib: ctypes.CDLL, fn: str, err: int) -> RuntimeError:
 
 
 def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor, potential: str,
-                    mode: str, want: str = "force") -> ForceResult:
+                    mode: str, want: str = "force", window: Window | None = None) -> ForceResult:
     """Launch the CUDA kernel on the current stream (no synchronisation).
 
     ``tables`` comes from :func:`kernel_tables` for ``potential`` and
     ``mode`` (the tables carry the mode; ``mode`` selects the instantiation
     that reads the xplor row). Returns per-slot force ``[S, 3]``, plus
-    energy ``[S]`` and virial ``[S, 6]`` when ``want="all"``.
+    energy ``[S]`` and virial ``[S, 6]`` when ``want="all"``; with a
+    ``window``, read from ``window.state``, for its own slots.
     """
     global launches
-    dev = check_cell_args("cell_pair_force", dense, spec, want)
+    src, geom, S_in, S = launch_window(dense, spec, window)
+    dev = check_cell_args("cell_pair_force", src, spec, want, S_in)
     if potential not in _POTENTIAL_ID:
         raise NotImplementedError(_NO_KERNEL)
     if mode not in ("none", "shift", "xplor"):
         raise ValueError(f"unknown shift mode {mode!r}")
-    S, T = spec.S, tables.shape[-1]
+    T = tables.shape[-1]
     check_tensor(tables, "tables", torch.float32,
                  (_N_LEAD + len(KERNEL_POTENTIALS[potential]), T, T), dev)
 
@@ -198,15 +215,17 @@ def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor, potentia
     want_all = want == "all"
     energy = torch.empty((S,), dtype=torch.float32, device=dev) if want_all else None
     virial = torch.empty((S, 6), dtype=torch.float32, device=dev) if want_all else None
-    err = lib.az_cell_pair_force(
-        dense.position.data_ptr(), dense.typeid.data_ptr(), dense.tag.data_ptr(),
-        tables.data_ptr(), T, *spec.dims, spec.cap, *box_args(dense),
-        int(not spec.newton_ok), _POTENTIAL_ID[potential], int(mode == "xplor"), int(want_all),
-        force.data_ptr(),
-        energy.data_ptr() if want_all else None,
-        virial.data_ptr() if want_all else None,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    # launched with the tensors' device current (a shard may lie on another card)
+    with torch.cuda.device(dev):
+        err = lib.az_cell_pair_force(
+            src.position.data_ptr(), src.typeid.data_ptr(), src.tag.data_ptr(),
+            tables.data_ptr(), T, *spec.dims, spec.cap, *geom, *box_args(src),
+            int(not spec.newton_ok), _POTENTIAL_ID[potential], int(mode == "xplor"), int(want_all),
+            force.data_ptr(),
+            energy.data_ptr() if want_all else None,
+            virial.data_ptr() if want_all else None,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err != 0:
         raise launch_error(lib, "cell_pair_force", err)
     launches += 1
@@ -215,20 +234,23 @@ def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor, potentia
 
 
 def pair_force(energy_force_fn, dense: State, spec: GridSpec, tbl: dict,
-               mode: str = "none", want: str = "all") -> ForceResult:
+               mode: str = "none", want: str = "all", window: Window | None = None) -> ForceResult:
     """Pair force of one potential on the dense grid, by the tensors' device.
 
     ``tbl`` holds the device tables of :class:`azplugins_tpu_torch.md.pair.Pair`:
     ``params``, ``r_cut``, ``r_on`` and, on CUDA, the stacked ``kernel``
     tables. CPU tensors take the plain version; CUDA tensors take the
-    kernel, and a potential the kernel does not cover raises.
+    kernel, and a potential the kernel does not cover raises. With a
+    ``window`` (a shard's), the force of its own slots, read from
+    ``window.state``.
     """
-    dev = dense.position.device
+    src = dense if window is None else window.state
+    dev = src.position.device
     if dev.type == "cpu":
-        jb = make_jblocks(dense, spec, half=spec.newton_ok)
+        jb = make_jblocks(src, spec, half=spec.newton_ok, window=window)
         return dense_pair_force(
-            energy_force_fn, dense, jb, spec, tbl["params"], tbl["r_cut"], tbl["r_on"],
-            mode, want,
+            energy_force_fn, src, jb, spec, tbl["params"], tbl["r_cut"], tbl["r_on"],
+            mode, want, window=window,
         )
     if dev.type != "cuda":
         raise ValueError(f"no pair force for device {dev}")
@@ -237,4 +259,4 @@ def pair_force(energy_force_fn, dense: State, spec: GridSpec, tbl: dict,
         raise NotImplementedError(_NO_KERNEL)
     if "kernel" not in tbl:
         raise ValueError("CUDA pair force needs tbl['kernel'] from kernel_tables()")
-    return cell_pair_force(dense, spec, tbl["kernel"], name, mode, want)
+    return cell_pair_force(dense, spec, tbl["kernel"], name, mode, want, window=window)

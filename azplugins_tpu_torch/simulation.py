@@ -60,10 +60,15 @@ chunking.
 Spatial decomposition. ``enable_spatial_decomposition(mesh)`` cuts the
 slot axis into the mesh's blocks (slabs of whole x planes, or strips of
 whole z cell columns): the grid's (Dx, Dy) snaps to a product the mesh size
-divides. The blocks lie on the simulation's device, where the global
-rebin's slot layout is already each block's in turn (the reference's
-block-local rebin reproduces it bit for bit), so the rebuilds stay global
-and the trajectory is the undecomposed one on the snapped grid.
+divides. On a mesh of views (every block on the simulation's device) the
+global rebin's slot layout is already each block's in turn, so the
+rebuilds stay global. On a sharded mesh each block is a State of its own
+on its device: every phase of the step runs once a shard, the rebuild is
+the block-local rebin with migration (parallel/spatial.py), and each
+shard's stencil forces read its halo window. Either way the trajectory,
+rebuilds and observables are the undecomposed run's on the same grid, bit
+for bit. Bonds, updaters and the MPCD solvent are not decomposed on
+shards.
 
 Profiling. Inside ``with sim.profile(logdir):`` the step loop marks its
 phases as ``torch.profiler.record_function`` ranges named after the
@@ -94,6 +99,13 @@ from .ops import dense as D
 __all__ = ["Simulation", "Operations"]
 
 _NO_RANGE = contextlib.nullcontext()
+
+
+def _as_shards(x) -> tuple:
+    """The dense layout, or its meta, as a tuple of shards: a whole layout
+    (a State or a GridMeta) is one shard. Simulation holds the tuple only
+    on a sharded mesh (:meth:`Simulation._as_layout`)."""
+    return x if isinstance(x, tuple) else (x,)
 
 
 def _no_range(name: str):
@@ -248,8 +260,10 @@ class Simulation:
         self._coupling = None  # the mpcd.CollisionCoupling updater of this run
         self._warned_divisor_collapse = False
         # spatial decomposition: when set, the grid holds whole z cell
-        # columns a block of this mesh
+        # columns a block of this mesh; on a sharded mesh _dense and _meta
+        # are tuples, one State and one GridMeta a block
         self._spatial_mesh = None
+        self._spatial_migrate_cap: int | None = None
         # the step loop's phase scope: record_function inside profile()
         self._phase_range = _no_range
 
@@ -308,9 +322,24 @@ class Simulation:
             if self._grid_spec is None:
                 self._state = self._dense
             else:
-                self._state = D.undensify(self._dense, N=self._state.N, fields=self._fields)
+                self._state = D.undensify(self._whole_dense(), N=self._state.N,
+                                          fields=self._fields)
             self._state_stale = False
         return self._state
+
+    def _whole_dense(self) -> State:
+        """The dense layout as one State on the simulation's device (the
+        shards joined in block order)."""
+        if isinstance(self._dense, tuple):
+            from .parallel.spatial import gather_dense
+
+            return gather_dense(self._dense, self.device)
+        return self._dense
+
+    def _as_layout(self, shards: tuple):
+        """Shards (or their metas) as ``_dense`` (``_meta``) holds them: the
+        tuple on a sharded mesh, else its one entry."""
+        return shards if self._sharded() else shards[0]
 
     @property
     def state(self) -> _StateView:
@@ -333,7 +362,8 @@ class Simulation:
     @property
     def n_builds(self) -> int:
         """Neighbour-grid builds since the dense layout was made (a host sync)."""
-        return int(self._meta.n_builds) if self._meta is not None else 0
+        meta = _as_shards(self._meta)[0]
+        return int(meta.n_builds) if meta is not None else 0
 
     def _invalidate(self):
         self._attached = False
@@ -393,6 +423,7 @@ class Simulation:
         if new_fields != self._fields:
             self._fields = new_fields
             self._drop_dense()
+        self._check_sharded_ops()
         self._attached = True
         self._prepared = False
 
@@ -504,6 +535,46 @@ class Simulation:
         self._dense, self._meta = self._densify(state)
         if bool(self._meta.overflow):
             self._grow_and_rebuild(int(self._meta.max_occ))
+        self._place_spatial()
+
+    def _sharded(self) -> bool:
+        """Whether the dense layout is held as shards (a sharded mesh and a grid)."""
+        mesh = self._spatial_mesh
+        return mesh is not None and mesh.sharded and self._grid_spec is not None
+
+    def _place_spatial(self):
+        """Lay the dense layout out for the current mesh: shards are joined
+        back into the whole layout, which a sharded mesh then splits into
+        its blocks. The layout and its rebuild state are kept as they are,
+        so a mesh enabled, swapped or dropped mid-run does not move the
+        trajectory."""
+        from .parallel.spatial import gather_meta, shard_dense, shard_meta
+
+        if self._dense is None:
+            return
+        if isinstance(self._dense, tuple):
+            self._dense, self._meta = self._whole_dense(), gather_meta(self._meta, self.device)
+        if self._sharded():
+            self._dense = shard_dense(self._dense, self._spatial_mesh)
+            self._meta = shard_meta(self._meta, self._dense)
+
+    def _check_sharded_ops(self):
+        """Refuse what a sharded mesh does not decompose (ROADMAP queue A)."""
+        mesh = self._spatial_mesh
+        if mesh is None or not mesh.sharded or self._state is None:
+            return
+        if self._state.n_bonds > 0:
+            raise NotImplementedError(
+                "bonds on a sharded mesh: a partner may lie beyond the halo window (ROADMAP "
+                "queue A, sharded bonds); use make_mesh(n, device=...) without sharded=True")
+        if self.operations.updaters:
+            raise NotImplementedError(
+                "updaters on a sharded mesh: the evaporator ranks all particles (ROADMAP "
+                "queue A, sharded updaters); use make_mesh(n, device=...) without sharded=True")
+        if self._mpcd is not None or self.mpcd_dynamics is not None:
+            raise NotImplementedError(
+                "the MPCD solvent on a sharded mesh (ROADMAP queue A, the sharded MPCD "
+                "solvent); use make_mesh(n, device=...) without sharded=True")
 
     @staticmethod
     def _max_occupancy_cap(state: State, spec: D.GridSpec, slack: int = 8) -> int:
@@ -519,13 +590,17 @@ class Simulation:
         max_occ = int(np.bincount(cid, minlength=spec.n_cells).max())
         return int(math.ceil((max_occ + slack) / 8.0) * 8)
 
-    def _interval_from_vmax(self, velocity: torch.Tensor, safety: float = 1.0) -> int | None:
-        """Rebuild interval from the fastest particle: the pairwise drift
-        criterion leaves each particle half the buffer, consumed at up to
-        vmax * dt per step. None when no estimate exists."""
+    def _interval_from_vmax(self, dense, safety: float = 1.0) -> int | None:
+        """Rebuild interval from the fastest particle of ``dense`` (a State
+        or its shards): the pairwise drift criterion leaves each particle
+        half the buffer, consumed at up to vmax * dt per step. None when no
+        estimate exists."""
         if self._grid_spec is None:
             return None
-        vmax = float(torch.sqrt(torch.sum(velocity * velocity, dim=-1).max()))
+        shards = _as_shards(dense)
+        vsq = [torch.sum(s.velocity * s.velocity, dim=-1).max() for s in shards]
+        vsq = vsq[0] if len(vsq) == 1 else torch.stack([v.to(self.device) for v in vsq]).max()
+        vmax = float(torch.sqrt(vsq))
         dt = self.dt_ref()
         if vmax <= 0 or dt <= 0:
             return None
@@ -551,7 +626,7 @@ class Simulation:
             return
         state = self._synced_state()
         spec = self._grid_spec
-        est = self._interval_from_vmax(state.velocity, safety)
+        est = self._interval_from_vmax(state, safety)
         if est is not None:
             # the vmax estimate is also the ceiling: growing past it would
             # only buy a violation replay
@@ -578,36 +653,78 @@ class Simulation:
             self._grid_spec = self._grid_spec.replace(cap=cap)
             self._dense, self._meta = self._densify(state)
             if not bool(self._meta.overflow):
+                self._place_spatial()
                 return
         for _ in range(8):
             self._grid_spec = self._grid_spec.grow(gentle=self._auto_tuned)
             self._dense, self._meta = self._densify(state)
             if not bool(self._meta.overflow):
+                self._place_spatial()
                 return
         raise RuntimeError("cell capacity growth did not converge")
 
     def _force_tables(self) -> tuple:
-        for f in self._forces():
-            f._build_tables(self)
-        return tuple(f._device_tables(self.device) for f in self._forces())
+        """Each force's device tables, one such tuple a shard (one for a
+        whole layout), on the shard's device."""
+        from .parallel.mesh import _key
 
-    def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls):
+        forces = self._forces()
+        for f in forces:
+            f._build_tables(self)
+        devices = self._spatial_mesh.devices if self._sharded() else (self.device,)
+        by_device = {}
+        return tuple(by_device.setdefault(_key(d), tuple(f._device_tables(d) for f in forces))
+                     for d in devices)
+
+    def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls, window=None):
         """The net force, and, when rotational DOF are integrated, the net
         torque summed over the forces that produce one (zeros if none does;
         else None). Resetting it every step matters even without a torque
         force: Langevin stores its effective torque there, which must not
-        carry into the next step's sum."""
+        carry into the next step's sum. On a shard, stencil forces read its
+        halo ``window``."""
         net = torch.zeros((dense.N, 3), dtype=torch.float32, device=dense.device)
         need_torque = self._rotational()
         ntq = torch.zeros_like(net) if need_torque else None
         ctx = self._ctx()
-        for f, tbl in zip(self._forces(), tbls):
-            r = f._compute_dense(dense, self._grid_spec, meta.slot_of, t, ctx, tbl, want="force")
+        for f, tbl in zip(self._forces(), tbls, strict=True):
+            r = self._evaluate(f, dense, meta, t, ctx, tbl, window, "force")
             net = net + r.force
             if need_torque and r.torque is not None:
                 ntq = ntq + r.torque
-            self.force_evaluations += 1
         return net, ntq
+
+    def _evaluate(self, f, dense: State, meta: D.GridMeta, t: int, ctx, tbl, window,
+                  want: str) -> ForceResult:
+        """One force on a whole layout or a shard (a stencil force then reads
+        the shard's halo ``window``)."""
+        kw = {"window": window} if window is not None and f._needs_nlist else {}
+        return f._compute_dense(dense, self._grid_spec, meta.slot_of, t, ctx, tbl, want=want,
+                                **kw)
+
+    def _windows(self, shards: tuple) -> tuple:
+        """Each shard's halo window, carrying the fields the stencil forces
+        read; None for a whole layout."""
+        from .parallel.spatial import halo_window
+
+        if not self._sharded():
+            return (None,) * len(shards)
+        fields = ["position", "typeid", "tag"]
+        if any(f._needs_velocity_j for f in self._forces()):
+            fields.append("velocity")
+        if any(f._needs_quat_j for f in self._forces()):
+            fields.append("orientation")
+        return tuple(halo_window(shards, d, self._grid_spec, tuple(fields))
+                     for d in range(len(shards)))
+
+    def _with_forces(self, shards: tuple, metas: tuple, t: int, tbls) -> tuple:
+        """The shards (one for a whole layout) with this step's net force
+        (and net torque) set, each for its own slots."""
+        windows = self._windows(shards)
+        out = tuple(self._set_net(s, *self._compute_net(s, m, t, tb, w))
+                    for s, m, tb, w in zip(shards, metas, tbls, windows, strict=True))
+        self.force_evaluations += len(self._forces())
+        return out
 
     @staticmethod
     def _set_net(dense: State, net, ntq) -> State:
@@ -618,15 +735,15 @@ class Simulation:
     def _prepare(self):
         """Compute initial forces, accelerations and torques (HOOMD's pre-run prep)."""
         self._ensure_dense()
-        net, ntq = self._compute_net(self._dense, self._meta, self._timestep,
-                                     self._force_tables())
-        accel = net / self._dense.mass[:, None]
-        self._dense = self._set_net(self._dense, net, ntq).replace(acceleration=accel)
+        shards = self._with_forces(_as_shards(self._dense), _as_shards(self._meta),
+                                   self._timestep, self._force_tables())
+        self._dense = self._as_layout(
+            tuple(s.replace(acceleration=s.net_force / s.mass[:, None]) for s in shards))
         self._state_stale = True
         self._prepared = True
 
     # -- spatial decomposition and profiling ----------------------------------
-    def enable_spatial_decomposition(self, mesh):
+    def enable_spatial_decomposition(self, mesh, migrate_cap: int | None = None):
         """Decompose the simulation into the spatial domains of ``mesh``.
 
         The cell-major slot axis splits into contiguous blocks of whole z
@@ -635,27 +752,39 @@ class Simulation:
         decompose. The grid's (Dx, Dy) snaps down to a product the mesh size
         divides when it is made (``GridSpec.create``'s ``strip_devices``);
         an existing grid that does not divide is rebuilt at the next run.
-        With every block on one device the global rebin's slot layout is
-        the blocks' (the reference's block-local rebin reproduces it bit
-        for bit), so rebuilds stay global and the trajectory is the
-        undecomposed one on the same grid, bitwise.
 
-        The blocks must lie on the simulation's device (else ValueError); a
-        mesh over several distinct devices raises NotImplementedError.
+        A mesh of views (parallel/mesh.py) must lie on the simulation's
+        device: the global rebin's slot layout is the blocks', so the
+        rebuilds stay global. A sharded mesh must lie on the simulation's
+        device or on distinct CUDA devices: each block gets slot storage of
+        its own there, rebuilds run the block-local rebin whose migrant
+        buffers hold ``migrate_cap`` rows a direction and hop (default
+        ``parallel.slab_migrate_capacity``), and stencil forces read halo
+        windows. Either way the trajectory is the undecomposed one on the
+        same grid, bitwise. Bonds, updaters and an MPCD solvent raise
+        NotImplementedError on a sharded mesh.
         """
         from .parallel.mesh import same_device
 
         devices = mesh.devices
-        if any(not same_device(d, devices[0]) for d in devices[1:]):
-            raise NotImplementedError(
-                "a mesh over several distinct devices is not ported (ROADMAP queue A, "
-                "multi-GPU decomposition); make_mesh(n, device=...) puts every block on one"
-            )
-        if not same_device(devices[0], self.device):
+        on_sim = all(same_device(d, self.device) for d in devices)
+        if mesh.sharded:
+            cards = mesh.distinct and all(d.type == "cuda" for d in devices)
+            if not (on_sim or cards):
+                raise ValueError(f"a sharded mesh lies on the simulation's device "
+                                 f"({self.device}) or on distinct CUDA devices, not on "
+                                 f"{[str(d) for d in devices]}")
+        elif not on_sim:
             raise ValueError(
                 f"the mesh's blocks lie on {devices[0]}, the simulation on {self.device}"
             )
-        self._spatial_mesh = mesh
+        previous = (self._spatial_mesh, self._spatial_migrate_cap)
+        self._spatial_mesh, self._spatial_migrate_cap = mesh, migrate_cap
+        try:
+            self._check_sharded_ops()
+        except NotImplementedError:
+            self._spatial_mesh, self._spatial_migrate_cap = previous
+            raise
         spec = self._grid_spec
         if self._attached and spec is not None and (spec.dims[0] * spec.dims[1]) % mesh.size:
             # regrid at the next attach; pull the positions out of the dense
@@ -664,6 +793,10 @@ class Simulation:
             self._synced_state()
             self._invalidate()
             self._drop_dense()
+        else:
+            # lay the layout as it stands out for this mesh (split, joined
+            # or split anew): the trajectory goes on from where it is
+            self._place_spatial()
 
     @contextlib.contextmanager
     def profile(self, logdir):
@@ -692,10 +825,14 @@ class Simulation:
                     torch.cuda.synchronize(self.device)
 
     # -- running -------------------------------------------------------------
-    def _run_chunk(self, dense: State, meta: D.GridMeta, t0: int, n_steps: int,
-                   seg_len: int, tbls, rebin_first: bool = True, solv=None):
+    def _run_chunk(self, dense, meta, t0: int, n_steps: int, seg_len: int, tbls,
+                   rebin_first: bool = True, solv=None):
         """Run ``n_steps`` steps from timestep ``t0``; no host synchronisation.
 
+        ``dense`` and ``meta`` are the layout as ``_dense`` and ``_meta``
+        hold it: on a sharded mesh one State and one GridMeta a shard, and
+        every phase runs once a shard (updaters and the solvent are refused
+        there: :meth:`_check_sharded_ops`).
         With ``rebin_first`` (a chunk that starts on the rebuild schedule),
         the grid rebuilds before chunk-relative steps 0, seg_len, 2*seg_len,
         ...; otherwise the chunk continues the previous chunk's segment.
@@ -716,34 +853,71 @@ class Simulation:
         mass_s = self._mpcd["mass"] if coupling is not None else None
         dt = self.dt_ref()
         seed = self.seed
-        N_tags = self._state.N
-        need_slot_of = self._state.n_bonds > 0
-        viol = torch.zeros((), dtype=torch.bool, device=dense.device)
+        shards, metas = _as_shards(dense), _as_shards(meta)
+        viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
         for j in range(n_steps):
             t = t0 + j
             if spec is not None and rebin_first and j % seg_len == 0:
                 with scope("rebin"):
-                    dense, meta = D.rebin(dense, meta, spec, N_tags, self._fields, need_slot_of)
+                    shards, metas = self._rebuild(shards, metas)
             with scope("integrate_step1"):
                 for m in methods:
-                    dense = m.step1(dense, dt, t, seed)
+                    shards = tuple(m.step1(s, dt, t, seed) for s in shards)
             if spec is not None:
                 with scope("verlet_drift_check"):
-                    viol = viol | D.needs_rebin(dense, meta, spec)
+                    viol = viol | self._drifted(shards, metas)
             with scope("forces"):
-                dense = self._set_net(dense, *self._compute_net(dense, meta, t, tbls))
+                shards = self._with_forces(shards, metas, t, tbls)
             with scope("integrate_step2"):
                 for m in methods:
-                    dense = m.step2(dense, dt, t, seed)
+                    shards = tuple(m.step2(s, dt, t, seed) for s in shards)
             fired = [u for u in updaters if u.trigger(t)]
             if fired:
                 with scope("updaters"):
+                    (whole,) = shards
                     for u in fired:
-                        dense = u._update(dense, t, seed)
+                        whole = u._update(whole, t, seed)
+                    shards = (whole,)
             if coupling is not None and coupling.trigger(t):
                 with scope("mpcd_joint_collision"):
-                    dense, solv = coupling._collide(dense, solv, t + 1, seed, mass_s)
-        return dense, meta, viol, solv
+                    (whole,) = shards
+                    whole, solv = coupling._collide(whole, solv, t + 1, seed, mass_s)
+                    shards = (whole,)
+        return self._as_layout(shards), self._as_layout(metas), viol, solv
+
+    def _rebuild(self, shards: tuple, metas: tuple) -> tuple:
+        """The grid rebuild: the global rebin on a whole layout, the
+        block-local rebin with migration on shards."""
+        from .parallel.spatial import spatial_rebin
+
+        spec, N_tags = self._grid_spec, self._state.N
+        if self._sharded():
+            return spatial_rebin(shards, metas, spec, N_tags, self._fields,
+                                 mesh=self._spatial_mesh, migrate_cap=self._spatial_migrate_cap)
+        (dense,), (meta,) = shards, metas
+        dense, meta = D.rebin(dense, meta, spec, N_tags, self._fields, self._state.n_bonds > 0)
+        return (dense,), (meta,)
+
+    def _drifted(self, shards: tuple, metas: tuple) -> torch.Tensor:
+        """The Verlet drift criterion over every shard, as a bool on the
+        first shard's device: each shard's two largest drifts go there."""
+        if len(shards) == 1:
+            return D.needs_rebin(shards[0], metas[0], self._grid_spec)
+        dev0 = shards[0].device
+        tops = torch.cat([D.drift_top_two(s, m).to(dev0) for s, m in zip(shards, metas)])
+        return D.needs_rebin_of(tops, self._grid_spec)
+
+    def _chunk_flags(self, meta, violated) -> tuple:
+        """(overflow, violated, max_occ) of a chunk, read in one transfer
+        (the chunk's one host synchronisation); over every shard's meta on
+        a sharded mesh."""
+        metas = _as_shards(meta)
+        dev = violated.device
+        flags = torch.stack([violated.to(torch.int32)]
+                            + [m.overflow.to(dev).to(torch.int32) for m in metas]
+                            + [m.max_occ.to(dev) for m in metas]).tolist()
+        n = len(metas)
+        return max(flags[1:1 + n]), flags[0], max(flags[1 + n:])
 
     def _find_coupling(self):
         """The MPCD coupling updater (at most one) and whether it keeps its
@@ -862,11 +1036,9 @@ class Simulation:
                 backup_dense, backup_meta, self._timestep, chunk, seg_arg, tbls, rebin_first, solv
             )
             # the one host synchronisation of the chunk
-            overflow, violated, max_occ = torch.stack(
-                [meta.overflow.to(torch.int32), violated.to(torch.int32), meta.max_occ]
-            ).tolist()
+            overflow, violated, max_occ = self._chunk_flags(meta, violated)
             if self._grid_spec is not None and overflow:
-                if not bool(torch.isfinite(dense.position).all()):
+                if not all(bool(torch.isfinite(d.position).all()) for d in _as_shards(dense)):
                     raise RuntimeError(
                         "simulation diverged: non-finite particle positions at timestep "
                         f"~{self._timestep} (cell overflow requested capacity {max_occ}). "
@@ -894,8 +1066,8 @@ class Simulation:
                     # segment: re-derive the interval from the peak speed at
                     # the chunk start (safety 1.5: the violation shows the
                     # estimate was optimistic here) and replay
-                    est = self._interval_from_vmax(backup_dense.velocity, safety=1.5)
-                    est_opt = self._interval_from_vmax(backup_dense.velocity)
+                    est = self._interval_from_vmax(backup_dense, safety=1.5)
+                    est_opt = self._interval_from_vmax(backup_dense)
                     if est is None:
                         est = max(self._seg_len // 2, 1)
                         est_opt = est
@@ -950,10 +1122,23 @@ class Simulation:
         if not self._prepared:
             self._prepare()
         i = self._forces().index(force)
-        tbl = self._force_tables()[i]
-        dense = self._dense
-        r = force._compute_dense(dense, self._grid_spec, self._meta.slot_of, self._timestep,
-                                 self._ctx(), tbl, want="all")
+        shards, metas = _as_shards(self._dense), _as_shards(self._meta)
+        ctx = self._ctx()
+        # each shard's own slots, joined in block order
+        rs = [self._evaluate(force, s, m, self._timestep, ctx, tb[i], w, "all")
+              for s, m, tb, w in zip(shards, metas, self._force_tables(), self._windows(shards),
+                                     strict=True)]
+        dev = self.device
+
+        def join(name):
+            parts = [getattr(r, name) for r in rs]
+            if parts[0] is None or len(parts) == 1:
+                return parts[0]
+            return torch.cat([p.to(dev) for p in parts])
+
+        r = ForceResult(force=join("force"), energy=join("energy"), virial=join("virial"),
+                        torque=join("torque"))
+        dense = self._whole_dense()
         N = self._state.N
         dest = torch.where(dense.tag >= 0, dense.tag, N).to(torch.int64)
 

@@ -44,7 +44,15 @@
      slabs (make_mesh(4, device="cuda")) and in 16 strips, run in turns for
      300 steps (across the tune) and 300 more; the decomposed layouts equal
      the whole one bit for bit after each stretch, K1 launched once a force
-     evaluation;
+     evaluation; then again on 4 and 16 shards of their own slot storage
+     (make_mesh(n, device="cuda", sharded=True): the block-local rebin with
+     migration, halo windows into K1): the gathered layouts equal the whole
+     one bit for bit after each stretch, K1 launched n times a force
+     evaluation; the windowed K1, K1', K2 and K3 equal to the whole grid's
+     launches on each shard's own slots bit for bit; the windowed K1's time
+     a call per shard against its bound, the halo bytes and copies a force
+     evaluation, and device operations, device-busy ms and ms/step at n =
+     1, 4 and 16;
    - the DPD fluid (BASELINE config 3, 21,952 particles, ConstantVolume);
    - the polymer melt (BASELINE config 2, 1,280 chains of 25, Quartic
      bonds + ExpandedYukawa, Langevin);
@@ -158,7 +166,8 @@ IO_TURNS = 6
 IO_TURN_STEPS = 400
 IO_RESTART_STEPS = 200
 # [spatial]: the headline in 4 slabs (Dx = 12: 3 x planes a block) and 16
-# strips of 9 z columns, two stretches each, against the whole run
+# strips of 9 z columns, two stretches each, against the whole run; as views
+# of one slot axis, then as shards of their own
 SPATIAL_MESHES = (4, 16)
 SPATIAL_STRETCH = 300
 # [profile]: the headline's steps under Simulation.profile (the colloids
@@ -2014,6 +2023,235 @@ def run_spatial(az, K, card):
     return {"cell_pair_force[PerturbedLennardJones]": launched}
 
 
+def _shard_windows(dense, spec, n):
+    """The dense state split into n shards on the card, with their halo
+    windows (every field a stencil kernel reads)."""
+    from azplugins_tpu_torch.parallel import halo_window, make_mesh, shard_dense
+
+    shards = shard_dense(dense, make_mesh(n, device=dense.device, sharded=True))
+    fields = ("position", "typeid", "tag", "velocity", "orientation")
+    return shards, [halo_window(shards, d, spec, fields) for d in range(n)]
+
+
+def _windowed_equals_whole(name, launch, plain, dense, spec, n, record_as, record):
+    """Each of n shards' windowed launch against the whole grid's launch on
+    its own slots, bit for bit; and the launches of shards 0 and n/2
+    against the plain windowed stencil on the same window (``plain(w)``,
+    want="all", on the card) at the [kernel] bar, the force's error
+    recorded under ``record_as``. Returns (window columns, min and max)."""
+    whole = launch(dense, None)
+    shards, windows = _shard_windows(dense, spec, n)
+    got = [launch(shards[d], windows[d]) for d in range(n)]
+    torch.cuda.synchronize()
+    for k in ("force", "torque", "energy", "virial"):
+        if getattr(whole, k) is None:
+            continue
+        joined = torch.cat([getattr(g, k) for g in got])
+        if not torch.equal(joined.view(torch.int32), getattr(whole, k).view(torch.int32)):
+            raise AssertionError(f"spatial: windowed {name} on {n} shards differs from the "
+                                 f"whole grid's launch in {k}")
+    for d in (0, n // 2):
+        ref = plain(windows[d])
+        torch.cuda.synchronize()
+        tag = f"windowed {name} shard {d} of {n}"
+        compare = _compare_aniso if got[d].torque is not None else _compare_result
+        want = "all" if got[d].energy is not None else "force"
+        record(record_as, compare(tag, got[d], ref, want)[0])
+    cols = [w.n_cols for w in windows]
+    return min(cols), max(cols)
+
+
+def _partners(D, dense, spec, r_cut):
+    """Each slot's partners within ``r_cut`` (one type pair), by the plain
+    stencil loop: a shard's pair work is half its own slots' sum."""
+
+    def count(dx, dy, dz, rsq, mask, j, newton):
+        inside = (mask & (rsq > 0) & (rsq < r_cut * r_cut)).to(torch.float32)
+        return [inside], [inside]
+
+    jb = D.make_jblocks(dense, spec, half=spec.newton_ok)
+    (n,) = D._stencil_drive(dense, jb, spec, 1, count)
+    return n.reshape(-1).double()
+
+
+def run_spatial_sharded(az, D, K, card, record):
+    """[spatial] on shards: the 64k headline built three times from one
+    seed, whole and on SPATIAL_MESHES[0] and SPATIAL_MESHES[1] shards of its
+    own slot storage on the card (``make_mesh(n, device="cuda",
+    sharded=True)``: the block-local rebin with migration, halo windows into
+    K1), run in turns for SPATIAL_STRETCH steps (across the tune) and
+    SPATIAL_STRETCH more. After each stretch the gathered layout must equal
+    the whole one bit for bit, and K1 must have launched n times a force
+    evaluation (the counts set to 0 just before each stretch and read just
+    after). Then, on the runs' state: the windowed K1 (force) and K1' (PLJ
+    and LJ, want="all") against the whole grid's launch on each shard's own
+    slots, bit for bit, and the windowed K2 and K3 on the DPD fluid's and
+    the patchy colloids' first states, and those of shards 0 and n/2
+    against the plain windowed stencil on the card at the [kernel] bar; the
+    windowed K1's time a call per shard against the whole grid's and the
+    plain windowed stencil's, and its bound at the window's bytes; the halo
+    bytes and copies a force evaluation; device operations, device-busy ms
+    (over PROFILE_STEPS steps, the [profile] window) and ms/step at each n;
+    the phase's wall time. Returns the K1 launches."""
+    from azplugins_tpu_torch.parallel import make_mesh
+    from azplugins_tpu_torch.parallel.spatial import halo_runs
+
+    plj = "PerturbedLennardJones"
+    ef = az.ops.evaluators.PAIR_POTENTIALS
+    phase_t0 = time.perf_counter()
+    runs = {1: build_headline(az, "cuda")[0]}
+    for n in SPATIAL_MESHES:
+        sim, _ = build_headline(az, "cuda")
+        sim.enable_spatial_decomposition(make_mesh(n, device="cuda", sharded=True))
+        runs[n] = sim
+    launched, stretch_s = 0, 0.0
+    ms = {n: [] for n in runs}
+    for stretch in (1, 2):
+        for n, sim in runs.items():
+            evals0 = sim.force_evaluations
+            _reset_counts(K)
+            ms_step, host_s = _timed_run(sim, SPATIAL_STRETCH)
+            ms[n].append(ms_step)
+            stretch_s += host_s
+            evals = sim.force_evaluations - evals0
+            k1 = K.PK.launches_by_potential.get(plj, 0)
+            if k1 != n * evals or K.PK.launches != k1 or evals < SPATIAL_STRETCH:
+                raise AssertionError(f"spatial: {n} shards: {K.PK.launches} K1 launches for "
+                                     f"{evals} force evaluations in {SPATIAL_STRETCH} steps")
+            if n > 1 and not isinstance(sim._dense, tuple):
+                raise AssertionError(f"spatial: {n} shards: the layout is not sharded")
+            launched += k1
+        whole = runs[1]
+        for n in SPATIAL_MESHES:
+            sim = runs[n]
+            if (sim.timestep, sim.n_builds, sim._grid_spec) != (whole.timestep, whole.n_builds,
+                                                                 whole._grid_spec):
+                raise AssertionError(f"spatial: {n} shards: timestep, builds, grid "
+                                     f"{sim.timestep}, {sim.n_builds}, {sim._grid_spec}")
+            got = sim._whole_dense()
+            for field in ("position", "velocity", "image", "tag"):
+                a, b = getattr(got, field), getattr(whole._dense, field)
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"spatial: {n} shards after {sim.timestep} steps: "
+                                         f"{field} differs")
+    spec = runs[1]._grid_spec
+    dense = runs[1]._dense
+    lj = runs[1].operations.integrator.forces[0]
+    tbl = lj._device_tables("cuda")
+    lj_params = {"lj1": tbl["params"]["lj1"], "lj2": tbl["params"]["lj2"]}
+    ljt = K.PK.kernel_tables("LJ", lj_params, tbl["r_cut"], tbl["r_on"], "shift")
+
+    def plain_pair(w, pot, params, mode, want="all", jb=None):
+        jb = jb if jb is not None else D.make_jblocks(w.state, spec, half=spec.newton_ok,
+                                                      window=w)
+        return D.dense_pair_force(ef[pot].energy_force, w.state, jb, spec, params, tbl["r_cut"],
+                                  tbl.get("r_on"), mode, want, window=w)
+
+    checks = []
+    for n in SPATIAL_MESHES:
+        for name, want, pot, tables, params, mode in (
+                ("K1", "force", plj, tbl["kernel"], tbl["params"], lj.mode),
+                ("K1'", "all", plj, tbl["kernel"], tbl["params"], lj.mode),
+                ("K1'", "all", "LJ", ljt, lj_params, "shift")):
+            lo, hi = _windowed_equals_whole(
+                name, lambda d, w, want=want, pot=pot, tables=tables, mode=mode:
+                K.PK.cell_pair_force(d, spec, tables, pot, mode, want, window=w),
+                lambda w, pot=pot, params=params, mode=mode: plain_pair(w, pot, params, mode),
+                dense, spec, n, f"cell_pair_force[{pot}]", record)
+            checks.append(f"{name}[{pot}, {want}] n={n} (windows of {lo}-{hi} columns)")
+    # K2 and K3 on the DPD fluid's and the patchy colloids' prepared states
+    for build, name, n_of in ((build_dpd, "K2", lambda sp: sp.dims[0]),
+                              (build_patchy, "K3", lambda sp: sp.dims[0] * sp.dims[1] // 23)):
+        sim, forces = build(az, "cuda")
+        d2, s2 = _prepared_dense(sim)
+        f = forces[0]
+        t2 = f._device_tables("cuda")
+        if name == "K2":
+            kT, dt, seed = f.kT(0), sim.dt_ref(), sim.seed
+            tables = K.DK.dpd_kernel_tables(t2["params"], t2["r_cut"], kT, dt)
+            record_as = "cell_dpd_force"
+
+            def launch(d, w, s2=s2, tables=tables, seed=seed):
+                return K.DK.cell_dpd_force(d, s2, tables, seed, 0, "all", window=w)
+
+            def plain(w, s2=s2, t2=t2, kT=kT, dt=dt, seed=seed):
+                jb = D.make_jblocks(w.state, s2, half=s2.newton_ok, need_velocity=True,
+                                    need_tag=True, window=w)
+                return D.dense_dpd_force(w.state, jb, s2, t2["params"], t2["r_cut"], kT, dt,
+                                         seed, 0, "all", window=w)
+        else:
+            record_as = "cell_aniso_force"
+
+            def launch(d, w, s2=s2, t2=t2):
+                return K.AK.cell_aniso_force(d, s2, t2["kernel"], "all", window=w)
+
+            def plain(w, s2=s2, t2=t2, f=f):
+                jb = D.make_jblocks(w.state, s2, half=s2.newton_ok, need_quat=True, window=w)
+                return D.dense_aniso_force(f._def.energy_force_torque, w.state, jb, s2,
+                                           t2["params"], t2["r_cut"], f.mode, "all", window=w)
+        n = n_of(s2)
+        lo, hi = _windowed_equals_whole(name, launch, plain, d2, s2, n, record_as, record)
+        checks.append(f"{name} n={n} on grid {s2.dims} (windows of {lo}-{hi} columns)")
+        del sim
+    print(f"[spatial] windowed launches equal the whole grid's on every shard's own slots, bit "
+          f"for bit, and the plain windowed stencil's on shards 0 and n/2 within the bar "
+          f"({BAR}): {'; '.join(checks)}", flush=True)
+
+    # per shard: the windowed K1's time against the whole grid's, and its bound
+    partners = _partners(D, dense, spec, 3.0)
+    n_occ = (dense.tag >= 0).double()
+    per_col = spec.dims[2] * spec.cap
+    whole_ms = _cuda_time_ms(lambda: K.PK.cell_pair_force(dense, spec, tbl["kernel"], plj,
+                                                          lj.mode), 50)
+    in_bytes = 16  # position, typeid
+    for n in SPATIAL_MESHES:
+        shards, windows = _shard_windows(dense, spec, n)
+        S_loc = spec.S // n
+        rows = []
+        for d in (0, n // 2):
+            w = windows[d]
+            t = _cuda_time_ms(lambda: K.PK.cell_pair_force(shards[d], spec, tbl["kernel"], plj,
+                                                           lj.mode, window=w), 50)
+            jb = D.make_jblocks(w.state, spec, half=spec.newton_ok, window=w)
+            t_plain = _cuda_time_ms(lambda: plain_pair(w, plj, tbl["params"], lj.mode, "force",
+                                                       jb), 3)
+            occ_win = int((w.state.tag >= 0).sum())
+            win_bytes = occ_win * in_bytes + w.n_cols * per_col * 4 + S_loc * 12
+            pairs = float(partners[d * S_loc:(d + 1) * S_loc].sum()) / 2.0
+            t_bytes = win_bytes / MEM_BYTES_PER_S
+            t_ops = pairs * OPS_PER_PAIR[plj] / F32_OPS_PER_S
+            bound = 1e3 * max(t_bytes, t_ops)
+            own = int(n_occ[d * S_loc:(d + 1) * S_loc].sum())
+            rows.append(f"shard {d}: {t:.4f} ms, plain {t_plain:.4f} ms ({w.n_cols} window "
+                        f"columns, {w.n_cols * per_col} window slots, {own} own particles, bound "
+                        f"{bound:.5f} ms by {'bytes' if t_bytes >= t_ops else 'operations'})")
+        halo_cols = [halo_runs(tuple(spec.dims), n, d)[1] - spec.dims[0] * spec.dims[1] // n
+                     for d in range(n)]
+        copies = [sum(1 for e, _, _ in halo_runs(tuple(spec.dims), n, d)[2] if e != d)
+                  for d in range(n)]
+        halo_bytes = sum(halo_cols) * per_col * 20  # position, typeid, tag
+        print(f"[spatial] {n} shards on {card}: windowed K1 a call, against the whole grid's "
+              f"{whole_ms:.4f} ms: {'; '.join(rows)}; halo {halo_bytes / 1e6:.3f} MB in "
+              f"{sum(copies) * 3} copies a force evaluation ({min(halo_cols)}-{max(halo_cols)} "
+              f"columns a shard from {min(copies)}-{max(copies)} other shards, 3 fields)",
+              flush=True)
+    for n, sim in runs.items():
+        ops, busy, _, syncs = _profile(sim, PROFILE_STEPS)
+        print(f"[spatial] n={n} ({'whole' if n == 1 else 'shards'}): grid {spec.dims}, cap "
+              f"{sim._grid_spec.cap}; ms/step {ms[n][0]:.4f} (steps 0-{SPATIAL_STRETCH}, the "
+              f"tune inside), {ms[n][1]:.4f} (steps {SPATIAL_STRETCH}-{2 * SPATIAL_STRETCH}) "
+              f"in turns on {card}; profile over {PROFILE_STEPS} steps (a run() start and its "
+              f"builds inside, as the headline's profile line): {ops:.1f} device operations and "
+              f"{busy:.4f} ms device-busy per step, {syncs:.2f} synchronising calls per step; "
+              f"{sim.n_builds} builds, {sim.viol_replays} violation replays", flush=True)
+    print(f"[spatial] shards n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit "
+          f"for bit (positions, velocities, images, tags, gathered in slot order; builds, grid) "
+          f"after {SPATIAL_STRETCH} and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, "
+          f"n a force evaluation; the phase took {time.perf_counter() - phase_t0:.1f} s, of "
+          f"which {stretch_s:.1f} s the stretches", flush=True)
+    return {"cell_pair_force[PerturbedLennardJones]": launched}
+
+
 PHASES = ("rebin", "integrate_step1", "verlet_drift_check", "forces", "integrate_step2",
           "updaters", "mpcd_joint_collision")
 
@@ -2162,6 +2400,7 @@ def main() -> int:
         count((run_io(az, K, card, headline, Path(workdir)), None))
     del headline
     count((run_spatial(az, K, card), None))
+    count((run_spatial_sharded(az, D, K, card, record), None))
     count(run_path(az, D, K, card, record, "dpd", build_dpd, 2000, 1000,
                    {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum,
                    caps=(8, 40)))

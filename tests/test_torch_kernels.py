@@ -422,6 +422,113 @@ def test_kernel_refuses_what_it_does_not_cover(cuda_device):
         PK.cell_pair_force(dense, spec, tables, "LJ", "none")
 
 
+# Windows (parallel/spatial.py::halo_window): each shard's launch reads its
+# halo window and writes its own slots, which must equal the whole grid's
+# launch there bit for bit (the same candidates in the same order). kernel:
+# (system, potential); the layouts: one x plane a shard (slabs), two z
+# columns a shard (three on a grid of an odd number of columns: strips)
+WINDOWED = {
+    "K1": ("orthorhombic", "PerturbedLennardJones"),
+    "K1_tilted": ("tilted", "PerturbedLennardJones"),
+    "K1'": ("two_types", "Hertz"),
+    "K1'_axis_under_3": ("axis_under_3_slab", "Yukawa"),
+    "K2": ("orthorhombic", "dpd"),
+    "K3": ("orthorhombic", "aniso"),
+    "K3_groups": ("clustered_dense", "aniso"),
+}
+
+
+def _windowed_case(kernel, device):
+    """(dense, spec, launch(dense, want, window=None))."""
+    system, potential = WINDOWED[kernel]
+    if potential == "dpd":
+        dense, spec, tbl = _dpd_case(system, device)
+        tables = DK.dpd_kernel_tables(tbl["params"], tbl["r_cut"], 1.3, 0.01)
+
+        def launch(d, want, window=None):
+            return DK.cell_dpd_force(d, spec, tables, 77, 2**24 + 5, want, window=window)
+    elif potential == "aniso":
+        dense, spec, tbl = _aniso_case(system, device)
+        tables = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
+
+        def launch(d, want, window=None):
+            return AK.cell_aniso_force(d, spec, tables, want, window=window)
+    else:
+        dense, spec, tbl = _system(system, device, potential)
+        tables = PK.kernel_tables(potential, tbl["params"], tbl["r_cut"], tbl["r_on"], "shift")
+
+        def launch(d, want, window=None):
+            return PK.cell_pair_force(d, spec, tables, potential, "shift", want, window=window)
+    return dense, spec, launch
+
+
+def _mesh_size(spec, layout):
+    Dx, Dy, _ = spec.dims
+    cols = Dx * Dy
+    return Dx if layout == "slabs" else cols // (2 if cols % 2 == 0 else 3)
+
+
+def _shard_windows(dense, spec, n):
+    from azplugins_tpu_torch.parallel import halo_window, make_mesh, shard_dense
+
+    shards = shard_dense(dense, make_mesh(n, device=dense.device, sharded=True))
+    fields = ("position", "typeid", "tag", "velocity", "orientation")
+    return shards, [halo_window(shards, d, spec, fields) for d in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want", ["force", "all"])
+@pytest.mark.parametrize("layout", ["slabs", "strips"])
+@pytest.mark.parametrize("kernel", list(WINDOWED))
+def test_windowed_kernel_equals_whole_grid_launch(cuda_device, kernel, layout, want):
+    dense, spec, launch = _windowed_case(kernel, cuda_device)
+    whole = launch(dense, want)
+    n = _mesh_size(spec, layout)
+    shards, windows = _shard_windows(dense, spec, n)
+    S_loc = spec.S // n
+    got = [launch(shards[d], want, window=windows[d]) for d in range(n)]
+    torch.cuda.synchronize()
+    assert any(w.n_cols < spec.dims[0] * spec.dims[1] for w in windows) or spec.dims[0] <= 3
+    for k in ("force", "torque", "energy", "virial"):
+        if getattr(whole, k) is None:
+            continue
+        joined = torch.cat([getattr(g, k) for g in got])
+        assert torch.equal(joined.view(torch.int32), getattr(whole, k).view(torch.int32)), k
+    assert all(g.force.shape[0] == S_loc for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_whole_grid_window_and_bad_windows(cuda_device, kernel):
+    """The whole grid as a window gives the unwindowed launch's bits; a
+    window short of a halo plane poisons the cells whose stencil leaves it
+    (NaN), and own columns outside the window are refused at launch."""
+    dense, spec, launch = _windowed_case(kernel, cuda_device)
+    cols, per_col = spec.dims[0] * spec.dims[1], spec.dims[2] * spec.cap
+    whole = launch(dense, "all")
+    same = launch(dense, "all", window=D.Window(state=dense, w0=0, n_cols=cols, c0=0, n_own=cols))
+    for k in ("force", "energy", "virial"):
+        assert torch.equal(getattr(same, k).view(torch.int32), getattr(whole, k).view(torch.int32))
+    n = spec.dims[0]
+    _, windows = _shard_windows(dense, spec, n)
+    w = windows[1]
+    Dy = spec.dims[1]
+    short = D.Window(state=w.state.replace(
+        position=w.state.position[Dy * per_col:], typeid=w.state.typeid[Dy * per_col:],
+        tag=w.state.tag[Dy * per_col:], velocity=w.state.velocity[Dy * per_col:],
+        orientation=w.state.orientation[Dy * per_col:]),
+        w0=(w.w0 + Dy) % cols, n_cols=w.n_cols - Dy, c0=w.c0, n_own=w.n_own)
+    got = launch(None, "force", window=short)
+    torch.cuda.synchronize()
+    occupied = (dense.tag[spec.S // n:2 * spec.S // n] >= 0).cpu().numpy()
+    nan = torch.isnan(got.force).any(dim=1).cpu().numpy()
+    assert nan[occupied].all()  # every own cell's stencil reaches the missing plane
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch(None, "force", window=D.Window(state=short.state, w0=short.w0,
+                                               n_cols=short.n_cols, c0=(w.c0 + cols // 2) % cols,
+                                               n_own=w.n_own))
+
+
 def test_cpu_dispatch_takes_the_plain_version():
     dense, spec, tbl = _system("two_types", "cpu")
     ref = _plain(dense, spec, tbl, "shift", "all")

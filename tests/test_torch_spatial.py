@@ -108,30 +108,41 @@ def test_make_mesh_defaults_to_the_gpu(monkeypatch):
 
 def test_make_mesh_takes_one_block_a_card(monkeypatch):
     """Without a device, a mesh on a machine of two cards has one block on
-    each (the reference's jax.devices()), which a simulation refuses rather
-    than serve on one card; more blocks than cards need a device."""
+    each (the reference's jax.devices()), held as shards, which a
+    simulation accepts; more blocks than cards need a device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     mesh = make_mesh()
     assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert mesh.sharded and mesh.distinct
     assert make_mesh(1).devices == (torch.device("cuda", 0),)
+    assert not make_mesh(1).sharded
     with pytest.raises(ValueError, match="2 are present"):
         make_mesh(4)
     assert make_mesh(4, device="cuda").devices == (torch.device("cuda"),) * 4
+    assert not make_mesh(4, device="cuda").sharded
+    assert make_mesh(4, device="cuda", sharded=True).sharded
     sim = _lj_sim(port, SLABS, seed=21)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        sim.enable_spatial_decomposition(mesh)
-    assert sim._spatial_mesh is None
+    sim.enable_spatial_decomposition(mesh)
+    assert sim._spatial_mesh is mesh
 
 
 def test_mesh_off_the_device_raises():
+    """Views must lie on the simulation's device, and so must shards that
+    share one device; shards on distinct cards are accepted, and a mesh
+    over distinct devices is always sharded."""
     sim = _lj_sim(port, SLABS, seed=21)
     with pytest.raises(ValueError, match="lie on"):
         sim.enable_spatial_decomposition(Mesh(devices=(torch.device("cuda"),) * 2))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        sim.enable_spatial_decomposition(
-            Mesh(devices=(torch.device("cuda", 0), torch.device("cuda", 1))))
+    with pytest.raises(ValueError, match="distinct CUDA devices"):
+        sim.enable_spatial_decomposition(Mesh(devices=(torch.device("cuda"),) * 2, sharded=True))
     assert sim._spatial_mesh is None
+    cards = Mesh(devices=(torch.device("cuda", 0), torch.device("cuda", 1)))
+    assert cards.sharded
+    with pytest.raises(ValueError, match="sharded must be True"):
+        Mesh(devices=cards.devices, sharded=False)
+    sim.enable_spatial_decomposition(cards)
+    assert sim._spatial_mesh is cards
 
 
 # ---------------------------------------------------------------------------
