@@ -85,7 +85,7 @@ class VelocityCompute(_GroupCompute):
         mom = torch.sum(state.velocity * m[:, None], dim=0)
         mtot = torch.sum(m)
         if self.include_mpcd_particles:
-            mpcd = self._sim._mpcd
+            mpcd = self._sim._whole_mpcd()
             mom = mom + mpcd["mass"] * torch.sum(mpcd["velocity"], dim=0)
             mtot = mtot + mpcd["mass"] * mpcd["velocity"].shape[0]
         return (mom / torch.clamp_min(mtot, 1e-38)).cpu().numpy()
@@ -145,7 +145,7 @@ class VelocityFieldCompute(_GroupCompute):
         mass_grid, mom_grid = self._grids(state.position, state.velocity, state.mass,
                                           self._mask, state.box)
         if self.include_mpcd_particles:
-            mpcd = self._sim._mpcd
+            mpcd = self._sim._whole_mpcd()
             pos = mpcd["position"]
             n = pos.shape[0]
             mg, pg = self._grids(pos, mpcd["velocity"],

@@ -49,6 +49,10 @@ class Box:
             tilt=np.asarray([xy, xz, yz], dtype=_F32),
         )
 
+    @classmethod
+    def cube(cls, L: float) -> "Box":
+        return cls.from_lengths(L, L, L)
+
     # -- float32 scalars (exact float32 values held as Python floats) --------
     @property
     def Lx(self) -> float:
@@ -73,6 +77,16 @@ class Box:
     @property
     def yz(self) -> float:
         return float(self.tilt[2])
+
+    @property
+    def lo(self) -> np.ndarray:
+        """Lower corner ``-L/2`` (numpy float32)."""
+        return _F32(-0.5) * self.L
+
+    @property
+    def hi(self) -> np.ndarray:
+        """Upper corner ``L/2`` (numpy float32)."""
+        return _F32(0.5) * self.L
 
     def lattice_products(self) -> tuple[float, float, float]:
         """``(xy*Ly, xz*Lz, yz*Lz)``, each rounded to float32."""
@@ -110,6 +124,10 @@ class Box:
             dim=-1,
         )
 
+    def make_coordinates(self, f: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`fraction` shifted so f in [0, 1] spans the box."""
+        return self._lattice_shift(f - 0.5)
+
     # -- periodic operations ------------------------------------------------
     def wrap(self, r: torch.Tensor, image: torch.Tensor | None = None):
         """Fold positions into the primary box.
@@ -122,6 +140,12 @@ class Box:
         wrapped = r - self._lattice_shift(shift.to(r.dtype))
         image = shift if image is None else image + shift
         return wrapped, image
+
+    def min_image(self, dr: torch.Tensor) -> torch.Tensor:
+        """Minimum-image displacement for ``dr = r_i - r_j`` on ``[..., 3]``
+        (``torch.round`` rounds half to even, as ``jnp.round``)."""
+        shift = torch.round(self.fraction(dr))
+        return dr - self._lattice_shift(shift)
 
     def min_image_components(self, dx, dy, dz):
         """Minimum image on separate x/y/z component tensors (triclinic)."""

@@ -129,20 +129,21 @@ def external_tables_from_reference(ref_tbl: dict, device) -> dict:
 
 def mpcd_from_reference(ref_mpcd: dict | None, device) -> dict | None:
     """A reference simulation's MPCD stream (``sim._mpcd``) as the port's:
-    the arrays as tensors on ``device``, mass and types as they are, and
-    the SRD anchor ``(position, velocity, t_a)``, if it has one, with its
-    time as a host int."""
+    the arrays as tensors on ``device`` (position and velocity, and the
+    anchor's, as one block), mass and types as they are, and the SRD
+    anchor ``(position, velocity, t_a)``, if it has one, with its time as a
+    host int."""
     if ref_mpcd is None:
         return None
     out = {
-        "position": _tensor(ref_mpcd["position"], device),
-        "velocity": _tensor(ref_mpcd["velocity"], device),
+        "position": (_tensor(ref_mpcd["position"], device),),
+        "velocity": (_tensor(ref_mpcd["velocity"], device),),
         "typeid": _tensor(ref_mpcd["typeid"], device),
         "mass": float(ref_mpcd["mass"]),
         "types": list(ref_mpcd["types"]),
     }
     anchor = ref_mpcd.get("_srd_anchor")
     if anchor is not None:
-        out["_srd_anchor"] = (_tensor(anchor[0], device), _tensor(anchor[1], device),
+        out["_srd_anchor"] = ((_tensor(anchor[0], device),), (_tensor(anchor[1], device),),
                               int(np.asarray(anchor[2])))
     return out

@@ -25,6 +25,9 @@ __all__ = ["Bond", "DoubleWell", "FENEWCA", "Harmonic", "Quartic"]
 
 class Bond(Force):
     _evaluator_name = ""
+    # a partner may lie in any shard: on a sharded mesh the force reads
+    # every slot's position
+    _reads_partners = True
 
     def __init__(self):
         super().__init__()
@@ -40,15 +43,19 @@ class Bond(Force):
         """Each parameter gathered per bond, once per run (bond types are
         static), and the bond table, on ``device``."""
         state = self._sim._state
-        typeid = state.bond_typeid.to(torch.int64)
+        typeid = state.bond_typeid.to(device=device, dtype=torch.int64)
         return {
             "params": {k: v.to(device)[typeid] for k, v in self._tbl.items()},
-            "group": state.bond_group,
+            "group": state.bond_group.to(device),
         }
 
-    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all"):
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all",
+                       partners=None):
+        """``partners``: on a shard, ``(positions of every slot, the shard's
+        first global slot)`` (ops/dense.py::dense_bond_force)."""
+        positions, first = partners if partners is not None else (None, 0)
         return dense_bond_force(self._def.energy_force, dense, slot_of, tbl["group"],
-                                tbl["params"], want)
+                                tbl["params"], want, positions, first)
 
 
 class DoubleWell(Bond):

@@ -43,6 +43,10 @@ class Force:
     # the force reads the particle diameters (the diameter column then rides
     # the rebuild even when every diameter has its default)
     _needs_diameter = False
+    # a force that reads particles of any shard (bonds): on a sharded mesh
+    # ``_compute_dense`` takes ``partners=`` (every slot's position and the
+    # shard's first global slot)
+    _reads_partners = False
 
     def __init__(self):
         self._attached = False
@@ -67,7 +71,7 @@ class Force:
         """Force in the dense (slot) layout; ``slot_of`` maps tag -> slot.
         A stencil force (``_needs_nlist``) also takes ``window=``: on a
         sharded mesh, the shard's halo window, for whose own slots it
-        computes.
+        computes; a force that ``_reads_partners`` takes ``partners=``.
 
         Default: a per-particle force, the same in any layout (``_compute``).
         """

@@ -27,6 +27,19 @@ host's integers, the grid shift is drawn on the host, and every per-axis
 constant reaches the device by a fill, never by a copy that would wait for
 the stream.
 
+The stream's position and velocity (and its anchor's) are tuples of
+contiguous particle blocks: one block for a whole stream, one on each
+shard's device on a sharded mesh whose size divides the particle count
+(:func:`_place_solvent`). Streaming runs once a block. A collision
+scatters each block's rows into a partial cell table on its device; the
+partials are added in block order on the first block's device, every
+per-cell quantity (grid shift, axes, thermostat) comes from that one
+table, and it goes back to every block, which gathers and rotates its own
+rows. With one block this is the whole collision. The sums regroup, so a sharded
+collision matches the whole one within float32 round-off (~1e-7 relative),
+not bitwise; the stream and the cell ids stay bitwise, and on the CPU the
+sharded run is as independent of the ``run`` chunking as the whole one.
+
 By default the solvent does not act on MD solutes; the velocity computes
 with ``include_mpcd_particles=True`` read the advanced stream.
 :class:`CollisionCoupling` embeds the solutes in the collisions.
@@ -54,6 +67,35 @@ def _row(values, device) -> torch.Tensor:
     out = torch.empty(len(values), dtype=torch.float32, device=device)
     for i, v in enumerate(values):
         out[i].fill_(float(v))
+    return out
+
+
+def _joined(blocks: tuple, device) -> torch.Tensor:
+    """A solvent array's blocks joined whole on ``device``, in order: the
+    particles' own order, since solvent rows never migrate."""
+    return torch.cat([b.to(device) for b in blocks])
+
+
+def _place_solvent(mpcd: dict | None, device, devices=None) -> dict | None:
+    """The stream's position and velocity, and its anchor's, joined on
+    ``device`` and cut into one contiguous particle block a device of
+    ``devices`` when given and their number divides the particle count (as
+    the reference shards the solvent only when the mesh size divides it);
+    otherwise one block on ``device``."""
+    if mpcd is None:
+        return None
+    anchor = mpcd.get("_srd_anchor")
+    arrays = [mpcd["position"], mpcd["velocity"]] + (list(anchor[:2]) if anchor else [])
+    arrays = [_joined(a, device) for a in arrays]
+    N = arrays[0].shape[0]
+    if devices is None or N % len(devices):
+        devices = (device,)
+    n_loc = N // len(devices)
+    arrays = [tuple(a[d * n_loc:(d + 1) * n_loc].to(dev, copy=True)
+                    for d, dev in enumerate(devices)) for a in arrays]
+    out = {**mpcd, "position": arrays[0], "velocity": arrays[1]}
+    if anchor:
+        out["_srd_anchor"] = (arrays[2], arrays[3], anchor[2])
     return out
 
 
@@ -199,8 +241,14 @@ class SRD:
         return (ix * Dy + iy) * Dz + iz
 
     # -- physics -----------------------------------------------------------
-    def _stream(self, pos, vel, n_steps: int, L):
-        """Ballistic jump over n_steps MD steps (exact under constant f).
+    def _stream(self, pos: tuple, vel: tuple, n_steps: int, L) -> tuple:
+        """Ballistic jump over n_steps MD steps (exact under constant f) of
+        the stream's blocks, once a block (it is elementwise)."""
+        out = [self._stream_block(p, v, n_steps, L) for p, v in zip(pos, vel, strict=True)]
+        return tuple(p for p, _ in out), tuple(v for _, v in out)
+
+    def _stream_block(self, pos, vel, n_steps: int, L):
+        """One block's ballistic jump.
 
         With plates, substeps at dt with a single-bounce no-slip reflection
         per substep (full velocity reversal at the wall).
@@ -251,19 +299,25 @@ class SRD:
             pos = pos - torch.round(pos / L_row) * L_row * wrap
         return pos, vel
 
-    def _collide(self, pos, vel, t_col: int, L, seed: int, mass=None, invalid=None,
-                 n_fill=None, mass_fill=1.0):
-        """One SRD collision at the absolute timestep t_col; returns the
-        new velocities.
+    def _collide(self, pos: tuple, vel: tuple, t_col: int, L, seed: int, mass=None,
+                 invalid=None, n_fill=None, mass_fill=1.0) -> tuple:
+        """One SRD collision at the absolute timestep t_col of the stream's
+        blocks; returns the new velocities as blocks.
 
         ``mass``/``invalid`` generalise to mixed streams (collisional
         coupling of MD solutes): cell averages are mass-weighted, and
         ``invalid`` rows (empty MD slots) are binned to a trash cell and
         returned unchanged. ``n_fill``/``mass_fill`` set the virtual-fill
         density from the solvent count when the arrays also carry solutes.
+        ``pos``, ``vel`` (and ``mass``, ``invalid``, when given) are tuples
+        of blocks on their devices: the cell sums are each block's partial
+        sums added in block order on the first block's device.
         """
-        N = pos.shape[0]
-        dev = pos.device
+        n = len(pos)
+        mass_b = mass if mass is not None else (None,) * n
+        inval_b = invalid if invalid is not None else (None,) * n
+        N = sum(p.shape[0] for p in pos)
+        dev = pos[0].device
         dims = self._grid_dims()
         Dx, Dy, Dz = dims
         C = Dx * Dy * Dz
@@ -271,19 +325,24 @@ class SRD:
         kshift, kaxis, kvirt = _collision_keys(seed, t_col)
         shift = (_rng.jax_uniform_host(kshift, 3) * a if self.shift
                  else np.zeros(3, dtype=_F32))
-        cid = self._cell_ids(pos, shift)
-        if invalid is not None:
-            cid = torch.where(invalid, C, cid)  # the trash cell, excluded below
-        m = (torch.ones(N, dtype=torch.float32, device=dev) if mass is None
-             else mass.to(torch.float32))
 
-        # one scatter-add gives every per-cell sum at once: count, mass,
-        # momentum xyz, m v^2
-        mv = vel * m[:, None]
-        mv2 = torch.sum(vel * mv, dim=1)
-        pay = torch.cat([torch.ones((N, 1), dtype=torch.float32, device=dev), m[:, None], mv,
-                         mv2[:, None]], dim=1)
-        sums = torch.zeros((C + 1, 6), dtype=torch.float32, device=dev).index_add_(0, cid, pay)
+        # one scatter-add a block gives every per-cell sum at once: count,
+        # mass, momentum xyz, m v^2
+        cids, sums = [], None
+        for p, v, m, inv in zip(pos, vel, mass_b, inval_b, strict=True):
+            cid = self._cell_ids(p, shift)
+            if inv is not None:
+                cid = torch.where(inv, C, cid)  # the trash cell, excluded below
+            m = (torch.ones(p.shape[0], dtype=torch.float32, device=p.device) if m is None
+                 else m.to(torch.float32))
+            mv = v * m[:, None]
+            mv2 = torch.sum(v * mv, dim=1)
+            pay = torch.cat([torch.ones((p.shape[0], 1), dtype=torch.float32, device=p.device),
+                             m[:, None], mv, mv2[:, None]], dim=1)
+            part = torch.zeros((C + 1, 6), dtype=torch.float32, device=p.device).index_add_(
+                0, cid, pay)
+            sums = part if sums is None else sums + part.to(dev)
+            cids.append(cid)
         cnt = sums[:C, 0]
         msum = sums[:C, 1]
         vsum = sums[:C, 2:5]
@@ -349,17 +408,20 @@ class SRD:
         # trash cell: invalid rows gather zeros and are restored below
         table = torch.cat(cols, dim=1)
         table = torch.cat([table, table.new_zeros((1, table.shape[1]))], dim=0)
-        g = table[cid]
-        u_i, ax_i = g[:, 0:3], g[:, 3:6]
         rad = math.radians(self.angle)
         cos_a, sin_a = _F32(math.cos(rad)), _F32(math.sin(rad))
-        vrel = _rotate(vel - u_i, ax_i, float(cos_a), float(sin_a), float(_F32(1.0) - cos_a))
-        if self.kT is not None:
-            vrel = vrel * g[:, 6:7]
-        vnew = u_i + vrel
-        if invalid is not None:
-            vnew = torch.where(invalid[:, None], vel, vnew)
-        return vnew
+        out = []
+        for v, inv, cid in zip(vel, inval_b, cids, strict=True):
+            g = table.to(v.device)[cid]
+            u_i, ax_i = g[:, 0:3], g[:, 3:6]
+            vrel = _rotate(v - u_i, ax_i, float(cos_a), float(sin_a), float(_F32(1.0) - cos_a))
+            if self.kT is not None:
+                vrel = vrel * g[:, 6:7]
+            vnew = u_i + vrel
+            if inv is not None:
+                vnew = torch.where(inv[:, None], v, vnew)
+            out.append(vnew)
+        return tuple(out)
 
     def _advance(self, mpcd: dict, box, t0: int, t1: int, seed: int) -> dict:
         """Advance the anchored stream to the absolute MD timestep t1.
@@ -439,24 +501,46 @@ class CollisionCoupling:
             )
         self._attached = True
 
-    def _collide(self, dense, solv, t_col: int, seed: int, mass_s: float):
+    def _collide(self, shards: tuple, solv, t_col: int, seed: int, mass_s: float):
         """The joint collision at the MD clock t_col.
 
         The solvent streams from its anchor ``solv = (pos, vel, t_a)`` in
         one jump, and both streams' velocities rotate about the
         mass-weighted cell centre of mass; empty MD slots are trash-binned
-        with zero mass and come back untouched. Returns the dense state
-        with its new velocities and the solvent's new anchor at t_col.
+        with zero mass and come back untouched. ``shards``: the dense
+        layout as a tuple of States (one for a whole layout). The solvent's
+        block d collides with its share of the shards, joined after it:
+        shard d when there is a block a shard, every shard when the solvent
+        is one block (the whole run's collision). Returns the shards with
+        their new velocities and the solvent's new anchor at t_col.
         """
         srd = self.srd
         pos_a, vel_a, t_a = solv
         pos_s, vel_s = srd._stream(pos_a, vel_a, t_col - t_a, srd._L)
-        N_s = pos_s.shape[0]
-        inval = dense.tag < 0
-        mass = torch.cat([torch.full((N_s,), mass_s, dtype=torch.float32, device=pos_s.device),
-                          torch.where(inval, 0.0, dense.mass)])
-        invalid = torch.cat([torch.zeros(N_s, dtype=torch.bool, device=pos_s.device), inval])
-        vnew = srd._collide(torch.cat([pos_s, dense.position]), torch.cat([vel_s, dense.velocity]),
-                            t_col, srd._L, seed, mass=mass, invalid=invalid, n_fill=N_s,
-                            mass_fill=mass_s)
-        return dense.replace(velocity=vnew[N_s:]), (pos_s, vnew[:N_s], t_col)
+        if len(shards) % len(pos_s):
+            raise ValueError(f"{len(pos_s)} solvent blocks for {len(shards)} shards")
+        k = len(shards) // len(pos_s)
+        groups = [(p, v, shards[d * k:(d + 1) * k])
+                  for d, (p, v) in enumerate(zip(pos_s, vel_s, strict=True))]
+        N_s = sum(p.shape[0] for p in pos_s)
+        pos, vel, mass, invalid = [], [], [], []
+        for p, v, group in groups:
+            dev = p.device
+            inval = [s.tag.to(dev) < 0 for s in group]
+            pos.append(torch.cat([p] + [s.position.to(dev) for s in group]))
+            vel.append(torch.cat([v] + [s.velocity.to(dev) for s in group]))
+            mass.append(torch.cat(
+                [torch.full((p.shape[0],), mass_s, dtype=torch.float32, device=dev)]
+                + [torch.where(i, 0.0, s.mass.to(dev)) for i, s in zip(inval, group)]))
+            invalid.append(torch.cat([torch.zeros(p.shape[0], dtype=torch.bool, device=dev)]
+                                     + inval))
+        vnew = srd._collide(tuple(pos), tuple(vel), t_col, srd._L, seed, mass=tuple(mass),
+                            invalid=tuple(invalid), n_fill=N_s, mass_fill=mass_s)
+        out, vel_new = [], []
+        for (p, _, group), vn in zip(groups, vnew, strict=True):
+            n_p = p.shape[0]
+            vel_new.append(vn[:n_p])
+            for s in group:
+                out.append(s.replace(velocity=vn[n_p:n_p + s.N].to(s.device)))
+                n_p += s.N
+        return tuple(out), (pos_s, tuple(vel_new), t_col)

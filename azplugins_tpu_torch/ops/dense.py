@@ -1065,32 +1065,44 @@ def dense_aniso_force(
 # ---------------------------------------------------------------------------
 def dense_bond_force(energy_force_fn, dense: State, slot_of: torch.Tensor,
                      bond_group: torch.Tensor, params: dict,
-                     want: str = "all") -> ForceResult:
+                     want: str = "all", positions: torch.Tensor | None = None,
+                     first: int = 0) -> ForceResult:
     """Bond force in slot space: endpoints resolved through the tag->slot map.
 
     Port of the reference ``dense_bond_force``. ``params`` holds one value
     per bond (each ``[NB]``, gathered by bond type once per run). Each bond
-    adds ``+f dr`` to its first member and ``-f dr`` to its second with
-    ``index_add_``; with ``want="force"`` (the step loop) the energy and
-    virial scatters are skipped.
+    adds ``+f dr`` to its first member, then each adds ``-f dr`` to its
+    second, with ``index_add_``; with ``want="force"`` (the step loop) the
+    energy and virial scatters are skipped.
+
+    On a shard, ``slot_of`` maps to global slots, ``positions`` holds every
+    slot's position (all shards joined) and ``first`` is the shard's first
+    global slot: each bond is evaluated from the joined positions and its
+    terms go to the rows the shard owns (the others to a dropped row), so
+    each own slot sums the whole run's terms in the whole run's order.
     """
     S = dense.N
     a = slot_of[bond_group[:, 0]].to(torch.int64)
     b = slot_of[bond_group[:, 1]].to(torch.int64)
-    d = dense.position[a] - dense.position[b]
+    pos = dense.position if positions is None else positions
+    d = pos[a] - pos[b]
     ddx, ddy, ddz = dense.box.min_image_components(d[:, 0], d[:, 1], d[:, 2])
     rsq = ddx * ddx + ddy * ddy + ddz * ddz
     e, f_divr = energy_force_fn(torch.where(rsq > 0, rsq, 1.0), params)
 
+    rows = S
+    if positions is not None:
+        rows = S + 1
+        a, b = (torch.where((i >= first) & (i < first + S), i - first, S) for i in (a, b))
     fvec = torch.stack([f_divr * ddx, f_divr * ddy, f_divr * ddz], dim=-1)
     zeros = functools.partial(torch.zeros, dtype=torch.float32, device=dense.device)
-    force = zeros((S, 3)).index_add_(0, a, fvec).index_add_(0, b, -fvec)
+    force = zeros((rows, 3)).index_add_(0, a, fvec).index_add_(0, b, -fvec)[:S]
     if want == "force":
         return ForceResult(force=force, energy=None, virial=None)
     he = 0.5 * e
-    energy = zeros((S,)).index_add_(0, a, he).index_add_(0, b, he)
+    energy = zeros((rows,)).index_add_(0, a, he).index_add_(0, b, he)[:S]
     w = 0.5 * f_divr
     vir = torch.stack([w * ddx * ddx, w * ddx * ddy, w * ddx * ddz,
                        w * ddy * ddy, w * ddy * ddz, w * ddz * ddz], dim=-1)
-    virial = zeros((S, 6)).index_add_(0, a, vir).index_add_(0, b, vir)
+    virial = zeros((rows, 6)).index_add_(0, a, vir).index_add_(0, b, vir)[:S]
     return ForceResult(force=force, energy=energy, virial=virial)

@@ -27,6 +27,10 @@ of the reference's mesh:
 - :func:`shard_dense` and :func:`gather_dense` split and join the slot
   axis at the block boundaries (:func:`shard_meta` and :func:`gather_meta`
   the rebuild state with it).
+
+With bonds the tag->slot map is the whole system's, in global slots, and
+every shard holds a copy on its device (the reference's replicated
+``slot_of``): a bond partner may lie in any shard.
 """
 
 from __future__ import annotations
@@ -119,15 +123,15 @@ def shard_dense(dense: State, mesh) -> tuple:
 
 def shard_meta(meta: D.GridMeta, shards: tuple) -> tuple:
     """A whole grid's meta -> each shard's: its slice of the rebuild
-    positions, and the flags and counters (each shard carries them; the
-    run reads their OR and max)."""
+    positions, a copy of the global tag->slot map, and the flags and
+    counters (each shard carries them; the run reads their OR and max)."""
     S_loc = shards[0].N
     out = []
     for d, shard in enumerate(shards):
         dev = shard.device
         out.append(D.GridMeta(
             ref_position=meta.ref_position[d * S_loc:(d + 1) * S_loc].to(dev, copy=True),
-            slot_of=torch.zeros((0,), dtype=torch.int32, device=dev),
+            slot_of=meta.slot_of.to(dev),
             overflow=meta.overflow.to(dev),
             n_builds=meta.n_builds.to(dev),
             max_occ=meta.max_occ.to(dev),
@@ -138,11 +142,11 @@ def shard_meta(meta: D.GridMeta, shards: tuple) -> tuple:
 def gather_meta(metas: tuple, device) -> D.GridMeta:
     """The shards' metas joined into the whole grid's on ``device``: the
     rebuild positions in block order, the overflow flags' OR, the largest
-    ``max_occ`` (what the whole grid's rebuilds would have seen) and the
-    build count (every shard's is the same)."""
+    ``max_occ`` (what the whole grid's rebuilds would have seen), the build
+    count and the tag->slot map (every shard's are the same)."""
     return D.GridMeta(
         ref_position=torch.cat([m.ref_position.to(device) for m in metas]),
-        slot_of=torch.zeros((0,), dtype=torch.int32, device=device),
+        slot_of=metas[0].slot_of.to(device),
         overflow=torch.stack([m.overflow.to(device) for m in metas]).any(),
         n_builds=metas[0].n_builds.to(device),
         max_occ=torch.stack([m.max_occ.to(device) for m in metas]).max(),
@@ -247,12 +251,10 @@ def spatial_rebin(shards: tuple, metas: tuple, spec: D.GridSpec, N_tags: int,
     would produce, each block's share on its own device. A shard's overflow
     flag is raised by a cell above capacity, a full migrant buffer, or a
     migrant farther than ``H`` hops (lost); its ``max_occ`` is what the
-    shard saw (a lower bound once a migrant is lost). No tag->slot map is
-    built: bonds are not decomposed.
+    shard saw (a lower bound once a migrant is lost). With
+    ``need_slot_of`` each meta carries the global tag->slot map
+    (:func:`_global_slot_of`); without it the metas' maps pass through.
     """
-    if need_slot_of:
-        raise NotImplementedError("the sharded rebin builds no tag->slot map: bonds are not "
-                                  "decomposed (ROADMAP queue A, sharded bonds)")
     n = mesh.size
     if len(shards) != n or len(metas) != n:
         raise ValueError(f"{len(shards)} shards and {len(metas)} metas for a mesh of {n} "
@@ -293,8 +295,10 @@ def spatial_rebin(shards: tuple, metas: tuple, spec: D.GridSpec, N_tags: int,
         # rows: payload, cell, global row (cell C marks an empty row)
         row = gidx.to(torch.int32)[:, None]
         mig_data = torch.cat([packed, cid.to(torch.int32)[:, None], row], dim=1)
+        # fills, not a copy of a host list (which would wait for the stream)
         empty_row = torch.cat([D._payload_default_row(layout, dev)[0],
-                               torch.tensor([C, 0], dtype=torch.int32, device=dev)])
+                               torch.full((1,), C, dtype=torch.int32, device=dev),
+                               torch.zeros(1, dtype=torch.int32, device=dev)])
         ov = lost.any()
         out = {}
         for h in range(1, H + 1):
@@ -351,5 +355,24 @@ def spatial_rebin(shards: tuple, metas: tuple, spec: D.GridSpec, N_tags: int,
             n_builds=meta.n_builds + 1,
             max_occ=torch.maximum(max_occ, meta.max_occ),
         ))
+    if need_slot_of:
+        slot_of = _global_slot_of(new_shards, N_tags)
+        new_metas = [m.replace(slot_of=slot_of.to(m.ref_position.device)) for m in new_metas]
     return tuple(new_shards), tuple(new_metas)
+
+
+def _global_slot_of(shards: tuple, N_tags: int) -> torch.Tensor:
+    """The tag->slot map of the whole layout, in global slots, on the first
+    shard's device: each shard's tags name its first slot plus their local
+    slot (empty slots land on a dropped extra entry), as ``ops.dense``'s
+    rebin builds it."""
+    dev0 = shards[0].device
+    slot_of = torch.zeros((N_tags + 1,), dtype=torch.int32, device=dev0)
+    first = 0
+    for s in shards:
+        dest = torch.where(s.tag >= 0, s.tag, N_tags).to(torch.int64)
+        slot = first + torch.arange(s.N, dtype=torch.int32, device=s.device)
+        slot_of[dest.to(dev0)] = slot.to(dev0)
+        first += s.N
+    return slot_of[:N_tags]
 

@@ -22,8 +22,9 @@ evaluated on the host from the timestep, and an updater is a pure device
 function of (state, timestep, seed), so a firing neither splits the chunk
 nor waits for the device; a replayed chunk re-applies the same firings.
 
-MPCD. ``snapshot.mpcd`` becomes the solvent stream ``_mpcd`` (position,
-velocity, typeid, mass, types, and the SRD anchor once it streams). With
+MPCD. ``snapshot.mpcd`` becomes the solvent stream ``_mpcd`` (position
+and velocity as tuples of particle blocks, typeid, mass, types, and the
+SRD anchor once it streams). With
 ``mpcd_dynamics`` set, each accepted chunk advances it (``SRD._advance``);
 a replayed chunk never does. A ``mpcd.CollisionCoupling`` updater applies
 the joint solvent-solute collision inside the chunk, after the step its
@@ -67,8 +68,12 @@ on its device: every phase of the step runs once a shard, the rebuild is
 the block-local rebin with migration (parallel/spatial.py), and each
 shard's stencil forces read its halo window. Either way the trajectory,
 rebuilds and observables are the undecomposed run's on the same grid, bit
-for bit. Bonds, updaters and the MPCD solvent are not decomposed on
-shards.
+for bit. On shards, updaters run once a shard (the evaporator's pick on
+global slots), bonds read every shard's positions through the global
+tag->slot map, and the MPCD solvent is cut into particle blocks, one a
+shard, when the mesh size divides it (mpcd._place_solvent): its collisions
+regroup the float32 cell sums across the blocks, the one result that is
+not bitwise (within ~1e-7 relative a collision).
 
 Profiling. Inside ``with sim.profile(logdir):`` the step loop marks its
 phases as ``torch.profiler.record_function`` ranges named after the
@@ -176,7 +181,7 @@ class _StateView:
     def get_snapshot(self) -> Snapshot:
         sim = self._sim
         snap = state_to_snapshot(sim._synced_state(), sim._particle_types, sim._bond_types)
-        mpcd = sim._mpcd
+        mpcd = sim._whole_mpcd()
         if mpcd is not None:
             snap.mpcd.resize(mpcd["position"].shape[0])
             snap.mpcd.position[:], snap.mpcd.velocity[:], snap.mpcd.typeid[:] = to_host(
@@ -295,11 +300,13 @@ class Simulation:
         )
         mpcd = getattr(snapshot, "mpcd", None)
         if mpcd is not None and mpcd.N > 0:
+            # position and velocity as blocks (one here; _place_spatial
+            # cuts them for a sharded mesh)
             self._mpcd = {
-                "position": torch.as_tensor(np.asarray(mpcd.position, np.float32),
-                                            device=self.device),
-                "velocity": torch.as_tensor(np.asarray(mpcd.velocity, np.float32),
-                                            device=self.device),
+                "position": (torch.as_tensor(np.asarray(mpcd.position, np.float32),
+                                             device=self.device),),
+                "velocity": (torch.as_tensor(np.asarray(mpcd.velocity, np.float32),
+                                             device=self.device),),
                 "typeid": torch.as_tensor(np.asarray(mpcd.typeid, np.int32), device=self.device),
                 "mass": float(mpcd.mass),
                 "types": list(mpcd.types),
@@ -335,6 +342,17 @@ class Simulation:
 
             return gather_dense(self._dense, self.device)
         return self._dense
+
+    def _whole_mpcd(self) -> dict | None:
+        """The solvent stream with its position and velocity whole on the
+        simulation's device (its blocks joined in particle order)."""
+        from .mpcd import _joined
+
+        mpcd = self._mpcd
+        if mpcd is None:
+            return None
+        return {**mpcd, "position": _joined(mpcd["position"], self.device),
+                "velocity": _joined(mpcd["velocity"], self.device)}
 
     def _as_layout(self, shards: tuple):
         """Shards (or their metas) as ``_dense`` (``_meta``) holds them: the
@@ -423,7 +441,6 @@ class Simulation:
         if new_fields != self._fields:
             self._fields = new_fields
             self._drop_dense()
-        self._check_sharded_ops()
         self._attached = True
         self._prepared = False
 
@@ -531,10 +548,10 @@ class Simulation:
         if self._grid_spec is None:
             self._dense = state
             self._meta = self._identity_meta(state)
-            return
-        self._dense, self._meta = self._densify(state)
-        if bool(self._meta.overflow):
-            self._grow_and_rebuild(int(self._meta.max_occ))
+        else:
+            self._dense, self._meta = self._densify(state)
+            if bool(self._meta.overflow):
+                self._grow_and_rebuild(int(self._meta.max_occ))
         self._place_spatial()
 
     def _sharded(self) -> bool:
@@ -543,13 +560,17 @@ class Simulation:
         return mesh is not None and mesh.sharded and self._grid_spec is not None
 
     def _place_spatial(self):
-        """Lay the dense layout out for the current mesh: shards are joined
-        back into the whole layout, which a sharded mesh then splits into
-        its blocks. The layout and its rebuild state are kept as they are,
-        so a mesh enabled, swapped or dropped mid-run does not move the
-        trajectory."""
+        """Lay the dense layout and the solvent out for the current mesh:
+        shards and solvent blocks are joined back, and a sharded mesh then
+        splits the layout into its blocks and the solvent into particle
+        blocks (when the mesh size divides it). The layout and its rebuild
+        state are kept as they are, so a mesh enabled, swapped or dropped
+        mid-run does not move the trajectory."""
+        from .mpcd import _place_solvent
         from .parallel.spatial import gather_meta, shard_dense, shard_meta
 
+        devices = self._spatial_mesh.devices if self._sharded() else None
+        self._mpcd = _place_solvent(self._mpcd, self.device, devices)
         if self._dense is None:
             return
         if isinstance(self._dense, tuple):
@@ -557,24 +578,6 @@ class Simulation:
         if self._sharded():
             self._dense = shard_dense(self._dense, self._spatial_mesh)
             self._meta = shard_meta(self._meta, self._dense)
-
-    def _check_sharded_ops(self):
-        """Refuse what a sharded mesh does not decompose (ROADMAP queue A)."""
-        mesh = self._spatial_mesh
-        if mesh is None or not mesh.sharded or self._state is None:
-            return
-        if self._state.n_bonds > 0:
-            raise NotImplementedError(
-                "bonds on a sharded mesh: a partner may lie beyond the halo window (ROADMAP "
-                "queue A, sharded bonds); use make_mesh(n, device=...) without sharded=True")
-        if self.operations.updaters:
-            raise NotImplementedError(
-                "updaters on a sharded mesh: the evaporator ranks all particles (ROADMAP "
-                "queue A, sharded updaters); use make_mesh(n, device=...) without sharded=True")
-        if self._mpcd is not None or self.mpcd_dynamics is not None:
-            raise NotImplementedError(
-                "the MPCD solvent on a sharded mesh (ROADMAP queue A, the sharded MPCD "
-                "solvent); use make_mesh(n, device=...) without sharded=True")
 
     @staticmethod
     def _max_occupancy_cap(state: State, spec: D.GridSpec, slack: int = 8) -> int:
@@ -673,32 +676,40 @@ class Simulation:
             f._build_tables(self)
         devices = self._spatial_mesh.devices if self._sharded() else (self.device,)
         by_device = {}
-        return tuple(by_device.setdefault(_key(d), tuple(f._device_tables(d) for f in forces))
-                     for d in devices)
+        for d in devices:
+            # once a device: each copy of a host table waits for the stream
+            if _key(d) not in by_device:
+                by_device[_key(d)] = tuple(f._device_tables(d) for f in forces)
+        return tuple(by_device[_key(d)] for d in devices)
 
-    def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls, window=None):
+    def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls, window=None,
+                     partners=None):
         """The net force, and, when rotational DOF are integrated, the net
         torque summed over the forces that produce one (zeros if none does;
         else None). Resetting it every step matters even without a torque
         force: Langevin stores its effective torque there, which must not
         carry into the next step's sum. On a shard, stencil forces read its
-        halo ``window``."""
+        halo ``window`` and bonds its ``partners``."""
         net = torch.zeros((dense.N, 3), dtype=torch.float32, device=dense.device)
         need_torque = self._rotational()
         ntq = torch.zeros_like(net) if need_torque else None
         ctx = self._ctx()
         for f, tbl in zip(self._forces(), tbls, strict=True):
-            r = self._evaluate(f, dense, meta, t, ctx, tbl, window, "force")
+            r = self._evaluate(f, dense, meta, t, ctx, tbl, window, "force", partners)
             net = net + r.force
             if need_torque and r.torque is not None:
                 ntq = ntq + r.torque
         return net, ntq
 
     def _evaluate(self, f, dense: State, meta: D.GridMeta, t: int, ctx, tbl, window,
-                  want: str) -> ForceResult:
+                  want: str, partners=None) -> ForceResult:
         """One force on a whole layout or a shard (a stencil force then reads
-        the shard's halo ``window``)."""
-        kw = {"window": window} if window is not None and f._needs_nlist else {}
+        the shard's halo ``window``, a bond its ``partners``)."""
+        kw = {}
+        if window is not None and f._needs_nlist:
+            kw["window"] = window
+        if partners is not None and f._reads_partners:
+            kw["partners"] = partners
         return f._compute_dense(dense, self._grid_spec, meta.slot_of, t, ctx, tbl, want=want,
                                 **kw)
 
@@ -717,12 +728,31 @@ class Simulation:
         return tuple(halo_window(shards, d, self._grid_spec, tuple(fields))
                      for d in range(len(shards)))
 
+    def _partners(self, shards: tuple) -> tuple:
+        """Each shard's bond partners: every slot's position, joined in block
+        order on the shard's device, and the shard's first global slot; None
+        for a whole layout or without a force that reads them."""
+        if not self._sharded() or not any(f._reads_partners for f in self._forces()):
+            return (None,) * len(shards)
+        from .parallel.mesh import _key
+
+        by_device, out, first = {}, [], 0
+        for s in shards:
+            pos = by_device.get(_key(s.device))
+            if pos is None:
+                pos = torch.cat([x.position.to(s.device) for x in shards])
+                by_device[_key(s.device)] = pos
+            out.append((pos, first))
+            first += s.N
+        return tuple(out)
+
     def _with_forces(self, shards: tuple, metas: tuple, t: int, tbls) -> tuple:
         """The shards (one for a whole layout) with this step's net force
         (and net torque) set, each for its own slots."""
-        windows = self._windows(shards)
-        out = tuple(self._set_net(s, *self._compute_net(s, m, t, tb, w))
-                    for s, m, tb, w in zip(shards, metas, tbls, windows, strict=True))
+        views = zip(shards, metas, tbls, self._windows(shards), self._partners(shards),
+                    strict=True)
+        out = tuple(self._set_net(s, *self._compute_net(s, m, t, tb, w, p))
+                    for s, m, tb, w, p in views)
         self.force_evaluations += len(self._forces())
         return out
 
@@ -759,10 +789,11 @@ class Simulation:
         device or on distinct CUDA devices: each block gets slot storage of
         its own there, rebuilds run the block-local rebin whose migrant
         buffers hold ``migrate_cap`` rows a direction and hop (default
-        ``parallel.slab_migrate_capacity``), and stencil forces read halo
-        windows. Either way the trajectory is the undecomposed one on the
-        same grid, bitwise. Bonds, updaters and an MPCD solvent raise
-        NotImplementedError on a sharded mesh.
+        ``parallel.slab_migrate_capacity``), stencil forces read halo
+        windows, bonds every shard's positions, and an MPCD solvent is cut
+        into particle blocks when the mesh size divides it. Either way the
+        trajectory is the undecomposed one on the same grid, bitwise, but
+        for a sharded solvent's collisions (within float32 round-off).
         """
         from .parallel.mesh import same_device
 
@@ -778,13 +809,7 @@ class Simulation:
             raise ValueError(
                 f"the mesh's blocks lie on {devices[0]}, the simulation on {self.device}"
             )
-        previous = (self._spatial_mesh, self._spatial_migrate_cap)
         self._spatial_mesh, self._spatial_migrate_cap = mesh, migrate_cap
-        try:
-            self._check_sharded_ops()
-        except NotImplementedError:
-            self._spatial_mesh, self._spatial_migrate_cap = previous
-            raise
         spec = self._grid_spec
         if self._attached and spec is not None and (spec.dims[0] * spec.dims[1]) % mesh.size:
             # regrid at the next attach; pull the positions out of the dense
@@ -831,8 +856,8 @@ class Simulation:
 
         ``dense`` and ``meta`` are the layout as ``_dense`` and ``_meta``
         hold it: on a sharded mesh one State and one GridMeta a shard, and
-        every phase runs once a shard (updaters and the solvent are refused
-        there: :meth:`_check_sharded_ops`).
+        every phase runs once a shard (an updater through its
+        ``_update_shards``, the joint collision with the solvent's blocks).
         With ``rebin_first`` (a chunk that starts on the rebuild schedule),
         the grid rebuilds before chunk-relative steps 0, seg_len, 2*seg_len,
         ...; otherwise the chunk continues the previous chunk's segment.
@@ -874,15 +899,11 @@ class Simulation:
             fired = [u for u in updaters if u.trigger(t)]
             if fired:
                 with scope("updaters"):
-                    (whole,) = shards
                     for u in fired:
-                        whole = u._update(whole, t, seed)
-                    shards = (whole,)
+                        shards = u._update_shards(shards, t, seed)
             if coupling is not None and coupling.trigger(t):
                 with scope("mpcd_joint_collision"):
-                    (whole,) = shards
-                    whole, solv = coupling._collide(whole, solv, t + 1, seed, mass_s)
-                    shards = (whole,)
+                    shards, solv = coupling._collide(shards, solv, t + 1, seed, mass_s)
         return self._as_layout(shards), self._as_layout(metas), viol, solv
 
     def _rebuild(self, shards: tuple, metas: tuple) -> tuple:
@@ -891,11 +912,12 @@ class Simulation:
         from .parallel.spatial import spatial_rebin
 
         spec, N_tags = self._grid_spec, self._state.N
+        need_slot_of = self._state.n_bonds > 0
         if self._sharded():
-            return spatial_rebin(shards, metas, spec, N_tags, self._fields,
+            return spatial_rebin(shards, metas, spec, N_tags, self._fields, need_slot_of,
                                  mesh=self._spatial_mesh, migrate_cap=self._spatial_migrate_cap)
         (dense,), (meta,) = shards, metas
-        dense, meta = D.rebin(dense, meta, spec, N_tags, self._fields, self._state.n_bonds > 0)
+        dense, meta = D.rebin(dense, meta, spec, N_tags, self._fields, need_slot_of)
         return (dense,), (meta,)
 
     def _drifted(self, shards: tuple, metas: tuple) -> torch.Tensor:
@@ -1125,9 +1147,10 @@ class Simulation:
         shards, metas = _as_shards(self._dense), _as_shards(self._meta)
         ctx = self._ctx()
         # each shard's own slots, joined in block order
-        rs = [self._evaluate(force, s, m, self._timestep, ctx, tb[i], w, "all")
-              for s, m, tb, w in zip(shards, metas, self._force_tables(), self._windows(shards),
-                                     strict=True)]
+        rs = [self._evaluate(force, s, m, self._timestep, ctx, tb[i], w, "all", p)
+              for s, m, tb, w, p in zip(shards, metas, self._force_tables(),
+                                        self._windows(shards), self._partners(shards),
+                                        strict=True)]
         dev = self.device
 
         def join(name):

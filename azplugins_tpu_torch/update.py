@@ -15,7 +15,12 @@ Port of ``azplugins_tpu/update.py``:
 An updater's ``_update(state, timestep, seed)`` is a pure device function:
 it reads nothing back to the host. The step loop fires it after the step
 with index ``timestep`` when its trigger says so on the host
-(Simulation._run_chunk). Retyping is a masked select, never a resize.
+(Simulation._run_chunk), through ``_update_shards``, which takes the
+layout as a tuple of shards (one for a whole layout): by default
+``_update`` once a shard, which is right for any elementwise updater. The
+evaporator ranks every slot of the system, so its one pick (a whole
+layout is one shard) keys on the global slot and merges the shards'
+candidates (the reference's top-k over its sharded slot axis). Retyping is a masked select, never a resize.
 """
 
 from __future__ import annotations
@@ -49,6 +54,11 @@ class Updater:
 
     def _update(self, state, timestep, seed):  # pragma: no cover - interface
         raise NotImplementedError
+
+    def _update_shards(self, shards: tuple, timestep, seed) -> tuple:
+        """The update on a layout held as shards (a tuple of States, one
+        for a whole layout): ``_update`` once a shard by default."""
+        return tuple(self._update(s, timestep, seed) for s in shards)
 
 
 class TypeUpdater(Updater):
@@ -124,29 +134,55 @@ class ParticleEvaporator(Updater):
         self._k = min(self.N_evap_max, int(sim._state.N))
         super()._attach(sim)
 
-    def _update(self, state, timestep, seed):
-        if self.seed is not None:
-            seed = self.seed
+    def _candidates(self, state):
         pos, _ = state.box.wrap(state.position, state.image)
         z = pos[:, 2]
-        candidate = (state.typeid == self._solvent_id) & (z >= _f32(self.lo)) & (z < _f32(self.hi))
+        return (state.typeid == self._solvent_id) & (z >= _f32(self.lo)) & (z < _f32(self.hi))
 
-        if self._k >= state.N:
-            flip = candidate
-        else:
-            # the k smallest priorities, non-candidates last. An int64 key of
-            # (priority, slot) is unique, so the pick is exact and ties go to
-            # the lower slot; an f32 cast would collide mantissas
-            (bits,) = _rng.particle_bits(
-                _rng.Stream.PARTICLE_EVAPORATOR, seed, timestep, state.tag, n_words=1
-            )
-            priority = torch.where(candidate, bits, 0xFFFFFFFF)
-            slot = torch.arange(state.N, dtype=torch.int64, device=state.device)
-            _, pick_idx = torch.topk((priority << 31) | slot, self._k, largest=False,
-                                     sorted=False)
-            pick = torch.zeros_like(candidate)
-            pick[pick_idx] = True
-            n_marked = torch.sum(candidate.to(torch.int32))
-            flip = torch.where(n_marked <= self._k, candidate, pick & candidate)
+    def _keys(self, state, candidate, timestep, seed, first: int = 0):
+        """Each slot's unique pick key ``(priority << 31) | global slot``,
+        non-candidates last. An int64 key is exact, so ties go to the lower
+        slot; an f32 cast would collide mantissas. ``first``: the state's
+        first global slot (a shard's offset)."""
+        (bits,) = _rng.particle_bits(
+            _rng.Stream.PARTICLE_EVAPORATOR, seed, timestep, state.tag, n_words=1
+        )
+        priority = torch.where(candidate, bits, 0xFFFFFFFF)
+        slot = first + torch.arange(state.N, dtype=torch.int64, device=state.device)
+        return (priority << 31) | slot
+
+    def _retype(self, state, flip):
         new_typeid = torch.where(flip, self._evaporated_id, state.typeid).to(torch.int32)
         return state.replace(typeid=new_typeid)
+
+    def _update(self, state, timestep, seed):
+        return self._update_shards((state,), timestep, seed)[0]
+
+    def _update_shards(self, shards: tuple, timestep, seed) -> tuple:
+        """The pick on a layout held as shards (one for a whole layout):
+        each shard's k smallest keys (on its global slots) join in shard
+        order on the first shard's device, the k-th smallest of them is the
+        whole layout's, and each shard flips its own candidates at or below
+        it. Keys are unique, so the pick is the same for any number of
+        shards, bit for bit; nothing is read back to the host."""
+        if self.seed is not None:
+            seed = self.seed
+        dev0 = shards[0].device
+        cands = [self._candidates(s) for s in shards]
+        if self._k >= sum(s.N for s in shards):
+            return tuple(self._retype(s, c) for s, c in zip(shards, cands))
+        keys, first = [], 0
+        for s, c in zip(shards, cands):
+            keys.append(self._keys(s, c, timestep, seed, first=first))
+            first += s.N
+        tops = [torch.topk(k, min(self._k, k.numel()), largest=False, sorted=False).values
+                for k in keys]
+        kth = torch.topk(torch.cat([t.to(dev0) for t in tops]), self._k, largest=False,
+                         sorted=False).values.max()
+        n_marked = torch.stack([c.to(torch.int32).sum().to(dev0) for c in cands]).sum()
+        few = n_marked <= self._k
+        out = []
+        for s, c, k in zip(shards, cands, keys):
+            flip = torch.where(few.to(s.device), c, (k <= kth.to(s.device)) & c)
+            out.append(self._retype(s, flip))
+        return tuple(out)

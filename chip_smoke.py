@@ -53,6 +53,18 @@
      a call per shard against its bound, the halo bytes and copies a force
      evaluation, and device operations, device-busy ms and ms/step at n =
      1, 4 and 16;
+   - [spatial_ops] updaters, bonds and the MPCD solvent on 4 shards: the
+     droplet (600 + 600 steps; its evaporator on shards) and the polymer
+     melt (300 + 300 from the built rods; its bonds read across shards),
+     each whole (on the grid the mesh snaps to) and sharded in turns, equal
+     bit for bit after each stretch; colloid hydrodynamics (400 steps, its
+     solvent in 4 particle blocks) within its path's limits on shards, and
+     one joint collision on shards within 1e-6 of max|v| of the whole one;
+     ms/step, device operations, busy ms and synchronising calls a step,
+     the evaporator's pick on shards with no synchronising call and its
+     operations a fire, the position gather's ms, the joint collision's ms
+     and operations, and the windowed K1/K1' of shards 0 and 2 against the
+     plain windowed stencil with their ms and bound;
    - the DPD fluid (BASELINE config 3, 21,952 particles, ConstantVolume);
    - the polymer melt (BASELINE config 2, 1,280 chains of 25, Quartic
      bonds + ExpandedYukawa, Langevin);
@@ -173,6 +185,14 @@ SPATIAL_STRETCH = 300
 # [profile]: the headline's steps under Simulation.profile (the colloids
 # run two collision periods)
 PROFILE_STEPS = 20
+# [spatial_ops]: the droplet, the polymer melt and colloid hydrodynamics,
+# whole and on SPATIAL_OPS_SHARDS shards, two stretches each in turns (the
+# colloids one: they are held to their limits, not to the whole run)
+SPATIAL_OPS_SHARDS = 4
+SPATIAL_OPS_STRETCH = {"droplet": 600, "polymer": 300, "colloid": 400}
+# a joint collision on shards against the whole one, of max|v|: the
+# reference's ~1e-7 relative a collision plus the card's atomic cell sums
+SPATIAL_OPS_COLLISION_BAR = 1e-6
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -1467,7 +1487,7 @@ def run_potential_sweep(az, K):
 def _solvent_kT(sim):
     """The solvent's kinetic temperature relative to its mean velocity,
     m_s <|v - <v>|^2> / 3, and its mean velocity."""
-    v = sim._mpcd["velocity"].double()
+    v = sim._whole_mpcd()["velocity"].double()
     mean = v.mean(dim=0)
     kT = float(sim._mpcd["mass"] * ((v - mean) ** 2).sum(dim=1).mean() / 3.0)
     return kT, mean.cpu().numpy()
@@ -1517,12 +1537,36 @@ def _colloid_bits(az):
     for _ in range(2):
         sim, _ = build_colloid(az, "cuda")
         sim.run(60)
-        out.append((sim._mpcd["velocity"].clone(), sim._synced_state().velocity.clone()))
+        out.append((sim._whole_mpcd()["velocity"], sim._synced_state().velocity.clone()))
         del sim
     same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(out[0], out[1]))
     diff = max(float((a - b).abs().max()) for a, b in zip(out[0], out[1]))
     return same, diff
+
+
+def _colloid_limits(sim, label):
+    """The colloid path's limits: the total momentum is the body force's
+    impulse on the solvent (shared with the colloids by the collisions and
+    conserved by the pair force) within COLLOID_P_BAND m_s N_s, and the
+    solvent's kT relative to its mean velocity 1.0 +- COLLOID_KT_BAND.
+    Returns (P, P wanted, solvent kT, solvent mean velocity)."""
+    solvent = sim._whole_mpcd()
+    m_s, f_x = solvent["mass"], sim.mpcd_dynamics.body_force[0]
+    v_s = solvent["velocity"].double()
+    N_s = v_s.shape[0]
+    state = sim._synced_state()
+    P = (m_s * v_s.sum(dim=0) + (state.mass.double()[:, None]
+                                 * state.velocity.double()).sum(dim=0)).cpu().numpy()
+    P_want = np.array([m_s * N_s * f_x * sim.timestep * sim.dt_ref(), 0.0, 0.0])
+    if not (np.abs(P - P_want) <= COLLOID_P_BAND * m_s * N_s).all():
+        raise AssertionError(f"{label}: total momentum {P} against {P_want} "
+                             f"(band {COLLOID_P_BAND * m_s * N_s:.3f})")
+    kT_s, mean_s = _solvent_kT(sim)
+    if abs(kT_s - 1.0) > COLLOID_KT_BAND:
+        raise AssertionError(f"{label}: solvent kT relative to its mean velocity {kT_s:.4f} "
+                             f"outside 1.0 +- {COLLOID_KT_BAND}")
+    return P, P_want, kT_s, mean_s
 
 
 def run_colloid(az, D, K, card, record):
@@ -1543,7 +1587,7 @@ def run_colloid(az, D, K, card, record):
         raise AssertionError(f"colloid: the capacity tune did not fire at step {COLLOID_TUNE_AT}")
     if not coupling._ingraph:
         raise AssertionError("colloid: the joint collision is not on its default schedule")
-    N_c, N_s = sim.state.N_particles, sim._mpcd["position"].shape[0]
+    N_c, N_s = sim.state.N_particles, sim._whole_mpcd()["position"].shape[0]
     print(f"[colloid] N_c={N_c} N_s={N_s} grid {sim._grid_spec}: {sim.timestep} warm-up steps "
           f"in {time.perf_counter() - t0:.1f} s; collisions in the step loop: "
           f"{coupling._ingraph}", flush=True)
@@ -1564,21 +1608,9 @@ def run_colloid(az, D, K, card, record):
     builds, replays = sim.n_builds - builds0, sim.viol_replays - replays0
     _check_wrapped(sim, "colloid")
 
-    # total momentum: the body force's impulse on the solvent, shared with
-    # the colloids by the collisions and conserved by the pair force
-    m_s, f_x = sim._mpcd["mass"], sim.mpcd_dynamics.body_force[0]
-    v_s = sim._mpcd["velocity"].double()
+    m_s = sim._mpcd["mass"]
+    P, P_want, kT_s, mean_s = _colloid_limits(sim, "colloid")
     state = sim._synced_state()
-    P = (m_s * v_s.sum(dim=0) + (state.mass.double()[:, None]
-                                 * state.velocity.double()).sum(dim=0)).cpu().numpy()
-    P_want = np.array([m_s * N_s * f_x * sim.timestep * sim.dt_ref(), 0.0, 0.0])
-    if not (np.abs(P - P_want) <= COLLOID_P_BAND * m_s * N_s).all():
-        raise AssertionError(f"colloid: total momentum {P} against {P_want} "
-                             f"(band {COLLOID_P_BAND * m_s * N_s:.3f})")
-    kT_s, mean_s = _solvent_kT(sim)
-    if abs(kT_s - 1.0) > COLLOID_KT_BAND:
-        raise AssertionError(f"colloid: solvent kT relative to its mean velocity {kT_s:.4f} "
-                             f"outside 1.0 +- {COLLOID_KT_BAND}")
     v_c = state.velocity.double()
     vx_c = float(v_c[:, 0].mean())
     if not 0.0 < vx_c < 1.1 * mean_s[0]:
@@ -1595,7 +1627,7 @@ def run_colloid(az, D, K, card, record):
     t_col = solv[2] + sim.mpcd_dynamics.period
 
     def collide():
-        return coupling._collide(dense, solv, t_col, seed, m_s)
+        return coupling._collide((dense,), solv, t_col, seed, m_s)
 
     collide()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1653,8 +1685,9 @@ def run_poiseuille(az, card):
     A = np.stack([0.25 - z**2, np.ones(POISEUILLE_BINS)], 1)
     coef, *_ = np.linalg.lstsq(A, prof, rcond=None)
     r2 = 1 - ((prof - A @ coef) ** 2).sum() / max(((prof - prof.mean()) ** 2).sum(), 1e-12)
-    beyond = float(sim._mpcd["position"][:, 2].abs().max()) - L / 2
-    print(f"[poiseuille] N={sim._mpcd['position'].shape[0]} L={L}: steps {TUNE_AT}-"
+    solvent = sim._whole_mpcd()["position"]
+    beyond = float(solvent[:, 2].abs().max()) - L / 2
+    print(f"[poiseuille] N={solvent.shape[0]} L={L}: steps {TUNE_AT}-"
           f"{POISEUILLE_STEPS}: {ms_step:.4f} ms/step (host wall {wall:.3f} s) on {card}; "
           f"profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per step, "
           f"{htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per step",
@@ -1676,7 +1709,7 @@ def run_srd(az, card):
     ops, busy, htod, syncs = _profile(sim)
     ms_step, wall = _timed_run(sim, SRD_STEPS)
     kT, _ = _solvent_kT(sim)
-    print(f"[srd] N={sim._mpcd['position'].shape[0]}, {SRD_STEPS} steps of one collision each: "
+    print(f"[srd] N={sim._whole_mpcd()['position'].shape[0]}, {SRD_STEPS} steps of one collision each: "
           f"{ms_step:.4f} ms per collision (host wall {wall:.3f} s) on {card}; profile: "
           f"{ops:.1f} device operations and {busy:.4f} ms device-busy per step, {htod:.2f} "
           f"host-to-device copies and {syncs:.2f} synchronising calls per step; solvent kT "
@@ -2252,6 +2285,242 @@ def run_spatial_sharded(az, D, K, card, record):
     return {"cell_pair_force[PerturbedLennardJones]": launched}
 
 
+def _same_sharded(what, got, want):
+    """A sharded simulation's layout, gathered in slot order, against the
+    whole run's (positions, velocities, images, tags, typeids), bit for
+    bit, with the timestep, builds and grid."""
+    if (got.timestep, got.n_builds, got._grid_spec) != (want.timestep, want.n_builds,
+                                                        want._grid_spec):
+        raise AssertionError(f"spatial_ops: {what}: timestep, builds, grid {got.timestep}, "
+                             f"{got.n_builds}, {got._grid_spec} against {want.timestep}, "
+                             f"{want.n_builds}, {want._grid_spec}")
+    dense = got._whole_dense()
+    for field in ("position", "velocity", "image", "tag", "typeid"):
+        a, b = getattr(dense, field), getattr(want._dense, field)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"spatial_ops: {what}: {field} differs (max |d| "
+                                 f"{float((a.double() - b.double()).abs().max()):.3e})")
+
+
+def _phase_ops(sim, steps):
+    """``steps`` steps under ``sim.profile`` (a directory inside the
+    checkout, removed after): the trace's ranges, device operations and
+    device-busy us by phase (``_phase_split``)."""
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_profile_") as logdir:
+        with sim.profile(logdir):
+            sim.run(steps)
+        (trace,) = Path(logdir).glob("*.pt.trace.json")
+        return _phase_split(trace)
+
+
+def _windowed_on_path(az, D, K, sim, f, label, record):
+    """The path's pair kernel (K1 or K1', want="force" as the step loop
+    launches it) on the sharded run's own shards 0 and n/2, in their halo
+    windows, against the plain windowed stencil on the card at the
+    [kernel] bar; its ms a call (CUDA events) and its bound (``_bound`` on
+    the window: its occupied slots' inputs and every window tag once, the
+    own slots' forces, the table; the shard's pairs inside r_cut)."""
+    shards, spec = sim._dense, sim._grid_spec
+    windows = sim._windows(shards)
+    tbl = f._device_tables(sim.device)
+    pot = f._evaluator_name
+    name = f"cell_pair_force[{pot}]"
+    partners = _partners(D, sim._whole_dense(), spec, f._max_r_cut())
+    S_loc, n = shards[0].N, len(shards)
+    rows = []
+    for d in (0, n // 2):
+        w = windows[d]
+
+        def launch(d=d, w=w):
+            return K.PK.cell_pair_force(shards[d], spec, tbl["kernel"], pot, f.mode, "force",
+                                        window=w)
+
+        got = launch()
+        jb = D.make_jblocks(w.state, spec, half=spec.newton_ok, window=w)
+        ref = D.dense_pair_force(f._def.energy_force, w.state, jb, spec, tbl["params"],
+                                 tbl["r_cut"], tbl.get("r_on"), f.mode, "force", window=w)
+        torch.cuda.synchronize()
+        err, _ = _compare_result(f"{label}: windowed {name} shard {d} of {n}", got, ref, "force")
+        record(name, err)
+        ms = _cuda_time_ms(launch, 50)
+        pairs = float(partners[d * S_loc:(d + 1) * S_loc].sum()) / 2.0
+        bound_ms, by = _bound(w.state, 16, 0, 4 * tbl["kernel"].numel() + 12 * S_loc, pairs,
+                              OPS_PER_PAIR[pot])
+        rows.append(f"shard {d}: {ms:.4f} ms a call, bound {bound_ms:.5f} ms ({by}, "
+                    f"{ms / bound_ms:.0f}x), max abs force error {err:.3e} ({w.n_cols} window "
+                    f"columns, {int(pairs)} pairs inside r_cut)")
+    print(f"[spatial_ops] {label}: windowed {name} on its own state: {'; '.join(rows)}",
+          flush=True)
+
+
+def run_spatial_ops(az, D, K, card, record):
+    """[spatial_ops]: updaters, bonds and the MPCD solvent on a sharded mesh.
+    The droplet (its evaporator), the polymer melt (its bonds, from the
+    built state, no warm-up) and colloid hydrodynamics (its solvent in
+    particle blocks and the joint collision), each built twice from one
+    seed, whole and on SPATIAL_OPS_SHARDS shards of the card
+    (``make_mesh(n, device="cuda", sharded=True)``; the whole run on the
+    grid the mesh snaps to, as views of one slot axis), run in turns with the
+    launch counts set to 0 just before each run and read just after: K1 or
+    K1' once a force evaluation whole, n times on shards. The droplet and
+    the polymer must equal the whole run bit for bit after each stretch
+    (the evaporated count too, and above 0; the bond lengths finite); the
+    colloids on shards hold their path's limits, and one joint collision
+    on shards agrees with the whole one within SPATIAL_OPS_COLLISION_BAR of
+    max|v|. Prints ms/step, device operations, busy ms and synchronising
+    calls a step (PROFILE_STEPS steps, as [spatial]), the updaters phase's
+    operations (droplet), the position gather's ms (polymer), the joint
+    collision's ms and operations (colloid), the windowed kernel on shards
+    0 and n/2 against the plain windowed stencil with its bound, and the
+    phase's wall time. Returns the kernel launches."""
+    from azplugins_tpu_torch.parallel import make_mesh
+    from azplugins_tpu_torch.parallel.spatial import gather_dense
+
+    phase_t0 = time.perf_counter()
+    n = SPATIAL_OPS_SHARDS
+    launched = {}
+    paths = (("droplet", build_droplet, "PerturbedLennardJones"),
+             ("polymer", build_polymer, "ExpandedYukawa"),
+             ("colloid", build_colloid, "LJ"))
+    for label, build, pot in paths:
+        t0 = time.perf_counter()
+        runs = {}
+        for key in ("whole", "shards"):
+            sim, forces = build(az, "cuda")
+            # the whole run is on the grid the mesh snaps to (the views of
+            # one slot axis: one layout, the global rebin, one launch)
+            sim.enable_spatial_decomposition(make_mesh(n, device="cuda",
+                                                       sharded=key == "shards"))
+            runs[key] = (sim, forces)
+        stretch = SPATIAL_OPS_STRETCH[label]
+        ms = {key: [] for key in runs}
+        name = f"cell_pair_force[{pot}]"
+        for turn in ((1, 2) if label != "colloid" else (1,)):
+            for key, (sim, _) in runs.items():
+                evals0 = sim.force_evaluations
+                _reset_counts(K)
+                ms[key].append(_timed_run(sim, stretch)[0])
+                evals = (sim.force_evaluations - evals0) // len(sim.operations.integrator.forces)
+                k = K.PK.launches_by_potential.get(pot, 0)
+                want = evals * (n if key == "shards" else 1)
+                if k != want or K.PK.launches != k or evals < stretch:
+                    raise AssertionError(f"spatial_ops: {label} {key}: {K.PK.launches} kernel "
+                                         f"launches for {evals} force evaluations")
+                launched[name] = launched.get(name, 0) + k
+            whole, sharded = runs["whole"][0], runs["shards"][0]
+            if not isinstance(sharded._dense, tuple) or len(sharded._dense) != n:
+                raise AssertionError(f"spatial_ops: {label}: the layout is not in {n} shards")
+            if label == "colloid":
+                continue
+            _same_sharded(f"{label} after {sharded.timestep} steps", sharded, whole)
+            if label == "droplet":
+                counts = [int((s.typeid == 1).sum()) for s in (whole._dense,
+                                                                sharded._whole_dense())]
+                if counts[0] != counts[1] or counts[0] <= 0:
+                    raise AssertionError(f"spatial_ops: droplet: evaporated {counts}")
+            else:
+                _bond_lengths(sharded, "after")
+        (whole, forces), (sharded, _) = runs["whole"], runs["shards"]
+        extra = ""
+        if label == "droplet":
+            evap = sharded.operations.updaters[0]
+            shards = sharded._dense
+            # the sharded pick against the whole pick on this state, with no
+            # host synchronisation allowed
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                picked = evap._update_shards(shards, sharded.timestep, sharded.seed)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = evap._update(gather_dense(shards, sharded.device), sharded.timestep,
+                                sharded.seed)
+            if not torch.equal(gather_dense(picked, sharded.device).typeid, want.typeid):
+                raise AssertionError("spatial_ops: droplet: the sharded pick is not the whole "
+                                     "pick")
+            flipped = int((want.typeid != gather_dense(shards, sharded.device).typeid).sum())
+            upd = []
+            for key, sim in (("whole", whole), ("shards", sharded)):
+                # one fire a period (again in a replayed step)
+                ranges, ops, busy = _phase_ops(sim, DROPLET_PERIOD)
+                fires = ranges["updaters"]
+                if fires < 1:
+                    raise AssertionError(f"spatial_ops: droplet {key}: no updaters range in "
+                                         f"{DROPLET_PERIOD} steps")
+                upd.append(f"{key} {ops['updaters'] / fires:.1f} operations, "
+                           f"{busy['updaters'] / 1000.0 / fires:.4f} ms busy "
+                           f"({ops['updaters'] / DROPLET_PERIOD:.2f} operations a step)")
+            _same_sharded("droplet after the profiled period", sharded, whole)
+            extra = (f"; evaporated {int((sharded._whole_dense().typeid == 1).sum())} after "
+                     f"{sharded.timestep // DROPLET_PERIOD} fires, equal; the sharded pick at "
+                     f"step {sharded.timestep} ({flipped} flipped) the whole pick bit for bit "
+                     f"with no synchronising call; the updaters phase a fire: "
+                     f"{'; '.join(upd)}")
+        elif label == "polymer":
+            gather_ms = _cuda_time_ms(lambda: sharded._partners(sharded._dense), 50)
+            extra = (f"; the position gather {gather_ms:.4f} ms a step ({sharded._grid_spec.S} "
+                     f"rows into each of {n} shards); {_bond_lengths(sharded, 'after')[2:]}")
+        else:
+            P, P_want, kT_s, mean_s = _colloid_limits(sharded, "spatial_ops: colloid shards")
+            _colloid_limits(whole, "spatial_ops: colloid whole")
+            if len(sharded._mpcd["position"]) != n:
+                raise AssertionError(f"spatial_ops: colloid: the solvent is not in {n} blocks")
+            coupling = sharded.operations.updaters[0]
+            m_s, seed = sharded._mpcd["mass"], sharded.seed
+            anchor = sharded._mpcd["_srd_anchor"]
+            t_col = anchor[2] + sharded.mpcd_dynamics.period
+            shards = sharded._dense
+            dev = sharded.device
+            whole_in = ((gather_dense(shards, dev),),
+                        tuple((az.mpcd._joined(a, dev),) for a in anchor[:2]) + (anchor[2],))
+
+            def collide_shards():
+                return coupling._collide(shards, anchor, t_col, seed, m_s)
+
+            def collide_whole():
+                return coupling._collide(*whole_in, t_col, seed, m_s)
+
+            got, want = collide_shards(), collide_whole()
+            torch.cuda.synchronize()
+            errs = []
+            for part, g, w in (("solvent", az.mpcd._joined(got[1][1], dev), want[1][1][0]),
+                               ("colloids", gather_dense(got[0], dev).velocity,
+                                want[0][0].velocity)):
+                err = float((g - w).abs().max()) / float(w.abs().max())
+                if not torch.isfinite(g).all() or err > SPATIAL_OPS_COLLISION_BAR:
+                    raise AssertionError(f"spatial_ops: colloid: the sharded joint collision's "
+                                         f"{part} velocities differ by {err:.3e} of max|v|")
+                errs.append(f"{part} {err:.3e}")
+            col = {}
+            for key, fn in (("whole", collide_whole), ("shards", collide_shards)):
+                col[key] = (_cuda_time_ms(fn, 10), *_profile_call(fn, 5))
+            extra = (f"; on shards: total momentum {P.round(4).tolist()} against "
+                     f"{P_want.round(4).tolist()}, solvent kT relative to its mean {kT_s:.4f} "
+                     f"(1.0 +- {COLLOID_KT_BAND}), solvent in {n} blocks; one joint collision "
+                     f"on shards against the whole one: {', '.join(errs)} of max|v| (bar "
+                     f"{SPATIAL_OPS_COLLISION_BAR}); its ms a call, operations and busy ms: "
+                     + "; ".join(f"{k} {t:.4f} ms, {o:.1f} ops, {b:.4f} ms busy"
+                                 for k, (t, o, b) in col.items()))
+        prof = {key: _profile(sim, PROFILE_STEPS) for key, (sim, _) in runs.items()}
+        f = next(f for f in forces if f._needs_nlist)
+        _windowed_on_path(az, D, K, sharded, next(g for g in runs["shards"][1]
+                                                  if g._needs_nlist), label, record)
+        held = ("the solvent and colloid limits on shards" if label == "colloid" else
+                "bit for bit the whole run after each stretch")
+        print(f"[spatial_ops] {label} on {n} shards ({f._evaluator_name}; {held}) on {card}: "
+              + "; ".join(f"{key} ms/step {' / '.join(f'{m:.4f}' for m in ms[key])}, "
+                          f"{prof[key][0]:.1f} device operations and {prof[key][1]:.4f} ms "
+                          f"device-busy a step, {prof[key][3]:.2f} synchronising calls a step"
+                          for key in runs)
+              + f"; {runs['shards'][0].n_builds} builds, grid {runs['shards'][0]._grid_spec.dims}"
+              f", cap {runs['shards'][0]._grid_spec.cap}{extra}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del runs, whole, sharded
+    print(f"[spatial_ops] launches {launched}; the phase took "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return launched
+
+
 PHASES = ("rebin", "integrate_step1", "verlet_drift_check", "forces", "integrate_step2",
           "updaters", "mpcd_joint_collision")
 
@@ -2401,6 +2670,7 @@ def main() -> int:
     del headline
     count((run_spatial(az, K, card), None))
     count((run_spatial_sharded(az, D, K, card, record), None))
+    count((run_spatial_ops(az, D, K, card, record), None))
     count(run_path(az, D, K, card, record, "dpd", build_dpd, 2000, 1000,
                    {"cell_dpd_force": lambda: DK.launches}, extra_check=_dpd_momentum,
                    caps=(8, 40)))

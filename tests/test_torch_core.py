@@ -83,6 +83,31 @@ def test_min_image_bitwise(box):
 
 
 @pytest.mark.parametrize("box", BOXES)
+def test_box_members_bitwise(box):
+    """lo, hi, make_coordinates and min_image on [..., 3], ties included (a
+    separation of exactly half an edge rounds half to even in both)."""
+    rng = np.random.default_rng(2)
+    rbox, pbox = ref.Box.from_lengths(*box), port.Box.from_lengths(*box)
+    for name in ("lo", "hi"):
+        got = getattr(pbox, name)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(_bits(got), _bits(np.asarray(getattr(rbox, name))))
+    f = rng.random((4, 50, 3)).astype(np.float32)
+    f[0, :3] = [[0.0, 0.5, 1.0], [0.25, 0.75, 0.5], [1.0, 0.0, 0.0]]
+    np.testing.assert_array_equal(_bits(pbox.make_coordinates(torch.as_tensor(f)).numpy()),
+                                  _bits(rbox.make_coordinates(jnp.asarray(f))))
+    d = rng.normal(0, max(box[:3]), (4, 50, 3)).astype(np.float32)
+    d[0, :4] = np.asarray([[0.5, 0.0, 0.0], [0.0, -0.5, 0.0], [0.0, 0.0, 1.5],
+                           [-1.5, 2.5, -0.5]], np.float32) * np.asarray(box[:3], np.float32)
+    np.testing.assert_array_equal(_bits(pbox.min_image(torch.as_tensor(d)).numpy()),
+                                  _bits(rbox.min_image(jnp.asarray(d))))
+    if box[:3] == (box[0],) * 3 and not any(box[3:]):
+        cube = port.Box.cube(box[0])
+        np.testing.assert_array_equal(cube.L, np.asarray(ref.Box.cube(box[0]).L))
+        np.testing.assert_array_equal(cube.tilt, np.zeros(3, np.float32))
+
+
+@pytest.mark.parametrize("box", BOXES)
 def test_nearest_plane_distance(box):
     r = np.asarray(ref.Box.from_lengths(*box).nearest_plane_distance())
     p = port.Box.from_lengths(*box).nearest_plane_distance()

@@ -644,7 +644,7 @@ def test_srd_checkpoint_roundtrip(tmp_path):
     continuous solvent trajectory bitwise."""
     a = _solvent_sim(seed=31)
     a.run(60)
-    want = a._mpcd["position"].numpy()
+    want = torch.cat(a._mpcd["position"]).numpy()
 
     b = _solvent_sim(seed=31)
     b.run(30)  # 30 % period(5) == 0: collision-aligned
@@ -658,4 +658,4 @@ def test_srd_checkpoint_roundtrip(tmp_path):
     assert "_srd_anchor" not in c._mpcd  # the stream re-anchors at the restart
     c.timestep = ts
     c.run(30)
-    np.testing.assert_array_equal(c._mpcd["position"].numpy(), want)
+    np.testing.assert_array_equal(torch.cat(c._mpcd["position"]).numpy(), want)

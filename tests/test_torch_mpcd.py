@@ -184,7 +184,10 @@ def test_collide_matches_reference(case):
                        mass_fill=1.0)
     want = np.asarray(r._collide(jnp.asarray(pos), jnp.asarray(vel), jnp.int32(120),
                                  jnp.asarray([L] * 3, jnp.float32), 11, **extra_r))
-    got = p._collide(torch.as_tensor(pos), torch.as_tensor(vel), 120, p._L, 11, **extra_p).numpy()
+    extra_p = {k: (v,) if isinstance(v, torch.Tensor) else v for k, v in extra_p.items()}
+    (got,) = p._collide((torch.as_tensor(pos),), (torch.as_tensor(vel),), 120, p._L, 11,
+                        **extra_p)
+    got = got.numpy()
     _close(got, want, BAR_V)
     if case == "mixed":
         np.testing.assert_array_equal(got[invalid], vel[invalid])
@@ -203,7 +206,7 @@ def test_stream_matches_reference(case):
     Lr = jnp.asarray([L] * 3, jnp.float32)
     for n in (0, 1, 7):
         xr, vr = r._stream(jnp.asarray(pos), jnp.asarray(vel), jnp.int32(n), Lr)
-        xp, vp = p._stream(torch.as_tensor(pos), torch.as_tensor(vel), n, p._L)
+        (xp,), (vp,) = p._stream((torch.as_tensor(pos),), (torch.as_tensor(vel),), n, p._L)
         _close(xp.numpy(), xr, BAR_X, scale=L)
         _close(vp.numpy(), vr, BAR_V)
     if case == "plates":
@@ -304,7 +307,7 @@ def _kT(vel):
 
 
 def _mpcd_np(sim, key):
-    return sim._mpcd[key].numpy()
+    return torch.cat(sim._mpcd[key]).numpy()
 
 
 def test_srd_conserves_momentum_and_energy():
@@ -343,8 +346,8 @@ def test_srd_resume_reproduces():
     b = _solvent_sim(port, seed=21, forces=False)
     b.run(30)
     c = _solvent_sim(port, seed=21, forces=False)
-    c._mpcd = {**c._mpcd, "position": b._mpcd["position"].clone(),
-               "velocity": b._mpcd["velocity"].clone()}
+    c._mpcd = {**c._mpcd, "position": (torch.cat(b._mpcd["position"]),),
+               "velocity": (torch.cat(b._mpcd["velocity"]),)}
     c.timestep = 30
     c.run(20)
     np.testing.assert_array_equal(_mpcd_np(c, "position"), _mpcd_np(a, "position"))
@@ -565,15 +568,16 @@ def test_srd_rebuilds_on_box_change():
     rng = np.random.default_rng(0)
 
     def stream(L):
-        return {"position": torch.as_tensor((rng.random((64, 3)) - 0.5) * L, dtype=torch.float32),
-                "velocity": torch.as_tensor(rng.normal(0, 1, (64, 3)), dtype=torch.float32)}
+        return {"position": (torch.as_tensor((rng.random((64, 3)) - 0.5) * L,
+                                             dtype=torch.float32),),
+                "velocity": (torch.as_tensor(rng.normal(0, 1, (64, 3)), dtype=torch.float32),)}
 
     srd = port.mpcd.SRD(dt=0.02, period=1, cell_size=1.0)
     srd._advance(stream(8.0), _cube(8.0), 0, 2, seed=1)
     assert srd._dims == (8, 8, 8)
     out = srd._advance(stream(16.0), _cube(16.0), 0, 2, seed=1)
     assert srd._dims == (16, 16, 16)
-    assert np.all(np.abs(out["position"].numpy()) <= 8.0 + 1e-5)
+    assert np.all(np.abs(torch.cat(out["position"]).numpy()) <= 8.0 + 1e-5)
 
 
 def test_replayed_chunk_does_not_advance_the_stream_twice():

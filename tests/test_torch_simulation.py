@@ -175,3 +175,108 @@ def test_port_does_not_import_jax():
                          timeout=120, check=False)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# Twins of the reference's robustness cases (tests/test_robustness.py)
+# ---------------------------------------------------------------------------
+def _lattice(n=4, a=1.4):
+    """n^3 simple-cubic lattice of spacing a (the reference's fixture)."""
+    snap = port.Snapshot(N=n**3)
+    L = n * a
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    x = (np.arange(n) + 0.5) * a - L / 2
+    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"),
+                                          axis=-1).reshape(-1, 3)
+    return snap
+
+
+def _hertz_lattice(method, seed=6):
+    sim = port.Simulation(device="cpu", seed=seed)
+    sim.create_state_from_snapshot(_lattice())
+    pot = port.pair.Hertz(nlist=port.md.nlist.Cell(buffer=0.4), default_r_cut=1.3)
+    pot.params[("A", "A")] = dict(epsilon=2.0)
+    sim.operations.integrator = port.md.Integrator(dt=0.002, methods=[method], forces=[pot])
+    sim.state.thermalize_particle_momenta(kT=1.0)
+    return sim, pot
+
+
+def _momentum(sim):
+    p = sim.state.get_snapshot().particles
+    return (p.velocity.astype(np.float64) * p.mass[:, None]).sum(axis=0)
+
+
+def test_single_particle_runs():
+    """One particle runs 20 Langevin steps with finite positions and zero
+    pair energy (test_robustness.py::test_single_particle_runs)."""
+    snap = port.Snapshot(N=1)
+    snap.configuration.box = [6, 6, 6, 0, 0, 0]
+    snap.particles.types = ["A"]
+    sim = port.Simulation(device="cpu", seed=5)
+    sim.create_state_from_snapshot(snap)
+    pot = port.pair.LJ(nlist=port.md.nlist.Cell(buffer=0.4), default_r_cut=2.5)
+    pot.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0)
+    sim.operations.integrator = port.md.Integrator(
+        dt=0.005, methods=[port.md.methods.Langevin(kT=1.0, default_gamma=1.0)], forces=[pot])
+    sim.run(20)
+    assert np.all(np.isfinite(sim.state.get_snapshot().particles.position))
+    assert pot.energy == 0.0
+
+
+def test_operations_rebind_on_change():
+    """An integrator swapped after a run takes effect (NVE conserves the
+    momentum the Langevin run left), and a force appended after a run is
+    evaluated (test_robustness.py::test_operations_rebind_on_change)."""
+    sim, pot = _hertz_lattice(port.md.methods.Langevin(kT=1.0, default_gamma=0.5))
+    sim.run(20)
+    sim.operations.integrator = port.md.Integrator(
+        dt=0.002, methods=[port.md.methods.ConstantVolume()], forces=[pot])
+    p0 = _momentum(sim)
+    sim.run(30)
+    np.testing.assert_allclose(_momentum(sim), p0, atol=1e-4)
+    lj = port.pair.LJ(nlist=port.md.nlist.Cell(buffer=0.4), default_r_cut=2.5)
+    lj.params[("A", "A")] = dict(epsilon=0.3, sigma=1.0)
+    sim.operations.integrator.forces.append(lj)
+    sim.run(1)
+    assert lj.energy != 0.0
+
+
+def test_force_removal_preserves_state():
+    """A swap to a gridless force set after a run keeps the evolved
+    positions, with or without a host read before the swap
+    (test_robustness.py::test_force_removal_preserves_state)."""
+    ends = []
+    for sync in (False, True):
+        sim, _ = _hertz_lattice(port.md.methods.ConstantVolume())
+        sim.run(25)
+        if sync:
+            sim.state.get_snapshot()
+        sim.operations.integrator = port.md.Integrator(
+            dt=0.002, methods=[port.md.methods.ConstantVolume()], forces=[])
+        sim.run(5)
+        ends.append(sim.state.get_snapshot().particles.position)
+    np.testing.assert_array_equal(ends[0], ends[1])
+
+
+def test_divergence_raises_clean_error():
+    """Near-overlapping pairs under a steep PLJ blow up: the run raises a
+    RuntimeError naming the divergence at the first overflow
+    (test_robustness.py::test_divergence_raises_clean_error)."""
+    rng = np.random.default_rng(0)
+    L, n_pairs = 12.0, 32
+    centers = rng.uniform(-L / 2 + 1, L / 2 - 1, size=(n_pairs, 3))
+    snap = port.Snapshot(N=2 * n_pairs)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    snap.particles.position[:] = np.concatenate([centers, centers + 1e-4], axis=0)
+    sim = port.Simulation(device="cpu", seed=1)
+    sim.create_state_from_snapshot(snap)
+    lj = port.pair.PerturbedLennardJones(nlist=port.md.nlist.Cell(buffer=0.4),
+                                         default_r_cut=2.5)
+    lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=1.0)
+    sim.operations.integrator = port.md.Integrator(
+        dt=0.005, methods=[port.md.methods.ConstantVolume()], forces=[lj])
+    with pytest.raises(RuntimeError, match="diverged"):
+        for _ in range(40):
+            sim.run(10)

@@ -510,44 +510,29 @@ def test_sharded_run_matches_reference():
     assert psim.n_builds == int(rsim._meta.n_builds)
 
 
-def test_sharded_mesh_refuses_what_it_does_not_decompose():
-    """Bonds, updaters and an MPCD solvent name their ROADMAP items; the
-    mesh is not taken."""
+def test_sharded_mesh_enabled_midrun_with_an_updater():
+    """A sharded mesh enabled between runs, an updater appended after it:
+    the run goes on, the updater once a shard at each firing, bit for bit
+    the undecomposed run with the same updater appended at the same step."""
     class Idle(port.update.Updater):
         def _attach(self, sim):
-            pass
+            self.fired = []
 
         def _update(self, dense, t, seed):
+            self.fired.append(t)
             return dense
 
-    sim = _hertz_sim(port, SLABS, 3)
-    sim.operations.updaters.append(Idle(port.trigger.Periodic(5)))
-    with pytest.raises(NotImplementedError, match="sharded updaters"):
-        sim.enable_spatial_decomposition(_sharded(8))
-    assert sim._spatial_mesh is None
-    sim.operations.updaters.clear()
-    sim.enable_spatial_decomposition(_sharded(8))
-    sim.operations.updaters.append(Idle(port.trigger.Periodic(5)))
-    with pytest.raises(NotImplementedError, match="sharded updaters"):
-        sim.run(1)
-
-    snap = port.Snapshot(N=4, bond_N=1)
-    snap.configuration.box = SLABS + [0, 0, 0]
-    snap.particles.types = ["A"]
-    snap.particles.position[:] = [[0, 0, 0], [1, 0, 0], [3, 0, 0], [-3, 1, 1]]
-    snap.bonds.types = ["b"]
-    snap.bonds.group[:] = [[0, 1]]
-    bonded = port.Simulation(device="cpu")
-    bonded.create_state_from_snapshot(snap)
-    with pytest.raises(NotImplementedError, match="sharded bonds"):
-        bonded.enable_spatial_decomposition(_sharded(2))
-
-    solvent = port.Snapshot(N=4, mpcd_N=16)
-    solvent.configuration.box = SLABS + [0, 0, 0]
-    solvent.particles.types = ["A"]
-    solvent.particles.position[:] = [[0, 0, 0], [1, 0, 0], [3, 0, 0], [-3, 1, 1]]
-    srd = port.Simulation(device="cpu")
-    srd.create_state_from_snapshot(solvent)
-    with pytest.raises(NotImplementedError, match="sharded MPCD solvent"):
-        srd.enable_spatial_decomposition(_sharded(2))
-    assert srd._spatial_mesh is None
+    runs = []
+    for mesh in (None, _sharded(8)):
+        sim = _hertz_sim(port, SLABS, 3)
+        sim.run(10)
+        if mesh is not None:
+            sim.enable_spatial_decomposition(mesh)
+        idle = Idle(port.trigger.Periodic(5))
+        sim.operations.updaters.append(idle)  # a new operation set: prepared anew
+        sim.run(10)
+        runs.append((sim, idle.fired))
+    (want, want_fired), (sim, fired) = runs
+    assert isinstance(sim._dense, tuple) and len(sim._dense) == 8
+    assert want_fired == [10, 15] and fired == [10] * 8 + [15] * 8
+    _assert_same_run(sim, want)
