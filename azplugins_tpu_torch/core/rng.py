@@ -19,6 +19,14 @@ PyTorch has no usable unsigned 32-bit arithmetic (``torch.uint32`` lacks
 add, shifts and ``minimum`` on the CPU), so the words travel as int64
 tensors holding values in [0, 2**32) and every add is masked back to 32
 bits. Keys and the timestep are Python ints, formed on the host.
+
+Dispatch: ``particle_bits``, ``particle_uniform3`` and ``jax_normal`` take
+their plain PyTorch versions (``_particle_bits_plain``,
+``_particle_uniform3_plain``, ``_jax_normal_plain``) for CPU tensors and
+the CUDA kernels of :mod:`azplugins_tpu_torch.ops.rng_kernel` for CUDA
+tensors, or raise; any other device raises. Nothing falls back.
+``threefry2x32`` and ``pair_uniform`` stay plain (the CPU DPD path; the
+card's DPD kernel draws its own).
 """
 
 from __future__ import annotations
@@ -138,12 +146,43 @@ def pair_uniform(stream: int, seed, timestep, tag_a, tag_b, low=-1.0, high=1.0,
     return uniform_from_bits(x0, low, high)
 
 
+def _on_card(device) -> bool:
+    """Whether a draw on ``device`` takes its kernel (CUDA) or its plain
+    version (the CPU); any other device raises."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no random draws for device {dev}")
+    return dev.type == "cuda"
+
+
+def _kernels():
+    from ..ops import rng_kernel  # imported here: ops imports core
+
+    return rng_kernel
+
+
 def particle_bits(stream: int, seed, timestep, tag, n_words: int = 4):
     """``n_words`` uint32 streams keyed per particle tag. Returns a tuple.
 
-    Word pairs come from counter lanes 0, 1, ... as in the reference; the
-    lanes are evaluated together as one leading batch axis.
+    Word pairs come from counter lanes 0, 1, ... as in the reference. A
+    CUDA ``tag`` takes the kernel (K4), bitwise the plain version.
     """
+    if isinstance(tag, torch.Tensor) and _on_card(tag.device):
+        return _kernels().particle_bits(stream, seed, timestep, tag, n_words)
+    return _particle_bits_plain(stream, seed, timestep, tag, n_words)
+
+
+def particle_uniform3(stream: int, seed, timestep, tag, low=-1.0, high=1.0) -> torch.Tensor:
+    """Three i.i.d. uniforms per particle, shape ``tag.shape + (3,)``. A
+    CUDA ``tag`` takes the kernel (K4), bitwise the plain version."""
+    if isinstance(tag, torch.Tensor) and _on_card(tag.device):
+        return _kernels().particle_uniform3(stream, seed, timestep, tag, low, high)
+    return _particle_uniform3_plain(stream, seed, timestep, tag, low, high)
+
+
+def _particle_bits_plain(stream: int, seed, timestep, tag, n_words: int = 4):
+    """The plain version of :func:`particle_bits`: the lanes are evaluated
+    together as one leading batch axis."""
     tag = _u32(tag)
     k0, k1 = _key_words(stream, seed, timestep)
     n_lanes = (n_words + 1) // 2
@@ -156,9 +195,10 @@ def particle_bits(stream: int, seed, timestep, tag, n_words: int = 4):
     return tuple(words[:n_words])
 
 
-def particle_uniform3(stream: int, seed, timestep, tag, low=-1.0, high=1.0) -> torch.Tensor:
-    """Three i.i.d. uniforms per particle, shape ``tag.shape + (3,)``."""
-    w0, w1, w2, _ = particle_bits(stream, seed, timestep, tag, n_words=4)
+def _particle_uniform3_plain(stream: int, seed, timestep, tag, low=-1.0,
+                             high=1.0) -> torch.Tensor:
+    """The plain version of :func:`particle_uniform3`."""
+    w0, w1, w2, _ = _particle_bits_plain(stream, seed, timestep, tag, n_words=4)
     return torch.stack(
         [
             uniform_from_bits(w0, low, high),
@@ -223,7 +263,14 @@ def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
 def jax_normal(key: tuple[int, int], shape: tuple[int, ...], device) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` on ``device``: the words
     and the uniforms bitwise; the erfinv within a few ulp of XLA's (the
-    log1p and the polynomial's rounding are the device's own)."""
+    log1p is the device's own). A CUDA ``device`` takes the kernel (K5)."""
+    if _on_card(device):
+        return _kernels().jax_normal(key, shape, device)
+    return _jax_normal_plain(key, shape, device)
+
+
+def _jax_normal_plain(key: tuple[int, int], shape: tuple[int, ...], device) -> torch.Tensor:
+    """The plain version of :func:`jax_normal`."""
     n = int(np.prod(shape))
     if n >= 2**32:
         raise ValueError("jax_normal: more than 2**32 draws need the high counter word")

@@ -10,7 +10,7 @@
 //   w_R = max(1 - r/rc, 0)^(s/2) / r,
 //
 // with alpha = uniform_from_bits(x0), x0 the first word of Threefry-2x32 at
-// 13 rounds keyed (k0, k1) = ((200 << 16) ^ seed, timestep) on the counters
+// 13 rounds (threefry.cuh) keyed (k0, k1) = ((200 << 16) ^ seed, timestep) on the counters
 // (min(tag_i, tag_j), max(tag_i, tag_j)): bitwise core/rng.py::pair_uniform
 // with rounds=FAST_ROUNDS. Tags are int32 and the timestep a uint32; the
 // reference's f32 tag planes and 16-bit timestep halves were TPU workarounds.
@@ -43,6 +43,7 @@
 #include <stdint.h>
 
 #include "cell_stencil.cuh"
+#include "threefry.cuh"
 
 namespace {
 
@@ -50,37 +51,6 @@ using az::BoxArgs;
 
 // stacked [T, T] float32 tables (ops/dpd_kernel.py::dpd_kernel_tables)
 enum Tab { kA = 0, kGamma, kS, kRcut, kSigma, kNTab };
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// First output word of Threefry-2x32 at 13 rounds (random123 schedule, as
-// core/rng.py::threefry2x32): key injections after rounds 3, 7 and 11.
-__device__ __forceinline__ uint32_t threefry2x32_13(uint32_t k0, uint32_t k1, uint32_t c0,
-                                                    uint32_t c1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-#pragma unroll
-  for (int i = 0; i < 13; ++i) {
-    x0 += x1;
-    x1 = rotl32(x1, rot[i % 8]) ^ x0;
-    if (i % 4 == 3) {
-      const int inject = i / 4 + 1;
-      x0 += ks[inject % 3];
-      x1 += ks[(inject + 1) % 3] + (uint32_t)inject;
-    }
-  }
-  return x0;
-}
-
-// core/rng.py::uniform_from_bits on [-1, 1): 23 mantissa bits under
-// exponent 0 give [1, 2), then -1, x2, -1, each rounded on its own.
-__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
-  const float u = __uint_as_float((bits >> 9) | 0x3F800000u);
-  return __fadd_rn(__fmul_rn(__fsub_rn(u, 1.0f), 2.0f), -1.0f);
-}
 
 constexpr int kThreads = 128;  // threads per block (one block per cell)
 
@@ -204,7 +174,10 @@ __global__ void __launch_bounds__(kThreads)
         const float f_drag = -gamma * w_R * w_R * rdotv;
 
         const uint32_t ta = (uint32_t)tag_i, tb = (uint32_t)__float_as_int(vj.w);
-        const float alpha = uniform_from_bits(threefry2x32_13(k0, k1, min(ta, tb), max(ta, tb)));
+        // Threefry-2x32-13's first word on [-1, 1): core/rng.py::pair_uniform
+        const float alpha =
+            az::uniform_from_bits(az::threefry2x32<13>(k0, k1, min(ta, tb), max(ta, tb)).x, 2.0f,
+                                  -1.0f);
         const float f = f_cons + f_drag + sigma * w_R * alpha;
         acc[0] += f * dx;
         acc[1] += f * dy;

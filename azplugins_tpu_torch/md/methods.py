@@ -49,13 +49,17 @@ class Method:
         integ = sim.operations.integrator
         self._rotational = bool(integ is not None and integ.integrate_rotational_dof)
 
-    def _where(self, state, new, old):
-        # empty slots (tag < 0, dense layout) must never move: their far
-        # sentinel positions keep them out of every pair
+    def _where(self, state, **new):
+        """``state`` with the fields in ``new`` taken where the method acts
+        and kept elsewhere, under one mask: empty slots (tag < 0, dense
+        layout) must never move, their far sentinel positions keep them out
+        of every pair."""
         m = self._select(state) & (state.tag >= 0)
-        if new.ndim > m.ndim:
-            m = m[(...,) + (None,) * (new.ndim - m.ndim)]
-        return torch.where(m, new, old)
+        return state.replace(**{
+            name: torch.where(m[(...,) + (None,) * (value.ndim - m.ndim)], value,
+                              getattr(state, name))
+            for name, value in new.items()
+        })
 
     # Velocity Verlet. step1 drifts with the *stored* acceleration (which for
     # Langevin includes last step's thermostat forces). Positions are NOT
@@ -64,10 +68,7 @@ class Method:
     def step1(self, state, dt, timestep, seed):
         vel_half = state.velocity + (0.5 * dt) * state.acceleration
         pos = state.position + dt * vel_half
-        state = state.replace(
-            position=self._where(state, pos, state.position),
-            velocity=self._where(state, vel_half, state.velocity),
-        )
+        state = self._where(state, position=pos, velocity=vel_half)
         if self._rotational:
             state = self._rot_step1(state, dt)
         return state
@@ -75,10 +76,7 @@ class Method:
     def step2(self, state, dt, timestep, seed):
         accel = state.net_force / state.mass[:, None]
         vel = state.velocity + (0.5 * dt) * accel
-        state = state.replace(
-            velocity=self._where(state, vel, state.velocity),
-            acceleration=self._where(state, accel, state.acceleration),
-        )
+        state = self._where(state, velocity=vel, acceleration=accel)
         if self._rotational:
             state = self._rot_step2(state, dt)
         return state
@@ -91,15 +89,12 @@ class Method:
         q, p, inertia = state.orientation, state.angmom, state.moment_inertia
         p = R.angmom_kick(q, p, state.net_torque, inertia, dt)
         q, p = R.free_rotation(q, p, inertia, dt)
-        return state.replace(
-            orientation=self._where(state, q, state.orientation),
-            angmom=self._where(state, p, state.angmom),
-        )
+        return self._where(state, orientation=q, angmom=p)
 
     def _rot_step2(self, state, dt):
         p = R.angmom_kick(state.orientation, state.angmom, state.net_torque,
                           state.moment_inertia, dt)
-        return state.replace(angmom=self._where(state, p, state.angmom))
+        return self._where(state, angmom=p)
 
 
 class ConstantVolume(Method):
@@ -171,10 +166,7 @@ class LangevinFlow(_GammaMixin, Method):
         bd_force = random_force - gp[:, None] * rel_vel
         accel = (state.net_force + bd_force) / state.mass[:, None]
         vel = state.velocity + (0.5 * dt) * accel
-        state = state.replace(
-            velocity=self._where(state, vel, state.velocity),
-            acceleration=self._where(state, accel, state.acceleration),
-        )
+        state = self._where(state, velocity=vel, acceleration=accel)
         if self._rotational:
             state = self._rot_step2_langevin(state, dt, timestep, seed, kT)
         return state
@@ -203,10 +195,7 @@ class LangevinFlow(_GammaMixin, Method):
         bd_body = torch.where(active, rand - gr * omega, 0.0)
         torque = state.net_torque + R.rotate(q, bd_body)
         p = R.angmom_kick(q, p, torque, inertia, dt)
-        return state.replace(
-            angmom=self._where(state, p, state.angmom),
-            net_torque=self._where(state, torque, state.net_torque),
-        )
+        return self._where(state, angmom=p, net_torque=torque)
 
 
 class Langevin(LangevinFlow):
@@ -251,11 +240,11 @@ class BrownianFlow(_GammaMixin, Method):
         else:
             flow_vel = self.flow_field(state.box.wrap(state.position)[0])
         pos = state.position + (flow_vel + (state.net_force + random_force) / gp[:, None]) * dt
-        return state.replace(position=self._where(state, pos, state.position))
+        return self._where(state, position=pos)
 
     def step2(self, state, dt, timestep, seed):
         accel = state.net_force / state.mass[:, None]
-        return state.replace(acceleration=self._where(state, accel, state.acceleration))
+        return self._where(state, acceleration=accel)
 
 
 class Brownian(BrownianFlow):

@@ -23,8 +23,15 @@
    kernel against its plain version and computes its bound (the larger of
    its bytes over the memory rate and its operations over the float32
    rate, for this run's inputs);
-4. checks that Threefry and the Langevin noise are bitwise the same on the
-   GPU and the CPU;
+4. [rng] checks that Threefry and the Langevin noise are bitwise the same
+   on the GPU and the CPU; holds the random-draw kernels of
+   csrc/threefry.cu against their plain versions on the card: K4
+   (particle_bits, particle_uniform3) bitwise at 64,000, 82,944 and 20,239
+   tags (-1 and 2**31 - 1 among them), 1-8 words, three uniform ranges,
+   three streams, two timesteps (one above 2**32); K5 (jax_normal) within
+   1 ulp at the three MPCD paths' collision grids, its maximum printed;
+   runs BrownianFlow through the public API; times K4 at the headline's
+   slots and K5 at each grid against their plain versions and bounds;
 5. runs, through the public API, each with the launch counts set to 0 just
    before it and read just after:
    - the 64k perturbed-LJ Langevin headline (the JAX package's bench
@@ -88,8 +95,11 @@
    - [examples] the port's nine examples (azplugins_tpu_torch/examples/)
      in their smoke mode (AZTPU_EXAMPLE_FAST=1), main(device="cuda"), each
      in a directory of its own inside the checkout, removed afterwards;
-   and checks that every pair-force evaluation went through a kernel and
-   that the result is physical; on each full-size path the capacity tune
+   and checks that every pair-force evaluation went through a kernel, that
+   every random draw of the timed steps did too (Langevin's once a step,
+   twice with rotation, the evaporator's once a fire, thermalize once a
+   setup, the MPCD collision's once or twice a collision), and that the
+   result is physical; on each full-size path the capacity tune
    fires at step 200, and the path prints the capacity and rebuild
    interval before and after it and the device-busy time a step in the 20
    steps before it and after the timed steps; after the headline, the DPD
@@ -129,6 +139,12 @@ MODES = ("none", "shift", "xplor")
 PAIR_REPLACES = "azplugins_tpu/ops/dense.py:1384"  # _pallas_half_pair_force
 DPD_REPLACES = "azplugins_tpu/ops/dense.py:1552"  # _pallas_half_dpd_force
 ANISO_REPLACES = "azplugins_tpu/ops/dense.py:1914"  # _pallas_half_aniso_force
+# the random-draw kernels replace no pallas_call: the reference's draws are
+# jnp code that XLA fuses into its step
+RNG_BITS_REPLACES = ("azplugins_tpu/core/rng.py:133 (particle_bits; particle_uniform3 :146), "
+                     "XLA-fused, no pallas_call")
+RNG_NORMAL_REPLACES = ("azplugins_tpu/mpcd.py:314, 323 (jax.random.normal), XLA-fused, "
+                       "no pallas_call")
 PATCHY = dict(M_d=1.5, M_r=0.05, r_eq=1.0, omega=20.0, alpha=0.4, repulsion=True)
 # the patchy path's warm-up steps and its kT band (PERF.md: the kT curve)
 PATCHY_WARM = 8000
@@ -193,12 +209,41 @@ SPATIAL_OPS_STRETCH = {"droplet": 600, "polymer": 300, "colloid": 400}
 # a joint collision on shards against the whole one, of max|v|: the
 # reference's ~1e-7 relative a collision plus the card's atomic cell sums
 SPATIAL_OPS_COLLISION_BAR = 1e-6
+# [rng]: the tag counts K4 is held at (64k particles; the headline's 12^3
+# slots of cap 48; the droplet's particle count, not a multiple of the
+# block), the headline's slots it is timed at, and the MPCD paths' collision
+# grids [C, 3] K5 is held and timed at (colloid L 32, Poiseuille 16^2 x (16
+# + 1 wall cell), pure SRD 64^3; each path checks its own)
+RNG_TAGS = (64_000, 82_944, DROPLET_N)
+HEADLINE_SLOTS = 82_944
+NORMAL_SHAPES = {"colloid": (32**3, 3), "poiseuille": (16 * 16 * 17, 3), "srd": (64**3, 3)}
+NORMAL_ULP = 1
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
 # 67 TFLOP/s (NVIDIA's data sheet, at the 700 W limit).
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Integer work has no data-sheet rate. Its bound takes two limits of the
+# Hopper SM (NVIDIA's white paper) at 132 SMs and the 1.98 GHz boost clock:
+# shifts and logic operations run on the ALU pipe, 64 lanes an SM; and every
+# instruction takes an issue slot, 4 schedulers x 32 lanes = 128 an SM a
+# clock (integer adds go to the 128-lane FMA pipe as IMAD.IADD or IADD3,
+# float32 operations too). The pipes run at once, so a draw's bound is the
+# largest of these times and the float32 one, never their sum.
+SM_CLOCKS_PER_S = 132 * 1.98e9
+ALU_OPS_PER_S = 64 * SM_CLOCKS_PER_S
+ISSUE_OPS_PER_S = 128 * SM_CLOCKS_PER_S
+# A Threefry-2x32 round needs an add, a funnel shift (the rotate) and a
+# xor, two of them on the ALU pipe; the key injections and the counter adds
+# are left out (IADD3 fuses them with the rounds' adds, or they are uniform
+# over the launch), so the count is at most what the card must issue. A
+# uniform adds a shift and an or (ALU) and 3 float32 operations; a normal
+# adds a xor, a shift and an or (ALU) and ~30 float32 operations (the
+# uniform's 4, -x^2 and its log1p, the branch, 8 Horner steps of 2, the
+# products), each log1p and sqrt counted as one.
+THREEFRY_ROUND_ALU, THREEFRY_ROUND_OPS = 2, 3
+NORMAL_F32_OPS = 30
 # Operations of one pair evaluation on the force path (want="force"),
 # counted from the plain version's formulas with each exp, sqrt, divide,
 # pow and log as one: the evaluator, plus the geometry and the
@@ -1040,10 +1085,41 @@ def check_aniso_kernel(az, D, AK, record):
     return timing
 
 
-def check_rng(az):
-    """Threefry words and the Langevin noise: bitwise equal on GPU and CPU."""
+def _rng_tags(n, seed):
+    """Slot tags as a dense grid holds them: random tags, a fifth of the
+    slots empty (-1) and the first four -1, 0 and the two largest int32."""
+    g = np.random.default_rng(seed)
+    tags = g.integers(0, 2**31 - 1, n).astype(np.int32)
+    tags[g.random(n) < 0.2] = -1
+    tags[:4] = [-1, 0, 2**31 - 1, 2**31 - 2]
+    return torch.as_tensor(tags)
+
+
+def _rng_bound(n, hashes, alu_ops, int_ops, f32_ops, bytes_moved):
+    """(bound_ms, bound_by) of a draw of n elements, each ``hashes``
+    Threefry-2x32-20 calls, ``int_ops`` more integer operations (``alu_ops``
+    of them on the ALU pipe) and ``f32_ops`` float32 ones, moving
+    ``bytes_moved`` bytes: the larger
+    of the bytes over the memory rate and the operations' time, itself the
+    largest of the ALU pipe's, the issue slots' and the float32 rate's."""
+    alu = hashes * 20 * THREEFRY_ROUND_ALU + alu_ops
+    issued = hashes * 20 * THREEFRY_ROUND_OPS + int_ops + f32_ops
+    t_bytes = n * bytes_moved / MEM_BYTES_PER_S
+    t_ops = n * max(alu / ALU_OPS_PER_S, issued / ISSUE_OPS_PER_S, f32_ops / F32_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_rng(az, RK):
+    """Threefry and the Langevin noise on the GPU against the CPU, bitwise;
+    the random-draw kernels against their plain versions on the card: K4
+    bitwise for every word count and uniform range at the paths' tag counts
+    (and one that is not a multiple of the block), for three streams and
+    two timesteps (one above 2**32); K5 at the MPCD paths' collision grids,
+    bitwise or within its 1-ulp bar, the maximum printed. Times each
+    against its plain version and its bound. Returns {kernel: timing}."""
     from azplugins_tpu_torch.core import rng
 
+    t0 = time.perf_counter()
     g = np.random.default_rng(7)
     tags = torch.as_tensor(g.integers(-1, 2**31 - 1, 64000).astype(np.int32))
     ctr = torch.as_tensor(g.integers(0, 2**32, 64000, dtype=np.uint64).astype(np.int64))
@@ -1061,8 +1137,95 @@ def check_rng(az):
             ref = noise
         elif not torch.equal(noise.cpu().view(torch.int32), ref.view(torch.int32)):
             raise AssertionError("Langevin noise differs between the GPU and the CPU")
-    print("[rng] threefry (13 and 20 rounds) and Langevin noise: GPU == CPU bitwise",
+
+    # K4: every case bitwise the plain version on the card
+    cases = 0
+    for n in RNG_TAGS:
+        t = _rng_tags(n, n).cuda()
+        for stream in (rng.Stream.LANGEVIN, rng.Stream.PARTICLE_EVAPORATOR, rng.Stream.THERMALIZE):
+            for seed, step in ((12345, 777), (7, 2**32 + 9)):
+                for n_words in (1, 2, 3, 4, 8):
+                    got = rng.particle_bits(stream, seed, step, t, n_words)
+                    want = rng._particle_bits_plain(stream, seed, step, t, n_words)
+                    if len(got) != n_words or not all(
+                            a.dtype == torch.int64 and torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"particle_bits kernel differs: {n} tags, stream "
+                                             f"{stream}, timestep {step}, {n_words} words")
+                    cases += 1
+                for low, high in ((-1.0, 1.0), (0.0, 1.0), (-3.5, 0.25)):
+                    got = rng.particle_uniform3(stream, seed, step, t, low, high)
+                    want = rng._particle_uniform3_plain(stream, seed, step, t, low, high)
+                    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                        raise AssertionError(f"particle_uniform3 kernel differs: {n} tags, "
+                                             f"stream {stream}, timestep {step}, [{low}, {high})")
+                    cases += 1
+    # K5 at each MPCD path's collision grid and an odd count
+    ulp_max, err_max, differ = 0, 0.0, 0
+    for shape in (*NORMAL_SHAPES.values(), (1001, 3)):
+        for key in ((0, 42), rng.jax_fold_in(rng.jax_key(11), 40)):
+            got = rng.jax_normal(key, shape, "cuda")
+            want = rng._jax_normal_plain(key, shape, "cuda")
+            if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+                raise AssertionError(f"jax_normal kernel: non-finite or misshapen at {shape}")
+            ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+            ulp_max = max(ulp_max, int(ulps.max()))
+            differ += int((ulps > 0).sum())
+            err_max = max(err_max, float((got - want).abs().max()))
+    if ulp_max > NORMAL_ULP:
+        raise AssertionError(f"jax_normal kernel: {ulp_max} ulp from its plain version "
+                             f"(bar {NORMAL_ULP})")
+    record_err = {"particle_bits": 0.0, "jax_normal": err_max}
+    # BrownianFlow.step1, which no path below runs, through the public API
+    snap = _lattice_snapshot(az, (16, 16, 16), 0.5, 0.1, 3)
+    sim = az.Simulation(device="cuda", seed=5)
+    sim.create_state_from_snapshot(snap)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.001, methods=[az.md.methods.BrownianFlow(kT=1.0, default_gamma=1.0)], forces=[])
+    RK.launches_by_kernel.clear()
+    sim.run(20)
+    brownian = RK.launches_by_kernel.get("particle_bits", 0)
+    _check_wrapped(sim, "brownian")
+    if brownian < 20:
+        raise AssertionError(f"BrownianFlow: {brownian} random-draw kernel launches in 20 steps")
+    del sim
+    print(f"[rng] threefry (13 and 20 rounds) and Langevin noise: GPU == CPU bitwise; K4 "
+          f"(particle_bits, particle_uniform3) bitwise its plain version in {cases} cases "
+          f"({', '.join(map(str, RNG_TAGS))} tags, -1 and 2**31 - 1 among them; 1-8 words; "
+          f"three ranges; three streams; timesteps 777 and 2**32 + 9); K5 (jax_normal) at "
+          f"{', '.join(f'{k} {v}' for k, v in NORMAL_SHAPES.items())} and (1001, 3): max "
+          f"{ulp_max} ulp from its plain version ({differ} values differ; bar {NORMAL_ULP}), "
+          f"max |diff| {err_max:.3e}; BrownianFlow (4,096 particles): {brownian} K4 launches in "
+          f"20 steps", flush=True)
+
+    # times at the headline's slots (K4) and the MPCD grids (K5), with bounds
+    timing = {}
+    t = _rng_tags(HEADLINE_SLOTS, 1).cuda()
+    draws = {
+        "particle_uniform3": (
+            lambda: rng.particle_uniform3(rng.Stream.LANGEVIN, 1, 2, t),
+            lambda: rng._particle_uniform3_plain(rng.Stream.LANGEVIN, 1, 2, t),
+            HEADLINE_SLOTS, _rng_bound(HEADLINE_SLOTS, 2, 6, 6, 9, 16)),
+        "particle_bits[1 word]": (
+            lambda: rng.particle_bits(rng.Stream.PARTICLE_EVAPORATOR, 1, 2, t, 1),
+            lambda: rng._particle_bits_plain(rng.Stream.PARTICLE_EVAPORATOR, 1, 2, t, 1),
+            HEADLINE_SLOTS, _rng_bound(HEADLINE_SLOTS, 1, 0, 0, 0, 12)),
+    }
+    for name, shape in NORMAL_SHAPES.items():
+        n = int(np.prod(shape))
+        draws[f"jax_normal[{name}]"] = (
+            lambda shape=shape: rng.jax_normal((0, 42), shape, "cuda"),
+            lambda shape=shape: rng._jax_normal_plain((0, 42), shape, "cuda"),
+            n, _rng_bound(n, 1, 3, 3, NORMAL_F32_OPS, 4))
+    lines = []
+    for name, (kernel, plain, n, bound) in draws.items():
+        ms = _cuda_time_ms(kernel, 50)
+        plain_ms = _cuda_time_ms(plain, 3)
+        timing[name] = (ms, plain_ms, bound)
+        lines.append(f"{name} {n:,}: {ms:.4f} ms (plain {plain_ms:.4f}), bound {bound[0]:.5f} ms "
+                     f"({bound[1]}), {ms / bound[0]:.0f}x")
+    print(f"[rng] {'; '.join(lines)}; the phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    return timing, record_err
 
 
 # ---------------------------------------------------------------------------
@@ -1073,6 +1236,19 @@ def _reset_counts(K):
     K.PK.launches_by_potential.clear()
     K.DK.launches = 0
     K.AK.launches = 0
+    K.RK.launches = 0
+    K.RK.launches_by_kernel.clear()
+
+
+def _draws(K, label, least):
+    """The random-draw kernels' launches since the counts were set to 0,
+    each at least ``least[name]`` (a path's draws a step times its steps,
+    plus its updaters' fires): {name: launches}."""
+    got = {name: K.RK.launches_by_kernel.get(name, 0) for name in least}
+    if any(got[name] < n for name, n in least.items()):
+        raise AssertionError(f"{label}: random-draw kernel launches {got}, at least {least} "
+                             f"expected")
+    return got
 
 
 def _timed_run(sim, steps):
@@ -1254,20 +1430,27 @@ def _record_tune(sim):
     return seen
 
 
-def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
+def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, draws=None,
              extra_check=None, kT=1.0, kT_band=0.05, caps=()):
     """One main path at full size: warm up (printing the temperatures five
     times on the way), then ``steps`` timed steps with the launch counts set
     to 0 just before and read just after. The warm-up profiles the 20 steps
     before the capacity tune at step TUNE_AT and records the capacity and
     interval on both sides of it. ``counts`` maps each kernel name the path
-    must run to a function that reads its count. The translational (and
+    must run to a function that reads its count; ``draws`` maps each
+    random-draw kernel the path must run to its least launches in the timed
+    steps. The translational (and
     rotational) kinetic temperature must read ``kT`` within ``kT_band``
     after the timed steps (``kT=None``: the path checks its own). Afterwards
     the pair kernel is timed at each of ``caps`` on the path's state
     (``"tune"``: the capacities before and after the tune). Returns the
-    counts and the simulation."""
+    counts and the simulation. A path with ``draws`` thermalizes its
+    momenta in ``build``, through K4 too."""
+    _reset_counts(K)
     sim, forces = build(az, "cuda")
+    setup_draws = K.RK.launches_by_kernel.get("particle_bits", 0)
+    if draws and setup_draws < 1:
+        raise AssertionError(f"{label}: thermalize launched no random-draw kernel")
     thermo = az.compute.ThermodynamicQuantities()
     sim.operations.computes.append(thermo)
     tuned = _record_tune(sim)
@@ -1297,6 +1480,7 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
     _reset_counts(K)
     ms_step, wall = _timed_run(sim, steps)
     launched = {name: read() for name, read in counts.items()}
+    drawn = _draws(K, label, draws or {})
     evals = sim.force_evaluations - evals0
     builds = sim.n_builds - builds0
     replays = sim.viol_replays - replays0
@@ -1325,7 +1509,8 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
     print(f"[{label}] launches {launched} for {evals} force evaluations "
           f"({sum(launched.values()) / steps:.3f} kernel launches per step); {builds} grid "
           f"builds ({steps / max(builds, 1):.1f} steps each), {replays} violation replays; "
-          f"cap {sim._grid_spec.cap}, rebuild interval {sim._seg_len}", flush=True)
+          f"cap {sim._grid_spec.cap}, rebuild interval {sim._seg_len}; random-draw kernel "
+          f"launches {drawn} (thermalize: {setup_draws})", flush=True)
     print(f"[{label}] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy "
           f"per step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls "
           f"per step", flush=True)
@@ -1340,7 +1525,7 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts,
         caps = (tuned["cap"], tuned["cap0"])
     if caps:
         _time_at_caps(az, D, K, sim, forces, caps)
-    return launched, sim
+    return {**launched, **drawn}, sim
 
 
 def _busy_at_caps(sim, label, untuned):
@@ -1601,6 +1786,8 @@ def run_colloid(az, D, K, card, record):
     _reset_counts(K)
     ms_step, wall = _timed_run(sim, COLLOID_STEPS)
     launched = {name: K.PK.launches_by_potential.get("LJ", 0)}
+    drawn = _draws(K, "colloid", {"jax_normal": COLLOID_STEPS // sim.mpcd_dynamics.period})
+    _check_grid(sim, "colloid")
     evals = sim.force_evaluations - evals0
     if launched[name] != evals or evals < COLLOID_STEPS or K.PK.launches != evals:
         raise AssertionError(f"colloid: {launched} LJ kernel launches for {evals} force "
@@ -1644,7 +1831,7 @@ def run_colloid(az, D, K, card, record):
     print(f"[colloid] launches {launched} for {evals} force evaluations "
           f"({launched[name] / COLLOID_STEPS:.3f} kernel launches per step); {builds} grid "
           f"builds, {replays} violation replays; cap {sim._grid_spec.cap}, rebuild interval "
-          f"{sim._seg_len}", flush=True)
+          f"{sim._seg_len}; random-draw kernel launches {drawn}", flush=True)
     print(f"[colloid] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per "
           f"step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per "
           f"step", flush=True)
@@ -1663,18 +1850,32 @@ def run_colloid(az, D, K, card, record):
     same, diff = _colloid_bits(az)
     print(f"[colloid] two identical 60-step runs agree bitwise: {same} (max |dv| {diff:.3e}; "
           f"a reading: the cell sums are atomic adds on CUDA)", flush=True)
-    return launched
+    return {**launched, **drawn}
 
 
-def run_poiseuille(az, card):
+def _check_grid(sim, label):
+    """The path's collision grid is the one [rng] held and timed K5 at."""
+    cells = int(np.prod(sim.mpcd_dynamics._grid_dims()))
+    if (cells, 3) != NORMAL_SHAPES[label]:
+        raise AssertionError(f"{label}: collision grid of {cells} cells, [rng] took "
+                             f"{NORMAL_SHAPES[label]}")
+
+
+def run_poiseuille(az, K, card):
     """The SRD Poiseuille slit at full size: POISEUILLE_STEPS steps, then the
     profile over 16 bins of the velocity field compute (the example reads it
     after 50 more steps). The fitted parabola R^2 > 0.95, its peak > 0.03,
-    and no solvent particle beyond the plates."""
+    and no solvent particle beyond the plates. Returns the random-draw
+    kernel's launches in the timed steps."""
     sim = build_poiseuille(az, "cuda")
     L = float(sim.state.box.L[2])
     sim.run(TUNE_AT)
+    _check_grid(sim, "poiseuille")
+    _reset_counts(K)
     ms_step, wall = _timed_run(sim, POISEUILLE_STEPS - TUNE_AT)
+    # two normal draws a collision: the virtual fill and the axes
+    drawn = _draws(K, "poiseuille", {
+        "jax_normal": 2 * ((POISEUILLE_STEPS - TUNE_AT) // sim.mpcd_dynamics.period)})
     field = az.compute.CartesianVelocityFieldCompute(
         num_bins=(0, 0, POISEUILLE_BINS), lower_bounds=(0, 0, -L / 2),
         upper_bounds=(0, 0, L / 2), include_mpcd_particles=True)
@@ -1690,32 +1891,39 @@ def run_poiseuille(az, card):
     print(f"[poiseuille] N={solvent.shape[0]} L={L}: steps {TUNE_AT}-"
           f"{POISEUILLE_STEPS}: {ms_step:.4f} ms/step (host wall {wall:.3f} s) on {card}; "
           f"profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per step, "
-          f"{htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per step",
-          flush=True)
+          f"{htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per step; "
+          f"random-draw kernel launches {drawn}", flush=True)
     print(f"[poiseuille] v_x(z) over {POISEUILLE_BINS} bins: {np.round(prof, 4).tolist()}; "
           f"parabola R^2 {r2:.4f} (> 0.95), peak {prof.max():.4f} (> 0.03), furthest solvent "
           f"{beyond:+.2e} beyond the plates", flush=True)
     if not (r2 > 0.95 and prof.max() > 0.03 and beyond <= 1e-4):
         raise AssertionError(f"poiseuille: R^2 {r2:.4f}, peak {prof.max():.4f}, solvent "
                              f"{beyond:.3e} beyond the plates")
+    return drawn
 
 
-def run_srd(az, card):
+def run_srd(az, K, card):
     """Pure SRD throughput: SRD_WARM steps, a 20-step profile, then SRD_STEPS
     timed steps, each with one collision; the solvent's kT relative to its
-    mean within SRD_KT_BAND of 1."""
+    mean within SRD_KT_BAND of 1. Returns the random-draw kernel's launches
+    in the timed steps."""
     sim = build_srd(az, "cuda")
     sim.run(SRD_WARM)
+    _check_grid(sim, "srd")
     ops, busy, htod, syncs = _profile(sim)
+    _reset_counts(K)
     ms_step, wall = _timed_run(sim, SRD_STEPS)
+    drawn = _draws(K, "srd", {"jax_normal": SRD_STEPS})
     kT, _ = _solvent_kT(sim)
     print(f"[srd] N={sim._whole_mpcd()['position'].shape[0]}, {SRD_STEPS} steps of one collision each: "
           f"{ms_step:.4f} ms per collision (host wall {wall:.3f} s) on {card}; profile: "
           f"{ops:.1f} device operations and {busy:.4f} ms device-busy per step, {htod:.2f} "
           f"host-to-device copies and {syncs:.2f} synchronising calls per step; solvent kT "
-          f"relative to its mean {kT:.4f} (1.0 +- {SRD_KT_BAND})", flush=True)
+          f"relative to its mean {kT:.4f} (1.0 +- {SRD_KT_BAND}); random-draw kernel launches "
+          f"{drawn}", flush=True)
     if abs(kT - 1.0) > SRD_KT_BAND:
         raise AssertionError(f"srd: solvent kT {kT:.4f} outside 1.0 +- {SRD_KT_BAND}")
+    return drawn
 
 
 class _FireLog:
@@ -1795,13 +2003,14 @@ def run_io(az, K, card, sim, workdir):
     counts set to 0 just before and read just after. Checks the frames'
     timesteps, the last frame against ``get_snapshot()`` bit for bit, the
     Table's rows (finite, kT 1.0 +- IO_KT_BAND) and that every force
-    evaluation (and each energy the Table reads) launched K1; counts the
+    evaluation (and each energy the Table reads) launched K1 and every step
+    K4 (Langevin's draw); counts the
     synchronising calls inside each fire. Then times ms/step without and
     with the writers in alternating turns, and restarts from the last frame
     three times: twice from ``save_checkpoint`` through ``load_checkpoint``
     and the ``timestep`` setter, once through ``create_state_from_gsd``; the
-    three must agree bit for bit after IO_RESTART_STEPS. Returns the K1
-    launches."""
+    three must agree bit for bit after IO_RESTART_STEPS. Returns the K1 and
+    K4 launches."""
     import warnings
 
     PK = K.PK
@@ -1837,6 +2046,7 @@ def run_io(az, K, card, sim, workdir):
     if launched != evals + table["fires"] or PK.launches != launched:
         raise AssertionError(f"io: {launched} PLJ launches ({PK.launches} in all) for {evals} "
                              f"force evaluations and {table['fires']} Table energy reads")
+    drawn = _draws(K, "io", {"particle_bits": IO_STEPS})["particle_bits"]
     t1 = sim.timestep
     for name, period in (("Table", IO_TABLE_PERIOD), ("Trajectory", IO_FRAME_PERIOD),
                          ("GSD", IO_FRAME_PERIOD)):
@@ -1871,7 +2081,8 @@ def run_io(az, K, card, sim, workdir):
     n = sim.state.N_particles
     print(f"[io] N={n} from step {t0}: {IO_STEPS} steps with a Table every {IO_TABLE_PERIOD} "
           f"steps and a Trajectory and a GSD every {IO_FRAME_PERIOD}: {launched} K1 launches for "
-          f"{evals} force evaluations + {table['fires']} Table energy reads; aztraj backend: "
+          f"{evals} force evaluations + {table['fires']} Table energy reads; {drawn} K4 "
+          f"launches; aztraj backend: "
           f"{'native C++ (g++)' if az.io.native_available() else 'pure Python'}", flush=True)
     print(f"[io] fires (host ms per fire, synchronising calls per fire): " + "; ".join(
         f"{k} {s['fires']} ({s['ms'] / s['fires']:.2f} ms, {s['syncs'] / s['fires']:.1f} syncs)"
@@ -1939,7 +2150,7 @@ def run_io(az, K, card, sim, workdir):
           f"{extra / max(n_fires, 1):.2f} ms a fire from the step time; host ms per fire: " +
           ", ".join(f"{k} {s['ms'] / max(s['fires'], 1):.2f}" for k, s in fires.stats.items()),
           flush=True)
-    return {"cell_pair_force[PerturbedLennardJones]": launched}
+    return {"cell_pair_force[PerturbedLennardJones]": launched, "particle_bits": drawn}
 
 
 def run_examples(az, K, card, workdir, device="cuda"):
@@ -2014,9 +2225,10 @@ def run_spatial(az, K, card):
     (blocks on the card, ``make_mesh(n, device="cuda")``), run in turns for
     SPATIAL_STRETCH steps (across the tune at step 200) and SPATIAL_STRETCH
     more; after each stretch the decomposed layouts must equal the whole
-    one bit for bit, and every force evaluation of every run must have
-    launched K1 (the counts set to 0 just before each run's stretch and read
-    just after). Returns the K1 launches."""
+    one bit for bit, every force evaluation of every run must have
+    launched K1 and every step K4 (Langevin's draw, one for the whole slot
+    axis), the counts set to 0 just before each run's stretch and read just
+    after. Returns the K1 and K4 launches."""
     from azplugins_tpu_torch.parallel import make_mesh
 
     runs = {1: build_headline(az, "cuda")[0]}
@@ -2024,7 +2236,7 @@ def run_spatial(az, K, card):
         sim, _ = build_headline(az, "cuda")
         sim.enable_spatial_decomposition(make_mesh(n, device="cuda"))
         runs[n] = sim
-    launched = 0
+    launched, drawn = 0, 0
     ms = {n: [] for n in runs}
     for stretch in (1, 2):
         for n, sim in runs.items():
@@ -2037,6 +2249,8 @@ def run_spatial(az, K, card):
                 raise AssertionError(f"spatial: n={n}: {K.PK.launches} K1 launches for {evals} "
                                      f"force evaluations in {SPATIAL_STRETCH} steps")
             launched += k1
+            drawn += _draws(K, f"spatial: n={n}",
+                            {"particle_bits": SPATIAL_STRETCH})["particle_bits"]
         for n in SPATIAL_MESHES:
             _same_dense(f"n={n} after {runs[n].timestep} steps", runs[n], runs[1])
     spec = runs[1]._grid_spec
@@ -2051,9 +2265,9 @@ def run_spatial(az, K, card):
               flush=True)
     print(f"[spatial] n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit for "
           f"bit (positions, velocities, images, tags in slot order) after {SPATIAL_STRETCH} "
-          f"and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, one a force evaluation",
-          flush=True)
-    return {"cell_pair_force[PerturbedLennardJones]": launched}
+          f"and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, one a force evaluation; "
+          f"{drawn} K4 launches (at least one a step)", flush=True)
+    return {"cell_pair_force[PerturbedLennardJones]": launched, "particle_bits": drawn}
 
 
 def _shard_windows(dense, spec, n):
@@ -2114,9 +2328,9 @@ def run_spatial_sharded(az, D, K, card, record):
     sharded=True)``: the block-local rebin with migration, halo windows into
     K1), run in turns for SPATIAL_STRETCH steps (across the tune) and
     SPATIAL_STRETCH more. After each stretch the gathered layout must equal
-    the whole one bit for bit, and K1 must have launched n times a force
-    evaluation (the counts set to 0 just before each stretch and read just
-    after). Then, on the runs' state: the windowed K1 (force) and K1' (PLJ
+    the whole one bit for bit, K1 must have launched n times a force
+    evaluation and K4 (Langevin's draw) n times a step (the counts set to 0
+    just before each stretch and read just after). Then, on the runs' state: the windowed K1 (force) and K1' (PLJ
     and LJ, want="all") against the whole grid's launch on each shard's own
     slots, bit for bit, and the windowed K2 and K3 on the DPD fluid's and
     the patchy colloids' first states, and those of shards 0 and n/2
@@ -2125,7 +2339,7 @@ def run_spatial_sharded(az, D, K, card, record):
     plain windowed stencil's, and its bound at the window's bytes; the halo
     bytes and copies a force evaluation; device operations, device-busy ms
     (over PROFILE_STEPS steps, the [profile] window) and ms/step at each n;
-    the phase's wall time. Returns the K1 launches."""
+    the phase's wall time. Returns the K1 and K4 launches."""
     from azplugins_tpu_torch.parallel import make_mesh
     from azplugins_tpu_torch.parallel.spatial import halo_runs
 
@@ -2137,7 +2351,7 @@ def run_spatial_sharded(az, D, K, card, record):
         sim, _ = build_headline(az, "cuda")
         sim.enable_spatial_decomposition(make_mesh(n, device="cuda", sharded=True))
         runs[n] = sim
-    launched, stretch_s = 0, 0.0
+    launched, drawn, stretch_s = 0, 0, 0.0
     ms = {n: [] for n in runs}
     for stretch in (1, 2):
         for n, sim in runs.items():
@@ -2154,6 +2368,8 @@ def run_spatial_sharded(az, D, K, card, record):
             if n > 1 and not isinstance(sim._dense, tuple):
                 raise AssertionError(f"spatial: {n} shards: the layout is not sharded")
             launched += k1
+            drawn += _draws(K, f"spatial: {n} shards",
+                            {"particle_bits": n * SPATIAL_STRETCH})["particle_bits"]
         whole = runs[1]
         for n in SPATIAL_MESHES:
             sim = runs[n]
@@ -2280,9 +2496,10 @@ def run_spatial_sharded(az, D, K, card, record):
     print(f"[spatial] shards n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit "
           f"for bit (positions, velocities, images, tags, gathered in slot order; builds, grid) "
           f"after {SPATIAL_STRETCH} and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, "
-          f"n a force evaluation; the phase took {time.perf_counter() - phase_t0:.1f} s, of "
-          f"which {stretch_s:.1f} s the stretches", flush=True)
-    return {"cell_pair_force[PerturbedLennardJones]": launched}
+          f"n a force evaluation; {drawn} K4 launches, at least n a step; the phase took "
+          f"{time.perf_counter() - phase_t0:.1f} s, of which {stretch_s:.1f} s the stretches",
+          flush=True)
+    return {"cell_pair_force[PerturbedLennardJones]": launched, "particle_bits": drawn}
 
 
 def _same_sharded(what, got, want):
@@ -2367,7 +2584,9 @@ def run_spatial_ops(az, D, K, card, record):
     (the evaporated count too, and above 0; the bond lengths finite); the
     colloids on shards hold their path's limits, and one joint collision
     on shards agrees with the whole one within SPATIAL_OPS_COLLISION_BAR of
-    max|v|. Prints ms/step, device operations, busy ms and synchronising
+    max|v|. K4 must have launched once a step a shard (the droplet and the
+    polymer) and once an evaporator fire a shard, K5 once a collision (the
+    colloids). Prints ms/step, device operations, busy ms and synchronising
     calls a step (PROFILE_STEPS steps, as [spatial]), the updaters phase's
     operations (droplet), the position gather's ms (polymer), the joint
     collision's ms and operations (colloid), the windowed kernel on shards
@@ -2407,6 +2626,17 @@ def run_spatial_ops(az, D, K, card, record):
                     raise AssertionError(f"spatial_ops: {label} {key}: {K.PK.launches} kernel "
                                          f"launches for {evals} force evaluations")
                 launched[name] = launched.get(name, 0) + k
+                # K4: Langevin once a step a shard, the evaporator once a
+                # fire a shard; K5: the joint collision's axes
+                m = n if key == "shards" else 1
+                if label == "colloid":
+                    least = {"jax_normal": stretch // sim.mpcd_dynamics.period}
+                elif label == "droplet":
+                    least = {"particle_bits": m * (stretch + stretch // DROPLET_PERIOD)}
+                else:
+                    least = {"particle_bits": m * stretch}
+                for kernel, drawn in _draws(K, f"spatial_ops: {label} {key}", least).items():
+                    launched[kernel] = launched.get(kernel, 0) + drawn
             whole, sharded = runs["whole"][0], runs["shards"][0]
             if not isinstance(sharded._dense, tuple) or len(sharded._dense) != n:
                 raise AssertionError(f"spatial_ops: {label}: the layout is not in {n} shards")
@@ -2428,11 +2658,13 @@ def run_spatial_ops(az, D, K, card, record):
             # the sharded pick against the whole pick on this state, with no
             # host synchronisation allowed
             torch.cuda.synchronize()
+            _reset_counts(K)
             torch.cuda.set_sync_debug_mode("error")
             try:
                 picked = evap._update_shards(shards, sharded.timestep, sharded.seed)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
+            _draws(K, "spatial_ops: droplet: the sharded pick", {"particle_bits": n})
             want = evap._update(gather_dense(shards, sharded.device), sharded.timestep,
                                 sharded.seed)
             if not torch.equal(gather_dense(picked, sharded.device).typeid, want.typeid):
@@ -2453,8 +2685,9 @@ def run_spatial_ops(az, D, K, card, record):
             _same_sharded("droplet after the profiled period", sharded, whole)
             extra = (f"; evaporated {int((sharded._whole_dense().typeid == 1).sum())} after "
                      f"{sharded.timestep // DROPLET_PERIOD} fires, equal; the sharded pick at "
-                     f"step {sharded.timestep} ({flipped} flipped) the whole pick bit for bit "
-                     f"with no synchronising call; the updaters phase a fire: "
+                     f"step {sharded.timestep} ({flipped} flipped; one K4 launch a shard) the "
+                     f"whole pick bit for bit with no synchronising call; the updaters phase a "
+                     f"fire: "
                      f"{'; '.join(upd)}")
         elif label == "polymer":
             gather_ms = _cuda_time_ms(lambda: sharded._partners(sharded._dense), 50)
@@ -2615,14 +2848,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     az = _import_port()
     from azplugins_tpu_torch.ops import aniso_kernel as AK
     from azplugins_tpu_torch.ops import cuda_build
     from azplugins_tpu_torch.ops import dense as D
     from azplugins_tpu_torch.ops import dpd_kernel as DK
     from azplugins_tpu_torch.ops import pair_kernel as PK
+    from azplugins_tpu_torch.ops import rng_kernel as RK
 
-    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK)
+    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK, RK=RK)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
@@ -2630,9 +2865,9 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE)
+    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE, RK._SOURCE)
     cuda_build.load_libraries(*sources)
-    for k in (PK, DK, AK):
+    for k in (PK, DK, AK, RK):
         k._library()
     print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
           flush=True)
@@ -2646,7 +2881,7 @@ def main() -> int:
     pair_timing = check_pair_kernel(az, D, PK, record)
     dpd_timing = check_dpd_kernel(az, D, DK, record)
     aniso_timing = check_aniso_kernel(az, D, AK, record)
-    check_rng(az)
+    rng_timing, rng_err = check_rng(az, RK)
 
     launches = {}
 
@@ -2662,8 +2897,10 @@ def main() -> int:
     # the droplet's before and after its tune
     plj = {"cell_pair_force[PerturbedLennardJones]":
            lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}
+    # Langevin draws once a step (twice with rotation); the droplet's
+    # evaporator once a fire
     headline = count(run_path(az, D, K, card, record, "headline", build_headline, 2000, 1000,
-                              plj, caps=(48, 72)))
+                              plj, {"particle_bits": 1000}, caps=(48, 72)))
     run_profile(headline, "headline", PROFILE_STEPS, card)
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_io_") as workdir:
         count((run_io(az, K, card, headline, Path(workdir)), None))
@@ -2680,21 +2917,23 @@ def main() -> int:
     count(run_path(az, D, K, card, record, "polymer", build_polymer, 10000, 1000,
                    {"cell_pair_force[ExpandedYukawa]":
                     lambda: PK.launches_by_potential.get("ExpandedYukawa", 0)},
-                   extra_check=_bond_lengths))
+                   {"particle_bits": 1000}, extra_check=_bond_lengths))
     count(run_path(az, D, K, card, record, "patchy", build_patchy, PATCHY_WARM, 1000,
-                   {"cell_aniso_force": lambda: AK.launches}, extra_check=_unit_quaternions,
+                   {"cell_aniso_force": lambda: AK.launches}, {"particle_bits": 2000},
+                   extra_check=_unit_quaternions,
                    kT=0.3, kT_band=PATCHY_KT_BAND, caps=(16, 32)))
     # the droplet's lab-frame temperature contains the flow: its own check
     # reads the evaporated particles' temperature relative to it
     droplet = count(run_path(az, D, K, card, record, "droplet", build_droplet, 2000, 1000, plj,
+                             {"particle_bits": 1000 + 1000 // DROPLET_PERIOD},
                              extra_check=_droplet_check, kT=None, caps="tune"))
     time_pair_on_state(az, D, PK, droplet, droplet.operations.integrator.forces[0], "droplet")
     del droplet
     for pot, n in run_potential_sweep(az, K).items():
         launches[f"cell_pair_force[{pot}]"] = n
     count((run_colloid(az, D, K, card, record), None))
-    run_poiseuille(az, card)
-    run_srd(az, card)
+    count((run_poiseuille(az, K, card), None))
+    count((run_srd(az, K, card), None))
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_examples_") as workdir:
         run_examples(az, K, card, Path(workdir))
 
@@ -2714,6 +2953,20 @@ def main() -> int:
                for pot in PK.KERNEL_POTENTIALS]
     kernels.append(entry("cell_dpd_force", DK._SOURCE, DPD_REPLACES, dpd_timing))
     kernels.append(entry("cell_aniso_force", AK._SOURCE, ANISO_REPLACES, aniso_timing))
+    # the random draws: timed where the paths draw most (K4 at the headline's
+    # slots, K5 at pure SRD's grid); no PyTorch call computes these Threefry
+    # streams (torch.rand and torch.randn are other generators)
+    for name, timed, replaces in (("particle_bits", "particle_uniform3", RNG_BITS_REPLACES),
+                                  ("jax_normal", "jax_normal[srd]", RNG_NORMAL_REPLACES)):
+        ms, plain_ms, (bound_ms, bound_by) = rng_timing[timed]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"azplugins_tpu_torch/csrc/{RK._SOURCE}",
+            "replaces": replaces, "launches": launches[name], "max_abs_err": rng_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s, builds included",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,12 @@ and is sized for sparse cells, also a capacity forced to 64 whose stencils
 are staged in rounds and a cluster whose groups hold more particles than
 the block has threads (ANISO_SYSTEMS). The kernels sum in an order fixed
 by the input, so two launches give the same bits.
+
+The random-draw kernels (csrc/threefry.cu) are held to their plain
+versions in core/rng.py: the per-particle words and uniforms (K4) bit for
+bit, as integer hashing and explicitly rounded float32 steps; the MPCD
+normals (K5) within 1 ulp, the one step left to the card's libraries being
+CUDA's log1pf against PyTorch's CUDA log1p.
 """
 
 import importlib
@@ -35,11 +41,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import azplugins_tpu_torch as az  # noqa: E402
+from azplugins_tpu_torch.core import rng as RNG  # noqa: E402
 from azplugins_tpu_torch.ops import aniso_kernel as AK  # noqa: E402
 from azplugins_tpu_torch.ops import cuda_build  # noqa: E402
 from azplugins_tpu_torch.ops import dense as D  # noqa: E402
 from azplugins_tpu_torch.ops import dpd_kernel as DK  # noqa: E402
 from azplugins_tpu_torch.ops import pair_kernel as PK  # noqa: E402
+from azplugins_tpu_torch.ops import rng_kernel as RK  # noqa: E402
 from azplugins_tpu_torch.ops.evaluators.aniso import ANISO_PAIR_POTENTIALS  # noqa: E402
 from azplugins_tpu_torch.ops.evaluators.pair import PAIR_POTENTIALS  # noqa: E402
 
@@ -403,6 +411,41 @@ def test_simulation_on_cuda_runs_every_force_through_the_kernel(cuda_device):
     sim.run(200)
     assert PK.launches - before == sim.force_evaluations - evals >= 200
     assert np.isfinite(lj.energy)
+    assert np.all(np.isfinite(sim.state.get_snapshot().particles.position))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["Langevin", "BrownianFlow", "SRD with plates"])
+def test_simulation_on_cuda_draws_through_the_rng_kernels(cuda_device, method):
+    """Thermalize and the methods' noise draw through K4, an SRD collision
+    (with plates: the virtual fill and the axes) through K5."""
+    rng = np.random.default_rng(4)
+    n, L = 8, 8.0
+    snap = az.Snapshot(N=n**3, mpcd_N=4096 if method.startswith("SRD") else 0)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    x = (np.arange(n) + 0.5) - L / 2
+    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    if method.startswith("SRD"):
+        snap.mpcd.position[:] = (rng.random((4096, 3)) - 0.5) * [L, L, 0.9 * L]
+        snap.mpcd.velocity[:] = rng.normal(0, 1.0, (4096, 3))
+    sim = az.Simulation(device=cuda_device, seed=3)
+    sim.create_state_from_snapshot(snap)
+    methods = {"Langevin": az.md.methods.Langevin(kT=1.0, default_gamma=1.0),
+               "BrownianFlow": az.md.methods.BrownianFlow(kT=1.0, default_gamma=1.0)}
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.001, methods=[methods.get(method, az.md.methods.ConstantVolume())], forces=[])
+    if method.startswith("SRD"):
+        sim.mpcd_dynamics = az.mpcd.SRD(dt=0.02, period=1, cell_size=1.0, kT=1.0,
+                                        plates=("z", L))
+    before = dict(RK.launches_by_kernel)
+    sim.state.thermalize_particle_momenta(kT=1.0)
+    sim.run(10)
+    drawn = {k: v - before.get(k, 0) for k, v in RK.launches_by_kernel.items()}
+    if method.startswith("SRD"):
+        assert drawn.get("jax_normal", 0) >= 2 * 10
+    else:
+        assert drawn.get("particle_bits", 0) >= 1 + 10
     assert np.all(np.isfinite(sim.state.get_snapshot().particles.position))
 
 
@@ -817,3 +860,147 @@ def test_kernel_variant_raises_where_its_change_matches_nothing(monkeypatch, tmp
     monkeypatch.setitem(kv.CHANGES, "same", [(".cuh", "kListLen", "kListLen")])
     with pytest.raises(ValueError, match="sources are base's"):
         kv.variant_sources("same", tmp_path)
+
+
+# -- the random-draw kernels (csrc/threefry.cu) ------------------------------
+RNG_CASES = [(210, 12345, 777), (202, 0xFFFF, 2**32 + 5), (203, 7, 0)]  # stream, seed, timestep
+RNG_SIZES = [64000, 82944, 1001]  # the paths' tag counts and one that is not a multiple of the block
+NORMAL_ULP = 1
+
+
+def _rng_tags(n, device):
+    """Tags as a slot array holds them: random ones, empty slots (-1) and
+    tags near 2**31 - 1."""
+    g = np.random.default_rng(n)
+    tags = g.integers(0, 2**31 - 1, n).astype(np.int32)
+    tags[g.random(n) < 0.2] = -1
+    tags[:4] = [2**31 - 1, 2**31 - 2, -1, 0]
+    return torch.as_tensor(tags, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RNG_SIZES)
+@pytest.mark.parametrize("n_words", [1, 2, 3, 4, 8])
+def test_particle_bits_kernel_bitwise(cuda_device, n_words, n):
+    tags = _rng_tags(n, cuda_device)
+    for stream, seed, t in RNG_CASES:
+        before = RK.launches_by_kernel.get("particle_bits", 0)
+        got = RNG.particle_bits(stream, seed, t, tags, n_words)
+        assert RK.launches_by_kernel["particle_bits"] == before + 1
+        want = RNG._particle_bits_plain(stream, seed, t, tags, n_words)
+        assert len(got) == n_words
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int64 and g.device == tags.device
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RNG_SIZES)
+@pytest.mark.parametrize("low,high", [(-1.0, 1.0), (0.0, 1.0), (-3.5, 0.25)])
+def test_particle_uniform3_kernel_bitwise(cuda_device, low, high, n):
+    tags = _rng_tags(n, cuda_device)
+    for stream, seed, t in RNG_CASES:
+        before = RK.launches_by_kernel.get("particle_bits", 0)
+        got = RNG.particle_uniform3(stream, seed, t, tags, low, high)
+        assert RK.launches_by_kernel["particle_bits"] == before + 1
+        want = RNG._particle_uniform3_plain(stream, seed, t, tags, low, high)
+        assert got.shape == want.shape == (n, 3) and got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(9261, 3), (1001, 3), (0, 3)])
+def test_jax_normal_kernel_within_bar(cuda_device, shape):
+    for key in [(0, 42), RNG.jax_fold_in(RNG.jax_key(11), 40)]:
+        before = RK.launches_by_kernel.get("jax_normal", 0)
+        got = RNG.jax_normal(key, shape, cuda_device)
+        assert RK.launches_by_kernel.get("jax_normal", 0) == before + (shape[0] > 0)
+        want = RNG._jax_normal_plain(key, shape, cuda_device)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+        assert ulps.numel() == 0 or int(ulps.max()) <= NORMAL_ULP
+
+
+@pytest.mark.cuda
+def test_rng_kernels_launch_nothing_for_no_tags_and_refuse_other_tags(cuda_device):
+    before = RK.launches
+    (w,) = RNG.particle_bits(210, 1, 2, torch.zeros(0, dtype=torch.int32, device=cuda_device), 1)
+    u = RNG.particle_uniform3(210, 1, 2, torch.zeros(0, dtype=torch.int32, device=cuda_device))
+    assert tuple(w.shape) == (0,) and tuple(u.shape) == (0, 3) and RK.launches == before
+    with pytest.raises(TypeError, match="int32"):
+        RNG.particle_bits(210, 1, 2, torch.zeros(8, dtype=torch.int64, device=cuda_device), 1)
+
+
+def test_threefry_rounds_are_one_header():
+    """The DPD kernel and the random-draw kernels share csrc/threefry.cuh's
+    rounds; neither keeps a copy of its own."""
+    for source in (DK._SOURCE, RK._SOURCE):
+        text = (cuda_build.CSRC / source).read_text()
+        assert '#include "threefry.cuh"' in text
+        assert "rotl32(" not in text and "0x1BD11BDA" not in text
+    header = (cuda_build.CSRC / "threefry.cuh").read_text()
+    assert "template <int ROUNDS>" in header and "0x1BD11BDAu" in header
+
+
+# -- the random draws against the JAX package --------------------------------
+# tests/torch_rng_reference.npz holds what azplugins_tpu.core.rng and
+# jax.random.normal draw at the paths' shapes (made on the CPU by
+# tests/torch_rng_reference.py; tests/test_torch_rng.py checks it is
+# current), so the kernels are held to the reference on a GPU machine with
+# no JAX: K4 bit for bit, K5 within the port's 4-ulp bar for normals
+# (tests/test_torch_mpcd.py). The CPU case holds the plain versions alike.
+import torch_rng_reference as REF  # noqa: E402
+
+REFERENCE_NORMAL_ULP = 4
+
+
+@pytest.fixture(scope="module")
+def reference_draws():
+    return REF.load()
+
+
+@pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def draw_device(request):
+    if request.param == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the GPU")
+    return torch.device(request.param)
+
+
+def _launched(name, before, device, n=1):
+    """The draw launched its kernel n times on CUDA and nothing on the CPU."""
+    return RK.launches_by_kernel.get(name, 0) - before == (n if device.type == "cuda" else 0)
+
+
+@pytest.mark.parametrize("case", range(len(REF.BIT_CASES)))
+def test_particle_bits_are_the_references(draw_device, reference_draws, case):
+    stream, seed, t, n, n_words = REF.BIT_CASES[case]
+    before = RK.launches_by_kernel.get("particle_bits", 0)
+    words = RNG.particle_bits(stream, seed, t, torch.as_tensor(REF.tags(n), device=draw_device),
+                              n_words)
+    assert _launched("particle_bits", before, draw_device)
+    assert REF.digest([w.cpu().numpy() for w in words]) == reference_draws["bits"][case]
+
+
+@pytest.mark.parametrize("case", range(len(REF.UNIFORM_CASES)))
+def test_particle_uniform3_is_the_references(draw_device, reference_draws, case):
+    stream, seed, t, n, low, high = REF.UNIFORM_CASES[case]
+    before = RK.launches_by_kernel.get("particle_bits", 0)
+    u = RNG.particle_uniform3(stream, seed, t, torch.as_tensor(REF.tags(n), device=draw_device),
+                              low, high)
+    assert _launched("particle_bits", before, draw_device)
+    assert REF.digest([u.cpu().numpy()]) == reference_draws["uniform"][case]
+
+
+@pytest.mark.parametrize("case", range(len(REF.NORMAL_CASES)))
+def test_jax_normal_is_the_references_within_bar(draw_device, reference_draws, case):
+    name, seed, fold, shape = REF.NORMAL_CASES[case]
+    before = RK.launches_by_kernel.get("jax_normal", 0)
+    x = RNG.jax_normal(RNG.jax_fold_in(RNG.jax_key(seed), fold), shape, draw_device)
+    assert _launched("jax_normal", before, draw_device)
+    assert tuple(x.shape) == shape and x.dtype == torch.float32
+    got = x.cpu().numpy().reshape(-1)[REF.normal_sample(x.numel())]
+    want = reference_draws[f"normal_{name}"]
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    print(f"jax_normal {name} {shape} on {draw_device.type}: max {int(ulps.max())} ulp from "
+          f"jax.random.normal, {int((ulps > 0).sum())} of {ulps.size} sampled values differ")
+    assert ulps.max() <= REFERENCE_NORMAL_ULP
