@@ -147,11 +147,12 @@ def pair_uniform(stream: int, seed, timestep, tag_a, tag_b, low=-1.0, high=1.0,
 
 
 def _on_card(device) -> bool:
-    """Whether a draw on ``device`` takes its kernel (CUDA) or its plain
-    version (the CPU); any other device raises."""
+    """Whether work on ``device`` takes its kernel (CUDA) or its plain
+    version (the CPU); any other device raises. The draws, the integrator
+    and the drift check dispatch through it."""
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no random draws for device {dev}")
+        raise ValueError(f"no kernel and no plain version for device {dev}")
     return dev.type == "cuda"
 
 

@@ -18,6 +18,14 @@ Protocol, driven by the Simulation's step loop:
 
 Each method returns a new State; nothing is updated in place, so a chunk
 that must be replayed can roll back to the State it started from.
+
+Dispatch: on CUDA tensors ``step1`` and ``step2`` launch the kernels of
+:mod:`azplugins_tpu_torch.ops.integrate_kernel` (K7 the drift half, K8 the
+kick half with the Langevin force and its draw inside, K9 the NO_SQUISH
+rotation after either); on CPU tensors they run their plain versions
+(``_step1_plain``, ``_step2_plain``), which the kernels are held to
+bitwise on the card; any other device raises. Nothing falls back.
+BrownianFlow's steps stay plain PyTorch on both devices (its draw is K4).
 """
 
 from __future__ import annotations
@@ -34,6 +42,12 @@ from .filter import All, ParticleFilter
 __all__ = ["Method", "ConstantVolume", "Langevin", "LangevinFlow", "Brownian", "BrownianFlow"]
 
 
+def _kernels():
+    from ..ops import integrate_kernel  # imported here, on first use
+
+    return integrate_kernel
+
+
 class Method:
     # True when the method conserves total momentum (plain NVE): read by
     # ThermodynamicQuantities' DOF accounting (3N-3 vs 3N)
@@ -48,6 +62,11 @@ class Method:
         self._select = self.filter.bind(sim._particle_types)
         integ = sim.operations.integrator
         self._rotational = bool(integ is not None and integ.integrate_rotational_dof)
+
+    def _selection(self, state):
+        """The filter's bool for a kernel: None for ``All()`` (the kernels
+        test ``tag >= 0`` themselves), else the selector's tensor."""
+        return None if type(self.filter) is All else self._select(state)
 
     def _where(self, state, **new):
         """``state`` with the fields in ``new`` taken where the method acts
@@ -66,6 +85,33 @@ class Method:
     # wrapped here: they drift unwrapped until the next rebuild, which wraps
     # them and updates images (ops/dense._bin_to_slots).
     def step1(self, state, dt, timestep, seed):
+        if not _rng._on_card(state.device):
+            return self._step1_plain(state, dt, timestep, seed)
+        K = _kernels()
+        sel = self._selection(state)
+        x, v = K.step1(state.tag, sel, state.position, state.velocity, state.acceleration, dt)
+        state = state.replace(position=x, velocity=v)
+        if self._rotational:
+            q, p = K.no_squish(0, state.tag, sel, state.typeid, state.orientation, state.angmom,
+                               state.moment_inertia, state.net_torque, dt)
+            state = state.replace(orientation=q, angmom=p)
+        return state
+
+    def step2(self, state, dt, timestep, seed):
+        if not _rng._on_card(state.device):
+            return self._step2_plain(state, dt, timestep, seed)
+        K = _kernels()
+        sel = self._selection(state)
+        v, a = K.step2(state.tag, sel, state.typeid, state.velocity, state.acceleration,
+                       state.net_force, state.mass, dt)
+        state = state.replace(velocity=v, acceleration=a)
+        if self._rotational:
+            (p,) = K.no_squish(1, state.tag, sel, state.typeid, state.orientation, state.angmom,
+                               state.moment_inertia, state.net_torque, dt)
+            state = state.replace(angmom=p)
+        return state
+
+    def _step1_plain(self, state, dt, timestep, seed):
         vel_half = state.velocity + (0.5 * dt) * state.acceleration
         pos = state.position + dt * vel_half
         state = self._where(state, position=pos, velocity=vel_half)
@@ -73,7 +119,7 @@ class Method:
             state = self._rot_step1(state, dt)
         return state
 
-    def step2(self, state, dt, timestep, seed):
+    def _step2_plain(self, state, dt, timestep, seed):
         accel = state.net_force / state.mass[:, None]
         vel = state.velocity + (0.5 * dt) * accel
         state = self._where(state, velocity=vel, acceleration=accel)
@@ -119,15 +165,25 @@ class _GammaMixin:
 
         self._gamma_table = table(self.gamma)
         self._gamma_r_table = table(self.gamma_r)
+        self._tables_on = {}
+
+    def _table_on(self, name, device):
+        """The ``[T]`` table ``name`` on ``device``: a shard may lie on
+        another device than the simulation (copied once a device)."""
+        table = getattr(self, name)
+        if table.device != device:
+            if (name, device) not in self._tables_on:
+                self._tables_on[(name, device)] = table.to(device)
+            table = self._tables_on[(name, device)]
+        return table
 
     def _gamma_of(self, state):
-        # typeid is permuted (and -1 on empty slots) in the dense layout; a
-        # shard may lie on another device than the simulation
-        table = self._gamma_table.to(state.device)
+        # typeid is permuted (and -1 on empty slots) in the dense layout
+        table = self._table_on("_gamma_table", state.device)
         return table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
 
     def _gamma_r_of(self, state):
-        table = self._gamma_r_table.to(state.device)
+        table = self._table_on("_gamma_r_table", state.device)
         return table[torch.clamp_min(state.typeid, 0).to(torch.int64)]
 
 
@@ -151,6 +207,30 @@ class LangevinFlow(_GammaMixin, Method):
         self._init_gamma(default_gamma)
 
     def step2(self, state, dt, timestep, seed):
+        if not _rng._on_card(state.device):
+            return self._step2_plain(state, dt, timestep, seed)
+        K = _kernels()
+        kT = self.kT(timestep)
+        noisy = not (self.noiseless or dt <= 0)
+        sel = self._selection(state)
+        flow = None
+        if self.flow_field is not None:
+            flow = self.flow_field(state.box.wrap(state.position)[0])
+        noise = K.Noise(self._table_on("_gamma_table", state.device), self._rng_stream, seed,
+                        timestep, kT, noisy)
+        v, a = K.step2(state.tag, sel, state.typeid, state.velocity, state.acceleration,
+                       state.net_force, state.mass, dt, noise, flow)
+        state = state.replace(velocity=v, acceleration=a)
+        if self._rotational:
+            noise = K.Noise(self._table_on("_gamma_r_table", state.device),
+                            _rng.Stream.LANGEVIN_ANGULAR, seed, timestep, kT, noisy)
+            p, torque = K.no_squish(2, state.tag, sel, state.typeid, state.orientation,
+                                    state.angmom, state.moment_inertia, state.net_torque, dt,
+                                    noise)
+            state = state.replace(angmom=p, net_torque=torque)
+        return state
+
+    def _step2_plain(self, state, dt, timestep, seed):
         gp = self._gamma_of(state)
         kT = self.kT(timestep)
         if self.noiseless or dt <= 0:

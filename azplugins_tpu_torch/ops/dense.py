@@ -469,26 +469,54 @@ def _drift_exceeds(m1, m2, spec: GridSpec) -> torch.Tensor:
     return torch.sqrt(m1) + torch.sqrt(m2) > float(np.float32(spec.buffer))
 
 
-def needs_rebin(dense: State, meta: GridMeta, spec: GridSpec) -> torch.Tensor:
+def _drift_kernels():
+    from . import integrate_kernel  # imported here: it imports this module
+
+    return integrate_kernel
+
+
+def needs_rebin(dense: State, meta: GridMeta, spec: GridSpec, viol: torch.Tensor) -> torch.Tensor:
     """Exact pair-drift rebuild criterion, as a device bool.
 
     A pair binned within the stencil stays covered while
     ``drift_i + drift_j <= buffer``; the worst pair is the two largest
     single-particle drifts (ties counted), so the check is
-    ``sqrt(max1) + sqrt(max2) > buffer``.
+    ``sqrt(max1) + sqrt(max2) > buffer``, ORed into ``viol`` (the chunk's
+    0-d bool violation flag). A CUDA layout takes K6 (one launch, the OR
+    inside), a CPU one :func:`_needs_rebin_plain`; any other device raises.
     """
+    if _rng._on_card(dense.device):
+        return _drift_kernels().drift_check(dense.position, meta.ref_position, dense.tag,
+                                            spec.buffer, viol)
+    return viol | _needs_rebin_plain(dense, meta, spec)
+
+
+def _needs_rebin_plain(dense: State, meta: GridMeta, spec: GridSpec) -> torch.Tensor:
     return _drift_exceeds(*_top_two(_drift_sq(dense, meta)), spec)
 
 
 def drift_top_two(dense: State, meta: GridMeta) -> torch.Tensor:
     """[2]: one shard's two largest squared drifts, ties counted; the two of
     every shard hold the grid's two, so :func:`needs_rebin_of` on them all
-    is :func:`needs_rebin` on the whole grid."""
+    is :func:`needs_rebin` on the whole grid. K6 on a CUDA shard."""
+    if _rng._on_card(dense.device):
+        return _drift_kernels().drift_top_two(dense.position, meta.ref_position, dense.tag)
+    return _drift_top_two_plain(dense, meta)
+
+
+def _drift_top_two_plain(dense: State, meta: GridMeta) -> torch.Tensor:
     return torch.stack(_top_two(_drift_sq(dense, meta)))
 
 
-def needs_rebin_of(top_twos: torch.Tensor, spec: GridSpec) -> torch.Tensor:
-    """:func:`needs_rebin` from the shards' :func:`drift_top_two`, concatenated."""
+def needs_rebin_of(top_twos: torch.Tensor, spec: GridSpec, viol: torch.Tensor) -> torch.Tensor:
+    """:func:`needs_rebin` from the shards' :func:`drift_top_two`,
+    concatenated (``viol |`` it, as there); K6 over the values on CUDA."""
+    if _rng._on_card(top_twos.device):
+        return _drift_kernels().needs_rebin_of(top_twos, spec.buffer, viol)
+    return viol | _needs_rebin_of_plain(top_twos, spec)
+
+
+def _needs_rebin_of_plain(top_twos: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     return _drift_exceeds(*_top_two(top_twos), spec)
 
 

@@ -8,8 +8,10 @@ what the reference leaves to XLA, which fuses it into its step.
   :func:`~azplugins_tpu_torch.core.rng.particle_bits` and
   :func:`~azplugins_tpu_torch.core.rng.particle_uniform3` compute
   (reference ``azplugins_tpu/core/rng.py::particle_bits``,
-  ``particle_uniform3``): the per-particle draws of Langevin, Brownian,
-  the evaporator's pick and thermalize. Bitwise the plain version.
+  ``particle_uniform3``): the per-particle draws of Brownian, the
+  evaporator's pick and thermalize (Langevin draws the same uniforms
+  inside its integrator kernels, ``ops/integrate_kernel.py``). Bitwise the
+  plain version.
 - K5 ``az_jax_normal``: what
   :func:`~azplugins_tpu_torch.core.rng.jax_normal` computes, the
   ``jax.random.normal`` of the MPCD collision (reference

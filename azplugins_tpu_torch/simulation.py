@@ -254,10 +254,12 @@ class Simulation:
         # tune_cell_capacity() or a timestep set past it cancels it
         self.auto_tune_after: int | None = 200
         self._auto_tuned = False
-        # diagnostics: violation replays, and force evaluations (one per
-        # force per step, replayed steps included)
+        # diagnostics: violation replays, force evaluations (one per force
+        # per step, replayed steps included) and steps the loop ran
+        # (replayed steps included)
         self.viol_replays = 0
         self.force_evaluations = 0
+        self.steps_run = 0
         # the MPCD solvent stream (snapshot.mpcd) and its dynamics
         # (mpcd.SRD), which advances it beside the MD trajectory
         self._mpcd: dict | None = None
@@ -882,6 +884,7 @@ class Simulation:
         viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
         for j in range(n_steps):
             t = t0 + j
+            self.steps_run += 1
             if spec is not None and rebin_first and j % seg_len == 0:
                 with scope("rebin"):
                     shards, metas = self._rebuild(shards, metas)
@@ -890,7 +893,7 @@ class Simulation:
                     shards = tuple(m.step1(s, dt, t, seed) for s in shards)
             if spec is not None:
                 with scope("verlet_drift_check"):
-                    viol = viol | self._drifted(shards, metas)
+                    viol = self._drifted(shards, metas, viol)
             with scope("forces"):
                 shards = self._with_forces(shards, metas, t, tbls)
             with scope("integrate_step2"):
@@ -920,14 +923,15 @@ class Simulation:
         dense, meta = D.rebin(dense, meta, spec, N_tags, self._fields, need_slot_of)
         return (dense,), (meta,)
 
-    def _drifted(self, shards: tuple, metas: tuple) -> torch.Tensor:
-        """The Verlet drift criterion over every shard, as a bool on the
-        first shard's device: each shard's two largest drifts go there."""
+    def _drifted(self, shards: tuple, metas: tuple, viol: torch.Tensor) -> torch.Tensor:
+        """``viol`` ORed with the Verlet drift criterion over every shard, as
+        a bool on the first shard's device: each shard's two largest drifts
+        go there (on CUDA one K6 launch a shard and one for the verdict)."""
         if len(shards) == 1:
-            return D.needs_rebin(shards[0], metas[0], self._grid_spec)
+            return D.needs_rebin(shards[0], metas[0], self._grid_spec, viol)
         dev0 = shards[0].device
         tops = torch.cat([D.drift_top_two(s, m).to(dev0) for s, m in zip(shards, metas)])
-        return D.needs_rebin_of(tops, self._grid_spec)
+        return D.needs_rebin_of(tops, self._grid_spec, viol)
 
     def _chunk_flags(self, meta, violated) -> tuple:
         """(overflow, violated, max_occ) of a chunk, read in one transfer

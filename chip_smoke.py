@@ -35,10 +35,13 @@
 5. runs, through the public API, each with the launch counts set to 0 just
    before it and read just after:
    - the 64k perturbed-LJ Langevin headline (the JAX package's bench
-     headline, BASELINE config 1), then [profile] 20 of its steps under
-     Simulation.profile: the trace's phase ranges counted (one of each step
-     phase a step, rebin once a build) and the device operations and
-     device-busy ms a step split by phase;
+     headline, BASELINE config 1), then [integrate] on its state (below),
+     then [profile] 20 of its steps under Simulation.profile: the trace's
+     phase ranges counted (one of each step phase a step, rebin once a
+     build) and the device operations and device-busy ms a step split by
+     phase, with the host's us an operation (ms/step over operations a
+     step); integrate_step1, verlet_drift_check and integrate_step2 at most
+     2 operations a step each;
    - [io] the headline again, with writers: a Table of kT and the
      potential energy every 100 steps, a Trajectory (aztraj) and a GSD
      every 250, over 1,000 steps; the frames' timesteps, the last frame of
@@ -96,11 +99,13 @@
      in their smoke mode (AZTPU_EXAMPLE_FAST=1), main(device="cuda"), each
      in a directory of its own inside the checkout, removed afterwards;
    and checks that every pair-force evaluation went through a kernel, that
-   every random draw of the timed steps did too (Langevin's once a step,
-   twice with rotation, the evaporator's once a fire, thermalize once a
-   setup, the MPCD collision's once or twice a collision), and that the
-   result is physical; on each full-size path the capacity tune
-   fires at step 200, and the path prints the capacity and rebuild
+   every step of the timed steps went through the integrator kernels
+   exactly (K7 and K8 once a step a method a shard, K6 once a step, n + 1
+   times on n shards, K9 twice a step a method with rotation; Langevin's
+   draw inside K8 and K9), that every other random draw did too (the
+   evaporator's once a fire, thermalize once a setup, the MPCD collision's
+   once or twice a collision), and that the result is physical; on each
+   full-size path the capacity tune fires at step 200, and the path prints the capacity and rebuild
    interval before and after it and the device-busy time a step in the 20
    steps before it and after the timed steps; after the headline, the DPD
    fluid, the patchy colloids and the droplet, times their kernel on the
@@ -109,7 +114,18 @@
    tune), and K1 at the droplet's state (K1' at the colloids') against its
    plain version and bound; the colloid path also times one joint collision
    and prints whether two identical colloid runs agree bitwise;
-6. prints the kernel summary and, last, the contract line
+6. [integrate], on the headline's, the patchy colloids' and the droplet's
+   states after their runs: the integrator and drift-check kernels of
+   csrc/integrate.cu (K6-K9) against their plain versions on the card,
+   bitwise (K9 within NO_SQUISH_ULP ulp, its worst printed): the path's
+   method and ConstantVolume, a noiseless Langevin and one under a Type
+   filter (the droplet: its LangevinFlow's flow field under a Type filter),
+   step1 and step2, the patchy state also with frozen axes; K6 on each
+   layout with the violation flag clear and set, and at the headline on a
+   NaN drift, an exact tie at the maximum and 4 shards; each kernel's ms
+   against its plain ms and its bound (K6-K8 at the headline's slots, K8
+   with the droplet's flow, K9 at the patchy colloids');
+7. prints the kernel summary and, last, the contract line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the result lines.
@@ -218,6 +234,27 @@ RNG_TAGS = (64_000, 82_944, DROPLET_N)
 HEADLINE_SLOTS = 82_944
 NORMAL_SHAPES = {"colloid": (32**3, 3), "poiseuille": (16 * 16 * 17, 3), "srd": (64**3, 3)}
 NORMAL_ULP = 1
+
+# [integrate]: what K6-K9 (csrc/integrate.cu) replace: no pallas_call, jnp
+# code that XLA fuses into the reference's step
+INTEGRATE_REPLACES = {
+    "drift_check": "azplugins_tpu/ops/dense.py:666 (needs_rebin), XLA-fused, no pallas_call",
+    "step1": "azplugins_tpu/md/methods.py:68 (Method.step1), XLA-fused, no pallas_call",
+    "step2": ("azplugins_tpu/md/methods.py:172 (LangevinFlow.step2; Method.step2 :79), "
+              "XLA-fused, no pallas_call"),
+    "no_squish": ("azplugins_tpu/md/rotation.py:89-146 (angmom_kick, free_rotation; "
+                  "md/methods.py:94, 106, 194), XLA-fused, no pallas_call"),
+}
+# K9's bar in ulp against its plain version (K6-K8 are held bitwise)
+NO_SQUISH_ULP = 0
+# float32 operations a slot, each libm call (cos, sin), divide and sqrt as
+# one, counted from the plain versions' formulas: K7 4 a component; K8 NVE
+# 3 a component, Langevin 9 a component + 4 for the noise scale + 9 for
+# the uniforms; K9 mode 0 the kick (rotate_inv 27, the product 16, the add
+# 8) and five axis rotations (the dot 11, 4 for the angle, cos and sin, 16
+# for q and p) and the norm (12); K6 8 a slot.
+INTEGRATE_F32_OPS = {"drift_check": 8, "step1": 12, "step2[nve]": 9, "step2": 40,
+                     "no_squish[step1]": 233, "no_squish[langevin]": 140}
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -1229,6 +1266,207 @@ def check_rng(az, RK):
 
 
 # ---------------------------------------------------------------------------
+# [integrate]: K6-K9 against their plain versions on the paths' states
+# ---------------------------------------------------------------------------
+def _integrate_bound(bytes_moved, n_act, f32_ops, hashes=0):
+    """(bound_ms, bound_by) of a streaming pass moving ``bytes_moved`` bytes
+    whose ``n_act`` acting slots each do ``f32_ops`` float32 operations and
+    ``hashes`` Threefry-2x32-20 calls (with their uniforms' 6 integer
+    operations): the larger of the bytes' time and the operations' (the
+    largest of the ALU pipe's, the issue slots' and the float32 rate's)."""
+    alu = hashes * (20 * THREEFRY_ROUND_ALU + 3)
+    issued = hashes * (20 * THREEFRY_ROUND_OPS + 3) + f32_ops
+    t_bytes = bytes_moved / MEM_BYTES_PER_S
+    t_ops = n_act * max(alu / ALU_OPS_PER_S, issued / ISSUE_OPS_PER_S, f32_ops / F32_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _kernel_bits(what, got, want, ulp_bar=0):
+    """The largest difference in ulp (int32 patterns) of ``got`` from
+    ``want``, at most ``ulp_bar``; NaN must meet NaN."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"integrate: {what}: {tuple(got.shape)} {got.dtype} against "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if got.dtype == torch.bool:
+        if not torch.equal(got, want):
+            raise AssertionError(f"integrate: {what}: the verdict differs")
+        return 0, 0.0
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"integrate: {what}: NaN where the plain version has none")
+    g, w = got[~nan], want[~nan]
+    ulps = (g.view(torch.int32).long() - w.view(torch.int32).long()).abs()
+    worst = int(ulps.max()) if ulps.numel() else 0
+    if worst > ulp_bar:
+        raise AssertionError(f"integrate: {what}: {worst} ulp from the plain version "
+                             f"({int((ulps > 0).sum())} values differ; bar {ulp_bar})")
+    return worst, float((g - w).abs().max()) if g.numel() else 0.0
+
+
+def _drift_cases(D, dense, meta, spec, label):
+    """K6 against the plain drift check on the path's layout and, at the
+    headline, on a NaN drift, a tie at the maximum and 4 shards (the
+    slots cut in 4): whole verdicts with the violation flag clear and set,
+    each shard's top two, the combine. Returns the number of cases."""
+    pos, tag = dense.position, dense.tag
+    layouts = {"path": (pos, meta.ref_position)}
+    if label == "headline":
+        # two slots at the same reference drift by the same step, beyond
+        # every other slot's drift
+        live = torch.nonzero(tag >= 0).flatten()
+        ref_tie = meta.ref_position.clone()
+        ref_tie[live[1]] = ref_tie[live[0]]
+        tie = pos.clone()
+        tie[live[:2]] = ref_tie[live[0]] + torch.tensor([0.3, 0.1, 0.0], device=pos.device)
+        nan = pos.clone()
+        nan[live[len(live) // 2], 1] = float("nan")
+        layouts.update(tie=(tie, ref_tie), nan=(nan, meta.ref_position))
+    cases = 0
+    for name, (x, refp) in layouts.items():
+        d = types.SimpleNamespace(position=x, tag=tag, device=x.device)
+        meta = types.SimpleNamespace(ref_position=refp)
+        for viol0 in (False, True):
+            viol = torch.tensor(viol0, device=x.device)
+            want = viol | D._needs_rebin_plain(d, meta, spec)
+            _kernel_bits(f"{label} drift {name} viol={viol0}", D.needs_rebin(d, meta, spec, viol),
+                         want)
+            cases += 1
+        if name == "nan" and bool(D._needs_rebin_plain(d, meta, spec)):
+            raise AssertionError("integrate: a NaN drift asks for a rebuild")
+        if label != "headline":
+            continue
+        cuts = torch.tensor_split(torch.arange(x.shape[0], device=x.device), 4)
+        tops, plain = [], []
+        for c in cuts:
+            sd = types.SimpleNamespace(position=x[c], tag=tag[c], device=x.device)
+            sm = types.SimpleNamespace(ref_position=refp[c])
+            tops.append(D.drift_top_two(sd, sm))
+            plain.append(D._drift_top_two_plain(sd, sm))
+            _kernel_bits(f"{label} drift {name} shard top two", tops[-1], plain[-1])
+        tops, plain = torch.cat(tops), torch.cat(plain)
+        viol = torch.tensor(False, device=x.device)
+        got = D.needs_rebin_of(tops, spec, viol)
+        _kernel_bits(f"{label} drift {name} on 4 shards", got, D._needs_rebin_of_plain(plain, spec))
+        _kernel_bits(f"{label} drift {name}: 4 shards against whole", got,
+                     D._needs_rebin_plain(d, meta, spec))
+        cases += 5
+    return cases
+
+
+def check_integrate(az, D, K, sim, label, timing, record):
+    """[integrate] on one main path's full-size state after its run: every
+    method case's step1 and step2 through the kernels (K7, K8, K9) against
+    their plain versions on the card, bitwise (K9 within NO_SQUISH_ULP);
+    the path's own method and ConstantVolume; at the headline a noiseless
+    Langevin and one under a Type filter; at the droplet its LangevinFlow
+    (a flow field) and one under a Type filter; at the patchy colloids a
+    noiseless one and the state with frozen axes (a third of the slots
+    without their z axis, a third without x). K6 on the path's layout, and
+    at the headline on NaN, tie and 4-shard cases. Times each kernel the
+    path runs against its plain version and its bound into ``timing``
+    ({name: (ms, plain_ms, (bound_ms, bound_by))}; the headline's K6-K8,
+    the droplet's K8 with its flow, the patchy colloids' K9)."""
+    t0 = time.perf_counter()
+    IK = K.IK
+    dense, meta, spec = sim._dense, sim._meta, sim._grid_spec
+    dt, t, seed = sim.dt_ref(), sim.timestep, sim.seed
+    integ = sim.operations.integrator
+    rot = integ.integrate_rotational_dof
+    path = integ.methods[0]
+    Ls = az.md.methods
+    methods = {"path": path, "nve": Ls.ConstantVolume()}
+    if label == "headline":
+        methods["noiseless"] = Ls.Langevin(kT=1.0, default_gamma=0.1, noiseless=True)
+        methods["type_filter"] = Ls.Langevin(kT=1.0, default_gamma=0.1,
+                                             filter=az.md.filter.Type(["A"]))
+    elif label == "droplet":
+        methods["type_filter"] = Ls.LangevinFlow(kT=1.0, flow_field=path.flow_field,
+                                                 filter=az.md.filter.Type(["solvent"]))
+    else:
+        methods["noiseless"] = Ls.Langevin(kT=0.3, default_gamma=1.0, noiseless=True)
+    for name, m in methods.items():
+        if m is not path:
+            m._attach(sim)
+    states = {"path": dense}
+    if rot:
+        inertia = dense.moment_inertia.clone()
+        inertia[0::3, 2] = 0.0
+        inertia[1::3, 0] = 0.0
+        states["frozen_axes"] = dense.replace(moment_inertia=inertia)
+    rotational = ("orientation", "angmom", "net_torque")
+    fields = ("position", "velocity", "acceleration") + (rotational if rot else ())
+    cases, worst, errs = 0, 0, {}
+    for sname, st in states.items():
+        for mname, m in methods.items():
+            for step in ("step1", "step2"):
+                got = getattr(m, step)(st, dt, t, seed)
+                want = getattr(m, f"_{step}_plain")(st, dt, t, seed)
+                for k in fields:
+                    kernel = ("no_squish" if k in rotational else
+                              "step1" if step == "step1" else "step2")
+                    ulp, err = _kernel_bits(f"{label} {sname} {mname} {step} {k}",
+                                            getattr(got, k), getattr(want, k),
+                                            NO_SQUISH_ULP if kernel == "no_squish" else 0)
+                    worst = max(worst, ulp) if kernel == "no_squish" else worst
+                    errs[kernel] = max(errs.get(kernel, 0.0), err)
+                cases += 1
+    cases += _drift_cases(D, dense, meta, spec, label)
+    errs["drift_check"] = 0.0
+    for name, err in errs.items():
+        record(name, err)
+
+    live = dense.tag >= 0
+    n, n_act = dense.N, int(live.sum())
+    timed = {}
+    # the bounds' bytes are what each function needs: a field counts on the
+    # slots whose result depends on it (the drift's positions and the
+    # acceleration, force, mass, inertia and torque on acting slots; the
+    # old acceleration on masked ones, which copy it), the fields copied
+    # or written on every slot
+    if label == "headline":
+        viol = torch.tensor(False, device=dense.device)
+        timed["drift_check"] = (lambda: D.needs_rebin(dense, meta, spec, viol),
+                                lambda: viol | D._needs_rebin_plain(dense, meta, spec),
+                                _integrate_bound(4 * n + 24 * n_act, n_act,
+                                                 INTEGRATE_F32_OPS["drift_check"]))
+        timed["step1"] = (lambda: path.step1(dense, dt, t, seed),
+                          lambda: path._step1_plain(dense, dt, t, seed),
+                          _integrate_bound(52 * n + 12 * n_act, n_act, INTEGRATE_F32_OPS["step1"]))
+        timed["step2"] = (lambda: path.step2(dense, dt, t, seed),
+                          lambda: path._step2_plain(dense, dt, t, seed),
+                          _integrate_bound(40 * n + 20 * n_act + 12 * (n - n_act), n_act,
+                                           INTEGRATE_F32_OPS["step2"], hashes=2))
+    elif label == "droplet":
+        flow = path.flow_field(dense.box.wrap(dense.position)[0])
+        noise = IK.Noise(path._table_on("_gamma_table", dense.device), path._rng_stream, seed, t,
+                         path.kT(t), True)
+        timed["step2[flow]"] = (
+            lambda: IK.step2(dense.tag, None, dense.typeid, dense.velocity, dense.acceleration,
+                             dense.net_force, dense.mass, dt, noise, flow),
+            lambda: path._step2_plain(dense, dt, t, seed),
+            _integrate_bound(40 * n + 32 * n_act + 12 * (n - n_act), n_act,
+                             INTEGRATE_F32_OPS["step2"] + 3, hashes=2))
+    else:
+        timed["no_squish"] = (
+            lambda: IK.no_squish(0, dense.tag, None, dense.typeid, dense.orientation,
+                                 dense.angmom, dense.moment_inertia, dense.net_torque, dt),
+            lambda: path._rot_step1(dense, dt),
+            _integrate_bound(68 * n + 24 * n_act, n_act, INTEGRATE_F32_OPS["no_squish[step1]"]))
+    lines = []
+    for name, (kernel, plain, bound) in timed.items():
+        ms = _cuda_time_ms(kernel, 50)
+        plain_ms = _cuda_time_ms(plain, 5)
+        timing[name] = (ms, plain_ms, bound)
+        lines.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}), bound {bound[0]:.5f} ms "
+                     f"({bound[1]}), {ms / bound[0]:.1f}x")
+    print(f"[integrate] {label} ({n:,} slots, {n_act:,} particles): {cases} cases "
+          f"({', '.join(methods)} x step1/step2{' x path/frozen axes' if rot else ''}; the "
+          f"drift check) bitwise the plain versions on the card"
+          f"{f'; K9 max {worst} ulp (bar {NO_SQUISH_ULP})' if rot else ''}; "
+          f"{'; '.join(lines)}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # Main paths
 # ---------------------------------------------------------------------------
 def _reset_counts(K):
@@ -1238,6 +1476,8 @@ def _reset_counts(K):
     K.AK.launches = 0
     K.RK.launches = 0
     K.RK.launches_by_kernel.clear()
+    K.IK.launches = 0
+    K.IK.launches_by_kernel.clear()
 
 
 def _draws(K, label, least):
@@ -1248,6 +1488,22 @@ def _draws(K, label, least):
     if any(got[name] < n for name, n in least.items()):
         raise AssertionError(f"{label}: random-draw kernel launches {got}, at least {least} "
                              f"expected")
+    return got
+
+
+def _integrator_launches(K, label, steps, n_methods, shards=1, grid=True, rotational=False):
+    """K6-K9's launches since the counts were set to 0, each exactly what
+    ``steps`` steps (replays counted) of ``n_methods`` methods on ``shards``
+    shards launch: step1 and step2 once a step a method a shard, the drift
+    check once a step (a shard and once for the verdict on shards), the
+    rotation twice a step a method a shard. Returns {name: launches}."""
+    want = {"step1": steps * n_methods * shards, "step2": steps * n_methods * shards,
+            "drift_check": (steps * (shards + (shards > 1))) if grid else 0,
+            "no_squish": 2 * steps * n_methods * shards if rotational else 0}
+    got = {name: K.IK.launches_by_kernel.get(name, 0) for name in want}
+    if got != want:
+        raise AssertionError(f"{label}: integrator kernel launches {got}, {want} expected "
+                             f"({steps} steps, {n_methods} methods, {shards} shards)")
     return got
 
 
@@ -1476,6 +1732,7 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
     before = extra_check(sim, "before") if extra_check else None
 
     builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
+    steps0 = sim.steps_run
     n_pair_forces = sum(1 for f in forces if f._needs_nlist)
     _reset_counts(K)
     ms_step, wall = _timed_run(sim, steps)
@@ -1485,6 +1742,11 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
     builds = sim.n_builds - builds0
     replays = sim.viol_replays - replays0
     pair_evals = evals * n_pair_forces // len(forces)
+    integ = sim.operations.integrator
+    stepped = sim.steps_run - steps0
+    integrated = _integrator_launches(K, label, stepped, len(integ.methods),
+                                      grid=sim._grid_spec is not None,
+                                      rotational=integ.integrate_rotational_dof)
     if sum(launched.values()) != pair_evals or min(launched.values()) < steps:
         raise AssertionError(f"{label}: kernel launches {launched} for {pair_evals} pair-force "
                              f"evaluations in {steps} steps")
@@ -1510,7 +1772,9 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
           f"({sum(launched.values()) / steps:.3f} kernel launches per step); {builds} grid "
           f"builds ({steps / max(builds, 1):.1f} steps each), {replays} violation replays; "
           f"cap {sim._grid_spec.cap}, rebuild interval {sim._seg_len}; random-draw kernel "
-          f"launches {drawn} (thermalize: {setup_draws})", flush=True)
+          f"launches {drawn} (thermalize: {setup_draws}); integrator kernel launches "
+          f"{integrated} ({stepped} steps x {len(integ.methods)} methods)",
+          flush=True)
     print(f"[{label}] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy "
           f"per step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls "
           f"per step", flush=True)
@@ -1525,7 +1789,7 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
         caps = (tuned["cap"], tuned["cap0"])
     if caps:
         _time_at_caps(az, D, K, sim, forces, caps)
-    return {**launched, **drawn}, sim
+    return {**launched, **drawn, **integrated}, sim
 
 
 def _busy_at_caps(sim, label, untuned):
@@ -1783,6 +2047,7 @@ def run_colloid(az, D, K, card, record):
 
     name = "cell_pair_force[LJ]"
     builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
+    steps0 = sim.steps_run
     _reset_counts(K)
     ms_step, wall = _timed_run(sim, COLLOID_STEPS)
     launched = {name: K.PK.launches_by_potential.get("LJ", 0)}
@@ -1793,6 +2058,7 @@ def run_colloid(az, D, K, card, record):
         raise AssertionError(f"colloid: {launched} LJ kernel launches for {evals} force "
                              f"evaluations in {COLLOID_STEPS} steps")
     builds, replays = sim.n_builds - builds0, sim.viol_replays - replays0
+    integrated = _integrator_launches(K, "colloid", sim.steps_run - steps0, 1)
     _check_wrapped(sim, "colloid")
 
     m_s = sim._mpcd["mass"]
@@ -1831,7 +2097,8 @@ def run_colloid(az, D, K, card, record):
     print(f"[colloid] launches {launched} for {evals} force evaluations "
           f"({launched[name] / COLLOID_STEPS:.3f} kernel launches per step); {builds} grid "
           f"builds, {replays} violation replays; cap {sim._grid_spec.cap}, rebuild interval "
-          f"{sim._seg_len}; random-draw kernel launches {drawn}", flush=True)
+          f"{sim._seg_len}; random-draw kernel launches {drawn}; integrator kernel launches "
+          f"{integrated}", flush=True)
     print(f"[colloid] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per "
           f"step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per "
           f"step", flush=True)
@@ -1850,7 +2117,7 @@ def run_colloid(az, D, K, card, record):
     same, diff = _colloid_bits(az)
     print(f"[colloid] two identical 60-step runs agree bitwise: {same} (max |dv| {diff:.3e}; "
           f"a reading: the cell sums are atomic adds on CUDA)", flush=True)
-    return {**launched, **drawn}
+    return {**launched, **drawn, **integrated}
 
 
 def _check_grid(sim, label):
@@ -2004,13 +2271,13 @@ def run_io(az, K, card, sim, workdir):
     timesteps, the last frame against ``get_snapshot()`` bit for bit, the
     Table's rows (finite, kT 1.0 +- IO_KT_BAND) and that every force
     evaluation (and each energy the Table reads) launched K1 and every step
-    K4 (Langevin's draw); counts the
+    K6, K7 and K8 (Langevin's step with its draw) once; counts the
     synchronising calls inside each fire. Then times ms/step without and
     with the writers in alternating turns, and restarts from the last frame
     three times: twice from ``save_checkpoint`` through ``load_checkpoint``
     and the ``timestep`` setter, once through ``create_state_from_gsd``; the
     three must agree bit for bit after IO_RESTART_STEPS. Returns the K1 and
-    K4 launches."""
+    K6-K8 launches."""
     import warnings
 
     PK = K.PK
@@ -2026,7 +2293,7 @@ def run_io(az, K, card, sim, workdir):
     sim.run(-sim.timestep % IO_FRAME_PERIOD)  # start on a frame: the run ends on one
     t0 = sim.timestep
     sim.operations.writers[:] = writers
-    evals0 = sim.force_evaluations
+    evals0, steps0 = sim.force_evaluations, sim.steps_run
     _reset_counts(K)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2046,7 +2313,7 @@ def run_io(az, K, card, sim, workdir):
     if launched != evals + table["fires"] or PK.launches != launched:
         raise AssertionError(f"io: {launched} PLJ launches ({PK.launches} in all) for {evals} "
                              f"force evaluations and {table['fires']} Table energy reads")
-    drawn = _draws(K, "io", {"particle_bits": IO_STEPS})["particle_bits"]
+    integrated = _integrator_launches(K, "io", sim.steps_run - steps0, 1)
     t1 = sim.timestep
     for name, period in (("Table", IO_TABLE_PERIOD), ("Trajectory", IO_FRAME_PERIOD),
                          ("GSD", IO_FRAME_PERIOD)):
@@ -2081,8 +2348,8 @@ def run_io(az, K, card, sim, workdir):
     n = sim.state.N_particles
     print(f"[io] N={n} from step {t0}: {IO_STEPS} steps with a Table every {IO_TABLE_PERIOD} "
           f"steps and a Trajectory and a GSD every {IO_FRAME_PERIOD}: {launched} K1 launches for "
-          f"{evals} force evaluations + {table['fires']} Table energy reads; {drawn} K4 "
-          f"launches; aztraj backend: "
+          f"{evals} force evaluations + {table['fires']} Table energy reads; integrator "
+          f"kernel launches {integrated}; aztraj backend: "
           f"{'native C++ (g++)' if az.io.native_available() else 'pure Python'}", flush=True)
     print(f"[io] fires (host ms per fire, synchronising calls per fire): " + "; ".join(
         f"{k} {s['fires']} ({s['ms'] / s['fires']:.2f} ms, {s['syncs'] / s['fires']:.1f} syncs)"
@@ -2150,7 +2417,7 @@ def run_io(az, K, card, sim, workdir):
           f"{extra / max(n_fires, 1):.2f} ms a fire from the step time; host ms per fire: " +
           ", ".join(f"{k} {s['ms'] / max(s['fires'], 1):.2f}" for k, s in fires.stats.items()),
           flush=True)
-    return {"cell_pair_force[PerturbedLennardJones]": launched, "particle_bits": drawn}
+    return {"cell_pair_force[PerturbedLennardJones]": launched, **integrated}
 
 
 def run_examples(az, K, card, workdir, device="cuda"):
@@ -2226,9 +2493,9 @@ def run_spatial(az, K, card):
     SPATIAL_STRETCH steps (across the tune at step 200) and SPATIAL_STRETCH
     more; after each stretch the decomposed layouts must equal the whole
     one bit for bit, every force evaluation of every run must have
-    launched K1 and every step K4 (Langevin's draw, one for the whole slot
+    launched K1 and every step K6, K7 and K8 once (one for the whole slot
     axis), the counts set to 0 just before each run's stretch and read just
-    after. Returns the K1 and K4 launches."""
+    after. Returns the K1 and K6-K8 launches."""
     from azplugins_tpu_torch.parallel import make_mesh
 
     runs = {1: build_headline(az, "cuda")[0]}
@@ -2236,11 +2503,11 @@ def run_spatial(az, K, card):
         sim, _ = build_headline(az, "cuda")
         sim.enable_spatial_decomposition(make_mesh(n, device="cuda"))
         runs[n] = sim
-    launched, drawn = 0, 0
+    launched, integrated = 0, {}
     ms = {n: [] for n in runs}
     for stretch in (1, 2):
         for n, sim in runs.items():
-            evals0 = sim.force_evaluations
+            evals0, steps0 = sim.force_evaluations, sim.steps_run
             _reset_counts(K)
             ms[n].append(_timed_run(sim, SPATIAL_STRETCH)[0])
             evals = sim.force_evaluations - evals0
@@ -2249,8 +2516,9 @@ def run_spatial(az, K, card):
                 raise AssertionError(f"spatial: n={n}: {K.PK.launches} K1 launches for {evals} "
                                      f"force evaluations in {SPATIAL_STRETCH} steps")
             launched += k1
-            drawn += _draws(K, f"spatial: n={n}",
-                            {"particle_bits": SPATIAL_STRETCH})["particle_bits"]
+            for name, k in _integrator_launches(K, f"spatial: n={n}", sim.steps_run - steps0,
+                                                1).items():
+                integrated[name] = integrated.get(name, 0) + k
         for n in SPATIAL_MESHES:
             _same_dense(f"n={n} after {runs[n].timestep} steps", runs[n], runs[1])
     spec = runs[1]._grid_spec
@@ -2266,8 +2534,8 @@ def run_spatial(az, K, card):
     print(f"[spatial] n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit for "
           f"bit (positions, velocities, images, tags in slot order) after {SPATIAL_STRETCH} "
           f"and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, one a force evaluation; "
-          f"{drawn} K4 launches (at least one a step)", flush=True)
-    return {"cell_pair_force[PerturbedLennardJones]": launched, "particle_bits": drawn}
+          f"integrator kernel launches {integrated} (one of each a step)", flush=True)
+    return {"cell_pair_force[PerturbedLennardJones]": launched, **integrated}
 
 
 def _shard_windows(dense, spec, n):
@@ -2329,17 +2597,19 @@ def run_spatial_sharded(az, D, K, card, record):
     K1), run in turns for SPATIAL_STRETCH steps (across the tune) and
     SPATIAL_STRETCH more. After each stretch the gathered layout must equal
     the whole one bit for bit, K1 must have launched n times a force
-    evaluation and K4 (Langevin's draw) n times a step (the counts set to 0
-    just before each stretch and read just after). Then, on the runs' state: the windowed K1 (force) and K1' (PLJ
-    and LJ, want="all") against the whole grid's launch on each shard's own
-    slots, bit for bit, and the windowed K2 and K3 on the DPD fluid's and
+    evaluation, K7 and K8 (Langevin's step with its draw) n times a step
+    and K6 n + 1 times (a shard's top two each, the verdict once) (the
+    counts set to 0 just before each stretch and read just after). Then,
+    on the runs' state: the windowed K1 (force) and K1' (PLJ and LJ,
+    want="all") against the whole grid's launch on each shard's own slots,
+    bit for bit, and the windowed K2 and K3 on the DPD fluid's and
     the patchy colloids' first states, and those of shards 0 and n/2
     against the plain windowed stencil on the card at the [kernel] bar; the
     windowed K1's time a call per shard against the whole grid's and the
     plain windowed stencil's, and its bound at the window's bytes; the halo
     bytes and copies a force evaluation; device operations, device-busy ms
     (over PROFILE_STEPS steps, the [profile] window) and ms/step at each n;
-    the phase's wall time. Returns the K1 and K4 launches."""
+    the phase's wall time. Returns the K1 and K6-K8 launches."""
     from azplugins_tpu_torch.parallel import make_mesh
     from azplugins_tpu_torch.parallel.spatial import halo_runs
 
@@ -2351,11 +2621,11 @@ def run_spatial_sharded(az, D, K, card, record):
         sim, _ = build_headline(az, "cuda")
         sim.enable_spatial_decomposition(make_mesh(n, device="cuda", sharded=True))
         runs[n] = sim
-    launched, drawn, stretch_s = 0, 0, 0.0
+    launched, integrated, stretch_s = 0, {}, 0.0
     ms = {n: [] for n in runs}
     for stretch in (1, 2):
         for n, sim in runs.items():
-            evals0 = sim.force_evaluations
+            evals0, steps0 = sim.force_evaluations, sim.steps_run
             _reset_counts(K)
             ms_step, host_s = _timed_run(sim, SPATIAL_STRETCH)
             ms[n].append(ms_step)
@@ -2368,8 +2638,9 @@ def run_spatial_sharded(az, D, K, card, record):
             if n > 1 and not isinstance(sim._dense, tuple):
                 raise AssertionError(f"spatial: {n} shards: the layout is not sharded")
             launched += k1
-            drawn += _draws(K, f"spatial: {n} shards",
-                            {"particle_bits": n * SPATIAL_STRETCH})["particle_bits"]
+            for name, k in _integrator_launches(K, f"spatial: {n} shards",
+                                                sim.steps_run - steps0, 1, shards=n).items():
+                integrated[name] = integrated.get(name, 0) + k
         whole = runs[1]
         for n in SPATIAL_MESHES:
             sim = runs[n]
@@ -2496,10 +2767,11 @@ def run_spatial_sharded(az, D, K, card, record):
     print(f"[spatial] shards n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit "
           f"for bit (positions, velocities, images, tags, gathered in slot order; builds, grid) "
           f"after {SPATIAL_STRETCH} and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, "
-          f"n a force evaluation; {drawn} K4 launches, at least n a step; the phase took "
+          f"n a force evaluation; integrator kernel launches {integrated} (K7, K8 n a step, "
+          f"K6 n + 1); the phase took "
           f"{time.perf_counter() - phase_t0:.1f} s, of which {stretch_s:.1f} s the stretches",
           flush=True)
-    return {"cell_pair_force[PerturbedLennardJones]": launched, "particle_bits": drawn}
+    return {"cell_pair_force[PerturbedLennardJones]": launched, **integrated}
 
 
 def _same_sharded(what, got, want):
@@ -2584,10 +2856,11 @@ def run_spatial_ops(az, D, K, card, record):
     (the evaporated count too, and above 0; the bond lengths finite); the
     colloids on shards hold their path's limits, and one joint collision
     on shards agrees with the whole one within SPATIAL_OPS_COLLISION_BAR of
-    max|v|. K4 must have launched once a step a shard (the droplet and the
-    polymer) and once an evaporator fire a shard, K5 once a collision (the
-    colloids). Prints ms/step, device operations, busy ms and synchronising
-    calls a step (PROFILE_STEPS steps, as [spatial]), the updaters phase's
+    max|v|. K7 and K8 must have launched once a step a shard, K6 once a
+    step a shard and once for the verdict, K4 once an evaporator fire a
+    shard (the droplet), K5 once a collision (the colloids). Prints
+    ms/step, device operations, busy ms and synchronising calls a step
+    (PROFILE_STEPS steps, as [spatial]), the updaters phase's
     operations (droplet), the position gather's ms (polymer), the joint
     collision's ms and operations (colloid), the windowed kernel on shards
     0 and n/2 against the plain windowed stencil with its bound, and the
@@ -2616,7 +2889,7 @@ def run_spatial_ops(az, D, K, card, record):
         name = f"cell_pair_force[{pot}]"
         for turn in ((1, 2) if label != "colloid" else (1,)):
             for key, (sim, _) in runs.items():
-                evals0 = sim.force_evaluations
+                evals0, steps0 = sim.force_evaluations, sim.steps_run
                 _reset_counts(K)
                 ms[key].append(_timed_run(sim, stretch)[0])
                 evals = (sim.force_evaluations - evals0) // len(sim.operations.integrator.forces)
@@ -2626,17 +2899,20 @@ def run_spatial_ops(az, D, K, card, record):
                     raise AssertionError(f"spatial_ops: {label} {key}: {K.PK.launches} kernel "
                                          f"launches for {evals} force evaluations")
                 launched[name] = launched.get(name, 0) + k
-                # K4: Langevin once a step a shard, the evaporator once a
-                # fire a shard; K5: the joint collision's axes
+                # K6-K8 every step, once a shard; K4: the evaporator once
+                # a fire a shard; K5: the joint collision's axes
                 m = n if key == "shards" else 1
                 if label == "colloid":
                     least = {"jax_normal": stretch // sim.mpcd_dynamics.period}
                 elif label == "droplet":
-                    least = {"particle_bits": m * (stretch + stretch // DROPLET_PERIOD)}
+                    least = {"particle_bits": m * (stretch // DROPLET_PERIOD)}
                 else:
-                    least = {"particle_bits": m * stretch}
-                for kernel, drawn in _draws(K, f"spatial_ops: {label} {key}", least).items():
-                    launched[kernel] = launched.get(kernel, 0) + drawn
+                    least = {}
+                drawn = _draws(K, f"spatial_ops: {label} {key}", least)
+                drawn.update(_integrator_launches(K, f"spatial_ops: {label} {key}",
+                                                  sim.steps_run - steps0, 1, shards=m))
+                for kernel, k in drawn.items():
+                    launched[kernel] = launched.get(kernel, 0) + k
             whole, sharded = runs["whole"][0], runs["shards"][0]
             if not isinstance(sharded._dense, tuple) or len(sharded._dense) != n:
                 raise AssertionError(f"spatial_ops: {label}: the layout is not in {n} shards")
@@ -2801,7 +3077,12 @@ def run_profile(sim, label, steps, card, collisions=0):
     window and ``mpcd_joint_collision`` ``collisions`` times (at least, and
     at least once a build, when a replay or a capacity growth fell in the
     window). Prints the device operations and device-busy ms a step under
-    each phase."""
+    each phase, and ms/step (``steps`` steps timed just before, unprofiled)
+    over the operations a step: the host's us an operation (not traced: the
+    host work between launches is not split). On the headline each of
+    ``integrate_step1``, ``verlet_drift_check`` and ``integrate_step2`` must
+    issue at most 2 device operations a step (K7, K6, K8)."""
+    ms_step = _timed_run(sim, steps)[0]
     evals0, builds0, replays0 = sim.force_evaluations, sim.n_builds, sim.viol_replays
     spec0 = sim._grid_spec
     n_forces = len(sim.operations.integrator.forces)
@@ -2826,10 +3107,18 @@ def run_profile(sim, label, steps, card, collisions=0):
                              f"({replays} violation replays)")
     split = "; ".join(f"{p} {ops[p] / steps:.1f} ops {busy[p] / 1000.0 / steps:.4f} ms"
                       for p in (*PHASES, "outside") if ops[p] or ranges[p])
+    per_step = sum(ops.values()) / steps
+    if label == "headline":
+        over = {p: ops[p] / steps for p in ("integrate_step1", "verlet_drift_check",
+                                             "integrate_step2") if ops[p] > 2 * steps}
+        if over:
+            raise AssertionError(f"profile: headline: device operations a step {over}, at most 2 "
+                                 f"each expected")
     print(f"[profile] {label}: {steps} steps under sim.profile on {card}: ranges "
           f"{dict(ranges)}; device operations and device-busy ms a step by phase: {split}; "
-          f"in all {sum(ops.values()) / steps:.1f} ops {sum(busy.values()) / 1000.0 / steps:.4f} "
-          f"ms", flush=True)
+          f"in all {per_step:.1f} ops {sum(busy.values()) / 1000.0 / steps:.4f} ms; "
+          f"{ms_step:.4f} ms/step just before (unprofiled): {1000.0 * ms_step / per_step:.1f} "
+          f"host us an operation (not traced)", flush=True)
 
 
 def _build_report(cuda_build, sources):
@@ -2854,10 +3143,11 @@ def main() -> int:
     from azplugins_tpu_torch.ops import cuda_build
     from azplugins_tpu_torch.ops import dense as D
     from azplugins_tpu_torch.ops import dpd_kernel as DK
+    from azplugins_tpu_torch.ops import integrate_kernel as IK
     from azplugins_tpu_torch.ops import pair_kernel as PK
     from azplugins_tpu_torch.ops import rng_kernel as RK
 
-    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK, RK=RK)
+    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK, RK=RK, IK=IK)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
@@ -2865,9 +3155,9 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE, RK._SOURCE)
+    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE, RK._SOURCE, IK._SOURCE)
     cuda_build.load_libraries(*sources)
-    for k in (PK, DK, AK, RK):
+    for k in (PK, DK, AK, RK, IK):
         k._library()
     print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
           flush=True)
@@ -2897,10 +3187,13 @@ def main() -> int:
     # the droplet's before and after its tune
     plj = {"cell_pair_force[PerturbedLennardJones]":
            lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}
-    # Langevin draws once a step (twice with rotation); the droplet's
-    # evaporator once a fire
+    # Langevin draws inside K8 (and K9 with rotation), so K4 launches no
+    # time a step: thermalize once a setup, the droplet's evaporator once a
+    # fire
+    integrate_timing: dict = {}
     headline = count(run_path(az, D, K, card, record, "headline", build_headline, 2000, 1000,
-                              plj, {"particle_bits": 1000}, caps=(48, 72)))
+                              plj, {"particle_bits": 0}, caps=(48, 72)))
+    check_integrate(az, D, K, headline, "headline", integrate_timing, record)
     run_profile(headline, "headline", PROFILE_STEPS, card)
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_io_") as workdir:
         count((run_io(az, K, card, headline, Path(workdir)), None))
@@ -2917,17 +3210,20 @@ def main() -> int:
     count(run_path(az, D, K, card, record, "polymer", build_polymer, 10000, 1000,
                    {"cell_pair_force[ExpandedYukawa]":
                     lambda: PK.launches_by_potential.get("ExpandedYukawa", 0)},
-                   {"particle_bits": 1000}, extra_check=_bond_lengths))
-    count(run_path(az, D, K, card, record, "patchy", build_patchy, PATCHY_WARM, 1000,
-                   {"cell_aniso_force": lambda: AK.launches}, {"particle_bits": 2000},
-                   extra_check=_unit_quaternions,
-                   kT=0.3, kT_band=PATCHY_KT_BAND, caps=(16, 32)))
+                   {"particle_bits": 0}, extra_check=_bond_lengths))
+    patchy = count(run_path(az, D, K, card, record, "patchy", build_patchy, PATCHY_WARM, 1000,
+                            {"cell_aniso_force": lambda: AK.launches}, {"particle_bits": 0},
+                            extra_check=_unit_quaternions,
+                            kT=0.3, kT_band=PATCHY_KT_BAND, caps=(16, 32)))
+    check_integrate(az, D, K, patchy, "patchy", integrate_timing, record)
+    del patchy
     # the droplet's lab-frame temperature contains the flow: its own check
     # reads the evaporated particles' temperature relative to it
     droplet = count(run_path(az, D, K, card, record, "droplet", build_droplet, 2000, 1000, plj,
-                             {"particle_bits": 1000 + 1000 // DROPLET_PERIOD},
+                             {"particle_bits": 1000 // DROPLET_PERIOD},
                              extra_check=_droplet_check, kT=None, caps="tune"))
     time_pair_on_state(az, D, PK, droplet, droplet.operations.integrator.forces[0], "droplet")
+    check_integrate(az, D, K, droplet, "droplet", integrate_timing, record)
     del droplet
     for pot, n in run_potential_sweep(az, K).items():
         launches[f"cell_pair_force[{pot}]"] = n
@@ -2964,6 +3260,18 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name], "max_abs_err": rng_err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
+        })
+    # the integrator and the drift check: timed at the headline's slots (K6-K8)
+    # and the patchy colloids' (K9); no PyTorch call computes a masked Verlet
+    # half step, a top-two drift criterion or a NO_SQUISH rotation
+    for name, timed in (("drift_check", "drift_check"), ("step1", "step1"), ("step2", "step2"),
+                        ("no_squish", "no_squish")):
+        ms, plain_ms, (bound_ms, bound_by) = integrate_timing[timed]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"azplugins_tpu_torch/csrc/{IK._SOURCE}",
+            "replaces": INTEGRATE_REPLACES[name], "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
         })
     print(f"[time] chip_smoke.py took {time.perf_counter() - t_start:.1f} s, builds included",
           flush=True)

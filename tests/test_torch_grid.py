@@ -170,5 +170,6 @@ def test_needs_rebin_matches(buffer):
             i, j = np.flatnonzero(live)[:2]
             d[i] = d[j] = np.float32([0.22, 0.1, 0.0])
         r = RD.needs_rebin(rd.replace(position=rd.position + jnp.asarray(d)), rm, rspec)
-        p = PD.needs_rebin(pd.replace(position=pd.position + torch.as_tensor(d)), pm, pspec)
+        p = PD.needs_rebin(pd.replace(position=pd.position + torch.as_tensor(d)), pm, pspec,
+                           torch.tensor(False))
         assert bool(p) == bool(r)

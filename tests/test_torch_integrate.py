@@ -1,0 +1,211 @@
+"""The integrator and the Verlet drift check: dispatch by device, and the
+plain versions against the JAX package.
+
+On CUDA tensors ``Method.step1`` / ``step2`` launch K7-K9 and
+``ops/dense.py``'s drift check K6 (``ops/integrate_kernel.py``); on CPU
+tensors they run their plain versions, which launch nothing; a ``meta``
+tensor raises. The plain versions are held here to the reference on the
+same numpy inputs (``torch_integrate_cases.py``: a slot layout with empty
+slots, two types and frozen axes): the drift check's verdict exactly (a
+NaN drift, ties at the maximum, every slot empty, the violation flag
+ORed in), one step1 + step2 of every method case with rotation at the
+bars of ``test_torch_simulation.py``'s one-step test (positions within
+2e-6; velocities, accelerations and the rotational fields within 2e-5 of
+their largest value: XLA may fuse a product into a multiply-add). The
+kernels are held to these plain versions on the card bitwise
+(``test_torch_kernels.py``).
+"""
+
+import types
+
+import numpy as np
+import pytest
+
+pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import torch_integrate_cases as IC  # noqa: E402
+import torch_integrate_reference as IREF  # noqa: E402
+
+import azplugins_tpu as ref  # noqa: E402
+import azplugins_tpu_torch as port  # noqa: E402
+from azplugins_tpu.ops import dense as RD  # noqa: E402
+from azplugins_tpu_torch.ops import dense as PD  # noqa: E402
+from azplugins_tpu_torch.ops import integrate_kernel as IK  # noqa: E402
+
+torch.set_num_threads(1)
+
+N = 1001
+FIELDS = ("position", "velocity", "acceleration", "orientation", "angmom", "net_torque")
+
+
+def _port_state(arrays, device="cpu"):
+    return IC.state_of(port, arrays, lambda a: torch.as_tensor(a).to(device))
+
+
+def _ref_state(arrays):
+    return IC.state_of(ref, arrays, jnp.asarray)
+
+
+# -- dispatch -----------------------------------------------------------------
+@pytest.mark.parametrize("rotational", [False, True])
+@pytest.mark.parametrize("case", IC.CASES)
+def test_cpu_steps_take_the_plain_versions(case, rotational):
+    state = _port_state(IC.slot_arrays(N, 1))
+    m = IC.attached(IC.methods(port, case), rotational)
+    before = (IK.launches, dict(IK.launches_by_kernel))
+    for step in ("step1", "step2"):
+        got = getattr(m, step)(state, 0.005, 77, 9)
+        want = getattr(m, f"_{step}_plain")(state, 0.005, 77, 9)
+        for k in FIELDS:
+            assert torch.equal(getattr(got, k).view(torch.int32),
+                               getattr(want, k).view(torch.int32)), (step, k)
+    assert (IK.launches, IK.launches_by_kernel) == before
+
+
+def test_cpu_drift_check_takes_the_plain_version():
+    a = IC.slot_arrays(N, 2)
+    dense, meta = _drift_layout(a)
+    before = IK.launches
+    spec = types.SimpleNamespace(buffer=0.1)
+    got = PD.needs_rebin(dense, meta, spec, torch.tensor(False))
+    assert bool(got) == bool(PD._needs_rebin_plain(dense, meta, spec))
+    tops = PD.drift_top_two(dense, meta)
+    assert torch.equal(tops, PD._drift_top_two_plain(dense, meta))
+    assert bool(PD.needs_rebin_of(tops, spec, torch.tensor(False))) == bool(got)
+    assert IK.launches == before
+
+
+def test_meta_tensors_raise():
+    a = IC.slot_arrays(64, 3)
+    state = _port_state(a, "meta")
+    for case in ("nve", "langevin"):
+        m = IC.attached(IC.methods(port, case), True)
+        for step in (m.step1, m.step2):
+            with pytest.raises(ValueError, match="meta"):
+                step(state, 0.005, 1, 1)
+    dense, meta = _drift_layout(a, "meta")
+    with pytest.raises(ValueError, match="meta"):
+        PD.needs_rebin(dense, meta, types.SimpleNamespace(buffer=0.1), torch.tensor(False))
+    with pytest.raises(ValueError, match="meta"):
+        PD.drift_top_two(dense, meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        IK.step1(state.tag, None, state.position, state.velocity, state.acceleration, 0.005)
+
+
+# -- the drift check against the reference ------------------------------------
+def _drift_layout(a, device="cpu"):
+    pos, refp, tag = (torch.as_tensor(a[k]).to(device) for k in
+                      ("position", "ref_position", "tag"))
+    return (types.SimpleNamespace(position=pos, tag=tag, device=pos.device),
+            types.SimpleNamespace(ref_position=refp))
+
+
+@pytest.mark.parametrize("viol", [False, True])
+@pytest.mark.parametrize("buffer", [0.05, 0.5, 0.7])
+@pytest.mark.parametrize("kind", IC.DRIFT_KINDS)
+def test_plain_drift_check_matches_reference(kind, buffer, viol):
+    a = IC.drift_arrays(kind, N, 5)
+    dense, meta = _drift_layout(a)
+    rdense = types.SimpleNamespace(position=jnp.asarray(a["position"]),
+                                   tag=jnp.asarray(a["tag"]))
+    rmeta = types.SimpleNamespace(ref_position=jnp.asarray(a["ref_position"]))
+    spec = types.SimpleNamespace(buffer=buffer)
+    want = bool(RD.needs_rebin(rdense, rmeta, spec))
+    got = PD.needs_rebin(dense, meta, spec, torch.tensor(viol))
+    assert got.dtype == torch.bool and bool(got) == (viol or want)
+    if kind == "nan":
+        assert not want
+    if kind == "tie":  # sqrt(m1) + sqrt(m2) = 2 |(0.3, 0.1, 0)| ~ 0.632
+        assert want == (buffer < 0.63)
+    if kind == "single":  # the second drift is 0
+        assert want == (buffer < 0.31)
+    # the shards' route: each quarter's top two, then the combine
+    tops = []
+    for c in np.array_split(np.arange(N), 4):
+        c = torch.as_tensor(c)
+        tops.append(PD.drift_top_two(
+            types.SimpleNamespace(position=dense.position[c], tag=dense.tag[c],
+                                  device=dense.device),
+            types.SimpleNamespace(ref_position=meta.ref_position[c])))
+    assert bool(PD.needs_rebin_of(torch.cat(tops), spec, torch.tensor(viol))) == (viol or want)
+
+
+def test_plain_top_two_counts_ties_and_empty_slots():
+    v = torch.tensor([0.0, 3.0, 1.0, 3.0])
+    assert PD._top_two(v)[1].item() == 3.0
+    v = torch.tensor([0.0, 3.0, 1.0, 2.0])
+    assert PD._top_two(v)[1].item() == 2.0
+    m1, m2 = PD._top_two(torch.zeros(5))
+    assert m1.item() == 0.0 and m2.item() == 0.0
+
+
+# -- one step against the reference ------------------------------------------
+@pytest.mark.parametrize("rotational", [False, True])
+@pytest.mark.parametrize("case", IC.CASES)
+def test_plain_step_matches_reference(case, rotational):
+    """step1, then step2 (fresh forces and torques between them), from the
+    same numpy inputs in both packages; masked slots keep their bits."""
+    out = {}
+    for az, state_of, host in ((ref, _ref_state, np.asarray),
+                               (port, _port_state, lambda t: t.numpy())):
+        s = IREF.one_step(az, case, rotational, state_of)
+        out[az] = {k: host(getattr(s, k)) for k in FIELDS}
+    for k in FIELDS:
+        IREF.assert_close(out[port][k], out[ref][k], k, f"{case} {k}")
+    a = IC.slot_arrays(IREF.N, IREF.STATE_SEED)
+    acts = a["tag"] >= 0
+    if case == "type_b":
+        acts &= a["typeid"] == 1
+    for k in ("position", "velocity", "orientation"):
+        assert np.array_equal(out[port][k][~acts].view(np.int32), a[k][~acts].view(np.int32)), k
+    if not rotational:
+        for k in ("orientation", "angmom"):
+            assert np.array_equal(out[port][k].view(np.int32), a[k].view(np.int32)), k
+
+
+def test_integrate_reference_file_is_what_the_reference_computes():
+    """tests/torch_integrate_reference.npz, which holds the port's
+    integrator kernels to the reference on a GPU machine without JAX
+    (tests/test_torch_kernels.py), is what the JAX package computes now,
+    bit for bit."""
+    kept, computed = IREF.load(), IREF.compute_reference()
+    assert sorted(kept) == sorted(computed)
+    for k in kept:
+        assert kept[k].dtype == computed[k].dtype and kept[k].shape == computed[k].shape, k
+        np.testing.assert_array_equal(kept[k], computed[k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", IC.CASES)
+def test_methods_never_write_the_state_they_were_given(case):
+    state = _port_state(IC.slot_arrays(N, 4))
+    kept = {k: getattr(state, k).clone() for k in FIELDS}
+    m = IC.attached(IC.methods(port, case), True)
+    s1 = m.step1(state, 0.005, 5, 1)
+    s2 = m.step2(s1, 0.005, 5, 1)
+    for k, v in kept.items():
+        assert torch.equal(getattr(state, k), v), k
+    assert s1.position.data_ptr() != state.position.data_ptr()
+    assert s2.velocity.data_ptr() != s1.velocity.data_ptr()
+
+
+def test_simulation_counts_the_steps_its_loop_runs():
+    """``Simulation.steps_run`` counts the loop's steps (what K7 and K8
+    launch once a method a step on the card), not the force evaluations
+    (the run's preparation evaluates the forces once more)."""
+    snap = port.Snapshot(N=64)
+    snap.configuration.box = [6.0, 6.0, 6.0, 0, 0, 0]
+    snap.particles.types = ["A"]
+    x = (np.arange(4) + 0.5) * 1.5 - 3.0
+    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    sim = port.Simulation(device="cpu", seed=3)
+    sim.create_state_from_snapshot(snap)
+    lj = port.pair.LJ(nlist=port.md.nlist.Cell(buffer=0.4), default_r_cut=2.5)
+    lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0)
+    sim.operations.integrator = port.md.Integrator(
+        dt=0.005, methods=[port.md.methods.Langevin(kT=1.0)], forces=[lj])
+    sim.run(7)
+    sim.run(5)
+    assert sim.viol_replays == 0 and sim.steps_run == 12
+    assert sim.force_evaluations == 13

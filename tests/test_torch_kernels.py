@@ -33,6 +33,7 @@ CUDA's log1pf against PyTorch's CUDA log1p.
 import importlib
 import re
 import shutil
+import types
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +47,7 @@ from azplugins_tpu_torch.ops import aniso_kernel as AK  # noqa: E402
 from azplugins_tpu_torch.ops import cuda_build  # noqa: E402
 from azplugins_tpu_torch.ops import dense as D  # noqa: E402
 from azplugins_tpu_torch.ops import dpd_kernel as DK  # noqa: E402
+from azplugins_tpu_torch.ops import integrate_kernel as IK  # noqa: E402
 from azplugins_tpu_torch.ops import pair_kernel as PK  # noqa: E402
 from azplugins_tpu_torch.ops import rng_kernel as RK  # noqa: E402
 from azplugins_tpu_torch.ops.evaluators.aniso import ANISO_PAIR_POTENTIALS  # noqa: E402
@@ -417,8 +419,9 @@ def test_simulation_on_cuda_runs_every_force_through_the_kernel(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["Langevin", "BrownianFlow", "SRD with plates"])
 def test_simulation_on_cuda_draws_through_the_rng_kernels(cuda_device, method):
-    """Thermalize and the methods' noise draw through K4, an SRD collision
-    (with plates: the virtual fill and the axes) through K5."""
+    """Thermalize and Brownian's noise draw through K4, Langevin's inside
+    K8 (csrc/integrate.cu), an SRD collision (with plates: the virtual fill
+    and the axes) through K5."""
     rng = np.random.default_rng(4)
     n, L = 8, 8.0
     snap = az.Snapshot(N=n**3, mpcd_N=4096 if method.startswith("SRD") else 0)
@@ -439,11 +442,15 @@ def test_simulation_on_cuda_draws_through_the_rng_kernels(cuda_device, method):
         sim.mpcd_dynamics = az.mpcd.SRD(dt=0.02, period=1, cell_size=1.0, kT=1.0,
                                         plates=("z", L))
     before = dict(RK.launches_by_kernel)
+    stepped = IK.launches_by_kernel.get("step2", 0)
     sim.state.thermalize_particle_momenta(kT=1.0)
     sim.run(10)
     drawn = {k: v - before.get(k, 0) for k, v in RK.launches_by_kernel.items()}
     if method.startswith("SRD"):
         assert drawn.get("jax_normal", 0) >= 2 * 10
+    elif method == "Langevin":
+        assert drawn.get("particle_bits", 0) == 1  # thermalize
+        assert IK.launches_by_kernel.get("step2", 0) - stepped >= 10
     else:
         assert drawn.get("particle_bits", 0) >= 1 + 10
     assert np.all(np.isfinite(sim.state.get_snapshot().particles.position))
@@ -1004,3 +1011,190 @@ def test_jax_normal_is_the_references_within_bar(draw_device, reference_draws, c
     print(f"jax_normal {name} {shape} on {draw_device.type}: max {int(ulps.max())} ulp from "
           f"jax.random.normal, {int((ulps > 0).sum())} of {ulps.size} sampled values differ")
     assert ulps.max() <= REFERENCE_NORMAL_ULP
+
+
+# -- the integrator and the drift check (csrc/integrate.cu) -------------------
+# K6-K9 against their plain versions on the card, bitwise: the same float32
+# operations, each rounded on its own, in the same order (K9's sums of 4 in
+# the card's torch.sum order, its cos and sin the same libm), the same
+# draws. Shapes: the headline's 82,944 slots and one that is not a multiple
+# of the block.
+import torch_integrate_cases as IC  # noqa: E402
+
+INTEGRATE_SIZES = [82944, 1001]
+STATE_FIELDS = ("position", "velocity", "acceleration", "orientation", "angmom", "net_torque")
+
+
+def _slot_state(n, seed, device):
+    arrays = IC.slot_arrays(n, seed)
+    return IC.state_of(az, arrays, lambda a: torch.as_tensor(a, device=device)), arrays
+
+
+def _same_bits(got, want, what):
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+        f"{what}: {int((got.view(torch.int32) != want.view(torch.int32)).sum())} values differ")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", INTEGRATE_SIZES)
+@pytest.mark.parametrize("rotational", [False, True])
+@pytest.mark.parametrize("case", IC.CASES)
+def test_step_kernels_bitwise_plain(cuda_device, case, rotational, n):
+    """step1 (K7, K9 mode 0) and step2 (K8, K9 mode 1 or 2) against the
+    plain versions on the same state, every field bit for bit; the state
+    given is never written."""
+    state, _ = _slot_state(n, n + len(case), cuda_device)
+    kept = {k: getattr(state, k).clone() for k in STATE_FIELDS}
+    m = IC.attached(IC.methods(az, case), rotational, cuda_device)
+    for step, dt, t in (("step1", 0.005, 777), ("step2", 0.005, 2**32 + 9), ("step2", 0.0, 3)):
+        before = dict(IK.launches_by_kernel)
+        got = getattr(m, step)(state, dt, t, 12345)
+        want = getattr(m, f"_{step}_plain")(state, dt, t, 12345)
+        for k in ("step1", "step2", "no_squish"):
+            n_want = (k == step) + (k == "no_squish" and rotational)
+            assert IK.launches_by_kernel.get(k, 0) - before.get(k, 0) == n_want, k
+        for k in STATE_FIELDS:
+            _same_bits(getattr(got, k), getattr(want, k), f"{case} {step} dt={dt} {k}")
+    for k, v in kept.items():
+        assert torch.equal(getattr(state, k), v), f"{k} was written"
+
+
+def _drift_inputs(n, seed, kind, device):
+    a = IC.slot_arrays(n, seed)
+    pos, ref, tag = a["position"], a["ref_position"], a["tag"]
+    live = np.flatnonzero(tag >= 0)
+    if kind == "tie":
+        pos[live[:2]] = ref[live[:2]] + np.float32([0.3, 0.1, 0.0])
+    elif kind == "nan":
+        pos[live[len(live) // 2], 1] = np.nan
+    elif kind == "empty":
+        tag[:] = -1
+    elif kind == "exact":  # the drift equals the buffer's half on two slots
+        pos[:] = ref
+        pos[live[:2], 0] = ref[live[:2], 0] + np.float32(0.25)
+    return [torch.as_tensor(x, device=device) for x in (pos, ref, tag)]
+
+
+DRIFT_KINDS = ("random", "tie", "nan", "empty", "exact")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", INTEGRATE_SIZES + [1])
+@pytest.mark.parametrize("kind", DRIFT_KINDS)
+def test_drift_check_kernel_bitwise_plain(cuda_device, kind, n):
+    """K6 on a whole layout (the verdict ORed into viol) and on 4 shards
+    (each shard's top two, then the combine) against the plain versions."""
+    pos, ref, tag = _drift_inputs(n, n, kind, cuda_device)
+    dense = types.SimpleNamespace(position=pos, tag=tag, device=pos.device)
+    meta = types.SimpleNamespace(ref_position=ref)
+    for buffer in (0.5, 0.05, 0.6):
+        spec = types.SimpleNamespace(buffer=buffer)
+        want = D._needs_rebin_plain(dense, meta, spec)
+        for viol0 in (False, True):
+            viol = torch.tensor(viol0, device=cuda_device)
+            before = IK.launches_by_kernel.get("drift_check", 0)
+            got = D.needs_rebin(dense, meta, spec, viol)
+            assert IK.launches_by_kernel["drift_check"] == before + 1
+            assert got.dtype == torch.bool and bool(got) == (viol0 or bool(want))
+            assert not bool(viol) or viol0
+        cuts = np.array_split(np.arange(n), 4) if n >= 4 else [np.arange(n)]
+        tops, plain = [], []
+        for c in cuts:
+            c = torch.as_tensor(c, device=cuda_device)
+            d = types.SimpleNamespace(position=pos[c], tag=tag[c], device=pos.device)
+            m = types.SimpleNamespace(ref_position=ref[c])
+            tops.append(D.drift_top_two(d, m))
+            plain.append(D._drift_top_two_plain(d, m))
+        got, want2 = torch.cat(tops), torch.cat(plain)
+        assert torch.equal(torch.isnan(got), torch.isnan(want2))
+        fin = ~torch.isnan(want2)
+        assert torch.equal(got[fin].view(torch.int32), want2[fin].view(torch.int32))
+        verdict = D.needs_rebin_of(got, spec, torch.tensor(False, device=cuda_device))
+        assert bool(verdict) == bool(D._needs_rebin_of_plain(want2, spec)) == bool(want)
+
+
+@pytest.mark.cuda
+def test_integrate_kernels_refuse_what_they_cannot_take(cuda_device):
+    state, _ = _slot_state(64, 0, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        IK.step1(state.tag, None, state.position.double(), state.velocity, state.acceleration,
+                 0.005)
+    with pytest.raises(ValueError, match="shape"):
+        IK.step1(state.tag[:10], None, state.position, state.velocity, state.acceleration,
+                 0.005)
+    with pytest.raises(ValueError, match="mode"):
+        IK.no_squish(2, state.tag, None, state.typeid, state.orientation, state.angmom,
+                     state.moment_inertia, state.net_torque, 0.005)
+    before = IK.launches
+    empty = torch.zeros((0, 3), device=cuda_device)
+    x, v = IK.step1(state.tag[:0], None, empty, empty, empty, 0.005)
+    assert x.shape == (0, 3) and IK.launches == before
+
+
+# -- the integrator and the drift check against the JAX package ---------------
+# tests/torch_integrate_reference.npz holds the reference's one step1 +
+# step2 of every method case and its drift verdicts on the numpy states of
+# torch_integrate_cases.py (made on the CPU by
+# tests/torch_integrate_reference.py; tests/test_torch_integrate.py checks
+# it is current), so K6-K9 are held to the reference on a GPU machine with
+# no JAX: the step at the one-step bars of test_torch_simulation.py, the
+# verdicts exactly. The CPU case holds the plain versions alike.
+import torch_integrate_reference as IREF  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def reference_integration():
+    return IREF.load()
+
+
+@pytest.mark.parametrize("rotational", [False, True])
+@pytest.mark.parametrize("case", IC.CASES)
+def test_step_is_the_references(draw_device, reference_integration, case, rotational):
+    """step1 + step2 through K7, K8 (and K9) on the card, the plain
+    versions on the CPU, against the reference's step on the same inputs;
+    a field the step does not write keeps its input's bits."""
+    before = dict(IK.launches_by_kernel)
+    s = IREF.one_step(az, case, rotational,
+                      lambda a: IC.state_of(az, a, lambda x: torch.as_tensor(x, device=draw_device)),
+                      draw_device)
+    card = int(draw_device.type == "cuda")
+    launched = {k: IK.launches_by_kernel.get(k, 0) - before.get(k, 0)
+                for k in ("step1", "step2", "no_squish")}
+    assert launched == {"step1": card, "step2": card, "no_squish": 2 * card * rotational}
+    for k in IREF.written(rotational):
+        IREF.assert_close(getattr(s, k).cpu().numpy(),
+                          reference_integration[IREF.key(case, rotational, k)], k,
+                          f"{case} rotational={rotational} {k} on {draw_device.type}")
+    if not rotational:
+        a = IC.slot_arrays(IREF.N, IREF.STATE_SEED)
+        for k in ("orientation", "angmom"):
+            assert np.array_equal(getattr(s, k).cpu().numpy().view(np.int32),
+                                  a[k].view(np.int32)), k
+
+
+@pytest.mark.parametrize("kind", IC.DRIFT_KINDS)
+def test_drift_check_is_the_references(draw_device, reference_integration, kind):
+    """K6 on the card, the plain version on the CPU: the reference's
+    verdict at each buffer, whole and from 4 shards' top twos, and the
+    violation flag ORed in."""
+    a = IC.drift_arrays(kind, IREF.N, IREF.DRIFT_SEED)
+    pos, ref, tag = (torch.as_tensor(a[k], device=draw_device)
+                     for k in ("position", "ref_position", "tag"))
+    dense = types.SimpleNamespace(position=pos, tag=tag, device=pos.device)
+    meta = types.SimpleNamespace(ref_position=ref)
+    cuts = [torch.as_tensor(c, device=draw_device) for c in np.array_split(np.arange(IREF.N), 4)]
+    want = reference_integration["drift"][IC.DRIFT_KINDS.index(kind)]
+    before = IK.launches_by_kernel.get("drift_check", 0)
+    for buffer, verdict in zip(IREF.BUFFERS, want):
+        spec = types.SimpleNamespace(buffer=buffer)
+        for viol in (False, True):
+            got = D.needs_rebin(dense, meta, spec, torch.tensor(viol, device=draw_device))
+            assert bool(got) == (viol or bool(verdict)), (buffer, viol)
+        tops = torch.cat([D.drift_top_two(
+            types.SimpleNamespace(position=pos[c], tag=tag[c], device=pos.device),
+            types.SimpleNamespace(ref_position=ref[c])) for c in cuts])
+        got = D.needs_rebin_of(tops, spec, torch.tensor(False, device=draw_device))
+        assert bool(got) == bool(verdict), (buffer, "4 shards")
+    card = int(draw_device.type == "cuda")
+    assert IK.launches_by_kernel.get("drift_check", 0) - before == card * len(IREF.BUFFERS) * 7
