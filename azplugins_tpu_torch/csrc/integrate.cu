@@ -12,10 +12,8 @@
 // slot's squared drift since the last rebuild (0 on empty slots), or a
 // row of values, reduced to its two largest with ties counted (the
 // largest twice when it occurs twice); NaN anywhere makes both NaN. The
-// last block to finish (a counter in global memory, reset by that block)
-// merges the blocks' pairs and writes them, or writes viol | (sqrt(m1) +
-// sqrt(max(m2, 0)) > buffer), which is false for a NaN drift as in the
-// plain version.
+// result is the two, or viol | (sqrt(m1) + sqrt(max(m2, 0)) > buffer),
+// which is false for a NaN drift as in the plain version.
 //
 // K7 az_step1 (Method.step1, md/methods.py; reference
 // azplugins_tpu/md/methods.py:68-77): v' = v + (dt/2) a, x' = x + dt v'.
@@ -52,21 +50,52 @@
 // falling); sum4 does the same. cosf and sinf are the accurate ones that
 // PyTorch's CUDA cos and sin call (nothing is built with fast math).
 //
-// What bounds them on an H100: the bytes. Each is one streaming pass over
-// a slot's fields, and reads a field only on the slots whose result needs
-// it: K6 the tag on every slot and the two positions (24 B) on an occupied
-// one; K7 52 B a slot and the acceleration (12 B) on a moving one; K8
-// (Langevin) 40 B a slot, the old acceleration (12 B) on a masked one and
-// force, mass and type (20 B) on a moving one; K9 in mode 0 68 B a slot
-// (tag, q and p in and out) and inertia and torque (24 B) on an acting
-// one. A slot does a few dozen float operations (K8 and K9 add two
-// Threefry hashes, K9 ten libm calls in mode 0): a few microseconds at the
-// paths' 2e4-1e5 slots, near a launch's own cost. What the design does
-// about it: one thread a slot reads each field once and writes each output
-// once, the mask, the gamma lookup, the keys and the noise stay in
-// registers, and K6 reduces in one launch (no second pass, no memset: the
-// last block resets the counter). The gain is the launches each kernel
-// replaces.
+// What bounds them on an H100: the bytes, then the latency. Each is one
+// streaming pass over a slot's fields and reads a field only on the slots
+// whose result needs it: K6 the tag on every slot and the two positions
+// (24 B) on an occupied one; K7 52 B a slot and the acceleration (12 B) on
+// a moving one; K8 (Langevin) 40 B a slot, the old acceleration (12 B) on
+// a masked one and force, mass and type (20 B) on a moving one; K9 in mode
+// 0 68 B a slot (tag, q and p in and out) and inertia and torque (24 B) on
+// an acting one. A slot does a few dozen float operations (K8 and K9 add
+// two Threefry hashes, K9 ten libm calls in mode 0). At the paths' 2e4-2e5
+// slots that is 1-4 us of bytes, so a launch's own cost and the round
+// trips to memory that follow one another in a thread are what is left.
+// What the designs do about it:
+//
+// - K6 and K8 issue every load of a slot before any use, unconditionally
+//   (an empty slot's positions are its far sentinel, memory the layout
+//   holds; a NaN there is selected away by the tag, never multiplied by a
+//   mask), so a thread waits for one round trip. Their [n, 3] fields are
+//   staged through shared memory by coalesced scalar loads (any 4-byte
+//   offset, a view x[1:] too) and read back a slot a thread; K8 writes its
+//   outputs back the same way.
+// - K6 takes one slot a thread (kDriftThreads a block: 324 blocks at the
+//   headline's 82,944 slots, every SM busy), a grid stride above
+//   kDriftMaxBlocks blocks. It reduces order-preserving integer keys of
+//   the drifts: a warp's top two is two redux.sync maxima and a ballot, a
+//   pair's merge integer max and min, exact in any order, so the plain
+//   version's bits. Each block writes its partial and takes a ticket (one
+//   acquire-release atomic) from the counter; the last ticket's warp
+//   merges the partials with 16-byte loads, writes the result and resets
+//   the counter: one launch, no memset, no second pass. (Merging a thread
+//   block cluster's blocks through distributed shared memory first, so
+//   that fewer blocks take a ticket, was measured no faster on an H100:
+//   the cluster's barrier costs what the fewer tickets save: PERF.md,
+//   kernel_variants.py's driftCluster8.)
+//   The VALUES path (needs_rebin_of: 2 values a shard) is its own launch
+//   of one warp, with no partials and no counter.
+// - K8 is instantiated for NVE, noiseless and noisy Langevin, with and
+//   without a flow field and a filter's sel: each body is straight-line
+//   but for the slot's own mask. Its draws need only the tag and the key,
+//   so the two Threefry hashes run while the other loads are in flight;
+//   the gamma table (at most kStep2MaxTypes types) is staged in shared
+//   memory, its first kStep2Threads types loaded with the slot's fields
+//   and the rest after the draw, so no global load waits on the type.
+//   kStep2Threads = 128 makes 648 blocks at the headline, 4.9 an SM, so
+//   the SMs' shares differ by one block at most (256 made 2.5 an SM).
+// - K7 and K9 take one thread a slot, the mask, the gamma lookup, the keys
+//   and the noise in registers.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,11 +105,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;          // K7 and K9: a slot a thread
 constexpr int kRounds = 20;            // the Langevin draws' Threefry rounds (K4's)
-constexpr int kDriftPerThread = 4;     // slots a thread reduces, at least
-constexpr int kDriftMaxBlocks = 1024;  // the partials' room (ops/integrate_kernel.py)
+constexpr int kDriftThreads = 256;     // K6: a slot a thread
+constexpr int kDriftMaxBlocks = 1024;  // K6's grid at most, and the partials' room
+                                       // (ops/integrate_kernel.py)
+constexpr int kStep2Threads = 128;     // K8: a slot a thread
+constexpr int kStep2MaxTypes = 8192;   // K8's gamma table in shared memory: 32 KiB at most
 constexpr float kEps = 1e-12f;         // md/rotation.py's _EPS as float32
+
+static_assert(kDriftMaxBlocks % 64 == 0, "a lane's loads of two partials each");
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -94,87 +128,160 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
 // ---------------------------------------------------------------------------
 // K6: the drift check
 // ---------------------------------------------------------------------------
+// K6 reduces order-preserving uint32 keys of its values, which are squared
+// drifts (+0 or more, never -0), NaN, or -inf for none: -inf -> 0, x >= +0
+// -> bits(x) + 1, NaN -> 0xFFFFFFFF. Two pairs merge by integer max and
+// min, a warp's by two redux.sync maxima and a ballot; ties are counted,
+// and a NaN anywhere gives (NaN, NaN) at the end, as in the plain version.
 struct Top2 {
-  float m1, m2;  // m1 >= m2, or both NaN
+  uint32_t k1, k2;  // the two largest keys, k1 >= k2 (0: none)
 };
 
-__device__ __forceinline__ Top2 top2_of(float v) {
-  return isnan(v) ? Top2{v, v} : Top2{v, -INFINITY};
+__device__ __forceinline__ uint32_t key_of(float x) {
+  return isnan(x) ? 0xFFFFFFFFu : x == -INFINITY ? 0u : __float_as_uint(x) + 1u;
+}
+
+__device__ __forceinline__ float value_of(uint32_t k) {
+  return k == 0xFFFFFFFFu ? __int_as_float(0x7FC00000) : k == 0u ? -INFINITY
+                                                                  : __uint_as_float(k - 1u);
 }
 
 // the two largest of two pairs' union, ties counted
 __device__ __forceinline__ Top2 merge(Top2 a, Top2 b) {
-  if (isnan(a.m1)) return a;
-  if (isnan(b.m1)) return b;
-  return Top2{fmaxf(a.m1, b.m1), fmaxf(fminf(a.m1, b.m1), fmaxf(a.m2, b.m2))};
+  return Top2{max(a.k1, b.k1), max(min(a.k1, b.k1), max(a.k2, b.k2))};
 }
 
-__device__ Top2 block_merge(Top2 t) {
-  __shared__ Top2 warps[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1) {
-    Top2 o{__shfl_down_sync(0xffffffffu, t.m1, off), __shfl_down_sync(0xffffffffu, t.m2, off)};
-    t = merge(t, o);
-  }
+// the two largest of the warp's pairs, in every lane
+__device__ __forceinline__ Top2 warp_top2(Top2 a) {
+  const uint32_t k1 = __reduce_max_sync(0xffffffffu, a.k1);
+  const bool holds = a.k1 == k1;
+  const uint32_t k2 = __reduce_max_sync(0xffffffffu, holds ? a.k2 : a.k1);
+  return Top2{k1, __popc(__ballot_sync(0xffffffffu, holds)) > 1 ? k1 : k2};
+}
+
+template <int B>
+__device__ Top2 block_top2(Top2 t) {
+  __shared__ Top2 warps[B / 32];
+  t = warp_top2(t);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warps[warp] = t;
   __syncthreads();
-  if (warp == 0) {
-    t = lane < kThreads / 32 ? warps[lane] : Top2{-INFINITY, -INFINITY};
-    for (int off = 16; off > 0; off >>= 1) {
-      Top2 o{__shfl_down_sync(0xffffffffu, t.m1, off), __shfl_down_sync(0xffffffffu, t.m2, off)};
-      t = merge(t, o);
-    }
-  }
-  return t;  // thread 0's is the block's
+  if (warp == 0) t = warp_top2(lane < B / 32 ? warps[lane] : Top2{0u, 0u});
+  return t;  // warp 0's is the block's
 }
 
-// VALUES: reduce `values` (n floats); else the squared drift of each slot.
-// Writes top2_out[0..1] when it is given, else viol_out = viol_in | exceeds.
-template <bool VALUES>
-__global__ void __launch_bounds__(kThreads)
+// one more on the counter, released after this thread's writes (the
+// partial) and acquiring every earlier holder's: the old count
+__device__ __forceinline__ unsigned take_ticket(unsigned* counter) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(counter)
+               : "memory");
+  return old;
+}
+
+// the verdict viol | exceeds, or the two largest where top2_out is given
+__device__ __forceinline__ void drift_result(Top2 t, float buffer, bool viol, bool* viol_out,
+                                             float* top2_out) {
+  const float m1 = value_of(t.k1), m2 = value_of(t.k1 == 0xFFFFFFFFu ? t.k1 : t.k2);
+  if (top2_out != nullptr) {
+    top2_out[0] = m1;
+    top2_out[1] = m2;
+  } else {
+    const bool exceeds = add(__fsqrt_rn(m1), __fsqrt_rn(clamp_min(m2, 0.0f))) > buffer;
+    *viol_out = viol || exceeds;
+  }
+}
+
+// The squared drift of each slot, a slot a thread. A block stages a slice
+// of kDriftThreads slots' positions (a grid stride over the slices past
+// kDriftMaxBlocks blocks), reduces it, writes its partial and takes a
+// ticket; the last ticket merges the partials.
+__global__ void __launch_bounds__(kDriftThreads)
     drift_kernel(const float* __restrict__ pos, const float* __restrict__ ref,
-                 const int* __restrict__ tag, const float* __restrict__ values, int n, float buffer,
+                 const int* __restrict__ tag, int n, float buffer,
                  const bool* __restrict__ viol_in, bool* __restrict__ viol_out,
-                 float* __restrict__ top2_out, float2* partials, unsigned int* counter) {
-  Top2 t{-INFINITY, -INFINITY};
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
-    float v = 0.0f;  // an empty slot's, read from its tag alone
-    if (VALUES) {
-      v = values[i];
-    } else if (tag[i] >= 0) {
-      const float d0 = sub(pos[3 * i], ref[3 * i]);
-      const float d1 = sub(pos[3 * i + 1], ref[3 * i + 1]);
-      const float d2 = sub(pos[3 * i + 2], ref[3 * i + 2]);
-      v = add(add(mul(d0, d0), mul(d1, d1)), mul(d2, d2));
+                 float* __restrict__ top2_out, uint2* partials, unsigned int* counter) {
+  constexpr int B = kDriftThreads;
+  __shared__ float s_pos[3 * B], s_ref[3 * B];
+  const int t = threadIdx.x;
+  // the flag the verdict ORs, read now: only the last block needs it
+  const bool viol = top2_out == nullptr && t == 0 && *viol_in;
+  Top2 top{0u, 0u};
+  const int slices = (n + B - 1) / B;
+  for (int slice = blockIdx.x; slice < slices; slice += gridDim.x) {
+    const int i0 = slice * B, i = i0 + t, nf = 3 * min(B, n - i0);
+    const float* p = pos + 3LL * i0;
+    const float* r = ref + 3LL * i0;
+    const int tg = i < n ? __ldg(tag + i) : -1;
+    float xp[3], xr[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int f = t + j * B;
+      xp[j] = f < nf ? __ldg(p + f) : 0.0f;
+      xr[j] = f < nf ? __ldg(r + f) : 0.0f;
     }
-    t = merge(t, top2_of(v));
-  }
-  t = block_merge(t);
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = make_float2(t.m1, t.m2);
-    __threadfence();
-    last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  t = Top2{-INFINITY, -INFINITY};
-  for (int b = threadIdx.x; b < (int)gridDim.x; b += kThreads) {
-    const volatile float2* p = partials + b;
-    t = merge(t, Top2{p->x, p->y});
-  }
-  t = block_merge(t);
-  if (threadIdx.x == 0) {
-    if (top2_out != nullptr) {
-      top2_out[0] = t.m1;
-      top2_out[1] = t.m2;
-    } else {
-      const bool exceeds = add(__fsqrt_rn(t.m1), __fsqrt_rn(clamp_min(t.m2, 0.0f))) > buffer;
-      *viol_out = *viol_in || exceeds;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      s_pos[t + j * B] = xp[j];
+      s_ref[t + j * B] = xr[j];
     }
+    __syncthreads();
+    const int l = 3 * t;
+    const float d0 = sub(s_pos[l], s_ref[l]);
+    const float d1 = sub(s_pos[l + 1], s_ref[l + 1]);
+    const float d2 = sub(s_pos[l + 2], s_ref[l + 2]);
+    const float dsq = add(add(mul(d0, d0), mul(d1, d1)), mul(d2, d2));
+    // an empty slot's drift is 0 whatever its positions hold (NaN too);
+    // past n a slot holds none
+    top = merge(top, Top2{key_of(i < n ? (tg >= 0 ? dsq : 0.0f) : -INFINITY), 0u});
+    __syncthreads();  // the next slice reuses the staging
+  }
+  top = block_top2<B>(top);
+  if (t >= 32) return;
+  // warp 0 of a block
+  const int parts = gridDim.x;
+  unsigned ticket = 0;
+  if (t == 0) {
+    partials[blockIdx.x] = make_uint2(top.k1, top.k2);
+    ticket = take_ticket(counter);
+  }
+  if (__shfl_sync(0xffffffffu, ticket, 0) != parts - 1) return;
+  __syncwarp();  // lane 0's acquire before every lane's loads
+  // the last: all partials, two a 16-byte load, the loads issued first
+  constexpr int Q = kDriftMaxBlocks / 64;  // loads a lane, at most
+  const uint4* quads = reinterpret_cast<const uint4*>(partials);
+  uint4 q[Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int j = t + 32 * k;
+    q[k] = 2 * j < parts ? __ldcg(quads + j) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  top = Top2{0u, 0u};
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int j = t + 32 * k;
+    top = merge(top, Top2{q[k].x, q[k].y});
+    if (2 * j + 1 < parts) top = merge(top, Top2{q[k].z, q[k].w});
+  }
+  top = warp_top2(top);
+  if (t == 0) {
+    drift_result(top, buffer, viol, viol_out, top2_out);
     *counter = 0u;
   }
+}
+
+// VALUES: n values (needs_rebin_of: each shard's top two) in one warp
+__global__ void __launch_bounds__(32)
+    drift_values_kernel(const float* __restrict__ values, int n, float buffer,
+                        const bool* __restrict__ viol_in, bool* __restrict__ viol_out,
+                        float* __restrict__ top2_out) {
+  Top2 top{0u, 0u};
+  for (int i = threadIdx.x; i < n; i += 32) top = merge(top, Top2{key_of(__ldg(values + i)), 0u});
+  top = warp_top2(top);
+  if (threadIdx.x == 0)
+    drift_result(top, buffer, top2_out == nullptr && *viol_in, viol_out, top2_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -235,48 +342,99 @@ __device__ __forceinline__ float gamma_of(const Noise& nz, const int* type_id, i
   return __ldg(nz.table + t);
 }
 
-__global__ void __launch_bounds__(kThreads)
+enum Step2Mode { kNVE, kNoiseless, kNoisy };
+
+// K8: a slot a thread, every load issued at the top. MODE kNVE: a' = F / m;
+// else the Langevin force (kNoisy: with its draw), the drag relative to
+// the flow velocity where FLOW; SEL: the filter's bool masks too.
+template <int MODE, bool FLOW, bool SEL>
+__global__ void __launch_bounds__(kStep2Threads)
     step2_kernel(const int* __restrict__ tag, const bool* __restrict__ sel,
                  const int* __restrict__ type_id, const float* __restrict__ v,
                  const float* __restrict__ a, const float* __restrict__ force,
                  const float* __restrict__ mass, const float* __restrict__ flow, int n,
                  float half_dt, Noise nz, float* __restrict__ v_out, float* __restrict__ a_out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  if (!acts(tag, sel, i)) {
+  constexpr int B = kStep2Threads;
+  constexpr bool LANGEVIN = MODE != kNVE;
+  // the block's [n, 3] slices: v, the old a, force (, flow); then v', a'
+  __shared__ float s_v[3 * B], s_a[3 * B], s_f[3 * B], s_u[FLOW ? 3 * B : 1];
+  __shared__ float s_vo[3 * B], s_ao[3 * B];
+  extern __shared__ float s_gamma[];  // Langevin: the [n_types] gamma table
+  const int t = threadIdx.x, i0 = blockIdx.x * B, i = i0 + t;
+  const bool in = i < n;
+  const int nf = 3 * min(B, n - i0);
+  const long long f0 = 3LL * i0;
+  const int tg = in ? __ldg(tag + i) : -1;
+  const bool chosen = !SEL || (in && sel[i]);
+  const float m = in ? __ldg(mass + i) : 1.0f;
+  const int ty = LANGEVIN && in ? __ldg(type_id + i) : 0;
+  float xv[3], xa[3], xf[3], xu[3];
 #pragma unroll
-    for (int k = 3 * i; k < 3 * i + 3; ++k) {
-      v_out[k] = v[k];
-      a_out[k] = a[k];
-    }
-    return;
+  for (int j = 0; j < 3; ++j) {
+    const int f = t + j * B;
+    const bool ok = f < nf;
+    xv[j] = ok ? __ldg(v + f0 + f) : 0.0f;
+    xa[j] = ok ? __ldg(a + f0 + f) : 0.0f;
+    xf[j] = ok ? __ldg(force + f0 + f) : 0.0f;
+    xu[j] = FLOW && ok ? __ldg(flow + f0 + f) : 0.0f;
   }
-  const float m = mass[i];
-  float bd[3] = {0.0f, 0.0f, 0.0f};
-  const bool langevin = nz.table != nullptr;
-  if (langevin) {
-    const float g = gamma_of(nz, type_id, i);
-    float rand[3] = {0.0f, 0.0f, 0.0f};
-    if (nz.noisy) {
-      float u[3];
-      uniform3(nz.k0, nz.k1, tag[i], nz.width, nz.low, u);
-      const float c = noise_scale(g, nz.kT, nz.inv_dt);
+  // the table's first B types, one a thread, loaded with the rest
+  const float g0 = LANGEVIN && t < nz.n_types ? __ldg(nz.table + t) : 0.0f;
+  // the draw needs only the tag and the key: it runs while the loads fly
+  float u[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (MODE == kNoisy) uniform3(nz.k0, nz.k1, tg, nz.width, nz.low, u);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) rand[k] = mul(c, u[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float rel = flow != nullptr ? sub(v[3 * i + k], flow[3 * i + k]) : v[3 * i + k];
-      bd[k] = sub(rand[k], mul(g, rel));
-    }
+  for (int j = 0; j < 3; ++j) {
+    s_v[t + j * B] = xv[j];
+    s_a[t + j * B] = xa[j];
+    s_f[t + j * B] = xf[j];
+    if constexpr (FLOW) s_u[t + j * B] = xu[j];
   }
+  if constexpr (LANGEVIN) {
+    if (t < nz.n_types) s_gamma[t] = g0;
+    // a loop after the draw, so that the draw is not held behind it
+    for (int k = t + B; k < nz.n_types; k += B) s_gamma[k] = __ldg(nz.table + k);
+  }
+  __syncthreads();
+  float g = 0.0f, rand[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (LANGEVIN) {
+    g = s_gamma[min(max(ty, 0), nz.n_types - 1)];
+  }
+  if constexpr (MODE == kNoisy) {
+    const float c = noise_scale(g, nz.kT, nz.inv_dt);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rand[k] = mul(c, u[k]);
+  }
+  const bool moves = tg >= 0 && chosen;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float f = force[3 * i + k];
-    const float acc = __fdiv_rn(langevin ? add(f, bd[k]) : f, m);
-    a_out[3 * i + k] = acc;
-    v_out[3 * i + k] = add(v[3 * i + k], mul(half_dt, acc));
+    const int l = 3 * t + k;
+    float f = s_f[l];
+    if constexpr (LANGEVIN) {
+      float rel = s_v[l];
+      if constexpr (FLOW) rel = sub(rel, s_u[l]);
+      f = add(f, sub(rand[k], mul(g, rel)));
+    }
+    const float acc = __fdiv_rn(f, m);
+    s_ao[l] = moves ? acc : s_a[l];
+    s_vo[l] = moves ? add(s_v[l], mul(half_dt, acc)) : s_v[l];
   }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int f = t + j * B;
+    if (f < nf) {
+      v_out[f0 + f] = s_vo[f];
+      a_out[f0 + f] = s_ao[f];
+    }
+  }
+}
+
+using Step2Kernel = decltype(&step2_kernel<kNVE, false, false>);
+
+template <int MODE, bool FLOW>
+Step2Kernel step2_instance(bool sel) {
+  return sel ? step2_kernel<MODE, FLOW, true> : step2_kernel<MODE, FLOW, false>;
 }
 
 // ---------------------------------------------------------------------------
@@ -463,24 +621,27 @@ extern "C" {
 // `sel` is a filter's bool [n] or null (All()).
 
 // K6. values null: the drift of pos [n, 3] from ref [n, 3] on tag [n];
-// else n values. top2_out [2] given: write the two largest; else write
-// viol_out = viol_in | exceeds. partials holds kDriftMaxBlocks float2 and
-// counter one zero word, both reused by every launch on the stream.
+// else n values (squared drifts, -inf or NaN: the shards' top twos).
+// top2_out [2] given: write the two largest; else write viol_out =
+// viol_in | exceeds. partials (16-byte aligned) holds kDriftMaxBlocks
+// 8-byte slots (two keys each) and counter one zero word, both reused by every launch on
+// the stream.
 int az_drift_check(const float* pos, const float* ref, const int* tag, const float* values, int n,
                    float buffer, const bool* viol_in, bool* viol_out, float* top2_out,
                    float2* partials, unsigned int* counter, void* stream) {
   if (n <= 0 || (top2_out == nullptr && (viol_in == nullptr || viol_out == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const long long per_block = (long long)kThreads * kDriftPerThread;
-  const long long wanted = (n + per_block - 1) / per_block;
-  const int grid = wanted < kDriftMaxBlocks ? (int)wanted : kDriftMaxBlocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (values != nullptr)
-    drift_kernel<true><<<grid, kThreads, 0, s>>>(pos, ref, tag, values, n, buffer, viol_in,
-                                                 viol_out, top2_out, partials, counter);
-  else
-    drift_kernel<false><<<grid, kThreads, 0, s>>>(pos, ref, tag, values, n, buffer, viol_in,
-                                                  viol_out, top2_out, partials, counter);
+  if (values != nullptr) {
+    drift_values_kernel<<<1, 32, 0, s>>>(values, n, buffer, viol_in, viol_out, top2_out);
+    return (int)launched();
+  }
+  if (reinterpret_cast<uintptr_t>(partials) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  uint2* slots = reinterpret_cast<uint2*>(partials);
+  long long grid = (n + kDriftThreads - 1) / kDriftThreads;
+  grid = grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks;
+  drift_kernel<<<(unsigned)grid, kDriftThreads, 0, s>>>(pos, ref, tag, n, buffer, viol_in,
+                                                         viol_out, top2_out, slots, counter);
   return (int)launched();
 }
 
@@ -496,15 +657,25 @@ int az_step1(const int* tag, const bool* sel, const float* x, const float* v, co
 }
 
 // K8: v_out, a_out [n, 3]. gamma null: NVE (a' = F / m); else Langevin with
-// the flow velocity flow [n, 3] (or null) and noise when noisy.
+// the flow velocity flow [n, 3] (or null) and noise when noisy; gamma holds
+// 1 to kStep2MaxTypes types.
 int az_step2(const int* tag, const bool* sel, const int* type_id, const float* v, const float* a,
              const float* force, const float* mass, const float* flow, int n, float half_dt,
              const float* gamma, int n_types, int noisy, uint32_t k0, uint32_t k1, float width,
              float low, float kT, float inv_dt, float* v_out, float* a_out, void* stream) {
-  if (n <= 0 || (gamma != nullptr && n_types <= 0)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || (gamma != nullptr && (n_types <= 0 || n_types > kStep2MaxTypes)))
+    return (int)cudaErrorInvalidValue;
   const Noise nz{gamma, n_types, noisy, k0, k1, width, low, kT, inv_dt};
-  step2_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tag, sel, type_id, v, a, force, mass, flow, n, half_dt, nz, v_out, a_out);
+  const bool s = sel != nullptr, u = flow != nullptr;
+  const Step2Kernel kernel =
+      gamma == nullptr ? step2_instance<kNVE, false>(s)
+      : noisy          ? (u ? step2_instance<kNoisy, true>(s) : step2_instance<kNoisy, false>(s))
+                       : (u ? step2_instance<kNoiseless, true>(s)
+                            : step2_instance<kNoiseless, false>(s));
+  const size_t table_bytes = gamma == nullptr ? 0 : sizeof(float) * n_types;
+  kernel<<<(n + kStep2Threads - 1) / kStep2Threads, kStep2Threads, table_bytes,
+           static_cast<cudaStream_t>(stream)>>>(tag, sel, type_id, v, a, force, mass, flow, n,
+                                                half_dt, nz, v_out, a_out);
   return (int)launched();
 }
 

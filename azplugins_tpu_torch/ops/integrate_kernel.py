@@ -7,14 +7,20 @@ step.
 - K6 ``az_drift_check``: :func:`drift_check` (``ops/dense.py::needs_rebin``
   with the chunk's violation flag ORed in), :func:`drift_top_two` and
   :func:`needs_rebin_of` (the same kernel over the shards' top twos).
-  Reference ``azplugins_tpu/ops/dense.py:666-686``. One launch each, one
-  block per 1,024 slots, the last block merging the blocks' partials.
+  Reference ``azplugins_tpu/ops/dense.py:666-686``. One launch each: a
+  slot a thread, every load issued before any use, the positions staged
+  through shared memory by coalesced loads, a block's top two by integer
+  warp reductions on order-preserving keys; each block writes a partial
+  and takes a ticket, and the last ticket's warp merges the partials.
+  Over values, one warp.
 - K7 ``az_step1``: :func:`step1`, ``Method.step1``'s drift half (reference
   ``azplugins_tpu/md/methods.py:68-77``).
 - K8 ``az_step2``: :func:`step2`, ``Method.step2`` (NVE) and
   ``LangevinFlow.step2`` with its draw inside (reference
   ``azplugins_tpu/md/methods.py:79-91, 172-192``): the uniforms are K4's
-  bit for bit.
+  bit for bit. One instantiation for each of NVE, noiseless and noisy
+  Langevin, with or without a flow field and a filter; every load issued
+  first, the hashes while they fly, the gamma table in shared memory.
 - K9 ``az_no_squish``: :func:`no_squish`, the NO_SQUISH rotation of
   ``Method._rot_step1`` (mode 0), ``_rot_step2`` (1) and
   ``LangevinFlow._rot_step2_langevin`` (2, its draw inside). Reference
@@ -209,7 +215,8 @@ def drift_top_two(position, ref_position, tag) -> torch.Tensor:
 
 def needs_rebin_of(tops: torch.Tensor, buffer: float, viol: torch.Tensor) -> torch.Tensor:
     """``viol | needs_rebin_of(tops)``: the criterion over the shards' top
-    twos (any values, each one of the set). One launch."""
+    twos, each a squared drift (+0 or more), -inf or NaN, as
+    :func:`drift_top_two` gives them. One launch of one warp."""
     out = torch.empty((), dtype=torch.bool, device=tops.device)
     _drift_launch(None, None, None, tops.reshape(-1), buffer, (viol, out), None)
     return out

@@ -249,12 +249,13 @@ INTEGRATE_REPLACES = {
 NO_SQUISH_ULP = 0
 # float32 operations a slot, each libm call (cos, sin), divide and sqrt as
 # one, counted from the plain versions' formulas: K7 4 a component; K8 NVE
-# 3 a component, Langevin 9 a component + 4 for the noise scale + 9 for
-# the uniforms; K9 mode 0 the kick (rotate_inv 27, the product 16, the add
+# 3 a component, noiseless Langevin 9 a component, noisy 9 a component + 4
+# for the noise scale + 9 for the uniforms (a flow field 1 more a
+# component); K9 mode 0 the kick (rotate_inv 27, the product 16, the add
 # 8) and five axis rotations (the dot 11, 4 for the angle, cos and sin, 16
 # for q and p) and the norm (12); K6 8 a slot.
-INTEGRATE_F32_OPS = {"drift_check": 8, "step1": 12, "step2[nve]": 9, "step2": 40,
-                     "no_squish[step1]": 233, "no_squish[langevin]": 140}
+INTEGRATE_F32_OPS = {"drift_check": 8, "step1": 12, "step2[nve]": 9, "step2[noiseless]": 27,
+                     "step2": 40, "no_squish[step1]": 233, "no_squish[langevin]": 140}
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -1364,8 +1365,14 @@ def check_integrate(az, D, K, sim, label, timing, record):
     without their z axis, a third without x). K6 on the path's layout, and
     at the headline on NaN, tie and 4-shard cases. Times each kernel the
     path runs against its plain version and its bound into ``timing``
-    ({name: (ms, plain_ms, (bound_ms, bound_by))}; the headline's K6-K8,
-    the droplet's K8 with its flow, the patchy colloids' K9)."""
+    ({name: (ms, plain_ms, (bound_ms, bound_by))}): K6 on every state
+    ("drift_check" at the headline, else "drift_check[label]"); K8 in the
+    headline's three modes ("step2", "step2[nve]", "step2[noiseless]"),
+    the droplet's with its flow ("step2[flow]"), the patchy colloids'
+    ("step2[patchy]"); the headline's K7 and the patchy colloids' K9.
+    Prints each with the host us a call of its wrapper and, not the same
+    function, torch.amax over as many float32 as the state has slots (the
+    card's floor for a one-launch reduction)."""
     t0 = time.perf_counter()
     IK = K.IK
     dense, meta, spec = sim._dense, sim._meta, sim._grid_spec
@@ -1417,53 +1424,98 @@ def check_integrate(az, D, K, sim, label, timing, record):
 
     live = dense.tag >= 0
     n, n_act = dense.N, int(live.sum())
-    timed = {}
+    viol = torch.tensor(False, device=dense.device)
+    ops = INTEGRATE_F32_OPS
     # the bounds' bytes are what each function needs: a field counts on the
     # slots whose result depends on it (the drift's positions and the
-    # acceleration, force, mass, inertia and torque on acting slots; the
-    # old acceleration on masked ones, which copy it), the fields copied
+    # acceleration, force, mass, type, inertia and torque on acting slots;
+    # the old acceleration on masked ones, which copy it), the fields copied
     # or written on every slot
+    drift = "drift_check" if label == "headline" else f"drift_check[{label}]"
+    timed = {drift: (lambda: D.needs_rebin(dense, meta, spec, viol),
+                     lambda: viol | D._needs_rebin_plain(dense, meta, spec),
+                     _integrate_bound(4 * n + 24 * n_act, n_act, ops["drift_check"]))}
     if label == "headline":
-        viol = torch.tensor(False, device=dense.device)
-        timed["drift_check"] = (lambda: D.needs_rebin(dense, meta, spec, viol),
-                                lambda: viol | D._needs_rebin_plain(dense, meta, spec),
-                                _integrate_bound(4 * n + 24 * n_act, n_act,
-                                                 INTEGRATE_F32_OPS["drift_check"]))
         timed["step1"] = (lambda: path.step1(dense, dt, t, seed),
                           lambda: path._step1_plain(dense, dt, t, seed),
-                          _integrate_bound(52 * n + 12 * n_act, n_act, INTEGRATE_F32_OPS["step1"]))
-        timed["step2"] = (lambda: path.step2(dense, dt, t, seed),
-                          lambda: path._step2_plain(dense, dt, t, seed),
-                          _integrate_bound(40 * n + 20 * n_act + 12 * (n - n_act), n_act,
-                                           INTEGRATE_F32_OPS["step2"], hashes=2))
+                          _integrate_bound(52 * n + 12 * n_act, n_act, ops["step1"]))
+        for name, m, kind in (("step2", path, "noisy"), ("step2[nve]", methods["nve"], "nve"),
+                              ("step2[noiseless]", methods["noiseless"], "noiseless")):
+            timed[name] = (lambda m=m: m.step2(dense, dt, t, seed),
+                           lambda m=m: m._step2_plain(dense, dt, t, seed),
+                           _integrate_bound(_step2_bytes(n, n_act, langevin=kind != "nve"), n_act,
+                                            ops[name], hashes=2 * (kind == "noisy")))
     elif label == "droplet":
         flow = path.flow_field(dense.box.wrap(dense.position)[0])
-        noise = IK.Noise(path._table_on("_gamma_table", dense.device), path._rng_stream, seed, t,
-                         path.kT(t), True)
         timed["step2[flow]"] = (
-            lambda: IK.step2(dense.tag, None, dense.typeid, dense.velocity, dense.acceleration,
-                             dense.net_force, dense.mass, dt, noise, flow),
+            _k8_alone(IK, path, dense, dt, t, seed, flow),
             lambda: path._step2_plain(dense, dt, t, seed),
-            _integrate_bound(40 * n + 32 * n_act + 12 * (n - n_act), n_act,
-                             INTEGRATE_F32_OPS["step2"] + 3, hashes=2))
+            _integrate_bound(_step2_bytes(n, n_act, flow=True), n_act, ops["step2"] + 3,
+                             hashes=2))
     else:
+        timed["step2[patchy]"] = (
+            _k8_alone(IK, path, dense, dt, t, seed),
+            lambda: _translational_plain(path, dense, dt, t, seed),
+            _integrate_bound(_step2_bytes(n, n_act), n_act, ops["step2"], hashes=2))
         timed["no_squish"] = (
             lambda: IK.no_squish(0, dense.tag, None, dense.typeid, dense.orientation,
                                  dense.angmom, dense.moment_inertia, dense.net_torque, dt),
             lambda: path._rot_step1(dense, dt),
-            _integrate_bound(68 * n + 24 * n_act, n_act, INTEGRATE_F32_OPS["no_squish[step1]"]))
+            _integrate_bound(68 * n + 24 * n_act, n_act, ops["no_squish[step1]"]))
     lines = []
     for name, (kernel, plain, bound) in timed.items():
         ms = _cuda_time_ms(kernel, 50)
         plain_ms = _cuda_time_ms(plain, 5)
         timing[name] = (ms, plain_ms, bound)
-        lines.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}), bound {bound[0]:.5f} ms "
-                     f"({bound[1]}), {ms / bound[0]:.1f}x")
+        lines.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}; host {_host_us(kernel):.1f} us a "
+                     f"call), bound {bound[0]:.5f} ms ({bound[1]}), {ms / bound[0]:.1f}x")
+    floor = torch.rand(n, device=dense.device)
+    lines.append(f"not the same function, the card's floor for a one-launch reduction: "
+                 f"torch.amax over {n:,} float32 {_cuda_time_ms(lambda: torch.amax(floor), 50):.4f}"
+                 f" ms")
     print(f"[integrate] {label} ({n:,} slots, {n_act:,} particles): {cases} cases "
           f"({', '.join(methods)} x step1/step2{' x path/frozen axes' if rot else ''}; the "
           f"drift check) bitwise the plain versions on the card"
           f"{f'; K9 max {worst} ulp (bar {NO_SQUISH_ULP})' if rot else ''}; "
-          f"{'; '.join(lines)}; {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{'; '.join(lines)}; the phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _step2_bytes(n, n_act, langevin=True, flow=False):
+    """The bytes K8 needs: tag, v in, v' and a' out on every slot; force,
+    mass (and type, for Langevin; flow where given) on a moving slot; the
+    old acceleration on a masked one."""
+    return 40 * n + (20 if langevin else 16) * n_act + 12 * (n - n_act) + 12 * n_act * flow
+
+
+def _k8_alone(IK, m, dense, dt, t, seed, flow=None):
+    """K8 alone on the Langevin method ``m``'s arguments (its step2 adds K9
+    with rotation and forms the flow velocity first)."""
+    noise = IK.Noise(m._table_on("_gamma_table", dense.device), m._rng_stream, seed, t, m.kT(t),
+                     not m.noiseless and dt > 0)
+    return lambda: IK.step2(dense.tag, None, dense.typeid, dense.velocity, dense.acceleration,
+                            dense.net_force, dense.mass, dt, noise, flow)
+
+
+def _translational_plain(m, dense, dt, t, seed):
+    """``m``'s plain step2 without its rotation: what K8 alone computes."""
+    rot, m._rotational = m._rotational, False
+    try:
+        return m._step2_plain(dense, dt, t, seed)
+    finally:
+        m._rotational = rot
+
+
+def _host_us(fn, reps: int = 50) -> float:
+    """Host microseconds a call of ``fn`` takes to issue its work, the card
+    left to run behind (no synchronisation inside the loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the four force kernels of a checkout with two timers, on one GPU.
+"""Time the force kernels and K6-K8 of a checkout with two timers, on one GPU.
 
     python3 kernel_timers.py [ROOT]    # ROOT: a checkout; default: this one
 
@@ -8,7 +8,11 @@ each on the state chip_smoke.py times it on: the pair kernel's
 PerturbedLennardJones instantiation at the 64k headline (cap 72) and its
 ExpandedYukawa instantiation at the polymer melt (cap 48), the DPD kernel at
 the DPD fluid (cap 40) and the anisotropic kernel at the patchy colloids
-(cap 16). Two timers, CUDA events around ``REPS`` calls each:
+(cap 16); and the headline's drift check (K6, ``needs_rebin``), drift half
+step (K7, ``Langevin.step1``) and Langevin kick (K8, ``Langevin.step2``)
+on its state after HEADLINE_STEPS steps (past the capacity tune: cap 48,
+82,944 slots), through the public calls. Two timers, CUDA events around
+``REPS`` calls each:
 
 - synced: the calls start right after a synchronize, so where the
   wrapper's host time exceeds the kernel's the host is timed;
@@ -31,6 +35,7 @@ import torch
 import chip_smoke as cs  # this checkout's: before ROOT goes on the path
 
 REPS = 50
+HEADLINE_STEPS = 300
 
 
 def _synced_time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -63,9 +68,11 @@ def main() -> int:
     from azplugins_tpu_torch.ops import cuda_build
     from azplugins_tpu_torch.ops import dense as D
     from azplugins_tpu_torch.ops import dpd_kernel as DK
+    from azplugins_tpu_torch.ops import integrate_kernel as IK
     from azplugins_tpu_torch.ops import pair_kernel as PK
+    from azplugins_tpu_torch.ops import rng_kernel as RK
 
-    cuda_build.load_libraries(PK._SOURCE, DK._SOURCE, AK._SOURCE)
+    cuda_build.load_libraries(PK._SOURCE, DK._SOURCE, AK._SOURCE, IK._SOURCE, RK._SOURCE)
     dev = torch.device("cuda")
     calls = {}
 
@@ -98,6 +105,18 @@ def main() -> int:
     tpm = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
     calls[f"cell_aniso_force patchy colloids 27k cap {spec.cap}"] = (
         lambda d=dense, s=spec: AK.cell_aniso_force(d, s, tpm))
+
+    sim = cs.build_headline(az, dev)[0]
+    sim.run(HEADLINE_STEPS)
+    torch.cuda.synchronize()
+    hd, hmeta, hspec = sim._dense, sim._meta, sim._grid_spec
+    lang = sim.operations.integrator.methods[0]
+    dt, t, seed = sim.dt_ref(), sim.timestep, sim.seed
+    viol = torch.tensor(False, device=dev)
+    at = f"64k headline after {HEADLINE_STEPS} steps, {hd.N:,} slots"
+    calls[f"drift_check (K6) {at}"] = lambda: D.needs_rebin(hd, hmeta, hspec, viol)
+    calls[f"step1 (K7) {at}"] = lambda: lang.step1(hd, dt, t, seed)
+    calls[f"step2 (K8, Langevin) {at}"] = lambda: lang.step2(hd, dt, t, seed)
 
     for turn in range(2):
         for name, fn in calls.items():

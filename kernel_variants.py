@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time copies of the three force kernels, each with one change, on one GPU.
+"""Time copies of the force kernels and of K6/K8, each with one change, on one GPU.
 
     python3 kernel_variants.py                 # every variant
     python3 kernel_variants.py base,noflush    # some of them
 
 Each variant is a copy of azplugins_tpu_torch/csrc/ with one text change
-(PHASES, DESIGN; a change that matches nothing, or a variant whose sources
-come out the same as base's, raises), in azplugins_tpu_torch/_build/variants/
+(PHASES, DESIGN, INTEGRATE; a change that matches nothing, or a variant
+whose sources come out the same as base's, raises), in
+azplugins_tpu_torch/_build/variants/
 (the pair kernel with its PerturbedLennardJones and ExpandedYukawa
 instantiations only). The wrappers build and launch it inside
 cuda_build.sources. Each is timed, device time per call as chip_smoke.py
@@ -25,7 +26,28 @@ exactly 8 at cap 8), in two turns. The phase copies split a call:
   anisoLanesOnly (nosweep without all three: the plan and the lanes' own
   loads).
 
-The others change one constant of the design.
+The others change one constant of the design. Each variant also times
+the drift check K6 (``needs_rebin``) at the headline's liquid state (82,944
+slots) and the patchy colloids' (194,672: the grid stride past
+kDriftMaxBlocks blocks) and the Langevin kick K8 (``step2``) at the
+headline, noisy, with a flow field (random velocities) and
+NVE; the INTEGRATE copies change K6's or K8's design:
+
+- driftCluster8: K6's blocks merged in thread block clusters of 8
+  (``__cluster_dims__``) through distributed shared memory before their
+  partials, so one block in 8 writes a partial and takes a ticket;
+- driftB128: 128 threads a block (648 blocks at the headline);
+- driftThreadfence: the ticket relaxed between two sequentially
+  consistent fences (__threadfence), as K6's first version took it,
+  instead of one acquire-release atomic;
+- phase copies (wrong results, timing only): driftEmpty, every block
+  returns at once (the launch); driftNoMerge, after its loads; driftNoTicket,
+  after its block's merge (no partial, no ticket, no last block);
+  driftNoLastLoads, the last ticket loads no partial; driftRelaxed, the
+  ticket without its ordering;
+- step2B64, step2B256: K8's block of 64 and 256 threads;
+- step2Gamma128: K8 stages only the gamma table's first 128 types (one a
+  thread) and loads a higher type's gamma from global memory.
 """
 
 from __future__ import annotations
@@ -102,8 +124,63 @@ DESIGN = {
     "anisoStage768": [("cell_aniso_force.cu", "constexpr int kStageEntries = 256;",
                        "constexpr int kStageEntries = 768;")],
 }
-CHANGES = {**PHASES, **DESIGN}
-SOURCES = ("cell_pair_force.cu", "cell_dpd_force.cu", "cell_aniso_force.cu")
+_I = "integrate.cu"
+# K6's cluster merge: a cluster's blocks send their top twos to its first
+# block through distributed shared memory; that block holds the partial
+_CLUSTER_MERGE = """  top = block_top2<B>(top);
+  {
+    namespace cg = cooperative_groups;
+    __shared__ Top2 s_cluster[8];
+    cg::cluster_group cluster = cg::this_cluster();
+    const unsigned rank = cluster.block_rank();
+    if (t == 0) *cluster.map_shared_rank(s_cluster + rank, 0) = top;
+    cluster.sync();
+    if (rank != 0) return;
+    if (t < 32) top = warp_top2(t < 8 ? s_cluster[t] : Top2{0u, 0u});
+  }
+"""
+INTEGRATE = {
+    "driftCluster8": [
+        (_I, "#include <cuda_runtime.h>\n",
+         "#include <cooperative_groups.h>\n#include <cuda_runtime.h>\n"),
+        (_I, "__global__ void __launch_bounds__(kDriftThreads)\n    drift_kernel(",
+         "__global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(kDriftThreads)\n"
+         "    drift_kernel("),
+        (_I, "  top = block_top2<B>(top);\n", _CLUSTER_MERGE),
+        (_I, "const int parts = gridDim.x;", "const int parts = gridDim.x / 8;"),
+        (_I, "partials[blockIdx.x] =", "partials[blockIdx.x / 8] ="),
+        (_I, "  grid = grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks;\n",
+         "  grid = grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks;\n"
+         "  grid = (grid + 7) / 8 * 8;\n"),
+    ],
+    "driftB128": [(_I, "constexpr int kDriftThreads = 256;", "constexpr int kDriftThreads = 128;")],
+    "driftThreadfence": [(_I, 'asm volatile("atom.acq_rel.gpu.global.add.u32',
+                          '__threadfence();\n  asm volatile("atom.relaxed.gpu.global.add.u32'),
+                         (_I, "  __syncwarp();  // lane 0's acquire before every lane's loads",
+                          "  __threadfence();")],
+    # phase copies of K6 (timing only: their results are wrong): no
+    # partial and no ticket; the last ticket merging no partial
+    "driftNoTicket": [(_I, "  if (t >= 32) return;\n  // warp 0 of a block",
+                       "  if (n > 0) return;\n  // warp 0 of a block")],
+    "driftNoLastLoads": [(_I, "q[k] = 2 * j < parts ? __ldcg(quads + j)",
+                          "q[k] = 2 * j < 0 ? __ldcg(quads + j)")],
+    "driftEmpty": [(_I, "  // the flag the verdict ORs, read now",
+                    "  if (n > 0) return;\n  // the flag the verdict ORs, read now")],
+    "driftNoMerge": [(_I, "  top = block_top2<B>(top);\n",
+                      "  if (n > 0) return;\n  top = block_top2<B>(top);\n")],
+    "driftRelaxed": [(_I, "atom.acq_rel.gpu.global.add.u32", "atom.relaxed.gpu.global.add.u32")],
+    "step2B64": [(_I, "constexpr int kStep2Threads = 128;", "constexpr int kStep2Threads = 64;")],
+    "step2B256": [(_I, "constexpr int kStep2Threads = 128;", "constexpr int kStep2Threads = 256;")],
+    "step2Gamma128": [
+        (_I, "    for (int k = t + B; k < nz.n_types; k += B) s_gamma[k] = __ldg(nz.table + k);\n",
+         ""),
+        (_I, "    g = s_gamma[min(max(ty, 0), nz.n_types - 1)];",
+         "    const int ty_c = min(max(ty, 0), nz.n_types - 1);\n"
+         "    g = ty_c < B ? s_gamma[ty_c] : __ldg(nz.table + ty_c);"),
+    ],
+}
+CHANGES = {**PHASES, **DESIGN, **INTEGRATE}
+SOURCES = ("cell_pair_force.cu", "cell_dpd_force.cu", "cell_aniso_force.cu", _I)
 
 
 def variant_sources(variant: str, csrc: Path) -> dict[str, str]:
@@ -153,6 +230,7 @@ def main() -> int:
     from azplugins_tpu_torch.ops import cuda_build
     from azplugins_tpu_torch.ops import dense as D
     from azplugins_tpu_torch.ops import dpd_kernel as DK
+    from azplugins_tpu_torch.ops import integrate_kernel as IK
     from azplugins_tpu_torch.ops import pair_kernel as PK
 
     names = sys.argv[1].split(",") if len(sys.argv) > 1 else list(CHANGES)
@@ -174,7 +252,8 @@ def main() -> int:
         for src in SOURCES:
             log = cuda_build.build_info[dirs[n] / src]["log"]
             for key in ("pair_force_kernelILi0ELb0ELb0ELb0", "dpd_force_kernelILb0ELb0",
-                        "aniso_force_kernelILb0ELb0"):
+                        "aniso_force_kernelILb0ELb0", "drift_kernelI",
+                        "step2_kernelILi2ELb0ELb0E"):
                 m = re.search(key + r".*\n.*?(\d+) bytes spill stores.*\n.*?Used (\d+) registers",
                               log)
                 if m:
@@ -189,6 +268,17 @@ def main() -> int:
     sim.run(500)
     torch.cuda.synchronize()
     liquid = (sim._dense, sim._grid_spec)
+    hd, hmeta, lang = sim._dense, sim._meta, sim.operations.integrator.methods[0]
+    dt, t, seed = sim.dt_ref(), sim.timestep, sim.seed
+    noise = IK.Noise(lang._table_on("_gamma_table", dev), lang._rng_stream, seed, t, lang.kT(t),
+                     True)
+    flow = torch.randn(hd.velocity.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev)
+    viol = torch.tensor(False, device=dev)
+
+    def k8(noise, flow=None):
+        return lambda: IK.step2(hd.tag, None, hd.typeid, hd.velocity, hd.acceleration,
+                                hd.net_force, hd.mass, dt, noise, flow)
     sim, forces = cs.build_polymer(az, dev)
     polymer = cs._prepared_dense(sim)
     eyk = forces[1]._device_tables(dev)["kernel"]
@@ -200,7 +290,8 @@ def main() -> int:
     one = torch.ones((1, 1), device=dev)
     dpd = DK.dpd_kernel_tables({"A": 25.0 * one, "gamma": 4.5 * one, "s": 0.5 * one}, one, 1.0,
                                0.01)
-    patchy = cs._prepared_dense(cs.build_patchy(az, dev)[0])
+    psim = cs.build_patchy(az, dev)[0]
+    patchy = cs._prepared_dense(psim)
     full = cs._dense_case(
         az, D, cs._lattice_snapshot(az, counts=(48, 48, 48), rho=1.1, jitter=0.03, seed=41,
                                     quats=True), 1.6, 0.3, dev, 8, fields=("quat",))[:2]
@@ -225,10 +316,19 @@ def main() -> int:
                     cs._cuda_time_ms(lambda: AK.cell_aniso_force(*patchy, tpm), 50),
                     cs._cuda_time_ms(lambda: AK.cell_aniso_force(*full, tpm), 50),
                 ]
+                step = [
+                    cs._cuda_time_ms(lambda: D.needs_rebin(hd, hmeta, liquid[1], viol), 50),
+                    cs._cuda_time_ms(lambda: D.needs_rebin(patchy[0], psim._meta, patchy[1],
+                                                           viol), 50),
+                    cs._cuda_time_ms(k8(noise), 50),
+                    cs._cuda_time_ms(k8(noise, flow), 50),
+                    cs._cuda_time_ms(k8(None), 50),
+                ]
             print(f"[turn {turn}] {name:14s} ms: PLJ headline {ms[0]:.4f}, PLJ liquid "
                   f"{ms[1]:.4f}, ExpandedYukawa polymer {ms[2]:.4f}, DPD fluid {ms[3]:.4f}, "
-                  f"TwoPatchMorse patchy {ms[4]:.4f}, TwoPatchMorse dense {ms[5]:.4f}",
-                  flush=True)
+                  f"TwoPatchMorse patchy {ms[4]:.4f}, TwoPatchMorse dense {ms[5]:.4f}; K6 "
+                  f"headline {step[0]:.4f}, patchy {step[1]:.4f}; K8 Langevin {step[2]:.4f}, "
+                  f"flow {step[3]:.4f}, NVE {step[4]:.4f}", flush=True)
     print(cs._card())
     return 0
 

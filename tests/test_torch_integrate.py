@@ -165,6 +165,35 @@ def test_plain_step_matches_reference(case, rotational):
             assert np.array_equal(out[port][k].view(np.int32), a[k].view(np.int32)), k
 
 
+# the per-type gamma of 300 types, each its own (K8 stages a table of more
+# types than its block has threads in rounds)
+MANY_TYPES = [f"T{k}" for k in range(300)]
+
+
+@pytest.mark.parametrize("case", ["langevin", "noiseless", "flow"])
+def test_plain_step2_with_many_types_matches_reference(case):
+    """step2 of a Langevin method over 300 types, each with its own gamma,
+    from the same numpy inputs in both packages, at the one-step bars."""
+    a = IC.slot_arrays(N, 8)
+    g = np.random.default_rng(9)
+    a["typeid"] = np.where(a["tag"] >= 0, g.integers(0, len(MANY_TYPES), N), -1).astype(np.int32)
+    gammas = g.uniform(0.1, 3.0, len(MANY_TYPES))
+    out = {}
+    for az, state_of, host in ((ref, _ref_state, np.asarray),
+                               (port, _port_state, lambda t: t.numpy())):
+        if case == "flow":
+            m = az.md.methods.LangevinFlow(kT=1.3, flow_field=az.flow.ParabolicFlow(2.0, IC.L / 2))
+        else:
+            m = az.md.methods.Langevin(kT=1.3, noiseless=case == "noiseless")
+        for name, gamma in zip(MANY_TYPES, gammas):
+            m.gamma[name] = float(gamma)
+        m = IC.attached(m, False, particle_types=MANY_TYPES)
+        s = m.step2(state_of(a), IREF.DT, IREF.TIMESTEP, IREF.SEED)
+        out[az] = {k: host(getattr(s, k)) for k in ("velocity", "acceleration")}
+    for k in ("velocity", "acceleration"):
+        IREF.assert_close(out[port][k], out[ref][k], k, f"{case} {k}")
+
+
 def test_integrate_reference_file_is_what_the_reference_computes():
     """tests/torch_integrate_reference.npz, which holds the port's
     integrator kernels to the reference on a GPU machine without JAX

@@ -1017,11 +1017,13 @@ def test_jax_normal_is_the_references_within_bar(draw_device, reference_draws, c
 # K6-K9 against their plain versions on the card, bitwise: the same float32
 # operations, each rounded on its own, in the same order (K9's sums of 4 in
 # the card's torch.sum order, its cos and sin the same libm), the same
-# draws. Shapes: the headline's 82,944 slots and one that is not a multiple
-# of the block.
+# draws. Shapes: ragged tails around K6's and K8's blocks (1 to 4,097
+# slots), the headline's 82,944 slots, the patchy colloids' 194,672 and
+# 300,001, past K6's 1,024 blocks (kDriftMaxBlocks) of 256 slots: its grid
+# stride.
 import torch_integrate_cases as IC  # noqa: E402
 
-INTEGRATE_SIZES = [82944, 1001]
+INTEGRATE_SIZES = [1, 31, 255, 257, 1001, 1025, 4097, 82944, 194672, 300001]
 STATE_FIELDS = ("position", "velocity", "acceleration", "orientation", "angmom", "net_torque")
 
 
@@ -1060,32 +1062,49 @@ def test_step_kernels_bitwise_plain(cuda_device, case, rotational, n):
         assert torch.equal(getattr(state, k), v), f"{k} was written"
 
 
-def _drift_inputs(n, seed, kind, device):
-    a = IC.slot_arrays(n, seed)
-    pos, ref, tag = a["position"], a["ref_position"], a["tag"]
+def _drift_inputs(n, seed, kind, device, offset=0):
+    """Positions, reference positions and tags of ``kind``; with ``offset``
+    each a view ``x[offset:]`` of a larger contiguous tensor."""
+    a = IC.slot_arrays(n + offset, seed)
+    pos, ref, tag = (a[k][offset:] for k in ("position", "ref_position", "tag"))
+    if not (tag >= 0).any():
+        tag[0] = 0
     live = np.flatnonzero(tag >= 0)
     if kind == "tie":
         pos[live[:2]] = ref[live[:2]] + np.float32([0.3, 0.1, 0.0])
     elif kind == "nan":
         pos[live[len(live) // 2], 1] = np.nan
+    elif kind == "nan_empty":  # an empty slot's position NaN: the verdict ignores it
+        if live.size == n:
+            tag[-1] = -1
+        pos[np.flatnonzero(tag < 0)[0], 1] = np.nan
     elif kind == "empty":
         tag[:] = -1
     elif kind == "exact":  # the drift equals the buffer's half on two slots
         pos[:] = ref
         pos[live[:2], 0] = ref[live[:2], 0] + np.float32(0.25)
-    return [torch.as_tensor(x, device=device) for x in (pos, ref, tag)]
+    return [torch.as_tensor(a[k], device=device)[offset:]
+            for k in ("position", "ref_position", "tag")]
 
 
-DRIFT_KINDS = ("random", "tie", "nan", "empty", "exact")
+DRIFT_KINDS = ("random", "tie", "nan", "nan_empty", "empty", "exact")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", INTEGRATE_SIZES + [1])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", INTEGRATE_SIZES)
 @pytest.mark.parametrize("kind", DRIFT_KINDS)
-def test_drift_check_kernel_bitwise_plain(cuda_device, kind, n):
+def test_drift_check_kernel_bitwise_plain(cuda_device, kind, n, offset):
     """K6 on a whole layout (the verdict ORed into viol) and on 4 shards
-    (each shard's top two, then the combine) against the plain versions."""
-    pos, ref, tag = _drift_inputs(n, n, kind, cuda_device)
+    (each shard's top two, then the combine) against the plain versions;
+    also on slot views one row into larger tensors (offset 1)."""
+    pos, ref, tag = _drift_inputs(n, n, kind, cuda_device, offset)
+    if offset:
+        assert pos.storage_offset() == 3 and tag.storage_offset() == 1
+    if kind == "nan_empty":
+        d = types.SimpleNamespace(position=pos, tag=tag, device=pos.device)
+        top = D._drift_top_two_plain(d, types.SimpleNamespace(ref_position=ref))
+        assert not torch.isnan(top).any()
     dense = types.SimpleNamespace(position=pos, tag=tag, device=pos.device)
     meta = types.SimpleNamespace(ref_position=ref)
     for buffer in (0.5, 0.05, 0.6):
@@ -1114,9 +1133,79 @@ def test_drift_check_kernel_bitwise_plain(cuda_device, kind, n):
         assert bool(verdict) == bool(D._needs_rebin_of_plain(want2, spec)) == bool(want)
 
 
+# K8's instantiations: (mode, flow field); each with and without a filter
+STEP2_MODES = [("nve", False), ("noiseless", False), ("noiseless", True), ("noisy", False),
+               ("noisy", True)]
+
+
+def _step2_method(mode, flow, sel, device):
+    kw = {"filter": az.md.filter.Type(["B"])} if sel else {}
+    if mode == "nve":
+        return IC.attached(az.md.methods.ConstantVolume(**kw), False, device)
+    if flow:
+        m = az.md.methods.LangevinFlow(kT=1.3, flow_field=az.flow.ParabolicFlow(2.0, IC.L / 2),
+                                       default_gamma=0.7, noiseless=mode == "noiseless", **kw)
+    else:
+        m = az.md.methods.Langevin(kT=1.3, default_gamma=0.7, noiseless=mode == "noiseless", **kw)
+    m.gamma["B"] = 1.9
+    return IC.attached(m, False, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("sel", [False, True])
+@pytest.mark.parametrize("mode,flow", STEP2_MODES)
+@pytest.mark.parametrize("n", [257, 82944])
+def test_step2_kernel_every_instantiation(cuda_device, n, mode, flow, sel, offset):
+    """Each of K8's ten instantiations (NVE, noiseless and noisy Langevin,
+    the Langevin ones with and without a flow field; each with and without
+    a filter's sel) against the plain step2, bit for bit, one launch; also
+    on a state whose fields are views one row into larger tensors."""
+    a = IC.slot_arrays(n + offset, n + 5)
+    state = IC.state_of(az, a, lambda x: torch.as_tensor(x, device=cuda_device)[offset:])
+    assert state.velocity.storage_offset() == 3 * offset
+    m = _step2_method(mode, flow, sel, cuda_device)
+    before = IK.launches_by_kernel.get("step2", 0)
+    got = m.step2(state, 0.005, 2**32 + 9, 12345)
+    assert IK.launches_by_kernel["step2"] == before + 1
+    want = m._step2_plain(state, 0.005, 2**32 + 9, 12345)
+    for k in ("velocity", "acceleration"):
+        _same_bits(getattr(got, k), getattr(want, k), f"{mode} flow={flow} sel={sel} {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flow", [False, True])
+def test_step2_kernel_many_types(cuda_device, flow):
+    """K8 with more gamma types than its block has threads (300, each
+    with its own gamma: the table is staged in shared memory in rounds)
+    against the plain step2, bit for bit."""
+    n, names = 4097, [f"T{k}" for k in range(300)]
+    a = IC.slot_arrays(n, 31)
+    g = np.random.default_rng(32)
+    a["typeid"] = np.where(a["tag"] >= 0, g.integers(0, len(names), n), -1).astype(np.int32)
+    state = IC.state_of(az, a, lambda x: torch.as_tensor(x, device=cuda_device))
+    if flow:
+        m = az.md.methods.LangevinFlow(kT=1.3, flow_field=az.flow.ParabolicFlow(2.0, IC.L / 2))
+    else:
+        m = az.md.methods.Langevin(kT=1.3)
+    for name in names:
+        m.gamma[name] = float(g.uniform(0.1, 3.0))
+    m = IC.attached(m, False, cuda_device, names)
+    assert m._gamma_table.unique().numel() == len(names)
+    got = m.step2(state, 0.005, 77, 12345)
+    want = m._step2_plain(state, 0.005, 77, 12345)
+    for k in ("velocity", "acceleration"):
+        _same_bits(getattr(got, k), getattr(want, k), f"flow={flow} {k}")
+
+
 @pytest.mark.cuda
 def test_integrate_kernels_refuse_what_they_cannot_take(cuda_device):
     state, _ = _slot_state(64, 0, cuda_device)
+    # K8 stages at most 8,192 gamma types (kStep2MaxTypes) in shared memory
+    big = IK.Noise(torch.ones(8193, device=cuda_device), RNG.Stream.LANGEVIN, 1, 0, 1.0, True)
+    with pytest.raises(RuntimeError, match="az_step2"):
+        IK.step2(state.tag, None, state.typeid, state.velocity, state.acceleration,
+                 state.net_force, state.mass, 0.005, big)
     with pytest.raises(TypeError, match="float32"):
         IK.step1(state.tag, None, state.position.double(), state.velocity, state.acceleration,
                  0.005)

@@ -58,10 +58,10 @@ def state_of(az, arrays: dict, asarray):
     return az.core.state.State(box=az.core.box.Box.from_lengths(L, L, L), **fields)
 
 
-def attached(method, rotational: bool, device="cpu"):
-    """``method`` attached as a simulation of types A and B would attach it."""
+def attached(method, rotational: bool, device="cpu", particle_types=("A", "B")):
+    """``method`` attached as a simulation of ``particle_types`` would attach it."""
     integ = types.SimpleNamespace(integrate_rotational_dof=rotational)
-    sim = types.SimpleNamespace(_particle_types=["A", "B"], device=device,
+    sim = types.SimpleNamespace(_particle_types=list(particle_types), device=device,
                                 operations=types.SimpleNamespace(integrator=integ))
     method._attach(sim)
     return method
