@@ -18,7 +18,13 @@ the mantissa, and ``normal`` is ``sqrt(2) * erfinv(u)`` with ``u`` uniform in
 PyTorch has no usable unsigned 32-bit arithmetic (``torch.uint32`` lacks
 add, shifts and ``minimum`` on the CPU), so the words travel as int64
 tensors holding values in [0, 2**32) and every add is masked back to 32
-bits. Keys and the timestep are Python ints, formed on the host.
+bits. Keys and the timestep are Python ints, formed on the host, except
+inside :func:`device_clock`: there a draw takes its key's timestep word
+from a clock on the card (a 0-d int64 tensor), so that a CUDA graph
+captured inside replays at whatever timestep the clock holds then. The
+kernels read the clock themselves (a pointer and an offset,
+:func:`_clock_args`); the plain versions add the offset to it as a tensor
+(:func:`_step_word`). Both give the host int's bits, past 2**32 too.
 
 Dispatch: ``particle_bits``, ``particle_uniform3`` and ``jax_normal`` take
 their plain PyTorch versions (``_particle_bits_plain``,
@@ -31,12 +37,15 @@ card's DPD kernel draws its own).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 __all__ = [
     "Stream",
     "FAST_ROUNDS",
+    "device_clock",
     "threefry2x32",
     "uniform_from_bits",
     "pair_uniform",
@@ -96,14 +105,16 @@ def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(k0, k1, c0, c1, rounds: int = 20):
     """Threefry-2x32 block cipher (random123 round and injection schedule).
 
-    The key words ``k0``/``k1`` are Python ints; the counters are tensors of
-    any integer dtype, or ints, read modulo 2**32 and broadcast together.
+    The key words ``k0``/``k1`` are Python ints (``k1`` may be a word
+    tensor: a timestep word read from the card's clock); the counters are
+    tensors of any integer dtype, or ints, read modulo 2**32 and broadcast
+    together.
     Returns two int64 tensors holding uint32 values (two ints when both
     counters are ints). A key injection follows every 4th round, never a
     trailing partial group.
     """
     k0 = int(k0) & _M32
-    k1 = int(k1) & _M32
+    k1 = _word(k1)
     x0 = (_word(c0) + k0) & _M32
     x1 = (_word(c1) + k1) & _M32
     k2 = k0 ^ k1 ^ _PARITY
@@ -130,10 +141,75 @@ def uniform_from_bits(bits: torch.Tensor, low=-1.0, high=1.0) -> torch.Tensor:
     return f * (high - low) + low
 
 
-def _key_words(stream: int, seed: int, timestep: int) -> tuple[int, int]:
-    """The two key words from (stream id, user seed, timestep)."""
+def _key_words(stream: int, seed: int, timestep: int, device=None) -> tuple:
+    """The two key words from (stream id, user seed, timestep). The second
+    is :func:`_step_word` on ``device``: an int, or under
+    :func:`device_clock` on that device a 0-d word tensor there."""
     k0 = ((int(stream) << 16) & _M32) ^ (int(seed) & _M32)
-    return k0, int(timestep) & _M32
+    return k0, _step_word(timestep, device)
+
+
+# the clock of device_clock(): (0-d int64 tensor, the timestep it holds at
+# capture), or None outside it
+_clock: tuple | None = None
+
+
+@contextlib.contextmanager
+def device_clock(clock: torch.Tensor, base: int):
+    """Key the draws on ``clock``'s device on the card's clock while inside.
+
+    ``clock`` is a 0-d int64 tensor that holds the timestep ``base`` when
+    the work inside runs; a draw at timestep ``t`` then takes the key word
+    ``(clock + t - base) mod 2**32``, read on the card by the kernels and
+    added as a tensor by the plain versions, never read on the host. Work
+    captured inside as a CUDA graph thus draws at the timestep the clock
+    holds when it is replayed (``Simulation``'s segment graphs).
+    """
+    global _clock
+    if clock.dtype != torch.int64 or clock.dim() != 0:
+        raise ValueError("the device clock is a 0-d int64 tensor")
+    prev, _clock = _clock, (clock, int(base))
+    try:
+        yield
+    finally:
+        _clock = prev
+
+
+def _clock_on(device) -> tuple | None:
+    """The active device clock when it lies on ``device``, else None."""
+    if _clock is None or device is None:
+        return None
+    clock, base = _clock
+    return _clock if clock.device == torch.device(device) else None
+
+
+def _offset(timestep: int, base: int) -> int:
+    off = int(timestep) - base
+    if not -(2**31) <= off < 2**31:
+        raise ValueError(f"timestep {timestep} lies {off} steps from the device clock's")
+    return off
+
+
+def _step_word(timestep: int, device=None):
+    """The key's timestep word: ``timestep mod 2**32`` as an int, or under
+    :func:`device_clock` on ``device`` the clock's word as a 0-d int64
+    tensor there (no host read)."""
+    c = _clock_on(device)
+    if c is None:
+        return int(timestep) & _M32
+    clock, base = c
+    return (clock + _offset(timestep, base)) & _M32
+
+
+def _clock_args(timestep: int, device) -> tuple:
+    """A kernel's clock arguments: ``(pointer to the clock, offset)`` under
+    :func:`device_clock` on ``device`` (the kernel keys on ``(uint32)(clock
+    + offset)``), else ``(None, 0)`` (it keys on the host's word)."""
+    c = _clock_on(device)
+    if c is None:
+        return None, 0
+    clock, base = c
+    return clock.data_ptr(), _offset(timestep, base)
 
 
 def pair_uniform(stream: int, seed, timestep, tag_a, tag_b, low=-1.0, high=1.0,
@@ -141,7 +217,7 @@ def pair_uniform(stream: int, seed, timestep, tag_a, tag_b, low=-1.0, high=1.0,
     """One uniform per pair, symmetric in (tag_a, tag_b)."""
     a = _u32(tag_a)
     b = _u32(tag_b)
-    k0, k1 = _key_words(stream, seed, timestep)
+    k0, k1 = _key_words(stream, seed, timestep, a.device)
     x0, _ = threefry2x32(k0, k1, torch.minimum(a, b), torch.maximum(a, b), rounds=rounds)
     return uniform_from_bits(x0, low, high)
 
@@ -185,7 +261,7 @@ def _particle_bits_plain(stream: int, seed, timestep, tag, n_words: int = 4):
     """The plain version of :func:`particle_bits`: the lanes are evaluated
     together as one leading batch axis."""
     tag = _u32(tag)
-    k0, k1 = _key_words(stream, seed, timestep)
+    k0, k1 = _key_words(stream, seed, timestep, tag.device)
     n_lanes = (n_words + 1) // 2
     lanes = torch.arange(n_lanes, dtype=torch.int64, device=tag.device)
     lanes = lanes.reshape((n_lanes,) + (1,) * tag.ndim)

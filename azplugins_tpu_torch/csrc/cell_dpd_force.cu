@@ -14,6 +14,9 @@
 // (min(tag_i, tag_j), max(tag_i, tag_j)): bitwise core/rng.py::pair_uniform
 // with rounds=FAST_ROUNDS. Tags are int32 and the timestep a uint32; the
 // reference's f32 tag planes and 16-bit timestep halves were TPU workarounds.
+// The timestep word comes from the host, or from a clock on the card
+// (az::step_word, read once a block), so a CUDA graph keys each replay on
+// the clock's timestep.
 //
 // Newton's third law holds term by term: the far side's separation and
 // velocity difference are the exact negations of the home side's, so dx.dv,
@@ -64,7 +67,8 @@ __global__ void __launch_bounds__(kThreads)
     cell_dpd_force_kernel(const float* __restrict__ pos, const float* __restrict__ vel,
                           const int* __restrict__ type_of, const int* __restrict__ tag,
                           const float* __restrict__ tab, int T, int Dx, int Dy, int Dz, int cap,
-                          az::Window win, BoxArgs box, uint32_t k0, uint32_t k1,
+                          az::Window win, BoxArgs box, uint32_t k0, uint32_t host_k1,
+                          const long long* __restrict__ clock, int offset,
                           az::PackedLayout lay,
                           float* __restrict__ force, float* __restrict__ energy,
                           float* __restrict__ virial) {
@@ -77,6 +81,7 @@ __global__ void __launch_bounds__(kThreads)
   float* part = reinterpret_cast<float*>(smem + lay.off_part);
   unsigned short* list = reinterpret_cast<unsigned short*>(smem + lay.off_list);
   const int t = threadIdx.x, TT = T * T;
+  const uint32_t k1 = az::step_word(host_k1, clock, offset);
   // the block's cell: the grid's (geometry), its own output cell, and (after
   // the plan) its window cell (inputs)
   const int out_cell = blockIdx.x, cell = win.c0 * Dz + out_cell;
@@ -239,7 +244,8 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns its CUDA error (0 = launched).
 // `tables` holds kNTab stacked [T, T] float32 tables (enum Tab); (k0, k1)
-// is the Threefry key. pos, vel, type_of and tag hold the window (w0,
+// is the Threefry key, its timestep word (uint32)(*clock + offset) instead
+// where `clock` (a device int64) is not null. pos, vel, type_of and tag hold the window (w0,
 // n_cols) of the grid; the outputs, the n_own columns from c0
 // (cell_stencil.cuh, Window). `energy` and `virial` are written only when
 // want_all != 0 (and may be null otherwise).
@@ -247,8 +253,8 @@ int az_cell_dpd_force(const float* pos, const float* vel, const int* type_of, co
                       const float* tables, int T, int Dx, int Dy, int Dz, int cap, int w0,
                       int n_cols, int c0, int n_own, float Lx, float Ly, float Lz, float xy,
                       float xz, float yz, float xyLy, float xzLz, float yzLz, uint32_t k0,
-                      uint32_t k1, int min_image, int want_all, float* force, float* energy,
-                      float* virial, void* stream) {
+                      uint32_t k1, const long long* clock, int offset, int min_image,
+                      int want_all, float* force, float* energy, float* virial, void* stream) {
   dim3 grid, block;
   az::PackedLayout lay;
   const az::Window win{w0, n_cols, c0, n_own};
@@ -262,7 +268,7 @@ int az_cell_dpd_force(const float* pos, const float* vel, const int* type_of, co
                                       : cell_dpd_force_kernel<false, false>);
   return (int)az::launch_packed(kernel, grid, block, lay, static_cast<cudaStream_t>(stream), pos,
                                 vel, type_of, tag, tables, T, Dx, Dy, Dz, cap, win, box, k0, k1,
-                                lay, force, energy, virial);
+                                clock, offset, lay, force, energy, virial);
 }
 
 const char* az_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

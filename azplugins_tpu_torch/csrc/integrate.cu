@@ -96,6 +96,9 @@
 //   the SMs' shares differ by one block at most (256 made 2.5 an SM).
 // - K7 and K9 take one thread a slot, the mask, the gamma lookup, the keys
 //   and the noise in registers.
+// - K8 and K9 key their draws on the host's timestep word, or on a clock on
+//   the card (Noise::clock, az::step_word: one more load before the hash),
+//   so that a CUDA graph of a rebuild segment draws anew at each replay.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -333,6 +336,8 @@ struct Noise {
   int n_types;
   int noisy;           // 0: the random force is +0
   uint32_t k0, k1;     // the stream's key (core/rng.py::_key_words)
+  const long long* clock;  // null, or the card's timestep: k1 = clock + offset
+  int offset;              // (az::step_word), so a CUDA graph's replays draw anew
   float width, low;    // the uniforms' float32 width and low end
   float kT, inv_dt;    // float32 kT and 1/dt
 };
@@ -382,7 +387,9 @@ __global__ void __launch_bounds__(kStep2Threads)
   const float g0 = LANGEVIN && t < nz.n_types ? __ldg(nz.table + t) : 0.0f;
   // the draw needs only the tag and the key: it runs while the loads fly
   float u[3] = {0.0f, 0.0f, 0.0f};
-  if constexpr (MODE == kNoisy) uniform3(nz.k0, nz.k1, tg, nz.width, nz.low, u);
+  if constexpr (MODE == kNoisy) {
+    uniform3(nz.k0, az::step_word(nz.k1, nz.clock, nz.offset), tg, nz.width, nz.low, u);
+  }
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     s_v[t + j * B] = xv[j];
@@ -585,7 +592,8 @@ __global__ void __launch_bounds__(kThreads)
       float rand[3] = {0.0f, 0.0f, 0.0f};
       if (nz.noisy) {
         float u[3];
-        uniform3(nz.k0, nz.k1, tag[i], nz.width, nz.low, u);
+        uniform3(nz.k0, az::step_word(nz.k1, nz.clock, nz.offset), tag[i], nz.width, nz.low,
+                 u);
         const float c = noise_scale(g, nz.kT, nz.inv_dt);
 #pragma unroll
         for (int k = 0; k < 3; ++k) rand[k] = mul(c, u[k]);
@@ -618,7 +626,9 @@ extern "C" {
 // Each entry point launches its kernel on `stream` and returns the CUDA
 // error (0 = launched). n > 0: the wrapper launches nothing for no slots.
 // Pointers are device pointers but for the gamma table's none (null);
-// `sel` is a filter's bool [n] or null (All()).
+// `sel` is a filter's bool [n] or null (All()); K8's and K9's `clock` is
+// null (the key's timestep word is k1) or a device int64 (the word is then
+// (uint32)(*clock + offset)).
 
 // K6. values null: the drift of pos [n, 3] from ref [n, 3] on tag [n];
 // else n values (squared drifts, -inf or NaN: the shards' top twos).
@@ -661,11 +671,12 @@ int az_step1(const int* tag, const bool* sel, const float* x, const float* v, co
 // 1 to kStep2MaxTypes types.
 int az_step2(const int* tag, const bool* sel, const int* type_id, const float* v, const float* a,
              const float* force, const float* mass, const float* flow, int n, float half_dt,
-             const float* gamma, int n_types, int noisy, uint32_t k0, uint32_t k1, float width,
-             float low, float kT, float inv_dt, float* v_out, float* a_out, void* stream) {
+             const float* gamma, int n_types, int noisy, uint32_t k0, uint32_t k1,
+             const long long* clock, int offset, float width, float low, float kT, float inv_dt,
+             float* v_out, float* a_out, void* stream) {
   if (n <= 0 || (gamma != nullptr && (n_types <= 0 || n_types > kStep2MaxTypes)))
     return (int)cudaErrorInvalidValue;
-  const Noise nz{gamma, n_types, noisy, k0, k1, width, low, kT, inv_dt};
+  const Noise nz{gamma, n_types, noisy, k0, k1, clock, offset, width, low, kT, inv_dt};
   const bool s = sel != nullptr, u = flow != nullptr;
   const Step2Kernel kernel =
       gamma == nullptr ? step2_instance<kNVE, false>(s)
@@ -684,11 +695,12 @@ int az_step2(const int* tag, const bool* sel, const int* type_id, const float* v
 int az_no_squish(int mode, const int* tag, const bool* sel, const int* type_id, const float* q,
                  const float* p, const float* inertia, const float* torque, int n, float dt,
                  float half_dt, const float* gamma_r, int n_types, int noisy, uint32_t k0,
-                 uint32_t k1, float width, float low, float kT, float inv_dt, float* q_out,
-                 float* p_out, float* torque_out, void* stream) {
+                 uint32_t k1, const long long* clock, int offset, float width, float low,
+                 float kT, float inv_dt, float* q_out, float* p_out, float* torque_out,
+                 void* stream) {
   if (n <= 0 || mode < 0 || mode > 2 || (mode == 2 && (gamma_r == nullptr || n_types <= 0)))
     return (int)cudaErrorInvalidValue;
-  const Noise nz{gamma_r, n_types, noisy, k0, k1, width, low, kT, inv_dt};
+  const Noise nz{gamma_r, n_types, noisy, k0, k1, clock, offset, width, low, kT, inv_dt};
   no_squish_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       mode, tag, sel, type_id, q, p, inertia, torque, n, dt, half_dt, nz, q_out, p_out,
       torque_out);

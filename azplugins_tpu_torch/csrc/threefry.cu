@@ -10,7 +10,9 @@
 //
 // K4 az_particle_bits / az_particle_uniform3: one thread a tag. The key
 // (k0, k1) = ((stream << 16) ^ seed, timestep) is formed on the host
-// (core/rng.py::_key_words) and passed by value; the counters are (tag as
+// (core/rng.py::_key_words) and passed by value, or its timestep word read
+// from a clock on the card (az::step_word: a CUDA graph's replays then key
+// on the clock's timestep); the counters are (tag as
 // uint32, lane) for lanes 0..ceil(n_words/2)-1. "words" writes n_words
 // words of 32 bits as int64 rows [n_words, n] (the plain version's dtype);
 // "uniform3" writes the words of lanes 0 (both) and 1 (the first) as three
@@ -60,10 +62,12 @@ struct ErfinvCoeffs {
 };
 
 __global__ void __launch_bounds__(kThreads)
-    particle_bits_kernel(const int* __restrict__ tag, int n, int n_words, uint32_t k0, uint32_t k1,
+    particle_bits_kernel(const int* __restrict__ tag, int n, int n_words, uint32_t k0,
+                         uint32_t host_k1, const long long* __restrict__ clock, int offset,
                          long long* __restrict__ words) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
+  const uint32_t k1 = az::step_word(host_k1, clock, offset);
   const uint32_t c0 = (uint32_t)__ldg(tag + i);
   for (int w = 0; w < n_words; w += 2) {
     const uint2 x = az::threefry2x32<kRounds>(k0, k1, c0, (uint32_t)(w / 2));
@@ -73,10 +77,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    particle_uniform3_kernel(const int* __restrict__ tag, int n, uint32_t k0, uint32_t k1,
-                             float width, float low, float* __restrict__ out) {
+    particle_uniform3_kernel(const int* __restrict__ tag, int n, uint32_t k0, uint32_t host_k1,
+                             const long long* __restrict__ clock, int offset, float width,
+                             float low, float* __restrict__ out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
+  const uint32_t k1 = az::step_word(host_k1, clock, offset);
   const uint32_t c0 = (uint32_t)__ldg(tag + i);
   const uint2 a = az::threefry2x32<kRounds>(k0, k1, c0, 0u);
   const uint2 b = az::threefry2x32<kRounds>(k0, k1, c0, 1u);
@@ -116,22 +122,24 @@ extern "C" {
 
 // Each entry point launches its kernel on `stream` and returns the CUDA
 // error (0 = launched). n > 0; the wrapper launches nothing for n = 0.
+// K4's `clock` is null (the key's timestep word is k1) or a device int64,
+// the word then (uint32)(*clock + offset) (az::step_word).
 
 // K4, words: `words` is int64 [n_words, n], row w the w-th word of each tag.
 int az_particle_bits(const int* tag, int n, int n_words, uint32_t k0, uint32_t k1,
-                     long long* words, void* stream) {
+                     const long long* clock, int offset, long long* words, void* stream) {
   if (n <= 0 || n_words <= 0) return (int)cudaErrorInvalidValue;
   particle_bits_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tag, n, n_words, k0, k1, words);
+      tag, n, n_words, k0, k1, clock, offset, words);
   return (int)cudaGetLastError();
 }
 
 // K4, uniform3: `out` is float32 [n, 3]; width = float32(high - low).
-int az_particle_uniform3(const int* tag, int n, uint32_t k0, uint32_t k1, float width, float low,
-                         float* out, void* stream) {
+int az_particle_uniform3(const int* tag, int n, uint32_t k0, uint32_t k1, const long long* clock,
+                         int offset, float width, float low, float* out, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   particle_uniform3_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tag, n, k0, k1, width, low, out);
+      tag, n, k0, k1, clock, offset, width, low, out);
   return (int)cudaGetLastError();
 }
 

@@ -38,6 +38,14 @@ __device__ __forceinline__ uint2 threefry2x32(uint32_t k0, uint32_t k1, uint32_t
   return make_uint2(x0, x1);
 }
 
+// The key's timestep word (core/rng.py::_step_word): the host's k1, or with
+// a device clock (a 0-d int64 on the card, core/rng.py::device_clock) the
+// low 32 bits of clock + offset, so a CUDA graph keys each replay on the
+// timestep the clock holds then. The same bits as the host's word.
+__device__ __forceinline__ uint32_t step_word(uint32_t k1, const long long* clock, int offset) {
+  return clock != nullptr ? (uint32_t)(__ldg(clock) + (long long)offset) : k1;
+}
+
 // core/rng.py::uniform_from_bits: 23 mantissa bits under exponent 0 give
 // [1, 2); then -1, x width, + low, each rounded on its own (no contraction),
 // as the plain version's three eager operations. width and low are the

@@ -1,0 +1,263 @@
+"""Rebuild segments as CUDA graphs: the port's counterpart of the reference's
+compiled chunk runner.
+
+The reference compiles a whole chunk of steps into one jitted
+``lax.fori_loop`` (``azplugins_tpu/simulation.py``: ``run_chunk``,
+``steps_span``, bound once with its force tables by ``_bind_tables``), so
+the host sees a chunk once. The port runs the same segments eagerly, a few
+dozen launches a step, each costing the host more than the card; here one
+rebuild segment (the optional rebuild, then L steps) becomes one CUDA graph,
+replayed with no host work between segments but the replay call.
+
+:class:`SegmentGraphs` owns fixed state buffers (the dense layout's slot
+tensors, its grid bookkeeping, the chunk's violation flag and a clock: the
+timestep on the card). A segment reads them, writes its results back into
+them and advances the clock, so successive replays chain. The first time a
+segment shape ``(L, rebuild)`` is seen it runs eagerly on the buffers (real
+work, which also builds every lazy device cache); the second time it is
+captured into the runner's one memory pool and replayed from then on. The
+draws key on the clock (``core/rng.py::device_clock``), not on a timestep
+frozen into the graph. Nothing falls back: a capture or replay that fails
+raises.
+
+:class:`Counters` keeps the host counters exact under replay: a capture
+records, by kernel, the launches its segment made (and the steps and force
+evaluations the simulation counted), takes them back, and every replay adds
+them again.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import gc
+import time
+
+import torch
+
+from .core import rng as _rng
+from .ops import aniso_kernel, dpd_kernel, integrate_kernel, pair_kernel, rng_kernel
+
+__all__ = ["Counters", "SegmentGraphs", "cuda_capture"]
+
+# (module, attribute) of every launch counter a kernel wrapper keeps: an int
+# or a dict of ints by kernel (or potential)
+_LAUNCH_COUNTERS = (
+    (pair_kernel, "launches"), (pair_kernel, "launches_by_potential"),
+    (dpd_kernel, "launches"), (aniso_kernel, "launches"),
+    (rng_kernel, "launches"), (rng_kernel, "launches_by_kernel"),
+    (integrate_kernel, "launches"), (integrate_kernel, "launches_by_kernel"),
+)
+# the simulation's own counters a segment advances
+_SIM_COUNTERS = ("steps_run", "force_evaluations")
+
+
+class Counters:
+    """The host counters a segment advances: the kernel wrappers' launch
+    counts and ``sim``'s steps and force evaluations."""
+
+    def __init__(self, sim):
+        self._targets = [*_LAUNCH_COUNTERS, *((sim, a) for a in _SIM_COUNTERS)]
+
+    def read(self) -> list:
+        """Every counter's value (dicts copied)."""
+        return [dict(v) if isinstance(v := getattr(o, a), dict) else v
+                for o, a in self._targets]
+
+    def since(self, before: list) -> list:
+        """What each counter gained since ``before`` (a :meth:`read`)."""
+        out = []
+        for now, was in zip(self.read(), before, strict=True):
+            if isinstance(now, dict):
+                now = {k: n - was.get(k, 0) for k, n in now.items() if n != was.get(k, 0)}
+            else:
+                now = now - was
+            out.append(now)
+        return out
+
+    def restore(self, values: list) -> None:
+        """Set every counter back to ``values`` (a dict keeps its object)."""
+        for (o, a), v in zip(self._targets, values, strict=True):
+            if isinstance(v, dict):
+                d = getattr(o, a)
+                d.clear()
+                d.update(v)
+            else:
+                setattr(o, a, v)
+
+    def add(self, delta: list) -> None:
+        """Add ``delta`` (a :meth:`since`) to every counter."""
+        for (o, a), v in zip(self._targets, delta, strict=True):
+            if isinstance(v, dict):
+                d = getattr(o, a)
+                for k, n in v.items():
+                    d[k] = d.get(k, 0) + n
+            else:
+                setattr(o, a, getattr(o, a) + v)
+
+
+def cuda_capture(runner: "SegmentGraphs", fn):
+    """Capture ``fn`` into a ``torch.cuda.CUDAGraph`` in the runner's pool.
+    A synchronising call inside raises (``set_sync_debug_mode("error")``),
+    as does anything else the capture refuses; the graph's work has not run
+    when this returns. Python's cyclic collector is held off meanwhile: it
+    may free another simulation's graphs, which a capture forbids. The
+    device memory the capture reserves is counted as the pool's."""
+    graph = torch.cuda.CUDAGraph()
+    dev = runner.clock.device
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=runner.pool):
+            reserved = torch.cuda.memory_reserved(dev)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+    finally:
+        if collecting:
+            gc.enable()
+    runner._count("pool_bytes", torch.cuda.memory_reserved(dev) - reserved)
+    return graph
+
+
+def _tensor_fields(x) -> list[str]:
+    return [f.name for f in dataclasses.fields(x) if isinstance(getattr(x, f.name), torch.Tensor)]
+
+
+def _clone(x, skip=()):
+    """A dataclass of tensors with every tensor field but ``skip`` cloned."""
+    return x.replace(**{n: getattr(x, n).clone() for n in _tensor_fields(x) if n not in skip})
+
+
+def _copy_into(dst, src, skip=()) -> None:
+    """Copy ``src``'s tensor fields (but ``skip``) into ``dst``'s, in place."""
+    for n in _tensor_fields(dst):
+        if n in skip:
+            continue
+        d, s = getattr(dst, n), getattr(src, n)
+        if d is not s:
+            d.copy_(s)
+
+
+# State fields that are not slot arrays: the bonds stay the simulation's own
+_FIXED = ("bond_typeid", "bond_group")
+
+
+class SegmentGraphs:
+    """Rebuild segments of one layout as CUDA graphs on fixed buffers.
+
+    ``segment(dense, meta, viol, t0, n_steps, rebuild)`` runs one segment
+    (``Simulation._run_segment`` on a whole layout) and returns ``(dense,
+    meta, viol)``; it makes no host read. ``key`` is what the graphs are
+    bound to (grid spec and cap, the operations' fingerprint, the force
+    tables' identity, rotational or not); a graph is found under ``(L,
+    rebuild)`` within it. At most ``max_graphs`` graphs are kept, the least
+    recently replayed dropped first. ``capture(runner, fn)`` records ``fn``
+    as a graph with ``replay()`` (:func:`cuda_capture` on CUDA; tests
+    inject a stand-in). ``captures``, ``capture_seconds`` (host time in
+    captures), ``replays``, ``eager_segments`` and ``pool_bytes`` (the device
+    memory reserved during captures) describe the cache; each is also added
+    to ``totals`` (a dict that outlives runners).
+    """
+
+    def __init__(self, key, segment, dense, meta, counters: Counters, capture=None,
+                 max_graphs: int = 32, totals: dict | None = None):
+        self.key = key
+        self._segment = segment
+        self._counters = counters
+        self._capture = capture if capture is not None else cuda_capture
+        self.max_graphs = int(max_graphs)
+        dev = dense.device
+        self.dense = _clone(dense, skip=_FIXED)
+        self.meta = _clone(meta)
+        self.viol = torch.zeros((), dtype=torch.bool, device=dev)
+        self.clock = torch.zeros((), dtype=torch.int64, device=dev)
+        self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        # (n_steps, rebuild) -> (graph, counter delta a replay adds)
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._seen: set = set()
+        self.captures = self.replays = self.eager_segments = self.pool_bytes = 0
+        self.capture_seconds = 0.0
+        self._totals = totals if totals is not None else {}
+
+    def _count(self, name: str, n: int = 1) -> None:
+        setattr(self, name, getattr(self, name) + n)
+        self._totals[name] = self._totals.get(name, 0) + n
+
+    def graph_keys(self) -> list:
+        """The ``(L, rebuild)`` of every graph held, least recent first."""
+        return list(self._graphs)
+
+    def buffers(self) -> list[torch.Tensor]:
+        """Every tensor a segment reads and writes."""
+        return ([getattr(self.dense, n) for n in _tensor_fields(self.dense) if n not in _FIXED]
+                + [getattr(self.meta, n) for n in _tensor_fields(self.meta)]
+                + [self.viol, self.clock])
+
+    def load(self, dense, meta, t0: int) -> None:
+        """Start a chunk: the layout into the buffers, the violation flag
+        cleared, the clock at ``t0``."""
+        _copy_into(self.dense, dense, skip=_FIXED)
+        _copy_into(self.meta, meta)
+        self.viol.zero_()
+        self.clock.fill_(int(t0))
+
+    def result(self) -> tuple:
+        """``(dense, meta, viol)``: the buffers cloned into tensors the
+        caller owns (the next replay overwrites the buffers)."""
+        return _clone(self.dense, skip=_FIXED), _clone(self.meta), self.viol.clone()
+
+    def _body(self, t0: int, n_steps: int, rebuild: bool):
+        """The work of one segment on the buffers: what is captured."""
+
+        def body():
+            with _rng.device_clock(self.clock, t0):
+                dense, meta, viol = self._segment(self.dense, self.meta, self.viol, t0,
+                                                  n_steps, rebuild)
+            _copy_into(self.dense, dense, skip=_FIXED)
+            _copy_into(self.meta, meta)
+            if viol is not self.viol:
+                self.viol.copy_(viol)
+            self.clock.add_(n_steps)
+
+        return body
+
+    def run(self, t0: int, n_steps: int, rebuild: bool) -> None:
+        """Run one segment from timestep ``t0`` (the clock holds it): eagerly
+        the first time its shape is seen, then as a graph."""
+        key = (int(n_steps), bool(rebuild))
+        entry = self._graphs.get(key)
+        if entry is None:
+            body = self._body(t0, n_steps, rebuild)
+            if key not in self._seen:
+                self._seen.add(key)
+                self._count("eager_segments")
+                body()
+                return
+            entry = self._record(body)
+            self._graphs[key] = entry
+            while len(self._graphs) > self.max_graphs:
+                self._graphs.popitem(last=False)
+        else:
+            self._graphs.move_to_end(key)
+        graph, delta = entry
+        graph.replay()
+        self._counters.add(delta)
+        self._count("replays")
+
+    def _record(self, body) -> tuple:
+        """Capture ``body``; the counters it moved are taken back and
+        returned as what each replay adds."""
+        before = self._counters.read()
+        t0 = time.perf_counter()
+        try:
+            graph = self._capture(self, body)
+        finally:
+            delta = self._counters.since(before)
+            self._counters.restore(before)
+        self._count("captures")
+        self._count("capture_seconds", time.perf_counter() - t0)
+        return graph, delta

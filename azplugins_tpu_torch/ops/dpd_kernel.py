@@ -56,7 +56,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         fn.argtypes = ([p, p, p, p, p, i, i, i, i, i, i, i, i, i] + [f] * 9
-                       + [u, u, i, i, p, p, p, p])
+                       + [u, u, p, i, i, i, p, p, p, p])
         fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
@@ -69,7 +69,9 @@ def cell_dpd_force(dense: State, spec: GridSpec, tables: torch.Tensor, seed: int
 
     ``tables`` comes from :func:`dpd_kernel_tables`. ``dense.velocity`` is
     read as it stands: on the step path, the half-step velocity after
-    step1, as the reference's force evaluation reads it. Returns per-slot
+    step1, as the reference's force evaluation reads it. Under
+    :func:`~azplugins_tpu_torch.core.rng.device_clock` the draw's timestep
+    word is read from the clock on the card. Returns per-slot
     force ``[S, 3]``, plus energy ``[S]`` and virial ``[S, 6]`` when
     ``want="all"``; with a ``window``, read from ``window.state``, for its
     own slots.
@@ -92,7 +94,8 @@ def cell_dpd_force(dense: State, spec: GridSpec, tables: torch.Tensor, seed: int
         err = lib.az_cell_dpd_force(
             dense.position.data_ptr(), dense.velocity.data_ptr(), dense.typeid.data_ptr(),
             dense.tag.data_ptr(), tables.data_ptr(), T, *spec.dims, spec.cap, *geom,
-            *box_args(dense), k0, k1, int(not spec.newton_ok), int(want_all),
+            *box_args(dense), k0, k1, *_rng._clock_args(timestep, dev),
+            int(not spec.newton_ok), int(want_all),
             force.data_ptr(),
             energy.data_ptr() if want_all else None,
             virial.data_ptr() if want_all else None,

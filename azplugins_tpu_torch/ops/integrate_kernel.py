@@ -35,7 +35,9 @@ rounded on its own, in the plain version's order, with the float32 scalars
 PyTorch forms from the Python ones (:func:`step_args`). A launch runs on
 the tensors' device and its current stream, with no synchronisation and no
 host-to-device copy; outputs are new tensors (``torch.empty_like``), so a
-method never writes the State it was given. An empty layout launches
+method never writes the State it was given. Under
+:func:`~azplugins_tpu_torch.core.rng.device_clock` K8 and K9 read their
+draws' timestep word from the clock on the card. An empty layout launches
 nothing.
 """
 
@@ -72,10 +74,10 @@ def _library() -> ctypes.CDLL:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         lib.az_drift_check.argtypes = [p, p, p, p, i, f, p, p, p, p, p, p]
         lib.az_step1.argtypes = [p, p, p, p, p, i, f, f, p, p, p]
-        lib.az_step2.argtypes = [p, p, p, p, p, p, p, p, i, f, p, i, i, u, u, f, f, f, f, p, p,
-                                 p]
-        lib.az_no_squish.argtypes = [i, p, p, p, p, p, p, p, i, f, f, p, i, i, u, u, f, f, f, f,
-                                     p, p, p, p]
+        lib.az_step2.argtypes = [p, p, p, p, p, p, p, p, i, f, p, i, i, u, u, p, i, f, f, f, f,
+                                 p, p, p]
+        lib.az_no_squish.argtypes = [i, p, p, p, p, p, p, p, i, f, f, p, i, i, u, u, p, i, f, f,
+                                     f, f, p, p, p, p]
         lib.az_drift_max_blocks.argtypes = []
         for fn in (lib.az_drift_check, lib.az_step1, lib.az_step2, lib.az_no_squish,
                    lib.az_drift_max_blocks):
@@ -145,25 +147,31 @@ def step_args(dt: float) -> tuple[float, float, float]:
 
 
 def _noise_args(noise: Noise | None, dev, dt: float) -> tuple:
-    """The C arguments (gamma, n_types, noisy, k0, k1, width, low, kT,
-    inv_dt) of ``noise``, or of no Langevin force."""
+    """The C arguments (gamma, n_types, noisy, k0, k1, clock, offset, width,
+    low, kT, inv_dt) of ``noise``, or of no Langevin force. Under
+    :func:`~azplugins_tpu_torch.core.rng.device_clock` the kernel reads the
+    key's timestep word from the clock on the card."""
     if noise is None:
-        return (None, 0, 0, 0, 0, 0.0, 0.0, 0.0, 0.0)
+        return (None, 0, 0, 0, 0, None, 0, 0.0, 0.0, 0.0, 0.0)
     table = _checked(noise.table, "gamma", torch.float32, (noise.table.numel(),), dev)
     k0, k1 = _rng._key_words(noise.stream, noise.seed, noise.timestep)
     width, low = uniform_args(-1.0, 1.0)
-    return (table.data_ptr(), table.numel(), int(noise.noisy), k0, k1, width, low,
-            float(np.float32(noise.kT)), step_args(dt)[2])
+    return (table.data_ptr(), table.numel(), int(noise.noisy), k0, k1,
+            *_rng._clock_args(noise.timestep, dev), width, low, float(np.float32(noise.kT)),
+            step_args(dt)[2])
 
 
 # -- K6 ----------------------------------------------------------------------
-# (device, stream) -> (partials, counter): the last-block-done scratch, the
-# counter zeroed once here and reset by the kernel's last block
-_scratch: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+# device -> (partials, counter): the last-block-done scratch, the counter
+# zeroed once here and reset by the kernel's last block. One a device: the
+# port runs its drift checks one after another on a device, eagerly or in a
+# CUDA graph replayed on the same stream, so a capture (on its own stream)
+# reuses the scratch and allocates nothing
+_scratch: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _drift_scratch(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    key = torch.device(dev)
     got = _scratch.get(key)
     if got is None:
         blocks = _library().az_drift_max_blocks()

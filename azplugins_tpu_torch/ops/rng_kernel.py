@@ -22,7 +22,10 @@ Their plain PyTorch versions are ``core/rng.py``'s ``_particle_bits_plain``,
 ``_particle_uniform3_plain`` and ``_jax_normal_plain``. The public
 functions of ``core/rng.py`` dispatch here for CUDA tensors; a launch runs
 on the current stream, with no synchronisation and no host-to-device copy
-(the keys and constants are kernel arguments). An empty draw launches
+(the keys and constants are kernel arguments). Under
+:func:`~azplugins_tpu_torch.core.rng.device_clock` K4 reads its key's
+timestep word from the clock on the card (a CUDA graph's replays draw at
+the clock's timestep), bitwise the host word's. An empty draw launches
 nothing.
 """
 
@@ -52,8 +55,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library(_SOURCE)
     if lib.az_particle_bits.argtypes is None:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-        lib.az_particle_bits.argtypes = [p, i, i, u, u, p, p]
-        lib.az_particle_uniform3.argtypes = [p, i, u, u, f, f, p, p]
+        lib.az_particle_bits.argtypes = [p, i, i, u, u, p, i, p, p]
+        lib.az_particle_uniform3.argtypes = [p, i, u, u, p, i, f, f, p, p]
         lib.az_jax_normal.argtypes = [ctypes.c_int64, u, u, f, f, f, p, p, p]
         for fn in (lib.az_particle_bits, lib.az_particle_uniform3, lib.az_jax_normal):
             fn.restype = ctypes.c_int
@@ -119,7 +122,7 @@ def particle_bits(stream: int, seed, timestep, tag: torch.Tensor, n_words: int =
     if n:
         k0, k1 = _rng._key_words(stream, seed, timestep)
         _launch("particle_bits", "az_particle_bits", dev, flat.data_ptr(), n, n_words, k0, k1,
-                words.data_ptr())
+                *_rng._clock_args(timestep, dev), words.data_ptr())
     return tuple(words.reshape((n_words,) + tuple(tag.shape)).unbind(0))
 
 
@@ -132,8 +135,8 @@ def particle_uniform3(stream: int, seed, timestep, tag: torch.Tensor, low=-1.0,
     if n:
         k0, k1 = _rng._key_words(stream, seed, timestep)
         width, low32 = uniform_args(low, high)
-        _launch("particle_bits", "az_particle_uniform3", dev, flat.data_ptr(), n, k0, k1, width,
-                low32, out.data_ptr())
+        _launch("particle_bits", "az_particle_uniform3", dev, flat.data_ptr(), n, k0, k1,
+                *_rng._clock_args(timestep, dev), width, low32, out.data_ptr())
     return out
 
 

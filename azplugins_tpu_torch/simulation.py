@@ -79,6 +79,18 @@ Profiling. Inside ``with sim.profile(logdir):`` the step loop marks its
 phases as ``torch.profiler.record_function`` ranges named after the
 reference's scopes; outside it no range is entered.
 
+The runner. The reference compiles a chunk into one jitted loop
+(``run_chunk``, ``steps_span``, ``_bind_tables``); the port's counterpart
+runs a chunk as rebuild segments (:meth:`Simulation._run_segment`: the
+optional rebuild, then L steps, with no host read). On CUDA, for a whole
+layout with no updater (an MPCD coupling is one) and only ``Constant``
+variants, each segment is a CUDA graph (graph.py, bound by
+:meth:`Simulation._build_runner`): captured the second time its shape is
+seen, replayed after that, its draws keyed on a clock on the card. Every
+other simulation, and every run inside :meth:`Simulation.profile`, runs the
+segments eagerly; the choice is made from the operations, never from a
+failure. Either way the trajectory is the same, bit for bit.
+
 Capacity tune. At the absolute timestep ``auto_tune_after`` (200 by
 default) the run right-sizes the cell capacity to the equilibrated
 occupancy and resets the rebuild interval from the fastest particle
@@ -116,6 +128,35 @@ def _as_shards(x) -> tuple:
 def _no_range(name: str):
     """The step loop's phase scope outside a profile: enters nothing."""
     return _NO_RANGE
+
+def _host_fingerprint(x):
+    """A comparable image of host tables: dicts by key, arrays (and CPU
+    tensors) by dtype, shape and bytes, scalars as they are."""
+    if isinstance(x, dict):
+        return tuple((k, _host_fingerprint(v)) for k, v in sorted(x.items()))
+    if isinstance(x, torch.Tensor):
+        x = x.numpy()
+    if isinstance(x, np.ndarray):
+        return x.dtype.str, x.shape, x.tobytes()
+    return x
+
+
+def _tables_fingerprint(force) -> tuple:
+    """What a force's device tables are made from: the force itself, its
+    mode and its host tables."""
+    return (id(force), type(force).__name__, getattr(force, "mode", None),
+            _host_fingerprint(getattr(force, "_tbl", None)))
+
+
+def _segments(n_steps: int, seg_len: int, rebin_first: bool):
+    """A chunk's rebuild segments, ``(first step, steps, rebuild)``: with
+    ``rebin_first`` one at chunk-relative steps 0, seg_len, 2 seg_len, ...,
+    each rebuilding first; else one continuing the previous chunk's
+    segment (the reference's ``steps_span``)."""
+    if not rebin_first:
+        return [(0, n_steps, False)]
+    return [(a, min(seg_len, n_steps - a), True) for a in range(0, n_steps, seg_len)]
+
 
 # absolute-timestep quantum for rebuild-interval adaptation: the interval
 # changes only at multiples of this, so the rebuild schedule is a pure
@@ -273,6 +314,18 @@ class Simulation:
         self._spatial_migrate_cap: int | None = None
         # the step loop's phase scope: record_function inside profile()
         self._phase_range = _no_range
+        # the segment graphs (graph.SegmentGraphs, _build_runner) where
+        # _graphs_apply(); _eager keeps the eager loop on the card (the
+        # graphs' plain version, held against them by chip_smoke.py and the
+        # CUDA tests); _capture stands in for the CUDA capture (the CPU
+        # tests)
+        self._runner = None
+        self._eager = False
+        self._capture = None
+        # captures, replays, eager_segments, pool_bytes over every runner
+        self._graph_totals: dict = {}
+        # (host fingerprint, device tables, the forces): _force_tables' cache
+        self._tables = None
 
     # -- state management ------------------------------------------------
     def create_state_from_snapshot(self, snapshot: Snapshot):
@@ -388,6 +441,13 @@ class Simulation:
     def _invalidate(self):
         self._attached = False
         self._prepared = False
+        self._tables = None
+        self._drop_runner()
+
+    def _drop_runner(self):
+        """Drop the segment graphs and their buffers: shapes or pointers
+        they were captured with may change."""
+        self._runner = None
 
     # -- attach ------------------------------------------------------------
     def _forces(self):
@@ -627,6 +687,7 @@ class Simulation:
         across an explicit one.
         """
         self._auto_tuned = True
+        self._drop_runner()
         if self._grid_spec is None or self._state is None:
             return
         state = self._synced_state()
@@ -652,6 +713,7 @@ class Simulation:
         capacity sits one quantum above the equilibrated occupancy, so it
         grows by one quantum at a time.
         """
+        self._drop_runner()
         state = self._synced_state()
         if not self._auto_tuned and needed > self._grid_spec.cap:
             cap = int(math.ceil((needed + 8) / 8.0) * 8)
@@ -670,19 +732,31 @@ class Simulation:
 
     def _force_tables(self) -> tuple:
         """Each force's device tables, one such tuple a shard (one for a
-        whole layout), on the shard's device."""
+        whole layout), on the shard's device.
+
+        The host tables are rebuilt from the parameters at every call; the
+        device tables are made anew only when their host fingerprint (the
+        forces, their modes and table bytes, the devices) changes, so
+        successive runs reuse the same tensors (and the segment graphs the
+        pointers they baked in) and copy nothing to the device. New tables
+        drop the segment graphs."""
         from .parallel.mesh import _key
 
-        forces = self._forces()
+        forces = tuple(self._forces())
         for f in forces:
             f._build_tables(self)
         devices = self._spatial_mesh.devices if self._sharded() else (self.device,)
-        by_device = {}
-        for d in devices:
-            # once a device: each copy of a host table waits for the stream
-            if _key(d) not in by_device:
-                by_device[_key(d)] = tuple(f._device_tables(d) for f in forces)
-        return tuple(by_device[_key(d)] for d in devices)
+        fp = (tuple(_key(d) for d in devices), tuple(_tables_fingerprint(f) for f in forces))
+        if self._tables is None or self._tables[0] != fp:
+            by_device = {}
+            for d in devices:
+                # once a device: each copy of a host table waits for the stream
+                if _key(d) not in by_device:
+                    by_device[_key(d)] = tuple(f._device_tables(d) for f in forces)
+            # the forces ride along: their id()s are in fp
+            self._tables = (fp, tuple(by_device[_key(d)] for d in devices), forces)
+            self._drop_runner()
+        return self._tables[1]
 
     def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls, window=None,
                      partners=None):
@@ -812,6 +886,7 @@ class Simulation:
                 f"the mesh's blocks lie on {devices[0]}, the simulation on {self.device}"
             )
         self._spatial_mesh, self._spatial_migrate_cap = mesh, migrate_cap
+        self._drop_runner()
         spec = self._grid_spec
         if self._attached and spec is not None and (spec.dims[0] * spec.dims[1]) % mesh.size:
             # regrid at the next attach; pull the positions out of the dense
@@ -835,7 +910,9 @@ class Simulation:
         ``verlet_drift_check`` (with a grid), ``forces``,
         ``integrate_step2`` (each once a step), ``updaters`` (a step where
         an updater fires) and ``mpcd_joint_collision`` (once a collision).
-        Yields the ``torch.profiler.profile``."""
+        Inside it the rebuild segments run eagerly, never as CUDA graphs, so
+        that every phase's range holds its own launches. Yields the
+        ``torch.profiler.profile``."""
         from torch.profiler import ProfilerActivity, tensorboard_trace_handler
 
         activities = [ProfilerActivity.CPU]
@@ -867,9 +944,35 @@ class Simulation:
         velocity, t_a)``; the joint collision after step t (when the
         coupling's trigger holds at t, at MD clock t + 1) moves it.
         Returns ``(dense, meta, violated, solv)`` with ``violated`` a device
-        bool. Inside :meth:`profile`, each phase that does work is a range
-        named after the reference's scope.
+        bool and ``dense`` and ``meta`` tensors of their own. Each segment
+        is a CUDA graph where :meth:`_graphs_apply`, else runs eagerly
+        (:meth:`_run_segment`).
         """
+        segments = _segments(n_steps, seg_len, rebin_first)
+        if self._graphs_apply():
+            runner = self._build_runner(tbls)
+            runner.load(dense, meta, t0)
+            for a, n, rebuild in segments:
+                runner.run(t0 + a, n, rebuild)
+            dense, meta, viol = runner.result()
+            return dense, meta, viol, solv
+        shards, metas = _as_shards(dense), _as_shards(meta)
+        viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
+        for a, n, rebuild in segments:
+            shards, metas, viol, solv = self._run_segment(shards, metas, viol, t0 + a, n,
+                                                          rebuild, tbls, solv)
+        return self._as_layout(shards), self._as_layout(metas), viol, solv
+
+    def _run_segment(self, shards: tuple, metas: tuple, viol, t0: int, n_steps: int,
+                     rebuild: bool, tbls, solv=None) -> tuple:
+        """One rebuild segment (the reference's ``seg_body``): the grid
+        rebuild when ``rebuild``, then ``n_steps`` steps from timestep
+        ``t0``, each step1 -> the drift check ORed into ``viol`` -> forces ->
+        step2 -> the updaters and the joint collision that fire after it.
+        Makes no host read, so that it can be captured as a CUDA graph.
+        Returns ``(shards, metas, viol, solv)``. Inside :meth:`profile`,
+        each phase that does work is a range named after the reference's
+        scope."""
         spec = self._grid_spec
         scope = self._phase_range
         integ = self.operations.integrator
@@ -880,14 +983,11 @@ class Simulation:
         mass_s = self._mpcd["mass"] if coupling is not None else None
         dt = self.dt_ref()
         seed = self.seed
-        shards, metas = _as_shards(dense), _as_shards(meta)
-        viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
-        for j in range(n_steps):
-            t = t0 + j
+        if spec is not None and rebuild:
+            with scope("rebin"):
+                shards, metas = self._rebuild(shards, metas)
+        for t in range(t0, t0 + n_steps):
             self.steps_run += 1
-            if spec is not None and rebin_first and j % seg_len == 0:
-                with scope("rebin"):
-                    shards, metas = self._rebuild(shards, metas)
             with scope("integrate_step1"):
                 for m in methods:
                     shards = tuple(m.step1(s, dt, t, seed) for s in shards)
@@ -907,7 +1007,57 @@ class Simulation:
             if coupling is not None and coupling.trigger(t):
                 with scope("mpcd_joint_collision"):
                     shards, solv = coupling._collide(shards, solv, t + 1, seed, mass_s)
-        return self._as_layout(shards), self._as_layout(metas), viol, solv
+        return shards, metas, viol, solv
+
+    def _graphs_apply(self) -> bool:
+        """Whether this run's segments are CUDA graphs: on the card (or
+        with a stand-in capture), not ``_eager``, outside :meth:`profile`,
+        and :meth:`_graph_eligible`."""
+        return (not self._eager and (self.device.type == "cuda" or self._capture is not None)
+                and self._phase_range is _no_range and self._graph_eligible())
+
+    def _graph_eligible(self) -> bool:
+        """The rule on the operations: a whole layout (no sharded mesh), an
+        integrator, no updater (an MPCD coupling is one: their firings are
+        host decisions inside a segment), only ``Constant`` variants (their
+        values are baked into a graph) and only the flow fields of
+        ``flow.py``."""
+        from .core.variant import Constant, Variant
+        from .flow import FlowField
+
+        integ = self.operations.integrator
+        if self._sharded() or integ is None or self.operations.updaters:
+            return False
+        for op in (*integ.methods, *integ.forces):
+            for v in vars(op).values():
+                if isinstance(v, Variant) and not isinstance(v, Constant):
+                    return False
+            flow = getattr(op, "flow_field", None)
+            if flow is not None and not isinstance(flow, FlowField):
+                return False
+        return True
+
+    def _build_runner(self, tbls):
+        """The segment graphs of this layout, bound to ``tbls`` (the
+        reference's ``_build_runner`` and ``_bind_tables``): the one held
+        when its key (grid spec and cap, payload fields, the operations'
+        fingerprint, the tables' identity, rotational or not) still holds,
+        else a new one on buffers shaped like the current layout."""
+        from .graph import Counters, SegmentGraphs
+
+        key = (self._grid_spec, self._fields, self._ops_fp, id(tbls), self._rotational(),
+               self._dense.N, self._state.N)
+        if self._runner is not None and self._runner.key == key:
+            return self._runner
+
+        def segment(dense, meta, viol, t0, n_steps, rebuild):
+            (dense,), (meta,), viol, _ = self._run_segment((dense,), (meta,), viol, t0, n_steps,
+                                                           rebuild, tbls)
+            return dense, meta, viol
+
+        self._runner = SegmentGraphs(key, segment, self._dense, self._meta, Counters(self),
+                                     capture=self._capture, totals=self._graph_totals)
+        return self._runner
 
     def _rebuild(self, shards: tuple, metas: tuple) -> tuple:
         """The grid rebuild: the global rebin on a whole layout, the

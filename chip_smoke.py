@@ -28,12 +28,16 @@
    csrc/threefry.cu against their plain versions on the card: K4
    (particle_bits, particle_uniform3) bitwise at 64,000, 82,944 and 20,239
    tags (-1 and 2**31 - 1 among them), 1-8 words, three uniform ranges,
-   three streams, two timesteps (one above 2**32); K5 (jax_normal) within
+   three streams, two timesteps (one above 2**32), and in its clock form
+   (the timestep read from the card, core/rng.py's device_clock) at
+   CLOCK_STEPS; K5 (jax_normal) within
    1 ulp at the three MPCD paths' collision grids, its maximum printed;
    runs BrownianFlow through the public API; times K4 at the headline's
    slots and K5 at each grid against their plain versions and bounds;
 5. runs, through the public API, each with the launch counts set to 0 just
-   before it and read just after:
+   before it and read just after (configs 1-4 and every other simulation
+   that qualifies run their rebuild segments as CUDA graphs, and print
+   their captures and replays):
    - the 64k perturbed-LJ Langevin headline (the JAX package's bench
      headline, BASELINE config 1), then [integrate] on its state (below),
      then [profile] 20 of its steps under Simulation.profile: the trace's
@@ -80,6 +84,17 @@
      bonds + ExpandedYukawa, Langevin);
    - the patchy colloids (BASELINE config 4, 27,000 TwoPatchMorse
      particles, Langevin with NO_SQUISH rotation);
+   - [graph] the headline, the polymer melt, the DPD fluid and the patchy
+     colloids at full size, each built three times from one seed: two
+     run the eager loop (the private Simulation._eager), one the CUDA
+     graphs; GRAPH_STEPS steps each, then turns of GRAPH_STEPS (eager,
+     graph, graph, eager), the second eager run keeping pace: the graph
+     run equal to the eager one bit for bit wherever the two eager runs
+     are (both differences printed), launch counts exact under replay,
+     at least GRAPH_LEAST_REPLAYS replays; ms/step both ways, host us a
+     step, device operations and busy ms a step, captures, replays and
+     the pool's MB; K2, K4, K8 and K9 in their clock forms bitwise their
+     host forms at CLOCK_STEPS;
    - the evaporating droplet (BASELINE config 5, 20,239 particles: a
      two-type PLJ liquid inside a shrinking SphereArea barrier, an LJ93
      wall, a ParticleEvaporator firing every 25 steps, Langevin in a
@@ -120,7 +135,8 @@
    bitwise (K9 within NO_SQUISH_ULP ulp, its worst printed): the path's
    method and ConstantVolume, a noiseless Langevin and one under a Type
    filter (the droplet: its LangevinFlow's flow field under a Type filter),
-   step1 and step2, the patchy state also with frozen axes; K6 on each
+   step1 and step2 (step2 also in its clock form), the patchy state also
+   with frozen axes; K6 on each
    layout with the violation flag clear and set, and at the headline on a
    NaN drift, an exact tie at the maximum and 4 shards; each kernel's ms
    against its plain ms and its bound (K6-K8 at the headline's slots, K8
@@ -247,6 +263,13 @@ INTEGRATE_REPLACES = {
 }
 # K9's bar in ulp against its plain version (K6-K8 are held bitwise)
 NO_SQUISH_ULP = 0
+# [graph]: turns of GRAPH_STEPS steps, eager against CUDA graphs, compared
+# on GRAPH_FIELDS; the graph turns replay at least GRAPH_LEAST_REPLAYS
+# segments; the clock forms are checked at CLOCK_STEPS
+GRAPH_STEPS = 600
+GRAPH_FIELDS = ("position", "velocity", "net_force", "orientation", "angmom")
+GRAPH_LEAST_REPLAYS = 20
+CLOCK_STEPS = (0, 7, 2**32 - 1, 2**32 + 5)
 # float32 operations a slot, each libm call (cos, sin), divide and sqrt as
 # one, counted from the plain versions' formulas: K7 4 a component; K8 NVE
 # 3 a component, noiseless Langevin 9 a component, noisy 9 a component + 4
@@ -1197,6 +1220,22 @@ def check_rng(az, RK):
                         raise AssertionError(f"particle_uniform3 kernel differs: {n} tags, "
                                              f"stream {stream}, timestep {step}, [{low}, {high})")
                     cases += 1
+    # K4's clock form (a CUDA graph's draws): the key's timestep word read
+    # from a clock on the card, 3 steps behind at offset 3
+    for n in RNG_TAGS:
+        t = _rng_tags(n, n).cuda()
+        for step in CLOCK_STEPS:
+            clock = torch.tensor(step - 3, dtype=torch.int64, device="cuda")
+            with rng.device_clock(clock, 1000):
+                got_words = rng.particle_bits(rng.Stream.THERMALIZE, 42, 1003, t, 5)
+                got = rng.particle_uniform3(rng.Stream.LANGEVIN, 42, 1003, t)
+            want_words = rng._particle_bits_plain(rng.Stream.THERMALIZE, 42, step, t, 5)
+            want = rng._particle_uniform3_plain(rng.Stream.LANGEVIN, 42, step, t)
+            if not (all(torch.equal(a, b) for a, b in zip(got_words, want_words))
+                    and torch.equal(got.view(torch.int32), want.view(torch.int32))):
+                raise AssertionError(f"K4's clock form differs from its plain version: {n} "
+                                     f"tags, timestep {step}")
+            cases += 2
     # K5 at each MPCD path's collision grid and an odd count
     ulp_max, err_max, differ = 0, 0.0, 0
     for shape in (*NORMAL_SHAPES.values(), (1001, 3)):
@@ -1229,7 +1268,8 @@ def check_rng(az, RK):
     print(f"[rng] threefry (13 and 20 rounds) and Langevin noise: GPU == CPU bitwise; K4 "
           f"(particle_bits, particle_uniform3) bitwise its plain version in {cases} cases "
           f"({', '.join(map(str, RNG_TAGS))} tags, -1 and 2**31 - 1 among them; 1-8 words; "
-          f"three ranges; three streams; timesteps 777 and 2**32 + 9); K5 (jax_normal) at "
+          f"three ranges; three streams; timesteps 777 and 2**32 + 9; the clock form at "
+          f"{', '.join(map(str, CLOCK_STEPS))}); K5 (jax_normal) at "
           f"{', '.join(f'{k} {v}' for k, v in NORMAL_SHAPES.items())} and (1001, 3): max "
           f"{ulp_max} ulp from its plain version ({differ} values differ; bar {NORMAL_ULP}), "
           f"max |diff| {err_max:.3e}; BrownianFlow (4,096 particles): {brownian} K4 launches in "
@@ -1403,17 +1443,27 @@ def check_integrate(az, D, K, sim, label, timing, record):
     rotational = ("orientation", "angmom", "net_torque")
     fields = ("position", "velocity", "acceleration") + (rotational if rot else ())
     cases, worst, errs = 0, 0, {}
+    from azplugins_tpu_torch.core import rng
+
+    # step2 also in its clock form (a CUDA graph's draws: K8's and K9's key
+    # word read from a clock on the card, 5 steps behind at offset 5)
+    clock = torch.tensor(t - 5, dtype=torch.int64, device=dense.device)
     for sname, st in states.items():
         for mname, m in methods.items():
-            for step in ("step1", "step2"):
-                got = getattr(m, step)(st, dt, t, seed)
+            for step, clocked in (("step1", False), ("step2", False), ("step2", True)):
+                if clocked:
+                    with rng.device_clock(clock, t - 5):
+                        got = m.step2(st, dt, t, seed)
+                else:
+                    got = getattr(m, step)(st, dt, t, seed)
                 want = getattr(m, f"_{step}_plain")(st, dt, t, seed)
                 for k in fields:
                     kernel = ("no_squish" if k in rotational else
                               "step1" if step == "step1" else "step2")
-                    ulp, err = _kernel_bits(f"{label} {sname} {mname} {step} {k}",
-                                            getattr(got, k), getattr(want, k),
-                                            NO_SQUISH_ULP if kernel == "no_squish" else 0)
+                    ulp, err = _kernel_bits(
+                        f"{label} {sname} {mname} {step}{' (clock form)' * clocked} {k}",
+                        getattr(got, k), getattr(want, k),
+                        NO_SQUISH_ULP if kernel == "no_squish" else 0)
                     worst = max(worst, ulp) if kernel == "no_squish" else worst
                     errs[kernel] = max(errs.get(kernel, 0.0), err)
                 cases += 1
@@ -1445,6 +1495,13 @@ def check_integrate(az, D, K, sim, label, timing, record):
                            lambda m=m: m._step2_plain(dense, dt, t, seed),
                            _integrate_bound(_step2_bytes(n, n_act, langevin=kind != "nve"), n_act,
                                             ops[name], hashes=2 * (kind == "noisy")))
+
+        def clocked_step2():
+            with rng.device_clock(clock, t - 5):
+                return path.step2(dense, dt, t, seed)
+
+        # K8 in its clock form (a CUDA graph's: one load more), the same bound
+        timed["step2[clock]"] = (clocked_step2, timed["step2"][1], timed["step2"][2])
     elif label == "droplet":
         flow = path.flow_field(dense.box.wrap(dense.position)[0])
         timed["step2[flow]"] = (
@@ -1474,8 +1531,9 @@ def check_integrate(az, D, K, sim, label, timing, record):
                  f"torch.amax over {n:,} float32 {_cuda_time_ms(lambda: torch.amax(floor), 50):.4f}"
                  f" ms")
     print(f"[integrate] {label} ({n:,} slots, {n_act:,} particles): {cases} cases "
-          f"({', '.join(methods)} x step1/step2{' x path/frozen axes' if rot else ''}; the "
-          f"drift check) bitwise the plain versions on the card"
+          f"({', '.join(methods)} x step1/step2/step2 in its clock form"
+          f"{' x path/frozen axes' if rot else ''}; the drift check) bitwise the plain versions "
+          f"on the card"
           f"{f'; K9 max {worst} ulp (bar {NO_SQUISH_ULP})' if rot else ''}; "
           f"{'; '.join(lines)}; the phase {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1787,7 +1845,10 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
     steps0 = sim.steps_run
     n_pair_forces = sum(1 for f in forces if f._needs_nlist)
     _reset_counts(K)
+    totals0 = dict(sim._graph_totals)
     ms_step, wall = _timed_run(sim, steps)
+    graphed = {k: sim._graph_totals.get(k, 0) - totals0.get(k, 0)
+               for k in ("captures", "replays", "eager_segments")}
     launched = {name: read() for name, read in counts.items()}
     drawn = _draws(K, label, draws or {})
     evals = sim.force_evaluations - evals0
@@ -1825,8 +1886,10 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
           f"builds ({steps / max(builds, 1):.1f} steps each), {replays} violation replays; "
           f"cap {sim._grid_spec.cap}, rebuild interval {sim._seg_len}; random-draw kernel "
           f"launches {drawn} (thermalize: {setup_draws}); integrator kernel launches "
-          f"{integrated} ({stepped} steps x {len(integ.methods)} methods)",
-          flush=True)
+          f"{integrated} ({stepped} steps x {len(integ.methods)} methods); CUDA graphs "
+          f"{'on' if sim._graphs_apply() else 'off (the eager loop: ' + _why_eager(sim) + ')'}: "
+          f"{graphed['captures']} captures, {graphed['replays']} replays, "
+          f"{graphed['eager_segments']} first segments run eagerly", flush=True)
     print(f"[{label}] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy "
           f"per step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls "
           f"per step", flush=True)
@@ -1842,6 +1905,15 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
     if caps:
         _time_at_caps(az, D, K, sim, forces, caps)
     return {**launched, **drawn, **integrated}, sim
+
+
+def _why_eager(sim) -> str:
+    """Why ``sim`` runs the eager loop on the card (Simulation._graph_eligible's rule)."""
+    if sim.operations.updaters:
+        return "updaters"
+    if sim._sharded():
+        return "a sharded mesh"
+    return "a variant other than Constant, or a flow field of its own"
 
 
 def _busy_at_caps(sim, label, untuned):
@@ -3134,7 +3206,11 @@ def run_profile(sim, label, steps, card, collisions=0):
     host work between launches is not split). On the headline each of
     ``integrate_step1``, ``verlet_drift_check`` and ``integrate_step2`` must
     issue at most 2 device operations a step (K7, K6, K8)."""
-    ms_step = _timed_run(sim, steps)[0]
+    sim._eager = True  # the eager loop's ms/step, as the profile runs it
+    try:
+        ms_step = _timed_run(sim, steps)[0]
+    finally:
+        sim._eager = False
     evals0, builds0, replays0 = sim.force_evaluations, sim.n_builds, sim.viol_replays
     spec0 = sim._grid_spec
     n_forces = len(sim.operations.integrator.forces)
@@ -3169,8 +3245,189 @@ def run_profile(sim, label, steps, card, collisions=0):
     print(f"[profile] {label}: {steps} steps under sim.profile on {card}: ranges "
           f"{dict(ranges)}; device operations and device-busy ms a step by phase: {split}; "
           f"in all {per_step:.1f} ops {sum(busy.values()) / 1000.0 / steps:.4f} ms; "
-          f"{ms_step:.4f} ms/step just before (unprofiled): {1000.0 * ms_step / per_step:.1f} "
-          f"host us an operation (not traced)", flush=True)
+          f"{ms_step:.4f} ms/step just before (unprofiled, eager): "
+          f"{1000.0 * ms_step / per_step:.1f} host us an operation (not traced)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# [graph]: rebuild segments as CUDA graphs against the eager loop
+# ---------------------------------------------------------------------------
+
+
+def _layout_diff(a, b):
+    """(bitwise equal, max |difference|) of two simulations' slot layouts
+    over GRAPH_FIELDS."""
+    same, worst = True, 0.0
+    for k in GRAPH_FIELDS:
+        x, y = getattr(a._dense, k), getattr(b._dense, k)
+        if x.shape != y.shape:
+            return False, float("inf")
+        same = same and torch.equal(x.view(torch.int32), y.view(torch.int32))
+        worst = max(worst, float((x - y).abs().nan_to_num(float("inf")).max()))
+    return same, worst
+
+
+def _turn(sim, steps):
+    """``steps`` steps of ``sim`` between CUDA events: (ms a step, host us a
+    step outside the chunks' one wait for the device, in _chunk_flags)."""
+    waited = [0.0]
+    flags = sim._chunk_flags
+
+    def timed_flags(meta, violated):
+        t = time.perf_counter()
+        try:
+            return flags(meta, violated)
+        finally:
+            waited[0] += time.perf_counter() - t
+
+    sim._chunk_flags = timed_flags
+    try:
+        ms, wall = _timed_run(sim, steps)
+    finally:
+        del sim._chunk_flags
+    return ms, (wall - waited[0]) / steps * 1e6
+
+
+def _graph_turn(K, sim, label, forces, steps=GRAPH_STEPS):
+    """One turn: ``steps`` steps with the launch counts set to 0 before and
+    held after to what the steps run (K6-K9 exactly, the pair kernels once
+    a pair-force evaluation), replays counted. Returns (ms a step, host us
+    a step, {captures, replays, eager_segments} of the turn)."""
+    totals0 = dict(sim._graph_totals)
+    steps0, evals0 = sim.steps_run, sim.force_evaluations
+    _reset_counts(K)
+    ms, host_us = _turn(sim, steps)
+    integ = sim.operations.integrator
+    _integrator_launches(K, f"graph {label}", sim.steps_run - steps0, len(integ.methods),
+                         rotational=integ.integrate_rotational_dof)
+    n_pair = sum(1 for f in forces if f._needs_nlist)
+    pair_evals = (sim.force_evaluations - evals0) * n_pair // len(forces)
+    launched = K.PK.launches + K.DK.launches + K.AK.launches
+    if launched != pair_evals:
+        raise AssertionError(f"graph {label}: {launched} pair-kernel launches for {pair_evals} "
+                             f"pair-force evaluations")
+    counted = ("captures", "capture_seconds", "replays", "eager_segments")
+    return ms, host_us, {k: sim._graph_totals.get(k, 0) - totals0.get(k, 0) for k in counted}
+
+
+def _clock_forms(sim, label, forces):
+    """K2, K4, K8 and K9 keyed on the card's clock (core/rng.py's
+    device_clock, the clock 3 steps behind at offset 3) against their
+    host-int forms on the path's state, bitwise, at CLOCK_STEPS. Returns
+    the kernels checked."""
+    from azplugins_tpu_torch.core import rng
+
+    dense, dt, seed = sim._dense, sim.dt_ref(), sim.seed
+    m = sim.operations.integrator.methods[0]
+    draws = {}
+    if label == "dpd":
+        f, (tbl,) = forces[0], sim._force_tables()
+        draws["K2"] = lambda s: f._compute_dense(dense, sim._grid_spec, sim._meta.slot_of, s,
+                                                 sim._ctx(), tbl[0], want="all")
+    else:
+        draws["K8/K9" if m._rotational else "K8"] = lambda s: m.step2(dense, dt, s, seed)
+    if label == "headline":
+        draws["K4"] = lambda s: rng.particle_uniform3(rng.Stream.BROWNIAN, seed, s, dense.tag)
+    for name, draw in draws.items():
+        for t in CLOCK_STEPS:
+            want = draw(t)
+            clock = torch.tensor(t - 3, dtype=torch.int64, device=dense.device)
+            with rng.device_clock(clock, 1000):
+                got = draw(1003)
+            pairs = ([(got, want)] if isinstance(got, torch.Tensor) else
+                     [(getattr(got, k), getattr(want, k)) for k in (
+                         "force", "energy", "virial", "velocity", "acceleration", "angmom",
+                         "net_torque") if hasattr(got, k) and getattr(got, k) is not None])
+            for a, b in pairs:
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"graph {label}: {name}'s clock form differs from its "
+                                         f"host form at timestep {t}")
+    return list(draws)
+
+
+def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy")):
+    """[graph]: BASELINE configs 1-4 at full size, each built three times
+    from one seed: two run the eager loop (``_eager``), one the CUDA
+    graphs. All three run GRAPH_STEPS (across the tune at step 200), then
+    the eager and the graph simulation take turns (eager, graph, graph,
+    eager) of GRAPH_STEPS, the second eager one keeping pace with the
+    first. After the warm-up and after each pair of turns the graph run
+    must equal the eager run bit for bit where the two eager runs do (the
+    differences printed either way); every turn holds its launch counts
+    exact; the graph turns replay at least GRAPH_LEAST_REPLAYS segments.
+    Prints ms/step both ways, host us a step, device operations and busy
+    ms a step under the graphs and eagerly, captures, replays, the pool's
+    MB, and checks the clock forms of K2, K4, K8 and K9 against their
+    host forms. Returns {label: figures}."""
+    t0 = time.perf_counter()
+    out = {}
+    builds = {"headline": build_headline, "polymer": build_polymer, "dpd": build_dpd,
+              "patchy": build_patchy}
+    for label in paths:
+        build = builds[label]
+        sims = {}
+        for name in ("eager", "eager2", "graph"):
+            sim, forces = build(az, "cuda")
+            sim._eager = name != "graph"
+            sims[name] = sim
+        E, E2, G = sims["eager"], sims["eager2"], sims["graph"]
+        for sim in (E, E2, G):
+            sim.run(GRAPH_STEPS)
+        diffs = [(_layout_diff(E, E2), _layout_diff(G, E))]
+        ms = {"eager": [], "graph": []}
+        host = {"eager": [], "graph": []}
+        turns = {"captures": 0, "capture_seconds": 0.0, "replays": 0, "eager_segments": 0}
+        for k, name in enumerate(("eager", "graph", "graph", "eager")):
+            m, h, counted = _graph_turn(K, sims[name], label, forces)
+            ms[name].append(m)
+            host[name].append(h)
+            if name == "eager":
+                E2.run(GRAPH_STEPS)
+            else:
+                turns = {c: turns[c] + counted[c] for c in turns}
+            if k in (1, 3):
+                diffs.append((_layout_diff(E, E2), _layout_diff(G, E)))
+        for (ee_same, ee_diff), (ge_same, ge_diff) in diffs:
+            if ee_same and not ge_same:
+                raise AssertionError(f"graph {label}: the graph run differs from the eager run "
+                                     f"(max |diff| {ge_diff:.3e}) where two eager runs agree")
+            if not np.isfinite(ge_diff) and ee_same:
+                raise AssertionError(f"graph {label}: non-finite differences")
+        if turns["replays"] < GRAPH_LEAST_REPLAYS:
+            raise AssertionError(f"graph {label}: {turns['replays']} replays in the graph turns")
+        _check_wrapped(G, f"graph {label}")
+        clocked = _clock_forms(G, label, forces)
+        g_ops, g_busy, _, g_syncs = _profile(G)
+        e_ops, e_busy, _, _ = _profile(E)
+        runner = G._runner
+        pool_mb = runner.pool_bytes / 2**20 if runner is not None else 0.0
+        fig = {"ms_eager": ms["eager"], "ms_graph": ms["graph"], "host_us_eager": host["eager"],
+               "host_us_graph": host["graph"], "ops_graph": g_ops, "busy_graph": g_busy,
+               "ops_eager": e_ops, "busy_eager": e_busy, **turns, "pool_mb": pool_mb,
+               "totals": dict(G._graph_totals)}
+        out[label] = fig
+        agree = "; ".join(
+            f"{when}: eager/eager {'bitwise' if ee[0] else f'max |diff| {ee[1]:.3e}'}, "
+            f"graph/eager {'bitwise' if ge[0] else f'max |diff| {ge[1]:.3e}'}"
+            for when, (ee, ge) in zip(("warm-up", "turns 1-2", "turns 3-4"), diffs))
+        print(f"[graph] {label} (N={G.state.N_particles}, cap {G._grid_spec.cap}, rebuild interval "
+              f"{G._seg_len}): ms/step eager {' / '.join(f'{x:.4f}' for x in ms['eager'])}, "
+              f"graph {' / '.join(f'{x:.4f}' for x in ms['graph'])} (turns of {GRAPH_STEPS}: "
+              f"eager, graph, graph, eager); host us a step eager "
+              f"{' / '.join(f'{x:.1f}' for x in host['eager'])}, graph "
+              f"{' / '.join(f'{x:.1f}' for x in host['graph'])}; device operations and busy ms "
+              f"a step (20 steps profiled): graph {g_ops:.1f} / {g_busy:.4f} ({g_syncs:.2f} "
+              f"synchronising calls a step), eager {e_ops:.1f} / {e_busy:.4f}; graph turns: "
+              f"{turns['captures']} captures ({turns['capture_seconds']:.3f} s of host time), "
+              f"{turns['replays']} replays, {turns['eager_segments']} first segments run "
+              f"eagerly; whole run {fig['totals']}; pool {pool_mb:.1f} MB; {agree}; launch "
+              f"counts exact every "
+              f"turn; clock forms of {', '.join(clocked)} bitwise their host forms at "
+              f"{', '.join(map(str, CLOCK_STEPS))}", flush=True)
+        del sims, E, E2, G, sim
+        torch.cuda.empty_cache()
+    print(f"[graph] the phase took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    return out
 
 
 def _build_report(cuda_build, sources):
@@ -3269,6 +3526,7 @@ def main() -> int:
                             kT=0.3, kT_band=PATCHY_KT_BAND, caps=(16, 32)))
     check_integrate(az, D, K, patchy, "patchy", integrate_timing, record)
     del patchy
+    run_graph(az, K, card)
     # the droplet's lab-frame temperature contains the flow: its own check
     # reads the evaporated particles' temperature relative to it
     droplet = count(run_path(az, D, K, card, record, "droplet", build_droplet, 2000, 1000, plj,

@@ -28,6 +28,12 @@ versions in core/rng.py: the per-particle words and uniforms (K4) bit for
 bit, as integer hashing and explicitly rounded float32 steps; the MPCD
 normals (K5) within 1 ulp, the one step left to the card's libraries being
 CUDA's log1pf against PyTorch's CUDA log1p.
+
+The run loop's CUDA graphs read the timestep on the card: K2, K4, K8 and
+K9 in their clock forms (core/rng.py's device_clock) are held bitwise to
+their host forms, past 2**32 too, and a small headline's captured rebuild
+segment, replayed, to the eager segments (every slot field and the
+launch counts).
 """
 
 import importlib
@@ -1287,3 +1293,99 @@ def test_drift_check_is_the_references(draw_device, reference_integration, kind)
         assert bool(got) == bool(verdict), (buffer, "4 shards")
     card = int(draw_device.type == "cuda")
     assert IK.launches_by_kernel.get("drift_check", 0) - before == card * len(IREF.BUFFERS) * 7
+
+
+# -- the clock forms: the draws of a CUDA graph ---------------------------------
+# Under core/rng.py's device_clock, K2, K4, K8 and K9 read their key's
+# timestep word from a clock on the card ((uint32)(clock + offset)) instead
+# of the host's int, so a graph's replays draw at the clock's timestep. The
+# clock here lies 3 steps behind the host's and the draws are made 3 steps
+# after its base: the same bits as the host form, past 2**32 too.
+CLOCK_STEPS = [0, 7, 2**32 - 1, 2**32 + 5]
+
+
+def _clock_and_host(device, t, draw):
+    """``draw(timestep)`` keyed on the host's ``t``, then on a device clock
+    holding ``t - 3`` at offset 3: (clock form, host form)."""
+    want = draw(t)
+    clock = torch.tensor(t - 3, dtype=torch.int64, device=device)
+    with RNG.device_clock(clock, 1000):
+        got = draw(1003)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", CLOCK_STEPS)
+def test_clock_forms_are_the_host_forms(cuda_device, t):
+    tag = torch.arange(-1, 20238, dtype=torch.int32, device=cuda_device)
+    before = dict(RK.launches_by_kernel)
+    for draw in (lambda s: RNG.particle_uniform3(RNG.Stream.LANGEVIN, 42, s, tag),
+                 lambda s: torch.stack(RNG.particle_bits(RNG.Stream.THERMALIZE, 42, s, tag, 5))):
+        got, want = _clock_and_host(cuda_device, t, draw)
+        assert got.dtype == want.dtype and torch.equal(got, want), f"K4 at {t}"
+    assert RK.launches_by_kernel["particle_bits"] - before.get("particle_bits", 0) == 4
+    dense, spec, tbl = _dpd_case("orthorhombic", cuda_device)
+    got, want = _clock_and_host(cuda_device, t,
+                                lambda s: DK.dpd_force(dense, spec, tbl, 1.3, 0.01, 77, s, "all"))
+    for k in ("force", "energy", "virial"):
+        _same_bits(getattr(got, k), getattr(want, k), f"K2 {k} at {t}")
+    state, _ = _slot_state(4097, 5, cuda_device)
+    m = IC.attached(IC.methods(az, "langevin"), True, cuda_device)
+    before = dict(IK.launches_by_kernel)
+    got, want = _clock_and_host(cuda_device, t, lambda s: m.step2(state, 0.005, s, 12345))
+    assert IK.launches_by_kernel["step2"] - before.get("step2", 0) == 2
+    assert IK.launches_by_kernel["no_squish"] - before.get("no_squish", 0) == 2
+    for k in ("velocity", "acceleration", "angmom", "net_torque"):
+        _same_bits(getattr(got, k), getattr(want, k), f"K8/K9 {k} at {t}")
+
+
+def _graph_lj(device, eager):
+    """A small PLJ liquid under Langevin (the headline's path), its rebuild
+    interval pinned at 5 steps."""
+    n, a = 10, 1.15
+    rng = np.random.default_rng(3)
+    snap = az.Snapshot(N=n**3)
+    L = n * a
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    x = (np.arange(n) + 0.5) * a - L / 2
+    pos = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    snap.particles.position[:] = pos + rng.uniform(-0.05, 0.05, pos.shape)
+    sim = az.Simulation(device=device, seed=42)
+    sim.create_state_from_snapshot(snap)
+    lj = az.pair.PerturbedLennardJones(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.5,
+                                       mode="shift")
+    lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.7)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.005, methods=[az.md.methods.Langevin(kT=1.2, default_gamma=0.5)], forces=[lj])
+    sim.state.thermalize_particle_momenta(kT=1.2)
+    sim.auto_tune_after = None
+    sim._seg_adapt, sim._seg_len = False, 5
+    sim._eager = eager
+    return sim
+
+
+@pytest.mark.cuda
+def test_captured_segments_are_eager_segments(cuda_device):
+    """A first segment of 5 steps, run eagerly by the graph runner, then 12
+    more: the second captured and replayed, then replayed 11 times; every
+    slot field, the grid bookkeeping and the kernels' launch counts equal
+    the eager loop's, bit for bit."""
+    runs = {}
+    for eager in (True, False):
+        sim = _graph_lj(cuda_device, eager)
+        sim.run(5)
+        before = (dict(IK.launches_by_kernel), PK.launches, sim.steps_run)
+        sim.run(60)
+        torch.cuda.synchronize()
+        launched = ({k: n - before[0].get(k, 0) for k, n in IK.launches_by_kernel.items()},
+                    PK.launches - before[1], sim.steps_run - before[2])
+        runs[eager] = (sim, launched)
+    (eager, e_launched), (graphs, g_launched) = runs[True], runs[False]
+    assert eager._runner is None and graphs._runner.captures == 1
+    assert graphs._runner.replays >= 10 and eager.viol_replays == graphs.viol_replays
+    assert g_launched == e_launched and e_launched[2] >= 60
+    for name in ("position", "velocity", "acceleration", "net_force", "tag", "image"):
+        assert torch.equal(getattr(graphs._dense, name), getattr(eager._dense, name)), name
+    for name in ("ref_position", "overflow", "n_builds", "max_occ"):
+        assert torch.equal(getattr(graphs._meta, name), getattr(eager._meta, name)), name
