@@ -18,6 +18,12 @@
 // K7 az_step1 (Method.step1, md/methods.py; reference
 // azplugins_tpu/md/methods.py:68-77): v' = v + (dt/2) a, x' = x + dt v'.
 //
+// K7+K6 az_step1_drift_check (Method.step1 with a drift check, the last
+// method's on a grid path): K7's half step inside K6's launch, then K6 on
+// the new positions, as the reference's step body runs m.step1 and
+// needs_rebin back to back (azplugins_tpu/simulation.py:641-652). One pass
+// over the slots where K7 then K6 make two: x' is never read back.
+//
 // K8 az_step2 (Method.step2 and LangevinFlow.step2; reference
 // azplugins_tpu/md/methods.py:79-91, 172-192): a' = F / m, or with a gamma
 // table the Langevin force: the per-type gamma by the clamped type_id, the
@@ -54,8 +60,10 @@
 // streaming pass over a slot's fields and reads a field only on the slots
 // whose result needs it: K6 the tag on every slot and the two positions
 // (24 B) on an occupied one; K7 52 B a slot and the acceleration (12 B) on
-// a moving one; K8 (Langevin) 40 B a slot, the old acceleration (12 B) on
-// a masked one and force, mass and type (20 B) on a moving one; K9 in mode
+// a moving one; K7+K6 K7's bytes and the reference position (12 B) on an
+// occupied slot (the filter's bool, 1 B, where given); K8 (Langevin) 40 B
+// a slot, the old acceleration (12 B) on a masked one and force, mass and
+// type (20 B) on a moving one; K9 in mode
 // 0 68 B a slot (tag, q and p in and out) and inertia and torque (24 B) on
 // an acting one. A slot does a few dozen float operations (K8 and K9 add
 // two Threefry hashes, K9 ten libm calls in mode 0). At the paths' 2e4-2e5
@@ -94,8 +102,18 @@
 //   and the rest after the draw, so no global load waits on the type.
 //   kStep2Threads = 128 makes 648 blocks at the headline, 4.9 an SM, so
 //   the SMs' shares differ by one block at most (256 made 2.5 an SM).
-// - K7 and K9 take one thread a slot, the mask, the gamma lookup, the keys
-//   and the noise in registers.
+// - K7+K6 is K6 with a prologue (drift_kernel<STEP1>): the slice's
+//   velocities and accelerations staged with its positions, every load
+//   issued first, each thread's half step in shared memory, the drift
+//   taken from x' there, x' and v' written back coalesced. From the
+//   squared drift on it is K6, its scratch (a CUDA graph's capture
+//   allocates nothing) and its two results (the verdict; a shard's top
+//   two). So a grid path's step makes one launch and one pass where K7
+//   then K6 made two, and K7's serial chain (the tag, then the
+//   acceleration under the mask, three strided loads a field) is gone.
+// - K7 alone (the earlier methods of several, a layout without a grid) and
+//   K9 take one thread a slot, the mask, the gamma lookup, the keys and the
+//   noise in registers.
 // - K8 and K9 key their draws on the host's timestep word, or on a clock on
 //   the card (Noise::clock, az::step_word: one more load before the hash),
 //   so that a CUDA graph of a rebuild segment draws anew at each replay.
@@ -201,13 +219,25 @@ __device__ __forceinline__ void drift_result(Top2 t, float buffer, bool viol, bo
 // of kDriftThreads slots' positions (a grid stride over the slices past
 // kDriftMaxBlocks blocks), reduces it, writes its partial and takes a
 // ticket; the last ticket merges the partials.
+//
+// STEP1 (az_step1_drift_check): K7's drift half step first, in the same
+// pass. The slice's velocities and accelerations are staged with the
+// positions; each thread forms its slot's v' = v + (dt/2) a and x' = x +
+// dt v' (a masked slot keeps its bits; SEL: a filter's bool masks too),
+// takes the drift from x' in shared memory, and the block writes x' and v'
+// back through the staging by coalesced stores.
+template <bool STEP1, bool SEL>
 __global__ void __launch_bounds__(kDriftThreads)
     drift_kernel(const float* __restrict__ pos, const float* __restrict__ ref,
-                 const int* __restrict__ tag, int n, float buffer,
-                 const bool* __restrict__ viol_in, bool* __restrict__ viol_out,
-                 float* __restrict__ top2_out, uint2* partials, unsigned int* counter) {
+                 const int* __restrict__ tag, const bool* __restrict__ sel,
+                 const float* __restrict__ vel, const float* __restrict__ acc, int n,
+                 float half_dt, float dt, float buffer, const bool* __restrict__ viol_in,
+                 bool* __restrict__ viol_out, float* __restrict__ top2_out,
+                 float* __restrict__ pos_out, float* __restrict__ vel_out, uint2* partials,
+                 unsigned int* counter) {
   constexpr int B = kDriftThreads;
-  __shared__ float s_pos[3 * B], s_ref[3 * B];
+  constexpr int S = STEP1 ? 3 * B : 1;
+  __shared__ float s_pos[3 * B], s_ref[3 * B], s_vel[S], s_acc[S];
   const int t = threadIdx.x;
   // the flag the verdict ORs, read now: only the last block needs it
   const bool viol = top2_out == nullptr && t == 0 && *viol_in;
@@ -215,31 +245,63 @@ __global__ void __launch_bounds__(kDriftThreads)
   const int slices = (n + B - 1) / B;
   for (int slice = blockIdx.x; slice < slices; slice += gridDim.x) {
     const int i0 = slice * B, i = i0 + t, nf = 3 * min(B, n - i0);
-    const float* p = pos + 3LL * i0;
-    const float* r = ref + 3LL * i0;
+    const long long f0 = 3LL * i0;
     const int tg = i < n ? __ldg(tag + i) : -1;
-    float xp[3], xr[3];
+    const bool chosen = !SEL || (i < n && sel[i]);
+    float xp[3], xr[3], xv[3], xa[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const int f = t + j * B;
-      xp[j] = f < nf ? __ldg(p + f) : 0.0f;
-      xr[j] = f < nf ? __ldg(r + f) : 0.0f;
+      const bool ok = f < nf;
+      xp[j] = ok ? __ldg(pos + f0 + f) : 0.0f;
+      xr[j] = ok ? __ldg(ref + f0 + f) : 0.0f;
+      if constexpr (STEP1) {
+        xv[j] = ok ? __ldg(vel + f0 + f) : 0.0f;
+        xa[j] = ok ? __ldg(acc + f0 + f) : 0.0f;
+      }
     }
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       s_pos[t + j * B] = xp[j];
       s_ref[t + j * B] = xr[j];
+      if constexpr (STEP1) {
+        s_vel[t + j * B] = xv[j];
+        s_acc[t + j * B] = xa[j];
+      }
     }
     __syncthreads();
     const int l = 3 * t;
-    const float d0 = sub(s_pos[l], s_ref[l]);
-    const float d1 = sub(s_pos[l + 1], s_ref[l + 1]);
-    const float d2 = sub(s_pos[l + 2], s_ref[l + 2]);
-    const float dsq = add(add(mul(d0, d0), mul(d1, d1)), mul(d2, d2));
+    const bool moves = tg >= 0 && chosen;
+    float d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float x = s_pos[l + k];
+      if constexpr (STEP1) {
+        const float v = s_vel[l + k];
+        const float vh = add(v, mul(half_dt, s_acc[l + k]));
+        const float xn = add(x, mul(dt, vh));
+        x = moves ? xn : x;
+        s_pos[l + k] = x;
+        s_vel[l + k] = moves ? vh : v;
+      }
+      d[k] = sub(x, s_ref[l + k]);
+    }
+    const float dsq = add(add(mul(d[0], d[0]), mul(d[1], d[1])), mul(d[2], d[2]));
     // an empty slot's drift is 0 whatever its positions hold (NaN too);
     // past n a slot holds none
     top = merge(top, Top2{key_of(i < n ? (tg >= 0 ? dsq : 0.0f) : -INFINITY), 0u});
-    __syncthreads();  // the next slice reuses the staging
+    __syncthreads();  // the write-back, or the next slice, reads the staging
+    if constexpr (STEP1) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int f = t + j * B;
+        if (f < nf) {
+          pos_out[f0 + f] = s_pos[f];
+          vel_out[f0 + f] = s_vel[f];
+        }
+      }
+      __syncthreads();  // the next slice reuses the staging
+    }
   }
   top = block_top2<B>(top);
   if (t >= 32) return;
@@ -617,6 +679,12 @@ __global__ void __launch_bounds__(kThreads)
 
 int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
+// K6's grid: a slice of kDriftThreads slots a block, at most kDriftMaxBlocks
+unsigned drift_blocks(long long n) {
+  const long long grid = (n + kDriftThreads - 1) / kDriftThreads;
+  return (unsigned)(grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks);
+}
+
 cudaError_t launched() { return cudaGetLastError(); }
 
 }  // namespace
@@ -647,15 +715,32 @@ int az_drift_check(const float* pos, const float* ref, const int* tag, const flo
     return (int)launched();
   }
   if (reinterpret_cast<uintptr_t>(partials) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  uint2* slots = reinterpret_cast<uint2*>(partials);
-  long long grid = (n + kDriftThreads - 1) / kDriftThreads;
-  grid = grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks;
-  drift_kernel<<<(unsigned)grid, kDriftThreads, 0, s>>>(pos, ref, tag, n, buffer, viol_in,
-                                                         viol_out, top2_out, slots, counter);
+  drift_kernel<false, false><<<drift_blocks(n), kDriftThreads, 0, s>>>(
+      pos, ref, tag, nullptr, nullptr, nullptr, n, 0.0f, 0.0f, buffer, viol_in, viol_out,
+      top2_out, nullptr, nullptr, reinterpret_cast<uint2*>(partials), counter);
   return (int)launched();
 }
 
 int az_drift_max_blocks() { return kDriftMaxBlocks; }
+
+// K7 and K6 in one launch: x_out, v_out [n, 3] as az_step1 writes them
+// (sel: a filter's bool [n] or null), then the drift of x_out from ref
+// [n, 3] as az_drift_check takes it, with its result, scratch and error
+// contract.
+int az_step1_drift_check(const int* tag, const bool* sel, const float* x, const float* v,
+                         const float* a, const float* ref, int n, float half_dt, float dt,
+                         float buffer, const bool* viol_in, bool* viol_out, float* top2_out,
+                         float* x_out, float* v_out, float2* partials, unsigned int* counter,
+                         void* stream) {
+  if (n <= 0 || (top2_out == nullptr && (viol_in == nullptr || viol_out == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(partials) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const auto kernel = sel != nullptr ? drift_kernel<true, true> : drift_kernel<true, false>;
+  kernel<<<drift_blocks(n), kDriftThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, ref, tag, sel, v, a, n, half_dt, dt, buffer, viol_in, viol_out, top2_out, x_out, v_out,
+      reinterpret_cast<uint2*>(partials), counter);
+  return (int)launched();
+}
 
 // K7: x_out, v_out [n, 3]; half_dt = float32(0.5 * dt), dt = float32(dt).
 int az_step1(const int* tag, const bool* sel, const float* x, const float* v, const float* a, int n,

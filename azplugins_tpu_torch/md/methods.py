@@ -13,6 +13,9 @@ friction gamma_r and noise from its own Threefry stream.
 
 Protocol, driven by the Simulation's step loop:
     step1(state, dt, timestep, seed): drift half of the update
+    step1(state, dt, timestep, seed, drift): the same and the Verlet drift
+        check of the new positions (a :class:`DriftCheck`), as
+        ``(state, result)``: the last method's step1 on a grid path
     step2(state, dt, timestep, seed): kick half; ``state.net_force`` holds
         the forces at the *new* positions when step2 runs.
 
@@ -20,15 +23,19 @@ Each method returns a new State; nothing is updated in place, so a chunk
 that must be replayed can roll back to the State it started from.
 
 Dispatch: on CUDA tensors ``step1`` and ``step2`` launch the kernels of
-:mod:`azplugins_tpu_torch.ops.integrate_kernel` (K7 the drift half, K8 the
-kick half with the Langevin force and its draw inside, K9 the NO_SQUISH
-rotation after either); on CPU tensors they run their plain versions
-(``_step1_plain``, ``_step2_plain``), which the kernels are held to
-bitwise on the card; any other device raises. Nothing falls back.
-BrownianFlow's steps stay plain PyTorch on both devices (its draw is K4).
+:mod:`azplugins_tpu_torch.ops.integrate_kernel` (K7 the drift half, or
+with a drift check K7 and K6 in one launch; K8 the kick half with the
+Langevin force and its draw inside; K9 the NO_SQUISH rotation after
+either); on CPU tensors they run their plain versions (``_step1_plain``,
+then the plain drift check of ``ops/dense.py``; ``_step2_plain``), which
+the kernels are held to bitwise on the card; any other device raises.
+Nothing falls back. BrownianFlow's steps stay plain PyTorch on both
+devices (its draw is K4; its drift check K6).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,16 +43,36 @@ import torch
 from ..core import rng as _rng
 from ..core.typeparam import TypeParameter
 from ..core.variant import as_variant
+from ..ops import dense as D
 from . import rotation as R
 from .filter import All, ParticleFilter
 
-__all__ = ["Method", "ConstantVolume", "Langevin", "LangevinFlow", "Brownian", "BrownianFlow"]
+__all__ = ["Method", "DriftCheck", "ConstantVolume", "Langevin", "LangevinFlow", "Brownian",
+           "BrownianFlow"]
 
 
 def _kernels():
     from ..ops import integrate_kernel  # imported here, on first use
 
     return integrate_kernel
+
+
+class DriftCheck(NamedTuple):
+    """The Verlet drift check a step1 carries: the grid's ``meta`` (its
+    ``ref_position``) and ``spec`` (its ``buffer``), and ``viol``, the
+    chunk's violation flag the verdict ORs in, or None for a shard's two
+    largest squared drifts."""
+
+    meta: object
+    spec: object
+    viol: torch.Tensor | None
+
+    def of(self, state):
+        """The check on ``state`` by ``ops/dense.py``: ``needs_rebin``'s
+        verdict, or ``drift_top_two`` with no ``viol``."""
+        if self.viol is None:
+            return D.drift_top_two(state, self.meta)
+        return D.needs_rebin(state, self.meta, self.spec, self.viol)
 
 
 class Method:
@@ -83,19 +110,29 @@ class Method:
     # Velocity Verlet. step1 drifts with the *stored* acceleration (which for
     # Langevin includes last step's thermostat forces). Positions are NOT
     # wrapped here: they drift unwrapped until the next rebuild, which wraps
-    # them and updates images (ops/dense._bin_to_slots).
-    def step1(self, state, dt, timestep, seed):
+    # them and updates images (ops/dense._bin_to_slots). With ``drift`` (a
+    # DriftCheck) step1 returns ``(state, drift.of(state))``: on the card
+    # one launch of K7 and K6 (K9 touches no position), on the CPU the
+    # plain step then the plain check.
+    def step1(self, state, dt, timestep, seed, drift: DriftCheck | None = None):
         if not _rng._on_card(state.device):
-            return self._step1_plain(state, dt, timestep, seed)
+            state = self._step1_plain(state, dt, timestep, seed)
+            return state if drift is None else (state, drift.of(state))
         K = _kernels()
         sel = self._selection(state)
-        x, v = K.step1(state.tag, sel, state.position, state.velocity, state.acceleration, dt)
+        if drift is None:
+            x, v = K.step1(state.tag, sel, state.position, state.velocity, state.acceleration,
+                           dt)
+        else:
+            x, v, found = K.step1_drift(state.tag, sel, state.position, state.velocity,
+                                        state.acceleration, dt, drift.meta.ref_position,
+                                        drift.spec.buffer, drift.viol)
         state = state.replace(position=x, velocity=v)
         if self._rotational:
             q, p = K.no_squish(0, state.tag, sel, state.typeid, state.orientation, state.angmom,
                                state.moment_inertia, state.net_torque, dt)
             state = state.replace(orientation=q, angmom=p)
-        return state
+        return state if drift is None else (state, found)
 
     def step2(self, state, dt, timestep, seed):
         if not _rng._on_card(state.device):
@@ -306,7 +343,11 @@ class BrownianFlow(_GammaMixin, Method):
         self.noiseless = bool(noiseless)
         self._init_gamma(default_gamma)
 
-    def step1(self, state, dt, timestep, seed):
+    def step1(self, state, dt, timestep, seed, drift: DriftCheck | None = None):
+        state = self._step1_brownian(state, dt, timestep, seed)
+        return state if drift is None else (state, drift.of(state))
+
+    def _step1_brownian(self, state, dt, timestep, seed):
         gp = self._gamma_of(state)
         kT = self.kT(timestep)
         if self.noiseless or dt <= 0:

@@ -15,6 +15,13 @@ step.
   Over values, one warp.
 - K7 ``az_step1``: :func:`step1`, ``Method.step1``'s drift half (reference
   ``azplugins_tpu/md/methods.py:68-77``).
+- K7+K6 ``az_step1_drift_check``: :func:`step1_drift`, the last method's
+  ``Method.step1`` on a grid path with the drift check of its new
+  positions in the same launch: K7's half step as a prologue of K6 (the
+  slice's velocities and accelerations staged with its positions, x'
+  written back coalesced and never read again), then K6's reduction, its
+  scratch and its two results (reference ``azplugins_tpu/simulation.py:
+  641-652``: ``m.step1`` then ``needs_rebin``).
 - K8 ``az_step2``: :func:`step2`, ``Method.step2`` (NVE) and
   ``LangevinFlow.step2`` with its draw inside (reference
   ``azplugins_tpu/md/methods.py:79-91, 172-192``): the uniforms are K4's
@@ -56,12 +63,12 @@ from .rng_kernel import uniform_args
 
 __all__ = [
     "launches", "launches_by_kernel", "Noise", "step_args", "drift_check", "drift_top_two",
-    "needs_rebin_of", "step1", "step2", "no_squish",
+    "needs_rebin_of", "step1", "step1_drift", "step2", "no_squish",
 ]
 
 # kernel launches since import (or since a caller last reset them to 0):
-# in all, and by kernel ("drift_check" K6, "step1" K7, "step2" K8,
-# "no_squish" K9)
+# in all, and by kernel ("drift_check" K6, "step1" K7, "step1_drift" K7
+# and K6 in one launch, "step2" K8, "no_squish" K9)
 launches = 0
 launches_by_kernel: dict[str, int] = {}
 
@@ -74,13 +81,15 @@ def _library() -> ctypes.CDLL:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         lib.az_drift_check.argtypes = [p, p, p, p, i, f, p, p, p, p, p, p]
         lib.az_step1.argtypes = [p, p, p, p, p, i, f, f, p, p, p]
+        lib.az_step1_drift_check.argtypes = [p, p, p, p, p, p, i, f, f, f, p, p, p, p, p, p, p,
+                                             p]
         lib.az_step2.argtypes = [p, p, p, p, p, p, p, p, i, f, p, i, i, u, u, p, i, f, f, f, f,
                                  p, p, p]
         lib.az_no_squish.argtypes = [i, p, p, p, p, p, p, p, i, f, f, p, i, i, u, u, p, i, f, f,
                                      f, f, p, p, p, p]
         lib.az_drift_max_blocks.argtypes = []
-        for fn in (lib.az_drift_check, lib.az_step1, lib.az_step2, lib.az_no_squish,
-                   lib.az_drift_max_blocks):
+        for fn in (lib.az_drift_check, lib.az_step1, lib.az_step1_drift_check, lib.az_step2,
+                   lib.az_no_squish, lib.az_drift_max_blocks):
             fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
@@ -230,7 +239,7 @@ def needs_rebin_of(tops: torch.Tensor, buffer: float, viol: torch.Tensor) -> tor
     return out
 
 
-# -- K7, K8 ------------------------------------------------------------------
+# -- K7, K7+K6, K8 ------------------------------------------------------------
 def step1(tag, sel, position, velocity, acceleration, dt: float) -> tuple:
     """``(position, velocity)`` after the drift half step, under the mask
     ``tag >= 0`` (and ``sel``, a filter's bool, where given)."""
@@ -247,6 +256,39 @@ def step1(tag, sel, position, velocity, acceleration, dt: float) -> tuple:
         _launch("step1", "az_step1", dev, tag.data_ptr(), _ptr(sel), x.data_ptr(), v.data_ptr(),
                 a.data_ptr(), n, half, dt32, x_out.data_ptr(), v_out.data_ptr())
     return x_out, v_out
+
+
+def step1_drift(tag, sel, position, velocity, acceleration, dt: float, ref_position,
+                buffer: float, viol: torch.Tensor | None = None) -> tuple:
+    """K7 then K6 in one launch: ``(position, velocity, result)``, the
+    positions and velocities :func:`step1` gives and the drift check of
+    those positions from ``ref_position``: ``result`` is the 0-d bool
+    ``viol | needs_rebin`` (as :func:`drift_check`) or, with ``viol`` None,
+    the ``[2]`` two largest squared drifts (as :func:`drift_top_two`)."""
+    dev = _device(position)
+    n = tag.numel()
+    if n == 0:
+        raise ValueError("the drift check needs at least one slot")
+    tag = _checked(tag, "tag", torch.int32, (n,), dev)
+    x, v, a, r = (_checked(t, name, torch.float32, (n, 3), dev) for t, name in
+                  ((position, "position"), (velocity, "velocity"),
+                   (acceleration, "acceleration"), (ref_position, "ref_position")))
+    sel = _select(sel, n, dev)
+    x_out, v_out = torch.empty_like(x), torch.empty_like(v)
+    if viol is None:
+        out = torch.empty((2,), dtype=torch.float32, device=dev)
+        viol_in, viol_out, top2 = None, None, out
+    else:
+        check_tensor(viol, "viol", torch.bool, (), dev)
+        out = torch.empty((), dtype=torch.bool, device=dev)
+        viol_in, viol_out, top2 = viol, out, None
+    partials, counter = _drift_scratch(dev)
+    half, dt32, _ = step_args(dt)
+    _launch("step1_drift", "az_step1_drift_check", dev, tag.data_ptr(), _ptr(sel), x.data_ptr(),
+            v.data_ptr(), a.data_ptr(), r.data_ptr(), n, half, dt32, float(np.float32(buffer)),
+            _ptr(viol_in), _ptr(viol_out), _ptr(top2), x_out.data_ptr(), v_out.data_ptr(),
+            partials.data_ptr(), counter.data_ptr())
+    return x_out, v_out, out
 
 
 def step2(tag, sel, typeid, velocity, acceleration, net_force, mass, dt: float,

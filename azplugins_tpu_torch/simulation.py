@@ -111,6 +111,7 @@ import torch
 from .core.snapshot import Snapshot
 from .core.state import State, state_from_snapshot, state_to_snapshot, thermalize_momenta, to_host
 from .md.force import ForceResult, SimContext
+from .md.methods import DriftCheck
 from .ops import dense as D
 
 __all__ = ["Simulation", "Operations"]
@@ -969,6 +970,9 @@ class Simulation:
         rebuild when ``rebuild``, then ``n_steps`` steps from timestep
         ``t0``, each step1 -> the drift check ORed into ``viol`` -> forces ->
         step2 -> the updaters and the joint collision that fire after it.
+        With a grid the last method's step1 makes the drift check
+        (:meth:`_step1_checked`; on the card in its launch); the
+        ``verlet_drift_check`` range then holds the shards' verdict.
         Makes no host read, so that it can be captured as a CUDA graph.
         Returns ``(shards, metas, viol, solv)``. Inside :meth:`profile`,
         each phase that does work is a range named after the reference's
@@ -986,14 +990,27 @@ class Simulation:
         if spec is not None and rebuild:
             with scope("rebin"):
                 shards, metas = self._rebuild(shards, metas)
+        # with a grid the last method's step1 carries the drift check (on
+        # the card K7 and K6 in one launch): the verdict on a whole layout,
+        # each shard's two largest drifts on shards
+        checked = methods[-1] if spec is not None and methods else None
+        unchecked = methods[:-1] if checked is not None else methods
         for t in range(t0, t0 + n_steps):
             self.steps_run += 1
             with scope("integrate_step1"):
-                for m in methods:
+                for m in unchecked:
                     shards = tuple(m.step1(s, dt, t, seed) for s in shards)
+                if checked is not None:
+                    shards, found = self._step1_checked(checked, shards, metas, viol, dt, t,
+                                                        seed)
             if spec is not None:
                 with scope("verlet_drift_check"):
-                    viol = self._drifted(shards, metas, viol)
+                    if checked is None:
+                        viol = self._drifted(shards, metas, viol)
+                    elif len(shards) == 1:
+                        (viol,) = found
+                    else:
+                        viol = self._verdict_of(found, viol)
             with scope("forces"):
                 shards = self._with_forces(shards, metas, t, tbls)
             with scope("integrate_step2"):
@@ -1073,15 +1090,31 @@ class Simulation:
         dense, meta = D.rebin(dense, meta, spec, N_tags, self._fields, need_slot_of)
         return (dense,), (meta,)
 
+    def _step1_checked(self, method, shards: tuple, metas: tuple, viol, dt, t, seed) -> tuple:
+        """``method``'s step1 on every shard with the drift check of the new
+        positions: ``(shards, found)``, ``found`` holding the verdict
+        ``viol | needs_rebin`` on a whole layout, each shard's two largest
+        squared drifts on shards (``needs_rebin_of`` takes them)."""
+        whole = len(shards) == 1
+        stepped = [method.step1(s, dt, t, seed,
+                                DriftCheck(m, self._grid_spec, viol if whole else None))
+                   for s, m in zip(shards, metas, strict=True)]
+        return tuple(s for s, _ in stepped), tuple(f for _, f in stepped)
+
     def _drifted(self, shards: tuple, metas: tuple, viol: torch.Tensor) -> torch.Tensor:
         """``viol`` ORed with the Verlet drift criterion over every shard, as
         a bool on the first shard's device: each shard's two largest drifts
         go there (on CUDA one K6 launch a shard and one for the verdict)."""
         if len(shards) == 1:
             return D.needs_rebin(shards[0], metas[0], self._grid_spec, viol)
-        dev0 = shards[0].device
-        tops = torch.cat([D.drift_top_two(s, m).to(dev0) for s, m in zip(shards, metas)])
-        return D.needs_rebin_of(tops, self._grid_spec, viol)
+        return self._verdict_of([D.drift_top_two(s, m) for s, m in zip(shards, metas)], viol)
+
+    def _verdict_of(self, tops, viol: torch.Tensor) -> torch.Tensor:
+        """``viol`` ORed with the drift criterion over the shards' two
+        largest drifts ``tops`` (one [2] a shard), gathered on the first
+        shard's device: on CUDA one K6 launch over their values."""
+        dev0 = tops[0].device
+        return D.needs_rebin_of(torch.cat([top.to(dev0) for top in tops]), self._grid_spec, viol)
 
     def _chunk_flags(self, meta, violated) -> tuple:
         """(overflow, violated, max_occ) of a chunk, read in one transfer

@@ -115,9 +115,11 @@
      in a directory of its own inside the checkout, removed afterwards;
    and checks that every pair-force evaluation went through a kernel, that
    every step of the timed steps went through the integrator kernels
-   exactly (K7 and K8 once a step a method a shard, K6 once a step, n + 1
-   times on n shards, K9 twice a step a method with rotation; Langevin's
-   draw inside K8 and K9), that every other random draw did too (the
+   exactly (K8 once a step a method a shard; step1 once a step a method a
+   shard, the last method's on a grid path as K7+K6 in one launch, the
+   others and those of a path without a grid as K7; K6 alone once a step
+   for the verdict on shards; K9 twice a step a method with rotation;
+   Langevin's draw inside K8 and K9), that every other random draw did too (the
    evaporator's once a fire, thermalize once a setup, the MPCD collision's
    once or twice a collision), and that the result is physical; on each
    full-size path the capacity tune fires at step 200, and the path prints the capacity and rebuild
@@ -138,9 +140,14 @@
    step1 and step2 (step2 also in its clock form), the patchy state also
    with frozen axes; K6 on each
    layout with the violation flag clear and set, and at the headline on a
-   NaN drift, an exact tie at the maximum and 4 shards; each kernel's ms
-   against its plain ms and its bound (K6-K8 at the headline's slots, K8
-   with the droplet's flow, K9 at the patchy colloids');
+   NaN drift, an exact tie at the maximum and 4 shards; K7+K6 in one
+   launch (step1 with the drift check, the grid paths' step1) against K7
+   then K6 and against the plain step1 then the plain check, the verdict
+   with the flag clear and set and the top two, on every state and
+   method, at the headline also on a NaN drift and 4 shards; each
+   kernel's ms against its plain ms and its bound (K6-K8 at the
+   headline's slots, K8 with the droplet's flow, K9 at the patchy
+   colloids'; K7, K6 and K7+K6 on all three states, K7+K6 beside K7 + K6);
 7. prints the kernel summary and, last, the contract line
    {"ok": true, "device": {...}}.
 
@@ -256,6 +263,9 @@ NORMAL_ULP = 1
 INTEGRATE_REPLACES = {
     "drift_check": "azplugins_tpu/ops/dense.py:666 (needs_rebin), XLA-fused, no pallas_call",
     "step1": "azplugins_tpu/md/methods.py:68 (Method.step1), XLA-fused, no pallas_call",
+    "step1_drift": ("azplugins_tpu/md/methods.py:68 (Method.step1) then "
+                    "azplugins_tpu/ops/dense.py:666 (needs_rebin), one step body "
+                    "(azplugins_tpu/simulation.py:641-652), XLA-fused, no pallas_call"),
     "step2": ("azplugins_tpu/md/methods.py:172 (LangevinFlow.step2; Method.step2 :79), "
               "XLA-fused, no pallas_call"),
     "no_squish": ("azplugins_tpu/md/rotation.py:89-146 (angmom_kick, free_rotation; "
@@ -276,9 +286,10 @@ CLOCK_STEPS = (0, 7, 2**32 - 1, 2**32 + 5)
 # for the noise scale + 9 for the uniforms (a flow field 1 more a
 # component); K9 mode 0 the kick (rotate_inv 27, the product 16, the add
 # 8) and five axis rotations (the dot 11, 4 for the angle, cos and sin, 16
-# for q and p) and the norm (12); K6 8 a slot.
-INTEGRATE_F32_OPS = {"drift_check": 8, "step1": 12, "step2[nve]": 9, "step2[noiseless]": 27,
-                     "step2": 40, "no_squish[step1]": 233, "no_squish[langevin]": 140}
+# for q and p) and the norm (12); K6 8 a slot; K7+K6 K7's 12 and K6's 8.
+INTEGRATE_F32_OPS = {"drift_check": 8, "step1": 12, "step1_drift": 20, "step2[nve]": 9,
+                     "step2[noiseless]": 27, "step2": 40, "no_squish[step1]": 233,
+                     "no_squish[langevin]": 140}
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -1394,6 +1405,81 @@ def _drift_cases(D, dense, meta, spec, label):
     return cases
 
 
+def _step1_drift_cases(D, methods, states, meta, spec, dt, t, seed, label, fields, rotational):
+    """K7+K6 in one launch (``Method.step1`` with a drift check) against K7
+    then K6 and against the plain step1 then the plain check, on every
+    state and method: the verdict with the flag clear and set, and the top
+    two; at the headline also on a NaN drift and as 4 shards' top twos and
+    their combine. Every field bitwise (K9's within NO_SQUISH_ULP). Returns
+    (cases, worst K9 ulp, max abs error of the fused outputs)."""
+    from azplugins_tpu_torch.md.methods import DriftCheck
+
+    cases, worst, err = 0, 0, 0.0
+
+    def same(what, got, k7, plain):
+        nonlocal worst, err
+        for k in fields:
+            bar = NO_SQUISH_ULP if k in rotational else 0
+            for other, name in ((k7, "K7"), (plain, "plain")):
+                ulp, e = _kernel_bits(f"{what} {k} against {name}", getattr(got, k),
+                                      getattr(other, k), bar)
+                if k in rotational:
+                    worst = max(worst, ulp)
+                else:
+                    err = max(err, e)
+
+    layouts = dict(states)
+    if label == "headline":
+        live = torch.nonzero(states["path"].tag >= 0).flatten()
+        nan = states["path"].position.clone()
+        nan[live[len(live) // 2], 1] = float("nan")
+        layouts["nan"] = states["path"].replace(position=nan)
+    for sname, st in layouts.items():
+        for mname, m in methods.items():
+            if sname == "nan" and mname != "path":
+                continue
+            what = f"{label} {sname} {mname} step1 with the drift check"
+            k7, plain = m.step1(st, dt, t, seed), m._step1_plain(st, dt, t, seed)
+            for viol0 in (False, True):
+                viol = torch.tensor(viol0, device=st.device)
+                got, verdict = m.step1(st, dt, t, seed, DriftCheck(meta, spec, viol))
+                same(f"{what} viol={viol0}", got, k7, plain)
+                _kernel_bits(f"{what} viol={viol0}: verdict against K6", verdict,
+                             D.needs_rebin(k7, meta, spec, viol))
+                _kernel_bits(f"{what} viol={viol0}: verdict against plain", verdict,
+                             viol | D._needs_rebin_plain(plain, meta, spec))
+                cases += 1
+            got, top = m.step1(st, dt, t, seed, DriftCheck(meta, spec, None))
+            same(f"{what} (top two)", got, k7, plain)
+            _kernel_bits(f"{what}: top two against K6", top, D.drift_top_two(k7, meta))
+            _kernel_bits(f"{what}: top two against plain", top, D._drift_top_two_plain(plain, meta))
+            cases += 1
+    if label == "headline":
+        st, m = states["path"], methods["path"]
+        plain = m._step1_plain(st, dt, t, seed)
+        tops, plains = [], []
+        for c in torch.tensor_split(torch.arange(st.N, device=st.device), 4):
+            sub = st.replace(**{k: getattr(st, k)[c] for k in (
+                "position", "tag", "velocity", "typeid", "image", "orientation", "mass",
+                "diameter", "charge", "net_force", "acceleration", "angmom", "moment_inertia",
+                "net_torque")})
+            smeta = types.SimpleNamespace(ref_position=meta.ref_position[c])
+            got, top = m.step1(sub, dt, t, seed, DriftCheck(smeta, spec, None))
+            _kernel_bits(f"{label} shard step1 with the drift check position", got.position,
+                         plain.position[c])
+            tops.append(top)
+            plains.append(D._drift_top_two_plain(
+                types.SimpleNamespace(position=plain.position[c], tag=st.tag[c]), smeta))
+            _kernel_bits(f"{label} shard top two against plain", tops[-1], plains[-1])
+        verdict = D.needs_rebin_of(torch.cat(tops), spec, torch.tensor(False, device=st.device))
+        _kernel_bits(f"{label} 4 shards' verdict", verdict,
+                     D._needs_rebin_of_plain(torch.cat(plains), spec))
+        _kernel_bits(f"{label} 4 shards' verdict against whole", verdict,
+                     D._needs_rebin_plain(plain, meta, spec))
+        cases += 5
+    return cases, worst, err
+
+
 def check_integrate(az, D, K, sim, label, timing, record):
     """[integrate] on one main path's full-size state after its run: every
     method case's step1 and step2 through the kernels (K7, K8, K9) against
@@ -1403,13 +1489,17 @@ def check_integrate(az, D, K, sim, label, timing, record):
     (a flow field) and one under a Type filter; at the patchy colloids a
     noiseless one and the state with frozen axes (a third of the slots
     without their z axis, a third without x). K6 on the path's layout, and
-    at the headline on NaN, tie and 4-shard cases. Times each kernel the
-    path runs against its plain version and its bound into ``timing``
-    ({name: (ms, plain_ms, (bound_ms, bound_by))}): K6 on every state
-    ("drift_check" at the headline, else "drift_check[label]"); K8 in the
-    headline's three modes ("step2", "step2[nve]", "step2[noiseless]"),
-    the droplet's with its flow ("step2[flow]"), the patchy colloids'
-    ("step2[patchy]"); the headline's K7 and the patchy colloids' K9.
+    at the headline on NaN, tie and 4-shard cases. K7+K6 in one launch
+    (step1 with the drift check) on every state and method against K7 then
+    K6 and the plain composition (``_step1_drift_cases``). Times each
+    kernel the path runs against its plain version and its bound into
+    ``timing`` ({name: (ms, plain_ms, (bound_ms, bound_by))}): K6, K7 and
+    K7+K6 on every state ("drift_check", "step1", "step1_drift" at the
+    headline, else with "[label]"), K7+K6 printed beside the sum of K7 and
+    K6 of the same call; K8 in the headline's three modes ("step2",
+    "step2[nve]", "step2[noiseless]"), the droplet's with its flow
+    ("step2[flow]"), the patchy colloids' ("step2[patchy]"); the patchy
+    colloids' K9.
     Prints each with the host us a call of its wrapper and, not the same
     function, torch.amax over as many float32 as the state has slots (the
     card's floor for a one-launch reduction)."""
@@ -1469,6 +1559,10 @@ def check_integrate(az, D, K, sim, label, timing, record):
                 cases += 1
     cases += _drift_cases(D, dense, meta, spec, label)
     errs["drift_check"] = 0.0
+    fused, ulp, errs["step1_drift"] = _step1_drift_cases(D, methods, states, meta, spec, dt, t,
+                                                         seed, label, fields, rotational)
+    cases += fused
+    worst = max(worst, ulp)
     for name, err in errs.items():
         record(name, err)
 
@@ -1481,14 +1575,28 @@ def check_integrate(az, D, K, sim, label, timing, record):
     # acceleration, force, mass, type, inertia and torque on acting slots;
     # the old acceleration on masked ones, which copy it), the fields copied
     # or written on every slot
-    drift = "drift_check" if label == "headline" else f"drift_check[{label}]"
+    at = "" if label == "headline" else f"[{label}]"
+    drift, k7, k76 = f"drift_check{at}", f"step1{at}", f"step1_drift{at}"
+
+    def fused_plain():
+        s = _translational_plain(path, "step1", dense, dt, t, seed)
+        return s.position, s.velocity, viol | D._needs_rebin_plain(s, meta, spec)
+
+    # K6, K7 and K7+K6 alone (no rotation) on the path's state: each method
+    # on the path moves every occupied slot
     timed = {drift: (lambda: D.needs_rebin(dense, meta, spec, viol),
                      lambda: viol | D._needs_rebin_plain(dense, meta, spec),
-                     _integrate_bound(4 * n + 24 * n_act, n_act, ops["drift_check"]))}
+                     _integrate_bound(4 * n + 24 * n_act, n_act, ops["drift_check"])),
+             k7: (lambda: IK.step1(dense.tag, None, dense.position, dense.velocity,
+                                   dense.acceleration, dt),
+                  lambda: _translational_plain(path, "step1", dense, dt, t, seed),
+                  _integrate_bound(52 * n + 12 * n_act, n_act, ops["step1"])),
+             k76: (lambda: IK.step1_drift(dense.tag, None, dense.position, dense.velocity,
+                                          dense.acceleration, dt, meta.ref_position, spec.buffer,
+                                          viol),
+                   fused_plain,
+                   _integrate_bound(52 * n + 24 * n_act, n_act, ops["step1_drift"]))}
     if label == "headline":
-        timed["step1"] = (lambda: path.step1(dense, dt, t, seed),
-                          lambda: path._step1_plain(dense, dt, t, seed),
-                          _integrate_bound(52 * n + 12 * n_act, n_act, ops["step1"]))
         for name, m, kind in (("step2", path, "noisy"), ("step2[nve]", methods["nve"], "nve"),
                               ("step2[noiseless]", methods["noiseless"], "noiseless")):
             timed[name] = (lambda m=m: m.step2(dense, dt, t, seed),
@@ -1512,7 +1620,7 @@ def check_integrate(az, D, K, sim, label, timing, record):
     else:
         timed["step2[patchy]"] = (
             _k8_alone(IK, path, dense, dt, t, seed),
-            lambda: _translational_plain(path, dense, dt, t, seed),
+            lambda: _translational_plain(path, "step2", dense, dt, t, seed),
             _integrate_bound(_step2_bytes(n, n_act), n_act, ops["step2"], hashes=2))
         timed["no_squish"] = (
             lambda: IK.no_squish(0, dense.tag, None, dense.typeid, dense.orientation,
@@ -1526,14 +1634,18 @@ def check_integrate(az, D, K, sim, label, timing, record):
         timing[name] = (ms, plain_ms, bound)
         lines.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}; host {_host_us(kernel):.1f} us a "
                      f"call), bound {bound[0]:.5f} ms ({bound[1]}), {ms / bound[0]:.1f}x")
+    k7_k6 = timing[k7][0] + timing[drift][0]
+    lines.append(f"{k76} in one launch {timing[k76][0]:.4f} ms against K7 + K6 "
+                 f"{timing[k7][0]:.4f} + {timing[drift][0]:.4f} = {k7_k6:.4f} ms in this call "
+                 f"({timing[k76][0] / k7_k6:.2f}x)")
     floor = torch.rand(n, device=dense.device)
     lines.append(f"not the same function, the card's floor for a one-launch reduction: "
                  f"torch.amax over {n:,} float32 {_cuda_time_ms(lambda: torch.amax(floor), 50):.4f}"
                  f" ms")
     print(f"[integrate] {label} ({n:,} slots, {n_act:,} particles): {cases} cases "
-          f"({', '.join(methods)} x step1/step2/step2 in its clock form"
-          f"{' x path/frozen axes' if rot else ''}; the drift check) bitwise the plain versions "
-          f"on the card"
+          f"({', '.join(methods)} x step1/step2/step2 in its clock form/step1 with the drift "
+          f"check{' x path/frozen axes' if rot else ''}; the drift check) bitwise the plain "
+          f"versions (and K7+K6 bitwise K7 then K6) on the card"
           f"{f'; K9 max {worst} ulp (bar {NO_SQUISH_ULP})' if rot else ''}; "
           f"{'; '.join(lines)}; the phase {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1554,11 +1666,12 @@ def _k8_alone(IK, m, dense, dt, t, seed, flow=None):
                             dense.net_force, dense.mass, dt, noise, flow)
 
 
-def _translational_plain(m, dense, dt, t, seed):
-    """``m``'s plain step2 without its rotation: what K8 alone computes."""
+def _translational_plain(m, step, dense, dt, t, seed):
+    """``m``'s plain ``step`` ("step1" or "step2") without its rotation:
+    what K7 or K8 alone computes."""
     rot, m._rotational = m._rotational, False
     try:
-        return m._step2_plain(dense, dt, t, seed)
+        return getattr(m, f"_{step}_plain")(dense, dt, t, seed)
     finally:
         m._rotational = rot
 
@@ -1604,11 +1717,16 @@ def _draws(K, label, least):
 def _integrator_launches(K, label, steps, n_methods, shards=1, grid=True, rotational=False):
     """K6-K9's launches since the counts were set to 0, each exactly what
     ``steps`` steps (replays counted) of ``n_methods`` methods on ``shards``
-    shards launch: step1 and step2 once a step a method a shard, the drift
-    check once a step (a shard and once for the verdict on shards), the
-    rotation twice a step a method a shard. Returns {name: launches}."""
-    want = {"step1": steps * n_methods * shards, "step2": steps * n_methods * shards,
-            "drift_check": (steps * (shards + (shards > 1))) if grid else 0,
+    shards launch: step1 and step2 once a step a method a shard, the last
+    method's step1 on a grid path as K7+K6 in one launch ("step1_drift",
+    the verdict on a whole layout, each shard's top two on shards) and the
+    others as K7 ("step1"); the drift check alone (K6) once a step for the
+    verdict on shards, never on a whole layout; the rotation twice a step a
+    method a shard. Returns {name: launches}."""
+    fused = steps * shards if grid and n_methods else 0
+    want = {"step1": steps * n_methods * shards - fused, "step1_drift": fused,
+            "step2": steps * n_methods * shards,
+            "drift_check": steps if grid and shards > 1 else 0,
             "no_squish": 2 * steps * n_methods * shards if rotational else 0}
     got = {name: K.IK.launches_by_kernel.get(name, 0) for name in want}
     if got != want:
@@ -2256,17 +2374,20 @@ def run_poiseuille(az, K, card):
     """The SRD Poiseuille slit at full size: POISEUILLE_STEPS steps, then the
     profile over 16 bins of the velocity field compute (the example reads it
     after 50 more steps). The fitted parabola R^2 > 0.95, its peak > 0.03,
-    and no solvent particle beyond the plates. Returns the random-draw
-    kernel's launches in the timed steps."""
+    and no solvent particle beyond the plates. Returns the random-draw and
+    integrator kernels' launches in the timed steps."""
     sim = build_poiseuille(az, "cuda")
     L = float(sim.state.box.L[2])
     sim.run(TUNE_AT)
     _check_grid(sim, "poiseuille")
     _reset_counts(K)
+    steps0 = sim.steps_run
     ms_step, wall = _timed_run(sim, POISEUILLE_STEPS - TUNE_AT)
     # two normal draws a collision: the virtual fill and the axes
     drawn = _draws(K, "poiseuille", {
         "jax_normal": 2 * ((POISEUILLE_STEPS - TUNE_AT) // sim.mpcd_dynamics.period)})
+    # its two MD particles have no pair force, so no grid: K7 alone, no drift check
+    drawn.update(_integrator_launches(K, "poiseuille", sim.steps_run - steps0, 1, grid=False))
     field = az.compute.CartesianVelocityFieldCompute(
         num_bins=(0, 0, POISEUILLE_BINS), lower_bounds=(0, 0, -L / 2),
         upper_bounds=(0, 0, L / 2), include_mpcd_particles=True)
@@ -2283,7 +2404,7 @@ def run_poiseuille(az, K, card):
           f"{POISEUILLE_STEPS}: {ms_step:.4f} ms/step (host wall {wall:.3f} s) on {card}; "
           f"profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per step, "
           f"{htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per step; "
-          f"random-draw kernel launches {drawn}", flush=True)
+          f"random-draw and integrator kernel launches {drawn}", flush=True)
     print(f"[poiseuille] v_x(z) over {POISEUILLE_BINS} bins: {np.round(prof, 4).tolist()}; "
           f"parabola R^2 {r2:.4f} (> 0.95), peak {prof.max():.4f} (> 0.03), furthest solvent "
           f"{beyond:+.2e} beyond the plates", flush=True)
@@ -2296,22 +2417,24 @@ def run_poiseuille(az, K, card):
 def run_srd(az, K, card):
     """Pure SRD throughput: SRD_WARM steps, a 20-step profile, then SRD_STEPS
     timed steps, each with one collision; the solvent's kT relative to its
-    mean within SRD_KT_BAND of 1. Returns the random-draw kernel's launches
-    in the timed steps."""
+    mean within SRD_KT_BAND of 1. Returns the random-draw and integrator
+    kernels' launches in the timed steps."""
     sim = build_srd(az, "cuda")
     sim.run(SRD_WARM)
     _check_grid(sim, "srd")
     ops, busy, htod, syncs = _profile(sim)
     _reset_counts(K)
+    steps0 = sim.steps_run
     ms_step, wall = _timed_run(sim, SRD_STEPS)
     drawn = _draws(K, "srd", {"jax_normal": SRD_STEPS})
+    drawn.update(_integrator_launches(K, "srd", sim.steps_run - steps0, 1, grid=False))
     kT, _ = _solvent_kT(sim)
     print(f"[srd] N={sim._whole_mpcd()['position'].shape[0]}, {SRD_STEPS} steps of one collision each: "
           f"{ms_step:.4f} ms per collision (host wall {wall:.3f} s) on {card}; profile: "
           f"{ops:.1f} device operations and {busy:.4f} ms device-busy per step, {htod:.2f} "
           f"host-to-device copies and {syncs:.2f} synchronising calls per step; solvent kT "
-          f"relative to its mean {kT:.4f} (1.0 +- {SRD_KT_BAND}); random-draw kernel launches "
-          f"{drawn}", flush=True)
+          f"relative to its mean {kT:.4f} (1.0 +- {SRD_KT_BAND}); random-draw and integrator "
+          f"kernel launches {drawn}", flush=True)
     if abs(kT - 1.0) > SRD_KT_BAND:
         raise AssertionError(f"srd: solvent kT {kT:.4f} outside 1.0 +- {SRD_KT_BAND}")
     return drawn
@@ -2721,8 +2844,9 @@ def run_spatial_sharded(az, D, K, card, record):
     K1), run in turns for SPATIAL_STRETCH steps (across the tune) and
     SPATIAL_STRETCH more. After each stretch the gathered layout must equal
     the whole one bit for bit, K1 must have launched n times a force
-    evaluation, K7 and K8 (Langevin's step with its draw) n times a step
-    and K6 n + 1 times (a shard's top two each, the verdict once) (the
+    evaluation, K7+K6 (a shard's step1 and top two in one launch) and K8
+    (Langevin's step with its draw) n times a step and K6 once (the
+    verdict over the shards' top twos) (the
     counts set to 0 just before each stretch and read just after). Then,
     on the runs' state: the windowed K1 (force) and K1' (PLJ and LJ,
     want="all") against the whole grid's launch on each shard's own slots,
@@ -2891,8 +3015,8 @@ def run_spatial_sharded(az, D, K, card, record):
     print(f"[spatial] shards n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit "
           f"for bit (positions, velocities, images, tags, gathered in slot order; builds, grid) "
           f"after {SPATIAL_STRETCH} and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, "
-          f"n a force evaluation; integrator kernel launches {integrated} (K7, K8 n a step, "
-          f"K6 n + 1); the phase took "
+          f"n a force evaluation; integrator kernel launches {integrated} (K7+K6, K8 n a "
+          f"step, K6 once); the phase took "
           f"{time.perf_counter() - phase_t0:.1f} s, of which {stretch_s:.1f} s the stretches",
           flush=True)
     return {"cell_pair_force[PerturbedLennardJones]": launched, **integrated}
@@ -2980,8 +3104,8 @@ def run_spatial_ops(az, D, K, card, record):
     (the evaporated count too, and above 0; the bond lengths finite); the
     colloids on shards hold their path's limits, and one joint collision
     on shards agrees with the whole one within SPATIAL_OPS_COLLISION_BAR of
-    max|v|. K7 and K8 must have launched once a step a shard, K6 once a
-    step a shard and once for the verdict, K4 once an evaporator fire a
+    max|v|. K7+K6 and K8 must have launched once a step a shard, K6 once
+    a step for the verdict, K4 once an evaporator fire a
     shard (the droplet), K5 once a collision (the colloids). Prints
     ms/step, device operations, busy ms and synchronising calls a step
     (PROFILE_STEPS steps, as [spatial]), the updaters phase's
@@ -3205,7 +3329,8 @@ def run_profile(sim, label, steps, card, collisions=0):
     over the operations a step: the host's us an operation (not traced: the
     host work between launches is not split). On the headline each of
     ``integrate_step1``, ``verlet_drift_check`` and ``integrate_step2`` must
-    issue at most 2 device operations a step (K7, K6, K8)."""
+    issue at most 2 device operations a step (K7+K6, the drift check's
+    none on a whole layout, K8)."""
     sim._eager = True  # the eager loop's ms/step, as the profile runs it
     try:
         ms_step = _timed_run(sim, steps)[0]
@@ -3574,7 +3699,8 @@ def main() -> int:
     # the integrator and the drift check: timed at the headline's slots (K6-K8)
     # and the patchy colloids' (K9); no PyTorch call computes a masked Verlet
     # half step, a top-two drift criterion or a NO_SQUISH rotation
-    for name, timed in (("drift_check", "drift_check"), ("step1", "step1"), ("step2", "step2"),
+    for name, timed in (("drift_check", "drift_check"), ("step1", "step1"),
+                        ("step1_drift", "step1_drift"), ("step2", "step2"),
                         ("no_squish", "no_squish")):
         ms, plain_ms, (bound_ms, bound_by) = integrate_timing[timed]
         kernels.append({

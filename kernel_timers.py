@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the force kernels and K6-K8 of a checkout with two timers, on one GPU.
+"""Time the force kernels and K4-K9 of a checkout with three timers, on one GPU.
 
     python3 kernel_timers.py [ROOT]    # ROOT: a checkout; default: this one
 
@@ -8,16 +8,24 @@ each on the state chip_smoke.py times it on: the pair kernel's
 PerturbedLennardJones instantiation at the 64k headline (cap 72) and its
 ExpandedYukawa instantiation at the polymer melt (cap 48), the DPD kernel at
 the DPD fluid (cap 40) and the anisotropic kernel at the patchy colloids
-(cap 16); and the headline's drift check (K6, ``needs_rebin``), drift half
-step (K7, ``Langevin.step1``) and Langevin kick (K8, ``Langevin.step2``)
-on its state after HEADLINE_STEPS steps (past the capacity tune: cap 48,
-82,944 slots), through the public calls. Two timers, CUDA events around
+(cap 16); the headline's drift check (K6, ``needs_rebin``), drift half
+step (K7, ``Langevin.step1``), both in one launch where the checkout has
+it (K7+K6, ``Langevin.step1`` with a drift check) and Langevin kick (K8,
+``Langevin.step2``) on its state after HEADLINE_STEPS steps (past the
+capacity tune: cap 48, 82,944 slots); the draws at the shapes chip_smoke.py
+times them at (K4 ``particle_uniform3`` and ``particle_bits`` of one word
+on 82,944 tags, K5 ``jax_normal`` on pure SRD's [262,144, 3]); and the
+NO_SQUISH rotation's step1 mode (K9) on the patchy colloids' 194,672
+slots; through the public calls. Three timers, CUDA events around
 ``REPS`` calls each:
 
 - synced: the calls start right after a synchronize, so where the
   wrapper's host time exceeds the kernel's the host is timed;
 - queued: chip_smoke.py's ``_cuda_time_ms``, the calls queued behind a
-  spinning stream, so only the card is timed.
+  spinning stream, so only the card is timed;
+- replay (K4-K9 and K7+K6): the ``REPS`` calls captured into one CUDA
+  graph and the graph replayed, as the run loop's rebuild segments replay
+  them: no host work and no launch queue between the calls.
 
 Two turns, each timer in turn. Running it on two checkouts (an older one
 unpacked with ``git archive``, say) in one session, in the order old, new,
@@ -53,6 +61,28 @@ def _synced_time_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _replay_time_ms(fn, reps: int, replays: int = 5, warm: int = 2) -> float:
+    """Device ms per call inside a CUDA graph: ``reps`` calls captured into
+    one graph (their outputs from the graph's pool), replayed once to warm
+    up, then ``replays`` times between CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_timers: torch.cuda.is_available() is false; this script needs a GPU",
@@ -73,8 +103,11 @@ def main() -> int:
     from azplugins_tpu_torch.ops import rng_kernel as RK
 
     cuda_build.load_libraries(PK._SOURCE, DK._SOURCE, AK._SOURCE, IK._SOURCE, RK._SOURCE)
+    from azplugins_tpu_torch.core import rng
+
     dev = torch.device("cuda")
     calls = {}
+    replayed = set()  # the calls timed in a replay too
 
     dense, spec, _ = cs._dense_case(
         az, D, cs._lattice_snapshot(az, counts=(40, 40, 40), rho=0.85, jitter=0.05, seed=6), 3.0,
@@ -105,6 +138,21 @@ def main() -> int:
     tpm = AK.aniso_kernel_tables(tbl["params"], tbl["r_cut"], "shift")
     calls[f"cell_aniso_force patchy colloids 27k cap {spec.cap}"] = (
         lambda d=dense, s=spec: AK.cell_aniso_force(d, s, tpm))
+    name = f"no_squish (K9, step1 mode) patchy colloids {dense.N:,} slots cap {spec.cap}"
+    calls[name] = lambda d=dense, dt=0.002: IK.no_squish(
+        0, d.tag, None, d.typeid, d.orientation, d.angmom, d.moment_inertia, d.net_torque, dt)
+    replayed.add(name)
+
+    tags = cs._rng_tags(cs.HEADLINE_SLOTS, 1).to(dev)
+    for name, fn in (
+            (f"particle_uniform3 (K4) {cs.HEADLINE_SLOTS:,} tags",
+             lambda: rng.particle_uniform3(rng.Stream.LANGEVIN, 1, 2, tags)),
+            (f"particle_bits (K4, 1 word) {cs.HEADLINE_SLOTS:,} tags",
+             lambda: rng.particle_bits(rng.Stream.PARTICLE_EVAPORATOR, 1, 2, tags, 1)),
+            (f"jax_normal (K5) pure SRD {cs.NORMAL_SHAPES['srd']}",
+             lambda: rng.jax_normal((0, 42), cs.NORMAL_SHAPES["srd"], "cuda"))):
+        calls[name] = fn
+        replayed.add(name)
 
     sim = cs.build_headline(az, dev)[0]
     sim.run(HEADLINE_STEPS)
@@ -114,16 +162,24 @@ def main() -> int:
     dt, t, seed = sim.dt_ref(), sim.timestep, sim.seed
     viol = torch.tensor(False, device=dev)
     at = f"64k headline after {HEADLINE_STEPS} steps, {hd.N:,} slots"
-    calls[f"drift_check (K6) {at}"] = lambda: D.needs_rebin(hd, hmeta, hspec, viol)
-    calls[f"step1 (K7) {at}"] = lambda: lang.step1(hd, dt, t, seed)
-    calls[f"step2 (K8, Langevin) {at}"] = lambda: lang.step2(hd, dt, t, seed)
+    headline = {
+        f"drift_check (K6) {at}": lambda: D.needs_rebin(hd, hmeta, hspec, viol),
+        f"step1 (K7) {at}": lambda: lang.step1(hd, dt, t, seed),
+        f"step2 (K8, Langevin) {at}": lambda: lang.step2(hd, dt, t, seed)}
+    if hasattr(IK, "step1_drift"):  # K7+K6 in one launch, where the checkout has it
+        check = az.md.methods.DriftCheck(hmeta, hspec, viol)
+        headline[f"step1_drift (K7+K6) {at}"] = lambda: lang.step1(hd, dt, t, seed, check)
+    calls.update(headline)
+    replayed.update(headline)
 
     for turn in range(2):
         for name, fn in calls.items():
             synced = _synced_time_ms(fn, REPS)
             queued = cs._cuda_time_ms(fn, REPS)
+            replay = (f", replay {_replay_time_ms(fn, REPS):.4f} ms" if name in replayed
+                      else "")
             print(f"[timers] {root.name} turn {turn} {name}: synced {synced:.4f} ms, queued "
-                  f"{queued:.4f} ms per call", flush=True)
+                  f"{queued:.4f} ms{replay} per call", flush=True)
     print(cs._card())
     return 0
 

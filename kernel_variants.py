@@ -29,9 +29,11 @@ exactly 8 at cap 8), in two turns. The phase copies split a call:
 The others change one constant of the design. Each variant also times
 the drift check K6 (``needs_rebin``) at the headline's liquid state (82,944
 slots) and the patchy colloids' (194,672: the grid stride past
-kDriftMaxBlocks blocks) and the Langevin kick K8 (``step2``) at the
-headline, noisy, with a flow field (random velocities) and
-NVE; the INTEGRATE copies change K6's or K8's design:
+kDriftMaxBlocks blocks), K7+K6 in one launch (``step1`` with a drift
+check, K6's kernel with its step1 prologue) at the headline, and the
+Langevin kick K8 (``step2``) at the headline, noisy, with a flow field
+(random velocities) and NVE; the INTEGRATE copies change K6's (and so
+K7+K6's) or K8's design:
 
 - driftCluster8: K6's blocks merged in thread block clusters of 8
   (``__cluster_dims__``) through distributed shared memory before their
@@ -149,9 +151,8 @@ INTEGRATE = {
         (_I, "  top = block_top2<B>(top);\n", _CLUSTER_MERGE),
         (_I, "const int parts = gridDim.x;", "const int parts = gridDim.x / 8;"),
         (_I, "partials[blockIdx.x] =", "partials[blockIdx.x / 8] ="),
-        (_I, "  grid = grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks;\n",
-         "  grid = grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks;\n"
-         "  grid = (grid + 7) / 8 * 8;\n"),
+        (_I, "  return (unsigned)(grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks);\n",
+         "  return (unsigned)((grid < kDriftMaxBlocks ? grid : kDriftMaxBlocks) + 7) / 8 * 8;\n"),
     ],
     "driftB128": [(_I, "constexpr int kDriftThreads = 256;", "constexpr int kDriftThreads = 128;")],
     "driftThreadfence": [(_I, 'asm volatile("atom.acq_rel.gpu.global.add.u32',
@@ -252,7 +253,8 @@ def main() -> int:
         for src in SOURCES:
             log = cuda_build.build_info[dirs[n] / src]["log"]
             for key in ("pair_force_kernelILi0ELb0ELb0ELb0", "dpd_force_kernelILb0ELb0",
-                        "aniso_force_kernelILb0ELb0", "drift_kernelI",
+                        "aniso_force_kernelILb0ELb0", "drift_kernelILb0ELb0E",
+                        "drift_kernelILb1ELb0E",
                         "step2_kernelILi2ELb0ELb0E"):
                 m = re.search(key + r".*\n.*?(\d+) bytes spill stores.*\n.*?Used (\d+) registers",
                               log)
@@ -275,6 +277,7 @@ def main() -> int:
     flow = torch.randn(hd.velocity.shape, generator=torch.Generator(device=dev).manual_seed(3),
                        device=dev)
     viol = torch.tensor(False, device=dev)
+    check = az.md.methods.DriftCheck(hmeta, liquid[1], viol)
 
     def k8(noise, flow=None):
         return lambda: IK.step2(hd.tag, None, hd.typeid, hd.velocity, hd.acceleration,
@@ -320,6 +323,7 @@ def main() -> int:
                     cs._cuda_time_ms(lambda: D.needs_rebin(hd, hmeta, liquid[1], viol), 50),
                     cs._cuda_time_ms(lambda: D.needs_rebin(patchy[0], psim._meta, patchy[1],
                                                            viol), 50),
+                    cs._cuda_time_ms(lambda: lang.step1(hd, dt, t, seed, check), 50),
                     cs._cuda_time_ms(k8(noise), 50),
                     cs._cuda_time_ms(k8(noise, flow), 50),
                     cs._cuda_time_ms(k8(None), 50),
@@ -327,8 +331,8 @@ def main() -> int:
             print(f"[turn {turn}] {name:14s} ms: PLJ headline {ms[0]:.4f}, PLJ liquid "
                   f"{ms[1]:.4f}, ExpandedYukawa polymer {ms[2]:.4f}, DPD fluid {ms[3]:.4f}, "
                   f"TwoPatchMorse patchy {ms[4]:.4f}, TwoPatchMorse dense {ms[5]:.4f}; K6 "
-                  f"headline {step[0]:.4f}, patchy {step[1]:.4f}; K8 Langevin {step[2]:.4f}, "
-                  f"flow {step[3]:.4f}, NVE {step[4]:.4f}", flush=True)
+                  f"headline {step[0]:.4f}, patchy {step[1]:.4f}; K7+K6 headline {step[2]:.4f}; "
+                  f"K8 Langevin {step[3]:.4f}, flow {step[4]:.4f}, NVE {step[5]:.4f}", flush=True)
     print(cs._card())
     return 0
 

@@ -19,7 +19,8 @@ velocity) of the JAX reference's run; a segment makes no host read (every
 ``Tensor`` method that reads a value on the host raises); the rule that
 picks the eager loop; the cache's keys, bound and invalidations; a failing
 capture propagates; the overflow and violation carries across segments;
-the counters under replay; the force tables' cache.
+the counters under replay; the force tables' cache; the drift check made
+by the last method's step1 on a grid path, bitwise the old loop.
 """
 
 import contextlib
@@ -289,6 +290,91 @@ def test_segments_are_the_old_loop_and_near_the_reference(name):
     assert sum(g.replays for g in capture.graphs) == runner.replays
 
 
+def _routing_case(layout):
+    """A small port simulation for the drift check's routing: the LJ path
+    whole ("lj") and on 2 shards ("shards"), the Brownian path, two methods
+    on different filters ("two_methods": Langevin on A, NVE on B) and
+    Langevin with no pair force, so no grid ("no_grid")."""
+    if layout in ("lj", "shards", "brownian"):
+        sim = _build(port, "lj" if layout == "shards" else layout)
+        if layout == "shards":
+            sim.enable_spatial_decomposition(port.parallel.make_mesh(2, device="cpu",
+                                                                     sharded=True))
+        return sim
+    snap = _lattice(port, 6, 1.15, types=("A", "B"))
+    snap.particles.typeid[:] = np.arange(snap.particles.N) % 2
+    sim = _simulation(port, snap, 42)
+    methods = [port.md.methods.Langevin(kT=1.2, default_gamma=0.5)]
+    forces = []
+    if layout == "two_methods":
+        f = port.pair.PerturbedLennardJones(nlist=port.md.nlist.Cell(buffer=0.4),
+                                            default_r_cut=2.5, mode="shift")
+        for pair in (("A", "A"), ("A", "B"), ("B", "B")):
+            f.params[pair] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.7)
+        forces = [f]
+        methods = [port.md.methods.Langevin(kT=1.2, default_gamma=0.5,
+                                            filter=port.md.filter.Type(["A"])),
+                   port.md.methods.ConstantVolume(filter=port.md.filter.Type(["B"]))]
+    sim.operations.integrator = port.md.Integrator(dt=0.005, methods=methods, forces=forces)
+    sim.state.thermalize_particle_momenta(kT=1.2)
+    return sim
+
+
+def _spy_step1(sim, calls):
+    """Record each method's step1 calls as (method index, drift form): None
+    without a drift check, "verdict" or "top two"."""
+    for k, m in enumerate(sim.operations.integrator.methods):
+        def step1(state, dt, t, seed, drift=None, k=k, plain=m.step1):
+            calls.append((k, None if drift is None else
+                          "top two" if drift.viol is None else "verdict"))
+            return plain(state, dt, t, seed) if drift is None else plain(state, dt, t, seed, drift)
+
+        m.step1 = step1
+
+
+@pytest.mark.parametrize("layout", ["lj", "two_methods", "no_grid", "shards", "brownian"])
+def test_last_step1_carries_the_drift_check(layout):
+    """With a grid the last method's step1 makes the drift check (the
+    verdict on a whole layout, each shard's top two on shards), earlier
+    methods and a layout without a grid step plainly; a chunk's trajectory
+    and violation flag are bitwise the old loop's (a short chunk and one
+    long enough to violate), and the profile's ranges keep their counts."""
+    old, new = _routing_case(layout), _routing_case(layout)
+    old._run_chunk = _old_run_chunk.__get__(old)
+    for sim in (old, new):
+        sim.auto_tune_after = None
+        sim.run(2)
+    calls = []
+    _spy_step1(new, calls)
+    n_methods = len(new.operations.integrator.methods)
+    shards = len(S._as_shards(new._dense))
+    flags = []
+    for n_steps, buffer in ((4, None), (30, 0.05)):
+        got = {}
+        for sim in (old, new):
+            if buffer is not None and sim._grid_spec is not None:
+                sim._grid_spec = sim._grid_spec.replace(buffer=buffer)  # drifts past it
+            calls.clear()
+            dense, meta, viol, _ = sim._run_chunk(sim._dense, sim._meta, sim.timestep, n_steps,
+                                                  n_steps, sim._force_tables())
+            got[sim is new] = (dense, meta, viol)
+        (dense, meta, viol), (odense, ometa, oviol) = got[True], got[False]
+        for d, o in zip(S._as_shards(dense), S._as_shards(odense), strict=True):
+            _assert_same(d, o, f"{layout} {n_steps} steps")
+        for d, o in zip(S._as_shards(meta), S._as_shards(ometa), strict=True):
+            _assert_same(d, o, f"{layout} {n_steps} steps: meta")
+        assert viol.dtype == torch.bool and torch.equal(viol, oviol)
+        flags.append(bool(viol))
+        form = None if layout == "no_grid" else "top two" if layout == "shards" else "verdict"
+        want = [(k, form if k == n_methods - 1 else None) for k in range(n_methods)
+                for _ in range(shards)]
+        assert calls == want * n_steps, (layout, calls[:4])
+    if layout != "no_grid":
+        assert flags == [False, True]
+    else:
+        assert new._grid_spec is None and flags == [False, False]
+
+
 @pytest.mark.parametrize("name", PATHS)
 def test_segment_makes_no_host_read(name):
     """A segment, with a rebuild and without, with the draws keyed on the
@@ -543,16 +629,18 @@ def test_flags_are_carried_across_segments(graphs):
     assert max_occ >= half > sim._grid_spec.cap
 
 
-def test_counters_under_replay():
+@pytest.mark.parametrize("kernel", ["step1", "step1_drift"])
+def test_counters_under_replay(kernel):
     """A capture's launches (and steps, force evaluations) are taken back
     and added at every replay: a stand-in graph whose capture runs the
-    segment's Python once and whose replays run none of it."""
+    segment's Python once and whose replays run none of it; K7 alone
+    ("step1") and K7+K6 in one launch ("step1_drift", a grid path's)."""
     sim = _build(port, "lj")
     sim.run(1)
     counters = Counters(sim)
 
     def segment(dense, meta, viol, t0, n_steps, rebuild):
-        IK.launches_by_kernel["step1"] = IK.launches_by_kernel.get("step1", 0) + n_steps
+        IK.launches_by_kernel[kernel] = IK.launches_by_kernel.get(kernel, 0) + n_steps
         IK.launches += 2 * n_steps
         PK.launches_by_potential["LJ"] = PK.launches_by_potential.get("LJ", 0) + n_steps
         sim.steps_run += n_steps
@@ -568,7 +656,7 @@ def test_counters_under_replay():
 
     runner = SegmentGraphs("key", segment, sim._dense, sim._meta, counters, capture=capture)
     before = counters.read()
-    steps0, step1_0 = sim.steps_run, IK.launches_by_kernel.get("step1", 0)
+    steps0, step1_0 = sim.steps_run, IK.launches_by_kernel.get(kernel, 0)
     ik0 = IK.launches
     runner.run(sim.timestep, 4, True)  # eagerly: counted as it runs
     assert counters.since(before)[-2:] == [4, 0]
@@ -577,7 +665,7 @@ def test_counters_under_replay():
     runner.run(sim.timestep, 4, True)
     assert runner.captures == 1 and runner.replays == 3
     assert sim.steps_run - steps0 == 16
-    assert IK.launches_by_kernel["step1"] - step1_0 == 16
+    assert IK.launches_by_kernel[kernel] - step1_0 == 16
     gained = dict(zip([a for _, a in counters._targets], counters.since(before), strict=True))
     assert gained["launches_by_potential"] == {"LJ": 16}
     assert IK.launches - ik0 == 32

@@ -2,18 +2,22 @@
 plain versions against the JAX package.
 
 On CUDA tensors ``Method.step1`` / ``step2`` launch K7-K9 and
-``ops/dense.py``'s drift check K6 (``ops/integrate_kernel.py``); on CPU
-tensors they run their plain versions, which launch nothing; a ``meta``
-tensor raises. The plain versions are held here to the reference on the
-same numpy inputs (``torch_integrate_cases.py``: a slot layout with empty
-slots, two types and frozen axes): the drift check's verdict exactly (a
-NaN drift, ties at the maximum, every slot empty, the violation flag
-ORed in), one step1 + step2 of every method case with rotation at the
-bars of ``test_torch_simulation.py``'s one-step test (positions within
-2e-6; velocities, accelerations and the rotational fields within 2e-5 of
-their largest value: XLA may fuse a product into a multiply-add). The
-kernels are held to these plain versions on the card bitwise
-(``test_torch_kernels.py``).
+``ops/dense.py``'s drift check K6 (``ops/integrate_kernel.py``), and
+``step1`` with a drift check K7 and K6 in one launch; on CPU tensors they
+run their plain versions (with a drift check, the plain step1 then the
+plain check), which launch nothing; a ``meta`` tensor raises. The plain
+versions are held here to the reference on the same numpy inputs
+(``torch_integrate_cases.py``: a slot layout with empty slots, two types
+and frozen axes): the drift check's verdict exactly (a NaN drift, ties at
+the maximum, every slot empty, the violation flag ORed in), one step1 +
+step2 of every method case with rotation at the bars of
+``test_torch_simulation.py``'s one-step test (positions within 2e-6;
+velocities, accelerations and the rotational fields within 2e-5 of their
+largest value: XLA may fuse a product into a multiply-add), and step1
+with the drift check against the reference's step1 then ``needs_rebin``
+(positions and velocities bit for bit, the verdict exactly; whole and on
+two shards). The kernels are held to these plain versions on the card
+bitwise (``test_torch_kernels.py``).
 """
 
 import types
@@ -55,9 +59,18 @@ def test_cpu_steps_take_the_plain_versions(case, rotational):
     state = _port_state(IC.slot_arrays(N, 1))
     m = IC.attached(IC.methods(port, case), rotational)
     before = (IK.launches, dict(IK.launches_by_kernel))
-    for step in ("step1", "step2"):
-        got = getattr(m, step)(state, 0.005, 77, 9)
-        want = getattr(m, f"_{step}_plain")(state, 0.005, 77, 9)
+    a = IC.slot_arrays(N, 1)
+    meta = types.SimpleNamespace(ref_position=torch.as_tensor(a["ref_position"]))
+    spec = types.SimpleNamespace(buffer=0.4)
+    for step in ("step1", "step2", "step1 with the drift check"):
+        if step == "step1 with the drift check":
+            got, verdict = m.step1(state, 0.005, 77, 9,
+                                   port.md.methods.DriftCheck(meta, spec, torch.tensor(False)))
+            want = m._step1_plain(state, 0.005, 77, 9)
+            assert torch.equal(verdict, PD._needs_rebin_plain(want, meta, spec))
+        else:
+            got = getattr(m, step)(state, 0.005, 77, 9)
+            want = getattr(m, f"_{step}_plain")(state, 0.005, 77, 9)
         for k in FIELDS:
             assert torch.equal(getattr(got, k).view(torch.int32),
                                getattr(want, k).view(torch.int32)), (step, k)
@@ -86,12 +99,19 @@ def test_meta_tensors_raise():
             with pytest.raises(ValueError, match="meta"):
                 step(state, 0.005, 1, 1)
     dense, meta = _drift_layout(a, "meta")
+    spec = types.SimpleNamespace(buffer=0.1)
     with pytest.raises(ValueError, match="meta"):
-        PD.needs_rebin(dense, meta, types.SimpleNamespace(buffer=0.1), torch.tensor(False))
+        PD.needs_rebin(dense, meta, spec, torch.tensor(False))
+    with pytest.raises(ValueError, match="meta"):
+        m.step1(state, 0.005, 1, 1, port.md.methods.DriftCheck(meta, spec, None))
     with pytest.raises(ValueError, match="meta"):
         PD.drift_top_two(dense, meta)
     with pytest.raises(ValueError, match="CUDA"):
         IK.step1(state.tag, None, state.position, state.velocity, state.acceleration, 0.005)
+    cpu = _port_state(a)
+    with pytest.raises(ValueError, match="CUDA"):
+        IK.step1_drift(cpu.tag, None, cpu.position, cpu.velocity, cpu.acceleration, 0.005,
+                       cpu.position, 0.4, torch.tensor(False))
 
 
 # -- the drift check against the reference ------------------------------------
@@ -163,6 +183,109 @@ def test_plain_step_matches_reference(case, rotational):
     if not rotational:
         for k in ("orientation", "angmom"):
             assert np.array_equal(out[port][k].view(np.int32), a[k].view(np.int32)), k
+
+
+# -- step1 with the drift check against the reference ------------------------
+def _met_buffers(position, ref_position, tag) -> list:
+    """0.4, the buffer the two largest drifts of ``position`` just meet as
+    the plain check forms sqrt(m1) + sqrt(m2) (its verdict false), and the
+    float32 below it (true)."""
+    d = types.SimpleNamespace(position=position, tag=tag)
+    m1, m2 = PD._top_two(PD._drift_sq(d, types.SimpleNamespace(ref_position=ref_position)))
+    met = np.float32((torch.sqrt(m1) + torch.sqrt(torch.clamp_min(m2, 0.0))).item())
+    return [0.4, float(met), float(np.nextafter(met, np.float32(0)))]
+
+
+def _ref_verdict(rstate, ref_position, buffer) -> bool:
+    meta = types.SimpleNamespace(ref_position=jnp.asarray(ref_position))
+    return bool(RD.needs_rebin(rstate, meta, types.SimpleNamespace(buffer=buffer)))
+
+
+@pytest.mark.parametrize("rotational", [False, True])
+@pytest.mark.parametrize("case", IC.CASES)
+def test_step1_with_drift_check_matches_reference(case, rotational):
+    """``Method.step1`` with a drift check on the CPU (the plain step1,
+    then the plain check) against the reference's ``m.step1`` then
+    ``needs_rebin`` on the same numpy inputs: positions and velocities bit
+    for bit, the verdict equal at buffer 0.4, at the buffer the drift just
+    meets and at the float32 below it, with the flag clear and set; the
+    rotational fields are the port's step1 without the check, bit for
+    bit."""
+    a = IC.slot_arrays(N, 13)
+    rm = IC.attached(IC.methods(ref, case), rotational)
+    rs = rm.step1(_ref_state(a), IREF.DT, IREF.TIMESTEP, IREF.SEED)
+    m = IC.attached(IC.methods(port, case), rotational)
+    state = _port_state(a)
+    meta = types.SimpleNamespace(ref_position=torch.as_tensor(a["ref_position"]))
+    alone = m.step1(state, IREF.DT, IREF.TIMESTEP, IREF.SEED)
+    buffers = _met_buffers(alone.position, meta.ref_position, alone.tag)
+    wants = [_ref_verdict(rs, a["ref_position"], b) for b in buffers]
+    assert wants[1:] == [False, True]  # the drift just meets, then exceeds
+    for buffer, want in zip(buffers, wants):
+        spec = types.SimpleNamespace(buffer=buffer)
+        for viol in (False, True):
+            got, verdict = m.step1(state, IREF.DT, IREF.TIMESTEP, IREF.SEED,
+                                   port.md.methods.DriftCheck(meta, spec, torch.tensor(viol)))
+            assert verdict.dtype == torch.bool and bool(verdict) == (viol or want), (buffer, viol)
+            for k in ("position", "velocity"):
+                assert np.array_equal(getattr(got, k).numpy().view(np.int32),
+                                      np.asarray(getattr(rs, k)).view(np.int32)), k
+            for k in FIELDS:
+                assert torch.equal(getattr(got, k).view(torch.int32),
+                                   getattr(alone, k).view(torch.int32)), k
+
+
+def test_step1_drift_top_two_on_two_shards_matches_reference():
+    """On a two-shard layout (``make_mesh(2, device="cpu", sharded=True)``)
+    each shard's step1 with the top-two drift check, combined by
+    ``needs_rebin_of``, against the reference's ``m.step1`` then
+    ``needs_rebin`` on the shards' slots joined: positions and velocities
+    bit for bit, the verdict equal at 0.4, the met buffer and below it."""
+    snap = port.Snapshot(N=216)
+    snap.configuration.box = [7.2, 7.2, 7.2, 0, 0, 0]
+    snap.particles.types = ["A"]
+    x = (np.arange(6) + 0.5) * 1.2 - 3.6
+    g = np.random.default_rng(21)
+    snap.particles.position[:] = (np.stack(np.meshgrid(x, x, x, indexing="ij"), -1)
+                                  .reshape(-1, 3) + g.uniform(-0.05, 0.05, (216, 3)))
+    sim = port.Simulation(device="cpu", seed=3)
+    sim.create_state_from_snapshot(snap)
+    lj = port.pair.LJ(nlist=port.md.nlist.Cell(buffer=0.4), default_r_cut=2.5)
+    lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0)
+    sim.operations.integrator = port.md.Integrator(
+        dt=0.005, methods=[port.md.methods.Langevin(kT=1.2)], forces=[lj])
+    sim.state.thermalize_particle_momenta(kT=1.2)
+    sim.enable_spatial_decomposition(port.parallel.make_mesh(2, device="cpu", sharded=True))
+    sim.run(12)
+    shards, metas = sim._dense, sim._meta
+    assert isinstance(shards, tuple) and len(shards) == 2
+    m = sim.operations.integrator.methods[-1]
+    dt, t, seed = sim.dt_ref(), sim.timestep, sim.seed
+    joined = {k: np.concatenate([getattr(s, k).numpy() for s in shards])
+              for k in ("position", "tag", "typeid", "velocity", "acceleration", "net_force",
+                        "mass", "orientation", "angmom", "moment_inertia", "net_torque", "image",
+                        "diameter", "charge")}
+    joined.update(bond_typeid=np.zeros(0, np.int32), bond_group=np.zeros((0, 2), np.int32))
+    refp = np.concatenate([mt.ref_position.numpy() for mt in metas])
+    rm = IC.attached(ref.md.methods.Langevin(kT=1.2), False)
+    rs = rm.step1(IC.state_of(ref, joined, jnp.asarray), dt, t, seed)
+    alone = [m.step1(s, dt, t, seed) for s in shards]
+    buffers = _met_buffers(torch.cat([s.position for s in alone]), torch.as_tensor(refp),
+                           torch.cat([s.tag for s in alone]))
+    wants = [_ref_verdict(rs, refp, b) for b in buffers]
+    assert wants[1:] == [False, True]
+    for buffer, want in zip(buffers, wants):
+        spec = sim._grid_spec.replace(buffer=buffer)
+        stepped = [m.step1(s, dt, t, seed, port.md.methods.DriftCheck(mt, spec, None))
+                   for s, mt in zip(shards, metas)]
+        tops = torch.cat([top for _, top in stepped])
+        assert tops.shape == (4,)
+        for viol in (False, True):
+            verdict = PD.needs_rebin_of(tops, spec, torch.tensor(viol))
+            assert bool(verdict) == (viol or want), (buffer, viol)
+        for k in ("position", "velocity"):
+            got = torch.cat([getattr(s, k) for s, _ in stepped]).numpy()
+            assert np.array_equal(got.view(np.int32), np.asarray(getattr(rs, k)).view(np.int32)), k
 
 
 # the per-type gamma of 300 types, each its own (K8 stages a table of more

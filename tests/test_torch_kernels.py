@@ -1020,7 +1020,8 @@ def test_jax_normal_is_the_references_within_bar(draw_device, reference_draws, c
 
 
 # -- the integrator and the drift check (csrc/integrate.cu) -------------------
-# K6-K9 against their plain versions on the card, bitwise: the same float32
+# K6-K9, and K7+K6 in one launch (step1 with a drift check) also against K7
+# then K6, against their plain versions on the card, bitwise: the same float32
 # operations, each rounded on its own, in the same order (K9's sums of 4 in
 # the card's torch.sum order, its cos and sin the same libm), the same
 # draws. Shapes: ragged tails around K6's and K8's blocks (1 to 4,097
@@ -1139,6 +1140,107 @@ def test_drift_check_kernel_bitwise_plain(cuda_device, kind, n, offset):
         assert bool(verdict) == bool(D._needs_rebin_of_plain(want2, spec)) == bool(want)
 
 
+_SLOT_FIELDS = ("position", "tag", "velocity", "typeid", "image", "orientation", "mass",
+                "diameter", "charge", "net_force", "acceleration", "angmom", "moment_inertia",
+                "net_torque")
+
+
+def _slots(state, c):
+    """``state`` on the slots ``c`` (an index tensor)."""
+    return state.replace(**{k: getattr(state, k)[c] for k in _SLOT_FIELDS})
+
+
+def _step1_drift_case(n, seed, kind, device, offset=0):
+    """A slot state whose positions, reference positions and tags are
+    ``_drift_inputs``' of ``kind`` (every field a view ``x[offset:]`` of a
+    larger tensor) and its meta. The two slots "tie" and "exact" place
+    keep no velocity and no acceleration, so the half step keeps their
+    drift."""
+    pos, ref, tag = _drift_inputs(n, seed, kind, device, offset)
+    a = IC.slot_arrays(n + offset, seed)
+    state = IC.state_of(az, a, lambda x: torch.as_tensor(x, device=device)[offset:])
+    state = state.replace(position=pos, tag=tag)
+    if kind in ("tie", "exact"):
+        live = torch.nonzero(tag >= 0).flatten()[:2]
+        state.velocity[live] = 0.0
+        state.acceleration[live] = 0.0
+    return state, types.SimpleNamespace(ref_position=ref)
+
+
+def _launched_integrate(before):
+    return {k: IK.launches_by_kernel.get(k, 0) - before.get(k, 0)
+            for k in ("step1", "step1_drift", "drift_check")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", INTEGRATE_SIZES)
+@pytest.mark.parametrize("kind", DRIFT_KINDS)
+def test_step1_drift_kernel_bitwise(cuda_device, kind, n, offset):
+    """K7+K6 in one launch (``Method.step1`` with a drift check) against
+    K7 then K6 and against the plain step1 then the plain check, bit for
+    bit: every drift kind, with and without a filter's sel, the verdict
+    (three buffers, the flag clear and set) and the top two (whole and on 4
+    cuts, then the combine); one ``step1_drift`` launch a call and no other
+    integrator launch."""
+    state, meta = _step1_drift_case(n, n + 3, kind, cuda_device, offset)
+    if offset:
+        assert state.velocity.storage_offset() == 3 and state.tag.storage_offset() == 1
+    dt, t, seed = 0.005, 777, 12345
+    DriftCheck = az.md.methods.DriftCheck
+    for filt in (None, ["B"]):
+        kw = {"filter": az.md.filter.Type(filt)} if filt else {}
+        m = IC.attached(az.md.methods.ConstantVolume(**kw), False, cuda_device)
+        k7 = m.step1(state, dt, t, seed)
+        plain = m._step1_plain(state, dt, t, seed)
+        what = f"{kind} n={n} offset={offset} filter={filt}"
+        for buffer in (0.5, 0.05, 0.6):
+            spec = types.SimpleNamespace(buffer=buffer)
+            for viol0 in (False, True):
+                viol = torch.tensor(viol0, device=cuda_device)
+                before = dict(IK.launches_by_kernel)
+                got, verdict = m.step1(state, dt, t, seed, DriftCheck(meta, spec, viol))
+                assert _launched_integrate(before) == {"step1": 0, "step1_drift": 1,
+                                                       "drift_check": 0}, what
+                for k in ("position", "velocity"):
+                    _same_bits(getattr(got, k), getattr(k7, k), f"{what} {k} against K7")
+                    _same_bits(getattr(got, k), getattr(plain, k), f"{what} {k} against plain")
+                k6 = D.needs_rebin(k7, meta, spec, viol)
+                want = viol | D._needs_rebin_plain(plain, meta, spec)
+                assert verdict.dtype == torch.bool and verdict.shape == ()
+                assert bool(verdict) == bool(k6) == bool(want), (what, buffer, viol0)
+                assert not bool(viol) or viol0
+        # the top two: whole, then each of 4 cuts and their combine
+        cuts = np.array_split(np.arange(n), 4) if n >= 4 else [np.arange(n)]
+        whole = [(state, meta, plain)]
+        parts = []
+        for c in cuts:
+            c = torch.as_tensor(c, device=cuda_device)
+            cut = types.SimpleNamespace(ref_position=meta.ref_position[c])
+            parts.append((_slots(state, c), cut, _slots(plain, c)))
+        for which, layouts in (("whole", whole), ("cuts", parts)):
+            tops, plains = [], []
+            for st, mt, pl in layouts:
+                before = dict(IK.launches_by_kernel)
+                got, top = m.step1(st, dt, t, seed, DriftCheck(mt, spec, None))
+                assert _launched_integrate(before)["step1_drift"] == 1
+                assert top.shape == (2,) and top.dtype == torch.float32
+                _same_bits(got.position, pl.position, f"{what} {which} position")
+                k6 = D.drift_top_two(m.step1(st, dt, t, seed), mt)
+                want = D._drift_top_two_plain(pl, mt)
+                for other, name in ((k6, "K6"), (want, "plain")):
+                    assert torch.equal(torch.isnan(top), torch.isnan(other)), (what, which, name)
+                    fin = ~torch.isnan(other)
+                    assert torch.equal(top[fin].view(torch.int32), other[fin].view(torch.int32)), (
+                        what, which, name)
+                tops.append(top)
+                plains.append(want)
+            got = D.needs_rebin_of(torch.cat(tops), spec, torch.tensor(False, device=cuda_device))
+            want = D._needs_rebin_of_plain(torch.cat(plains), spec)
+            assert bool(got) == bool(want) == bool(D._needs_rebin_plain(plain, meta, spec)), (
+                what, which)
+
+
 # K8's instantiations: (mode, flow field); each with and without a filter
 STEP2_MODES = [("nve", False), ("noiseless", False), ("noiseless", True), ("noisy", False),
                ("noisy", True)]
@@ -1221,10 +1323,19 @@ def test_integrate_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="mode"):
         IK.no_squish(2, state.tag, None, state.typeid, state.orientation, state.angmom,
                      state.moment_inertia, state.net_torque, 0.005)
+    with pytest.raises(ValueError, match="shape"):
+        IK.step1_drift(state.tag, None, state.position, state.velocity, state.acceleration,
+                       0.005, state.position[:10], 0.4, torch.tensor(False, device=cuda_device))
+    with pytest.raises(ValueError, match="viol"):
+        IK.step1_drift(state.tag, None, state.position, state.velocity, state.acceleration,
+                       0.005, state.position, 0.4, torch.tensor([False], device=cuda_device))
     before = IK.launches
     empty = torch.zeros((0, 3), device=cuda_device)
     x, v = IK.step1(state.tag[:0], None, empty, empty, empty, 0.005)
     assert x.shape == (0, 3) and IK.launches == before
+    with pytest.raises(ValueError, match="at least one slot"):
+        IK.step1_drift(state.tag[:0], None, empty, empty, empty, 0.005, empty, 0.4)
+    assert IK.launches == before
 
 
 # -- the integrator and the drift check against the JAX package ---------------
@@ -1293,6 +1404,46 @@ def test_drift_check_is_the_references(draw_device, reference_integration, kind)
         assert bool(got) == bool(verdict), (buffer, "4 shards")
     card = int(draw_device.type == "cuda")
     assert IK.launches_by_kernel.get("drift_check", 0) - before == card * len(IREF.BUFFERS) * 7
+
+
+@pytest.mark.parametrize("case", IC.CASES)
+def test_step1_drift_is_the_references(draw_device, reference_integration, case):
+    """``Method.step1`` with the drift check (K7+K6 in one launch on the
+    card, the plain step and check on the CPU) against the reference's
+    step1 and its ``needs_rebin`` on the new positions: positions and
+    velocities bit for bit, the verdict at each buffer (the one the drift
+    just meets and the float32 below it among them) with the flag clear
+    and set, and from 4 cuts' top twos."""
+    a = IC.slot_arrays(IREF.N, IREF.STATE_SEED)
+    state = IC.state_of(az, a, lambda x: torch.as_tensor(x, device=draw_device))
+    meta = types.SimpleNamespace(ref_position=torch.as_tensor(a["ref_position"],
+                                                              device=draw_device))
+    m = IC.attached(IC.methods(az, case), False, draw_device)
+    row = IC.CASES.index(case)
+    buffers = reference_integration["step1_buffers"][row]
+    verdicts = reference_integration["step1_drift"][row]
+    assert list(verdicts[-2:]) == [False, True]  # just met, then exceeded
+    cuts = [torch.as_tensor(c, device=draw_device) for c in np.array_split(np.arange(IREF.N), 4)]
+    DriftCheck = az.md.methods.DriftCheck
+    before = dict(IK.launches_by_kernel)
+    for buffer, verdict in zip(buffers, verdicts):
+        spec = types.SimpleNamespace(buffer=float(buffer))
+        for viol in (False, True):
+            s, got = m.step1(state, IREF.DT, IREF.TIMESTEP, IREF.SEED,
+                             DriftCheck(meta, spec, torch.tensor(viol, device=draw_device)))
+            assert bool(got) == (viol or bool(verdict)), (buffer, viol)
+            for k in ("position", "velocity"):
+                want = reference_integration[IREF.key(case, False, f"step1_{k}")]
+                assert np.array_equal(getattr(s, k).cpu().numpy().view(np.int32),
+                                      want.view(np.int32)), (k, buffer)
+        tops = [m.step1(_slots(state, c), IREF.DT, IREF.TIMESTEP, IREF.SEED,
+                        DriftCheck(types.SimpleNamespace(ref_position=meta.ref_position[c]),
+                                   spec, None))[1] for c in cuts]
+        got = D.needs_rebin_of(torch.cat(tops), spec, torch.tensor(False, device=draw_device))
+        assert bool(got) == bool(verdict), (buffer, "4 cuts")
+    card = int(draw_device.type == "cuda")
+    assert _launched_integrate(before) == {"step1": 0, "step1_drift": card * len(buffers) * 6,
+                                           "drift_check": card * len(buffers)}
 
 
 # -- the clock forms: the draws of a CUDA graph ---------------------------------

@@ -13,7 +13,11 @@ A step case is one step1, fresh forces and torques, then one step2 of a
 method case (``torch_integrate_cases.CASES``) with or without rotation;
 the file keeps every field the step writes. A drift case is the
 reference's ``needs_rebin`` verdict on ``drift_arrays(kind, N,
-DRIFT_SEED)`` at each of BUFFERS.
+DRIFT_SEED)`` at each of BUFFERS. A step1 case is a method case's step1
+alone (positions and velocities) and the reference's ``needs_rebin``
+verdict on its new positions at each of ``step1_buffers``: STEP1_BUFFERS,
+the buffer the two largest drifts just meet (the verdict false) and the
+float32 below it (true).
 
 The bars are those of the one-step test of ``test_torch_simulation.py``:
 positions within 2e-6, the other fields within 2e-5 of their largest
@@ -40,6 +44,7 @@ STATE_SEED, FORCE_SEED = 11, 12  # the state; the forces and torques step2 sees
 DT, TIMESTEP, SEED = 0.005, 2**31 + 3, 42
 DRIFT_SEED = 5
 BUFFERS = (0.05, 0.5, 0.7)
+STEP1_BUFFERS = (0.05, 0.4, 0.7)
 TRANSLATION = ("position", "velocity", "acceleration")
 ROTATION = ("orientation", "angmom", "net_torque")
 POSITION_ATOL, FIELD_RTOL = 2e-6, 2e-5
@@ -62,6 +67,26 @@ def one_step(az, case: str, rotational: bool, state_of, device="cpu"):
     fresh = state_of(IC.slot_arrays(N, FORCE_SEED))
     s = s.replace(net_force=fresh.net_force, net_torque=fresh.net_torque)
     return m.step2(s, DT, TIMESTEP, SEED)
+
+
+def step1(az, case: str, state_of, device="cpu"):
+    """``az``'s State after the step1 of ``case`` (no rotation)."""
+    m = IC.attached(IC.methods(az, case), False, device)
+    return m.step1(state_of(IC.slot_arrays(N, STATE_SEED)), DT, TIMESTEP, SEED)
+
+
+def step1_buffers(position) -> tuple:
+    """STEP1_BUFFERS, then the float32 buffer that the two largest squared
+    drifts of ``position`` (numpy, from the state's reference positions on
+    occupied slots) just meet as sqrt(m1) + sqrt(m2), then the float32
+    below it."""
+    a = IC.slot_arrays(N, STATE_SEED)
+    d = (position - a["ref_position"]).astype(np.float32)
+    dsq = np.where(a["tag"] >= 0, (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2],
+                   np.float32(0))
+    m2, m1 = np.sort(dsq)[-2:]
+    met = np.sqrt(m1) + np.sqrt(m2)
+    return STEP1_BUFFERS + (float(met), float(np.nextafter(met, np.float32(0))))
 
 
 def assert_close(got, want, field: str, what: str) -> None:
@@ -97,6 +122,18 @@ def compute_reference() -> dict:
         verdicts.append([bool(RD.needs_rebin(dense, meta, types.SimpleNamespace(buffer=b)))
                          for b in BUFFERS])
     out["drift"] = np.array(verdicts)
+    buffers, verdicts = [], []
+    for case in IC.CASES:
+        s = step1(ref, case, lambda a: IC.state_of(ref, a, jnp.asarray))
+        for field in ("position", "velocity"):
+            out[key(case, False, f"step1_{field}")] = np.asarray(getattr(s, field))
+        meta = types.SimpleNamespace(
+            ref_position=jnp.asarray(IC.slot_arrays(N, STATE_SEED)["ref_position"]))
+        buffers.append(step1_buffers(np.asarray(s.position)))
+        verdicts.append([bool(RD.needs_rebin(s, meta, types.SimpleNamespace(buffer=b)))
+                         for b in buffers[-1]])
+    out["step1_buffers"] = np.array(buffers)
+    out["step1_drift"] = np.array(verdicts)
     return out
 
 
