@@ -10,15 +10,28 @@ library's ``powf`` and may differ from XLA's by an ulp).
 
 Subclass ``Variant`` and override ``__call__`` for a custom schedule; it
 must return a float for a Python int timestep.
+
+A run reads a variant's values for a stretch of steps at once
+(:meth:`Variant.values`, the bits ``__call__`` gives, as float32), so that
+the device holds them: inside :func:`scheduled` the step loop's operations
+take a variant's value at a step through :func:`value_at`, a 0-d float32
+tensor on their device, which a CUDA graph reads anew at every replay; a
+kernel's by-value argument (K8's and K9's kT) takes the host float on the
+eager loop and the tensor only inside a graph. A ``Constant`` is a host
+float everywhere, as is every variant outside a run (the reference's
+traced scalar at ``t`` either way).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
+import torch
 
-__all__ = ["Variant", "Constant", "Ramp", "Cycle", "Power", "SphereArea", "as_variant"]
+__all__ = ["Variant", "Constant", "Ramp", "Cycle", "Power", "SphereArea", "as_variant",
+           "scheduled", "value_at"]
 
 _F32 = np.float32
 
@@ -38,6 +51,11 @@ class Variant:
     def __call__(self, timestep: int) -> float:  # pragma: no cover - interface
         raise NotImplementedError
 
+    def values(self, t0: int, n: int) -> np.ndarray:
+        """float32 ``[n]``: the value at each of timesteps ``t0 .. t0 + n -
+        1``, the bits ``__call__`` gives."""
+        return np.array([self(t) for t in range(int(t0), int(t0) + int(n))], dtype=np.float32)
+
     def range(self):
         """(min, max) bounds if known, for host-side validation."""
         return (-math.inf, math.inf)
@@ -49,6 +67,9 @@ class Constant(Variant):
 
     def __call__(self, timestep: int) -> float:
         return float(_F32(self.value))
+
+    def values(self, t0: int, n: int) -> np.ndarray:
+        return np.full(int(n), _F32(self.value), dtype=np.float32)
 
     def range(self):
         return (self.value, self.value)
@@ -148,3 +169,58 @@ def as_variant(value) -> Variant:
     if isinstance(value, (int, float)):
         return Constant(float(value))
     raise TypeError(f"cannot interpret {value!r} as a variant")
+
+
+# the values in force inside scheduled(): (id -> row, the rows, their first
+# timestep, {device: a copy of the rows there}, whether a host float may
+# stand in), or None
+_schedule: tuple | None = None
+
+
+@contextlib.contextmanager
+def scheduled(variants, rows: torch.Tensor | None, t0: int, host_form: bool = False):
+    """Inside, :func:`value_at` gives ``variants[k]``'s value at timestep
+    ``t`` as the 0-d float32 ``rows[k, t - t0]`` (``rows``: ``[len(variants),
+    n]`` on a device, a view, no copy and no launch; on another device from a
+    copy of the rows made once). ``rows`` None schedules nothing.
+    ``host_form``: the steps run eagerly, so a caller that asks for it
+    (``value_at(..., host_form=True)``) gets the host float instead."""
+    global _schedule
+    prev = _schedule
+    if rows is not None:
+        if rows.dtype != torch.float32 or tuple(rows.shape[:1]) != (len(variants),):
+            raise ValueError(f"rows [{len(variants)}, n] of float32 expected, got "
+                             f"{rows.dtype} {tuple(rows.shape)}")
+        _schedule = ({id(v): k for k, v in enumerate(variants)}, rows, int(t0), {},
+                     bool(host_form))
+    try:
+        yield
+    finally:
+        _schedule = prev
+
+
+def value_at(variant: Variant, timestep: int, device=None, host_form: bool = False):
+    """``variant``'s value at ``timestep`` as a step reads it: a
+    ``Constant``'s, and any variant's outside :func:`scheduled`, as the host
+    float ``variant(timestep)``; inside, the scheduled 0-d float32 tensor on
+    ``device`` (default: the rows' own), the same bits. With ``host_form``
+    (a kernel's by-value argument) the host float where the schedule allows
+    it (the eager loop), the tensor inside a CUDA graph. A variant that is
+    not scheduled, or a timestep outside the rows, raises: a value baked
+    into a CUDA graph would be replayed at every timestep."""
+    if _schedule is None or isinstance(variant, Constant):
+        return variant(timestep)
+    index, rows, t0, copies, host_ok = _schedule
+    if host_form and host_ok:
+        return variant(timestep)
+    k = index.get(id(variant))
+    j = int(timestep) - t0
+    if k is None or not 0 <= j < rows.shape[1]:
+        raise ValueError(f"{type(variant).__name__} has no scheduled value at timestep "
+                         f"{timestep} (rows from {t0}, {rows.shape[1]} steps)")
+    if device is not None and torch.device(device) != rows.device:
+        dev = torch.device(device)
+        if dev not in copies:
+            copies[dev] = rows.to(dev, non_blocking=True)
+        rows = copies[dev]
+    return rows[k, j]

@@ -401,8 +401,18 @@ struct Noise {
   const long long* clock;  // null, or the card's timestep: k1 = clock + offset
   int offset;              // (az::step_word), so a CUDA graph's replays draw anew
   float width, low;    // the uniforms' float32 width and low end
-  float kT, inv_dt;    // float32 kT and 1/dt
+  float kT;            // float32 kT (the host-kT form)
+  const float* kT_dev;  // null, or kT on the card (the device-kT form)
+  float inv_dt;        // float32 1/dt
 };
+
+// kT as az::step_word takes the timestep: the host's float32, or with a
+// device pointer (a 0-d float32 on the card: a run's schedule of a variant
+// kT) the value it holds, so a CUDA graph reads each replay's kT. The same
+// bits either way: the noise's scale takes the loaded value as it is.
+__device__ __forceinline__ float kT_of(const Noise& nz) {
+  return nz.kT_dev != nullptr ? __ldg(nz.kT_dev) : nz.kT;
+}
 
 __device__ __forceinline__ float gamma_of(const Noise& nz, const int* type_id, int i) {
   const int t = min(max(__ldg(type_id + i), 0), nz.n_types - 1);
@@ -445,8 +455,9 @@ __global__ void __launch_bounds__(kStep2Threads)
     xf[j] = ok ? __ldg(force + f0 + f) : 0.0f;
     xu[j] = FLOW && ok ? __ldg(flow + f0 + f) : 0.0f;
   }
-  // the table's first B types, one a thread, loaded with the rest
+  // the table's first B types, one a thread, loaded with the rest (and kT)
   const float g0 = LANGEVIN && t < nz.n_types ? __ldg(nz.table + t) : 0.0f;
+  const float kT = MODE == kNoisy ? kT_of(nz) : 0.0f;
   // the draw needs only the tag and the key: it runs while the loads fly
   float u[3] = {0.0f, 0.0f, 0.0f};
   if constexpr (MODE == kNoisy) {
@@ -470,7 +481,7 @@ __global__ void __launch_bounds__(kStep2Threads)
     g = s_gamma[min(max(ty, 0), nz.n_types - 1)];
   }
   if constexpr (MODE == kNoisy) {
-    const float c = noise_scale(g, nz.kT, nz.inv_dt);
+    const float c = noise_scale(g, kT, nz.inv_dt);
 #pragma unroll
     for (int k = 0; k < 3; ++k) rand[k] = mul(c, u[k]);
   }
@@ -656,7 +667,7 @@ __global__ void __launch_bounds__(kThreads)
         float u[3];
         uniform3(nz.k0, az::step_word(nz.k1, nz.clock, nz.offset), tag[i], nz.width, nz.low,
                  u);
-        const float c = noise_scale(g, nz.kT, nz.inv_dt);
+        const float c = noise_scale(g, kT_of(nz), nz.inv_dt);
 #pragma unroll
         for (int k = 0; k < 3; ++k) rand[k] = mul(c, u[k]);
       }
@@ -696,7 +707,8 @@ extern "C" {
 // Pointers are device pointers but for the gamma table's none (null);
 // `sel` is a filter's bool [n] or null (All()); K8's and K9's `clock` is
 // null (the key's timestep word is k1) or a device int64 (the word is then
-// (uint32)(*clock + offset)).
+// (uint32)(*clock + offset)); their `kT_dev` is null (kT is the float `kT`)
+// or a device float32 (kT is the value it holds).
 
 // K6. values null: the drift of pos [n, 3] from ref [n, 3] on tag [n];
 // else n values (squared drifts, -inf or NaN: the shards' top twos).
@@ -757,11 +769,11 @@ int az_step1(const int* tag, const bool* sel, const float* x, const float* v, co
 int az_step2(const int* tag, const bool* sel, const int* type_id, const float* v, const float* a,
              const float* force, const float* mass, const float* flow, int n, float half_dt,
              const float* gamma, int n_types, int noisy, uint32_t k0, uint32_t k1,
-             const long long* clock, int offset, float width, float low, float kT, float inv_dt,
-             float* v_out, float* a_out, void* stream) {
+             const long long* clock, int offset, float width, float low, float kT,
+             const float* kT_dev, float inv_dt, float* v_out, float* a_out, void* stream) {
   if (n <= 0 || (gamma != nullptr && (n_types <= 0 || n_types > kStep2MaxTypes)))
     return (int)cudaErrorInvalidValue;
-  const Noise nz{gamma, n_types, noisy, k0, k1, clock, offset, width, low, kT, inv_dt};
+  const Noise nz{gamma, n_types, noisy, k0, k1, clock, offset, width, low, kT, kT_dev, inv_dt};
   const bool s = sel != nullptr, u = flow != nullptr;
   const Step2Kernel kernel =
       gamma == nullptr ? step2_instance<kNVE, false>(s)
@@ -781,11 +793,11 @@ int az_no_squish(int mode, const int* tag, const bool* sel, const int* type_id, 
                  const float* p, const float* inertia, const float* torque, int n, float dt,
                  float half_dt, const float* gamma_r, int n_types, int noisy, uint32_t k0,
                  uint32_t k1, const long long* clock, int offset, float width, float low,
-                 float kT, float inv_dt, float* q_out, float* p_out, float* torque_out,
-                 void* stream) {
+                 float kT, const float* kT_dev, float inv_dt, float* q_out, float* p_out,
+                 float* torque_out, void* stream) {
   if (n <= 0 || mode < 0 || mode > 2 || (mode == 2 && (gamma_r == nullptr || n_types <= 0)))
     return (int)cudaErrorInvalidValue;
-  const Noise nz{gamma_r, n_types, noisy, k0, k1, clock, offset, width, low, kT, inv_dt};
+  const Noise nz{gamma_r, n_types, noisy, k0, k1, clock, offset, width, low, kT, kT_dev, inv_dt};
   no_squish_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       mode, tag, sel, type_id, q, p, inertia, torque, n, dt, half_dt, nz, q_out, p_out,
       torque_out);

@@ -4,8 +4,11 @@ Port of ``azplugins_tpu/external.py``.
 
   * ``PlanarHarmonicBarrier`` / ``SphericalHarmonicBarrier``: one-sided
     harmonic restraints with a time-dependent (variant) location; per-type
-    ``k`` and ``offset`` params. The location is evaluated on the host
-    each step and enters the device arithmetic as a float32 constant. No
+    ``k`` and ``offset`` params. The location is the variant's float32
+    value at the step (``core/variant.py::value_at``): inside a run a 0-d
+    tensor on the device from the run's schedule, on the eager loop and in
+    a CUDA graph alike, a host float outside one; either way the evaluator
+    makes the same float32 add ``R + offset``. No
     virial is computed (zeros, and a warning once per force, as in the
     reference plugin).
   * ``wall.LJ93`` / ``wall.Colloid``: integrated LJ wall potentials acting
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from .core.typeparam import TypeParameter
-from .core.variant import Variant, as_variant
+from .core.variant import Variant, as_variant, value_at
 from .md.force import Force
 from .ops.evaluators import BARRIERS, WALL_POTENTIALS
 from .ops.pair_force import ForceResult
@@ -95,7 +98,7 @@ class HarmonicBarrier(Force):
         return {"params": _on_device(self._tbl["params"], device)}
 
     def _compute(self, state, timestep, tbl) -> ForceResult:
-        loc = self.location(timestep)
+        loc = value_at(self.location, timestep, state.device)
         valid, pos, typeid = _masked(state)
         k = tbl["params"]["k"][typeid]
         offset = tbl["params"]["offset"][typeid]

@@ -20,6 +20,16 @@ draws key on the clock (``core/rng.py::device_clock``), not on a timestep
 frozen into the graph. Nothing falls back: a capture or replay that fails
 raises.
 
+What a step reads beyond the state and the clock is a chunk's schedule
+(:class:`Steps`): each variant's float32 value at each step and each
+updater's trigger, filled by the host in :meth:`SegmentGraphs.load` once a
+chunk, in one copy from pinned memory, into fixed rows sized to the
+runner's longest chunk. A segment gathers its own columns at ``clock -
+chunk_t0`` through a device index, so one ``(L, rebuild)`` graph serves
+every ``t0``: the variants reach the operations as 0-d tensors
+(``core/variant.py::scheduled``) and the updaters run as the reference's
+masked selects (``Updater._update_masked``).
+
 :class:`Counters` keeps the host counters exact under replay: a capture
 records, by kernel, the launches its segment made (and the steps and force
 evaluations the simulation counted), takes them back, and every replay adds
@@ -32,13 +42,44 @@ import collections
 import dataclasses
 import gc
 import time
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .core import rng as _rng
 from .ops import aniso_kernel, dpd_kernel, integrate_kernel, pair_kernel, rng_kernel
 
-__all__ = ["Counters", "SegmentGraphs", "cuda_capture"]
+__all__ = ["Counters", "SegmentGraphs", "Steps", "cuda_capture", "to_device"]
+
+
+class Steps(NamedTuple):
+    """What the steps from timestep ``t0`` read besides the state:
+    ``values[k, j]``, the k-th scheduled variant's float32 value at step
+    ``t0 + j`` (a tensor on the layout's device; None: no variant to
+    schedule), and ``fires[u, j]``, whether the u-th updater fires after
+    that step (device bools: the masked selects of the graphs; None: the
+    host's triggers decide, as on the eager loop). ``graph``: the steps run
+    inside a CUDA graph, so no host float may stand in for a value."""
+
+    t0: int
+    values: torch.Tensor | None
+    fires: torch.Tensor | None
+    graph: bool = False
+
+
+def _host(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``x`` as a CPU tensor to copy to ``dev``: for CUDA in pinned memory,
+    so that the copy is queued on the current stream with no synchronising
+    call (the caching host allocator keeps the block until it has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    return t.pin_memory() if dev.type == "cuda" else t
+
+
+def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``x`` as a tensor on ``dev``, in one copy that makes no synchronising
+    call."""
+    return _host(x, dev).to(dev, non_blocking=True)
 
 # (module, attribute) of every launch counter a kernel wrapper keeps: an int
 # or a dict of ints by kernel (or potential)
@@ -151,7 +192,10 @@ class SegmentGraphs:
 
     ``segment(dense, meta, viol, t0, n_steps, rebuild)`` runs one segment
     (``Simulation._run_segment`` on a whole layout) and returns ``(dense,
-    meta, viol)``; it makes no host read. ``key`` is what the graphs are
+    meta, viol)``; it makes no host read. With ``n_values`` variants or
+    ``n_fires`` updaters to schedule, the runner holds their rows for up to
+    ``max_steps`` steps (a chunk) and hands the segment its own columns as
+    ``steps=`` (a :class:`Steps`). ``key`` is what the graphs are
     bound to (grid spec and cap, the operations' fingerprint, the force
     tables' identity, rotational or not); a graph is found under ``(L,
     rebuild)`` within it. At most ``max_graphs`` graphs are kept, the least
@@ -164,7 +208,8 @@ class SegmentGraphs:
     """
 
     def __init__(self, key, segment, dense, meta, counters: Counters, capture=None,
-                 max_graphs: int = 32, totals: dict | None = None):
+                 max_graphs: int = 32, totals: dict | None = None, n_values: int = 0,
+                 n_fires: int = 0, max_steps: int = 0):
         self.key = key
         self._segment = segment
         self._counters = counters
@@ -175,6 +220,21 @@ class SegmentGraphs:
         self.meta = _clone(meta)
         self.viol = torch.zeros((), dtype=torch.bool, device=dev)
         self.clock = torch.zeros((), dtype=torch.int64, device=dev)
+        # the chunk's schedule, one byte buffer filled by one copy: its first
+        # timestep (int64), each variant's float32 row, each trigger's bool
+        # row, max_steps entries a row
+        self.n_values, self.n_fires, self.max_steps = int(n_values), int(n_fires), int(max_steps)
+        self.schedule = None
+        if self.n_values or self.n_fires:
+            v_bytes = 4 * self.n_values * self.max_steps
+            self.schedule = torch.zeros(8 + v_bytes + self.n_fires * self.max_steps,
+                                        dtype=torch.uint8, device=dev)
+            self.chunk_t0 = self.schedule[:8].view(torch.int64)[0]
+            self.values = self.schedule[8:8 + v_bytes].view(torch.float32).view(
+                self.n_values, self.max_steps)
+            self.fires = self.schedule[8 + v_bytes:].view(torch.bool).view(
+                self.n_fires, self.max_steps)
+            self._steps_of = torch.arange(self.max_steps, dtype=torch.int64, device=dev)
         self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
         # (n_steps, rebuild) -> (graph, counter delta a replay adds)
         self._graphs: collections.OrderedDict = collections.OrderedDict()
@@ -195,15 +255,43 @@ class SegmentGraphs:
         """Every tensor a segment reads and writes."""
         return ([getattr(self.dense, n) for n in _tensor_fields(self.dense) if n not in _FIXED]
                 + [getattr(self.meta, n) for n in _tensor_fields(self.meta)]
-                + [self.viol, self.clock])
+                + [self.viol, self.clock]
+                + ([self.schedule] if self.schedule is not None else []))
 
-    def load(self, dense, meta, t0: int) -> None:
+    def load(self, dense, meta, t0: int, values: np.ndarray | None = None,
+             fires: np.ndarray | None = None) -> None:
         """Start a chunk: the layout into the buffers, the violation flag
-        cleared, the clock at ``t0``."""
+        cleared, the clock at ``t0``; with a schedule, the chunk's
+        ``values`` (float32 ``[n_values, n]``) and ``fires`` (bool
+        ``[n_fires, n]``) from ``t0`` into its rows in one copy from pinned
+        memory, which makes no synchronising call."""
         _copy_into(self.dense, dense, skip=_FIXED)
         _copy_into(self.meta, meta)
         self.viol.zero_()
         self.clock.fill_(int(t0))
+        if self.schedule is None:
+            return
+        host = np.zeros(self.schedule.numel(), dtype=np.uint8)
+        host[:8].view(np.int64)[0] = int(t0)
+        for rows, got, dtype in ((self.values, values, np.float32),
+                                 (self.fires, fires, np.bool_)):
+            if not rows.shape[0]:
+                continue
+            got = np.asarray(got, dtype=dtype)
+            if got.ndim != 2 or got.shape[0] != rows.shape[0] or got.shape[1] > self.max_steps:
+                raise ValueError(f"a schedule of {rows.shape[0]} rows of at most "
+                                 f"{self.max_steps} steps expected, got {got.shape}")
+            first = 8 + (0 if dtype is np.float32 else 4 * self.values.numel())
+            view = host[first:first + rows.numel() * got.itemsize].view(dtype)
+            view.reshape(rows.shape)[:, :got.shape[1]] = got
+        self.schedule.copy_(_host(host, self.schedule.device), non_blocking=True)
+
+    def _steps(self, t0: int, n_steps: int) -> Steps:
+        """The segment's columns of the schedule, gathered at ``clock -
+        chunk_t0`` on the card (the clock holds the segment's first step)."""
+        at = (self.clock - self.chunk_t0) + self._steps_of[:n_steps]
+        return Steps(t0, self.values.index_select(1, at) if self.n_values else None,
+                     self.fires.index_select(1, at) if self.n_fires else None, graph=True)
 
     def result(self) -> tuple:
         """``(dense, meta, viol)``: the buffers cloned into tensors the
@@ -215,8 +303,9 @@ class SegmentGraphs:
 
         def body():
             with _rng.device_clock(self.clock, t0):
+                extra = {} if self.schedule is None else {"steps": self._steps(t0, n_steps)}
                 dense, meta, viol = self._segment(self.dense, self.meta, self.viol, t0,
-                                                  n_steps, rebuild)
+                                                  n_steps, rebuild, **extra)
             _copy_into(self.dense, dense, skip=_FIXED)
             _copy_into(self.meta, meta)
             if viol is not self.viol:

@@ -31,6 +31,13 @@ then the plain drift check of ``ops/dense.py``; ``_step2_plain``), which
 the kernels are held to bitwise on the card; any other device raises.
 Nothing falls back. BrownianFlow's steps stay plain PyTorch on both
 devices (its draw is K4; its drift check K6).
+
+kT is a variant read at the step (``core/variant.py::value_at``, its host
+form): a host float on the eager loop and outside a run (K8's and K9's
+host-kT form, a launch argument); inside a CUDA graph a 0-d float32
+tensor on the card from the chunk's schedule, which K8 and K9 read
+through a pointer (their device-kT form, bitwise the host form) and the
+plain versions (and BrownianFlow's operations) multiply by as a tensor.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import torch
 
 from ..core import rng as _rng
 from ..core.typeparam import TypeParameter
-from ..core.variant import as_variant
+from ..core.variant import as_variant, value_at
 from ..ops import dense as D
 from . import rotation as R
 from .filter import All, ParticleFilter
@@ -247,7 +254,7 @@ class LangevinFlow(_GammaMixin, Method):
         if not _rng._on_card(state.device):
             return self._step2_plain(state, dt, timestep, seed)
         K = _kernels()
-        kT = self.kT(timestep)
+        kT = value_at(self.kT, timestep, state.device, host_form=True)
         noisy = not (self.noiseless or dt <= 0)
         sel = self._selection(state)
         flow = None
@@ -269,7 +276,7 @@ class LangevinFlow(_GammaMixin, Method):
 
     def _step2_plain(self, state, dt, timestep, seed):
         gp = self._gamma_of(state)
-        kT = self.kT(timestep)
+        kT = value_at(self.kT, timestep, state.device, host_form=True)
         if self.noiseless or dt <= 0:
             random_force = torch.zeros_like(state.velocity)
         else:
@@ -349,7 +356,7 @@ class BrownianFlow(_GammaMixin, Method):
 
     def _step1_brownian(self, state, dt, timestep, seed):
         gp = self._gamma_of(state)
-        kT = self.kT(timestep)
+        kT = value_at(self.kT, timestep, state.device, host_form=True)
         if self.noiseless or dt <= 0:
             coeff = torch.zeros((state.N, 1), dtype=torch.float32, device=state.device)
         else:

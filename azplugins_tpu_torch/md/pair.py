@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core.typeparam import TypeParameter
-from ..core.variant import as_variant
+from ..core.variant import as_variant, value_at
 from ..ops.aniso_kernel import aniso_force, aniso_kernel_tables
 from ..ops.dpd_kernel import dpd_force
 from ..ops.evaluators import ANISO_PAIR_POTENTIALS, PAIR_POTENTIALS
@@ -173,7 +173,8 @@ class DPDGeneralWeight(Pair):
     half-step velocities the step loop holds at force time; the random force
     uses pair-symmetric counter RNG keyed on the step's timestep and the
     simulation seed, so trajectories are bitwise independent of how runs are
-    chunked. ``kT`` is a variant, evaluated at each step's timestep.
+    chunked. ``kT`` is a variant, evaluated at each step's timestep
+    (``core/variant.py::value_at``: in a run, the schedule's 0-d tensor).
     """
 
     _evaluator_name = "DPDGeneralWeight"
@@ -192,8 +193,8 @@ class DPDGeneralWeight(Pair):
                 "r_cut": dev(self._tbl["r_cut"])}
 
     def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all", window=None):
-        return dpd_force(dense, spec, tbl, self.kT(timestep), ctx.dt, ctx.seed, timestep, want,
-                         window=window)
+        kT = value_at(self.kT, timestep, dense.device)
+        return dpd_force(dense, spec, tbl, kT, ctx.dt, ctx.seed, timestep, want, window=window)
 
 
 class TwoPatchMorse(Force):

@@ -3,9 +3,14 @@
 Port of ``azplugins_tpu/md/trigger.py``. A trigger is evaluated on the
 host from the integer timestep and returns a bool; the step loop decides
 on the host whether an updater fires, so a firing costs no device read.
+:meth:`Trigger.mask` gives the bools of a stretch of steps at once: the
+CUDA graphs carry them to the card, where the updaters run as the
+reference's masked selects.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 __all__ = ["Trigger", "Periodic", "After", "Before", "On", "as_trigger"]
 
@@ -13,6 +18,15 @@ __all__ = ["Trigger", "Periodic", "After", "Before", "On", "as_trigger"]
 class Trigger:
     def __call__(self, timestep: int) -> bool:  # pragma: no cover - interface
         raise NotImplementedError
+
+    def mask(self, t0: int, n: int) -> np.ndarray:
+        """bool ``[n]``: whether the trigger holds at each of timesteps
+        ``t0 .. t0 + n - 1``, as ``__call__`` says."""
+        return np.array([bool(self(t)) for t in range(int(t0), int(t0) + int(n))], dtype=bool)
+
+
+def _steps(t0: int, n: int) -> np.ndarray:
+    return np.arange(int(t0), int(t0) + int(n), dtype=np.int64)
 
 
 class Periodic(Trigger):
@@ -25,6 +39,9 @@ class Periodic(Trigger):
     def __call__(self, timestep: int) -> bool:
         return (int(timestep) - self.phase) % self.period == 0
 
+    def mask(self, t0: int, n: int) -> np.ndarray:
+        return (_steps(t0, n) - self.phase) % self.period == 0
+
 
 class After(Trigger):
     def __init__(self, timestep: int):
@@ -32,6 +49,9 @@ class After(Trigger):
 
     def __call__(self, timestep: int) -> bool:
         return int(timestep) > self.timestep
+
+    def mask(self, t0: int, n: int) -> np.ndarray:
+        return _steps(t0, n) > self.timestep
 
 
 class Before(Trigger):
@@ -41,6 +61,9 @@ class Before(Trigger):
     def __call__(self, timestep: int) -> bool:
         return int(timestep) < self.timestep
 
+    def mask(self, t0: int, n: int) -> np.ndarray:
+        return _steps(t0, n) < self.timestep
+
 
 class On(Trigger):
     def __init__(self, timestep: int):
@@ -48,6 +71,9 @@ class On(Trigger):
 
     def __call__(self, timestep: int) -> bool:
         return int(timestep) == self.timestep
+
+    def mask(self, t0: int, n: int) -> np.ndarray:
+        return _steps(t0, n) == self.timestep
 
 
 def as_trigger(value) -> Trigger:

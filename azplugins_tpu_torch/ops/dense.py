@@ -932,10 +932,14 @@ def dense_pair_force(
 # ---------------------------------------------------------------------------
 # Plain DPD force
 # ---------------------------------------------------------------------------
-def dpd_sigma_table(gamma: torch.Tensor, kT: float, dt: float) -> torch.Tensor:
+def dpd_sigma_table(gamma: torch.Tensor, kT, dt: float) -> torch.Tensor:
     """The random-force coefficient ``sqrt(6 gamma kT / dt)`` per type pair
-    (0 when dt <= 0), in float32 as the reference forms it per pair."""
-    kT = float(np.float32(kT))
+    (0 when dt <= 0), in float32 as the reference forms it per pair. ``kT``
+    is a float or a 0-d float32 tensor on gamma's device (a run's schedule
+    of a variant kT): a float32 product either way, and the division stays
+    one by the Python scalar dt."""
+    if not isinstance(kT, torch.Tensor):
+        kT = float(np.float32(kT))
     dt = float(np.float32(dt))
     if dt <= 0:
         return torch.zeros_like(gamma)
@@ -948,7 +952,7 @@ def dense_dpd_force(
     spec: GridSpec,
     tables: dict,
     r_cut_table: torch.Tensor,
-    kT: float,
+    kT,
     dt: float,
     seed: int,
     timestep: int,

@@ -39,12 +39,14 @@ _SOURCE = "cell_dpd_force.cu"
 _N_TABLES = 5  # A, gamma, s, r_cut, sigma (csrc enum Tab)
 
 
-def dpd_kernel_tables(params: dict, r_cut: torch.Tensor, kT: float, dt: float) -> torch.Tensor:
+def dpd_kernel_tables(params: dict, r_cut: torch.Tensor, kT, dt: float) -> torch.Tensor:
     """Stack the DPD tables for the kernel: ``[5, T, T]`` float32.
 
     The last row is the random-force coefficient ``sqrt(6 gamma kT / dt)``,
     formed by the same torch expression the plain version uses
-    (:func:`~azplugins_tpu_torch.ops.dense.dpd_sigma_table`).
+    (:func:`~azplugins_tpu_torch.ops.dense.dpd_sigma_table`); ``kT`` a float
+    or, in a run with a variant kT, the schedule's 0-d float32 tensor on the
+    card, so the kernel reads each step's row from the device.
     """
     sigma = dpd_sigma_table(params["gamma"], kT, dt)
     return torch.stack([params["A"], params["gamma"], params["s"], r_cut, sigma]).contiguous()
@@ -107,7 +109,7 @@ def cell_dpd_force(dense: State, spec: GridSpec, tables: torch.Tensor, seed: int
     return ForceResult(force=force, energy=energy, virial=virial)
 
 
-def dpd_force(dense: State, spec: GridSpec, tbl: dict, kT: float, dt: float, seed: int,
+def dpd_force(dense: State, spec: GridSpec, tbl: dict, kT, dt: float, seed: int,
               timestep: int, want: str = "all", window: Window | None = None) -> ForceResult:
     """DPD force on the dense grid, by the tensors' device.
 

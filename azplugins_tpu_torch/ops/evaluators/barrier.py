@@ -6,9 +6,10 @@ Port of ``azplugins_tpu/ops/evaluators/barrier.py``:
 
 Protocol: ``(pos, location, k, offset) -> (energy, force[..., 3])``
 evaluated per particle, in the reference's float32 operation order;
-``location`` is the variant's value at the current timestep, a Python
-float that is an exact float32 value. Each evaluator also provides a
-host-side ``valid(location, box)`` check.
+``location`` is the variant's value at the current timestep: a Python
+float that is an exact float32 value, or a 0-d float32 tensor on the
+positions' device (a run's schedule), the same float32 add either way.
+Each evaluator also provides a host-side ``valid(location, box)`` check.
 """
 
 from __future__ import annotations

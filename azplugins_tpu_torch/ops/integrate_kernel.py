@@ -44,7 +44,9 @@ the tensors' device and its current stream, with no synchronisation and no
 host-to-device copy; outputs are new tensors (``torch.empty_like``), so a
 method never writes the State it was given. Under
 :func:`~azplugins_tpu_torch.core.rng.device_clock` K8 and K9 read their
-draws' timestep word from the clock on the card. An empty layout launches
+draws' timestep word from the clock on the card; given kT as a 0-d tensor
+on the card (a run's schedule of a variant kT), they read it there too
+(:class:`Noise`), in the way they read the clock. An empty layout launches
 nothing.
 """
 
@@ -83,10 +85,10 @@ def _library() -> ctypes.CDLL:
         lib.az_step1.argtypes = [p, p, p, p, p, i, f, f, p, p, p]
         lib.az_step1_drift_check.argtypes = [p, p, p, p, p, p, i, f, f, f, p, p, p, p, p, p, p,
                                              p]
-        lib.az_step2.argtypes = [p, p, p, p, p, p, p, p, i, f, p, i, i, u, u, p, i, f, f, f, f,
-                                 p, p, p]
+        lib.az_step2.argtypes = [p, p, p, p, p, p, p, p, i, f, p, i, i, u, u, p, i, f, f, f, p,
+                                 f, p, p, p]
         lib.az_no_squish.argtypes = [i, p, p, p, p, p, p, p, i, f, f, p, i, i, u, u, p, i, f, f,
-                                     f, f, p, p, p, p]
+                                     f, p, f, p, p, p, p]
         lib.az_drift_max_blocks.argtypes = []
         for fn in (lib.az_drift_check, lib.az_step1, lib.az_step1_drift_check, lib.az_step2,
                    lib.az_no_squish, lib.az_drift_max_blocks):
@@ -134,14 +136,18 @@ def _select(sel: torch.Tensor | None, n: int, dev) -> torch.Tensor | None:
 
 class Noise(NamedTuple):
     """A Langevin force's parameters: the ``[T]`` float32 gamma table on the
-    slots' device, the draw's stream, seed and timestep, kT (a Python
-    float) and whether it draws at all (``noisy``: not noiseless and dt > 0)."""
+    slots' device, the draw's stream, seed and timestep, kT and whether it
+    draws at all (``noisy``: not noiseless and dt > 0). kT is a Python
+    float (the host-kT form: its float32 is a launch argument) or a 0-d
+    float32 tensor on the slots' device (the device-kT form: the kernel
+    reads it through a pointer, so a CUDA graph reads each replay's value;
+    the same bits)."""
 
     table: torch.Tensor
     stream: int
     seed: int
     timestep: int
-    kT: float
+    kT: float | torch.Tensor
     noisy: bool
 
 
@@ -155,18 +161,29 @@ def step_args(dt: float) -> tuple[float, float, float]:
     return float(np.float32(0.5 * dt)), float(np.float32(dt)), inv
 
 
+def _kT_args(kT, dev) -> tuple:
+    """``(kT, kT_dev)``: the host-kT form's float32 and a null pointer, or
+    for a 0-d float32 tensor on ``dev`` (the device-kT form) 0.0 and its
+    pointer."""
+    if isinstance(kT, torch.Tensor):
+        check_tensor(kT, "kT", torch.float32, (), dev)
+        return 0.0, kT.data_ptr()
+    return float(np.float32(kT)), None
+
+
 def _noise_args(noise: Noise | None, dev, dt: float) -> tuple:
     """The C arguments (gamma, n_types, noisy, k0, k1, clock, offset, width,
-    low, kT, inv_dt) of ``noise``, or of no Langevin force. Under
+    low, kT, kT_dev, inv_dt) of ``noise``, or of no Langevin force. Under
     :func:`~azplugins_tpu_torch.core.rng.device_clock` the kernel reads the
-    key's timestep word from the clock on the card."""
+    key's timestep word from the clock on the card; with a tensor kT it
+    reads kT from the card."""
     if noise is None:
-        return (None, 0, 0, 0, 0, None, 0, 0.0, 0.0, 0.0, 0.0)
+        return (None, 0, 0, 0, 0, None, 0, 0.0, 0.0, 0.0, None, 0.0)
     table = _checked(noise.table, "gamma", torch.float32, (noise.table.numel(),), dev)
     k0, k1 = _rng._key_words(noise.stream, noise.seed, noise.timestep)
     width, low = uniform_args(-1.0, 1.0)
     return (table.data_ptr(), table.numel(), int(noise.noisy), k0, k1,
-            *_rng._clock_args(noise.timestep, dev), width, low, float(np.float32(noise.kT)),
+            *_rng._clock_args(noise.timestep, dev), width, low, *_kT_args(noise.kT, dev),
             step_args(dt)[2])
 
 

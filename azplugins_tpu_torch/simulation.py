@@ -21,6 +21,8 @@ rebuilt from the slots only when something reads it. Triggers are
 evaluated on the host from the timestep, and an updater is a pure device
 function of (state, timestep, seed), so a firing neither splits the chunk
 nor waits for the device; a replayed chunk re-applies the same firings.
+Variants are read at each step's timestep, from the chunk's float32
+values on the device (``core/variant.py::value_at``).
 
 MPCD. ``snapshot.mpcd`` becomes the solvent stream ``_mpcd`` (position
 and velocity as tuples of particle blocks, typeid, mass, types, and the
@@ -83,13 +85,20 @@ The runner. The reference compiles a chunk into one jitted loop
 (``run_chunk``, ``steps_span``, ``_bind_tables``); the port's counterpart
 runs a chunk as rebuild segments (:meth:`Simulation._run_segment`: the
 optional rebuild, then L steps, with no host read). On CUDA, for a whole
-layout with no updater (an MPCD coupling is one) and only ``Constant``
-variants, each segment is a CUDA graph (graph.py, bound by
-:meth:`Simulation._build_runner`): captured the second time its shape is
-seen, replayed after that, its draws keyed on a clock on the card. Every
-other simulation, and every run inside :meth:`Simulation.profile`, runs the
-segments eagerly; the choice is made from the operations, never from a
-failure. Either way the trajectory is the same, bit for bit.
+layout with any variant and any updater but an MPCD coupling, each segment
+is a CUDA graph (graph.py, bound by :meth:`Simulation._build_runner`):
+captured the second time its shape is seen, replayed after that, its draws
+keyed on a clock on the card. The chunk's schedule goes to the card once a
+chunk: each variant's float32 value at each step (``Variant.values``),
+which the operations read as 0-d tensors, and each updater's trigger
+(``Trigger.mask``), under which every updater runs after every step as
+the reference's masked select (``apply_inline_updaters``). The eager loop
+reads the same values (K8's and K9's kT by value there, by pointer in a
+graph, bitwise) and fires its updaters from the host's triggers.
+A sharded mesh, an MPCD coupling, and every run inside
+:meth:`Simulation.profile` run the segments eagerly; the choice is made
+from the operations, never from a failure. Either way the trajectory is
+the same, bit for bit.
 
 Capacity tune. At the absolute timestep ``auto_tune_after`` (200 by
 default) the run right-sizes the cell capacity to the equilibrated
@@ -952,20 +961,65 @@ class Simulation:
         segments = _segments(n_steps, seg_len, rebin_first)
         if self._graphs_apply():
             runner = self._build_runner(tbls)
-            runner.load(dense, meta, t0)
+            runner.load(dense, meta, t0, self._variant_values(t0, n_steps),
+                        self._trigger_masks(t0, n_steps))
             for a, n, rebuild in segments:
                 runner.run(t0 + a, n, rebuild)
             dense, meta, viol = runner.result()
             return dense, meta, viol, solv
         shards, metas = _as_shards(dense), _as_shards(meta)
         viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
+        steps = self._eager_steps(t0, n_steps, shards[0].device)
         for a, n, rebuild in segments:
             shards, metas, viol, solv = self._run_segment(shards, metas, viol, t0 + a, n,
-                                                          rebuild, tbls, solv)
+                                                          rebuild, tbls, solv, steps)
         return self._as_layout(shards), self._as_layout(metas), viol, solv
 
+    def _step_variants(self) -> tuple:
+        """The variants the steps read that are not ``Constant`` (attributes
+        of the methods and forces), each once: a run schedules their values
+        (``core/variant.py::scheduled``)."""
+        from .core.variant import Constant, Variant
+
+        integ = self.operations.integrator
+        found = {}
+        for op in (*integ.methods, *integ.forces) if integ is not None else ():
+            for v in vars(op).values():
+                if isinstance(v, Variant) and not isinstance(v, Constant):
+                    found.setdefault(id(v), v)
+        return tuple(found.values())
+
+    def _step_updaters(self) -> list:
+        """The updaters that run inside the steps (an MPCD coupling runs
+        beside them)."""
+        return [u for u in self.operations.updaters if not getattr(u, "_updates_mpcd", False)]
+
+    def _variant_values(self, t0: int, n: int):
+        """float32 ``[variants, n]``: each scheduled variant's value at the
+        timesteps ``t0 .. t0 + n - 1`` (``Variant.values``), or None."""
+        variants = self._step_variants()
+        if not variants:
+            return None
+        return np.stack([v.values(t0, n) for v in variants])
+
+    def _trigger_masks(self, t0: int, n: int):
+        """bool ``[updaters, n]``: whether each updater fires after each of
+        the timesteps ``t0 .. t0 + n - 1`` (``Trigger.mask``), or None."""
+        updaters = self._step_updaters()
+        if not updaters:
+            return None
+        return np.stack([u.trigger.mask(t0, n) for u in updaters])
+
+    def _eager_steps(self, t0: int, n: int, device):
+        """The eager loop's :class:`graph.Steps` from ``t0``: the variants'
+        values for ``n`` steps on ``device`` (one copy), the host's triggers."""
+        from .graph import Steps, to_device
+
+        values = self._variant_values(t0, n)
+        return Steps(t0, None if values is None else to_device(values, device), None)
+
     def _run_segment(self, shards: tuple, metas: tuple, viol, t0: int, n_steps: int,
-                     rebuild: bool, tbls, solv=None) -> tuple:
+                     rebuild: bool, tbls, solv=None, steps=None) -> tuple:
         """One rebuild segment (the reference's ``seg_body``): the grid
         rebuild when ``rebuild``, then ``n_steps`` steps from timestep
         ``t0``, each step1 -> the drift check ORed into ``viol`` -> forces ->
@@ -973,16 +1027,27 @@ class Simulation:
         With a grid the last method's step1 makes the drift check
         (:meth:`_step1_checked`; on the card in its launch); the
         ``verlet_drift_check`` range then holds the shards' verdict.
+        ``steps`` (a :class:`graph.Steps` covering the segment; default the
+        eager loop's, made here) holds the variants' values, which the
+        operations read as 0-d tensors, and, under the CUDA graphs, the
+        updaters' triggers as device bools: each updater then runs after
+        every step as the reference's masked select
+        (``Updater._update_masked``), bit for bit the host-fired update.
         Makes no host read, so that it can be captured as a CUDA graph.
         Returns ``(shards, metas, viol, solv)``. Inside :meth:`profile`,
         each phase that does work is a range named after the reference's
         scope."""
+        from .core.variant import scheduled
+
+        if steps is None:
+            steps = self._eager_steps(t0, n_steps, shards[0].device)
+        if steps.fires is not None and len(shards) > 1:
+            raise ValueError("the masked updaters run on a whole layout")
         spec = self._grid_spec
         scope = self._phase_range
         integ = self.operations.integrator
         methods = integ.methods if integ is not None else []
-        updaters = [u for u in self.operations.updaters
-                    if not getattr(u, "_updates_mpcd", False)]
+        updaters = self._step_updaters()
         coupling = self._coupling
         mass_s = self._mpcd["mass"] if coupling is not None else None
         dt = self.dt_ref()
@@ -995,35 +1060,45 @@ class Simulation:
         # each shard's two largest drifts on shards
         checked = methods[-1] if spec is not None and methods else None
         unchecked = methods[:-1] if checked is not None else methods
-        for t in range(t0, t0 + n_steps):
-            self.steps_run += 1
-            with scope("integrate_step1"):
-                for m in unchecked:
-                    shards = tuple(m.step1(s, dt, t, seed) for s in shards)
-                if checked is not None:
-                    shards, found = self._step1_checked(checked, shards, metas, viol, dt, t,
-                                                        seed)
-            if spec is not None:
-                with scope("verlet_drift_check"):
-                    if checked is None:
-                        viol = self._drifted(shards, metas, viol)
-                    elif len(shards) == 1:
-                        (viol,) = found
-                    else:
-                        viol = self._verdict_of(found, viol)
-            with scope("forces"):
-                shards = self._with_forces(shards, metas, t, tbls)
-            with scope("integrate_step2"):
-                for m in methods:
-                    shards = tuple(m.step2(s, dt, t, seed) for s in shards)
-            fired = [u for u in updaters if u.trigger(t)]
-            if fired:
-                with scope("updaters"):
-                    for u in fired:
-                        shards = u._update_shards(shards, t, seed)
-            if coupling is not None and coupling.trigger(t):
-                with scope("mpcd_joint_collision"):
-                    shards, solv = coupling._collide(shards, solv, t + 1, seed, mass_s)
+        host_form = not steps.graph  # the eager loop: kernels take kT by value
+        with scheduled(self._step_variants(), steps.values, steps.t0, host_form):
+            for t in range(t0, t0 + n_steps):
+                self.steps_run += 1
+                with scope("integrate_step1"):
+                    for m in unchecked:
+                        shards = tuple(m.step1(s, dt, t, seed) for s in shards)
+                    if checked is not None:
+                        shards, found = self._step1_checked(checked, shards, metas, viol, dt,
+                                                            t, seed)
+                if spec is not None:
+                    with scope("verlet_drift_check"):
+                        if checked is None:
+                            viol = self._drifted(shards, metas, viol)
+                        elif len(shards) == 1:
+                            (viol,) = found
+                        else:
+                            viol = self._verdict_of(found, viol)
+                with scope("forces"):
+                    shards = self._with_forces(shards, metas, t, tbls)
+                with scope("integrate_step2"):
+                    for m in methods:
+                        shards = tuple(m.step2(s, dt, t, seed) for s in shards)
+                if steps.fires is not None:
+                    # the graphs: every updater after every step, kept where
+                    # its trigger (the schedule's bool) holds
+                    with scope("updaters"):
+                        for k, u in enumerate(updaters):
+                            shards = (u._update_masked(shards[0], steps.fires[k, t - steps.t0],
+                                                       t, seed),)
+                else:
+                    fired = [u for u in updaters if u.trigger(t)]
+                    if fired:
+                        with scope("updaters"):
+                            for u in fired:
+                                shards = u._update_shards(shards, t, seed)
+                if coupling is not None and coupling.trigger(t):
+                    with scope("mpcd_joint_collision"):
+                        shards, solv = coupling._collide(shards, solv, t + 1, seed, mass_s)
         return shards, metas, viol, solv
 
     def _graphs_apply(self) -> bool:
@@ -1035,20 +1110,19 @@ class Simulation:
 
     def _graph_eligible(self) -> bool:
         """The rule on the operations: a whole layout (no sharded mesh), an
-        integrator, no updater (an MPCD coupling is one: their firings are
-        host decisions inside a segment), only ``Constant`` variants (their
-        values are baked into a graph) and only the flow fields of
-        ``flow.py``."""
-        from .core.variant import Constant, Variant
+        integrator, no MPCD coupling (its joint collision moves the solvent
+        beside the segment), and only the flow fields of ``flow.py``. Any
+        variant and any other updater qualify: the chunk's schedule carries
+        the variants' values and the triggers to the card (graph.py), where
+        the updaters run as the reference's masked selects."""
         from .flow import FlowField
 
         integ = self.operations.integrator
-        if self._sharded() or integ is None or self.operations.updaters:
+        if self._sharded() or integ is None:
+            return False
+        if any(getattr(u, "_updates_mpcd", False) for u in self.operations.updaters):
             return False
         for op in (*integ.methods, *integ.forces):
-            for v in vars(op).values():
-                if isinstance(v, Variant) and not isinstance(v, Constant):
-                    return False
             flow = getattr(op, "flow_field", None)
             if flow is not None and not isinstance(flow, FlowField):
                 return False
@@ -1062,18 +1136,22 @@ class Simulation:
         else a new one on buffers shaped like the current layout."""
         from .graph import Counters, SegmentGraphs
 
+        variants, updaters = self._step_variants(), self._step_updaters()
         key = (self._grid_spec, self._fields, self._ops_fp, id(tbls), self._rotational(),
-               self._dense.N, self._state.N)
+               self._dense.N, self._state.N, tuple(map(id, variants)), tuple(map(id, updaters)),
+               self.max_chunk)
         if self._runner is not None and self._runner.key == key:
             return self._runner
 
-        def segment(dense, meta, viol, t0, n_steps, rebuild):
+        def segment(dense, meta, viol, t0, n_steps, rebuild, steps=None):
             (dense,), (meta,), viol, _ = self._run_segment((dense,), (meta,), viol, t0, n_steps,
-                                                           rebuild, tbls)
+                                                           rebuild, tbls, steps=steps)
             return dense, meta, viol
 
         self._runner = SegmentGraphs(key, segment, self._dense, self._meta, Counters(self),
-                                     capture=self._capture, totals=self._graph_totals)
+                                     capture=self._capture, totals=self._graph_totals,
+                                     n_values=len(variants), n_fires=len(updaters),
+                                     max_steps=self.max_chunk)
         return self._runner
 
     def _rebuild(self, shards: tuple, metas: tuple) -> tuple:

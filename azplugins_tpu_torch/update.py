@@ -21,9 +21,18 @@ layout as a tuple of shards (one for a whole layout): by default
 evaporator ranks every slot of the system, so its one pick (a whole
 layout is one shard) keys on the global slot and merges the shards'
 candidates (the reference's top-k over its sharded slot axis). Retyping is a masked select, never a resize.
+
+Inside the CUDA graphs (``graph.py``) an updater runs as the reference's
+``apply_inline_updaters`` does: ``_update_masked(state, fire, timestep,
+seed)`` runs the update after every step and keeps its result where the
+0-d device bool ``fire`` (the trigger, read from the chunk's schedule) is
+set, the old tensor elsewhere, bit for bit; only the fields ``_update``
+replaced pay a select (``typeid`` alone for both updaters here).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -59,6 +68,19 @@ class Updater:
         """The update on a layout held as shards (a tuple of States, one
         for a whole layout): ``_update`` once a shard by default."""
         return tuple(self._update(s, timestep, seed) for s in shards)
+
+    def _update_masked(self, state, fire: torch.Tensor, timestep, seed):
+        """The update of a whole layout kept where ``fire`` (a 0-d bool on
+        the state's device) is set: ``_update``, then ``torch.where(fire,
+        new, old)`` on each tensor field it replaced (a field it returned
+        as it was keeps its object). Unfired, every field keeps its bits."""
+        new = self._update(state, timestep, seed)
+        return state.replace(**{
+            f.name: torch.where(fire, getattr(new, f.name), getattr(state, f.name))
+            for f in dataclasses.fields(state)
+            if isinstance(getattr(new, f.name), torch.Tensor)
+            and getattr(new, f.name) is not getattr(state, f.name)
+        })
 
 
 class TypeUpdater(Updater):

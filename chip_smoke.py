@@ -35,9 +35,9 @@
    runs BrownianFlow through the public API; times K4 at the headline's
    slots and K5 at each grid against their plain versions and bounds;
 5. runs, through the public API, each with the launch counts set to 0 just
-   before it and read just after (configs 1-4 and every other simulation
+   before it and read just after (configs 1-5 and every other simulation
    that qualifies run their rebuild segments as CUDA graphs, and print
-   their captures and replays):
+   their captures and replays; a path that qualifies must replay):
    - the 64k perturbed-LJ Langevin headline (the JAX package's bench
      headline, BASELINE config 1), then [integrate] on its state (below),
      then [profile] 20 of its steps under Simulation.profile: the trace's
@@ -84,21 +84,29 @@
      bonds + ExpandedYukawa, Langevin);
    - the patchy colloids (BASELINE config 4, 27,000 TwoPatchMorse
      particles, Langevin with NO_SQUISH rotation);
-   - [graph] the headline, the polymer melt, the DPD fluid and the patchy
-     colloids at full size, each built three times from one seed: two
+   - [graph] the headline, the polymer melt, the DPD fluid, the patchy
+     colloids and the droplet at full size and a small liquid under a
+     Ramp kT (RAMP_SIDE^3), each built three times from one seed: two
      run the eager loop (the private Simulation._eager), one the CUDA
-     graphs; GRAPH_STEPS steps each, then turns of GRAPH_STEPS (eager,
+     graphs (the droplet's evaporator masked every step, its barrier's
+     SphereArea and the ramp's kT read from the chunk's schedule on the
+     card); GRAPH_STEPS steps each, then turns of GRAPH_STEPS (eager,
      graph, graph, eager), the second eager run keeping pace: the graph
-     run equal to the eager one bit for bit wherever the two eager runs
-     are (both differences printed), launch counts exact under replay,
-     at least GRAPH_LEAST_REPLAYS replays; ms/step both ways, host us a
+     run equal to the eager one bit for bit
+     (GRAPH_FIELDS, typeid among them) wherever the two eager runs are
+     (the differences printed), launch counts exact under replay, at
+     least GRAPH_LEAST_REPLAYS replays; ms/step both ways, host us a
      step, device operations and busy ms a step, captures, replays and
-     the pool's MB; K2, K4, K8 and K9 in their clock forms bitwise their
-     host forms at CLOCK_STEPS;
+     the pool's MB; for the droplet the masked updaters' operations and
+     busy ms a step against its busy step, and the chunk's schedule
+     loaded with no synchronising call; K2, K4, K8 and K9 in their clock
+     forms and K8 and K9 in their device-kT forms (kT a 0-d float32 on
+     the card, at DEVICE_KTS) bitwise their host forms at CLOCK_STEPS,
+     and the DPD sigma table from a device kT bitwise the float one;
    - the evaporating droplet (BASELINE config 5, 20,239 particles: a
      two-type PLJ liquid inside a shrinking SphereArea barrier, an LJ93
      wall, a ParticleEvaporator firing every 25 steps, Langevin in a
-     parabolic flow);
+     parabolic flow), on the CUDA graphs;
    - a short run of every other isotropic potential;
    - colloid hydrodynamics (the JAX package's bench, bench.py:510-569):
      2,744 WCA colloids of mass 5 in a 163,840-particle SRD solvent driven
@@ -120,8 +128,9 @@
    others and those of a path without a grid as K7; K6 alone once a step
    for the verdict on shards; K9 twice a step a method with rotation;
    Langevin's draw inside K8 and K9), that every other random draw did too (the
-   evaporator's once a fire, thermalize once a setup, the MPCD collision's
-   once or twice a collision), and that the result is physical; on each
+   evaporator's at least once a fire: once a step under the graphs, where
+   it runs masked; thermalize once a setup, the MPCD collision's once or
+   twice a collision), and that the result is physical; on each
    full-size path the capacity tune fires at step 200, and the path prints the capacity and rebuild
    interval before and after it and the device-busy time a step in the 20
    steps before it and after the timed steps; after the headline, the DPD
@@ -277,9 +286,15 @@ NO_SQUISH_ULP = 0
 # on GRAPH_FIELDS; the graph turns replay at least GRAPH_LEAST_REPLAYS
 # segments; the clock forms are checked at CLOCK_STEPS
 GRAPH_STEPS = 600
-GRAPH_FIELDS = ("position", "velocity", "net_force", "orientation", "angmom")
+GRAPH_FIELDS = ("position", "velocity", "net_force", "orientation", "angmom", "typeid")
 GRAPH_LEAST_REPLAYS = 20
 CLOCK_STEPS = (0, 7, 2**32 - 1, 2**32 + 5)
+# [graph]'s small Ramp-kT case: the headline's liquid at RAMP_SIDE^3, kT
+# ramped over the phase's steps; K8 and K9 in their device-kT form checked
+# against their host form at these kT (and CLOCK_STEPS)
+RAMP_SIDE = 16
+RAMP_KT = (1.2, 0.9)
+DEVICE_KTS = (0.3, 1.0, 1.2345678)
 # float32 operations a slot, each libm call (cos, sin), divide and sqrt as
 # one, counted from the plain versions' formulas: K7 4 a component; K8 NVE
 # 3 a component, noiseless Langevin 9 a component, noisy 9 a component + 4
@@ -1967,6 +1982,8 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
     ms_step, wall = _timed_run(sim, steps)
     graphed = {k: sim._graph_totals.get(k, 0) - totals0.get(k, 0)
                for k in ("captures", "replays", "eager_segments")}
+    if sim._graphs_apply() and graphed["replays"] < 1:
+        raise AssertionError(f"{label}: on the CUDA graphs, but no segment was replayed")
     launched = {name: read() for name, read in counts.items()}
     drawn = _draws(K, label, draws or {})
     evals = sim.force_evaluations - evals0
@@ -2027,11 +2044,13 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
 
 def _why_eager(sim) -> str:
     """Why ``sim`` runs the eager loop on the card (Simulation._graph_eligible's rule)."""
-    if sim.operations.updaters:
-        return "updaters"
+    if any(getattr(u, "_updates_mpcd", False) for u in sim.operations.updaters):
+        return "the MPCD coupling"
     if sim._sharded():
         return "a sharded mesh"
-    return "a variant other than Constant, or a flow field of its own"
+    if sim.operations.integrator is None:
+        return "no integrator"
+    return "a flow field of its own"
 
 
 def _busy_at_caps(sim, label, untuned):
@@ -3438,12 +3457,30 @@ def _graph_turn(K, sim, label, forces, steps=GRAPH_STEPS):
 def _clock_forms(sim, label, forces):
     """K2, K4, K8 and K9 keyed on the card's clock (core/rng.py's
     device_clock, the clock 3 steps behind at offset 3) against their
-    host-int forms on the path's state, bitwise, at CLOCK_STEPS. Returns
-    the kernels checked."""
+    host-int forms on the path's state, bitwise, at CLOCK_STEPS; K8 and K9
+    (Langevin's step2, with the path's flow field) in their device-kT form
+    (kT a 0-d float32 on the card, as a run's schedule gives it) against
+    their host-kT form at DEVICE_KTS, and the DPD sigma table from a
+    device kT against the one from the host float. Returns the forms
+    checked."""
     from azplugins_tpu_torch.core import rng
+    from azplugins_tpu_torch.ops import dense as D
+    from azplugins_tpu_torch.ops import integrate_kernel as IK
+
+    from azplugins_tpu_torch.core.variant import scheduled
 
     dense, dt, seed = sim._dense, sim.dt_ref(), sim.seed
     m = sim.operations.integrator.methods[0]
+    variants = sim._step_variants()
+
+    def at(t, s, draw):
+        """``draw(s)`` with the variants' values at timestep ``t`` (as a
+        graph's schedule gives them, 0-d tensors on the card)."""
+        rows = (None if not variants else
+                torch.from_numpy(np.stack([v.values(t, 1) for v in variants])).to(dense.device))
+        with scheduled(variants, rows, s):
+            return draw(s)
+
     draws = {}
     if label == "dpd":
         f, (tbl,) = forces[0], sim._force_tables()
@@ -3455,10 +3492,10 @@ def _clock_forms(sim, label, forces):
         draws["K4"] = lambda s: rng.particle_uniform3(rng.Stream.BROWNIAN, seed, s, dense.tag)
     for name, draw in draws.items():
         for t in CLOCK_STEPS:
-            want = draw(t)
+            want = at(t, t, draw)
             clock = torch.tensor(t - 3, dtype=torch.int64, device=dense.device)
             with rng.device_clock(clock, 1000):
-                got = draw(1003)
+                got = at(t, 1003, draw)
             pairs = ([(got, want)] if isinstance(got, torch.Tensor) else
                      [(getattr(got, k), getattr(want, k)) for k in (
                          "force", "energy", "virial", "velocity", "acceleration", "angmom",
@@ -3467,28 +3504,105 @@ def _clock_forms(sim, label, forces):
                 if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
                     raise AssertionError(f"graph {label}: {name}'s clock form differs from its "
                                          f"host form at timestep {t}")
-    return list(draws)
+    forms = [f"clock forms of {', '.join(draws)}"]
+    if label == "dpd":
+        gamma = sim._force_tables()[0][0]["params"]["gamma"]
+        for kT in DEVICE_KTS:
+            want = D.dpd_sigma_table(gamma, kT, dt)
+            got = D.dpd_sigma_table(gamma, _on_card(kT, dense.device), dt)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"graph dpd: the sigma table from a device kT {kT} differs")
+        forms.append("the DPD sigma table from a device kT")
+    elif hasattr(m, "kT"):
+        flow = None if m.flow_field is None else m.flow_field(dense.box.wrap(dense.position)[0])
+        sel = m._selection(dense)
+        for kT in DEVICE_KTS:
+            for t in CLOCK_STEPS:
+                out = []
+                for form in (kT, _on_card(kT, dense.device)):
+                    noise = IK.Noise(m._table_on("_gamma_table", dense.device), m._rng_stream,
+                                     seed, t, form, True)
+                    got = list(IK.step2(dense.tag, sel, dense.typeid, dense.velocity,
+                                        dense.acceleration, dense.net_force, dense.mass, dt,
+                                        noise, flow))
+                    if m._rotational:
+                        noise = IK.Noise(m._table_on("_gamma_r_table", dense.device),
+                                         rng.Stream.LANGEVIN_ANGULAR, seed, t, form, True)
+                        got += IK.no_squish(2, dense.tag, sel, dense.typeid, dense.orientation,
+                                            dense.angmom, dense.moment_inertia,
+                                            dense.net_torque, dt, noise)
+                    out.append(got)
+                for a, b in zip(*out, strict=True):
+                    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                        raise AssertionError(f"graph {label}: K8/K9's device-kT form differs "
+                                             f"from the host form at kT {kT}, timestep {t}")
+        forms.append(f"device-kT forms of {'K8, K9' if m._rotational else 'K8'} at kT "
+                     f"{', '.join(map(str, DEVICE_KTS))}")
+    return forms
 
 
-def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy")):
-    """[graph]: BASELINE configs 1-4 at full size, each built three times
-    from one seed: two run the eager loop (``_eager``), one the CUDA
-    graphs. All three run GRAPH_STEPS (across the tune at step 200), then
-    the eager and the graph simulation take turns (eager, graph, graph,
-    eager) of GRAPH_STEPS, the second eager one keeping pace with the
-    first. After the warm-up and after each pair of turns the graph run
-    must equal the eager run bit for bit where the two eager runs do (the
-    differences printed either way); every turn holds its launch counts
-    exact; the graph turns replay at least GRAPH_LEAST_REPLAYS segments.
-    Prints ms/step both ways, host us a step, device operations and busy
-    ms a step under the graphs and eagerly, captures, replays, the pool's
-    MB, and checks the clock forms of K2, K4, K8 and K9 against their
-    host forms. Returns {label: figures}."""
+def _on_card(kT: float, device) -> torch.Tensor:
+    """kT as a run's schedule gives it: a 0-d float32 tensor on the card,
+    copied from pinned memory (no synchronising call)."""
+    return torch.tensor(np.float32(kT)).pin_memory().to(device, non_blocking=True)
+
+
+def build_ramp(az, device):
+    """[graph]'s small Ramp-kT case: the headline's liquid at RAMP_SIDE^3,
+    its Langevin kT ramped from RAMP_KT[0] to RAMP_KT[1] over the steps the
+    phase runs it."""
+    sim, forces = build_headline(az, device, N_side=RAMP_SIDE)
+    sim.operations.integrator.methods[0].kT = az.variant.Ramp(*RAMP_KT, 0, 6 * GRAPH_STEPS)
+    return sim, forces
+
+
+def _masked_updaters(sim, reps=20):
+    """Device operations and busy ms of the masked updaters a step (each
+    updater's ``_update_masked`` at the graph run's state, unfired), and
+    whether loading a chunk's schedule makes a synchronising call (it must
+    not: set_sync_debug_mode("error"))."""
+    dense, t, seed = sim._dense, sim.timestep, sim.seed
+    fire = torch.zeros((), dtype=torch.bool, device=dense.device)
+    ops = busy = 0.0
+    for u in sim._step_updaters():
+        o, b = _profile_call(lambda u=u: u._update_masked(dense, fire, t, seed), reps)
+        ops, busy = ops + o, busy + b
+    runner = sim._runner
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.load(sim._dense, sim._meta, t, sim._variant_values(t, sim.max_chunk),
+                    sim._trigger_masks(t, sim.max_chunk))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return ops, busy
+
+
+def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "droplet", "ramp")):
+    """[graph]: BASELINE configs 1-5 at full size and a small Ramp-kT
+    liquid, each built three times from one seed: two run the eager loop
+    (``_eager``), one the CUDA graphs (the droplet's updater masked every
+    step, its barrier's SphereArea and the ramp's kT from the chunk's
+    schedule on the card). All three run GRAPH_STEPS (across the tune at
+    step 200), then the eager and the graph simulations take turns (eager,
+    graph, graph, eager) of GRAPH_STEPS, the second eager one keeping pace
+    with the first. After the warm-up and after turns 2 and 4 the graph run
+    must equal the eager run bit for bit (GRAPH_FIELDS, typeid among them)
+    where the two eager runs do (the differences printed either way); every
+    turn holds its launch counts exact; the graph simulation replays at
+    least GRAPH_LEAST_REPLAYS segments in its turns. Prints ms/step both
+    ways, host us a step, device operations and busy ms a step under the
+    graphs and eagerly, captures, replays, the pool's MB; for the droplet
+    the masked updaters' operations and busy ms a step and their share of
+    its busy step; checks the clock forms of K2, K4, K8 and K9 and the
+    device-kT forms of K8 and K9 against their host forms. Returns {label:
+    figures}."""
     t0 = time.perf_counter()
     out = {}
     builds = {"headline": build_headline, "polymer": build_polymer, "dpd": build_dpd,
-              "patchy": build_patchy}
+              "patchy": build_patchy, "droplet": build_droplet, "ramp": build_ramp}
     for label in paths:
+        t_label = time.perf_counter()
         build = builds[label]
         sims = {}
         for name in ("eager", "eager2", "graph"):
@@ -3521,15 +3635,22 @@ def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy")):
         if turns["replays"] < GRAPH_LEAST_REPLAYS:
             raise AssertionError(f"graph {label}: {turns['replays']} replays in the graph turns")
         _check_wrapped(G, f"graph {label}")
-        clocked = _clock_forms(G, label, forces)
+        forms = _clock_forms(G, label, forces)
         g_ops, g_busy, _, g_syncs = _profile(G)
         e_ops, e_busy, _, _ = _profile(E)
-        runner = G._runner
-        pool_mb = runner.pool_bytes / 2**20 if runner is not None else 0.0
+        pool_mb = G._runner.pool_bytes / 2**20
         fig = {"ms_eager": ms["eager"], "ms_graph": ms["graph"], "host_us_eager": host["eager"],
                "host_us_graph": host["graph"], "ops_graph": g_ops, "busy_graph": g_busy,
                "ops_eager": e_ops, "busy_eager": e_busy, **turns, "pool_mb": pool_mb,
                "totals": dict(G._graph_totals)}
+        extra = ""
+        if label == "droplet":
+            m_ops, m_busy = _masked_updaters(G)
+            share = m_busy / g_busy
+            fig.update(masked_ops=m_ops, masked_busy=m_busy, masked_share=share)
+            extra = (f"; the masked updaters a step: {m_ops:.1f} device operations, "
+                     f"{m_busy:.4f} ms busy, {share:.3f} of the graph run's busy step; the "
+                     f"chunk's schedule loaded with no synchronising call")
         out[label] = fig
         agree = "; ".join(
             f"{when}: eager/eager {'bitwise' if ee[0] else f'max |diff| {ee[1]:.3e}'}, "
@@ -3546,9 +3667,9 @@ def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy")):
               f"{turns['captures']} captures ({turns['capture_seconds']:.3f} s of host time), "
               f"{turns['replays']} replays, {turns['eager_segments']} first segments run "
               f"eagerly; whole run {fig['totals']}; pool {pool_mb:.1f} MB; {agree}; launch "
-              f"counts exact every "
-              f"turn; clock forms of {', '.join(clocked)} bitwise their host forms at "
-              f"{', '.join(map(str, CLOCK_STEPS))}", flush=True)
+              f"counts exact every turn; {'; '.join(forms)} bitwise their host forms at "
+              f"{', '.join(map(str, CLOCK_STEPS))}{extra}; "
+              f"{time.perf_counter() - t_label:.1f} s", flush=True)
         del sims, E, E2, G, sim
         torch.cuda.empty_cache()
     print(f"[graph] the phase took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
@@ -3622,8 +3743,8 @@ def main() -> int:
     plj = {"cell_pair_force[PerturbedLennardJones]":
            lambda: PK.launches_by_potential.get("PerturbedLennardJones", 0)}
     # Langevin draws inside K8 (and K9 with rotation), so K4 launches no
-    # time a step: thermalize once a setup, the droplet's evaporator once a
-    # fire
+    # time a step: thermalize once a setup, the droplet's evaporator at
+    # least once a fire (once a step on the graphs: masked)
     integrate_timing: dict = {}
     headline = count(run_path(az, D, K, card, record, "headline", build_headline, 2000, 1000,
                               plj, {"particle_bits": 0}, caps=(48, 72)))

@@ -16,14 +16,17 @@ capacity tune: cap 48, 82,944 slots); the draws at the shapes chip_smoke.py
 times them at (K4 ``particle_uniform3`` and ``particle_bits`` of one word
 on 82,944 tags, K5 ``jax_normal`` on pure SRD's [262,144, 3]); and the
 NO_SQUISH rotation's step1 mode (K9) on the patchy colloids' 194,672
-slots; through the public calls. Three timers, CUDA events around
-``REPS`` calls each:
+slots; the pair kernel at the droplet (T = 2) and the droplet's masked
+evaporator (``ParticleEvaporator._update_masked``, what its CUDA graphs
+run every step) on its state after DROPLET_STEPS steps; through the
+public calls. Three timers, CUDA events around ``REPS`` calls each:
 
 - synced: the calls start right after a synchronize, so where the
   wrapper's host time exceeds the kernel's the host is timed;
 - queued: chip_smoke.py's ``_cuda_time_ms``, the calls queued behind a
   spinning stream, so only the card is timed;
-- replay (K4-K9 and K7+K6): the ``REPS`` calls captured into one CUDA
+- replay (K4-K9, K7+K6 and the droplet's pair kernel and masked
+  evaporator): the ``REPS`` calls captured into one CUDA
   graph and the graph replayed, as the run loop's rebuild segments replay
   them: no host work and no launch queue between the calls.
 
@@ -44,6 +47,7 @@ import chip_smoke as cs  # this checkout's: before ROOT goes on the path
 
 REPS = 50
 HEADLINE_STEPS = 300
+DROPLET_STEPS = 1000
 
 
 def _synced_time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -171,6 +175,25 @@ def main() -> int:
         headline[f"step1_drift (K7+K6) {at}"] = lambda: lang.step1(hd, dt, t, seed, check)
     calls.update(headline)
     replayed.update(headline)
+
+    sim = cs.build_droplet(az, dev)[0]
+    sim.run(DROPLET_STEPS)
+    torch.cuda.synchronize()
+    dd, dspec = sim._dense, sim._grid_spec
+    f = sim.operations.integrator.forces[0]
+    tables, evap = f._device_tables(dev)["kernel"], sim.operations.updaters[0]
+    t, seed = sim.timestep, sim.seed
+    unfired = torch.tensor(False, device=dev)
+    at = f"droplet after {DROPLET_STEPS} steps, cap {dspec.cap}, {dd.N:,} slots"
+    droplet = {
+        f"cell_pair_force[PerturbedLennardJones] {at}": (
+            lambda: PK.cell_pair_force(dd, dspec, tables, "PerturbedLennardJones", f.mode)),
+        f"masked evaporator (its operations together) {at}": (
+            lambda: evap._update_masked(dd, unfired, t, seed)) if hasattr(
+                evap, "_update_masked") else None}
+    droplet = {k: fn for k, fn in droplet.items() if fn is not None}
+    calls.update(droplet)
+    replayed.update(droplet)
 
     for turn in range(2):
         for name, fn in calls.items():

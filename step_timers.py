@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Time whole steps of two checkouts of the port in one process, on one GPU.
 
-    python3 step_timers.py OTHER_ROOT    # OTHER_ROOT: another checkout
+    python3 step_timers.py OTHER_ROOT [PATH ...]    # OTHER_ROOT: another checkout
 
 Imports this checkout's azplugins_tpu_torch and OTHER_ROOT's (under the
 name ``azplugins_tpu_torch_other``) into one process, builds both trees'
 kernels, and runs chip_smoke.py's full-size paths that both trees have (the
-64k headline, the DPD fluid, the polymer melt, the patchy colloids) from
-the same start in each: ``WARM`` steps, then ``STEPS`` timed steps in
+64k headline, the DPD fluid, the polymer melt, the patchy colloids, the
+evaporating droplet; the PATHs named, default all) from the same start in
+each: ``WARM`` steps (the droplet ``DROPLET_WARM``, as its main path in
+chip_smoke.py), then ``STEPS`` timed steps in
 eight turns, (other, this, this, other) twice, each timed with CUDA events
 around ``sim.run`` and profiled over 20 steps (device operations and
 device-busy ms a step, as chip_smoke.py's profile line). The host clock
@@ -31,10 +33,12 @@ import torch
 import chip_smoke as cs
 
 WARM = 400
+DROPLET_WARM = 2000
 STEPS = 300
 TURNS = ("other", "this", "this", "other") * 2
 PATHS = (("headline", cs.build_headline), ("dpd", cs.build_dpd),
-         ("polymer", cs.build_polymer), ("patchy", cs.build_patchy))
+         ("polymer", cs.build_polymer), ("patchy", cs.build_patchy),
+         ("droplet", cs.build_droplet))
 
 
 def _import_other(root: Path):
@@ -63,7 +67,8 @@ def main() -> int:
         print("step_timers: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
         return 2
-    if len(sys.argv) != 2:
+    names = sys.argv[2:] or [label for label, _ in PATHS]
+    if len(sys.argv) < 2 or not set(names) <= {label for label, _ in PATHS}:
         print(__doc__, file=sys.stderr)
         return 2
     this = cs._import_port()
@@ -74,10 +79,12 @@ def main() -> int:
         _build_kernels(az)
     print(f"[build] both trees' kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     for label, build in PATHS:
+        if label not in names:
+            continue
         sims = {}
         for name, az in trees.items():
             sim, _ = build(az, "cuda")
-            sim.run(WARM)
+            sim.run(DROPLET_WARM if label == "droplet" else WARM)
             sims[name] = sim
         read = {name: [] for name in trees}
         for turn, name in enumerate(TURNS):

@@ -154,6 +154,23 @@ def test_sigma_table_and_kernel_tables():
                           SEED, TIMESTEP)
 
 
+def test_sigma_table_from_a_tensor_kT_is_the_float_ones():
+    """A variant kT reaches the DPD tables as a 0-d float32 (a run's
+    schedule): the sigma table keeps the float's bits, the division by dt
+    still one by the Python scalar."""
+    g = np.random.default_rng(4)
+    gamma = torch.as_tensor(g.uniform(0.0, 9.0, (3, 3)).astype(np.float32))
+    params = {"A": torch.ones(3, 3), "gamma": gamma, "s": torch.full((3, 3), 0.5)}
+    for kT in (0.3, 1.0, 1.2345678, 7.5):
+        for dt in (0.01, 0.005, 0.0):
+            want = PD.dpd_sigma_table(gamma, kT, dt)
+            got = PD.dpd_sigma_table(gamma, torch.tensor(np.float32(kT)), dt)
+            assert got.dtype == torch.float32
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (kT, dt)
+            kt = DK.dpd_kernel_tables(params, torch.ones(3, 3), torch.tensor(np.float32(kT)), dt)
+            assert torch.equal(kt[4], want)
+
+
 # ---------------------------------------------------------------------------
 # Simulations: the same snapshot and seed in both packages
 # ---------------------------------------------------------------------------

@@ -137,6 +137,26 @@ def test_barrier_matches_reference(kind, location):
         _assert_force_matches(pb, rb)
 
 
+@pytest.mark.parametrize("kind", ["planar", "spherical"])
+def test_barrier_reads_its_scheduled_location(kind):
+    """Inside a run the location is the schedule's 0-d float32
+    (``variant.scheduled``): the force and energy keep the bits of the host
+    float's."""
+    pb = _barrier(port, kind, "sphere_area")
+    psim = _sim(port, [pb])
+    with pytest.warns(UserWarning, match="virial"):
+        psim.run(0)
+    state = psim._dense
+    (tbl,) = [t[0] for t in psim._force_tables()]
+    rows = torch.from_numpy(pb.location.values(0, 8000)[None])
+    for t in (0, 400, 5_000, 7_999):
+        want = pb._compute(state, t, tbl)
+        with port.variant.scheduled((pb.location,), rows, 0):
+            got = pb._compute(state, t, tbl)
+        for k in ("force", "energy"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), (t, k)
+
+
 @pytest.mark.parametrize("potential", ["LJ93", "Colloid"])
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_wall_matches_reference(potential, geometry):

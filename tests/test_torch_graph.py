@@ -13,11 +13,19 @@ invalidation all run as on the card.
 Checked: chunks through the segments (eager and as stand-in graphs) are
 bitwise the step loop the segments replaced (``_old_run_chunk``, kept here
 as it was) on a small LJ liquid, DPD fluid, patchy colloids with rotation,
-polymer melt and Brownian liquid, and within the 20-step bars of
-``test_torch_simulation.py`` (1e-4 in position, 1e-4 of max|v| in
-velocity) of the JAX reference's run; a segment makes no host read (every
-``Tensor`` method that reads a value on the host raises); the rule that
-picks the eager loop; the cache's keys, bound and invalidations; a failing
+polymer melt and Brownian liquid, and on the paths whose steps read a
+schedule: a small evaporating droplet (a SphereArea barrier, an evaporator
+on Periodic(5), LangevinFlow in a parabolic flow), an LJ liquid under a
+Ramp and under a Cycle kT, a DPD fluid under a Ramp kT and an LJ mixture
+with a TypeUpdater (on the graphs the updaters run as masked selects every
+step, the variants' values come from the chunk's rows on the device);
+each within the 20-step bars of ``test_torch_simulation.py`` (1e-4 in
+position, 1e-4 of max|v| in velocity) of the JAX reference's run, the
+typeids (the evaporated tags) equal; a segment makes no host read (every
+``Tensor`` method that reads a value on the host raises), the schedule's
+load and gather included; the rule that picks the eager loop (an updater
+or a Ramp kT now on the graphs, bitwise the eager loop); the cache's keys,
+bound and invalidations; a failing
 capture propagates; the overflow and violation carries across segments;
 the counters under replay; the force tables' cache; the drift check made
 by the last method's step1 on a grid path, bitwise the old loop.
@@ -36,7 +44,7 @@ import azplugins_tpu as ref  # noqa: E402
 import azplugins_tpu_torch as port  # noqa: E402
 from azplugins_tpu_torch import simulation as S  # noqa: E402
 from azplugins_tpu_torch.core import rng as RNG  # noqa: E402
-from azplugins_tpu_torch.graph import Counters, SegmentGraphs  # noqa: E402
+from azplugins_tpu_torch.graph import Counters, SegmentGraphs, Steps  # noqa: E402
 from azplugins_tpu_torch.ops import integrate_kernel as IK  # noqa: E402
 from azplugins_tpu_torch.ops import pair_kernel as PK  # noqa: E402
 
@@ -149,11 +157,72 @@ def _simulation(az, snap, seed):
     return sim
 
 
+def _droplet(az, R0=5.0, a=1.1, seed=7):
+    """``bench.py``'s droplet at radius R0 (304 particles), its evaporator
+    on Periodic(5): every piece of BASELINE config 5."""
+    L = 2 * R0 + 4.0
+    g = np.arange(-R0, R0 + a, a)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = pts[np.linalg.norm(pts, axis=1) < R0 * 0.93]
+    snap = az.Snapshot(N=len(pts))
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["solvent", "evaporated"]
+    snap.particles.position[:] = pts
+    sim = _simulation(az, snap, seed)
+    lj = az.pair.PerturbedLennardJones(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.5)
+    lj.params[("solvent", "solvent")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=1.0)
+    for pair in (("solvent", "evaporated"), ("evaporated", "evaporated")):
+        lj.params[pair] = dict(epsilon=0.0, sigma=1.0, attraction_scale_factor=0.0)
+    barrier = az.external.SphericalHarmonicBarrier(
+        location=az.variant.SphereArea(R0=R0, alpha=0.05))
+    barrier.params["solvent"] = dict(k=50.0, offset=0.0)
+    barrier.params["evaporated"] = dict(k=0.0, offset=0.0)
+    wall = az.external.wall.LJ93(
+        walls=[az.external.wall.Plane(origin=(0, 0, -L / 2 + 0.5), normal=(0, 0, 1))])
+    wall.params["solvent"] = dict(epsilon=1.0, sigma=1.0, r_cut=3.0)
+    wall.params["evaporated"] = dict(epsilon=0.0, sigma=1.0, r_cut=3.0)
+    sim.operations.updaters.append(az.update.ParticleEvaporator(
+        trigger=az.trigger.Periodic(5), solvent_type="solvent", evaporated_type="evaporated",
+        lo=R0 / 2, hi=L / 2, N_evap_max=10))
+    flow = az.flow.ParabolicFlow(mean_velocity=0.5, separation=L - 2.0)
+    method = az.md.methods.LangevinFlow(kT=1.0, flow_field=flow, default_gamma=1.0)
+    return sim, [lj, barrier, wall], method
+
+
 def _build(az, name):
     """A small system of one of the graph-eligible paths."""
     cell = az.md.nlist.Cell
     rotational = False
-    if name == "lj":  # the headline's path: PLJ under Langevin
+    if name == "droplet":
+        sim, forces, method = _droplet(az)
+        dt, kT = 0.002, 1.0
+    elif name in ("lj_ramp", "lj_cycle"):  # the headline's path under a variant kT
+        sim = _simulation(az, _lattice(az, 6, 1.15), 42)
+        f = az.pair.PerturbedLennardJones(nlist=cell(buffer=0.4), default_r_cut=2.5, mode="shift")
+        f.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.7)
+        kT_of = (az.variant.Ramp(1.2, 0.8, 3, 30) if name == "lj_ramp" else
+                 az.variant.Cycle(1.2, 1.5, 2, 4, 9, 5, 7))
+        forces, method = [f], az.md.methods.Langevin(kT=kT_of, default_gamma=0.5)
+        dt, kT = 0.005, 1.2
+    elif name == "dpd_ramp":
+        sim = _simulation(az, _lattice(az, 6, 0.7), 5)
+        f = az.pair.DPDGeneralWeight(nlist=cell(buffer=0.4), kT=az.variant.Ramp(1.0, 0.4, 0, 25),
+                                     default_r_cut=1.0)
+        f.params[("A", "A")] = dict(A=25.0, gamma=4.5, s=0.5)
+        forces, method, dt, kT = [f], az.md.methods.ConstantVolume(), 0.01, 1.0
+    elif name == "type_updater":  # an LJ mixture whose types follow a z slab
+        snap = _lattice(az, 6, 1.15, types=("A", "B"))
+        snap.particles.typeid[:] = np.arange(snap.particles.N) % 2
+        sim = _simulation(az, snap, 21)
+        f = az.pair.PerturbedLennardJones(nlist=cell(buffer=0.4), default_r_cut=2.5, mode="shift")
+        for pair, eps in ((("A", "A"), 1.0), (("A", "B"), 0.6), (("B", "B"), 0.3)):
+            f.params[pair] = dict(epsilon=eps, sigma=1.0, attraction_scale_factor=0.7)
+        sim.operations.updaters.append(az.update.TypeUpdater(
+            trigger=az.trigger.Periodic(3, 1), inside_type="A", outside_type="B", lo=-1.0,
+            hi=1.5))
+        forces, method = [f], az.md.methods.Langevin(kT=1.2, default_gamma=0.5)
+        dt, kT = 0.005, 1.2
+    elif name == "lj":  # the headline's path: PLJ under Langevin
         sim = _simulation(az, _lattice(az, 6, 1.15), 42)
         f = az.pair.PerturbedLennardJones(nlist=cell(buffer=0.4), default_r_cut=2.5, mode="shift")
         f.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.7)
@@ -195,7 +264,8 @@ def _build(az, name):
     return sim
 
 
-PATHS = ["lj", "dpd", "patchy", "polymer", "brownian"]
+PATHS = ["lj", "dpd", "patchy", "polymer", "brownian", "droplet", "lj_ramp", "lj_cycle",
+         "dpd_ramp", "type_updater"]
 
 
 def _old_run_chunk(self, dense, meta, t0, n_steps, seg_len, tbls, rebin_first=True, solv=None):
@@ -252,7 +322,7 @@ def _assert_same(got, want, what):
 def _snap(sim):
     p = sim.state.get_snapshot().particles
     return {k: getattr(p, k).copy() for k in ("position", "velocity", "orientation", "angmom",
-                                               "image")}
+                                               "image", "typeid")}
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +332,11 @@ def _snap(sim):
 def test_segments_are_the_old_loop_and_near_the_reference(name):
     """Chunks through the segments, eagerly and as stand-in graphs (the
     second 10-step segment captured, the rest replayed), give the old
-    loop's trajectory bit for bit, and 20 steps stay within the 20-step
-    bars of the JAX reference's run."""
+    loop's trajectory bit for bit (the old loop reads variants as host
+    floats and fires updaters from the host: the graphs read the chunk's
+    rows on the device and run the updaters masked every step), and 20
+    steps stay within the 20-step bars of the JAX reference's run, with
+    its typeids (the droplet's evaporated tags) exactly."""
     rsim = _build(ref, name)
     old, eager, graphs = (_build(port, name) for _ in range(3))
     old._run_chunk = _old_run_chunk.__get__(old)
@@ -280,6 +353,9 @@ def test_segments_are_the_old_loop_and_near_the_reference(name):
             rsim.run(20)
             r, p = _snap(rsim), _snap(graphs)
             np.testing.assert_array_equal(p["image"], r["image"])
+            np.testing.assert_array_equal(p["typeid"], r["typeid"])
+            if name == "droplet":  # fires after steps 0, 5, 10 and 15, 10 each
+                assert int((p["typeid"] == 1).sum()) == 40
             np.testing.assert_allclose(p["position"], r["position"], rtol=0, atol=1e-4)
             for k in ("velocity", "orientation", "angmom"):
                 np.testing.assert_allclose(p[k], r[k], rtol=0, atol=1e-4 * np.abs(r[k]).max(),
@@ -378,25 +454,36 @@ def test_last_step1_carries_the_drift_check(layout):
 @pytest.mark.parametrize("name", PATHS)
 def test_segment_makes_no_host_read(name):
     """A segment, with a rebuild and without, with the draws keyed on the
-    host's timestep and on the device clock, and a stand-in capture and
-    replay of one, read nothing on the host."""
+    host's timestep and on the device clock, with the eager loop's
+    schedule (made inside) and with the graphs' (the variants' rows and
+    the triggers' masks: the updaters masked), and a stand-in capture and
+    replay of one, the chunk's schedule loaded and gathered on the device,
+    read nothing on the host."""
     sim = _build(port, name)
     sim._capture = FakeCapture()
     sim.run(3)
     tbls = sim._force_tables()
-    clock = torch.tensor(sim.timestep, dtype=torch.int64)
+    t = sim.timestep
+    clock = torch.tensor(t, dtype=torch.int64)
+    values, masks = sim._variant_values(t, 6), sim._trigger_masks(t, 6)
+    scheduled = name in ("droplet", "lj_ramp", "lj_cycle", "dpd_ramp", "type_updater")
+    assert ((values is not None) or (masks is not None)) == scheduled
+    masked = Steps(t, None if values is None else torch.from_numpy(values),
+                   None if masks is None else torch.from_numpy(masks))
     with no_host_reads():
         for rebuild in (True, False):
             viol = torch.zeros((), dtype=torch.bool)
-            sim._run_segment((sim._dense,), (sim._meta,), viol, sim.timestep, 2, rebuild, tbls)
-            with RNG.device_clock(clock, sim.timestep):
-                sim._run_segment((sim._dense,), (sim._meta,), viol, sim.timestep, 2, rebuild,
-                                 tbls)
+            sim._run_segment((sim._dense,), (sim._meta,), viol, t, 2, rebuild, tbls)
+            sim._run_segment((sim._dense,), (sim._meta,), viol, t, 2, rebuild, tbls,
+                             steps=masked)
+            with RNG.device_clock(clock, t):
+                sim._run_segment((sim._dense,), (sim._meta,), viol, t, 2, rebuild, tbls)
     runner = sim._build_runner(tbls)
-    runner.load(sim._dense, sim._meta, sim.timestep)
+    assert (runner.schedule is not None) == scheduled
     with no_host_reads():
+        runner.load(sim._dense, sim._meta, t, values, masks)
         for _ in range(3):  # eagerly, captured and replayed, replayed
-            runner.run(sim.timestep, 2, True)
+            runner.run(t, 2, True)
     assert runner.captures == 1 and runner.replays == 2
 
 
@@ -457,13 +544,44 @@ def _eligibility_case(case):
 
 @pytest.mark.parametrize("case", ["updater", "coupling", "sharded", "ramp"])
 def test_eligibility_selects_the_eager_loop(case):
-    """An updater, an MPCD coupling, a sharded mesh or a Ramp kT keeps the
-    eager loop, by the rule on the operations, before any capture."""
+    """An MPCD coupling or a sharded mesh keeps the eager loop, by the rule
+    on the operations, before any capture; an updater or a Ramp kT takes
+    the graphs (the updater masked every step, kT from the chunk's rows),
+    bitwise the eager loop."""
     sim = _eligibility_case(case)
     sim._capture = capture = FakeCapture()
-    sim.run(25)
-    assert not sim._graph_eligible() and not sim._graphs_apply()
-    assert sim._runner is None and capture.graphs == []
+    if case in ("coupling", "sharded"):
+        sim.run(25)
+        assert not sim._graph_eligible() and not sim._graphs_apply()
+        assert sim._runner is None and capture.graphs == []
+        return
+    eager = _eligibility_case(case)
+    eager._capture, eager._eager = FakeCapture(), True
+    for s in (sim, eager):
+        s.run(25)
+    assert sim._graph_eligible() and sim._graphs_apply() and not eager._graphs_apply()
+    assert sim._runner is not None and sim._runner.replays >= 1 and capture.graphs
+    assert eager._runner is None
+    _assert_same(sim._dense, eager._dense, case)
+    _assert_same(sim._meta, eager._meta, case)
+
+
+def test_the_schedule_keeps_the_graph_keys():
+    """The droplet's schedule (its SphereArea radius, its evaporator's
+    trigger) lives in rows sized to the longest chunk and listed among the
+    buffers: the graphs stay keyed on ``(L, rebuild)`` alone, whatever the
+    firing steps, and a schedule of the wrong shape is refused."""
+    sim = _build(port, "droplet")
+    sim._capture = FakeCapture()
+    sim.run(40)
+    runner = sim._runner
+    assert runner.n_values == 1 and runner.n_fires == 1 and runner.replays >= 1
+    assert runner.values.shape == runner.fires.shape == (1, sim.max_chunk)
+    assert any(b is runner.schedule for b in runner.buffers())
+    assert all(len(k) == 2 for k in runner.graph_keys())
+    with pytest.raises(ValueError, match="schedule of 1 rows"):
+        runner.load(sim._dense, sim._meta, 40, np.zeros((2, 4), np.float32),
+                    np.zeros((1, 4), bool))
 
 
 def test_eligible_runs_take_the_graphs_but_not_profile_or_eager(tmp_path):
@@ -498,7 +616,8 @@ def test_cache_keys():
     runner = sim._runner
     tbls = sim._force_tables()
     assert runner.key == (sim._grid_spec, sim._fields, sim._ops_fp, id(tbls), False,
-                          sim._dense.N, sim.state.N_particles)
+                          sim._dense.N, sim.state.N_particles, (), (), sim.max_chunk)
+    assert runner.schedule is None  # no variant and no updater: no rows to load
     assert runner.graph_keys() == [(10, True)]
     sim.run(25)  # steps 30-54: segments of 10 and one of 5
     assert sim._runner is runner and runner.graph_keys() == [(10, True)]

@@ -1490,25 +1490,93 @@ def test_clock_forms_are_the_host_forms(cuda_device, t):
         _same_bits(getattr(got, k), getattr(want, k), f"K8/K9 {k} at {t}")
 
 
-def _graph_lj(device, eager):
+# -- the device-kT forms: a variant kT inside a CUDA graph --------------------
+# In a run, a variant kT reaches K8 and K9 as a 0-d float32 on the card (the
+# chunk's schedule, core/variant.py::value_at), read through a pointer
+# instead of the host's float32 argument: the same bits.
+DEVICE_KTS = [0.3, 1.0, 1.2345678, 7.5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", CLOCK_STEPS)
+@pytest.mark.parametrize("case", ["langevin", "noiseless", "flow", "rotation"])
+def test_device_kT_forms_are_the_host_forms(cuda_device, case, t):
+    """K8 (noisy Langevin, noiseless, with a flow field) and K9 mode 2
+    (Langevin's rotational step2) with kT read from a 0-d float32 on the
+    card against the host-kT form, bit for bit, at several kT and at
+    timesteps past 2**32; one launch each."""
+    state, _ = _slot_state(4097, 5, cuda_device)
+    sel = None
+    gamma = torch.tensor([0.7, 1.9], dtype=torch.float32, device=cuda_device)
+    flow = None
+    if case == "flow":
+        g = np.random.default_rng(8)
+        flow = torch.as_tensor(g.normal(size=(4097, 3)).astype(np.float32), device=cuda_device)
+    noisy = case != "noiseless"
+    for kT in DEVICE_KTS:
+        out = []
+        for form in (kT, torch.tensor(np.float32(kT), device=cuda_device)):
+            before = dict(IK.launches_by_kernel)
+            if case == "rotation":
+                noise = IK.Noise(gamma, RNG.Stream.LANGEVIN_ANGULAR, 12345, t, form, noisy)
+                got = IK.no_squish(2, state.tag, sel, state.typeid, state.orientation,
+                                   state.angmom, state.moment_inertia, state.net_torque, 0.005,
+                                   noise)
+                kernel = "no_squish"
+            else:
+                noise = IK.Noise(gamma, RNG.Stream.LANGEVIN, 12345, t, form, noisy)
+                got = IK.step2(state.tag, sel, state.typeid, state.velocity, state.acceleration,
+                               state.net_force, state.mass, 0.005, noise, flow)
+                kernel = "step2"
+            assert IK.launches_by_kernel[kernel] == before.get(kernel, 0) + 1
+            out.append(got)
+        for a, b in zip(*out, strict=True):
+            _same_bits(a, b, f"{case}: device kT {kT} at {t}")
+
+
+@pytest.mark.cuda
+def test_device_kT_form_refuses_another_kT_tensor(cuda_device):
+    """The device-kT form takes a 0-d float32 on the slots' card: a kT on the
+    CPU, of another dtype or shape raises before any launch."""
+    state, _ = _slot_state(257, 5, cuda_device)
+    gamma = torch.ones(2, dtype=torch.float32, device=cuda_device)
+    for bad in (torch.tensor(1.0), torch.tensor(1.0, dtype=torch.float64, device=cuda_device),
+                torch.ones(1, dtype=torch.float32, device=cuda_device)):
+        noise = IK.Noise(gamma, RNG.Stream.LANGEVIN, 1, 0, bad, True)
+        before = IK.launches
+        with pytest.raises((ValueError, TypeError)):
+            IK.step2(state.tag, None, state.typeid, state.velocity, state.acceleration,
+                     state.net_force, state.mass, 0.005, noise)
+        assert IK.launches == before
+
+
+def _graph_lj(device, eager, scheduled=False):
     """A small PLJ liquid under Langevin (the headline's path), its rebuild
-    interval pinned at 5 steps."""
+    interval pinned at 5 steps. ``scheduled``: two types, a Ramp kT and a
+    TypeUpdater on Periodic(4), so its steps read the chunk's schedule."""
     n, a = 10, 1.15
     rng = np.random.default_rng(3)
     snap = az.Snapshot(N=n**3)
     L = n * a
     snap.configuration.box = [L, L, L, 0, 0, 0]
-    snap.particles.types = ["A"]
+    snap.particles.types = ["A", "B"] if scheduled else ["A"]
     x = (np.arange(n) + 0.5) * a - L / 2
     pos = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
     snap.particles.position[:] = pos + rng.uniform(-0.05, 0.05, pos.shape)
+    if scheduled:
+        snap.particles.typeid[:] = np.arange(n**3) % 2
     sim = az.Simulation(device=device, seed=42)
     sim.create_state_from_snapshot(snap)
     lj = az.pair.PerturbedLennardJones(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.5,
                                        mode="shift")
-    lj.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.7)
+    for pair in ((("A", "A"), ("A", "B"), ("B", "B")) if scheduled else (("A", "A"),)):
+        lj.params[pair] = dict(epsilon=1.0, sigma=1.0, attraction_scale_factor=0.7)
+    kT = az.variant.Ramp(1.2, 0.9, 0, 40) if scheduled else 1.2
+    if scheduled:
+        sim.operations.updaters.append(az.update.TypeUpdater(
+            trigger=az.trigger.Periodic(4), inside_type="A", outside_type="B", lo=-1.0, hi=2.0))
     sim.operations.integrator = az.md.Integrator(
-        dt=0.005, methods=[az.md.methods.Langevin(kT=1.2, default_gamma=0.5)], forces=[lj])
+        dt=0.005, methods=[az.md.methods.Langevin(kT=kT, default_gamma=0.5)], forces=[lj])
     sim.state.thermalize_particle_momenta(kT=1.2)
     sim.auto_tune_after = None
     sim._seg_adapt, sim._seg_len = False, 5
@@ -1522,9 +1590,21 @@ def test_captured_segments_are_eager_segments(cuda_device):
     more: the second captured and replayed, then replayed 11 times; every
     slot field, the grid bookkeeping and the kernels' launch counts equal
     the eager loop's, bit for bit."""
+    _captured_against_eager(cuda_device, False)
+
+
+@pytest.mark.cuda
+def test_captured_segments_with_a_schedule_are_eager_segments(cuda_device):
+    """As above with a Ramp kT (K8's device-kT form, the chunk's values on
+    the card) and a TypeUpdater (masked every step under the graphs, fired
+    from the host's trigger on the eager loop): bit for bit, typeid too."""
+    _captured_against_eager(cuda_device, True)
+
+
+def _captured_against_eager(cuda_device, scheduled):
     runs = {}
     for eager in (True, False):
-        sim = _graph_lj(cuda_device, eager)
+        sim = _graph_lj(cuda_device, eager, scheduled)
         sim.run(5)
         before = (dict(IK.launches_by_kernel), PK.launches, sim.steps_run)
         sim.run(60)
@@ -1536,7 +1616,7 @@ def test_captured_segments_are_eager_segments(cuda_device):
     assert eager._runner is None and graphs._runner.captures == 1
     assert graphs._runner.replays >= 10 and eager.viol_replays == graphs.viol_replays
     assert g_launched == e_launched and e_launched[2] >= 60
-    for name in ("position", "velocity", "acceleration", "net_force", "tag", "image"):
+    for name in ("position", "velocity", "acceleration", "net_force", "tag", "image", "typeid"):
         assert torch.equal(getattr(graphs._dense, name), getattr(eager._dense, name)), name
     for name in ("ref_position", "overflow", "n_builds", "max_occ"):
         assert torch.equal(getattr(graphs._meta, name), getattr(eager._meta, name)), name

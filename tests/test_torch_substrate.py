@@ -60,6 +60,78 @@ def test_variants_are_the_references_float32(name):
     assert tuple(map(float, pv.range())) == tuple(map(float, rv.range()))
 
 
+class _Custom(port.variant.Variant):
+    """A variant of its own: ``values`` is the base class's loop."""
+
+    def __call__(self, timestep):
+        return float(np.float32(0.5) + np.float32(timestep % 7) * np.float32(0.25))
+
+
+STRETCHES = ((0, 1000), (199, 3), (2**24 - 5, 11), (2**31 - 2, 5), (2**32 + 3, 9))
+
+
+@pytest.mark.parametrize("name", sorted(_variants(port)) + ["custom"])
+def test_variant_values_are_the_calls_bitwise(name):
+    """``values(t0, n)``, the float32 a stretch of steps reads on the device,
+    holds exactly the bits ``__call__`` gives at each of its timesteps."""
+    v = _Custom() if name == "custom" else _variants(port)[name]
+    for t0, n in STRETCHES:
+        got = v.values(t0, n)
+        want = np.array([v(t) for t in range(t0, t0 + n)], dtype=np.float32)
+        assert got.dtype == np.float32 and got.shape == (n,)
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32), err_msg=str(t0))
+
+
+def test_value_at_reads_the_schedule():
+    """Inside ``scheduled`` a variant's value at a step is the rows' 0-d
+    float32 (a view, the same bits); a Constant, and every variant outside,
+    is its host float, as is a by-value argument (``host_form``) on the
+    eager loop, but not inside a graph; an unscheduled variant or a step
+    outside the rows raises."""
+    V = port.variant
+    ramp, area, const = V.Ramp(1.0, 2.0, 0, 10), V.SphereArea(5.0, 0.05), V.Constant(1.5)
+    rows = torch.from_numpy(np.stack([ramp.values(40, 6), area.values(40, 6)]))
+    with V.scheduled((ramp, area), rows, 40):
+        for k, v in enumerate((ramp, area)):
+            for t in range(40, 46):
+                got = V.value_at(v, t, torch.device("cpu"))
+                assert got.dim() == 0 and got.dtype == torch.float32
+                assert got.data_ptr() == rows[k, t - 40].data_ptr()
+                assert np.float32(v(t)).view(np.int32) == got.numpy().view(np.int32)
+        assert V.value_at(const, 41) == 1.5
+        assert isinstance(V.value_at(ramp, 41, host_form=True), torch.Tensor)  # a graph's
+        with pytest.raises(ValueError):
+            V.value_at(ramp, 46)
+        with pytest.raises(ValueError):
+            V.value_at(V.Ramp(1.0, 2.0, 0, 10), 41)
+    assert V.value_at(ramp, 41) == ramp(41)
+    with V.scheduled((ramp, area), rows, 40, host_form=True):  # the eager loop's
+        got = V.value_at(area, 43, host_form=True)
+        assert isinstance(got, float) and got == area(43)
+        assert isinstance(V.value_at(area, 43), torch.Tensor)
+    with pytest.raises(ValueError):
+        with V.scheduled((ramp,), rows, 40):  # two rows for one variant
+            pass
+
+
+class _Every3(port.trigger.Trigger):
+    """A trigger of its own: ``mask`` is the base class's loop."""
+
+    def __call__(self, timestep):
+        return timestep % 3 == 1
+
+
+def test_trigger_masks_are_the_calls():
+    """``mask(t0, n)``, the triggers a chunk carries to the card, is
+    ``__call__`` at each timestep."""
+    for trig in (*_triggers(port), _Every3(), port.trigger.Periodic(5, phase=-2)):
+        for t0, n in ((0, 500), (-7, 20), (2**32 - 4, 9)):
+            got = trig.mask(t0, n)
+            assert got.dtype == bool and got.shape == (n,)
+            np.testing.assert_array_equal(got, [bool(trig(t)) for t in range(t0, t0 + n)],
+                                          err_msg=type(trig).__name__)
+
+
 def test_as_variant():
     assert port.variant.as_variant(3).range() == (3.0, 3.0)
     v = port.variant.SphereArea(R0=2.0, alpha=1.0)

@@ -154,3 +154,36 @@ def test_firings_survive_a_violation_replay():
     assert psim.viol_replays > 0 and rsim._viol_replays == psim.viol_replays
     np.testing.assert_array_equal(_typeids(psim), _typeids(rsim))
     assert int((_typeids(psim) == 1).sum()) == 15  # firings at 0, 4 and 8
+
+
+def _masked_case(which):
+    """A port simulation with one updater, attached by ``run(0)`` (its dense
+    layout built, nothing fired), and the updater: the evaporator on the
+    slab (under budget or over it) or a TypeUpdater."""
+    if which == "type_updater":
+        rng = np.random.default_rng(9)
+        sim = _sim(port, rng.uniform(-9.5, 9.5, (300, 3)), rng.integers(0, 3, 300),
+                   ["A", "B", "C"])
+        sim.operations.updaters.append(port.update.TypeUpdater(
+            trigger=2, inside_type="A", outside_type="B", lo=-1.0, hi=4.0))
+    else:
+        sim = _slab(port, k=7 if which == "evaporator" else 1000, trigger=2)
+    sim.run(0)
+    return sim, sim.operations.updaters[0]
+
+
+@pytest.mark.parametrize("which", ["evaporator", "evaporator_all", "type_updater"])
+def test_masked_update_is_the_update_where_fired(which):
+    """``_update_masked`` (the graphs' form: the update every step, kept
+    where the device bool fires): fired, the update's bits; unfired, the
+    state's; only typeid pays a select, every other field keeps its
+    object."""
+    sim, u = _masked_case(which)
+    state, t = sim._dense, sim.timestep
+    want = u._update(state, t, sim.seed)
+    assert not torch.equal(want.typeid, state.typeid)
+    for fire, expect in ((True, want), (False, state)):
+        got = u._update_masked(state, torch.tensor(fire), t, sim.seed)
+        assert torch.equal(got.typeid, expect.typeid) and got.typeid.dtype == torch.int32
+        for f in ("position", "velocity", "tag", "image", "mass"):
+            assert getattr(got, f) is getattr(state, f)
