@@ -6,7 +6,7 @@ equal to the reference on every device.
 
 The MPCD collision (``mpcd.SRD``) draws through ``jax.random`` in the
 reference, not through these streams; ``jax_key``, ``jax_fold_in``,
-``jax_split``, ``jax_uniform_host`` and ``jax_normal`` rebuild those draws
+``jax_split``, ``jax_uniform_host`` and ``jax_normal_axis`` rebuild those draws
 from the same Threefry, as ``jax.random`` derives them with
 ``jax_threefry_partitionable`` on (JAX's default since 0.5): ``fold_in(k,
 d)`` hashes the counter pair ``(0, d)`` under ``k``; ``split`` and the
@@ -26,9 +26,10 @@ kernels read the clock themselves (a pointer and an offset,
 :func:`_clock_args`); the plain versions add the offset to it as a tensor
 (:func:`_step_word`). Both give the host int's bits, past 2**32 too.
 
-Dispatch: ``particle_bits``, ``particle_uniform3`` and ``jax_normal`` take
-their plain PyTorch versions (``_particle_bits_plain``,
-``_particle_uniform3_plain``, ``_jax_normal_plain``) for CPU tensors and
+Dispatch: ``particle_bits``, ``particle_uniform3`` and ``jax_normal_axis``
+take their plain PyTorch versions (``_particle_bits_plain``,
+``_particle_uniform3_plain``, ``_jax_normal_axis_plain``, itself on
+``_jax_normal_plain``, the plain ``jax.random.normal``) for CPU tensors and
 the CUDA kernels of :mod:`azplugins_tpu_torch.ops.rng_kernel` for CUDA
 tensors, or raise; any other device raises. Nothing falls back.
 ``threefry2x32`` and ``pair_uniform`` stay plain (the CPU DPD path; the
@@ -55,7 +56,7 @@ __all__ = [
     "jax_fold_in",
     "jax_split",
     "jax_uniform_host",
-    "jax_normal",
+    "jax_normal_axis",
     "xla_erfinv",
 ]
 
@@ -337,17 +338,11 @@ def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float(np.finfo(np.float32).max), p * x)
 
 
-def jax_normal(key: tuple[int, int], shape: tuple[int, ...], device) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)`` on ``device``: the words
-    and the uniforms bitwise; the erfinv within a few ulp of XLA's (the
-    log1p is the device's own). A CUDA ``device`` takes the kernel (K5)."""
-    if _on_card(device):
-        return _kernels().jax_normal(key, shape, device)
-    return _jax_normal_plain(key, shape, device)
-
-
 def _jax_normal_plain(key: tuple[int, int], shape: tuple[int, ...], device) -> torch.Tensor:
-    """The plain version of :func:`jax_normal`."""
+    """``jax.random.normal(key, shape, float32)`` on ``device``, as PyTorch
+    operations: the words and the uniforms bitwise; the erfinv within a few
+    ulp of XLA's (the log1p is the device's own). K5 draws these normals
+    inside :func:`jax_normal_axis`."""
     n = int(np.prod(shape))
     if n >= 2**32:
         raise ValueError("jax_normal: more than 2**32 draws need the high counter word")
@@ -356,3 +351,23 @@ def _jax_normal_plain(key: tuple[int, int], shape: tuple[int, ...], device) -> t
     f = word.to(torch.int32).view(torch.float32) - 1.0
     u = torch.clamp_min(f * float(_NORMAL_WIDTH) + float(_NORMAL_LO), float(_NORMAL_LO))
     return (_SQRT2_F32 * xla_erfinv(u)).reshape(shape)
+
+
+def jax_normal_axis(key: tuple[int, int], rows: int, device, second=None) -> tuple:
+    """The MPCD collision's draws: ``(axis, normals)``, ``axis`` the unit
+    rows of ``jax.random.normal(key, (rows, 3), float32)``, each divided by
+    its norm clamped at 1e-12 (``azplugins_tpu/mpcd.py:323-326``), and
+    ``normals`` ``jax.random.normal(second, (rows, 3), float32)``, or None
+    without ``second`` (the virtual-particle fill between plates, ``:314``).
+    A CUDA ``device`` takes K5's axis form: both in one launch."""
+    if _on_card(device):
+        return _kernels().jax_normal_axis(key, rows, device, second)
+    return _jax_normal_axis_plain(key, rows, device, second)
+
+
+def _jax_normal_axis_plain(key: tuple[int, int], rows: int, device, second=None) -> tuple:
+    """The plain version of :func:`jax_normal_axis`: two plain draws and
+    the normalisation as PyTorch operations."""
+    axis = _jax_normal_plain(key, (rows, 3), device)
+    axis = axis / torch.clamp_min(torch.sqrt(torch.sum(axis * axis, dim=1, keepdim=True)), 1e-12)
+    return axis, None if second is None else _jax_normal_plain(second, (rows, 3), device)

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from .core import rng as _rng
-from .ops import aniso_kernel, dpd_kernel, integrate_kernel, pair_kernel, rng_kernel
+from .ops import aniso_kernel, dpd_kernel, integrate_kernel, pair_kernel, pick_kernel, rng_kernel
 
 __all__ = ["Counters", "SegmentGraphs", "Steps", "cuda_capture", "to_device"]
 
@@ -86,7 +86,7 @@ def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
 _LAUNCH_COUNTERS = (
     (pair_kernel, "launches"), (pair_kernel, "launches_by_potential"),
     (dpd_kernel, "launches"), (aniso_kernel, "launches"),
-    (rng_kernel, "launches"), (rng_kernel, "launches_by_kernel"),
+    (rng_kernel, "launches"), (rng_kernel, "launches_by_kernel"), (pick_kernel, "launches"),
     (integrate_kernel, "launches"), (integrate_kernel, "launches_by_kernel"),
 )
 # the simulation's own counters a segment advances

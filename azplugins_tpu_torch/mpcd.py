@@ -325,6 +325,10 @@ class SRD:
         kshift, kaxis, kvirt = _collision_keys(seed, t_col)
         shift = (_rng.jax_uniform_host(kshift, 3) * a if self.shift
                  else np.zeros(3, dtype=_F32))
+        # a random unit axis per cell, the same draw whatever the occupancy,
+        # and with plates the virtual fill's normals: one launch on the card
+        axis, virt = _rng.jax_normal_axis(kaxis, C, dev,
+                                          kvirt if self.plates is not None else None)
 
         # one scatter-add a block gives every per-cell sum at once: count,
         # mass, momentum xyz, m v^2
@@ -379,16 +383,11 @@ class SRD:
             n_virt = nv_ax[idx_ax]
             mf = float(_F32(mass_fill))
             sigma = torch.sqrt(torch.clamp_min(n_virt, 0.0) * float(_F32(self.kT)) * mf)
-            pv = _rng.jax_normal(kvirt, (C, 3), dev) * sigma[:, None]
+            pv = virt * sigma[:, None]
             vsum = vsum + pv
             m_cell = msum + n_virt * mf  # the fill joins the mass sum
 
         u = vsum / torch.clamp_min(m_cell, 1e-12)[:, None]  # [C, 3] centre of mass
-
-        # a random unit axis per cell: the same draw whatever the occupancy
-        axis = _rng.jax_normal(kaxis, (C, 3), dev)
-        axis = axis / torch.clamp_min(torch.sqrt(torch.sum(axis * axis, dim=1, keepdim=True)),
-                                      1e-12)
 
         cols = [u, axis]
         if self.kT is not None:

@@ -1,28 +1,30 @@
 """Counter-based random draws on the card: the CUDA kernels and their wrappers.
 
-``csrc/threefry.cu`` holds two kernels on the Threefry rounds of
-``csrc/threefry.cuh``. Neither replaces a ``pallas_call``: they compute
-what the reference leaves to XLA, which fuses it into its step.
+``csrc/threefry.cu`` holds the kernels, on the Threefry rounds of
+``csrc/threefry.cuh``. None replaces a ``pallas_call``: they compute what
+the reference leaves to XLA, which fuses it into its step.
 
 - K4 ``az_particle_bits`` / ``az_particle_uniform3``: what
   :func:`~azplugins_tpu_torch.core.rng.particle_bits` and
   :func:`~azplugins_tpu_torch.core.rng.particle_uniform3` compute
   (reference ``azplugins_tpu/core/rng.py::particle_bits``,
   ``particle_uniform3``): the per-particle draws of Brownian, the
-  evaporator's pick and thermalize (Langevin draws the same uniforms
-  inside its integrator kernels, ``ops/integrate_kernel.py``). Bitwise the
-  plain version.
-- K5 ``az_jax_normal``: what
-  :func:`~azplugins_tpu_torch.core.rng.jax_normal` computes, the
-  ``jax.random.normal`` of the MPCD collision (reference
-  ``azplugins_tpu/mpcd.py:314, 323``). Bitwise the plain version but for
-  ``log1pf`` against PyTorch's CUDA ``log1p``.
+  evaporator's pick on shards and thermalize (Langevin draws the same
+  uniforms inside its integrator kernels, ``ops/integrate_kernel.py``).
+  Bitwise the plain version.
+- K5 ``az_jax_normal_axis``: what
+  :func:`~azplugins_tpu_torch.core.rng.jax_normal_axis` computes, the
+  MPCD collision's unit axes, ``jax.random.normal`` over its row's norm
+  (reference ``azplugins_tpu/mpcd.py:323-326``), with the virtual-particle
+  normals under a second key (``:314``) in the same launch. Bitwise the
+  plain version but for ``log1pf`` against PyTorch's CUDA ``log1p``.
 
-Their plain PyTorch versions are ``core/rng.py``'s ``_particle_bits_plain``,
-``_particle_uniform3_plain`` and ``_jax_normal_plain``. The public
-functions of ``core/rng.py`` dispatch here for CUDA tensors; a launch runs
-on the current stream, with no synchronisation and no host-to-device copy
-(the keys and constants are kernel arguments). Under
+The evaporator's pick on K4's words is ``ops/pick_kernel.py``. The plain
+PyTorch versions are ``core/rng.py``'s ``_particle_bits_plain``,
+``_particle_uniform3_plain`` and ``_jax_normal_axis_plain``. The public
+functions dispatch here for CUDA tensors; a launch runs on the current
+stream, with no synchronisation and no host-to-device copy (the keys and
+constants are kernel arguments). Under
 :func:`~azplugins_tpu_torch.core.rng.device_clock` K4 reads its key's
 timestep word from the clock on the card (a CUDA graph's replays draw at
 the clock's timestep), bitwise the host word's. An empty draw launches
@@ -32,7 +34,6 @@ nothing.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import numpy as np
 import torch
@@ -41,10 +42,11 @@ from ..core import rng as _rng
 from .cuda_build import load_library
 from .pair_kernel import check_tensor, launch_error
 
-__all__ = ["launches", "launches_by_kernel", "particle_bits", "particle_uniform3", "jax_normal"]
+__all__ = ["launches", "launches_by_kernel", "particle_bits", "particle_uniform3",
+           "jax_normal_axis"]
 
 # kernel launches since import (or since a caller last reset them to 0):
-# in all, and by kernel ("particle_bits" for K4, "jax_normal" for K5)
+# in all, and by kernel ("particle_bits" for K4, "jax_normal_axis" for K5)
 launches = 0
 launches_by_kernel: dict[str, int] = {}
 
@@ -57,8 +59,8 @@ def _library() -> ctypes.CDLL:
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
         lib.az_particle_bits.argtypes = [p, i, i, u, u, p, i, p, p]
         lib.az_particle_uniform3.argtypes = [p, i, u, u, p, i, f, f, p, p]
-        lib.az_jax_normal.argtypes = [ctypes.c_int64, u, u, f, f, f, p, p, p]
-        for fn in (lib.az_particle_bits, lib.az_particle_uniform3, lib.az_jax_normal):
+        lib.az_jax_normal_axis.argtypes = [ctypes.c_int64, u, u, u, u, i, f, f, f, p, p, p, p]
+        for fn in (lib.az_particle_bits, lib.az_particle_uniform3, lib.az_jax_normal_axis):
             fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
@@ -99,7 +101,7 @@ def uniform_args(low, high) -> tuple[float, float]:
 
 
 def normal_args() -> tuple[float, float, float, np.ndarray]:
-    """The float32 constants of ``jax_normal``: the uniform's width and low
+    """The float32 constants of K5's normals: the uniform's width and low
     end, sqrt(2), and XLA's ErfInv coefficients (w < 5, then w >= 5), each
     the float32 of the plain version's Python float."""
     coeffs = np.asarray(_rng._ERFINV_LT5 + _rng._ERFINV_GE5, dtype=np.float32)
@@ -140,17 +142,23 @@ def particle_uniform3(stream: int, seed, timestep, tag: torch.Tensor, low=-1.0,
     return out
 
 
-def jax_normal(key: tuple[int, int], shape: tuple[int, ...], device) -> torch.Tensor:
-    """K5: ``jax.random.normal(key, shape, float32)`` on the CUDA ``device``."""
+def jax_normal_axis(key: tuple[int, int], rows: int, device, second=None) -> tuple:
+    """K5's axis form: ``(axis, normals)``, ``axis`` the unit rows of
+    ``jax.random.normal(key, (rows, 3), float32)`` (each row over its norm
+    clamped at 1e-12) and ``normals`` ``jax.random.normal(second, (rows,
+    3))`` (None without ``second``), in one launch on the CUDA ``device``."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"the random-draw kernels need a CUDA device, got {dev}")
-    n = math.prod(shape)
-    if n >= 2**32:
-        raise ValueError("jax_normal: more than 2**32 draws need the high counter word")
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
-    if n:
+    if 3 * rows >= 2**32:
+        raise ValueError("jax_normal_axis: more than 2**32 draws need the high counter word")
+    axis = torch.empty((rows, 3), dtype=torch.float32, device=dev)
+    normals = None if second is None else torch.empty((rows, 3), dtype=torch.float32, device=dev)
+    if rows:
         width, lo, sqrt2, coeffs = _NORMAL_ARGS
-        _launch("jax_normal", "az_jax_normal", dev, n, int(key[0]) & 0xFFFFFFFF,
-                int(key[1]) & 0xFFFFFFFF, width, lo, sqrt2, coeffs.ctypes.data, out.data_ptr())
-    return out
+        k2 = (0, 0) if second is None else second
+        _launch("jax_normal_axis", "az_jax_normal_axis", dev, rows, int(key[0]) & 0xFFFFFFFF,
+                int(key[1]) & 0xFFFFFFFF, int(k2[0]) & 0xFFFFFFFF, int(k2[1]) & 0xFFFFFFFF,
+                int(second is not None), width, lo, sqrt2, coeffs.ctypes.data, axis.data_ptr(),
+                None if normals is None else normals.data_ptr())
+    return axis, normals

@@ -18,16 +18,19 @@ with index ``timestep`` when its trigger says so on the host
 (Simulation._run_chunk), through ``_update_shards``, which takes the
 layout as a tuple of shards (one for a whole layout): by default
 ``_update`` once a shard, which is right for any elementwise updater. The
-evaporator ranks every slot of the system, so its one pick (a whole
-layout is one shard) keys on the global slot and merges the shards'
-candidates (the reference's top-k over its sharded slot axis). Retyping is a masked select, never a resize.
+evaporator ranks every slot of the system: on a whole layout its pick is
+two kernels on the card (K4 at the pick, ``ops/pick_kernel.py::
+evaporator_pick``; the plain version on the CPU), on shards it keys on the
+global slot and merges the shards' candidates (the reference's top-k over
+its sharded slot axis). Retyping is a masked select, never a resize.
 
 Inside the CUDA graphs (``graph.py``) an updater runs as the reference's
 ``apply_inline_updaters`` does: ``_update_masked(state, fire, timestep,
 seed)`` runs the update after every step and keeps its result where the
 0-d device bool ``fire`` (the trigger, read from the chunk's schedule) is
-set, the old tensor elsewhere, bit for bit; only the fields ``_update``
-replaced pay a select (``typeid`` alone for both updaters here).
+set, the old bits elsewhere: by default through a select on each field
+``_update`` replaced (``typeid`` for the TypeUpdater); the evaporator
+flips ``typeid`` in place, its kernels reading ``fire`` on the card.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 
 from .core import rng as _rng
 from .md.trigger import as_trigger
+from .ops import pick_kernel
 
 __all__ = ["Updater", "TypeUpdater", "ParticleEvaporator"]
 
@@ -177,22 +181,21 @@ class ParticleEvaporator(Updater):
         new_typeid = torch.where(flip, self._evaporated_id, state.typeid).to(torch.int32)
         return state.replace(typeid=new_typeid)
 
-    def _update(self, state, timestep, seed):
-        return self._update_shards((state,), timestep, seed)[0]
-
-    def _update_shards(self, shards: tuple, timestep, seed) -> tuple:
-        """The pick on a layout held as shards (one for a whole layout):
-        each shard's k smallest keys (on its global slots) join in shard
-        order on the first shard's device, the k-th smallest of them is the
-        whole layout's, and each shard flips its own candidates at or below
-        it. Keys are unique, so the pick is the same for any number of
-        shards, bit for bit; nothing is read back to the host."""
-        if self.seed is not None:
-            seed = self.seed
+    def _flips(self, shards: tuple, timestep, seed) -> list:
+        """Each shard's flips (the plain pick): its candidates whose key is
+        among the k smallest over every shard. Each shard's k smallest keys
+        (on its global slots) join in shard order on the first shard's
+        device, the k-th smallest of them is the whole layout's, and each
+        shard flips its own candidates at or below it; every candidate
+        when there are at most k. Keys are unique, so the pick is the same
+        for any number of shards, bit for bit; nothing is read back to the
+        host."""
         dev0 = shards[0].device
         cands = [self._candidates(s) for s in shards]
         if self._k >= sum(s.N for s in shards):
-            return tuple(self._retype(s, c) for s, c in zip(shards, cands))
+            return cands
+        if self._k == 0:  # top_k of nothing: no candidate flips
+            return [torch.zeros_like(c) for c in cands]
         keys, first = [], 0
         for s, c in zip(shards, cands):
             keys.append(self._keys(s, c, timestep, seed, first=first))
@@ -203,8 +206,55 @@ class ParticleEvaporator(Updater):
                          sorted=False).values.max()
         n_marked = torch.stack([c.to(torch.int32).sum().to(dev0) for c in cands]).sum()
         few = n_marked <= self._k
-        out = []
-        for s, c, k in zip(shards, cands, keys):
-            flip = torch.where(few.to(s.device), c, (k <= kth.to(s.device)) & c)
-            out.append(self._retype(s, flip))
-        return tuple(out)
+        return [torch.where(few.to(c.device), c, (k <= kth.to(c.device)) & c)
+                for c, k in zip(cands, keys)]
+
+    def _pick(self, typeid, state, fire, timestep, seed) -> None:
+        """The pick on a whole layout ``state``: flip, in ``typeid`` (int32
+        [N], written in place), the candidates it keeps, where ``fire`` (a
+        0-d bool on the state's device; None: fired) is set. On the card K4
+        at the pick (``ops/pick_kernel.py::evaporator_pick``, two launches
+        that read ``fire`` there and return at once where it is unset), on
+        the CPU :meth:`_pick_plain`."""
+        if self.seed is not None:
+            seed = self.seed
+        if _rng._on_card(typeid.device):
+            pick_kernel.evaporator_pick(
+                typeid, state.position, state.tag, self._k, self._solvent_id,
+                self._evaporated_id, _f32(self.lo), _f32(self.hi), state.box.Lz,
+                _rng.Stream.PARTICLE_EVAPORATOR, seed, timestep, fire)
+        else:
+            self._pick_plain(typeid, state, fire, timestep, seed)
+
+    def _pick_plain(self, typeid, state, fire, timestep, seed) -> None:
+        """The plain version of :meth:`_pick`: the candidates, their keys
+        with ``particle_bits`` and the two ``torch.topk`` of :meth:`_flips`."""
+        (flip,) = self._flips((state,), timestep, seed)
+        typeid.masked_fill_(flip if fire is None else flip & fire, self._evaporated_id)
+
+    def _update(self, state, timestep, seed):
+        return self._update_shards((state,), timestep, seed)[0]
+
+    def _update_shards(self, shards: tuple, timestep, seed) -> tuple:
+        """The pick on a layout held as shards (one for a whole layout): on
+        a whole layout :meth:`_pick` into a copy of ``typeid``; on shards
+        :meth:`_flips` (each shard's keys on the card through K4, merged on
+        the first shard's device)."""
+        if len(shards) == 1:
+            (state,) = shards
+            typeid = state.typeid.clone()
+            self._pick(typeid, state, None, timestep, seed)
+            return (state.replace(typeid=typeid),)
+        if self.seed is not None:
+            seed = self.seed
+        flips = self._flips(shards, timestep, seed)
+        return tuple(self._retype(s, f) for s, f in zip(shards, flips))
+
+    def _update_masked(self, state, fire: torch.Tensor, timestep, seed):
+        """The masked update (the graphs' form) in place: the flips go into
+        ``state.typeid`` where ``fire`` is set, so the caller passes a
+        layout it owns (a segment's buffers or a rebuild's output).
+        Unfired, ``typeid`` keeps its bits; no ``torch.where`` is needed,
+        and on the card the pick's launches return at once."""
+        self._pick(state.typeid, state, fire, timestep, seed)
+        return state

@@ -30,8 +30,11 @@
    tags (-1 and 2**31 - 1 among them), 1-8 words, three uniform ranges,
    three streams, two timesteps (one above 2**32), and in its clock form
    (the timestep read from the card, core/rng.py's device_clock) at
-   CLOCK_STEPS; K5 (jax_normal) within
-   1 ulp at the three MPCD paths' collision grids, its maximum printed;
+   CLOCK_STEPS; K5 (jax_normal_axis: the collision's unit axes, with the
+   virtual fill's normals under a second key in the same launch) within
+   1 ulp of its plain version at the three MPCD paths' collision grids, its
+   maximum printed, bitwise the plain normalisation of its own normals (the
+   card's torch.sum order over 3) and bitwise two single draws;
    runs BrownianFlow through the public API; times K4 at the headline's
    slots and K5 at each grid against their plain versions and bounds;
 5. runs, through the public API, each with the launch counts set to 0 just
@@ -106,7 +109,15 @@
    - the evaporating droplet (BASELINE config 5, 20,239 particles: a
      two-type PLJ liquid inside a shrinking SphereArea barrier, an LJ93
      wall, a ParticleEvaporator firing every 25 steps, Langevin in a
-     parabolic flow), on the CUDA graphs;
+     parabolic flow), on the CUDA graphs (its pick through K4 at the pick
+     every step, reading the trigger on the card), then [pick] on its
+     state: K4 at the pick (csrc/pick.cu, two launches) bitwise
+     the plain pick over PICK_TIMESTEPS timesteps with the trigger's flag
+     set, unset and absent, for k of 1, 10, PICK_BINS + 1, the candidates'
+     count less one, their count and the slot count, and in a tie case
+     (PICK_TIE: a word of 0xFFFFFFFF on two candidates); timed fired and
+     unfired against the plain pick, torch.topk(k=10) over the slots' keys
+     and its bound;
    - a short run of every other isotropic potential;
    - colloid hydrodynamics (the JAX package's bench, bench.py:510-569):
      2,744 WCA colloids of mass 5 in a 163,840-particle SRD solvent driven
@@ -128,9 +139,10 @@
    others and those of a path without a grid as K7; K6 alone once a step
    for the verdict on shards; K9 twice a step a method with rotation;
    Langevin's draw inside K8 and K9), that every other random draw did too (the
-   evaporator's at least once a fire: once a step under the graphs, where
-   it runs masked; thermalize once a setup, the MPCD collision's once or
-   twice a collision), and that the result is physical; on each
+   evaporator's pick through K4 at the pick at least once a fire: once a
+   step under the graphs, where it runs masked, on shards through K4;
+   thermalize once a setup; the MPCD collision's K5 exactly once a
+   collision), and that the result is physical; on each
    full-size path the capacity tune fires at step 200, and the path prints the capacity and rebuild
    interval before and after it and the device-busy time a step in the 20
    steps before it and after the timed steps; after the headline, the DPD
@@ -191,8 +203,10 @@ ANISO_REPLACES = "azplugins_tpu/ops/dense.py:1914"  # _pallas_half_aniso_force
 # jnp code that XLA fuses into its step
 RNG_BITS_REPLACES = ("azplugins_tpu/core/rng.py:133 (particle_bits; particle_uniform3 :146), "
                      "XLA-fused, no pallas_call")
-RNG_NORMAL_REPLACES = ("azplugins_tpu/mpcd.py:314, 323 (jax.random.normal), XLA-fused, "
-                       "no pallas_call")
+RNG_NORMAL_REPLACES = ("azplugins_tpu/mpcd.py:314, 323-326 (jax.random.normal, the axes' "
+                       "normalisation), XLA-fused, no pallas_call")
+PICK_REPLACES = ("azplugins_tpu/update.py:139-172 (ParticleEvaporator._update: particle_bits "
+                 "and lax.top_k), XLA-fused, no pallas_call")
 PATCHY = dict(M_d=1.5, M_r=0.05, r_eq=1.0, omega=20.0, alpha=0.4, repulsion=True)
 # the patchy path's warm-up steps and its kT band (PERF.md: the kT curve)
 PATCHY_WARM = 8000
@@ -266,6 +280,13 @@ RNG_TAGS = (64_000, 82_944, DROPLET_N)
 HEADLINE_SLOTS = 82_944
 NORMAL_SHAPES = {"colloid": (32**3, 3), "poiseuille": (16 * 16 * 17, 3), "srd": (64**3, 3)}
 NORMAL_ULP = 1
+# [pick]: the timesteps K4 at the pick is held at, and one k above the
+# select's radix histogram of 2048 bins (csrc/pick.cu kBins); PICK_TIE
+# is a (seed, timestep, tag) whose evaporator word is 0xFFFFFFFF (found by
+# hashing every int32 tag at the keys of seeds 3 and 7, timesteps 0-3)
+PICK_TIMESTEPS = 120
+PICK_BINS = 2048
+PICK_TIE = (7, 3, 1853371083)
 
 # [integrate]: what K6-K9 (csrc/integrate.cu) replace: no pallas_call, jnp
 # code that XLA fuses into the reference's step
@@ -331,6 +352,11 @@ ISSUE_OPS_PER_S = 128 * SM_CLOCKS_PER_S
 # products), each log1p and sqrt counted as one.
 THREEFRY_ROUND_ALU, THREEFRY_ROUND_OPS = 2, 3
 NORMAL_F32_OPS = 30
+# the axis form adds, a row of 3, three squares, two adds, the square root,
+# the clamp and three divides: 10 a row, 10 / 3 a normal of the axes (the
+# two-key form's 6 normals a row share the row's 10)
+NORMAL_AXIS_ROW_OPS = 10
+NORMAL_AXIS_F32_OPS = NORMAL_F32_OPS + NORMAL_AXIS_ROW_OPS / 3
 # Operations of one pair evaluation on the force path (want="force"),
 # counted from the plain version's formulas with each exp, sqrt, divide,
 # pow and log as one: the evaluator, plus the geometry and the
@@ -1262,22 +1288,42 @@ def check_rng(az, RK):
                 raise AssertionError(f"K4's clock form differs from its plain version: {n} "
                                      f"tags, timestep {step}")
             cases += 2
-    # K5 at each MPCD path's collision grid and an odd count
+    # K5, the axis form every collision launches (with plates the virtual
+    # fill's normals under a second key, in the same launch), at each MPCD
+    # path's collision grid and an odd count: the axes and the normals
+    # within the bar of their plain versions; the axes bitwise the plain
+    # normalisation of the kernel's own normals (drawn as another launch's
+    # second key: the card's torch.sum order over 3) and the one-key form's;
+    # the normals bitwise those of a launch under another first key
     ulp_max, err_max, differ = 0, 0.0, 0
     for shape in (*NORMAL_SHAPES.values(), (1001, 3)):
-        for key in ((0, 42), rng.jax_fold_in(rng.jax_key(11), 40)):
-            got = rng.jax_normal(key, shape, "cuda")
-            want = rng._jax_normal_plain(key, shape, "cuda")
-            if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
-                raise AssertionError(f"jax_normal kernel: non-finite or misshapen at {shape}")
-            ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
-            ulp_max = max(ulp_max, int(ulps.max()))
-            differ += int((ulps > 0).sum())
-            err_max = max(err_max, float((got - want).abs().max()))
+        rows = shape[0]
+        for key, second in (((0, 42), rng.jax_fold_in(rng.jax_key(11), 41)),
+                            (rng.jax_fold_in(rng.jax_key(11), 40), (7, 9))):
+            axis, normals = rng.jax_normal_axis(key, rows, "cuda", second)
+            one, none = rng.jax_normal_axis(key, rows, "cuda")
+            p_axis, p_normals = rng._jax_normal_axis_plain(key, rows, "cuda", second)
+            _, raw = rng.jax_normal_axis((5, 6), rows, "cuda", key)
+            _, again = rng.jax_normal_axis((5, 6), rows, "cuda", second)
+            own = raw / torch.clamp_min(torch.sqrt(torch.sum(raw * raw, dim=1, keepdim=True)),
+                                        1e-12)
+            if not (bool(torch.isfinite(axis).all()) and bool(torch.isfinite(normals).all())
+                    and axis.shape == normals.shape == shape and none is None
+                    and torch.equal(axis.view(torch.int32), own.view(torch.int32))
+                    and torch.equal(axis.view(torch.int32), one.view(torch.int32))
+                    and torch.equal(normals.view(torch.int32), again.view(torch.int32))):
+                raise AssertionError(f"jax_normal_axis kernel: non-finite or misshapen, not the "
+                                     f"plain normalisation of its own normals, or not two "
+                                     f"single draws, at {shape}")
+            for got, want in ((axis, p_axis), (normals, p_normals)):
+                ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+                ulp_max = max(ulp_max, int(ulps.max()))
+                differ += int((ulps > 0).sum())
+                err_max = max(err_max, float((got - want).abs().max()))
     if ulp_max > NORMAL_ULP:
-        raise AssertionError(f"jax_normal kernel: {ulp_max} ulp from its plain version "
+        raise AssertionError(f"jax_normal_axis kernel: {ulp_max} ulp from its plain version "
                              f"(bar {NORMAL_ULP})")
-    record_err = {"particle_bits": 0.0, "jax_normal": err_max}
+    record_err = {"particle_bits": 0.0, "jax_normal_axis": err_max}
     # BrownianFlow.step1, which no path below runs, through the public API
     snap = _lattice_snapshot(az, (16, 16, 16), 0.5, 0.1, 3)
     sim = az.Simulation(device="cuda", seed=5)
@@ -1295,11 +1341,12 @@ def check_rng(az, RK):
           f"(particle_bits, particle_uniform3) bitwise its plain version in {cases} cases "
           f"({', '.join(map(str, RNG_TAGS))} tags, -1 and 2**31 - 1 among them; 1-8 words; "
           f"three ranges; three streams; timesteps 777 and 2**32 + 9; the clock form at "
-          f"{', '.join(map(str, CLOCK_STEPS))}); K5 (jax_normal) at "
+          f"{', '.join(map(str, CLOCK_STEPS))}); K5 (jax_normal_axis, one and two keys) at "
           f"{', '.join(f'{k} {v}' for k, v in NORMAL_SHAPES.items())} and (1001, 3): max "
           f"{ulp_max} ulp from its plain version ({differ} values differ; bar {NORMAL_ULP}), "
-          f"max |diff| {err_max:.3e}; BrownianFlow (4,096 particles): {brownian} K4 launches in "
-          f"20 steps", flush=True)
+          f"max |diff| {err_max:.3e}, the axes bitwise the plain normalisation of its own "
+          f"normals, the two-key form two single draws; BrownianFlow (4,096 "
+          f"particles): {brownian} K4 launches in 20 steps", flush=True)
 
     # times at the headline's slots (K4) and the MPCD grids (K5), with bounds
     timing = {}
@@ -1316,10 +1363,17 @@ def check_rng(az, RK):
     }
     for name, shape in NORMAL_SHAPES.items():
         n = int(np.prod(shape))
-        draws[f"jax_normal[{name}]"] = (
-            lambda shape=shape: rng.jax_normal((0, 42), shape, "cuda"),
-            lambda shape=shape: rng._jax_normal_plain((0, 42), shape, "cuda"),
-            n, _rng_bound(n, 1, 3, 3, NORMAL_F32_OPS, 4))
+        # the form each path's collision launches: the axes, with plates
+        # (Poiseuille) also the virtual fill's normals
+        second = (1, 2) if name == "poiseuille" else None
+        n_draws = n * (2 if second else 1)
+        draws[f"jax_normal_axis[{name}]"] = (
+            lambda shape=shape, second=second: rng.jax_normal_axis((0, 42), shape[0], "cuda",
+                                                                   second),
+            lambda shape=shape, second=second: rng._jax_normal_axis_plain((0, 42), shape[0],
+                                                                          "cuda", second),
+            n_draws, _rng_bound(n_draws, 1, 3, 3, (2 * NORMAL_F32_OPS + NORMAL_AXIS_ROW_OPS / 3)
+                                / 2 if second else NORMAL_AXIS_F32_OPS, 4))
     lines = []
     for name, (kernel, plain, n, bound) in draws.items():
         ms = _cuda_time_ms(kernel, 50)
@@ -1330,6 +1384,150 @@ def check_rng(az, RK):
     print(f"[rng] {'; '.join(lines)}; the phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
     return timing, record_err
+
+
+# ---------------------------------------------------------------------------
+# [pick]: K4 at the droplet's pick against the plain pick
+# ---------------------------------------------------------------------------
+def _pick_bound(n, n_solvent, n_marked, k):
+    """(bound_ms, bound_by) of the pick on n slots: each slot's typeid, each
+    solvent slot's z and each candidate's tag read once, the flips written
+    once; a Threefry-2x32-20 a candidate."""
+    t_bytes = 4 * (n + n_solvent + n_marked + min(k, n_marked)) / MEM_BYTES_PER_S
+    hashes = n_marked
+    t_ops = hashes * max(20 * THREEFRY_ROUND_ALU / ALU_OPS_PER_S,
+                         20 * THREEFRY_ROUND_OPS / ISSUE_OPS_PER_S)
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_pick(sim, RK, EK):
+    """[pick]: K4 at the pick (``csrc/pick.cu``, two launches a pick:
+    ParticleEvaporator's pick on a whole layout) at the droplet's state
+    after its run, against
+    the plain pick on the card, bitwise: PICK_TIMESTEPS timesteps (one past
+    2**32), the trigger's flag set, unset and absent (fired), k of 1, the
+    droplet's 10, PICK_BINS + 1, the candidates' count less one, their
+    count and the slot count; the flag unset leaves typeid's bits; the
+    flips number min(k, candidates). On the slab widened to the whole box
+    (more candidates than PICK_BINS + 1): k of PICK_BINS + 1, half the
+    candidates and all but one. A tie case: PICK_TIE's tag (its
+    evaporator word is 0xFFFFFFFF) on two candidates at the lowest slots, k
+    one past the candidates below it, so the k-th smallest key over all
+    slots is a tying one. Times the fired and unfired pick (k = 10; the
+    flips written as the solvent type, so the state stays) against the
+    plain pick, ``torch.topk(k=10)`` over the slots' keys (the library call
+    of the pick) and the bound. Returns {name: (ms, plain_ms, bound,
+    library_ms)}."""
+    from azplugins_tpu_torch.core import rng
+
+    t0 = time.perf_counter()
+    st, seed, evap = sim._dense, sim.seed, sim.operations.updaters[0]
+    dev = st.device
+    n = st.N
+    cand = evap._candidates(st)
+    m = int(cand.sum())
+    k_path = evap._k
+    flags = {"fired (no flag)": None, "flag set": torch.tensor(True, device=dev),
+             "flag unset": torch.tensor(False, device=dev)}
+    steps = [sim.timestep + j for j in range(PICK_TIMESTEPS - 1)] + [2**32 + 3]
+    cases = 0
+    lo_path = evap.lo
+    try:
+        for k in sorted({1, k_path, PICK_BINS + 1, m - 1, m, n} - {0}):
+            evap._k = k
+            for t in steps:
+                want = st.typeid.clone()
+                evap._pick_plain(want, st, None, t, seed)
+                if int((want != st.typeid).sum()) != min(k, m):
+                    raise AssertionError(f"pick: the plain pick flipped "
+                                         f"{int((want != st.typeid).sum())}, not min({k}, {m})")
+                for what, fire in flags.items():
+                    got = st.typeid.clone()
+                    before = EK.launches
+                    evap._pick(got, st, fire, t, seed)
+                    if EK.launches != before + 2:
+                        raise AssertionError("pick: the kernels were not launched")
+                    expect = st.typeid if what == "flag unset" else want
+                    if not torch.equal(got, expect):
+                        raise AssertionError(f"pick: the kernel differs from the plain pick at "
+                                             f"k {k}, timestep {t}, {what}")
+                    cases += 1
+        # k above the select's radix bins with more candidates than k: the
+        # slab widened to the whole box (every solvent slot a candidate)
+        evap.lo = -0.5 * float(st.box.L[2])
+        m_wide = int(evap._candidates(st).sum())
+        if m_wide <= PICK_BINS + 1:
+            raise AssertionError(f"pick: {m_wide} candidates on the whole box")
+        wide = sorted({PICK_BINS + 1, m_wide // 2, m_wide - 1})
+        for k in wide:
+            evap._k = k
+            for t in steps[::10]:
+                want = st.typeid.clone()
+                evap._pick_plain(want, st, None, t, seed)
+                got = st.typeid.clone()
+                evap._pick(got, st, None, t, seed)
+                if not torch.equal(got, want) or int((got != st.typeid).sum()) != k:
+                    raise AssertionError(f"pick: the kernel differs from the plain pick on the "
+                                         f"whole box at k {k}, timestep {t}")
+                cases += 1
+        evap.lo = lo_path
+        # the tie: two candidates at slots 0 and 1 whose word is 0xFFFFFFFF
+        tie_seed, tie_t, tie_tag = PICK_TIE
+        (word,) = RK.particle_bits(rng.Stream.PARTICLE_EVAPORATOR, tie_seed, tie_t,
+                                   torch.tensor([tie_tag], dtype=torch.int32, device=dev), 1)
+        if int(word[0]) != 0xFFFFFFFF:
+            raise AssertionError(f"pick: PICK_TIE's word is {int(word[0]):#x}")
+        z = 0.5 * (evap.lo + evap.hi)
+        tied = st.replace(
+            typeid=st.typeid.clone().index_fill_(0, torch.arange(2, device=dev), evap._solvent_id),
+            tag=st.tag.clone().index_fill_(0, torch.arange(2, device=dev), tie_tag),
+            position=st.position.clone().index_put_(
+                (torch.arange(2, device=dev), torch.full((2,), 2, device=dev)),
+                torch.tensor(z, device=dev)))
+        m_tied = int(evap._candidates(tied).sum())
+        tie_flips = []
+        for k in (m_tied - 2, m_tied - 1):
+            evap._k = k
+            want = tied.typeid.clone()
+            evap._pick_plain(want, tied, None, tie_t, tie_seed)
+            got = tied.typeid.clone()
+            evap._pick(got, tied, None, tie_t, tie_seed)
+            if not torch.equal(got, want):
+                raise AssertionError(f"pick: the kernel differs from the plain pick in the tie "
+                                     f"case at k {k}")
+            tie_flips.append(f"k {k}: slots 0, 1 flipped {want[:2].tolist()}")
+            cases += 1
+    finally:
+        evap._k, evap.lo = k_path, lo_path
+
+    # times at k = 10, the flips written as the solvent type (no change)
+    on, off = flags["flag set"], flags["flag unset"]
+    tid, t = st.typeid.clone(), sim.timestep
+    lo, hi = float(np.float32(evap.lo)), float(np.float32(evap.hi))
+
+    def pick(fire):
+        return lambda: EK.evaporator_pick(tid, st.position, st.tag, k_path, evap._solvent_id,
+                                          evap._solvent_id, lo, hi, st.box.Lz,
+                                          rng.Stream.PARTICLE_EVAPORATOR, seed, t, fire)
+
+    keys = evap._keys(st, cand, t, seed)
+    n_solvent = int((st.typeid == evap._solvent_id).sum())
+    bound = _pick_bound(n, n_solvent, m, k_path)
+    library_ms = _cuda_time_ms(lambda: torch.topk(keys, k_path, largest=False, sorted=False), 50)
+    plain_ms = _cuda_time_ms(lambda: evap._pick_plain(st.typeid.clone(), st, on, t, seed), 5)
+    timing = {"fired": (_cuda_time_ms(pick(on), 50), plain_ms, bound, library_ms),
+              "unfired": (_cuda_time_ms(pick(off), 50), plain_ms, bound, library_ms)}
+    print(f"[pick] K4 at the pick (az_pick_scan, az_pick_select) at the droplet's state ({n:,} slots, "
+          f"{m:,} candidates, {n_solvent:,} solvent) bitwise the plain pick in {cases} cases "
+          f"(k {sorted({1, k_path, PICK_BINS + 1, m - 1, m, n} - {0})}, {len(steps)} timesteps "
+          f"to {steps[-1]}, the flag set, unset and absent; the flips min(k, candidates); on "
+          f"the whole box, {m_wide:,} candidates, k {wide} at {len(steps[::10])} timesteps; "
+          f"the tie case {PICK_TIE}: {'; '.join(tie_flips)}); fired {timing['fired'][0]:.4f} ms, "
+          f"unfired {timing['unfired'][0]:.4f} ms (k {k_path}), plain {plain_ms:.4f} ms, "
+          f"torch.topk(k={k_path}) over the {n:,} keys {library_ms:.4f} ms, bound "
+          f"{bound[0]:.5f} ms ({bound[1]}); the phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return timing
 
 
 # ---------------------------------------------------------------------------
@@ -1714,18 +1912,22 @@ def _reset_counts(K):
     K.AK.launches = 0
     K.RK.launches = 0
     K.RK.launches_by_kernel.clear()
+    K.EK.launches = 0
     K.IK.launches = 0
     K.IK.launches_by_kernel.clear()
 
 
-def _draws(K, label, least):
-    """The random-draw kernels' launches since the counts were set to 0,
-    each at least ``least[name]`` (a path's draws a step times its steps,
-    plus its updaters' fires): {name: launches}."""
-    got = {name: K.RK.launches_by_kernel.get(name, 0) for name in least}
-    if any(got[name] < n for name, n in least.items()):
-        raise AssertionError(f"{label}: random-draw kernel launches {got}, at least {least} "
-                             f"expected")
+def _draws(K, label, least, exact=False):
+    """The random-draw kernels' launches since the counts were set to 0
+    (K4 at the pick's, two a pick, as "evaporator_pick"), each at least
+    ``least[name]`` (a path's draws a step times its steps, plus its
+    updaters' fires), or exactly with ``exact`` (K5: one launch a
+    collision): {name: launches}."""
+    counts = {**K.RK.launches_by_kernel, "evaporator_pick": K.EK.launches}
+    got = {name: counts.get(name, 0) for name in least}
+    if any(got[name] < n or (exact and got[name] != n) for name, n in least.items()):
+        raise AssertionError(f"{label}: random-draw kernel launches {got}, "
+                             f"{'exactly' if exact else 'at least'} {least} expected")
     return got
 
 
@@ -2312,13 +2514,17 @@ def run_colloid(az, D, K, card, record):
     _reset_counts(K)
     ms_step, wall = _timed_run(sim, COLLOID_STEPS)
     launched = {name: K.PK.launches_by_potential.get("LJ", 0)}
-    drawn = _draws(K, "colloid", {"jax_normal": COLLOID_STEPS // sim.mpcd_dynamics.period})
+    collisions = COLLOID_STEPS // sim.mpcd_dynamics.period
+    drawn = _draws(K, "colloid", {"jax_normal_axis": collisions})
     _check_grid(sim, "colloid")
     evals = sim.force_evaluations - evals0
     if launched[name] != evals or evals < COLLOID_STEPS or K.PK.launches != evals:
         raise AssertionError(f"colloid: {launched} LJ kernel launches for {evals} force "
                              f"evaluations in {COLLOID_STEPS} steps")
     builds, replays = sim.n_builds - builds0, sim.viol_replays - replays0
+    if not replays and drawn["jax_normal_axis"] != collisions:  # a replay collides again
+        raise AssertionError(f"colloid: {drawn['jax_normal_axis']} K5 launches for {collisions} "
+                             f"collisions")
     integrated = _integrator_launches(K, "colloid", sim.steps_run - steps0, 1)
     _check_wrapped(sim, "colloid")
 
@@ -2402,9 +2608,10 @@ def run_poiseuille(az, K, card):
     _reset_counts(K)
     steps0 = sim.steps_run
     ms_step, wall = _timed_run(sim, POISEUILLE_STEPS - TUNE_AT)
-    # two normal draws a collision: the virtual fill and the axes
+    # one K5 launch a collision: the axes and the virtual fill's normals
     drawn = _draws(K, "poiseuille", {
-        "jax_normal": 2 * ((POISEUILLE_STEPS - TUNE_AT) // sim.mpcd_dynamics.period)})
+        "jax_normal_axis": (POISEUILLE_STEPS - TUNE_AT) // sim.mpcd_dynamics.period},
+        exact=True)
     # its two MD particles have no pair force, so no grid: K7 alone, no drift check
     drawn.update(_integrator_launches(K, "poiseuille", sim.steps_run - steps0, 1, grid=False))
     field = az.compute.CartesianVelocityFieldCompute(
@@ -2445,7 +2652,7 @@ def run_srd(az, K, card):
     _reset_counts(K)
     steps0 = sim.steps_run
     ms_step, wall = _timed_run(sim, SRD_STEPS)
-    drawn = _draws(K, "srd", {"jax_normal": SRD_STEPS})
+    drawn = _draws(K, "srd", {"jax_normal_axis": SRD_STEPS}, exact=True)
     drawn.update(_integrator_launches(K, "srd", sim.steps_run - steps0, 1, grid=False))
     kT, _ = _solvent_kT(sim)
     print(f"[srd] N={sim._whole_mpcd()['position'].shape[0]}, {SRD_STEPS} steps of one collision each: "
@@ -3170,9 +3377,11 @@ def run_spatial_ops(az, D, K, card, record):
                 # a fire a shard; K5: the joint collision's axes
                 m = n if key == "shards" else 1
                 if label == "colloid":
-                    least = {"jax_normal": stretch // sim.mpcd_dynamics.period}
-                elif label == "droplet":
+                    least = {"jax_normal_axis": stretch // sim.mpcd_dynamics.period}
+                elif label == "droplet" and key == "shards":
                     least = {"particle_bits": m * (stretch // DROPLET_PERIOD)}
+                elif label == "droplet":  # K4 at the pick, two launches at least a fire
+                    least = {"evaporator_pick": 2 * (stretch // DROPLET_PERIOD)}
                 else:
                     least = {}
                 drawn = _draws(K, f"spatial_ops: {label} {key}", least)
@@ -3455,8 +3664,8 @@ def _graph_turn(K, sim, label, forces, steps=GRAPH_STEPS):
 
 
 def _clock_forms(sim, label, forces):
-    """K2, K4, K8 and K9 keyed on the card's clock (core/rng.py's
-    device_clock, the clock 3 steps behind at offset 3) against their
+    """K2, K4 (at the droplet's pick too), K8 and K9 keyed on the card's
+    clock (core/rng.py's device_clock, the clock 3 steps behind at offset 3) against their
     host-int forms on the path's state, bitwise, at CLOCK_STEPS; K8 and K9
     (Langevin's step2, with the path's flow field) in their device-kT form
     (kT a 0-d float32 on the card, as a run's schedule gives it) against
@@ -3490,6 +3699,15 @@ def _clock_forms(sim, label, forces):
         draws["K8/K9" if m._rotational else "K8"] = lambda s: m.step2(dense, dt, s, seed)
     if label == "headline":
         draws["K4"] = lambda s: rng.particle_uniform3(rng.Stream.BROWNIAN, seed, s, dense.tag)
+    if label == "droplet":
+        evap = sim._step_updaters()[0]
+
+        def pick(s):
+            typeid = dense.typeid.clone()
+            evap._pick(typeid, dense, None, s, seed)
+            return typeid
+
+        draws["K4 at the pick"] = pick
     for name, draw in draws.items():
         for t in CLOCK_STEPS:
             want = at(t, t, draw)
@@ -3700,9 +3918,10 @@ def main() -> int:
     from azplugins_tpu_torch.ops import dpd_kernel as DK
     from azplugins_tpu_torch.ops import integrate_kernel as IK
     from azplugins_tpu_torch.ops import pair_kernel as PK
+    from azplugins_tpu_torch.ops import pick_kernel as EK
     from azplugins_tpu_torch.ops import rng_kernel as RK
 
-    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK, RK=RK, IK=IK)
+    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK, RK=RK, IK=IK, EK=EK)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
@@ -3710,9 +3929,9 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE, RK._SOURCE, IK._SOURCE)
+    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE, RK._SOURCE, IK._SOURCE, EK._SOURCE)
     cuda_build.load_libraries(*sources)
-    for k in (PK, DK, AK, RK, IK):
+    for k in (PK, DK, AK, RK, IK, EK):
         k._library()
     print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
           flush=True)
@@ -3776,10 +3995,11 @@ def main() -> int:
     # the droplet's lab-frame temperature contains the flow: its own check
     # reads the evaporated particles' temperature relative to it
     droplet = count(run_path(az, D, K, card, record, "droplet", build_droplet, 2000, 1000, plj,
-                             {"particle_bits": 1000 // DROPLET_PERIOD},
+                             {"evaporator_pick": 2000},
                              extra_check=_droplet_check, kT=None, caps="tune"))
     time_pair_on_state(az, D, PK, droplet, droplet.operations.integrator.forces[0], "droplet")
     check_integrate(az, D, K, droplet, "droplet", integrate_timing, record)
+    pick_timing = check_pick(droplet, RK, EK)
     del droplet
     for pot, n in run_potential_sweep(az, K).items():
         launches[f"cell_pair_force[{pot}]"] = n
@@ -3809,7 +4029,8 @@ def main() -> int:
     # slots, K5 at pure SRD's grid); no PyTorch call computes these Threefry
     # streams (torch.rand and torch.randn are other generators)
     for name, timed, replaces in (("particle_bits", "particle_uniform3", RNG_BITS_REPLACES),
-                                  ("jax_normal", "jax_normal[srd]", RNG_NORMAL_REPLACES)):
+                                  ("jax_normal_axis", "jax_normal_axis[srd]",
+                                   RNG_NORMAL_REPLACES)):
         ms, plain_ms, (bound_ms, bound_by) = rng_timing[timed]
         kernels.append({
             "name": name, "route": "cuda", "source": f"azplugins_tpu_torch/csrc/{RK._SOURCE}",
@@ -3817,6 +4038,17 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
+    # K4 at the pick, fired (the droplet's 10 of its slots), its launches the
+    # scan's and the select's; its library call: torch.topk(k=10) over the
+    # slots' keys, which the plain pick runs twice
+    ms, plain_ms, (bound_ms, bound_by), library_ms = pick_timing["fired"]
+    kernels.append({
+        "name": "evaporator_pick", "route": "cuda",
+        "source": f"azplugins_tpu_torch/csrc/{EK._SOURCE}", "replaces": PICK_REPLACES,
+        "launches": launches["evaporator_pick"], "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+    })
     # the integrator and the drift check: timed at the headline's slots (K6-K8)
     # and the patchy colloids' (K9); no PyTorch call computes a masked Verlet
     # half step, a top-two drift criterion or a NO_SQUISH rotation

@@ -14,12 +14,17 @@ it (K7+K6, ``Langevin.step1`` with a drift check) and Langevin kick (K8,
 ``Langevin.step2``) on its state after HEADLINE_STEPS steps (past the
 capacity tune: cap 48, 82,944 slots); the draws at the shapes chip_smoke.py
 times them at (K4 ``particle_uniform3`` and ``particle_bits`` of one word
-on 82,944 tags, K5 ``jax_normal`` on pure SRD's [262,144, 3]); and the
-NO_SQUISH rotation's step1 mode (K9) on the patchy colloids' 194,672
-slots; the pair kernel at the droplet (T = 2) and the droplet's masked
-evaporator (``ParticleEvaporator._update_masked``, what its CUDA graphs
-run every step) on its state after DROPLET_STEPS steps; through the
-public calls. Three timers, CUDA events around ``REPS`` calls each:
+on 82,944 tags; K5's axis form at pure SRD's 262,144 rows and its two-key
+form at Poiseuille's 4,352 where the checkout has them, and its single
+draw ``jax_normal`` on pure SRD's [262,144, 3] where the checkout has
+that); and the NO_SQUISH rotation's step1 mode (K9) on the patchy
+colloids' 194,672 slots; the pair kernel at the
+droplet (T = 2) and the droplet's masked evaporator
+(``ParticleEvaporator._update_masked``, what its CUDA graphs run every
+step) on its state after DROPLET_STEPS steps, and where the checkout has
+K4 at the pick, the pick fired and unfired, the plain pick's flips and
+``torch.topk`` alone over the slots' keys; through the public calls.
+Three timers, CUDA events around ``REPS`` calls each:
 
 - synced: the calls start right after a synchronize, so where the
   wrapper's host time exceeds the kernel's the host is timed;
@@ -41,6 +46,7 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke as cs  # this checkout's: before ROOT goes on the path
@@ -106,7 +112,12 @@ def main() -> int:
     from azplugins_tpu_torch.ops import pair_kernel as PK
     from azplugins_tpu_torch.ops import rng_kernel as RK
 
-    cuda_build.load_libraries(PK._SOURCE, DK._SOURCE, AK._SOURCE, IK._SOURCE, RK._SOURCE)
+    try:
+        from azplugins_tpu_torch.ops import pick_kernel as EK
+    except ImportError:  # an older checkout: K4 at the pick in rng_kernel, or none
+        EK = RK if hasattr(RK, "evaporator_pick") else None
+    sources = {PK._SOURCE, DK._SOURCE, AK._SOURCE, IK._SOURCE, RK._SOURCE}
+    cuda_build.load_libraries(*sorted(sources | ({EK._SOURCE} if EK else set())))
     from azplugins_tpu_torch.core import rng
 
     dev = torch.device("cuda")
@@ -152,11 +163,23 @@ def main() -> int:
             (f"particle_uniform3 (K4) {cs.HEADLINE_SLOTS:,} tags",
              lambda: rng.particle_uniform3(rng.Stream.LANGEVIN, 1, 2, tags)),
             (f"particle_bits (K4, 1 word) {cs.HEADLINE_SLOTS:,} tags",
-             lambda: rng.particle_bits(rng.Stream.PARTICLE_EVAPORATOR, 1, 2, tags, 1)),
-            (f"jax_normal (K5) pure SRD {cs.NORMAL_SHAPES['srd']}",
-             lambda: rng.jax_normal((0, 42), cs.NORMAL_SHAPES["srd"], "cuda"))):
+             lambda: rng.particle_bits(rng.Stream.PARTICLE_EVAPORATOR, 1, 2, tags, 1))):
         calls[name] = fn
         replayed.add(name)
+    if hasattr(rng, "jax_normal"):  # K5's single draw, where the checkout has it
+        name = f"jax_normal (K5) pure SRD {cs.NORMAL_SHAPES['srd']}"
+        calls[name] = lambda: rng.jax_normal((0, 42), cs.NORMAL_SHAPES["srd"], "cuda")
+        replayed.add(name)
+    if hasattr(rng, "jax_normal_axis"):  # K5's axis form, where the checkout has it
+        for name, fn in (
+                (f"jax_normal_axis (K5, axis form) pure SRD {cs.NORMAL_SHAPES['srd'][0]:,} rows",
+                 lambda: rng.jax_normal_axis((0, 42), cs.NORMAL_SHAPES["srd"][0], "cuda")),
+                (f"jax_normal_axis (K5, two keys) Poiseuille "
+                 f"{cs.NORMAL_SHAPES['poiseuille'][0]:,} rows",
+                 lambda: rng.jax_normal_axis((0, 42), cs.NORMAL_SHAPES["poiseuille"][0], "cuda",
+                                             (1, 2)))):
+            calls[name] = fn
+            replayed.add(name)
 
     sim = cs.build_headline(az, dev)[0]
     sim.run(HEADLINE_STEPS)
@@ -192,6 +215,27 @@ def main() -> int:
             lambda: evap._update_masked(dd, unfired, t, seed)) if hasattr(
                 evap, "_update_masked") else None}
     droplet = {k: fn for k, fn in droplet.items() if fn is not None}
+    if EK is not None:
+        # K4 at the pick fired and unfired (k = 10; the flips written as the
+        # solvent type, so the state stays), the plain pick's flips and
+        # torch.topk(k=10) alone over the slots' keys (the pick's library call)
+        fired, tid = torch.tensor(True, device=dev), dd.typeid.clone()
+        lo, hi = float(np.float32(evap.lo)), float(np.float32(evap.hi))
+        keys = evap._keys(dd, evap._candidates(dd), t, seed)
+
+        def pick(fire):
+            return lambda: EK.evaporator_pick(tid, dd.position, dd.tag, evap._k,
+                                              evap._solvent_id, evap._solvent_id, lo, hi,
+                                              dd.box.Lz, rng.Stream.PARTICLE_EVAPORATOR, seed,
+                                              t, fire)
+
+        droplet.update({
+            f"evaporator_pick (K4 at the pick) fired {at}": pick(fired),
+            f"evaporator_pick (K4 at the pick) unfired {at}": pick(unfired),
+            f"plain pick (the flips of the composed pick) {at}": (
+                lambda: evap._flips((dd,), t, seed)),
+            f"torch.topk(k={evap._k}) over the {dd.N:,} int64 keys {at}": (
+                lambda: torch.topk(keys, evap._k, largest=False, sorted=False))})
     calls.update(droplet)
     replayed.update(droplet)
 

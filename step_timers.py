@@ -7,7 +7,8 @@ Imports this checkout's azplugins_tpu_torch and OTHER_ROOT's (under the
 name ``azplugins_tpu_torch_other``) into one process, builds both trees'
 kernels, and runs chip_smoke.py's full-size paths that both trees have (the
 64k headline, the DPD fluid, the polymer melt, the patchy colloids, the
-evaporating droplet; the PATHs named, default all) from the same start in
+evaporating droplet, pure SRD and the SRD Poiseuille slit; the PATHs
+named, default all) from the same start in
 each: ``WARM`` steps (the droplet ``DROPLET_WARM``, as its main path in
 chip_smoke.py), then ``STEPS`` timed steps in
 eight turns, (other, this, this, other) twice, each timed with CUDA events
@@ -38,7 +39,10 @@ STEPS = 300
 TURNS = ("other", "this", "this", "other") * 2
 PATHS = (("headline", cs.build_headline), ("dpd", cs.build_dpd),
          ("polymer", cs.build_polymer), ("patchy", cs.build_patchy),
-         ("droplet", cs.build_droplet))
+         ("droplet", cs.build_droplet),
+         # the MPCD-only paths (their builders return the simulation alone)
+         ("srd", lambda az, dev: (cs.build_srd(az, dev), None)),
+         ("poiseuille", lambda az, dev: (cs.build_poiseuille(az, dev), None)))
 
 
 def _import_other(root: Path):
@@ -94,8 +98,9 @@ def main() -> int:
             read[name].append((ms, busy))
             print(f"[{label}] turn {turn} {name}: {ms:.4f} ms/step (host wall {wall:.3f} s), "
                   f"{ops:.1f} device operations and {busy:.4f} ms device-busy per step, "
-                  f"{htod:.2f} copies and {syncs:.2f} synchronising calls per step; cap "
-                  f"{sim._grid_spec.cap}, rebuild interval {sim._seg_len}", flush=True)
+                  f"{htod:.2f} copies and {syncs:.2f} synchronising calls per step; "
+                  + (f"cap {sim._grid_spec.cap}, rebuild interval {sim._seg_len}"
+                     if sim._grid_spec is not None else "no grid"), flush=True)
         print(f"[{label}] " + "; ".join(
             f"{name}: median {np.median([m for m, _ in r]):.4f} ms/step (spread "
             f"{np.ptp([m for m, _ in r]):.4f}), median {np.median([b for _, b in r]):.4f} ms "

@@ -25,9 +25,14 @@ by the input, so two launches give the same bits.
 
 The random-draw kernels (csrc/threefry.cu) are held to their plain
 versions in core/rng.py: the per-particle words and uniforms (K4) bit for
-bit, as integer hashing and explicitly rounded float32 steps; the MPCD
-normals (K5) within 1 ulp, the one step left to the card's libraries being
-CUDA's log1pf against PyTorch's CUDA log1p.
+bit, as integer hashing and explicitly rounded float32 steps; K5 (the
+MPCD collision's unit axes, with the virtual fill's normals under a second
+key) within 1 ulp, the one step left to the card's libraries being CUDA's
+log1pf against PyTorch's CUDA log1p, and its axes bitwise the plain
+normalisation of its own normals. The evaporator's pick on a whole layout
+(K4 at the pick, csrc/pick.cu; update.py's ParticleEvaporator._pick) is
+held to the plain pick bit for bit, the trigger's flag set, unset and
+absent.
 
 The run loop's CUDA graphs read the timestep on the card: K2, K4, K8 and
 K9 in their clock forms (core/rng.py's device_clock) are held bitwise to
@@ -55,6 +60,7 @@ from azplugins_tpu_torch.ops import dense as D  # noqa: E402
 from azplugins_tpu_torch.ops import dpd_kernel as DK  # noqa: E402
 from azplugins_tpu_torch.ops import integrate_kernel as IK  # noqa: E402
 from azplugins_tpu_torch.ops import pair_kernel as PK  # noqa: E402
+from azplugins_tpu_torch.ops import pick_kernel as XK  # noqa: E402
 from azplugins_tpu_torch.ops import rng_kernel as RK  # noqa: E402
 from azplugins_tpu_torch.ops.evaluators.aniso import ANISO_PAIR_POTENTIALS  # noqa: E402
 from azplugins_tpu_torch.ops.evaluators.pair import PAIR_POTENTIALS  # noqa: E402
@@ -453,7 +459,7 @@ def test_simulation_on_cuda_draws_through_the_rng_kernels(cuda_device, method):
     sim.run(10)
     drawn = {k: v - before.get(k, 0) for k, v in RK.launches_by_kernel.items()}
     if method.startswith("SRD"):
-        assert drawn.get("jax_normal", 0) >= 2 * 10
+        assert drawn.get("jax_normal_axis", 0) == 10  # one K5 launch a collision: axes, fill
     elif method == "Langevin":
         assert drawn.get("particle_bits", 0) == 1  # thermalize
         assert IK.launches_by_kernel.get("step2", 0) - stepped >= 10
@@ -924,10 +930,12 @@ def test_particle_uniform3_kernel_bitwise(cuda_device, low, high, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(9261, 3), (1001, 3), (0, 3)])
 def test_jax_normal_kernel_within_bar(cuda_device, shape):
+    """K5's normals (the two-key form's second key) within the 1-ulp bar of
+    the plain draw, in one launch."""
     for key in [(0, 42), RNG.jax_fold_in(RNG.jax_key(11), 40)]:
-        before = RK.launches_by_kernel.get("jax_normal", 0)
-        got = RNG.jax_normal(key, shape, cuda_device)
-        assert RK.launches_by_kernel.get("jax_normal", 0) == before + (shape[0] > 0)
+        before = RK.launches_by_kernel.get("jax_normal_axis", 0)
+        _, got = RNG.jax_normal_axis((5, 6), shape[0], cuda_device, key)
+        assert RK.launches_by_kernel.get("jax_normal_axis", 0) == before + (shape[0] > 0)
         want = RNG._jax_normal_plain(key, shape, cuda_device)
         assert got.shape == want.shape and got.dtype == torch.float32
         ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
@@ -944,10 +952,151 @@ def test_rng_kernels_launch_nothing_for_no_tags_and_refuse_other_tags(cuda_devic
         RNG.particle_bits(210, 1, 2, torch.zeros(8, dtype=torch.int64, device=cuda_device), 1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [9261, 4352, 1001, 0])
+def test_jax_normal_axis_kernel_within_bar(cuda_device, rows):
+    """K5's axis form: one launch; the axes within the normals' 1-ulp bar of
+    the plain version and bitwise the plain normalisation of K5's own
+    normals (drawn as another launch's second key: the card's torch.sum
+    order over 3); with a second key, its normals bitwise those of another
+    launch under another first key, and the axes the one-key form's."""
+    for key, second in (((0, 42), (3, 4)), (RNG.jax_fold_in(RNG.jax_key(11), 40), None)):
+        before = RK.launches_by_kernel.get("jax_normal_axis", 0)
+        axis, normals = RNG.jax_normal_axis(key, rows, cuda_device, second)
+        assert RK.launches_by_kernel.get("jax_normal_axis", 0) == before + (rows > 0)
+        p_axis, p_normals = RNG._jax_normal_axis_plain(key, rows, cuda_device, second)
+        assert axis.shape == (rows, 3) and axis.dtype == torch.float32
+        assert (normals is None) == (second is None)
+        _, raw = RNG.jax_normal_axis((7, 9), rows, cuda_device, key)
+        own = raw / torch.clamp_min(torch.sqrt(torch.sum(raw * raw, dim=1, keepdim=True)), 1e-12)
+        assert torch.equal(axis.view(torch.int32), own.view(torch.int32))
+        pairs = [(axis, p_axis)]
+        if second is not None:
+            _, single = RNG.jax_normal_axis((7, 9), rows, cuda_device, second)
+            assert torch.equal(normals.view(torch.int32), single.view(torch.int32))
+            one, _ = RNG.jax_normal_axis(key, rows, cuda_device)
+            assert torch.equal(one.view(torch.int32), axis.view(torch.int32))
+            pairs.append((normals, p_normals))
+        for got, want in pairs:
+            ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+            assert ulps.numel() == 0 or int(ulps.max()) <= NORMAL_ULP
+
+
+def _pick_state(device, R0=8.0, a=1.1, n_empty=300, seed=4):
+    """A droplet-like slot layout on ``device`` (bench.py's droplet lattice
+    at radius R0, a fifth evaporated, ``n_empty`` empty slots shuffled in,
+    some particles a box length off) and an evaporator on its slab
+    [R0/2, L/2), attached to a simulation of its box."""
+    from azplugins_tpu_torch.core.state import state_from_snapshot
+
+    rng = np.random.default_rng(seed)
+    L = 2 * R0 + 4.0
+    g = np.arange(-R0, R0 + a, a)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = pts[np.linalg.norm(pts, axis=1) < R0 * 0.93]
+    pts[::7, 2] += L
+    n = len(pts) + n_empty
+    order = rng.permutation(n)
+    pos = np.full((n, 3), 3.0 * L, np.float32)
+    pos[order[:len(pts)]] = pts
+    typeid = np.full(n, -1, np.int32)
+    typeid[order[:len(pts)]] = (rng.random(len(pts)) < 0.2).astype(np.int32)
+    tag = np.full(n, -1, np.int32)
+    tag[order[:len(pts)]] = np.arange(len(pts), dtype=np.int32)
+    snap = az.Snapshot(N=n)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["solvent", "evaporated"]
+    snap.particles.position[:] = pos
+    state, _, _ = state_from_snapshot(snap, device)
+    state = state.replace(tag=torch.as_tensor(tag, device=device),
+                          typeid=torch.as_tensor(typeid, device=device))
+    evap = az.update.ParticleEvaporator(trigger=1, solvent_type="solvent",
+                                        evaporated_type="evaporated", lo=R0 / 2, hi=L / 2,
+                                        N_evap_max=10)
+    sim = az.Simulation(device=device, seed=3)
+    sim.create_state_from_snapshot(snap)
+    evap._attach(sim)
+    return state, evap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", ["1", "10", "2049", "n_marked - 1", "n_marked", "slots"])
+def test_evaporator_pick_kernel_bitwise(cuda_device, k):
+    """K4 at the pick flips what the plain pick flips, bit for bit, in two
+    launches a pick: fired, with the flag set, and with the flag
+    unset (typeid keeps its bits); at timesteps past 2**32 too. k = 2049,
+    above the select's 2048 radix bins, on a slab holding the whole
+    droplet, so more candidates than k."""
+    wide = k == "2049"
+    state, evap = _pick_state(cuda_device, R0=11.0 if wide else 8.0)
+    if wide:
+        evap.lo = -0.5 * float(state.box.L[2])
+    m = int(evap._candidates(state).sum())
+    assert 20 < m < state.N and (m > 2049 or not wide)
+    evap._k = {"1": 1, "10": 10, "2049": 2049, "n_marked - 1": m - 1, "n_marked": m,
+               "slots": state.N}[k]
+    for t in (0, 25, 777, 2**32 + 25):
+        want = state.typeid.clone()
+        evap._pick_plain(want, state, None, t, 3)
+        assert int((want != state.typeid).sum()) == min(evap._k, m)
+        for fire in (None, True, False):
+            got = state.typeid.clone()
+            before = XK.launches
+            evap._pick(got, state, None if fire is None else torch.tensor(fire, device=cuda_device),
+                       t, 3)
+            assert XK.launches == before + 2
+            assert torch.equal(got, state.typeid if fire is False else want)
+
+
+# a (seed, timestep, tag) whose evaporator word is 0xFFFFFFFF: a real tie
+PICK_TIE = (7, 3, 1853371083)
+
+
+@pytest.mark.cuda
+def test_evaporator_pick_kernel_ties_as_the_plain_pick(cuda_device):
+    """PICK_TIE's tag on candidates at slots 0 and 1: its word ties the
+    non-candidates' priority, and with k one past the candidates below it
+    the kernel's rank among the tying slots flips slot 0 alone, as the
+    plain pick's top-k over every slot does."""
+    seed, t, tag = PICK_TIE
+    state, evap = _pick_state(cuda_device)
+    first = torch.arange(2, device=cuda_device)
+    pos = state.position.clone()
+    pos[first] = torch.tensor([[0.0, 0.0, 0.5 * (evap.lo + evap.hi)]] * 2, device=cuda_device)
+    state = state.replace(position=pos, typeid=state.typeid.index_fill(0, first, 0),
+                          tag=state.tag.index_fill(0, first, tag))
+    (word,) = RNG.particle_bits(RNG.Stream.PARTICLE_EVAPORATOR, seed, t, state.tag[:1], 1)
+    assert int(word[0]) == 0xFFFFFFFF
+    m = int(evap._candidates(state).sum())
+    for k, flipped in ((m - 2, [0, 0]), (m - 1, [1, 0]), (m, [1, 1])):
+        evap._k = k
+        want = state.typeid.clone()
+        evap._pick_plain(want, state, None, t, seed)
+        got = state.typeid.clone()
+        evap._pick(got, state, None, t, seed)
+        assert torch.equal(got, want) and got[:2].tolist() == flipped
+
+
+@pytest.mark.cuda
+def test_evaporator_pick_kernel_refuses_what_it_does_not_take(cuda_device):
+    state, evap = _pick_state(cuda_device, n_empty=10)
+    before = XK.launches
+    evap._k = 0
+    got = state.typeid.clone()
+    evap._pick(got, state, None, 5, 3)  # no budget: nothing flips, nothing launches
+    assert torch.equal(got, state.typeid) and XK.launches == before
+    with pytest.raises(TypeError, match="int32"):
+        XK.evaporator_pick(state.typeid.long(), state.position, state.tag, 10, 0, 1, 0.0, 1.0,
+                           float(state.box.L[2]), 203, 3, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        XK.evaporator_pick(state.typeid.cpu(), state.position.cpu(), state.tag.cpu(), 10, 0, 1,
+                           0.0, 1.0, float(state.box.L[2]), 203, 3, 5)
+
+
 def test_threefry_rounds_are_one_header():
-    """The DPD kernel and the random-draw kernels share csrc/threefry.cuh's
-    rounds; neither keeps a copy of its own."""
-    for source in (DK._SOURCE, RK._SOURCE):
+    """The DPD kernel, the random-draw kernels and the pick share
+    csrc/threefry.cuh's rounds; none keeps a copy of its own."""
+    for source in (DK._SOURCE, RK._SOURCE, XK._SOURCE):
         text = (cuda_build.CSRC / source).read_text()
         assert '#include "threefry.cuh"' in text
         assert "rotl32(" not in text and "0x1BD11BDA" not in text
@@ -1006,10 +1155,13 @@ def test_particle_uniform3_is_the_references(draw_device, reference_draws, case)
 
 @pytest.mark.parametrize("case", range(len(REF.NORMAL_CASES)))
 def test_jax_normal_is_the_references_within_bar(draw_device, reference_draws, case):
+    """K5's normals (the two-key form's second key) and their plain version
+    within the 4-ulp bar of jax.random.normal."""
     name, seed, fold, shape = REF.NORMAL_CASES[case]
-    before = RK.launches_by_kernel.get("jax_normal", 0)
-    x = RNG.jax_normal(RNG.jax_fold_in(RNG.jax_key(seed), fold), shape, draw_device)
-    assert _launched("jax_normal", before, draw_device)
+    before = RK.launches_by_kernel.get("jax_normal_axis", 0)
+    _, x = RNG.jax_normal_axis((0, 42), shape[0], draw_device,
+                               RNG.jax_fold_in(RNG.jax_key(seed), fold))
+    assert _launched("jax_normal_axis", before, draw_device)
     assert tuple(x.shape) == shape and x.dtype == torch.float32
     got = x.cpu().numpy().reshape(-1)[REF.normal_sample(x.numel())]
     want = reference_draws[f"normal_{name}"]

@@ -101,7 +101,8 @@ def test_cpu_draws_take_the_plain_version():
         (P.particle_bits(210, 42, 7, tags, n_words=3), P._particle_bits_plain(210, 42, 7, tags, 3)),
         ((P.particle_uniform3(202, 42, 7, tags, 0.0, 1.0),),
          (P._particle_uniform3_plain(202, 42, 7, tags, 0.0, 1.0),)),
-        ((P.jax_normal(key, (33, 3), "cpu"),), (P._jax_normal_plain(key, (33, 3), "cpu"),)),
+        (P.jax_normal_axis(key, 33, "cpu", (5, 6)),
+         P._jax_normal_axis_plain(key, 33, "cpu", (5, 6))),
     ]:
         assert len(got) == len(want)
         for g, w in zip(got, want):
@@ -118,12 +119,12 @@ def test_draws_on_another_device_raise(draw):
             P.particle_bits(210, 42, 7, meta, n_words=2)
         elif draw == "particle_uniform3":
             P.particle_uniform3(210, 42, 7, meta)
-        else:
-            P.jax_normal((0, 42), (16, 3), "meta")
+        else:  # K5: its one-key form
+            P.jax_normal_axis((0, 42), 16, "meta")
     # the wrappers take CUDA tensors only
     with pytest.raises(ValueError, match="CUDA"):
         if draw == "jax_normal":
-            RK.jax_normal((0, 42), (16, 3), "cpu")
+            RK.jax_normal_axis((0, 42), 16, "cpu")
         else:
             getattr(RK, draw)(210, 42, 7, torch.zeros(16, dtype=torch.int32))
     assert RK.launches == 0
@@ -230,3 +231,72 @@ def test_rng_reference_file_is_what_the_reference_draws():
     for k in kept:
         assert kept[k].dtype == drawn[k].dtype and kept[k].shape == drawn[k].shape
         np.testing.assert_array_equal(kept[k], drawn[k])
+
+
+# -- K5's axis form: the collision's unit axes and the virtual fill's normals -
+COLLISION_ROWS = [(1001, 11, 40), (4352, 5, 120), (9261, 3, 2**31 + 7)]
+
+
+def _collision_keys(seed, t):
+    """The reference's (shift, axis, virtual-fill) keys of the collision at
+    t: fold_in(fold_in(key(seed), stream), t), split in three."""
+    import jax
+
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.key(seed), jnp.uint32(0x6D70)),
+                             jnp.uint32(t))
+    keys = jax.random.split(key, 3)
+    words = [tuple(int(w) for w in np.asarray(jax.random.key_data(k))) for k in keys]
+    return keys, words
+
+
+@pytest.mark.parametrize("rows,seed,t", COLLISION_ROWS)
+def test_axis_form_is_the_references_axes_and_fill(rows, seed, t):
+    """The axis form's plain version (K5's, on the card) is the reference's
+    unit axes, jax.random.normal over its norm clamped at 1e-12
+    (azplugins_tpu/mpcd.py:323-326), within the axes' bar of
+    tests/test_torch_mpcd.py (1e-6: the normals' 4 ulp through a norm
+    summed in another order), and its second key's normals the virtual
+    fill's (:314) within the port's 4-ulp bar for normals."""
+    import jax
+
+    keys, words = _collision_keys(seed, t)
+    axis, virt = P._jax_normal_axis_plain(words[1], rows, "cpu", words[2])
+    raw = jax.random.normal(keys[1], (rows, 3), jnp.float32)
+    want = np.asarray(raw / jnp.maximum(jnp.linalg.norm(raw, axis=1, keepdims=True), 1e-12))
+    want_virt = np.asarray(jax.random.normal(keys[2], (rows, 3), jnp.float32))
+    assert axis.dtype == virt.dtype == torch.float32
+    assert tuple(axis.shape) == tuple(virt.shape) == (rows, 3)
+    np.testing.assert_allclose(axis.numpy(), want, rtol=0, atol=1e-6)
+    ulps = np.abs(virt.numpy().view(np.int32).astype(np.int64)
+                  - want_virt.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 4
+    norms = np.linalg.norm(axis.numpy().astype(np.float64), axis=1)
+    np.testing.assert_allclose(norms, 1.0, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,seed,t", COLLISION_ROWS)
+def test_two_key_form_is_two_single_draws(rows, seed, t):
+    """The two-key form is the one-key form's axes and a single plain draw
+    under the second key, bit for bit; the axes are the plain draw
+    normalised by PyTorch's operations; on the CPU the public form takes
+    the plain version and launches nothing."""
+    _, words = _collision_keys(seed, t)
+    axis, virt = P._jax_normal_axis_plain(words[1], rows, "cpu", words[2])
+    one, none = P._jax_normal_axis_plain(words[1], rows, "cpu")
+    assert none is None and torch.equal(axis.view(torch.int32), one.view(torch.int32))
+    single = P._jax_normal_plain(words[2], (rows, 3), "cpu")
+    assert torch.equal(virt.view(torch.int32), single.view(torch.int32))
+    raw = P._jax_normal_plain(words[1], (rows, 3), "cpu")
+    own = raw / torch.clamp_min(torch.sqrt(torch.sum(raw * raw, dim=1, keepdim=True)), 1e-12)
+    assert torch.equal(axis.view(torch.int32), own.view(torch.int32))
+    before = RK.launches
+    pub_axis, pub_virt = P.jax_normal_axis(words[1], rows, "cpu", words[2])
+    assert torch.equal(pub_axis, axis) and torch.equal(pub_virt, virt) and RK.launches == before
+
+
+def test_axis_form_on_another_device_raises():
+    with pytest.raises(ValueError, match="meta"):
+        P.jax_normal_axis((0, 42), 16, "meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        RK.jax_normal_axis((0, 42), 16, "cpu", (1, 2))
+    assert RK.launches == 0

@@ -187,3 +187,212 @@ def test_masked_update_is_the_update_where_fired(which):
         assert torch.equal(got.typeid, expect.typeid) and got.typeid.dtype == torch.int32
         for f in ("position", "velocity", "tag", "image", "mass"):
             assert getattr(got, f) is getattr(state, f)
+
+
+# ---------------------------------------------------------------------------
+# The pick on a whole layout (``ParticleEvaporator._pick``): its plain
+# version, which the card's kernel (K4 at the pick) is held to bitwise, and
+# its masked, in-place form
+# ---------------------------------------------------------------------------
+from azplugins_tpu.core.state import state_from_snapshot as ref_state_from_snapshot  # noqa: E402
+from azplugins_tpu_torch.core.state import state_from_snapshot  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+
+def _droplet_slots(R0=6.0, a=1.1, n_empty=150, seed=4):
+    """``bench.py``'s droplet lattice at radius R0 as a slot layout in both
+    packages: the particles (a fifth already evaporated) with ``n_empty``
+    empty slots (tag and typeid -1, far away) shuffled among them, every
+    seventh particle a box length above and every eleventh one below its
+    place (wrapped back into the slab). Returns the port's state, the
+    reference's and the snapshot its updater attaches to."""
+    rng = np.random.default_rng(seed)
+    L = 2 * R0 + 4.0
+    g = np.arange(-R0, R0 + a, a)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pts = pts[np.linalg.norm(pts, axis=1) < R0 * 0.93]
+    pts[::7, 2] += L
+    pts[::11, 2] -= L
+    n = len(pts) + n_empty
+    order = rng.permutation(n)
+    pos = np.full((n, 3), 3.0 * L, np.float32)
+    pos[order[:len(pts)]] = pts
+    typeid = np.full(n, -1, np.int32)
+    typeid[order[:len(pts)]] = (rng.random(len(pts)) < 0.2).astype(np.int32)
+    tag = np.full(n, -1, np.int32)
+    tag[order[:len(pts)]] = np.arange(len(pts), dtype=np.int32)
+    snap = port.Snapshot(N=n)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["solvent", "evaporated"]
+    snap.particles.position[:] = pos
+    state, _, _ = state_from_snapshot(snap, "cpu")
+    state = state.replace(tag=torch.as_tensor(tag), typeid=torch.as_tensor(typeid))
+    rsnap = ref.Snapshot(N=n)
+    rsnap.configuration.box = [L, L, L, 0, 0, 0]
+    rsnap.particles.types = ["solvent", "evaporated"]
+    rsnap.particles.position[:] = pos
+    ref_state = ref_state_from_snapshot(rsnap)[0]
+    ref_state = ref_state.replace(tag=jnp.asarray(tag), typeid=jnp.asarray(typeid))
+    return state, ref_state, snap, rsnap
+
+
+def _evaporators(snap, rsnap, k, lo, hi):
+    """The port's and the reference's evaporator on the slab [lo, hi),
+    attached to a simulation of the snapshot's box."""
+    out = []
+    for az, s in ((port, snap), (ref, rsnap)):
+        e = az.update.ParticleEvaporator(trigger=1, solvent_type="solvent",
+                                         evaporated_type="evaporated", lo=lo, hi=hi, N_evap_max=k)
+        kw = {} if az is ref else {"device": "cpu"}
+        sim = az.Simulation(seed=3, **kw)
+        sim.create_state_from_snapshot(s)
+        e._attach(sim)
+        out.append(e)
+    return out
+
+
+PICK_STEPS = (0, 25, 1000, 2**32 - 7)
+
+
+@pytest.mark.parametrize("k", ["1", "10", "n_marked - 1", "n_marked", "slots"])
+def test_pick_plain_is_the_references_typeids(k):
+    """The pick's plain version (the kernel's, on the card) on a
+    droplet-like slot layout gives the reference's typeids bit for bit at
+    several timesteps, for k below, at and above the candidates' count
+    and at least the slot count; it flips min(k, candidates)."""
+    state, ref_state, snap, rsnap = _droplet_slots()
+    R0, L = 6.0, float(state.box.L[2])
+    lo, hi = R0 / 2, L / 2
+    probe, _ = _evaporators(snap, rsnap, 10, lo, hi)
+    m = int(probe._candidates(state).sum())
+    assert 20 < m < state.N
+    k = {"1": 1, "10": 10, "n_marked - 1": m - 1, "n_marked": m, "slots": state.N + 3}[k]
+    evap, ref_evap = _evaporators(snap, rsnap, k, lo, hi)
+    for t in PICK_STEPS:
+        want = np.asarray(ref_evap._update(ref_state, t, 3).typeid)
+        got = state.typeid.clone()
+        evap._pick_plain(got, state, None, t, 3)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(evap._update(state, t, 3).typeid.numpy(), want)
+        assert int((got != state.typeid).sum()) == min(k, m)
+
+
+@pytest.mark.parametrize("k", [1, 10, 10**6])
+def test_masked_pick_flips_in_place_where_fired(k):
+    """The evaporator's masked form (the graphs' form) flips ``typeid`` in
+    place: with the flag unset its bits stay, with the flag set it is the
+    fired update's; it returns the state it was given, every field (typeid
+    too) the same object."""
+    state, _, snap, rsnap = _droplet_slots(n_empty=40, seed=8)
+    evap, _ = _evaporators(snap, rsnap, k, 3.0, float(state.box.L[2]) / 2)
+    for t in PICK_STEPS:
+        want = evap._update(state, t, 3).typeid
+        assert not torch.equal(want, state.typeid)
+        for fire in (False, True):
+            own = state.replace(typeid=state.typeid.clone())
+            before = own.typeid.clone()
+            got = evap._update_masked(own, torch.tensor(fire), t, 3)
+            assert got is own and got.typeid is own.typeid and got.typeid.dtype == torch.int32
+            assert torch.equal(got.typeid, want if fire else before)
+
+
+@pytest.mark.parametrize("k", ["below the ties", "one into the ties", "two into the ties",
+                               "all but one"])
+def test_pick_ties_the_non_candidates_as_the_reference(monkeypatch, k):
+    """A candidate whose word is 0xFFFFFFFF ties the non-candidates'
+    priority, the slot breaking the tie: with crafted words (every tag
+    divisible by 3 hashing to 0xFFFFFFFF) the pick keeps what
+    ``jax.lax.top_k`` on the reference's complement key keeps, for k up to
+    the candidates below the tie, into the tying ones and one short of
+    all."""
+    state, ref_state, snap, rsnap = _droplet_slots(n_empty=60, seed=11)
+    R0, L = 6.0, float(state.box.L[2])
+    lo, hi = R0 / 2, L / 2
+
+    def tied(module):
+        draw = module.particle_bits
+
+        def particle_bits(stream, seed, timestep, tag, n_words=4):
+            words = list(draw(stream, seed, timestep, tag, n_words))
+            if isinstance(tag, torch.Tensor):
+                words[0] = torch.where(tag % 3 == 0, 0xFFFFFFFF, words[0])
+            else:
+                words[0] = jnp.where(tag % 3 == 0, jnp.uint32(0xFFFFFFFF), words[0])
+            return tuple(words)
+
+        monkeypatch.setattr(module, "particle_bits", particle_bits)
+
+    import azplugins_tpu.update as ref_update
+    import azplugins_tpu_torch.update as port_update
+
+    tied(port_update._rng)
+    tied(ref_update._rng)
+    probe, _ = _evaporators(snap, rsnap, 10, lo, hi)
+    cand = probe._candidates(state)
+    m = int(cand.sum())
+    m_lt = int((cand & (state.tag % 3 != 0)).sum())
+    assert 5 < m_lt < m - 5
+    k = {"below the ties": m_lt, "one into the ties": m_lt + 1, "two into the ties": m_lt + 2,
+         "all but one": m - 1}[k]
+    evap, ref_evap = _evaporators(snap, rsnap, k, lo, hi)
+    for t in PICK_STEPS[:2]:
+        want = np.asarray(ref_evap._update(ref_state, t, 3).typeid)
+        got = state.typeid.clone()
+        evap._pick_plain(got, state, None, t, 3)
+        np.testing.assert_array_equal(got.numpy(), want)
+        # the reference's rule written out: the k largest complement keys
+        (bits,) = ref_update._rng.particle_bits(203, 3, t, jnp.asarray(state.tag.numpy()), 1)
+        priority = jnp.where(jnp.asarray(cand.numpy()), bits, jnp.uint32(0xFFFFFFFF))
+        key = ((jnp.uint32(0xFFFFFFFF) - priority) ^ jnp.uint32(0x80000000)).view(jnp.int32)
+        _, idx = jax.lax.top_k(key, k)
+        keep = np.zeros(state.N, bool)
+        keep[np.asarray(idx)] = True
+        flip = cand.numpy() & keep
+        np.testing.assert_array_equal(got.numpy(), np.where(flip, 1, state.typeid.numpy()))
+
+
+def test_pick_of_no_budget_flips_nothing():
+    """N_evap_max = 0: the reference's top_k of nothing keeps no slot, so no
+    candidate flips (the kernel launches nothing)."""
+    state, ref_state, snap, rsnap = _droplet_slots(n_empty=10, seed=2)
+    evap, ref_evap = _evaporators(snap, rsnap, 0, 3.0, float(state.box.L[2]) / 2)
+    assert evap._k == 0
+    want = np.asarray(ref_evap._update(ref_state, 25, 3).typeid)
+    np.testing.assert_array_equal(evap._update(state, 25, 3).typeid.numpy(), want)
+    np.testing.assert_array_equal(want, state.typeid.numpy())
+
+
+# a (seed, timestep, tag) whose evaporator word is 0xFFFFFFFF: a real tie
+TIE = (7, 3, 1853371083)
+
+
+@pytest.mark.parametrize("into", [0, 1, 2])
+def test_pick_of_a_real_tying_word_is_the_references(into):
+    """TIE's tag on two candidates at the two lowest slots: its word ties
+    the non-candidates' priority, so with k at the candidates below it
+    plus ``into``, the slots' order decides; the typeids are the
+    reference's bit for bit (slot 0 flips from one in, slot 1 from two)."""
+    seed, t, tag = TIE
+    state, ref_state, snap, rsnap = _droplet_slots(n_empty=60, seed=5)
+    (word,) = port.core.rng._particle_bits_plain(203, seed, t, torch.tensor([tag]), 1)
+    assert int(word[0]) == 0xFFFFFFFF
+    R0, L = 6.0, float(state.box.L[2])
+    lo, hi = R0 / 2, L / 2
+    first = torch.arange(2)
+    pos = state.position.clone()
+    pos[first] = torch.tensor([[0.0, 0.0, 0.5 * (lo + hi)]] * 2)
+    state = state.replace(position=pos, typeid=state.typeid.index_fill(0, first, 0),
+                          tag=state.tag.index_fill(0, first, tag))
+    ref_state = ref_state.replace(position=jnp.asarray(pos.numpy()),
+                                  typeid=jnp.asarray(state.typeid.numpy()),
+                                  tag=jnp.asarray(state.tag.numpy()))
+    probe, _ = _evaporators(snap, rsnap, 10, lo, hi)
+    m = int(probe._candidates(state).sum())
+    evap, ref_evap = _evaporators(snap, rsnap, m - 2 + into, lo, hi)
+    want = np.asarray(ref_evap._update(ref_state, t, seed).typeid)
+    got = state.typeid.clone()
+    evap._pick_plain(got, state, None, t, seed)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[:2].tolist() == [[0, 0], [1, 0], [1, 1]][into]
