@@ -26,10 +26,18 @@ kernels read the clock themselves (a pointer and an offset,
 :func:`_clock_args`); the plain versions add the offset to it as a tensor
 (:func:`_step_word`). Both give the host int's bits, past 2**32 too.
 
-Dispatch: ``particle_bits``, ``particle_uniform3`` and ``jax_normal_axis``
-take their plain PyTorch versions (``_particle_bits_plain``,
-``_particle_uniform3_plain``, ``_jax_normal_axis_plain``, itself on
-``_jax_normal_plain``, the plain ``jax.random.normal``) for CPU tensors and
+The MPCD collision's keys and grid shift derive from its timestep. On the
+host (the eager loop) :func:`jax_fold_in`, :func:`jax_split` and
+:func:`jax_uniform_host` form them; :func:`collision_draws` forms them on
+the device from the timestep word, the clock's under :func:`device_clock`,
+with the draws of :func:`jax_normal_axis` in the same call, so a CUDA graph
+of a collision replays at the clock's timestep.
+
+Dispatch: ``particle_bits``, ``particle_uniform3``, ``jax_normal_axis``
+and ``collision_draws`` take their plain PyTorch versions
+(``_particle_bits_plain``, ``_particle_uniform3_plain``,
+``_jax_normal_axis_plain``, itself on ``_jax_normal_plain``, the plain
+``jax.random.normal``, and ``_collision_draws_plain``) for CPU tensors and
 the CUDA kernels of :mod:`azplugins_tpu_torch.ops.rng_kernel` for CUDA
 tensors, or raise; any other device raises. Nothing falls back.
 ``threefry2x32`` and ``pair_uniform`` stay plain (the CPU DPD path; the
@@ -57,6 +65,7 @@ __all__ = [
     "jax_split",
     "jax_uniform_host",
     "jax_normal_axis",
+    "collision_draws",
     "xla_erfinv",
 ]
 
@@ -106,15 +115,14 @@ def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(k0, k1, c0, c1, rounds: int = 20):
     """Threefry-2x32 block cipher (random123 round and injection schedule).
 
-    The key words ``k0``/``k1`` are Python ints (``k1`` may be a word
-    tensor: a timestep word read from the card's clock); the counters are
-    tensors of any integer dtype, or ints, read modulo 2**32 and broadcast
-    together.
-    Returns two int64 tensors holding uint32 values (two ints when both
-    counters are ints). A key injection follows every 4th round, never a
+    The key words ``k0``/``k1`` and the counters are ints or tensors of
+    any integer dtype (a key word a tensor where it derives from the card's
+    clock), read modulo 2**32 and broadcast together.
+    Returns two int64 tensors holding uint32 values (two ints when every
+    input is an int). A key injection follows every 4th round, never a
     trailing partial group.
     """
-    k0 = int(k0) & _M32
+    k0 = _word(k0)
     k1 = _word(k1)
     x0 = (_word(c0) + k0) & _M32
     x1 = (_word(c1) + k1) & _M32
@@ -177,11 +185,14 @@ def device_clock(clock: torch.Tensor, base: int):
 
 
 def _clock_on(device) -> tuple | None:
-    """The active device clock when it lies on ``device``, else None."""
+    """The active device clock when it lies on ``device`` (``"cuda"``
+    naming the current CUDA device), else None."""
     if _clock is None or device is None:
         return None
-    clock, base = _clock
-    return _clock if clock.device == torch.device(device) else None
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _clock if _clock[0].device == dev else None
 
 
 def _offset(timestep: int, base: int) -> int:
@@ -371,3 +382,41 @@ def _jax_normal_axis_plain(key: tuple[int, int], rows: int, device, second=None)
     axis = _jax_normal_plain(key, (rows, 3), device)
     axis = axis / torch.clamp_min(torch.sqrt(torch.sum(axis * axis, dim=1, keepdim=True)), 1e-12)
     return axis, None if second is None else _jax_normal_plain(second, (rows, 3), device)
+
+
+def collision_draws(inner: tuple[int, int], timestep: int, rows: int, device, cell_size: float,
+                    shift: bool = True, second: bool = False) -> tuple:
+    """The MPCD collision's draws at ``timestep`` from its inner key ``inner``
+    (``fold_in(key(seed), stream)``, host words), every step on the device:
+    the collision key ``fold_in(inner, timestep)`` split in three,
+    ``(kshift, kaxis, kvirt)``, the timestep word the clock's under
+    :func:`device_clock`. Returns ``(axis, normals, shift, scaled)``: what
+    :func:`jax_normal_axis` draws under ``kaxis`` (and ``kvirt`` with
+    ``second``), the grid shift ``jax.random.uniform(kshift, (3,)) *
+    cell_size`` (zeros without ``shift``) and ``shift / cell_size``, both
+    float32 [3] formed as the host forms them (an IEEE product and
+    quotient), so every value is bitwise the host-key form's. A CUDA
+    ``device`` takes K5's clock form: one launch."""
+    if _on_card(device):
+        return _kernels().collision_draws(inner, timestep, rows, device, cell_size, shift, second)
+    return _collision_draws_plain(inner, timestep, rows, device, cell_size, shift, second)
+
+
+def _collision_draws_plain(inner: tuple[int, int], timestep: int, rows: int, device,
+                           cell_size: float, shift: bool = True, second: bool = False) -> tuple:
+    """The plain version of :func:`collision_draws`: the keys hashed as
+    tensors where the timestep word is the clock's, the shift's uniforms as
+    :func:`jax_uniform_host` forms them, the quotient by a tensor (PyTorch
+    divides by a Python scalar as a product with its reciprocal)."""
+    key = jax_fold_in(inner, _step_word(timestep, device))
+    kshift, kaxis, kvirt = jax_split(key, 3)
+    axis, normals = _jax_normal_axis_plain(kaxis, rows, device, kvirt if second else None)
+    a = float(np.float32(cell_size))
+    if shift:
+        x0, x1 = threefry2x32(kshift[0], kshift[1], 0,
+                              torch.arange(3, dtype=torch.int64, device=device))
+        word = ((x0 ^ x1) >> 9) | 0x3F800000
+        offset = torch.clamp_min(word.to(torch.int32).view(torch.float32) - 1.0, 0.0) * a
+    else:
+        offset = torch.zeros(3, dtype=torch.float32, device=device)
+    return axis, normals, offset, offset / torch.full((3,), a, dtype=torch.float32, device=device)

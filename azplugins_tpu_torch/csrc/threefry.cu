@@ -28,7 +28,14 @@
 // norm clamped at 1e-12, as mpcd.py's SRD._collide needs its axis
 // (core/rng.py::_jax_normal_axis_plain). With a second key the same thread
 // also draws a row of plain normals (the virtual-particle fill of a
-// collision between plates), so a collision makes one launch.
+// collision between plates), so a collision makes one launch. Its clock
+// form (az_collision_draws) derives those keys on the card: the collision
+// key fold_in(inner, t) split in three (shift, axis, virtual fill), the
+// timestep word t read from a clock as K4's is, a few threads of each block
+// hashing them into shared memory; block 0 also writes the grid shift
+// jax.random.uniform(kshift, (3,)) * a and shift / a, each an IEEE product
+// and quotient as the host forms them (core/rng.py::collision_draws). A
+// CUDA graph of a collision then replays at the clock's timestep.
 //
 // Bits: integer hashing is exact, and every float operation is explicitly
 // rounded on its own (__fmul_rn, __fadd_rn, __fsqrt_rn, __fdiv_rn), in the
@@ -132,15 +139,13 @@ __device__ __forceinline__ float normal_of(uint2 x, const NormalArgs& c) {
 // torch.clamp_min(x, lo): NaN stays NaN
 __device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
 
-// Row r of `rows`: the unit row of the normals under (k0, k1) at elements
-// 3r..3r+2 into axis; with TWO, the plain normals under (k0b, k1b) at the
-// same elements into normals.
+// Row r: the unit row of the normals under (k0, k1) at elements 3r..3r+2
+// into axis; with TWO, the plain normals under (k0b, k1b) at the same
+// elements into normals.
 template <bool TWO>
-__global__ void __launch_bounds__(kThreads)
-    jax_normal_axis_kernel(unsigned rows, uint32_t k0, uint32_t k1, uint32_t k0b, uint32_t k1b,
-                           NormalArgs c, float* __restrict__ axis, float* __restrict__ normals) {
-  const unsigned r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= rows) return;
+__device__ __forceinline__ void axis_row(unsigned r, uint32_t k0, uint32_t k1, uint32_t k0b,
+                                         uint32_t k1b, const NormalArgs& c,
+                                         float* __restrict__ axis, float* __restrict__ normals) {
   const uint32_t i = 3u * r;  // the row's first element (3 rows < 2**32)
   uint2 h[3], g[3];
 #pragma unroll
@@ -165,7 +170,64 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool TWO>
+__global__ void __launch_bounds__(kThreads)
+    jax_normal_axis_kernel(unsigned rows, uint32_t k0, uint32_t k1, uint32_t k0b, uint32_t k1b,
+                           NormalArgs c, float* __restrict__ axis, float* __restrict__ normals) {
+  const unsigned r = blockIdx.x * kThreads + threadIdx.x;
+  if (r < rows) axis_row<TWO>(r, k0, k1, k0b, k1b, c, axis, normals);
+}
+
+// K5's clock form: the collision key fold_in((ik0, ik1), t) split in three,
+// (kshift, kaxis, kvirt), t the timestep word (az::step_word). Threads 0-2
+// of every block hash the fold-in and one split key each into shared
+// memory; block 0's threads 0-2 then write the grid shift's component
+// (jax.random.uniform(kshift, (3,)) * a, or 0 without SHIFT) and its
+// quotient by a; every thread draws its row as jax_normal_axis_kernel does
+// under kaxis (and kvirt).
+template <bool TWO>
+__global__ void __launch_bounds__(kThreads)
+    collision_draws_kernel(unsigned rows, uint32_t ik0, uint32_t ik1, uint32_t host_t,
+                           const long long* __restrict__ clock, int offset, int shift_on, float a,
+                           NormalArgs c, float* __restrict__ axis, float* __restrict__ normals,
+                           float* __restrict__ shift, float* __restrict__ scaled) {
+  __shared__ uint32_t keys[6];
+  if (threadIdx.x < 3) {
+    const uint2 key =
+        az::threefry2x32<kRounds>(ik0, ik1, 0u, az::step_word(host_t, clock, offset));
+    const uint2 k = az::threefry2x32<kRounds>(key.x, key.y, 0u, threadIdx.x);
+    keys[2 * threadIdx.x] = k.x;
+    keys[2 * threadIdx.x + 1] = k.y;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x < 3) {
+    // core/rng.py::jax_uniform_host: max(0, mantissa fill - 1), times a
+    float s = 0.0f;
+    if (shift_on) {
+      const uint2 x = az::threefry2x32<kRounds>(keys[0], keys[1], 0u, threadIdx.x);
+      const float u = __fsub_rn(__uint_as_float(((x.x ^ x.y) >> 9) | 0x3F800000u), 1.0f);
+      s = __fmul_rn(fmaxf(u, 0.0f), a);
+    }
+    shift[threadIdx.x] = s;
+    scaled[threadIdx.x] = __fdiv_rn(s, a);
+  }
+  const unsigned r = blockIdx.x * kThreads + threadIdx.x;
+  if (r < rows) axis_row<TWO>(r, keys[2], keys[3], keys[4], keys[5], c, axis, normals);
+}
+
 int blocks(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+
+NormalArgs normal_args(float width, float lo, float sqrt2, const float* coeffs) {
+  NormalArgs c;
+  for (int k = 0; k < 9; ++k) {
+    c.lt[k] = coeffs[k];
+    c.ge[k] = coeffs[9 + k];
+  }
+  c.width = width;
+  c.lo = lo;
+  c.sqrt2 = sqrt2;
+  return c;
+}
 
 }  // namespace
 
@@ -203,14 +265,7 @@ int az_jax_normal_axis(long long rows, uint32_t k0, uint32_t k1, uint32_t k0b, u
                        float* axis, float* normals, void* stream) {
   if (rows <= 0 || 3 * rows >= (1LL << 32) || (two && normals == nullptr))
     return (int)cudaErrorInvalidValue;
-  NormalArgs c;
-  for (int k = 0; k < 9; ++k) {
-    c.lt[k] = coeffs[k];
-    c.ge[k] = coeffs[9 + k];
-  }
-  c.width = width;
-  c.lo = lo;
-  c.sqrt2 = sqrt2;
+  const NormalArgs c = normal_args(width, lo, sqrt2, coeffs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (two)
     jax_normal_axis_kernel<true><<<blocks(rows), kThreads, 0, s>>>(
@@ -218,6 +273,31 @@ int az_jax_normal_axis(long long rows, uint32_t k0, uint32_t k1, uint32_t k0b, u
   else
     jax_normal_axis_kernel<false><<<blocks(rows), kThreads, 0, s>>>(
         (unsigned)rows, k0, k1, 0u, 0u, c, axis, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// K5's clock form: the draws of az_jax_normal_axis under the collision's
+// split keys, derived on the card from the inner key (ik0, ik1) and the
+// timestep word (host_t, or (uint32)(*clock + offset) with a clock), and
+// the grid shift: `shift` and `scaled` float32 [3], the shift (0 without
+// shift_on) and shift / a. One launch.
+int az_collision_draws(long long rows, uint32_t ik0, uint32_t ik1, uint32_t host_t,
+                       const long long* clock, int offset, int two, int shift_on, float a,
+                       float width, float lo, float sqrt2, const float* coeffs, float* axis,
+                       float* normals, float* shift, float* scaled, void* stream) {
+  if (rows <= 0 || 3 * rows >= (1LL << 32) || (two && normals == nullptr) || shift == nullptr ||
+      scaled == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const NormalArgs c = normal_args(width, lo, sqrt2, coeffs);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (two)
+    collision_draws_kernel<true><<<blocks(rows), kThreads, 0, s>>>(
+        (unsigned)rows, ik0, ik1, host_t, clock, offset, shift_on, a, c, axis, normals, shift,
+        scaled);
+  else
+    collision_draws_kernel<false><<<blocks(rows), kThreads, 0, s>>>(
+        (unsigned)rows, ik0, ik1, host_t, clock, offset, shift_on, a, c, axis, nullptr, shift,
+        scaled);
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,17 @@ draws key on the clock (``core/rng.py::device_clock``), not on a timestep
 frozen into the graph. Nothing falls back: a capture or replay that fails
 raises.
 
+:class:`AdvanceGraphs` is the counterpart of the reference's jitted SRD
+advance (``azplugins_tpu/mpcd.py``: ``SRD._build``'s ``advance``, its
+collisions a ``lax.fori_loop``) for an uncoupled whole MPCD stream: fixed
+buffers hold the stream's anchor, its observable state and a clock; each
+collision is a graph keyed ``("collide", lead)`` that streams from the
+anchor, collides (its keys and grid shift drawn from the clock) and moves
+the anchor and the clock; the observation stream is a graph keyed
+``("stream", n)`` (``mpcd.py::SRD._advance_graphed``). Both runners share
+one cache logic (:class:`_GraphCache`): a key runs eagerly the first time,
+is captured the second and replayed after.
+
 What a step reads beyond the state and the clock is a chunk's schedule
 (:class:`Steps`): each variant's float32 value at each step and each
 updater's trigger, filled by the host in :meth:`SegmentGraphs.load` once a
@@ -48,9 +59,10 @@ import numpy as np
 import torch
 
 from .core import rng as _rng
-from .ops import aniso_kernel, dpd_kernel, integrate_kernel, pair_kernel, pick_kernel, rng_kernel
+from .ops import (aniso_kernel, cellsum_kernel, dpd_kernel, integrate_kernel, pair_kernel,
+                  pick_kernel, rng_kernel)
 
-__all__ = ["Counters", "SegmentGraphs", "Steps", "cuda_capture", "to_device"]
+__all__ = ["AdvanceGraphs", "Counters", "SegmentGraphs", "Steps", "cuda_capture", "to_device"]
 
 
 class Steps(NamedTuple):
@@ -88,6 +100,7 @@ _LAUNCH_COUNTERS = (
     (dpd_kernel, "launches"), (aniso_kernel, "launches"),
     (rng_kernel, "launches"), (rng_kernel, "launches_by_kernel"), (pick_kernel, "launches"),
     (integrate_kernel, "launches"), (integrate_kernel, "launches_by_kernel"),
+    (cellsum_kernel, "launches"),
 )
 # the simulation's own counters a segment advances
 _SIM_COUNTERS = ("steps_run", "force_evaluations")
@@ -137,7 +150,7 @@ class Counters:
                 setattr(o, a, getattr(o, a) + v)
 
 
-def cuda_capture(runner: "SegmentGraphs", fn):
+def cuda_capture(runner: "_GraphCache", fn):
     """Capture ``fn`` into a ``torch.cuda.CUDAGraph`` in the runner's pool.
     A synchronising call inside raises (``set_sync_debug_mode("error")``),
     as does anything else the capture refuses; the graph's work has not run
@@ -187,7 +200,81 @@ def _copy_into(dst, src, skip=()) -> None:
 _FIXED = ("bond_typeid", "bond_group")
 
 
-class SegmentGraphs:
+class _GraphCache:
+    """CUDA graphs of one runner, keyed by what their work bakes in: a key
+    runs eagerly the first time it is seen (real work, which also builds
+    every lazy device cache), is captured the second time into the runner's
+    one memory pool and replayed from then on. At most ``max_graphs`` are
+    kept, the least recently replayed dropped first. ``capture(runner, fn)``
+    records ``fn`` as a graph with ``replay()`` (:func:`cuda_capture` on
+    CUDA; tests inject a stand-in). ``captures``, ``capture_seconds`` (host
+    time in captures), ``replays``, ``eager_segments`` (first runs) and
+    ``pool_bytes`` (the device memory reserved during captures) describe
+    the cache; each is also added to ``totals`` (a dict that outlives
+    runners). ``clock``: the timestep on the card, a 0-d int64."""
+
+    def __init__(self, key, counters: "Counters", device, capture=None, max_graphs: int = 32,
+                 totals: dict | None = None):
+        self.key = key
+        self._counters = counters
+        self._capture = capture if capture is not None else cuda_capture
+        self.max_graphs = int(max_graphs)
+        self.clock = torch.zeros((), dtype=torch.int64, device=device)
+        self.pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        # key -> (graph, counter delta a replay adds)
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._seen: set = set()
+        self.captures = self.replays = self.eager_segments = self.pool_bytes = 0
+        self.capture_seconds = 0.0
+        self._totals = totals if totals is not None else {}
+
+    def _count(self, name: str, n: int = 1) -> None:
+        setattr(self, name, getattr(self, name) + n)
+        self._totals[name] = self._totals.get(name, 0) + n
+
+    def graph_keys(self) -> list:
+        """The key of every graph held, least recent first."""
+        return list(self._graphs)
+
+    def _run(self, key, make_body) -> None:
+        """Run the work of ``key`` (``make_body()`` returns it, called only
+        when no graph of ``key`` is held): eagerly the first time, then as a
+        graph."""
+        entry = self._graphs.get(key)
+        if entry is None:
+            body = make_body()
+            if key not in self._seen:
+                self._seen.add(key)
+                self._count("eager_segments")
+                body()
+                return
+            entry = self._record(body)
+            self._graphs[key] = entry
+            while len(self._graphs) > self.max_graphs:
+                self._graphs.popitem(last=False)
+        else:
+            self._graphs.move_to_end(key)
+        graph, delta = entry
+        graph.replay()
+        self._counters.add(delta)
+        self._count("replays")
+
+    def _record(self, body) -> tuple:
+        """Capture ``body``; the counters it moved are taken back and
+        returned as what each replay adds."""
+        before = self._counters.read()
+        t0 = time.perf_counter()
+        try:
+            graph = self._capture(self, body)
+        finally:
+            delta = self._counters.since(before)
+            self._counters.restore(before)
+        self._count("captures")
+        self._count("capture_seconds", time.perf_counter() - t0)
+        return graph, delta
+
+
+class SegmentGraphs(_GraphCache):
     """Rebuild segments of one layout as CUDA graphs on fixed buffers.
 
     ``segment(dense, meta, viol, t0, n_steps, rebuild)`` runs one segment
@@ -198,28 +285,18 @@ class SegmentGraphs:
     ``steps=`` (a :class:`Steps`). ``key`` is what the graphs are
     bound to (grid spec and cap, the operations' fingerprint, the force
     tables' identity, rotational or not); a graph is found under ``(L,
-    rebuild)`` within it. At most ``max_graphs`` graphs are kept, the least
-    recently replayed dropped first. ``capture(runner, fn)`` records ``fn``
-    as a graph with ``replay()`` (:func:`cuda_capture` on CUDA; tests
-    inject a stand-in). ``captures``, ``capture_seconds`` (host time in
-    captures), ``replays``, ``eager_segments`` and ``pool_bytes`` (the device
-    memory reserved during captures) describe the cache; each is also added
-    to ``totals`` (a dict that outlives runners).
+    rebuild)`` within it (:class:`_GraphCache`).
     """
 
     def __init__(self, key, segment, dense, meta, counters: Counters, capture=None,
                  max_graphs: int = 32, totals: dict | None = None, n_values: int = 0,
                  n_fires: int = 0, max_steps: int = 0):
-        self.key = key
-        self._segment = segment
-        self._counters = counters
-        self._capture = capture if capture is not None else cuda_capture
-        self.max_graphs = int(max_graphs)
         dev = dense.device
+        super().__init__(key, counters, dev, capture, max_graphs, totals)
+        self._segment = segment
         self.dense = _clone(dense, skip=_FIXED)
         self.meta = _clone(meta)
         self.viol = torch.zeros((), dtype=torch.bool, device=dev)
-        self.clock = torch.zeros((), dtype=torch.int64, device=dev)
         # the chunk's schedule, one byte buffer filled by one copy: its first
         # timestep (int64), each variant's float32 row, each trigger's bool
         # row, max_steps entries a row
@@ -235,21 +312,6 @@ class SegmentGraphs:
             self.fires = self.schedule[8 + v_bytes:].view(torch.bool).view(
                 self.n_fires, self.max_steps)
             self._steps_of = torch.arange(self.max_steps, dtype=torch.int64, device=dev)
-        self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
-        # (n_steps, rebuild) -> (graph, counter delta a replay adds)
-        self._graphs: collections.OrderedDict = collections.OrderedDict()
-        self._seen: set = set()
-        self.captures = self.replays = self.eager_segments = self.pool_bytes = 0
-        self.capture_seconds = 0.0
-        self._totals = totals if totals is not None else {}
-
-    def _count(self, name: str, n: int = 1) -> None:
-        setattr(self, name, getattr(self, name) + n)
-        self._totals[name] = self._totals.get(name, 0) + n
-
-    def graph_keys(self) -> list:
-        """The ``(L, rebuild)`` of every graph held, least recent first."""
-        return list(self._graphs)
 
     def buffers(self) -> list[torch.Tensor]:
         """Every tensor a segment reads and writes."""
@@ -316,37 +378,38 @@ class SegmentGraphs:
 
     def run(self, t0: int, n_steps: int, rebuild: bool) -> None:
         """Run one segment from timestep ``t0`` (the clock holds it): eagerly
-        the first time its shape is seen, then as a graph."""
-        key = (int(n_steps), bool(rebuild))
-        entry = self._graphs.get(key)
-        if entry is None:
-            body = self._body(t0, n_steps, rebuild)
-            if key not in self._seen:
-                self._seen.add(key)
-                self._count("eager_segments")
-                body()
-                return
-            entry = self._record(body)
-            self._graphs[key] = entry
-            while len(self._graphs) > self.max_graphs:
-                self._graphs.popitem(last=False)
-        else:
-            self._graphs.move_to_end(key)
-        graph, delta = entry
-        graph.replay()
-        self._counters.add(delta)
-        self._count("replays")
+        the first time its shape ``(L, rebuild)`` is seen, then as a graph."""
+        self._run((int(n_steps), bool(rebuild)), lambda: self._body(t0, n_steps, rebuild))
 
-    def _record(self, body) -> tuple:
-        """Capture ``body``; the counters it moved are taken back and
-        returned as what each replay adds."""
-        before = self._counters.read()
-        t0 = time.perf_counter()
-        try:
-            graph = self._capture(self, body)
-        finally:
-            delta = self._counters.since(before)
-            self._counters.restore(before)
-        self._count("captures")
-        self._count("capture_seconds", time.perf_counter() - t0)
-        return graph, delta
+
+class AdvanceGraphs(_GraphCache):
+    """The SRD advance of an uncoupled whole MPCD stream as CUDA graphs on
+    fixed buffers: the anchor's position and velocity ``pos_a``/``vel_a``,
+    the observable ``pos``/``vel`` and the clock (the anchor's timestep).
+    ``mpcd.py::SRD._advance_graphed`` runs each collision as the graph
+    ``("collide", lead)`` and the observation stream as ``("stream", n)``
+    (:meth:`run`). ``key`` is what the graphs are bound to (the SRD, its
+    parameters, box and seed, the stream's shape and device)."""
+
+    def __init__(self, key, pos: torch.Tensor, vel: torch.Tensor, counters: Counters,
+                 capture=None, max_graphs: int = 32, totals: dict | None = None):
+        super().__init__(key, counters, pos.device, capture, max_graphs, totals)
+        self.pos_a, self.vel_a = pos.clone(), vel.clone()
+        self.pos, self.vel = torch.empty_like(pos), torch.empty_like(vel)
+
+    def buffers(self) -> list[torch.Tensor]:
+        """Every tensor the graphs read and write."""
+        return [self.pos_a, self.vel_a, self.pos, self.vel, self.clock]
+
+    def load(self, pos_a: torch.Tensor, vel_a: torch.Tensor, t_a: int) -> None:
+        """The anchor into its buffers (no copy where it is them already)
+        and the clock at its timestep ``t_a``."""
+        for dst, src in ((self.pos_a, pos_a), (self.vel_a, vel_a)):
+            if dst is not src:
+                dst.copy_(src)
+        self.clock.fill_(int(t_a))
+
+    def run(self, key: tuple, make_body) -> None:
+        """Run the work of ``key`` (``make_body()`` returns it): eagerly the
+        first time, then as a graph."""
+        self._run(key, make_body)

@@ -14,18 +14,32 @@ solvent (Malevanets & Kapral 1999) on the stream ``snapshot.mpcd``.
   momenta are drawn from a key derived from (seed, timestep) as the
   reference's ``jax.random`` derives it (``core/rng.py``): the shift and
   the cell ids bitwise, the axes within a few ulp.
-* **Cell sums** are one ``index_add_`` of six columns (count, mass,
-  momentum, m v^2) over the cells plus a trash cell. On the CPU they are
-  deterministic, so trajectories are bitwise independent of the ``run``
-  chunking; on CUDA ``index_add_`` adds with atomics, and the last bits of
-  a cell's sum, and so of the trajectory, vary from run to run.
+* **Cell sums** (:func:`_cell_sums`) are six columns (count, mass,
+  momentum, m v^2) over the cells, each cell's rows added in ascending row
+  order from +0.0: ``index_add_`` on the CPU, K10 (``csrc/cell_sums.cu``)
+  on the card, where ``index_add_`` would add with atomics in an order that
+  varies. A collision is bitwise reproducible on either device, as the
+  reference's, and trajectories are bitwise independent of the ``run``
+  chunking. Empty MD slots of a mixed stream go to a trash cell whose sums
+  nothing reads.
 * An optional cell-level rescale thermostat to ``kT`` (without it SRD
   conserves energy exactly and heats only through the body force).
 
 All of it is device work with no host read: the collision times are the
-host's integers, the grid shift is drawn on the host, and every per-axis
-constant reaches the device by a fill, never by a copy that would wait for
-the stream.
+host's integers, and every per-axis constant reaches the device by a fill,
+never by a copy that would wait for the stream. On the eager loop the
+collision keys and the grid shift are formed on the host; under the device
+clock (``core/rng.py::device_clock``) they are formed on the device from
+the clock (``core/rng.py::collision_draws``, on the card K5's clock form),
+bitwise the same.
+
+The reference compiles the advance of an uncoupled stream into one program
+(``SRD._build``'s jitted ``advance``). The port's counterpart runs each
+collision of a whole uncoupled stream as one CUDA graph
+(``graph.py::AdvanceGraphs``, when the simulation says graphs apply): a
+stream of ``lead`` steps from the anchor and the collision, keyed by
+``lead``, then the observation stream keyed by its length; bitwise the
+eager advance.
 
 The stream's position and velocity (and its anchor's) are tuples of
 contiguous particle blocks: one block for a whole stream, one on each
@@ -53,6 +67,7 @@ import numpy as np
 import torch
 
 from .core import rng as _rng
+from .ops import cellsum_kernel
 
 __all__ = ["SRD", "CollisionCoupling"]
 
@@ -106,10 +121,65 @@ def _rotate(v, axis, cos_a: float, sin_a: float, one_minus_cos: float):
     return v * cos_a + cross * sin_a + axis * dot * one_minus_cos
 
 
+def _inner_key(seed: int) -> tuple[int, int]:
+    """The collision stream's key under ``seed``: ``fold_in(key(seed),
+    0x6D70)``, into which each collision folds its timestep."""
+    return _rng.jax_fold_in(_rng.jax_key(seed), _COLLISION_STREAM)
+
+
 def _collision_keys(seed: int, t_col: int):
     """The (shift, axis, virtual-fill) keys of the collision at t_col."""
-    key = _rng.jax_fold_in(_rng.jax_fold_in(_rng.jax_key(seed), _COLLISION_STREAM), t_col)
-    return _rng.jax_split(key, 3)
+    return _rng.jax_split(_rng.jax_fold_in(_inner_key(seed), t_col), 3)
+
+
+def _payload(vel: torch.Tensor, mass: torch.Tensor | None) -> torch.Tensor:
+    """float32 ``[n, 6]``, each row's (1, m, m v, m v^2): what a cell sum
+    adds (``mass`` None: 1 a row)."""
+    n, dev = vel.shape[0], vel.device
+    m = (torch.ones(n, dtype=torch.float32, device=dev) if mass is None
+         else mass.to(torch.float32))
+    mv = vel * m[:, None]
+    mv2 = torch.sum(vel * mv, dim=1)
+    return torch.cat([torch.ones((n, 1), dtype=torch.float32, device=dev), m[:, None], mv,
+                      mv2[:, None]], dim=1)
+
+
+def _cell_sums(cid: torch.Tensor, vel: torch.Tensor, mass: torch.Tensor | None,
+               cells: int) -> torch.Tensor:
+    """float32 ``[cells, 6]``: each cell's :func:`_payload` sums over the
+    rows with ``cid == c``, in ascending row order from +0.0; ``cid`` lies in
+    ``[0, cells]``, ``cells`` being the trash cell, left out. CPU tensors
+    take ``index_add_`` (which adds in that order there), CUDA tensors K10
+    (``ops/cellsum_kernel.py``, which raises on failure); any other device
+    raises."""
+    if _rng._on_card(vel.device):
+        return cellsum_kernel.cell_sums(
+            cid, vel.contiguous(), None if mass is None else mass.to(torch.float32).contiguous(),
+            cells)
+    pay = _payload(vel, mass)
+    return torch.zeros((cells + 1, 6), dtype=torch.float32, device=vel.device).index_add_(
+        0, cid, pay)[:cells]
+
+
+def _cell_sums_plain(cid: torch.Tensor, pay: torch.Tensor, cells: int) -> torch.Tensor:
+    """The plain version of :func:`_cell_sums` on a payload ``pay`` ([n,
+    6]): an explicit ordered sum on any device. The rows sorted stably by
+    cell; round r adds to every cell its r-th row, so each cell adds its
+    rows in ascending row order from +0.0. Rows outside ``[0, cells)`` are
+    left out. One host read: the deepest cell's row count."""
+    dev = pay.device
+    n = cid.numel()
+    key = torch.where((cid >= 0) & (cid < cells), cid, cells)
+    sorted_cid, order = torch.sort(key, stable=True)
+    rows = pay[order]
+    ids = torch.arange(cells, dtype=sorted_cid.dtype, device=dev)
+    first = torch.searchsorted(sorted_cid, ids)
+    count = torch.searchsorted(sorted_cid, ids, right=True) - first
+    sums = torch.zeros((cells, 6), dtype=torch.float32, device=dev)
+    for r in range(int(count.max()) if n else 0):
+        at = torch.clamp(first + r, max=n - 1)
+        sums = torch.where((count > r)[:, None], sums + rows[at], sums)
+    return sums
 
 
 class SRD:
@@ -219,15 +289,19 @@ class SRD:
             self._rows[key] = _row(values, device)
         return self._rows[key]
 
-    def _cell_ids(self, pos, shift):
+    def _cell_ids(self, pos, shift, scaled=None):
         """Collision cell of each position under the grid ``shift`` (host
-        float32 [3]). Periodic axes wrap; the plates axis, if any, bins
-        unwrapped into the extended grid (see _grid_dims)."""
+        float32 [3]), or under the shift whose quotient by the cell size is
+        ``scaled`` (a float32 [3] on the device; ``shift`` then unused).
+        Periodic axes wrap; the plates axis, if any, bins unwrapped into the
+        extended grid (see _grid_dims)."""
         Dx, Dy, Dz = self._grid_dims()
         a = _F32(self.cell_size)
         dev = pos.device
         dims0 = np.asarray(self._dims, dtype=_F32)
-        su = pos / float(a) + _row(np.asarray(shift, _F32) / a, dev)
+        scaled = (_row(np.asarray(shift, _F32) / a, dev) if scaled is None
+                  else scaled.to(dev))
+        su = pos / float(a) + scaled
         su = su + self._const(dims0 * _F32(0.5), dev)
         dims_row = self._const(dims0, dev)
         su_wrapped = su - torch.floor(su / dims_row) * dims_row
@@ -322,35 +396,36 @@ class SRD:
         Dx, Dy, Dz = dims
         C = Dx * Dy * Dz
         a = _F32(self.cell_size)
-        kshift, kaxis, kvirt = _collision_keys(seed, t_col)
-        shift = (_rng.jax_uniform_host(kshift, 3) * a if self.shift
-                 else np.zeros(3, dtype=_F32))
+        plates = self.plates is not None
         # a random unit axis per cell, the same draw whatever the occupancy,
         # and with plates the virtual fill's normals: one launch on the card
-        axis, virt = _rng.jax_normal_axis(kaxis, C, dev,
-                                          kvirt if self.plates is not None else None)
+        if _rng._clock_on(dev) is None:
+            # the keys and the grid shift on the host
+            kshift, kaxis, kvirt = _collision_keys(seed, t_col)
+            shift = (_rng.jax_uniform_host(kshift, 3) * a if self.shift
+                     else np.zeros(3, dtype=_F32))
+            axis, virt = _rng.jax_normal_axis(kaxis, C, dev, kvirt if plates else None)
+            scaled = None
+        else:
+            # under the device clock (a CUDA graph): keys, draws and shift
+            # from the clock on the device, bitwise the host's
+            axis, virt, shift, scaled = _rng.collision_draws(
+                _inner_key(seed), t_col, C, dev, self.cell_size, self.shift, plates)
 
-        # one scatter-add a block gives every per-cell sum at once: count,
+        # every per-cell sum at once, a block's partial sums each: count,
         # mass, momentum xyz, m v^2
         cids, sums = [], None
         for p, v, m, inv in zip(pos, vel, mass_b, inval_b, strict=True):
-            cid = self._cell_ids(p, shift)
+            cid = self._cell_ids(p, shift, scaled)
             if inv is not None:
-                cid = torch.where(inv, C, cid)  # the trash cell, excluded below
-            m = (torch.ones(p.shape[0], dtype=torch.float32, device=p.device) if m is None
-                 else m.to(torch.float32))
-            mv = v * m[:, None]
-            mv2 = torch.sum(v * mv, dim=1)
-            pay = torch.cat([torch.ones((p.shape[0], 1), dtype=torch.float32, device=p.device),
-                             m[:, None], mv, mv2[:, None]], dim=1)
-            part = torch.zeros((C + 1, 6), dtype=torch.float32, device=p.device).index_add_(
-                0, cid, pay)
+                cid = torch.where(inv, C, cid)  # the trash cell, left out of the sums
+            part = _cell_sums(cid, v, m, C)
             sums = part if sums is None else sums + part.to(dev)
             cids.append(cid)
-        cnt = sums[:C, 0]
-        msum = sums[:C, 1]
-        vsum = sums[:C, 2:5]
-        sum_mv2 = sums[:C, 5]
+        cnt = sums[:, 0]
+        msum = sums[:, 1]
+        vsum = sums[:, 2:5]
+        sum_mv2 = sums[:, 5]
         vsum_real = vsum
 
         m_cell = msum
@@ -363,8 +438,11 @@ class SRD:
             pax, H = self.plates
             D_ax = dims[pax]  # extended: D+1 shifted cells on the wall axis
             Lax = _F32(L[pax])
+            # the shift's component: a host float, or a 0-d tensor under the
+            # clock (the same IEEE subtraction)
+            shift_ax = float(shift[pax]) if scaled is None else shift[pax]
             lo = (torch.arange(D_ax, dtype=torch.float32, device=dev) * float(a)
-                  - float(Lax / _F32(2.0)) - float(shift[pax]))
+                  - float(Lax / _F32(2.0)) - shift_ax)
             hi = lo + float(a)
             h2 = float(_F32(H / 2.0))
             inside = torch.clamp(torch.clamp_max(hi, h2) - torch.clamp_min(lo, -h2), 0.0, float(a))
@@ -422,7 +500,13 @@ class SRD:
             out.append(vnew)
         return tuple(out)
 
-    def _advance(self, mpcd: dict, box, t0: int, t1: int, seed: int) -> dict:
+    def _fingerprint(self) -> tuple:
+        """Every parameter a collision or a stream bakes in (an advance
+        graph is bound to it)."""
+        return (self.dt, self.period, self.angle, self.cell_size, self.kT, self.body_force,
+                self.shift, self.plates, self._coupled)
+
+    def _advance(self, mpcd: dict, box, t0: int, t1: int, seed: int, graphs=None) -> dict:
         """Advance the anchored stream to the absolute MD timestep t1.
 
         The state is anchored at the last collision (or where the stream
@@ -431,7 +515,10 @@ class SRD:
         addition is not associative. Uncoupled, the collisions at
         ``t % period == 0`` within (t_a, t1] run here; coupled, the
         CollisionCoupling owns every collision and this only streams the
-        observable state. The anchor's time is a host int.
+        observable state. The anchor's time is a host int. ``graphs``: an
+        uncoupled whole stream's ``graph.AdvanceGraphs``, on which each
+        collision and the observation stream replay CUDA graphs (None: the
+        eager loop).
         """
         if t1 <= t0 or mpcd is None:
             return mpcd
@@ -442,6 +529,8 @@ class SRD:
         # only by the float32 addition order
         pos_a, vel_a, t_a = mpcd.get("_srd_anchor") or (mpcd["position"], mpcd["velocity"],
                                                         int(t0))
+        if graphs is not None:
+            return self._advance_graphed(mpcd, graphs, pos_a, vel_a, t_a, t1, seed)
         if not self._coupled:
             t_next = (t_a // self.period + 1) * self.period
             while t_next <= t1:
@@ -451,6 +540,57 @@ class SRD:
                 t_next += self.period
         pos, vel = self._stream(pos_a, vel_a, t1 - t_a, L)
         return {**mpcd, "position": pos, "velocity": vel, "_srd_anchor": (pos_a, vel_a, t_a)}
+
+    def _advance_graphed(self, mpcd: dict, g, pos_a: tuple, vel_a: tuple, t_a: int, t1: int,
+                         seed: int) -> dict:
+        """:meth:`_advance` of an uncoupled whole stream on the advance
+        graphs ``g``: the anchor into its buffers and the clock at ``t_a``;
+        each collision one graph keyed ``("collide", lead)``, which streams
+        ``lead`` steps from the anchor, collides at the clock's timestep +
+        ``lead`` (the keys and shift drawn from the clock) and moves the
+        anchor and the clock; then the observation stream, keyed
+        ``("stream", n)``. The same operations as the eager loop, so the
+        same bits. The observable position and velocity are clones (the
+        next replay overwrites the buffers); the anchor is the buffers,
+        which only the next advance reads."""
+        if self._coupled or len(pos_a) != 1:
+            raise ValueError("the advance graphs take an uncoupled stream in one block")
+        g.load(pos_a[0], vel_a[0], t_a)
+        t_next = (t_a // self.period + 1) * self.period
+        while t_next <= t1:
+            lead = t_next - t_a
+            g.run(("collide", lead), lambda t_a=t_a, lead=lead: self._collide_body(
+                g, t_a, lead, seed))
+            t_a, t_next = t_next, t_next + self.period
+        n = t1 - t_a
+        g.run(("stream", n), lambda: self._stream_body(g, n))
+        return {**mpcd, "position": (g.pos.clone(),), "velocity": (g.vel.clone(),),
+                "_srd_anchor": ((g.pos_a,), (g.vel_a,), t_a)}
+
+    def _collide_body(self, g, t_a: int, lead: int, seed: int):
+        """What a ``("collide", lead)`` graph runs on ``g``'s buffers, the
+        clock holding the anchor's timestep: it makes no host read."""
+
+        def body():
+            with _rng.device_clock(g.clock, t_a):
+                pos, vel = self._stream((g.pos_a,), (g.vel_a,), lead, self._L)
+                (vel,) = self._collide(pos, vel, t_a + lead, self._L, seed)
+            g.pos_a.copy_(pos[0])
+            g.vel_a.copy_(vel)
+            g.clock.add_(lead)
+
+        return body
+
+    def _stream_body(self, g, n: int):
+        """What a ``("stream", n)`` graph runs: the observable state ``n``
+        steps after the anchor, into ``g``'s observation buffers."""
+
+        def body():
+            (pos,), (vel,) = self._stream((g.pos_a,), (g.vel_a,), n, self._L)
+            g.pos.copy_(pos)
+            g.vel.copy_(vel)
+
+        return body
 
 
 class CollisionCoupling:

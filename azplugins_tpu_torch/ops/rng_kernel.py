@@ -18,6 +18,14 @@ the reference leaves to XLA, which fuses it into its step.
   (reference ``azplugins_tpu/mpcd.py:323-326``), with the virtual-particle
   normals under a second key (``:314``) in the same launch. Bitwise the
   plain version but for ``log1pf`` against PyTorch's CUDA ``log1p``.
+- K5's clock form ``az_collision_draws``: what
+  :func:`~azplugins_tpu_torch.core.rng.collision_draws` computes, the
+  collision's keys derived on the card from its inner key and the timestep
+  word (the clock's under ``device_clock``: a CUDA graph of a collision
+  replays at the clock's timestep), K5's draws under them and the grid
+  shift with its quotient by the cell size (reference
+  ``azplugins_tpu/mpcd.py:238-248``), in one launch; bitwise K5's
+  host-key form and the host's shift.
 
 The evaporator's pick on K4's words is ``ops/pick_kernel.py``. The plain
 PyTorch versions are ``core/rng.py``'s ``_particle_bits_plain``,
@@ -43,10 +51,11 @@ from .cuda_build import load_library
 from .pair_kernel import check_tensor, launch_error
 
 __all__ = ["launches", "launches_by_kernel", "particle_bits", "particle_uniform3",
-           "jax_normal_axis"]
+           "jax_normal_axis", "collision_draws"]
 
 # kernel launches since import (or since a caller last reset them to 0):
-# in all, and by kernel ("particle_bits" for K4, "jax_normal_axis" for K5)
+# in all, and by kernel ("particle_bits" for K4, "jax_normal_axis" for K5,
+# "jax_normal_axis_clock" for its clock form)
 launches = 0
 launches_by_kernel: dict[str, int] = {}
 
@@ -60,7 +69,10 @@ def _library() -> ctypes.CDLL:
         lib.az_particle_bits.argtypes = [p, i, i, u, u, p, i, p, p]
         lib.az_particle_uniform3.argtypes = [p, i, u, u, p, i, f, f, p, p]
         lib.az_jax_normal_axis.argtypes = [ctypes.c_int64, u, u, u, u, i, f, f, f, p, p, p, p]
-        for fn in (lib.az_particle_bits, lib.az_particle_uniform3, lib.az_jax_normal_axis):
+        lib.az_collision_draws.argtypes = [ctypes.c_int64, u, u, u, p, i, i, i, f, f, f, f, p,
+                                           p, p, p, p, p]
+        for fn in (lib.az_particle_bits, lib.az_particle_uniform3, lib.az_jax_normal_axis,
+                   lib.az_collision_draws):
             fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
@@ -162,3 +174,26 @@ def jax_normal_axis(key: tuple[int, int], rows: int, device, second=None) -> tup
                 int(second is not None), width, lo, sqrt2, coeffs.ctypes.data, axis.data_ptr(),
                 None if normals is None else normals.data_ptr())
     return axis, normals
+
+
+def collision_draws(inner: tuple[int, int], timestep: int, rows: int, device, cell_size: float,
+                    shift: bool = True, second: bool = False) -> tuple:
+    """K5's clock form: ``(axis, normals, shift, scaled)`` as
+    :func:`~azplugins_tpu_torch.core.rng.collision_draws` defines them, the
+    keys derived on the CUDA ``device`` from ``inner`` and the timestep word
+    (read from the clock there under ``device_clock``), in one launch."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the random-draw kernels need a CUDA device, got {dev}")
+    if not (0 < rows and 3 * rows < 2**32):
+        raise ValueError(f"collision_draws: {rows} rows (one or more, 3 rows under 2**32)")
+    axis = torch.empty((rows, 3), dtype=torch.float32, device=dev)
+    normals = torch.empty((rows, 3), dtype=torch.float32, device=dev) if second else None
+    out = torch.empty((2, 3), dtype=torch.float32, device=dev)  # the shift, its quotient
+    width, lo, sqrt2, coeffs = _NORMAL_ARGS
+    _launch("jax_normal_axis_clock", "az_collision_draws", dev, rows, int(inner[0]) & 0xFFFFFFFF,
+            int(inner[1]) & 0xFFFFFFFF, _rng._step_word(timestep), *_rng._clock_args(timestep, dev),
+            int(second), int(shift), float(np.float32(cell_size)), width, lo, sqrt2,
+            coeffs.ctypes.data, axis.data_ptr(), None if normals is None else normals.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr())
+    return axis, normals, out[0], out[1]

@@ -98,7 +98,11 @@ graph, bitwise) and fires its updaters from the host's triggers.
 A sharded mesh, an MPCD coupling, and every run inside
 :meth:`Simulation.profile` run the segments eagerly; the choice is made
 from the operations, never from a failure. Either way the trajectory is
-the same, bit for bit.
+the same, bit for bit. The SRD advance of an uncoupled solvent in one
+block replays graphs of its own (:meth:`Simulation._advance_runner`,
+``graph.AdvanceGraphs``: a graph a collision, its keys and grid shift drawn
+from a clock on the card), under the same rule but for the coupling and
+the solvent's blocks; bitwise the eager advance.
 
 Capacity tune. At the absolute timestep ``auto_tune_after`` (200 by
 default) the run right-sizes the cell capacity to the equilibrated
@@ -334,6 +338,10 @@ class Simulation:
         self._capture = None
         # captures, replays, eager_segments, pool_bytes over every runner
         self._graph_totals: dict = {}
+        # the SRD advance's graphs (graph.AdvanceGraphs, _advance_runner)
+        # where _advance_graphs_apply(), and their totals
+        self._advance_graphs = None
+        self._advance_totals: dict = {}
         # (host fingerprint, device tables, the forces): _force_tables' cache
         self._tables = None
 
@@ -453,6 +461,7 @@ class Simulation:
         self._prepared = False
         self._tables = None
         self._drop_runner()
+        self._advance_graphs = None
 
     def _drop_runner(self):
         """Drop the segment graphs and their buffers: shapes or pointers
@@ -1128,6 +1137,34 @@ class Simulation:
                 return False
         return True
 
+    def _advance_graphs_apply(self) -> bool:
+        """Whether the SRD advance of this run replays CUDA graphs: on the
+        card (or with a stand-in capture), not ``_eager``, outside
+        :meth:`profile`, a solvent in one block and no MPCD coupling (the
+        joint collision moves a coupled stream inside the step loop)."""
+        srd = self.mpcd_dynamics
+        return (not self._eager and (self.device.type == "cuda" or self._capture is not None)
+                and self._phase_range is _no_range and self._mpcd is not None
+                and srd is not None and len(self._mpcd["position"]) == 1
+                and self._coupling is None and not srd._coupled)
+
+    def _advance_runner(self):
+        """The SRD advance's graphs where :meth:`_advance_graphs_apply` (the
+        one held while its key holds: the SRD, its parameters, box and
+        seed, the stream's shape and device), else None."""
+        from .graph import AdvanceGraphs, Counters
+
+        if not self._advance_graphs_apply():
+            return None
+        srd = self.mpcd_dynamics
+        pos, vel = self._mpcd["position"][0], self._mpcd["velocity"][0]
+        key = (srd, srd._fingerprint(), srd._built_key, tuple(pos.shape), pos.device)
+        if self._advance_graphs is None or self._advance_graphs.key != key:
+            self._advance_graphs = AdvanceGraphs(key, pos, vel, Counters(self),
+                                                 capture=self._capture,
+                                                 totals=self._advance_totals)
+        return self._advance_graphs
+
     def _build_runner(self, tbls):
         """The segment graphs of this layout, bound to ``tbls`` (the
         reference's ``_build_runner`` and ``_bind_tables``): the one held
@@ -1390,7 +1427,8 @@ class Simulation:
                 # must not advance it twice); collisions key on the absolute
                 # timestep, so this does not depend on the chunking
                 self._mpcd = self.mpcd_dynamics._advance(
-                    self._mpcd, self._state.box, self._timestep - chunk, self._timestep, self.seed)
+                    self._mpcd, self._state.box, self._timestep - chunk, self._timestep, self.seed,
+                    graphs=self._advance_runner())
             if self._seg_adapt and self._timestep % _GROW_QUANTUM == 0:
                 self._clean_quanta += 1
                 if self._seg_len < self._seg_ceiling:

@@ -37,6 +37,18 @@
    card's torch.sum order over 3) and bitwise two single draws;
    runs BrownianFlow through the public API; times K4 at the headline's
    slots and K5 at each grid against their plain versions and bounds;
+   [cellsum] holds the SRD collision's cell sums (K10, csrc/cell_sums.cu:
+   each cell's rows added in ascending row order) bitwise against the plain
+   ordered sum (mpcd.py's _cell_sums_plain) at pure SRD's shape (262,144
+   rows into 262,144 cells), the colloids' (163,840 solvent and 74,088
+   dense slots, 2,744 of mass 5, the empty ones trashed; 32,768 cells) and
+   the Poiseuille slit's (40,000 rows, 4,352 cells), and at one deep cell,
+   two calls the same bits; K5's clock form (the collision's keys and grid
+   shift derived on the card from a clock) bitwise its host-key form and
+   the host's shift at the three grids, CLOCK_STEPS, two cell sizes, the
+   shift on and off; times K10 queued and in a replay against CUDA
+   index_add_ (its library call) and its bound, and K5's clock form
+   against its host-key form;
 5. runs, through the public API, each with the launch counts set to 0 just
    before it and read just after (configs 1-5 and every other simulation
    that qualifies run their rebuild segments as CUDA graphs, and print
@@ -106,6 +118,10 @@
      forms and K8 and K9 in their device-kT forms (kT a 0-d float32 on
      the card, at DEVICE_KTS) bitwise their host forms at CLOCK_STEPS,
      and the DPD sigma table from a device kT bitwise the float one;
+     then pure SRD and the Poiseuille slit on the SRD advance graphs in
+     turns of ADVANCE_GRAPH_STEPS (eager, graph, graph, eager): the
+     streams and their anchors bitwise, eager == eager == graph, K5 and K10
+     exactly once a collision in every turn;
    - the evaporating droplet (BASELINE config 5, 20,239 particles: a
      two-type PLJ liquid inside a shrinking SphereArea barrier, an LJ93
      wall, a ParticleEvaporator firing every 25 steps, Langevin in a
@@ -123,12 +139,15 @@
      2,744 WCA colloids of mass 5 in a 163,840-particle SRD solvent driven
      by a body force, coupled through the joint collision every 20 steps,
      warmed for 260 steps (the tune at step 150), then 400 timed steps, and
-     [profile] 40 more under Simulation.profile (two joint collisions);
+     [profile] 40 more under Simulation.profile (two joint collisions); two
+     identical 60-step runs must agree bit for bit (the cell sums are K10's);
    - the SRD Poiseuille slit (examples/mpcd_poiseuille.py at full size:
      40,000 solvent between no-slip plates, 3,000 steps, the profile read
-     with CartesianVelocityFieldCompute over 16 bins);
+     with CartesianVelocityFieldCompute over 16 bins), its SRD advance on
+     the advance graphs (a collision a replay, its keys and shift from the
+     card's clock), which must replay;
    - pure SRD throughput (bench.py:470-507): 262,144 solvent, a collision
-     every step, 500 steps;
+     every step, 500 steps, on the advance graphs too;
    - [examples] the port's nine examples (azplugins_tpu_torch/examples/)
      in their smoke mode (AZTPU_EXAMPLE_FAST=1), main(device="cuda"), each
      in a directory of its own inside the checkout, removed afterwards;
@@ -142,6 +161,7 @@
    evaporator's pick through K4 at the pick at least once a fire: once a
    step under the graphs, where it runs masked, on shards through K4;
    thermalize once a setup; the MPCD collision's K5 exactly once a
+   collision, its clock form on the advance graphs, and K10 exactly once a
    collision), and that the result is physical; on each
    full-size path the capacity tune fires at step 200, and the path prints the capacity and rebuild
    interval before and after it and the device-busy time a step in the 20
@@ -150,8 +170,7 @@
    path's state at two capacities, in two turns (72 and 48; 40 and the
    smallest that fits; 16 and 32; the droplet's before and after the
    tune), and K1 at the droplet's state (K1' at the colloids') against its
-   plain version and bound; the colloid path also times one joint collision
-   and prints whether two identical colloid runs agree bitwise;
+   plain version and bound; the colloid path also times one joint collision;
 6. [integrate], on the headline's, the patchy colloids' and the droplet's
    states after their runs: the integrator and drift-check kernels of
    csrc/integrate.cu (K6-K9) against their plain versions on the card,
@@ -207,6 +226,11 @@ RNG_NORMAL_REPLACES = ("azplugins_tpu/mpcd.py:314, 323-326 (jax.random.normal, t
                        "normalisation), XLA-fused, no pallas_call")
 PICK_REPLACES = ("azplugins_tpu/update.py:139-172 (ParticleEvaporator._update: particle_bits "
                  "and lax.top_k), XLA-fused, no pallas_call")
+RNG_CLOCK_REPLACES = ("azplugins_tpu/mpcd.py:239-248, 314, 323-326 (the collision's fold_in, "
+                      "split and grid shift, jax.random.normal and the axes' normalisation), "
+                      "XLA-fused, no pallas_call")
+CELLSUM_REPLACES = ("azplugins_tpu/mpcd.py:267-273 (the collision's payload and scatter-add "
+                    ".at[cid].add), XLA-fused, no pallas_call")
 PATCHY = dict(M_d=1.5, M_r=0.05, r_eq=1.0, omega=20.0, alpha=0.4, repulsion=True)
 # the patchy path's warm-up steps and its kT band (PERF.md: the kT curve)
 PATCHY_WARM = 8000
@@ -269,7 +293,7 @@ PROFILE_STEPS = 20
 SPATIAL_OPS_SHARDS = 4
 SPATIAL_OPS_STRETCH = {"droplet": 600, "polymer": 300, "colloid": 400}
 # a joint collision on shards against the whole one, of max|v|: the
-# reference's ~1e-7 relative a collision plus the card's atomic cell sums
+# reference's ~1e-7 relative a collision (the blocks' partial sums regrouped)
 SPATIAL_OPS_COLLISION_BAR = 1e-6
 # [rng]: the tag counts K4 is held at (64k particles; the headline's 12^3
 # slots of cap 48; the droplet's particle count, not a multiple of the
@@ -303,6 +327,19 @@ INTEGRATE_REPLACES = {
 }
 # K9's bar in ulp against its plain version (K6-K8 are held bitwise)
 NO_SQUISH_ULP = 0
+# [cellsum]: the collision's cell sums (K10) held bitwise to the plain
+# ordered sum at the MPCD paths' shapes: pure SRD (64^3 rows and cells),
+# the colloids' (163,840 solvent and 21^3 cells of 8 dense slots, 2,744 of
+# them colloids of mass 5, the rest empty and trashed; 32^3 cells) and the
+# Poiseuille slit's (40,000 rows, 16^2 x 17 cells), and one deep cell
+# (the first CELLSUM_DEEP of those rows in one cell); K5's clock form held bitwise to
+# its host-key form and the host's shift at CLOCK_STEPS, cell sizes 1.0 and
+# 0.75, the shift on and off, one key and two
+CELLSUM_DEEP = 5000
+CELLSUM_CELL_SIZES = (1.0, 0.75)
+# [graph]'s MPCD-only turns: pure SRD and the Poiseuille slit on the SRD
+# advance graphs against the eager advance, warm-up and turns of these steps
+ADVANCE_GRAPH_STEPS = {"srd": 200, "poiseuille": 500}
 # [graph]: turns of GRAPH_STEPS steps, eager against CUDA graphs, compared
 # on GRAPH_FIELDS; the graph turns replay at least GRAPH_LEAST_REPLAYS
 # segments; the clock forms are checked at CLOCK_STEPS
@@ -404,6 +441,28 @@ def _cuda_time_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _replay_time_ms(fn, reps: int, replays: int = 5, warm: int = 2) -> float:
+    """Device ms per call inside a CUDA graph: ``reps`` calls captured into
+    one graph (their outputs from the graph's pool), replayed once to warm
+    up, then ``replays`` times between CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def _lattice_snapshot(az, counts, rho, jitter, seed, tilt=(0.0, 0.0, 0.0), n_types=1,
@@ -1387,6 +1446,174 @@ def check_rng(az, RK):
 
 
 # ---------------------------------------------------------------------------
+# [cellsum]: K10 and K5's clock form, the SRD advance graphs' kernels
+# ---------------------------------------------------------------------------
+def _cellsum_shapes(az, device):
+    """{label: (cid, vel, mass, cells)}: a collision's cell sums at the MPCD
+    paths' shapes, the cell ids from an SRD's own binning under a grid
+    shift (one seed each), and one deep cell."""
+    from azplugins_tpu_torch import mpcd as M
+    from azplugins_tpu_torch.core.box import Box
+
+    out = {}
+    for label, L, n, plates in (("srd", 64.0, 64**3, None), ("colloid", 32.0, 5 * 32**3, None),
+                                ("poiseuille", 16.0, 40_000, ("z", 16.0))):
+        g = np.random.default_rng(len(label))
+        srd = M.SRD(dt=0.02, cell_size=1.0, kT=1.0, plates=plates)
+        srd._build(Box.from_lengths(L, L, L), 3)
+        cells = int(np.prod(srd._grid_dims()))
+        z = 0.98 if plates else 1.0
+        pos = (g.random((n, 3)) - 0.5) * np.asarray([L, L, z * L])
+        vel = g.normal(0.0, 1.0, (n, 3))
+        mass, invalid = None, None
+        if label == "colloid":  # the dense slots after the solvent: 21^3 cells of 8
+            slots, real = 21**3 * 8, 14**3
+            invalid = np.ones(n + slots, bool)
+            invalid[:n] = False
+            invalid[n + g.choice(slots, real, replace=False)] = False
+            pos = np.concatenate([pos, (g.random((slots, 3)) - 0.5) * L])
+            vel = np.concatenate([vel, g.normal(0.0, 0.2, (slots, 3))])
+            vel[invalid] = 0.0
+            mass = np.where(invalid, 0.0, np.where(np.arange(n + slots) < n, 1.0, 5.0))
+            mass = torch.as_tensor(mass.astype(np.float32), device=device)
+        pos = torch.as_tensor(pos.astype(np.float32), device=device)
+        cid = srd._cell_ids(pos, np.asarray([0.31, 0.62, 0.17], np.float32))
+        if invalid is not None:
+            cid = torch.where(torch.as_tensor(invalid, device=device), cells, cid)
+        out[label] = (cid, torch.as_tensor(vel.astype(np.float32), device=device), mass, cells)
+    cid, vel, _, cells = out["poiseuille"]
+    out["deep"] = (torch.where(torch.arange(cid.numel(), device=device) < CELLSUM_DEEP, 5, cid),
+                   vel, None, cells)
+    return out
+
+
+def _cellsum_bound(cid, mass, cells):
+    """(bound_ms, "bytes") of K10: each row's id, velocity and mass read
+    once, each cell's six sums written once, over the memory rate (its
+    float work, a dozen operations a row, takes far less)."""
+    n = cid.numel()
+    moved = n * (8 + 12 + (4 if mass is not None else 0)) + cells * 24
+    return 1e3 * moved / MEM_BYTES_PER_S, "bytes"
+
+
+def check_cellsum(az, RK, CK):
+    """[cellsum]: K10 against the plain ordered cell sum on the card,
+    bitwise, at pure SRD's, the colloids' and the Poiseuille slit's shapes
+    and at one deep cell, two calls the same bits; K5's clock form against
+    its host-key form and the host's shift, bitwise, at the three MPCD
+    grids; each timed queued and in a replay, K10 against CUDA index_add_
+    (its library call: the same sums, atomic) and its bound, K5's clock
+    form against the host-key form. Returns {kernel: timing}."""
+    from azplugins_tpu_torch import mpcd as M
+    from azplugins_tpu_torch.core import rng
+
+    t0 = time.perf_counter()
+    dev = "cuda"
+    shapes = _cellsum_shapes(az, dev)
+    lines = []
+    timing = {}
+    for label, (cid, vel, mass, cells) in shapes.items():
+        n0 = CK.launches
+        got = M._cell_sums(cid, vel, mass, cells)
+        again = CK.cell_sums(cid, vel, mass, cells)
+        pay = M._payload(vel, mass)
+        want = M._cell_sums_plain(cid, pay, cells)
+        if not (CK.launches == n0 + 2 and got.shape == (cells, 6)
+                and torch.equal(got.view(torch.int32), want.view(torch.int32))
+                and torch.equal(again.view(torch.int32), got.view(torch.int32))):
+            diff = float((got - want).abs().max())
+            raise AssertionError(f"cellsum {label}: K10 differs from the plain ordered sum "
+                                 f"(max |diff| {diff:.3e}) or from itself")
+        atomic = torch.zeros((cells + 1, 6), device=dev).index_add_(0, cid, pay)[:cells]
+        deepest = int(torch.bincount(cid, minlength=cells + 1)[:cells].max())
+        lines.append(f"{label} ({cid.numel():,} rows, {cells:,} cells, deepest {deepest}): "
+                     f"bitwise; CUDA index_add_ max |diff| "
+                     f"{float((atomic - want).abs().max()):.3e}")
+        if label == "deep":
+            continue
+        kernel = lambda c=cid, v=vel, m=mass, k=cells: CK.cell_sums(c, v, m, k)  # noqa: E731
+        library = lambda c=cid, p=pay, k=cells: torch.zeros(  # noqa: E731
+            (k + 1, 6), device=dev).index_add_(0, c, p)
+        timing[label] = {
+            "ms": _cuda_time_ms(kernel, 50), "replay_ms": _replay_time_ms(kernel, 50),
+            "plain_ms": _cuda_time_ms(lambda c=cid, p=pay, k=cells: M._cell_sums_plain(c, p, k),
+                                      3),
+            "library_ms": _cuda_time_ms(library, 50),
+            "library_replay_ms": _replay_time_ms(library, 50),
+            "bound": _cellsum_bound(cid, mass, cells)}
+    # K5's clock form: the keys and shift on the card against the host's
+    cases = 0
+    inner = M._inner_key(11)
+    for label, (rows, _) in NORMAL_SHAPES.items():
+        for t in CLOCK_STEPS:
+            kshift, kaxis, kvirt = M._collision_keys(11, t)
+            clock = torch.tensor(t - 3, dtype=torch.int64, device=dev)
+            for cell_size in CELLSUM_CELL_SIZES:
+                for shift_on, second in ((True, label == "poiseuille"), (False, True)):
+                    a = np.float32(cell_size)
+                    host = (rng.jax_uniform_host(kshift, 3) * a if shift_on
+                            else np.zeros(3, np.float32))
+                    axis, normals = rng.jax_normal_axis(kaxis, rows, dev,
+                                                        kvirt if second else None)
+                    with rng.device_clock(clock, 1000):
+                        got = rng.collision_draws(inner, 1003, rows, dev, cell_size, shift_on,
+                                                  second)
+                    ok = (torch.equal(got[0].view(torch.int32), axis.view(torch.int32))
+                          and (got[1] is None) == (not second)
+                          and (not second or torch.equal(got[1].view(torch.int32),
+                                                         normals.view(torch.int32)))
+                          and np.array_equal(got[2].cpu().numpy().view(np.uint32),
+                                             host.view(np.uint32))
+                          and np.array_equal(got[3].cpu().numpy().view(np.uint32),
+                                             (host / a).view(np.uint32)))
+                    if not ok:
+                        raise AssertionError(f"cellsum: K5's clock form differs from its "
+                                             f"host-key form at {label}, timestep {t}, cell "
+                                             f"size {cell_size}, shift {shift_on}")
+                    cases += 1
+    clock = torch.tensor(5, dtype=torch.int64, device=dev)
+    for label, (rows, _) in NORMAL_SHAPES.items():
+        second = label == "poiseuille"
+        _, kaxis, kvirt = M._collision_keys(11, 8)
+
+        def clocked(rows=rows, second=second):
+            with rng.device_clock(clock, 5):
+                return rng.collision_draws(inner, 8, rows, dev, 1.0, True, second)
+
+        def host(rows=rows, second=second, kaxis=kaxis, kvirt=kvirt):
+            return rng.jax_normal_axis(kaxis, rows, dev, kvirt if second else None)
+
+        n_draws = 3 * rows * (2 if second else 1)
+        timing[f"clock[{label}]"] = {
+            "ms": _cuda_time_ms(clocked, 50), "replay_ms": _replay_time_ms(clocked, 50),
+            "host_ms": _cuda_time_ms(host, 50), "host_replay_ms": _replay_time_ms(host, 50),
+            "plain_ms": _cuda_time_ms(lambda rows=rows, second=second: rng._collision_draws_plain(
+                inner, 8, rows, dev, 1.0, True, second), 3),
+            "bound": _rng_bound(n_draws, 1, 3, 3, (2 * NORMAL_F32_OPS + NORMAL_AXIS_ROW_OPS / 3)
+                                / 2 if second else NORMAL_AXIS_F32_OPS, 4)}
+    print(f"[cellsum] K10 against the plain ordered sum: {'; '.join(lines)}; K5's clock form "
+          f"bitwise its host-key form and the host's shift in {cases} cases (the three MPCD "
+          f"grids, timesteps {', '.join(map(str, CLOCK_STEPS))}, cell sizes "
+          f"{', '.join(map(str, CELLSUM_CELL_SIZES))}, the shift on and off, one key and two)",
+          flush=True)
+    for label, tm in timing.items():
+        b = tm["bound"][0]
+        if label.startswith("clock"):
+            print(f"[cellsum] K5's clock form at {label[6:-1]}: queued {tm['ms']:.4f} ms, in a "
+                  f"replay {tm['replay_ms']:.4f} ms; host-key form queued {tm['host_ms']:.4f}, "
+                  f"in a replay {tm['host_replay_ms']:.4f}; plain {tm['plain_ms']:.4f}; bound "
+                  f"{b:.5f} ms ({tm['bound'][1]})", flush=True)
+        else:
+            print(f"[cellsum] K10 at {label}: queued {tm['ms']:.4f} ms, in a replay "
+                  f"{tm['replay_ms']:.4f} ms; CUDA index_add_ (atomic) queued "
+                  f"{tm['library_ms']:.4f}, in a replay {tm['library_replay_ms']:.4f}; plain "
+                  f"{tm['plain_ms']:.4f}; bound {b:.5f} ms (bytes), "
+                  f"{tm['replay_ms'] / b:.1f}x in a replay", flush=True)
+    print(f"[cellsum] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return timing
+
+
+# ---------------------------------------------------------------------------
 # [pick]: K4 at the droplet's pick against the plain pick
 # ---------------------------------------------------------------------------
 def _pick_bound(n, n_solvent, n_marked, k):
@@ -1915,15 +2142,17 @@ def _reset_counts(K):
     K.EK.launches = 0
     K.IK.launches = 0
     K.IK.launches_by_kernel.clear()
+    K.CK.launches = 0
 
 
 def _draws(K, label, least, exact=False):
     """The random-draw kernels' launches since the counts were set to 0
-    (K4 at the pick's, two a pick, as "evaporator_pick"), each at least
-    ``least[name]`` (a path's draws a step times its steps, plus its
-    updaters' fires), or exactly with ``exact`` (K5: one launch a
-    collision): {name: launches}."""
-    counts = {**K.RK.launches_by_kernel, "evaporator_pick": K.EK.launches}
+    (K4 at the pick's, two a pick, as "evaporator_pick"; K10's calls as
+    "cell_sums"), each at least ``least[name]`` (a path's draws a step times
+    its steps, plus its updaters' fires), or exactly with ``exact`` (K5 and
+    K10: one launch a collision): {name: launches}."""
+    counts = {**K.RK.launches_by_kernel, "evaporator_pick": K.EK.launches,
+              "cell_sums": K.CK.launches}
     got = {name: counts.get(name, 0) for name in least}
     if any(got[name] < n or (exact and got[name] != n) for name, n in least.items()):
         raise AssertionError(f"{label}: random-draw kernel launches {got}, "
@@ -2255,6 +2484,31 @@ def _why_eager(sim) -> str:
     return "a flow field of its own"
 
 
+def _why_advance_eager(sim) -> str:
+    """Why ``sim``'s SRD advance runs the eager loop on the card
+    (Simulation._advance_graphs_apply's rule)."""
+    if sim._coupling is not None or sim.mpcd_dynamics._coupled:
+        return "the MPCD coupling"
+    if len(sim._mpcd["position"]) > 1:
+        return "a solvent in several blocks"
+    if sim._eager:
+        return "_eager"
+    return "a profile"
+
+
+def _advance_line(sim, totals0):
+    """The SRD advance graphs' figures since ``totals0`` (a copy of
+    sim._advance_totals), as a path's line prints them."""
+    got = {k: sim._advance_totals.get(k, 0) - totals0.get(k, 0)
+           for k in ("captures", "replays", "eager_segments")}
+    if not sim._advance_graphs_apply():
+        return got, f"SRD advance graphs off (the eager loop: {_why_advance_eager(sim)})"
+    runner = sim._advance_graphs
+    return got, (f"SRD advance graphs on: {got['captures']} captures, {got['replays']} replays, "
+                 f"{got['eager_segments']} first runs eagerly; keys {runner.graph_keys()}, pool "
+                 f"{runner.pool_bytes / 2**20:.1f} MB")
+
+
 def _busy_at_caps(sim, label, untuned):
     """Device-busy ms a step at the path's capacity and at the one it had
     before the tune, on the path's state after its checks, in two turns
@@ -2443,8 +2697,8 @@ def time_pair_on_state(az, D, PK, sim, f, label):
 
 def _colloid_bits(az):
     """Whether two identical colloid runs of 60 steps (three joint
-    collisions) agree bitwise: a reading, not a check (CUDA's index_add_
-    adds the cell sums with atomics, in an order that may vary)."""
+    collisions) agree bitwise (the cell sums are K10's, in a fixed order),
+    and their largest difference."""
     out = []
     for _ in range(2):
         sim, _ = build_colloid(az, "cuda")
@@ -2515,16 +2769,18 @@ def run_colloid(az, D, K, card, record):
     ms_step, wall = _timed_run(sim, COLLOID_STEPS)
     launched = {name: K.PK.launches_by_potential.get("LJ", 0)}
     collisions = COLLOID_STEPS // sim.mpcd_dynamics.period
-    drawn = _draws(K, "colloid", {"jax_normal_axis": collisions})
+    # the coupled path keeps the eager loop: K5's host-key form, K10
+    drawn = _draws(K, "colloid", {"jax_normal_axis": collisions, "cell_sums": collisions})
     _check_grid(sim, "colloid")
     evals = sim.force_evaluations - evals0
     if launched[name] != evals or evals < COLLOID_STEPS or K.PK.launches != evals:
         raise AssertionError(f"colloid: {launched} LJ kernel launches for {evals} force "
                              f"evaluations in {COLLOID_STEPS} steps")
     builds, replays = sim.n_builds - builds0, sim.viol_replays - replays0
-    if not replays and drawn["jax_normal_axis"] != collisions:  # a replay collides again
-        raise AssertionError(f"colloid: {drawn['jax_normal_axis']} K5 launches for {collisions} "
-                             f"collisions")
+    if not replays and not drawn["jax_normal_axis"] == drawn["cell_sums"] == collisions:
+        # (a violation replay collides again)
+        raise AssertionError(f"colloid: {drawn['jax_normal_axis']} K5 launches and "
+                             f"{drawn['cell_sums']} K10 calls for {collisions} collisions")
     integrated = _integrator_launches(K, "colloid", sim.steps_run - steps0, 1)
     _check_wrapped(sim, "colloid")
 
@@ -2582,8 +2838,10 @@ def run_colloid(az, D, K, card, record):
     run_profile(sim, "colloid", 2 * sim.mpcd_dynamics.period, card, collisions=2)
     del sim
     same, diff = _colloid_bits(az)
-    print(f"[colloid] two identical 60-step runs agree bitwise: {same} (max |dv| {diff:.3e}; "
-          f"a reading: the cell sums are atomic adds on CUDA)", flush=True)
+    if not same:
+        raise AssertionError(f"colloid: two identical 60-step runs differ (max |dv| {diff:.3e})")
+    print("[colloid] two identical 60-step runs agree bitwise (the cell sums in K10's fixed "
+          "order)", flush=True)
     return {**launched, **drawn, **integrated}
 
 
@@ -2607,11 +2865,16 @@ def run_poiseuille(az, K, card):
     _check_grid(sim, "poiseuille")
     _reset_counts(K)
     steps0 = sim.steps_run
+    totals0 = dict(sim._advance_totals)
     ms_step, wall = _timed_run(sim, POISEUILLE_STEPS - TUNE_AT)
-    # one K5 launch a collision: the axes and the virtual fill's normals
-    drawn = _draws(K, "poiseuille", {
-        "jax_normal_axis": (POISEUILLE_STEPS - TUNE_AT) // sim.mpcd_dynamics.period},
-        exact=True)
+    advanced, advance = _advance_line(sim, totals0)
+    if advanced["replays"] < 1:
+        raise AssertionError(f"poiseuille: the SRD advance replayed no graph ({advance})")
+    # one K5 launch a collision (its clock form on the advance graphs: the
+    # axes, the virtual fill's normals and the shift) and one K10 call
+    collisions = (POISEUILLE_STEPS - TUNE_AT) // sim.mpcd_dynamics.period
+    drawn = _draws(K, "poiseuille", {"jax_normal_axis_clock": collisions, "jax_normal_axis": 0,
+                                     "cell_sums": collisions}, exact=True)
     # its two MD particles have no pair force, so no grid: K7 alone, no drift check
     drawn.update(_integrator_launches(K, "poiseuille", sim.steps_run - steps0, 1, grid=False))
     field = az.compute.CartesianVelocityFieldCompute(
@@ -2630,7 +2893,8 @@ def run_poiseuille(az, K, card):
           f"{POISEUILLE_STEPS}: {ms_step:.4f} ms/step (host wall {wall:.3f} s) on {card}; "
           f"profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per step, "
           f"{htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per step; "
-          f"random-draw and integrator kernel launches {drawn}", flush=True)
+          f"random-draw, cell-sum and integrator kernel launches {drawn}; {advance}",
+          flush=True)
     print(f"[poiseuille] v_x(z) over {POISEUILLE_BINS} bins: {np.round(prof, 4).tolist()}; "
           f"parabola R^2 {r2:.4f} (> 0.95), peak {prof.max():.4f} (> 0.03), furthest solvent "
           f"{beyond:+.2e} beyond the plates", flush=True)
@@ -2651,16 +2915,21 @@ def run_srd(az, K, card):
     ops, busy, htod, syncs = _profile(sim)
     _reset_counts(K)
     steps0 = sim.steps_run
+    totals0 = dict(sim._advance_totals)
     ms_step, wall = _timed_run(sim, SRD_STEPS)
-    drawn = _draws(K, "srd", {"jax_normal_axis": SRD_STEPS}, exact=True)
+    advanced, advance = _advance_line(sim, totals0)
+    if advanced["replays"] < 1:
+        raise AssertionError(f"srd: the SRD advance replayed no graph ({advance})")
+    drawn = _draws(K, "srd", {"jax_normal_axis_clock": SRD_STEPS, "jax_normal_axis": 0,
+                              "cell_sums": SRD_STEPS}, exact=True)
     drawn.update(_integrator_launches(K, "srd", sim.steps_run - steps0, 1, grid=False))
     kT, _ = _solvent_kT(sim)
     print(f"[srd] N={sim._whole_mpcd()['position'].shape[0]}, {SRD_STEPS} steps of one collision each: "
           f"{ms_step:.4f} ms per collision (host wall {wall:.3f} s) on {card}; profile: "
           f"{ops:.1f} device operations and {busy:.4f} ms device-busy per step, {htod:.2f} "
           f"host-to-device copies and {syncs:.2f} synchronising calls per step; solvent kT "
-          f"relative to its mean {kT:.4f} (1.0 +- {SRD_KT_BAND}); random-draw and integrator "
-          f"kernel launches {drawn}", flush=True)
+          f"relative to its mean {kT:.4f} (1.0 +- {SRD_KT_BAND}); random-draw, cell-sum and "
+          f"integrator kernel launches {drawn}; {advance}", flush=True)
     if abs(kT - 1.0) > SRD_KT_BAND:
         raise AssertionError(f"srd: solvent kT {kT:.4f} outside 1.0 +- {SRD_KT_BAND}")
     return drawn
@@ -3796,7 +4065,92 @@ def _masked_updaters(sim, reps=20):
     return ops, busy
 
 
-def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "droplet", "ramp")):
+def _stream_diff(a, b):
+    """(bitwise equal, max |difference|) of two simulations' MPCD streams:
+    position, velocity and the anchor's."""
+    same, worst = True, 0.0
+    x, y = a._mpcd, b._mpcd
+    pairs = [(x["position"], y["position"]), (x["velocity"], y["velocity"]),
+             (x["_srd_anchor"][0], y["_srd_anchor"][0]),
+             (x["_srd_anchor"][1], y["_srd_anchor"][1])]
+    if x["_srd_anchor"][2] != y["_srd_anchor"][2]:
+        return False, float("inf")
+    for p, q in pairs:
+        p, q = torch.cat(p), torch.cat(q)
+        same = same and torch.equal(p.view(torch.int32), q.view(torch.int32))
+        worst = max(worst, float((p - q).abs().nan_to_num(float("inf")).max()))
+    return same, worst
+
+
+def _advance_turns(az, K, label, card):
+    """[graph]'s MPCD-only turns: ``label`` (pure SRD or the Poiseuille
+    slit) built three times from one seed, two on the eager loop
+    (``_eager``), one on the SRD advance graphs; ADVANCE_GRAPH_STEPS[label]
+    steps each, then turns of as many (eager, graph, graph, eager), the
+    second eager run keeping pace. The streams (position, velocity, the
+    anchor) must be bitwise equal after the warm-up and after turns 2 and 4,
+    eager against eager too (the cell sums are deterministic); K5 (either
+    form) and K10 exactly once a collision in every turn. Returns the
+    figures."""
+    build = {"srd": build_srd, "poiseuille": build_poiseuille}[label]
+    steps = ADVANCE_GRAPH_STEPS[label]
+    sims = {}
+    for name in ("eager", "eager2", "graph"):
+        sims[name] = sim = build(az, "cuda")
+        sim._eager = name != "graph"
+    E, E2, G = sims["eager"], sims["eager2"], sims["graph"]
+    for sim in (E, E2, G):
+        sim.run(steps)
+    diffs = [(_stream_diff(E, E2), _stream_diff(G, E))]
+    ms, host = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+    turns = {"captures": 0, "replays": 0, "eager_segments": 0}
+    period = G.mpcd_dynamics.period
+    for k, name in enumerate(("eager", "graph", "graph", "eager")):
+        sim = sims[name]
+        totals0 = dict(sim._advance_totals)
+        _reset_counts(K)
+        m, h = _turn(sim, steps)
+        collisions = steps // period
+        clock_form = "jax_normal_axis_clock" if name == "graph" else "jax_normal_axis"
+        _draws(K, f"graph {label} {name}", {clock_form: collisions, "cell_sums": collisions},
+               exact=True)
+        ms[name].append(m)
+        host[name].append(h)
+        if name == "eager":
+            E2.run(steps)
+        else:
+            got, _ = _advance_line(sim, totals0)
+            turns = {c: turns[c] + got[c] for c in turns}
+        if k in (1, 3):
+            diffs.append((_stream_diff(E, E2), _stream_diff(G, E)))
+    for (ee_same, ee_diff), (ge_same, ge_diff) in diffs:
+        if not (ee_same and ge_same):
+            raise AssertionError(f"graph {label}: eager/eager max |diff| {ee_diff:.3e}, "
+                                 f"graph/eager {ge_diff:.3e}: the advance is not bitwise")
+    if turns["replays"] < 2 * steps // period:
+        raise AssertionError(f"graph {label}: {turns['replays']} replays in the graph turns")
+    g_ops, g_busy, _, g_syncs = _profile(G)
+    e_ops, e_busy, _, _ = _profile(E)
+    pool_mb = G._advance_graphs.pool_bytes / 2**20
+    print(f"[graph] {label} (SRD advance graphs; N={G._mpcd['position'][0].shape[0]}, a "
+          f"collision every {period} steps): ms/step eager "
+          f"{' / '.join(f'{x:.4f}' for x in ms['eager'])}, graph "
+          f"{' / '.join(f'{x:.4f}' for x in ms['graph'])} (turns of {steps}: eager, graph, "
+          f"graph, eager); host us a step eager {' / '.join(f'{x:.1f}' for x in host['eager'])}, "
+          f"graph {' / '.join(f'{x:.1f}' for x in host['graph'])}; device operations and busy "
+          f"ms a step (20 steps profiled): graph {g_ops:.1f} / {g_busy:.4f} ({g_syncs:.2f} "
+          f"synchronising calls a step), eager {e_ops:.1f} / {e_busy:.4f}; graph turns: "
+          f"{turns['captures']} captures, {turns['replays']} replays, {turns['eager_segments']} "
+          f"first runs eagerly; keys {G._advance_graphs.graph_keys()}; pool {pool_mb:.1f} MB; "
+          f"eager == eager == graph bitwise after the warm-up and turns 2 and 4; K5 and K10 "
+          f"once a collision every turn", flush=True)
+    return {"ms_eager": ms["eager"], "ms_graph": ms["graph"], "host_us_eager": host["eager"],
+            "host_us_graph": host["graph"], "ops_graph": g_ops, "busy_graph": g_busy,
+            "ops_eager": e_ops, "busy_eager": e_busy, **turns, "pool_mb": pool_mb}
+
+
+def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "droplet", "ramp",
+                                  "srd", "poiseuille")):
     """[graph]: BASELINE configs 1-5 at full size and a small Ramp-kT
     liquid, each built three times from one seed: two run the eager loop
     (``_eager``), one the CUDA graphs (the droplet's updater masked every
@@ -3813,14 +4167,20 @@ def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "dropl
     graphs and eagerly, captures, replays, the pool's MB; for the droplet
     the masked updaters' operations and busy ms a step and their share of
     its busy step; checks the clock forms of K2, K4, K8 and K9 and the
-    device-kT forms of K8 and K9 against their host forms. Returns {label:
-    figures}."""
+    device-kT forms of K8 and K9 against their host forms. Then pure SRD
+    and the Poiseuille slit on the SRD advance graphs (``_advance_turns``).
+    Returns {label: figures}."""
     t0 = time.perf_counter()
     out = {}
     builds = {"headline": build_headline, "polymer": build_polymer, "dpd": build_dpd,
               "patchy": build_patchy, "droplet": build_droplet, "ramp": build_ramp}
     for label in paths:
         t_label = time.perf_counter()
+        if label in ADVANCE_GRAPH_STEPS:
+            out[label] = _advance_turns(az, K, label, card)
+            print(f"[graph] {label}: {time.perf_counter() - t_label:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+            continue
         build = builds[label]
         sims = {}
         for name in ("eager", "eager2", "graph"):
@@ -3913,6 +4273,7 @@ def main() -> int:
     t_start = time.perf_counter()
     az = _import_port()
     from azplugins_tpu_torch.ops import aniso_kernel as AK
+    from azplugins_tpu_torch.ops import cellsum_kernel as CK
     from azplugins_tpu_torch.ops import cuda_build
     from azplugins_tpu_torch.ops import dense as D
     from azplugins_tpu_torch.ops import dpd_kernel as DK
@@ -3921,7 +4282,7 @@ def main() -> int:
     from azplugins_tpu_torch.ops import pick_kernel as EK
     from azplugins_tpu_torch.ops import rng_kernel as RK
 
-    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK, RK=RK, IK=IK, EK=EK)
+    K = types.SimpleNamespace(PK=PK, DK=DK, AK=AK, RK=RK, IK=IK, EK=EK, CK=CK)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
@@ -3929,9 +4290,10 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE, RK._SOURCE, IK._SOURCE, EK._SOURCE)
+    sources = (PK._SOURCE, DK._SOURCE, AK._SOURCE, RK._SOURCE, IK._SOURCE, EK._SOURCE,
+               CK._SOURCE)
     cuda_build.load_libraries(*sources)
-    for k in (PK, DK, AK, RK, IK, EK):
+    for k in (PK, DK, AK, RK, IK, EK, CK):
         k._library()
     print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f} s (parallel nvcc)",
           flush=True)
@@ -3946,6 +4308,7 @@ def main() -> int:
     dpd_timing = check_dpd_kernel(az, D, DK, record)
     aniso_timing = check_aniso_kernel(az, D, AK, record)
     rng_timing, rng_err = check_rng(az, RK)
+    cellsum_timing = check_cellsum(az, RK, CK)
 
     launches = {}
 
@@ -4038,6 +4401,24 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
+    # K5's clock form (the SRD advance graphs' collisions) at pure SRD's
+    # grid, its launches the advance graphs' (pure SRD, Poiseuille); K10 at
+    # pure SRD's rows and cells, its library call CUDA index_add_ (atomic)
+    clock = cellsum_timing["clock[srd]"]
+    kernels.append({
+        "name": "jax_normal_axis_clock", "route": "cuda",
+        "source": f"azplugins_tpu_torch/csrc/{RK._SOURCE}", "replaces": RNG_CLOCK_REPLACES,
+        "launches": launches["jax_normal_axis_clock"], "max_abs_err": 0.0, "ms": clock["ms"],
+        "plain_ms": clock["plain_ms"], "bound_ms": clock["bound"][0],
+        "bound_by": clock["bound"][1], "library_ms": None,
+    })
+    sums = cellsum_timing["srd"]
+    kernels.append({
+        "name": "cell_sums", "route": "cuda", "source": f"azplugins_tpu_torch/csrc/{CK._SOURCE}",
+        "replaces": CELLSUM_REPLACES, "launches": launches["cell_sums"], "max_abs_err": 0.0,
+        "ms": sums["ms"], "plain_ms": sums["plain_ms"], "bound_ms": sums["bound"][0],
+        "bound_by": sums["bound"][1], "library_ms": sums["library_ms"],
+    })
     # K4 at the pick, fired (the droplet's 10 of its slots), its launches the
     # scan's and the select's; its library call: torch.topk(k=10) over the
     # slots' keys, which the plain pick runs twice

@@ -18,7 +18,10 @@ on 82,944 tags; K5's axis form at pure SRD's 262,144 rows and its two-key
 form at Poiseuille's 4,352 where the checkout has them, and its single
 draw ``jax_normal`` on pure SRD's [262,144, 3] where the checkout has
 that); and the NO_SQUISH rotation's step1 mode (K9) on the patchy
-colloids' 194,672 slots; the pair kernel at the
+colloids' 194,672 slots; the SRD collision's cell sums at pure SRD's 262,144
+rows and cells (K10 where the checkout has it, and CUDA ``index_add_``, its
+library call, in every checkout) and K5's clock form where the checkout has
+it; the pair kernel at the
 droplet (T = 2) and the droplet's masked evaporator
 (``ParticleEvaporator._update_masked``, what its CUDA graphs run every
 step) on its state after DROPLET_STEPS steps, and where the checkout has
@@ -71,26 +74,8 @@ def _synced_time_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _replay_time_ms(fn, reps: int, replays: int = 5, warm: int = 2) -> float:
-    """Device ms per call inside a CUDA graph: ``reps`` calls captured into
-    one graph (their outputs from the graph's pool), replayed once to warm
-    up, then ``replays`` times between CUDA events."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+# the calls captured into one CUDA graph and replayed (chip_smoke.py's)
+_replay_time_ms = cs._replay_time_ms
 
 
 def main() -> int:
@@ -178,6 +163,41 @@ def main() -> int:
                  f"{cs.NORMAL_SHAPES['poiseuille'][0]:,} rows",
                  lambda: rng.jax_normal_axis((0, 42), cs.NORMAL_SHAPES["poiseuille"][0], "cuda",
                                              (1, 2)))):
+            calls[name] = fn
+            replayed.add(name)
+
+    # the SRD collision at pure SRD's shape: the cell sums (K10 where the
+    # checkout has it; CUDA index_add_ on the payload, its library call,
+    # in every checkout) and K5's clock form beside its host-key form
+    cid, vel, _, cells = cs._cellsum_shapes(az, dev)["srd"]
+    mpcd = az.mpcd
+    pay = torch.cat([torch.ones((vel.shape[0], 2), device=dev), vel,
+                     torch.sum(vel * vel, dim=1, keepdim=True)], dim=1)
+    name = f"index_add_ (the cell sums, atomic) pure SRD {cid.numel():,} rows, {cells:,} cells"
+    calls[name] = lambda: torch.zeros((cells + 1, 6), device=dev).index_add_(0, cid, pay)
+    replayed.add(name)
+    try:
+        from azplugins_tpu_torch.ops import cellsum_kernel as CK
+    except ImportError:  # an older checkout: index_add_ on the card
+        CK = None
+    if CK is not None:
+        name = f"cell_sums (K10) pure SRD {cid.numel():,} rows, {cells:,} cells"
+        calls[name] = lambda: CK.cell_sums(cid, vel, None, cells)
+        replayed.add(name)
+    if hasattr(rng, "collision_draws"):  # K5's clock form, where the checkout has it
+        clock = torch.tensor(5, dtype=torch.int64, device=dev)
+        inner = mpcd._inner_key(42)
+
+        def clocked(rows, second):
+            with rng.device_clock(clock, 5):
+                return rng.collision_draws(inner, 8, rows, dev, 1.0, True, second)
+
+        for name, fn in (
+                (f"collision_draws (K5's clock form) pure SRD {cs.NORMAL_SHAPES['srd'][0]:,} rows",
+                 lambda: clocked(cs.NORMAL_SHAPES["srd"][0], False)),
+                (f"collision_draws (K5's clock form, two keys) Poiseuille "
+                 f"{cs.NORMAL_SHAPES['poiseuille'][0]:,} rows",
+                 lambda: clocked(cs.NORMAL_SHAPES["poiseuille"][0], True))):
             calls[name] = fn
             replayed.add(name)
 

@@ -16,7 +16,9 @@ around ``sim.run`` and profiled over 20 steps (device operations and
 device-busy ms a step, as chip_smoke.py's profile line). The host clock
 moves between processes by up to 73% on one card, so two trees are
 compared only inside one process, in turns. Prints one line per path and
-turn with the cap and rebuild interval, a line per path with each tree's
+turn with the cap and rebuild interval (and, on the MPCD-only paths of a
+tree that has them, the SRD advance graphs' captures and replays so far), a
+line per path with each tree's
 median ms/step and device-busy ms and the spread of its turns (max - min),
 then the card.
 """
@@ -96,11 +98,13 @@ def main() -> int:
             ms, wall = cs._timed_run(sim, STEPS)
             ops, busy, htod, syncs = cs._profile(sim)
             read[name].append((ms, busy))
+            advance = getattr(sim, "_advance_totals", None)
             print(f"[{label}] turn {turn} {name}: {ms:.4f} ms/step (host wall {wall:.3f} s), "
                   f"{ops:.1f} device operations and {busy:.4f} ms device-busy per step, "
                   f"{htod:.2f} copies and {syncs:.2f} synchronising calls per step; "
                   + (f"cap {sim._grid_spec.cap}, rebuild interval {sim._seg_len}"
-                     if sim._grid_spec is not None else "no grid"), flush=True)
+                     if sim._grid_spec is not None else "no grid")
+                  + (f"; SRD advance graphs so far: {advance}" if advance else ""), flush=True)
         print(f"[{label}] " + "; ".join(
             f"{name}: median {np.median([m for m, _ in r]):.4f} ms/step (spread "
             f"{np.ptp([m for m, _ in r]):.4f}), median {np.median([b for _, b in r]):.4f} ms "

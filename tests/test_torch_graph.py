@@ -29,6 +29,16 @@ bound and invalidations; a failing
 capture propagates; the overflow and violation carries across segments;
 the counters under replay; the force tables' cache; the drift check made
 by the last method's step1 on a grid path, bitwise the old loop.
+
+The SRD advance of the MPCD-only paths (``graph.AdvanceGraphs``: a graph a
+collision, its keys and grid shift from the clock): bitwise the eager
+advance on small streams (a collision every step, plates with a body
+force, a body force at cell size 0.75, no shift) over two chunkings, and
+within the two-collision bars of the JAX reference's jitted advance; no
+host read inside a collision's or a stream's body; K5's clock form and
+K10 counted exactly once a collision under replay; a coupled stream, a
+solvent in several blocks, ``profile`` and ``_eager`` keep the eager
+advance.
 """
 
 import contextlib
@@ -788,3 +798,203 @@ def test_counters_under_replay(kernel):
     gained = dict(zip([a for _, a in counters._targets], counters.since(before), strict=True))
     assert gained["launches_by_potential"] == {"LJ": 16}
     assert IK.launches - ik0 == 32
+
+
+# ---------------------------------------------------------------------------
+# The SRD advance of the MPCD-only paths as graphs (graph.AdvanceGraphs)
+# ---------------------------------------------------------------------------
+ADVANCE_CASES = {
+    # a collision every step, the thermostat on (pure SRD's path)
+    "srd": dict(period=1, kT=1.0),
+    # the Poiseuille slit's: plates, their virtual fill, a body force
+    "plates": dict(period=5, kT=1.0, body_force=(0.05, 0.0, 0.0), plates=("z", 6.0)),
+    # a body force with no thermostat, and a cell size whose reciprocal
+    # is not a float32 (the shift's quotient)
+    "body_force": dict(period=3, body_force=(0.03, -0.01, 0.02), cell_size=0.75),
+    # no grid shift
+    "no_shift": dict(period=2, kT=1.0, shift=False),
+}
+
+
+def _solvent(az, case, N=1500, L=6.0, seed=3):
+    """An MPCD-only simulation: two idle MD particles and an SRD solvent of
+    a few hundred cells."""
+    kw = ADVANCE_CASES[case]
+    rng = np.random.default_rng(seed)
+    snap = az.Snapshot(N=2, mpcd_N=N)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    snap.particles.position[:] = [[-1, 0, 0], [1, 0, 0]]
+    z_fill = 0.98 if "plates" in kw else 1.0
+    snap.mpcd.position[:] = (rng.random((N, 3)) - 0.5) * np.asarray([L, L, z_fill * L])
+    snap.mpcd.velocity[:] = rng.normal(0, 1.0, (N, 3))
+    sim = az.Simulation(seed=5, **({} if az is ref else {"device": "cpu"}))
+    sim.create_state_from_snapshot(snap)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.02, methods=[az.md.methods.ConstantVolume()], forces=[])
+    sim.mpcd_dynamics = az.mpcd.SRD(dt=0.02, **kw)
+    return sim
+
+
+def _stream_bits(sim) -> dict:
+    mpcd = sim._mpcd
+    pos_a, vel_a, t_a = mpcd["_srd_anchor"]
+    return {"position": torch.cat(mpcd["position"]), "velocity": torch.cat(mpcd["velocity"]),
+            "anchor position": torch.cat(pos_a), "anchor velocity": torch.cat(vel_a),
+            "anchor time": torch.tensor(t_a)}
+
+
+def _same_stream(got, want, what):
+    for k, v in _stream_bits(want).items():
+        assert torch.equal(_stream_bits(got)[k], v), (what, k)
+
+
+@pytest.mark.parametrize("case", list(ADVANCE_CASES))
+def test_advance_graphs_are_the_eager_advance(case):
+    """The SRD advance on the graphs (a stand-in capture) is bitwise the
+    eager advance, over two chunkings each, the keys and the grid shift
+    drawn from the clock in the graphs and on the host eagerly: position,
+    velocity and the anchor after every stretch; the graphs hold one
+    collision key and the observation streams' keys."""
+    eager = _solvent(port, case)
+    graphs = [_solvent(port, case) for _ in range(2)]
+    for sim in graphs:
+        sim._capture = FakeCapture()
+    for n in (17, 6, 23):  # the eager run's chunks, graphs[0]'s too
+        eager.run(n)
+        graphs[0].run(n)
+        _same_stream(graphs[0], eager, f"{case} after {eager.timestep} steps")
+    for n in (9, 14, 5, 18):  # another chunking
+        graphs[1].run(n)
+    period = eager.mpcd_dynamics.period
+    for sim in graphs:
+        assert sim.timestep == eager.timestep == 46
+        assert not eager._advance_graphs_apply() and sim._advance_graphs_apply()
+        _same_stream(sim, eager, case)
+        runner = sim._advance_graphs
+        assert runner.replays >= 1 and runner.captures >= 1
+        leads = {k[1] for k in runner.graph_keys() if k[0] == "collide"}
+        assert leads <= set(range(1, period + 1)) and period in leads
+        assert all(0 <= k[1] < period for k in runner.graph_keys() if k[0] == "stream")
+    assert eager._advance_graphs is None
+
+
+@pytest.mark.parametrize("case", ["srd", "plates"])
+def test_advance_body_makes_no_host_read(case):
+    """A collision's graph body and the observation stream's, eagerly, as
+    captured and replayed, the draws keyed on the clock, read nothing on
+    the host."""
+    sim = _solvent(port, case)
+    sim._capture = FakeCapture()
+    sim.run(7)
+    runner, srd = sim._advance_graphs, sim.mpcd_dynamics
+    t_a = sim._mpcd["_srd_anchor"][2]
+    lead = srd.period
+    with no_host_reads():
+        runner.load(runner.pos_a, runner.vel_a, t_a)
+        for _ in range(3):  # first runs eagerly, captured and replayed, replayed
+            runner.run(("collide", 1000 + lead), lambda: srd._collide_body(
+                runner, t_a, lead, sim.seed))
+            runner.run(("stream", 1000), lambda: srd._stream_body(runner, 2))
+            t_a += lead
+    assert torch.equal(runner.clock, torch.tensor(t_a))
+    assert runner.captures >= 2 and runner.replays >= 4
+
+
+def test_advance_counters_under_replay(monkeypatch):
+    """K5's clock form and K10 count one launch a collision under replay:
+    a capture's launches are taken back and added at every replay (the
+    kernels stand in on the CPU as counting wrappers of the plain
+    versions)."""
+    from azplugins_tpu_torch import mpcd as M
+    from azplugins_tpu_torch.ops import cellsum_kernel as CK
+    from azplugins_tpu_torch.ops import rng_kernel as RK
+
+    draws, sums = RNG.collision_draws, M._cell_sums
+
+    def counted_draws(*args, **kwargs):
+        RK.launches_by_kernel["jax_normal_axis_clock"] = (
+            RK.launches_by_kernel.get("jax_normal_axis_clock", 0) + 1)
+        return draws(*args, **kwargs)
+
+    def counted_sums(*args, **kwargs):
+        CK.launches += 1
+        return sums(*args, **kwargs)
+
+    monkeypatch.setattr(RNG, "collision_draws", counted_draws)
+    monkeypatch.setattr(M, "_cell_sums", counted_sums)
+    sim = _solvent(port, "srd")
+    sim._capture = FakeCapture()
+    k5, k10 = RK.launches_by_kernel.get("jax_normal_axis_clock", 0), CK.launches
+    sim.run(10)
+    sim.run(15)
+    assert sim._advance_graphs.replays >= 20 and sim._advance_graphs.captures >= 1
+    assert RK.launches_by_kernel["jax_normal_axis_clock"] - k5 == 25
+    assert CK.launches - k10 == 25
+
+
+@pytest.mark.parametrize("case", ["coupled", "sharded", "profile", "eager", "whole"])
+def test_advance_eligibility(case, tmp_path):
+    """A coupled stream, a solvent in several blocks, a run inside profile
+    and the private _eager keep the eager advance, by the rule, before any
+    capture; a whole uncoupled stream takes the graphs."""
+    if case == "coupled":
+        sim = _eligibility_case("coupling")
+    else:
+        sim = _solvent(port, "srd")
+    sim._capture = FakeCapture()
+    if case == "sharded":  # a grid (a pair force) on 2 shards: the solvent in 2 blocks
+        f = port.pair.Hertz(nlist=port.md.nlist.Cell(buffer=0.4), default_r_cut=1.5)
+        f.params[("A", "A")] = dict(epsilon=1.0)
+        sim.operations.integrator.forces = [f]
+        sim.enable_spatial_decomposition(port.parallel.make_mesh(2, device="cpu", sharded=True))
+    sim._eager = case == "eager"
+    if case == "profile":
+        with sim.profile(tmp_path):
+            sim.run(6)
+            assert not sim._advance_graphs_apply()
+    else:
+        sim.run(6)
+        assert sim._advance_graphs_apply() == (case == "whole")
+    if case == "sharded":
+        assert len(sim._mpcd["position"]) == 2
+    assert (sim._advance_graphs is None) == (case != "whole")
+    if case == "whole":
+        assert sim._advance_totals["replays"] >= 1
+
+
+@pytest.mark.parametrize("kind", ["uncoupled", "uncoupled with plates"])
+def test_advance_graphs_match_reference(kind):
+    """Ten steps (two collisions) of the graphed advance within the bars of
+    test_torch_mpcd.py's two collisions (1e-6 of L in position, 1e-5 of
+    max|v| in velocity) of the JAX reference's jitted advance, the anchor
+    at the same clock."""
+    kw = dict(kT=1.0, body_force=(0.05, 0.0, 0.0))
+    if kind.endswith("plates"):
+        kw["plates"] = ("z", 8.0)
+    sims = []
+    for az in (ref, port):
+        rng = np.random.default_rng(3)
+        snap = az.Snapshot(N=8, mpcd_N=3000)
+        snap.configuration.box = [8.0, 8.0, 8.0, 0, 0, 0]
+        snap.particles.types = ["A"]
+        snap.particles.position[:] = (rng.random((8, 3)) - 0.5) * 7.2
+        snap.mpcd.position[:] = (rng.random((3000, 3)) - 0.5) * 8.0
+        snap.mpcd.velocity[:] = rng.normal(0, 1.0, (3000, 3))
+        snap.mpcd.velocity[:] -= snap.mpcd.velocity.mean(axis=0)
+        sim = az.Simulation(seed=7, **({} if az is ref else {"device": "cpu"}))
+        sim.create_state_from_snapshot(snap)
+        sim.operations.integrator = az.md.Integrator(
+            dt=0.02, methods=[az.md.methods.ConstantVolume()], forces=[])
+        sim.mpcd_dynamics = az.mpcd.SRD(dt=0.02, period=5, angle=130.0, cell_size=1.0, **kw)
+        sims.append(sim)
+    sims[1]._capture = FakeCapture()
+    for sim in sims:
+        sim.run(7)
+        sim.run(3)
+    assert sims[1]._advance_graphs.replays >= 1
+    (xr, vr), (xp, vp) = ((s.state.get_snapshot().mpcd.position,
+                           s.state.get_snapshot().mpcd.velocity) for s in sims)
+    np.testing.assert_allclose(xp, xr, rtol=0, atol=1e-6 * 8.0)
+    np.testing.assert_allclose(vp, vr, rtol=0, atol=1e-5 * np.abs(vr).max())
+    assert int(np.asarray(sims[0]._mpcd["_srd_anchor"][2])) == sims[1]._mpcd["_srd_anchor"][2] == 10

@@ -38,7 +38,14 @@ The run loop's CUDA graphs read the timestep on the card: K2, K4, K8 and
 K9 in their clock forms (core/rng.py's device_clock) are held bitwise to
 their host forms, past 2**32 too, and a small headline's captured rebuild
 segment, replayed, to the eager segments (every slot field and the
-launch counts).
+launch counts). So is K5's clock form (the SRD collision's keys and grid
+shift derived on the card, what the SRD advance's graphs run) to its
+host-key form and the host's shift, and a small SRD stream's graphed
+advance to its eager advance.
+
+The MPCD collision's cell sums (K10, csrc/cell_sums.cu) are held to the
+plain ordered sum (mpcd.py's _cell_sums_plain) bit for bit: every cell's
+rows added in ascending row order, as the CPU's index_add_ adds them.
 """
 
 import importlib
@@ -55,6 +62,7 @@ torch = pytest.importorskip("torch")
 import azplugins_tpu_torch as az  # noqa: E402
 from azplugins_tpu_torch.core import rng as RNG  # noqa: E402
 from azplugins_tpu_torch.ops import aniso_kernel as AK  # noqa: E402
+from azplugins_tpu_torch.ops import cellsum_kernel as CK  # noqa: E402
 from azplugins_tpu_torch.ops import cuda_build  # noqa: E402
 from azplugins_tpu_torch.ops import dense as D  # noqa: E402
 from azplugins_tpu_torch.ops import dpd_kernel as DK  # noqa: E402
@@ -453,13 +461,17 @@ def test_simulation_on_cuda_draws_through_the_rng_kernels(cuda_device, method):
     if method.startswith("SRD"):
         sim.mpcd_dynamics = az.mpcd.SRD(dt=0.02, period=1, cell_size=1.0, kT=1.0,
                                         plates=("z", L))
-    before = dict(RK.launches_by_kernel)
+    before, summed = dict(RK.launches_by_kernel), CK.launches
     stepped = IK.launches_by_kernel.get("step2", 0)
     sim.state.thermalize_particle_momenta(kT=1.0)
     sim.run(10)
     drawn = {k: v - before.get(k, 0) for k, v in RK.launches_by_kernel.items()}
+    assert CK.launches - summed == (10 if method.startswith("SRD") else 0)  # K10 a collision
     if method.startswith("SRD"):
-        assert drawn.get("jax_normal_axis", 0) == 10  # one K5 launch a collision: axes, fill
+        # one K5 launch a collision (the axes and the fill): the advance's
+        # graphs launch its clock form
+        assert drawn.get("jax_normal_axis", 0) == 0
+        assert drawn.get("jax_normal_axis_clock", 0) == 10
     elif method == "Langevin":
         assert drawn.get("particle_bits", 0) == 1  # thermalize
         assert IK.launches_by_kernel.get("step2", 0) - stepped >= 10
@@ -1091,6 +1103,142 @@ def test_evaporator_pick_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="CUDA"):
         XK.evaporator_pick(state.typeid.cpu(), state.position.cpu(), state.tag.cpu(), 10, 0, 1,
                            0.0, 1.0, float(state.box.L[2]), 203, 3, 5)
+
+
+# -- the SRD collision: K5's clock form and K10 --------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [9261, 4352, 1001])
+def test_collision_draws_kernel_is_the_host_key_form(cuda_device, rows):
+    """K5's clock form, the keys derived on the card from the clock (3
+    steps behind at offset 3) or the host's timestep word, bitwise K5's
+    host-key form under the host's keys and the host's shift and quotient,
+    past 2**32 and at a cell size whose reciprocal is not a float32; one
+    launch a call."""
+    from azplugins_tpu_torch import mpcd as M
+
+    for t in (0, 7, 2**31 + 5, 2**32 + 5):
+        kshift, kaxis, kvirt = M._collision_keys(11, t)
+        for cell_size, shift_on, second in ((1.0, True, True), (0.75, True, False),
+                                            (0.75, False, True)):
+            a = np.float32(cell_size)
+            shift = RNG.jax_uniform_host(kshift, 3) * a if shift_on else np.zeros(3, np.float32)
+            axis, normals = RNG.jax_normal_axis(kaxis, rows, cuda_device,
+                                                kvirt if second else None)
+            clock = torch.tensor(t - 3, dtype=torch.int64, device=cuda_device)
+            for on_clock in (True, False):
+                before = RK.launches_by_kernel.get("jax_normal_axis_clock", 0)
+                if on_clock:
+                    with RNG.device_clock(clock, 1000):
+                        got = RNG.collision_draws(M._inner_key(11), 1003, rows, cuda_device,
+                                                  cell_size, shift_on, second)
+                else:
+                    got = RNG.collision_draws(M._inner_key(11), t, rows, cuda_device, cell_size,
+                                              shift_on, second)
+                assert RK.launches_by_kernel["jax_normal_axis_clock"] == before + 1
+                assert torch.equal(got[0].view(torch.int32), axis.view(torch.int32))
+                assert (got[1] is None) == (not second)
+                if second:
+                    assert torch.equal(got[1].view(torch.int32), normals.view(torch.int32))
+                for g, w in ((got[2], shift), (got[3], shift / a)):
+                    np.testing.assert_array_equal(g.cpu().numpy().view(np.uint32),
+                                                  w.view(np.uint32))
+
+
+def _cell_sum_case(case, device):
+    """(cid, vel, mass, cells) of a collision's cell sums at a small shape:
+    pure SRD's (a row a cell on average, unit masses), the colloids' (a
+    solvent of 5 a cell and dense slots of mass 5, most of them empty and
+    binned to the trash cell), one deep cell, no row."""
+    g = np.random.default_rng({"srd": 1, "colloid": 2, "deep": 3, "empty": 4}[case])
+    cells, n = {"srd": (9261, 9261), "colloid": (4096, 28_672), "deep": (64, 6000),
+                "empty": (100, 0)}[case]
+    cid = g.integers(0, cells, n)
+    vel = g.normal(0, 1.0, (n, 3)).astype(np.float32)
+    mass = None
+    if case == "colloid":
+        slots = n - 5 * cells
+        invalid = np.zeros(n, bool)
+        invalid[5 * cells:] = g.random(slots) < 0.9
+        cid[invalid] = cells
+        vel[invalid] = 0.0
+        mass = np.where(np.arange(n) < 5 * cells, 1.0, np.where(invalid, 0.0, 5.0))
+        mass = torch.as_tensor(mass.astype(np.float32), device=device)
+    if case == "deep":
+        cid[: n // 2] = 17
+    return (torch.as_tensor(cid, device=device), torch.as_tensor(vel, device=device), mass, cells)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["srd", "colloid", "deep", "empty"])
+def test_cell_sums_kernel_bitwise(cuda_device, case):
+    """K10 bitwise the plain ordered cell sum on the card (its payload the
+    card's PyTorch operations), in one call, and two calls the same bits."""
+    from azplugins_tpu_torch import mpcd as M
+
+    cid, vel, mass, cells = _cell_sum_case(case, cuda_device)
+    before = CK.launches
+    got = M._cell_sums(cid, vel, mass, cells)
+    again = CK.cell_sums(cid, vel, mass, cells)
+    assert CK.launches == before + 2 and got.shape == (cells, 6)
+    want = M._cell_sums_plain(cid, M._payload(vel, mass), cells)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+def test_cell_sums_dispatch_and_refusals():
+    """On the CPU the cell sums take index_add_ and launch nothing; the
+    kernel's wrapper refuses CPU tensors and wrong dtypes."""
+    from azplugins_tpu_torch import mpcd as M
+
+    cid, vel, mass, cells = _cell_sum_case("colloid", "cpu")
+    before = CK.launches
+    got = M._cell_sums(cid, vel, mass, cells)
+    want = torch.zeros((cells + 1, 6)).index_add_(0, cid, M._payload(vel, mass))[:cells]
+    assert CK.launches == before and torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        CK.cell_sums(cid, vel, mass, cells)
+    if torch.cuda.is_available():
+        with pytest.raises(TypeError, match="int64"):
+            CK.cell_sums(cid.int().cuda(), vel.cuda(), None, cells)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plates", [False, True], ids=["periodic", "plates"])
+def test_advance_graphs_are_the_eager_advance_on_the_card(cuda_device, plates):
+    """A small SRD stream's advance as CUDA graphs (K5's clock form and K10
+    inside) bitwise its eager advance (K5's host-key form, K10), over two
+    chunkings; one K5 and one K10 launch a collision under replay."""
+    runs = []
+    for eager, chunks in ((True, (17, 6, 23)), (False, (9, 14, 5, 18))):
+        g = np.random.default_rng(3)
+        L, N = 8.0, 4096
+        snap = az.Snapshot(N=2, mpcd_N=N)
+        snap.configuration.box = [L, L, L, 0, 0, 0]
+        snap.particles.types = ["A"]
+        snap.particles.position[:] = [[-1, 0, 0], [1, 0, 0]]
+        snap.mpcd.position[:] = (g.random((N, 3)) - 0.5) * [L, L, 0.95 * L]
+        snap.mpcd.velocity[:] = g.normal(0, 1.0, (N, 3))
+        sim = az.Simulation(device=cuda_device, seed=3)
+        sim.create_state_from_snapshot(snap)
+        sim.operations.integrator = az.md.Integrator(
+            dt=0.02, methods=[az.md.methods.ConstantVolume()], forces=[])
+        sim.mpcd_dynamics = az.mpcd.SRD(
+            dt=0.02, period=2, cell_size=1.0, kT=1.0, body_force=(0.05, 0.0, 0.0),
+            **({"plates": ("z", L)} if plates else {}))
+        sim._eager = eager
+        before = (dict(RK.launches_by_kernel), CK.launches)
+        for n in chunks:
+            sim.run(n)
+        torch.cuda.synchronize()
+        k5 = sum(RK.launches_by_kernel.get(k, 0) - before[0].get(k, 0)
+                 for k in ("jax_normal_axis", "jax_normal_axis_clock"))
+        assert k5 == CK.launches - before[1] == 23  # 46 steps, period 2
+        runs.append(sim)
+    eager, graphs = runs
+    assert eager._advance_graphs is None and graphs._advance_graphs.replays >= 10
+    for key in ("position", "velocity"):
+        assert torch.equal(torch.cat(graphs._mpcd[key]).view(torch.int32),
+                           torch.cat(eager._mpcd[key]).view(torch.int32)), key
 
 
 def test_threefry_rounds_are_one_header():

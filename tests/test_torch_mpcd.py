@@ -15,10 +15,15 @@ Against the reference, from identical inputs made with numpy:
     bars (longer runs are held by their invariants: an ulp in a position
     can move a particle across a cell face and change its velocity by
     O(1)).
-Within the port, on the CPU, where the cell sums are deterministic: the
-conservation laws, the thermostat, bitwise chunking invariance (uncoupled
-and coupled), the body force, a small Poiseuille slit, the coupling's
-firing inside the chunk and its anchor on the MD clock, and the errors.
+Within the port: the collision's keys, draws and grid shift formed on the
+device from a clock (``core/rng.py::collision_draws``, what a CUDA graph of
+a collision runs) bitwise the host's, past 2**31 and at a cell size whose
+reciprocal is not a float32; the plain ordered cell sum
+(``mpcd._cell_sums_plain``, which the card's K10 is held to) bitwise the
+CPU's ``index_add_``; the conservation laws, the thermostat, bitwise
+chunking invariance (uncoupled and coupled), the body force, a small
+Poiseuille slit, the coupling's firing inside the chunk and its anchor on
+the MD clock, and the errors.
 """
 
 import warnings
@@ -106,6 +111,75 @@ def test_collision_keys_and_shift_bitwise(seed, t):
                           * jnp.float32(cell_size))
         got = P.jax_uniform_host(keys[0], 3) * np.float32(cell_size)
         np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("t", [0, 120, 2**31 + 5, 4_000_000_000])
+@pytest.mark.parametrize("cell_size", [1.0, 0.75])
+def test_collision_draws_on_the_clock_bitwise(t, cell_size):
+    """The collision's draws formed from a clock (the timestep word a
+    tensor: the keys hashed as tensors, the shift's uniforms and its
+    quotient by the cell size as tensor operations) are bitwise the host
+    keys' draws and the host's shift, with and without the shift and the
+    virtual fill's second key; the shift as the reference draws it."""
+    for seed in (0, 11, 0xFFFF):
+        kshift, kaxis, kvirt = port.mpcd._collision_keys(seed, t)
+        _, subkeys = _ref_key(seed, t)
+        a = np.float32(cell_size)
+        want_shift = np.asarray(jax.random.uniform(subkeys[0], (3,), jnp.float32) * a)
+        for shift_on in (True, False):
+            host = P.jax_uniform_host(kshift, 3) * a if shift_on else np.zeros(3, np.float32)
+            if shift_on:
+                np.testing.assert_array_equal(host.view(np.uint32), want_shift.view(np.uint32))
+            axis, virt = P._jax_normal_axis_plain(kaxis, 64, "cpu", kvirt)
+            clock = torch.tensor(t - 7, dtype=torch.int64)
+            with P.device_clock(clock, 100):
+                got = P.collision_draws(port.mpcd._inner_key(seed), 107, 64, "cpu", cell_size,
+                                        shift_on, second=True)
+            assert got[0].shape == (64, 3) and got[1].shape == (64, 3)
+            for g, w in ((got[0], axis), (got[1], virt)):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+            for g, w in ((got[2], host), (got[3], host / a)):
+                np.testing.assert_array_equal(g.numpy().view(np.uint32), w.view(np.uint32))
+            one = P.collision_draws(port.mpcd._inner_key(seed), t, 64, "cpu", cell_size,
+                                    shift_on)
+            assert one[1] is None and torch.equal(one[0], got[0])
+            assert torch.equal(one[2], got[2]) and torch.equal(one[3], got[3])
+
+
+@pytest.mark.parametrize("case", ["srd", "duplicates", "trash"])
+def test_cell_sums_plain_is_index_add(case):
+    """The plain ordered cell sum (a stable sort by cell, rounds by rank)
+    is bitwise ``index_add_`` on the CPU (each cell's rows in ascending row
+    order from +0.0), with duplicates, empty cells and trash rows (binned
+    to cell C, left out); the CPU's dispatch takes ``index_add_``."""
+    rng = np.random.default_rng({"srd": 1, "duplicates": 2, "trash": 3}[case])
+    C, n = {"srd": (512, 512), "duplicates": (40, 3000), "trash": (300, 1200)}[case]
+    cid = rng.integers(0, C, n)
+    if case == "duplicates":
+        cid[:1500] = 7  # one deep cell; most of the 40 others hold ~40 rows
+        cid[cid == 11] = 12  # an empty cell
+    vel = (rng.normal(0, 1.0, (n, 3)) * rng.choice([1e-3, 1.0, 30.0], (n, 1))).astype(np.float32)
+    mass = None
+    if case == "trash":
+        invalid = rng.random(n) < 0.4
+        cid[invalid] = C
+        mass = np.where(invalid, 0.0, rng.choice([1.0, 5.0], n)).astype(np.float32)
+        mass = torch.as_tensor(mass)
+    cid, vel = torch.as_tensor(cid), torch.as_tensor(vel)
+    pay = port.mpcd._payload(vel, mass)
+    want = torch.zeros((C + 1, 6), dtype=torch.float32).index_add_(0, cid, pay)[:C]
+    got = port.mpcd._cell_sums_plain(cid, pay, C)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(port.mpcd._cell_sums(cid, vel, mass, C).view(torch.int32),
+                       want.view(torch.int32))
+    if case == "duplicates":
+        assert float(got[7, 0]) >= 1500 and float(got[11, 0]) == 0.0
+    # the order matters: the sums of the deepest cell in another order differ
+    # somewhere, so the plain version holds the order, not only the value
+    if case == "duplicates":
+        rev = torch.zeros((C + 1, 6), dtype=torch.float32).index_add_(
+            0, cid.flip(0), pay.flip(0))[:C]
+        assert not torch.equal(rev, want)
 
 
 def test_normals_and_axes_within_bar():
