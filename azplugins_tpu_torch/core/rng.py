@@ -51,6 +51,8 @@ import contextlib
 import numpy as np
 import torch
 
+from ..utils import sqrt
+
 __all__ = [
     "Stream",
     "FAST_ROUNDS",
@@ -342,7 +344,7 @@ def xla_erfinv(x: torch.Tensor) -> torch.Tensor:
     the tensor's device: ``torch.erfinv`` is another approximation."""
     w = -torch.log1p(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, sqrt(w) - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
     for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = torch.where(lt, c_lt, c_ge) + p * w
@@ -380,7 +382,7 @@ def _jax_normal_axis_plain(key: tuple[int, int], rows: int, device, second=None)
     """The plain version of :func:`jax_normal_axis`: two plain draws and
     the normalisation as PyTorch operations."""
     axis = _jax_normal_plain(key, (rows, 3), device)
-    axis = axis / torch.clamp_min(torch.sqrt(torch.sum(axis * axis, dim=1, keepdim=True)), 1e-12)
+    axis = axis / torch.clamp_min(sqrt(torch.sum(axis * axis, dim=1, keepdim=True)), 1e-12)
     return axis, None if second is None else _jax_normal_plain(second, (rows, 3), device)
 
 

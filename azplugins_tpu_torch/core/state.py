@@ -14,7 +14,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils import frozen_dataclass
+from ..utils import frozen_dataclass, sqrt
 from .box import Box
 from .rng import Stream, particle_bits, uniform_from_bits
 from .snapshot import Snapshot
@@ -144,7 +144,7 @@ def _gaussians(stream: int, seed: int, tag: torch.Tensor) -> torch.Tensor:
     for k in range(3):
         u1 = torch.clamp_min(uniform_from_bits(words[2 * k], 0.0, 1.0), eps)
         u2 = uniform_from_bits(words[2 * k + 1], 0.0, 1.0)
-        gauss.append(torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2))
+        gauss.append(sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2))
     return torch.stack(gauss, dim=-1)
 
 
@@ -159,7 +159,7 @@ def thermalize_momenta(state: State, kT: float, seed: int, mask=None) -> State:
     """
     n = state.N
     gauss = _gaussians(Stream.THERMALIZE, seed, state.tag)
-    sigma = torch.sqrt(float(np.float32(kT)) / state.mass)[:, None]
+    sigma = sqrt(float(np.float32(kT)) / state.mass)[:, None]
     vel = gauss * sigma
     if mask is None:
         mask = torch.ones((n,), dtype=torch.bool, device=state.device)
@@ -175,7 +175,7 @@ def thermalize_momenta(state: State, kT: float, seed: int, mask=None) -> State:
 
         gauss_r = _gaussians(Stream.THERMALIZE_ANGULAR, seed, state.tag)
         active = inertia > 1e-12
-        L_body = torch.where(active, gauss_r * torch.sqrt(float(np.float32(kT)) * inertia), 0.0)
+        L_body = torch.where(active, gauss_r * sqrt(float(np.float32(kT)) * inertia), 0.0)
         zeros = torch.zeros((n, 1), dtype=torch.float32, device=state.device)
         p = 2.0 * R.quat_mul(state.orientation, torch.cat([zeros, L_body], dim=-1))
         rotating = mask & active.any(dim=-1)

@@ -34,6 +34,7 @@ from .core.variant import Variant, as_variant, value_at
 from .md.force import Force
 from .ops.evaluators import BARRIERS, WALL_POTENTIALS
 from .ops.pair_force import ForceResult
+from .utils import sqrt
 
 __all__ = [
     "HarmonicBarrier",
@@ -173,7 +174,7 @@ class _Sphere(_Geometry):
 
     def distance(self, pos):
         rel = pos - self._const("origin", pos.device)
-        rho = torch.sqrt(torch.sum(rel * rel, dim=-1))
+        rho = sqrt(torch.sum(rel * rel, dim=-1))
         rhat = rel / torch.clamp_min(rho, 1e-12)[:, None]
         if self.inside:
             return self.radius - rho, -rhat
@@ -205,7 +206,7 @@ class _Cylinder(_Geometry):
         axis = self._const("axis", pos.device)
         rel = pos - self._const("origin", pos.device)
         rel_r = rel - torch.sum(rel * axis, dim=-1)[:, None] * axis
-        rho = torch.sqrt(torch.sum(rel_r * rel_r, dim=-1))
+        rho = sqrt(torch.sum(rel_r * rel_r, dim=-1))
         rhat = rel_r / torch.clamp_min(rho, 1e-12)[:, None]
         if self.inside:
             return self.radius - rho, -rhat

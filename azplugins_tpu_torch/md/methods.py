@@ -53,6 +53,7 @@ from ..core.variant import as_variant, value_at
 from ..ops import dense as D
 from . import rotation as R
 from .filter import All, ParticleFilter
+from ..utils import sqrt
 
 __all__ = ["Method", "DriftCheck", "ConstantVolume", "Langevin", "LangevinFlow", "Brownian",
            "BrownianFlow"]
@@ -281,7 +282,7 @@ class LangevinFlow(_GammaMixin, Method):
             random_force = torch.zeros_like(state.velocity)
         else:
             u = _rng.particle_uniform3(self._rng_stream, seed, timestep, state.tag)
-            random_force = torch.sqrt(6.0 * gp * kT / dt)[:, None] * u
+            random_force = sqrt(6.0 * gp * kT / dt)[:, None] * u
         rel_vel = state.velocity
         if self.flow_field is not None:
             # flow fields are defined on in-box coordinates; positions drift
@@ -315,7 +316,7 @@ class LangevinFlow(_GammaMixin, Method):
             rand = torch.zeros_like(omega)
         else:
             u = _rng.particle_uniform3(_rng.Stream.LANGEVIN_ANGULAR, seed, timestep, state.tag)
-            rand = torch.sqrt(6.0 * gr * kT / dt) * u
+            rand = sqrt(6.0 * gr * kT / dt) * u
         bd_body = torch.where(active, rand - gr * omega, 0.0)
         torque = state.net_torque + R.rotate(q, bd_body)
         p = R.angmom_kick(q, p, torque, inertia, dt)
@@ -360,7 +361,7 @@ class BrownianFlow(_GammaMixin, Method):
         if self.noiseless or dt <= 0:
             coeff = torch.zeros((state.N, 1), dtype=torch.float32, device=state.device)
         else:
-            coeff = torch.sqrt(6.0 * gp * kT / dt)[:, None]
+            coeff = sqrt(6.0 * gp * kT / dt)[:, None]
         u = _rng.particle_uniform3(self._rng_stream, seed, timestep, state.tag)
         random_force = coeff * u
         if self.flow_field is None:

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.quaternion import rotate, rotate_inv
+from ..utils import sqrt
 
 __all__ = [
     "quat_mul",
@@ -131,7 +132,7 @@ def free_rotation(q, p, inertia, dt: float):
     q, p = _axis_rotation(q, p, Ix, act[..., 0], _perm1, dt)
     q, p = _axis_rotation(q, p, Iy, act[..., 1], _perm2, half)
     q, p = _axis_rotation(q, p, Iz, act[..., 2], _perm3, half)
-    norm = torch.sqrt(torch.clamp_min(torch.sum(q * q, dim=-1, keepdim=True), _EPS))
+    norm = sqrt(torch.clamp_min(torch.sum(q * q, dim=-1, keepdim=True), _EPS))
     return q / norm, p
 
 

@@ -68,6 +68,7 @@ import torch
 
 from .core import rng as _rng
 from .ops import cellsum_kernel
+from .utils import sqrt
 
 __all__ = ["SRD", "CollisionCoupling"]
 
@@ -460,7 +461,7 @@ class SRD:
                 idx_ax = cell // (Dy * Dz)
             n_virt = nv_ax[idx_ax]
             mf = float(_F32(mass_fill))
-            sigma = torch.sqrt(torch.clamp_min(n_virt, 0.0) * float(_F32(self.kT)) * mf)
+            sigma = sqrt(torch.clamp_min(n_virt, 0.0) * float(_F32(self.kT)) * mf)
             pv = virt * sigma[:, None]
             vsum = vsum + pv
             m_cell = msum + n_virt * mf  # the fill joins the mass sum
@@ -477,7 +478,7 @@ class SRD:
             k_rel = 0.5 * (sum_mv2 - 2.0 * torch.sum(vsum_real * u, dim=1)
                            + msum * torch.sum(u * u, dim=1))
             target = 1.5 * torch.clamp_min(cnt - 1.0, 0.0) * float(_F32(self.kT))
-            scale = torch.sqrt(torch.where(k_rel > 1e-12,
+            scale = sqrt(torch.where(k_rel > 1e-12,
                                            target / torch.clamp_min(k_rel, 1e-12), 1.0))
             cols.append(torch.where(cnt > 1.5, scale, 1.0)[:, None])
 

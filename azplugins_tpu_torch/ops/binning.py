@@ -21,6 +21,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils import sqrt
+
 __all__ = ["cartesian_coords", "cylindrical_coords", "bin_particles"]
 
 
@@ -30,7 +32,7 @@ def cartesian_coords(position, velocity):
 
 def cylindrical_coords(position, velocity):
     x, y, z = position[..., 0], position[..., 1], position[..., 2]
-    r = torch.sqrt(x * x + y * y)
+    r = sqrt(x * x + y * y)
     theta = torch.atan2(y, x)
     theta = torch.where(theta < 0, theta + 2.0 * math.pi, theta)
     coords = torch.stack([r, theta, z], dim=-1)

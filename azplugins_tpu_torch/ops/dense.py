@@ -34,7 +34,7 @@ import torch
 from ..core import rng as _rng
 from ..core.box import Box
 from ..core.state import State
-from ..utils import frozen_dataclass
+from ..utils import frozen_dataclass, sqrt
 from .pair_force import ForceResult, _xplor_smooth
 
 __all__ = [
@@ -466,7 +466,7 @@ def _top_two(v: torch.Tensor) -> tuple:
 
 def _drift_exceeds(m1, m2, spec: GridSpec) -> torch.Tensor:
     m2 = torch.clamp_min(m2, 0.0)
-    return torch.sqrt(m1) + torch.sqrt(m2) > float(np.float32(spec.buffer))
+    return sqrt(m1) + sqrt(m2) > float(np.float32(spec.buffer))
 
 
 def _drift_kernels():
@@ -943,7 +943,7 @@ def dpd_sigma_table(gamma: torch.Tensor, kT, dt: float) -> torch.Tensor:
     dt = float(np.float32(dt))
     if dt <= 0:
         return torch.zeros_like(gamma)
-    return torch.sqrt(6.0 * gamma * kT / max(dt, 1e-20))
+    return sqrt(6.0 * gamma * kT / max(dt, 1e-20))
 
 
 def dense_dpd_force(
@@ -993,7 +993,7 @@ def dense_dpd_force(
         rsq_safe = torch.where(mask, rsq, 1.0)
         rcut_safe = torch.where(rcut > 0, rcut, 2.0)
 
-        rinv = 1.0 / torch.sqrt(rsq_safe)
+        rinv = 1.0 / sqrt(rsq_safe)
         r = rsq_safe * rinv
         rcutinv = 1.0 / rcut_safe
         f_cons = p["A"] * (rinv - rcutinv)

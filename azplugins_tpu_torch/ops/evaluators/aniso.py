@@ -25,6 +25,7 @@ from typing import Callable
 import torch
 
 from ...utils.quaternion import rotate_x_parts
+from ...utils import sqrt
 
 __all__ = ["AnisoPairPotentialDef", "ANISO_PAIR_POTENTIALS", "two_patch_morse", "morse_cut"]
 
@@ -69,7 +70,7 @@ def morse_cut(rcutsq, p):
     """The raw Morse energy at the cutoff (no flat-bottom clamp), which the
     shift mode subtracts scaled by Omega_i Omega_j (reference plugin
     AnisoPairEvaluatorTwoPatchMorse.h:194-207)."""
-    rcut = torch.sqrt(rcutsq)
+    rcut = sqrt(rcutsq)
     exp_cut = torch.exp(-(rcut - p["r_eq"]) * p["M_rinv"])
     one_minus_cut = 1.0 - exp_cut
     return p["M_d"] * (one_minus_cut * one_minus_cut - 1.0)
@@ -79,7 +80,7 @@ def two_patch_morse(dxyz, quat_i, quat_j, rcutsq, p, energy_shift: bool):
     dx, dy, dz = dxyz
     rsq = dx * dx + dy * dy + dz * dz
     rsq_safe = torch.where(rsq > 0, rsq, 1.0)
-    rinv = 1.0 / torch.sqrt(rsq_safe)
+    rinv = 1.0 / sqrt(rsq_safe)
     r = rsq_safe * rinv
     ux, uy, uz = dx * rinv, dy * rinv, dz * rinv
 

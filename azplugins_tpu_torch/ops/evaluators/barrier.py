@@ -20,6 +20,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ...utils import sqrt
+
 __all__ = ["BarrierDef", "BARRIERS", "planar_barrier", "spherical_barrier"]
 
 
@@ -44,7 +46,7 @@ def _planar_valid(H, box) -> bool:
 
 
 def spherical_barrier(pos, R, k, offset):
-    r = torch.sqrt(torch.sum(pos * pos, dim=-1))
+    r = sqrt(torch.sum(pos * pos, dim=-1))
     dr = r - (R + offset)
     on = dr > 0.0
     k_dr = k * dr

@@ -15,6 +15,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ...utils import sqrt
+
 __all__ = [
     "BondPotentialDef", "BOND_POTENTIALS", "double_well", "quartic", "harmonic", "fenewca",
 ]
@@ -41,7 +43,7 @@ def double_well(rsq, p):
     r_diff = p["r_diff"]
     valid = r_diff != 0
     r_diff = torch.where(valid, r_diff, 1.0)
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     x = (p["r_1"] - r) / r_diff
     x2 = x * x
     y = 1.0 - x2
@@ -67,7 +69,7 @@ def _quartic_precompute(t: dict) -> dict:
 
 def quartic(rsq, p):
     valid = p["r_0"] != 0
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     rs = r - p["delta"]  # shifted distance (delta=0 reduces to r)
     rs_safe = torch.where(rs == 0, 1e-20, rs)
 
@@ -105,7 +107,7 @@ def _harmonic_precompute(t: dict) -> dict:
 
 
 def harmonic(rsq, p):
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     dr = r - p["r0"]
     e = 0.5 * p["k"] * dr * dr
     f = -p["k"] * dr / r  # F_a = f * (r_a - r_b): negative = attractive
@@ -126,7 +128,7 @@ def _fenewca_precompute(t: dict) -> dict:
 def fenewca(rsq, p):
     valid = p["R0"] != 0
     R0 = torch.where(valid, p["R0"], 1.0)
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     rs = r - p["delta"]
     rs_safe = torch.where(rs == 0, 1e-20, rs)
 

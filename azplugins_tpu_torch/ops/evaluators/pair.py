@@ -18,6 +18,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ...utils import sqrt
+
 __all__ = [
     "PairPotentialDef",
     "PAIR_POTENTIALS",
@@ -121,7 +123,7 @@ def _colloid_sphere_point(rsq, A, sigma_3, a):
 def _colloid_sphere_sphere(rsq, A, sigma_3, ai, aj):
     """Both radii nonzero: Everaers-Ejtehadi sphere-sphere form."""
     sigma_6 = sigma_3 * sigma_3
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     k0 = ai * aj
     k1 = ai + aj
     k2 = ai - aj
@@ -189,7 +191,7 @@ def _yukawa_precompute(t: dict) -> dict:
 
 
 def expanded_yukawa(rsq, rcutsq, p):
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     rd = r - p["delta"]
     rd = torch.where(rd == 0, 1e-20, rd)
     rd_inv = 1.0 / rd
@@ -207,10 +209,10 @@ def _hertz_precompute(t: dict) -> dict:
 
 
 def hertz(rsq, rcutsq, p):
-    r = torch.sqrt(rsq)
-    rcut = torch.sqrt(rcutsq)
+    r = sqrt(rsq)
+    rcut = sqrt(rcutsq)
     x = torch.clamp_min(1.0 - r / rcut, 0.0)
-    ex32 = p["epsilon"] * x * torch.sqrt(x)
+    ex32 = p["epsilon"] * x * sqrt(x)
     e = ex32 * x
     f = 2.5 * ex32 / (r * rcut)
     return _active(p["epsilon"], e, f)
@@ -226,9 +228,9 @@ def _dpd_precompute(t: dict) -> dict:
 
 
 def dpd_general_weight_conservative(rsq, rcutsq, p):
-    rinv = torch.where(rsq > 0, 1.0 / torch.sqrt(rsq), 0.0)
-    r = torch.sqrt(rsq)
-    rcut = torch.sqrt(rcutsq)
+    rinv = torch.where(rsq > 0, 1.0 / sqrt(rsq), 0.0)
+    r = sqrt(rsq)
+    rcut = sqrt(rcutsq)
     rcutinv = 1.0 / rcut
     f = p["A"] * (rinv - rcutinv)
     e = p["A"] * (rcut - r) - 0.5 * p["A"] * rcutinv * (rcutsq - rsq)
@@ -258,7 +260,7 @@ def _morse_precompute(t: dict) -> dict:
 
 
 def morse(rsq, rcutsq, p):
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     ea = torch.exp(-p["alpha"] * (r - p["r0"]))
     e = p["D0"] * ea * (ea - 2.0)
     f = 2.0 * p["D0"] * p["alpha"] * ea * (ea - 1.0) / r
@@ -282,7 +284,7 @@ def _plain_yukawa_precompute(t: dict) -> dict:
 
 
 def yukawa(rsq, rcutsq, p):
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     rinv = 1.0 / r
     e = p["epsilon"] * torch.exp(-p["kappa"] * r) * rinv
     f = e * (p["kappa"] + rinv) * rinv

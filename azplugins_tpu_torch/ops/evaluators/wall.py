@@ -20,6 +20,8 @@ from typing import Callable
 
 import torch
 
+from ...utils import sqrt
+
 __all__ = ["WallPotentialDef", "WALL_POTENTIALS", "lj93", "colloid_wall"]
 
 
@@ -41,7 +43,7 @@ def _lj93_precompute(t: dict) -> dict:
 
 def lj93(rsq, rcutsq, p, diameter=None):
     r2inv = 1.0 / rsq
-    r3inv = r2inv * torch.sqrt(r2inv)
+    r3inv = r2inv * sqrt(r2inv)
     r6inv = r3inv * r3inv
     f = r2inv * r3inv * (9.0 * p["lj1"] * r6inv - 3.0 * p["lj2"])
     e = r3inv * (p["lj1"] * r6inv - p["lj2"])
@@ -56,7 +58,7 @@ def _colloid_wall_precompute(t: dict) -> dict:
 
 def colloid_wall(rsq, rcutsq, p, diameter):
     a = 0.5 * diameter
-    r = torch.sqrt(rsq)
+    r = sqrt(rsq)
     arinv = a / r
     rma = r - a
     rma = torch.where(rma == 0, 1e-20, rma)

@@ -126,6 +126,7 @@ from .core.state import State, state_from_snapshot, state_to_snapshot, thermaliz
 from .md.force import ForceResult, SimContext
 from .md.methods import DriftCheck
 from .ops import dense as D
+from .utils import sqrt
 
 __all__ = ["Simulation", "Operations"]
 
@@ -684,7 +685,7 @@ class Simulation:
         shards = _as_shards(dense)
         vsq = [torch.sum(s.velocity * s.velocity, dim=-1).max() for s in shards]
         vsq = vsq[0] if len(vsq) == 1 else torch.stack([v.to(self.device) for v in vsq]).max()
-        vmax = float(torch.sqrt(vsq))
+        vmax = float(sqrt(vsq))
         dt = self.dt_ref()
         if vmax <= 0 or dt <= 0:
             return None

@@ -11,9 +11,11 @@ from __future__ import annotations
 import dataclasses
 from typing import TypeVar
 
+import torch
+
 T = TypeVar("T")
 
-__all__ = ["frozen_dataclass"]
+__all__ = ["frozen_dataclass", "sqrt"]
 
 
 def frozen_dataclass(cls: type[T]) -> type[T]:
@@ -25,3 +27,19 @@ def frozen_dataclass(cls: type[T]) -> type[T]:
 
     cls.replace = replace
     return cls
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of ``x``, as the reference's
+    ``jnp.sqrt`` gives it on every host.
+
+    PyTorch's CPU ``torch.sqrt`` on float32 is not correctly rounded on every
+    host (a vectorised kernel can land 1 ulp off), so a float32 tensor on the
+    CPU takes its root in float64 and rounds once to float32: a double has
+    53 >= 2 * 24 + 2 bits, so the double rounding is innocuous for a square
+    root. Every other tensor, and every CUDA tensor (whose ``torch.sqrt`` is
+    IEEE, as the kernels' ``sqrtf`` is), takes ``torch.sqrt`` as it is.
+    """
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)

@@ -43,12 +43,14 @@
    rows into 262,144 cells), the colloids' (163,840 solvent and 74,088
    dense slots, 2,744 of mass 5, the empty ones trashed; 32,768 cells) and
    the Poiseuille slit's (40,000 rows, 4,352 cells), and at one deep cell,
-   two calls the same bits; K5's clock form (the collision's keys and grid
-   shift derived on the card from a clock) bitwise its host-key form and
-   the host's shift at the three grids, CLOCK_STEPS, two cell sizes, the
-   shift on and off; times K10 queued and in a replay against CUDA
-   index_add_ (its library call) and its bound, and K5's clock form
-   against its host-key form;
+   every row in one cell, only trash rows and no row, two calls the same
+   bits and every lane group the same bits; K5's clock form (the
+   collision's keys and grid shift derived on the card from a clock)
+   bitwise its host-key form and the host's shift at the three grids,
+   CLOCK_STEPS, two cell sizes, the shift on and off; times K10 queued and
+   in a replay against CUDA index_add_ (its library call) and its bound,
+   with the CUDA graph nodes a call of each, and K5's clock form against
+   its host-key form;
 5. runs, through the public API, each with the launch counts set to 0 just
    before it and read just after (configs 1-5 and every other simulation
    that qualifies run their rebuild segments as CUDA graphs, and print
@@ -197,6 +199,9 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import gc
 import json
 import re
 import subprocess
@@ -443,6 +448,20 @@ def _cuda_time_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def _collector_held():
+    """Python's cyclic collector held off for a capture: it may free an
+    earlier phase's CUDA graphs, which a capture forbids (the port's own
+    captures hold it off likewise, graph.py::cuda_capture)."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def _replay_time_ms(fn, reps: int, replays: int = 5, warm: int = 2) -> float:
     """Device ms per call inside a CUDA graph: ``reps`` calls captured into
     one graph (their outputs from the graph's pool), replayed once to warm
@@ -451,7 +470,7 @@ def _replay_time_ms(fn, reps: int, replays: int = 5, warm: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with _collector_held(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -463,6 +482,23 @@ def _replay_time_ms(fn, reps: int, replays: int = 5, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def _graph_nodes(fn) -> int:
+    """The nodes of a CUDA graph that captures one call of ``fn``: what a
+    replay of the call launches (libcuda's cuGraphGetNodes)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with _collector_held(), torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    count = ctypes.c_size_t(0)
+    err = libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed ({err})")
+    return count.value
 
 
 def _lattice_snapshot(az, counts, rho, jitter, seed, tilt=(0.0, 0.0, 0.0), n_types=1,
@@ -1451,7 +1487,8 @@ def check_rng(az, RK):
 def _cellsum_shapes(az, device):
     """{label: (cid, vel, mass, cells)}: a collision's cell sums at the MPCD
     paths' shapes, the cell ids from an SRD's own binning under a grid
-    shift (one seed each), and one deep cell."""
+    shift (one seed each), and at the Poiseuille slit's rows one deep cell,
+    every row in one cell, only trash rows and no row."""
     from azplugins_tpu_torch import mpcd as M
     from azplugins_tpu_torch.core.box import Box
 
@@ -1484,7 +1521,21 @@ def _cellsum_shapes(az, device):
     cid, vel, _, cells = out["poiseuille"]
     out["deep"] = (torch.where(torch.arange(cid.numel(), device=device) < CELLSUM_DEEP, 5, cid),
                    vel, None, cells)
+    out["one cell"] = (torch.full_like(cid, 5), vel, None, cells)
+    out["trash only"] = (torch.full_like(cid, cells), vel, None, cells)
+    out["no rows"] = (cid[:0], vel[:0], None, cells)
     return out
+
+
+@contextlib.contextmanager
+def lane_group(CK, group):
+    """K10 with ``group`` lanes a cell in place of its rule's pick."""
+    rule = CK.group_width
+    CK.group_width = lambda n, cells: group
+    try:
+        yield
+    finally:
+        CK.group_width = rule
 
 
 def _cellsum_bound(cid, mass, cells):
@@ -1499,11 +1550,13 @@ def _cellsum_bound(cid, mass, cells):
 def check_cellsum(az, RK, CK):
     """[cellsum]: K10 against the plain ordered cell sum on the card,
     bitwise, at pure SRD's, the colloids' and the Poiseuille slit's shapes
-    and at one deep cell, two calls the same bits; K5's clock form against
-    its host-key form and the host's shift, bitwise, at the three MPCD
-    grids; each timed queued and in a replay, K10 against CUDA index_add_
-    (its library call: the same sums, atomic) and its bound, K5's clock
-    form against the host-key form. Returns {kernel: timing}."""
+    and at one deep cell, every row in one cell, only trash rows and no row,
+    two calls the same bits, every lane group the same bits; K5's clock form
+    against its host-key form and the host's shift, bitwise, at the three
+    MPCD grids; each timed queued and in a replay, K10 against CUDA
+    index_add_ (its library call: the same sums, atomic) and its bound with
+    the graph nodes a call of each, K5's clock form against the host-key
+    form. Returns {kernel: timing}."""
     from azplugins_tpu_torch import mpcd as M
     from azplugins_tpu_torch.core import rng
 
@@ -1524,13 +1577,22 @@ def check_cellsum(az, RK, CK):
             diff = float((got - want).abs().max())
             raise AssertionError(f"cellsum {label}: K10 differs from the plain ordered sum "
                                  f"(max |diff| {diff:.3e}) or from itself")
-        atomic = torch.zeros((cells + 1, 6), device=dev).index_add_(0, cid, pay)[:cells]
-        deepest = int(torch.bincount(cid, minlength=cells + 1)[:cells].max())
-        lines.append(f"{label} ({cid.numel():,} rows, {cells:,} cells, deepest {deepest}): "
-                     f"bitwise; CUDA index_add_ max |diff| "
-                     f"{float((atomic - want).abs().max()):.3e}")
-        if label == "deep":
+        for group in CK.GROUPS:  # every lane group the same bits
+            with lane_group(CK, group):
+                every = CK.cell_sums(cid, vel, mass, cells)
+            if not torch.equal(every.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"cellsum {label}: K10 with {group} lanes a cell differs "
+                                     f"from the plain ordered sum")
+        n = cid.numel()
+        deepest = int(torch.bincount(cid, minlength=cells + 1)[:cells].max()) if n else 0
+        line = (f"{label} ({n:,} rows, {cells:,} cells, deepest {deepest}, "
+                f"{CK.group_width(n, cells)} lanes a cell): bitwise at every lane group")
+        if label not in ("srd", "colloid", "poiseuille"):
+            lines.append(line)
             continue
+        atomic = torch.zeros((cells + 1, 6), device=dev).index_add_(0, cid, pay)[:cells]
+        lines.append(f"{line}; CUDA index_add_ max |diff| "
+                     f"{float((atomic - want).abs().max()):.3e}")
         kernel = lambda c=cid, v=vel, m=mass, k=cells: CK.cell_sums(c, v, m, k)  # noqa: E731
         library = lambda c=cid, p=pay, k=cells: torch.zeros(  # noqa: E731
             (k + 1, 6), device=dev).index_add_(0, c, p)
@@ -1540,6 +1602,7 @@ def check_cellsum(az, RK, CK):
                                       3),
             "library_ms": _cuda_time_ms(library, 50),
             "library_replay_ms": _replay_time_ms(library, 50),
+            "nodes": _graph_nodes(kernel), "library_nodes": _graph_nodes(library),
             "bound": _cellsum_bound(cid, mass, cells)}
     # K5's clock form: the keys and shift on the card against the host's
     cases = 0
@@ -1605,8 +1668,9 @@ def check_cellsum(az, RK, CK):
                   f"{b:.5f} ms ({tm['bound'][1]})", flush=True)
         else:
             print(f"[cellsum] K10 at {label}: queued {tm['ms']:.4f} ms, in a replay "
-                  f"{tm['replay_ms']:.4f} ms; CUDA index_add_ (atomic) queued "
-                  f"{tm['library_ms']:.4f}, in a replay {tm['library_replay_ms']:.4f}; plain "
+                  f"{tm['replay_ms']:.4f} ms, {tm['nodes']} graph nodes a call; CUDA index_add_ "
+                  f"(atomic) queued {tm['library_ms']:.4f}, in a replay "
+                  f"{tm['library_replay_ms']:.4f}, {tm['library_nodes']} graph nodes; plain "
                   f"{tm['plain_ms']:.4f}; bound {b:.5f} ms (bytes), "
                   f"{tm['replay_ms'] / b:.1f}x in a replay", flush=True)
     print(f"[cellsum] the phase took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3168,7 +3232,6 @@ def run_examples(az, K, card, workdir, device="cuda"):
     own, one after another: wall time, kernel launches and the last line
     each prints. An example raises on its own checks; every example with a
     pair force must have launched its kernel."""
-    import contextlib
     import importlib.util
     import io as _io
     import os

@@ -37,6 +37,7 @@ import azplugins_tpu_torch as port  # noqa: E402
 from azplugins_tpu.ops import dense as RD  # noqa: E402
 from azplugins_tpu_torch.ops import dense as PD  # noqa: E402
 from azplugins_tpu_torch.ops import integrate_kernel as IK  # noqa: E402
+from azplugins_tpu_torch.utils import sqrt  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -192,7 +193,7 @@ def _met_buffers(position, ref_position, tag) -> list:
     float32 below it (true)."""
     d = types.SimpleNamespace(position=position, tag=tag)
     m1, m2 = PD._top_two(PD._drift_sq(d, types.SimpleNamespace(ref_position=ref_position)))
-    met = np.float32((torch.sqrt(m1) + torch.sqrt(torch.clamp_min(m2, 0.0))).item())
+    met = np.float32((sqrt(m1) + sqrt(torch.clamp_min(m2, 0.0))).item())
     return [0.4, float(met), float(np.nextafter(met, np.float32(0)))]
 
 

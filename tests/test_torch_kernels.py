@@ -1144,38 +1144,51 @@ def test_collision_draws_kernel_is_the_host_key_form(cuda_device, rows):
                                                   w.view(np.uint32))
 
 
+CELL_SUM_CASES = ["srd", "colloid", "deep", "empty", "bucket32", "bucket33", "bucket1024",
+                  "bucket5012", "one_cell", "trash_only", "sparse", "poiseuille",
+                  "colloid_full"]
+
+
 def _cell_sum_case(case, device):
-    """(cid, vel, mass, cells) of a collision's cell sums at a small shape:
-    pure SRD's (a row a cell on average, unit masses), the colloids' (a
-    solvent of 5 a cell and dense slots of mass 5, most of them empty and
-    binned to the trash cell), one deep cell, no row."""
-    g = np.random.default_rng({"srd": 1, "colloid": 2, "deep": 3, "empty": 4}[case])
+    """(cid, vel, mass, cells) of a collision's cell sums: pure SRD's shape
+    at a small size (a row a cell on average, unit masses), the colloids'
+    (a solvent of 5 a cell and dense slots of mass 5, most of them empty and
+    binned to the trash cell), one deep cell, no row; one cell of exactly
+    32, 33, 1,024 or 5,012 rows among shallow ones; every row in one cell;
+    only trash rows; most cells empty; and the Poiseuille slit's and the
+    colloids' full shapes (40,000 rows into 4,352 cells; 163,840 solvent
+    rows and 74,088 slots into 32,768 cells)."""
+    g = np.random.default_rng(CELL_SUM_CASES.index(case) + 1)
     cells, n = {"srd": (9261, 9261), "colloid": (4096, 28_672), "deep": (64, 6000),
-                "empty": (100, 0)}[case]
+                "empty": (100, 0), "one_cell": (300, 20_000), "trash_only": (500, 3000),
+                "sparse": (40_000, 2000), "poiseuille": (4352, 40_000),
+                "colloid_full": (32_768, 163_840 + 74_088)}.get(case, (2000, 6000))
     cid = g.integers(0, cells, n)
     vel = g.normal(0, 1.0, (n, 3)).astype(np.float32)
     mass = None
-    if case == "colloid":
-        slots = n - 5 * cells
+    if case.startswith("colloid"):
+        solvent = 5 * cells if case == "colloid" else 163_840
         invalid = np.zeros(n, bool)
-        invalid[5 * cells:] = g.random(slots) < 0.9
+        invalid[solvent:] = g.random(n - solvent) < 0.9
         cid[invalid] = cells
         vel[invalid] = 0.0
-        mass = np.where(np.arange(n) < 5 * cells, 1.0, np.where(invalid, 0.0, 5.0))
+        mass = np.where(np.arange(n) < solvent, 1.0, np.where(invalid, 0.0, 5.0))
         mass = torch.as_tensor(mass.astype(np.float32), device=device)
     if case == "deep":
         cid[: n // 2] = 17
+    if case.startswith("bucket"):
+        cid[cid == 17] = 18
+        cid[g.choice(n, int(case[6:]), replace=False)] = 17
+    if case == "one_cell":
+        cid[:] = 123
+    if case == "trash_only":
+        cid[:] = cells
     return (torch.as_tensor(cid, device=device), torch.as_tensor(vel, device=device), mass, cells)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["srd", "colloid", "deep", "empty"])
-def test_cell_sums_kernel_bitwise(cuda_device, case):
-    """K10 bitwise the plain ordered cell sum on the card (its payload the
-    card's PyTorch operations), in one call, and two calls the same bits."""
+def _cell_sums_match(cid, vel, mass, cells):
     from azplugins_tpu_torch import mpcd as M
 
-    cid, vel, mass, cells = _cell_sum_case(case, cuda_device)
     before = CK.launches
     got = M._cell_sums(cid, vel, mass, cells)
     again = CK.cell_sums(cid, vel, mass, cells)
@@ -1183,6 +1196,39 @@ def test_cell_sums_kernel_bitwise(cuda_device, case):
     want = M._cell_sums_plain(cid, M._payload(vel, mass), cells)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CELL_SUM_CASES)
+def test_cell_sums_kernel_bitwise(cuda_device, case):
+    """K10 bitwise the plain ordered cell sum on the card (its payload the
+    card's PyTorch operations), in one call, and two calls the same bits."""
+    _cell_sums_match(*_cell_sum_case(case, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", CK.GROUPS)
+@pytest.mark.parametrize("case", ["srd", "colloid", "bucket33", "bucket5012", "poiseuille"])
+def test_cell_sums_kernel_group_widths(cuda_device, monkeypatch, case, group):
+    """Every lane group K10 is built for gives the plain ordered sum's bits,
+    whatever the cells' depth against it."""
+    monkeypatch.setattr(CK, "group_width", lambda n, cells: group)
+    _cell_sums_match(*_cell_sum_case(case, cuda_device))
+
+
+def test_cell_sums_group_width():
+    """The lanes a cell follow the mean rows a cell: a lone lane at pure
+    SRD's one, 16 at the colloids' 7.3, a warp at the Poiseuille slit's 9.2
+    and beyond; the buckets hold at least twice the mean, from 8 to 4,096
+    slots."""
+    assert CK.group_width(64**3, 64**3) == 1
+    assert CK.group_width(237_928, 32_768) == 16
+    assert CK.group_width(40_000, 4352) == 32
+    assert CK.group_width(0, 100) == 1 and CK.group_width(10**6, 10) == 32
+    assert all(CK.group_width(n, 1000) in CK.GROUPS for n in range(0, 40_000, 997))
+    assert [CK.bucket_cap(n, 1000) for n in (0, 1000, 8000, 8001, 10**5, 10**7)] == [
+        8, 8, 16, 32, 256, 4096]
+    assert CK.bucket_cap(64**3, 64**3) == 8 and CK.bucket_cap(40_000, 4352) == 32
 
 
 def test_cell_sums_dispatch_and_refusals():

@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from azplugins_tpu.core import rng as R  # noqa: E402
 from azplugins_tpu_torch.core import rng as P  # noqa: E402
+from azplugins_tpu_torch.utils import sqrt  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -278,8 +279,8 @@ def test_axis_form_is_the_references_axes_and_fill(rows, seed, t):
 def test_two_key_form_is_two_single_draws(rows, seed, t):
     """The two-key form is the one-key form's axes and a single plain draw
     under the second key, bit for bit; the axes are the plain draw
-    normalised by PyTorch's operations; on the CPU the public form takes
-    the plain version and launches nothing."""
+    normalised by the port's operations (its square root `utils.sqrt`); on
+    the CPU the public form takes the plain version and launches nothing."""
     _, words = _collision_keys(seed, t)
     axis, virt = P._jax_normal_axis_plain(words[1], rows, "cpu", words[2])
     one, none = P._jax_normal_axis_plain(words[1], rows, "cpu")
@@ -287,7 +288,7 @@ def test_two_key_form_is_two_single_draws(rows, seed, t):
     single = P._jax_normal_plain(words[2], (rows, 3), "cpu")
     assert torch.equal(virt.view(torch.int32), single.view(torch.int32))
     raw = P._jax_normal_plain(words[1], (rows, 3), "cpu")
-    own = raw / torch.clamp_min(torch.sqrt(torch.sum(raw * raw, dim=1, keepdim=True)), 1e-12)
+    own = raw / torch.clamp_min(sqrt(torch.sum(raw * raw, dim=1, keepdim=True)), 1e-12)
     assert torch.equal(axis.view(torch.int32), own.view(torch.int32))
     before = RK.launches
     pub_axis, pub_virt = P.jax_normal_axis(words[1], rows, "cpu", words[2])
