@@ -20,6 +20,19 @@ draws key on the clock (``core/rng.py::device_clock``), not on a timestep
 frozen into the graph. Nothing falls back: a capture or replay that fails
 raises.
 
+With an MPCD coupling on its default trigger (the reference compiles a
+chunk's collision windows into its chunk program: ``joint_collide``,
+``col_body``), the runner also holds the solvent's anchor, the stream at
+its last collision. The rebuild interval snapped to the collision period
+puts every joint collision after a segment's last step, so the host knows
+the schedule: such a segment is keyed ``(L, rebuild, lead)``, ``lead`` the
+steps from the anchor to the collision (a host int, shorter in the first
+window after a start), streams the anchor by ``lead`` steps, collides
+(its keys and grid shift drawn from the clock) and moves the anchor in
+the buffers. The caller gets the anchor as tensors of its own
+(:meth:`SegmentGraphs.anchor`), so a chunk it throws away leaves the
+anchor it holds as it was.
+
 :class:`AdvanceGraphs` is the counterpart of the reference's jitted SRD
 advance (``azplugins_tpu/mpcd.py``: ``SRD._build``'s ``advance``, its
 collisions a ``lax.fori_loop``) for an uncoupled whole MPCD stream: fixed
@@ -286,17 +299,29 @@ class SegmentGraphs(_GraphCache):
     bound to (grid spec and cap, the operations' fingerprint, the force
     tables' identity, rotational or not); a graph is found under ``(L,
     rebuild)`` within it (:class:`_GraphCache`).
+
+    With an MPCD coupling (``n_solvent`` solvent particles) the runner also
+    holds the solvent's anchor, ``pos_a`` and ``vel_a`` (float32 ``[n_solvent,
+    3]``, the stream at its last collision): a segment whose last step fires
+    the joint collision is found under ``(L, rebuild, lead)``, ``lead`` the
+    steps from the anchor to that collision, and its segment gets ``solv=``
+    the anchor (``((pos_a,), (vel_a,), t_a)``) and returns the new one as a
+    fourth value.
     """
 
     def __init__(self, key, segment, dense, meta, counters: Counters, capture=None,
                  max_graphs: int = 32, totals: dict | None = None, n_values: int = 0,
-                 n_fires: int = 0, max_steps: int = 0):
+                 n_fires: int = 0, max_steps: int = 0, n_solvent: int | None = None):
         dev = dense.device
         super().__init__(key, counters, dev, capture, max_graphs, totals)
         self._segment = segment
         self.dense = _clone(dense, skip=_FIXED)
         self.meta = _clone(meta)
         self.viol = torch.zeros((), dtype=torch.bool, device=dev)
+        self.pos_a = self.vel_a = None
+        if n_solvent is not None:
+            anchor = torch.zeros((2, int(n_solvent), 3), dtype=torch.float32, device=dev)
+            self.pos_a, self.vel_a = anchor[0], anchor[1]
         # the chunk's schedule, one byte buffer filled by one copy: its first
         # timestep (int64), each variant's float32 row, each trigger's bool
         # row, max_steps entries a row
@@ -318,19 +343,26 @@ class SegmentGraphs(_GraphCache):
         return ([getattr(self.dense, n) for n in _tensor_fields(self.dense) if n not in _FIXED]
                 + [getattr(self.meta, n) for n in _tensor_fields(self.meta)]
                 + [self.viol, self.clock]
-                + ([self.schedule] if self.schedule is not None else []))
+                + ([self.schedule] if self.schedule is not None else [])
+                + ([self.pos_a, self.vel_a] if self.pos_a is not None else []))
 
     def load(self, dense, meta, t0: int, values: np.ndarray | None = None,
-             fires: np.ndarray | None = None) -> None:
+             fires: np.ndarray | None = None, anchor: tuple | None = None) -> None:
         """Start a chunk: the layout into the buffers, the violation flag
-        cleared, the clock at ``t0``; with a schedule, the chunk's
-        ``values`` (float32 ``[n_values, n]``) and ``fires`` (bool
-        ``[n_fires, n]``) from ``t0`` into its rows in one copy from pinned
-        memory, which makes no synchronising call."""
+        cleared, the clock at ``t0``; with a coupling, the solvent's
+        ``anchor`` (its position and velocity) into ``pos_a``/``vel_a``;
+        with a schedule, the chunk's ``values`` (float32 ``[n_values, n]``)
+        and ``fires`` (bool ``[n_fires, n]``) from ``t0`` into its rows in
+        one copy from pinned memory, which makes no synchronising call."""
         _copy_into(self.dense, dense, skip=_FIXED)
         _copy_into(self.meta, meta)
         self.viol.zero_()
         self.clock.fill_(int(t0))
+        if (anchor is None) != (self.pos_a is None):
+            raise ValueError("a coupled runner loads the solvent's anchor, an uncoupled one none")
+        if anchor is not None:
+            self.pos_a.copy_(anchor[0])
+            self.vel_a.copy_(anchor[1])
         if self.schedule is None:
             return
         host = np.zeros(self.schedule.numel(), dtype=np.uint8)
@@ -360,26 +392,41 @@ class SegmentGraphs(_GraphCache):
         caller owns (the next replay overwrites the buffers)."""
         return _clone(self.dense, skip=_FIXED), _clone(self.meta), self.viol.clone()
 
-    def _body(self, t0: int, n_steps: int, rebuild: bool):
+    def anchor(self) -> tuple:
+        """``(pos_a, vel_a)`` cloned into tensors the caller owns: the next
+        chunk overwrites the buffers, and a chunk the caller rejects must
+        not move the anchor it holds."""
+        return self.pos_a.clone(), self.vel_a.clone()
+
+    def _body(self, t0: int, n_steps: int, rebuild: bool, lead: int | None):
         """The work of one segment on the buffers: what is captured."""
 
         def body():
             with _rng.device_clock(self.clock, t0):
                 extra = {} if self.schedule is None else {"steps": self._steps(t0, n_steps)}
-                dense, meta, viol = self._segment(self.dense, self.meta, self.viol, t0,
-                                                  n_steps, rebuild, **extra)
+                if lead is not None:
+                    extra["solv"] = ((self.pos_a,), (self.vel_a,), t0 + n_steps - lead)
+                dense, meta, viol, *solv = self._segment(self.dense, self.meta, self.viol, t0,
+                                                         n_steps, rebuild, **extra)
             _copy_into(self.dense, dense, skip=_FIXED)
             _copy_into(self.meta, meta)
             if viol is not self.viol:
                 self.viol.copy_(viol)
+            if lead is not None:
+                (((pos,), (vel,), _),) = solv
+                self.pos_a.copy_(pos)
+                self.vel_a.copy_(vel)
             self.clock.add_(n_steps)
 
         return body
 
-    def run(self, t0: int, n_steps: int, rebuild: bool) -> None:
+    def run(self, t0: int, n_steps: int, rebuild: bool, lead: int | None = None) -> None:
         """Run one segment from timestep ``t0`` (the clock holds it): eagerly
-        the first time its shape ``(L, rebuild)`` is seen, then as a graph."""
-        self._run((int(n_steps), bool(rebuild)), lambda: self._body(t0, n_steps, rebuild))
+        the first time its key is seen, then as a graph. The key is ``(L,
+        rebuild)``, or ``(L, rebuild, lead)`` for a segment whose last step
+        fires the joint collision ``lead`` steps after the anchor's."""
+        key = (int(n_steps), bool(rebuild)) + (() if lead is None else (int(lead),))
+        self._run(key, lambda: self._body(t0, n_steps, rebuild, lead))
 
 
 class AdvanceGraphs(_GraphCache):

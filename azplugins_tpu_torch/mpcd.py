@@ -603,8 +603,11 @@ class CollisionCoupling:
     Registers as an updater. The joint collision runs inside the step loop
     after the step its trigger names (by default the steps t with
     (t + 1) % period == 0, so solvent and solutes collide at MD clocks
-    divisible by the period), as device work with no host wait; a replaced
-    trigger fires at its own steps the same way.
+    divisible by the period), as device work with no host wait. With the
+    default trigger the rebuild segments end at the collisions, and on the
+    card each segment, collision included, is a CUDA graph
+    (``graph.SegmentGraphs``, the solvent's anchor in its buffers); a
+    replaced trigger fires at its own steps on the eager loop.
 
         srd = az.mpcd.SRD(dt=dt, period=20, cell_size=1.0, kT=1.0)
         sim.mpcd_dynamics = srd
@@ -625,7 +628,9 @@ class CollisionCoupling:
         # of the period
         self.trigger = Periodic(srd.period, phase=srd.period - 1)
         srd._coupled = True
-        self._ingraph = False  # set by Simulation.run: the default trigger
+        # set by Simulation._find_coupling: the default trigger, whose
+        # collisions end rebuild segments (so the segment graphs take them)
+        self._ingraph = False
         self._attached = False
 
     def _attach(self, sim):

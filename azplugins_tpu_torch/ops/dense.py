@@ -1104,8 +1104,14 @@ def dense_bond_force(energy_force_fn, dense: State, slot_of: torch.Tensor,
     Port of the reference ``dense_bond_force``. ``params`` holds one value
     per bond (each ``[NB]``, gathered by bond type once per run). Each bond
     adds ``+f dr`` to its first member, then each adds ``-f dr`` to its
-    second, with ``index_add_``; with ``want="force"`` (the step loop) the
-    energy and virial scatters are skipped.
+    second, so each row adds its terms in bond order, first members first,
+    from +0.0 (the reference's ``.at[a].add`` is deterministic):
+    ``index_add_`` on the CPU, which adds in that order there, and on the
+    card K10 (``ops/cellsum_kernel.py``, :func:`_bond_scatter`) in the same
+    order (CUDA's ``index_add_`` would add with atomics in an order that
+    varies when a slot is a member of several bonds). With
+    ``want="force"`` (the step loop) the energy and virial scatters are
+    skipped.
 
     On a shard, ``slot_of`` maps to global slots, ``positions`` holds every
     slot's position (all shards joined) and ``first`` is the shard's first
@@ -1127,14 +1133,37 @@ def dense_bond_force(energy_force_fn, dense: State, slot_of: torch.Tensor,
         rows = S + 1
         a, b = (torch.where((i >= first) & (i < first + S), i - first, S) for i in (a, b))
     fvec = torch.stack([f_divr * ddx, f_divr * ddy, f_divr * ddz], dim=-1)
+    card = _rng._on_card(dense.device)
     zeros = functools.partial(torch.zeros, dtype=torch.float32, device=dense.device)
-    force = zeros((rows, 3)).index_add_(0, a, fvec).index_add_(0, b, -fvec)[:S]
+    if card:
+        force = _bond_scatter(a, b, fvec, -fvec, S)
+    else:
+        force = zeros((rows, 3)).index_add_(0, a, fvec).index_add_(0, b, -fvec)[:S]
     if want == "force":
         return ForceResult(force=force, energy=None, virial=None)
     he = 0.5 * e
-    energy = zeros((rows,)).index_add_(0, a, he).index_add_(0, b, he)[:S]
     w = 0.5 * f_divr
     vir = torch.stack([w * ddx * ddx, w * ddx * ddy, w * ddx * ddz,
                        w * ddy * ddy, w * ddy * ddz, w * ddz * ddz], dim=-1)
+    if card:
+        # the energy and the six virial components, three columns a call
+        terms = torch.cat([he[:, None], vir, zeros((he.shape[0], 2))], dim=1)
+        sums = torch.cat([_bond_scatter(a, b, terms[:, k:k + 3], terms[:, k:k + 3], S)
+                          for k in (0, 3, 6)], dim=1)
+        return ForceResult(force=force, energy=sums[:, 0], virial=sums[:, 1:7])
+    energy = zeros((rows,)).index_add_(0, a, he).index_add_(0, b, he)[:S]
     virial = zeros((rows, 6)).index_add_(0, a, vir).index_add_(0, b, vir)[:S]
     return ForceResult(force=force, energy=energy, virial=virial)
+
+
+def _bond_scatter(a: torch.Tensor, b: torch.Tensor, at_a: torch.Tensor, at_b: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """float32 ``[rows, 3]``: the rows of ``at_a`` added at ``a``, then those
+    of ``at_b`` at ``b`` (each ``[NB, 3]``), each row's terms in that order
+    from +0.0, by K10 on the card (one call over ``cat([a, b])``, its
+    momentum columns at unit mass). Ids outside ``[0, rows)`` (a shard's
+    dropped row) are K10's trash."""
+    from . import cellsum_kernel  # imported here: it imports this module (via pair_kernel)
+
+    vals = torch.cat([at_a, at_b]).to(torch.float32).contiguous()
+    return cellsum_kernel.cell_sums(torch.cat([a, b]), vals, None, rows)[:, 2:5]

@@ -964,18 +964,32 @@ class Simulation:
         velocity, t_a)``; the joint collision after step t (when the
         coupling's trigger holds at t, at MD clock t + 1) moves it.
         Returns ``(dense, meta, violated, solv)`` with ``violated`` a device
-        bool and ``dense`` and ``meta`` tensors of their own. Each segment
-        is a CUDA graph where :meth:`_graphs_apply`, else runs eagerly
-        (:meth:`_run_segment`).
+        bool and ``dense``, ``meta`` and the anchor's tensors of their own.
+        Each segment is a CUDA graph where :meth:`_graphs_apply`, else runs
+        eagerly (:meth:`_run_segment`); a coupled segment whose last step
+        fires the joint collision is keyed by its lead from the anchor
+        (:meth:`_collision_lead`).
         """
         segments = _segments(n_steps, seg_len, rebin_first)
+        self._coupling = self._find_coupling()
         if self._graphs_apply():
+            coupled = self._coupling is not None
+            if coupled and solv is None:
+                raise ValueError("a coupled chunk needs the solvent's anchor")
             runner = self._build_runner(tbls)
             runner.load(dense, meta, t0, self._variant_values(t0, n_steps),
-                        self._trigger_masks(t0, n_steps))
+                        self._trigger_masks(t0, n_steps),
+                        (solv[0][0], solv[1][0]) if coupled else None)
+            t_a = solv[2] if coupled else None
             for a, n, rebuild in segments:
-                runner.run(t0 + a, n, rebuild)
+                lead = self._collision_lead(t0 + a, n, t_a) if coupled else None
+                runner.run(t0 + a, n, rebuild, lead)
+                if lead is not None:
+                    t_a += lead
             dense, meta, viol = runner.result()
+            if coupled:
+                pos_a, vel_a = runner.anchor()
+                solv = ((pos_a,), (vel_a,), t_a)
             return dense, meta, viol, solv
         shards, metas = _as_shards(dense), _as_shards(meta)
         viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
@@ -1120,18 +1134,24 @@ class Simulation:
 
     def _graph_eligible(self) -> bool:
         """The rule on the operations: a whole layout (no sharded mesh), an
-        integrator, no MPCD coupling (its joint collision moves the solvent
-        beside the segment), and only the flow fields of ``flow.py``. Any
-        variant and any other updater qualify: the chunk's schedule carries
-        the variants' values and the triggers to the card (graph.py), where
-        the updaters run as the reference's masked selects."""
+        integrator, only the flow fields of ``flow.py``, and an MPCD
+        coupling only on its default trigger (``_ingraph``, set by
+        :meth:`_find_coupling`) with the solvent in one block: its joint
+        collision then lands on a segment's last step, and the segment's
+        graph carries the solvent's anchor. A replaced trigger keeps the
+        eager loop. Any variant and any other updater qualify: the chunk's
+        schedule carries the variants' values and the triggers to the card
+        (graph.py), where the updaters run as the reference's masked
+        selects."""
         from .flow import FlowField
 
         integ = self.operations.integrator
         if self._sharded() or integ is None:
             return False
-        if any(getattr(u, "_updates_mpcd", False) for u in self.operations.updaters):
-            return False
+        for u in self.operations.updaters:
+            if getattr(u, "_updates_mpcd", False) and not (
+                    u._ingraph and self._mpcd is not None and len(self._mpcd["position"]) == 1):
+                return False
         for op in (*integ.methods, *integ.forces):
             flow = getattr(op, "flow_field", None)
             if flow is not None and not isinstance(flow, FlowField):
@@ -1178,19 +1198,40 @@ class Simulation:
         key = (self._grid_spec, self._fields, self._ops_fp, id(tbls), self._rotational(),
                self._dense.N, self._state.N, tuple(map(id, variants)), tuple(map(id, updaters)),
                self.max_chunk)
+        n_solvent = None
+        if self._coupling is not None:
+            # what a joint collision bakes in: the SRD's parameters, its box
+            # and seed, the solvent's shape and mass
+            srd = self._coupling.srd
+            n_solvent = self._mpcd["position"][0].shape[0]
+            key += (srd, srd._fingerprint(), srd._built_key, n_solvent, self._mpcd["mass"])
         if self._runner is not None and self._runner.key == key:
             return self._runner
 
-        def segment(dense, meta, viol, t0, n_steps, rebuild, steps=None):
-            (dense,), (meta,), viol, _ = self._run_segment((dense,), (meta,), viol, t0, n_steps,
-                                                           rebuild, tbls, steps=steps)
-            return dense, meta, viol
+        def segment(dense, meta, viol, t0, n_steps, rebuild, steps=None, solv=None):
+            (dense,), (meta,), viol, solv = self._run_segment(
+                (dense,), (meta,), viol, t0, n_steps, rebuild, tbls, solv, steps)
+            return (dense, meta, viol) if solv is None else (dense, meta, viol, solv)
 
         self._runner = SegmentGraphs(key, segment, self._dense, self._meta, Counters(self),
                                      capture=self._capture, totals=self._graph_totals,
                                      n_values=len(variants), n_fires=len(updaters),
-                                     max_steps=self.max_chunk)
+                                     max_steps=self.max_chunk, n_solvent=n_solvent)
         return self._runner
+
+    def _collision_lead(self, t0: int, n_steps: int, t_a: int) -> int | None:
+        """The lead of a coupled segment of ``n_steps`` steps from ``t0``:
+        ``t_col - t_a`` when its trigger fires after its last step (the
+        joint collision at MD clock ``t_col = t0 + n_steps``, the anchor at
+        ``t_a``), None when it fires after none. The host keys the
+        segment's graph on it, so a collision anywhere else, which a replay
+        at another ``t0`` would not repeat, raises (the rebuild interval
+        snapped to the period puts every collision on a segment's end)."""
+        fires = self._coupling.trigger.mask(t0, n_steps)
+        if fires[:-1].any():
+            raise RuntimeError(f"the joint collision fires inside the segment of {n_steps} "
+                               f"steps from {t0}, not after its last step")
+        return t0 + n_steps - t_a if fires[-1] else None
 
     def _rebuild(self, shards: tuple, metas: tuple) -> tuple:
         """The grid rebuild: the global rebin on a whole layout, the
@@ -1245,9 +1286,11 @@ class Simulation:
         return max(flags[1:1 + n]), flags[0], max(flags[1 + n:])
 
     def _find_coupling(self):
-        """The MPCD coupling updater (at most one) and whether it keeps its
-        default trigger: collisions at MD clocks divisible by the period,
-        on which the rebuild interval is snapped to a divisor."""
+        """The MPCD coupling updater (at most one), its ``_ingraph`` set to
+        whether it keeps its default trigger: collisions at MD clocks
+        divisible by the period, on which the rebuild interval is snapped
+        to a divisor, so each lands on a segment's last step and the
+        segment graphs take it (:meth:`_graph_eligible`)."""
         from .md.trigger import Periodic
 
         couplings = [u for u in self.operations.updaters if getattr(u, "_updates_mpcd", False)]
@@ -1420,7 +1463,8 @@ class Simulation:
                 # (a CUDA replay with atomic sums need not repeat its bits)
                 self._probe_until = None
             if solv is not None:
-                # the chunk's joint collisions moved the solvent's anchor
+                # the chunk's joint collisions moved the solvent's anchor (a
+                # tensor of its own: the runner's buffers are the next chunk's)
                 self._mpcd = {**self._mpcd, "position": solv[0], "velocity": solv[1],
                               "_srd_anchor": solv}
             if self._mpcd is not None and self.mpcd_dynamics is not None:

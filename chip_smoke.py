@@ -42,15 +42,18 @@
    ordered sum (mpcd.py's _cell_sums_plain) at pure SRD's shape (262,144
    rows into 262,144 cells), the colloids' (163,840 solvent and 74,088
    dense slots, 2,744 of mass 5, the empty ones trashed; 32,768 cells) and
-   the Poiseuille slit's (40,000 rows, 4,352 cells), and at one deep cell,
-   every row in one cell, only trash rows and no row, two calls the same
-   bits and every lane group the same bits; K5's clock form (the
+   the Poiseuille slit's (40,000 rows, 4,352 cells), the polymer melt's
+   bond scatter (61,440 rows, its bonds' first then second members, into
+   87,880 slots), and at one deep cell, every row in one cell, only trash
+   rows and no row, two calls the same bits and every lane group the same
+   bits; K5's clock form (the
    collision's keys and grid shift derived on the card from a clock)
    bitwise its host-key form and the host's shift at the three grids,
    CLOCK_STEPS, two cell sizes, the shift on and off; times K10 queued and
-   in a replay against CUDA index_add_ (its library call) and its bound,
-   with the CUDA graph nodes a call of each, and K5's clock form against
-   its host-key form;
+   in a replay against CUDA index_add_ (its library call; at the bond
+   scatter the two index_add_ it replaces) and its bound, with the CUDA
+   graph nodes a call of each, and K5's clock form against its host-key
+   form;
 5. runs, through the public API, each with the launch counts set to 0 just
    before it and read just after (configs 1-5 and every other simulation
    that qualifies run their rebuild segments as CUDA graphs, and print
@@ -98,7 +101,8 @@
      plain windowed stencil with their ms and bound;
    - the DPD fluid (BASELINE config 3, 21,952 particles, ConstantVolume);
    - the polymer melt (BASELINE config 2, 1,280 chains of 25, Quartic
-     bonds + ExpandedYukawa, Langevin);
+     bonds + ExpandedYukawa, Langevin; the bond force's scatter through
+     K10 at least once a step);
    - the patchy colloids (BASELINE config 4, 27,000 TwoPatchMorse
      particles, Langevin with NO_SQUISH rotation);
    - [graph] the headline, the polymer melt, the DPD fluid, the patchy
@@ -120,6 +124,11 @@
      forms and K8 and K9 in their device-kT forms (kT a 0-d float32 on
      the card, at DEVICE_KTS) bitwise their host forms at CLOCK_STEPS,
      and the DPD sigma table from a device kT bitwise the float one;
+     colloid hydrodynamics at full size in the same turns, its joint
+     collision inside the segment graphs (the solvent's anchor in the
+     runner's buffers): the solvent and its anchor bitwise too, K5's
+     clock form (host-key form eagerly) and K10 once a collision every
+     turn;
      then pure SRD and the Poiseuille slit on the SRD advance graphs in
      turns of ADVANCE_GRAPH_STEPS (eager, graph, graph, eager): the
      streams and their anchors bitwise, eager == eager == graph, K5 and K10
@@ -140,14 +149,18 @@
    - colloid hydrodynamics (the JAX package's bench, bench.py:510-569):
      2,744 WCA colloids of mass 5 in a 163,840-particle SRD solvent driven
      by a body force, coupled through the joint collision every 20 steps,
-     warmed for 260 steps (the tune at step 150), then 400 timed steps, and
+     on the segment CUDA graphs with the collision inside (captures and
+     replays asserted; K5's clock form and K10 once a collision), warmed
+     for 260 steps (the tune at step 150), then 400 timed steps, and
      [profile] 40 more under Simulation.profile (two joint collisions); two
-     identical 60-step runs must agree bit for bit (the cell sums are K10's);
+     identical 60-step runs on the graphs must agree bit for bit (the cell
+     sums are K10's);
    - the SRD Poiseuille slit (examples/mpcd_poiseuille.py at full size:
      40,000 solvent between no-slip plates, 3,000 steps, the profile read
-     with CartesianVelocityFieldCompute over 16 bins), its SRD advance on
-     the advance graphs (a collision a replay, its keys and shift from the
-     card's clock), which must replay;
+     with CartesianVelocityFieldCompute over 16 bins, whose bins on the
+     card take K10: two calls the same bits, bitwise the CPU's index_add_),
+     its SRD advance on the advance graphs (a collision a replay, its keys
+     and shift from the card's clock), which must replay;
    - pure SRD throughput (bench.py:470-507): 262,144 solvent, a collision
      every step, 500 steps, on the advance graphs too;
    - [examples] the port's nine examples (azplugins_tpu_torch/examples/)
@@ -172,7 +185,8 @@
    path's state at two capacities, in two turns (72 and 48; 40 and the
    smallest that fits; 16 and 32; the droplet's before and after the
    tune), and K1 at the droplet's state (K1' at the colloids') against its
-   plain version and bound; the colloid path also times one joint collision;
+   plain version and bound; the colloid path also times one joint collision
+   and the observation stream (eager, once a chunk) with its operations;
 6. [integrate], on the headline's, the patchy colloids' and the droplet's
    states after their runs: the integrator and drift-check kernels of
    csrc/integrate.cu (K6-K9) against their plain versions on the card,
@@ -1488,7 +1502,11 @@ def _cellsum_shapes(az, device):
     """{label: (cid, vel, mass, cells)}: a collision's cell sums at the MPCD
     paths' shapes, the cell ids from an SRD's own binning under a grid
     shift (one seed each), and at the Poiseuille slit's rows one deep cell,
-    every row in one cell, only trash rows and no row."""
+    every row in one cell, only trash rows and no row; and the polymer
+    melt's bond scatter (ops/dense.py's _bond_scatter): its 30,720 bonds'
+    first members then second members, ``f`` then ``-f`` at unit mass, into
+    the 87,880 slots of its tuned grid (13^3 cells of 40), the chains'
+    particles at random slots."""
     from azplugins_tpu_torch import mpcd as M
     from azplugins_tpu_torch.core.box import Box
 
@@ -1518,6 +1536,13 @@ def _cellsum_shapes(az, device):
         if invalid is not None:
             cid = torch.where(torch.as_tensor(invalid, device=device), cells, cid)
         out[label] = (cid, torch.as_tensor(vel.astype(np.float32), device=device), mass, cells)
+    g = np.random.default_rng(14)
+    chains, length, slots = 1280, 25, 13**3 * 40
+    slot = g.permutation(slots)[:chains * length].reshape(chains, length)
+    a, b = slot[:, :-1].reshape(-1), slot[:, 1:].reshape(-1)
+    f = g.normal(0.0, 30.0, (a.size, 3)).astype(np.float32)
+    out["bond"] = (torch.as_tensor(np.concatenate([a, b]), device=device),
+                   torch.as_tensor(np.concatenate([f, -f]), device=device), None, slots)
     cid, vel, _, cells = out["poiseuille"]
     out["deep"] = (torch.where(torch.arange(cid.numel(), device=device) < CELLSUM_DEEP, 5, cid),
                    vel, None, cells)
@@ -1587,7 +1612,7 @@ def check_cellsum(az, RK, CK):
         deepest = int(torch.bincount(cid, minlength=cells + 1)[:cells].max()) if n else 0
         line = (f"{label} ({n:,} rows, {cells:,} cells, deepest {deepest}, "
                 f"{CK.group_width(n, cells)} lanes a cell): bitwise at every lane group")
-        if label not in ("srd", "colloid", "poiseuille"):
+        if label not in ("srd", "colloid", "poiseuille", "bond"):
             lines.append(line)
             continue
         atomic = torch.zeros((cells + 1, 6), device=dev).index_add_(0, cid, pay)[:cells]
@@ -1596,6 +1621,10 @@ def check_cellsum(az, RK, CK):
         kernel = lambda c=cid, v=vel, m=mass, k=cells: CK.cell_sums(c, v, m, k)  # noqa: E731
         library = lambda c=cid, p=pay, k=cells: torch.zeros(  # noqa: E731
             (k + 1, 6), device=dev).index_add_(0, c, p)
+        if label == "bond":  # the scatter it replaces: two index_add_ of 3 columns
+            half = cid.numel() // 2
+            library = lambda c=cid, v=vel, k=cells, h=half: torch.zeros(  # noqa: E731
+                (k, 3), device=dev).index_add_(0, c[:h], v[:h]).index_add_(0, c[h:], v[h:])
         timing[label] = {
             "ms": _cuda_time_ms(kernel, 50), "replay_ms": _replay_time_ms(kernel, 50),
             "plain_ms": _cuda_time_ms(lambda c=cid, p=pay, k=cells: M._cell_sums_plain(c, p, k),
@@ -1667,9 +1696,11 @@ def check_cellsum(az, RK, CK):
                   f"in a replay {tm['host_replay_ms']:.4f}; plain {tm['plain_ms']:.4f}; bound "
                   f"{b:.5f} ms ({tm['bound'][1]})", flush=True)
         else:
+            what = ("two CUDA index_add_ of 3 columns (the bond scatter it replaces, atomic)"
+                    if label == "bond" else "CUDA index_add_ (atomic)")
             print(f"[cellsum] K10 at {label}: queued {tm['ms']:.4f} ms, in a replay "
-                  f"{tm['replay_ms']:.4f} ms, {tm['nodes']} graph nodes a call; CUDA index_add_ "
-                  f"(atomic) queued {tm['library_ms']:.4f}, in a replay "
+                  f"{tm['replay_ms']:.4f} ms, {tm['nodes']} graph nodes a call; {what} "
+                  f"queued {tm['library_ms']:.4f}, in a replay "
                   f"{tm['library_replay_ms']:.4f}, {tm['library_nodes']} graph nodes; plain "
                   f"{tm['plain_ms']:.4f}; bound {b:.5f} ms (bytes), "
                   f"{tm['replay_ms'] / b:.1f}x in a replay", flush=True)
@@ -2539,8 +2570,9 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
 
 def _why_eager(sim) -> str:
     """Why ``sim`` runs the eager loop on the card (Simulation._graph_eligible's rule)."""
-    if any(getattr(u, "_updates_mpcd", False) for u in sim.operations.updaters):
-        return "the MPCD coupling"
+    if any(getattr(u, "_updates_mpcd", False) and not u._ingraph
+           for u in sim.operations.updaters):
+        return "an MPCD coupling on a replaced trigger"
     if sim._sharded():
         return "a sharded mesh"
     if sim.operations.integrator is None:
@@ -2761,18 +2793,20 @@ def time_pair_on_state(az, D, PK, sim, f, label):
 
 def _colloid_bits(az):
     """Whether two identical colloid runs of 60 steps (three joint
-    collisions) agree bitwise (the cell sums are K10's, in a fixed order),
-    and their largest difference."""
-    out = []
+    collisions, on the segment graphs) agree bitwise (the cell sums are
+    K10's, in a fixed order), their largest difference, and whether both
+    replayed a segment graph."""
+    out, replayed = [], True
     for _ in range(2):
         sim, _ = build_colloid(az, "cuda")
         sim.run(60)
         out.append((sim._whole_mpcd()["velocity"], sim._synced_state().velocity.clone()))
+        replayed = replayed and sim._graph_totals.get("replays", 0) > 0
         del sim
     same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in zip(out[0], out[1]))
     diff = max(float((a - b).abs().max()) for a, b in zip(out[0], out[1]))
-    return same, diff
+    return same, diff, replayed
 
 
 def _colloid_limits(sim, label):
@@ -2802,9 +2836,11 @@ def _colloid_limits(sim, label):
 def run_colloid(az, D, K, card, record):
     """Colloid hydrodynamics at full size through the public API: warm-up
     with the tune at step 150, then COLLOID_STEPS timed steps with the
-    launch counts set to 0 just before and read just after; every LJ
-    evaluation through K1'; momentum, solvent kT and advection checked.
-    Returns the counts."""
+    launch counts set to 0 just before and read just after, on the segment
+    CUDA graphs with the joint collision inside (captures and replays
+    asserted); every LJ evaluation through K1', K5's clock form and K10
+    once a collision; momentum, solvent kT and advection checked. Returns
+    the counts."""
     sim, forces = build_colloid(az, "cuda")
     lj = forces[0]
     coupling = sim.operations.updaters[0]
@@ -2830,20 +2866,31 @@ def run_colloid(az, D, K, card, record):
     builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
     steps0 = sim.steps_run
     _reset_counts(K)
+    totals0 = dict(sim._graph_totals)
     ms_step, wall = _timed_run(sim, COLLOID_STEPS)
+    graphed = {k: sim._graph_totals.get(k, 0) - totals0.get(k, 0)
+               for k in ("captures", "replays", "eager_segments")}
     launched = {name: K.PK.launches_by_potential.get("LJ", 0)}
     collisions = COLLOID_STEPS // sim.mpcd_dynamics.period
-    # the coupled path keeps the eager loop: K5's host-key form, K10
-    drawn = _draws(K, "colloid", {"jax_normal_axis": collisions, "cell_sums": collisions})
+    # the joint collision inside the segment graphs: K5's clock form, K10
+    drawn = _draws(K, "colloid", {"jax_normal_axis_clock": collisions, "jax_normal_axis": 0,
+                                  "cell_sums": collisions})
     _check_grid(sim, "colloid")
+    if not sim._graphs_apply() or sim._graph_totals.get("captures", 0) < 1 or graphed[
+            "replays"] < 1:
+        raise AssertionError(f"colloid: the coupled path did not replay the segment graphs "
+                             f"({graphed}; whole run {sim._graph_totals})")
+    if drawn["jax_normal_axis"]:
+        raise AssertionError(f"colloid: {drawn['jax_normal_axis']} host-key K5 launches on "
+                             f"the graphs")
     evals = sim.force_evaluations - evals0
     if launched[name] != evals or evals < COLLOID_STEPS or K.PK.launches != evals:
         raise AssertionError(f"colloid: {launched} LJ kernel launches for {evals} force "
                              f"evaluations in {COLLOID_STEPS} steps")
     builds, replays = sim.n_builds - builds0, sim.viol_replays - replays0
-    if not replays and not drawn["jax_normal_axis"] == drawn["cell_sums"] == collisions:
+    if not replays and not drawn["jax_normal_axis_clock"] == drawn["cell_sums"] == collisions:
         # (a violation replay collides again)
-        raise AssertionError(f"colloid: {drawn['jax_normal_axis']} K5 launches and "
+        raise AssertionError(f"colloid: {drawn['jax_normal_axis_clock']} K5 launches and "
                              f"{drawn['cell_sums']} K10 calls for {collisions} collisions")
     integrated = _integrator_launches(K, "colloid", sim.steps_run - steps0, 1)
     _check_wrapped(sim, "colloid")
@@ -2879,20 +2926,35 @@ def run_colloid(az, D, K, card, record):
     torch.cuda.synchronize()
     col_ms = start.elapsed_time(end) / 10
     col_ops, col_busy = _profile_call(collide, 5)
+    # the observation stream: eager once an accepted chunk (SRD._advance
+    # streams the observable solvent from the anchor; the coupling owns the
+    # collisions), here over one collision period
+    srd, box, t = sim.mpcd_dynamics, sim._state.box, sim.timestep
+
+    def observe():
+        return srd._advance(sim._mpcd, box, t, t + srd.period - 1, seed)
+
+    obs_ms = _cuda_time_ms(observe, 10)
+    obs_ops, obs_busy = _profile_call(observe, 5)
     print(f"[colloid] {COLLOID_STEPS} steps: {ms_step:.4f} ms/step, {1000.0 / ms_step:.1f} TPS "
           f"(host wall {wall:.3f} s) on {card}", flush=True)
     print(f"[colloid] launches {launched} for {evals} force evaluations "
           f"({launched[name] / COLLOID_STEPS:.3f} kernel launches per step); {builds} grid "
           f"builds, {replays} violation replays; cap {sim._grid_spec.cap}, rebuild interval "
           f"{sim._seg_len}; random-draw kernel launches {drawn}; integrator kernel launches "
-          f"{integrated}", flush=True)
+          f"{integrated}; CUDA graphs on, the joint collision inside: {graphed['captures']} "
+          f"captures, {graphed['replays']} replays, {graphed['eager_segments']} first "
+          f"segments run eagerly in the timed steps; keys {sim._runner.graph_keys()}; whole "
+          f"run {sim._graph_totals}", flush=True)
     print(f"[colloid] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per "
           f"step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per "
           f"step", flush=True)
     print(f"[colloid] one joint collision ({N_s + sim._dense.tag.numel()} rows, "
           f"{sim.mpcd_dynamics._grid_dims()} cells): {col_ms:.4f} ms a call (CUDA events over 10 "
           f"calls issued after a synchronize, host launches included), "
-          f"{col_ops:.1f} device operations and {col_busy:.4f} ms device-busy", flush=True)
+          f"{col_ops:.1f} device operations and {col_busy:.4f} ms device-busy; the observation "
+          f"stream (eager, once a chunk): {obs_ops:.1f} device operations, {obs_busy:.4f} ms "
+          f"device-busy and {obs_ms:.4f} ms queued a chunk", flush=True)
     print(f"[colloid] total momentum {P.round(4).tolist()} against {P_want.round(4).tolist()} "
           f"(band {COLLOID_P_BAND * m_s * N_s:.3f}); solvent kT relative to its mean "
           f"{kT_s:.4f} (1.0 +- {COLLOID_KT_BAND}), solvent mean vx {mean_s[0]:.4f}, colloids' "
@@ -2901,11 +2963,13 @@ def run_colloid(az, D, K, card, record):
     time_pair_on_state(az, D, K.PK, sim, lj, "colloid")
     run_profile(sim, "colloid", 2 * sim.mpcd_dynamics.period, card, collisions=2)
     del sim
-    same, diff = _colloid_bits(az)
+    same, diff, replayed = _colloid_bits(az)
     if not same:
         raise AssertionError(f"colloid: two identical 60-step runs differ (max |dv| {diff:.3e})")
-    print("[colloid] two identical 60-step runs agree bitwise (the cell sums in K10's fixed "
-          "order)", flush=True)
+    if not replayed:
+        raise AssertionError("colloid: the two 60-step runs replayed no segment graph")
+    print("[colloid] two identical 60-step runs on the segment graphs agree bitwise (the cell "
+          "sums in K10's fixed order)", flush=True)
     return {**launched, **drawn, **integrated}
 
 
@@ -2947,6 +3011,7 @@ def run_poiseuille(az, K, card):
     sim.operations.computes.append(field)
     ops, busy, htod, syncs = _profile(sim, steps=50)
     prof = field.velocities[:, 0]
+    bins = _bins_bitwise(K, sim, field)
     z = (np.arange(POISEUILLE_BINS) + 0.5) / POISEUILLE_BINS - 0.5
     A = np.stack([0.25 - z**2, np.ones(POISEUILLE_BINS)], 1)
     coef, *_ = np.linalg.lstsq(A, prof, rcond=None)
@@ -2961,11 +3026,40 @@ def run_poiseuille(az, K, card):
           flush=True)
     print(f"[poiseuille] v_x(z) over {POISEUILLE_BINS} bins: {np.round(prof, 4).tolist()}; "
           f"parabola R^2 {r2:.4f} (> 0.95), peak {prof.max():.4f} (> 0.03), furthest solvent "
-          f"{beyond:+.2e} beyond the plates", flush=True)
+          f"{beyond:+.2e} beyond the plates; {bins}", flush=True)
     if not (r2 > 0.95 and prof.max() > 0.03 and beyond <= 1e-4):
         raise AssertionError(f"poiseuille: R^2 {r2:.4f}, peak {prof.max():.4f}, solvent "
                              f"{beyond:.3e} beyond the plates")
     return drawn
+
+
+def _bins_bitwise(K, sim, field):
+    """The velocity field's bins of the solvent on the card (ops/binning.py:
+    K10's mass and momentum columns): two calls the same bits, and bitwise
+    the CPU's index_add_ on the same coordinates (the bin ids form alike
+    on either device). Returns the line's text."""
+    from azplugins_tpu_torch.ops import binning as B
+
+    mpcd = sim._whole_mpcd()
+    pos, vel = mpcd["position"], mpcd["velocity"]
+    n = pos.shape[0]
+    coords, _ = sim._synced_state().box.wrap(pos)
+    mass = torch.full((n,), mpcd["mass"], device=pos.device)
+    select = torch.ones(n, dtype=torch.bool, device=pos.device)
+    args = (field.num_bins, field.lower_bounds, field.upper_bounds)
+    launches = K.CK.launches
+    first, again = (B.bin_particles(coords, vel, mass, select, *args) for _ in range(2))
+    cpu = B.bin_particles(coords.cpu(), vel.cpu(), mass.cpu(), select.cpu(), *args)
+    if K.CK.launches != launches + 2:
+        raise AssertionError("poiseuille: the velocity bins did not take K10 once a call")
+    for x, y, z in zip(first, again, cpu, strict=True):
+        x, y = x.contiguous(), y.contiguous()
+        if not (torch.equal(x.view(torch.int32), y.view(torch.int32))
+                and torch.equal(x.cpu().view(torch.int32), z.view(torch.int32))):
+            raise AssertionError("poiseuille: the velocity bins on the card are not the same "
+                                 "bits twice, or differ from the CPU's index_add_")
+    return (f"its velocity bins ({n:,} solvent rows into {first[0].numel()} bins, K10's mass "
+            f"and momentum columns): two calls bitwise, bitwise the CPU's index_add_")
 
 
 def run_srd(az, K, card):
@@ -3706,10 +3800,13 @@ def run_spatial_ops(az, D, K, card, record):
                                          f"launches for {evals} force evaluations")
                 launched[name] = launched.get(name, 0) + k
                 # K6-K8 every step, once a shard; K4: the evaporator once
-                # a fire a shard; K5: the joint collision's axes
+                # a fire a shard; K5: the joint collision's axes (its clock
+                # form inside the whole run's segment graphs, the host-key
+                # form on the shards' eager loop)
                 m = n if key == "shards" else 1
                 if label == "colloid":
-                    least = {"jax_normal_axis": stretch // sim.mpcd_dynamics.period}
+                    form = "jax_normal_axis" if key == "shards" else "jax_normal_axis_clock"
+                    least = {form: stretch // sim.mpcd_dynamics.period}
                 elif label == "droplet" and key == "shards":
                     least = {"particle_bits": m * (stretch // DROPLET_PERIOD)}
                 elif label == "droplet":  # K4 at the pick, two launches at least a fire
@@ -3976,12 +4073,20 @@ def _turn(sim, steps):
 def _graph_turn(K, sim, label, forces, steps=GRAPH_STEPS):
     """One turn: ``steps`` steps with the launch counts set to 0 before and
     held after to what the steps run (K6-K9 exactly, the pair kernels once
-    a pair-force evaluation), replays counted. Returns (ms a step, host us
-    a step, {captures, replays, eager_segments} of the turn)."""
+    a pair-force evaluation; with an MPCD coupling K5, its clock form on the
+    graphs, and K10 once a joint collision, exactly when no violation
+    replay collided again), replays counted. Returns (ms a step, host us a
+    step, {captures, replays, eager_segments} of the turn)."""
     totals0 = dict(sim._graph_totals)
     steps0, evals0 = sim.steps_run, sim.force_evaluations
+    t0, viol0 = sim.timestep, sim.viol_replays
     _reset_counts(K)
     ms, host_us = _turn(sim, steps)
+    if sim._coupling is not None:
+        collisions = int(sim._coupling.trigger.mask(t0, steps).sum())
+        form = "jax_normal_axis_clock" if sim._graphs_apply() else "jax_normal_axis"
+        _draws(K, f"graph {label}", {form: collisions, "cell_sums": collisions},
+               exact=sim.viol_replays == viol0)
     integ = sim.operations.integrator
     _integrator_launches(K, f"graph {label}", sim.steps_run - steps0, len(integ.methods),
                          rotational=integ.integrate_rotational_dof)
@@ -4212,8 +4317,19 @@ def _advance_turns(az, K, label, card):
             "ops_eager": e_ops, "busy_eager": e_busy, **turns, "pool_mb": pool_mb}
 
 
+def _graph_diff(a, b):
+    """(bitwise equal, max |difference|) of two simulations: the slot
+    layouts (``_layout_diff``) and, with an MPCD stream, the streams and
+    their anchors (``_stream_diff``)."""
+    same, worst = _layout_diff(a, b)
+    if a._mpcd is not None:
+        s_same, s_worst = _stream_diff(a, b)
+        same, worst = same and s_same, max(worst, s_worst)
+    return same, worst
+
+
 def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "droplet", "ramp",
-                                  "srd", "poiseuille")):
+                                  "colloid", "srd", "poiseuille")):
     """[graph]: BASELINE configs 1-5 at full size and a small Ramp-kT
     liquid, each built three times from one seed: two run the eager loop
     (``_eager``), one the CUDA graphs (the droplet's updater masked every
@@ -4230,13 +4346,17 @@ def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "dropl
     graphs and eagerly, captures, replays, the pool's MB; for the droplet
     the masked updaters' operations and busy ms a step and their share of
     its busy step; checks the clock forms of K2, K4, K8 and K9 and the
-    device-kT forms of K8 and K9 against their host forms. Then pure SRD
-    and the Poiseuille slit on the SRD advance graphs (``_advance_turns``).
-    Returns {label: figures}."""
+    device-kT forms of K8 and K9 against their host forms. Colloid
+    hydrodynamics at full size takes the same turns with its joint
+    collision inside the segment graphs: the solvent and its anchor are
+    compared too, and K5 and K10 held to once a collision every turn. Then
+    pure SRD and the Poiseuille slit on the SRD advance graphs
+    (``_advance_turns``). Returns {label: figures}."""
     t0 = time.perf_counter()
     out = {}
     builds = {"headline": build_headline, "polymer": build_polymer, "dpd": build_dpd,
-              "patchy": build_patchy, "droplet": build_droplet, "ramp": build_ramp}
+              "patchy": build_patchy, "droplet": build_droplet, "ramp": build_ramp,
+              "colloid": build_colloid}
     for label in paths:
         t_label = time.perf_counter()
         if label in ADVANCE_GRAPH_STEPS:
@@ -4253,7 +4373,7 @@ def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "dropl
         E, E2, G = sims["eager"], sims["eager2"], sims["graph"]
         for sim in (E, E2, G):
             sim.run(GRAPH_STEPS)
-        diffs = [(_layout_diff(E, E2), _layout_diff(G, E))]
+        diffs = [(_graph_diff(E, E2), _graph_diff(G, E))]
         ms = {"eager": [], "graph": []}
         host = {"eager": [], "graph": []}
         turns = {"captures": 0, "capture_seconds": 0.0, "replays": 0, "eager_segments": 0}
@@ -4266,7 +4386,7 @@ def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "dropl
             else:
                 turns = {c: turns[c] + counted[c] for c in turns}
             if k in (1, 3):
-                diffs.append((_layout_diff(E, E2), _layout_diff(G, E)))
+                diffs.append((_graph_diff(E, E2), _graph_diff(G, E)))
         for (ee_same, ee_diff), (ge_same, ge_diff) in diffs:
             if ee_same and not ge_same:
                 raise AssertionError(f"graph {label}: the graph run differs from the eager run "
@@ -4407,10 +4527,11 @@ def main() -> int:
     # the rods melt over ~8,000 steps, releasing pair energy faster than the
     # thermostat removes it (kT peaked at 1.24 near step 5,000 on an H100;
     # PERF.md), so the polymer warms up for 10,000
+    # its bond force scatters through K10 (cell_sums) at least once a step
     count(run_path(az, D, K, card, record, "polymer", build_polymer, 10000, 1000,
                    {"cell_pair_force[ExpandedYukawa]":
                     lambda: PK.launches_by_potential.get("ExpandedYukawa", 0)},
-                   {"particle_bits": 0}, extra_check=_bond_lengths))
+                   {"particle_bits": 0, "cell_sums": 1000}, extra_check=_bond_lengths))
     patchy = count(run_path(az, D, K, card, record, "patchy", build_patchy, PATCHY_WARM, 1000,
                             {"cell_aniso_force": lambda: AK.launches}, {"particle_bits": 0},
                             extra_check=_unit_quaternions,

@@ -4,7 +4,8 @@
     python3 kernel_timers.py [ROOT] [PART ...]    # ROOT: a checkout; default: this one
 
 PARTs (default all): force (the four force kernels and K9), draws (K4, K5),
-cellsum (K10, index_add_, K5's clock form), headline (K6-K8), droplet (the
+cellsum (K10, index_add_, K5's clock form), headline (K6-K8; K8 in three
+forms), droplet (the
 pair kernel, the masked evaporator and K4 at the pick).
 
 Imports azplugins_tpu_torch from ROOT, builds its kernels there, and times
@@ -16,7 +17,9 @@ the DPD fluid (cap 40) and the anisotropic kernel at the patchy colloids
 step (K7, ``Langevin.step1``), both in one launch where the checkout has
 it (K7+K6, ``Langevin.step1`` with a drift check) and Langevin kick (K8,
 ``Langevin.step2``) on its state after HEADLINE_STEPS steps (past the
-capacity tune: cap 48, 82,944 slots); the draws at the shapes chip_smoke.py
+capacity tune: cap 48, 82,944 slots), K8 also in its NVE form
+(``ConstantVolume.step2``, what the colloid path's graphs replay) and its
+noiseless form (``Langevin(noiseless=True).step2``); the draws at the shapes chip_smoke.py
 times them at (K4 ``particle_uniform3`` and ``particle_bits`` of one word
 on 82,944 tags; K5's axis form at pure SRD's 262,144 rows and its two-key
 form at Poiseuille's 4,352 where the checkout has them, and its single
@@ -241,13 +244,19 @@ def main() -> int:
         torch.cuda.synchronize()
         hd, hmeta, hspec = sim._dense, sim._meta, sim._grid_spec
         lang = sim.operations.integrator.methods[0]
+        nve = az.md.methods.ConstantVolume()
+        quiet = az.md.methods.Langevin(kT=1.0, default_gamma=0.1, noiseless=True)
+        for m in (nve, quiet):
+            m._attach(sim)
         dt, t, seed = sim.dt_ref(), sim.timestep, sim.seed
         viol = torch.tensor(False, device=dev)
         at = f"64k headline after {HEADLINE_STEPS} steps, {hd.N:,} slots"
         headline = {
             f"drift_check (K6) {at}": lambda: D.needs_rebin(hd, hmeta, hspec, viol),
             f"step1 (K7) {at}": lambda: lang.step1(hd, dt, t, seed),
-            f"step2 (K8, Langevin) {at}": lambda: lang.step2(hd, dt, t, seed)}
+            f"step2 (K8, Langevin) {at}": lambda: lang.step2(hd, dt, t, seed),
+            f"step2 (K8, NVE) {at}": lambda: nve.step2(hd, dt, t, seed),
+            f"step2 (K8, noiseless Langevin) {at}": lambda: quiet.step2(hd, dt, t, seed)}
         if hasattr(IK, "step1_drift"):  # K7+K6 in one launch, where the checkout has it
             check = az.md.methods.DriftCheck(hmeta, hspec, viol)
             headline[f"step1_drift (K7+K6) {at}"] = lambda: lang.step1(hd, dt, t, seed, check)

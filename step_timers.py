@@ -7,8 +7,8 @@ Imports this checkout's azplugins_tpu_torch and OTHER_ROOT's (under the
 name ``azplugins_tpu_torch_other``) into one process, builds both trees'
 kernels, and runs chip_smoke.py's full-size paths that both trees have (the
 64k headline, the DPD fluid, the polymer melt, the patchy colloids, the
-evaporating droplet, pure SRD and the SRD Poiseuille slit; the PATHs
-named, default all) from the same start in
+evaporating droplet, colloid hydrodynamics, pure SRD and the SRD
+Poiseuille slit; the PATHs named, default all) from the same start in
 each: ``WARM`` steps (the droplet ``DROPLET_WARM``, as its main path in
 chip_smoke.py), then ``STEPS`` timed steps in
 eight turns, (other, this, this, other) twice, each timed with CUDA events
@@ -16,8 +16,9 @@ around ``sim.run`` and profiled over 20 steps (device operations and
 device-busy ms a step, as chip_smoke.py's profile line). The host clock
 moves between processes by up to 73% on one card, so two trees are
 compared only inside one process, in turns. Prints one line per path and
-turn with the cap and rebuild interval (and, on the MPCD-only paths of a
-tree that has them, the SRD advance graphs' captures and replays so far), a
+turn with the cap and rebuild interval (and the segment graphs' captures
+and replays so far, and on the MPCD-only paths of a tree that has them
+the SRD advance graphs'), a
 line per path with each tree's
 median ms/step and device-busy ms and the spread of its turns (max - min),
 then the card.
@@ -41,7 +42,7 @@ STEPS = 300
 TURNS = ("other", "this", "this", "other") * 2
 PATHS = (("headline", cs.build_headline), ("dpd", cs.build_dpd),
          ("polymer", cs.build_polymer), ("patchy", cs.build_patchy),
-         ("droplet", cs.build_droplet),
+         ("droplet", cs.build_droplet), ("colloid", cs.build_colloid),
          # the MPCD-only paths (their builders return the simulation alone)
          ("srd", lambda az, dev: (cs.build_srd(az, dev), None)),
          ("poiseuille", lambda az, dev: (cs.build_poiseuille(az, dev), None)))
@@ -99,11 +100,13 @@ def main() -> int:
             ops, busy, htod, syncs = cs._profile(sim)
             read[name].append((ms, busy))
             advance = getattr(sim, "_advance_totals", None)
+            graphs = getattr(sim, "_graph_totals", None)
             print(f"[{label}] turn {turn} {name}: {ms:.4f} ms/step (host wall {wall:.3f} s), "
                   f"{ops:.1f} device operations and {busy:.4f} ms device-busy per step, "
                   f"{htod:.2f} copies and {syncs:.2f} synchronising calls per step; "
                   + (f"cap {sim._grid_spec.cap}, rebuild interval {sim._seg_len}"
                      if sim._grid_spec is not None else "no grid")
+                  + (f"; segment graphs so far: {graphs}" if graphs else "")
                   + (f"; SRD advance graphs so far: {advance}" if advance else ""), flush=True)
         print(f"[{label}] " + "; ".join(
             f"{name}: median {np.median([m for m, _ in r]):.4f} ms/step (spread "

@@ -212,3 +212,82 @@ def test_bonds_without_pairs_run_in_tag_order():
     f = h.forces
     assert np.abs(f).max() > 0.1 and np.abs(f.sum(axis=0)).max() < 1e-4
     assert np.isfinite(h.energy) and h.energy > 0
+
+
+def _branched(az, device="cpu", n_stars=27, L=12.0, seed=5):
+    """Branched molecules: stars of a centre and four arms on a lattice,
+    bonded (c, c+1), (c, c+2), (c, c+3) and (c+4, c), so each centre is the
+    first member of three bonds and the second member of one; Harmonic
+    bonds and a WCA pair force (a grid, and a tag->slot map)."""
+    rng = np.random.default_rng(seed)
+    g = round(n_stars ** (1 / 3))
+    x = (np.arange(g) + 0.5) * (L / g) - L / 2
+    centres = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    arms = 0.9 * np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [-1, 0, 0]])
+    pos = np.concatenate([np.concatenate([c[None], c + arms]) for c in centres])
+    pos += rng.normal(0, 0.05, pos.shape)
+    snap = az.Snapshot(N=len(pos), bond_N=4 * len(centres))
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    snap.particles.position[:] = pos
+    snap.bonds.types = ["arm"]
+    c = 5 * np.arange(len(centres))
+    snap.bonds.group[:] = np.concatenate(
+        [np.stack([c, c + 1], 1), np.stack([c, c + 2], 1), np.stack([c, c + 3], 1),
+         np.stack([c + 4, c], 1)])
+    sim = az.Simulation(device=device, seed=3)
+    sim.create_state_from_snapshot(snap)
+    bonds = az.bond.Harmonic()
+    bonds.params["arm"] = dict(k=100.0, r0=1.0)
+    wca = az.pair.LJ(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.0 ** (1 / 6),
+                     mode="shift")
+    wca.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.002, methods=[az.md.methods.Langevin(kT=1.0, default_gamma=0.5)],
+        forces=[bonds, wca])
+    sim.state.thermalize_particle_momenta(kT=1.0)
+    return sim, bonds
+
+
+@pytest.mark.parametrize("want", ["force", "all"])
+@pytest.mark.parametrize("layout", ["whole", "shard"])
+def test_bond_scatter_in_the_cards_order(monkeypatch, layout, want):
+    """The bond force's scatter on the card (``_bond_scatter``: K10 over
+    the bonds' first members, then their second members, at unit mass)
+    with K10 in its plain ordered form (``mpcd._cell_sums_plain``) is bitwise
+    the CPU's ``index_add_`` form, on branched molecules whose centres are
+    the first member of three bonds and the second of one; on a shard
+    (every slot's positions, the rows past it dropped) too."""
+    from azplugins_tpu_torch import mpcd as M
+    from azplugins_tpu_torch.ops import cellsum_kernel as CK
+
+    sim, bonds = _branched(port)
+    sim.run(5)
+    dense, slot_of = sim._dense, sim._meta.slot_of
+    tbl = bonds._device_tables(sim.device)
+    a = slot_of[tbl["group"][:, 0]]
+    assert int(torch.bincount(a).max()) == 3  # a slot first in three bonds
+    kw, part = {}, dense
+    if layout == "shard":  # the middle third of the slots
+        lo, hi = dense.N // 3, 2 * dense.N // 3
+        kw, part = dict(positions=dense.position, first=lo), dense.replace(
+            position=dense.position[lo:hi])
+
+    def force():
+        return PD.dense_bond_force(bonds._def.energy_force, part, slot_of, tbl["group"],
+                                   tbl["params"], want, **kw)
+
+    want_r = force()
+    monkeypatch.setattr(CK, "cell_sums", lambda cid, vel, mass, cells: M._cell_sums_plain(
+        cid, M._payload(vel, mass), cells))
+    monkeypatch.setattr(PD, "_rng", type("OnCard", (), {"_on_card": staticmethod(
+        lambda device: True)}))
+    got = force()
+    for name in ("force", "energy", "virial"):
+        w, g = getattr(want_r, name), getattr(got, name)
+        if want == "force" and name != "force":
+            assert w is None and g is None
+            continue
+        assert g.shape == w.shape and torch.equal(g.contiguous().view(torch.int32),
+                                                  w.view(torch.int32)), name
+    assert float(want_r.force.abs().max()) > 1.0

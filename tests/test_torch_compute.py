@@ -114,6 +114,32 @@ def test_bin_particles_matches_reference(kind):
     assert float(pm.sum()) > 0
 
 
+@pytest.mark.parametrize("kind", ["cartesian", "cylindrical"])
+def test_bins_are_the_ordered_cell_sums(kind):
+    """On the CPU the bins are bitwise the MPCD cell sums' plain ordered
+    form (``mpcd._cell_sums_plain`` over ``mpcd._payload``: each bin's
+    particles added in ascending row order from +0.0, the dump id left
+    out), whose mass and momentum columns K10 computes on the card."""
+    from azplugins_tpu_torch import mpcd as M
+
+    rng = np.random.default_rng(5)
+    n = 3000
+    coords = torch.as_tensor(((rng.random((n, 3)) - 0.5) * 24.0).astype(np.float32))
+    vel = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    mass = torch.as_tensor((rng.random(n) + 0.5).astype(np.float32))
+    select = torch.as_tensor(rng.random(n) < 0.8)
+    bins, lo, hi = (5, 4, 3), (-10.0, -10.0, -10.0), (10.0, 10.0, 10.0)
+    if kind == "cylindrical":
+        coords, vel = PB.cylindrical_coords(coords, vel)
+        bins, lo, hi = (4, 6, 3), (0.0, 0.0, -10.0), (12.0, 2 * np.pi, 10.0)
+    idx, total = PB.bin_ids(coords, select, bins, lo, hi)
+    assert total == int(np.prod(bins)) and int((idx == total).sum()) > 0
+    want = M._cell_sums_plain(idx, M._payload(vel, mass), total)[:, 1:5]
+    got_m, got_p = PB.bin_particles(coords, vel, mass, select, bins, lo, hi)
+    assert torch.equal(got_m.view(torch.int32), want[:, 0].contiguous().view(torch.int32))
+    assert torch.equal(got_p.view(torch.int32), want[:, 1:].contiguous().view(torch.int32))
+
+
 def test_cylindrical_coords_match_reference():
     """theta wraps to [0, 2 pi) and r = 0 takes the x basis, as in the
     reference."""

@@ -39,6 +39,17 @@ host read inside a collision's or a stream's body; K5's clock form and
 K10 counted exactly once a collision under replay; a coupled stream, a
 solvent in several blocks, ``profile`` and ``_eager`` keep the eager
 advance.
+
+The MPCD coupling inside the segment graphs (colloid hydrodynamics at a
+small size, the solvent's anchor in the runner's buffers, a colliding
+segment keyed by its lead): bitwise the eager loop, colloids, solvent and
+anchor, with and without a grid, from a start inside a collision window
+(a short first window) and with chunks a writer cuts; a chunk thrown away
+after its collisions (a drift violation, an overflow) replays bitwise a
+run without the replay; no host read inside a coupled segment; K5's clock
+form and K10 once a collision and every step counted under replay; a
+replaced trigger keeps the eager loop; and the graphed coupled run within
+the JAX reference's two-collision bars.
 """
 
 import contextlib
@@ -554,13 +565,15 @@ def _eligibility_case(case):
 
 @pytest.mark.parametrize("case", ["updater", "coupling", "sharded", "ramp"])
 def test_eligibility_selects_the_eager_loop(case):
-    """An MPCD coupling or a sharded mesh keeps the eager loop, by the rule
-    on the operations, before any capture; an updater or a Ramp kT takes
-    the graphs (the updater masked every step, kT from the chunk's rows),
-    bitwise the eager loop."""
+    """A sharded mesh keeps the eager loop, by the rule on the operations,
+    before any capture; an updater, a Ramp kT or an MPCD coupling on its
+    default trigger takes the graphs (the updater masked every step, kT
+    from the chunk's rows, the joint collision on a segment's last step
+    with the solvent's anchor in the runner's buffers), bitwise the eager
+    loop (the solvent too)."""
     sim = _eligibility_case(case)
     sim._capture = capture = FakeCapture()
-    if case in ("coupling", "sharded"):
+    if case == "sharded":
         sim.run(25)
         assert not sim._graph_eligible() and not sim._graphs_apply()
         assert sim._runner is None and capture.graphs == []
@@ -574,6 +587,8 @@ def test_eligibility_selects_the_eager_loop(case):
     assert eager._runner is None
     _assert_same(sim._dense, eager._dense, case)
     _assert_same(sim._meta, eager._meta, case)
+    if case == "coupling":
+        _same_stream(sim, eager, case)
 
 
 def test_the_schedule_keeps_the_graph_keys():
@@ -921,6 +936,9 @@ def test_advance_counters_under_replay(monkeypatch):
         CK.launches += 1
         return sums(*args, **kwargs)
 
+    # counted into copies, which teardown drops: other tests read the counts
+    monkeypatch.setattr(RK, "launches_by_kernel", dict(RK.launches_by_kernel))
+    monkeypatch.setattr(CK, "launches", CK.launches)
     monkeypatch.setattr(RNG, "collision_draws", counted_draws)
     monkeypatch.setattr(M, "_cell_sums", counted_sums)
     sim = _solvent(port, "srd")
@@ -937,7 +955,9 @@ def test_advance_counters_under_replay(monkeypatch):
 def test_advance_eligibility(case, tmp_path):
     """A coupled stream, a solvent in several blocks, a run inside profile
     and the private _eager keep the eager advance, by the rule, before any
-    capture; a whole uncoupled stream takes the graphs."""
+    capture; a whole uncoupled stream takes the graphs. A coupled stream's
+    collisions run on the segment graphs instead (the coupling owns them):
+    only its observation stream is eager."""
     if case == "coupled":
         sim = _eligibility_case("coupling")
     else:
@@ -959,6 +979,9 @@ def test_advance_eligibility(case, tmp_path):
     if case == "sharded":
         assert len(sim._mpcd["position"]) == 2
     assert (sim._advance_graphs is None) == (case != "whole")
+    assert (sim._runner is not None) == (case in ("coupled", "whole"))
+    if case == "coupled":
+        assert sim._graphs_apply() and sim._graph_totals["eager_segments"] >= 1
     if case == "whole":
         assert sim._advance_totals["replays"] >= 1
 
@@ -998,3 +1021,281 @@ def test_advance_graphs_match_reference(kind):
     np.testing.assert_allclose(xp, xr, rtol=0, atol=1e-6 * 8.0)
     np.testing.assert_allclose(vp, vr, rtol=0, atol=1e-5 * np.abs(vr).max())
     assert int(np.asarray(sims[0]._mpcd["_srd_anchor"][2])) == sims[1]._mpcd["_srd_anchor"][2] == 10
+
+
+# ---------------------------------------------------------------------------
+# The MPCD coupling inside the segment graphs
+# ---------------------------------------------------------------------------
+def _coupled(az, forces=True, N_s=1200, n=3, L=6.0, period=10, seed=3, lattice=True):
+    """Colloid hydrodynamics at a small size (``bench.py``'s colloid path):
+    n^3 colloids of mass 5 in an SRD solvent (kT 1) coupled through the
+    joint collision every ``period`` steps. With ``forces`` the colloids sit
+    on a lattice under the path's WCA LJ (a grid) at dt 0.005, the solvent
+    driven by a body force; without, they sit at random with no force (no
+    grid) at dt 0.02, as ``test_torch_mpcd.py``'s coupled case."""
+    rng = np.random.default_rng(seed)
+    snap = az.Snapshot(N=n**3, mpcd_N=N_s)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["C"]
+    snap.particles.position[:] = (rng.random((n**3, 3)) - 0.5) * L
+    if lattice:
+        x = (np.arange(n) + 0.5) * (L / n) - L / 2
+        snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"),
+                                              -1).reshape(-1, 3)
+    snap.particles.mass[:] = 5.0
+    snap.mpcd.position[:] = (rng.random((N_s, 3)) - 0.5) * L
+    snap.mpcd.velocity[:] = rng.normal(0, 1.0, (N_s, 3))
+    snap.mpcd.velocity[:] -= snap.mpcd.velocity.mean(axis=0)
+    sim = _simulation(az, snap, 13)
+    pots, dt, body = [], 0.02, None
+    if forces:
+        lj = az.pair.LJ(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.0 ** (1 / 6),
+                        mode="shift")
+        lj.params[("C", "C")] = dict(epsilon=1.0, sigma=1.0)
+        pots, dt, body = [lj], 0.005, (0.02, 0.0, 0.0)
+    sim.operations.integrator = az.md.Integrator(
+        dt=dt, methods=[az.md.methods.ConstantVolume()], forces=pots)
+    srd = az.mpcd.SRD(dt=dt, period=period, angle=130.0, cell_size=1.0, kT=1.0,
+                      body_force=body)
+    sim.mpcd_dynamics = srd
+    sim.operations.updaters.append(az.mpcd.CollisionCoupling(srd))
+    return sim
+
+
+class _Cut(port.write.Writer):
+    """A writer that only ends chunks: the run loop cuts a chunk at each
+    of its fires."""
+
+    def __init__(self, trigger):
+        super().__init__(trigger)
+        self.fired = []
+
+    def write(self, sim, timestep):
+        self.fired.append(timestep)
+
+
+def _coupled_pair(case):
+    """An eager and a graphed port simulation of one coupled case."""
+    sims = []
+    for graphs in (False, True):
+        sim = _coupled(port, forces=case != "no_grid")
+        sim._capture, sim._eager = FakeCapture(), not graphs
+        if case == "short_first_window":
+            sim.timestep = 3  # the stream anchors at 3: the first window has 7 steps
+        elif case == "writer":
+            sim.operations.writers.append(_Cut(port.trigger.Periodic(7)))
+        sims.append(sim)
+    return sims
+
+
+def _same_coupled(got, want, what, counted=True):
+    """Bitwise the same slot layout and solvent (and anchor), at the same
+    timestep; with ``counted`` after as many steps and force evaluations."""
+    _assert_same(got._dense, want._dense, what)
+    _same_stream(got, want, what)
+    assert got.timestep == want.timestep, what
+    if counted:
+        assert (got.steps_run, got.force_evaluations) == (
+            want.steps_run, want.force_evaluations), what
+
+
+@pytest.mark.parametrize("case", ["colloids", "no_grid", "short_first_window", "writer"])
+def test_coupled_segments_are_the_eager_loop(case):
+    """With its default trigger the joint collision runs inside the segment
+    graphs (a stand-in capture): the colloids, the solvent and its anchor
+    are bitwise the eager loop over uneven chunks, also from a start that is
+    not a multiple of the period (a short first window: a smaller lead) and
+    with chunks that a writer cuts inside a segment; a segment whose last
+    step collides is keyed by its lead, and at most one collision lands in
+    a segment, on its last step."""
+    eager, graphs = _coupled_pair(case)
+    for n in (7, 13, 25, 9, 31):
+        for sim in (eager, graphs):
+            sim.run(n)
+        _same_coupled(graphs, eager, f"{case} after {graphs.timestep} steps")
+    assert graphs._graph_eligible() and graphs._graphs_apply() and not eager._graphs_apply()
+    runner = graphs._runner
+    assert runner is not None and eager._runner is None
+    assert runner.replays >= 3 and runner.captures >= 1
+    assert runner.pos_a is not None and runner.pos_a.shape == (1200, 3)
+    period = graphs.mpcd_dynamics.period
+    leads = {k[2] for k in runner.graph_keys() if len(k) == 3}
+    assert leads and leads <= set(range(1, period + 1))
+    if case == "short_first_window":
+        assert graphs._mpcd["_srd_anchor"][2] % period == 0
+    if case == "writer":
+        assert graphs.operations.writers[0].fired == [7, 14, 21, 28, 35, 42, 49, 56, 63, 70,
+                                                      77, 84]
+
+
+def _inject(sim, at: int, which: str):
+    """The chunk flags of the chunk that starts at timestep ``at`` read once
+    as an overflow or a drift violation, as if a rebuild overflowed or a
+    particle out-drifted the buffer there."""
+    flags, done = sim._chunk_flags, []
+
+    def once(meta, violated):
+        overflow, viol, max_occ = flags(meta, violated)
+        if sim.timestep == at and not done:
+            done.append(at)
+            if which == "overflow":
+                return True, viol, max_occ
+            return overflow, True, max_occ
+        return overflow, viol, max_occ
+
+    sim._chunk_flags = once
+    return done
+
+
+@pytest.mark.parametrize("which", ["violation", "overflow"])
+def test_coupled_rollback_after_a_collision(which):
+    """A chunk thrown away after its joint collisions ran (a drift
+    violation, replayed at an interval of 9 that snaps to the same rebuild
+    schedule on the period of 9; an overflow, replayed one rebuild a chunk)
+    starts again from the anchor it was given: the run is bitwise a run
+    without the replay, on the graphs and eagerly. The anchor the
+    simulation keeps is never the runner's buffers."""
+    runs = {}
+    for graphs in (False, True):
+        for replayed in (False, True):
+            sim = _coupled(port, period=9)
+            sim._capture, sim._eager = FakeCapture(), not graphs
+            sim.run(18)
+            done = _inject(sim, 18, which) if replayed else None
+            sim.run(30)  # collisions at 27, 36 and 45
+            if replayed:
+                assert done == [18]
+                assert sim.viol_replays == (1 if which == "violation" else 0)
+            runs[graphs, replayed] = sim
+    for (graphs, replayed), sim in runs.items():
+        _same_coupled(sim, runs[False, False], f"graphs {graphs}, replayed {replayed}",
+                      counted=not replayed)
+    assert runs[True, True].steps_run > runs[True, False].steps_run
+    runner = runs[True, True]._runner
+    assert runner.replays >= 3
+    anchor = runs[True, True]._mpcd["_srd_anchor"]
+    assert anchor[0][0].data_ptr() != runner.pos_a.data_ptr()
+    assert anchor[1][0].data_ptr() != runner.vel_a.data_ptr()
+
+
+def test_coupled_segment_makes_no_host_read():
+    """A coupled segment that collides on its last step, eagerly with the
+    host's keys and under the device clock, and a stand-in capture and
+    replays of its graph, with the anchor loaded and cloned out, read
+    nothing on the host."""
+    sim = _coupled(port)
+    sim._capture = FakeCapture()
+    sim.run(20)
+    tbls = sim._force_tables()
+    t = sim.timestep
+    solv = sim._mpcd["_srd_anchor"]
+    clock = torch.tensor(t, dtype=torch.int64)
+    with no_host_reads():
+        viol = torch.zeros((), dtype=torch.bool)
+        sim._run_segment((sim._dense,), (sim._meta,), viol, t, 10, True, tbls, solv)
+        with RNG.device_clock(clock, t):
+            sim._run_segment((sim._dense,), (sim._meta,), viol, t, 10, True, tbls, solv)
+    runner = sim._build_runner(tbls)
+    assert runner is sim._runner
+    replays = runner.replays
+    with no_host_reads():
+        runner.load(sim._dense, sim._meta, t, anchor=(solv[0][0], solv[1][0]))
+        for k in range(3):  # already replayed by the run: three more replays
+            runner.run(t + 10 * k, 10, True, 10)
+        runner.anchor()
+    assert runner.replays == replays + 3
+
+
+def test_coupled_counters_under_replay(monkeypatch):
+    """Under replay the coupled graphs count exactly what the eager loop
+    counts: one K5 clock-form launch and one K10 call a joint collision (the
+    kernels stand in on the CPU as counting wrappers of the plain
+    versions), and every step and force evaluation."""
+    from azplugins_tpu_torch import mpcd as M
+    from azplugins_tpu_torch.ops import cellsum_kernel as CK
+    from azplugins_tpu_torch.ops import rng_kernel as RK
+
+    draws, axes, sums = RNG.collision_draws, RNG.jax_normal_axis, M._cell_sums
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            RK.launches_by_kernel[name] = RK.launches_by_kernel.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    def counted_sums(*args, **kwargs):
+        CK.launches += 1
+        return sums(*args, **kwargs)
+
+    # counted into copies, which teardown drops: other tests read the counts
+    monkeypatch.setattr(RK, "launches_by_kernel", dict(RK.launches_by_kernel))
+    monkeypatch.setattr(CK, "launches", CK.launches)
+    monkeypatch.setattr(RNG, "collision_draws", counted("jax_normal_axis_clock", draws))
+    monkeypatch.setattr(RNG, "jax_normal_axis", counted("jax_normal_axis", axes))
+    monkeypatch.setattr(M, "_cell_sums", counted_sums)
+    eager, graphs = _coupled_pair("colloids")
+    for sim in (eager, graphs):
+        clock0, host0 = (RK.launches_by_kernel.get(k, 0)
+                         for k in ("jax_normal_axis_clock", "jax_normal_axis"))
+        k10 = CK.launches
+        sim.run(30)
+        sim.run(30)
+        clock, host = (RK.launches_by_kernel.get(k, 0) - n
+                       for k, n in (("jax_normal_axis_clock", clock0), ("jax_normal_axis", host0)))
+        assert (clock, host) == ((6, 0) if sim is graphs else (0, 6))
+        assert CK.launches - k10 == 6
+    assert graphs._runner.replays >= 4
+    assert (graphs.steps_run, graphs.force_evaluations) == (eager.steps_run,
+                                                            eager.force_evaluations) == (60, 61)
+
+
+@pytest.mark.parametrize("trigger", ["phase", "period", "after"])
+def test_a_replaced_trigger_keeps_the_eager_loop(trigger):
+    """A coupling whose trigger is not the default (another phase, another
+    period, a trigger of another kind) fires at the host's steps on the
+    eager loop, before any capture; the default trigger takes the graphs."""
+    sim = _coupled(port)
+    sim._capture = capture = FakeCapture()
+    coupling = sim.operations.updaters[0]
+    coupling.trigger = {"phase": port.trigger.Periodic(10, phase=2),
+                        "period": port.trigger.Periodic(5, phase=4),
+                        "after": port.trigger.After(12)}[trigger]
+    sim.run(20)
+    assert not coupling._ingraph
+    assert not sim._graph_eligible() and not sim._graphs_apply()
+    assert sim._runner is None and capture.graphs == []
+    coupling.trigger = port.trigger.Periodic(10, phase=9)
+    sim.run(20)
+    assert coupling._ingraph and sim._graph_eligible() and sim._runner is not None
+
+
+def test_coupled_graphs_match_reference():
+    """The coupled case of test_torch_mpcd.py's two collisions on the
+    segment graphs: seven steps in chunks of 2, 3 and 2 (the second sight
+    of a key is captured and replayed), the solvent continued from the
+    reference's stream and anchor, three more steps (a replayed collision):
+    the solvent and the solutes within the same bars (1e-6 of L in position,
+    1e-5 of max|v| in velocity) of the JAX reference's run, the anchor at
+    the same clock."""
+    from azplugins_tpu_torch import interop
+
+    sims = [_coupled(az, forces=False, N_s=3000, n=2, L=8.0, period=5, lattice=False)
+            for az in (ref, port)]
+    rsim, psim = sims
+    psim._capture = FakeCapture()
+    rsim.run(7)
+    for n in (2, 3, 2):
+        psim.run(n)
+    psim._mpcd = interop.mpcd_from_reference(rsim._mpcd, "cpu")
+    assert psim._mpcd["_srd_anchor"][2] == 5
+    replays = psim._runner.replays
+    for sim in sims:
+        sim.run(3)
+    assert psim._runner.replays > replays and psim._runner.captures >= 2
+    (xr, vr, mr), (xp, vp, mp) = ((s.state.get_snapshot().mpcd.position,
+                                   s.state.get_snapshot().mpcd.velocity,
+                                   s.state.get_snapshot().particles.velocity) for s in sims)
+    np.testing.assert_allclose(xp, xr, rtol=0, atol=1e-6 * 8.0)
+    np.testing.assert_allclose(vp, vr, rtol=0, atol=1e-5 * np.abs(vr).max())
+    np.testing.assert_allclose(mp, mr, rtol=0, atol=1e-5 * np.abs(vr).max())
+    assert int(np.asarray(rsim._mpcd["_srd_anchor"][2])) == psim._mpcd["_srd_anchor"][2] == 10

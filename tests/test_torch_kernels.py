@@ -45,7 +45,12 @@ advance to its eager advance.
 
 The MPCD collision's cell sums (K10, csrc/cell_sums.cu) are held to the
 plain ordered sum (mpcd.py's _cell_sums_plain) bit for bit: every cell's
-rows added in ascending row order, as the CPU's index_add_ adds them.
+rows added in ascending row order, as the CPU's index_add_ adds them. So
+are the two other sums K10 takes: the velocity computes' bins (two calls
+the same bits, the Cartesian bins bitwise the CPU's) and the bond force's
+scatter on branched molecules (two runs the same bits). Small colloid
+hydrodynamics with its joint collision inside the segment graphs is held
+bitwise to the eager loop, solvent and anchor included.
 """
 
 import importlib
@@ -1966,3 +1971,168 @@ def _captured_against_eager(cuda_device, scheduled):
         assert torch.equal(getattr(graphs._dense, name), getattr(eager._dense, name)), name
     for name in ("ref_position", "overflow", "n_builds", "max_occ"):
         assert torch.equal(getattr(graphs._meta, name), getattr(eager._meta, name)), name
+
+
+# -- the velocity bins and the bond scatter through K10 ----------------------
+def _bins_case(device, n=20_000, seed=6):
+    g = np.random.default_rng(seed)
+    coords = torch.as_tensor(((g.random((n, 3)) - 0.5) * 24.0).astype(np.float32), device=device)
+    vel = torch.as_tensor(g.normal(size=(n, 3)).astype(np.float32), device=device)
+    mass = torch.as_tensor((g.random(n) + 0.5).astype(np.float32), device=device)
+    select = torch.as_tensor(g.random(n) < 0.8, device=device)
+    return coords, vel, mass, select
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cartesian", "cylindrical"])
+def test_velocity_bins_on_the_card_are_bitwise(cuda_device, kind):
+    """The velocity computes' bins on the card (K10's mass and momentum
+    columns) are the same bits in two calls and bitwise the plain ordered
+    sum on the card; the Cartesian bins, whose ids the card and the CPU
+    form alike, bitwise the CPU's index_add_ too."""
+    from azplugins_tpu_torch import mpcd as M
+    from azplugins_tpu_torch.ops import binning as B
+
+    coords, vel, mass, select = _bins_case(cuda_device)
+    bins, lo, hi = (16, 12, 10), (-10.0, -10.0, -10.0), (10.0, 10.0, 10.0)
+    if kind == "cylindrical":
+        coords, vel = B.cylindrical_coords(coords, vel)
+        bins, lo, hi = (12, 16, 10), (0.0, 0.0, -10.0), (12.0, 2 * np.pi, 10.0)
+    before = CK.launches
+    first = B.bin_particles(coords, vel, mass, select, bins, lo, hi)
+    again = B.bin_particles(coords, vel, mass, select, bins, lo, hi)
+    assert CK.launches == before + 2
+    idx, total = B.bin_ids(coords, select, bins, lo, hi)
+    plain = M._cell_sums_plain(idx, M._payload(vel, mass), total)[:, 1:5]
+    for got, want, what in ((first, again, "two calls"),
+                            (first, (plain[:, 0], plain[:, 1:]), "the plain ordered sum")):
+        for x, y in zip(got, want, strict=True):
+            _same_bits(x.contiguous(), y.contiguous(), f"{kind}: {what}")
+    if kind == "cartesian":
+        cpu = B.bin_particles(coords.cpu(), vel.cpu(), mass.cpu(), select.cpu(), bins, lo, hi)
+        for x, y in zip(first, cpu, strict=True):
+            _same_bits(x.contiguous().cpu(), y, "cartesian: the CPU")
+    assert float(first[0].sum()) > 0
+
+
+def _branched(device, n_stars=64, L=16.0, seed=5):
+    """Branched molecules (stars of a centre and four arms, each centre the
+    first member of three bonds and the second of one) under Harmonic bonds
+    and a WCA pair force, Langevin."""
+    rng = np.random.default_rng(seed)
+    g = round(n_stars ** (1 / 3))
+    x = (np.arange(g) + 0.5) * (L / g) - L / 2
+    centres = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    arms = 0.9 * np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [-1, 0, 0]])
+    pos = np.concatenate([np.concatenate([c[None], c + arms]) for c in centres])
+    pos += rng.normal(0, 0.05, pos.shape)
+    snap = az.Snapshot(N=len(pos), bond_N=4 * len(centres))
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["A"]
+    snap.particles.position[:] = pos
+    snap.bonds.types = ["arm"]
+    c = 5 * np.arange(len(centres))
+    snap.bonds.group[:] = np.concatenate(
+        [np.stack([c, c + 1], 1), np.stack([c, c + 2], 1), np.stack([c, c + 3], 1),
+         np.stack([c + 4, c], 1)])
+    sim = az.Simulation(device=device, seed=3)
+    sim.create_state_from_snapshot(snap)
+    bonds = az.bond.Harmonic()
+    bonds.params["arm"] = dict(k=100.0, r0=1.0)
+    wca = az.pair.LJ(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.0 ** (1 / 6),
+                     mode="shift")
+    wca.params[("A", "A")] = dict(epsilon=1.0, sigma=1.0)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.002, methods=[az.md.methods.Langevin(kT=1.0, default_gamma=0.5)],
+        forces=[bonds, wca])
+    sim.state.thermalize_particle_momenta(kT=1.0)
+    return sim, bonds
+
+
+@pytest.mark.cuda
+def test_branched_bonds_on_the_card_repeat_bitwise(cuda_device, monkeypatch):
+    """Branched molecules run twice on the card (the bond force's scatter
+    through K10, once a step) end in the same bits; their bond forces,
+    energies and virials in two calls too, and bitwise the scatter with
+    K10's plain ordered form."""
+    from azplugins_tpu_torch import mpcd as M
+
+    runs = []
+    for _ in range(2):
+        sim, bonds = _branched(cuda_device)
+        before = CK.launches
+        sim.run(60)
+        torch.cuda.synchronize()
+        assert CK.launches - before >= 60
+        runs.append((sim, bonds))
+    (a, _), (b, bonds) = runs
+    for name in ("position", "velocity", "net_force"):
+        _same_bits(getattr(a._dense, name), getattr(b._dense, name), name)
+    first, again = (b._compute_single_force(bonds) for _ in range(2))
+    monkeypatch.setattr(CK, "cell_sums", lambda cid, vel, mass, cells: M._cell_sums_plain(
+        cid, M._payload(vel, mass), cells))
+    plain = b._compute_single_force(bonds)
+    for name in ("force", "energy", "virial"):
+        _same_bits(getattr(first, name), getattr(again, name), f"{name}: two calls")
+        _same_bits(getattr(first, name), getattr(plain, name), f"{name}: the plain order")
+    assert float(first.force.abs().max()) > 1.0
+
+
+def _graph_colloid(device, eager):
+    """Small colloid hydrodynamics (27 WCA colloids of mass 5 in 2,000 SRD
+    solvent, coupled every 10 steps, a body force), its joint collision on
+    the segment graphs unless ``eager``."""
+    g = np.random.default_rng(9)
+    L, n, N_s = 8.0, 3, 2000
+    snap = az.Snapshot(N=n**3, mpcd_N=N_s)
+    snap.configuration.box = [L, L, L, 0, 0, 0]
+    snap.particles.types = ["C"]
+    x = (np.arange(n) + 0.5) * (L / n) - L / 2
+    snap.particles.position[:] = np.stack(np.meshgrid(x, x, x, indexing="ij"), -1).reshape(-1, 3)
+    snap.particles.mass[:] = 5.0
+    snap.mpcd.position[:] = (g.random((N_s, 3)) - 0.5) * L
+    snap.mpcd.velocity[:] = g.normal(0, 1.0, (N_s, 3))
+    sim = az.Simulation(device=device, seed=11)
+    sim.create_state_from_snapshot(snap)
+    lj = az.pair.LJ(nlist=az.md.nlist.Cell(buffer=0.4), default_r_cut=2.0 ** (1 / 6),
+                    mode="shift")
+    lj.params[("C", "C")] = dict(epsilon=1.0, sigma=1.0)
+    sim.operations.integrator = az.md.Integrator(
+        dt=0.005, methods=[az.md.methods.ConstantVolume()], forces=[lj])
+    srd = az.mpcd.SRD(dt=0.005, period=10, angle=130.0, cell_size=1.0, kT=1.0,
+                      body_force=(0.02, 0.0, 0.0))
+    sim.mpcd_dynamics = srd
+    sim.operations.updaters.append(az.mpcd.CollisionCoupling(srd))
+    sim.auto_tune_after = None
+    sim._eager = eager
+    return sim
+
+
+@pytest.mark.cuda
+def test_captured_coupled_segments_are_eager_segments(cuda_device):
+    """The joint collision inside the segment graphs (K5's clock form and
+    K10 in a replay) bitwise the eager loop (K5's host-key form) over
+    uneven chunks: the colloids, the solvent and its anchor; one K5 and one
+    K10 launch a collision either way, and the same force kernels."""
+    runs = {}
+    for eager in (True, False):
+        sim = _graph_colloid(cuda_device, eager)
+        before = (dict(RK.launches_by_kernel), CK.launches, PK.launches)
+        for n in (7, 23, 40, 30):
+            sim.run(n)
+        torch.cuda.synchronize()
+        k5 = {k: RK.launches_by_kernel.get(k, 0) - before[0].get(k, 0)
+              for k in ("jax_normal_axis", "jax_normal_axis_clock")}
+        runs[eager] = (sim, k5, CK.launches - before[1], PK.launches - before[2])
+    (eager, e_k5, e_k10, e_pk), (graphs, g_k5, g_k10, g_pk) = runs[True], runs[False]
+    assert eager._runner is None and graphs._runner.replays >= 5
+    assert e_k5 == {"jax_normal_axis": 10, "jax_normal_axis_clock": 0}
+    assert g_k5 == {"jax_normal_axis": 0, "jax_normal_axis_clock": 10}
+    assert e_k10 == g_k10 == 10 and e_pk == g_pk
+    for name in ("position", "velocity", "net_force", "tag"):
+        _same_bits(getattr(graphs._dense, name), getattr(eager._dense, name), name)
+    for key in ("position", "velocity"):
+        _same_bits(torch.cat(graphs._mpcd[key]), torch.cat(eager._mpcd[key]), key)
+    for k in (0, 1):
+        _same_bits(graphs._mpcd["_srd_anchor"][k][0], eager._mpcd["_srd_anchor"][k][0],
+                   f"anchor {k}")
