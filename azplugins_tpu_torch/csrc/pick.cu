@@ -1,6 +1,6 @@
 // The evaporator's pick on K4's words (K4 at the pick): ParticleEvaporator's
-// pick on a whole layout (update.py, _pick), in two launches and with no
-// host read. No pallas_call is replaced: the reference's pick
+// pick (update.py, _pick) over a whole layout or over every shard of a mesh
+// on one device, in two launches and with no host read. No pallas_call is replaced: the reference's pick
 // (ParticleEvaporator._update at azplugins_tpu/update.py:139-172:
 // particle_bits, then lax.top_k) is plain jnp code that XLA compiles; the
 // port's plain version is ~85 operations, two torch.topk among them.
@@ -12,12 +12,18 @@
 // the card under a CUDA graph, az::step_word), every other slot's priority
 // 0xFFFFFFFF. The k smallest keys over all slots flip to the evaporated
 // type where they are candidates; all candidates flip when there are at
-// most k. pick_scan_kernel (a slot a thread) tests each slot, hashes the
-// candidates only and compacts their keys into its block's region of the
-// scratch, with the block's count; pick_select_kernel (one block) finds the
-// k-th smallest candidate key by a radix select over the compacted keys (11
-// bits a pass, stopping once the rank's bucket holds one key) and flips the
-// candidates at or below it in place. Both return at once when the
+// most k. The slots are global: a layout of n_shards shards of n_loc slots
+// each (one shard for a whole layout) numbers shard d's local slot i as
+// d * n_loc + i, the shards' slot axis joined in block order, and the
+// kernels take the shards' arrays through tables of pointers passed by
+// value (Shards). pick_scan_kernel (a slot a thread, a shard's blocks
+// after the previous shard's) tests each slot, hashes the candidates only
+// and compacts their keys into its block's region of the one scratch, with
+// the block's count; pick_select_kernel (one block) finds the k-th
+// smallest candidate key over every shard by a radix select over the
+// compacted keys (11 bits a pass, stopping once the rank's bucket holds one
+// key) and flips the candidates at or below it in place, each in its
+// shard's typeid. Both return at once when the
 // trigger's flag on the card is unset, so typeid keeps its bits. See
 // pick_select_kernel for the keys that tie the non-candidates.
 //
@@ -44,14 +50,26 @@ constexpr int kRounds = 20;  // K4's count (core/rng.py's default)
 // kPickMaxBlocks counts; radix digits of kRadixBits
 constexpr int kPickThreads = 256;
 constexpr int kPickMaxBlocks = 1024;
+constexpr int kMaxShards = 64;  // the pointer tables' size (kernel parameters)
 constexpr int kSelectThreads = 1024;
 constexpr int kRadixBits = 11;
 constexpr int kBins = 1 << kRadixBits;
 static_assert(kBins == 2 * kSelectThreads, "the bucket search takes two bins a thread");
 static_assert(kPickMaxBlocks <= kSelectThreads, "the offsets take a count a thread");
 
+// Each shard's arrays (the first n_shards entries are set)
+struct Shards {
+  const int* type_ids[kMaxShards];
+  const float* pos[kMaxShards];
+  const int* tag[kMaxShards];
+};
+
+struct Flips {
+  int* type_ids[kMaxShards];
+};
+
 struct PickArgs {
-  int n, solvent;
+  int n_loc, blocks_per_shard, solvent;
   float lo, hi, inv_lz, lz;
   uint32_t k0, k1;
   const long long* clock;
@@ -84,12 +102,12 @@ __device__ __forceinline__ int block_inclusive_sum(int v, int* warps) {
   return warp > 0 ? v + warps[warp - 1] : v;
 }
 
-// Each slot of the block's span of `span` slots (per_thread a thread): a
-// candidate's key into the block's region of `keys`, in no order, and the
-// block's count of candidates into counts[blockIdx.x].
+// Each slot of the block's span of `per_thread * kPickThreads` slots of its
+// shard (blockIdx.x / blocks_per_shard): a candidate's key, on the global
+// slot, into the block's region of `keys`, in no order, and the block's
+// count of candidates into counts[blockIdx.x].
 __global__ void __launch_bounds__(kPickThreads)
-    pick_scan_kernel(const int* __restrict__ type_ids, const float* __restrict__ pos,
-                     const int* __restrict__ tag, PickArgs a, int per_thread,
+    pick_scan_kernel(const __grid_constant__ Shards sh, PickArgs a, int per_thread,
                      const bool* __restrict__ fire, unsigned long long* __restrict__ keys,
                      int* __restrict__ counts) {
   if (fire != nullptr && !*fire) return;
@@ -97,14 +115,20 @@ __global__ void __launch_bounds__(kPickThreads)
   if (threadIdx.x == 0) s_count = 0;
   __syncthreads();
   const uint32_t k1 = az::step_word(a.k1, a.clock, a.offset);
-  const long long base = (long long)blockIdx.x * kPickThreads * per_thread;
-  unsigned long long* region = keys + base;
+  const int shard = blockIdx.x / a.blocks_per_shard;
+  const int* __restrict__ type_ids = sh.type_ids[shard];
+  const float* __restrict__ pos = sh.pos[shard];
+  const int* __restrict__ tag = sh.tag[shard];
+  const long long span = (long long)kPickThreads * per_thread;
+  const long long base = (long long)(blockIdx.x - shard * a.blocks_per_shard) * span;
+  const long long first = (long long)shard * a.n_loc;  // the shard's first global slot
+  unsigned long long* region = keys + (long long)blockIdx.x * span;
   const int lane = threadIdx.x & 31;
   for (int it = 0; it < per_thread; ++it) {
     const long long i = base + (long long)it * kPickThreads + threadIdx.x;
     bool cand = false;
     unsigned long long key = 0;
-    if (i < a.n && __ldg(type_ids + i) == a.solvent) {
+    if (i < a.n_loc && __ldg(type_ids + i) == a.solvent) {
       // Box.wrap's z
       const float z = __ldg(pos + 3 * i + 2);
       const float shift = (float)(int)floorf(__fadd_rn(__fmul_rn(z, a.inv_lz), 0.5f));
@@ -113,7 +137,7 @@ __global__ void __launch_bounds__(kPickThreads)
         cand = true;
         const uint32_t priority =
             az::threefry2x32<kRounds>(a.k0, k1, (uint32_t)__ldg(tag + i), 0u).x;
-        key = ((unsigned long long)priority << 31) | (unsigned long long)i;
+        key = ((unsigned long long)priority << 31) | (unsigned long long)(first + i);
       }
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, cand);
@@ -129,7 +153,8 @@ __global__ void __launch_bounds__(kPickThreads)
 }
 
 // One block: the candidates of pick_scan_kernel's `blocks` regions of
-// `span` keys. With at most k of them, every candidate flips. Else the k-th
+// `span` keys, over every shard. With at most k of them, every candidate
+// flips (global slot s in shard s / n_loc, at s % n_loc). Else the k-th
 // smallest candidate key kth is found by a radix select over the keys'
 // 63 bits from the top, and the candidates at or below it flip: the k
 // smallest keys over all slots, as the plain version's top-k over every
@@ -150,8 +175,12 @@ __global__ void __launch_bounds__(kSelectThreads)
     pick_select_kernel(const unsigned long long* __restrict__ keys,
                        const int* __restrict__ counts, int blocks, int span, int k,
                        int evaporated, const bool* __restrict__ fire,
-                       int* __restrict__ type_ids) {
+                       const __grid_constant__ Flips out, int n_loc) {
   if (fire != nullptr && !*fire) return;
+  // the flip of global slot s: its shard's typeid
+  auto flip = [&](long long s) {
+    out.type_ids[s / n_loc][s % n_loc] = evaporated;
+  };
   __shared__ int s_off[kPickMaxBlocks + 1];
   __shared__ int s_hist[kBins];
   __shared__ int s_warps[kSelectThreads / 32];
@@ -176,7 +205,7 @@ __global__ void __launch_bounds__(kSelectThreads)
     return keys[(long long)lo * span + (j - s_off[lo])];
   };
   if (m <= k) {
-    for (int j = t; j < m; j += kSelectThreads) type_ids[key_at(j) & kSlot] = evaporated;
+    for (int j = t; j < m; j += kSelectThreads) flip((long long)(key_at(j) & kSlot));
     return;
   }
   // radix select of the k-th smallest key, 11 bits a pass from bit 62 down
@@ -225,7 +254,7 @@ __global__ void __launch_bounds__(kSelectThreads)
   if ((kth >> 31) != kTie) {
     for (int j = t; j < m; j += kSelectThreads) {
       const unsigned long long key = key_at(j);
-      if (key <= kth) type_ids[key & kSlot] = evaporated;
+      if (key <= kth) flip((long long)(key & kSlot));
     }
     return;
   }
@@ -238,7 +267,7 @@ __global__ void __launch_bounds__(kSelectThreads)
     const unsigned long long key = key_at(j);
     const long long slot = (long long)(key & kSlot);
     if ((key >> 31) != kTie) {
-      type_ids[slot] = evaporated;
+      flip(slot);
       continue;
     }
     long long below = 0;  // candidates below 0xFFFFFFFF at slots <= slot
@@ -246,7 +275,7 @@ __global__ void __launch_bounds__(kSelectThreads)
       const unsigned long long other = key_at(i);
       if ((other >> 31) != kTie && (long long)(other & kSlot) <= slot) ++below;
     }
-    if (slot + 1 - below <= (long long)(k - m_lt)) type_ids[slot] = evaporated;
+    if (slot + 1 - below <= (long long)(k - m_lt)) flip(slot);
   }
 }
 
@@ -257,45 +286,65 @@ extern "C" {
 // Each entry point launches its kernel on `stream` and returns the CUDA
 // error (0 = launched).
 
-// The pick's scratch for n slots: `blocks` regions of `span` keys (int64)
-// and `blocks` counts (int32); the wrapper allocates them.
-void az_pick_layout(int n, int* blocks_out, int* span_out) {
-  const int per = (int)(((long long)n + (long long)kPickThreads * kPickMaxBlocks - 1) /
-                        ((long long)kPickThreads * kPickMaxBlocks));
+// The pick's scratch for n_shards shards of n_loc slots each:
+// `blocks_per_shard` regions of `span` keys (int64) a shard and as many
+// counts (int32), at most kPickMaxBlocks regions in all; the wrapper
+// allocates n_shards * blocks_per_shard of each.
+void az_pick_layout(int n_loc, int n_shards, int* blocks_out, int* span_out) {
+  const long long per_shard = kPickMaxBlocks / (n_shards > 0 ? n_shards : 1);
+  const long long reach = (long long)kPickThreads * per_shard;
+  const int per = (int)(((long long)n_loc + reach - 1) / reach);
   const int span = kPickThreads * (per > 0 ? per : 1);
   *span_out = span;
-  *blocks_out = (int)(((long long)n + span - 1) / span);
+  *blocks_out = (int)(((long long)n_loc + span - 1) / span);
+}
+
+static bool pick_shape_ok(int n_loc, int n_shards) {
+  return n_loc > 0 && n_shards > 0 && n_shards <= kMaxShards &&
+         (long long)n_loc * n_shards < (1ll << 31);
 }
 
 // The pick's first launch: each candidate's key into its block's region of
 // `keys`, each block's count into `counts` (az_pick_layout's scratch).
-// type_ids int32 [n], pos float32 [n, 3], tag int32 [n]; lo, hi the slab's
+// type_ids, pos, tag: host arrays of n_shards device pointers, shard d's
+// int32 [n_loc], float32 [n_loc, 3] and int32 [n_loc]; lo, hi the slab's
 // float32 bounds; inv_lz = float32(1 / Lz) (the reciprocal formed in
 // double), lz = float32(Lz); (k0, k1) K4's key, its timestep word k1 or,
 // with a non-null `clock`, (uint32)(*clock + offset); fire a device bool
 // or null (fired).
-int az_pick_scan(const int* type_ids, const float* pos, const int* tag, int n, int solvent,
-                 float lo, float hi, float inv_lz, float lz, uint32_t k0, uint32_t k1,
-                 const long long* clock, int offset, const bool* fire, unsigned long long* keys,
-                 int* counts, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  int n_blocks = 0, span = 0;
-  az_pick_layout(n, &n_blocks, &span);
-  const PickArgs a{n, solvent, lo, hi, inv_lz, lz, k0, k1, clock, offset};
-  pick_scan_kernel<<<n_blocks, kPickThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      type_ids, pos, tag, a, span / kPickThreads, fire, keys, counts);
+int az_pick_scan(const int* const* type_ids, const float* const* pos, const int* const* tag,
+                 int n_loc, int n_shards, int solvent, float lo, float hi, float inv_lz,
+                 float lz, uint32_t k0, uint32_t k1, const long long* clock, int offset,
+                 const bool* fire, unsigned long long* keys, int* counts, void* stream) {
+  if (!pick_shape_ok(n_loc, n_shards)) return (int)cudaErrorInvalidValue;
+  int blocks = 0, span = 0;
+  az_pick_layout(n_loc, n_shards, &blocks, &span);
+  Shards sh{};
+  for (int d = 0; d < n_shards; ++d) {
+    sh.type_ids[d] = type_ids[d];
+    sh.pos[d] = pos[d];
+    sh.tag[d] = tag[d];
+  }
+  const PickArgs a{n_loc, blocks, solvent, lo, hi, inv_lz, lz, k0, k1,
+                   clock, offset};
+  pick_scan_kernel<<<blocks * n_shards, kPickThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sh, a, span / kPickThreads, fire, keys, counts);
   return (int)cudaGetLastError();
 }
 
-// The pick's second launch: flips, in type_ids [n] (in place), the
+// The pick's second launch: flips, in each shard's typeid (type_ids: a
+// host array of n_shards device pointers to int32 [n_loc], in place), the
 // candidates among the k smallest keys of az_pick_scan's scratch; k >= 1.
-int az_pick_select(int* type_ids, int n, int k, int evaporated, const bool* fire,
-                   const unsigned long long* keys, const int* counts, void* stream) {
-  if (n <= 0 || k < 1) return (int)cudaErrorInvalidValue;
-  int n_blocks = 0, span = 0;
-  az_pick_layout(n, &n_blocks, &span);
+int az_pick_select(int* const* type_ids, int n_loc, int n_shards, int k, int evaporated,
+                   const bool* fire, const unsigned long long* keys, const int* counts,
+                   void* stream) {
+  if (!pick_shape_ok(n_loc, n_shards) || k < 1) return (int)cudaErrorInvalidValue;
+  int blocks = 0, span = 0;
+  az_pick_layout(n_loc, n_shards, &blocks, &span);
+  Flips out{};
+  for (int d = 0; d < n_shards; ++d) out.type_ids[d] = type_ids[d];
   pick_select_kernel<<<1, kSelectThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      keys, counts, n_blocks, span, k, evaporated, fire, type_ids);
+      keys, counts, blocks * n_shards, span, k, evaporated, fire, out, n_loc);
   return (int)cudaGetLastError();
 }
 

@@ -35,8 +35,9 @@ anchor it holds as it was.
 
 :class:`AdvanceGraphs` is the counterpart of the reference's jitted SRD
 advance (``azplugins_tpu/mpcd.py``: ``SRD._build``'s ``advance``, its
-collisions a ``lax.fori_loop``) for an uncoupled whole MPCD stream: fixed
-buffers hold the stream's anchor, its observable state and a clock; each
+collisions a ``lax.fori_loop``) for an uncoupled MPCD stream, whole or in
+particle blocks on one device: fixed buffers hold the stream's anchor and
+its observable state (a pair each a block) and a clock; each
 collision is a graph keyed ``("collide", lead)`` that streams from the
 anchor, collides (its keys and grid shift drawn from the clock) and moves
 the anchor and the clock; the observation stream is a graph keyed
@@ -52,7 +53,16 @@ runner's longest chunk. A segment gathers its own columns at ``clock -
 chunk_t0`` through a device index, so one ``(L, rebuild)`` graph serves
 every ``t0``: the variants reach the operations as 0-d tensors
 (``core/variant.py::scheduled``) and the updaters run as the reference's
-masked selects (``Updater._update_masked``).
+masked selects (``Updater._update_masked_shards``).
+
+A sharded layout on one device (the reference's sharded ``run_chunk``,
+its mesh the shards of ``parallel.make_mesh(n, device=..., sharded=True)``)
+runs as a whole one does: the buffers hold one State and one GridMeta a
+shard (and with a coupling an anchor pair a solvent block), a segment
+runs every phase once a shard, the block-local rebin with migration and
+the halo windows inside the graph, and the counters add each shard's
+launches at every replay. A mesh over distinct devices keeps the eager
+loop: one graph cannot span them.
 
 :class:`Counters` keeps the host counters exact under replay: a capture
 records, by kernel, the launches its segment made (and the steps and force
@@ -74,6 +84,7 @@ import torch
 from .core import rng as _rng
 from .ops import (aniso_kernel, cellsum_kernel, dpd_kernel, integrate_kernel, pair_kernel,
                   pick_kernel, rng_kernel)
+from .utils import as_blocks
 
 __all__ = ["AdvanceGraphs", "Counters", "SegmentGraphs", "Steps", "cuda_capture", "to_device"]
 
@@ -290,38 +301,48 @@ class _GraphCache:
 class SegmentGraphs(_GraphCache):
     """Rebuild segments of one layout as CUDA graphs on fixed buffers.
 
-    ``segment(dense, meta, viol, t0, n_steps, rebuild)`` runs one segment
-    (``Simulation._run_segment`` on a whole layout) and returns ``(dense,
-    meta, viol)``; it makes no host read. With ``n_values`` variants or
+    The layout is whole (one State and one GridMeta) or the shards of a
+    mesh whose blocks all lie on one device (a tuple of each): the buffers
+    hold one State and one GridMeta a shard, on that device.
+    ``segment(shards, metas, viol, t0, n_steps, rebuild)`` runs one segment
+    (``Simulation._run_segment``) on the tuples and returns ``(shards,
+    metas, viol)``; it makes no host read. With ``n_values`` variants or
     ``n_fires`` updaters to schedule, the runner holds their rows for up to
     ``max_steps`` steps (a chunk) and hands the segment its own columns as
     ``steps=`` (a :class:`Steps`). ``key`` is what the graphs are
     bound to (grid spec and cap, the operations' fingerprint, the force
-    tables' identity, rotational or not); a graph is found under ``(L,
-    rebuild)`` within it (:class:`_GraphCache`).
+    tables' identity, rotational or not, the mesh); a graph is found under
+    ``(L, rebuild)`` within it (:class:`_GraphCache`).
 
-    With an MPCD coupling (``n_solvent`` solvent particles) the runner also
-    holds the solvent's anchor, ``pos_a`` and ``vel_a`` (float32 ``[n_solvent,
-    3]``, the stream at its last collision): a segment whose last step fires
-    the joint collision is found under ``(L, rebuild, lead)``, ``lead`` the
-    steps from the anchor to that collision, and its segment gets ``solv=``
-    the anchor (``((pos_a,), (vel_a,), t_a)``) and returns the new one as a
-    fourth value.
+    With an MPCD coupling (``n_solvent``: the solvent's particles a block,
+    a tuple of block sizes or an int for one block) the runner also holds
+    the solvent's anchor, ``pos_a`` and ``vel_a`` (tuples of float32
+    ``[n, 3]`` blocks, the stream at its last collision): a segment whose
+    last step fires the joint collision is found under ``(L, rebuild,
+    lead)``, ``lead`` the steps from the anchor to that collision, and its
+    segment gets ``solv=`` the anchor (``(pos_a, vel_a, t_a)``) and returns
+    the new one as a fourth value.
     """
 
     def __init__(self, key, segment, dense, meta, counters: Counters, capture=None,
                  max_graphs: int = 32, totals: dict | None = None, n_values: int = 0,
-                 n_fires: int = 0, max_steps: int = 0, n_solvent: int | None = None):
-        dev = dense.device
+                 n_fires: int = 0, max_steps: int = 0, n_solvent=None):
+        self._whole = not isinstance(dense, tuple)
+        shards, metas = as_blocks(dense), as_blocks(meta)
+        dev = shards[0].device
+        if any(s.device != dev for s in shards):
+            raise ValueError("the segment graphs take shards on one device, not "
+                             f"{[str(s.device) for s in shards]}")
         super().__init__(key, counters, dev, capture, max_graphs, totals)
         self._segment = segment
-        self.dense = _clone(dense, skip=_FIXED)
-        self.meta = _clone(meta)
+        self.shards = tuple(_clone(s, skip=_FIXED) for s in shards)
+        self.metas = tuple(_clone(m) for m in metas)
         self.viol = torch.zeros((), dtype=torch.bool, device=dev)
         self.pos_a = self.vel_a = None
         if n_solvent is not None:
-            anchor = torch.zeros((2, int(n_solvent), 3), dtype=torch.float32, device=dev)
-            self.pos_a, self.vel_a = anchor[0], anchor[1]
+            sizes = tuple(int(n) for n in as_blocks(n_solvent))
+            anchor = torch.zeros((2, sum(sizes), 3), dtype=torch.float32, device=dev)
+            self.pos_a, self.vel_a = (tuple(anchor[i].split(sizes)) for i in range(2))
         # the chunk's schedule, one byte buffer filled by one copy: its first
         # timestep (int64), each variant's float32 row, each trigger's bool
         # row, max_steps entries a row
@@ -338,31 +359,54 @@ class SegmentGraphs(_GraphCache):
                 self.n_fires, self.max_steps)
             self._steps_of = torch.arange(self.max_steps, dtype=torch.int64, device=dev)
 
+    def _layout(self, blocks: tuple):
+        return blocks[0] if self._whole else blocks
+
+    @property
+    def dense(self):
+        """The slot buffers as the simulation holds its layout: a State, or
+        a tuple of them on shards."""
+        return self._layout(self.shards)
+
+    @property
+    def meta(self):
+        """The grid bookkeeping buffers, laid out as :attr:`dense`."""
+        return self._layout(self.metas)
+
     def buffers(self) -> list[torch.Tensor]:
         """Every tensor a segment reads and writes."""
-        return ([getattr(self.dense, n) for n in _tensor_fields(self.dense) if n not in _FIXED]
-                + [getattr(self.meta, n) for n in _tensor_fields(self.meta)]
+        return ([getattr(s, n) for s in self.shards for n in _tensor_fields(s) if n not in _FIXED]
+                + [getattr(m, n) for m in self.metas for n in _tensor_fields(m)]
                 + [self.viol, self.clock]
                 + ([self.schedule] if self.schedule is not None else [])
-                + ([self.pos_a, self.vel_a] if self.pos_a is not None else []))
+                + ([*self.pos_a, *self.vel_a] if self.pos_a is not None else []))
 
     def load(self, dense, meta, t0: int, values: np.ndarray | None = None,
              fires: np.ndarray | None = None, anchor: tuple | None = None) -> None:
-        """Start a chunk: the layout into the buffers, the violation flag
-        cleared, the clock at ``t0``; with a coupling, the solvent's
-        ``anchor`` (its position and velocity) into ``pos_a``/``vel_a``;
-        with a schedule, the chunk's ``values`` (float32 ``[n_values, n]``)
-        and ``fires`` (bool ``[n_fires, n]``) from ``t0`` into its rows in
-        one copy from pinned memory, which makes no synchronising call."""
-        _copy_into(self.dense, dense, skip=_FIXED)
-        _copy_into(self.meta, meta)
+        """Start a chunk: the layout (a State and a GridMeta, or a tuple of
+        each on shards) into the buffers, the violation flag cleared, the
+        clock at ``t0``; with a coupling, the solvent's ``anchor`` (its
+        position and velocity, each a block or a tuple of blocks) into
+        ``pos_a``/``vel_a``; with a schedule, the chunk's ``values``
+        (float32 ``[n_values, n]``) and ``fires`` (bool ``[n_fires, n]``)
+        from ``t0`` into its rows in one copy from pinned memory, which
+        makes no synchronising call."""
+        shards, metas = as_blocks(dense), as_blocks(meta)
+        if len(shards) != len(self.shards) or len(metas) != len(self.metas):
+            raise ValueError(f"a runner of {len(self.shards)} shards loads as many, got "
+                             f"{len(shards)}")
+        for dst, src in zip(self.shards, shards, strict=True):
+            _copy_into(dst, src, skip=_FIXED)
+        for dst, src in zip(self.metas, metas, strict=True):
+            _copy_into(dst, src)
         self.viol.zero_()
         self.clock.fill_(int(t0))
         if (anchor is None) != (self.pos_a is None):
             raise ValueError("a coupled runner loads the solvent's anchor, an uncoupled one none")
         if anchor is not None:
-            self.pos_a.copy_(anchor[0])
-            self.vel_a.copy_(anchor[1])
+            for dst, src in ((self.pos_a, anchor[0]), (self.vel_a, anchor[1])):
+                for d, s in zip(dst, as_blocks(src), strict=True):
+                    d.copy_(s)
         if self.schedule is None:
             return
         host = np.zeros(self.schedule.numel(), dtype=np.uint8)
@@ -389,14 +433,16 @@ class SegmentGraphs(_GraphCache):
 
     def result(self) -> tuple:
         """``(dense, meta, viol)``: the buffers cloned into tensors the
-        caller owns (the next replay overwrites the buffers)."""
-        return _clone(self.dense, skip=_FIXED), _clone(self.meta), self.viol.clone()
+        caller owns (the next replay overwrites the buffers), laid out as
+        the simulation holds them."""
+        return (self._layout(tuple(_clone(s, skip=_FIXED) for s in self.shards)),
+                self._layout(tuple(_clone(m) for m in self.metas)), self.viol.clone())
 
     def anchor(self) -> tuple:
-        """``(pos_a, vel_a)`` cloned into tensors the caller owns: the next
-        chunk overwrites the buffers, and a chunk the caller rejects must
-        not move the anchor it holds."""
-        return self.pos_a.clone(), self.vel_a.clone()
+        """``(pos_a, vel_a)``, each a tuple of blocks, cloned into tensors
+        the caller owns: the next chunk overwrites the buffers, and a chunk
+        the caller rejects must not move the anchor it holds."""
+        return tuple(p.clone() for p in self.pos_a), tuple(v.clone() for v in self.vel_a)
 
     def _body(self, t0: int, n_steps: int, rebuild: bool, lead: int | None):
         """The work of one segment on the buffers: what is captured."""
@@ -405,17 +451,20 @@ class SegmentGraphs(_GraphCache):
             with _rng.device_clock(self.clock, t0):
                 extra = {} if self.schedule is None else {"steps": self._steps(t0, n_steps)}
                 if lead is not None:
-                    extra["solv"] = ((self.pos_a,), (self.vel_a,), t0 + n_steps - lead)
-                dense, meta, viol, *solv = self._segment(self.dense, self.meta, self.viol, t0,
-                                                         n_steps, rebuild, **extra)
-            _copy_into(self.dense, dense, skip=_FIXED)
-            _copy_into(self.meta, meta)
+                    extra["solv"] = (self.pos_a, self.vel_a, t0 + n_steps - lead)
+                shards, metas, viol, *solv = self._segment(self.shards, self.metas, self.viol,
+                                                           t0, n_steps, rebuild, **extra)
+            for dst, src in zip(self.shards, shards, strict=True):
+                _copy_into(dst, src, skip=_FIXED)
+            for dst, src in zip(self.metas, metas, strict=True):
+                _copy_into(dst, src)
             if viol is not self.viol:
                 self.viol.copy_(viol)
             if lead is not None:
-                (((pos,), (vel,), _),) = solv
-                self.pos_a.copy_(pos)
-                self.vel_a.copy_(vel)
+                ((pos, vel, _),) = solv
+                for dst, src in ((self.pos_a, pos), (self.vel_a, vel)):
+                    for d, s in zip(dst, src, strict=True):
+                        d.copy_(s)
             self.clock.add_(n_steps)
 
         return body
@@ -430,30 +479,39 @@ class SegmentGraphs(_GraphCache):
 
 
 class AdvanceGraphs(_GraphCache):
-    """The SRD advance of an uncoupled whole MPCD stream as CUDA graphs on
-    fixed buffers: the anchor's position and velocity ``pos_a``/``vel_a``,
-    the observable ``pos``/``vel`` and the clock (the anchor's timestep).
-    ``mpcd.py::SRD._advance_graphed`` runs each collision as the graph
-    ``("collide", lead)`` and the observation stream as ``("stream", n)``
-    (:meth:`run`). ``key`` is what the graphs are bound to (the SRD, its
-    parameters, box and seed, the stream's shape and device)."""
+    """The SRD advance of an uncoupled MPCD stream as CUDA graphs on fixed
+    buffers, the stream whole or in particle blocks on one device (beside a
+    sharded layout): the anchor's position and velocity ``pos_a``/``vel_a``,
+    the observable ``pos``/``vel`` (each a tuple of blocks) and the clock
+    (the anchor's timestep). ``mpcd.py::SRD._advance_graphed`` runs each
+    collision as the graph ``("collide", lead)`` and the observation stream
+    as ``("stream", n)`` (:meth:`run`). ``key`` is what the graphs are
+    bound to (the SRD, its parameters, box and seed, the blocks' shapes and
+    device)."""
 
-    def __init__(self, key, pos: torch.Tensor, vel: torch.Tensor, counters: Counters,
-                 capture=None, max_graphs: int = 32, totals: dict | None = None):
-        super().__init__(key, counters, pos.device, capture, max_graphs, totals)
-        self.pos_a, self.vel_a = pos.clone(), vel.clone()
-        self.pos, self.vel = torch.empty_like(pos), torch.empty_like(vel)
+    def __init__(self, key, pos, vel, counters: Counters, capture=None, max_graphs: int = 32,
+                 totals: dict | None = None):
+        pos, vel = as_blocks(pos), as_blocks(vel)
+        dev = pos[0].device
+        if any(p.device != dev for p in pos):
+            raise ValueError("the advance graphs take a stream on one device")
+        super().__init__(key, counters, dev, capture, max_graphs, totals)
+        self.pos_a, self.vel_a = tuple(p.clone() for p in pos), tuple(v.clone() for v in vel)
+        self.pos = tuple(torch.empty_like(p) for p in pos)
+        self.vel = tuple(torch.empty_like(v) for v in vel)
 
     def buffers(self) -> list[torch.Tensor]:
         """Every tensor the graphs read and write."""
-        return [self.pos_a, self.vel_a, self.pos, self.vel, self.clock]
+        return [*self.pos_a, *self.vel_a, *self.pos, *self.vel, self.clock]
 
-    def load(self, pos_a: torch.Tensor, vel_a: torch.Tensor, t_a: int) -> None:
-        """The anchor into its buffers (no copy where it is them already)
-        and the clock at its timestep ``t_a``."""
+    def load(self, pos_a, vel_a, t_a: int) -> None:
+        """The anchor (a block or a tuple of blocks each) into its buffers
+        (no copy where it is them already) and the clock at its timestep
+        ``t_a``."""
         for dst, src in ((self.pos_a, pos_a), (self.vel_a, vel_a)):
-            if dst is not src:
-                dst.copy_(src)
+            for d, s in zip(dst, as_blocks(src), strict=True):
+                if d is not s:
+                    d.copy_(s)
         self.clock.fill_(int(t_a))
 
     def run(self, key: tuple, make_body) -> None:

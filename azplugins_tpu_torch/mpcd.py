@@ -35,11 +35,11 @@ bitwise the same.
 
 The reference compiles the advance of an uncoupled stream into one program
 (``SRD._build``'s jitted ``advance``). The port's counterpart runs each
-collision of a whole uncoupled stream as one CUDA graph
-(``graph.py::AdvanceGraphs``, when the simulation says graphs apply): a
-stream of ``lead`` steps from the anchor and the collision, keyed by
-``lead``, then the observation stream keyed by its length; bitwise the
-eager advance.
+collision of an uncoupled stream, whole or in blocks on one device, as one
+CUDA graph (``graph.py::AdvanceGraphs``, when the simulation says graphs
+apply): a stream of ``lead`` steps from the anchor and the collision,
+keyed by ``lead``, then the observation stream keyed by its length;
+bitwise the eager advance on the same blocks.
 
 The stream's position and velocity (and its anchor's) are tuples of
 contiguous particle blocks: one block for a whole stream, one on each
@@ -517,7 +517,7 @@ class SRD:
         ``t % period == 0`` within (t_a, t1] run here; coupled, the
         CollisionCoupling owns every collision and this only streams the
         observable state. The anchor's time is a host int. ``graphs``: an
-        uncoupled whole stream's ``graph.AdvanceGraphs``, on which each
+        uncoupled stream's ``graph.AdvanceGraphs``, on which each
         collision and the observation stream replay CUDA graphs (None: the
         eager loop).
         """
@@ -544,19 +544,20 @@ class SRD:
 
     def _advance_graphed(self, mpcd: dict, g, pos_a: tuple, vel_a: tuple, t_a: int, t1: int,
                          seed: int) -> dict:
-        """:meth:`_advance` of an uncoupled whole stream on the advance
-        graphs ``g``: the anchor into its buffers and the clock at ``t_a``;
-        each collision one graph keyed ``("collide", lead)``, which streams
-        ``lead`` steps from the anchor, collides at the clock's timestep +
-        ``lead`` (the keys and shift drawn from the clock) and moves the
-        anchor and the clock; then the observation stream, keyed
-        ``("stream", n)``. The same operations as the eager loop, so the
-        same bits. The observable position and velocity are clones (the
-        next replay overwrites the buffers); the anchor is the buffers,
-        which only the next advance reads."""
-        if self._coupled or len(pos_a) != 1:
-            raise ValueError("the advance graphs take an uncoupled stream in one block")
-        g.load(pos_a[0], vel_a[0], t_a)
+        """:meth:`_advance` of an uncoupled stream (whole or in blocks on
+        one device) on the advance graphs ``g``: the anchor into its
+        buffers and the clock at ``t_a``; each collision one graph keyed
+        ``("collide", lead)``, which streams ``lead`` steps from the anchor,
+        collides at the clock's timestep + ``lead`` (the keys and shift
+        drawn from the clock; the blocks' partial cell sums added in block
+        order) and moves the anchor and the clock; then the observation
+        stream, keyed ``("stream", n)``. The same operations as the eager
+        loop, so the same bits. The observable position and velocity are
+        clones (the next replay overwrites the buffers); the anchor is the
+        buffers, which only the next advance reads."""
+        if self._coupled:
+            raise ValueError("the advance graphs take an uncoupled stream")
+        g.load(pos_a, vel_a, t_a)
         t_next = (t_a // self.period + 1) * self.period
         while t_next <= t1:
             lead = t_next - t_a
@@ -565,8 +566,9 @@ class SRD:
             t_a, t_next = t_next, t_next + self.period
         n = t1 - t_a
         g.run(("stream", n), lambda: self._stream_body(g, n))
-        return {**mpcd, "position": (g.pos.clone(),), "velocity": (g.vel.clone(),),
-                "_srd_anchor": ((g.pos_a,), (g.vel_a,), t_a)}
+        return {**mpcd, "position": tuple(p.clone() for p in g.pos),
+                "velocity": tuple(v.clone() for v in g.vel),
+                "_srd_anchor": (g.pos_a, g.vel_a, t_a)}
 
     def _collide_body(self, g, t_a: int, lead: int, seed: int):
         """What a ``("collide", lead)`` graph runs on ``g``'s buffers, the
@@ -574,10 +576,11 @@ class SRD:
 
         def body():
             with _rng.device_clock(g.clock, t_a):
-                pos, vel = self._stream((g.pos_a,), (g.vel_a,), lead, self._L)
-                (vel,) = self._collide(pos, vel, t_a + lead, self._L, seed)
-            g.pos_a.copy_(pos[0])
-            g.vel_a.copy_(vel)
+                pos, vel = self._stream(g.pos_a, g.vel_a, lead, self._L)
+                vel = self._collide(pos, vel, t_a + lead, self._L, seed)
+            for dst, src in ((g.pos_a, pos), (g.vel_a, vel)):
+                for d, s in zip(dst, src, strict=True):
+                    d.copy_(s)
             g.clock.add_(lead)
 
         return body
@@ -587,9 +590,10 @@ class SRD:
         steps after the anchor, into ``g``'s observation buffers."""
 
         def body():
-            (pos,), (vel,) = self._stream((g.pos_a,), (g.vel_a,), n, self._L)
-            g.pos.copy_(pos)
-            g.vel.copy_(vel)
+            pos, vel = self._stream(g.pos_a, g.vel_a, n, self._L)
+            for dst, src in ((g.pos, pos), (g.vel, vel)):
+                for d, s in zip(dst, src, strict=True):
+                    d.copy_(s)
 
         return body
 

@@ -17,7 +17,10 @@ says how the blocks are held:
   reference's virtual devices, and is the way the sharded path runs where
   one device is present (the CPU tests, a one-card check of the multi-card
   mechanics); on one device it buys nothing over views. One Python process
-  drives every shard, as one JAX controller drives every device.
+  drives every shard, as one JAX controller drives every device; on one
+  card the shards' segments run as CUDA graphs (graph.py), as the
+  reference compiles its sharded chunk, and a mesh over distinct devices
+  runs them eagerly.
 
 A mesh puts every block on one device, or each block on a device of its
 own; a mesh that mixes the two is refused.

@@ -70,8 +70,9 @@ on its device: every phase of the step runs once a shard, the rebuild is
 the block-local rebin with migration (parallel/spatial.py), and each
 shard's stencil forces read its halo window. Either way the trajectory,
 rebuilds and observables are the undecomposed run's on the same grid, bit
-for bit. On shards, updaters run once a shard (the evaporator's pick on
-global slots), bonds read every shard's positions through the global
+for bit. On shards, updaters run once a shard (the evaporator's pick one
+pick over every shard, on global slots), bonds read every shard's
+positions (one join a device) through the global
 tag->slot map, and the MPCD solvent is cut into particle blocks, one a
 shard, when the mesh size divides it (mpcd._place_solvent): its collisions
 regroup the float32 cell sums across the blocks, the one result that is
@@ -85,8 +86,11 @@ The runner. The reference compiles a chunk into one jitted loop
 (``run_chunk``, ``steps_span``, ``_bind_tables``); the port's counterpart
 runs a chunk as rebuild segments (:meth:`Simulation._run_segment`: the
 optional rebuild, then L steps, with no host read). On CUDA, for a whole
-layout with any variant and any updater but an MPCD coupling, each segment
-is a CUDA graph (graph.py, bound by :meth:`Simulation._build_runner`):
+layout or the shards of a mesh on one device, with any variant, any
+updater and an MPCD coupling on its default trigger, each segment is a
+CUDA graph (graph.py, bound by :meth:`Simulation._build_runner`; on shards
+one buffer State and one GridMeta a shard, the chunk's one host read
+still one read of every shard's flags):
 captured the second time its shape is seen, replayed after that, its draws
 keyed on a clock on the card. The chunk's schedule goes to the card once a
 chunk: each variant's float32 value at each step (``Variant.values``),
@@ -95,14 +99,15 @@ which the operations read as 0-d tensors, and each updater's trigger
 the reference's masked select (``apply_inline_updaters``). The eager loop
 reads the same values (K8's and K9's kT by value there, by pointer in a
 graph, bitwise) and fires its updaters from the host's triggers.
-A sharded mesh, an MPCD coupling, and every run inside
-:meth:`Simulation.profile` run the segments eagerly; the choice is made
-from the operations, never from a failure. Either way the trajectory is
-the same, bit for bit. The SRD advance of an uncoupled solvent in one
-block replays graphs of its own (:meth:`Simulation._advance_runner`,
-``graph.AdvanceGraphs``: a graph a collision, its keys and grid shift drawn
-from a clock on the card), under the same rule but for the coupling and
-the solvent's blocks; bitwise the eager advance.
+A mesh over distinct devices, an MPCD coupling on a replaced trigger, and
+every run inside :meth:`Simulation.profile` run the segments eagerly; the
+choice is made from the operations, never from a failure. Either way the
+trajectory is the same, bit for bit. The SRD advance of an uncoupled
+solvent, whole or in blocks on one device, replays graphs of its own
+(:meth:`Simulation._advance_runner`, ``graph.AdvanceGraphs``: a graph a
+collision, its keys and grid shift drawn from a clock on the card), under
+the same rule but for the coupling; bitwise the eager advance on the same
+blocks.
 
 Capacity tune. At the absolute timestep ``auto_tune_after`` (200 by
 default) the run right-sizes the cell capacity to the equilibrated
@@ -126,18 +131,17 @@ from .core.state import State, state_from_snapshot, state_to_snapshot, thermaliz
 from .md.force import ForceResult, SimContext
 from .md.methods import DriftCheck
 from .ops import dense as D
-from .utils import sqrt
+from .utils import as_blocks, sqrt
 
 __all__ = ["Simulation", "Operations"]
 
 _NO_RANGE = contextlib.nullcontext()
 
 
-def _as_shards(x) -> tuple:
-    """The dense layout, or its meta, as a tuple of shards: a whole layout
-    (a State or a GridMeta) is one shard. Simulation holds the tuple only
-    on a sharded mesh (:meth:`Simulation._as_layout`)."""
-    return x if isinstance(x, tuple) else (x,)
+# the dense layout, or its meta, as a tuple of shards: a whole layout (a
+# State or a GridMeta) is one shard. Simulation holds the tuple only on a
+# sharded mesh (Simulation._as_layout)
+_as_shards = as_blocks
 
 
 def _no_range(name: str):
@@ -978,8 +982,7 @@ class Simulation:
                 raise ValueError("a coupled chunk needs the solvent's anchor")
             runner = self._build_runner(tbls)
             runner.load(dense, meta, t0, self._variant_values(t0, n_steps),
-                        self._trigger_masks(t0, n_steps),
-                        (solv[0][0], solv[1][0]) if coupled else None)
+                        self._trigger_masks(t0, n_steps), solv[:2] if coupled else None)
             t_a = solv[2] if coupled else None
             for a, n, rebuild in segments:
                 lead = self._collision_lead(t0 + a, n, t_a) if coupled else None
@@ -988,8 +991,7 @@ class Simulation:
                     t_a += lead
             dense, meta, viol = runner.result()
             if coupled:
-                pos_a, vel_a = runner.anchor()
-                solv = ((pos_a,), (vel_a,), t_a)
+                solv = (*runner.anchor(), t_a)
             return dense, meta, viol, solv
         shards, metas = _as_shards(dense), _as_shards(meta)
         viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
@@ -1065,8 +1067,6 @@ class Simulation:
 
         if steps is None:
             steps = self._eager_steps(t0, n_steps, shards[0].device)
-        if steps.fires is not None and len(shards) > 1:
-            raise ValueError("the masked updaters run on a whole layout")
         spec = self._grid_spec
         scope = self._phase_range
         integ = self.operations.integrator
@@ -1108,12 +1108,12 @@ class Simulation:
                     for m in methods:
                         shards = tuple(m.step2(s, dt, t, seed) for s in shards)
                 if steps.fires is not None:
-                    # the graphs: every updater after every step, kept where
-                    # its trigger (the schedule's bool) holds
+                    # the graphs: every updater after every step on every
+                    # shard, kept where its trigger (the schedule's bool) holds
                     with scope("updaters"):
                         for k, u in enumerate(updaters):
-                            shards = (u._update_masked(shards[0], steps.fires[k, t - steps.t0],
-                                                       t, seed),)
+                            shards = u._update_masked_shards(
+                                shards, steps.fires[k, t - steps.t0], t, seed)
                 else:
                     fired = [u for u in updaters if u.trigger(t)]
                     if fired:
@@ -1133,24 +1133,24 @@ class Simulation:
                 and self._phase_range is _no_range and self._graph_eligible())
 
     def _graph_eligible(self) -> bool:
-        """The rule on the operations: a whole layout (no sharded mesh), an
-        integrator, only the flow fields of ``flow.py``, and an MPCD
-        coupling only on its default trigger (``_ingraph``, set by
-        :meth:`_find_coupling`) with the solvent in one block: its joint
-        collision then lands on a segment's last step, and the segment's
-        graph carries the solvent's anchor. A replaced trigger keeps the
-        eager loop. Any variant and any other updater qualify: the chunk's
-        schedule carries the variants' values and the triggers to the card
-        (graph.py), where the updaters run as the reference's masked
-        selects."""
+        """The rule on the operations: a whole layout or the shards of a
+        mesh whose blocks all lie on one device (a mesh over distinct
+        devices keeps the eager loop), an integrator, only the flow fields
+        of ``flow.py``, and an MPCD coupling only on its default trigger
+        (``_ingraph``, set by :meth:`_find_coupling`): its joint collision
+        then lands on a segment's last step, and the segment's graph
+        carries the solvent's anchor (a pair a block). A replaced trigger
+        keeps the eager loop. Any variant and any other updater qualify:
+        the chunk's schedule carries the variants' values and the triggers
+        to the card (graph.py), where the updaters run on every shard as
+        the reference's masked selects."""
         from .flow import FlowField
 
         integ = self.operations.integrator
-        if self._sharded() or integ is None:
+        if (self._sharded() and self._spatial_mesh.distinct) or integ is None:
             return False
         for u in self.operations.updaters:
-            if getattr(u, "_updates_mpcd", False) and not (
-                    u._ingraph and self._mpcd is not None and len(self._mpcd["position"]) == 1):
+            if getattr(u, "_updates_mpcd", False) and not (u._ingraph and self._mpcd is not None):
                 return False
         for op in (*integ.methods, *integ.forces):
             flow = getattr(op, "flow_field", None)
@@ -1161,25 +1161,30 @@ class Simulation:
     def _advance_graphs_apply(self) -> bool:
         """Whether the SRD advance of this run replays CUDA graphs: on the
         card (or with a stand-in capture), not ``_eager``, outside
-        :meth:`profile`, a solvent in one block and no MPCD coupling (the
-        joint collision moves a coupled stream inside the step loop)."""
+        :meth:`profile`, a solvent whose blocks lie on one device (one
+        block, or one a shard of a one-device mesh) and no MPCD coupling
+        (the joint collision moves a coupled stream inside the step loop)."""
+        from .parallel.mesh import _key
+
         srd = self.mpcd_dynamics
         return (not self._eager and (self.device.type == "cuda" or self._capture is not None)
                 and self._phase_range is _no_range and self._mpcd is not None
-                and srd is not None and len(self._mpcd["position"]) == 1
+                and srd is not None
+                and len({_key(p.device) for p in self._mpcd["position"]}) == 1
                 and self._coupling is None and not srd._coupled)
 
     def _advance_runner(self):
         """The SRD advance's graphs where :meth:`_advance_graphs_apply` (the
         one held while its key holds: the SRD, its parameters, box and
-        seed, the stream's shape and device), else None."""
+        seed, the blocks' shapes and device), else None."""
         from .graph import AdvanceGraphs, Counters
 
         if not self._advance_graphs_apply():
             return None
         srd = self.mpcd_dynamics
-        pos, vel = self._mpcd["position"][0], self._mpcd["velocity"][0]
-        key = (srd, srd._fingerprint(), srd._built_key, tuple(pos.shape), pos.device)
+        pos, vel = self._mpcd["position"], self._mpcd["velocity"]
+        key = (srd, srd._fingerprint(), srd._built_key, tuple(tuple(p.shape) for p in pos),
+               pos[0].device)
         if self._advance_graphs is None or self._advance_graphs.key != key:
             self._advance_graphs = AdvanceGraphs(key, pos, vel, Counters(self),
                                                  capture=self._capture,
@@ -1190,28 +1195,34 @@ class Simulation:
         """The segment graphs of this layout, bound to ``tbls`` (the
         reference's ``_build_runner`` and ``_bind_tables``): the one held
         when its key (grid spec and cap, payload fields, the operations'
-        fingerprint, the tables' identity, rotational or not) still holds,
-        else a new one on buffers shaped like the current layout."""
+        fingerprint, the tables' identity, rotational or not; on shards the
+        mesh: its size, slabs or strips, the shards' slot counts) still
+        holds, else a new one on buffers shaped like the current layout."""
         from .graph import Counters, SegmentGraphs
 
         variants, updaters = self._step_variants(), self._step_updaters()
+        shards = _as_shards(self._dense)
         key = (self._grid_spec, self._fields, self._ops_fp, id(tbls), self._rotational(),
-               self._dense.N, self._state.N, tuple(map(id, variants)), tuple(map(id, updaters)),
-               self.max_chunk)
+               sum(s.N for s in shards), self._state.N, tuple(map(id, variants)),
+               tuple(map(id, updaters)), self.max_chunk)
+        if self._sharded():
+            n = self._spatial_mesh.size
+            slabs = self._grid_spec.dims[0] % n == 0
+            key += (("mesh", n, "slabs" if slabs else "strips", tuple(s.N for s in shards)),)
         n_solvent = None
         if self._coupling is not None:
             # what a joint collision bakes in: the SRD's parameters, its box
-            # and seed, the solvent's shape and mass
+            # and seed, the solvent's blocks and mass
             srd = self._coupling.srd
-            n_solvent = self._mpcd["position"][0].shape[0]
+            n_solvent = tuple(p.shape[0] for p in self._mpcd["position"])
             key += (srd, srd._fingerprint(), srd._built_key, n_solvent, self._mpcd["mass"])
         if self._runner is not None and self._runner.key == key:
             return self._runner
 
-        def segment(dense, meta, viol, t0, n_steps, rebuild, steps=None, solv=None):
-            (dense,), (meta,), viol, solv = self._run_segment(
-                (dense,), (meta,), viol, t0, n_steps, rebuild, tbls, solv, steps)
-            return (dense, meta, viol) if solv is None else (dense, meta, viol, solv)
+        def segment(shards, metas, viol, t0, n_steps, rebuild, steps=None, solv=None):
+            shards, metas, viol, solv = self._run_segment(shards, metas, viol, t0, n_steps,
+                                                          rebuild, tbls, solv, steps)
+            return (shards, metas, viol) if solv is None else (shards, metas, viol, solv)
 
         self._runner = SegmentGraphs(key, segment, self._dense, self._meta, Counters(self),
                                      capture=self._capture, totals=self._graph_totals,

@@ -18,19 +18,21 @@ with index ``timestep`` when its trigger says so on the host
 (Simulation._run_chunk), through ``_update_shards``, which takes the
 layout as a tuple of shards (one for a whole layout): by default
 ``_update`` once a shard, which is right for any elementwise updater. The
-evaporator ranks every slot of the system: on a whole layout its pick is
-two kernels on the card (K4 at the pick, ``ops/pick_kernel.py::
-evaporator_pick``; the plain version on the CPU), on shards it keys on the
-global slot and merges the shards' candidates (the reference's top-k over
-its sharded slot axis). Retyping is a masked select, never a resize.
+evaporator ranks every slot of the system, keyed on the global slot (the
+reference's top-k over its sharded slot axis): on the card its pick is two
+kernels over every shard of one device (K4 at the pick,
+``ops/pick_kernel.py::evaporator_pick``; the plain version on the CPU), on
+shards over distinct devices each shard's candidates merged on the first
+one's. Retyping is a masked select, never a resize.
 
 Inside the CUDA graphs (``graph.py``) an updater runs as the reference's
-``apply_inline_updaters`` does: ``_update_masked(state, fire, timestep,
-seed)`` runs the update after every step and keeps its result where the
-0-d device bool ``fire`` (the trigger, read from the chunk's schedule) is
-set, the old bits elsewhere: by default through a select on each field
-``_update`` replaced (``typeid`` for the TypeUpdater); the evaporator
-flips ``typeid`` in place, its kernels reading ``fire`` on the card.
+``apply_inline_updaters`` does: ``_update_masked_shards(shards, fire,
+timestep, seed)`` runs the update after every step on every shard and
+keeps its result where the 0-d device bool ``fire`` (the trigger, read
+from the chunk's schedule) is set, the old bits elsewhere: by default
+``_update_masked`` once a shard, a select on each field ``_update``
+replaced (``typeid`` for the TypeUpdater); the evaporator flips each
+shard's ``typeid`` in place, its kernels reading ``fire`` on the card.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 from .core import rng as _rng
 from .md.trigger import as_trigger
 from .ops import pick_kernel
+from .utils import as_blocks
 
 __all__ = ["Updater", "TypeUpdater", "ParticleEvaporator"]
 
@@ -73,11 +76,18 @@ class Updater:
         for a whole layout): ``_update`` once a shard by default."""
         return tuple(self._update(s, timestep, seed) for s in shards)
 
+    def _update_masked_shards(self, shards: tuple, fire: torch.Tensor, timestep, seed) -> tuple:
+        """The masked update of a layout held as shards (one for a whole
+        layout), all on ``fire``'s device: :meth:`_update_masked` once a
+        shard by default."""
+        return tuple(self._update_masked(s, fire, timestep, seed) for s in shards)
+
     def _update_masked(self, state, fire: torch.Tensor, timestep, seed):
-        """The update of a whole layout kept where ``fire`` (a 0-d bool on
-        the state's device) is set: ``_update``, then ``torch.where(fire,
-        new, old)`` on each tensor field it replaced (a field it returned
-        as it was keeps its object). Unfired, every field keeps its bits."""
+        """The update of a layout (or a shard) kept where ``fire`` (a 0-d
+        bool on the state's device) is set: ``_update``, then
+        ``torch.where(fire, new, old)`` on each tensor field it replaced (a
+        field it returned as it was keeps its object). Unfired, every field
+        keeps its bits."""
         new = self._update(state, timestep, seed)
         return state.replace(**{
             f.name: torch.where(fire, getattr(new, f.name), getattr(state, f.name))
@@ -177,10 +187,6 @@ class ParticleEvaporator(Updater):
         slot = first + torch.arange(state.N, dtype=torch.int64, device=state.device)
         return (priority << 31) | slot
 
-    def _retype(self, state, flip):
-        new_typeid = torch.where(flip, self._evaporated_id, state.typeid).to(torch.int32)
-        return state.replace(typeid=new_typeid)
-
     def _flips(self, shards: tuple, timestep, seed) -> list:
         """Each shard's flips (the plain pick): its candidates whose key is
         among the k smallest over every shard. Each shard's k smallest keys
@@ -209,52 +215,61 @@ class ParticleEvaporator(Updater):
         return [torch.where(few.to(c.device), c, (k <= kth.to(c.device)) & c)
                 for c, k in zip(cands, keys)]
 
-    def _pick(self, typeid, state, fire, timestep, seed) -> None:
-        """The pick on a whole layout ``state``: flip, in ``typeid`` (int32
-        [N], written in place), the candidates it keeps, where ``fire`` (a
-        0-d bool on the state's device; None: fired) is set. On the card K4
-        at the pick (``ops/pick_kernel.py::evaporator_pick``, two launches
-        that read ``fire`` there and return at once where it is unset), on
-        the CPU :meth:`_pick_plain`."""
+    def _pick(self, typeids, shards, fire, timestep, seed) -> None:
+        """The pick over a layout held as ``shards`` (a tuple of States, or
+        a whole layout's State): flip, in ``typeids`` (each shard's int32
+        [N], written in place; a tensor with a State), the candidates it
+        keeps, where ``fire`` (a 0-d bool on the shards' device; None:
+        fired) is set. On the card with every shard
+        on one device K4 at the pick (``ops/pick_kernel.py::
+        evaporator_pick``, two launches over every shard that read ``fire``
+        there and return at once where it is unset); on the CPU, and on
+        shards over distinct devices (the eager loop), :meth:`_pick_plain`
+        (its keys K4's words on the card)."""
+        from .parallel.mesh import _key
+
+        typeids, shards = as_blocks(typeids), as_blocks(shards)
         if self.seed is not None:
             seed = self.seed
-        if _rng._on_card(typeid.device):
+        if (_rng._on_card(typeids[0].device)
+                and len({_key(t.device) for t in typeids}) == 1):
+            s0 = shards[0]
             pick_kernel.evaporator_pick(
-                typeid, state.position, state.tag, self._k, self._solvent_id,
-                self._evaporated_id, _f32(self.lo), _f32(self.hi), state.box.Lz,
-                _rng.Stream.PARTICLE_EVAPORATOR, seed, timestep, fire)
+                typeids, tuple(s.position for s in shards), tuple(s.tag for s in shards),
+                self._k, self._solvent_id, self._evaporated_id, _f32(self.lo), _f32(self.hi),
+                s0.box.Lz, _rng.Stream.PARTICLE_EVAPORATOR, seed, timestep, fire)
         else:
-            self._pick_plain(typeid, state, fire, timestep, seed)
+            self._pick_plain(typeids, shards, fire, timestep, seed)
 
-    def _pick_plain(self, typeid, state, fire, timestep, seed) -> None:
+    def _pick_plain(self, typeids, shards, fire, timestep, seed) -> None:
         """The plain version of :meth:`_pick`: the candidates, their keys
-        with ``particle_bits`` and the two ``torch.topk`` of :meth:`_flips`."""
-        (flip,) = self._flips((state,), timestep, seed)
-        typeid.masked_fill_(flip if fire is None else flip & fire, self._evaporated_id)
+        with ``particle_bits`` and the ``torch.topk`` of :meth:`_flips`,
+        each shard's flips ANDed with ``fire``."""
+        typeids, shards = as_blocks(typeids), as_blocks(shards)
+        for typeid, flip in zip(typeids, self._flips(shards, timestep, seed), strict=True):
+            typeid.masked_fill_(flip if fire is None else flip & fire.to(flip.device),
+                                self._evaporated_id)
 
     def _update(self, state, timestep, seed):
         return self._update_shards((state,), timestep, seed)[0]
 
     def _update_shards(self, shards: tuple, timestep, seed) -> tuple:
-        """The pick on a layout held as shards (one for a whole layout): on
-        a whole layout :meth:`_pick` into a copy of ``typeid``; on shards
-        :meth:`_flips` (each shard's keys on the card through K4, merged on
-        the first shard's device)."""
-        if len(shards) == 1:
-            (state,) = shards
-            typeid = state.typeid.clone()
-            self._pick(typeid, state, None, timestep, seed)
-            return (state.replace(typeid=typeid),)
-        if self.seed is not None:
-            seed = self.seed
-        flips = self._flips(shards, timestep, seed)
-        return tuple(self._retype(s, f) for s, f in zip(shards, flips))
+        """The pick on a layout held as shards (one for a whole layout),
+        fired: :meth:`_pick` into copies of the shards' ``typeid``."""
+        typeids = tuple(s.typeid.clone() for s in shards)
+        self._pick(typeids, shards, None, timestep, seed)
+        return tuple(s.replace(typeid=t) for s, t in zip(shards, typeids, strict=True))
+
+    def _update_masked_shards(self, shards: tuple, fire: torch.Tensor, timestep, seed) -> tuple:
+        """The masked update (the graphs' form) in place, one pick over
+        every shard: the flips go into each shard's ``typeid`` where
+        ``fire`` is set, so the caller passes a layout it owns (a
+        segment's buffers or a rebuild's output). Unfired, ``typeid`` keeps
+        its bits; no ``torch.where`` is needed, and on the card the pick's
+        launches return at once."""
+        self._pick(tuple(s.typeid for s in shards), shards, fire, timestep, seed)
+        return shards
 
     def _update_masked(self, state, fire: torch.Tensor, timestep, seed):
-        """The masked update (the graphs' form) in place: the flips go into
-        ``state.typeid`` where ``fire`` is set, so the caller passes a
-        layout it owns (a segment's buffers or a rebuild's output).
-        Unfired, ``typeid`` keeps its bits; no ``torch.where`` is needed,
-        and on the card the pick's launches return at once."""
-        self._pick(state.typeid, state, fire, timestep, seed)
-        return state
+        """:meth:`_update_masked_shards` on a whole layout."""
+        return self._update_masked_shards((state,), fire, timestep, seed)[0]

@@ -15,7 +15,7 @@ import torch
 
 T = TypeVar("T")
 
-__all__ = ["frozen_dataclass", "sqrt"]
+__all__ = ["as_blocks", "frozen_dataclass", "sqrt"]
 
 
 def frozen_dataclass(cls: type[T]) -> type[T]:
@@ -27,6 +27,12 @@ def frozen_dataclass(cls: type[T]) -> type[T]:
 
     cls.replace = replace
     return cls
+
+
+def as_blocks(x) -> tuple:
+    """A layout held whole or as shards (a State, a GridMeta, a tensor) as a
+    tuple of blocks: a tuple is kept, anything else is one block."""
+    return x if isinstance(x, tuple) else (x,)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -86,7 +86,11 @@
      launches on each shard's own slots bit for bit; the windowed K1's time
      a call per shard against its bound, the halo bytes and copies a force
      evaluation, and device operations, device-busy ms and ms/step at n =
-     1, 4 and 16;
+     1, 4 and 16; the sharded runs on the CUDA graphs (one buffer State a
+     shard); then graph turns on 4 slabs and 16 strips (eager, graph,
+     graph, eager, 300 steps each, a second eager run keeping pace): graph
+     == eager == eager bit for bit, launch counts exact, replays, ms/step
+     both ways, device operations and busy ms a step, captures, pool MB;
    - [spatial_ops] updaters, bonds and the MPCD solvent on 4 shards: the
      droplet (600 + 600 steps; its evaporator on shards) and the polymer
      melt (300 + 300 from the built rods; its bonds read across shards),
@@ -95,10 +99,17 @@
      solvent in 4 particle blocks) within its path's limits on shards, and
      one joint collision on shards within 1e-6 of max|v| of the whole one;
      ms/step, device operations, busy ms and synchronising calls a step,
-     the evaporator's pick on shards with no synchronising call and its
-     operations a fire, the position gather's ms, the joint collision's ms
-     and operations, and the windowed K1/K1' of shards 0 and 2 against the
-     plain windowed stencil with their ms and bound;
+     K4 at the pick across the shards (one scan over every shard, one
+     select) bitwise its plain version with no synchronising call, timed
+     fired and unfired, its operations a fire, the position gather's ms,
+     the joint collision's ms and operations, and the windowed K1/K1' of
+     shards 0 and 2 against the plain windowed stencil with their ms (in a
+     replay too) and bound; then graph turns on 4 shards (eager, graph,
+     graph, eager) of the droplet, the polymer, the colloids and the
+     colloids with the coupling taken away (the solvent in 4 blocks on the
+     SRD advance graphs beside the shards' segment graphs): graph == eager
+     == eager bit for bit, launch counts exact, replays, ms/step both
+     ways, device operations and busy ms a step, captures, pool MB;
    - the DPD fluid (BASELINE config 3, 21,952 particles, ConstantVolume);
    - the polymer melt (BASELINE config 2, 1,280 chains of 25, Quartic
      bonds + ExpandedYukawa, Langevin; the bond force's scatter through
@@ -215,6 +226,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import gc
 import json
 import re
@@ -311,6 +323,8 @@ PROFILE_STEPS = 20
 # colloids one: they are held to their limits, not to the whole run)
 SPATIAL_OPS_SHARDS = 4
 SPATIAL_OPS_STRETCH = {"droplet": 600, "polymer": 300, "colloid": 400}
+# the sharded graph turns' length (_shard_turns), a path's
+SHARD_TURN_STEPS = {"headline": 300, "droplet": 300, "polymer": 300, "colloid": 400}
 # a joint collision on shards against the whole one, of max|v|: the
 # reference's ~1e-7 relative a collision (the blocks' partial sums regrouped)
 SPATIAL_OPS_COLLISION_BAR = 1e-6
@@ -889,12 +903,14 @@ def build_droplet(az, device, R0=20.0, a=1.1, seed=7):
     return sim, [lj, barrier, wall]
 
 
-def build_colloid(az, device, L=32.0, n=14):
+def build_colloid(az, device, L=32.0, n=14, coupled=True):
     """Colloid hydrodynamics (bench.py bench_mpcd_coupled): n^3 = 2,744 LJ
     WCA colloids (epsilon 1, sigma 1, r_cut 2^(1/6), shift, buffer 0.4) of
     mass 5 on a lattice, at rest, in 5 L^3 = 163,840 SRD solvent particles
     (period 20, angle 130, kT 1, body force (0.02, 0, 0)) coupled through
-    the joint collision; ConstantVolume, dt 0.005; rng seed 9, sim seed 11."""
+    the joint collision; ConstantVolume, dt 0.005; rng seed 9, sim seed 11.
+    ``coupled=False`` takes the coupling away: the solvent collides on its
+    own (the SRD advance), the colloids feel their WCA alone."""
     rng = np.random.default_rng(9)
     N_s = int(5 * L**3)
     N_c = n**3
@@ -917,7 +933,8 @@ def build_colloid(az, device, L=32.0, n=14):
     srd = az.mpcd.SRD(dt=0.005, period=20, angle=130.0, cell_size=1.0, kT=1.0,
                       body_force=(0.02, 0.0, 0.0))
     sim.mpcd_dynamics = srd
-    sim.operations.updaters.append(az.mpcd.CollisionCoupling(srd))
+    if coupled:
+        sim.operations.updaters.append(az.mpcd.CollisionCoupling(srd))
     sim.auto_tune_after = COLLOID_TUNE_AT
     return sim, [lj]
 
@@ -2573,8 +2590,8 @@ def _why_eager(sim) -> str:
     if any(getattr(u, "_updates_mpcd", False) and not u._ingraph
            for u in sim.operations.updaters):
         return "an MPCD coupling on a replaced trigger"
-    if sim._sharded():
-        return "a sharded mesh"
+    if sim._sharded() and sim._spatial_mesh.distinct:
+        return "a mesh over distinct devices"
     if sim.operations.integrator is None:
         return "no integrator"
     return "a flow field of its own"
@@ -2585,8 +2602,8 @@ def _why_advance_eager(sim) -> str:
     (Simulation._advance_graphs_apply's rule)."""
     if sim._coupling is not None or sim.mpcd_dynamics._coupled:
         return "the MPCD coupling"
-    if len(sim._mpcd["position"]) > 1:
-        return "a solvent in several blocks"
+    if len({str(p.device) for p in sim._mpcd["position"]}) > 1:
+        return "a solvent in blocks on several devices"
     if sim._eager:
         return "_eager"
     return "a profile"
@@ -3508,8 +3525,10 @@ def run_spatial_sharded(az, D, K, card, record):
     windowed K1's time a call per shard against the whole grid's and the
     plain windowed stencil's, and its bound at the window's bytes; the halo
     bytes and copies a force evaluation; device operations, device-busy ms
-    (over PROFILE_STEPS steps, the [profile] window) and ms/step at each n;
-    the phase's wall time. Returns the K1 and K6-K8 launches."""
+    (over PROFILE_STEPS steps, the [profile] window) and ms/step at each n.
+    The sharded runs take the CUDA graphs (the segments over the shards).
+    Then the graph turns on each mesh (``_shard_turns``) and the phase's
+    wall time. Returns the K1 and K6-K8 launches."""
     from azplugins_tpu_torch.parallel import make_mesh
     from azplugins_tpu_torch.parallel.spatial import halo_runs
 
@@ -3664,14 +3683,25 @@ def run_spatial_sharded(az, D, K, card, record):
               f"builds inside, as the headline's profile line): {ops:.1f} device operations and "
               f"{busy:.4f} ms device-busy per step, {syncs:.2f} synchronising calls per step; "
               f"{sim.n_builds} builds, {sim.viol_replays} violation replays", flush=True)
-    print(f"[spatial] shards n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit "
+    replayed = ", ".join(f"n={n} {runs[n]._graph_totals.get('replays', 0)}"
+                         for n in SPATIAL_MESHES)
+    print(f"[spatial] shards n={'/'.join(map(str, SPATIAL_MESHES))} (on the CUDA graphs: "
+          f"{replayed} replays) equal to the whole run bit "
           f"for bit (positions, velocities, images, tags, gathered in slot order; builds, grid) "
           f"after {SPATIAL_STRETCH} and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, "
           f"n a force evaluation; integrator kernel launches {integrated} (K7+K6, K8 n a "
-          f"step, K6 once); the phase took "
-          f"{time.perf_counter() - phase_t0:.1f} s, of which {stretch_s:.1f} s the stretches",
-          flush=True)
-    return {"cell_pair_force[PerturbedLennardJones]": launched, **integrated}
+          f"step, K6 once); the stretches took {stretch_s:.1f} s", flush=True)
+    del runs, sim
+    torch.cuda.empty_cache()
+    out = {"cell_pair_force[PerturbedLennardJones]": launched, **integrated}
+    # the graph turns: eager against the graphs on the shards, in one process
+    for n in SPATIAL_MESHES:
+        _, got = _shard_turns(az, K, card, "headline", build_headline, n,
+                              SHARD_TURN_STEPS["headline"])
+        for kernel, c in got.items():
+            out[kernel] = out.get(kernel, 0) + c
+    print(f"[spatial] the phase took {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return out
 
 
 def _same_sharded(what, got, want):
@@ -3706,9 +3736,10 @@ def _windowed_on_path(az, D, K, sim, f, label, record):
     """The path's pair kernel (K1 or K1', want="force" as the step loop
     launches it) on the sharded run's own shards 0 and n/2, in their halo
     windows, against the plain windowed stencil on the card at the
-    [kernel] bar; its ms a call (CUDA events) and its bound (``_bound`` on
-    the window: its occupied slots' inputs and every window tag once, the
-    own slots' forces, the table; the shard's pairs inside r_cut)."""
+    [kernel] bar; its ms a call (CUDA events, queued and in a replay), the
+    plain windowed stencil's ms and its bound (``_bound`` on the window:
+    its occupied slots' inputs and every window tag once, the own slots'
+    forces, the table; the shard's pairs inside r_cut)."""
     shards, spec = sim._dense, sim._grid_spec
     windows = sim._windows(shards)
     tbl = f._device_tables(sim.device)
@@ -3726,18 +3757,25 @@ def _windowed_on_path(az, D, K, sim, f, label, record):
 
         got = launch()
         jb = D.make_jblocks(w.state, spec, half=spec.newton_ok, window=w)
-        ref = D.dense_pair_force(f._def.energy_force, w.state, jb, spec, tbl["params"],
-                                 tbl["r_cut"], tbl.get("r_on"), f.mode, "force", window=w)
+
+        def plain(w=w, jb=jb):
+            return D.dense_pair_force(f._def.energy_force, w.state, jb, spec, tbl["params"],
+                                      tbl["r_cut"], tbl.get("r_on"), f.mode, "force", window=w)
+
+        ref = plain()
         torch.cuda.synchronize()
         err, _ = _compare_result(f"{label}: windowed {name} shard {d} of {n}", got, ref, "force")
         record(name, err)
         ms = _cuda_time_ms(launch, 50)
+        replay_ms = _replay_time_ms(launch, 50)
+        plain_ms = _cuda_time_ms(plain, 3)
         pairs = float(partners[d * S_loc:(d + 1) * S_loc].sum()) / 2.0
         bound_ms, by = _bound(w.state, 16, 0, 4 * tbl["kernel"].numel() + 12 * S_loc, pairs,
                               OPS_PER_PAIR[pot])
-        rows.append(f"shard {d}: {ms:.4f} ms a call, bound {bound_ms:.5f} ms ({by}, "
-                    f"{ms / bound_ms:.0f}x), max abs force error {err:.3e} ({w.n_cols} window "
-                    f"columns, {int(pairs)} pairs inside r_cut)")
+        rows.append(f"shard {d}: {ms:.4f} ms a call queued, {replay_ms:.4f} in a replay, plain "
+                    f"{plain_ms:.4f}, bound {bound_ms:.5f} ms ({by}, {ms / bound_ms:.0f}x, "
+                    f"replay {replay_ms / bound_ms:.0f}x), max abs force error {err:.3e} "
+                    f"({w.n_cols} window columns, {int(pairs)} pairs inside r_cut)")
     print(f"[spatial_ops] {label}: windowed {name} on its own state: {'; '.join(rows)}",
           flush=True)
 
@@ -3756,15 +3794,20 @@ def run_spatial_ops(az, D, K, card, record):
     (the evaporated count too, and above 0; the bond lengths finite); the
     colloids on shards hold their path's limits, and one joint collision
     on shards agrees with the whole one within SPATIAL_OPS_COLLISION_BAR of
-    max|v|. K7+K6 and K8 must have launched once a step a shard, K6 once
-    a step for the verdict, K4 once an evaporator fire a
-    shard (the droplet), K5 once a collision (the colloids). Prints
-    ms/step, device operations, busy ms and synchronising calls a step
-    (PROFILE_STEPS steps, as [spatial]), the updaters phase's
-    operations (droplet), the position gather's ms (polymer), the joint
-    collision's ms and operations (colloid), the windowed kernel on shards
-    0 and n/2 against the plain windowed stencil with its bound, and the
-    phase's wall time. Returns the kernel launches."""
+    max|v|. Both runs take the CUDA graphs (the shards' segments over every
+    shard). K7+K6 and K8 must have launched once a step a shard, K6 once a
+    step for the verdict, K4 at the pick two launches at least a fire over
+    every shard (the droplet), K5's clock form once a collision (the
+    colloids). Prints ms/step, device operations, busy ms and synchronising
+    calls a step (PROFILE_STEPS steps, as [spatial]), the pick across
+    shards against its plain version (``_pick_across_shards``), the
+    updaters phase's operations (droplet), the position gather's ms
+    (polymer), the joint collision's ms and operations (colloid), the
+    windowed kernel on shards 0 and n/2 against the plain windowed stencil
+    with its bound. Then the graph turns on n shards (``_shard_turns``) of
+    the droplet, the polymer, the colloids and the colloids' system with
+    its coupling taken away (the solvent in n blocks on the advance
+    graphs), and the phase's wall time. Returns the kernel launches."""
     from azplugins_tpu_torch.parallel import make_mesh
     from azplugins_tpu_torch.parallel.spatial import gather_dense
 
@@ -3799,16 +3842,13 @@ def run_spatial_ops(az, D, K, card, record):
                     raise AssertionError(f"spatial_ops: {label} {key}: {K.PK.launches} kernel "
                                          f"launches for {evals} force evaluations")
                 launched[name] = launched.get(name, 0) + k
-                # K6-K8 every step, once a shard; K4: the evaporator once
-                # a fire a shard; K5: the joint collision's axes (its clock
-                # form inside the whole run's segment graphs, the host-key
-                # form on the shards' eager loop)
+                # K6-K8 every step, once a shard; K4 at the pick: two
+                # launches a step over every shard (masked on the graphs);
+                # K5: the joint collision's axes (its clock form inside the
+                # segment graphs, whole and on shards)
                 m = n if key == "shards" else 1
                 if label == "colloid":
-                    form = "jax_normal_axis" if key == "shards" else "jax_normal_axis_clock"
-                    least = {form: stretch // sim.mpcd_dynamics.period}
-                elif label == "droplet" and key == "shards":
-                    least = {"particle_bits": m * (stretch // DROPLET_PERIOD)}
+                    least = {"jax_normal_axis_clock": stretch // sim.mpcd_dynamics.period}
                 elif label == "droplet":  # K4 at the pick, two launches at least a fire
                     least = {"evaporator_pick": 2 * (stretch // DROPLET_PERIOD)}
                 else:
@@ -3836,22 +3876,7 @@ def run_spatial_ops(az, D, K, card, record):
         if label == "droplet":
             evap = sharded.operations.updaters[0]
             shards = sharded._dense
-            # the sharded pick against the whole pick on this state, with no
-            # host synchronisation allowed
-            torch.cuda.synchronize()
-            _reset_counts(K)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                picked = evap._update_shards(shards, sharded.timestep, sharded.seed)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            _draws(K, "spatial_ops: droplet: the sharded pick", {"particle_bits": n})
-            want = evap._update(gather_dense(shards, sharded.device), sharded.timestep,
-                                sharded.seed)
-            if not torch.equal(gather_dense(picked, sharded.device).typeid, want.typeid):
-                raise AssertionError("spatial_ops: droplet: the sharded pick is not the whole "
-                                     "pick")
-            flipped = int((want.typeid != gather_dense(shards, sharded.device).typeid).sum())
+            pick_line, flipped = _pick_across_shards(K, evap, shards, sharded, gather_dense)
             upd = []
             for key, sim in (("whole", whole), ("shards", sharded)):
                 # one fire a period (again in a replayed step)
@@ -3865,15 +3890,13 @@ def run_spatial_ops(az, D, K, card, record):
                            f"({ops['updaters'] / DROPLET_PERIOD:.2f} operations a step)")
             _same_sharded("droplet after the profiled period", sharded, whole)
             extra = (f"; evaporated {int((sharded._whole_dense().typeid == 1).sum())} after "
-                     f"{sharded.timestep // DROPLET_PERIOD} fires, equal; the sharded pick at "
-                     f"step {sharded.timestep} ({flipped} flipped; one K4 launch a shard) the "
-                     f"whole pick bit for bit with no synchronising call; the updaters phase a "
-                     f"fire: "
-                     f"{'; '.join(upd)}")
+                     f"{sharded.timestep // DROPLET_PERIOD} fires, equal; {pick_line} "
+                     f"({flipped} flipped); the updaters phase a fire: {'; '.join(upd)}")
         elif label == "polymer":
             gather_ms = _cuda_time_ms(lambda: sharded._partners(sharded._dense), 50)
-            extra = (f"; the position gather {gather_ms:.4f} ms a step ({sharded._grid_spec.S} "
-                     f"rows into each of {n} shards); {_bond_lengths(sharded, 'after')[2:]}")
+            extra = (f"; the position gather {gather_ms:.4f} ms a step (one join of "
+                     f"{sharded._grid_spec.S} rows, shared by the {n} shards); "
+                     f"{_bond_lengths(sharded, 'after')[2:]}")
         else:
             P, P_want, kT_s, mean_s = _colloid_limits(sharded, "spatial_ops: colloid shards")
             _colloid_limits(whole, "spatial_ops: colloid whole")
@@ -3930,9 +3953,93 @@ def run_spatial_ops(az, D, K, card, record):
               f", cap {runs['shards'][0]._grid_spec.cap}{extra}; {time.perf_counter() - t0:.1f} s",
               flush=True)
         del runs, whole, sharded
+    # the graph turns: eager against the graphs on the shards, in one
+    # process; then the colloids' system with its coupling taken away (the
+    # solvent in n blocks on the advance graphs beside the shards' segments)
+    for label, build in (("droplet", build_droplet), ("polymer", build_polymer),
+                         ("colloid", build_colloid),
+                         ("colloid uncoupled", functools.partial(build_colloid, coupled=False))):
+        _, got = _shard_turns(az, K, card, label, build, n, SHARD_TURN_STEPS[label.split()[0]])
+        for kernel, c in got.items():
+            launched[kernel] = launched.get(kernel, 0) + c
     print(f"[spatial_ops] launches {launched}; the phase took "
           f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
     return launched
+
+
+def _pick_across_shards(K, evap, shards, sim, gather_dense):
+    """K4 at the pick over the droplet's shards on the card (one scan over
+    every shard into one scratch, one select flipping each shard's typeid)
+    against its plain version (``_flips`` over the shards, then ``&
+    fire``), bitwise, at k of 1, the droplet's 10, the candidates' count
+    and the slot count, the trigger's flag set, unset and absent, with no
+    synchronising call; the fired pick is also the whole layout's pick.
+    Times it fired and unfired (k = 10; the flips written as the solvent
+    type, so the state stays) queued and in a replay, against the plain
+    pick and the bound. Returns (its line, the flips at k = 10)."""
+    from azplugins_tpu_torch.core import rng
+
+    dev, t, seed = sim.device, sim.timestep, sim.seed
+    k_path = evap._k
+    m = sum(int(evap._candidates(s).sum()) for s in shards)
+    slots = sum(s.N for s in shards)
+    flags = {"absent": None, "set": torch.tensor(True, device=dev),
+             "unset": torch.tensor(False, device=dev)}
+    cases = 0
+    try:
+        for k in sorted({1, k_path, m, slots}):
+            evap._k = k
+            want = tuple(s.typeid.clone() for s in shards)
+            evap._pick_plain(want, shards, None, t, seed)
+            for what, fire in flags.items():
+                got = tuple(s.typeid.clone() for s in shards)
+                torch.cuda.synchronize()
+                before = K.EK.launches
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    evap._pick(got, shards, fire, t, seed)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                if K.EK.launches != before + 2:
+                    raise AssertionError("spatial_ops: the pick across shards did not launch")
+                for g, w, s in zip(got, want, shards):
+                    if not torch.equal(g, s.typeid if what == "unset" else w):
+                        raise AssertionError(f"spatial_ops: the pick across shards differs "
+                                             f"from its plain version at k {k}, flag {what}")
+                cases += 1
+            if k == k_path:
+                whole = evap._update(gather_dense(shards, dev), t, seed).typeid
+                if not torch.equal(torch.cat(want), whole):
+                    raise AssertionError("spatial_ops: the pick across shards is not the whole "
+                                         "pick")
+                flipped = int((torch.cat(want) != torch.cat([s.typeid for s in shards])).sum())
+    finally:
+        evap._k = k_path
+    tids = tuple(s.typeid.clone() for s in shards)
+    lo, hi = float(np.float32(evap.lo)), float(np.float32(evap.hi))
+
+    def pick(fire):
+        return lambda: K.EK.evaporator_pick(
+            tids, tuple(s.position for s in shards), tuple(s.tag for s in shards), k_path,
+            evap._solvent_id, evap._solvent_id, lo, hi, shards[0].box.Lz,
+            rng.Stream.PARTICLE_EVAPORATOR, seed, t, fire)
+
+    on, off = flags["set"], flags["unset"]
+    times = {what: (_cuda_time_ms(pick(f), 50), _replay_time_ms(pick(f), 50))
+             for what, f in (("fired", on), ("unfired", off))}
+    plain_ms = _cuda_time_ms(lambda: evap._pick_plain(tuple(s.typeid.clone() for s in shards),
+                                                      shards, on, t, seed), 5)
+    n_solvent = sum(int((s.typeid == evap._solvent_id).sum()) for s in shards)
+    bound, by = _pick_bound(slots, n_solvent, m, k_path)
+    line = (f"K4 at the pick across the {len(shards)} shards ({slots:,} slots, {m:,} "
+            f"candidates) bitwise its plain version in {cases} cases (k "
+            f"{sorted({1, k_path, m, slots})}, the flag set, unset and absent), two launches a "
+            f"pick, no synchronising call, the fired pick the whole layout's; fired "
+            f"{times['fired'][0]:.4f} ms queued, {times['fired'][1]:.4f} in a replay, unfired "
+            f"{times['unfired'][0]:.4f} / {times['unfired'][1]:.4f} (k {k_path}); plain "
+            f"{plain_ms:.4f} ms; bound {bound:.5f} ms ({by})")
+    print(f"[spatial_ops] {line}", flush=True)
+    return line, flipped
 
 
 PHASES = ("rebin", "integrate_step1", "verlet_drift_check", "forces", "integrate_step2",
@@ -4038,10 +4145,11 @@ def run_profile(sim, label, steps, card, collisions=0):
 
 def _layout_diff(a, b):
     """(bitwise equal, max |difference|) of two simulations' slot layouts
-    over GRAPH_FIELDS."""
+    over GRAPH_FIELDS (shards joined in block order)."""
     same, worst = True, 0.0
+    da, db = a._whole_dense(), b._whole_dense()
     for k in GRAPH_FIELDS:
-        x, y = getattr(a._dense, k), getattr(b._dense, k)
+        x, y = getattr(da, k), getattr(db, k)
         if x.shape != y.shape:
             return False, float("inf")
         same = same and torch.equal(x.view(torch.int32), y.view(torch.int32))
@@ -4070,34 +4178,56 @@ def _turn(sim, steps):
     return ms, (wall - waited[0]) / steps * 1e6
 
 
-def _graph_turn(K, sim, label, forces, steps=GRAPH_STEPS):
+def _graph_turn(K, sim, label, forces, steps=GRAPH_STEPS, shards=1):
     """One turn: ``steps`` steps with the launch counts set to 0 before and
-    held after to what the steps run (K6-K9 exactly, the pair kernels once
-    a pair-force evaluation; with an MPCD coupling K5, its clock form on the
-    graphs, and K10 once a joint collision, exactly when no violation
-    replay collided again), replays counted. Returns (ms a step, host us a
-    step, {captures, replays, eager_segments} of the turn)."""
+    held after to what the steps run on ``shards`` shards (K6-K9 exactly,
+    the pair kernels once a pair-force evaluation a shard; with an MPCD
+    coupling K5, its clock form on the graphs, and K10 once a joint
+    collision, exactly when no violation replay collided again; an
+    uncoupled solvent's advance the same, exactly; K10 once a solvent
+    block a collision; an evaporator's pick
+    two launches at least a fire), replays counted. Returns (ms a step,
+    host us a step, {captures, replays, eager_segments} of the turn,
+    {kernel: launches})."""
     totals0 = dict(sim._graph_totals)
     steps0, evals0 = sim.steps_run, sim.force_evaluations
     t0, viol0 = sim.timestep, sim.viol_replays
     _reset_counts(K)
     ms, host_us = _turn(sim, steps)
+    drawn = {}
+    # K10 once a solvent block a collision (the blocks' partial sums)
+    blocks = len(sim._mpcd["position"]) if sim._mpcd is not None else 0
     if sim._coupling is not None:
         collisions = int(sim._coupling.trigger.mask(t0, steps).sum())
         form = "jax_normal_axis_clock" if sim._graphs_apply() else "jax_normal_axis"
-        _draws(K, f"graph {label}", {form: collisions, "cell_sums": collisions},
-               exact=sim.viol_replays == viol0)
+        drawn = _draws(K, f"graph {label}", {form: collisions, "cell_sums": blocks * collisions},
+                       exact=sim.viol_replays == viol0)
+    elif sim.mpcd_dynamics is not None:
+        period = sim.mpcd_dynamics.period
+        collisions = (t0 + steps) // period - t0 // period
+        form = "jax_normal_axis_clock" if sim._advance_graphs_apply() else "jax_normal_axis"
+        drawn = _draws(K, f"graph {label}", {form: collisions, "cell_sums": blocks * collisions},
+                       exact=True)
+    evap = [u for u in sim.operations.updaters if type(u).__name__ == "ParticleEvaporator"]
+    if evap:
+        fires = int(evap[0].trigger.mask(t0, steps).sum())
+        drawn.update(_draws(K, f"graph {label}", {"evaporator_pick": 2 * fires}))
     integ = sim.operations.integrator
-    _integrator_launches(K, f"graph {label}", sim.steps_run - steps0, len(integ.methods),
-                         rotational=integ.integrate_rotational_dof)
+    drawn.update(_integrator_launches(K, f"graph {label}", sim.steps_run - steps0,
+                                      len(integ.methods), shards=shards,
+                                      rotational=integ.integrate_rotational_dof))
     n_pair = sum(1 for f in forces if f._needs_nlist)
     pair_evals = (sim.force_evaluations - evals0) * n_pair // len(forces)
     launched = K.PK.launches + K.DK.launches + K.AK.launches
-    if launched != pair_evals:
+    if launched != shards * pair_evals:
         raise AssertionError(f"graph {label}: {launched} pair-kernel launches for {pair_evals} "
-                             f"pair-force evaluations")
+                             f"pair-force evaluations on {shards} shards")
+    pots = {getattr(f, "_evaluator_name", None) for f in forces} & set(K.PK.KERNEL_POTENTIALS)
+    for pot in pots:
+        drawn[f"cell_pair_force[{pot}]"] = K.PK.launches_by_potential.get(pot, 0)
     counted = ("captures", "capture_seconds", "replays", "eager_segments")
-    return ms, host_us, {k: sim._graph_totals.get(k, 0) - totals0.get(k, 0) for k in counted}
+    return (ms, host_us, {k: sim._graph_totals.get(k, 0) - totals0.get(k, 0) for k in counted},
+            drawn)
 
 
 def _clock_forms(sim, label, forces):
@@ -4328,6 +4458,118 @@ def _graph_diff(a, b):
     return same, worst
 
 
+def _shard_turns(az, K, card, label, build, n, steps):
+    """The graph turns of a sharded path: ``build`` three times from one
+    seed on ``n`` shards of the card (``make_mesh(n, device="cuda",
+    sharded=True)``), two on the eager loop (``_eager``), one on the CUDA
+    graphs (the segment graphs over the shards, with an uncoupled solvent
+    in blocks the advance graphs too); ``steps`` steps each, then turns of
+    as many (eager, graph, graph, eager; ``_graph_turn`` on n shards: the
+    launch counts exact), the second eager run keeping pace. After the
+    warm-up and after turns 2 and 4 the graph run must equal the eager
+    run, and the eager runs each other, bit for bit (the layout joined in
+    block order over GRAPH_FIELDS, typeid among them; the solvent and its
+    anchor); the graph run must replay at least GRAPH_LEAST_REPLAYS
+    segments in its turns. Then warm: the rebuild interval pinned on the
+    graph run and the first eager run, one stretch each to fill the cache,
+    then one timed each (every segment a replay where the cache holds its
+    shape), bitwise again. Prints ms/step both ways, host us a step, device
+    operations and busy ms a step (PROFILE_STEPS profiled), captures,
+    replays and the pool's MB. Returns ({figures}, {kernel: launches})."""
+    from azplugins_tpu_torch.parallel import make_mesh
+
+    t_label = time.perf_counter()
+    sims = {}
+    for name in ("eager", "eager2", "graph"):
+        sim, forces = build(az, "cuda")
+        sim.enable_spatial_decomposition(make_mesh(n, device="cuda", sharded=True))
+        sim._eager = name != "graph"
+        sims[name] = sim
+    E, E2, G = sims["eager"], sims["eager2"], sims["graph"]
+    for sim in (E, E2, G):
+        sim.run(steps)
+    if not G._graphs_apply():
+        raise AssertionError(f"{label}: the graph run is on the eager loop ({_why_eager(G)})")
+    diffs = [(_graph_diff(E, E2), _graph_diff(G, E))]
+    ms, host = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+    turns = {"captures": 0, "capture_seconds": 0.0, "replays": 0, "eager_segments": 0}
+    advance0 = dict(G._advance_totals)
+    launched = {}
+    for k, name in enumerate(("eager", "graph", "graph", "eager")):
+        m, h, counted, got = _graph_turn(K, sims[name], label, forces, steps, shards=n)
+        for kernel, c in got.items():
+            launched[kernel] = launched.get(kernel, 0) + c
+        ms[name].append(m)
+        host[name].append(h)
+        if name == "eager":
+            E2.run(steps)
+        else:
+            turns = {c: turns[c] + counted[c] for c in turns}
+        if k in (1, 3):
+            diffs.append((_graph_diff(E, E2), _graph_diff(G, E)))
+    # warm: the interval pinned on both (their schedules stay equal), one
+    # stretch to fill the cache, then one timed: every segment a replay
+    seg = G._seg_len
+    if G._coupling is not None and G._coupling._ingraph:  # the run's own snap
+        seg = G._snap_to_period(seg, G._coupling.srd.period)
+    warm_steps = seg * max(1, steps // seg)  # whole segments from a rebuild point
+    for sim in (E, G):
+        sim._seg_adapt = False
+        sim.run((seg - sim.timestep % seg) % seg + warm_steps)
+    replays0 = G._graph_totals.get("replays", 0)
+    firsts0 = (G._graph_totals.get("captures", 0), G._graph_totals.get("eager_segments", 0))
+    warm = {}
+    for name, sim in (("graph", G), ("eager", E)):
+        warm[name], _ = _turn(sim, warm_steps)
+    warm_firsts = (G._graph_totals.get("captures", 0) - firsts0[0],
+                   G._graph_totals.get("eager_segments", 0) - firsts0[1])
+    warm_replays = G._graph_totals.get("replays", 0) - replays0
+    diffs.append((_graph_diff(E, E), _graph_diff(G, E)))
+    for (ee_same, ee_diff), (ge_same, ge_diff) in diffs:
+        if not (ee_same and ge_same):
+            raise AssertionError(f"{label}: eager/eager max |diff| {ee_diff:.3e}, graph/eager "
+                                 f"{ge_diff:.3e}: the sharded graph run is not bitwise")
+    if turns["replays"] < GRAPH_LEAST_REPLAYS:
+        raise AssertionError(f"{label}: {turns['replays']} replays in the graph turns")
+    advance = {c: G._advance_totals.get(c, 0) - advance0.get(c, 0)
+               for c in ("captures", "replays", "eager_segments")}
+    if G._mpcd is not None and G._coupling is None and advance["replays"] < 1:
+        raise AssertionError(f"{label}: the solvent's advance replayed no graph")
+    _check_wrapped(G, label)
+    g_ops, g_busy, _, g_syncs = _profile(G, PROFILE_STEPS)
+    e_ops, e_busy, _, _ = _profile(E, PROFILE_STEPS)
+    pool_mb = (G._runner.pool_bytes + (G._advance_graphs.pool_bytes if G._advance_graphs
+                                       else 0)) / 2**20
+    spec = G._grid_spec
+    kind = "slabs" if spec.dims[0] % n == 0 else "strips"
+    adv = (f"; the solvent in {len(G._mpcd['position'])} blocks on the advance graphs: "
+           f"{advance['captures']} captures, {advance['replays']} replays"
+           if G._advance_graphs is not None else "")
+    print(f"[graph_sharded] {label} on {n} {kind} (grid {spec.dims}, cap {spec.cap}, rebuild "
+          f"interval {G._seg_len}) on {card}: ms/step eager "
+          f"{' / '.join(f'{x:.4f}' for x in ms['eager'])}, graph "
+          f"{' / '.join(f'{x:.4f}' for x in ms['graph'])} (turns of {steps}: eager, graph, "
+          f"graph, eager); host us a step eager {' / '.join(f'{x:.1f}' for x in host['eager'])}"
+          f", graph {' / '.join(f'{x:.1f}' for x in host['graph'])}; device operations and "
+          f"busy ms a step ({PROFILE_STEPS} steps profiled): graph {g_ops:.1f} / {g_busy:.4f} "
+          f"({g_syncs:.2f} synchronising calls a step), eager {e_ops:.1f} / {e_busy:.4f}; "
+          f"graph turns: {turns['captures']} captures ({turns['capture_seconds']:.3f} s of host "
+          f"time), {turns['replays']} replays, {turns['eager_segments']} first segments run "
+          f"eagerly{adv}; warm, the interval pinned at {seg} (a stretch to fill the "
+          f"cache, then {warm_steps} steps timed: {warm_replays} replays, {warm_firsts[0]} "
+          f"captures, {warm_firsts[1]} first runs): graph {warm['graph']:.4f}, eager "
+          f"{warm['eager']:.4f} ms/step; pool {pool_mb:.1f} MB; eager == eager == graph "
+          f"bitwise after the warm-up, turns 2 and 4 and the warm stretch; launch counts exact "
+          f"every turn; {time.perf_counter() - t_label:.1f} s", flush=True)
+    fig = {"ms_eager": ms["eager"], "ms_graph": ms["graph"], "host_us_eager": host["eager"],
+           "host_us_graph": host["graph"], "ops_graph": g_ops, "busy_graph": g_busy,
+           "ops_eager": e_ops, "busy_eager": e_busy, **turns, "pool_mb": pool_mb,
+           "warm_graph": warm["graph"], "warm_eager": warm["eager"]}
+    del sims, E, E2, G, sim
+    torch.cuda.empty_cache()
+    return fig, launched
+
+
 def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "droplet", "ramp",
                                   "colloid", "srd", "poiseuille")):
     """[graph]: BASELINE configs 1-5 at full size and a small Ramp-kT
@@ -4378,7 +4620,7 @@ def run_graph(az, K, card, paths=("headline", "polymer", "dpd", "patchy", "dropl
         host = {"eager": [], "graph": []}
         turns = {"captures": 0, "capture_seconds": 0.0, "replays": 0, "eager_segments": 0}
         for k, name in enumerate(("eager", "graph", "graph", "eager")):
-            m, h, counted = _graph_turn(K, sims[name], label, forces)
+            m, h, counted, _ = _graph_turn(K, sims[name], label, forces)
             ms[name].append(m)
             host[name].append(h)
             if name == "eager":

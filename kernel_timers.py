@@ -6,7 +6,8 @@
 PARTs (default all): force (the four force kernels and K9), draws (K4, K5),
 cellsum (K10, index_add_, K5's clock form), headline (K6-K8; K8 in three
 forms), droplet (the
-pair kernel, the masked evaporator and K4 at the pick).
+pair kernel, the masked evaporator and K4 at the pick), windowed (the pair
+kernel in a shard's halo window, with its bound).
 
 Imports azplugins_tpu_torch from ROOT, builds its kernels there, and times
 each on the state chip_smoke.py times it on: the pair kernel's
@@ -35,15 +36,21 @@ droplet (T = 2) and the droplet's masked evaporator
 (``ParticleEvaporator._update_masked``, what its CUDA graphs run every
 step) on its state after DROPLET_STEPS steps, and where the checkout has
 K4 at the pick, the pick fired and unfired, the plain pick's flips and
-``torch.topk`` alone over the slots' keys; through the public calls.
+``torch.topk`` alone over the slots' keys; the pair kernel in the halo
+windows of shards 0 and n/2 (chip_smoke.py's ``[spatial]`` and
+``[spatial_ops]`` cases: K1 on the headline's 4 slabs and 16 strips after
+HEADLINE_STEPS steps, K1 on the droplet's, K1' (ExpandedYukawa) on the
+polymer's and K1' (LJ) on the colloids' 4 shards after WINDOWED_STEPS
+steps of their sharded runs), each printed with its bound (chip_smoke.py's
+``_bound`` on the window); through the public calls.
 Three timers, CUDA events around ``REPS`` calls each:
 
 - synced: the calls start right after a synchronize, so where the
   wrapper's host time exceeds the kernel's the host is timed;
 - queued: chip_smoke.py's ``_cuda_time_ms``, the calls queued behind a
   spinning stream, so only the card is timed;
-- replay (K4-K9, K7+K6 and the droplet's pair kernel and masked
-  evaporator): the ``REPS`` calls captured into one CUDA
+- replay (K4-K9, K7+K6, the droplet's pair kernel and masked evaporator
+  and the windowed pair kernel): the ``REPS`` calls captured into one CUDA
   graph and the graph replayed, as the run loop's rebuild segments replay
   them: no host work and no launch queue between the calls.
 
@@ -64,9 +71,10 @@ import torch
 import chip_smoke as cs  # this checkout's: before ROOT goes on the path
 
 REPS = 50
-PARTS = ("force", "draws", "cellsum", "headline", "droplet")
+PARTS = ("force", "draws", "cellsum", "headline", "droplet", "windowed")
 HEADLINE_STEPS = 300
 DROPLET_STEPS = 1000
+WINDOWED_STEPS = 300
 
 
 def _synced_time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -140,6 +148,52 @@ def calls_cellsum(az, rng, calls, replayed, dev) -> None:
             replayed.add(name)
 
 
+def calls_windowed(az, D, PK, calls, replayed, notes, dev) -> None:
+    """The pair kernel in the halo windows of shards 0 and n/2: K1 on the
+    headline's SPATIAL_MESHES shards after HEADLINE_STEPS steps (its whole
+    layout split as [spatial] splits it), and the path's pair kernel on the
+    droplet's, the polymer's and the colloids' SPATIAL_OPS_SHARDS shards
+    after WINDOWED_STEPS steps of their sharded runs; each call's bound
+    (chip_smoke.py's ``_bound`` on the window: its occupied slots' inputs
+    and every window tag once, the own slots' forces, the table; the
+    shard's pairs inside r_cut) into ``notes``."""
+    from azplugins_tpu_torch.parallel import make_mesh
+
+    cases = []
+    sim = cs.build_headline(az, dev)[0]
+    sim.run(HEADLINE_STEPS)
+    dense, spec = sim._dense, sim._grid_spec
+    for n in cs.SPATIAL_MESHES:
+        shards, windows = cs._shard_windows(dense, spec, n)
+        cases.append((f"headline after {HEADLINE_STEPS} steps", sim.operations.integrator.forces[0],
+                      spec, shards, windows, dense))
+    for label, build in (("droplet", cs.build_droplet), ("polymer", cs.build_polymer),
+                         ("colloid", cs.build_colloid)):
+        sim, forces = build(az, dev)
+        sim.enable_spatial_decomposition(make_mesh(cs.SPATIAL_OPS_SHARDS, device=dev,
+                                                   sharded=True))
+        sim.run(WINDOWED_STEPS)
+        f = next(g for g in forces if g._needs_nlist)
+        cases.append((f"{label} after {WINDOWED_STEPS} steps", f, sim._grid_spec, sim._dense,
+                      sim._windows(sim._dense), sim._whole_dense()))
+    for label, f, spec, shards, windows, whole in cases:
+        tables = f._device_tables(dev)["kernel"]
+        pot, mode = f._evaluator_name, f.mode
+        partners = cs._partners(D, whole, spec, f._max_r_cut())
+        n, S_loc = len(shards), shards[0].N
+        for d in (0, n // 2):
+            w = windows[d]
+            name = (f"cell_pair_force[{pot}] windowed {label}, shard {d} of {n}, cap {spec.cap} "
+                    f"({w.n_cols} window columns)")
+            pairs = float(partners[d * S_loc:(d + 1) * S_loc].sum()) / 2.0
+            bound, by = cs._bound(w.state, 16, 0, 4 * tables.numel() + 12 * S_loc, pairs,
+                                  cs.OPS_PER_PAIR[pot])
+            calls[name] = lambda s=shards[d], w=w, sp=spec, tb=tables, p=pot, m=mode: (
+                PK.cell_pair_force(s, sp, tb, p, m, "force", window=w))
+            replayed.add(name)
+            notes[name] = f"; bound {bound:.5f} ms ({by})"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_timers: torch.cuda.is_available() is false; this script needs a GPU",
@@ -174,6 +228,7 @@ def main() -> int:
     dev = torch.device("cuda")
     calls = {}
     replayed = set()  # the calls timed in a replay too
+    notes = {}  # what a call's line adds (a bound)
 
     if "force" in parts:
         dense, spec, _ = cs._dense_case(
@@ -304,6 +359,9 @@ def main() -> int:
         calls.update(droplet)
         replayed.update(droplet)
 
+    if "windowed" in parts:
+        calls_windowed(az, D, PK, calls, replayed, notes, dev)
+
     for turn in range(2):
         for name, fn in calls.items():
             synced = _synced_time_ms(fn, REPS)
@@ -311,7 +369,7 @@ def main() -> int:
             replay = (f", replay {_replay_time_ms(fn, REPS):.4f} ms" if name in replayed
                       else "")
             print(f"[timers] {root.name} turn {turn} {name}: synced {synced:.4f} ms, queued "
-                  f"{queued:.4f} ms{replay} per call", flush=True)
+                  f"{queued:.4f} ms{replay} per call{notes.get(name, '')}", flush=True)
     print(cs._card())
     return 0
 

@@ -336,8 +336,12 @@ def _fields(x) -> dict:
 
 
 def _assert_same(got, want, what):
-    for name, a in _fields(want).items():
-        assert torch.equal(_fields(got)[name], a), f"{what}: {name} differs"
+    """Bitwise the same tensor fields; shards (tuples) shard by shard."""
+    got, want = S._as_shards(got), S._as_shards(want)
+    assert len(got) == len(want), f"{what}: {len(got)} shards against {len(want)}"
+    for g, w in zip(got, want, strict=True):
+        for name, a in _fields(w).items():
+            assert torch.equal(_fields(g)[name], a), f"{what}: {name} differs"
 
 
 def _snap(sim):
@@ -558,23 +562,36 @@ def _eligibility_case(case):
         sim.operations.updaters.append(_Recolor(port.trigger.Periodic(5)))
     elif case == "sharded":
         sim.enable_spatial_decomposition(port.parallel.make_mesh(2, device="cpu", sharded=True))
+    elif case == "distinct":
+        sim.enable_spatial_decomposition(_TwoDevices(devices=("cpu", "cpu"), sharded=True))
     elif case == "ramp":
         sim.operations.integrator.methods[0].kT = port.variant.Ramp(1.2, 1.0, 0, 100)
     return sim
 
 
-@pytest.mark.parametrize("case", ["updater", "coupling", "sharded", "ramp"])
+class _TwoDevices(port.parallel.Mesh):
+    """A sharded mesh that says its blocks lie on distinct devices, while
+    they lie on the CPU: a mesh over two cards, as the rule sees it."""
+
+    @property
+    def distinct(self) -> bool:
+        return True
+
+
+@pytest.mark.parametrize("case", ["updater", "coupling", "sharded", "ramp", "distinct"])
 def test_eligibility_selects_the_eager_loop(case):
-    """A sharded mesh keeps the eager loop, by the rule on the operations,
-    before any capture; an updater, a Ramp kT or an MPCD coupling on its
-    default trigger takes the graphs (the updater masked every step, kT
-    from the chunk's rows, the joint collision on a segment's last step
-    with the solvent's anchor in the runner's buffers), bitwise the eager
+    """A mesh over distinct devices keeps the eager loop, by the rule on
+    the operations, before any capture; an updater, a Ramp kT, an MPCD
+    coupling on its default trigger or a sharded mesh on one device takes
+    the graphs (the updater masked every step, kT from the chunk's rows,
+    the joint collision on a segment's last step with the solvent's anchor
+    in the runner's buffers, one buffer State a shard), bitwise the eager
     loop (the solvent too)."""
     sim = _eligibility_case(case)
     sim._capture = capture = FakeCapture()
-    if case == "sharded":
+    if case == "distinct":
         sim.run(25)
+        assert isinstance(sim._dense, tuple) and len(sim._dense) == 2
         assert not sim._graph_eligible() and not sim._graphs_apply()
         assert sim._runner is None and capture.graphs == []
         return
@@ -953,11 +970,12 @@ def test_advance_counters_under_replay(monkeypatch):
 
 @pytest.mark.parametrize("case", ["coupled", "sharded", "profile", "eager", "whole"])
 def test_advance_eligibility(case, tmp_path):
-    """A coupled stream, a solvent in several blocks, a run inside profile
-    and the private _eager keep the eager advance, by the rule, before any
-    capture; a whole uncoupled stream takes the graphs. A coupled stream's
-    collisions run on the segment graphs instead (the coupling owns them):
-    only its observation stream is eager."""
+    """A coupled stream, a run inside profile and the private _eager keep
+    the eager advance, by the rule, before any capture; a whole uncoupled
+    stream takes the graphs, and so does one in several blocks beside a
+    sharded layout on one device (whose segments take the segment graphs).
+    A coupled stream's collisions run on the segment graphs instead (the
+    coupling owns them): only its observation stream is eager."""
     if case == "coupled":
         sim = _eligibility_case("coupling")
     else:
@@ -975,14 +993,14 @@ def test_advance_eligibility(case, tmp_path):
             assert not sim._advance_graphs_apply()
     else:
         sim.run(6)
-        assert sim._advance_graphs_apply() == (case == "whole")
+        assert sim._advance_graphs_apply() == (case in ("whole", "sharded"))
     if case == "sharded":
-        assert len(sim._mpcd["position"]) == 2
-    assert (sim._advance_graphs is None) == (case != "whole")
-    assert (sim._runner is not None) == (case in ("coupled", "whole"))
-    if case == "coupled":
+        assert len(sim._mpcd["position"]) == 2 and len(sim._advance_graphs.pos_a) == 2
+    assert (sim._advance_graphs is None) == (case not in ("whole", "sharded"))
+    assert (sim._runner is not None) == (case in ("coupled", "whole", "sharded"))
+    if case in ("coupled", "sharded"):
         assert sim._graphs_apply() and sim._graph_totals["eager_segments"] >= 1
-    if case == "whole":
+    if case in ("whole", "sharded"):
         assert sim._advance_totals["replays"] >= 1
 
 
@@ -1117,7 +1135,7 @@ def test_coupled_segments_are_the_eager_loop(case):
     runner = graphs._runner
     assert runner is not None and eager._runner is None
     assert runner.replays >= 3 and runner.captures >= 1
-    assert runner.pos_a is not None and runner.pos_a.shape == (1200, 3)
+    assert runner.pos_a is not None and [p.shape for p in runner.pos_a] == [(1200, 3)]
     period = graphs.mpcd_dynamics.period
     leads = {k[2] for k in runner.graph_keys() if len(k) == 3}
     assert leads and leads <= set(range(1, period + 1))
@@ -1174,8 +1192,8 @@ def test_coupled_rollback_after_a_collision(which):
     runner = runs[True, True]._runner
     assert runner.replays >= 3
     anchor = runs[True, True]._mpcd["_srd_anchor"]
-    assert anchor[0][0].data_ptr() != runner.pos_a.data_ptr()
-    assert anchor[1][0].data_ptr() != runner.vel_a.data_ptr()
+    assert anchor[0][0].data_ptr() != runner.pos_a[0].data_ptr()
+    assert anchor[1][0].data_ptr() != runner.vel_a[0].data_ptr()
 
 
 def test_coupled_segment_makes_no_host_read():

@@ -1095,6 +1095,78 @@ def test_evaporator_pick_kernel_ties_as_the_plain_pick(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("k", ["1", "10", "n_marked", "slots"])
+def test_evaporator_pick_across_shards_bitwise(cuda_device, k, n):
+    """K4 at the pick over n shards of one card (one scan launch over every
+    shard, keys on global slots into one scratch; one select flipping each
+    shard's typeid through its table of pointers) flips what the plain
+    pick (``_flips`` over the shards, then ``& fire``) flips, bit for bit,
+    in two launches a pick: fired, with the flag set and unset."""
+    from azplugins_tpu_torch.parallel import make_mesh
+    from azplugins_tpu_torch.parallel.spatial import shard_dense
+
+    state, evap = _pick_state(cuda_device)
+    shards = shard_dense(state, make_mesh(n, device=cuda_device, sharded=True))
+    m = sum(int(evap._candidates(s).sum()) for s in shards)
+    slots = sum(s.N for s in shards)
+    assert 20 < m < slots
+    evap._k = {"1": 1, "10": 10, "n_marked": m, "slots": slots}[k]
+    for t in (0, 25, 2**32 + 25):
+        want = tuple(s.typeid.clone() for s in shards)
+        evap._pick_plain(want, shards, None, t, 3)
+        flipped = sum(int((w != s.typeid).sum()) for w, s in zip(want, shards))
+        assert flipped == min(evap._k, m)
+        for fire in (None, True, False):
+            got = tuple(s.typeid.clone() for s in shards)
+            before = XK.launches
+            flag = None if fire is None else torch.tensor(fire, device=cuda_device)
+            evap._pick(got, shards, flag, t, 3)
+            assert XK.launches == before + 2
+            for g, w, s in zip(got, want, shards):
+                assert torch.equal(g, s.typeid if fire is False else w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_captured_sharded_segments_are_eager_segments(cuda_device, n):
+    """The scheduled PLJ liquid (a Ramp kT, a TypeUpdater) with an
+    evaporator, on n shards of the card: its segments captured as CUDA
+    graphs (the updaters masked on every shard, the pick over every shard
+    in a replay) are bitwise the eager loop on the same shards, shard by
+    shard, with the same kernel launches."""
+    from azplugins_tpu_torch.parallel import make_mesh
+
+    runs = {}
+    for eager in (True, False):
+        sim = _graph_lj(cuda_device, eager, scheduled=True)
+        sim.operations.updaters.append(az.update.ParticleEvaporator(
+            trigger=az.trigger.Periodic(3), solvent_type="A", evaporated_type="B", lo=-2.0,
+            hi=3.0, N_evap_max=5))
+        sim.enable_spatial_decomposition(make_mesh(n, device=cuda_device, sharded=True))
+        sim.run(5)
+        before = (dict(IK.launches_by_kernel), PK.launches, XK.launches, sim.steps_run)
+        sim.run(60)
+        torch.cuda.synchronize()
+        launched = ({k: c - before[0].get(k, 0) for k, c in IK.launches_by_kernel.items()},
+                    PK.launches - before[1], XK.launches - before[2], sim.steps_run - before[3])
+        runs[eager] = (sim, launched)
+    (eager, e_launched), (graphs, g_launched) = runs[True], runs[False]
+    assert eager._runner is None and graphs._runner.captures >= 1
+    assert graphs._runner.replays >= 10 and len(graphs._runner.shards) == n
+    assert g_launched[:2] == e_launched[:2] and g_launched[3] == e_launched[3] >= 60
+    assert g_launched[1] == n * e_launched[3]  # K1 once a shard a step
+    assert g_launched[2] == 2 * g_launched[3] and e_launched[2] == 2 * 20  # a step / a fire
+    for g, e in zip(graphs._dense, eager._dense, strict=True):
+        for name in ("position", "velocity", "acceleration", "net_force", "tag", "image",
+                     "typeid"):
+            assert torch.equal(getattr(g, name), getattr(e, name)), name
+    for g, e in zip(graphs._meta, eager._meta, strict=True):
+        for name in ("ref_position", "overflow", "n_builds", "max_occ"):
+            assert torch.equal(getattr(g, name), getattr(e, name)), name
+
+
+@pytest.mark.cuda
 def test_evaporator_pick_kernel_refuses_what_it_does_not_take(cuda_device):
     state, evap = _pick_state(cuda_device, n_empty=10)
     before = XK.launches
