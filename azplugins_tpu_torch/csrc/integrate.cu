@@ -1,4 +1,4 @@
-// The step's integrator and its Verlet drift check: K6-K9.
+// The step's integrator and its Verlet drift check: K6-K9 and K11.
 //
 // No pallas_call is replaced: the reference leaves these pieces to XLA,
 // which fuses its jnp code into a few loops of the jitted step
@@ -31,7 +31,22 @@
 // threefry.cuh) times sqrt(6 gamma kT / dt), minus gamma (v - u) with u the
 // flow velocity where one is given, then a' = (F + F_BD) / m; and
 // v' = v + (dt/2) a'. Without noise the random force is +0 and the
-// operations stay the same.
+// operations stay the same. Its acceleration-only instance
+// (az_step2_accel, BrownianFlow.step2; reference md/methods.py:282-289):
+// a' = F / m, v neither read nor written.
+//
+// K11 az_brownian_step_drift_check (BrownianFlow.step1 with a drift check,
+// the last method's on a grid path; reference azplugins_tpu/md/methods.py:
+// 262-280, plugin TwoStepBrownianFlow.h:103-182, then needs_rebin): the
+// per-type gamma by the clamped type_id, the noise's coefficient
+// sqrt(6 gamma kT / dt) (+0 when noiseless or dt <= 0), K4's three uniforms
+// in [-1, 1) on (stream, seed, timestep, tag), x' = x + (u + (F + c U) /
+// gamma) dt with u the flow velocity (a +0 flow without one, as the plain
+// version adds zeros_like), then K6 on x'. Without noise the plain version
+// still multiplies the 0 coefficient by U, so the random force is -0 where
+// U < 0; the kernel draws and multiplies alike. az_brownian_step is K11
+// without the check (an earlier method of several, a layout without a
+// grid).
 //
 // K9 az_no_squish (md/rotation.py and Method._rot_step1, _rot_step2,
 // LangevinFlow._rot_step2_langevin; reference azplugins_tpu/md/rotation.py:
@@ -65,8 +80,12 @@
 // a slot, the old acceleration (12 B) on a masked one and force, mass and
 // type (20 B) on a moving one; K9 in mode
 // 0 68 B a slot (tag, q and p in and out) and inertia and torque (24 B) on
-// an acting one. A slot does a few dozen float operations (K8 and K9 add
-// two Threefry hashes, K9 ten libm calls in mode 0). At the paths' 2e4-2e5
+// an acting one; K11 28 B a slot (tag, x in and out), the reference
+// position (12 B) on an occupied one and force and type (16 B) on a moving
+// one, ~56 B a slot: K7+K6's bytes without the velocity's 24, with the
+// type and the two Threefry hashes that K8 already overlaps with its
+// loads. A slot does a few dozen float operations (K8, K9 and K11 add two
+// Threefry hashes, K9 ten libm calls in mode 0). At the paths' 2e4-2e5
 // slots that is 1-4 us of bytes, so a launch's own cost and the round
 // trips to memory that follow one another in a thread are what is left.
 // What the designs do about it:
@@ -102,7 +121,7 @@
 //   and the rest after the draw, so no global load waits on the type.
 //   kStep2Threads = 128 makes 648 blocks at the headline, 4.9 an SM, so
 //   the SMs' shares differ by one block at most (256 made 2.5 an SM).
-// - K7+K6 is K6 with a prologue (drift_kernel<STEP1>): the slice's
+// - K7+K6 is K6 with a prologue (drift_kernel<kVerlet>): the slice's
 //   velocities and accelerations staged with its positions, every load
 //   issued first, each thread's half step in shared memory, the drift
 //   taken from x' there, x' and v' written back coalesced. From the
@@ -111,12 +130,21 @@
 //   two). So a grid path's step makes one launch and one pass where K7
 //   then K6 made two, and K7's serial chain (the tag, then the
 //   acceleration under the mask, three strided loads a field) is gone.
-// - K7 alone (the earlier methods of several, a layout without a grid) and
-//   K9 take one thread a slot, the mask, the gamma lookup, the keys and the
-//   noise in registers.
-// - K8 and K9 key their draws on the host's timestep word, or on a clock on
-//   the card (Noise::clock, az::step_word: one more load before the hash),
-//   so that a CUDA graph of a rebuild segment draws anew at each replay.
+// - K11 is K6 with BrownianFlow's step as its prologue
+//   (drift_kernel<kBrownian>), so that Brownian dynamics makes one launch
+//   where K4, ~19 PyTorch operations and K6 made ~21 (a standalone draw's
+//   work at the paths' slot counts is less than a launch's own cost):
+//   the slice's forces (and flow velocities) staged with its positions,
+//   every load issued first, the draw on the tag while they fly, the gamma
+//   table in shared memory as K8 stages it, x' written back coalesced.
+//   From the squared drift on it is K6: its scratch and its two results.
+// - K7 alone (the earlier methods of several, a layout without a grid), K11
+//   alone (the same) and K9 take one thread a slot, the mask, the gamma
+//   lookup, the keys and the noise in registers.
+// - K8, K9 and K11 key their draws on the host's timestep word, or on a
+//   clock on the card (Noise::clock, az::step_word: one more load before
+//   the hash), so that a CUDA graph of a rebuild segment draws anew at each
+//   replay; K11 takes kT in the host form or the device form as K8 does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -144,6 +172,60 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 // torch.clamp_min: NaN stays NaN
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return (isnan(x) || x > lo) ? x : lo;
+}
+
+// ---------------------------------------------------------------------------
+// The draws of K8, K9 and K11
+// ---------------------------------------------------------------------------
+// The three uniforms of K4 for one tag: lanes 0 (both words) and 1 (the first)
+__device__ __forceinline__ void uniform3(uint32_t k0, uint32_t k1, int tag, float width, float low,
+                                         float u[3]) {
+  const uint2 w0 = az::threefry2x32<kRounds>(k0, k1, (uint32_t)tag, 0u);
+  const uint2 w1 = az::threefry2x32<kRounds>(k0, k1, (uint32_t)tag, 1u);
+  u[0] = az::uniform_from_bits(w0.x, width, low);
+  u[1] = az::uniform_from_bits(w0.y, width, low);
+  u[2] = az::uniform_from_bits(w1.x, width, low);
+}
+
+// The Langevin noise's scale: sqrt(6.0 * g * kT / dt), dt's division a
+// product with its float32 reciprocal
+__device__ __forceinline__ float noise_scale(float g, float kT, float inv_dt) {
+  return __fsqrt_rn(mul(mul(mul(g, 6.0f), kT), inv_dt));
+}
+
+struct Noise {
+  const float* table;  // [T] gamma by type, or null (no Langevin force)
+  int n_types;
+  int noisy;           // 0: the random force is +0 (K11: its coefficient, so +-0)
+  uint32_t k0, k1;     // the stream's key (core/rng.py::_key_words)
+  const long long* clock;  // null, or the card's timestep: k1 = clock + offset
+  int offset;              // (az::step_word), so a CUDA graph's replays draw anew
+  float width, low;    // the uniforms' float32 width and low end
+  float kT;            // float32 kT (the host-kT form)
+  const float* kT_dev;  // null, or kT on the card (the device-kT form)
+  float inv_dt;        // float32 1/dt
+};
+
+// kT as az::step_word takes the timestep: the host's float32, or with a
+// device pointer (a 0-d float32 on the card: a run's schedule of a variant
+// kT) the value it holds, so a CUDA graph reads each replay's kT. The same
+// bits either way: the noise's scale takes the loaded value as it is.
+__device__ __forceinline__ float kT_of(const Noise& nz) {
+  return nz.kT_dev != nullptr ? __ldg(nz.kT_dev) : nz.kT;
+}
+
+__device__ __forceinline__ float gamma_of(const Noise& nz, const int* type_id, int i) {
+  const int t = min(max(__ldg(type_id + i), 0), nz.n_types - 1);
+  return __ldg(nz.table + t);
+}
+
+// BrownianFlow's x' = x + (u + (F + c r) / g) dt of one component: the flow
+// velocity u (+0 without a flow: the plain version adds a zeros_like flow),
+// the force F, the noise's scale c (+0 when noiseless) times the uniform r,
+// the slot's gamma g
+__device__ __forceinline__ float brownian_x(float x, float u, float f, float c, float r, float g,
+                                            float dt) {
+  return add(x, mul(add(u, __fdiv_rn(add(f, mul(c, r)), g)), dt));
 }
 
 // ---------------------------------------------------------------------------
@@ -215,74 +297,136 @@ __device__ __forceinline__ void drift_result(Top2 t, float buffer, bool viol, bo
   }
 }
 
+// What a drift_kernel instance does before its drift check: nothing (K6),
+// K7's half step (K7+K6) or BrownianFlow's step (K11)
+enum Prologue { kCheckOnly, kVerlet, kBrownian };
+
+// The prologue's inputs and outputs: the filter's bool (SEL); K7's v, a,
+// dt / 2 and dt, x' and v' out; K11's type, force, flow velocity (FLOW),
+// noise and dt, x' out
+struct Step {
+  const bool* sel;
+  const float* vel;
+  const float* acc;
+  const int* type_id;
+  const float* force;
+  const float* flow;
+  float half_dt, dt;
+  Noise nz;
+  float* pos_out;
+  float* vel_out;
+};
+
 // The squared drift of each slot, a slot a thread. A block stages a slice
 // of kDriftThreads slots' positions (a grid stride over the slices past
 // kDriftMaxBlocks blocks), reduces it, writes its partial and takes a
 // ticket; the last ticket merges the partials.
 //
-// STEP1 (az_step1_drift_check): K7's drift half step first, in the same
+// kVerlet (az_step1_drift_check): K7's drift half step first, in the same
 // pass. The slice's velocities and accelerations are staged with the
 // positions; each thread forms its slot's v' = v + (dt/2) a and x' = x +
 // dt v' (a masked slot keeps its bits; SEL: a filter's bool masks too),
 // takes the drift from x' in shared memory, and the block writes x' and v'
 // back through the staging by coalesced stores.
-template <bool STEP1, bool SEL>
+//
+// kBrownian (az_brownian_step_drift_check, K11): BrownianFlow's step
+// first. The slice's forces (and flow velocities, FLOW) are staged with
+// the positions; each thread draws its slot's three uniforms (K4's, on the
+// tag and the key alone, while the loads fly), looks its gamma up in the
+// table staged in shared memory (its first kDriftThreads types loaded
+// before the first slice's fields, the rest after the draw), forms x'
+// (brownian_x; a masked slot keeps its bits), takes the drift from it and
+// writes x' back coalesced.
+template <int PRO, bool SEL, bool FLOW>
 __global__ void __launch_bounds__(kDriftThreads)
     drift_kernel(const float* __restrict__ pos, const float* __restrict__ ref,
-                 const int* __restrict__ tag, const bool* __restrict__ sel,
-                 const float* __restrict__ vel, const float* __restrict__ acc, int n,
-                 float half_dt, float dt, float buffer, const bool* __restrict__ viol_in,
-                 bool* __restrict__ viol_out, float* __restrict__ top2_out,
-                 float* __restrict__ pos_out, float* __restrict__ vel_out, uint2* partials,
-                 unsigned int* counter) {
+                 const int* __restrict__ tag, int n, float buffer,
+                 const bool* __restrict__ viol_in, bool* __restrict__ viol_out,
+                 float* __restrict__ top2_out, Step st, uint2* partials, unsigned int* counter) {
   constexpr int B = kDriftThreads;
-  constexpr int S = STEP1 ? 3 * B : 1;
-  __shared__ float s_pos[3 * B], s_ref[3 * B], s_vel[S], s_acc[S];
+  constexpr bool BROWNIAN = PRO == kBrownian;
+  // K7: v and a; K11: F and the flow velocity
+  constexpr int SA = PRO == kCheckOnly ? 1 : 3 * B;
+  constexpr int SB = PRO == kVerlet || (BROWNIAN && FLOW) ? 3 * B : 1;
+  __shared__ float s_pos[3 * B], s_ref[3 * B], s_a[SA], s_b[SB];
+  extern __shared__ float s_gamma[];  // K11: the [n_types] gamma table
   const int t = threadIdx.x;
   // the flag the verdict ORs, read now: only the last block needs it
   const bool viol = top2_out == nullptr && t == 0 && *viol_in;
+  // K11's launch-wide values, issued before the first slice's loads: the
+  // table's first B types (one a thread), kT and the key's timestep word
+  const Noise& nz = st.nz;
+  float g0 = 0.0f, kT = 0.0f;
+  uint32_t k1 = 0u;
+  if constexpr (BROWNIAN) {
+    g0 = t < nz.n_types ? __ldg(nz.table + t) : 0.0f;
+    kT = nz.noisy ? kT_of(nz) : 0.0f;
+    k1 = az::step_word(nz.k1, nz.clock, nz.offset);
+  }
   Top2 top{0u, 0u};
   const int slices = (n + B - 1) / B;
   for (int slice = blockIdx.x; slice < slices; slice += gridDim.x) {
     const int i0 = slice * B, i = i0 + t, nf = 3 * min(B, n - i0);
     const long long f0 = 3LL * i0;
     const int tg = i < n ? __ldg(tag + i) : -1;
-    const bool chosen = !SEL || (i < n && sel[i]);
-    float xp[3], xr[3], xv[3], xa[3];
+    const bool chosen = !SEL || (i < n && st.sel[i]);
+    const int ty = BROWNIAN && i < n ? __ldg(st.type_id + i) : 0;
+    float xp[3], xr[3], xa[3], xb[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const int f = t + j * B;
       const bool ok = f < nf;
       xp[j] = ok ? __ldg(pos + f0 + f) : 0.0f;
       xr[j] = ok ? __ldg(ref + f0 + f) : 0.0f;
-      if constexpr (STEP1) {
-        xv[j] = ok ? __ldg(vel + f0 + f) : 0.0f;
-        xa[j] = ok ? __ldg(acc + f0 + f) : 0.0f;
+      if constexpr (PRO == kVerlet) {
+        xa[j] = ok ? __ldg(st.vel + f0 + f) : 0.0f;
+        xb[j] = ok ? __ldg(st.acc + f0 + f) : 0.0f;
+      }
+      if constexpr (BROWNIAN) {
+        xa[j] = ok ? __ldg(st.force + f0 + f) : 0.0f;
+        xb[j] = FLOW && ok ? __ldg(st.flow + f0 + f) : 0.0f;
       }
     }
+    // K11's draw needs only the tag and the key: it runs while the loads fly
+    float u[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (BROWNIAN) uniform3(nz.k0, k1, tg, nz.width, nz.low, u);
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       s_pos[t + j * B] = xp[j];
       s_ref[t + j * B] = xr[j];
-      if constexpr (STEP1) {
-        s_vel[t + j * B] = xv[j];
-        s_acc[t + j * B] = xa[j];
+      if constexpr (SA > 1) s_a[t + j * B] = xa[j];
+      if constexpr (SB > 1) s_b[t + j * B] = xb[j];
+    }
+    if constexpr (BROWNIAN) {
+      if (slice == (int)blockIdx.x) {  // the table, once: a loop after the draw
+        if (t < nz.n_types) s_gamma[t] = g0;
+        for (int k = t + B; k < nz.n_types; k += B) s_gamma[k] = __ldg(nz.table + k);
       }
     }
     __syncthreads();
     const int l = 3 * t;
     const bool moves = tg >= 0 && chosen;
+    float g = 0.0f, c = 0.0f;
+    if constexpr (BROWNIAN) {
+      g = s_gamma[min(max(ty, 0), nz.n_types - 1)];
+      c = nz.noisy ? noise_scale(g, kT, nz.inv_dt) : 0.0f;
+    }
     float d[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       float x = s_pos[l + k];
-      if constexpr (STEP1) {
-        const float v = s_vel[l + k];
-        const float vh = add(v, mul(half_dt, s_acc[l + k]));
-        const float xn = add(x, mul(dt, vh));
+      if constexpr (PRO == kVerlet) {
+        const float v = s_a[l + k];
+        const float vh = add(v, mul(st.half_dt, s_b[l + k]));
+        const float xn = add(x, mul(st.dt, vh));
         x = moves ? xn : x;
         s_pos[l + k] = x;
-        s_vel[l + k] = moves ? vh : v;
+        s_a[l + k] = moves ? vh : v;
+      }
+      if constexpr (BROWNIAN) {
+        const float xn = brownian_x(x, FLOW ? s_b[l + k] : 0.0f, s_a[l + k], c, u[k], g, st.dt);
+        x = moves ? xn : x;
+        s_pos[l + k] = x;
       }
       d[k] = sub(x, s_ref[l + k]);
     }
@@ -291,13 +435,13 @@ __global__ void __launch_bounds__(kDriftThreads)
     // past n a slot holds none
     top = merge(top, Top2{key_of(i < n ? (tg >= 0 ? dsq : 0.0f) : -INFINITY), 0u});
     __syncthreads();  // the write-back, or the next slice, reads the staging
-    if constexpr (STEP1) {
+    if constexpr (PRO != kCheckOnly) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         const int f = t + j * B;
         if (f < nf) {
-          pos_out[f0 + f] = s_pos[f];
-          vel_out[f0 + f] = s_vel[f];
+          st.pos_out[f0 + f] = s_pos[f];
+          if constexpr (PRO == kVerlet) st.vel_out[f0 + f] = s_a[f];
         }
       }
       __syncthreads();  // the next slice reuses the staging
@@ -377,53 +521,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The three uniforms of K4 for one tag: lanes 0 (both words) and 1 (the first)
-__device__ __forceinline__ void uniform3(uint32_t k0, uint32_t k1, int tag, float width, float low,
-                                         float u[3]) {
-  const uint2 w0 = az::threefry2x32<kRounds>(k0, k1, (uint32_t)tag, 0u);
-  const uint2 w1 = az::threefry2x32<kRounds>(k0, k1, (uint32_t)tag, 1u);
-  u[0] = az::uniform_from_bits(w0.x, width, low);
-  u[1] = az::uniform_from_bits(w0.y, width, low);
-  u[2] = az::uniform_from_bits(w1.x, width, low);
-}
-
-// The Langevin noise's scale: sqrt(6.0 * g * kT / dt), dt's division a
-// product with its float32 reciprocal
-__device__ __forceinline__ float noise_scale(float g, float kT, float inv_dt) {
-  return __fsqrt_rn(mul(mul(mul(g, 6.0f), kT), inv_dt));
-}
-
-struct Noise {
-  const float* table;  // [T] gamma by type, or null (no Langevin force)
-  int n_types;
-  int noisy;           // 0: the random force is +0
-  uint32_t k0, k1;     // the stream's key (core/rng.py::_key_words)
-  const long long* clock;  // null, or the card's timestep: k1 = clock + offset
-  int offset;              // (az::step_word), so a CUDA graph's replays draw anew
-  float width, low;    // the uniforms' float32 width and low end
-  float kT;            // float32 kT (the host-kT form)
-  const float* kT_dev;  // null, or kT on the card (the device-kT form)
-  float inv_dt;        // float32 1/dt
-};
-
-// kT as az::step_word takes the timestep: the host's float32, or with a
-// device pointer (a 0-d float32 on the card: a run's schedule of a variant
-// kT) the value it holds, so a CUDA graph reads each replay's kT. The same
-// bits either way: the noise's scale takes the loaded value as it is.
-__device__ __forceinline__ float kT_of(const Noise& nz) {
-  return nz.kT_dev != nullptr ? __ldg(nz.kT_dev) : nz.kT;
-}
-
-__device__ __forceinline__ float gamma_of(const Noise& nz, const int* type_id, int i) {
-  const int t = min(max(__ldg(type_id + i), 0), nz.n_types - 1);
-  return __ldg(nz.table + t);
-}
-
-enum Step2Mode { kNVE, kNoiseless, kNoisy };
+enum Step2Mode { kNVE, kNoiseless, kNoisy, kAccel };
 
 // K8: a slot a thread, every load issued at the top. MODE kNVE: a' = F / m;
-// else the Langevin force (kNoisy: with its draw), the drag relative to
-// the flow velocity where FLOW; SEL: the filter's bool masks too.
+// kNoiseless, kNoisy: the Langevin force (kNoisy: with its draw), the drag
+// relative to the flow velocity where FLOW; kAccel (BrownianFlow.step2):
+// a' = F / m with v neither read nor written. SEL: the filter's bool masks
+// too.
 template <int MODE, bool FLOW, bool SEL>
 __global__ void __launch_bounds__(kStep2Threads)
     step2_kernel(const int* __restrict__ tag, const bool* __restrict__ sel,
@@ -432,10 +536,12 @@ __global__ void __launch_bounds__(kStep2Threads)
                  const float* __restrict__ mass, const float* __restrict__ flow, int n,
                  float half_dt, Noise nz, float* __restrict__ v_out, float* __restrict__ a_out) {
   constexpr int B = kStep2Threads;
-  constexpr bool LANGEVIN = MODE != kNVE;
+  constexpr bool LANGEVIN = MODE == kNoiseless || MODE == kNoisy;
+  constexpr bool KICK = MODE != kAccel;
+  constexpr int SV = KICK ? 3 * B : 1;
   // the block's [n, 3] slices: v, the old a, force (, flow); then v', a'
-  __shared__ float s_v[3 * B], s_a[3 * B], s_f[3 * B], s_u[FLOW ? 3 * B : 1];
-  __shared__ float s_vo[3 * B], s_ao[3 * B];
+  __shared__ float s_v[SV], s_a[3 * B], s_f[3 * B], s_u[FLOW ? 3 * B : 1];
+  __shared__ float s_vo[SV], s_ao[3 * B];
   extern __shared__ float s_gamma[];  // Langevin: the [n_types] gamma table
   const int t = threadIdx.x, i0 = blockIdx.x * B, i = i0 + t;
   const bool in = i < n;
@@ -450,7 +556,7 @@ __global__ void __launch_bounds__(kStep2Threads)
   for (int j = 0; j < 3; ++j) {
     const int f = t + j * B;
     const bool ok = f < nf;
-    xv[j] = ok ? __ldg(v + f0 + f) : 0.0f;
+    xv[j] = KICK && ok ? __ldg(v + f0 + f) : 0.0f;
     xa[j] = ok ? __ldg(a + f0 + f) : 0.0f;
     xf[j] = ok ? __ldg(force + f0 + f) : 0.0f;
     xu[j] = FLOW && ok ? __ldg(flow + f0 + f) : 0.0f;
@@ -465,7 +571,7 @@ __global__ void __launch_bounds__(kStep2Threads)
   }
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    s_v[t + j * B] = xv[j];
+    if constexpr (KICK) s_v[t + j * B] = xv[j];
     s_a[t + j * B] = xa[j];
     s_f[t + j * B] = xf[j];
     if constexpr (FLOW) s_u[t + j * B] = xu[j];
@@ -497,14 +603,14 @@ __global__ void __launch_bounds__(kStep2Threads)
     }
     const float acc = __fdiv_rn(f, m);
     s_ao[l] = moves ? acc : s_a[l];
-    s_vo[l] = moves ? add(s_v[l], mul(half_dt, acc)) : s_v[l];
+    if constexpr (KICK) s_vo[l] = moves ? add(s_v[l], mul(half_dt, acc)) : s_v[l];
   }
   __syncthreads();
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int f = t + j * B;
     if (f < nf) {
-      v_out[f0 + f] = s_vo[f];
+      if constexpr (KICK) v_out[f0 + f] = s_vo[f];
       a_out[f0 + f] = s_ao[f];
     }
   }
@@ -515,6 +621,33 @@ using Step2Kernel = decltype(&step2_kernel<kNVE, false, false>);
 template <int MODE, bool FLOW>
 Step2Kernel step2_instance(bool sel) {
   return sel ? step2_kernel<MODE, FLOW, true> : step2_kernel<MODE, FLOW, false>;
+}
+
+// ---------------------------------------------------------------------------
+// K11 alone: BrownianFlow's step without the drift check
+// ---------------------------------------------------------------------------
+// A slot a thread, as K7 alone: the mask, the gamma lookup, the draw and
+// x' (brownian_x) in registers; flow null: no flow field.
+__global__ void __launch_bounds__(kThreads)
+    brownian_kernel(const int* __restrict__ tag, const bool* __restrict__ sel,
+                    const int* __restrict__ type_id, const float* __restrict__ x,
+                    const float* __restrict__ force, const float* __restrict__ flow, int n,
+                    float dt, Noise nz, float* __restrict__ x_out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int tg = __ldg(tag + i);
+  const bool m = tg >= 0 && (sel == nullptr || sel[i]);
+  const float g = gamma_of(nz, type_id, i);
+  float u[3];
+  uniform3(nz.k0, az::step_word(nz.k1, nz.clock, nz.offset), tg, nz.width, nz.low, u);
+  const float c = nz.noisy ? noise_scale(g, kT_of(nz), nz.inv_dt) : 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int f = 3 * i + k;
+    const float xo = x[f];
+    x_out[f] = m ? brownian_x(xo, flow != nullptr ? flow[f] : 0.0f, force[f], c, u[k], g, dt)
+                 : xo;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -705,10 +838,10 @@ extern "C" {
 // Each entry point launches its kernel on `stream` and returns the CUDA
 // error (0 = launched). n > 0: the wrapper launches nothing for no slots.
 // Pointers are device pointers but for the gamma table's none (null);
-// `sel` is a filter's bool [n] or null (All()); K8's and K9's `clock` is
-// null (the key's timestep word is k1) or a device int64 (the word is then
-// (uint32)(*clock + offset)); their `kT_dev` is null (kT is the float `kT`)
-// or a device float32 (kT is the value it holds).
+// `sel` is a filter's bool [n] or null (All()); K8's, K9's and K11's
+// `clock` is null (the key's timestep word is k1) or a device int64 (the
+// word is then (uint32)(*clock + offset)); their `kT_dev` is null (kT is
+// the float `kT`) or a device float32 (kT is the value it holds).
 
 // K6. values null: the drift of pos [n, 3] from ref [n, 3] on tag [n];
 // else n values (squared drifts, -inf or NaN: the shards' top twos).
@@ -727,9 +860,9 @@ int az_drift_check(const float* pos, const float* ref, const int* tag, const flo
     return (int)launched();
   }
   if (reinterpret_cast<uintptr_t>(partials) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  drift_kernel<false, false><<<drift_blocks(n), kDriftThreads, 0, s>>>(
-      pos, ref, tag, nullptr, nullptr, nullptr, n, 0.0f, 0.0f, buffer, viol_in, viol_out,
-      top2_out, nullptr, nullptr, reinterpret_cast<uint2*>(partials), counter);
+  drift_kernel<kCheckOnly, false, false><<<drift_blocks(n), kDriftThreads, 0, s>>>(
+      pos, ref, tag, n, buffer, viol_in, viol_out, top2_out, Step{},
+      reinterpret_cast<uint2*>(partials), counter);
   return (int)launched();
 }
 
@@ -747,10 +880,73 @@ int az_step1_drift_check(const int* tag, const bool* sel, const float* x, const 
   if (n <= 0 || (top2_out == nullptr && (viol_in == nullptr || viol_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(partials) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  const auto kernel = sel != nullptr ? drift_kernel<true, true> : drift_kernel<true, false>;
+  const auto kernel = sel != nullptr ? drift_kernel<kVerlet, true, false>
+                                      : drift_kernel<kVerlet, false, false>;
+  Step st{};
+  st.sel = sel;
+  st.vel = v;
+  st.acc = a;
+  st.half_dt = half_dt;
+  st.dt = dt;
+  st.pos_out = x_out;
+  st.vel_out = v_out;
   kernel<<<drift_blocks(n), kDriftThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, ref, tag, sel, v, a, n, half_dt, dt, buffer, viol_in, viol_out, top2_out, x_out, v_out,
+      x, ref, tag, n, buffer, viol_in, viol_out, top2_out, st,
       reinterpret_cast<uint2*>(partials), counter);
+  return (int)launched();
+}
+
+// K11 and K6 in one launch: x_out [n, 3] as az_brownian_step writes it,
+// then the drift of x_out from ref [n, 3] as az_drift_check takes it, with
+// its result, scratch and error contract; gamma holds 1 to kStep2MaxTypes
+// types.
+int az_brownian_step_drift_check(const int* tag, const bool* sel, const int* type_id,
+                                 const float* x, const float* force, const float* flow,
+                                 const float* ref, int n, float dt, float buffer,
+                                 const float* gamma, int n_types, int noisy, uint32_t k0,
+                                 uint32_t k1, const long long* clock, int offset, float width,
+                                 float low, float kT, const float* kT_dev, float inv_dt,
+                                 const bool* viol_in, bool* viol_out, float* top2_out,
+                                 float* x_out, float2* partials, unsigned int* counter,
+                                 void* stream) {
+  if (n <= 0 || (top2_out == nullptr && (viol_in == nullptr || viol_out == nullptr)) ||
+      gamma == nullptr || n_types <= 0 || n_types > kStep2MaxTypes)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(partials) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const bool s = sel != nullptr, u = flow != nullptr;
+  const auto kernel = s ? (u ? drift_kernel<kBrownian, true, true>
+                             : drift_kernel<kBrownian, true, false>)
+                        : (u ? drift_kernel<kBrownian, false, true>
+                             : drift_kernel<kBrownian, false, false>);
+  Step st{};
+  st.sel = sel;
+  st.type_id = type_id;
+  st.force = force;
+  st.flow = flow;
+  st.dt = dt;
+  st.nz = Noise{gamma, n_types, noisy, k0, k1, clock, offset, width, low, kT, kT_dev, inv_dt};
+  st.pos_out = x_out;
+  kernel<<<drift_blocks(n), kDriftThreads, sizeof(float) * n_types,
+           static_cast<cudaStream_t>(stream)>>>(x, ref, tag, n, buffer, viol_in, viol_out,
+                                                top2_out, st, reinterpret_cast<uint2*>(partials),
+                                                counter);
+  return (int)launched();
+}
+
+// K11 alone: x_out [n, 3], BrownianFlow's step of x [n, 3] under the force
+// [n, 3] and the flow velocity flow [n, 3] (or null), gamma [n_types] by
+// the clamped type_id, the uniforms drawn under the key (k0, k1) or the
+// clock; noisy 0: the noise's coefficient is +0. dt = float32(dt), inv_dt
+// = float32(1 / dt).
+int az_brownian_step(const int* tag, const bool* sel, const int* type_id, const float* x,
+                     const float* force, const float* flow, int n, float dt, const float* gamma,
+                     int n_types, int noisy, uint32_t k0, uint32_t k1, const long long* clock,
+                     int offset, float width, float low, float kT, const float* kT_dev,
+                     float inv_dt, float* x_out, void* stream) {
+  if (n <= 0 || gamma == nullptr || n_types <= 0) return (int)cudaErrorInvalidValue;
+  const Noise nz{gamma, n_types, noisy, k0, k1, clock, offset, width, low, kT, kT_dev, inv_dt};
+  brownian_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tag, sel, type_id, x, force, flow, n, dt, nz, x_out);
   return (int)launched();
 }
 
@@ -784,6 +980,18 @@ int az_step2(const int* tag, const bool* sel, const int* type_id, const float* v
   kernel<<<(n + kStep2Threads - 1) / kStep2Threads, kStep2Threads, table_bytes,
            static_cast<cudaStream_t>(stream)>>>(tag, sel, type_id, v, a, force, mass, flow, n,
                                                 half_dt, nz, v_out, a_out);
+  return (int)launched();
+}
+
+// K8's acceleration-only instance (BrownianFlow.step2): a_out [n, 3], F / m
+// where the slot acts, the old acceleration a elsewhere.
+int az_step2_accel(const int* tag, const bool* sel, const float* a, const float* force,
+                   const float* mass, int n, float* a_out, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const Step2Kernel kernel = step2_instance<kAccel, false>(sel != nullptr);
+  kernel<<<(n + kStep2Threads - 1) / kStep2Threads, kStep2Threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(tag, sel, nullptr, nullptr, a, force, mass,
+                                                nullptr, n, 0.0f, Noise{}, nullptr, a_out);
   return (int)launched();
 }
 

@@ -26,18 +26,19 @@ Dispatch: on CUDA tensors ``step1`` and ``step2`` launch the kernels of
 :mod:`azplugins_tpu_torch.ops.integrate_kernel` (K7 the drift half, or
 with a drift check K7 and K6 in one launch; K8 the kick half with the
 Langevin force and its draw inside; K9 the NO_SQUISH rotation after
-either); on CPU tensors they run their plain versions (``_step1_plain``,
-then the plain drift check of ``ops/dense.py``; ``_step2_plain``), which
-the kernels are held to bitwise on the card; any other device raises.
-Nothing falls back. BrownianFlow's steps stay plain PyTorch on both
-devices (its draw is K4; its drift check K6).
+either; BrownianFlow's step1 K11, its draw inside, alone or with the drift
+check in one launch, and its step2 K8's acceleration-only instance); on
+CPU tensors they run their plain versions (``_step1_plain``, then the plain
+drift check of ``ops/dense.py``; ``_step2_plain``; BrownianFlow's
+``_step1_brownian``), which the kernels are held to bitwise on the card;
+any other device raises. Nothing falls back.
 
 kT is a variant read at the step (``core/variant.py::value_at``, its host
 form): a host float on the eager loop and outside a run (K8's and K9's
 host-kT form, a launch argument); inside a CUDA graph a 0-d float32
 tensor on the card from the chunk's schedule, which K8 and K9 read
-through a pointer (their device-kT form, bitwise the host form) and the
-plain versions (and BrownianFlow's operations) multiply by as a tensor.
+through a pointer (their device-kT form, bitwise the host form), K11 too,
+and the plain versions multiply by as a tensor.
 """
 
 from __future__ import annotations
@@ -338,7 +339,9 @@ class BrownianFlow(_GammaMixin, Method):
 
     Single-step update r += (u(r) + (F + F_rand) / gamma) dt in step1
     (reference plugin: TwoStepBrownianFlow.h:103-182); step2 only mirrors
-    the net force into the acceleration, which the rebuild carries.
+    the net force into the acceleration, which the rebuild carries. On the
+    card step1 is K11 (with a drift check, K11 and K6 in one launch) and
+    step2 K8's acceleration-only instance; on the CPU their plain versions.
     """
 
     _rng_stream = _rng.Stream.BROWNIAN_FLOW
@@ -352,8 +355,23 @@ class BrownianFlow(_GammaMixin, Method):
         self._init_gamma(default_gamma)
 
     def step1(self, state, dt, timestep, seed, drift: DriftCheck | None = None):
-        state = self._step1_brownian(state, dt, timestep, seed)
-        return state if drift is None else (state, drift.of(state))
+        if not _rng._on_card(state.device):
+            state = self._step1_brownian(state, dt, timestep, seed)
+            return state if drift is None else (state, drift.of(state))
+        K = _kernels()
+        kT = value_at(self.kT, timestep, state.device, host_form=True)
+        noise = K.Noise(self._table_on("_gamma_table", state.device), self._rng_stream, seed,
+                        timestep, kT, not (self.noiseless or dt <= 0))
+        flow = None
+        if self.flow_field is not None:
+            flow = self.flow_field(state.box.wrap(state.position)[0])
+        args = (state.tag, self._selection(state), state.typeid, state.position,
+                state.net_force, dt, noise, flow)
+        if drift is None:
+            return state.replace(position=K.brownian_step(*args))
+        x, found = K.brownian_step_drift(*args, drift.meta.ref_position, drift.spec.buffer,
+                                         drift.viol)
+        return state.replace(position=x), found
 
     def _step1_brownian(self, state, dt, timestep, seed):
         gp = self._gamma_of(state)
@@ -372,6 +390,13 @@ class BrownianFlow(_GammaMixin, Method):
         return self._where(state, position=pos)
 
     def step2(self, state, dt, timestep, seed):
+        if not _rng._on_card(state.device):
+            return self._step2_plain(state, dt, timestep, seed)
+        a = _kernels().step2_accel(state.tag, self._selection(state), state.acceleration,
+                                   state.net_force, state.mass)
+        return state.replace(acceleration=a)
+
+    def _step2_plain(self, state, dt, timestep, seed):
         accel = state.net_force / state.mass[:, None]
         return self._where(state, acceleration=accel)
 

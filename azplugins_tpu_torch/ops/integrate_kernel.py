@@ -1,6 +1,6 @@
 """The step's integrator and Verlet drift check on the card: the CUDA kernels and their wrappers.
 
-``csrc/integrate.cu`` holds four kernels. None replaces a ``pallas_call``:
+``csrc/integrate.cu`` holds five kernels. None replaces a ``pallas_call``:
 they compute what the reference leaves to XLA, which fuses it into its
 step.
 
@@ -28,6 +28,16 @@ step.
   bit for bit. One instantiation for each of NVE, noiseless and noisy
   Langevin, with or without a flow field and a filter; every load issued
   first, the hashes while they fly, the gamma table in shared memory.
+  Its acceleration-only instance ``az_step2_accel``: :func:`step2_accel`,
+  ``BrownianFlow.step2`` (reference ``azplugins_tpu/md/methods.py:
+  282-289``), ``a' = F / m`` with ``v`` untouched.
+- K11 ``az_brownian_step_drift_check``: :func:`brownian_step_drift`,
+  ``BrownianFlow.step1`` with the drift check of its new positions in one
+  launch (reference ``azplugins_tpu/md/methods.py:262-280`` then
+  ``needs_rebin``): BrownianFlow's step as K6's prologue, its draw (K4's
+  uniforms, bit for bit) inside, then K6's reduction, scratch and results.
+  ``az_brownian_step``: :func:`brownian_step`, the step alone (an earlier
+  method of several, a layout without a grid).
 - K9 ``az_no_squish``: :func:`no_squish`, the NO_SQUISH rotation of
   ``Method._rot_step1`` (mode 0), ``_rot_step2`` (1) and
   ``LangevinFlow._rot_step2_langevin`` (2, its draw inside). Reference
@@ -46,8 +56,8 @@ method never writes the State it was given. Under
 :func:`~azplugins_tpu_torch.core.rng.device_clock` K8 and K9 read their
 draws' timestep word from the clock on the card; given kT as a 0-d tensor
 on the card (a run's schedule of a variant kT), they read it there too
-(:class:`Noise`), in the way they read the clock. An empty layout launches
-nothing.
+(:class:`Noise`), in the way they read the clock; K11 alike. An empty
+layout launches nothing.
 """
 
 from __future__ import annotations
@@ -65,12 +75,15 @@ from .rng_kernel import uniform_args
 
 __all__ = [
     "launches", "launches_by_kernel", "Noise", "step_args", "drift_check", "drift_top_two",
-    "needs_rebin_of", "step1", "step1_drift", "step2", "no_squish",
+    "needs_rebin_of", "step1", "step1_drift", "step2", "step2_accel", "brownian_step",
+    "brownian_step_drift", "no_squish",
 ]
 
 # kernel launches since import (or since a caller last reset them to 0):
 # in all, and by kernel ("drift_check" K6, "step1" K7, "step1_drift" K7
-# and K6 in one launch, "step2" K8, "no_squish" K9)
+# and K6 in one launch, "step2" K8 (its acceleration-only instance too),
+# "no_squish" K9, "brownian_step" K11 alone, "brownian_step_drift" K11 and
+# K6 in one launch)
 launches = 0
 launches_by_kernel: dict[str, int] = {}
 
@@ -89,8 +102,14 @@ def _library() -> ctypes.CDLL:
                                  f, p, p, p]
         lib.az_no_squish.argtypes = [i, p, p, p, p, p, p, p, i, f, f, p, i, i, u, u, p, i, f, f,
                                      f, p, f, p, p, p, p]
+        lib.az_step2_accel.argtypes = [p, p, p, p, p, i, p, p]
+        lib.az_brownian_step.argtypes = [p, p, p, p, p, p, i, f, p, i, i, u, u, p, i, f, f, f, p,
+                                         f, p, p]
+        lib.az_brownian_step_drift_check.argtypes = [p, p, p, p, p, p, p, i, f, f, p, i, i, u, u,
+                                                     p, i, f, f, f, p, f, p, p, p, p, p, p, p]
         lib.az_drift_max_blocks.argtypes = []
         for fn in (lib.az_drift_check, lib.az_step1, lib.az_step1_drift_check, lib.az_step2,
+                   lib.az_step2_accel, lib.az_brownian_step, lib.az_brownian_step_drift_check,
                    lib.az_no_squish, lib.az_drift_max_blocks):
             fn.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
@@ -135,9 +154,10 @@ def _select(sel: torch.Tensor | None, n: int, dev) -> torch.Tensor | None:
 
 
 class Noise(NamedTuple):
-    """A Langevin force's parameters: the ``[T]`` float32 gamma table on the
-    slots' device, the draw's stream, seed and timestep, kT and whether it
-    draws at all (``noisy``: not noiseless and dt > 0). kT is a Python
+    """A Langevin or Brownian force's parameters: the ``[T]`` float32 gamma
+    table on the slots' device, the draw's stream, seed and timestep, kT and
+    whether its noise acts (``noisy``: not noiseless and dt > 0; K11 draws
+    either way and scales the uniforms by +0 without it). kT is a Python
     float (the host-kT form: its float32 is a launch argument) or a 0-d
     float32 tensor on the slots' device (the device-kT form: the kernel
     reads it through a pointer, so a CUDA graph reads each replay's value;
@@ -292,13 +312,7 @@ def step1_drift(tag, sel, position, velocity, acceleration, dt: float, ref_posit
                    (acceleration, "acceleration"), (ref_position, "ref_position")))
     sel = _select(sel, n, dev)
     x_out, v_out = torch.empty_like(x), torch.empty_like(v)
-    if viol is None:
-        out = torch.empty((2,), dtype=torch.float32, device=dev)
-        viol_in, viol_out, top2 = None, None, out
-    else:
-        check_tensor(viol, "viol", torch.bool, (), dev)
-        out = torch.empty((), dtype=torch.bool, device=dev)
-        viol_in, viol_out, top2 = viol, out, None
+    out, viol_in, viol_out, top2 = _drift_result(viol, dev)
     partials, counter = _drift_scratch(dev)
     half, dt32, _ = step_args(dt)
     _launch("step1_drift", "az_step1_drift_check", dev, tag.data_ptr(), _ptr(sel), x.data_ptr(),
@@ -306,6 +320,18 @@ def step1_drift(tag, sel, position, velocity, acceleration, dt: float, ref_posit
             _ptr(viol_in), _ptr(viol_out), _ptr(top2), x_out.data_ptr(), v_out.data_ptr(),
             partials.data_ptr(), counter.data_ptr())
     return x_out, v_out, out
+
+
+def _drift_result(viol: torch.Tensor | None, dev) -> tuple:
+    """``(out, viol_in, viol_out, top2)``: the fused launches' result, the
+    0-d bool verdict ORed with ``viol`` or, with ``viol`` None, the ``[2]``
+    two largest squared drifts, and the pointers' tensors for it."""
+    if viol is None:
+        out = torch.empty((2,), dtype=torch.float32, device=dev)
+        return out, None, None, out
+    check_tensor(viol, "viol", torch.bool, (), dev)
+    out = torch.empty((), dtype=torch.bool, device=dev)
+    return out, viol, out, None
 
 
 def step2(tag, sel, typeid, velocity, acceleration, net_force, mass, dt: float,
@@ -332,6 +358,84 @@ def step2(tag, sel, typeid, velocity, acceleration, net_force, mass, dt: float,
                 step_args(dt)[0], *_noise_args(noise, dev, dt), v_out.data_ptr(),
                 a_out.data_ptr())
     return v_out, a_out
+
+
+def step2_accel(tag, sel, acceleration, net_force, mass) -> torch.Tensor:
+    """BrownianFlow's step2: the acceleration ``net_force / mass`` under the
+    mask ``tag >= 0`` (and ``sel``), the old acceleration elsewhere; K8's
+    acceleration-only instance."""
+    dev = _device(acceleration)
+    n = tag.numel()
+    tag = _checked(tag, "tag", torch.int32, (n,), dev)
+    a, f = (_checked(t, name, torch.float32, (n, 3), dev) for t, name in
+            ((acceleration, "acceleration"), (net_force, "net_force")))
+    mass = _checked(mass, "mass", torch.float32, (n,), dev)
+    sel = _select(sel, n, dev)
+    a_out = torch.empty_like(a)
+    if n:
+        _launch("step2", "az_step2_accel", dev, tag.data_ptr(), _ptr(sel), a.data_ptr(),
+                f.data_ptr(), mass.data_ptr(), n, a_out.data_ptr())
+    return a_out
+
+
+# -- K11 ---------------------------------------------------------------------
+def _brownian_inputs(tag, sel, typeid, position, net_force, noise: Noise, flow) -> tuple:
+    """The checked inputs of K11: ``(dev, n, tag, sel, typeid, x, F, flow)``,
+    the flow velocity expanded to ``[n, 3]`` (or None)."""
+    if noise is None:
+        raise ValueError("BrownianFlow's step needs its Noise (the gamma table and the draw)")
+    dev = _device(position)
+    n = tag.numel()
+    tag = _checked(tag, "tag", torch.int32, (n,), dev)
+    typeid = _checked(typeid, "typeid", torch.int32, (n,), dev)
+    x, f = (_checked(t, name, torch.float32, (n, 3), dev) for t, name in
+            ((position, "position"), (net_force, "net_force")))
+    if flow is not None:
+        if flow.dtype != torch.float32:
+            raise TypeError(f"the flow velocity has dtype {flow.dtype}, expected torch.float32")
+        flow = _checked(flow.expand(n, 3), "flow", torch.float32, (n, 3), dev)
+    return dev, n, tag, _select(sel, n, dev), typeid, x, f, flow
+
+
+def brownian_step(tag, sel, typeid, position, net_force, dt: float, noise: Noise,
+                  flow: torch.Tensor | None = None) -> torch.Tensor:
+    """BrownianFlow's step1: the positions ``x + (u + (F + c U) / gamma) dt``
+    under the mask ``tag >= 0`` (and ``sel``), with gamma the table of
+    ``noise`` by the clamped ``typeid``, ``c = sqrt(6 gamma kT / dt)`` (+0
+    without noise), U K4's three uniforms in [-1, 1) and u the flow velocity
+    ``flow`` [n, 3] (+0 where None)."""
+    dev, n, tag, sel, typeid, x, f, flow = _brownian_inputs(tag, sel, typeid, position,
+                                                            net_force, noise, flow)
+    x_out = torch.empty_like(x)
+    if n:
+        _launch("brownian_step", "az_brownian_step", dev, tag.data_ptr(), _ptr(sel),
+                typeid.data_ptr(), x.data_ptr(), f.data_ptr(), _ptr(flow), n,
+                step_args(dt)[1], *_noise_args(noise, dev, dt), x_out.data_ptr())
+    return x_out
+
+
+def brownian_step_drift(tag, sel, typeid, position, net_force, dt: float, noise: Noise,
+                        flow, ref_position, buffer: float,
+                        viol: torch.Tensor | None = None) -> tuple:
+    """K11: :func:`brownian_step` and the drift check of its positions from
+    ``ref_position`` in one launch, ``(position, result)``: ``result`` is
+    the 0-d bool ``viol | needs_rebin`` (as :func:`drift_check`) or, with
+    ``viol`` None, the ``[2]`` two largest squared drifts (as
+    :func:`drift_top_two`)."""
+    dev, n, tag, sel, typeid, x, f, flow = _brownian_inputs(tag, sel, typeid, position,
+                                                            net_force, noise, flow)
+    if n == 0:
+        raise ValueError("the drift check needs at least one slot")
+    r = _checked(ref_position, "ref_position", torch.float32, (n, 3), dev)
+    x_out = torch.empty_like(x)
+    out, viol_in, viol_out, top2 = _drift_result(viol, dev)
+    partials, counter = _drift_scratch(dev)
+    _launch("brownian_step_drift", "az_brownian_step_drift_check", dev, tag.data_ptr(),
+            _ptr(sel), typeid.data_ptr(), x.data_ptr(), f.data_ptr(), _ptr(flow), r.data_ptr(), n,
+            step_args(dt)[1], float(np.float32(buffer)), *_noise_args(noise, dev, dt),
+            _ptr(viol_in), _ptr(viol_out), _ptr(top2), x_out.data_ptr(), partials.data_ptr(),
+            counter.data_ptr())
+    return x_out, out
 
 
 # -- K9 ----------------------------------------------------------------------

@@ -34,8 +34,8 @@
    virtual fill's normals under a second key in the same launch) within
    1 ulp of its plain version at the three MPCD paths' collision grids, its
    maximum printed, bitwise the plain normalisation of its own normals (the
-   card's torch.sum order over 3) and bitwise two single draws;
-   runs BrownianFlow through the public API; times K4 at the headline's
+   card's torch.sum order over 3) and bitwise two single draws; times K4
+   at the headline's
    slots and K5 at each grid against their plain versions and bounds;
    [cellsum] holds the SRD collision's cell sums (K10, csrc/cell_sums.cu:
    each cell's rows added in ascending row order) bitwise against the plain
@@ -60,7 +60,23 @@
    their captures and replays; a path that qualifies must replay):
    - the 64k perturbed-LJ Langevin headline (the JAX package's bench
      headline, BASELINE config 1), then [integrate] on its state (below),
-     then [profile] 20 of its steps under Simulation.profile: the trace's
+     then [brownian]: K11 (csrc/integrate.cu: BrownianFlow's step with its
+     draw and the drift check in one launch; alone without the check) and
+     K8's acceleration-only instance bitwise their plain versions on the
+     headline's 82,944 slots (Brownian, BrownianFlow in a ConstantFlow and
+     a ParabolicFlow, a Type filter, noiseless; the verdict with the flag
+     clear and set, the top two, 4 cuts' top twos; the clock form at
+     CLOCK_STEPS, kT in the device form at DEVICE_KTS); the headline's
+     64,000 particles under Brownian(kT=1.0, default_gamma=1.0) at dt 1e-4
+     through the public API on the CUDA graphs: free diffusion (no forces,
+     1,000 steps) whose unwrapped mean-square displacement must lie within
+     2% of 6 (kT / gamma) t, and the interacting system (PLJ on the cell
+     grid) in turns eager, graph, graph, eager, bitwise, replaying, K4
+     never launched, with [profile] on 20 of its steps (integrate_step1
+     and integrate_step2 one device operation a step each); K11 timed
+     queued and in a replay against its plain version, the launches it
+     replaces as one replayed graph and its bound;
+     then [profile] 20 of the headline's steps under Simulation.profile: the trace's
      phase ranges counted (one of each step phase a step, rebin once a
      build) and the device operations and device-busy ms a step split by
      phase, with the host's us an operation (ms/step over operations a
@@ -181,9 +197,10 @@
    every step of the timed steps went through the integrator kernels
    exactly (K8 once a step a method a shard; step1 once a step a method a
    shard, the last method's on a grid path as K7+K6 in one launch, the
-   others and those of a path without a grid as K7; K6 alone once a step
-   for the verdict on shards; K9 twice a step a method with rotation;
-   Langevin's draw inside K8 and K9), that every other random draw did too (the
+   others and those of a path without a grid as K7, BrownianFlow's as K11
+   likewise; K6 alone once a step for the verdict on shards; K9 twice a
+   step a method with rotation; Langevin's draw inside K8 and K9,
+   Brownian's inside K11), that every other random draw did too (the
    evaporator's pick through K4 at the pick at least once a fire: once a
    step under the graphs, where it runs masked, on shards through K4;
    thermalize once a setup; the MPCD collision's K5 exactly once a
@@ -215,7 +232,8 @@
    kernel's ms against its plain ms and its bound (K6-K8 at the
    headline's slots, K8 with the droplet's flow, K9 at the patchy
    colloids'; K7, K6 and K7+K6 on all three states, K7+K6 beside K7 + K6);
-7. prints the kernel summary and, last, the contract line
+7. prints the kernel summary (K11 among the kernels, with and without the
+   check) and, last, the contract line
    {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without the result lines.
@@ -358,8 +376,27 @@ INTEGRATE_REPLACES = {
     "no_squish": ("azplugins_tpu/md/rotation.py:89-146 (angmom_kick, free_rotation; "
                   "md/methods.py:94, 106, 194), XLA-fused, no pallas_call"),
 }
-# K9's bar in ulp against its plain version (K6-K8 are held bitwise)
+INTEGRATE_REPLACES["brownian_step"] = (
+    "azplugins_tpu/md/methods.py:262 (BrownianFlow.step1), XLA-fused, no pallas_call")
+INTEGRATE_REPLACES["brownian_step_drift"] = (
+    "azplugins_tpu/md/methods.py:262 (BrownianFlow.step1) then azplugins_tpu/ops/dense.py:666 "
+    "(needs_rebin), one step body (azplugins_tpu/simulation.py:641-652), XLA-fused, no "
+    "pallas_call")
+# K9's bar in ulp against its plain version (K6-K8 and K11 are held bitwise)
 NO_SQUISH_ULP = 0
+# [brownian]: BASELINE config 1's system (64,000 PLJ particles, the
+# headline's lattice, r_cut and buffer) under Brownian(kT=1.0,
+# default_gamma=1.0) at BROWNIAN_DT on the segment CUDA graphs: warm-up
+# past the tune and turns (eager, graph, graph, eager) of these steps; the
+# same particles with no forces diffuse for BROWNIAN_FREE_STEPS (after as
+# many to warm the segment cache), their unwrapped mean-square
+# displacement within BROWNIAN_MSD_BAND (relative) of 6 (kT / gamma) t (the
+# statistical error of 64,000 particles is ~0.3%)
+BROWNIAN_DT = 1e-4
+BROWNIAN_WARM = 300
+BROWNIAN_TURN_STEPS = 300
+BROWNIAN_FREE_STEPS = 1000
+BROWNIAN_MSD_BAND = 0.02
 # [cellsum]: the collision's cell sums (K10) held bitwise to the plain
 # ordered sum at the MPCD paths' shapes: pure SRD (64^3 rows and cells),
 # the colloids' (163,840 solvent and 21^3 cells of 8 dense slots, 2,744 of
@@ -392,10 +429,14 @@ DEVICE_KTS = (0.3, 1.0, 1.2345678)
 # for the noise scale + 9 for the uniforms (a flow field 1 more a
 # component); K9 mode 0 the kick (rotate_inv 27, the product 16, the add
 # 8) and five axis rotations (the dot 11, 4 for the angle, cos and sin, 16
-# for q and p) and the norm (12); K6 8 a slot; K7+K6 K7's 12 and K6's 8.
+# for q and p) and the norm (12); K6 8 a slot; K7+K6 K7's 12 and K6's 8;
+# K11 4 for the noise scale, 9 for the uniforms and 6 a component (the
+# random force, + F, / gamma, + u, * dt, + x), with the check K6's 8 more;
+# K8's acceleration-only instance 1 a component.
 INTEGRATE_F32_OPS = {"drift_check": 8, "step1": 12, "step1_drift": 20, "step2[nve]": 9,
                      "step2[noiseless]": 27, "step2": 40, "no_squish[step1]": 233,
-                     "no_squish[langevin]": 140}
+                     "no_squish[langevin]": 140, "brownian_step": 31,
+                     "brownian_step_drift": 39, "step2[accel]": 3}
 
 # The least time the card could take for a kernel's work, for the bound:
 # H100 SXM HBM3 at 3.35 TB/s, and its float32 rate outside the tensor cores,
@@ -1450,19 +1491,6 @@ def check_rng(az, RK):
         raise AssertionError(f"jax_normal_axis kernel: {ulp_max} ulp from its plain version "
                              f"(bar {NORMAL_ULP})")
     record_err = {"particle_bits": 0.0, "jax_normal_axis": err_max}
-    # BrownianFlow.step1, which no path below runs, through the public API
-    snap = _lattice_snapshot(az, (16, 16, 16), 0.5, 0.1, 3)
-    sim = az.Simulation(device="cuda", seed=5)
-    sim.create_state_from_snapshot(snap)
-    sim.operations.integrator = az.md.Integrator(
-        dt=0.001, methods=[az.md.methods.BrownianFlow(kT=1.0, default_gamma=1.0)], forces=[])
-    RK.launches_by_kernel.clear()
-    sim.run(20)
-    brownian = RK.launches_by_kernel.get("particle_bits", 0)
-    _check_wrapped(sim, "brownian")
-    if brownian < 20:
-        raise AssertionError(f"BrownianFlow: {brownian} random-draw kernel launches in 20 steps")
-    del sim
     print(f"[rng] threefry (13 and 20 rounds) and Langevin noise: GPU == CPU bitwise; K4 "
           f"(particle_bits, particle_uniform3) bitwise its plain version in {cases} cases "
           f"({', '.join(map(str, RNG_TAGS))} tags, -1 and 2**31 - 1 among them; 1-8 words; "
@@ -1471,8 +1499,7 @@ def check_rng(az, RK):
           f"{', '.join(f'{k} {v}' for k, v in NORMAL_SHAPES.items())} and (1001, 3): max "
           f"{ulp_max} ulp from its plain version ({differ} values differ; bar {NORMAL_ULP}), "
           f"max |diff| {err_max:.3e}, the axes bitwise the plain normalisation of its own "
-          f"normals, the two-key form two single draws; BrownianFlow (4,096 "
-          f"particles): {brownian} K4 launches in 20 steps", flush=True)
+          f"normals, the two-key form two single draws", flush=True)
 
     # times at the headline's slots (K4) and the MPCD grids (K5), with bounds
     timing = {}
@@ -2242,6 +2269,287 @@ def _host_us(fn, reps: int = 50) -> float:
 
 
 # ---------------------------------------------------------------------------
+# [brownian]: K11 and Brownian dynamics at the headline's size
+# ---------------------------------------------------------------------------
+def build_brownian(az, device, forces=True):
+    """BASELINE config 1's system under Brownian dynamics: the headline's
+    64,000 particles and PLJ force (r_cut 3.0, buffer 0.4, on the cell
+    grid), integrated by Brownian(kT=1.0, default_gamma=1.0) at dt
+    BROWNIAN_DT; with ``forces`` False the same particles with no force (and
+    so no grid)."""
+    sim, lj = build_headline(az, device)
+    lj = lj if forces else []
+    sim.operations.integrator = az.md.Integrator(
+        dt=BROWNIAN_DT, methods=[az.md.methods.Brownian(kT=1.0, default_gamma=1.0)], forces=lj)
+    return sim, lj
+
+
+def _attached_as(m, sim, particle_types):
+    """``m`` attached as a simulation of ``particle_types`` on ``sim``'s
+    device and integrator would attach it."""
+    m._attach(types.SimpleNamespace(_particle_types=list(particle_types), device=sim.device,
+                                    operations=sim.operations))
+    return m
+
+
+def _brownian_cases(az, D, K, sim):
+    """K11 and K8's acceleration-only instance against their plain versions
+    on the card on ``sim``'s state (the headline's slots after its run),
+    bitwise: Brownian; BrownianFlow in a ConstantFlow and in a
+    ParabolicFlow; Brownian under a Type filter (the state's particles
+    given two types, gamma 1.9 for the second); a noiseless one. Each case's
+    step1 alone (K11 alone), with the drift check (K11: the verdict with the
+    flag clear and set, the top two, and 4 cuts' top twos as a shard's), at
+    the state's timestep and past 2**32, in the clock form at CLOCK_STEPS,
+    kT in the host and the device forms at DEVICE_KTS; and each case's step2
+    (K8's acceleration-only instance). Returns the number of cases."""
+    IK, Ls = K.IK, az.md.methods
+    DriftCheck = Ls.DriftCheck
+    dense, meta, spec = sim._dense, sim._meta, sim._grid_spec
+    dev, n = dense.device, dense.N
+    dt, seed = BROWNIAN_DT, sim.seed
+    two = dense.replace(typeid=torch.where(dense.tag >= 0, dense.tag % 2, -1).to(torch.int32))
+    filtered = Ls.Brownian(kT=1.0, filter=az.md.filter.Type(["B"]))
+    filtered.gamma["B"] = 1.9
+    filtered = _attached_as(filtered, sim, ("A", "B"))
+    L = dense.box.Lx
+    cases = {
+        "brownian": (_attached_as(Ls.Brownian(kT=1.0), sim, ("A",)), dense),
+        "constant_flow": (_attached_as(Ls.BrownianFlow(
+            kT=1.0, flow_field=az.flow.ConstantFlow((0.4, -0.2, 0.1))), sim, ("A",)), dense),
+        "parabolic_flow": (_attached_as(Ls.BrownianFlow(
+            kT=1.0, flow_field=az.flow.ParabolicFlow(0.5, L - 2.0)), sim, ("A",)), dense),
+        "type_filter": (filtered, two),
+        "noiseless": (_attached_as(Ls.Brownian(kT=1.0, noiseless=True), sim, ("A",)), dense),
+    }
+    cuts = torch.tensor_split(torch.arange(n, device=dev), 4)
+    fields = ("position", "tag", "typeid", "net_force", "acceleration", "mass")
+    count = 0
+    for name, (m, st) in cases.items():
+        for t in (sim.timestep, 2**32 + 9):
+            what = f"brownian {name} at {t}"
+            want = m._step1_brownian(st, dt, t, seed)
+            _kernel_bits(f"{what}: K11 alone", m.step1(st, dt, t, seed).position, want.position)
+            for viol0 in (False, True):
+                viol = torch.tensor(viol0, device=dev)
+                got, verdict = m.step1(st, dt, t, seed, DriftCheck(meta, spec, viol))
+                _kernel_bits(f"{what} viol={viol0}: K11", got.position, want.position)
+                _kernel_bits(f"{what} viol={viol0}: the verdict", verdict,
+                             viol | D._needs_rebin_plain(want, meta, spec))
+            got, top = m.step1(st, dt, t, seed, DriftCheck(meta, spec, None))
+            _kernel_bits(f"{what}: the top two", top, D._drift_top_two_plain(want, meta))
+            for c in cuts:
+                cut = st.replace(**{k: getattr(st, k)[c] for k in fields})
+                cm = types.SimpleNamespace(ref_position=meta.ref_position[c])
+                got, top = m.step1(cut, dt, t, seed, DriftCheck(cm, spec, None))
+                _kernel_bits(f"{what}: a cut", got.position, want.position[c])
+                _kernel_bits(f"{what}: a cut's top two", top, D._drift_top_two_plain(
+                    types.SimpleNamespace(position=want.position[c], tag=st.tag[c]), cm))
+            count += 5
+        for t in CLOCK_STEPS:
+            clock = torch.tensor(t - 3, dtype=torch.int64, device=dev)
+            want = m._step1_brownian(st, dt, t, seed)
+            with az.core.rng.device_clock(clock, 1000):
+                got, top = m.step1(st, dt, 1003, seed, DriftCheck(meta, spec, None))
+            _kernel_bits(f"brownian {name}: the clock form at {t}", got.position, want.position)
+            _kernel_bits(f"brownian {name}: the clock form's top two at {t}", top,
+                         D._drift_top_two_plain(want, meta))
+            count += 1
+        flow = None if m.flow_field is None else m.flow_field(st.box.wrap(st.position)[0])
+        for kT in DEVICE_KTS:
+            got = []
+            for form in (kT, _on_card(kT, dev)):
+                noise = IK.Noise(m._table_on("_gamma_table", dev), m._rng_stream, seed,
+                                 sim.timestep, form, not m.noiseless)
+                got.append(IK.brownian_step_drift(st.tag, m._selection(st), st.typeid,
+                                                  st.position, st.net_force, dt, noise, flow,
+                                                  meta.ref_position, spec.buffer, None))
+            for a, b in zip(*got, strict=True):
+                _kernel_bits(f"brownian {name}: the device-kT form at kT {kT}", a, b)
+            count += 1
+        _kernel_bits(f"brownian {name}: K8's acceleration-only instance",
+                     m.step2(st, dt, sim.timestep, seed).acceleration,
+                     m._step2_plain(st, dt, sim.timestep, seed).acceleration)
+        count += 1
+    return count
+
+
+def _unwrapped(sim):
+    """The particles' unwrapped positions, float64, from ``get_snapshot()``:
+    the wrapped positions plus the images times the box edges."""
+    p = sim.state.get_snapshot().particles
+    L = np.asarray(sim.state.box.L, dtype=np.float64)
+    return p.position.astype(np.float64) + p.image.astype(np.float64) * L
+
+
+def run_brownian(az, D, K, card, record, headline):
+    """[brownian]: Brownian dynamics at the headline's size through the
+    public API, and K11 against its plain version. ``_brownian_cases`` on
+    the headline's state after its run; free diffusion of the headline's
+    64,000 particles with no forces (on the CUDA graphs, no grid: K11
+    alone), timed after as many steps to warm the segment cache, the
+    unwrapped mean-square displacement over the timed steps within
+    BROWNIAN_MSD_BAND of 6 (kT / gamma) t; the interacting path (``build_brownian``) built
+    three times, warmed past the tune, then turns (eager, graph, graph,
+    eager) of BROWNIAN_TURN_STEPS, the second eager run keeping pace: graph
+    == eager == eager bit for bit after the warm-up and after turns 2 and 4,
+    launch counts exact every turn (K11 with the check once a step, K8's
+    acceleration-only instance once a step, K1 once a force evaluation, K4
+    never), replays; ms/step both ways, captures, replays and rebuilds,
+    device operations and busy ms a step; [profile] on 20 of its steps
+    (integrate_step1 and integrate_step2 one device operation a step each);
+    K11 timed queued and in a replay against its plain version, against the
+    launches it replaces (the parent's composition: the plain step with its
+    draw through K4, then K6, as one replayed graph) and its bound; K11 alone
+    and K8's acceleration-only instance likewise. Returns ({kernel:
+    launches}, {name: (ms, plain_ms, (bound_ms, bound_by))})."""
+    t0 = time.perf_counter()
+    IK = K.IK
+    cases = _brownian_cases(az, D, K, headline)
+    for name in ("brownian_step", "brownian_step_drift"):
+        record(name, 0.0)
+    launched = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+
+    # free diffusion: no forces, no grid, K11 alone on the graphs, timed
+    # after as many steps again (the segment cache warm)
+    free, _ = build_brownian(az, "cuda", forces=False)
+    free.run(BROWNIAN_FREE_STEPS)
+    x0, t_0 = _unwrapped(free), free.timestep
+    totals0 = dict(free._graph_totals)
+    _reset_counts(K)
+    free_ms, _ = _timed_run(free, BROWNIAN_FREE_STEPS)
+    free_graphs = {k: free._graph_totals.get(k, 0) - totals0.get(k, 0)
+                   for k in ("captures", "replays", "eager_segments")}
+    add(_integrator_launches(K, "brownian free", BROWNIAN_FREE_STEPS, 1, grid=False,
+                             brownian=True))
+    add(_draws(K, "brownian free", {"particle_bits": 0}, exact=True))
+    if free_graphs["replays"] < 1:
+        raise AssertionError(f"brownian free: no segment replayed ({free_graphs})")
+    x1 = _unwrapped(free)
+    elapsed = (free.timestep - t_0) * BROWNIAN_DT
+    msd = float(np.mean(np.sum((x1 - x0) ** 2, axis=1)))
+    want_msd = 6.0 * (1.0 / 1.0) * elapsed
+    if not (np.isfinite(x1).all() and abs(msd / want_msd - 1.0) <= BROWNIAN_MSD_BAND):
+        raise AssertionError(f"brownian free: MSD {msd:.6f} after {elapsed:g} against "
+                             f"6 (kT / gamma) t = {want_msd:.6f} (band {BROWNIAN_MSD_BAND})")
+    del free
+
+    # the interacting path: eager, eager (keeping pace) and the graphs
+    sims = {}
+    for name in ("eager", "eager2", "graph"):
+        sim, forces = build_brownian(az, "cuda")
+        sim._eager = name != "graph"
+        sims[name] = sim
+    E, E2, G = sims["eager"], sims["eager2"], sims["graph"]
+    for sim in (E, E2, G):
+        sim.run(BROWNIAN_WARM)
+    diffs = [(_graph_diff(E, E2), _graph_diff(G, E))]
+    ms = {"eager": [], "graph": []}
+    turns = {"captures": 0, "replays": 0, "eager_segments": 0}
+    builds0 = G.n_builds
+    for k, name in enumerate(("eager", "graph", "graph", "eager")):
+        m, _, counted, drawn = _graph_turn(K, sims[name], "brownian", forces,
+                                           steps=BROWNIAN_TURN_STEPS)
+        add(_draws(K, f"brownian {name} turn {k}", {"particle_bits": 0}, exact=True))
+        add(drawn)
+        ms[name].append(m)
+        if name == "eager":
+            E2.run(BROWNIAN_TURN_STEPS)
+        else:
+            turns = {c: turns[c] + counted[c] for c in turns}
+        if k in (1, 3):
+            diffs.append((_graph_diff(E, E2), _graph_diff(G, E)))
+    rebuilds = G.n_builds - builds0
+    for when, ((ee, ee_diff), (ge, ge_diff)) in zip(("warm-up", "turns 1-2", "turns 3-4"), diffs):
+        if not (ee and ge):
+            raise AssertionError(f"brownian: after the {when}: eager/eager "
+                                 f"{'bitwise' if ee else ee_diff}, graph/eager "
+                                 f"{'bitwise' if ge else ge_diff}")
+    if turns["replays"] < GRAPH_LEAST_REPLAYS:
+        raise AssertionError(f"brownian: {turns['replays']} replays in the graph turns")
+    _check_wrapped(G, "brownian")
+    g_ops, g_busy, _, g_syncs = _profile(G)
+    e_ops, e_busy, _, _ = _profile(E)
+    del E, E2
+    per_step = run_profile(G, "brownian", PROFILE_STEPS, card)
+
+    # K11 (with the check and alone) and K8's acceleration-only instance at
+    # the headline's slots: queued, in a replay, the plain versions, the
+    # launches K11 replaces in one replayed graph, the bounds
+    dense, meta, spec = headline._dense, headline._meta, headline._grid_spec
+    dt, t, seed = BROWNIAN_DT, headline.timestep, headline.seed
+    m = _attached_as(az.md.methods.Brownian(kT=1.0, default_gamma=1.0), headline, ("A",))
+    viol = torch.tensor(False, device=dense.device)
+    check = az.md.methods.DriftCheck(meta, spec, viol)
+    n, n_act = dense.N, int((dense.tag >= 0).sum())
+    ops = INTEGRATE_F32_OPS
+
+    def parent():
+        return D.needs_rebin(m._step1_brownian(dense, dt, t, seed), meta, spec, viol)
+
+    timed = {
+        "brownian_step_drift": (
+            lambda: m.step1(dense, dt, t, seed, check),
+            lambda: viol | D._needs_rebin_plain(m._step1_brownian(dense, dt, t, seed), meta,
+                                                spec),
+            _integrate_bound(28 * n + 28 * n_act, n_act, ops["brownian_step_drift"], hashes=2)),
+        "brownian_step": (
+            lambda: m.step1(dense, dt, t, seed), lambda: m._step1_brownian(dense, dt, t, seed),
+            _integrate_bound(28 * n + 16 * n_act, n_act, ops["brownian_step"], hashes=2)),
+        "step2[accel]": (
+            lambda: m.step2(dense, dt, t, seed), lambda: m._step2_plain(dense, dt, t, seed),
+            _integrate_bound(16 * n + 16 * n_act + 12 * (n - n_act), n_act,
+                             ops["step2[accel]"])),
+    }
+    timing, lines = {}, []
+    for name, (kernel, plain, bound) in timed.items():
+        ms_q = _cuda_time_ms(kernel, 50)
+        ms_r = _replay_time_ms(kernel, 50)
+        plain_ms = _cuda_time_ms(plain, 5)
+        timing[name] = (ms_q, plain_ms, bound)
+        lines.append(f"{name} {ms_q:.4f} ms queued, {ms_r:.4f} in a replay (plain {plain_ms:.4f}),"
+                     f" bound {bound[0]:.5f} ms ({bound[1]}), {ms_q / bound[0]:.1f}x "
+                     f"({ms_r / bound[0]:.1f}x in a replay)")
+    replaced_q, replaced_r = _cuda_time_ms(parent, 50), _replay_time_ms(parent, 50)
+    lines.append(f"the launches K11 replaces (the plain step, its draw through K4, then K6; "
+                 f"{_graph_nodes(parent)} graph nodes against K11's "
+                 f"{_graph_nodes(timed['brownian_step_drift'][0])}) {replaced_q:.4f} ms queued, "
+                 f"{replaced_r:.4f} in one replayed graph")
+    print(f"[brownian] K11 and K8's acceleration-only instance bitwise their plain versions on "
+          f"the headline's {n:,} slots ({n_act:,} particles) in {cases} cases (Brownian, "
+          f"BrownianFlow in a ConstantFlow and a ParabolicFlow, a Type filter, noiseless; K11 "
+          f"alone, with the drift check's verdict (flag clear and set), its top two and 4 "
+          f"cuts' top twos; timesteps {headline.timestep} and 2**32 + 9, the clock form at "
+          f"{', '.join(map(str, CLOCK_STEPS))}, kT in the device form at "
+          f"{', '.join(map(str, DEVICE_KTS))}); {'; '.join(lines)}", flush=True)
+    print(f"[brownian] free diffusion of 64,000 particles (no forces, dt {BROWNIAN_DT:g}): "
+          f"{BROWNIAN_FREE_STEPS} steps at {free_ms:.4f} ms/step on {card}; CUDA graphs "
+          f"{free_graphs}; MSD {msd:.6f} after t = {elapsed:g} against 6 (kT / gamma) t = "
+          f"{want_msd:.6f}: {msd / want_msd - 1.0:+.4%} (band {BROWNIAN_MSD_BAND:.0%}); "
+          f"K4 (particle_bits) 0 launches, K11 alone {BROWNIAN_FREE_STEPS}", flush=True)
+    print(f"[brownian] interacting (N={G.state.N_particles}, cap {G._grid_spec.cap}, rebuild "
+          f"interval {G._seg_len}): ms/step eager {' / '.join(f'{x:.4f}' for x in ms['eager'])},"
+          f" graph {' / '.join(f'{x:.4f}' for x in ms['graph'])} (turns of "
+          f"{BROWNIAN_TURN_STEPS}: eager, graph, graph, eager); graph turns: "
+          f"{turns['captures']} captures, {turns['replays']} replays, "
+          f"{turns['eager_segments']} first segments run eagerly, {rebuilds} rebuilds; device "
+          f"operations and busy ms a step (20 steps profiled): graph {g_ops:.1f} / "
+          f"{g_busy:.4f} ({g_syncs:.2f} synchronising calls a step), eager {e_ops:.1f} / "
+          f"{e_busy:.4f}; graph == eager == eager bit for bit after the warm-up and turns 2 "
+          f"and 4; launch counts exact every turn, K4 (particle_bits) 0 launches; "
+          f"integrate_step1 {per_step['integrate_step1']:.1f} and integrate_step2 "
+          f"{per_step['integrate_step2']:.1f} device operations a step; the phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del G, sims
+    torch.cuda.empty_cache()
+    return launched, timing
+
+
+# ---------------------------------------------------------------------------
 # Main paths
 # ---------------------------------------------------------------------------
 def _reset_counts(K):
@@ -2272,25 +2580,40 @@ def _draws(K, label, least, exact=False):
     return got
 
 
-def _integrator_launches(K, label, steps, n_methods, shards=1, grid=True, rotational=False):
-    """K6-K9's launches since the counts were set to 0, each exactly what
-    ``steps`` steps (replays counted) of ``n_methods`` methods on ``shards``
-    shards launch: step1 and step2 once a step a method a shard, the last
-    method's step1 on a grid path as K7+K6 in one launch ("step1_drift",
-    the verdict on a whole layout, each shard's top two on shards) and the
-    others as K7 ("step1"); the drift check alone (K6) once a step for the
-    verdict on shards, never on a whole layout; the rotation twice a step a
-    method a shard. Returns {name: launches}."""
+def _integrator_launches(K, label, steps, n_methods, shards=1, grid=True, rotational=False,
+                         brownian=False):
+    """K6-K9's and K11's launches since the counts were set to 0, each
+    exactly what ``steps`` steps (replays counted) of ``n_methods`` methods
+    on ``shards`` shards launch: step1 and step2 once a step a method a
+    shard, the last method's step1 on a grid path as K7+K6 in one launch
+    ("step1_drift", the verdict on a whole layout, each shard's top two on
+    shards) and the others as K7 ("step1"), or for ``brownian`` methods
+    (BrownianFlow's) as K11 with the check ("brownian_step_drift") and K11
+    alone ("brownian_step"), their step2 K8's acceleration-only instance
+    ("step2"); the drift check alone (K6) once a step for the verdict on
+    shards, never on a whole layout; the rotation twice a step a method a
+    shard (none for BrownianFlow, which moves no orientation). Returns
+    {name: launches}."""
     fused = steps * shards if grid and n_methods else 0
-    want = {"step1": steps * n_methods * shards - fused, "step1_drift": fused,
-            "step2": steps * n_methods * shards,
-            "drift_check": steps if grid and shards > 1 else 0,
-            "no_squish": 2 * steps * n_methods * shards if rotational else 0}
+    alone, checked = ("brownian_step", "brownian_step_drift") if brownian else (
+        "step1", "step1_drift")
+    want = {"step1": 0, "step1_drift": 0, "brownian_step": 0, "brownian_step_drift": 0}
+    want.update({alone: steps * n_methods * shards - fused, checked: fused,
+                 "step2": steps * n_methods * shards,
+                 "drift_check": steps if grid and shards > 1 else 0,
+                 "no_squish": 2 * steps * n_methods * shards if rotational and not brownian
+                 else 0})
     got = {name: K.IK.launches_by_kernel.get(name, 0) for name in want}
     if got != want:
         raise AssertionError(f"{label}: integrator kernel launches {got}, {want} expected "
                              f"({steps} steps, {n_methods} methods, {shards} shards)")
     return got
+
+
+def _brownian(integ) -> bool:
+    """Whether the integrator's methods are BrownianFlow's (K11 their step1)."""
+    return bool(integ.methods) and all(
+        type(m).__name__ in ("Brownian", "BrownianFlow") for m in integ.methods)
 
 
 def _timed_run(sim, steps):
@@ -2537,7 +2860,8 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
     stepped = sim.steps_run - steps0
     integrated = _integrator_launches(K, label, stepped, len(integ.methods),
                                       grid=sim._grid_spec is not None,
-                                      rotational=integ.integrate_rotational_dof)
+                                      rotational=integ.integrate_rotational_dof,
+                                      brownian=_brownian(integ))
     if sum(launched.values()) != pair_evals or min(launched.values()) < steps:
         raise AssertionError(f"{label}: kernel launches {launched} for {pair_evals} pair-force "
                              f"evaluations in {steps} steps")
@@ -4094,7 +4418,10 @@ def run_profile(sim, label, steps, card, collisions=0):
     host work between launches is not split). On the headline each of
     ``integrate_step1``, ``verlet_drift_check`` and ``integrate_step2`` must
     issue at most 2 device operations a step (K7+K6, the drift check's
-    none on a whole layout, K8)."""
+    none on a whole layout, K8); on the Brownian path ``integrate_step1``
+    and ``integrate_step2`` exactly 1 each (K11 with the check; K8's
+    acceleration-only instance). Returns the device operations a range of
+    each phase that ran ({phase: operations a range})."""
     sim._eager = True  # the eager loop's ms/step, as the profile runs it
     try:
         ms_step = _timed_run(sim, steps)[0]
@@ -4125,17 +4452,25 @@ def run_profile(sim, label, steps, card, collisions=0):
     split = "; ".join(f"{p} {ops[p] / steps:.1f} ops {busy[p] / 1000.0 / steps:.4f} ms"
                       for p in (*PHASES, "outside") if ops[p] or ranges[p])
     per_step = sum(ops.values()) / steps
+    per_range = {p: ops[p] / ranges[p] for p in PHASES if ranges[p]}
     if label == "headline":
         over = {p: ops[p] / steps for p in ("integrate_step1", "verlet_drift_check",
                                              "integrate_step2") if ops[p] > 2 * steps}
         if over:
             raise AssertionError(f"profile: headline: device operations a step {over}, at most 2 "
                                  f"each expected")
+    if label == "brownian":
+        got = {p: per_range[p] for p in ("integrate_step1", "integrate_step2")}
+        if got != {"integrate_step1": 1.0, "integrate_step2": 1.0}:
+            raise AssertionError(f"profile: brownian: device operations a step {got}, 1 each "
+                                 f"expected (K11 with the check; K8's acceleration-only "
+                                 f"instance)")
     print(f"[profile] {label}: {steps} steps under sim.profile on {card}: ranges "
           f"{dict(ranges)}; device operations and device-busy ms a step by phase: {split}; "
           f"in all {per_step:.1f} ops {sum(busy.values()) / 1000.0 / steps:.4f} ms; "
           f"{ms_step:.4f} ms/step just before (unprofiled, eager): "
           f"{1000.0 * ms_step / per_step:.1f} host us an operation (not traced)", flush=True)
+    return per_range
 
 
 # ---------------------------------------------------------------------------
@@ -4215,7 +4550,9 @@ def _graph_turn(K, sim, label, forces, steps=GRAPH_STEPS, shards=1):
     integ = sim.operations.integrator
     drawn.update(_integrator_launches(K, f"graph {label}", sim.steps_run - steps0,
                                       len(integ.methods), shards=shards,
-                                      rotational=integ.integrate_rotational_dof))
+                                      grid=sim._grid_spec is not None,
+                                      rotational=integ.integrate_rotational_dof,
+                                      brownian=_brownian(integ)))
     n_pair = sum(1 for f in forces if f._needs_nlist)
     pair_evals = (sim.force_evaluations - evals0) * n_pair // len(forces)
     launched = K.PK.launches + K.DK.launches + K.AK.launches
@@ -4756,6 +5093,8 @@ def main() -> int:
     headline = count(run_path(az, D, K, card, record, "headline", build_headline, 2000, 1000,
                               plj, {"particle_bits": 0}, caps=(48, 72)))
     check_integrate(az, D, K, headline, "headline", integrate_timing, record)
+    brownian_launches, brownian_timing = run_brownian(az, D, K, card, record, headline)
+    count((brownian_launches, None))
     run_profile(headline, "headline", PROFILE_STEPS, card)
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_io_") as workdir:
         count((run_io(az, K, card, headline, Path(workdir)), None))
@@ -4856,12 +5195,18 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
     })
-    # the integrator and the drift check: timed at the headline's slots (K6-K8)
-    # and the patchy colloids' (K9); no PyTorch call computes a masked Verlet
-    # half step, a top-two drift criterion or a NO_SQUISH rotation
+    # the integrator and the drift check: timed at the headline's slots (K6-K8,
+    # K11) and the patchy colloids' (K9); no PyTorch call computes a masked
+    # Verlet half step, a top-two drift criterion, a NO_SQUISH rotation or a
+    # Brownian step
+    # K11 at the headline's slots ([brownian]), its launches Brownian
+    # dynamics' at the headline's size (the interacting turns: with the
+    # check; free diffusion: alone)
+    integrate_timing.update(brownian_timing)
     for name, timed in (("drift_check", "drift_check"), ("step1", "step1"),
                         ("step1_drift", "step1_drift"), ("step2", "step2"),
-                        ("no_squish", "no_squish")):
+                        ("no_squish", "no_squish"), ("brownian_step_drift", "brownian_step_drift"),
+                        ("brownian_step", "brownian_step")):
         ms, plain_ms, (bound_ms, bound_by) = integrate_timing[timed]
         kernels.append({
             "name": name, "route": "cuda", "source": f"azplugins_tpu_torch/csrc/{IK._SOURCE}",

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the force kernels and K4-K9 of a checkout with three timers, on one GPU.
+"""Time the force kernels, K4-K9 and K11 of a checkout with three timers, on one GPU.
 
     python3 kernel_timers.py [ROOT] [PART ...]    # ROOT: a checkout; default: this one
 
 PARTs (default all): force (the four force kernels and K9), draws (K4, K5),
 cellsum (K10, index_add_, K5's clock form), headline (K6-K8; K8 in three
-forms), droplet (the
-pair kernel, the masked evaporator and K4 at the pick), windowed (the pair
-kernel in a shard's halo window, with its bound).
+forms), brownian (BrownianFlow's steps: K11 with and without the drift
+check, K8's acceleration-only instance, and the launches K11 replaces),
+droplet (the pair kernel, K8 with the droplet's flow field, the masked
+evaporator and K4 at the pick), windowed (the pair kernel in a shard's halo
+window, with its bound).
 
 Imports azplugins_tpu_torch from ROOT, builds its kernels there, and times
 each on the state chip_smoke.py times it on: the pair kernel's
@@ -20,7 +22,13 @@ it (K7+K6, ``Langevin.step1`` with a drift check) and Langevin kick (K8,
 ``Langevin.step2``) on its state after HEADLINE_STEPS steps (past the
 capacity tune: cap 48, 82,944 slots), K8 also in its NVE form
 (``ConstantVolume.step2``, what the colloid path's graphs replay) and its
-noiseless form (``Langevin(noiseless=True).step2``); the draws at the shapes chip_smoke.py
+noiseless form (``Langevin(noiseless=True).step2``); on the same state
+``Brownian(kT=1.0, default_gamma=1.0)``'s step1 with the drift check (K11
+where the checkout has it, else the plain step, its draw through K4, then
+K6), its step1 alone (K11 alone, else the plain step), its step2 (K8's
+acceleration-only instance, else plain) and the plain step with its draw
+through K4 then K6 (the launches K11 replaces), at chip_smoke.py's
+BROWNIAN_DT; the draws at the shapes chip_smoke.py
 times them at (K4 ``particle_uniform3`` and ``particle_bits`` of one word
 on 82,944 tags; K5's axis form at pure SRD's 262,144 rows and its two-key
 form at Poiseuille's 4,352 where the checkout has them, and its single
@@ -36,7 +44,8 @@ droplet (T = 2) and the droplet's masked evaporator
 (``ParticleEvaporator._update_masked``, what its CUDA graphs run every
 step) on its state after DROPLET_STEPS steps, and where the checkout has
 K4 at the pick, the pick fired and unfired, the plain pick's flips and
-``torch.topk`` alone over the slots' keys; the pair kernel in the halo
+``torch.topk`` alone over the slots' keys, and K8 alone with the droplet's
+flow field (the flow velocity formed beforehand); the pair kernel in the halo
 windows of shards 0 and n/2 (chip_smoke.py's ``[spatial]`` and
 ``[spatial_ops]`` cases: K1 on the headline's 4 slabs and 16 strips after
 HEADLINE_STEPS steps, K1 on the droplet's, K1' (ExpandedYukawa) on the
@@ -49,8 +58,8 @@ Three timers, CUDA events around ``REPS`` calls each:
   wrapper's host time exceeds the kernel's the host is timed;
 - queued: chip_smoke.py's ``_cuda_time_ms``, the calls queued behind a
   spinning stream, so only the card is timed;
-- replay (K4-K9, K7+K6, the droplet's pair kernel and masked evaporator
-  and the windowed pair kernel): the ``REPS`` calls captured into one CUDA
+- replay (K4-K9, K7+K6, K11, the droplet's pair kernel and masked
+  evaporator and the windowed pair kernel): the ``REPS`` calls captured into one CUDA
   graph and the graph replayed, as the run loop's rebuild segments replay
   them: no host work and no launch queue between the calls.
 
@@ -71,7 +80,7 @@ import torch
 import chip_smoke as cs  # this checkout's: before ROOT goes on the path
 
 REPS = 50
-PARTS = ("force", "draws", "cellsum", "headline", "droplet", "windowed")
+PARTS = ("force", "draws", "cellsum", "headline", "brownian", "droplet", "windowed")
 HEADLINE_STEPS = 300
 DROPLET_STEPS = 1000
 WINDOWED_STEPS = 300
@@ -293,19 +302,36 @@ def main() -> int:
     if "cellsum" in parts:
         calls_cellsum(az, rng, calls, replayed, dev)
 
-    if "headline" in parts:
+    if parts & {"headline", "brownian"}:
         sim = cs.build_headline(az, dev)[0]
         sim.run(HEADLINE_STEPS)
         torch.cuda.synchronize()
         hd, hmeta, hspec = sim._dense, sim._meta, sim._grid_spec
+        dt, t, seed = sim.dt_ref(), sim.timestep, sim.seed
+        viol = torch.tensor(False, device=dev)
+        at = f"64k headline after {HEADLINE_STEPS} steps, {hd.N:,} slots"
+
+    if "brownian" in parts:
+        brown = cs._attached_as(az.md.methods.Brownian(kT=1.0, default_gamma=1.0), sim, ("A",))
+        check = az.md.methods.DriftCheck(hmeta, hspec, viol)
+        bdt = cs.BROWNIAN_DT
+        brownian = {
+            f"Brownian.step1 with the drift check {at}": (
+                lambda: brown.step1(hd, bdt, t, seed, check)),
+            f"Brownian.step1 {at}": lambda: brown.step1(hd, bdt, t, seed),
+            f"Brownian.step2 {at}": lambda: brown.step2(hd, bdt, t, seed),
+            f"the plain Brownian step, its draw through K4, then K6 {at}": (
+                lambda: D.needs_rebin(brown._step1_brownian(hd, bdt, t, seed), hmeta, hspec,
+                                      viol))}
+        calls.update(brownian)
+        replayed.update(brownian)
+
+    if "headline" in parts:
         lang = sim.operations.integrator.methods[0]
         nve = az.md.methods.ConstantVolume()
         quiet = az.md.methods.Langevin(kT=1.0, default_gamma=0.1, noiseless=True)
         for m in (nve, quiet):
             m._attach(sim)
-        dt, t, seed = sim.dt_ref(), sim.timestep, sim.seed
-        viol = torch.tensor(False, device=dev)
-        at = f"64k headline after {HEADLINE_STEPS} steps, {hd.N:,} slots"
         headline = {
             f"drift_check (K6) {at}": lambda: D.needs_rebin(hd, hmeta, hspec, viol),
             f"step1 (K7) {at}": lambda: lang.step1(hd, dt, t, seed),
@@ -328,9 +354,13 @@ def main() -> int:
         t, seed = sim.timestep, sim.seed
         unfired = torch.tensor(False, device=dev)
         at = f"droplet after {DROPLET_STEPS} steps, cap {dspec.cap}, {dd.N:,} slots"
+        lflow = sim.operations.integrator.methods[0]
+        uflow = lflow.flow_field(dd.box.wrap(dd.position)[0])
         droplet = {
             f"cell_pair_force[PerturbedLennardJones] {at}": (
                 lambda: PK.cell_pair_force(dd, dspec, tables, "PerturbedLennardJones", f.mode)),
+            f"step2 (K8 alone, LangevinFlow with the droplet's flow) {at}": (
+                cs._k8_alone(IK, lflow, dd, sim.dt_ref(), t, seed, uflow)),
             f"masked evaporator (its operations together) {at}": (
                 lambda: evap._update_masked(dd, unfired, t, seed)) if hasattr(
                     evap, "_update_masked") else None}

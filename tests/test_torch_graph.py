@@ -15,7 +15,9 @@ bitwise the step loop the segments replaced (``_old_run_chunk``, kept here
 as it was) on a small LJ liquid, DPD fluid, patchy colloids with rotation,
 polymer melt and Brownian liquid, and on the paths whose steps read a
 schedule: a small evaporating droplet (a SphereArea barrier, an evaporator
-on Periodic(5), LangevinFlow in a parabolic flow), an LJ liquid under a
+on Periodic(5), LangevinFlow in a parabolic flow), a two-type liquid under
+BrownianFlow in a parabolic flow on a Type filter and a Ramp kT (its
+counters under replay gaining exactly the eager loop's), an LJ liquid under a
 Ramp and under a Cycle kT, a DPD fluid under a Ramp kT and an LJ mixture
 with a TypeUpdater (on the graphs the updaters run as masked selects every
 step, the variants' values come from the chunk's rows on the device);
@@ -273,6 +275,18 @@ def _build(az, name):
         pairs.params[("A", "A")] = dict(epsilon=2.0, kappa=1.5, delta=0.5)
         forces = [bonds, pairs]
         method, dt, kT = az.md.methods.Langevin(kT=1.0, default_gamma=0.5), 0.002, 1.0
+    elif name == "brownian_flow":  # BrownianFlow in a parabolic flow on type A, a Ramp kT
+        snap = _lattice(az, 6, 1.2, types=("A", "B"))
+        snap.particles.typeid[:] = np.arange(snap.particles.N) % 2
+        sim = _simulation(az, snap, 37)
+        f = az.pair.PerturbedLennardJones(nlist=cell(buffer=0.4), default_r_cut=2.5, mode="shift")
+        for pair, eps in ((("A", "A"), 1.0), (("A", "B"), 0.6), (("B", "B"), 0.3)):
+            f.params[pair] = dict(epsilon=eps, sigma=1.0, attraction_scale_factor=0.5)
+        method = az.md.methods.BrownianFlow(
+            kT=az.variant.Ramp(1.2, 0.8, 3, 30), flow_field=az.flow.ParabolicFlow(0.5, 6.0),
+            filter=az.md.filter.Type(["A"]), default_gamma=5.0)
+        method.gamma["B"] = 3.0
+        forces, dt, kT = [f], 0.001, None
     else:  # brownian
         sim = _simulation(az, _lattice(az, 6, 1.2), 31)
         f = az.pair.PerturbedLennardJones(nlist=cell(buffer=0.4), default_r_cut=2.5, mode="shift")
@@ -285,8 +299,8 @@ def _build(az, name):
     return sim
 
 
-PATHS = ["lj", "dpd", "patchy", "polymer", "brownian", "droplet", "lj_ramp", "lj_cycle",
-         "dpd_ramp", "type_updater"]
+PATHS = ["lj", "dpd", "patchy", "polymer", "brownian", "brownian_flow", "droplet", "lj_ramp",
+         "lj_cycle", "dpd_ramp", "type_updater"]
 
 
 def _old_run_chunk(self, dense, meta, t0, n_steps, seg_len, tbls, rebin_first=True, solv=None):
@@ -491,7 +505,8 @@ def test_segment_makes_no_host_read(name):
     t = sim.timestep
     clock = torch.tensor(t, dtype=torch.int64)
     values, masks = sim._variant_values(t, 6), sim._trigger_masks(t, 6)
-    scheduled = name in ("droplet", "lj_ramp", "lj_cycle", "dpd_ramp", "type_updater")
+    scheduled = name in ("droplet", "lj_ramp", "lj_cycle", "dpd_ramp", "type_updater",
+                         "brownian_flow")
     assert ((values is not None) or (masks is not None)) == scheduled
     masked = Steps(t, None if values is None else torch.from_numpy(values),
                    None if masks is None else torch.from_numpy(masks))
@@ -790,12 +805,14 @@ def test_flags_are_carried_across_segments(graphs):
     assert max_occ >= half > sim._grid_spec.cap
 
 
-@pytest.mark.parametrize("kernel", ["step1", "step1_drift"])
+@pytest.mark.parametrize("kernel", ["step1", "step1_drift", "brownian_step",
+                                    "brownian_step_drift"])
 def test_counters_under_replay(kernel):
     """A capture's launches (and steps, force evaluations) are taken back
     and added at every replay: a stand-in graph whose capture runs the
     segment's Python once and whose replays run none of it; K7 alone
-    ("step1") and K7+K6 in one launch ("step1_drift", a grid path's)."""
+    ("step1") and K7+K6 in one launch ("step1_drift", a grid path's), K11
+    alone and with the drift check (BrownianFlow's)."""
     sim = _build(port, "lj")
     sim.run(1)
     counters = Counters(sim)
@@ -830,6 +847,33 @@ def test_counters_under_replay(kernel):
     gained = dict(zip([a for _, a in counters._targets], counters.since(before), strict=True))
     assert gained["launches_by_potential"] == {"LJ": 16}
     assert IK.launches - ik0 == 32
+
+
+def test_brownian_flow_graphs_count_as_the_eager_loop():
+    """BrownianFlow in a parabolic flow under a Type filter and a Ramp kT,
+    with PLJ forces on the cell grid: through the stand-in capture, chunks
+    that capture and replay segments are the eager loop's bit for bit, and
+    every counter a segment advances (the launch counts, steps, force
+    evaluations) gains exactly what the eager loop's gains, replays
+    included; the builds and the violation replays are the eager loop's."""
+    graphs, eager = _build(port, "brownian_flow"), _build(port, "brownian_flow")
+    graphs._capture = FakeCapture()
+    eager._capture, eager._eager = FakeCapture(), True
+    gained = {}
+    for sim in (graphs, eager):
+        counters = Counters(sim)
+        before = counters.read()
+        for _ in range(3):
+            sim.run(20)
+        gained[sim is graphs] = counters.since(before)
+    _assert_same(graphs._dense, eager._dense, "brownian_flow")
+    _assert_same(graphs._meta, eager._meta, "brownian_flow")
+    assert gained[True] == gained[False]
+    assert graphs.steps_run == eager.steps_run >= 60
+    assert (graphs.n_builds, graphs.viol_replays) == (eager.n_builds, eager.viol_replays)
+    runner = graphs._runner
+    assert runner is not None and runner.captures >= 1 and runner.replays >= 2
+    assert eager._runner is None
 
 
 # ---------------------------------------------------------------------------

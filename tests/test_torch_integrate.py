@@ -16,8 +16,15 @@ velocities, accelerations and the rotational fields within 2e-5 of their
 largest value: XLA may fuse a product into a multiply-add), and step1
 with the drift check against the reference's step1 then ``needs_rebin``
 (positions and velocities bit for bit, the verdict exactly; whole and on
-two shards). The kernels are held to these plain versions on the card
-bitwise (``test_torch_kernels.py``).
+two shards). BrownianFlow alike: on CPU tensors its step1 (alone and
+with the drift check) and step2 are their plain versions and launch
+nothing, its kernels' wrappers (K11, K8's acceleration-only instance)
+refuse CPU tensors, one step1 + step2 of every Brownian case is within
+the one-step bars of the reference's, and the plain noiseless step keeps
+the sign of a zero as the kernels must (a 0 coefficient times a uniform
+below 0 is -0; a step without a flow adds a zeros_like flow, which makes
+it +0). The kernels are held to these plain versions on the card bitwise
+(``test_torch_kernels.py``).
 """
 
 import types
@@ -362,3 +369,93 @@ def test_simulation_counts_the_steps_its_loop_runs():
     sim.run(5)
     assert sim.viol_replays == 0 and sim.steps_run == 12
     assert sim.force_evaluations == 13
+
+
+# -- BrownianFlow: K11 and K8's acceleration-only instance on the card ---------
+# On CPU tensors BrownianFlow's step1 (alone and with the drift check) and
+# step2 run their plain versions, which the kernels are held to bitwise on
+# the card (test_torch_kernels.py), and which are held here to the reference.
+@pytest.mark.parametrize("case", IC.BROWNIAN_CASES)
+def test_cpu_brownian_steps_take_the_plain_versions(case):
+    a = IC.slot_arrays(N, 21)
+    state = _port_state(a)
+    m = IC.attached(IC.brownian_methods(port, case), False)
+    meta = types.SimpleNamespace(ref_position=torch.as_tensor(a["ref_position"]))
+    spec = types.SimpleNamespace(buffer=0.4)
+    before = (IK.launches, dict(IK.launches_by_kernel))
+    want = m._step1_brownian(state, 0.005, 77, 9)
+    got = m.step1(state, 0.005, 77, 9)
+    assert torch.equal(got.position.view(torch.int32), want.position.view(torch.int32))
+    for viol in (None, False, True):
+        check = port.md.methods.DriftCheck(meta, spec, None if viol is None else
+                                           torch.tensor(viol))
+        got, found = m.step1(state, 0.005, 77, 9, check)
+        assert torch.equal(got.position.view(torch.int32), want.position.view(torch.int32))
+        assert torch.equal(found, check.of(want))
+    got = m.step2(want, 0.005, 77, 9)
+    assert torch.equal(got.acceleration, m._step2_plain(want, 0.005, 77, 9).acceleration)
+    assert got.velocity is want.velocity
+    assert (IK.launches, IK.launches_by_kernel) == before
+
+
+def test_brownian_wrappers_refuse_cpu_tensors():
+    """K11 (alone and with the drift check) and K8's acceleration-only
+    instance take CUDA tensors only: a CPU tensor raises, never falls back."""
+    s = _port_state(IC.slot_arrays(64, 3))
+    noise = IK.Noise(torch.ones(2), port.core.rng.Stream.BROWNIAN, 1, 0, 1.0, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        IK.brownian_step(s.tag, None, s.typeid, s.position, s.net_force, 0.005, noise)
+    with pytest.raises(ValueError, match="CUDA"):
+        IK.brownian_step_drift(s.tag, None, s.typeid, s.position, s.net_force, 0.005, noise,
+                               None, s.position, 0.4, torch.tensor(False))
+    with pytest.raises(ValueError, match="CUDA"):
+        IK.step2_accel(s.tag, None, s.acceleration, s.net_force, s.mass)
+
+
+@pytest.mark.parametrize("case", IC.BROWNIAN_CASES)
+def test_plain_brownian_step_matches_reference(case):
+    """BrownianFlow's step1, fresh forces, then step2, from the same numpy
+    inputs in both packages, at the one-step bars; slots the method does not
+    move keep their bits, and the velocities are never written."""
+    a = IC.slot_arrays(N, 17)
+    force = np.random.default_rng(IREF.FORCE_SEED).normal(0, 3, (N, 3)).astype(np.float32)
+    out = {}
+    for az, asarray, host in ((ref, jnp.asarray, np.asarray),
+                              (port, torch.as_tensor, lambda t: t.numpy())):
+        m = IC.attached(IC.brownian_methods(az, case), False)
+        s = m.step1(IC.state_of(az, a, asarray), IREF.DT, IREF.TIMESTEP, IREF.SEED)
+        s = m.step2(s.replace(net_force=asarray(force)), IREF.DT, IREF.TIMESTEP, IREF.SEED)
+        out[az] = {k: host(getattr(s, k)) for k in ("position", "velocity", "acceleration")}
+    for k in ("position", "acceleration"):
+        IREF.assert_close(out[port][k], out[ref][k], k, f"{case} {k}")
+    acts = a["tag"] >= 0
+    if case == "type_b":
+        acts &= a["typeid"] == 1
+    for k in ("position", "acceleration"):
+        assert np.array_equal(out[port][k][~acts].view(np.int32), a[k][~acts].view(np.int32)), k
+    assert np.array_equal(out[port]["velocity"].view(np.int32), a["velocity"].view(np.int32))
+
+
+@pytest.mark.parametrize("flow", [False, True], ids=["no_flow", "flow_of_minus_zero"])
+def test_plain_noiseless_brownian_step_keeps_the_sign_of_zero(flow):
+    """The plain noiseless step still multiplies its 0 coefficient by the
+    uniforms, so the random force is -0 where a uniform is below 0: a slot
+    at -0 under a force of -0 in a flow of -0 stays at -0 exactly there
+    (+0 elsewhere); without a flow the zeros_like flow it adds makes every
+    such slot +0. K11 is held to these bits on the card."""
+    a = IC.signed_zeros(IC.slot_arrays(N, 23))
+    state = _port_state(a)
+    if flow:
+        m = port.md.methods.BrownianFlow(kT=1.3, flow_field=port.flow.ConstantFlow((-0.0,) * 3),
+                                         noiseless=True)
+    else:
+        m = port.md.methods.Brownian(kT=1.3, noiseless=True)
+    m = IC.attached(m, False)
+    x = m.step1(state, 0.005, 77, 9).position[::3]
+    live = state.tag[::3] >= 0
+    u = port.core.rng.particle_uniform3(m._rng_stream, 9, 77, state.tag[::3])
+    assert bool((x[live] == 0).all()) and bool((u[live] < 0).any())
+    if flow:
+        assert torch.equal(torch.signbit(x[live]), u[live] < 0)
+    else:
+        assert not bool(torch.signbit(x[live]).any())

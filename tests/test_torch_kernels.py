@@ -34,6 +34,12 @@ normalisation of its own normals. The evaporator's pick on a whole layout
 held to the plain pick bit for bit, the trigger's flag set, unset and
 absent.
 
+BrownianFlow's step on the card (K11, csrc/integrate.cu: its draw, the
+update and the drift check in one launch, or the step alone) is held to
+the plain step and check bit for bit, the signs of zeros included, in
+every case the chip's [brownian] phase holds; its step2 (K8's
+acceleration-only instance) likewise.
+
 The run loop's CUDA graphs read the timestep on the card: K2, K4, K8 and
 K9 in their clock forms (core/rng.py's device_clock) are held bitwise to
 their host forms, past 2**32 too, and a small headline's captured rebuild
@@ -444,9 +450,9 @@ def test_simulation_on_cuda_runs_every_force_through_the_kernel(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["Langevin", "BrownianFlow", "SRD with plates"])
 def test_simulation_on_cuda_draws_through_the_rng_kernels(cuda_device, method):
-    """Thermalize and Brownian's noise draw through K4, Langevin's inside
-    K8 (csrc/integrate.cu), an SRD collision (with plates: the virtual fill
-    and the axes) through K5."""
+    """Thermalize draws through K4, Langevin's noise inside K8 and Brownian's
+    inside K11 (csrc/integrate.cu), an SRD collision (with plates: the
+    virtual fill and the axes) through K5."""
     rng = np.random.default_rng(4)
     n, L = 8, 8.0
     snap = az.Snapshot(N=n**3, mpcd_N=4096 if method.startswith("SRD") else 0)
@@ -468,6 +474,7 @@ def test_simulation_on_cuda_draws_through_the_rng_kernels(cuda_device, method):
                                         plates=("z", L))
     before, summed = dict(RK.launches_by_kernel), CK.launches
     stepped = IK.launches_by_kernel.get("step2", 0)
+    browned = dict(IK.launches_by_kernel)
     sim.state.thermalize_particle_momenta(kT=1.0)
     sim.run(10)
     drawn = {k: v - before.get(k, 0) for k, v in RK.launches_by_kernel.items()}
@@ -481,7 +488,10 @@ def test_simulation_on_cuda_draws_through_the_rng_kernels(cuda_device, method):
         assert drawn.get("particle_bits", 0) == 1  # thermalize
         assert IK.launches_by_kernel.get("step2", 0) - stepped >= 10
     else:
-        assert drawn.get("particle_bits", 0) >= 1 + 10
+        # thermalize; BrownianFlow draws inside K11 (no grid here: K11 alone)
+        assert drawn.get("particle_bits", 0) == 1
+        assert sum(IK.launches_by_kernel.get(k, 0) - browned.get(k, 0)
+                   for k in ("brownian_step", "brownian_step_drift")) >= 10
     assert np.all(np.isfinite(sim.state.get_snapshot().particles.position))
 
 
@@ -1971,6 +1981,113 @@ def test_device_kT_form_refuses_another_kT_tensor(cuda_device):
             IK.step2(state.tag, None, state.typeid, state.velocity, state.acceleration,
                      state.net_force, state.mass, 0.005, noise)
         assert IK.launches == before
+
+
+# -- K11: BrownianFlow's step, its draw and the drift check in one launch -----
+# BrownianFlow.step1 on the card: K11 alone ("brownian_step") and with the
+# drift check ("brownian_step_drift"), against the plain step (then the
+# plain check) on the same state, bit for bit: every case the chip's
+# [brownian] phase holds, at small sizes, the headline's 82,944 slots among
+# them. "zeros" and "zeros_in_a_flow" put a third of the slots at -0 under a
+# force of -0 with no noise (IC.signed_zeros): there the plain version's 0
+# coefficient times a uniform below 0 is -0, which a flow of -0 keeps and a
+# step without a flow (adding its zeros_like flow) makes +0.
+BROWNIAN_KERNEL_CASES = [*IC.BROWNIAN_CASES, "zeros", "zeros_in_a_flow"]
+
+
+def _brownian_case(case, n, device):
+    a = IC.slot_arrays(n, n + 7)
+    if case.startswith("zeros"):
+        a = IC.signed_zeros(a)
+        flow = az.flow.ConstantFlow((-0.0,) * 3) if case == "zeros_in_a_flow" else None
+        m = az.md.methods.BrownianFlow(kT=1.3, flow_field=flow, noiseless=True)
+    else:
+        m = IC.brownian_methods(az, case)
+    state = IC.state_of(az, a, lambda x: torch.as_tensor(x, device=device))
+    meta = types.SimpleNamespace(ref_position=torch.as_tensor(a["ref_position"], device=device))
+    return IC.attached(m, False, device), state, meta
+
+
+def _launched_brownian(before):
+    return {k: IK.launches_by_kernel.get(k, 0) - before.get(k, 0)
+            for k in ("brownian_step", "brownian_step_drift", "drift_check")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [257, 4097, 82944])
+@pytest.mark.parametrize("case", BROWNIAN_KERNEL_CASES)
+def test_brownian_step_kernel_bitwise(cuda_device, case, n):
+    """K11 alone and with the drift check against the plain step and check,
+    bit for bit, one launch each: positions; the verdict with the flag clear
+    and set; the top two, whole and of 4 cuts (a shard's); at timesteps past
+    2**32 and at dt = 0 (no noise); kT in its device form (a 0-d float32 on
+    the card) and the draws in their clock form (CLOCK_STEPS) the host
+    forms' bits."""
+    m, state, meta = _brownian_case(case, n, cuda_device)
+    spec = types.SimpleNamespace(buffer=0.4)
+    DriftCheck = az.md.methods.DriftCheck
+    cuts = torch.tensor_split(torch.arange(n, device=cuda_device), 4)
+    for dt, t in ((0.005, 777), (0.005, 2**32 + 9), (0.0, 3)):
+        what = f"{case} {n} dt={dt} t={t}"
+        want = m._step1_brownian(state, dt, t, 12345)
+        before = dict(IK.launches_by_kernel)
+        _same_bits(m.step1(state, dt, t, 12345).position, want.position, what)
+        for viol in (False, True):
+            got, verdict = m.step1(state, dt, t, 12345,
+                                   DriftCheck(meta, spec, torch.tensor(viol, device=cuda_device)))
+            _same_bits(got.position, want.position, f"{what} viol={viol}")
+            assert bool(verdict) == (viol or bool(D._needs_rebin_plain(want, meta, spec))), what
+        got, top = m.step1(state, dt, t, 12345, DriftCheck(meta, spec, None))
+        _same_bits(got.position, want.position, f"{what} top two")
+        _same_bits(top, D._drift_top_two_plain(want, meta), f"{what} top two")
+        for c in cuts:
+            cm = types.SimpleNamespace(ref_position=meta.ref_position[c])
+            got, top = m.step1(_slots(state, c), dt, t, 12345, DriftCheck(cm, spec, None))
+            _same_bits(got.position, want.position[c], f"{what} cut")
+            _same_bits(top, D._drift_top_two_plain(_slots(want, c), cm), f"{what} cut top two")
+        assert _launched_brownian(before) == {"brownian_step": 1, "brownian_step_drift": 7,
+                                              "drift_check": 0}, what
+    table = m._gamma_table.to(cuda_device)
+    flow = None if m.flow_field is None else m.flow_field(state.box.wrap(state.position)[0])
+    sel = m._selection(state)
+    for kT in DEVICE_KTS:
+        out = []
+        for form in (kT, torch.tensor(np.float32(kT), device=cuda_device)):
+            noise = IK.Noise(table, m._rng_stream, 12345, 2**32 + 9, form, not m.noiseless)
+            out.append(IK.brownian_step_drift(state.tag, sel, state.typeid, state.position,
+                                              state.net_force, 0.005, noise, flow,
+                                              meta.ref_position, 0.4, None))
+        for a, b in zip(*out, strict=True):
+            _same_bits(a, b, f"{case}: device kT {kT}")
+    for t in CLOCK_STEPS:
+        got, want = _clock_and_host(cuda_device, t,
+                                    lambda s: m.step1(state, 0.005, s, 12345).position)
+        _same_bits(got, want, f"{case}: clock form at {t}")
+        (got, top), (want, want_top) = _clock_and_host(
+            cuda_device, t, lambda s: m.step1(state, 0.005, s, 12345, DriftCheck(meta, spec, None)))
+        _same_bits(got.position, want.position, f"{case}: clock form at {t}, with the check")
+        _same_bits(top, want_top, f"{case}: clock form at {t}, the top two")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("sel", [False, True])
+@pytest.mark.parametrize("n", [257, 82944])
+def test_brownian_accel_step2_bitwise(cuda_device, n, sel, offset):
+    """BrownianFlow.step2 on the card, K8's acceleration-only instance, against
+    the plain step2 bit for bit, one launch; the velocities are the state's
+    own tensor; also on a state whose fields are views one row into larger
+    tensors."""
+    a = IC.slot_arrays(n + offset, n + 9)
+    state = IC.state_of(az, a, lambda x: torch.as_tensor(x, device=cuda_device)[offset:])
+    kw = {"filter": az.md.filter.Type(["B"])} if sel else {}
+    m = IC.attached(az.md.methods.Brownian(kT=1.0, **kw), False, cuda_device)
+    before = dict(IK.launches_by_kernel)
+    got = m.step2(state, 0.005, 77, 12345)
+    assert IK.launches_by_kernel["step2"] == before.get("step2", 0) + 1
+    want = m._step2_plain(state, 0.005, 77, 12345)
+    _same_bits(got.acceleration, want.acceleration, f"sel={sel} offset={offset}")
+    assert got.velocity is state.velocity
 
 
 def _graph_lj(device, eager, scheduled=False):

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 import azplugins_tpu as ref  # noqa: E402
 import azplugins_tpu_torch as port  # noqa: E402
+from torch_compile_cache import no_compile_cache  # noqa: E402, F401
 from azplugins_tpu.ops import dense as RD  # noqa: E402
 from azplugins_tpu.parallel import make_mesh as ref_make_mesh  # noqa: E402
 from azplugins_tpu_torch.ops import dense as PD  # noqa: E402
@@ -337,6 +338,7 @@ def test_srd_coupled_solvent_bitwise():
     _assert_end_equal(sim, want)
 
 
+@pytest.mark.usefixtures("no_compile_cache")
 def test_decomposed_run_matches_reference():
     """30 steps on 8 slabs in both packages, within the 20-step bars of
     test_torch_simulation.py (positions 1e-4, velocities 1e-4 of max|v|)."""

@@ -29,6 +29,7 @@ torch = pytest.importorskip("torch")
 
 import azplugins_tpu as ref  # noqa: E402
 import azplugins_tpu_torch as port  # noqa: E402
+from torch_compile_cache import no_compile_cache  # noqa: E402, F401
 from azplugins_tpu.core.state import state_from_snapshot as ref_state_from_snapshot  # noqa: E402
 from azplugins_tpu.ops import dense as RD  # noqa: E402
 from azplugins_tpu.parallel import make_mesh as ref_make_mesh  # noqa: E402
@@ -491,6 +492,7 @@ def test_sharded_observables_bitwise():
         np.testing.assert_array_equal(_bits(np.asarray(got)), _bits(np.asarray(want)))
 
 
+@pytest.mark.usefixtures("no_compile_cache")
 def test_sharded_run_matches_reference():
     """20 steps on 8 slabs in both packages, the port sharded, within the
     20-step bars of test_torch_simulation.py (positions 1e-4, velocities

@@ -40,6 +40,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec  # noqa: E402
 import azplugins_tpu_torch as port  # noqa: E402
+from torch_compile_cache import no_compile_cache  # noqa: E402, F401
 from azplugins_tpu.core.state import state_from_snapshot as ref_state_from_snapshot  # noqa: E402
 from azplugins_tpu.parallel import make_mesh as ref_make_mesh  # noqa: E402
 from azplugins_tpu_torch.core.state import state_from_snapshot  # noqa: E402
@@ -114,6 +115,7 @@ def _droplet_sim(az, traj_path):
     return sim, field
 
 
+@pytest.mark.usefixtures("no_compile_cache")
 def test_droplet_on_shards(tmp_path):
     """8 shards, 40 steps: trajectory, typeids, the velocity field and the
     aztraj file's bytes equal the undecomposed run's; within the 20-step
@@ -333,6 +335,7 @@ def test_bonds_on_shards(L, n, monkeypatch):
     assert bonds.energy == want_bonds.energy
 
 
+@pytest.mark.usefixtures("no_compile_cache")
 @pytest.mark.parametrize("L", [SLABS, CUBE], ids=["slabs", "strips"])
 def test_bonds_on_shards_match_reference(L):
     """The melt on 8 shards against the reference's run on its 8-device
@@ -387,6 +390,7 @@ def _srd_arrays(N=4096, L=8.0, seed=3):
     return torch.as_tensor(pos), torch.as_tensor(vel)
 
 
+@pytest.mark.usefixtures("no_compile_cache")
 def test_srd_solvent_in_blocks():
     """The reference's sharded-advance case on 8 blocks: the stream and the
     cell ids bitwise, the velocities after two collisions within
@@ -529,6 +533,7 @@ def test_sharded_solvent_within_the_bar_and_chunking_invariant(coupled):
                                           err_msg=f"{part} {f}")
 
 
+@pytest.mark.usefixtures("no_compile_cache")
 @pytest.mark.parametrize("coupled", [False, True], ids=["srd", "coupled"])
 def test_sharded_solvent_matches_reference(coupled):
     """The solvent on 8 shards, uncoupled or coupled, through two

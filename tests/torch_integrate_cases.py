@@ -91,6 +91,39 @@ def methods(az, case: str):
 CASES = ("nve", "langevin", "noiseless", "flow", "type_b")
 
 
+def brownian_methods(az, case: str):
+    """The BrownianFlow of ``case`` with per-type gammas: "brownian"
+    (Brownian), "constant_flow" and "parabolic_flow" (BrownianFlow in a
+    uniform flow and in a parabolic flow along x), "type_b" (Brownian on
+    type B only) or "noiseless"."""
+    kw = {"filter": az.md.filter.Type(["B"])} if case == "type_b" else {}
+    flows = {"constant_flow": lambda: az.flow.ConstantFlow((0.4, -0.2, 0.1)),
+             "parabolic_flow": lambda: az.flow.ParabolicFlow(2.0, L / 2)}
+    if case in flows:
+        m = az.md.methods.BrownianFlow(kT=1.3, flow_field=flows[case](), default_gamma=0.7)
+    else:
+        m = az.md.methods.Brownian(kT=1.3, default_gamma=0.7, noiseless=case == "noiseless",
+                                   **kw)
+    m.gamma["B"] = 1.9
+    return m
+
+
+BROWNIAN_CASES = ("brownian", "constant_flow", "parabolic_flow", "type_b", "noiseless")
+
+
+def signed_zeros(arrays: dict, every: int = 3) -> dict:
+    """``arrays`` with every ``every``-th slot at the origin as -0 under a
+    force of -0: where BrownianFlow's plain step keeps the sign of a zero
+    (a noiseless step's 0 coefficient times a uniform below 0 is -0, which
+    a flow of -0 carries into x', and which the zeros_like flow of a step
+    without a flow turns into +0), so that a kernel that skipped either
+    operation would differ in its bits."""
+    a = {k: v.copy() for k, v in arrays.items()}
+    a["position"][::every] = np.float32(-0.0)
+    a["net_force"][::every] = np.float32(-0.0)
+    return a
+
+
 def drift_arrays(kind: str, n: int, seed: int) -> dict:
     """``slot_arrays(n, seed)`` with the drift of ``kind``: "random" (as
     made), "nan" (one slot's z NaN), "tie" (two slots share the largest
