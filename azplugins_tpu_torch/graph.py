@@ -84,6 +84,7 @@ import torch
 from .core import rng as _rng
 from .ops import (aniso_kernel, cellsum_kernel, dpd_kernel, integrate_kernel, pair_kernel,
                   pick_kernel, rng_kernel)
+from .trace import Tracer
 from .utils import as_blocks
 
 __all__ = ["AdvanceGraphs", "Counters", "SegmentGraphs", "Steps", "cuda_capture", "to_device"]
@@ -132,10 +133,12 @@ _SIM_COUNTERS = ("steps_run", "force_evaluations")
 
 class Counters:
     """The host counters a segment advances: the kernel wrappers' launch
-    counts and ``sim``'s steps and force evaluations."""
+    counts, ``sim``'s steps and force evaluations, and its tracer's phase
+    marks."""
 
     def __init__(self, sim):
-        self._targets = [*_LAUNCH_COUNTERS, *((sim, a) for a in _SIM_COUNTERS)]
+        self._targets = [*_LAUNCH_COUNTERS, (sim.tracer, "marks"),
+                         *((sim, a) for a in _SIM_COUNTERS)]
 
     def read(self) -> list:
         """Every counter's value (dicts copied)."""
@@ -232,13 +235,18 @@ class _GraphCache:
     kept, the least recently replayed dropped first. ``capture(runner, fn)``
     records ``fn`` as a graph with ``replay()`` (:func:`cuda_capture` on
     CUDA; tests inject a stand-in). ``captures``, ``capture_seconds`` (host
-    time in captures), ``replays``, ``eager_segments`` (first runs) and
-    ``pool_bytes`` (the device memory reserved during captures) describe
-    the cache; each is also added to ``totals`` (a dict that outlives
-    runners). ``clock``: the timestep on the card, a 0-d int64."""
+    time in captures), ``replays``, ``eager_segments`` (first runs),
+    ``evictions`` (graphs dropped for the bound), ``recaptures`` (captures
+    of a key captured before and evicted since) and ``pool_bytes`` (the
+    device memory reserved during captures) describe the cache; each is
+    also added to ``totals`` (a dict that outlives runners). With a
+    ``tracer`` whose spans are on, a first run, a capture and a replay are
+    the spans ``az.segment.first``, ``az.segment.capture`` and
+    ``az.segment.replay`` (trace.py). ``clock``: the timestep on the card,
+    a 0-d int64."""
 
     def __init__(self, key, counters: "Counters", device, capture=None, max_graphs: int = 32,
-                 totals: dict | None = None):
+                 totals: dict | None = None, tracer: Tracer | None = None):
         self.key = key
         self._counters = counters
         self._capture = capture if capture is not None else cuda_capture
@@ -248,9 +256,12 @@ class _GraphCache:
         # key -> (graph, counter delta a replay adds)
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self._seen: set = set()
+        self._captured: set = set()
         self.captures = self.replays = self.eager_segments = self.pool_bytes = 0
+        self.evictions = self.recaptures = 0
         self.capture_seconds = 0.0
         self._totals = totals if totals is not None else {}
+        self._tracer = tracer if tracer is not None else Tracer()
 
     def _count(self, name: str, n: int = 1) -> None:
         setattr(self, name, getattr(self, name) + n)
@@ -264,22 +275,30 @@ class _GraphCache:
         """Run the work of ``key`` (``make_body()`` returns it, called only
         when no graph of ``key`` is held): eagerly the first time, then as a
         graph."""
+        span = self._tracer.span
         entry = self._graphs.get(key)
         if entry is None:
             body = make_body()
             if key not in self._seen:
                 self._seen.add(key)
                 self._count("eager_segments")
-                body()
+                with span("az.segment.first"):
+                    body()
                 return
-            entry = self._record(body)
+            with span("az.segment.capture"):
+                entry = self._record(body)
+            if key in self._captured:
+                self._count("recaptures")
+            self._captured.add(key)
             self._graphs[key] = entry
             while len(self._graphs) > self.max_graphs:
                 self._graphs.popitem(last=False)
+                self._count("evictions")
         else:
             self._graphs.move_to_end(key)
         graph, delta = entry
-        graph.replay()
+        with span("az.segment.replay"):
+            graph.replay()
         self._counters.add(delta)
         self._count("replays")
 
@@ -326,14 +345,15 @@ class SegmentGraphs(_GraphCache):
 
     def __init__(self, key, segment, dense, meta, counters: Counters, capture=None,
                  max_graphs: int = 32, totals: dict | None = None, n_values: int = 0,
-                 n_fires: int = 0, max_steps: int = 0, n_solvent=None):
+                 n_fires: int = 0, max_steps: int = 0, n_solvent=None,
+                 tracer: Tracer | None = None):
         self._whole = not isinstance(dense, tuple)
         shards, metas = as_blocks(dense), as_blocks(meta)
         dev = shards[0].device
         if any(s.device != dev for s in shards):
             raise ValueError("the segment graphs take shards on one device, not "
                              f"{[str(s.device) for s in shards]}")
-        super().__init__(key, counters, dev, capture, max_graphs, totals)
+        super().__init__(key, counters, dev, capture, max_graphs, totals, tracer)
         self._segment = segment
         self.shards = tuple(_clone(s, skip=_FIXED) for s in shards)
         self.metas = tuple(_clone(m) for m in metas)
@@ -445,7 +465,10 @@ class SegmentGraphs(_GraphCache):
         return tuple(p.clone() for p in self.pos_a), tuple(v.clone() for v in self.vel_a)
 
     def _body(self, t0: int, n_steps: int, rebuild: bool, lead: int | None):
-        """The work of one segment on the buffers: what is captured."""
+        """The work of one segment on the buffers: what is captured. With
+        the tracer's marks on, the segment's own marks end with
+        ``writeback`` (these copies) and this ends it with ``end``."""
+        mark = self._tracer.marker(self.clock.device, False)
 
         def body():
             with _rng.device_clock(self.clock, t0):
@@ -466,6 +489,8 @@ class SegmentGraphs(_GraphCache):
                     for d, s in zip(dst, src, strict=True):
                         d.copy_(s)
             self.clock.add_(n_steps)
+            if mark is not None:
+                mark("end")
 
         return body
 
@@ -473,8 +498,12 @@ class SegmentGraphs(_GraphCache):
         """Run one segment from timestep ``t0`` (the clock holds it): eagerly
         the first time its key is seen, then as a graph. The key is ``(L,
         rebuild)``, or ``(L, rebuild, lead)`` for a segment whose last step
-        fires the joint collision ``lead`` steps after the anchor's."""
+        fires the joint collision ``lead`` steps after the anchor's, and
+        ends with ``"marks"`` while the tracer's phase marks are on (a
+        marked graph launches them)."""
         key = (int(n_steps), bool(rebuild)) + (() if lead is None else (int(lead),))
+        if self._tracer.marks_on:
+            key += ("marks",)
         self._run(key, lambda: self._body(t0, n_steps, rebuild, lead))
 
 

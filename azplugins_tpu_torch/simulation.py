@@ -78,9 +78,16 @@ shard, when the mesh size divides it (mpcd._place_solvent): its collisions
 regroup the float32 cell sums across the blocks, the one result that is
 not bitwise (within ~1e-7 relative a collision).
 
-Profiling. Inside ``with sim.profile(logdir):`` the step loop marks its
-phases as ``torch.profiler.record_function`` ranges named after the
-reference's scopes; outside it no range is entered.
+Tracing. ``sim.tracer`` (trace.py, off by default) records host spans at
+the run loop's boundaries (a run, a chunk, its host read, a runner's build
+and load, a segment's first sight, capture, replay or eager run, the tune,
+a growth, the solvent's advance, the writers), counts the graph cache's
+misses and evictions, runner builds by cause, chunks by what ended them,
+the steps thrown away and the host reads, and with marks on launches a
+device phase mark as each phase of a segment begins, captured into the
+segment graphs. Inside ``with sim.profile(logdir):`` spans and marks are on
+and the segments stay CUDA graphs: the trace shows the program the runs
+run. Tracing leaves the trajectory as it is, bit for bit.
 
 The runner. The reference compiles a chunk into one jitted loop
 (``run_chunk``, ``steps_span``, ``_bind_tables``); the port's counterpart
@@ -99,9 +106,9 @@ which the operations read as 0-d tensors, and each updater's trigger
 the reference's masked select (``apply_inline_updaters``). The eager loop
 reads the same values (K8's and K9's kT by value there, by pointer in a
 graph, bitwise) and fires its updaters from the host's triggers.
-A mesh over distinct devices, an MPCD coupling on a replaced trigger, and
-every run inside :meth:`Simulation.profile` run the segments eagerly; the
-choice is made from the operations, never from a failure. Either way the
+A mesh over distinct devices and an MPCD coupling on a replaced trigger
+run the segments eagerly; the choice is made from the operations, never
+from a failure. Either way the
 trajectory is the same, bit for bit. The SRD advance of an uncoupled
 solvent, whole or in blocks on one device, replays graphs of its own
 (:meth:`Simulation._advance_runner`, ``graph.AdvanceGraphs``: a graph a
@@ -131,22 +138,16 @@ from .core.state import State, state_from_snapshot, state_to_snapshot, thermaliz
 from .md.force import ForceResult, SimContext
 from .md.methods import DriftCheck
 from .ops import dense as D
+from .trace import Tracer, phase_names
 from .utils import as_blocks, sqrt
 
 __all__ = ["Simulation", "Operations"]
-
-_NO_RANGE = contextlib.nullcontext()
-
 
 # the dense layout, or its meta, as a tuple of shards: a whole layout (a
 # State or a GridMeta) is one shard. Simulation holds the tuple only on a
 # sharded mesh (Simulation._as_layout)
 _as_shards = as_blocks
 
-
-def _no_range(name: str):
-    """The step loop's phase scope outside a profile: enters nothing."""
-    return _NO_RANGE
 
 def _host_fingerprint(x):
     """A comparable image of host tables: dicts by key, arrays (and CPU
@@ -175,6 +176,39 @@ def _segments(n_steps: int, seg_len: int, rebin_first: bool):
     if not rebin_first:
         return [(0, n_steps, False)]
     return [(a, min(seg_len, n_steps - a), True) for a in range(0, n_steps, seg_len)]
+
+
+# what each entry of a runner's key (Simulation._build_runner) binds: the
+# grid (its spec and capacity, the slots), the operations, the tables; the
+# entries after these are the mesh's (a tuple led by "mesh") or the
+# coupling's (operations)
+_KEY_PARTS = ("grid", "operations", "operations", "tables", "operations", "grid",
+              "operations", "operations", "operations", "operations")
+
+
+def _build_cause(old, new) -> str:
+    """What changed from runner key ``old`` (None: no runner yet) to
+    ``new``: ``grid``, ``operations``, ``mesh`` or ``tables``, the first of
+    these in that order (new operations come with new tables); ``dropped``
+    where nothing did (the runner was dropped with its key still
+    holding)."""
+    if old is None:
+        return "first"
+    changed = set()
+    for k in range(max(len(old), len(new))):
+        a = old[k] if k < len(old) else None
+        b = new[k] if k < len(new) else None
+        if a == b:
+            continue
+        if k < len(_KEY_PARTS):
+            changed.add(_KEY_PARTS[k])
+        else:
+            mesh = any(isinstance(x, tuple) and x[:1] == ("mesh",) for x in (a, b))
+            changed.add("mesh" if mesh else "operations")
+    for cause in ("grid", "operations", "mesh", "tables"):
+        if cause in changed:
+            return cause
+    return "dropped"
 
 
 # absolute-timestep quantum for rebuild-interval adaptation: the interval
@@ -331,8 +365,8 @@ class Simulation:
         # are tuples, one State and one GridMeta a block
         self._spatial_mesh = None
         self._spatial_migrate_cap: int | None = None
-        # the step loop's phase scope: record_function inside profile()
-        self._phase_range = _no_range
+        # spans, counters and phase marks (trace.py): public as .tracer
+        self._tracer = Tracer()
         # the segment graphs (graph.SegmentGraphs, _build_runner) where
         # _graphs_apply(); _eager keeps the eager loop on the card (the
         # graphs' plain version, held against them by chip_smoke.py and the
@@ -341,8 +375,10 @@ class Simulation:
         self._runner = None
         self._eager = False
         self._capture = None
-        # captures, replays, eager_segments, pool_bytes over every runner
-        self._graph_totals: dict = {}
+        # captures, replays, eager_segments, evictions, ... over every runner
+        # (the tracer's graph counters); the key of the last runner built
+        self._graph_totals: dict = self._tracer.graph
+        self._runner_key = None
         # the SRD advance's graphs (graph.AdvanceGraphs, _advance_runner)
         # where _advance_graphs_apply(), and their totals
         self._advance_graphs = None
@@ -459,7 +495,16 @@ class Simulation:
     def n_builds(self) -> int:
         """Neighbour-grid builds since the dense layout was made (a host sync)."""
         meta = _as_shards(self._meta)[0]
-        return int(meta.n_builds) if meta is not None else 0
+        if meta is None:
+            return 0
+        self._tracer.count("sync_reads", "n_builds")
+        return int(meta.n_builds)
+
+    @property
+    def tracer(self) -> Tracer:
+        """The run loop's tracer (trace.py): host spans, counters and device
+        phase marks, off until ``tracer.enable()``."""
+        return self._tracer
 
     def _invalidate(self):
         self._attached = False
@@ -506,6 +551,7 @@ class Simulation:
                                          strip_devices=mesh.size if mesh is not None else 1)
             # size cap for the actual starting configuration: commensurate
             # lattices concentrate particles far above the mean
+            self._tracer.count("sync_reads", "occupancy")
             occ_cap = self._max_occupancy_cap(state, new_spec)
             if occ_cap > new_spec.cap:
                 new_spec = new_spec.replace(cap=occ_cap)
@@ -636,6 +682,7 @@ class Simulation:
             self._meta = self._identity_meta(state)
         else:
             self._dense, self._meta = self._densify(state)
+            self._tracer.count("sync_reads", "densify")
             if bool(self._meta.overflow):
                 self._grow_and_rebuild(int(self._meta.max_occ))
         self._place_spatial()
@@ -689,6 +736,7 @@ class Simulation:
         shards = _as_shards(dense)
         vsq = [torch.sum(s.velocity * s.velocity, dim=-1).max() for s in shards]
         vsq = vsq[0] if len(vsq) == 1 else torch.stack([v.to(self.device) for v in vsq]).max()
+        self._tracer.count("sync_reads", "vmax")
         vmax = float(sqrt(vsq))
         dt = self.dt_ref()
         if vmax <= 0 or dt <= 0:
@@ -723,6 +771,7 @@ class Simulation:
             self._seg_len = est
             self._seg_ceiling = est
             self._clean_quanta = 0
+        self._tracer.count("sync_reads", "occupancy")
         cap = self._max_occupancy_cap(state, spec, slack)
         if cap != spec.cap:
             self._grid_spec = spec.replace(cap=cap)
@@ -743,12 +792,14 @@ class Simulation:
             cap = int(math.ceil((needed + 8) / 8.0) * 8)
             self._grid_spec = self._grid_spec.replace(cap=cap)
             self._dense, self._meta = self._densify(state)
+            self._tracer.count("sync_reads", "densify")
             if not bool(self._meta.overflow):
                 self._place_spatial()
                 return
         for _ in range(8):
             self._grid_spec = self._grid_spec.grow(gentle=self._auto_tuned)
             self._dense, self._meta = self._densify(state)
+            self._tracer.count("sync_reads", "densify")
             if not bool(self._meta.overflow):
                 self._place_spatial()
                 return
@@ -783,18 +834,26 @@ class Simulation:
         return self._tables[1]
 
     def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls, window=None,
-                     partners=None):
+                     partners=None, mark=None):
         """The net force, and, when rotational DOF are integrated, the net
         torque summed over the forces that produce one (zeros if none does;
         else None). Resetting it every step matters even without a torque
         force: Langevin stores its effective torque there, which must not
         carry into the next step's sum. On a shard, stencil forces read its
-        halo ``window`` and bonds its ``partners``."""
+        halo ``window`` and bonds its ``partners``. ``mark``: the segment's
+        phase mark (trace.py), called as each force's phase begins (the
+        first's before the sums are zeroed)."""
+        forces = self._forces()
+        names = phase_names("force", forces) if mark is not None else None
+        if names:
+            mark(names[0])
         net = torch.zeros((dense.N, 3), dtype=torch.float32, device=dense.device)
         need_torque = self._rotational()
         ntq = torch.zeros_like(net) if need_torque else None
         ctx = self._ctx()
-        for f, tbl in zip(self._forces(), tbls, strict=True):
+        for k, (f, tbl) in enumerate(zip(forces, tbls, strict=True)):
+            if names and k:
+                mark(names[k])
             r = self._evaluate(f, dense, meta, t, ctx, tbl, window, "force", partners)
             net = net + r.force
             if need_torque and r.torque is not None:
@@ -846,12 +905,13 @@ class Simulation:
             first += s.N
         return tuple(out)
 
-    def _with_forces(self, shards: tuple, metas: tuple, t: int, tbls) -> tuple:
+    def _with_forces(self, shards: tuple, metas: tuple, t: int, tbls, mark=None) -> tuple:
         """The shards (one for a whole layout) with this step's net force
-        (and net torque) set, each for its own slots."""
+        (and net torque) set, each for its own slots; ``mark`` as
+        :meth:`_compute_net` takes it."""
         views = zip(shards, metas, tbls, self._windows(shards), self._partners(shards),
                     strict=True)
-        out = tuple(self._set_net(s, *self._compute_net(s, m, t, tb, w, p))
+        out = tuple(self._set_net(s, *self._compute_net(s, m, t, tb, w, p, mark))
                     for s, m, tb, w, p in views)
         self.force_evaluations += len(self._forces())
         return out
@@ -928,27 +988,40 @@ class Simulation:
     def profile(self, logdir):
         """``with sim.profile(logdir): sim.run(n)`` records a
         ``torch.profiler`` trace of the host (and of the GPU for a simulation
-        on CUDA) and writes it into ``logdir`` for TensorBoard. The step
-        loop's phases are ranges named after the reference's scopes:
+        on CUDA) and writes it into ``logdir`` for TensorBoard, with the
+        tracer's spans and phase marks on (trace.py; the tracer's state is
+        restored after). The segments run as they run outside it, as CUDA
+        graphs where :meth:`_graphs_apply`: the spans are ranges around the
+        run loop's work (``az.run``, ``az.chunk``, ``az.segment.replay``,
+        ...), and each phase of a segment begins with its mark kernel,
+        ``az_phase_mark<id>`` (``tracer.mark_table()`` names the id):
         ``rebin`` (once a rebuild), ``integrate_step1``,
-        ``verlet_drift_check`` (with a grid), ``forces``,
-        ``integrate_step2`` (each once a step), ``updaters`` (a step where
-        an updater fires) and ``mpcd_joint_collision`` (once a collision).
-        Inside it the rebuild segments run eagerly, never as CUDA graphs, so
-        that every phase's range holds its own launches. Yields the
+        ``verlet_drift_check`` (with a grid), ``force.<Class>`` (one a
+        force), ``integrate_step2``, ``updater.<Class>`` (every step on the
+        graphs, masked; where it fires on the eager loop) and
+        ``mpcd_joint_collision`` (once a collision); ``end`` closes a
+        segment. On the eager loop each phase is also a range of its name.
+        The marked segment shapes are seen, captured and replayed anew (a
+        graph's key holds whether it is marked). Spans recorded inside are
+        dropped at the end unless spans were on before. Yields the
         ``torch.profiler.profile``."""
         from torch.profiler import ProfilerActivity, tensorboard_trace_handler
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        tracer = self._tracer
+        was = tracer.spans_on, tracer.marks_on
         with torch.profiler.profile(activities=activities,
                                     on_trace_ready=tensorboard_trace_handler(str(logdir))) as prof:
-            self._phase_range = torch.profiler.record_function
+            tracer.enable(spans=True, marks=True)
             try:
                 yield prof
             finally:
-                self._phase_range = _no_range
+                tracer.disable()
+                tracer.enable(*was)
+                if not was[0]:
+                    tracer.drain()  # the trace holds them
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
 
@@ -981,8 +1054,9 @@ class Simulation:
             if coupled and solv is None:
                 raise ValueError("a coupled chunk needs the solvent's anchor")
             runner = self._build_runner(tbls)
-            runner.load(dense, meta, t0, self._variant_values(t0, n_steps),
-                        self._trigger_masks(t0, n_steps), solv[:2] if coupled else None)
+            with self._tracer.span("az.runner.load"):
+                runner.load(dense, meta, t0, self._variant_values(t0, n_steps),
+                            self._trigger_masks(t0, n_steps), solv[:2] if coupled else None)
             t_a = solv[2] if coupled else None
             for a, n, rebuild in segments:
                 lead = self._collision_lead(t0 + a, n, t_a) if coupled else None
@@ -997,8 +1071,10 @@ class Simulation:
         viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
         steps = self._eager_steps(t0, n_steps, shards[0].device)
         for a, n, rebuild in segments:
-            shards, metas, viol, solv = self._run_segment(shards, metas, viol, t0 + a, n,
-                                                          rebuild, tbls, solv, steps)
+            with self._tracer.span("az.segment.loop"):
+                shards, metas, viol, solv = self._run_segment(shards, metas, viol, t0 + a, n,
+                                                              rebuild, tbls, solv, steps,
+                                                              loop=True)
         return self._as_layout(shards), self._as_layout(metas), viol, solv
 
     def _step_variants(self) -> tuple:
@@ -1045,7 +1121,7 @@ class Simulation:
         return Steps(t0, None if values is None else to_device(values, device), None)
 
     def _run_segment(self, shards: tuple, metas: tuple, viol, t0: int, n_steps: int,
-                     rebuild: bool, tbls, solv=None, steps=None) -> tuple:
+                     rebuild: bool, tbls, solv=None, steps=None, loop: bool = False) -> tuple:
         """One rebuild segment (the reference's ``seg_body``): the grid
         rebuild when ``rebuild``, then ``n_steps`` steps from timestep
         ``t0``, each step1 -> the drift check ORed into ``viol`` -> forces ->
@@ -1060,15 +1136,19 @@ class Simulation:
         every step as the reference's masked select
         (``Updater._update_masked``), bit for bit the host-fired update.
         Makes no host read, so that it can be captured as a CUDA graph.
-        Returns ``(shards, metas, viol, solv)``. Inside :meth:`profile`,
-        each phase that does work is a range named after the reference's
-        scope."""
+        Returns ``(shards, metas, viol, solv)``. With the tracer's marks on,
+        each phase begins with its mark (trace.py), named after the
+        reference's scope. ``loop``: the segment runs on the eager loop,
+        where a mark also opens a range of its phase while a profiler
+        records, and it ends with ``end``; else it ends with ``writeback``,
+        the segment graphs' copy of its results, whose ``end`` the runner
+        marks."""
         from .core.variant import scheduled
 
         if steps is None:
             steps = self._eager_steps(t0, n_steps, shards[0].device)
         spec = self._grid_spec
-        scope = self._phase_range
+        mark = self._tracer.marker(shards[0].device, loop)
         integ = self.operations.integrator
         methods = integ.methods if integ is not None else []
         updaters = self._step_updaters()
@@ -1076,9 +1156,12 @@ class Simulation:
         mass_s = self._mpcd["mass"] if coupling is not None else None
         dt = self.dt_ref()
         seed = self.seed
+        if mark is not None:
+            names = phase_names("updater", updaters)
         if spec is not None and rebuild:
-            with scope("rebin"):
-                shards, metas = self._rebuild(shards, metas)
+            if mark is not None:
+                mark("rebin")
+            shards, metas = self._rebuild(shards, metas)
         # with a grid the last method's step1 carries the drift check (on
         # the card K7 and K6 in one launch): the verdict on a whole layout,
         # each shard's two largest drifts on shards
@@ -1088,49 +1171,54 @@ class Simulation:
         with scheduled(self._step_variants(), steps.values, steps.t0, host_form):
             for t in range(t0, t0 + n_steps):
                 self.steps_run += 1
-                with scope("integrate_step1"):
-                    for m in unchecked:
-                        shards = tuple(m.step1(s, dt, t, seed) for s in shards)
-                    if checked is not None:
-                        shards, found = self._step1_checked(checked, shards, metas, viol, dt,
-                                                            t, seed)
+                if mark is not None:
+                    mark("integrate_step1")
+                for m in unchecked:
+                    shards = tuple(m.step1(s, dt, t, seed) for s in shards)
+                if checked is not None:
+                    shards, found = self._step1_checked(checked, shards, metas, viol, dt, t, seed)
                 if spec is not None:
-                    with scope("verlet_drift_check"):
-                        if checked is None:
-                            viol = self._drifted(shards, metas, viol)
-                        elif len(shards) == 1:
-                            (viol,) = found
-                        else:
-                            viol = self._verdict_of(found, viol)
-                with scope("forces"):
-                    shards = self._with_forces(shards, metas, t, tbls)
-                with scope("integrate_step2"):
-                    for m in methods:
-                        shards = tuple(m.step2(s, dt, t, seed) for s in shards)
+                    if mark is not None:
+                        mark("verlet_drift_check")
+                    if checked is None:
+                        viol = self._drifted(shards, metas, viol)
+                    elif len(shards) == 1:
+                        (viol,) = found
+                    else:
+                        viol = self._verdict_of(found, viol)
+                shards = self._with_forces(shards, metas, t, tbls, mark)
+                if mark is not None:
+                    mark("integrate_step2")
+                for m in methods:
+                    shards = tuple(m.step2(s, dt, t, seed) for s in shards)
                 if steps.fires is not None:
                     # the graphs: every updater after every step on every
                     # shard, kept where its trigger (the schedule's bool) holds
-                    with scope("updaters"):
-                        for k, u in enumerate(updaters):
-                            shards = u._update_masked_shards(
-                                shards, steps.fires[k, t - steps.t0], t, seed)
+                    for k, u in enumerate(updaters):
+                        if mark is not None:
+                            mark(names[k])
+                        shards = u._update_masked_shards(shards, steps.fires[k, t - steps.t0],
+                                                         t, seed)
                 else:
-                    fired = [u for u in updaters if u.trigger(t)]
-                    if fired:
-                        with scope("updaters"):
-                            for u in fired:
-                                shards = u._update_shards(shards, t, seed)
+                    for k, u in enumerate(updaters):
+                        if u.trigger(t):
+                            if mark is not None:
+                                mark(names[k])
+                            shards = u._update_shards(shards, t, seed)
                 if coupling is not None and coupling.trigger(t):
-                    with scope("mpcd_joint_collision"):
-                        shards, solv = coupling._collide(shards, solv, t + 1, seed, mass_s)
+                    if mark is not None:
+                        mark("mpcd_joint_collision")
+                    shards, solv = coupling._collide(shards, solv, t + 1, seed, mass_s)
+        if mark is not None:
+            mark("end" if loop else "writeback")
         return shards, metas, viol, solv
 
     def _graphs_apply(self) -> bool:
         """Whether this run's segments are CUDA graphs: on the card (or
-        with a stand-in capture), not ``_eager``, outside :meth:`profile`,
-        and :meth:`_graph_eligible`."""
+        with a stand-in capture), not ``_eager``, and
+        :meth:`_graph_eligible`."""
         return (not self._eager and (self.device.type == "cuda" or self._capture is not None)
-                and self._phase_range is _no_range and self._graph_eligible())
+                and self._graph_eligible())
 
     def _graph_eligible(self) -> bool:
         """The rule on the operations: a whole layout or the shards of a
@@ -1160,15 +1248,15 @@ class Simulation:
 
     def _advance_graphs_apply(self) -> bool:
         """Whether the SRD advance of this run replays CUDA graphs: on the
-        card (or with a stand-in capture), not ``_eager``, outside
-        :meth:`profile`, a solvent whose blocks lie on one device (one
-        block, or one a shard of a one-device mesh) and no MPCD coupling
-        (the joint collision moves a coupled stream inside the step loop)."""
+        card (or with a stand-in capture), not ``_eager``, a solvent whose
+        blocks lie on one device (one block, or one a shard of a one-device
+        mesh) and no MPCD coupling (the joint collision moves a coupled
+        stream inside the step loop)."""
         from .parallel.mesh import _key
 
         srd = self.mpcd_dynamics
         return (not self._eager and (self.device.type == "cuda" or self._capture is not None)
-                and self._phase_range is _no_range and self._mpcd is not None
+                and self._mpcd is not None
                 and srd is not None
                 and len({_key(p.device) for p in self._mpcd["position"]}) == 1
                 and self._coupling is None and not srd._coupled)
@@ -1197,7 +1285,8 @@ class Simulation:
         when its key (grid spec and cap, payload fields, the operations'
         fingerprint, the tables' identity, rotational or not; on shards the
         mesh: its size, slabs or strips, the shards' slot counts) still
-        holds, else a new one on buffers shaped like the current layout."""
+        holds, else a new one on buffers shaped like the current layout,
+        counted by what changed in the key (:func:`_build_cause`)."""
         from .graph import Counters, SegmentGraphs
 
         variants, updaters = self._step_variants(), self._step_updaters()
@@ -1224,10 +1313,14 @@ class Simulation:
                                                           rebuild, tbls, solv, steps)
             return (shards, metas, viol) if solv is None else (shards, metas, viol, solv)
 
-        self._runner = SegmentGraphs(key, segment, self._dense, self._meta, Counters(self),
-                                     capture=self._capture, totals=self._graph_totals,
-                                     n_values=len(variants), n_fires=len(updaters),
-                                     max_steps=self.max_chunk, n_solvent=n_solvent)
+        self._tracer.count("runner_builds", _build_cause(self._runner_key, key))
+        self._runner_key = key
+        with self._tracer.span("az.runner.build"):
+            self._runner = SegmentGraphs(key, segment, self._dense, self._meta, Counters(self),
+                                         capture=self._capture, totals=self._graph_totals,
+                                         n_values=len(variants), n_fires=len(updaters),
+                                         max_steps=self.max_chunk, n_solvent=n_solvent,
+                                         tracer=self._tracer)
         return self._runner
 
     def _collision_lead(self, t0: int, n_steps: int, t_a: int) -> int | None:
@@ -1337,14 +1430,19 @@ class Simulation:
                 "with divisors near the natural rebuild interval "
                 "(or a composite period) to avoid the extra "
                 "rebuild cost.",
-                stacklevel=3,
+                stacklevel=5,
             )
         return seg_base
 
     def run(self, n_steps: int):
-        from .write import _fire_writers, _writer_next_fire
+        with self._tracer.span("az.run"):
+            self._run(int(n_steps))
 
-        n_steps = int(n_steps)
+    def _run(self, n_steps: int):
+        """:meth:`run`'s loop: chunks between host reads, each accepted or
+        replayed, and after each accepted one the solvent's advance, the
+        rebuild interval's adaptation and the writers."""
+        tracer = self._tracer
         fp, fp_refs = self._ops_fingerprint()
         if self._ops_fp != fp:
             # integrator, methods or forces changed since the last attach
@@ -1366,134 +1464,158 @@ class Simulation:
         remaining = n_steps
         tbls = self._force_tables()
         while remaining > 0:
-            # the scheduled tune fires the first time the absolute timestep
-            # reaches auto_tune_after, so its point does not depend on the
-            # run() chunking
-            auto_pending = not self._auto_tuned and self.auto_tune_after is not None
-            if auto_pending and self._timestep >= self.auto_tune_after:
+            with tracer.span("az.chunk"):
+                remaining -= self._chunk(remaining, tbls, writers)
+
+    def _chunk(self, remaining: int, tbls, writers: list) -> int:
+        """One chunk of :meth:`_run`'s loop, sized by what ends it (counted
+        in the tracer's ``chunk_ends``), run, read once, and accepted or
+        thrown away (its steps counted in ``discarded_steps``). Returns the
+        steps the timestep advanced: the chunk's, or 0."""
+        from .write import _fire_writers, _writer_next_fire
+
+        tracer = self._tracer
+        # the scheduled tune fires the first time the absolute timestep
+        # reaches auto_tune_after, so its point does not depend on the
+        # run() chunking
+        auto_pending = not self._auto_tuned and self.auto_tune_after is not None
+        if auto_pending and self._timestep >= self.auto_tune_after:
+            with tracer.span("az.tune"):
                 self.tune_cell_capacity()
                 if not self._prepared:
                     self._prepare()
-                auto_pending = False
-            chunk = min(remaining, self.max_chunk)
-            if auto_pending:
-                chunk = min(chunk, self.auto_tune_after - self._timestep)
-            if writers:
-                # end the chunk at the next writer fire
-                nw = _writer_next_fire(writers, self._timestep + 1)
-                if nw is not None:
-                    chunk = min(chunk, nw - self._timestep)
-            # while the interval adapts, chunks end at quantum boundaries so
-            # interval changes land at the same timestep whatever the chunking
-            if self._seg_adapt and (self._seg_len < self._seg_ceiling or self._seg_ceiling < 50):
-                chunk = min(chunk, _GROW_QUANTUM - self._timestep % _GROW_QUANTUM)
-            # align to the absolute rebuild schedule: an unaligned start runs
-            # a no-rebuild continuation up to the next schedule point
-            seg_base = self._seg_len
-            if self._coupling is not None and self._coupling._ingraph:
-                seg_base = self._snap_to_period(seg_base, self._coupling.srd.period)
-            off = self._timestep % seg_base
-            rebin_first = off == 0
-            if off:
-                chunk = min(chunk, seg_base - off)
-            seg_arg = seg_base
-            if off and self._realign:
-                seg_arg = 1
-                rebin_first = True
-            elif not off:
-                self._realign = False
-            if self._probe_until is not None and rebin_first:
-                # after an overflow: one rebuild a chunk, at its start
-                chunk = min(chunk, seg_arg)
+            auto_pending = False
+        chunk = min(remaining, self.max_chunk)
+        ends = "steps" if chunk == remaining else "max_chunk"
+        if auto_pending and self.auto_tune_after - self._timestep < chunk:
+            chunk, ends = self.auto_tune_after - self._timestep, "tune"
+        if writers:
+            # end the chunk at the next writer fire
+            nw = _writer_next_fire(writers, self._timestep + 1)
+            if nw is not None and nw - self._timestep < chunk:
+                chunk, ends = nw - self._timestep, "writer"
+        # while the interval adapts, chunks end at quantum boundaries so
+        # interval changes land at the same timestep whatever the chunking
+        if self._seg_adapt and (self._seg_len < self._seg_ceiling or self._seg_ceiling < 50):
+            q = _GROW_QUANTUM - self._timestep % _GROW_QUANTUM
+            if q < chunk:
+                chunk, ends = q, "quantum"
+        # align to the absolute rebuild schedule: an unaligned start runs
+        # a no-rebuild continuation up to the next schedule point
+        seg_base = self._seg_len
+        if self._coupling is not None and self._coupling._ingraph:
+            seg_base = self._snap_to_period(seg_base, self._coupling.srd.period)
+        off = self._timestep % seg_base
+        rebin_first = off == 0
+        if off and seg_base - off < chunk:
+            chunk, ends = seg_base - off, "align"
+        seg_arg = seg_base
+        if off and self._realign:
+            seg_arg = 1
+            rebin_first = True
+        elif not off:
+            self._realign = False
+        if self._probe_until is not None and rebin_first and seg_arg < chunk:
+            # after an overflow: one rebuild a chunk, at its start
+            chunk, ends = seg_arg, "probe"
+        tracer.count("chunk_ends", ends)
 
-            solv = None
-            if self._coupling is not None:
-                solv = self._mpcd.get("_srd_anchor") or (
-                    self._mpcd["position"], self._mpcd["velocity"], self._timestep)
-            backup_dense, backup_meta = self._dense, self._meta
-            dense, meta, violated, solv = self._run_chunk(
-                backup_dense, backup_meta, self._timestep, chunk, seg_arg, tbls, rebin_first, solv
-            )
-            # the one host synchronisation of the chunk
+        solv = None
+        if self._coupling is not None:
+            solv = self._mpcd.get("_srd_anchor") or (
+                self._mpcd["position"], self._mpcd["velocity"], self._timestep)
+        backup_dense, backup_meta = self._dense, self._meta
+        dense, meta, violated, solv = self._run_chunk(
+            backup_dense, backup_meta, self._timestep, chunk, seg_arg, tbls, rebin_first, solv
+        )
+        # the one host synchronisation of the chunk
+        with tracer.span("az.chunk.read"):
             overflow, violated, max_occ = self._chunk_flags(meta, violated)
-            if self._grid_spec is not None and overflow:
-                if not all(bool(torch.isfinite(d.position).all()) for d in _as_shards(dense)):
-                    raise RuntimeError(
-                        "simulation diverged: non-finite particle positions at timestep "
-                        f"~{self._timestep} (cell overflow requested capacity {max_occ}). "
-                        "Typical causes: overlapping initial coordinates, dt too large, "
-                        "or a potential evaluated inside its divergence."
-                    )
-                self._dense, self._meta = backup_dense, backup_meta
-                self._state_stale = True
-                if chunk > seg_arg:
-                    # the chunk held several rebuilds: replay it one rebuild a
-                    # chunk, so the capacity grows at the rebuild that
-                    # overflowed, a timestep that does not depend on where
-                    # chunks end (writers end them anywhere)
-                    self._probe_until = self._timestep + chunk
-                    continue
-                # transactional replay from the rebuild that overflowed, with
-                # a capacity sized by the recorded max occupancy
-                self._probe_until = None
+        tracer.count("sync_reads", "chunk_flags")
+        if self._grid_spec is not None and overflow:
+            tracer.count("discarded_steps", "overflow", chunk)
+            tracer.count("sync_reads", "overflow_finite")
+            if not all(bool(torch.isfinite(d.position).all()) for d in _as_shards(dense)):
+                raise RuntimeError(
+                    "simulation diverged: non-finite particle positions at timestep "
+                    f"~{self._timestep} (cell overflow requested capacity {max_occ}). "
+                    "Typical causes: overlapping initial coordinates, dt too large, "
+                    "or a potential evaluated inside its divergence."
+                )
+            self._dense, self._meta = backup_dense, backup_meta
+            self._state_stale = True
+            if chunk > seg_arg:
+                # the chunk held several rebuilds: replay it one rebuild a
+                # chunk, so the capacity grows at the rebuild that
+                # overflowed, a timestep that does not depend on where
+                # chunks end (writers end them anywhere)
+                self._probe_until = self._timestep + chunk
+                return 0
+            # transactional replay from the rebuild that overflowed, with
+            # a capacity sized by the recorded max occupancy
+            self._probe_until = None
+            with tracer.span("az.grow"):
                 self._synced_state()
                 self._grow_and_rebuild(max_occ)
-                continue
-            if violated:
-                if seg_arg > 1:
-                    # a particle out-drifted the Verlet margin inside a
-                    # segment: re-derive the interval from the peak speed at
-                    # the chunk start (safety 1.5: the violation shows the
-                    # estimate was optimistic here) and replay
-                    est = self._interval_from_vmax(backup_dense, safety=1.5)
-                    est_opt = self._interval_from_vmax(backup_dense)
-                    if est is None:
-                        est = max(self._seg_len // 2, 1)
-                        est_opt = est
-                    new_seg = max(1, min(self._seg_len - 1, est))
-                    self._seg_ceiling = max(new_seg, min(est_opt, 50))
-                    self._clean_quanta = 0
-                    self._dense, self._meta = backup_dense, backup_meta
-                    self._seg_len = new_seg
-                    self._realign = True
-                    self.viol_replays += 1
-                    continue
-                # seg_len == 1: a particle crossed more than the buffer in
-                # one step (HOOMD's "dangerous build"); accept with a warning
-                warnings.warn(
-                    "dangerous neighbor rebuild: a particle moved more than the Verlet "
-                    "buffer in a single step; increase the nlist buffer or reduce dt",
-                    stacklevel=2,
-                )
-            self._dense, self._meta = dense, meta
-            self._state_stale = True
-            self._timestep += chunk
-            remaining -= chunk
-            if self._probe_until is not None and self._timestep >= self._probe_until:
-                # the replay passed the overflowed chunk without an overflow
-                # (a CUDA replay with atomic sums need not repeat its bits)
-                self._probe_until = None
-            if solv is not None:
-                # the chunk's joint collisions moved the solvent's anchor (a
-                # tensor of its own: the runner's buffers are the next chunk's)
-                self._mpcd = {**self._mpcd, "position": solv[0], "velocity": solv[1],
-                              "_srd_anchor": solv}
-            if self._mpcd is not None and self.mpcd_dynamics is not None:
-                # advance the stream over the accepted chunk only (a replay
-                # must not advance it twice); collisions key on the absolute
-                # timestep, so this does not depend on the chunking
+            return 0
+        if violated:
+            if seg_arg > 1:
+                # a particle out-drifted the Verlet margin inside a
+                # segment: re-derive the interval from the peak speed at
+                # the chunk start (safety 1.5: the violation shows the
+                # estimate was optimistic here) and replay
+                tracer.count("discarded_steps", "violation", chunk)
+                est = self._interval_from_vmax(backup_dense, safety=1.5)
+                est_opt = self._interval_from_vmax(backup_dense)
+                if est is None:
+                    est = max(self._seg_len // 2, 1)
+                    est_opt = est
+                new_seg = max(1, min(self._seg_len - 1, est))
+                self._seg_ceiling = max(new_seg, min(est_opt, 50))
+                self._clean_quanta = 0
+                self._dense, self._meta = backup_dense, backup_meta
+                self._seg_len = new_seg
+                self._realign = True
+                self.viol_replays += 1
+                return 0
+            # seg_len == 1: a particle crossed more than the buffer in
+            # one step (HOOMD's "dangerous build"); accept with a warning
+            warnings.warn(
+                "dangerous neighbor rebuild: a particle moved more than the Verlet "
+                "buffer in a single step; increase the nlist buffer or reduce dt",
+                stacklevel=4,
+            )
+        self._dense, self._meta = dense, meta
+        self._state_stale = True
+        self._timestep += chunk
+        if self._probe_until is not None and self._timestep >= self._probe_until:
+            # the replay passed the overflowed chunk without an overflow
+            # (a CUDA replay with atomic sums need not repeat its bits)
+            self._probe_until = None
+        if solv is not None:
+            # the chunk's joint collisions moved the solvent's anchor (a
+            # tensor of its own: the runner's buffers are the next chunk's)
+            self._mpcd = {**self._mpcd, "position": solv[0], "velocity": solv[1],
+                          "_srd_anchor": solv}
+        if self._mpcd is not None and self.mpcd_dynamics is not None:
+            # advance the stream over the accepted chunk only (a replay
+            # must not advance it twice); collisions key on the absolute
+            # timestep, so this does not depend on the chunking
+            with tracer.span("az.mpcd.advance"):
                 self._mpcd = self.mpcd_dynamics._advance(
-                    self._mpcd, self._state.box, self._timestep - chunk, self._timestep, self.seed,
-                    graphs=self._advance_runner())
-            if self._seg_adapt and self._timestep % _GROW_QUANTUM == 0:
-                self._clean_quanta += 1
-                if self._seg_len < self._seg_ceiling:
-                    self._seg_len += 1
-                elif self._seg_ceiling < 50 and self._clean_quanta % 10 == 0:
-                    self._seg_ceiling += 1
-                    self._seg_len = min(self._seg_len + 1, self._seg_ceiling)
-            if writers:
+                    self._mpcd, self._state.box, self._timestep - chunk, self._timestep,
+                    self.seed, graphs=self._advance_runner())
+        if self._seg_adapt and self._timestep % _GROW_QUANTUM == 0:
+            self._clean_quanta += 1
+            if self._seg_len < self._seg_ceiling:
+                self._seg_len += 1
+            elif self._seg_ceiling < 50 and self._clean_quanta % 10 == 0:
+                self._seg_ceiling += 1
+                self._seg_len = min(self._seg_len + 1, self._seg_ceiling)
+        if writers:
+            with tracer.span("az.writers"):
                 _fire_writers(self, writers, self._timestep)
+        return chunk
 
     # -- observables -----------------------------------------------------------
     def _compute_single_force(self, force) -> ForceResult:

@@ -4046,12 +4046,16 @@ def _same_sharded(what, got, want):
 
 
 def _phase_ops(sim, steps):
-    """``steps`` steps under ``sim.profile`` (a directory inside the
-    checkout, removed after): the trace's ranges, device operations and
-    device-busy us by phase (``_phase_split``)."""
+    """``steps`` steps under ``sim.profile`` on the eager loop (a directory
+    inside the checkout, removed after): the trace's ranges, device
+    operations and device-busy us by phase (``_phase_split``)."""
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_profile_") as logdir:
-        with sim.profile(logdir):
-            sim.run(steps)
+        sim._eager = True
+        try:
+            with sim.profile(logdir):
+                sim.run(steps)
+        finally:
+            sim._eager = False
         (trace,) = Path(logdir).glob("*.pt.trace.json")
         return _phase_split(trace)
 
@@ -4371,23 +4375,33 @@ PHASES = ("rebin", "integrate_step1", "verlet_drift_check", "forces", "integrate
 
 
 def _phase_split(trace):
-    """A ``Simulation.profile`` trace (Chrome JSON) -> (ranges by phase,
-    device operations by phase, device-busy us by phase). A device operation
-    belongs to the phase whose range encloses, on the same host thread, the
-    runtime call that launched it (matched by correlation id); "outside"
-    holds the rest of the run (its host reads, the solvent's advance)."""
+    """A ``Simulation.profile`` trace of the eager loop (Chrome JSON) ->
+    (ranges by phase, device operations by phase, device-busy us by phase),
+    the forces' ranges (``force.<Class>``) as ``forces`` and the updaters'
+    (``updater.<Class>``) as ``updaters``. A device operation belongs to
+    the phase whose range encloses, on the same host thread, the runtime
+    call that launched it (matched by correlation id); "outside" holds the
+    rest of the run (its host reads, the solvent's advance); the phase
+    marks (``az_phase_mark``) are no operation."""
     import bisect
     from collections import Counter, defaultdict
 
     events = json.loads(Path(trace).read_text())["traceEvents"]
     spans = defaultdict(list)
     ranges = Counter()
+    fold = {"force": "forces", "updater": "updaters"}
     for e in events:
-        if e.get("cat") == "user_annotation" and e.get("name") in PHASES:
-            ranges[e["name"]] += 1
-            spans[(e["pid"], e["tid"])].append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        name = e.get("name", "")
+        name = fold.get(name.split(".")[0], name) if "." in name else name
+        if e.get("cat") == "user_annotation" and name in PHASES:
+            spans[(e["pid"], e["tid"])].append((e["ts"], e["ts"] + e["dur"], name))
     for v in spans.values():
         v.sort()
+        # one range of the forces (of the updaters) a step: the ranges of
+        # the forces (updaters) one after another are one
+        for k, (_, _, name) in enumerate(v):
+            if not (name in fold.values() and k and v[k - 1][2] == name):
+                ranges[name] += 1
     phase_of = {}
     for e in events:
         corr = e.get("args", {}).get("correlation")
@@ -4399,6 +4413,8 @@ def _phase_split(trace):
     ops, busy = Counter(), Counter()
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            if "az_phase_mark" in e.get("name", ""):
+                continue
             phase = phase_of.get(e.get("args", {}).get("correlation"), "outside")
             ops[phase] += 1
             busy[phase] += e.get("dur", 0)
@@ -4406,8 +4422,9 @@ def _phase_split(trace):
 
 
 def run_profile(sim, label, steps, card, collisions=0):
-    """[profile]: ``steps`` steps of ``sim`` under ``sim.profile`` into a
-    directory inside the checkout (removed afterwards); the trace's ranges
+    """[profile]: ``steps`` steps of ``sim`` under ``sim.profile`` on the
+    eager loop into a directory inside the checkout (removed afterwards);
+    the trace's ranges
     must count one of each step phase a step (the force evaluations'
     count, so a replayed step counts again), ``rebin`` once a build in the
     window and ``mpcd_joint_collision`` ``collisions`` times (at least, and
@@ -4422,7 +4439,7 @@ def run_profile(sim, label, steps, card, collisions=0):
     and ``integrate_step2`` exactly 1 each (K11 with the check; K8's
     acceleration-only instance). Returns the device operations a range of
     each phase that ran ({phase: operations a range})."""
-    sim._eager = True  # the eager loop's ms/step, as the profile runs it
+    sim._eager = True  # the eager loop's ms/step, as the profile below runs it
     try:
         ms_step = _timed_run(sim, steps)[0]
     finally:
@@ -4431,8 +4448,12 @@ def run_profile(sim, label, steps, card, collisions=0):
     spec0 = sim._grid_spec
     n_forces = len(sim.operations.integrator.forces)
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".smoke_profile_") as logdir:
-        with sim.profile(logdir):
-            sim.run(steps)
+        sim._eager = True  # the ranges of the phases exist on the eager loop
+        try:
+            with sim.profile(logdir):
+                sim.run(steps)
+        finally:
+            sim._eager = False
         traces = list(Path(logdir).glob("*.pt.trace.json"))
         if len(traces) != 1:
             raise AssertionError(f"profile: {label}: {len(traces)} trace files in {logdir}")

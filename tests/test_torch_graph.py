@@ -304,9 +304,10 @@ PATHS = ["lj", "dpd", "patchy", "polymer", "brownian", "brownian_flow", "droplet
 
 
 def _old_run_chunk(self, dense, meta, t0, n_steps, seg_len, tbls, rebin_first=True, solv=None):
-    """The step loop the rebuild segments replaced, as it was."""
+    """The step loop the rebuild segments replaced, as it was (its profile
+    scopes, which the simulation no longer holds, enter nothing)."""
     spec = self._grid_spec
-    scope = self._phase_range
+    scope = lambda name: contextlib.nullcontext()  # noqa: E731
     integ = self.operations.integrator
     methods = integ.methods if integ is not None else []
     updaters = [u for u in self.operations.updaters if not getattr(u, "_updates_mpcd", False)]
@@ -642,6 +643,10 @@ def test_the_schedule_keeps_the_graph_keys():
 
 
 def test_eligible_runs_take_the_graphs_but_not_profile_or_eager(tmp_path):
+    """An eligible run takes the graphs where a capture exists, the private
+    ``_eager`` keeps the eager loop, and ``profile`` keeps the graphs: its
+    segments are marked graphs of their own (keys ending in "marks"), the
+    unmarked ones after it graphs of today's keys."""
     sim = _build(port, "lj")
     assert sim._graph_eligible() and not sim._graphs_apply()  # the CPU: no CUDA capture
     sim._capture = FakeCapture()
@@ -650,11 +655,15 @@ def test_eligible_runs_take_the_graphs_but_not_profile_or_eager(tmp_path):
     assert not sim._graphs_apply()
     sim._eager = False
     with sim.profile(tmp_path):
-        assert not sim._graphs_apply()
+        assert sim._graphs_apply() and sim.tracer.marks_on and sim.tracer.spans_on
         sim.run(20)
-    assert sim._runner is None
+    runner = sim._runner
+    assert runner is not None and runner.captures == 1 and runner.replays == 1
+    assert runner.graph_keys() == [(10, True, "marks")]
+    assert not sim.tracer.marks_on and not sim.tracer.spans_on
     sim.run(20)
-    assert sim._runner is not None and sim._runner.captures == 1
+    assert sim._runner is runner and runner.captures == 2
+    assert runner.graph_keys() == [(10, True, "marks"), (10, True)]
 
 
 # ---------------------------------------------------------------------------
@@ -1014,9 +1023,9 @@ def test_advance_counters_under_replay(monkeypatch):
 
 @pytest.mark.parametrize("case", ["coupled", "sharded", "profile", "eager", "whole"])
 def test_advance_eligibility(case, tmp_path):
-    """A coupled stream, a run inside profile and the private _eager keep
-    the eager advance, by the rule, before any capture; a whole uncoupled
-    stream takes the graphs, and so does one in several blocks beside a
+    """A coupled stream and the private _eager keep the eager advance, by
+    the rule, before any capture; a whole uncoupled stream takes the
+    graphs, inside profile too, and so does one in several blocks beside a
     sharded layout on one device (whose segments take the segment graphs).
     A coupled stream's collisions run on the segment graphs instead (the
     coupling owns them): only its observation stream is eager."""
@@ -1031,20 +1040,21 @@ def test_advance_eligibility(case, tmp_path):
         sim.operations.integrator.forces = [f]
         sim.enable_spatial_decomposition(port.parallel.make_mesh(2, device="cpu", sharded=True))
     sim._eager = case == "eager"
+    graphed = ("whole", "sharded", "profile")
     if case == "profile":
         with sim.profile(tmp_path):
             sim.run(6)
-            assert not sim._advance_graphs_apply()
+            assert sim._advance_graphs_apply()
     else:
         sim.run(6)
-        assert sim._advance_graphs_apply() == (case in ("whole", "sharded"))
+        assert sim._advance_graphs_apply() == (case in graphed)
     if case == "sharded":
         assert len(sim._mpcd["position"]) == 2 and len(sim._advance_graphs.pos_a) == 2
-    assert (sim._advance_graphs is None) == (case not in ("whole", "sharded"))
-    assert (sim._runner is not None) == (case in ("coupled", "whole", "sharded"))
+    assert (sim._advance_graphs is None) == (case not in graphed)
+    assert (sim._runner is not None) == (case in ("coupled", *graphed))
     if case in ("coupled", "sharded"):
         assert sim._graphs_apply() and sim._graph_totals["eager_segments"] >= 1
-    if case in ("whole", "sharded"):
+    if case in graphed:
         assert sim._advance_totals["replays"] >= 1
 
 

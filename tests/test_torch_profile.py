@@ -1,12 +1,16 @@
 """``Simulation.profile``: the port's twin of the reference's
 ``jax.profiler`` trace.
 
-A run under ``sim.profile(logdir)`` writes one TensorBoard trace whose step
-phases are ``record_function`` ranges named after the reference's scopes:
-``integrate_step1``, ``verlet_drift_check``, ``forces`` and
-``integrate_step2`` once a step, ``rebin`` once a rebuild, ``updaters`` on
-the steps an updater fires and ``mpcd_joint_collision`` once a collision.
-Profiling changes the trajectory nowhere, bitwise.
+A run under ``sim.profile(logdir)`` writes one TensorBoard trace with the
+tracer's spans and phase marks on (``azplugins_tpu_torch/trace.py``). On
+the eager loop (the CPU here, with no capture) each step phase is also a
+``record_function`` range named after the reference's scope:
+``integrate_step1``, ``verlet_drift_check``, ``force.<Class>`` (one a
+force) and ``integrate_step2`` once a step, ``rebin`` once a rebuild,
+``updater.<Class>`` on the steps the updater fires and
+``mpcd_joint_collision`` once a collision, each as often as its mark. The
+segments keep their CUDA graphs inside it (a stand-in capture here), and
+profiling changes the trajectory nowhere, bitwise.
 """
 
 import collections
@@ -18,20 +22,27 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import azplugins_tpu_torch as port  # noqa: E402
+from test_torch_trace import FakeCapture  # noqa: E402
 
 torch.set_num_threads(1)
 
-PHASES = ("rebin", "integrate_step1", "verlet_drift_check", "forces", "integrate_step2",
-          "updaters", "mpcd_joint_collision")
+PHASES = ("rebin", "integrate_step1", "verlet_drift_check", "integrate_step2",
+          "mpcd_joint_collision")
 
 
-def _ranges(logdir):
-    """{phase: count} of the one trace file in ``logdir``."""
+def _is_phase(name):
+    return name in PHASES or name.startswith(("force.", "updater."))
+
+
+def _ranges(logdir, spans=False):
+    """{phase: count} of the one trace file in ``logdir`` (with ``spans``,
+    of the tracer's spans, ``az.*``, instead)."""
     files = list(logdir.iterdir())
     assert len(files) == 1 and files[0].name.endswith(".pt.trace.json"), files
     events = json.loads(files[0].read_text())["traceEvents"]
+    keep = (lambda n: n.startswith("az.")) if spans else _is_phase
     return collections.Counter(e["name"] for e in events
-                               if e.get("cat") == "user_annotation" and e["name"] in PHASES)
+                               if e.get("cat") == "user_annotation" and keep(e["name"]))
 
 
 def _fluid(evaporate=False):
@@ -63,8 +74,11 @@ def _fluid(evaporate=False):
 
 
 def test_profile_writes_the_phase_ranges(tmp_path):
-    """25 steps: one range of each step phase a step, ``rebin`` once a
-    build of the window, ``updaters`` at the 5 steps the evaporator fires."""
+    """25 steps on the eager loop: one range of each step phase a step,
+    ``rebin`` once a build of the window, ``updater.ParticleEvaporator`` at
+    the 5 steps the evaporator fires, each as often as its mark; the spans
+    ``az.run``, ``az.chunk`` and ``az.segment.loop`` as ranges too; the
+    tracer off again after, its spans dropped."""
     sim = _fluid(evaporate=True)
     sim.run(0)  # attach and prepare outside the window
     builds0 = sim.n_builds
@@ -73,12 +87,17 @@ def test_profile_writes_the_phase_ranges(tmp_path):
         sim.run(25)
     assert sim.viol_replays == 0
     got = _ranges(tmp_path)
-    for phase in ("integrate_step1", "verlet_drift_check", "forces", "integrate_step2"):
+    for phase in ("integrate_step1", "verlet_drift_check", "force.LJ", "integrate_step2"):
         assert got[phase] == 25, (phase, got)
     assert got["rebin"] == sim.n_builds - builds0 >= 2
-    assert got["updaters"] == 5
+    assert got["updater.ParticleEvaporator"] == 5
     assert got["mpcd_joint_collision"] == 0
-    assert sim._phase_range.__name__ == "_no_range"
+    marks = sim.tracer.counters()["marks"]
+    assert {k: v for k, v in marks.items() if k != "end"} == dict(got)
+    spans = _ranges(tmp_path, spans=True)
+    assert spans["az.run"] == 1 and spans["az.chunk"] >= 1
+    assert spans["az.segment.loop"] == marks["end"] >= 3
+    assert not sim.tracer.spans_on and not sim.tracer.marks_on and sim.tracer.drain() == []
 
 
 def test_profile_marks_each_joint_collision(tmp_path):
@@ -107,17 +126,24 @@ def test_profile_marks_each_joint_collision(tmp_path):
         sim.run(30)
     got = _ranges(tmp_path)
     assert got["mpcd_joint_collision"] == 5
-    assert got["forces"] == 30
-    assert got["updaters"] == 0  # the coupling is the joint collision, not an updater range
+    assert got["force.LJ"] == 30
+    # the coupling is the joint collision, not an updater's range
+    assert not any(k.startswith("updater.") for k in got)
 
 
 def test_profile_leaves_the_trajectory_bitwise(tmp_path):
+    """Steps inside profile on the (stand-in) CUDA graphs, marked ones
+    replayed among them, and after it, bitwise an unprofiled run."""
     want = _fluid(evaporate=True)
-    want.run(30)
+    want.run(45)
     sim = _fluid(evaporate=True)
+    sim._capture = FakeCapture()
     sim.run(10)
+    replays = sim._graph_totals.get("replays", 0)
     with sim.profile(tmp_path):
-        sim.run(15)
+        sim.run(30)
+    assert sim._graph_totals["replays"] > replays
+    assert any(k[-1] == "marks" for k in sim._runner.graph_keys())
     sim.run(5)
     a, b = want.state.get_snapshot(), sim.state.get_snapshot()
     assert (b.particles.typeid == 1).sum() > 0  # the evaporator fired inside the window
