@@ -8,20 +8,40 @@
 // per-slot energy and virial). It computes the same per-slot sums; the
 // schedule is Hopper's own: the packed schedule of cell_stencil.cuh.
 //
-// What bounds it on an H100: instruction issue in the candidate filter. At
-// the 64k headline (12^3 cells of ~37 particles, r_cut 3.0) each slot has
-// ~1,000 occupied candidates in its 27 neighbour cells and ~100 inside the
-// cutoff; a candidate costs ~20 instructions (a shared-memory read, the
-// rounded separation, the compare, the list append, the loop), a pair
-// inside ~40 more (its evaluation). What the design does about it: only
-// occupied slots are staged and visited (the loop runs to the occupancy,
-// not to cap), the cell's slots share the block's 256 lanes (K lanes each),
-// and a lane evaluates only the candidates it listed inside its filter
-// radius, so a warp no longer pays the full evaluation on every candidate
-// one of its lanes accepts. The one-thread-per-slot schedule it replaces,
-// walking every slot of cap 72 in 27 staging rounds, took 0.390 ms a call
-// at the headline on an H100 80GB HBM3 at 700 W.
+// The sweep over every candidate (outside a rebuild segment, and where a
+// block's lists do not hold): only occupied slots are staged and visited
+// (the loop runs to the occupancy, not to cap), the cell's slots share the
+// block's 256 lanes (K lanes each), and a lane evaluates only the candidates
+// it listed inside its filter radius, so a warp does not pay the full
+// evaluation on every candidate one of its lanes accepts. At the 262,144
+// headline (19^3 cells of ~38 particles, r_cut 3.0 in cells 3.56 wide) a
+// slot has ~1,000 occupied candidates and ~96 inside the cutoff; the call
+// took 0.419 ms on an H100 80GB HBM3 at 700 W: the plan 0.030, staging and
+// the reduction 0.048, the candidate filter 0.218 (~20 instructions a
+// candidate), the evaluation 0.117.
 //
+// Verlet pair lists (az::PairList in cell_stencil.cuh) take the filter off
+// the steps between rebuilds. A slot's layout holds from one rebuild to the
+// next, and the drift check keeps the two largest drifts since the rebuild
+// under the buffer, so a pair inside any cutoff at a step of the segment
+// was within r_max + buffer at the rebuild's positions. The build (BUILD),
+// once a segment, runs the same plan, staging and lanes on those positions
+// and lists, a lane at a time, its candidates within that radius in the
+// order the filter visits them, and keeps the block's plan. Each force-only
+// call of the segment sweeps them: it loads the plan, stages the current
+// positions, filters each lane's list (~26 entries at the headline, 8 to a
+// 16-byte load) against its slot's largest cutoff and evaluates the hits
+// with the same body, so each lane adds the same pairs in the same order
+// and the forces are bitwise the full sweep's. A block whose lists
+// overflow, or that needs several staging or i rounds, sweeps every
+// candidate instead. What bounds K1 now: at the headline a sweep takes
+// 0.257 ms, the evaluation 0.097 of it (instruction issue in ~40
+// instructions a pair, the lanes of a warp waiting for the longest list),
+// the list's filter 0.088, staging and the reduction 0.060 (global-load
+// latency), the kept plan 0.005; the build 0.380 ms, once every ~7 steps.
+// Evaluating each pair once (Newton's third law) would halve the largest
+// part; it needs a j-side sum the design has not got.
+
 // Potentials are compile-time evaluators selected by a potential id (enum
 // Pot, the order of ops/pair_kernel.py::KERNEL_POTENTIALS). Each one is the
 // plain evaluator of ops/evaluators/pair.py, operation for operation, in
@@ -194,15 +214,21 @@ __device__ __forceinline__ bool evaluate(float rsq, float rcutsq, const Params<P
   return true;
 }
 
-template <int POT, bool WANT_ALL, bool MIN_IMAGE, bool XPLOR>
+// BUILD: the list build (pos holds the positions of the last rebuild, and
+// each lane lists the candidates within sqrt(list_rsq) in pl); else the
+// force, which sweeps pl's lists where pl.entries is set (force only) and
+// the block's lists hold, and every candidate otherwise.
+template <int POT, bool WANT_ALL, bool MIN_IMAGE, bool XPLOR, bool BUILD>
 __global__ void __launch_bounds__(kThreads)
     cell_pair_force_kernel(const float* __restrict__ pos, const int* __restrict__ type_of,
                            const int* __restrict__ tag, const float* __restrict__ tab, int T,
                            int Dx, int Dy, int Dz, int cap, az::Window win, BoxArgs box,
                            az::PackedLayout lay, float* __restrict__ force,
-                           float* __restrict__ energy, float* __restrict__ virial) {
+                           float* __restrict__ energy, float* __restrict__ virial,
+                           az::PairList pl, float list_rsq) {
   constexpr int B = kThreads;
   constexpr int N_ACC = WANT_ALL ? 10 : 3;
+  static_assert(!(BUILD && WANT_ALL), "the build computes no force");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ az::StencilPlan P;
   float4* stage = reinterpret_cast<float4*>(smem);  // x, y, z, typeid bits
@@ -214,32 +240,61 @@ __global__ void __launch_bounds__(kThreads)
   const int out_cell = blockIdx.x, cell = win.c0 * Dz + out_cell;
 
   const float* tabs = tab;
-  if (lay.tab_floats > 0) {
+  if (!BUILD && lay.tab_floats > 0) {
     float* s_tab = reinterpret_cast<float*>(smem + lay.off_tab);
     for (int x = t; x < lay.tab_floats; x += B) s_tab[x] = __ldg(tab + x);
     tabs = s_tab;
   }
-  az::plan_stencil<B, MIN_IMAGE>(P, tag, cell, win, Dx, Dy, Dz, cap);  // synchronises
-  if (!P.prefix) {
-    az::poison_cell<B, WANT_ALL>(out_cell, cap, force, energy, virial);
-    return;
-  }
-  const int in_cell = P.cell[P.self_seg];
-  for (int r = t; r < cap; r += B) {  // empty slots sum to exactly zero
-    if (tag[in_cell * cap + r] >= 0) continue;
-    const int s = out_cell * cap + r;
-    force[3 * s] = force[3 * s + 1] = force[3 * s + 2] = 0.f;
-    if (WANT_ALL) {
-      energy[s] = 0.f;
-      for (int a = 0; a < 6; ++a) virial[6 * s + a] = 0.f;
-    }
-  }
-  const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];
-  if (n_i == 0) return;
+  // the plan the last build kept where the block's lists hold, else a new one
+  const bool cached = !BUILD && !WANT_ALL && pl.entries != nullptr &&
+                      __ldg(pl.fallback + out_cell) == 0;
+  if (cached)
+    az::load_plan<B>(P, pl.plans + (size_t)out_cell * az::kPlanInts);  // synchronises
+  else
+    az::plan_stencil<B, MIN_IMAGE>(P, tag, cell, win, Dx, Dy, Dz, cap);  // synchronises
+  const int n_i = P.prefix ? P.start[P.self_seg + 1] - P.start[P.self_seg] : 0;
   const int M = P.start[P.n_seg];
   const int n_stage = (M + lay.stage_cap - 1) / lay.stage_cap;
   const az::LaneMap<B> L(n_i);
+  if constexpr (BUILD) {
+    // one staging round and one i round, or every candidate at each sweep
+    if (!P.prefix || n_stage > 1 || L.rounds > 1) {
+      if (t == 0) {
+        pl.fallback[out_cell] = 1;
+        atomicAdd(pl.n_fallback, 1ULL);
+      }
+      return;
+    }
+    az::store_plan<B>(P, pl.plans + (size_t)out_cell * az::kPlanInts);
+  }
+  // the block sweeps its lists (uniform across the block)
+  const bool listed = cached && n_i > 0 && n_stage == 1 && L.rounds == 1;
+  const int in_cell = P.cell[P.self_seg];
+  if (!BUILD) {
+    if (!P.prefix) {
+      az::poison_cell<B, WANT_ALL>(out_cell, cap, force, energy, virial);
+      return;
+    }
+    for (int r = t; r < cap; r += B) {  // empty slots sum to exactly zero
+      if (tag[in_cell * cap + r] >= 0) continue;
+      const int s = out_cell * cap + r;
+      force[3 * s] = force[3 * s + 1] = force[3 * s + 2] = 0.f;
+      if (WANT_ALL) {
+        energy[s] = 0.f;
+        for (int a = 0; a < 6; ++a) virial[6 * s + a] = 0.f;
+      }
+    }
+  }
+  if (n_i == 0) {
+    if (BUILD && t == 0) pl.fallback[out_cell] = 0;
+    return;
+  }
   const int k = t % L.K;
+  // the build's: this lane's list
+  az::ListWriter writer(
+      BUILD ? reinterpret_cast<uint4*>(pl.entries + az::list_entry<B>(pl, out_cell, t, 0))
+            : nullptr,
+      pl.cap_e);
 
   for (int q = 0; q < L.rounds; ++q) {
     const int ir = q * L.per_round + t / L.K;
@@ -252,7 +307,10 @@ __global__ void __launch_bounds__(kThreads)
       xi = pos[3 * si];
       yi = pos[3 * si + 1];
       zi = pos[3 * si + 2];
-      for (int tj = 0; tj < T; ++tj) rfilt = fmaxf(rfilt, tabs[kRcutsq * TT + ti * T + tj]);
+      if (BUILD)
+        rfilt = list_rsq;
+      else
+        for (int tj = 0; tj < T; ++tj) rfilt = fmaxf(rfilt, tabs[kRcutsq * TT + ti * T + tj]);
     }
     const float* tp = tabs + ti * T;
     float acc[N_ACC];
@@ -263,52 +321,69 @@ __global__ void __launch_bounds__(kThreads)
     float rcutsq = 0.f, ecut = 0.f, ronsq = 0.f;
     Params<POT> p;
 
-    // evaluates this lane's n listed candidates against their own type
-    // pair's cutoff, adding what each pair inside gives this slot
-    auto flush = [&](float xs, float ys, float zs, int n) {
-      for (int e = 0; e < n; ++e) {
-        const float4 pj = stage[list[e * B + t]];
-        float dx, dy, dz;
-        const float rsq =
-            az::separation<MIN_IMAGE>(xs, ys, zs, pj.x, pj.y, pj.z, box, &dx, &dy, &dz);
-        const int tj = __float_as_int(pj.w);
-        if (tj != cached_tj) {
-          const float* pp = tp + tj;
-          cached_tj = tj;
-          rcutsq = pp[kRcutsq * TT];
-          if (WANT_ALL) ecut = pp[kEcut * TT];
-          if (XPLOR) ronsq = pp[kRonsq * TT];
+    // adds what the listed candidate j gives this slot, (xs, ys, zs) its
+    // own position as j's run sees it, where the pair is inside its type
+    // pair's cutoff
+    auto add_pair = [&](float xs, float ys, float zs, int j) {
+      const float4 pj = stage[j];
+      float dx, dy, dz;
+      const float rsq =
+          az::separation<MIN_IMAGE>(xs, ys, zs, pj.x, pj.y, pj.z, box, &dx, &dy, &dz);
+      const int tj = __float_as_int(pj.w);
+      if (tj != cached_tj) {
+        const float* pp = tp + tj;
+        cached_tj = tj;
+        rcutsq = pp[kRcutsq * TT];
+        if (WANT_ALL) ecut = pp[kEcut * TT];
+        if (XPLOR) ronsq = pp[kRonsq * TT];
 #pragma unroll
-          for (int a = 0; a < n_params(POT); ++a) p.v[a] = pp[(kParam + a) * TT];
-        }
-        if (!(rsq < rcutsq)) continue;
-        float en = 0.f, f;
-        if (!evaluate<POT, WANT_ALL>(rsq, rcutsq, p, &en, &f)) continue;
-        if (XPLOR && rsq > ronsq) {  // xplor smoothing (ops/pair_force.py::_xplor_smooth)
-          // the force path forms the energy only here, where smoothing reads it
-          if (!WANT_ALL) evaluate<POT, true>(rsq, rcutsq, p, &en, &f);
-          const float dc = rcutsq - ronsq;
-          float denom = dc * dc * dc;
-          if (denom == 0.f) denom = 1.0f;
-          const float dr = rcutsq - rsq;
-          const float s = dr * dr * (rcutsq + 2.0f * rsq - 3.0f * ronsq) / denom;
-          const float ds_dr_divr = 12.0f * (rsq - ronsq) * dr / denom;
-          f = f * s + en * ds_dr_divr;
-          en = en * s;
-        }
-        acc[0] += f * dx;
-        acc[1] += f * dy;
-        acc[2] += f * dz;
-        if constexpr (WANT_ALL) {
-          acc[3] += 0.5f * (en - ecut);
-          const float w = 0.5f * f;
-          acc[4] += w * dx * dx;
-          acc[5] += w * dx * dy;
-          acc[6] += w * dx * dz;
-          acc[7] += w * dy * dy;
-          acc[8] += w * dy * dz;
-          acc[9] += w * dz * dz;
-        }
+        for (int a = 0; a < n_params(POT); ++a) p.v[a] = pp[(kParam + a) * TT];
+      }
+      if (!(rsq < rcutsq)) return;
+      float en = 0.f, f;
+      if (!evaluate<POT, WANT_ALL>(rsq, rcutsq, p, &en, &f)) return;
+      if (XPLOR && rsq > ronsq) {  // xplor smoothing (ops/pair_force.py::_xplor_smooth)
+        // the force path forms the energy only here, where smoothing reads it
+        if (!WANT_ALL) evaluate<POT, true>(rsq, rcutsq, p, &en, &f);
+        const float dc = rcutsq - ronsq;
+        float denom = dc * dc * dc;
+        if (denom == 0.f) denom = 1.0f;
+        const float dr = rcutsq - rsq;
+        const float s = dr * dr * (rcutsq + 2.0f * rsq - 3.0f * ronsq) / denom;
+        const float ds_dr_divr = 12.0f * (rsq - ronsq) * dr / denom;
+        f = f * s + en * ds_dr_divr;
+        en = en * s;
+      }
+      acc[0] += f * dx;
+      acc[1] += f * dy;
+      acc[2] += f * dz;
+      if constexpr (WANT_ALL) {
+        acc[3] += 0.5f * (en - ecut);
+        const float w = 0.5f * f;
+        acc[4] += w * dx * dx;
+        acc[5] += w * dx * dy;
+        acc[6] += w * dx * dz;
+        acc[7] += w * dy * dy;
+        acc[8] += w * dy * dz;
+        acc[9] += w * dz * dz;
+      }
+    };
+    // this lane's n listed candidates, all of one run; the build appends
+    // them to the lane's list instead
+    auto flush = [&](float xs, float ys, float zs, int n) {
+      if constexpr (BUILD) {
+        for (int e = 0; e < n; ++e) writer.push<B>(list[e * B + t]);
+        return;
+      }
+      for (int e = 0; e < n; ++e) add_pair(xs, ys, zs, list[e * B + t]);
+    };
+    // a listed block's: the lane's n listed candidates, of any runs (ascending)
+    az::RunCursor cursor;
+    auto flush_listed = [&](int n) {
+      for (int e = 0; e < n; ++e) {
+        const int j = list[e * B + t];
+        cursor.seek<MIN_IMAGE>(P, j, xi, yi, zi, box);
+        add_pair(cursor.xs, cursor.ys, cursor.zs, j);
       }
     };
 
@@ -327,10 +402,28 @@ __global__ void __launch_bounds__(kThreads)
             [&](int e, const float4& entry) { stage[e] = entry; });
         __syncthreads();
       }
-      az::sweep_round<B, MIN_IMAGE>(P, stage, R0, R1, L.K, k, active, P.start[P.self_seg] + ir,
-                                    xi, yi, zi, rfilt, box, list, flush);
+      if (listed) {
+        const uint4* lst =
+            reinterpret_cast<const uint4*>(pl.entries + az::list_entry<B>(pl, out_cell, t, 0));
+        az::sweep_list<B, MIN_IMAGE>(P, stage, lst, __ldg(pl.counts + out_cell * B + t), xi, yi,
+                                     zi, rfilt, box, list, flush_listed);
+      } else {
+        az::sweep_round<B, MIN_IMAGE>(P, stage, R0, R1, L.K, k, active,
+                                      P.start[P.self_seg] + ir, xi, yi, zi, rfilt, box, list,
+                                      flush);
+      }
     }
 
+    if constexpr (BUILD) {
+      writer.finish<B>();
+      const bool over = __syncthreads_or(writer.n > pl.cap_e);
+      pl.counts[out_cell * B + t] = (unsigned short)(over ? 0 : writer.n);
+      if (t == 0) {
+        pl.fallback[out_cell] = over;
+        if (over) atomicAdd(pl.n_fallback, 1ULL);
+      }
+      return;
+    }
     az::reduce_lanes<B, N_ACC>(part, acc, L, q, n_i, [&](int r, const float* sum) {
       const int s = out_cell * cap + r;
       force[3 * s] = sum[0];
@@ -358,21 +451,51 @@ struct LaunchArgs {
   float* force;
   float* energy;
   float* virial;
+  az::PairList pl;
+  float list_rsq;
 };
+
+template <int POT, bool WANT_ALL, bool MIN_IMAGE, bool XPLOR, bool BUILD>
+cudaError_t launch_one(const LaunchArgs& a) {
+  return az::launch_packed(cell_pair_force_kernel<POT, WANT_ALL, MIN_IMAGE, XPLOR, BUILD>, a.grid,
+                           a.block, a.lay, a.stream, a.pos, a.type_of, a.tag, a.tab, a.T, a.Dx,
+                           a.Dy, a.Dz, a.cap, a.win, a.box, a.lay, a.force, a.energy, a.virial,
+                           a.pl, a.list_rsq);
+}
 
 template <int POT, bool WANT_ALL, bool MIN_IMAGE>
 cudaError_t launch(const LaunchArgs& a, bool xplor) {
-  auto kernel = xplor ? cell_pair_force_kernel<POT, WANT_ALL, MIN_IMAGE, true>
-                      : cell_pair_force_kernel<POT, WANT_ALL, MIN_IMAGE, false>;
-  return az::launch_packed(kernel, a.grid, a.block, a.lay, a.stream, a.pos, a.type_of, a.tag,
-                           a.tab, a.T, a.Dx, a.Dy, a.Dz, a.cap, a.win, a.box, a.lay, a.force,
-                           a.energy, a.virial);
+  return xplor ? launch_one<POT, WANT_ALL, MIN_IMAGE, true, false>(a)
+               : launch_one<POT, WANT_ALL, MIN_IMAGE, false, false>(a);
 }
 
 template <int POT>
 cudaError_t launch_pot(const LaunchArgs& a, bool want_all, bool min_image, bool xplor) {
   if (want_all) return min_image ? launch<POT, true, true>(a, xplor) : launch<POT, true, false>(a, xplor);
   return min_image ? launch<POT, false, true>(a, xplor) : launch<POT, false, false>(a, xplor);
+}
+
+// The arguments both entry points share; false for a shape the kernel does
+// not take.
+bool common_args(LaunchArgs* a, const float* pos, const int* type_of, const int* tag, int T,
+                 int Dx, int Dy, int Dz, int cap, int w0, int n_cols, int c0, int n_own,
+                 float Lx, float Ly, float Lz, float xy, float xz, float yz, float xyLy,
+                 float xzLz, float yzLz, int n_tab_rows, int n_acc, void* stream) {
+  a->win = az::Window{w0, n_cols, c0, n_own};
+  if (!az::packed_launch(Dx, Dy, Dz, cap, a->win, T, n_tab_rows, 16, n_acc, kThreads, &a->grid,
+                         &a->block, &a->lay))
+    return false;
+  a->stream = static_cast<cudaStream_t>(stream);
+  a->pos = pos;
+  a->type_of = type_of;
+  a->tag = tag;
+  a->T = T;
+  a->Dx = Dx;
+  a->Dy = Dy;
+  a->Dz = Dz;
+  a->cap = cap;
+  a->box = BoxArgs{Lx, Ly, Lz, xy, xz, yz, xyLy, xzLz, yzLz};
+  return true;
 }
 
 }  // namespace
@@ -385,34 +508,32 @@ extern "C" {
 // row is read). pos, type_of and tag hold the window (w0, n_cols) of the
 // grid; the outputs, the n_own columns from c0 (cell_stencil.cuh, Window).
 // `energy` and `virial` are written only when want_all != 0 (and may be
-// null otherwise).
+// null otherwise). With want_all == 0 and `entries` set, a block sweeps
+// the pair lists az_cell_pair_list built on this layout (entries, counts,
+// fallback, plans, cap_e: az::PairList; plan_ints must be az::kPlanInts)
+// where its own hold.
 int az_cell_pair_force(const float* pos, const int* type_of, const int* tag, const float* tables,
                        int T, int Dx, int Dy, int Dz, int cap, int w0, int n_cols, int c0,
                        int n_own, float Lx, float Ly, float Lz, float xy, float xz, float yz,
                        float xyLy, float xzLz, float yzLz, int min_image, int potential,
                        int xplor, int want_all, float* force, float* energy, float* virial,
-                       void* stream) {
+                       unsigned short* entries, unsigned short* counts, int* fallback,
+                       int* plans, int cap_e, int plan_ints, void* stream) {
   LaunchArgs a;
   const bool all = want_all != 0, mi = min_image != 0, xp = xplor != 0;
-  a.win = az::Window{w0, n_cols, c0, n_own};
   if (potential < 0 || potential >= kNPot ||
-      !az::packed_launch(Dx, Dy, Dz, cap, a.win, T, kParam + n_params(potential), 16,
-                         all ? 10 : 3, kThreads, &a.grid, &a.block, &a.lay))
+      (entries != nullptr && (all || cap_e < 1 || cap_e % az::kListGroup ||
+                              plan_ints != az::kPlanInts)) ||
+      !common_args(&a, pos, type_of, tag, T, Dx, Dy, Dz, cap, w0, n_cols, c0, n_own, Lx, Ly, Lz,
+                   xy, xz, yz, xyLy, xzLz, yzLz, kParam + n_params(potential), all ? 10 : 3,
+                   stream))
     return (int)cudaErrorInvalidValue;
-  a.stream = static_cast<cudaStream_t>(stream);
-  a.pos = pos;
-  a.type_of = type_of;
-  a.tag = tag;
   a.tab = tables;
-  a.T = T;
-  a.Dx = Dx;
-  a.Dy = Dy;
-  a.Dz = Dz;
-  a.cap = cap;
-  a.box = BoxArgs{Lx, Ly, Lz, xy, xz, yz, xyLy, xzLz, yzLz};
   a.force = force;
   a.energy = energy;
   a.virial = virial;
+  a.pl = az::PairList{entries, counts, fallback, plans, nullptr, cap_e};
+  a.list_rsq = 0.f;
   cudaError_t err = cudaErrorInvalidValue;
   switch (potential) {
     case kPLJ: err = launch_pot<kPLJ>(a, all, mi, xp); break;
@@ -424,6 +545,34 @@ int az_cell_pair_force(const float* pos, const int* type_of, const int* tag, con
     case kGaussian: err = launch_pot<kGaussian>(a, all, mi, xp); break;
     case kYukawa: err = launch_pot<kYukawa>(a, all, mi, xp); break;
   }
+  return (int)err;
+}
+
+// The list build on `stream` (its CUDA error; 0 = launched): `ref` holds the
+// positions of the layout's last rebuild, in the layout of
+// az_cell_pair_force's pos; each lane lists its candidates whose squared
+// separation at those positions is below list_rsq (az::PairList), each
+// block whose lists hold keeps its plan, and each block that falls back
+// adds 1 to *n_fallback.
+int az_cell_pair_list(const float* ref, const int* type_of, const int* tag, int T, int Dx, int Dy,
+                      int Dz, int cap, int w0, int n_cols, int c0, int n_own, float Lx, float Ly,
+                      float Lz, float xy, float xz, float yz, float xyLy, float xzLz, float yzLz,
+                      int min_image, float list_rsq, unsigned short* entries,
+                      unsigned short* counts, int* fallback, int* plans,
+                      unsigned long long* n_fallback, int cap_e, int plan_ints, void* stream) {
+  LaunchArgs a;
+  if (entries == nullptr || counts == nullptr || fallback == nullptr || plans == nullptr ||
+      n_fallback == nullptr || cap_e < 1 || cap_e % az::kListGroup ||
+      plan_ints != az::kPlanInts ||
+      !common_args(&a, ref, type_of, tag, T, Dx, Dy, Dz, cap, w0, n_cols, c0, n_own, Lx, Ly, Lz,
+                   xy, xz, yz, xyLy, xzLz, yzLz, 0, 3, stream))
+    return (int)cudaErrorInvalidValue;
+  a.tab = nullptr;
+  a.force = a.energy = a.virial = nullptr;
+  a.pl = az::PairList{entries, counts, fallback, plans, n_fallback, cap_e};
+  a.list_rsq = list_rsq;
+  const cudaError_t err = min_image ? launch_one<kPLJ, false, true, false, true>(a)
+                                    : launch_one<kPLJ, false, false, false, true>(a);
   return (int)err;
 }
 

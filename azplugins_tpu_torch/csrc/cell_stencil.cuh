@@ -142,7 +142,9 @@ __device__ __forceinline__ float separation(float xs, float ys, float zs, float 
 //    type, listing the hits (buffer indices) in shared memory; the kernel's
 //    flush evaluates the list when any lane of the warp may fill it and at
 //    the end of each run. So the evaluation runs only on lanes that hold
-//    pairs, up to the longest list of the warp.
+//    pairs, up to the longest list of the warp. From a Verlet pair list
+//    (PairList; the pair kernel's) a lane tests only its listed candidates
+//    (sweep_list), in the same order.
 // 4. reduce_lanes adds each slot's K partial sums in lane order.
 // Global loads go kBatch to a thread at a time, so their latencies overlap.
 // The order of every sum depends on the input alone, so two launches on the
@@ -408,6 +410,148 @@ __device__ __forceinline__ void sweep_round(const StencilPlan& P, const float4* 
     }
     flush(xs, ys, zs, n);
   }
+}
+
+// A Verlet pair list of step 3 (cell_pair_force.cu's build and sweep): a
+// lane's candidates within a list radius of its slot at the last rebuild's
+// positions, in the order sweep_round visits them (ascending). A lane's
+// entries go in groups of kListGroup, one 16-byte access a group: entry e
+// of lane t of the block of own cell b is list_entry(pl, b, t, e), a
+// candidate number; counts[b * B + t] entries; cap_e (a multiple of
+// kListGroup) at most. The build keeps each block's plan (kPlanInts ints
+// from plans + b * kPlanInts), which its sweeps load instead of planning
+// anew. A block with fallback[b] != 0 (its lists overflowed cap_e, or its
+// stencil takes several staging or i rounds, or breaks the precondition)
+// plans and sweeps every candidate instead; each build adds its blocks that
+// fall back into *n_fallback.
+constexpr int kListGroup = 8;
+constexpr int kPlanInts = (int)(sizeof(StencilPlan) / sizeof(int));
+struct PairList {
+  unsigned short* entries;
+  unsigned short* counts;
+  int* fallback;
+  int* plans;
+  unsigned long long* n_fallback;
+  int cap_e;
+};
+
+// A plan to a block's kPlanInts ints of global memory, and back (the load
+// ends synchronised). Every thread calls them.
+template <int B>
+__device__ __forceinline__ void store_plan(const StencilPlan& P, int* __restrict__ dst) {
+  const int* src = reinterpret_cast<const int*>(&P);
+  for (int x = threadIdx.x; x < kPlanInts; x += B) dst[x] = src[x];
+}
+template <int B>
+__device__ __forceinline__ void load_plan(StencilPlan& P, const int* __restrict__ src) {
+  int* dst = reinterpret_cast<int*>(&P);
+  for (int x = threadIdx.x; x < kPlanInts; x += B) dst[x] = __ldg(src + x);
+  __syncthreads();
+}
+
+// Appends a lane's entries to its list a whole group at a time (one 16-byte
+// store), the group's entries held in registers until it is complete; past
+// cap entries nothing more is stored (the list overflowed).
+struct ListWriter {
+  uint4* dst;  // the lane's first group; the next ones B groups apart
+  int n, cap;
+  unsigned w[4];
+  __device__ __forceinline__ ListWriter(uint4* d, int c) : dst(d), n(0), cap(c), w{0, 0, 0, 0} {}
+  __device__ __forceinline__ void shift_in(unsigned v) {
+    w[0] = (w[0] >> 16) | (w[1] << 16);
+    w[1] = (w[1] >> 16) | (w[2] << 16);
+    w[2] = (w[2] >> 16) | (w[3] << 16);
+    w[3] = (w[3] >> 16) | (v << 16);
+  }
+  template <int B>
+  __device__ __forceinline__ void push(unsigned v) {
+    shift_in(v);
+    if (++n % kListGroup == 0 && n <= cap)
+      dst[(size_t)(n / kListGroup - 1) * B] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  // the last group, where it is partial (padded with zeros past the count)
+  template <int B>
+  __device__ __forceinline__ void finish() {
+    if (n % kListGroup == 0 || n > cap) return;
+    for (int m = n; m % kListGroup; ++m) shift_in(0);
+    dst[(size_t)(n / kListGroup) * B] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+template <int B>
+__device__ __forceinline__ size_t list_entry(const PairList& pl, int b, int t, int e) {
+  return (((size_t)b * (pl.cap_e / kListGroup) + e / kListGroup) * B + t) * kListGroup +
+         e % kListGroup;
+}
+
+// A lane's own position as the pairs of candidate g's run see it (its
+// run's shift, as sweep_round applies it), for g ascending.
+struct RunCursor {
+  int run, hi;
+  float xs, ys, zs;
+  __device__ __forceinline__ RunCursor() : run(-1), hi(0), xs(0.f), ys(0.f), zs(0.f) {}
+  template <bool MIN_IMAGE>
+  __device__ __forceinline__ void seek(const StencilPlan& P, int g, float xi, float yi, float zi,
+                                       const BoxArgs& box) {
+    if (g < hi) return;
+    do {
+      ++run;
+      hi = P.run_lo[run + 1];
+    } while (g >= hi);
+    xs = xi;
+    ys = yi;
+    zs = zi;
+    if (!MIN_IMAGE) shift_by(&xs, &ys, &zs, P.self_shift[run], box);
+  }
+};
+
+// Step 3 from a lane's list (one staging round, R0 = 0): the lane's cnt
+// entries from lst (its first group; the next ones B groups apart), a
+// group a step, the next group's load in flight; those whose squared
+// distance from (xi, yi, zi), shifted as their run has it, is below
+// rfilt_sq are listed in list[n * B + t] and flush(n) evaluates them when
+// any lane of the warp may fill it, and at the end. The list holds every
+// candidate sweep_round would list, in its order, so the lane evaluates
+// the same candidates in the same order. Every thread of the block calls it.
+template <int B, bool MIN_IMAGE, class Flush>
+__device__ __forceinline__ void sweep_list(const StencilPlan& P, const float4* __restrict__ pos4,
+                                           const uint4* __restrict__ lst, int cnt, float xi,
+                                           float yi, float zi, float rfilt_sq, const BoxArgs& box,
+                                           unsigned short* list, Flush&& flush) {
+  static_assert(kListLen >= 2 * kListGroup, "a step lists at most kListGroup");
+  const int t = threadIdx.x;
+  const int n_groups = (cnt + kListGroup - 1) / kListGroup;
+  uint4 cur = n_groups > 0 ? __ldg(lst) : make_uint4(0, 0, 0, 0);
+  RunCursor c;
+  int n = 0;
+  for (int gi = 0; __any_sync(kFullMask, gi < n_groups); ++gi) {
+    const uint4 next = gi + 1 < n_groups ? __ldg(lst + (size_t)(gi + 1) * B)
+                                         : make_uint4(0, 0, 0, 0);
+    if (gi < n_groups) {
+      const unsigned w[4] = {cur.x, cur.y, cur.z, cur.w};
+#pragma unroll
+      for (int u = 0; u < kListGroup; ++u) {
+        if (gi * kListGroup + u < cnt) {
+          const int g = (int)((w[u / 2] >> (16 * (u % 2))) & 0xffffu);
+          c.seek<MIN_IMAGE>(P, g, xi, yi, zi, box);
+          const float4 pj = pos4[g];
+          float dx, dy, dz;
+          const float rsq =
+              separation<MIN_IMAGE>(c.xs, c.ys, c.zs, pj.x, pj.y, pj.z, box, &dx, &dy, &dz);
+          if (rsq < rfilt_sq) {
+            list[n * B + t] = (unsigned short)g;
+            ++n;
+          }
+        }
+      }
+    }
+    cur = next;
+    if (__any_sync(kFullMask, n > kListLen - kListGroup)) {
+      flush(n);
+      n = 0;
+    }
+  }
+  flush(n);
 }
 
 // Step 4: this i round's lane partials to slot sums; write(ir, sum) for

@@ -122,6 +122,7 @@ def to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
 # or a dict of ints by kernel (or potential)
 _LAUNCH_COUNTERS = (
     (pair_kernel, "launches"), (pair_kernel, "launches_by_potential"),
+    (pair_kernel, "list_builds"),
     (dpd_kernel, "launches"), (aniso_kernel, "launches"),
     (rng_kernel, "launches"), (rng_kernel, "launches_by_kernel"), (pick_kernel, "launches"),
     (integrate_kernel, "launches"), (integrate_kernel, "launches_by_kernel"),
@@ -134,10 +135,10 @@ _SIM_COUNTERS = ("steps_run", "force_evaluations")
 class Counters:
     """The host counters a segment advances: the kernel wrappers' launch
     counts, ``sim``'s steps and force evaluations, and its tracer's phase
-    marks."""
+    marks and pair-list builds and sweeps."""
 
     def __init__(self, sim):
-        self._targets = [*_LAUNCH_COUNTERS, (sim.tracer, "marks"),
+        self._targets = [*_LAUNCH_COUNTERS, (sim.tracer, "marks"), (sim.tracer, "pair_list"),
                          *((sim, a) for a in _SIM_COUNTERS)]
 
     def read(self) -> list:
@@ -341,12 +342,16 @@ class SegmentGraphs(_GraphCache):
     lead)``, ``lead`` the steps from the anchor to that collision, and its
     segment gets ``solv=`` the anchor (``(pos_a, vel_a, t_a)``) and returns
     the new one as a fourth value.
+
+    ``pair_list`` (K1's Verlet pair list, a ``PairList`` sized from the
+    layout, or None) is read and written by every segment too: each gets it
+    as ``pair_list=``, builds it at its start and sweeps it.
     """
 
     def __init__(self, key, segment, dense, meta, counters: Counters, capture=None,
                  max_graphs: int = 32, totals: dict | None = None, n_values: int = 0,
                  n_fires: int = 0, max_steps: int = 0, n_solvent=None,
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None, pair_list=None):
         self._whole = not isinstance(dense, tuple)
         shards, metas = as_blocks(dense), as_blocks(meta)
         dev = shards[0].device
@@ -358,6 +363,7 @@ class SegmentGraphs(_GraphCache):
         self.shards = tuple(_clone(s, skip=_FIXED) for s in shards)
         self.metas = tuple(_clone(m) for m in metas)
         self.viol = torch.zeros((), dtype=torch.bool, device=dev)
+        self.pair_list = pair_list
         self.pos_a = self.vel_a = None
         if n_solvent is not None:
             sizes = tuple(int(n) for n in as_blocks(n_solvent))
@@ -399,7 +405,8 @@ class SegmentGraphs(_GraphCache):
                 + [getattr(m, n) for m in self.metas for n in _tensor_fields(m)]
                 + [self.viol, self.clock]
                 + ([self.schedule] if self.schedule is not None else [])
-                + ([*self.pos_a, *self.vel_a] if self.pos_a is not None else []))
+                + ([*self.pos_a, *self.vel_a] if self.pos_a is not None else [])
+                + (self.pair_list.tensors() if self.pair_list is not None else []))
 
     def load(self, dense, meta, t0: int, values: np.ndarray | None = None,
              fires: np.ndarray | None = None, anchor: tuple | None = None) -> None:
@@ -473,6 +480,8 @@ class SegmentGraphs(_GraphCache):
         def body():
             with _rng.device_clock(self.clock, t0):
                 extra = {} if self.schedule is None else {"steps": self._steps(t0, n_steps)}
+                if self.pair_list is not None:
+                    extra["pair_list"] = self.pair_list
                 if lead is not None:
                     extra["solv"] = (self.pos_a, self.vel_a, t0 + n_steps - lead)
                 shards, metas, viol, *solv = self._segment(self.shards, self.metas, self.viol,

@@ -47,6 +47,10 @@ class Force:
     # ``_compute_dense`` takes ``partners=`` (every slot's position and the
     # shard's first global slot)
     _reads_partners = False
+    # an isotropic pair potential of K1 (ops/pair_kernel.py): inside a rebuild
+    # segment on the card ``_compute_dense`` takes ``pair_list=``, a Verlet
+    # list built at the segment's start, for its force-only calls
+    _takes_pair_list = False
 
     def __init__(self):
         self._attached = False
@@ -71,7 +75,8 @@ class Force:
         """Force in the dense (slot) layout; ``slot_of`` maps tag -> slot.
         A stencil force (``_needs_nlist``) also takes ``window=``: on a
         sharded mesh, the shard's halo window, for whose own slots it
-        computes; a force that ``_reads_partners`` takes ``partners=``.
+        computes; a force that ``_reads_partners`` takes ``partners=``; one
+        that ``_takes_pair_list`` takes ``pair_list=``.
 
         Default: a per-particle force, the same in any layout (``_compute``).
         """

@@ -47,6 +47,7 @@ class Pair(Force):
     """Base for isotropic pair potentials riding a shared neighbour grid."""
 
     _needs_nlist = True
+    _takes_pair_list = True
     _evaluator_name: str = ""
     _accepted_modes = ("none", "shift", "xplor")
 
@@ -92,9 +93,10 @@ class Pair(Force):
             raise RuntimeError("not attached")
         return float(self._tbl["r_cut"].max())
 
-    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all", window=None):
+    def _compute_dense(self, dense, spec, slot_of, timestep, ctx, tbl, want="all", window=None,
+                       pair_list=None):
         return pair_force(self._def.energy_force, dense, spec, tbl, self.mode, want,
-                          window=window)
+                          window=window, pair_list=pair_list)
 
 
 class Colloid(Pair):
@@ -180,6 +182,7 @@ class DPDGeneralWeight(Pair):
     _evaluator_name = "DPDGeneralWeight"
     _accepted_modes = ("none",)
     _needs_velocity_j = True
+    _takes_pair_list = False
 
     def __init__(self, nlist: Cell, kT, default_r_cut=None, mode="none"):
         super().__init__(nlist, default_r_cut=default_r_cut, mode=mode)

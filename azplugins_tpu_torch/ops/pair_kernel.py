@@ -9,17 +9,17 @@ in modes none/shift/xplor, with per-slot energy and virial for observables
 (``want="all"``). Its plain PyTorch version is
 :func:`azplugins_tpu_torch.ops.dense.dense_pair_force`.
 
-What bounds it on an H100. At the 64k headline (grid 12^3, ~37 particles
-per cell, r_cut 3.0 in cells 3.5 wide) each slot has ~1,000 occupied
-candidates in its 27 neighbour cells, of which ~100 fall inside the cutoff,
+What bounds it on an H100. At the 262,144 headline (19^3 cells of ~38
+particles, r_cut 3.0 in cells 3.56 wide) each slot has ~1,000 occupied
+candidates in its 27 neighbour cells, of which ~96 fall inside the cutoff,
 and every pair is evaluated from both of its sides (twice the half
 stencil's work). The cutoff test costs ~20 instructions per candidate (a
 shared-memory read, the explicitly rounded separation, the compare, the
 list append, the loop); a pair inside costs ~40 more (~30 float32
 operations of PLJ; an exp or a sqrt more for the Yukawa, Morse, Gaussian
-and Hertz forms). That is ~1 GFLOP per call, ~15 us at the card's 67
-TFLOP/s float32 peak; instruction issue in the candidate filter, not
-FLOPs, is what binds. Measured times are in PERF.md.
+and Hertz forms). Instruction issue, not FLOPs, is what binds: in the
+sweep over every candidate the filter took half the call. Measured times
+are in PERF.md.
 
 What the design does about it (the packed schedule of
 ``csrc/cell_stencil.cuh``): one 256-thread block per cell stages the
@@ -33,8 +33,16 @@ they fit. Stencils with more candidates than the staging buffer holds
 (``kStageBytes``) are staged in rounds. Accumulation stays in registers
 with no atomics, so two launches on the same input give the same bits.
 The potential is a compile-time choice and the shift mode is folded into
-the tables (:func:`kernel_tables`). Newton halving with a j-side pass is a
-later measurement.
+the tables (:func:`kernel_tables`).
+
+Verlet pair lists (:class:`PairList`): inside a rebuild segment on the
+card (``Simulation._run_segment``) a build (:func:`build_pair_list`) lists,
+once a segment, each lane's candidates within the largest cutoff plus the
+Verlet buffer at the layout's last rebuild (:func:`list_rsq`); the
+segment's force-only calls sweep those lists instead of every candidate,
+bitwise the same forces, as long as the drift check holds. Calls outside a
+segment (observables, the first force) sweep every candidate. Newton
+halving with a j-side pass is a later measurement.
 
 The kernels take the slot layout :func:`~.dense.densify` builds, each
 cell's occupied slots first; a cell whose stencil holds another layout
@@ -61,14 +69,18 @@ from .evaluators.pair import PAIR_POTENTIALS
 from .pair_force import ForceResult
 
 __all__ = [
-    "launches", "launches_by_potential", "KERNEL_POTENTIALS", "kernel_tables",
-    "cell_pair_force", "pair_force",
+    "launches", "launches_by_potential", "list_builds", "KERNEL_POTENTIALS", "kernel_tables",
+    "cell_pair_force", "pair_force", "PairList", "lists_apply", "list_capacity", "list_rsq",
+    "build_pair_list",
 ]
 
 # kernel launches since import (or since a caller last reset them to 0):
-# in all, and per potential (each potential is its own kernel instantiation)
+# in all, and per potential (each potential is its own kernel instantiation);
+# the pair-list builds (:func:`build_pair_list`) apart, since they compute no
+# force: ``launches`` counts the force calls, list sweeps among them
 launches = 0
 launches_by_potential: dict[str, int] = {}
+list_builds = 0
 
 _SOURCE = "cell_pair_force.cu"
 # potential name -> its parameter tables in the order the kernel reads them;
@@ -132,11 +144,90 @@ def _library() -> ctypes.CDLL:
     fn = lib.az_cell_pair_force
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i] + [f] * 9 + [i, i, i, i, p, p, p, p]
+        fn.argtypes = ([p, p, p, p, i, i, i, i, i, i, i, i, i] + [f] * 9
+                       + [i, i, i, i, p, p, p, p, p, p, p, i, i, p])
         fn.restype = ctypes.c_int
+        lib.az_cell_pair_list.argtypes = ([p, p, p, i, i, i, i, i, i, i, i, i] + [f] * 9
+                                          + [i, f, p, p, p, p, p, i, i, p])
+        lib.az_cell_pair_list.restype = ctypes.c_int
         lib.az_cuda_error_string.argtypes = [ctypes.c_int]
         lib.az_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# a K1 block's threads (csrc kThreads): one column of a block's lists a thread
+LIST_LANES = 256
+# ints of a block's stencil plan (csrc az::kPlanInts: az::StencilPlan's four
+# scalars, five arrays of 27 and two of 28), which a build keeps for its sweeps
+PLAN_INTS = 4 + 5 * 27 + 2 * 28
+
+
+def lists_apply(device) -> bool:
+    """Whether K1's force calls on ``device`` sweep Verlet pair lists inside
+    a rebuild segment: on the card (the plain version on the CPU sweeps
+    every candidate)."""
+    return torch.device(device).type == "cuda"
+
+
+def list_capacity(cap: int) -> int:
+    """Entries a lane's pair list holds on a grid of ``cap`` slots a cell
+    (csrc ``az::PairList::cap_e``). The list radius is at most a cell's
+    edge, so at full occupancy a slot's list holds at most the 4 pi / 3 cap
+    particles of a sphere one edge wide, shared by the fewest lanes a slot
+    of a full cell gets (256 // cap); a quarter more for the fluctuations
+    of a liquid, a multiple of 8. A lane whose list outgrows it makes its
+    block sweep every candidate until the next build. A cell of more than
+    256 slots always does (its slots take several i rounds), so the sizing
+    stops there."""
+    c = min(int(cap), LIST_LANES)
+    share = 1.25 * (4.0 * math.pi / 3.0) * c / (LIST_LANES // c)
+    return 8 * math.ceil(share / 8)
+
+
+def list_rsq(r_max: float, buffer: float, box) -> float:
+    """The squared list radius of a force whose largest cutoff is ``r_max``
+    on a grid of Verlet ``buffer``: a pair inside any cutoff at a step that
+    passes the drift check (the two largest drifts since the rebuild sum to
+    at most ``buffer``) was within ``r_max + buffer`` at the rebuild. The
+    margins cover float32 rounding: 1e-5 of the radius, and 2**-20 of the
+    box's widest extent for the positions' own rounding (the lattice shifts
+    add a box length to a coordinate)."""
+    extent = max(box.Lx, box.Ly, box.Lz) * (1.0 + abs(box.xy) + abs(box.xz) + abs(box.yz))
+    r = (r_max + buffer) * (1.0 + 1e-5) + 2.0**-20 * extent
+    return r * r
+
+
+class PairList:
+    """K1's Verlet pair lists on a whole layout of grid ``spec``: device
+    buffers sized from it (csrc ``az::PairList``), one list a lane of each
+    cell's block, :func:`list_capacity` entries each, and each block's
+    stencil plan. :func:`build_pair_list` fills them from the rebuild's
+    positions; :func:`cell_pair_force` sweeps them (force only). Every block
+    sweeps every candidate until the first build. ``n_fallback``: a 0-d
+    int64 tensor on ``device`` into which each build adds the blocks that
+    fall back (the tracer's)."""
+
+    def __init__(self, spec: GridSpec, device, n_fallback: torch.Tensor):
+        self.spec = spec
+        self.cap_e = list_capacity(spec.cap)
+        n = spec.n_cells
+        self.entries = torch.empty((n, self.cap_e, LIST_LANES), dtype=torch.int16, device=device)
+        self.counts = torch.zeros((n, LIST_LANES), dtype=torch.int16, device=device)
+        self.fallback = torch.ones((n,), dtype=torch.int32, device=device)
+        self.plans = torch.empty((n, PLAN_INTS), dtype=torch.int32, device=device)
+        check_tensor(n_fallback, "n_fallback", torch.int64, (), self.entries.device)
+        self.n_fallback = n_fallback
+
+    def tensors(self) -> list[torch.Tensor]:
+        """The buffers a build writes."""
+        return [self.entries, self.counts, self.fallback, self.plans, self.n_fallback]
+
+    def check(self, spec: GridSpec, device) -> None:
+        """Raise unless the lists were sized for ``spec`` on ``device``."""
+        if spec != self.spec:
+            raise ValueError(f"pair lists of grid {self.spec} used on grid {spec}")
+        if self.entries.device != device:
+            raise ValueError(f"pair lists on {self.entries.device} used on {device}")
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -190,18 +281,27 @@ def launch_error(lib: ctypes.CDLL, fn: str, err: int) -> RuntimeError:
 
 
 def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor, potential: str,
-                    mode: str, want: str = "force", window: Window | None = None) -> ForceResult:
+                    mode: str, want: str = "force", window: Window | None = None,
+                    pair_list: PairList | None = None) -> ForceResult:
     """Launch the CUDA kernel on the current stream (no synchronisation).
 
     ``tables`` comes from :func:`kernel_tables` for ``potential`` and
     ``mode`` (the tables carry the mode; ``mode`` selects the instantiation
     that reads the xplor row). Returns per-slot force ``[S, 3]``, plus
     energy ``[S]`` and virial ``[S, 6]`` when ``want="all"``; with a
-    ``window``, read from ``window.state``, for its own slots.
+    ``window``, read from ``window.state``, for its own slots. With a
+    ``pair_list`` (force only, a whole layout) built on this layout since
+    its last rebuild, by positions that have passed the drift check since,
+    each block sweeps its lists where they hold: bitwise the forces of the
+    sweep over every candidate.
     """
     global launches
     src, geom, S_in, S = launch_window(dense, spec, window)
     dev = check_cell_args("cell_pair_force", src, spec, want, S_in)
+    if pair_list is not None:
+        if want != "force" or window is not None:
+            raise ValueError("a pair list serves force-only calls on a whole layout")
+        pair_list.check(spec, dev)
     if potential not in _POTENTIAL_ID:
         raise NotImplementedError(_NO_KERNEL)
     if mode not in ("none", "shift", "xplor"):
@@ -224,6 +324,9 @@ def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor, potentia
             force.data_ptr(),
             energy.data_ptr() if want_all else None,
             virial.data_ptr() if want_all else None,
+            *((pair_list.entries.data_ptr(), pair_list.counts.data_ptr(),
+               pair_list.fallback.data_ptr(), pair_list.plans.data_ptr(), pair_list.cap_e,
+               PLAN_INTS) if pair_list is not None else (None, None, None, None, 0, 0)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -233,8 +336,36 @@ def cell_pair_force(dense: State, spec: GridSpec, tables: torch.Tensor, potentia
     return ForceResult(force=force, energy=energy, virial=virial)
 
 
+def build_pair_list(dense: State, ref_position: torch.Tensor, spec: GridSpec, r_max: float,
+                    pair_list: PairList) -> None:
+    """Launch K1's list build on the current stream (no synchronisation):
+    each lane of ``pair_list`` lists its candidates within
+    :func:`list_rsq` of ``r_max`` at ``ref_position`` (the layout's last
+    rebuild, ``GridMeta.ref_position``), in the order the force's sweep
+    visits them; ``dense`` gives the layout (tags) and the box."""
+    global list_builds
+    dev = check_cell_args("build_pair_list", dense, spec, "force", spec.S)
+    check_tensor(ref_position, "ref_position", torch.float32, (spec.S, 3), dev)
+    pair_list.check(spec, dev)
+    cols = spec.dims[0] * spec.dims[1]
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.az_cell_pair_list(
+            ref_position.data_ptr(), dense.typeid.data_ptr(), dense.tag.data_ptr(), 1,
+            *spec.dims, spec.cap, 0, cols, 0, cols, *box_args(dense), int(not spec.newton_ok),
+            list_rsq(r_max, spec.buffer, dense.box), pair_list.entries.data_ptr(),
+            pair_list.counts.data_ptr(), pair_list.fallback.data_ptr(),
+            pair_list.plans.data_ptr(), pair_list.n_fallback.data_ptr(), pair_list.cap_e,
+            PLAN_INTS, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise launch_error(lib, "build_pair_list", err)
+    list_builds += 1
+
+
 def pair_force(energy_force_fn, dense: State, spec: GridSpec, tbl: dict,
-               mode: str = "none", want: str = "all", window: Window | None = None) -> ForceResult:
+               mode: str = "none", want: str = "all", window: Window | None = None,
+               pair_list: PairList | None = None) -> ForceResult:
     """Pair force of one potential on the dense grid, by the tensors' device.
 
     ``tbl`` holds the device tables of :class:`azplugins_tpu_torch.md.pair.Pair`:
@@ -242,7 +373,8 @@ def pair_force(energy_force_fn, dense: State, spec: GridSpec, tbl: dict,
     tables. CPU tensors take the plain version; CUDA tensors take the
     kernel, and a potential the kernel does not cover raises. With a
     ``window`` (a shard's), the force of its own slots, read from
-    ``window.state``.
+    ``window.state``. A ``pair_list`` (CUDA, force only) is swept as
+    :func:`cell_pair_force` sweeps it.
     """
     src = dense if window is None else window.state
     dev = src.position.device
@@ -259,4 +391,5 @@ def pair_force(energy_force_fn, dense: State, spec: GridSpec, tbl: dict,
         raise NotImplementedError(_NO_KERNEL)
     if "kernel" not in tbl:
         raise ValueError("CUDA pair force needs tbl['kernel'] from kernel_tables()")
-    return cell_pair_force(dense, spec, tbl["kernel"], name, mode, want, window=window)
+    return cell_pair_force(dense, spec, tbl["kernel"], name, mode, want, window=window,
+                           pair_list=pair_list)

@@ -375,6 +375,8 @@ class Simulation:
         self._runner = None
         self._eager = False
         self._capture = None
+        # K1's Verlet pair list of the current layout (_pair_list)
+        self._held_pair_list = None
         # captures, replays, eager_segments, evictions, ... over every runner
         # (the tracer's graph counters); the key of the last runner built
         self._graph_totals: dict = self._tracer.graph
@@ -511,6 +513,7 @@ class Simulation:
         self._prepared = False
         self._tables = None
         self._drop_runner()
+        self._held_pair_list = None
         self._advance_graphs = None
 
     def _drop_runner(self):
@@ -834,7 +837,7 @@ class Simulation:
         return self._tables[1]
 
     def _compute_net(self, dense: State, meta: D.GridMeta, t: int, tbls, window=None,
-                     partners=None, mark=None):
+                     partners=None, mark=None, pair_list=None):
         """The net force, and, when rotational DOF are integrated, the net
         torque summed over the forces that produce one (zeros if none does;
         else None). Resetting it every step matters even without a torque
@@ -842,7 +845,9 @@ class Simulation:
         carry into the next step's sum. On a shard, stencil forces read its
         halo ``window`` and bonds its ``partners``. ``mark``: the segment's
         phase mark (trace.py), called as each force's phase begins (the
-        first's before the sums are zeroed)."""
+        first's before the sums are zeroed). ``pair_list``: the segment's
+        K1 pair list (:meth:`_pair_list`), which every force that
+        ``_takes_pair_list`` sweeps."""
         forces = self._forces()
         names = phase_names("force", forces) if mark is not None else None
         if names:
@@ -854,21 +859,27 @@ class Simulation:
         for k, (f, tbl) in enumerate(zip(forces, tbls, strict=True)):
             if names and k:
                 mark(names[k])
-            r = self._evaluate(f, dense, meta, t, ctx, tbl, window, "force", partners)
+            r = self._evaluate(f, dense, meta, t, ctx, tbl, window, "force", partners,
+                               pair_list if f._takes_pair_list else None)
             net = net + r.force
             if need_torque and r.torque is not None:
                 ntq = ntq + r.torque
         return net, ntq
 
     def _evaluate(self, f, dense: State, meta: D.GridMeta, t: int, ctx, tbl, window,
-                  want: str, partners=None) -> ForceResult:
+                  want: str, partners=None, pair_list=None) -> ForceResult:
         """One force on a whole layout or a shard (a stencil force then reads
-        the shard's halo ``window``, a bond its ``partners``)."""
+        the shard's halo ``window``, a bond its ``partners``); a K1 force
+        given the ``pair_list`` sweeps it (counted in the tracer's
+        ``pair_list``)."""
         kw = {}
         if window is not None and f._needs_nlist:
             kw["window"] = window
         if partners is not None and f._reads_partners:
             kw["partners"] = partners
+        if pair_list is not None:
+            kw["pair_list"] = pair_list
+            self._tracer.pair_list["sweeps"] = self._tracer.pair_list.get("sweeps", 0) + 1
         return f._compute_dense(dense, self._grid_spec, meta.slot_of, t, ctx, tbl, want=want,
                                 **kw)
 
@@ -905,13 +916,14 @@ class Simulation:
             first += s.N
         return tuple(out)
 
-    def _with_forces(self, shards: tuple, metas: tuple, t: int, tbls, mark=None) -> tuple:
+    def _with_forces(self, shards: tuple, metas: tuple, t: int, tbls, mark=None,
+                     pair_list=None) -> tuple:
         """The shards (one for a whole layout) with this step's net force
-        (and net torque) set, each for its own slots; ``mark`` as
-        :meth:`_compute_net` takes it."""
+        (and net torque) set, each for its own slots; ``mark`` and
+        ``pair_list`` (a whole layout's) as :meth:`_compute_net` takes them."""
         views = zip(shards, metas, tbls, self._windows(shards), self._partners(shards),
                     strict=True)
-        out = tuple(self._set_net(s, *self._compute_net(s, m, t, tb, w, p, mark))
+        out = tuple(self._set_net(s, *self._compute_net(s, m, t, tb, w, p, mark, pair_list))
                     for s, m, tb, w, p in views)
         self.force_evaluations += len(self._forces())
         return out
@@ -1070,11 +1082,12 @@ class Simulation:
         shards, metas = _as_shards(dense), _as_shards(meta)
         viol = torch.zeros((), dtype=torch.bool, device=shards[0].device)
         steps = self._eager_steps(t0, n_steps, shards[0].device)
+        pair_list = self._pair_list()
         for a, n, rebuild in segments:
             with self._tracer.span("az.segment.loop"):
                 shards, metas, viol, solv = self._run_segment(shards, metas, viol, t0 + a, n,
                                                               rebuild, tbls, solv, steps,
-                                                              loop=True)
+                                                              loop=True, pair_list=pair_list)
         return self._as_layout(shards), self._as_layout(metas), viol, solv
 
     def _step_variants(self) -> tuple:
@@ -1121,7 +1134,8 @@ class Simulation:
         return Steps(t0, None if values is None else to_device(values, device), None)
 
     def _run_segment(self, shards: tuple, metas: tuple, viol, t0: int, n_steps: int,
-                     rebuild: bool, tbls, solv=None, steps=None, loop: bool = False) -> tuple:
+                     rebuild: bool, tbls, solv=None, steps=None, loop: bool = False,
+                     pair_list=None) -> tuple:
         """One rebuild segment (the reference's ``seg_body``): the grid
         rebuild when ``rebuild``, then ``n_steps`` steps from timestep
         ``t0``, each step1 -> the drift check ORed into ``viol`` -> forces ->
@@ -1142,7 +1156,9 @@ class Simulation:
         where a mark also opens a range of its phase while a profiler
         records, and it ends with ``end``; else it ends with ``writeback``,
         the segment graphs' copy of its results, whose ``end`` the runner
-        marks."""
+        marks. ``pair_list``: K1's pair list (:meth:`_pair_list`), built
+        after the rebuild, or at the start of a segment that continues
+        one, and swept by every step's force-only K1 calls."""
         from .core.variant import scheduled
 
         if steps is None:
@@ -1162,6 +1178,10 @@ class Simulation:
             if mark is not None:
                 mark("rebin")
             shards, metas = self._rebuild(shards, metas)
+        if pair_list is not None:
+            if mark is not None:
+                mark("pair_list")
+            self._build_pair_list(shards[0], metas[0], pair_list)
         # with a grid the last method's step1 carries the drift check (on
         # the card K7 and K6 in one launch): the verdict on a whole layout,
         # each shard's two largest drifts on shards
@@ -1186,7 +1206,7 @@ class Simulation:
                         (viol,) = found
                     else:
                         viol = self._verdict_of(found, viol)
-                shards = self._with_forces(shards, metas, t, tbls, mark)
+                shards = self._with_forces(shards, metas, t, tbls, mark, pair_list)
                 if mark is not None:
                     mark("integrate_step2")
                 for m in methods:
@@ -1308,20 +1328,57 @@ class Simulation:
         if self._runner is not None and self._runner.key == key:
             return self._runner
 
-        def segment(shards, metas, viol, t0, n_steps, rebuild, steps=None, solv=None):
+        def segment(shards, metas, viol, t0, n_steps, rebuild, steps=None, solv=None,
+                    pair_list=None):
             shards, metas, viol, solv = self._run_segment(shards, metas, viol, t0, n_steps,
-                                                          rebuild, tbls, solv, steps)
+                                                          rebuild, tbls, solv, steps,
+                                                          pair_list=pair_list)
             return (shards, metas, viol) if solv is None else (shards, metas, viol, solv)
 
         self._tracer.count("runner_builds", _build_cause(self._runner_key, key))
         self._runner_key = key
+        # the old runner's graphs and its hold on a pair list of an old grid
+        # go before the new buffers come
+        self._drop_runner()
         with self._tracer.span("az.runner.build"):
             self._runner = SegmentGraphs(key, segment, self._dense, self._meta, Counters(self),
                                          capture=self._capture, totals=self._graph_totals,
                                          n_values=len(variants), n_fires=len(updaters),
                                          max_steps=self.max_chunk, n_solvent=n_solvent,
-                                         tracer=self._tracer)
+                                         tracer=self._tracer, pair_list=self._pair_list())
         return self._runner
+
+    def _pair_list(self):
+        """K1's Verlet pair list of the current layout (a ``PairList``,
+        ops/pair_kernel.py), which every force that ``_takes_pair_list``
+        sweeps inside a rebuild segment, each by its own cutoffs: one for the
+        simulation, held while the grid keeps its spec and shared by the
+        runner and the eager loop, on a whole layout where the lists apply
+        (the card); else None, and every K1 call sweeps all of its
+        candidates (shards, the CPU)."""
+        from .ops import pair_kernel
+
+        if (self._grid_spec is None or self._sharded() or not pair_kernel.lists_apply(self.device)
+                or not any(f._takes_pair_list for f in self._forces())):
+            return None
+        held = self._held_pair_list
+        if held is None or held.spec != self._grid_spec:
+            self._held_pair_list = None  # the old buffers go before the new come
+            held = self._held_pair_list = pair_kernel.PairList(
+                self._grid_spec, self.device, self._tracer.fallback_total(self.device))
+        return held
+
+    def _build_pair_list(self, dense: State, meta: D.GridMeta, pair_list) -> None:
+        """The list's build from the layout's last rebuild (its
+        ``ref_position``, what the drift check measures against) at the
+        largest cutoff of the forces that sweep it: at a segment's start, so
+        a segment that continues one and a replayed chunk sweep the list of
+        their own layout."""
+        from .ops import pair_kernel
+
+        r_max = max(f._max_r_cut() for f in self._forces() if f._takes_pair_list)
+        pair_kernel.build_pair_list(dense, meta.ref_position, self._grid_spec, r_max, pair_list)
+        self._tracer.pair_list["builds"] = self._tracer.pair_list.get("builds", 0) + 1
 
     def _collision_lead(self, t0: int, n_steps: int, t_a: int) -> int | None:
         """The lead of a coupled segment of ``n_steps`` steps from ``t0``:

@@ -27,14 +27,20 @@ eviction); runner builds by what changed in the runner's key
 ``tables``, or ``dropped`` where the key held but the runner was dropped);
 chunks by what ended them (``chunk_ends``: ``steps``, ``max_chunk``,
 ``tune``, ``writer``, ``quantum``, ``align``, ``probe``); steps run and
-thrown away (``discarded_steps``: ``violation``, ``overflow``); and the
-loop's synchronising host reads by site (``sync_reads``).
+thrown away (``discarded_steps``: ``violation``, ``overflow``); the
+loop's synchronising host reads by site (``sync_reads``); and K1's Verlet
+pair lists (``pair_list``: ``builds``, one a rebuild segment on the card
+with a K1 force, ``sweeps``, the force-only K1 calls that take the
+list, exact under replay, and ``fallback_blocks``, the blocks of every
+build that sweep every candidate instead, which the builds add up on the
+card: read, with one host read, only by :meth:`Tracer.counters`).
 
 Device phase marks (``enable(marks=True)``): each phase of a rebuild
 segment (``Simulation._run_segment``) launches, as it begins, an empty
 kernel ``az_phase_mark<id>`` (``csrc/phase_mark.cu``) on the current
 stream, and the segment ends with the mark ``end``. The phases are
-``rebin``, ``integrate_step1``, ``verlet_drift_check``, one
+``rebin``, ``pair_list`` (K1's list builds, after the rebuild),
+``integrate_step1``, ``verlet_drift_check``, one
 ``force.<Class>`` a force of the integrator, ``integrate_step2``, one
 ``updater.<Class>`` an updater and ``mpcd_joint_collision``, and on the
 segment graphs ``writeback`` (the segment's results copied into the
@@ -77,7 +83,7 @@ N_MARKS = 64
 # the fixed phases' ids; the forces' and updaters' come after, in the order
 # a simulation first marks them
 _FIXED_PHASES = ("end", "rebin", "integrate_step1", "verlet_drift_check", "integrate_step2",
-                 "mpcd_joint_collision", "writeback")
+                 "mpcd_joint_collision", "writeback", "pair_list")
 
 _COUNTER_GROUPS = ("runner_builds", "chunk_ends", "discarded_steps", "sync_reads")
 
@@ -167,6 +173,10 @@ class Tracer:
         self._counts: dict = {g: {} for g in _COUNTER_GROUPS}
         # marks launched by phase (a graph.Counters target: exact under replay)
         self.marks: dict = {}
+        # K1's list builds and sweeps (a graph.Counters target), and by
+        # device the 0-d int64 total the builds add their fallen-back blocks to
+        self.pair_list: dict = {}
+        self._fallback_totals: dict = {}
         self._ids = {name: k for k, name in enumerate(_FIXED_PHASES)}
         self._range = None  # the eager loop's open phase range
 
@@ -208,11 +218,24 @@ class Tracer:
     def counters(self) -> dict:
         """A copy of every counter: ``graph`` (the segment graph cache's
         totals), ``runner_builds``, ``chunk_ends``, ``discarded_steps``,
-        ``sync_reads`` and ``marks``, each a dict by cause, reason, site or
-        phase."""
+        ``sync_reads``, ``marks`` and ``pair_list``, each a dict by cause,
+        reason, site, phase or kind. Reading ``pair_list``'s
+        ``fallback_blocks`` waits for the card."""
         out = {"graph": dict(self.graph), "marks": dict(self.marks)}
         out.update({g: dict(d) for g, d in self._counts.items()})
+        out["pair_list"] = {"builds": 0, "sweeps": 0, **self.pair_list,
+                            "fallback_blocks": sum(int(t) for t in self._fallback_totals.values())}
         return out
+
+    def fallback_total(self, device: torch.device) -> torch.Tensor:
+        """The 0-d int64 tensor on ``device`` into which K1's list builds add
+        the blocks that fall back; one a device for the tracer's life, so a
+        CUDA graph may hold its address."""
+        key = str(torch.device(device))
+        t = self._fallback_totals.get(key)
+        if t is None:
+            t = self._fallback_totals[key] = torch.zeros((), dtype=torch.int64, device=device)
+        return t
 
     # -- device phase marks ----------------------------------------------------
     def mark_table(self) -> dict[int, str]:

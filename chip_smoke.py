@@ -205,7 +205,13 @@
    step under the graphs, where it runs masked, on shards through K4;
    thermalize once a setup; the MPCD collision's K5 exactly once a
    collision, its clock form on the advance graphs, and K10 exactly once a
-   collision), and that the result is physical; on each
+   collision), that a path on K1's Verlet pair list launched one list
+   build a rebuild segment run (``list_builds``, apart from the force
+   launches) and swept the list once a K1 force a step, and a path without
+   one neither (the builds and sweeps printed with the launches), and that
+   the result is physical; on each path's state after its run, K1's list
+   built from the last rebuild's positions and swept is bitwise the sweep
+   over every candidate and within the bar of the plain version; on each
    full-size path the capacity tune fires at step 200, and the path prints the capacity and rebuild
    interval before and after it and the device-busy time a step in the 20
    steps before it and after the timed steps; after the headline, the DPD
@@ -2555,6 +2561,7 @@ def run_brownian(az, D, K, card, record, headline):
 def _reset_counts(K):
     K.PK.launches = 0
     K.PK.launches_by_potential.clear()
+    K.PK.list_builds = 0
     K.DK.launches = 0
     K.AK.launches = 0
     K.RK.launches = 0
@@ -2694,8 +2701,13 @@ def _device_work(prof):
 
 def _kernels_on_state(az, D, K, sim, forces, record):
     """Each pair kernel against its plain version on the path's own state
-    after the run (want="all")."""
+    after the run (want="all"); where the path sweeps K1's Verlet pair
+    list, K1 as the path's steps run it too: a list built from the last
+    rebuild's positions (``meta.ref_position``) and swept (want="force"),
+    bitwise the sweep over every candidate and within the bar of the plain
+    version, with the blocks that fell back."""
     dense, spec, dev = sim._dense, sim._grid_spec, sim.device
+    listed = sim._pair_list() is not None
     errs = []
     for f in forces:
         if not f._needs_nlist:
@@ -2722,6 +2734,8 @@ def _kernels_on_state(az, D, K, sim, forces, record):
             ref = D.dense_pair_force(f._def.energy_force, dense, jb, spec, tbl["params"],
                                      tbl["r_cut"], tbl["r_on"], f.mode, "all")
             name = f"cell_pair_force[{pot}]"
+            if listed and f._takes_pair_list:
+                errs.append(_swept_on_state(K, sim, f, tbl, ref, name, record))
         torch.cuda.synchronize()
         tag = f"{name} on the path's state"
         if got.torque is not None:
@@ -2731,6 +2745,54 @@ def _kernels_on_state(az, D, K, sim, forces, record):
         record(name, ferr)
         errs.append(f"{name} {ferr:.3e}")
     return ", ".join(errs)
+
+
+def _swept_on_state(K, sim, f, tbl, ref, name, record):
+    """K1's list build and sweep on the path's state (``_kernels_on_state``):
+    the sweep's force bitwise the full sweep's and within the bar of
+    ``ref`` (the plain version's); the build counted in ``list_builds``."""
+    dense, spec, dev = sim._dense, sim._grid_spec, sim.device
+    pot = f._evaluator_name
+    r_max = max(g._max_r_cut() for g in sim._forces() if g._takes_pair_list)
+    pl = K.PK.PairList(spec, dev, torch.zeros((), dtype=torch.int64, device=dev))
+    builds = K.PK.list_builds
+    K.PK.build_pair_list(dense, sim._meta.ref_position, spec, r_max, pl)
+    if K.PK.list_builds != builds + 1:
+        raise AssertionError(f"{name}: a list build not counted in list_builds")
+    swept = K.PK.cell_pair_force(dense, spec, tbl["kernel"], pot, f.mode, "force", pair_list=pl)
+    full = K.PK.cell_pair_force(dense, spec, tbl["kernel"], pot, f.mode, "force")
+    torch.cuda.synchronize()
+    if not torch.equal(swept.force.view(torch.int32), full.force.view(torch.int32)):
+        raise AssertionError(f"{name}: the list sweep on the path's state differs from the "
+                             f"sweep over every candidate")
+    err, _ = _compare(f"{name} list sweep on the path's state", swept.force, ref.force)
+    record(name, err)
+    occupied = int((dense.tag >= 0).view(-1, spec.cap).any(1).sum())
+    return (f"{name} list sweep {err:.3e} (bitwise the full sweep; {int(pl.n_fallback)} of "
+            f"{occupied} occupied blocks fell back, list capacity {pl.cap_e})")
+
+
+def _list_counts(K, sim, label, before, stepped):
+    """K1's Verlet-list builds (``list_builds``, counted at the launch) and
+    sweeps since ``before`` (the tracer's ``pair_list`` then), over
+    ``stepped`` steps: where the path sweeps a list (a whole layout on the
+    card with a K1 force), one build a rebuild segment run, the tracer's
+    count, and one sweep a K1 force a step; else none. Returns a line."""
+    now = sim.tracer.pair_list
+    builds = now.get("builds", 0) - before.get("builds", 0)
+    sweeps = now.get("sweeps", 0) - before.get("sweeps", 0)
+    n_k1 = sum(1 for f in sim._forces() if f._takes_pair_list)
+    listed = sim._pair_list() is not None
+    want = stepped * n_k1 if listed else 0
+    if K.PK.list_builds != builds or sweeps != want or listed != (builds > 0):
+        raise AssertionError(f"{label}: {K.PK.list_builds} K1 list builds launched, "
+                             f"{builds} counted and {sweeps} sweeps ({want} expected: "
+                             f"{stepped} steps x {n_k1} K1 forces, lists "
+                             f"{'on' if listed else 'off'})")
+    if not listed:
+        return "K1 pair lists off"
+    return (f"K1 list builds {builds} ({stepped / builds:.2f} steps each; not in the "
+            f"launches above), sweeps {sweeps} ({sweeps / stepped:.0f} a step)")
 
 
 def _time_at_caps(az, D, K, sim, forces, caps):
@@ -2843,6 +2905,7 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
     builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
     steps0 = sim.steps_run
     n_pair_forces = sum(1 for f in forces if f._needs_nlist)
+    lists0 = dict(sim.tracer.pair_list)
     _reset_counts(K)
     totals0 = dict(sim._graph_totals)
     ms_step, wall = _timed_run(sim, steps)
@@ -2865,6 +2928,7 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
     if sum(launched.values()) != pair_evals or min(launched.values()) < steps:
         raise AssertionError(f"{label}: kernel launches {launched} for {pair_evals} pair-force "
                              f"evaluations in {steps} steps")
+    listed = _list_counts(K, sim, label, lists0, stepped)
     _check_wrapped(sim, label)
     after = extra_check(sim, "after", before) if extra_check else ""
     kT_trans, kT_rot = _mean_kT(sim, thermo)
@@ -2891,7 +2955,7 @@ def run_path(az, D, K, card, record, label, build, warm_steps, steps, counts, dr
           f"{integrated} ({stepped} steps x {len(integ.methods)} methods); CUDA graphs "
           f"{'on' if sim._graphs_apply() else 'off (the eager loop: ' + _why_eager(sim) + ')'}: "
           f"{graphed['captures']} captures, {graphed['replays']} replays, "
-          f"{graphed['eager_segments']} first segments run eagerly", flush=True)
+          f"{graphed['eager_segments']} first segments run eagerly; {listed}", flush=True)
     print(f"[{label}] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy "
           f"per step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls "
           f"per step", flush=True)
@@ -3070,6 +3134,7 @@ def run_potential_sweep(az, K):
             forces=[force])
         sim.state.thermalize_particle_momenta(kT=1.0)
         sim.run(0)
+        lists0, steps0 = dict(sim.tracer.pair_list), sim.steps_run
         _reset_counts(K)
         evals0 = sim.force_evaluations
         sim.run(200)
@@ -3078,11 +3143,12 @@ def run_potential_sweep(az, K):
         evals = sim.force_evaluations - evals0
         if n != evals or n < 200 or PK.launches != n:
             raise AssertionError(f"{pot}: {n} kernel launches for {evals} force evaluations")
+        listed = _list_counts(K, sim, pot, lists0, sim.steps_run - steps0)
         _check_wrapped(sim, pot)
         if not np.isfinite(force.energy):
             raise AssertionError(f"{pot}: non-finite energy")
         print(f"[sweep] {pot} (mode {mode}): {n} launches for {evals} force evaluations, "
-              f"U/N {force.energy / sim.state.N_particles:.4f}", flush=True)
+              f"{listed}, U/N {force.energy / sim.state.N_particles:.4f}", flush=True)
         launched[pot] = n
     return launched
 
@@ -3206,6 +3272,7 @@ def run_colloid(az, D, K, card, record):
     name = "cell_pair_force[LJ]"
     builds0, replays0, evals0 = sim.n_builds, sim.viol_replays, sim.force_evaluations
     steps0 = sim.steps_run
+    lists0 = dict(sim.tracer.pair_list)
     _reset_counts(K)
     totals0 = dict(sim._graph_totals)
     ms_step, wall = _timed_run(sim, COLLOID_STEPS)
@@ -3228,6 +3295,7 @@ def run_colloid(az, D, K, card, record):
     if launched[name] != evals or evals < COLLOID_STEPS or K.PK.launches != evals:
         raise AssertionError(f"colloid: {launched} LJ kernel launches for {evals} force "
                              f"evaluations in {COLLOID_STEPS} steps")
+    listed = _list_counts(K, sim, "colloid", lists0, sim.steps_run - steps0)
     builds, replays = sim.n_builds - builds0, sim.viol_replays - replays0
     if not replays and not drawn["jax_normal_axis_clock"] == drawn["cell_sums"] == collisions:
         # (a violation replay collides again)
@@ -3286,7 +3354,7 @@ def run_colloid(az, D, K, card, record):
           f"{integrated}; CUDA graphs on, the joint collision inside: {graphed['captures']} "
           f"captures, {graphed['replays']} replays, {graphed['eager_segments']} first "
           f"segments run eagerly in the timed steps; keys {sim._runner.graph_keys()}; whole "
-          f"run {sim._graph_totals}", flush=True)
+          f"run {sim._graph_totals}; {listed}", flush=True)
     print(f"[colloid] profile: {ops:.1f} device operations and {busy:.4f} ms device-busy per "
           f"step; {htod:.2f} host-to-device copies and {syncs:.2f} synchronising calls per "
           f"step", flush=True)
@@ -3743,11 +3811,12 @@ def run_spatial(az, K, card):
         sim, _ = build_headline(az, "cuda")
         sim.enable_spatial_decomposition(make_mesh(n, device="cuda"))
         runs[n] = sim
-    launched, integrated = 0, {}
+    launched, integrated, listed = 0, {}, {}
     ms = {n: [] for n in runs}
     for stretch in (1, 2):
         for n, sim in runs.items():
             evals0, steps0 = sim.force_evaluations, sim.steps_run
+            lists0 = dict(sim.tracer.pair_list)
             _reset_counts(K)
             ms[n].append(_timed_run(sim, SPATIAL_STRETCH)[0])
             evals = sim.force_evaluations - evals0
@@ -3755,6 +3824,7 @@ def run_spatial(az, K, card):
             if k1 != evals or K.PK.launches != evals or evals < SPATIAL_STRETCH:
                 raise AssertionError(f"spatial: n={n}: {K.PK.launches} K1 launches for {evals} "
                                      f"force evaluations in {SPATIAL_STRETCH} steps")
+            listed[n] = _list_counts(K, sim, f"spatial: n={n}", lists0, sim.steps_run - steps0)
             launched += k1
             for name, k in _integrator_launches(K, f"spatial: n={n}", sim.steps_run - steps0,
                                                 1).items():
@@ -3769,8 +3839,8 @@ def run_spatial(az, K, card):
               f"{spec.dims[0] * spec.dims[1] // n} z columns and {spec.S // n} slots a block; "
               f"ms/step {ms[n][0]:.4f} (steps 0-{SPATIAL_STRETCH}, the tune inside), "
               f"{ms[n][1]:.4f} (steps {SPATIAL_STRETCH}-{2 * SPATIAL_STRETCH}) on {card}; "
-              f"{sim.n_builds} builds since the tune, {sim.viol_replays} violation replays",
-              flush=True)
+              f"{sim.n_builds} builds since the tune, {sim.viol_replays} violation replays; "
+              f"the second stretch's {listed[n]}", flush=True)
     print(f"[spatial] n={'/'.join(map(str, SPATIAL_MESHES))} equal to the whole run bit for "
           f"bit (positions, velocities, images, tags in slot order) after {SPATIAL_STRETCH} "
           f"and {2 * SPATIAL_STRETCH} steps; {launched} K1 launches, one a force evaluation; "

@@ -3,6 +3,8 @@
 
     python3 kernel_variants.py                 # every variant
     python3 kernel_variants.py base,noflush    # some of them
+    python3 kernel_variants.py base,planonly,nosweep,noflush --pair-side 64
+                                               # K1 alone, headline of 64^3
 
 Each variant is a copy of azplugins_tpu_torch/csrc/ with one text change
 (PHASES, DESIGN, INTEGRATE; a change that matches nothing, or a variant
@@ -25,6 +27,13 @@ exactly 8 at cap 8), in two turns. The phase copies split a call:
   the staging, the reduction, the zeroing of empty slots) and
   anisoLanesOnly (nosweep without all three: the plan and the lanes' own
   loads).
+
+With ``--pair-side n`` only the pair kernel is built and timed: K1 on the
+headline of n^3 particles (64: the 262,144 of ``plj_langevin.n262k``)
+after 500 steps, in two turns; where the source has K1's pair lists, also
+their build from the last rebuild's positions and the sweep of the first
+variant's lists at the current positions (a segment's step), each in
+every variant, and the lists' lengths.
 
 The others change one constant of the design. Each variant also times
 the drift check K6 (``needs_rebin``) at the headline's liquid state (82,944
@@ -66,22 +75,30 @@ import chip_smoke as cs
 
 # variant -> (source-name suffix, old text, new text) changes; a change
 # applies to each copied source whose name ends with the suffix
+_K1 = "cell_pair_force.cu"
 PHASES = {
     "base": [],
     "empty": [(".cu", "  constexpr int B = kThreads;\n",
                "  constexpr int B = kThreads;\n  if (cap > 0) return;\n")],
-    "planonly": [(".cu", "const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];",
+    "planonly": [(_K1, "const int n_i = P.prefix ?",
+                  "if (cap > 0) return;\n  const int n_i = P.prefix ?"),
+                 ("cell_dpd_force.cu",
+                  "const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];",
                   "if (cap > 0) return;\n"
                   "  const int n_i = P.start[P.self_seg + 1] - P.start[P.self_seg];"),
                  ("cell_aniso_force.cu", "const int n_tot = P.first[n_members];",
                   "if (cap > 0) return;\n  const int n_tot = P.first[n_members];")],
     "nosweep": [(".cu", "az::sweep_round<B, MIN_IMAGE>(",
                  "if (cap < 0) az::sweep_round<B, MIN_IMAGE>("),
+                (_K1, "az::sweep_list<B, MIN_IMAGE>(",
+                 "if (cap < 0) az::sweep_list<B, MIN_IMAGE>("),
                 ("cell_aniso_force.cu", "sweep_group<B, MIN_IMAGE>(P, stage,",
                  "if (cap < 0) sweep_group<B, MIN_IMAGE>(P, stage,")],
     "noflush": [(".cu", "auto flush = [&](float xs, float ys, float zs, int n) {",
                  "auto flush = [&](float xs, float ys, float zs, int n) {\n"
-                 "      if (n >= 0) return;")],
+                 "      if (n >= 0) return;"),
+                (_K1, "auto flush_listed = [&](int n) {",
+                 "auto flush_listed = [&](int n) {\n      if (n >= 0) return;")],
 }
 # finer copies of the TwoPatchMorse kernel's start, each on top of a phase copy
 _A = "cell_aniso_force.cu"
@@ -106,6 +123,8 @@ DESIGN = {
     "batch8": [(".cuh", "constexpr int kBatch = 4;", "constexpr int kBatch = 8;")],
     "pairB128": [("cell_pair_force.cu", "constexpr int kThreads = 256;",
                   "constexpr int kThreads = 128;")],
+    "pairMin3": [(_K1, "__global__ void __launch_bounds__(kThreads)\n    cell_pair_force_kernel(",
+                  "__global__ void __launch_bounds__(kThreads, 3)\n    cell_pair_force_kernel(")],
     "dpdB256": [("cell_dpd_force.cu", "constexpr int kThreads = 128;",
                  "constexpr int kThreads = 256;")],
     "stage16": [(".cuh", "constexpr int kStageBytes = 24 * 1024;",
@@ -221,6 +240,66 @@ def write_variant(variant: str, csrc: Path, root: Path) -> Path:
     return out
 
 
+def pair_split(names: list[str], side: int) -> int:
+    """K1 of every variant in ``names`` on the headline of ``side``^3
+    particles after 500 steps (the liquid), device ms a call, two turns."""
+    az = cs._import_port()
+    from azplugins_tpu_torch.ops import cuda_build
+    from azplugins_tpu_torch.ops import pair_kernel as PK
+
+    src = "cell_pair_force.cu"
+    dirs = {n: write_variant(n, cuda_build.CSRC, cuda_build.BUILD_DIR / "variants") for n in names}
+    t0 = time.perf_counter()
+    # the variants' K1 and every library the simulation loads, one nvcc each, at once
+    jobs = {(src, cuda_build.source_digest(src, d)): (src, d) for d in dirs.values()}
+    jobs.update({(s.name, ""): (s.name, cuda_build.CSRC) for s in cuda_build.CSRC.glob("*.cu")})
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: cuda_build.load_library(*job), jobs.values()))
+    print(f"[build] {len(names)} variants of {src} in {time.perf_counter() - t0:.1f} s", flush=True)
+    log = cuda_build.build_info[dirs[names[0]] / src]["log"]
+    for m in re.finditer(r"Compiling entry function '\w*cell_pair_force_kernelILi0E((?:Lb[01]E)+)"
+                         r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*?(\d+) bytes spill stores[^\n]*\n"
+                         r"[^\n]*?Used (\d+) registers", log):
+        print(f"[build] {names[0]} PLJ instance {m.group(1)}: {m.group(3)} registers, "
+              f"{m.group(2)} bytes spilled", flush=True)
+    dev = torch.device("cuda")
+    sim, forces = cs.build_headline(az, dev, N_side=side)
+    sim.run(500)
+    torch.cuda.synchronize()
+    plj = forces[0]._device_tables(dev)["kernel"]
+    dense, spec, ref = sim._dense, sim._grid_spec, sim._meta.ref_position
+    print(f"[shapes] {side}^3 headline after 500 steps: dims {spec.dims}, cap {spec.cap}, "
+          f"{cs._candidates(dense, spec)} candidate pairs", flush=True)
+    lists = hasattr(PK, "build_pair_list")  # a source with K1's pair lists
+    if lists:
+        # the lists of the layout's last rebuild, swept at the current positions
+        pl = PK.PairList(spec, dev, torch.zeros((), dtype=torch.int64, device=dev))
+        with cuda_build.sources(dirs[names[0]]):
+            PK.build_pair_list(dense, ref, spec, forces[0]._max_r_cut(), pl)
+        torch.cuda.synchronize()
+        counts = pl.counts.to(torch.int64)
+        lanes = counts[pl.fallback == 0]
+        print(f"[lists] {names[0]}'s build: cap_e {pl.cap_e}, {int(pl.n_fallback)} blocks fall "
+              f"back; entries a lane: mean {float(lanes[lanes > 0].double().mean()):.2f}, "
+              f"max {int(lanes.max())}; {int(counts.sum())} entries", flush=True)
+        scratch = PK.PairList(spec, dev, torch.zeros((), dtype=torch.int64, device=dev))
+    for turn in range(2):
+        for name in names:
+            with cuda_build.sources(dirs[name]):
+                ms = cs._cuda_time_ms(lambda: PK.cell_pair_force(
+                    dense, spec, plj, "PerturbedLennardJones", "none"), 50)
+                extra = ""
+                if lists:
+                    build = cs._cuda_time_ms(lambda: PK.build_pair_list(
+                        dense, ref, spec, forces[0]._max_r_cut(), scratch), 50)
+                    sweep = cs._cuda_time_ms(lambda: PK.cell_pair_force(
+                        dense, spec, plj, "PerturbedLennardJones", "none", pair_list=pl), 50)
+                    extra = f", build {build:.4f} ms, sweep {sweep:.4f} ms"
+            print(f"[turn {turn}] {name:14s} K1 {ms:.4f} ms{extra}", flush=True)
+    print(cs._card())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: torch.cuda.is_available() is false; this script needs a GPU",
@@ -234,10 +313,18 @@ def main() -> int:
     from azplugins_tpu_torch.ops import integrate_kernel as IK
     from azplugins_tpu_torch.ops import pair_kernel as PK
 
-    names = sys.argv[1].split(",") if len(sys.argv) > 1 else list(CHANGES)
+    args = sys.argv[1:]
+    side = None
+    if "--pair-side" in args:
+        k = args.index("--pair-side")
+        side = int(args[k + 1])
+        del args[k:k + 2]
+    names = args[0].split(",") if args else list(CHANGES)
     unknown = set(names) - set(CHANGES)
     if unknown:
         raise SystemExit(f"unknown variants {sorted(unknown)}; known: {list(CHANGES)}")
+    if side is not None:
+        return pair_split(names, side)
     dirs = {n: write_variant(n, cuda_build.CSRC, cuda_build.BUILD_DIR / "variants")
             for n in names}
     t0 = time.perf_counter()
