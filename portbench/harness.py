@@ -11,7 +11,8 @@ synchronised at both ends. With ``--trace 1`` some calls of the window run
 under ``torch.profiler`` and the cell's per-layer metrics are read from
 them. After the window the program runs single steps more, every state is
 read, the program is freed, and the plain reference judges what the
-program produced (``reference/check.py``).
+program produced: the configuration's physics family,
+``reference/<family>.py``, reached only through ``manifest.reference``.
 The last line of standard output is the result: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device`` (and ``breakdown`` when
 traced), and last ``checked``, each compared number beside its limit.
@@ -32,7 +33,7 @@ import time
 import torch
 
 from . import initial, manifest, port
-from .reference import check, outputs, physics
+from .reference import outputs
 from .trace import RUN_SPAN, Context, Spans, Stretch, breakdown, wrap_writers
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "azplugins_tpu")
@@ -40,6 +41,8 @@ GSD_CHUNKS = ("particles/position", "particles/velocity", "configuration/step")
 # single steps the check may run after the window to judge ``check_steps``
 # of them, and an updater's fire, on replayed CUDA graphs
 CHECK_MAX_STEPS = 200
+# the harness's own number beside a family's
+SHORTFALL = "replay_shortfall"
 
 
 def log(msg: str) -> None:
@@ -108,6 +111,7 @@ class Run:
         self.params = {**manifest.config_params(bench, cell["config"]),
                        **(params_overrides or {})}
         self.builder = manifest.config_builder(cell["config"])
+        self.family = manifest.reference(cell)
         self.traffic = {**manifest.traffic(cell["traffic"]), **(overrides or {})}
         self.run_steps = int(self.traffic["run_steps"])
         az = port.load(device)
@@ -116,7 +120,7 @@ class Run:
                                                initial.generator(seed, device))
         self.sim_seed = initial.simulation_seed(seed)
         self.sim = az.Simulation(device=device, seed=self.sim_seed)
-        self.sim.create_state_from_snapshot(initial.snapshot(az, self.init))
+        self.sim.create_state_from_snapshot(self.family.snapshot(az, self.init))
         self.builder.build(az, self.sim, self.params)
         self.workdir = tempfile.mkdtemp(prefix="portbench-")
         self.writers = attach_writers(az, self.sim, self.traffic, self.workdir)
@@ -156,7 +160,8 @@ class Run:
             if trace_at and (share >= trace_at[0] or done):
                 trace_at.pop(0)
                 tp = time.perf_counter()
-                self.stretches.append(_profiled(sim, self.spans, self.run_steps, dev))
+                self.stretches.append(_profiled(sim, self.spans, self.run_steps, dev,
+                                                self.family))
                 profiled_s += time.perf_counter() - tp
             else:
                 with self.spans.span(RUN_SPAN):
@@ -190,26 +195,27 @@ class Run:
         ``check_steps`` of them and a step on which an updater fires were
         run as CUDA graph replays (any step, where the program runs no
         graphs); then the program freed and its writers' files read back;
-        then the reference's judgement of the window-end state and of those
-        steps: the widest reading of each number, and ``replay_shortfall``,
-        the judged steps missing after ``CHECK_MAX_STEPS`` (with
-        ``control``, also the control's readings, the reference in bfloat16
-        in the program's place, under ``"control"``)."""
-        sim = self.sim
+        then the family's judgement of the window-end state and of those
+        steps: the widest reading of each of its numbers, and
+        ``replay_shortfall``, the judged steps missing after
+        ``CHECK_MAX_STEPS`` (with ``control``, also the control's readings,
+        the reference in the family's ``CONTROL`` dtype in the program's
+        place, under ``"control"``). A fire is waited for where the
+        family's ``fires`` says that one comes within ``CHECK_MAX_STEPS``."""
+        sim, family = self.sim, self.family
         model = self.builder.model(self.params, self.init, self.sim_seed)
         on_graphs = port.on_graphs(sim)
-        end = port.read_state(sim)
+        end = family.read_state(sim)
         steps, want = [], int(self.traffic["check_steps"])
-        fires_at = model.get("evaporator") is not None
-        fire_due = fires_at
+        fire_due = any(family.fires(model, t) for t in range(end["t"], end["t"] + CHECK_MAX_STEPS))
         prev, ran = end, 0
         while (len(steps) < want or fire_due) and ran < CHECK_MAX_STEPS:
             r0 = port.counters(sim)["replays"]
             sim.run(1)
             ran += 1
             replayed = port.counters(sim)["replays"] > r0
-            cur = port.read_state(sim)
-            fires = fires_at and physics.evaporator_fires(model, prev["t"])
+            cur = family.read_state(sim)
+            fires = family.fires(model, prev["t"])
             if (replayed or not on_graphs) and (len(steps) < want or (fires and fire_due)):
                 steps.append((prev, cur))
                 fire_due = fire_due and not fires
@@ -218,33 +224,32 @@ class Run:
         written = self.close()
         t0 = time.perf_counter()
         L = torch.tensor(self.init["L"], dtype=torch.float64, device=self.device)
-        judge = check.Judge(model, L)
+        judge = family.Judge(model, L)
         first = judge.judge_state(end)
         readings = [first] + [judge.judge_step(a, b) for a, b in steps]
         if written:
             readings.append(judge.judge_outputs(end, **written))
-        numbers = check.worst(readings)
-        numbers["replay_shortfall"] = shortfall
+        numbers = worst(readings, family.NUMBERS)
+        numbers[SHORTFALL] = shortfall
         for st in self.stretches:
-            st.pairs = 0.5 * sum(physics.pair_forces(x.to(torch.float64), ty, L, model)[2]
-                                 for x, ty in st.states)
+            st.pairs = family.stretch_work(st.states, model, L)
             st.states = None
+        notes = {k: v for k, v in first.items() if k not in family.NUMBERS}
         log(f"[portbench] check: {ran} single steps after the window ({'on' if on_graphs else 'no'}"
             f" CUDA graphs), {len(steps)} judged, at timesteps {[a['t'] for a, _ in steps]}; "
-            f"{first['pairs']} pairs inside the cutoff at the window's end, "
-            f"{int((end['type'] != 0).sum())} particles of other types than the first; "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"at the window's end {notes}; {time.perf_counter() - t0:.2f} s")
         for name, (value, where) in judge.where.items():
             log(f"[portbench] widest {name} {value!r}: {where}")
         if control:
-            cj = check.Judge(model, L)
-            ctl = [cj.judge_state(cj.stored(end, torch.bfloat16))]
-            ctl += [cj.judge_step(a, cj.step(a, torch.bfloat16)) for a, _ in steps]
+            low = family.CONTROL
+            cj = family.Judge(model, L)
+            ctl = [cj.judge_state(cj.stored(end, low))]
+            ctl += [cj.judge_step(a, cj.step(a, low)) for a, _ in steps]
             if written:
-                stand_in = cj.outputs(end, torch.bfloat16)
+                stand_in = cj.outputs(end, low)
                 ctl.append(cj.judge_outputs(end, **{k: stand_in[k] for k in written}))
-            numbers["control"] = check.worst(ctl)
-            log(f"[portbench] control (the reference in bfloat16): {numbers['control']}")
+            numbers["control"] = worst(ctl, family.NUMBERS)
+            log(f"[portbench] control (the reference in {low}): {numbers['control']}")
         return numbers
 
     def close(self) -> dict:
@@ -293,9 +298,7 @@ class Run:
                 dev["busy_s"] = ctx.busy_s()
                 dev["window_s"] = ctx.traced_wall_s()
                 out["breakdown"] = breakdown(self.stretches)
-        limits = manifest.limits(name)
-        checked = {k: {"value": numbers[k], "limit": limits[k]}
-                   for k in check.NUMBERS if k in numbers}
+        checked = judged(numbers, manifest.limits(name), self.family.NUMBERS)
         out["correct"] = bool(checked) and all(c["value"] <= c["limit"] for c in checked.values())
         if "control" in numbers:
             out["control"] = numbers["control"]
@@ -319,14 +322,38 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     return run.result(setup_s, trace, numbers)
 
 
-def _profiled(sim, spans: Spans, run_steps: int, device) -> Stretch:
-    """One ``Simulation.run`` call under the profiler, with the positions
-    and types before and after it (``Stretch.states``; the pairs inside
-    the cutoff are counted on them once the program is freed) and the slot
-    layout's sizes after it."""
+def worst(readings: list[dict], names) -> dict:
+    """The widest reading of each number in ``names`` over several
+    judgements."""
+    out = {}
+    for r in readings:
+        for k in names:
+            if k in r:
+                out[k] = max(out.get(k, 0), r[k])
+    return out
+
+
+def judged(numbers: dict, limits: dict, names) -> dict:
+    """Each number reported beside its limit, in the order of ``names``
+    (the family's) and ``replay_shortfall`` last. Nothing goes unjudged:
+    a number reported without a limit, or a limit of a number that neither
+    the family nor the harness reports, raises :class:`Unjudged`."""
+    known = (*names, SHORTFALL)
+    unlimited = [k for k in known if k in numbers and k not in limits]
+    unknown = sorted(set(limits) - set(known))
+    if unlimited or unknown:
+        raise Unjudged(unlimited, unknown)
+    return {k: {"value": numbers[k], "limit": limits[k]} for k in known if k in numbers}
+
+
+def _profiled(sim, spans: Spans, run_steps: int, device, family) -> Stretch:
+    """One ``Simulation.run`` call under the profiler, with the family's
+    states before and after it, cut to its ``STRETCH_READS``
+    (``Stretch.states``; its ``stretch_work`` reads them once the program
+    is freed), and the slot layout's sizes after it."""
     from torch.profiler import ProfilerActivity, profile
 
-    before = port.read_state(sim)
+    before = family.read_state(sim)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
     with profile(activities=acts) as prof:
         spans.profiling = True
@@ -336,9 +363,9 @@ def _profiled(sim, spans: Spans, run_steps: int, device) -> Stretch:
                 _sync(device)
         finally:
             spans.profiling = False
-    after = port.read_state(sim)
+    after = family.read_state(sim)
     st = Stretch(prof, run_steps, spans.names)
-    st.states = [(S["x"], S["type"]) for S in (before, after)]
+    st.states = [{k: S[k] for k in family.STRETCH_READS} for S in (before, after)]
     st.t1 = after["t"]
     st.n_slots, st.n_occupied = port.slots(sim)
     return st
@@ -363,6 +390,12 @@ class ForbiddenModules(RuntimeError):
         super().__init__(f"modules of JAX or of the JAX package are loaded: {', '.join(found)}")
 
 
+class Unjudged(ValueError):
+    def __init__(self, unlimited, unknown):
+        super().__init__(f"numbers reported without a limit: {unlimited}; limits of numbers "
+                         f"that nothing reports: {unknown}")
+
+
 def main(argv: list[str], t_start: float) -> int:
     ap = argparse.ArgumentParser(prog="portbench/run.py", description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -382,5 +415,8 @@ def main(argv: list[str], t_start: float) -> int:
     except ForbiddenModules as exc:
         log(f"[portbench] {exc}")
         return 3
+    except Unjudged as exc:
+        log(f"[portbench] {exc}")
+        return 4
     print(json.dumps(result), flush=True)
     return 0

@@ -17,7 +17,10 @@ of ``<name>`` (``device_idle_pct.droplet`` by ``device_idle_pct.py``): the
 same quantity in cells that report another end-to-end metric;
 - ``portbench/roofline/<kernel>.py``: a kernel's operations and bytes;
 - ``portbench/limits/<cell>.json``: the limit of each number that decides
-  a cell's ``correct``.
+  a cell's ``correct``;
+- ``portbench/reference/<family>.py``: a physics family, the plain
+  reference that judges a configuration's runs, named by its builder's
+  ``REFERENCE`` (``md`` where it names none).
 
 A later change adds a cell, a configuration or a metric by adding files and
 entries, never by editing one of these.
@@ -103,6 +106,20 @@ def end_to_end_reader(name: str):
 
 def roofline(kernel: str):
     return _module(HERE / "roofline" / f"{kernel}.py", f"portbench_roofline_{kernel}")
+
+
+def reference(cell: dict):
+    """The physics family that judges ``cell``: ``reference/<family>.py``,
+    the family that its configuration's builder names by ``REFERENCE``
+    (``md`` where it names none). Loaded once a process under the
+    package's name, so that a family's classes stay one."""
+    family = getattr(config_builder(cell["config"]), "REFERENCE", "md")
+    path = HERE / "reference" / f"{family}.py"
+    name = f"portbench.reference.{family}"
+    mod = sys.modules.get(name)
+    if mod is not None and Path(mod.__file__).resolve() == path.resolve():
+        return mod
+    return _module(path, name)
 
 
 def end_to_end_of(bench: dict, cell: str) -> list[dict]:

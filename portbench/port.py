@@ -6,7 +6,8 @@ hand-written kernels. The reads that go through private attributes are
 here and nowhere else: the slot layout (``Simulation._dense``, whose
 ``net_force`` is the conservative force the step computed), the CUDA
 graph counters (``Simulation._graph_totals``), whether the graphs apply
-(``Simulation._graphs_apply``) and the grid's cell capacity.
+(``Simulation._graphs_apply``), the grid's cell capacity and the MPCD
+solvent stream (``Simulation._whole_mpcd``).
 """
 
 from __future__ import annotations
@@ -82,6 +83,18 @@ def read_state(sim) -> dict:
             "type": take(d.typeid).to(torch.int64), "tag": take(d.tag).to(torch.int64)}
 
 
+def read_solvent(sim) -> dict:
+    """The MPCD solvent the last step left, in row order (solvent rows never
+    migrate), whole on the simulation's device: positions and velocities
+    as stored, type ids and the timestep."""
+    mpcd = sim._whole_mpcd()
+    if mpcd is None:
+        raise ValueError("the simulation holds no MPCD solvent")
+    # joined blocks are copies already; the type ids are widened
+    return {"t": sim.timestep, "x": mpcd["position"], "v": mpcd["velocity"],
+            "type": mpcd["typeid"].to(torch.int64)}
+
+
 def slots(sim) -> tuple[int, int]:
     """(slots of the layout, occupied slots)."""
     d = _layout(sim)
@@ -101,6 +114,8 @@ def on_graphs(sim) -> bool:
     return bool(sim._graphs_apply())
 
 
-def cell_cap(sim) -> int:
-    """The neighbour grid's slots a cell."""
-    return int(sim._grid_spec.cap)
+def cell_cap(sim) -> int | None:
+    """The neighbour grid's slots a cell (None where no pair force needs a
+    grid)."""
+    spec = sim._grid_spec
+    return None if spec is None else int(spec.cap)

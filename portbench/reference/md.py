@@ -1,4 +1,10 @@
-"""Judge the states that the program's timed path produced.
+"""The family ``md``: MD particles under pair and external forces, a
+Langevin method and the evaporator, judged from the program's states.
+
+Its face, as every family's (``portbench/README.md``): ``NUMBERS``,
+``CONTROL``, ``STRETCH_READS``, :func:`snapshot`, :func:`read_state`,
+:class:`Judge`, :func:`fires` and :func:`stretch_work`. The physics is
+``physics.py``'s.
 
 MD is chaotic, so the program is judged one step at a time from the state
 it reached, never against a replayed trajectory. Each state ``S`` is a dict
@@ -25,10 +31,7 @@ numbers, each a widest gap over particles and components:
 - ``table_gap``: the Table's kinetic temperature and potential energy at
   the window's last step against the reference's, relative;
 - ``frame_gap``: the GSD file's last frame against the state at its step:
-  positions (minimum image) over the box, velocities over the largest |v|;
-- ``replay_shortfall``: judged steps missing (the harness's count): of
-  the steps to judge, and a step on which an updater fires, those the
-  program did not run as CUDA graph replays (an exact count).
+  positions (minimum image) over the box, velocities over the largest |v|.
 
 A pair within ``physics.CUTOFF_BAND`` of its cutoff is inside it or not by
 float32 rounding alone, and the potential is cut off there (mode none):
@@ -42,10 +45,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import physics
+from portbench import initial, port
+from portbench.reference import physics
 
+# the numbers this family reports; the harness adds ``replay_shortfall``
 NUMBERS = ("force_gap", "accel_gap", "position_gap", "velocity_gap", "type_mismatches",
-           "table_gap", "frame_gap", "replay_shortfall")
+           "table_gap", "frame_gap")
+# the control computes the reference in this dtype in the program's place
+CONTROL = torch.bfloat16
+# the keys of a state that a traced stretch keeps for :func:`stretch_work`
+STRETCH_READS = ("x", "type")
+
+# the program's Snapshot of an initial state (MD particles only), and the
+# tag-ordered state the last step left (``port.read_state``)
+snapshot = initial.snapshot
+read_state = port.read_state
+
+
+def fires(model: dict, timestep: int) -> bool:
+    """Whether an updater (the evaporator) acts after step ``timestep``."""
+    return physics.evaporator_fires(model, timestep)
+
+
+def stretch_work(states: list[dict], model: dict, L: torch.Tensor) -> float:
+    """What a traced stretch's rooflines divide by: the unordered pairs
+    inside the cutoff, the mean over the states before and after it."""
+    return 0.5 * sum(physics.pair_forces(S["x"].to(torch.float64), S["type"], L, model)[2]
+                     for S in states)
 
 
 def _gap(got: torch.Tensor, want: torch.Tensor, scale: float | None = None, allowance=None):
@@ -167,15 +193,16 @@ class Judge:
 
     def judge_state(self, S: dict) -> dict:
         """``force_gap`` and ``accel_gap`` of a state (step ``t - 1``, whose
-        updaters must not have fired: its forces saw ``S``'s types), and the
-        unordered pairs inside the cutoff."""
+        updaters must not have fired: its forces saw ``S``'s types), the
+        unordered pairs inside the cutoff and the particles of other types
+        than the first."""
         t, dt = S["t"], self.dt
         if physics.evaporator_fires(self.model, t - 1):
             raise ValueError(f"a state after step {t - 1}, whose updaters fired, is not judged")
         f_ref, _, pairs, allow = self.force(S["x"], S["type"], t - 1)
         v_half = S["v"].to(torch.float64) - (0.5 * dt) * S["a"].to(torch.float64)
         a_ref = self.acceleration(f_ref, v_half, S["x"], S["type"], S["tag"], t - 1)
-        out = {"pairs": pairs}
+        out = {"pairs": pairs, "other_types": int((S["type"] != 0).sum())}
         self._note(out, "force_gap", _gap(S["f"], f_ref, allowance=allow), S, S["f"], f_ref)
         self._note(out, "accel_gap", _gap(S["a"], a_ref, allowance=allow / self.mass), S,
                    S["a"], a_ref)
@@ -247,13 +274,3 @@ def _pick_mismatches(before, after, pick, ev) -> int:
     else:
         bad += int((cand & ~flipped).sum())
     return bad + abs(int((flipped & cand).sum()) - want)
-
-
-def worst(readings: list[dict]) -> dict:
-    """The widest reading of each number over several judgements."""
-    out = {}
-    for r in readings:
-        for k in NUMBERS:
-            if k in r:
-                out[k] = max(out.get(k, 0), r[k])
-    return out

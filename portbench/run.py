@@ -5,7 +5,9 @@
 runs one cell of ``BENCHMARK.json`` once on the first CUDA device and
 prints the result as the last line of standard output (see
 ``portbench/harness.py``). Exits with 2, printing no result, without a
-CUDA device.
+CUDA device; with 3 where modules of JAX or of the JAX package are loaded,
+and with 4 where a number goes unjudged (a number without a limit, or a
+limit without a number).
 """
 
 import time

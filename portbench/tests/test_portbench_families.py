@@ -1,0 +1,154 @@
+"""Physics families found by name (``manifest.reference``): the family
+``md`` judges both cells bit for bit as the reference did before it was a
+family; a family and a configuration kept beside this test, in
+``families/``, judge an MPCD solvent through files outside the harness;
+and a number without a limit, or a limit without a number, fails the run."""
+
+import time
+from pathlib import Path
+
+import pytest
+import torch
+
+from azplugins_tpu_torch.mpcd import SRD
+from portbench import harness, manifest
+from portbench.reference import md
+
+from ._small import BENCH, SMALL
+
+SEED = 987654321987
+# Run.check(control=True) at _small.py's sizes and SEED on two threads, the
+# time-windowed cell's window fixed at 40 steps, as float.hex: taken under
+# torch 2.13.0+cpu from the reference before it became the family md
+TORCH = "2.13.0+cpu"
+WINDOW = {"plj_langevin.n262k": {"window_steps": 40}, "droplet_evaporation.n20k": {}}
+BITS = {
+    "plj_langevin.n262k": {
+        "force_gap": "0x1.a2ca355b6c29cp-21",
+        "accel_gap": "0x1.a90cad581bbecp-21",
+        "position_gap": "0x1.f3022dfc4169fp-17",
+        "velocity_gap": "0x1.56d517f57d16ap-24",
+        "type_mismatches": "0x0.0p+0",
+        "replay_shortfall": "0x0.0p+0",
+        "control": {
+            "force_gap": "0x1.9cdb9214c5553p-2",
+            "accel_gap": "0x1.9c4a1d2ac3272p-2",
+            "position_gap": "0x1.955a2bac7bbdep+0",
+            "velocity_gap": "0x1.1cf41630dc76bp-6",
+            "type_mismatches": "0x0.0p+0",
+        },
+    },
+    "droplet_evaporation.n20k": {
+        "force_gap": "0x1.226241ee75638p-20",
+        "accel_gap": "0x1.cee544d552f78p-21",
+        "position_gap": "0x1.f0ee020404bc8p-16",
+        "velocity_gap": "0x1.dd7e756cbbce0p-25",
+        "type_mismatches": "0x0.0p+0",
+        "replay_shortfall": "0x0.0p+0",
+        "control": {
+            "force_gap": "0x1.b5f09a316f8e0p-3",
+            "accel_gap": "0x1.20b809cd67bd7p-3",
+            "position_gap": "0x1.42f9662e8b325p+1",
+            "velocity_gap": "0x1.ba8a8fc1336c0p-8",
+            "type_mismatches": "0x1.2000000000000p+3",
+        },
+    },
+}
+
+FAMILIES = Path(__file__).resolve().parent / "families"
+# a benchmark of one cell whose files lie in families/: configs/idle_srd.*
+# (REFERENCE "solvent"), traffic/stream2k.json, limits/idle_srd.stream2k.json
+# and reference/solvent.py
+SOLVENT = {"configs": [{"name": "idle_srd",
+                        "file": str((FAMILIES / "configs" / "idle_srd.json")
+                                    .relative_to(manifest.ROOT))}],
+           "workloads": [{"name": "idle_srd.stream2k", "config": "idle_srd",
+                          "traffic": "stream2k", "chips": 1}],
+           "end_to_end": [], "per_layer": []}
+
+
+def _hex(numbers: dict) -> dict:
+    return {k: _hex(v) if isinstance(v, dict) else float(v).hex() for k, v in numbers.items()}
+
+
+@pytest.mark.parametrize("cell", list(BITS))
+def test_the_family_md_reads_the_bits_of_the_reference_before_it(cell):
+    if torch.__version__ != TORCH:
+        pytest.skip(f"the bits were taken under torch {TORCH}, not {torch.__version__}")
+    w = manifest.workload(BENCH, cell)
+    traffic, params = SMALL[w["config"]]
+    r = harness.Run(BENCH, w, SEED, torch.device("cpu"), {**traffic, **WINDOW[cell]}, params)
+    assert r.family is md is manifest.reference(w)
+    r.warm_up()
+    r.window(600.0, trace=False)
+    assert _hex(r.check(control=True)) == BITS[cell]
+
+
+@pytest.fixture
+def files(monkeypatch):
+    """The benchmark's files found in families/, beside this test."""
+    monkeypatch.setattr(manifest, "HERE", FAMILIES)
+
+
+def _solvent(control: bool = False) -> dict:
+    return harness.run_cell(SOLVENT, SOLVENT["workloads"][0], 2**40 + 3, 600.0, False,
+                            torch.device("cpu"), time.perf_counter(), control=control)
+
+
+def test_a_family_beside_the_harness_judges_a_solvent(files):
+    r = _solvent(control=True)
+    assert r["correct"] is True
+    assert list(r["checked"]) == ["solvent_position_gap", "replay_shortfall"]
+    gap = r["checked"]["solvent_position_gap"]
+    assert 0 < gap["value"] < gap["limit"] < r["control"]["solvent_position_gap"]
+
+
+def test_a_solvent_left_unmoved_is_not_correct(files, monkeypatch):
+    monkeypatch.setattr(SRD, "_advance", lambda self, mpcd, *args, **kwargs: mpcd)
+    r = _solvent()
+    assert r["correct"] is False
+    gap = r["checked"]["solvent_position_gap"]
+    assert gap["value"] > gap["limit"]
+
+
+@pytest.mark.parametrize("change", [
+    lambda limits: {k: v for k, v in limits.items() if k != "solvent_position_gap"},
+    lambda limits: {**limits, "velocity_gap": 5e-5},  # the family md's, not this one's
+], ids=["a number without a limit", "a limit without a number"])
+def test_a_number_and_its_limit_go_together_or_the_run_fails(files, monkeypatch, change):
+    limits = manifest.limits
+    monkeypatch.setattr(manifest, "limits", lambda cell: change(limits(cell)))
+    with pytest.raises(harness.Unjudged):
+        _solvent()
+
+
+@pytest.mark.parametrize("numbers, limits, ok", [
+    ({"force_gap": 1e-6, "replay_shortfall": 0}, {"force_gap": 1e-3, "replay_shortfall": 0}, True),
+    # a limit of a number the family knows but this run did not report
+    # (table_gap without writers) stands idle, as before
+    ({"force_gap": 1e-6, "replay_shortfall": 0},
+     {"force_gap": 1e-3, "table_gap": 1e-3, "replay_shortfall": 0}, True),
+    ({"force_gap": 1e-6, "replay_shortfall": 0}, {"force_gap": 1e-3}, False),
+    ({"force_gap": 1e-6, "replay_shortfall": 0},
+     {"force_gap": 1e-3, "replay_shortfall": 0, "pressure_gap": 1.0}, False),
+])
+def test_judged_pairs_each_number_with_its_limit(numbers, limits, ok):
+    if ok:
+        checked = harness.judged(numbers, limits, md.NUMBERS)
+        assert list(checked) == ["force_gap", "replay_shortfall"]
+    else:
+        with pytest.raises(harness.Unjudged):
+            harness.judged(numbers, limits, md.NUMBERS)
+
+
+def test_an_unjudged_number_exits_non_zero_with_no_result(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+
+    def unjudged(*args, **kwargs):
+        raise harness.Unjudged(["solvent_position_gap"], [])
+
+    monkeypatch.setattr(harness, "run_cell", unjudged)
+    argv = ["--workload", "plj_langevin.n262k", "--seed", "1", "--seconds", "1"]
+    assert harness.main(argv, time.perf_counter()) == 4
+    assert capsys.readouterr().out == ""

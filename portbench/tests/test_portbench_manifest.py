@@ -180,6 +180,11 @@ def test_each_cell_finds_its_files_by_name(cell):
     limits = manifest.limits(cell)
     assert set(limits) >= {"force_gap", "accel_gap", "position_gap", "velocity_gap",
                            "type_mismatches"}
+    family = manifest.reference(w)
+    for attr in ("NUMBERS", "CONTROL", "STRETCH_READS", "snapshot", "read_state", "Judge",
+                 "fires", "stretch_work"):
+        assert hasattr(family, attr)
+    assert set(limits) <= {*family.NUMBERS, "replay_shortfall"}
     for m in manifest.per_layer_of(BENCH, cell):
         assert callable(manifest.metric_reader(m["name"]))
     for m in manifest.end_to_end_of(BENCH, cell):

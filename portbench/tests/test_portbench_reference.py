@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from portbench import initial, manifest
-from portbench.reference import check, physics, threefry
+from portbench.reference import md, physics, threefry
 
 from ._small import run
 
@@ -17,7 +17,8 @@ CELLS = ["plj_langevin.n64k", "droplet_evaporation.n20k", "plj_langevin.n64k.log
 def test_the_program_is_correct_and_the_control_is_not(cell):
     r = run(cell, control=True)
     assert r["correct"] is True
-    numbers = set(check.NUMBERS) - ({"table_gap", "frame_gap"} if "logged" not in cell else set())
+    numbers = {*md.NUMBERS, "replay_shortfall"} - (
+        {"table_gap", "frame_gap"} if "logged" not in cell else set())
     assert list(r)[-1] == "checked" and set(r["checked"]) == numbers
     ctl = r["control"]
     assert any(ctl[k] > c["limit"] for k, c in r["checked"].items())

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from portbench import manifest, port
-from portbench.reference import physics
+from portbench.reference import md, physics
 
 PAIR = manifest.roofline("pair")
 INTEGRATOR = manifest.roofline("integrator")
@@ -32,8 +32,9 @@ def _model(r_cut):
 def test_pairs_inside_the_cutoff_on_a_lattice(n_side, r_cut, per_particle):
     x = _lattice(n_side, 1.0)
     L = torch.full((3,), float(n_side), dtype=torch.float64)
-    pairs = physics.pair_forces(x, torch.zeros(len(x), dtype=torch.int64), L,
-                                _model(r_cut))[2]
+    # the family md's work of a stretch, which the pair roofline divides by
+    S = {"x": x, "type": torch.zeros(len(x), dtype=torch.int64)}
+    pairs = md.stretch_work([S, S], _model(r_cut), L)
     assert pairs == n_side**3 * per_particle // 2
 
 
@@ -92,5 +93,5 @@ def test_the_droplet_counts_its_pairs_at_every_type_pair():
     types = (torch.arange(len(x)) % 2).to(torch.int64)
     L = torch.full((3,), 7.0, dtype=torch.float64)
     f, _, pairs, _ = physics.pair_forces(x, types, L, model)
-    assert pairs == 7**3 * 18 // 2
+    assert pairs == 7**3 * 18 // 2 == md.stretch_work([{"x": x, "type": types}], model, L) * 2
     assert math.isfinite(float(f.abs().max()))

@@ -49,13 +49,14 @@ def test_the_check_runs_on_to_a_step_on_which_the_evaporator_fires(monkeypatch):
         {**SMALL["droplet_evaporation"][0], "run_steps": 20, "window_steps": 40},
         SMALL["droplet_evaporation"][1]))
     judged = []
-    inner = harness.check.Judge.judge_step
+    family = manifest.reference(manifest.workload(BENCH, DROPLET))
+    inner = family.Judge.judge_step
 
     def judge_step(self, a, b):
         judged.append(a["t"])
         return inner(self, a, b)
 
-    monkeypatch.setattr(harness.check.Judge, "judge_step", judge_step)
+    monkeypatch.setattr(family.Judge, "judge_step", judge_step)
     r = run(DROPLET, seconds=600.0)
     assert r["correct"] is True and r["checked"]["replay_shortfall"]["value"] == 0
     # warm-up and window end at 60: steps 60-62 judged, then the fire after step 75
