@@ -8,10 +8,12 @@ first eager run and the capture of the segment shapes), then issues
 where the traffic states ``window_steps``, until those steps are done
 (``--seconds`` then caps the window): the window is every whole call,
 synchronised at both ends. With ``--trace 1`` some calls of the window run
-under ``torch.profiler`` and the cell's per-layer metrics are read from
-them. After the window the program runs single steps more, every state is
-read, the program is freed, and the plain reference judges what the
-program produced: the configuration's physics family,
+under ``torch.profiler``, the program's tracer records its spans over the
+others and its counters over the window, and the cell's per-layer metrics
+are read from them. After the window the program runs single steps more,
+every state is read, a traced run's marked stretch runs (the program's
+device phase marks on), the program is freed, and the plain reference
+judges what the program produced: the configuration's physics family,
 ``reference/<family>.py``, reached only through ``manifest.reference``.
 The last line of standard output is the result: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device`` (and ``breakdown`` when
@@ -34,7 +36,7 @@ import torch
 
 from . import initial, manifest, port
 from .reference import outputs
-from .trace import RUN_SPAN, Context, Spans, Stretch, breakdown, wrap_writers
+from .trace import RUN_SPAN, Context, Spans, Stretch, breakdown, counter_diff, wrap_writers
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "azplugins_tpu")
 GSD_CHUNKS = ("particles/position", "particles/velocity", "configuration/step")
@@ -43,6 +45,10 @@ GSD_CHUNKS = ("particles/position", "particles/velocity", "configuration/step")
 CHECK_MAX_STEPS = 200
 # the harness's own number beside a family's
 SHORTFALL = "replay_shortfall"
+# the marked stretch of a traced run: unprofiled calls with the phase marks
+# on, which see and capture the marked segment shapes, then profiled ones
+MARK_WARM_CALLS = 2
+MARK_PROFILED_CALLS = 1
 
 
 def log(msg: str) -> None:
@@ -126,6 +132,12 @@ class Run:
         self.writers = attach_writers(az, self.sim, self.traffic, self.workdir)
         self.spans = Spans()
         wrap_writers(self.sim, self.spans)
+        # what a traced run reads from the program's tracer
+        self.trace = False
+        self.program_calls: list[dict] = []
+        self.program_counters: dict = {}
+        self.phase_stretches: list[Stretch] = []
+        self.mark_table: dict = {}
 
     def warm_up(self) -> dict:
         """The traffic's ``warmup_calls`` calls of the window's own size."""
@@ -142,12 +154,21 @@ class Run:
         traced stretches or, where the traffic states ``window_steps``,
         until those steps are done (``seconds`` then caps it). Traced
         stretches start at the shares ``trace_at`` of the window's time or
-        of its calls; the window is every whole call."""
+        of its calls; the window is every whole call. With ``trace`` the
+        program's spans are on over the unprofiled calls and off over the
+        profiled ones, each call's drained into ``program_calls``, and the
+        program's counters over the window are ``program_counters``."""
         sim, dev = self.sim, self.device
+        self.trace = trace
         trace_at = sorted(self.traffic.get("trace_at", [])) if trace else []
         fixed = self.traffic.get("window_steps")
         n_calls = -(-int(fixed) // self.run_steps) if fixed else None
         self.stretches: list[Stretch] = []
+        tracer = port.tracer(sim) if trace else None
+        if tracer is not None:
+            tracer.drain()
+            pc0 = tracer.counters()
+            tracer.enable(spans=True)
         calls, profiled_s, builds = 0, 0.0, Builds(self.c0["builds"])
         _sync(dev)
         t0 = time.perf_counter()
@@ -160,16 +181,31 @@ class Run:
             if trace_at and (share >= trace_at[0] or done):
                 trace_at.pop(0)
                 tp = time.perf_counter()
-                self.stretches.append(_profiled(sim, self.spans, self.run_steps, dev,
-                                                self.family))
+                tracer.disable()
+                st = self.profiled()
+                tracer.enable(spans=True)
+                self.stretches.append(st)
                 profiled_s += time.perf_counter() - tp
-            else:
+                self.program_calls.append({"steps": self.run_steps, "profiled": True,
+                                           "spans_on": False, "seconds": st.wall_s,
+                                           "spans": tracer.drain()})
+            elif tracer is None:
                 with self.spans.span(RUN_SPAN):
                     sim.run(self.run_steps)
+            else:
+                tc = time.perf_counter()
+                with self.spans.span(RUN_SPAN):
+                    sim.run(self.run_steps)
+                self.program_calls.append({"steps": self.run_steps, "profiled": False,
+                                           "spans_on": True, "seconds": time.perf_counter() - tc,
+                                           "spans": tracer.drain()})
             builds.read(sim)
             calls += 1
         _sync(dev)
         self.window_t0, self.window_s = t0, time.perf_counter() - t0
+        if tracer is not None:
+            tracer.disable()
+            self.program_counters = counter_diff(tracer.counters(), pc0)
         self.steps = calls * self.run_steps
         self.peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
         found = forbidden_modules()
@@ -201,7 +237,10 @@ class Run:
         ``CHECK_MAX_STEPS`` (with ``control``, also the control's readings,
         the reference in the family's ``CONTROL`` dtype in the program's
         place, under ``"control"``). A fire is waited for where the
-        family's ``fires`` says that one comes within ``CHECK_MAX_STEPS``."""
+        family's ``fires`` says that one comes within ``CHECK_MAX_STEPS``.
+        A step counts as a replay by :func:`replayed`. A traced run's
+        marked stretch (:meth:`mark`) runs once every judged state and
+        every writer's file is read, before the program is freed."""
         sim, family = self.sim, self.family
         model = self.builder.model(self.params, self.init, self.sim_seed)
         on_graphs = port.on_graphs(sim)
@@ -210,18 +249,21 @@ class Run:
         fire_due = any(family.fires(model, t) for t in range(end["t"], end["t"] + CHECK_MAX_STEPS))
         prev, ran = end, 0
         while (len(steps) < want or fire_due) and ran < CHECK_MAX_STEPS:
-            r0 = port.counters(sim)["replays"]
+            c0 = port.counters(sim)
             sim.run(1)
             ran += 1
-            replayed = port.counters(sim)["replays"] > r0
+            ok = replayed(c0, port.counters(sim), on_graphs, port.advance_on_graphs(sim))
             cur = family.read_state(sim)
             fires = family.fires(model, prev["t"])
-            if (replayed or not on_graphs) and (len(steps) < want or (fires and fire_due)):
+            if ok and (len(steps) < want or (fires and fire_due)):
                 steps.append((prev, cur))
                 fire_due = fire_due and not fires
             prev = cur
         shortfall = max(want - len(steps), 0) + int(fire_due)
-        written = self.close()
+        written = self.read_back()
+        if self.trace:
+            self.mark()
+        self.free()
         t0 = time.perf_counter()
         L = torch.tensor(self.init["L"], dtype=torch.float64, device=self.device)
         judge = family.Judge(model, L)
@@ -252,9 +294,59 @@ class Run:
             log(f"[portbench] control (the reference in {low}): {numbers['control']}")
         return numbers
 
-    def close(self) -> dict:
-        """Free the program: its writers closed, their files read back (the
-        Table's last row, the GSD file's last frame) and removed."""
+    def profiled(self, states: bool = True) -> Stretch:
+        """One ``Simulation.run`` call under the profiler inside the
+        harness's run span, and the slot layout's sizes after it; with
+        ``states``, the family's states before and after it, cut to its
+        ``STRETCH_READS`` (``Stretch.states``; its ``stretch_work`` reads
+        them once the program is freed). The device-side copies of the
+        harness's and the program's spans are no device operation."""
+        from torch.profiler import ProfilerActivity, profile
+
+        sim, family, device = self.sim, self.family, self.device
+        before = family.read_state(sim) if states else None
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            self.spans.profiling = True
+            try:
+                with self.spans.span(RUN_SPAN):
+                    sim.run(self.run_steps)
+                    _sync(device)
+            finally:
+                self.spans.profiling = False
+        st = Stretch(prof, self.run_steps, self.spans.names | set(port.span_names()))
+        if states:
+            after = family.read_state(sim)
+            st.states = [{k: S[k] for k in family.STRETCH_READS} for S in (before, after)]
+            st.t1 = after["t"]
+        st.n_slots, st.n_occupied = port.slots(sim)
+        return st
+
+    def mark(self) -> None:
+        """The marked stretch: ``MARK_WARM_CALLS`` unprofiled calls with the
+        program's device phase marks on, then ``MARK_PROFILED_CALLS``
+        profiled ones, kept apart from the window's stretches
+        (``phase_stretches``), with the tracer's ``mark_table``. The
+        program's spans stay off, and its tracer is off after it."""
+        tracer = port.tracer(self.sim)
+        t0 = time.perf_counter()
+        tracer.enable(spans=False, marks=True)
+        try:
+            for _ in range(MARK_WARM_CALLS):
+                self.sim.run(self.run_steps)
+            self.phase_stretches = [self.profiled(states=False)
+                                    for _ in range(MARK_PROFILED_CALLS)]
+        finally:
+            tracer.disable()
+        self.mark_table = tracer.mark_table()
+        log(f"[portbench] marked stretch: {MARK_WARM_CALLS} + {MARK_PROFILED_CALLS} calls of "
+            f"{self.run_steps} steps to timestep {self.sim.timestep} in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+    def read_back(self) -> dict:
+        """The writers closed and taken off the simulation, their files read
+        back (the Table's last row, the GSD file's last frame) and
+        removed."""
         written = {}
         for w, kind, path in self.writers:
             w.close()
@@ -262,11 +354,23 @@ class Run:
                 written["table"] = outputs.table_last_row(path)
             elif kind == "GSD":
                 written["frame"] = outputs.gsd_last(path, GSD_CHUNKS)
+        if self.writers:
+            self.sim.operations.writers[:] = []
         shutil.rmtree(self.workdir, ignore_errors=True)
-        self.sim = self.writers = None
+        self.writers = []
+        return written
+
+    def free(self) -> None:
+        """Free the program."""
+        self.sim = None
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    def close(self) -> dict:
+        """:meth:`read_back`, then :meth:`free`."""
+        written = self.read_back()
+        self.free()
         return written
 
     def result(self, setup_s: float, trace: bool, numbers: dict) -> dict:
@@ -289,7 +393,10 @@ class Run:
                           counters={k: self.c1[k] - self.c0[k] for k in self.c0},
                           spans=self.spans, stretches=self.stretches,
                           program_kernels=self.program_kernels,
-                          n_types=len(self.params["types"]), roofline=manifest.roofline)
+                          n_types=len(self.params["types"]), roofline=manifest.roofline,
+                          program_calls=self.program_calls,
+                          program_counters=self.program_counters,
+                          phase_stretches=self.phase_stretches, mark_table=self.mark_table)
             for m in manifest.per_layer_of(self.bench, name):
                 value = manifest.metric_reader(m["name"])(ctx)
                 if value is not None:
@@ -346,29 +453,18 @@ def judged(numbers: dict, limits: dict, names) -> dict:
     return {k: {"value": numbers[k], "limit": limits[k]} for k in known if k in numbers}
 
 
-def _profiled(sim, spans: Spans, run_steps: int, device, family) -> Stretch:
-    """One ``Simulation.run`` call under the profiler, with the family's
-    states before and after it, cut to its ``STRETCH_READS``
-    (``Stretch.states``; its ``stretch_work`` reads them once the program
-    is freed), and the slot layout's sizes after it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    before = family.read_state(sim)
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        spans.profiling = True
-        try:
-            with spans.span(RUN_SPAN):
-                sim.run(run_steps)
-                _sync(device)
-        finally:
-            spans.profiling = False
-    after = family.read_state(sim)
-    st = Stretch(prof, run_steps, spans.names)
-    st.states = [{k: S[k] for k in family.STRETCH_READS} for S in (before, after)]
-    st.t1 = after["t"]
-    st.n_slots, st.n_occupied = port.slots(sim)
-    return st
+def replayed(before: dict, after: dict, on_graphs: bool, advance: bool) -> bool:
+    """Whether a single step, between the program's ``port.counters``
+    ``before`` and ``after``, ran as CUDA graph replays: the segment graphs
+    replayed (any step, where the program runs no segment graphs) and,
+    where the step advanced an uncoupled SRD stream on the advance graphs
+    (``advance``), those replayed too, with no advance capture and no
+    advance first sight run eagerly."""
+    if on_graphs and after["replays"] <= before["replays"]:
+        return False
+    return not advance or (after["advance_replays"] > before["advance_replays"]
+                           and after["advance_captures"] == before["advance_captures"]
+                           and after["advance_eager"] == before["advance_eager"])
 
 
 class Builds:

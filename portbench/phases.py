@@ -14,8 +14,9 @@ the benchmark's run makes them (``harness.Run``), then:
    tracer apart) and the spanned calls the host metrics read;
 2. one profiled call with spans off (the benchmark's own traced stretch)
    and one with spans on;
-3. the marked stretch: ``MARK_WARM_CALLS`` unprofiled calls with the phase
-   marks on, which see and capture the marked segment shapes, then
+3. the marked stretch as a traced run of the benchmark makes it
+   (``harness.Run.mark``): ``MARK_WARM_CALLS`` unprofiled calls with the
+   phase marks on, which see and capture the marked segment shapes, then
    ``MARK_PROFILED_CALLS`` profiled call(s) with marks on, kept apart from
    the stretches of step 2 (``Context.phase_stretches``);
 4. ``--mark-pairs`` pairs of unprofiled calls with marks on and off in
@@ -24,9 +25,10 @@ the benchmark's run makes them (``harness.Run``), then:
 
 The last line of standard output holds the per-layer metrics of the
 program's spans, counters and marks, each read by its file in
-``metrics/`` from a :class:`trace.Context` that carries what the harness's does and ``program_calls`` (each unprofiled or
-profiled call's steps and drained spans), ``program_counters`` (the
-tracer's counters over step 1), ``phase_stretches`` and ``mark_table``;
+``metrics/`` from a :class:`trace.Context` that carries what a traced
+run's does, but ``program_calls`` (each unprofiled or profiled call's
+steps and drained spans) and ``program_counters`` (the tracer's counters)
+over step 1, with spans on and off in turns;
 beside them the device time a step by phase, the share of the PyTorch
 operations' time inside a named phase, the ``az.run`` spans' self time,
 the graph cache's misses by cause, and the costs of spans and marks. A
@@ -48,12 +50,8 @@ if __name__ == "__main__":
 import torch  # noqa: E402
 
 from portbench import harness, manifest  # noqa: E402
-from portbench.trace import RUN_SPAN, Context, Stretch  # noqa: E402
+from portbench.trace import Context, counter_diff  # noqa: E402
 
-# unprofiled calls with marks on before the profiled marked one: the marked
-# segment shapes' first sights and captures fall in them
-MARK_WARM_CALLS = 2
-MARK_PROFILED_CALLS = 1
 # the metrics of this file's Context, each read by its file in metrics/
 METRICS = ("churn_ms_per_step", "host_ms_per_step", "discarded_steps_pct", "rebin_ms_per_step",
            "forces_torch_ms_per_step", "step2_torch_ms_per_step", "updaters_torch_ms_per_step")
@@ -173,31 +171,6 @@ def span_ns(n: int = 20000) -> float:
     return (time.perf_counter_ns() - t0) / (2 * n)
 
 
-def _profiled(run, annotations: set) -> Stretch:
-    """One ``Simulation.run`` call under the profiler inside the harness's
-    run span; the device copies of the program's spans are no operation."""
-    from torch.profiler import ProfilerActivity, profile
-
-    dev = run.device
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        run.spans.profiling = True
-        try:
-            with run.spans.span(RUN_SPAN):
-                run.sim.run(run.run_steps)
-                _sync(dev)
-        finally:
-            run.spans.profiling = False
-    st = Stretch(prof, run.run_steps, annotations)
-    st.n_slots, st.n_occupied = harness.port.slots(run.sim)
-    return st
-
-
-def _diff(now: dict, was: dict) -> dict:
-    return {g: {k: v - was.get(g, {}).get(k, 0) for k, v in d.items()
-                if v != was.get(g, {}).get(k, 0)} for g, d in now.items()}
-
-
 def _pairs(rates: list[float]) -> list[list[float]]:
     """(on, off) steps/s of consecutive calls, on first."""
     return [rates[i:i + 2] for i in range(0, len(rates) - 1, 2)]
@@ -226,9 +199,6 @@ def measure(run, calls: int, mark_pairs: int = 2) -> dict:
     tracer = getattr(sim, "tracer", None)
     if tracer is None:
         raise NoTracer("the program has no Simulation.tracer")
-    from azplugins_tpu_torch.trace import SPANS
-
-    annotations = set(run.spans.names) | {RUN_SPAN} | set(SPANS)
     program_calls, span_rates = [], []
     c0 = tracer.counters()
     t_first = sim.timestep
@@ -242,18 +212,14 @@ def measure(run, calls: int, mark_pairs: int = 2) -> dict:
     c1 = tracer.counters()
     window = (t_first, sim.timestep)
     tracer.disable()
-    plain = _profiled(run, annotations)
+    plain = run.profiled(states=False)
     tracer.enable(spans=True)
-    spanned = _profiled(run, annotations)
+    spanned = run.profiled(states=False)
     program_calls.append({"steps": steps, "profiled": True, "spans_on": True,
                           "seconds": spanned.wall_s, "spans": tracer.drain()})
-    tracer.enable(spans=True, marks=True)
     m0 = tracer.counters()
-    for _ in range(MARK_WARM_CALLS):
-        sim.run(steps)
-    marked = [_profiled(run, annotations) for _ in range(MARK_PROFILED_CALLS)]
+    run.mark()
     m1 = tracer.counters()
-    tracer.drain()
     mark_rates = []
     for k in range(2 * mark_pairs):
         tracer.enable(spans=False, marks=k % 2 == 0)
@@ -261,12 +227,13 @@ def measure(run, calls: int, mark_pairs: int = 2) -> dict:
         mark_rates.append((steps / seconds, ran / seconds))
     tracer.disable()
     ctx = Context(cell=run.cell, params=run.params, traffic=run.traffic, steps=calls * steps,
-                  program_calls=program_calls, program_counters=_diff(c1, c0),
-                  stretches=[plain], phase_stretches=marked, mark_table=tracer.mark_table(),
+                  program_calls=program_calls, program_counters=counter_diff(c1, c0),
+                  stretches=[plain], phase_stretches=run.phase_stretches,
+                  mark_table=run.mark_table,
                   program_kernels=run.program_kernels, n_types=len(run.params["types"]),
                   roofline=manifest.roofline)
     return report(ctx, window=window, spanned=spanned, span_rates=span_rates,
-                  mark_rates=mark_rates, marked_counters=_diff(m1, m0))
+                  mark_rates=mark_rates, marked_counters=counter_diff(m1, m0))
 
 
 def _by_phase(ctx) -> dict:

@@ -5,9 +5,12 @@ The harness takes from the program only the system under test (its public
 hand-written kernels. The reads that go through private attributes are
 here and nowhere else: the slot layout (``Simulation._dense``, whose
 ``net_force`` is the conservative force the step computed), the CUDA
-graph counters (``Simulation._graph_totals``), whether the graphs apply
-(``Simulation._graphs_apply``), the grid's cell capacity and the MPCD
-solvent stream (``Simulation._whole_mpcd``).
+graph counters of the segment graphs and of the SRD advance graphs
+(``Simulation._graph_totals``, ``Simulation._advance_totals``), whether
+each applies (``Simulation._graphs_apply``,
+``Simulation._advance_graphs_apply``), the grid's cell capacity and the
+MPCD solvent stream (``Simulation._whole_mpcd``). The program's tracer is
+public (``Simulation.tracer``): its spans, counters and phase marks.
 """
 
 from __future__ import annotations
@@ -102,16 +105,40 @@ def slots(sim) -> tuple[int, int]:
 
 
 def counters(sim) -> dict:
-    """Grid builds and the CUDA graph cache's captures, replays and segments
-    run eagerly, since the layout was made (one host read)."""
-    g = sim._graph_totals
+    """Grid builds and the segment graph cache's captures, replays and
+    segments run eagerly, since the layout was made (one host read); and
+    the SRD advance graphs' captures, replays and first sights run eagerly
+    (``advance_*``; 0 where the program holds no advance graphs)."""
+    g, a = sim._graph_totals, sim._advance_totals
     return {"builds": sim.n_builds, "captures": g.get("captures", 0),
-            "replays": g.get("replays", 0), "eager_segments": g.get("eager_segments", 0)}
+            "replays": g.get("replays", 0), "eager_segments": g.get("eager_segments", 0),
+            "advance_captures": a.get("captures", 0), "advance_replays": a.get("replays", 0),
+            "advance_eager": a.get("eager_segments", 0)}
 
 
 def on_graphs(sim) -> bool:
     """Whether the program runs its rebuild segments as CUDA graphs."""
     return bool(sim._graphs_apply())
+
+
+def advance_on_graphs(sim) -> bool:
+    """Whether the program advances an uncoupled SRD stream on its advance
+    graphs."""
+    return bool(sim._advance_graphs_apply())
+
+
+def tracer(sim):
+    """The program's tracer (``Simulation.tracer``): host spans, counters
+    and device phase marks, off until enabled."""
+    return sim.tracer
+
+
+def span_names() -> tuple[str, ...]:
+    """Every span the program's run loop records: under a profiler each is
+    a range, whose device-side copy is no device operation."""
+    from azplugins_tpu_torch.trace import SPANS
+
+    return SPANS
 
 
 def cell_cap(sim) -> int | None:

@@ -1,6 +1,10 @@
 import pytest
 import torch
 
+from portbench import manifest
+
+from ._small import FAMILIES
+
 
 @pytest.fixture(autouse=True, scope="session")
 def _few_threads():
@@ -11,3 +15,9 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture
+def files(monkeypatch):
+    """The benchmark's files found in ``families/`` (``_small.SOLVENT``'s)."""
+    monkeypatch.setattr(manifest, "HERE", FAMILIES)

@@ -14,6 +14,9 @@ REFERENCE = "solvent"
 SOURCE = "https://github.com/glotzerlab/hoomd-blue (hoomd.mpcd: an SRD solvent)"
 ASSUMED = ["solvent positions uniform in the box and momenta Maxwell-Boltzmann, from the seed"]
 REDUCED: list[str] = []
+# the CPU tests' size (portbench/tests/_small.py): traffic overrides,
+# configuration overrides
+SMALL = ({"n_particles": 1000}, {})
 
 
 def initial_state(p: dict, traffic: dict, gen) -> dict:

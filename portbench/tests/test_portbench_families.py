@@ -5,23 +5,22 @@ family; a family and a configuration kept beside this test, in
 and a number without a limit, or a limit without a number, fails the run."""
 
 import time
-from pathlib import Path
 
 import pytest
 import torch
 
 from azplugins_tpu_torch.mpcd import SRD
-from portbench import harness, manifest
+from portbench import harness, manifest, port
 from portbench.reference import md
 
-from ._small import BENCH, SMALL
+from ._small import BENCH, SMALL, SOLVENT
 
 SEED = 987654321987
 # Run.check(control=True) at _small.py's sizes and SEED on two threads, the
 # time-windowed cell's window fixed at 40 steps, as float.hex: taken under
 # torch 2.13.0+cpu from the reference before it became the family md
 TORCH = "2.13.0+cpu"
-WINDOW = {"plj_langevin.n262k": {"window_steps": 40}, "droplet_evaporation.n20k": {}}
+WINDOW = {"plj_langevin.n262k": {"window_steps": 40}, "droplet_evaporation.n20k.late": {}}
 BITS = {
     "plj_langevin.n262k": {
         "force_gap": "0x1.a2ca355b6c29cp-21",
@@ -38,7 +37,7 @@ BITS = {
             "type_mismatches": "0x0.0p+0",
         },
     },
-    "droplet_evaporation.n20k": {
+    "droplet_evaporation.n20k.late": {
         "force_gap": "0x1.226241ee75638p-20",
         "accel_gap": "0x1.cee544d552f78p-21",
         "position_gap": "0x1.f0ee020404bc8p-16",
@@ -54,17 +53,6 @@ BITS = {
         },
     },
 }
-
-FAMILIES = Path(__file__).resolve().parent / "families"
-# a benchmark of one cell whose files lie in families/: configs/idle_srd.*
-# (REFERENCE "solvent"), traffic/stream2k.json, limits/idle_srd.stream2k.json
-# and reference/solvent.py
-SOLVENT = {"configs": [{"name": "idle_srd",
-                        "file": str((FAMILIES / "configs" / "idle_srd.json")
-                                    .relative_to(manifest.ROOT))}],
-           "workloads": [{"name": "idle_srd.stream2k", "config": "idle_srd",
-                          "traffic": "stream2k", "chips": 1}],
-           "end_to_end": [], "per_layer": []}
 
 
 def _hex(numbers: dict) -> dict:
@@ -84,10 +72,70 @@ def test_the_family_md_reads_the_bits_of_the_reference_before_it(cell):
     assert _hex(r.check(control=True)) == BITS[cell]
 
 
-@pytest.fixture
-def files(monkeypatch):
-    """The benchmark's files found in families/, beside this test."""
-    monkeypatch.setattr(manifest, "HERE", FAMILIES)
+@pytest.mark.parametrize("cell", list(BITS))
+def test_the_tracer_and_the_marked_stretch_move_no_judged_bit(cell):
+    """The same window traced (its second call profiled, the program's
+    spans over the first, its counters over both) and the marked stretch
+    after the check's reads: the same bits."""
+    if torch.__version__ != TORCH:
+        pytest.skip(f"the bits were taken under torch {TORCH}, not {torch.__version__}")
+    w = manifest.workload(BENCH, cell)
+    traffic, params = SMALL[w["config"]]
+    r = harness.Run(BENCH, w, SEED, torch.device("cpu"),
+                    {**traffic, **WINDOW[cell], "trace_at": [0.5]}, params)
+    r.warm_up()
+    r.window(600.0, trace=True)
+    numbers = r.check(control=True)
+    assert [c["profiled"] for c in r.program_calls] == [False, True]
+    assert len(r.stretches) == 1 and len(r.phase_stretches) == harness.MARK_PROFILED_CALLS
+    assert r.mark_table and r.program_counters["chunk_ends"]
+    assert _hex(numbers) == BITS[cell]
+
+
+class _Graph:
+    """A stand-in CUDA graph: a replay runs the captured body again, the
+    runner's counters held as a replay holds them."""
+
+    def __init__(self, runner, fn):
+        self.runner, self.fn = runner, fn
+
+    def replay(self):
+        before = self.runner._counters.read()
+        self.fn()
+        self.runner._counters.restore(before)
+
+
+def _capture(runner, fn):
+    """A stand-in for a CUDA capture on the CPU: the body's Python runs, its
+    buffers are left as they were (the captured work has not run)."""
+    saved = [b.clone() for b in runner.buffers()]
+    fn()
+    for b, v in zip(runner.buffers(), saved, strict=True):
+        b.copy_(v)
+    return _Graph(runner, fn)
+
+
+def test_a_judged_step_whose_srd_advance_ran_eagerly_is_no_replay(files, monkeypatch):
+    """On stand-in graphs each single step of the check replays its segment
+    graph but sees a new observation stream of the SRD advance (``("stream",
+    n)``, n steps from the last collision), which runs eagerly: no step is
+    judged, and ``replay_shortfall`` reads every step wanted."""
+    monkeypatch.setattr(harness, "CHECK_MAX_STEPS", 8)
+    r = harness.Run(SOLVENT, SOLVENT["workloads"][0], 2**40 + 5, torch.device("cpu"))
+    sim = r.sim
+    sim._capture = _capture
+    r.warm_up()
+    r.window(600.0, trace=False)
+    assert port.on_graphs(sim) and port.advance_on_graphs(sim)
+    before = port.counters(sim)
+    numbers = r.check()
+    after = port.counters(sim)
+    assert after["replays"] - before["replays"] >= 6
+    assert after["advance_eager"] - before["advance_eager"] == 8
+    assert numbers["replay_shortfall"] == int(r.traffic["check_steps"]) == 3
+    r = r.result(1.0, False, numbers)
+    assert r["correct"] is False
+    assert r["checked"]["replay_shortfall"] == {"value": 3, "limit": 0}
 
 
 def _solvent(control: bool = False) -> dict:

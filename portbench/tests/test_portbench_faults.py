@@ -11,7 +11,7 @@ from azplugins_tpu_torch import simulation
 
 from ._small import run
 
-CELLS = ["plj_langevin.n64k", "droplet_evaporation.n20k", "plj_langevin.n64k.logged"]
+CELLS = ["plj_langevin.n64k", "droplet_evaporation.n20k.late", "plj_langevin.n64k.logged"]
 
 
 def _unchanged(monkeypatch):

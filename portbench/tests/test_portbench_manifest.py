@@ -9,7 +9,7 @@ import pytest
 
 from portbench import harness, manifest, port
 
-from ._small import SHELVED
+from ._small import SHELVED, SOLVENT, run
 
 BENCH = manifest.load()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -164,32 +164,50 @@ def test_every_moves_is_reported_by_each_of_its_cells():
             assert m["moves"] in {e["name"] for e in manifest.end_to_end_of(BENCH, cell)}
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
-def test_each_cell_finds_its_files_by_name(cell):
-    w = manifest.workload(BENCH, cell)
-    params = manifest.config_params(BENCH, w["config"])
+def finds_its_files(bench: dict, cell: str) -> dict:
+    """``cell`` of ``bench`` finds each of its files by name, its limits are
+    its family's (each a number the family reports, or
+    ``replay_shortfall``, which each cell has), and a small CPU run of it
+    judges every number it reports (else :class:`harness.Unjudged`);
+    returns that run's result."""
+    w = manifest.workload(bench, cell)
+    params = manifest.config_params(bench, w["config"])
     builder = manifest.config_builder(w["config"])
     for attr in ("SOURCE", "ASSUMED", "REDUCED", "initial_state", "build", "model"):
         assert hasattr(builder, attr)
-    assert builder.SOURCE == manifest.config_entry(BENCH, w["config"])["source"]
-    assert builder.REDUCED == manifest.config_entry(BENCH, w["config"])["reduced"]
+    assert builder.SOURCE == manifest.config_entry(bench, w["config"])["source"]
+    assert builder.REDUCED == manifest.config_entry(bench, w["config"])["reduced"]
     assert params["types"]
     traffic = manifest.traffic(w["traffic"])
     for key in ("n_particles", "run_steps", "warmup_calls", "check_steps", "trace_at"):
         assert key in traffic
     limits = manifest.limits(cell)
-    assert set(limits) >= {"force_gap", "accel_gap", "position_gap", "velocity_gap",
-                           "type_mismatches"}
     family = manifest.reference(w)
     for attr in ("NUMBERS", "CONTROL", "STRETCH_READS", "snapshot", "read_state", "Judge",
                  "fires", "stretch_work"):
         assert hasattr(family, attr)
-    assert set(limits) <= {*family.NUMBERS, "replay_shortfall"}
-    for m in manifest.per_layer_of(BENCH, cell):
+    assert harness.SHORTFALL in limits
+    assert set(limits) <= {*family.NUMBERS, harness.SHORTFALL}
+    for m in manifest.per_layer_of(bench, cell):
         assert callable(manifest.metric_reader(m["name"]))
-    for m in manifest.end_to_end_of(BENCH, cell):
+    for m in manifest.end_to_end_of(bench, cell):
         assert m["name"] == "setup_s" or manifest.end_to_end_reader(m["name"])(
             {"steps": 3000, "seconds": 1.5, "setup_s": 9.0}) == 2000.0
+    result = run(cell, bench=bench)
+    assert set(result["checked"]) - {harness.SHORTFALL}
+    return result
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_each_cell_finds_its_files_by_name(cell):
+    finds_its_files(BENCH, cell)
+
+
+def test_a_cell_of_another_family_finds_its_files_by_name(files):
+    """A solvent cell (``_small.SOLVENT``, its family ``solvent`` in
+    ``tests/families/``) needs limits only for its own family's numbers."""
+    result = finds_its_files(SOLVENT, "idle_srd.stream2k")
+    assert list(result["checked"]) == ["solvent_position_gap", "replay_shortfall"]
 
 
 def test_a_metric_without_a_file_of_its_own_is_read_by_its_base_name():

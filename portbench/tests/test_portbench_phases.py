@@ -15,7 +15,7 @@ from portbench.trace import RUN_SPAN, Context, Stretch
 from ._small import BENCH, SMALL, run
 from .test_portbench_trace import CPU, CUDA, K1, SORT, STEP2, _Event, _Prof
 
-DROPLET = "droplet_evaporation.n20k"
+DROPLET = "droplet_evaporation.n20k.late"
 NEW = ("churn_ms_per_step", "host_ms_per_step", "discarded_steps_pct", "rebin_ms_per_step",
        "forces_torch_ms_per_step", "step2_torch_ms_per_step", "updaters_torch_ms_per_step")
 
@@ -106,12 +106,31 @@ def test_the_phase_readers_on_a_made_up_marked_trace():
 
 
 def test_the_new_readers_find_nothing_in_the_harness_context():
-    """The harness's own context carries no program spans, counters or
-    marks: every new reader returns None, and raises nothing."""
+    """A bare context, built here without the program's spans, counters or
+    marks (the harness's own context carries the tracer's): every new
+    reader returns None, and raises nothing."""
     ctx = Context(stretches=[_marked()], program_kernels=port.kernel_pattern(port.kernel_names()),
                   steps=1000, counters={"builds": 1})
     for name in NEW:
         assert manifest.metric_reader(name)(ctx) is None, name
+
+
+@pytest.mark.parametrize("cell", ["plj_langevin.n262k", DROPLET])
+def test_a_traced_run_reads_the_programs_tracer(cell):
+    """A traced small run reports each new entry of the cell that the CPU
+    can read (the program's spans and counters); the marks' readers find
+    no device trace on the CPU, where a mark is its count alone, and their
+    entries are left out."""
+    new = {m["name"] for m in manifest.per_layer_of(BENCH, cell)
+           if m["name"].split(".")[0] in NEW}
+    res = run(cell, trace=True, seconds=600.0 if cell == DROPLET else 0.2)
+    assert res["correct"] is True
+    host = {n for n in new if n.split(".")[0] in
+            ("churn_ms_per_step", "host_ms_per_step", "discarded_steps_pct")}
+    assert len(host) == 3 and host <= set(res["metrics"])
+    assert all(res["metrics"][n]["value"] >= 0 for n in host)
+    assert next(res["metrics"][n]["value"] for n in host if n.startswith("host_")) > 0
+    assert not (new - host) & set(res["metrics"])
 
 
 def _small_run(window_steps=50):
@@ -150,8 +169,8 @@ def test_the_marked_stretch_leaves_the_traced_stretches_and_their_readings():
     assert out["metrics"]["discarded_steps_pct"] is not None
     assert out["metrics"]["rebin_ms_per_step"] is None
     marked = out["marked_counters"]["marks"]
-    assert marked["integrate_step1"] == (phases.MARK_WARM_CALLS + phases.MARK_PROFILED_CALLS) \
-        * r.run_steps
+    assert marked["integrate_step1"] == (
+        harness.MARK_WARM_CALLS + harness.MARK_PROFILED_CALLS) * r.run_steps
     r.close()
 
 

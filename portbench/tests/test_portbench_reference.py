@@ -10,7 +10,7 @@ from portbench.reference import md, physics, threefry
 
 from ._small import run
 
-CELLS = ["plj_langevin.n64k", "droplet_evaporation.n20k", "plj_langevin.n64k.logged"]
+CELLS = ["plj_langevin.n64k", "droplet_evaporation.n20k.late", "plj_langevin.n64k.logged"]
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -10,7 +10,7 @@ from portbench import harness, manifest, port
 
 from ._small import BENCH, SMALL, run
 
-DROPLET = "droplet_evaporation.n20k"
+DROPLET = "droplet_evaporation.n20k.late"
 
 
 @pytest.mark.parametrize("seconds, steps", [(600.0, 75), (1e-9, 25)])
@@ -41,6 +41,28 @@ def test_judged_steps_that_are_no_replays_on_the_graphs_are_not_correct(monkeypa
     assert r["correct"] is False
     # the three steps to judge and the evaporator's fire
     assert r["checked"]["replay_shortfall"] == {"value": 4, "limit": 0}
+
+
+def _counts(replays=0, a_replays=0, a_captures=0, a_eager=0):
+    return {"replays": replays, "advance_replays": a_replays, "advance_captures": a_captures,
+            "advance_eager": a_eager}
+
+
+@pytest.mark.parametrize("after, on_graphs, advance, ok", [
+    (_counts(replays=1), True, False, True),
+    (_counts(), True, False, False),
+    # no segment graphs: any step
+    (_counts(), False, False, True),
+    # the SRD advance on its graphs: replayed, and nothing captured or run eagerly
+    (_counts(replays=1, a_replays=2), True, True, True),
+    (_counts(a_replays=1), False, True, True),
+    (_counts(replays=1), True, True, False),
+    (_counts(replays=1, a_replays=1, a_eager=1), True, True, False),
+    (_counts(replays=1, a_replays=1, a_captures=1), True, True, False),
+    (_counts(a_replays=1), True, True, False),
+])
+def test_a_step_is_a_replay_where_every_graph_it_ran_replayed(after, on_graphs, advance, ok):
+    assert harness.replayed(_counts(), after, on_graphs, advance) is ok
 
 
 def test_the_check_runs_on_to_a_step_on_which_the_evaporator_fires(monkeypatch):

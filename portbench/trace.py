@@ -5,7 +5,10 @@ Spans are the harness's own, around its calls into the program: each
 run profiles whole ``Simulation.run`` calls of the window ("stretches")
 with ``torch.profiler``; the device operations, their union and the idle
 gaps between them come from that trace, each gap named by the harness span
-and the host operation open when it began.
+and the host operation open when it began. A ``--trace 1`` run also reads
+the program's own tracer (``Simulation.tracer``): its spans over the
+window's unprofiled calls, its counters over the window, and its device
+phase marks in a marked stretch after the check.
 """
 
 from __future__ import annotations
@@ -141,7 +144,12 @@ class Context:
     """What a per-layer metric's reader reads: the cell, its configuration
     and traffic, the window's steps, seconds and counters, the harness's
     spans, the traced stretches (each with its layout's sizes and pairs
-    inside the cutoff) and the program's kernel names."""
+    inside the cutoff) and the program's kernel names; and from the
+    program's tracer ``program_calls`` (each window call's ``steps``,
+    ``profiled``, ``spans_on``, ``seconds`` and drained ``spans``),
+    ``program_counters`` (its counters over the window,
+    :func:`counter_diff`), ``phase_stretches`` (the marked stretch's
+    profiled calls) and ``mark_table`` (each mark id's phase)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -174,6 +182,13 @@ class Context:
                 n += 1
                 s += (b - a) * 1e-9
         return n, s
+
+
+def counter_diff(now: dict, was: dict) -> dict:
+    """The program's counters (``Tracer.counters()``, a dict of groups) that
+    moved from ``was`` to ``now``, by how much."""
+    return {g: {k: v - was.get(g, {}).get(k, 0) for k, v in d.items()
+                if v != was.get(g, {}).get(k, 0)} for g, d in now.items()}
 
 
 def breakdown(stretches: list[Stretch], top: int = 10) -> dict:
